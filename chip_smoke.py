@@ -23,16 +23,43 @@ Phases, one JSON line each:
    ``build_train_step``, batch 16 x seq 1024, 2 warm-up + 5 timed steps.
    Launch counters are zeroed just before and read just after; each
    kernel must have run 8 layers x 7 steps times.
+6. ``ring_kernels`` — K4 ``ring_flash_fwd``, K5 ``ring_flash_bwd``, K6
+   ``ring_permute`` and K7 ``phase_closer`` on a ring of 4 members
+   co-located on the card (``RingMesh``, one stream each), shard
+   (4, 8, 1024, 64): K4 and K5 in bf16 and f32 on diagonal, wholly
+   visible and wholly masked steps, rotating and not, against their plain
+   versions (POS_BIG lse rows must match, masked outputs be exactly 0),
+   the rotated K/V in the neighbours' slots bit for bit; K5 at zero
+   offsets without rotation at the main shape as B2's counterpart, timed
+   beside K2 + K3; K6 bit-exact at shift +1 and -1 with its VJP; K7's zero
+   block, and every flag word back at 0 after a fused forward + backward.
+   Times of each kernel, its plain version and its library yardstick.
+7. ``ring_model`` — a small f32 LM sequence-parallel over 4 members in the
+   fused, rdma and ppermute modes against the unsharded model on the same
+   weights and tokens: logits and every gradient to 1e-4, and the launch
+   counts each mode implies.
+8. ``ring_train`` — the slice's path at full width: the same bench-width
+   LM sequence-parallel over 4 members (``RING_HEADLINE``), batch 4 x seq
+   4096, fused ring, 2 warm-up + 5 timed steps; counters zeroed just
+   before and read just after, which must equal, per member, layer and
+   step, K4 n, K5 n and K7 2 (n = 4 is even).  Then ``ring_train_rdma``:
+   two steps of the rdma ring at the same width, K6 2(n-1) forward +
+   2(n-1) backward per member and layer.
 
-Then the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` line, and last
-``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
-non-zero and prints no result line.  Tolerances
+Then the ``{"kernels": [...]}`` summary (K1-K7), the ``nvidia-smi`` line,
+and last ``{"ok": true, "device": {...}}``.  Any failure raises: the
+script exits non-zero and prints no result line.  Tolerances
 (``horovod_tpu_torch/ops/kernel_check.py``, which gives the reasons):
 every element within rtol * (|ref| + rms of its row + rms(ref) / 16) of
 a plain version that rounds p and ds to the storage dtype where the
-kernels do; rtol is two units in the last place for 16-bit outputs
-(bf16 0.0156, fp16 0.00195) and 1e-4 for float32 outputs and lse
-(summation order only).
+kernels do; rtol is two units in the last place for 16-bit outputs and
+for K5's f32 partials of 16-bit inputs (bf16 0.0156, fp16 0.00195) and
+1e-4 for float32 outputs of float32 inputs and lse (summation order
+only).
+
+The members of a ring all sit on this one card: the run shows the ring's
+kernels, handshakes and numbers, not the memory per member falling as
+O(seq/n) or NVLink transfer times.
 """
 
 from __future__ import annotations
@@ -58,7 +85,11 @@ from horovod_tpu_torch.models import TransformerLM, next_token_loss  # noqa
 from horovod_tpu_torch.ops import _build  # noqa: E402
 from horovod_tpu_torch.ops import attention as A  # noqa: E402
 from horovod_tpu_torch.ops import kernel_check  # noqa: E402
-from horovod_tpu_torch.torch.lm_step import HEADLINE, build_lm_step  # noqa
+from horovod_tpu_torch.ops import rdma  # noqa: E402
+from horovod_tpu_torch.ops import ring_flash as RF  # noqa: E402
+from horovod_tpu_torch.parallel import RingMesh  # noqa: E402
+from horovod_tpu_torch.torch.lm_step import (HEADLINE,  # noqa: E402
+                                             RING_HEADLINE, build_lm_step)
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -70,15 +101,25 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
               torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
 MAIN = (16, 8, 1024, 64)  # batch, heads, seq, head_dim of the LM step
+RING = (4, 8, 1024, 64)  # one member's shard on the ring path (4 members)
+N_MEMBERS = 4
 REPLACES = {
     "flash_fwd": "horovod_tpu/ops/attention.py:356",
     "flash_bwd_dkdv": "horovod_tpu/ops/attention.py:429",
     "flash_bwd_dq": "horovod_tpu/ops/attention.py:465",
+    "ring_flash_fwd": "horovod_tpu/ops/ring_flash.py:78",
+    "ring_flash_bwd": "horovod_tpu/ops/attention.py:498",
+    "ring_permute": "horovod_tpu/ops/rdma.py:103",
+    "phase_closer": "horovod_tpu/ops/ring_flash.py:286",
 }
 SOURCES = {
     "flash_fwd": "horovod_tpu_torch/ops/csrc/flash_fwd.cu",
     "flash_bwd_dkdv": "horovod_tpu_torch/ops/csrc/flash_bwd.cu",
     "flash_bwd_dq": "horovod_tpu_torch/ops/csrc/flash_bwd.cu",
+    "ring_flash_fwd": "horovod_tpu_torch/ops/csrc/ring_flash.cu",
+    "ring_flash_bwd": "horovod_tpu_torch/ops/csrc/ring_flash.cu",
+    "ring_permute": "horovod_tpu_torch/ops/csrc/ring_permute.cu",
+    "phase_closer": "horovod_tpu_torch/ops/csrc/ring_permute.cu",
 }
 
 
@@ -116,6 +157,16 @@ def bound_ms(flops, nbytes, dtype):
     t_ops = flops / PEAK_FLOPS[dtype]
     t_mem = nbytes / PEAK_BYTES
     return max(t_ops, t_mem) * 1e3, "operations" if t_ops >= t_mem else "bytes"
+
+
+def _entry(name, ms, plain_ms, library_ms, flops, nbytes, dtype, err,
+           **extra):
+    bms, by = bound_ms(flops, nbytes, dtype)
+    return {"name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": None,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": library_ms,
+            "flops": flops, "bytes": nbytes, **extra}
 
 
 def kernel_inputs(shape, dtype, seed):
@@ -212,16 +263,9 @@ def phase_kernels():
                "flash_bwd_dq": ("dq",)}
     err = {n: max(main_errs[o]["max_abs_err"] for o in outs)
            for n, outs in outputs.items()}
-    entries = {}
-    for name in ms:
-        bms, by = bound_ms(*work[name], dtype)
-        entries[name] = {"name": name, "route": "cuda",
-                         "source": SOURCES[name], "replaces": REPLACES[name],
-                         "launches": None, "max_abs_err": err[name],
-                         "ms": ms[name], "plain_ms": plain[name],
-                         "bound_ms": bms, "bound_by": by,
-                         "library_ms": lib[name],
-                         "flops": work[name][0], "bytes": work[name][1]}
+    entries = {name: _entry(name, ms[name], plain[name], lib[name],
+                            *work[name], dtype, err[name])
+               for name in ms}
     emit("kernels", cases=results, shape=list(MAIN), dtype=str(dtype),
          timing={n: {k: e[k] for k in ("ms", "plain_ms", "bound_ms",
                                        "bound_by", "library_ms")}
@@ -297,6 +341,327 @@ def phase_train():
     return launched
 
 
+def _worst(rows):
+    return max(e["worst"] for r in rows for e in r["errors"].values())
+
+
+def _max_err(rows, names):
+    return max(r["errors"][n]["max_abs_err"] for r in rows for n in names)
+
+
+def phase_ring_kernels(k2k3_ms):
+    """K4-K7 held against their plain versions (``kernel_check``), timed,
+    and K5 at zero offsets without rotation held as B2's counterpart."""
+    cases, rows_by = [], {}
+    for dtype in (torch.bfloat16, torch.float32):
+        mesh = RingMesh(N_MEMBERS)
+        members, _, scale_r = kernel_check.ring_inputs(N_MEMBERS, RING,
+                                                       dtype, 0)
+        # t=0: every member on the diagonal; t=1: member 0 wholly masked,
+        # the others wholly visible; t=n-1 without rotation: masked but
+        # for the last member.  Rotating and non-rotating variants.
+        for t, rotate in ((0, True), (1, True), (0, False),
+                          (N_MEMBERS - 1, False)):
+            rows = kernel_check.hold_ring_round(mesh, members, t, scale_r,
+                                                rotate=rotate)
+            balanced = mesh.flags_balanced()
+            slots = all(r.get("slot_exact", True) for r in rows)
+            ok = _worst(rows) <= 1.0 and balanced and slots
+            cases.append({"dtype": str(dtype), "step": t, "rotate": rotate,
+                          "kinds": [r["kind"] for r in rows],
+                          "worst": _worst(rows), "slots_exact": slots,
+                          "flags_balanced": balanced, "ok": ok})
+            rows_by.setdefault(dtype, []).extend(rows)
+            if not ok:
+                emit("ring_kernels", cases=cases, failed=rows)
+                fail(f"ring kernel disagrees with its plain version: "
+                     f"{cases[-1]}")
+    bf16_rows = rows_by[torch.bfloat16]
+
+    # K5 as B2: zero offsets, no rotation, input-dtype gradients, dq times
+    # the pow2 factor in f32, at the main path's shape.
+    mesh1 = RingMesh(1)
+    q, qr, k, v, do, p2, scale_r = kernel_inputs(MAIN, torch.bfloat16, 2)
+    ref, delta = kernel_check.plain_outputs(qr, k, v, do, True, scale_r, p2)
+
+    def b2():
+        return RF.ring_flash_bwd(mesh1, 0, qr, k, v, do, ref["lse"], delta,
+                                 0, 0, scale_r, True,
+                                 grad_dtype=torch.bfloat16, dq_scale=p2)
+    dk, dv, dq = b2()
+    b2_err = {n: kernel_check.compare(g, ref[n])
+              for n, g in (("dq", dq), ("dk", dk), ("dv", dv))}
+    if max(e["worst"] for e in b2_err.values()) > 1.0:
+        fail(f"K5 as B2 disagrees with the plain backward: {b2_err}")
+    b2_ms = time_ms(b2)
+
+    # K6: bit-exact rotations by +1 and -1, and the VJP (rotation by -1 on
+    # the flipped namespace).
+    mesh = RingMesh(N_MEMBERS)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    shard = (RING[0] * RING[1], RING[2], RING[3])
+    xs = [torch.randn(shard, device="cuda", generator=g).to(torch.bfloat16)
+          for _ in range(N_MEMBERS)]
+    exact = {}
+    for shift in (1, -1):
+        outs = rdma.permute_shards(xs, mesh, shift, 0)
+        torch.cuda.synchronize()
+        exact[shift] = all(torch.equal(outs[(i + shift) % N_MEMBERS], x)
+                           for i, x in enumerate(xs))
+    xg = [x.clone().requires_grad_() for x in xs]
+    ws = [torch.randn(shard, device="cuda", generator=g).to(torch.bfloat16)
+          for _ in range(N_MEMBERS)]
+    rot = rdma.ring_permute(xg, mesh, 1, 2)
+    grads = torch.autograd.grad(rot, xg, ws)
+    exact["vjp"] = all(torch.equal(grads[i], ws[(i + 1) % N_MEMBERS])
+                       for i in range(N_MEMBERS))
+    k6_ok = all(exact.values()) and mesh.flags_balanced()
+
+    # K7: zero blocks, and every flag back in balance after a full fused
+    # forward + backward (which closes each pass with K7 on an even ring).
+    caller = mesh.fork()
+    zeros = RF.launch_round(mesh, RF.phase_closer, [{}] * N_MEMBERS)
+    mesh.join(caller)
+    torch.cuda.synchronize()
+    k7_zero = all(bool((z == 0).all()) for z in zeros)
+    ring_qkv = [[m[n].reshape(RING).clone().requires_grad_()
+                 for m in members] for n in ("qr", "k", "v")]
+    outs = RF.fused_ring_attention(*ring_qkv, mesh, causal=True)
+    torch.autograd.grad(outs, [t for ts in ring_qkv for t in ts],
+                        [torch.ones_like(o) for o in outs])
+    torch.cuda.synchronize()
+    k7_ok = k7_zero and mesh.flags_balanced()
+    if not (k6_ok and k7_ok):
+        fail(f"K6/K7 check failed: K6 {exact}, K7 zeros {k7_zero}, "
+             f"flags {mesh.flags.tolist()}")
+
+    # Times at the ring path's shape, bf16: K4 and K5 on a wholly visible
+    # step (the heaviest kind), one launch without rotation; a rotating
+    # round of all members beside it.  K6 and K7: one round of all members.
+    dtype = torch.bfloat16
+    members, _, scale_r = kernel_check.ring_inputs(N_MEMBERS, RING, dtype, 1)
+    m0, m1 = members[0], members[1]
+    sl = RING[2]
+    ref, delta = kernel_check.ring_plain_step(m1["qr"], m0["k"], m0["v"],
+                                              m1["do"], sl, 0, True, scale_r)
+    t_k4 = time_ms(lambda: RF.ring_flash_fwd(
+        mesh, 1, m1["qr"], m0["k"], m0["v"], sl, 0, scale_r, True))
+    t_k5 = time_ms(lambda: RF.ring_flash_bwd(
+        mesh, 1, m1["qr"], m0["k"], m0["v"], m1["do"], ref["lse"], delta,
+        sl, 0, scale_r, True))
+    t_k4_plain = time_ms(lambda: A._blockwise_fwd_impl(
+        m1["qr"], m0["k"], m0["v"], True, scale_r,
+        block_size=kernel_check.TILE, q_offset=sl, k_offset=0),
+        warmup=1, iters=5)
+    t_k5_plain = time_ms(lambda: A._attention_bwd_impl(
+        m1["qr"], m0["k"], m0["v"], ref["lse"], delta, m1["do"], True,
+        scale_r, block_size=kernel_check.TILE, round_pds=True, q_offset=sl,
+        k_offset=0, grad_dtype=torch.float32), warmup=1, iters=5)
+    calls = [dict(qr=members[i]["qr"], k=members[i]["k"],
+                  v=members[i]["v"], q_offset=i * sl, k_offset=i * sl,
+                  scale_r=scale_r, causal=True, rotate=True, phase=0)
+             for i in range(N_MEMBERS)]
+
+    def rotating_round(kernel, calls):
+        caller = mesh.fork()
+        RF.launch_round(mesh, kernel, calls)
+        mesh.join(caller)
+    t_k4_round = time_ms(lambda: rotating_round(RF.ring_flash_fwd, calls))
+    b, h, _, d = RING
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qs, ks, vs = (x.reshape(RING).detach().requires_grad_()
+                  for x in (m1["qr"], m0["k"], m0["v"]))
+    t_lib_fwd = time_ms(lambda: sdpa(qs, ks, vs, scale=1.0))
+    out = sdpa(qs, ks, vs, scale=1.0)
+    dos = m1["do"].reshape(RING)
+    t_lib_bwd = time_ms(lambda: torch.autograd.grad(
+        out, (qs, ks, vs), dos, retain_graph=True))
+    t_k6 = time_ms(lambda: rdma.permute_shards(xs, mesh, 1, 0))
+    dsts = [torch.empty_like(x) for x in xs]
+    t_copy = time_ms(lambda: [o.copy_(x) for o, x in zip(dsts, xs)])
+    t_k7 = time_ms(lambda: rotating_round(RF.phase_closer,
+                                          [{}] * N_MEMBERS))
+    mesh.check()
+    if not mesh.flags_balanced():
+        fail(f"flags out of balance after the timed rounds: "
+             f"{mesh.flags.tolist()}")
+
+    bh = b * h
+    el = torch.tensor([], dtype=dtype).element_size()
+    tile, tile32, row = bh * sl * d * el, bh * sl * d * 4, bh * sl * 4
+    pairs = bh * sl * sl  # a wholly visible step
+    main_pairs = causal_pairs(MAIN[2], MAIN[2], True) * MAIN[0] * MAIN[1]
+    main_tile = MAIN[0] * MAIN[1] * MAIN[2] * MAIN[3] * el
+    main_row = MAIN[0] * MAIN[1] * MAIN[2] * 4
+    entries = {
+        "ring_flash_fwd": _entry(
+            "ring_flash_fwd", t_k4, t_k4_plain, t_lib_fwd, 4 * d * pairs,
+            3 * tile + tile + row, dtype, _max_err(bf16_rows, ("o", "lse")),
+            rotating_round_ms=t_k4_round),
+        "ring_flash_bwd": _entry(
+            "ring_flash_bwd", t_k5, t_k5_plain, t_lib_bwd, 10 * d * pairs,
+            4 * tile + 2 * row + 3 * tile32, dtype,
+            _max_err(bf16_rows, ("dq", "dk", "dv")),
+            as_b2={"shape": list(MAIN), "ms": b2_ms,
+                   "k2_plus_k3_ms": k2k3_ms,
+                   "bound_ms": bound_ms(10 * MAIN[3] * main_pairs,
+                                        4 * main_tile + 2 * main_row
+                                        + 3 * main_tile, dtype)[0],
+                   "worst": max(e["worst"] for e in b2_err.values()),
+                   "max_abs_err": max(e["max_abs_err"]
+                                      for e in b2_err.values())}),
+        "ring_permute": _entry(
+            "ring_permute", t_k6, None, t_copy, 0,
+            2 * N_MEMBERS * tile, dtype, 0.0,
+            note="one round: every member's launch; library: one copy_ "
+                 "per member"),
+        "phase_closer": _entry(
+            "phase_closer", t_k7, None, None, 0, N_MEMBERS * 8 * 128 * 4,
+            torch.float32, 0.0, note="one round: every member's launch"),
+    }
+    emit("ring_kernels", cases=cases, shard=list(RING), members=N_MEMBERS,
+         k5_as_b2=entries["ring_flash_bwd"]["as_b2"],
+         k6_exact=exact, k7_zero=k7_zero,
+         timing={n: {k: e.get(k) for k in ("ms", "plain_ms", "bound_ms",
+                                           "bound_by", "library_ms")}
+                 for n, e in entries.items()},
+         k4_rotating_round_ms=t_k4_round,
+         note="K4/K5: one launch on a wholly visible step of the ring "
+              "shard, no rotation; library_ms: SDPA forward / backward "
+              "(non-causal) on the same shard")
+    return entries
+
+
+def ring_launches():
+    return {**{n: RF.launches[n] for n in RF.launches},
+            **{n: rdma.launches[n] for n in rdma.launches}}
+
+
+def reset_ring_launches():
+    RF.reset_launches()
+    rdma.reset_launches()
+
+
+def phase_ring_model():
+    """A small f32 LM sequence-parallel over a ring of 4 members, in every
+    ring mode, against the unsharded model on the same weights and
+    tokens: logits and every gradient."""
+    cfg = dict(vocab_size=512, d_model=128, n_layers=2, n_heads=2,
+               dtype=torch.float32)
+    base = TransformerLM(**cfg)
+    rng = np.random.RandomState(1)
+    tokens = torch.from_numpy(rng.randint(0, 512, (2, 4 * 64 + 1))).cuda()
+    inp, tgt = tokens[:, :-1], tokens[:, 1:]
+    logits = base(inp)
+    next_token_loss(logits, tgt).backward()
+    want = (logits.detach(), {n: p.grad for n, p in base.named_parameters()})
+    result = {}
+    n_layers = cfg["n_layers"]
+    for impl in ("fused", "rdma", "ppermute"):
+        mesh = RingMesh(N_MEMBERS)
+        model = TransformerLM(**cfg, seq_axis=mesh, ring_impl=impl)
+        model.load_state_dict(base.state_dict())
+        reset_ring_launches()
+        logits = model(inp)
+        next_token_loss(logits, tgt, axis_name=mesh).backward()
+        torch.cuda.synchronize()
+        got = ring_launches()
+        dl = (logits.detach() - want[0]).abs().max().item()
+        dg = max((p.grad - want[1][n]).abs().max().item()
+                 for n, p in model.named_parameters())
+        per = N_MEMBERS * n_layers
+        expect = {"ring_flash_fwd": 0, "ring_flash_bwd": 0,
+                  "phase_closer": 0, "ring_permute": 0}
+        if impl == "fused":
+            expect.update(ring_flash_fwd=per * N_MEMBERS,
+                          ring_flash_bwd=per * N_MEMBERS,
+                          phase_closer=per * 2 * (N_MEMBERS % 2 == 0))
+        elif impl == "rdma":
+            expect["ring_permute"] = per * 4 * (N_MEMBERS - 1)
+        result[impl] = {"logits_max_abs_err": dl, "grad_max_abs_err": dg,
+                        "launches": got,
+                        "flags_balanced": mesh.flags_balanced()}
+        # f32 on both sides: summation order only (K5's dQ atomics too).
+        if dl > 1e-4 or dg > 1e-4 or got != expect \
+                or not mesh.flags_balanced():
+            emit("ring_model", modes=result)
+            fail(f"ring model ({impl}) disagrees with the unsharded "
+                 f"model, or launched {got} for {expect}")
+    emit("ring_model", members=N_MEMBERS, modes=result)
+
+
+def phase_ring_train():
+    """The slice's path at full width: the headline LM sequence-parallel
+    over a ring of 4 members on the card, batch 4 x seq 4096, fused
+    (K4, K5, K7); then two steps with ``ring_impl="rdma"`` (K6)."""
+    hvd.init()
+    cfg = {k: v for k, v in RING_HEADLINE.items()}
+    vocab, batch, seq = cfg["vocab_size"], cfg["batch"], cfg["seq"]
+    n_layers, members = cfg["n_layers"], cfg["members"]
+    model, step, data = build_lm_step(**cfg)
+    mesh = model.seq_axis
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    warmup, timed = 2, 5
+    reset_ring_launches()
+    losses, step_ms = [], []
+    for i in range(warmup + timed):
+        t0 = time.perf_counter()
+        loss = step(data).item()
+        dt = (time.perf_counter() - t0) * 1e3
+        losses.append(loss)
+        if i >= warmup:
+            step_ms.append(dt)
+    torch.cuda.synchronize()
+    launched = ring_launches()
+    peak = torch.cuda.max_memory_allocated()
+    per = members * n_layers * (warmup + timed)
+    want = {"ring_flash_fwd": per * members, "ring_flash_bwd": per * members,
+            "phase_closer": per * 2 * (members % 2 == 0), "ring_permute": 0}
+    med = statistics.median(step_ms)
+    emit("ring_train", members=members, batch=batch, seq=seq,
+         ring_impl=cfg["ring_impl"], tokens_per_s=batch * seq / (med / 1e3),
+         median_step_ms=med, step_ms=step_ms, max_memory_allocated=peak,
+         first_loss=losses[0], last_loss=losses[-1], losses=losses,
+         launches=launched, want_launches=want,
+         flags_balanced=mesh.flags_balanced())
+    if launched != want:
+        fail(f"ring path launched {launched}, the JAX program implies "
+             f"{want}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"non-finite loss: {losses}")
+    if abs(losses[0] - math.log(vocab)) > 1.0 or losses[-1] >= losses[0]:
+        fail(f"implausible loss trajectory: {losses}")
+    if not mesh.flags_balanced():
+        fail(f"flags out of balance: {mesh.flags.tolist()}")
+    del model, step, data
+
+    # The rdma ring at the same width: K6 rotates K and V.
+    rcfg = dict(cfg, ring_impl="rdma")
+    model, step, data = build_lm_step(**rcfg)
+    steps = 2
+    reset_ring_launches()
+    rlosses = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        rlosses.append(step(data).item())
+    rdma_ms = (time.perf_counter() - t0) * 1e3 / steps
+    torch.cuda.synchronize()
+    rlaunched = ring_launches()
+    rwant = {"ring_flash_fwd": 0, "ring_flash_bwd": 0, "phase_closer": 0,
+             "ring_permute": members * n_layers * steps * 4 * (members - 1)}
+    emit("ring_train_rdma", members=members, batch=batch, seq=seq,
+         losses=rlosses, mean_step_ms=rdma_ms, launches=rlaunched,
+         want_launches=rwant)
+    if rlaunched != rwant:
+        fail(f"rdma ring launched {rlaunched}, want {rwant}")
+    # Same weights and tokens as the fused run's first step.
+    if abs(rlosses[0] - losses[0]) > 1e-2 or rlosses[1] >= rlosses[0]:
+        fail(f"rdma ring losses {rlosses} against fused {losses[:2]}")
+    hvd.shutdown()
+    return {**launched, "ring_permute": rlaunched["ring_permute"]}
+
+
 def main():
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -319,8 +684,15 @@ def main():
     entries = phase_kernels()
     phase_model()
     launched = phase_train()
+    ring_entries = phase_ring_kernels(
+        entries["flash_bwd_dkdv"]["ms"] + entries["flash_bwd_dq"]["ms"])
+    phase_ring_model()
+    launched.update(phase_ring_train())
+    entries.update(ring_entries)
     for name_, e in entries.items():
         e["launches"] = launched[name_]
+        if not launched[name_]:
+            fail(f"{name_} was not launched on its path")
     print(json.dumps({"kernels": list(entries.values())}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,9 @@ The five-line recipe on one NVIDIA H100::
     step = build_train_step(loss_fn, opt, model)
 
 The attention of ``models.TransformerLM`` runs through hand-written CUDA
-flash-attention kernels (``ops/csrc``).  The package imports nothing of
+flash-attention kernels (``ops/csrc``); with ``seq_axis=`` a
+``parallel.RingMesh`` it is ring attention over members co-located on the
+card, through the ring kernels in the same directory.  The package imports nothing of
 ``horovod_tpu`` and no JAX.
 """
 

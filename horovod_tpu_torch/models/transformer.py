@@ -1,8 +1,19 @@
 """Decoder-only Transformer LM in PyTorch.
 
 Counterpart of ``horovod_tpu/models/transformer.py`` (``TransformerLM``,
-``Block``, ``Attention`` on its single-shard path, ``rope``,
-``_qkv_project``, ``next_token_loss``).  Parameters keep the flax
+``Block``, ``Attention``, ``rope``, ``_qkv_project``, ``next_token_loss``).
+Under sequence parallelism (``seq_axis=`` a
+:class:`~horovod_tpu_torch.parallel.RingMesh`, the counterpart of the
+mapped mesh axis) the model takes the global ``(batch, seq)`` tokens,
+splits them into one shard per member, runs every layer on every shard
+(rope at the shard's absolute positions) and lets the shards meet only in
+:func:`~horovod_tpu_torch.ops.ring_attention`, K/V travelling as
+``ring_impl`` says; it returns the global logits.  The parameters are one
+set shared by the members, so autograd sums the members' gradient
+contributions: the ``psum`` over the sequence axis that the JAX step gets
+from ``shard_map``.  The port has no ``targets=`` or ``decode_ctx=``
+arguments, so the reference's refusals of them under sequence parallelism
+have nothing to refuse.  Parameters keep the flax
 shapes and layouts (``qkv_kernel`` (d, 3, h, e), ``o_kernel`` (h, e, d),
 ``lm_head_kernel`` (d, V)), so :mod:`.convert` carries weights across by
 renaming and transposing the two MLP kernels.  Matched semantics: flax
@@ -21,7 +32,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from horovod_tpu_torch.ops import blockwise_attention, flash_attention
+from horovod_tpu_torch.ops import (blockwise_attention, flash_attention,
+                                   ring_attention)
 
 
 class _QKVProject(torch.autograd.Function):
@@ -100,16 +112,20 @@ def _trunc_normal(shape, fan_in, generator, device):
 
 class Attention(nn.Module):
     def __init__(self, d_model: int, n_heads: int, dtype=torch.bfloat16,
-                 use_flash: bool = True, generator=None, device=None):
+                 use_flash: bool = True, generator=None, device=None,
+                 seq_axis=None, ring_impl: str = "ppermute"):
         super().__init__()
         head_dim = d_model // n_heads
         self.n_heads, self.dtype, self.use_flash = n_heads, dtype, use_flash
+        self.seq_axis, self.ring_impl = seq_axis, ring_impl
         self.qkv_kernel = nn.Parameter(_trunc_normal(
             (d_model, 3, n_heads, head_dim), d_model, generator, device))
         self.o_kernel = nn.Parameter(_trunc_normal(
             (n_heads, head_dim, d_model), d_model, generator, device))
 
     def forward(self, x):
+        if self.seq_axis is not None:
+            return self._ring_forward(x)
         s = x.shape[1]
         q, k, v = qkv_project(x.to(self.dtype),
                               self.qkv_kernel.to(self.dtype))
@@ -120,16 +136,33 @@ class Attention(nn.Module):
         return torch.einsum("bhse,hed->bsd", out,
                             self.o_kernel.to(self.dtype))
 
+    def _ring_forward(self, xs):
+        """``xs``: the members' (batch, seq_local, d) shards, in ring order."""
+        w = self.qkv_kernel.to(self.dtype)
+        qs, ks, vs = [], [], []
+        for i, x in enumerate(xs):
+            s = x.shape[1]
+            q, k, v = qkv_project(x.to(self.dtype), w)
+            positions = i * s + torch.arange(s, device=x.device)
+            qs.append(rope(q, positions))
+            ks.append(rope(k, positions))
+            vs.append(v)
+        outs = ring_attention(qs, ks, vs, self.seq_axis, causal=True,
+                              rotate_impl=self.ring_impl)
+        w_o = self.o_kernel.to(self.dtype)
+        return [torch.einsum("bhse,hed->bsd", o, w_o) for o in outs]
+
 
 class Block(nn.Module):
     def __init__(self, d_model: int, n_heads: int, d_ff: int,
                  dtype=torch.bfloat16, use_flash: bool = True,
-                 generator=None, device=None):
+                 generator=None, device=None, seq_axis=None,
+                 ring_impl: str = "ppermute"):
         super().__init__()
         self.dtype = dtype
         self.attn_norm = RMSNorm(d_model, dtype, device=device)
         self.attn = Attention(d_model, n_heads, dtype, use_flash, generator,
-                              device)
+                              device, seq_axis, ring_impl)
         self.mlp_norm = RMSNorm(d_model, dtype, device=device)
         self.up = nn.Linear(d_model, d_ff, bias=False, device=device)
         self.down = nn.Linear(d_ff, d_model, bias=False, device=device)
@@ -139,13 +172,20 @@ class Block(nn.Module):
             self.down.weight.copy_(_trunc_normal(
                 (d_ff, d_model), d_ff, generator, device).T)
 
-    def forward(self, x):
-        x = x + self.attn(self.attn_norm(x))
-        h = self.mlp_norm(x)
-        h = F.linear(h, self.up.weight.to(self.dtype))
+    def _mlp(self, x, w_up, w_down):
+        h = F.linear(self.mlp_norm(x), w_up)
         h = F.gelu(h, approximate="tanh")  # flax nn.gelu default
-        h = F.linear(h, self.down.weight.to(self.dtype))
-        return x + h
+        return x + F.linear(h, w_down)
+
+    def forward(self, x):
+        """``x``: (batch, seq, d), or the members' shards as a list."""
+        w_up = self.up.weight.to(self.dtype)
+        w_down = self.down.weight.to(self.dtype)
+        if isinstance(x, list):
+            attn = self.attn([self.attn_norm(xi) for xi in x])
+            return [self._mlp(xi + a, w_up, w_down)
+                    for xi, a in zip(x, attn)]
+        return self._mlp(x + self.attn(self.attn_norm(x)), w_up, w_down)
 
 
 class TransformerLM(nn.Module):
@@ -161,15 +201,19 @@ class TransformerLM(nn.Module):
                  n_layers: int = 6, n_heads: int = 8,
                  d_ff: Optional[int] = None, dtype=torch.bfloat16,
                  use_flash: bool = True, logits_dtype=torch.float32,
-                 generator: Optional[torch.Generator] = None, device=None):
+                 generator: Optional[torch.Generator] = None, device=None,
+                 seq_axis=None, ring_impl: str = "ppermute"):
         super().__init__()
         from horovod_tpu_torch.common import resolve_device
 
         device = resolve_device(device)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
+        if ring_impl not in ("ppermute", "rdma", "fused"):
+            raise ValueError(f"unknown ring_impl {ring_impl!r}")
         d_ff = d_ff or 4 * d_model
         self.dtype, self.logits_dtype = dtype, logits_dtype
+        self.seq_axis = seq_axis
         self.embed = nn.Embedding(vocab_size, d_model, device=device)
         with torch.no_grad():  # flax Embed: normal, variance 1 / d_model
             self.embed.weight.copy_(torch.randn(
@@ -177,19 +221,14 @@ class TransformerLM(nn.Module):
                     d_model ** -0.5).to(device))
         self.layers = nn.ModuleList(
             Block(d_model, n_heads, d_ff, dtype, use_flash, generator,
-                  device)
+                  device, seq_axis, ring_impl)
             for _ in range(n_layers))
         self.final_norm = RMSNorm(d_model, dtype, device=device)
         self.lm_head_kernel = nn.Parameter(_trunc_normal(
             (d_model, vocab_size), d_model, generator, device))
 
-    def forward(self, tokens):
-        x = F.embedding(tokens, self.embed.weight.to(self.dtype))
-        for layer in self.layers:
-            x = layer(x)
-        x = self.final_norm(x)
-        xw = x.to(self.dtype)
-        w = self.lm_head_kernel.to(self.dtype)
+    def _head(self, x, w):
+        xw = self.final_norm(x).to(self.dtype)
         if self.dtype == self.logits_dtype or self.dtype == torch.float32:
             # A matmul in the compute dtype already accumulates in f32
             # and rounds once, to the storage dtype.
@@ -198,15 +237,48 @@ class TransformerLM(nn.Module):
         # operands in f32 (the reference's preferred_element_type=f32).
         return torch.matmul(xw.float(), w.float()).to(self.logits_dtype)
 
+    def forward(self, tokens):
+        emb = self.embed.weight.to(self.dtype)
+        w = self.lm_head_kernel.to(self.dtype)
+        if self.seq_axis is None:
+            x = F.embedding(tokens, emb)
+            for layer in self.layers:
+                x = layer(x)
+            return self._head(x, w)
+        n = self.seq_axis.size
+        if tokens.shape[1] % n:
+            raise ValueError(f"sequence {tokens.shape[1]} does not split "
+                             f"into {n} equal shards")
+        xs = [F.embedding(t, emb) for t in tokens.chunk(n, dim=1)]
+        for layer in self.layers:
+            xs = layer(xs)
+        return torch.cat([self._head(x, w) for x in xs], dim=1)
 
-def next_token_loss(logits, targets, mask=None):
+
+def next_token_loss(logits, targets, mask=None, axis_name=None):
     """Mean cross-entropy of ``logits`` against aligned ``targets``, with
     float32 internals whatever the logits' storage dtype.  With a
-    ``mask``, padding is weighted out: sum(loss * mask) / max(count, 1)."""
+    ``mask``, padding is weighted out: sum(loss * mask) / max(count, 1).
+
+    ``axis_name`` (a :class:`~horovod_tpu_torch.parallel.RingMesh`) gives
+    the reference's semantics over the members' sequence shards: each
+    shard's loss is normalised by the global mean count of valid tokens
+    per shard (the ``psum`` of the counts over ``n``), and the shards'
+    losses are averaged (the step's ``pmean``).  Unmasked, that is the
+    mean over all tokens."""
     loss = F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]),
                            targets.reshape(-1), reduction="none")
     loss = loss.reshape(targets.shape)
+    if axis_name is None:
+        if mask is None:
+            return loss.mean()
+        mask = mask.to(loss.dtype)
+        return (loss * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    n = axis_name.size
+    shards = loss.chunk(n, dim=1)
     if mask is None:
-        return loss.mean()
+        return torch.stack([x.mean() for x in shards]).mean()
     mask = mask.to(loss.dtype)
-    return (loss * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    count = torch.clamp(mask.sum() / n, min=1.0)
+    return torch.stack([(x * m).sum() / count for x, m in
+                        zip(shards, mask.chunk(n, dim=1))]).mean()

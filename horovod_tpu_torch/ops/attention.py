@@ -87,48 +87,68 @@ def _lse_of(m, l):
                        m + torch.log(torch.clamp(l, min=1e-37)))
 
 
-def _block_mask(start, n, q_len, causal, device):
+def _block_mask(start, n, q_len, causal, device, q_offset=0, k_offset=0):
+    """Causal mask of one key block over absolute positions: queries start
+    at ``q_offset``, the block's keys at ``k_offset + start``."""
     if not causal:
         return None
-    q_pos = torch.arange(q_len, device=device)
-    k_pos = start + torch.arange(n, device=device)
+    q_pos = q_offset + torch.arange(q_len, device=device)
+    k_pos = k_offset + start + torch.arange(n, device=device)
     return q_pos[:, None] >= k_pos[None, :]
 
 
-def _blockwise_fwd_impl(q, k, v, causal, sm_scale, block_size=512):
-    """Forward scan; returns (out, lse) with lse the per-row logsumexp
-    (float32)."""
-    q_len, k_len = q.shape[-2], k.shape[-2]
-    block = min(block_size, k_len)
+def _block_attend(q, k, v, m, l, acc, mask, sm_scale):
+    """One online-softmax update of the float32 (m, l, acc) state with a
+    (q_len, k_len) block; ``mask`` is True where attention is allowed (or
+    None for dense).  Shared by the blockwise scan and the separable
+    ring's per-step attend."""
+    s = _mm(q, k.transpose(-1, -2)) * sm_scale
+    if mask is not None:
+        s = torch.where(mask, s, NEG_INF)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    alpha = torch.exp(m - m_new)
+    p = torch.exp(s - m_new[..., None])
+    if mask is not None:
+        p = torch.where(mask, p, 0.0)
+    l_new = l * alpha + p.sum(dim=-1)
+    acc_new = acc * alpha[..., None] + _mm(p.to(v.dtype), v)
+    return m_new, l_new, acc_new
+
+
+def _init_state(q, d_v):
     m = torch.full(q.shape[:-1], NEG_INF, dtype=torch.float32,
                    device=q.device)
-    l = torch.zeros_like(m)
-    acc = torch.zeros(q.shape[:-1] + (v.shape[-1],), dtype=torch.float32,
-                      device=q.device)
+    return (m, torch.zeros_like(m),
+            torch.zeros(q.shape[:-1] + (d_v,), dtype=torch.float32,
+                        device=q.device))
+
+
+def _blockwise_fwd_impl(q, k, v, causal, sm_scale, block_size=512,
+                        q_offset=0, k_offset=0):
+    """Forward scan; returns (out, lse) with lse the per-row logsumexp
+    (float32; POS_BIG on rows with no mass, whose out is 0).
+    ``q_offset``/``k_offset`` are the absolute positions of the first
+    query and key row, for the causal mask across ring shards."""
+    q_len, k_len = q.shape[-2], k.shape[-2]
+    block = min(block_size, k_len)
+    m, l, acc = _init_state(q, v.shape[-1])
     for start in range(0, k_len, block):
         kb = k[..., start:start + block, :]
         vb = v[..., start:start + block, :]
-        mask = _block_mask(start, kb.shape[-2], q_len, causal, q.device)
-        s = _mm(q, kb.transpose(-1, -2)) * sm_scale
-        if mask is not None:
-            s = torch.where(mask, s, NEG_INF)
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        alpha = torch.exp(m - m_new)
-        p = torch.exp(s - m_new[..., None])
-        if mask is not None:
-            p = torch.where(mask, p, 0.0)
-        l = l * alpha + p.sum(dim=-1)
-        acc = acc * alpha[..., None] + _mm(p.to(v.dtype), vb)
-        m = m_new
+        mask = _block_mask(start, kb.shape[-2], q_len, causal, q.device,
+                           q_offset, k_offset)
+        m, l, acc = _block_attend(q, kb, vb, m, l, acc, mask, sm_scale)
     return _finalize(m, l, acc, q.dtype), _lse_of(m, l)
 
 
 def _attention_bwd_impl(q, k, v, lse, delta, g, causal, sm_scale,
-                        block_size=512, dq_scale=1.0, round_pds=False):
+                        block_size=512, dq_scale=1.0, round_pds=False,
+                        q_offset=0, k_offset=0, grad_dtype=None):
     """Flash-attention backward: recompute each key block's probabilities
     from (q, k, lse); ``delta`` = rowsum(g * out) in float32.  Returns
-    (dq * dq_scale, dk, dv) in the input dtypes, the scale applied in
-    float32 before the cast.
+    (dq * dq_scale, dk, dv) in the input dtypes (or all three in
+    ``grad_dtype``), the scale applied in float32 before the cast.
+    ``q_offset``/``k_offset`` place the causal mask as in the forward.
 
     ``round_pds`` rounds p and ds to the storage dtype before the products
     that take them, where the kernels (and the reference's Pallas
@@ -142,7 +162,8 @@ def _attention_bwd_impl(q, k, v, lse, delta, g, causal, sm_scale,
     for start in range(0, k_len, block):
         kb = k[..., start:start + block, :]
         vb = v[..., start:start + block, :]
-        mask = _block_mask(start, kb.shape[-2], q_len, causal, q.device)
+        mask = _block_mask(start, kb.shape[-2], q_len, causal, q.device,
+                           q_offset, k_offset)
         s = _mm(q, kb.transpose(-1, -2)) * sm_scale
         if mask is not None:
             s = torch.where(mask, s, NEG_INF)
@@ -159,7 +180,9 @@ def _attention_bwd_impl(q, k, v, lse, delta, g, causal, sm_scale,
         dks.append(_mm(ds.transpose(-1, -2), q))
     dk = torch.cat(dks, dim=-2)
     dv = torch.cat(dvs, dim=-2)
-    return ((dq * dq_scale).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
+    dts = (q.dtype, k.dtype, v.dtype) if grad_dtype is None else \
+        (grad_dtype,) * 3
+    return ((dq * dq_scale).to(dts[0]), dk.to(dts[1]), dv.to(dts[2]))
 
 
 def _delta(out, g):
@@ -170,32 +193,37 @@ def _delta(out, g):
 
 class _BlockwiseFn(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal, sm_scale, block_size):
+    def forward(ctx, q, k, v, causal, sm_scale, block_size, q_offset,
+                k_offset):
         out, lse = _blockwise_fwd_impl(q, k, v, causal, sm_scale,
-                                       block_size)
+                                       block_size, q_offset, k_offset)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.args = (causal, sm_scale, block_size)
+        ctx.args = (causal, sm_scale, block_size, q_offset, k_offset)
         return out
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, out, lse = ctx.saved_tensors
-        causal, sm_scale, block_size = ctx.args
+        causal, sm_scale, block_size, q_offset, k_offset = ctx.args
         dq, dk, dv = _attention_bwd_impl(
-            q, k, v, lse, _delta(out, g), g, causal, sm_scale, block_size)
-        return dq, dk, dv, None, None, None
+            q, k, v, lse, _delta(out, g), g, causal, sm_scale, block_size,
+            q_offset=q_offset, k_offset=k_offset)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def blockwise_attention(q, k, v, causal: bool = False,
                         sm_scale: Optional[float] = None,
-                        block_size: int = 512):
+                        block_size: int = 512,
+                        q_offset: int = 0, k_offset: int = 0):
     """Memory-efficient attention as a scan over key/value blocks, with
-    O(seq) residual memory in both directions (flash backward).  The
-    causal mask aligns the first query with the first key."""
+    O(seq) residual memory in both directions (flash backward).
+    ``q_offset``/``k_offset`` are the absolute positions of the first
+    query and key row: the causal mask compares absolute positions, which
+    is what lets a ring step mask a rotated K/V shard."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     return _BlockwiseFn.apply(q, k, v, causal, float(sm_scale),
-                              int(block_size))
+                              int(block_size), int(q_offset), int(k_offset))
 
 
 def _split_scale(sm_scale: float):

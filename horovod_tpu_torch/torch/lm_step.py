@@ -1,45 +1,59 @@
-"""The port's main path in one place: the LM headline trained by
-``DistributedOptimizer(AdamW)`` through ``build_train_step``.
+"""The port's training paths in one place: the LM headline trained by
+``DistributedOptimizer(AdamW)`` through ``build_train_step``, on one
+shard or sequence-parallel over a ring of members on the card.
 
-``chip_smoke.py`` drives and times it; ``tools/torch_step_profile.py``
-traces it.  Both build it here, so what is profiled is what is checked.
-The widths are the repo's LM headline (``bench.py::bench_transformer``):
-vocab 32768, d_model 512, 8 layers, 8 heads, d_ff 2048, batch 16 x seq
-1024, bf16 compute and logits, AdamW(1e-3) with optax's default weight
-decay 1e-4.  Weights come from ``torch.Generator().manual_seed(seed)``,
-tokens from ``np.random.RandomState(seed)``.
+``chip_smoke.py`` drives and times both; ``tools/torch_step_profile.py``
+traces the first.  They build them here, so what is profiled is what is
+checked.  The widths are the repo's LM headline
+(``bench.py::bench_transformer``): vocab 32768, d_model 512, 8 layers, 8
+heads, d_ff 2048, bf16 compute and logits, AdamW(1e-3) with optax's
+default weight decay 1e-4; the main path takes batch 16 x seq 1024
+(``HEADLINE``), the ring path batch 4 x seq 4096 over 4 members
+(``RING_HEADLINE``: the same 16,384 tokens a step, a 4x longer context).
+Weights come from ``torch.Generator().manual_seed(seed)``, tokens from
+``np.random.RandomState(seed)``.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
 
 from horovod_tpu_torch.models import TransformerLM, next_token_loss
+from horovod_tpu_torch.parallel import RingMesh
 from horovod_tpu_torch.torch import DistributedOptimizer
 from horovod_tpu_torch.torch.train import build_train_step
 
 HEADLINE = dict(vocab_size=32768, d_model=512, n_layers=8, n_heads=8,
                 d_ff=2048, batch=16, seq=1024)
+RING_HEADLINE = dict(HEADLINE, batch=4, seq=4096, members=4,
+                     ring_impl="fused")
 
 
 def build_lm_step(device=None, *, vocab_size, d_model, n_layers, n_heads,
                   d_ff, batch, seq, dtype=torch.bfloat16,
-                  logits_dtype=torch.bfloat16, seed=0):
+                  logits_dtype=torch.bfloat16, seed=0,
+                  members: Optional[int] = None, ring_impl="fused"):
     """``(model, step, data)``: ``step(data)`` is one training step on the
     fixed batch ``data = (inputs, targets)`` of shape (batch, seq).
-    ``device=None`` means the CUDA device (see ``resolve_device``)."""
+    ``device=None`` means the CUDA device (see ``resolve_device``).  With
+    ``members``, the model is sequence-parallel over a ring of that many
+    members (``model.seq_axis``, a ``RingMesh``), K/V travelling as
+    ``ring_impl`` says, and the step is the sequence-parallel one."""
+    mesh = None if members is None else RingMesh(members, device)
     model = TransformerLM(vocab_size=vocab_size, d_model=d_model,
                           n_layers=n_layers, n_heads=n_heads, d_ff=d_ff,
                           dtype=dtype, logits_dtype=logits_dtype,
                           generator=torch.Generator().manual_seed(seed),
-                          device=device)
+                          device=device, seq_axis=mesh, ring_impl=ring_impl)
     opt = DistributedOptimizer(
         torch.optim.AdamW(model.parameters(), lr=1e-3, weight_decay=1e-4),
         named_parameters=model.named_parameters())
 
     def loss_fn(m, b):
-        return next_token_loss(m(b[0]), b[1])
+        return next_token_loss(m(b[0]), b[1], axis_name=mesh)
 
     step = build_train_step(loss_fn, opt, model)
     rng = np.random.RandomState(seed)

@@ -1,6 +1,8 @@
 """The data-parallel training step: the Horovod recipe in one call.
 
-Counterpart of ``horovod_tpu/jax/train.py::build_train_step``.  Each
+Counterpart of ``horovod_tpu/jax/train.py::build_train_step``, on a
+data-parallel axis of size 1 and, optionally, a sequence-parallel ring on
+one card.  Each
 worker computes gradients on its own batch, ``DistributedOptimizer``
 averages them before the update, and the returned loss is averaged across
 workers as ``lax.pmean`` does in the reference (at size 1 both averages
@@ -21,7 +23,13 @@ def build_train_step(loss_fn: Callable, optimizer: torch.optim.Optimizer,
                      model: torch.nn.Module):
     """Build ``step(batch) -> loss``.
 
-    ``loss_fn(model, batch)`` returns this worker's mean loss.
+    ``loss_fn(model, batch)`` returns this worker's mean loss.  For a
+    sequence-parallel model (built with ``seq_axis``, a
+    :class:`~horovod_tpu_torch.parallel.RingMesh`) the loss is the mean
+    over all tokens of the ring and the gradients are the sum of the
+    members' contributions (one parameter set, so autograd sums them); a
+    ring kernel that gave up makes its ring op raise in the forward or
+    the backward, so it never reaches the update.
     ``optimizer`` is wrapped in :class:`DistributedOptimizer` unless it
     already is one.  One step runs forward, backward, the optimizer step
     and ``zero_grad``, and returns the cross-worker mean loss (detached).

@@ -130,7 +130,7 @@ def test_build_without_nvcc_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build._nvcc()
     assert [os.path.basename(s) for s in _build.sources()] == [
-        "flash_bwd.cu", "flash_fwd.cu"]
+        "flash_bwd.cu", "flash_fwd.cu", "ring_flash.cu", "ring_permute.cu"]
 
 
 _FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "horovod_tpu")
@@ -149,7 +149,8 @@ def _imports(path):
 def _port_files():
     files = [os.path.join(REPO, "chip_smoke.py")]
     files += glob.glob(os.path.join(REPO, "tools", "torch_*.py"))
-    for root, _, names in os.walk(os.path.join(REPO, "horovod_tpu_torch")):
+    for root, dirs, names in os.walk(os.path.join(REPO, "horovod_tpu_torch")):
+        dirs[:] = [d for d in dirs if d != "_build"]  # build output
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return sorted(files)
 

@@ -5,13 +5,16 @@ Imports no JAX, so it runs on a GPU machine without it::
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 
 Without a CUDA device every test here skips (the kernels have no CPU
-mode; the CPU tests in test_torch_attention.py hold the plain versions
-against the JAX package).  Tolerances are those of
+mode; the CPU tests in test_torch_attention.py, test_torch_ring.py and
+test_torch_ring_model.py hold the plain versions against the JAX
+package).  Tolerances are those of
 horovod_tpu_torch/ops/kernel_check.py, shared with chip_smoke.py: every
 element within rtol * (|ref| + rms(ref)) of a plain version that rounds
 p and ds where the kernels do; rtol two units in the last place for
 16-bit outputs, 1e-4 for float32 outputs and lse (summation order).
 """
+
+import importlib
 
 import pytest
 import torch
@@ -84,3 +87,121 @@ def test_unsupported_cuda_input_raises(cuda_device):
     q = torch.randn(1, 1, 64, 64, device=cuda_device, dtype=torch.float64)
     with pytest.raises(TypeError, match="dtype"):
         tattn.flash_attention(q, q, q, causal=True)
+
+
+# ---------------------------------------------------------------------------
+# The ring kernels K4-K7 (ops/csrc/ring_flash.cu, ring_permute.cu) on a
+# ring of 4 members co-located on the card, each on its own stream.
+# ---------------------------------------------------------------------------
+
+
+def _ring():
+    from horovod_tpu_torch.parallel import RingMesh
+
+    return RingMesh(4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("sl,d", [(256, 64), (200, 128)])
+def test_ring_steps_match_plain_versions(cuda_device, dtype, sl, d):
+    """K4 and K5 on every kind of ring step (diagonal, wholly visible,
+    wholly masked), rotating and not, against their plain versions; the
+    rotation lands in the neighbours' slots bit for bit and every flag
+    returns to 0."""
+    mesh = _ring()
+    members, _, scale_r = kernel_check.ring_inputs(4, (2, 2, sl, d), dtype,
+                                                   sl + d)
+    kinds = set()
+    for t, rotate in ((0, True), (1, True), (0, False), (3, False)):
+        rows = kernel_check.hold_ring_round(mesh, members, t, scale_r,
+                                            rotate=rotate)
+        mesh.check()
+        assert mesh.flags_balanced()
+        for r in rows:
+            kinds.add(r["kind"])
+            assert r.get("slot_exact", True), (t, r)
+            for name, e in r["errors"].items():
+                assert e["worst"] <= 1.0, (t, r["kind"], name, e)
+    assert kinds == {"diagonal", "visible", "masked"}
+
+
+@pytest.mark.cuda
+def test_k5_as_b2_matches_plain_backward(cuda_device):
+    from horovod_tpu_torch.ops import ring_flash
+
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    q, k, v, do = (torch.randn(8, 256, 64, device=cuda_device, generator=g)
+                   .to(torch.bfloat16) for _ in range(4))
+    p2, r = tattn._split_scale(64 ** -0.5)
+    qr = (q * p2).to(torch.bfloat16)
+    ref, delta = kernel_check.plain_outputs(qr, k, v, do, True, r, p2)
+    dk, dv, dq = ring_flash.ring_flash_bwd(
+        _ring(), 0, qr, k, v, do, ref["lse"], delta, 0, 0, r, True,
+        grad_dtype=torch.bfloat16, dq_scale=p2)
+    assert dq.dtype == dk.dtype == torch.bfloat16
+    for name, got in (("dq", dq), ("dk", dk), ("dv", dv)):
+        assert _close(got, ref[name]), name
+
+
+@pytest.mark.cuda
+def test_ring_permute_is_bit_exact_with_its_vjp(cuda_device):
+    from horovod_tpu_torch.ops import rdma
+
+    mesh = _ring()
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    xs = [torch.randn(4, 96, 32, device=cuda_device, generator=g)
+          .to(torch.bfloat16).requires_grad_() for _ in range(4)]
+    ws = [torch.randn_like(x) for x in xs]
+    for shift in (1, -1):
+        outs = rdma.ring_permute(xs, mesh, shift=shift)
+        for i, x in enumerate(xs):
+            assert torch.equal(outs[(i + shift) % 4], x)
+        grads = torch.autograd.grad(outs, xs, ws)
+        for i in range(4):
+            assert torch.equal(grads[i], ws[(i + shift) % 4])
+    torch.cuda.synchronize()
+    mesh.check()
+    assert mesh.flags_balanced()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["fused", "rdma", "ppermute"])
+def test_ring_attention_matches_blockwise(cuda_device, mode):
+    """ring_attention in every mode on the card (f32) against the plain
+    blockwise attention of the whole sequence, values and gradients at
+    tests/test_ops.py's ring tolerances (2e-5 and 5e-4: the ppermute and
+    rdma modes differentiate through the online softmax, not by the flash
+    backward); the fused mode launches K4, K5 and K7 as the JAX program
+    does."""
+    from horovod_tpu_torch.ops import rdma, ring_attention
+
+    rf = importlib.import_module("horovod_tpu_torch.ops.ring_flash")
+    mesh = _ring()
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    q, k, v, ct = (torch.randn(2, 2, 4 * 96, 64, device=cuda_device,
+                               generator=g) for _ in range(4))
+    before = {**rf.launches, **rdma.launches}
+    xs = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = torch.cat(ring_attention(*[list(t.chunk(4, dim=2)) for t in xs],
+                                   mesh, causal=True, rotate_impl=mode), 2)
+    grads = torch.autograd.grad(out, xs, ct)
+    ref_in = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref = tattn.blockwise_attention(*ref_in, causal=True)
+    ref_grads = torch.autograd.grad(ref, ref_in, ct)
+    torch.cuda.synchronize()
+    mesh.check()
+    assert mesh.flags_balanced()
+    torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
+    for a, b in zip(grads, ref_grads):
+        torch.testing.assert_close(a, b, atol=5e-4, rtol=5e-4)
+    after = {**rf.launches, **rdma.launches}
+    delta = {n: after[n] - before[n] for n in after}
+    want = {"ring_flash_fwd": 0, "ring_flash_bwd": 0, "phase_closer": 0,
+            "ring_permute": 0}
+    if mode == "fused":
+        want.update(ring_flash_fwd=16, ring_flash_bwd=16, phase_closer=8)
+    elif mode == "rdma":
+        want["ring_permute"] = 4 * 4 * 3
+    assert delta == want

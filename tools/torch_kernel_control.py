@@ -23,6 +23,17 @@ that it skips part of its loop:
 The first three drop most of the mass of some rows; the next three drop
 a share of late rows only; the last three move late rows, whose values
 are small against the largest, by less than the old rule's limit.
+
+Mutants of the ring kernels, each read on a ring of 4 members of shard
+(4, 8, 1024, 64) in bf16 on the card:
+
+* ``k4_k_offset_one_tile`` — K4 takes its k offset one 64-row tile late
+  (read: o and lse of a diagonal step, under ``kernel_check``'s rule);
+* ``k5_copy_drops_last_chunk`` — the copy blocks skip their last chunk
+  (the loop is shared by K4 and K5; read: the receive slots after a
+  rotating round of K5 alone, bit for bit);
+* ``k6_wrong_slot`` — K6 writes into the slot of member my + shift + 1
+  (read: the rotated shards, bit for bit).
 The mutated sources are copies under ``horovod_tpu_torch/_build/control/``
 (the checked-in sources are not touched), built with the same nvcc flags.
 Each mutant, and first the unmutated kernels (the sound reading), is held
@@ -31,8 +42,8 @@ head_dim 64, causal) in bf16 and fp16, under the rule of
 ``horovod_tpu_torch/ops/kernel_check.py`` and under the rule it replaced
 (max error <= 2e-2 * max |ref|).  ``worst`` is the largest error over its
 limit; a reading passes at ``worst <= 1``.  Prints one JSON line and
-exits 1 unless the sound reading passes and every mutant fails under
-``kernel_check``'s rule.
+exits 1 unless the sound readings pass and every mutant fails (under
+``kernel_check``'s rule, or its bit-exact check).
 """
 
 from __future__ import annotations
@@ -94,6 +105,70 @@ MUTANTS = {
 }
 
 
+# Ring mutants: (source stem, file mutated, line, what replaces it, reading)
+RING_MUTANTS = {
+    "k4_k_offset_one_tile": (
+        "ring_flash", "ring_flash.cu",
+        "  o += bh * sq * D;\n  lse += bh * sq;\n",
+        "  o += bh * sq * D;\n  lse += bh * sq;\n  k_off += BN;\n", "k4"),
+    "k5_copy_drops_last_chunk": (
+        "ring_flash", "ring_common.cuh",
+        "  for (int c = cta; c < n_chunks; c += n_copy) {\n",
+        "  for (int c = cta; c < n_chunks; c += n_copy) {\n"
+        "    if (c == n_chunks - 1) continue;\n", "k5_copy"),
+    "k6_wrong_slot": (
+        "ring_permute", "ring_permute.cu",
+        "const int to = ((ring.my + shift) % ring.n + ring.n) % ring.n;",
+        "const int to = ((ring.my + shift + 1) % ring.n + ring.n) % ring.n;",
+        "k6"),
+}
+RING_SHARD = (4, 8, 1024, 64)
+
+
+def ring_reading(kind):
+    """The ring kernels as built now, read as ``kind`` says: ``ok`` is
+    whether they pass (a sound build must, a mutant must not)."""
+    from horovod_tpu_torch.ops import rdma
+    from horovod_tpu_torch.ops import ring_flash as RF
+    from horovod_tpu_torch.parallel import RingMesh
+
+    mesh = RingMesh(4)  # loads (and prepares) the libraries now in place
+    members, _, scale_r = kernel_check.ring_inputs(4, RING_SHARD,
+                                                   torch.bfloat16, 3)
+    if kind == "k4":
+        rows = kernel_check.hold_ring_round(mesh, members, 0, scale_r,
+                                            rotate=False)
+        errs = {n: max((r["errors"][n] for r in rows),
+                       key=lambda e: e["worst"]) for n in ("o", "lse")}
+        return {"errors": errs,
+                "ok": all(e["worst"] <= 1.0 for e in errs.values())}
+    if kind == "k5_copy":
+        ks, vs = mesh.slots(members[0]["k"].shape, torch.bfloat16)
+        ks.zero_()
+        vs.zero_()
+        calls = []
+        for i, m in enumerate(members):
+            o, lse = A._blockwise_fwd_impl(m["qr"], m["k"], m["v"], True,
+                                           scale_r, q_offset=0, k_offset=0)
+            calls.append(dict(qr=m["qr"], k=m["k"], v=m["v"], do=m["do"],
+                              lse=lse, delta=A._delta(o, m["do"]),
+                              q_offset=0, k_offset=0, scale_r=scale_r,
+                              causal=True, rotate=True, phase=0))
+        caller = mesh.fork()
+        RF.launch_round(mesh, RF.ring_flash_bwd, calls)
+        mesh.join(caller)
+        torch.cuda.synchronize()
+        exact = all(torch.equal(ks[(i + 1) % 4, 0], m["k"])
+                    and torch.equal(vs[(i + 1) % 4, 0], m["v"])
+                    for i, m in enumerate(members))
+        return {"slots_exact": exact, "ok": exact}
+    xs = [m["k"] for m in members]
+    outs = rdma.permute_shards(xs, mesh, 1, 0)
+    torch.cuda.synchronize()
+    exact = all(torch.equal(outs[(i + 1) % 4], x) for i, x in enumerate(xs))
+    return {"rotation_exact": exact, "ok": exact}
+
+
 def loose_compare(got, want):
     """The replaced rule, scaled by the largest reference value."""
     err = (got.float() - want.float()).abs().max().item()
@@ -104,16 +179,22 @@ def loose_compare(got, want):
 def build_mutants():
     """``{mutant: path of its shared library}``, nvcc runs in parallel."""
     procs = {}
-    for name, (stem, old, new, _) in MUTANTS.items():
+    edits = {name: (stem, f"{stem}.cu", old, new)
+             for name, (stem, old, new, _) in MUTANTS.items()}
+    edits.update({name: (stem, file, old, new)
+                  for name, (stem, file, old, new, _)
+                  in RING_MUTANTS.items()})
+    for name, (stem, file, old, new) in edits.items():
         d = os.path.join(_build.BUILD_DIR, "control", name)
         shutil.rmtree(d, ignore_errors=True)
         shutil.copytree(_build.CSRC, d)
-        src = os.path.join(d, f"{stem}.cu")
-        text = open(src).read()
+        path = os.path.join(d, file)
+        text = open(path).read()
         if text.count(old) != 1:
-            raise RuntimeError(f"{name}: line not found once in {stem}.cu")
-        with open(src, "w") as f:
+            raise RuntimeError(f"{name}: line not found once in {file}")
+        with open(path, "w") as f:
             f.write(text.replace(old, new))
+        src = os.path.join(d, f"{stem}.cu")
         out = os.path.join(d, f"{stem}.so")
         procs[name] = (subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-o", out, src],
@@ -161,8 +242,21 @@ def main():
             ok &= any(r["strict"]["worst"] > 1.0
                       for r in rows[name].values())
         result[str(dtype)] = rows
+    ring = {}
+    for kind in ("k4", "k5_copy", "k6"):
+        ring[f"sound_{kind}"] = ring_reading(kind)
+        ok &= ring[f"sound_{kind}"]["ok"]
+    for name, (stem, _, _, _, kind) in RING_MUTANTS.items():
+        sound_lib = _build.load(stem)
+        _build._libs[stem] = ctypes.CDLL(paths[name])
+        try:
+            ring[name] = ring_reading(kind)
+        finally:
+            _build._libs[stem] = sound_lib
+        ok &= not ring[name]["ok"]
     print(json.dumps({"shape": list(SHAPE), "causal": True, "ok": ok,
-                      "readings": result}), flush=True)
+                      "readings": result, "ring_shard": list(RING_SHARD),
+                      "ring_readings": ring}), flush=True)
     sys.exit(0 if ok else 1)
 
 

@@ -2,20 +2,26 @@
 
 Run from the repository root on a machine with one CUDA GPU::
 
-    python3 tools/torch_step_profile.py [--steps 3]
+    python3 tools/torch_step_profile.py [--steps 3] [--ring]
 
 Builds the main path that ``chip_smoke.py`` drives
 (``horovod_tpu_torch/torch/lm_step.py``: bench-width TransformerLM, bf16,
 batch 16 x seq 1024, ``DistributedOptimizer(AdamW)``,
-``build_train_step``), warms it up, times ``--steps`` untraced steps with
+``build_train_step``) or, with ``--ring``, its ring path (the same widths
+sequence-parallel over 4 members on the card, batch 4 x seq 4096, the
+fused ring: K4, K5, K7), warms it up, times ``--steps`` untraced steps with
 CUDA events, then traces ``--steps`` more with ``torch.profiler``.  From
 the Chrome trace it sums GPU kernel time by category (the port's flash
 kernels, matrix products, everything else) and the union of kernel
-intervals.  That union against the traced window's host wall time is the
+intervals (the members' streams overlap, so the categories can sum to
+more than the union).  That union against the traced window's host wall
+time is the
 measured idle share under the profiler; against the untraced step time
 it is an estimate of the idle share without the profiler (kernel
-durations taken from the traced steps).  Prints one JSON line.  The trace and a
-table of the 25 largest kernels go to ``chiprun_out/``.
+durations taken from the traced steps).  Prints one JSON line.  A table
+of the 25 largest kernels goes to ``chiprun_out/`` (``_ring`` in its name
+with ``--ring``), and so does the main path's trace; the ring path's
+trace is deleted once read (it is larger than a chip call brings back).
 """
 
 from __future__ import annotations
@@ -33,10 +39,18 @@ sys.path.insert(0, ROOT)
 
 import horovod_tpu_torch as hvd  # noqa: E402
 from horovod_tpu_torch.ops import attention as A  # noqa: E402
-from horovod_tpu_torch.torch.lm_step import HEADLINE, build_lm_step  # noqa
+from horovod_tpu_torch.ops import ring_flash as RF  # noqa: E402
+from horovod_tpu_torch.torch.lm_step import (HEADLINE,  # noqa: E402
+                                             RING_HEADLINE, build_lm_step)
 
 
 def category(name: str) -> str:
+    for kernel, cat in (("ring_fwd_kernel", "ring_flash_fwd"),
+                        ("ring_bwd_kernel", "ring_flash_bwd"),
+                        ("phase_closer_kernel", "phase_closer"),
+                        ("scale_cast_kernel", "ring_flash_bwd")):
+        if kernel in name:
+            return cat
     if "flash_fwd_kernel" in name:
         return "flash_fwd"
     if "flash_bwd_dkdv_kernel" in name:
@@ -63,12 +77,16 @@ def category(name: str) -> str:
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--ring", action="store_true",
+                    help="the sequence-parallel ring path")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("torch_step_profile: no CUDA device")
     hvd.init()
     torch.cuda.set_device(hvd.local_rank())
-    _, step, data = build_lm_step(**HEADLINE)
+    _, step, data = build_lm_step(**(RING_HEADLINE if args.ring
+                                     else HEADLINE))
+    tag = "_ring" if args.ring else ""
     for _ in range(3):
         step(data).item()
     torch.cuda.synchronize()
@@ -86,10 +104,11 @@ def main():
 
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
-    trace_path = os.path.join(out_dir, "torch_step_trace.json")
+    trace_path = os.path.join(out_dir, f"torch_step_trace{tag}.json")
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     A.reset_launches()
+    RF.reset_launches()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(args.steps):
@@ -100,6 +119,8 @@ def main():
 
     with open(trace_path) as f:
         events = json.load(f)["traceEvents"]
+    if args.ring:
+        os.remove(trace_path)
     kernels = [e for e in events
                if e.get("cat") == "kernel" and "dur" in e]
     if not kernels:
@@ -131,9 +152,11 @@ def main():
         "step_ms_untraced": untraced_ms,
         "device_idle_share_untraced_estimate":
             1.0 - busy / args.steps / 1e3 / untraced_ms,
-        "launches": dict(A.launches),
+        "path": "ring" if args.ring else "main",
+        "launches": {**A.launches, **RF.launches},
     }
-    with open(os.path.join(out_dir, "torch_step_top_kernels.txt"), "w") as f:
+    with open(os.path.join(out_dir, f"torch_step_top_kernels{tag}.txt"),
+              "w") as f:
         for name, us in sorted(by_name.items(), key=lambda x: -x[1])[:25]:
             f.write(f"{us / args.steps / 1e3:10.4f} ms/step  {name}\n")
     print(json.dumps(result), flush=True)
