@@ -14,7 +14,9 @@ Phases, one JSON line each:
    path's shape (16, 8, 1024, 64), fp16, a non-causal case, and a ragged
    length with head_dim 128.  Times (CUDA events, median after warm-up)
    of each kernel, its plain version and the library yardstick
-   (``scaled_dot_product_attention``, which the port never calls).
+   (``scaled_dot_product_attention``, which the port never calls, timed
+   under each backend that takes the shape: flash, memory-efficient and
+   cuDNN; ``library_ms`` is the fastest).
 4. ``model``   — a small TransformerLM on the card: the kernels' path
    against the plain blockwise path, logits and every gradient.
 5. ``train``   — the main path: ``hvd.init()``, the bench-width
@@ -33,7 +35,9 @@ Phases, one JSON line each:
    offsets without rotation at the main shape as B2's counterpart, timed
    beside K2 + K3; K6 bit-exact at shift +1 and -1 with its VJP; K7's zero
    block, and every flag word back at 0 after a fused forward + backward.
-   Times of each kernel, its plain version and its library yardstick.
+   Times of each kernel, its plain version and its library yardstick; K6
+   also by CUDA events on the member streams around its four launches
+   alone (``kernel_ms``), beside its round with the fork and join.
 7. ``ring_model`` — a small f32 LM sequence-parallel over 4 members in the
    fused, rdma and ppermute modes against the unsharded model on the same
    weights and tokens: logits and every gradient to 1e-4, and the launch
@@ -64,6 +68,7 @@ O(seq/n) or NVLink transfer times.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import os
@@ -100,6 +105,7 @@ OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
               torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
+SLEEP_CYCLES = 2_000_000  # ≈1 ms at the H100's clock: time_ms's lead
 MAIN = (16, 8, 1024, 64)  # batch, heads, seq, head_dim of the LM step
 RING = (4, 8, 1024, 64)  # one member's shard on the ring path (4 members)
 N_MEMBERS = 4
@@ -131,20 +137,44 @@ def fail(msg):
     raise RuntimeError(f"chip_smoke: {msg}")
 
 
-def time_ms(fn, warmup=3, iters=15):
-    """Median milliseconds of ``fn`` on the card (CUDA events)."""
+def time_ms(fn, warmup=3, iters=15, host_ahead=True):
+    """Median milliseconds of ``fn`` on the card (CUDA events).  With
+    ``host_ahead`` a 1 ms sleep kernel runs ahead of the start event, so
+    the host has queued ``fn``'s launches before the card reaches them
+    and the events hold device time alone; without it they also hold the
+    host's time to issue them (the Python wrapper's checks, allocations
+    and launch), as the port's first timings did."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(iters):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if host_ahead:
+            torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
         fn()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def sdpa_ms(make):
+    """``({backend: ms or None}, fastest ms)`` of the callable ``make()``
+    returns, made and timed under each SDPA backend; None where the
+    backend refuses the shape."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    times = {}
+    for name in ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION"):
+        try:
+            with sdpa_kernel(getattr(SDPBackend, name)):
+                times[name] = time_ms(make())
+        except RuntimeError:
+            times[name] = None
+    done = [x for x in times.values() if x is not None]
+    return times, (min(done) if done else None)
 
 
 def causal_pairs(sq, sk, causal):
@@ -221,28 +251,35 @@ def phase_kernels():
     o, lse = A.flash_fwd(qr, k, v, scale_r, causal)
     delta = A._delta(o, do)
     t_fwd = time_ms(lambda: A.flash_fwd(qr, k, v, scale_r, causal))
+    t_fwd_host = time_ms(lambda: A.flash_fwd(qr, k, v, scale_r, causal),
+                         host_ahead=False)
     t_dkdv = time_ms(lambda: A.flash_bwd_dkdv(qr, k, v, do, lse, delta,
                                               scale_r, causal))
     t_dq = time_ms(lambda: A.flash_bwd_dq(qr, k, v, do, lse, delta, scale_r,
                                           p2, causal))
     t_plain_fwd = time_ms(lambda: A._blockwise_fwd_impl(
-        qr, k, v, causal, scale_r, block_size=kernel_check.TILE),
-        warmup=1, iters=5)
+        qr, k, v, causal, scale_r,
+        block_size=A.fwd_key_tile(dtype, MAIN[3])), warmup=1, iters=5)
     t_plain_bwd = time_ms(lambda: A._attention_bwd_impl(
         qr, k, v, lse, delta, do, causal, scale_r,
-        block_size=kernel_check.TILE, dq_scale=p2, round_pds=True),
+        block_size=A.BWD_TILE, dq_scale=p2, round_pds=True),
         warmup=1, iters=5)
-    # Library yardstick: PyTorch's SDPA on (b, h, s, d), forward and its
-    # backward alone (dq, dk, dv in one autograd call).
+    # Library yardstick: PyTorch's SDPA on (b, h, s, d) under each
+    # backend, forward and its backward alone (dq, dk, dv in one autograd
+    # call).
     b, h, s, d = MAIN
     qs, ks, vs = (t.reshape(b, h, s, d).detach().requires_grad_()
                   for t in (q, k, v))
     dos = do.reshape(b, h, s, d)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    t_lib_fwd = time_ms(lambda: sdpa(qs, ks, vs, is_causal=causal))
-    out = sdpa(qs, ks, vs, is_causal=causal)
-    t_lib_bwd = time_ms(lambda: torch.autograd.grad(
-        out, (qs, ks, vs), dos, retain_graph=True))
+    lib_fwd, t_lib_fwd = sdpa_ms(
+        lambda: lambda: sdpa(qs, ks, vs, is_causal=causal))
+
+    def sdpa_bwd():
+        out = sdpa(qs, ks, vs, is_causal=causal)
+        return lambda: torch.autograd.grad(out, (qs, ks, vs), dos,
+                                           retain_graph=True)
+    lib_bwd, t_lib_bwd = sdpa_ms(sdpa_bwd)
 
     bh = b * h
     pairs = causal_pairs(s, s, causal) * bh
@@ -264,14 +301,18 @@ def phase_kernels():
     err = {n: max(main_errs[o]["max_abs_err"] for o in outs)
            for n, outs in outputs.items()}
     entries = {name: _entry(name, ms[name], plain[name], lib[name],
-                            *work[name], dtype, err[name])
+                            *work[name], dtype, err[name],
+                            library_by_backend=lib_fwd if name == "flash_fwd"
+                            else lib_bwd)
                for name in ms}
+    entries["flash_fwd"]["ms_with_host"] = t_fwd_host
     emit("kernels", cases=results, shape=list(MAIN), dtype=str(dtype),
          timing={n: {k: e[k] for k in ("ms", "plain_ms", "bound_ms",
                                        "bound_by", "library_ms")}
                  for n, e in entries.items()},
-         note="library_ms: SDPA forward for K1; SDPA's whole backward "
-              "(dq, dk, dv) for K2 and K3")
+         sdpa_fwd_ms=lib_fwd, sdpa_bwd_ms=lib_bwd,
+         note="library_ms: the fastest SDPA backend's forward for K1, its "
+              "whole backward (dq, dk, dv) for K2 and K3")
     return entries
 
 
@@ -347,6 +388,42 @@ def _worst(rows):
 
 def _max_err(rows, names):
     return max(r["errors"][n]["max_abs_err"] for r in rows for n in names)
+
+
+def k6_kernel_ms(mesh, xs, warmup=3, iters=15):
+    """Median over rounds of the longest member's K6 launch, by CUDA events
+    on the member streams around the launches alone.  Each round forks
+    the member streams off a sleep on the caller's stream, so every
+    launch is queued before any starts, and joins them after the events;
+    the fork and join stay outside the events."""
+    n = mesh.size
+    outs = [torch.empty_like(x) for x in xs]
+    table = (ctypes.c_void_p * n)(*[o.data_ptr() for o in outs])
+    table_ptr = ctypes.cast(table, ctypes.c_void_p)
+    nbytes = xs[0].numel() * xs[0].element_size()
+    fn = rdma._kernel_fn("hvdt_ring_permute")
+    ns = rdma.NS_RDMA
+    rounds = []
+    for _ in range(warmup + iters):
+        torch.cuda._sleep(SLEEP_CYCLES)
+        caller = mesh.fork()
+        events = []
+        for i in range(n):
+            with mesh.on(i):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                A._launch(fn, xs[i].data_ptr(), table_ptr, nbytes,
+                          rdma.COPY_BLOCKS, 1, mesh.flags.data_ptr(),
+                          mesh.go.data_ptr(), mesh.err.data_ptr(), i, n, ns,
+                          mesh.next_epoch(i, ns))
+                end.record()
+                events.append((start, end))
+        mesh.join(caller, outs)
+        rounds.append(events)
+    torch.cuda.synchronize()
+    return statistics.median(max(s.elapsed_time(e) for s, e in events)
+                             for events in rounds[warmup:])
 
 
 def phase_ring_kernels(k2k3_ms):
@@ -446,16 +523,19 @@ def phase_ring_kernels(k2k3_ms):
                                               m1["do"], sl, 0, True, scale_r)
     t_k4 = time_ms(lambda: RF.ring_flash_fwd(
         mesh, 1, m1["qr"], m0["k"], m0["v"], sl, 0, scale_r, True))
+    t_k4_host = time_ms(lambda: RF.ring_flash_fwd(
+        mesh, 1, m1["qr"], m0["k"], m0["v"], sl, 0, scale_r, True),
+        host_ahead=False)
     t_k5 = time_ms(lambda: RF.ring_flash_bwd(
         mesh, 1, m1["qr"], m0["k"], m0["v"], m1["do"], ref["lse"], delta,
         sl, 0, scale_r, True))
     t_k4_plain = time_ms(lambda: A._blockwise_fwd_impl(
         m1["qr"], m0["k"], m0["v"], True, scale_r,
-        block_size=kernel_check.TILE, q_offset=sl, k_offset=0),
+        block_size=A.fwd_key_tile(dtype, RING[3]), q_offset=sl, k_offset=0),
         warmup=1, iters=5)
     t_k5_plain = time_ms(lambda: A._attention_bwd_impl(
         m1["qr"], m0["k"], m0["v"], ref["lse"], delta, m1["do"], True,
-        scale_r, block_size=kernel_check.TILE, round_pds=True, q_offset=sl,
+        scale_r, block_size=A.BWD_TILE, round_pds=True, q_offset=sl,
         k_offset=0, grad_dtype=torch.float32), warmup=1, iters=5)
     calls = [dict(qr=members[i]["qr"], k=members[i]["k"],
                   v=members[i]["v"], q_offset=i * sl, k_offset=i * sl,
@@ -471,12 +551,16 @@ def phase_ring_kernels(k2k3_ms):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qs, ks, vs = (x.reshape(RING).detach().requires_grad_()
                   for x in (m1["qr"], m0["k"], m0["v"]))
-    t_lib_fwd = time_ms(lambda: sdpa(qs, ks, vs, scale=1.0))
-    out = sdpa(qs, ks, vs, scale=1.0)
+    lib_fwd, t_lib_fwd = sdpa_ms(lambda: lambda: sdpa(qs, ks, vs, scale=1.0))
     dos = m1["do"].reshape(RING)
-    t_lib_bwd = time_ms(lambda: torch.autograd.grad(
-        out, (qs, ks, vs), dos, retain_graph=True))
+
+    def sdpa_bwd():
+        out = sdpa(qs, ks, vs, scale=1.0)
+        return lambda: torch.autograd.grad(out, (qs, ks, vs), dos,
+                                           retain_graph=True)
+    lib_bwd, t_lib_bwd = sdpa_ms(sdpa_bwd)
     t_k6 = time_ms(lambda: rdma.permute_shards(xs, mesh, 1, 0))
+    t_k6_kernel = k6_kernel_ms(mesh, xs)
     dsts = [torch.empty_like(x) for x in xs]
     t_copy = time_ms(lambda: [o.copy_(x) for o, x in zip(dsts, xs)])
     t_k7 = time_ms(lambda: rotating_round(RF.phase_closer,
@@ -497,11 +581,13 @@ def phase_ring_kernels(k2k3_ms):
         "ring_flash_fwd": _entry(
             "ring_flash_fwd", t_k4, t_k4_plain, t_lib_fwd, 4 * d * pairs,
             3 * tile + tile + row, dtype, _max_err(bf16_rows, ("o", "lse")),
-            rotating_round_ms=t_k4_round),
+            rotating_round_ms=t_k4_round, library_by_backend=lib_fwd,
+            ms_with_host=t_k4_host),
         "ring_flash_bwd": _entry(
             "ring_flash_bwd", t_k5, t_k5_plain, t_lib_bwd, 10 * d * pairs,
             4 * tile + 2 * row + 3 * tile32, dtype,
             _max_err(bf16_rows, ("dq", "dk", "dv")),
+            library_by_backend=lib_bwd,
             as_b2={"shape": list(MAIN), "ms": b2_ms,
                    "k2_plus_k3_ms": k2k3_ms,
                    "bound_ms": bound_ms(10 * MAIN[3] * main_pairs,
@@ -512,9 +598,10 @@ def phase_ring_kernels(k2k3_ms):
                                       for e in b2_err.values())}),
         "ring_permute": _entry(
             "ring_permute", t_k6, None, t_copy, 0,
-            2 * N_MEMBERS * tile, dtype, 0.0,
-            note="one round: every member's launch; library: one copy_ "
-                 "per member"),
+            2 * N_MEMBERS * tile, dtype, 0.0, kernel_ms=t_k6_kernel,
+            note="ms: one round, fork and join included; kernel_ms: the "
+                 "longest member launch by CUDA events on its stream; "
+                 "library: one copy_ per member"),
         "phase_closer": _entry(
             "phase_closer", t_k7, None, None, 0, N_MEMBERS * 8 * 128 * 4,
             torch.float32, 0.0, note="one round: every member's launch"),

@@ -40,6 +40,23 @@ torch.backends.cuda.matmul.allow_tf32 = False
 
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 HEAD_DIMS = (32, 64, 96, 128)
+# Key tile of each forward body per head dim, as in the CUDA sources: the
+# 16-bit wgmma body (csrc/flash_fwd_sm90.cuh, sm90::BN) and the f32 SIMT
+# body (csrc/flash_common.cuh, BN).  The online softmax advances its
+# running max one key tile at a time and p is rounded against it, so the
+# plain side that holds a kernel scans keys in the same blocks.
+_FWD_KEY_TILE = {d: {"16-bit": 128 if d <= 64 else 64, "f32": 64}
+                 for d in HEAD_DIMS}
+BWD_TILE = 64  # K2, K3 and K5 tiles, query and key (csrc/flash_common.cuh)
+
+
+def fwd_key_tile(dtype, d: int) -> int:
+    """Key tile of the forward body (K1 and K4) that takes ``dtype`` at
+    head dim ``d``."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head_dim {d} unsupported {HEAD_DIMS}")
+    return _FWD_KEY_TILE[d]["f32" if dtype == torch.float32 else "16-bit"]
+
 
 # Kernel launches per wrapper, counted only where the kernel is launched.
 launches = {"flash_fwd": 0, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
@@ -405,7 +422,9 @@ def flash_attention(q, k, v, causal: bool = False,
     any sequence length; other inputs raise.  On a CPU tensor it is the
     mathematically identical :func:`blockwise_attention`.  ``block_q`` and
     ``block_k`` are accepted for API parity with the JAX package and
-    ignored: the kernels' tiles are fixed at 64 rows.
+    ignored: the kernels fix their own tiles (the forward 128 query rows by
+    128 keys in 16 bits, 64 keys above head_dim 64, and 64 by 64 in
+    float32, :func:`fwd_key_tile`; the backward 64 by 64).
     """
     del block_q, block_k
     if layout not in ("bhsd", "bshd"):

@@ -1,7 +1,9 @@
-// Shared pieces of the flash-attention kernels (flash_fwd.cu, flash_bwd.cu).
+// Shared pieces of the flash-attention kernels (flash_fwd.cu, flash_bwd.cu,
+// ring_flash.cu).
 //
-// Design (first port, simple and right before fast): one thread block of
-// four warps owns one 64-row tile of one (batch*head) row and walks its own
+// Design of the backward kernels (K2, K3, K5) and of the forward's f32 body
+// (the 16-bit forward is flash_fwd_sm90.cuh's): one thread block of four
+// warps owns one 64-row tile of one (batch*head) row and walks its own
 // loop over the other sequence axis.  Operand tiles are staged through
 // shared memory; every product accumulates in f32.  16-bit inputs (bf16,
 // fp16) multiply on the tensor cores through WMMA 16x16x16 fragments;
@@ -61,6 +63,12 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
 // scalar products, whose lanes walk down a column, hit distinct banks.
 template <typename T> struct Pad { static constexpr int v = 8; };
 template <> struct Pad<float> { static constexpr int v = 1; };
+
+__device__ __forceinline__ unsigned long long globaltimer_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
 
 __host__ __device__ constexpr size_t align128(size_t x) {
   return (x + 127) & ~static_cast<size_t>(127);

@@ -1,169 +1,90 @@
 // K1: causal/non-causal flash-attention forward for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel `_flash_kernel`
-// (horovod_tpu/ops/attention.py, with `_attend_block`, `_init_state` and
-// `_finalize_flash`).  Computes o = softmax(q' k^T * scale_r) v and the
-// per-row logsumexp, where q' arrives pre-scaled by the exact power-of-two
-// part of sm_scale (see `_split_scale`) and scale_r is the f32 residual.
-//
-// Bound on the card: at the training shape (bh 128, seq 1024, head_dim
-// 64, bf16, causal) the two products do ~17 GFLOP against ~67 MB of
-// traffic, so the floor is the ~20 us of HBM time; this kernel is instead
-// limited by its own shared-memory round trips (logits, probabilities and
-// the output accumulator all pass through shared memory between WMMA
-// products) and by WMMA's issue rate, far below the wgmma peak.  The
-// design keeps the reference's O(seq) memory: no (seq, seq) matrix ever
-// reaches device memory, and key tiles wholly above the diagonal are
-// skipped.  A register-resident wgmma/TMA pipeline is later work.
-//
-// Grid: (ceil(sq / 64), bh); 128 threads.  q, k, v, o: contiguous
-// (bh, s, D); lse: (bh, sq) f32.  Any sequence length: the ragged tail is
-// zero-filled on load and masked as NEG_INF logits.
+// (horovod_tpu/ops/attention.py:356, with `_attend_block`, `_init_state`
+// and `_finalize_flash`).  The body is flash_fwd_sm90.cuh's, shared with
+// K4 (ring_flash.cu), here at zero offsets; its note gives the bound and
+// the design.  16-bit inputs: grid (bh, ceil(sq / 128)), 384 threads,
+// heavy (late) query tiles first.  f32 inputs: grid (ceil(sq / 64), bh),
+// 128 threads.  q, k, v, o: contiguous (bh, s, D); lse: (bh, sq) f32.  Any
+// sequence length: the ragged tail is zero-filled on load and masked as
+// NEG_INF logits.
 
-#include "flash_common.cuh"
+#include "flash_fwd_sm90.cuh"
 
 namespace hvdt {
 
 template <typename T, int D>
-struct FwdSmem {
-  static constexpr int LDT = D + Pad<T>::v;   // q, k, v tiles
-  static constexpr int LDP = BN + Pad<T>::v;  // probabilities, cast to T
-  static constexpr int LDS = BN + 4;          // f32 logits
-  static constexpr int LDA = D + 4;           // f32 output accumulator
-  static constexpr size_t q = 0;
-  static constexpr size_t k = align128(q + BM * LDT * sizeof(T));
-  static constexpr size_t v = align128(k + BN * LDT * sizeof(T));
-  static constexpr size_t p = align128(v + BN * LDT * sizeof(T));
-  static constexpr size_t s = align128(p + BM * LDP * sizeof(T));
-  static constexpr size_t acc = align128(s + BM * LDS * sizeof(float));
-  static constexpr size_t m = align128(acc + BM * LDA * sizeof(float));
-  static constexpr size_t l = m + BM * sizeof(float);
-  static constexpr size_t alpha = l + BM * sizeof(float);
-  static constexpr size_t bytes = alpha + BM * sizeof(float);
-};
-
-template <typename T, int D>
-__global__ void __launch_bounds__(NT)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o,
+__global__ void __launch_bounds__(sm90::NTHREADS, 1)
+    flash_fwd_kernel(const __grid_constant__ CUtensorMap mq,
+                     const __grid_constant__ CUtensorMap mk,
+                     const __grid_constant__ CUtensorMap mv, T* __restrict__ o,
                      float* __restrict__ lse, int sq, int sk, float scale_r,
                      int causal) {
-  using L = FwdSmem<T, D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* Qs = reinterpret_cast<T*>(smem + L::q);
-  T* Ks = reinterpret_cast<T*>(smem + L::k);
-  T* Vs = reinterpret_cast<T*>(smem + L::v);
-  T* Ps = reinterpret_cast<T*>(smem + L::p);
-  float* S = reinterpret_cast<float*>(smem + L::s);
-  float* Acc = reinterpret_cast<float*>(smem + L::acc);
-  float* m_s = reinterpret_cast<float*>(smem + L::m);
-  float* l_s = reinterpret_cast<float*>(smem + L::l);
-  float* a_s = reinterpret_cast<float*>(smem + L::alpha);
+  const int qt = gridDim.y - 1 - blockIdx.y;
+  sm90::fwd_tile<T, D>(&mq, &mk, &mv, o, lse, blockIdx.x, qt * sm90::BM, sq,
+                       sk, 0, 0, scale_r, causal);
+}
 
-  const int q0 = blockIdx.x * BM;
+template <int D>
+__global__ void __launch_bounds__(NT)
+    flash_fwd_f32_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v, float* __restrict__ o,
+                         float* __restrict__ lse, int sq, int sk,
+                         float scale_r, int causal) {
   const size_t bh = blockIdx.y;
-  q += bh * sq * D;
-  k += bh * sk * D;
-  v += bh * sk * D;
-  o += bh * sq * D;
-  lse += bh * sq;
+  fwd_tile_f32<D>(q + bh * sq * D, k + bh * sk * D, v + bh * sk * D,
+                  o + bh * sq * D, lse + bh * sq, blockIdx.x * BM, sq, sk, 0,
+                  0, scale_r, causal);
+}
 
-  load_tile<T, D, BM>(Qs, L::LDT, q, q0, sq);
-  for (int i = threadIdx.x; i < BM * L::LDA; i += NT) Acc[i] = 0.f;
-  if (threadIdx.x < BM) {
-    m_s[threadIdx.x] = NEG_INF;
-    l_s[threadIdx.x] = 0.f;
-  }
+// Set each kernel's shared-memory limit once, before its first launch
+// (internal linkage: a mutant build loaded beside this one keeps its own).
+namespace {
+bool g_prepared[3][4] = {};
+}  // namespace
 
-  int n_kt = (sk + BN - 1) / BN;
-  // Causal pruning: key tiles that start past this query tile's last row
-  // are fully masked (reference: `k_start <= q_start + block_q - 1`).
-  if (causal) n_kt = min(n_kt, (q0 + BM - 1) / BN + 1);
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BN;
-    __syncthreads();  // previous tile's readers of Ks/Vs/Ps are done
-    load_tile<T, D, BN>(Ks, L::LDT, k, k0, sk);
-    load_tile<T, D, BN>(Vs, L::LDT, v, k0, sk);
-    __syncthreads();
-    mm_smem<T, BM, BN, D, true, false>(S, L::LDS, Qs, L::LDT, Ks, L::LDT);
-    __syncthreads();
-    // Online softmax, one warp per 16 rows, two columns per lane.
-    for (int r = warp * (BM / 4); r < (warp + 1) * (BM / 4); ++r) {
-      const int qpos = q0 + r;
-      float sv[2];
-      float mx = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int c = lane + 32 * j, kpos = k0 + c;
-        float x = S[r * L::LDS + c] * scale_r;
-        if (kpos >= sk || (causal && kpos > qpos)) x = NEG_INF;
-        sv[j] = x;
-        mx = fmaxf(mx, x);
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, mx);
-      // m_safe keeps rows with no unmasked key so far at zero mass:
-      // exp(NEG_INF - 0) underflows to 0 for p and for alpha.
-      const float m_safe = m_new <= NEG_INF / 2 ? 0.f : m_new;
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const float p = expf(sv[j] - m_safe);
-        Ps[r * L::LDP + lane + 32 * j] = from_f<T>(p);
-        sum += p;
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_safe);
-        l_s[r] = l_s[r] * alpha + sum;
-        m_s[r] = m_new;
-        a_s[r] = alpha;
-      }
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < BM * D; i += NT) {
-      const int r = i / D, c = i % D;
-      Acc[r * L::LDA + c] *= a_s[r];
-    }
-    __syncthreads();
-    mm_smem<T, BM, D, BN, false, true>(Acc, L::LDA, Ps, L::LDP, Vs, L::LDT);
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < BM * D; i += NT) {
-    const int r = i / D, c = i % D;
-    if (q0 + r < sq) {
-      const float l = l_s[r];
-      o[(size_t)(q0 + r) * D + c] =
-          from_f<T>(Acc[r * L::LDA + c] / (l == 0.f ? 1.f : l));
-    }
-  }
-  if (threadIdx.x < BM && q0 + threadIdx.x < sq) {
-    const float l = l_s[threadIdx.x];
-    lse[q0 + threadIdx.x] =
-        l == 0.f ? POS_BIG : m_s[threadIdx.x] + logf(fmaxf(l, 1e-37f));
-  }
+template <typename T, int D>
+int prepare_fwd() {
+  constexpr bool f32 = std::is_same<T, float>::value;
+  bool& ready = g_prepared[f32 ? 0 : std::is_same<T, __half>::value ? 1 : 2]
+                          [D / 32 - 1];
+  if (ready) return 0;
+  int e;
+  if constexpr (f32)
+    e = (int)cudaFuncSetAttribute(flash_fwd_f32_kernel<D>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)F32FwdSmem<D>::bytes);
+  else
+    e = (int)cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)sm90::Smem<D>::bytes);
+  ready = e == 0;
+  return e;
 }
 
 template <typename T, int D>
 int launch_fwd(const void* q, const void* k, const void* v, void* o,
                float* lse, int bh, int sq, int sk, float scale_r,
                int causal, cudaStream_t stream) {
-  constexpr size_t smem = FwdSmem<T, D>::bytes;
-  cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  dim3 grid((sq + BM - 1) / BM, bh);
-  flash_fwd_kernel<T, D><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, sq, sk, scale_r,
-      causal);
+  const int prep = prepare_fwd<T, D>();
+  if (prep != 0) return prep;
+  if constexpr (std::is_same<T, float>::value) {
+    dim3 grid((sq + BM - 1) / BM, bh);
+    flash_fwd_f32_kernel<D><<<grid, NT, F32FwdSmem<D>::bytes, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(o), lse, sq, sk,
+        scale_r, causal);
+  } else {
+    CUtensorMap mq, mk, mv;
+    const int e = sm90::make_maps<T, D>(&mq, &mk, &mv, q, k, v, bh, sq, sk);
+    if (e != 0) return e;
+    dim3 grid(bh, (sq + sm90::BM - 1) / sm90::BM);
+    flash_fwd_kernel<T, D>
+        <<<grid, sm90::NTHREADS, sm90::Smem<D>::bytes, stream>>>(
+            mq, mk, mv, static_cast<T*>(o), lse, sq, sk, scale_r, causal);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -42,12 +42,6 @@ struct Ring {
   int my, n, ns, epoch;
 };
 
-__device__ __forceinline__ unsigned long long globaltimer_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
 __device__ __forceinline__ int ld_volatile(const int* p) {
   return *reinterpret_cast<const volatile int*>(p);
 }

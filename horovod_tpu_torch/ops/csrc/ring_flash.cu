@@ -16,12 +16,16 @@
 // One launch holds two kinds of blocks.  Blocks [0, n_copy) are copy
 // blocks: after the ready handshake (ring_common.cuh) they copy k and v
 // into slot (dst, phase) of the mesh's receive slots, dst = (my + 1) % n,
-// where the neighbour's next step reads them.  The other blocks attend,
-// one 64-row tile each, as K1 (flash_fwd.cu) and K2 (flash_bwd.cu) do.
-// n_copy = 0 is the last, non-rotating ring step.  The copy blocks come
-// first in the grid so that they are dispatched first and the copy flies
-// under the attention blocks.
-//
+// where the neighbour's next step reads them.  The other blocks attend:
+// K4's run flash_fwd_sm90.cuh's forward body, the one K1 runs, at the
+// step's offsets (a 128-row query tile per 384-thread block for 16-bit
+// inputs, heavy tiles first; the f32 body's 64-row tiles otherwise); K5's
+// own one 64-row key tile each, as K2 (flash_bwd.cu) does.  n_copy = 0 is
+// the last, non-rotating ring step.  The copy blocks come first in the
+// grid so that they are dispatched first and the copy flies under the
+// attention blocks; they take the kernel's block shape, and so its shared
+// memory, while they wait.
+
 // dQ: the TPU kernel carries a whole-shard dQ scratch across its sequential
 // grid.  Hopper blocks run in no order, so each K5 block owns a key tile
 // (dK, dV in registers, as K2) and adds its dS K product for every query
@@ -39,34 +43,17 @@
 // Bound on the card: at the ring path's shape (bh 32 per member, shard
 // 1024, head_dim 64, bf16) a wholly visible step does 8.6 GFLOP (K4) and
 // 21.5 GFLOP (K5) against 17-30 MB of traffic plus the 8.4 MB copy, so
-// both are bound by the tensor cores (9-22 us at the published peak).
-// The blocks stage every product through shared memory with WMMA, as
-// K1-K3 do, and sit far from that bound; a wgmma/TMA pipeline is later
-// work.
+// both are bound by the tensor cores (9-22 us at the published peak).  K4
+// runs the wgmma/TMA body of flash_fwd_sm90.cuh; K5 stages every product
+// through shared memory with WMMA, as K2 and K3 do, and sits far from its
+// bound.
 
 #include <algorithm>
 
+#include "flash_fwd_sm90.cuh"
 #include "ring_common.cuh"
 
 namespace hvdt {
-
-template <typename T, int D>
-struct RingFwdSmem {  // flash_fwd.cu's FwdSmem
-  static constexpr int LDT = D + Pad<T>::v;
-  static constexpr int LDP = BN + Pad<T>::v;
-  static constexpr int LDS = BN + 4;
-  static constexpr int LDA = D + 4;
-  static constexpr size_t q = 0;
-  static constexpr size_t k = align128(q + BM * LDT * sizeof(T));
-  static constexpr size_t v = align128(k + BN * LDT * sizeof(T));
-  static constexpr size_t p = align128(v + BN * LDT * sizeof(T));
-  static constexpr size_t s = align128(p + BM * LDP * sizeof(T));
-  static constexpr size_t acc = align128(s + BM * LDS * sizeof(float));
-  static constexpr size_t m = align128(acc + BM * LDA * sizeof(float));
-  static constexpr size_t l = m + BM * sizeof(float);
-  static constexpr size_t alpha = l + BM * sizeof(float);
-  static constexpr size_t bytes = alpha + BM * sizeof(float);
-};
 
 template <typename T, int D>
 struct RingBwdSmem {  // flash_bwd.cu's BwdSmem
@@ -103,122 +90,47 @@ __device__ void copy_role(const T* k, const T* v, T* k_slots, T* v_slots,
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(NT)
-    ring_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, T* __restrict__ o,
-                    float* __restrict__ lse, int bh_total, int sq, int sk,
-                    int q_off, int k_off, float scale_r, int causal,
-                    T* k_slots, T* v_slots, int n_copy, int phase,
-                    Ring ring) {
+__global__ void __launch_bounds__(sm90::NTHREADS, 1)
+    ring_fwd_kernel(const __grid_constant__ CUtensorMap mq,
+                    const __grid_constant__ CUtensorMap mk,
+                    const __grid_constant__ CUtensorMap mv,
+                    T* __restrict__ o, float* __restrict__ lse, int bh_total,
+                    int sq, int sk, int q_off, int k_off, float scale_r,
+                    int causal, const T* k, const T* v, T* k_slots,
+                    T* v_slots, int n_copy, int phase, Ring ring) {
   if ((int)blockIdx.x < n_copy) {
     copy_role<T, D>(k, v, k_slots, v_slots, bh_total, sk, phase, n_copy,
                     ring);
     return;
   }
-  using L = RingFwdSmem<T, D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* Qs = reinterpret_cast<T*>(smem + L::q);
-  T* Ks = reinterpret_cast<T*>(smem + L::k);
-  T* Vs = reinterpret_cast<T*>(smem + L::v);
-  T* Ps = reinterpret_cast<T*>(smem + L::p);
-  float* S = reinterpret_cast<float*>(smem + L::s);
-  float* Acc = reinterpret_cast<float*>(smem + L::acc);
-  float* m_s = reinterpret_cast<float*>(smem + L::m);
-  float* l_s = reinterpret_cast<float*>(smem + L::l);
-  float* a_s = reinterpret_cast<float*>(smem + L::alpha);
+  const int a = blockIdx.x - n_copy;
+  const int n_qt = (sq + sm90::BM - 1) / sm90::BM;
+  const int qt = n_qt - 1 - a / bh_total;  // heavy query tiles first
+  sm90::fwd_tile<T, D>(&mq, &mk, &mv, o, lse, a % bh_total, qt * sm90::BM,
+                       sq, sk, q_off, k_off, scale_r, causal);
+}
 
+template <int D>
+__global__ void __launch_bounds__(NT)
+    ring_fwd_f32_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v, float* __restrict__ o,
+                        float* __restrict__ lse, int bh_total, int sq, int sk,
+                        int q_off, int k_off, float scale_r, int causal,
+                        float* k_slots, float* v_slots, int n_copy, int phase,
+                        Ring ring) {
+  if ((int)blockIdx.x < n_copy) {
+    copy_role<float, D>(k, v, k_slots, v_slots, bh_total, sk, phase, n_copy,
+                        ring);
+    return;
+  }
   const int a = blockIdx.x - n_copy;
   const int n_qt = (sq + BM - 1) / BM;
-  const int q0 = (a % n_qt) * BM;
-  const size_t bh = a / n_qt;
-  q += bh * sq * D;
-  k += bh * sk * D;
-  v += bh * sk * D;
-  o += bh * sq * D;
-  lse += bh * sq;
-
-  load_tile<T, D, BM>(Qs, L::LDT, q, q0, sq);
-  for (int i = threadIdx.x; i < BM * L::LDA; i += NT) Acc[i] = 0.f;
-  if (threadIdx.x < BM) {
-    m_s[threadIdx.x] = NEG_INF;
-    l_s[threadIdx.x] = 0.f;
-  }
-
-  int n_kt = (sk + BN - 1) / BN;
-  if (causal) {
-    // Key tiles whose first absolute position lies past this query tile's
-    // last one are wholly masked; a held shard wholly in the future leaves
-    // no tile at all (o = 0, lse = POS_BIG below).
-    const int lim = q_off + q0 + BM - 1 - k_off;
-    n_kt = lim < 0 ? 0 : min(n_kt, lim / BN + 1);
-  }
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BN;
-    __syncthreads();
-    load_tile<T, D, BN>(Ks, L::LDT, k, k0, sk);
-    load_tile<T, D, BN>(Vs, L::LDT, v, k0, sk);
-    __syncthreads();
-    mm_smem<T, BM, BN, D, true, false>(S, L::LDS, Qs, L::LDT, Ks, L::LDT);
-    __syncthreads();
-    for (int r = warp * (BM / 4); r < (warp + 1) * (BM / 4); ++r) {
-      const int qpos = q_off + q0 + r;
-      float sv[2];
-      float mx = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int c = lane + 32 * j;
-        float x = S[r * L::LDS + c] * scale_r;
-        if (k0 + c >= sk || (causal && k_off + k0 + c > qpos)) x = NEG_INF;
-        sv[j] = x;
-        mx = fmaxf(mx, x);
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, mx);
-      const float m_safe = m_new <= NEG_INF / 2 ? 0.f : m_new;
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const float p = expf(sv[j] - m_safe);
-        Ps[r * L::LDP + lane + 32 * j] = from_f<T>(p);
-        sum += p;
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_safe);
-        l_s[r] = l_s[r] * alpha + sum;
-        m_s[r] = m_new;
-        a_s[r] = alpha;
-      }
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < BM * D; i += NT) {
-      const int r = i / D, c = i % D;
-      Acc[r * L::LDA + c] *= a_s[r];
-    }
-    __syncthreads();
-    mm_smem<T, BM, D, BN, false, true>(Acc, L::LDA, Ps, L::LDP, Vs, L::LDT);
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < BM * D; i += NT) {
-    const int r = i / D, c = i % D;
-    if (q0 + r < sq) {
-      const float l = l_s[r];
-      o[(size_t)(q0 + r) * D + c] =
-          from_f<T>(Acc[r * L::LDA + c] / (l == 0.f ? 1.f : l));
-    }
-  }
-  if (threadIdx.x < BM && q0 + threadIdx.x < sq) {
-    const float l = l_s[threadIdx.x];
-    lse[q0 + threadIdx.x] =
-        l == 0.f ? POS_BIG : m_s[threadIdx.x] + logf(fmaxf(l, 1e-37f));
-  }
+  const size_t bh = a % bh_total;
+  const int qt = n_qt - 1 - a / bh_total;
+  fwd_tile_f32<D>(q + bh * sq * D, k + bh * sk * D, v + bh * sk * D,
+                  o + bh * sq * D, lse + bh * sq, qt * BM, sq, sk, q_off,
+                  k_off, scale_r, causal);
 }
 
 template <typename T, int D, typename OT>
@@ -355,9 +267,15 @@ int prepare_ring() {
   bool& ready = g_prepared[dtype_slot<T>()][D / 32 - 1];
   if (ready) return 0;
   cudaFuncAttributes attr;
-  int e = (int)cudaFuncSetAttribute(
-      ring_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)RingFwdSmem<T, D>::bytes);
+  int e;
+  if constexpr (std::is_same<T, float>::value)
+    e = (int)cudaFuncSetAttribute(ring_fwd_f32_kernel<D>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)F32FwdSmem<D>::bytes);
+  else
+    e = (int)cudaFuncSetAttribute(ring_fwd_kernel<T, D>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)sm90::Smem<D>::bytes);
   e |= (int)cudaFuncSetAttribute(
       ring_bwd_kernel<T, D, float>,
       cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -378,13 +296,25 @@ int launch_ring_fwd(const void* q, const void* k, const void* v, void* o,
                     int n_copy, int phase, Ring ring, cudaStream_t stream) {
   const int prep = prepare_ring<T, D>();
   if (prep != 0) return prep;
-  constexpr size_t smem = RingFwdSmem<T, D>::bytes;
-  const int blocks = n_copy + ((sq + BM - 1) / BM) * bh;
-  ring_fwd_kernel<T, D><<<blocks, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, bh, sq, sk, q_off,
-      k_off, scale_r, causal, static_cast<T*>(k_slots),
-      static_cast<T*>(v_slots), n_copy, phase, ring);
+  if constexpr (std::is_same<T, float>::value) {
+    const int blocks = n_copy + ((sq + BM - 1) / BM) * bh;
+    ring_fwd_f32_kernel<D><<<blocks, NT, F32FwdSmem<D>::bytes, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(o), lse, bh, sq,
+        sk, q_off, k_off, scale_r, causal, static_cast<float*>(k_slots),
+        static_cast<float*>(v_slots), n_copy, phase, ring);
+  } else {
+    CUtensorMap mq, mk, mv;
+    const int e = sm90::make_maps<T, D>(&mq, &mk, &mv, q, k, v, bh, sq, sk);
+    if (e != 0) return e;
+    const int blocks = n_copy + ((sq + sm90::BM - 1) / sm90::BM) * bh;
+    ring_fwd_kernel<T, D>
+        <<<blocks, sm90::NTHREADS, sm90::Smem<D>::bytes, stream>>>(
+            mq, mk, mv, static_cast<T*>(o), lse, bh, sq, sk, q_off, k_off,
+            scale_r, causal, static_cast<const T*>(k),
+            static_cast<const T*>(v), static_cast<T*>(k_slots),
+            static_cast<T*>(v_slots), n_copy, phase, ring);
+  }
   return (int)cudaGetLastError();
 }
 

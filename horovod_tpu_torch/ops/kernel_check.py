@@ -9,9 +9,10 @@ be exactly zero.
 
 The plain side rounds where the kernels round, so the limit can be tight:
 
-* forward — the blockwise scan over 64-key blocks, the kernels' tile: the
-  running max advances per tile as in K1, so p is rounded to the storage
-  dtype against the same max before its product with v;
+* forward — the blockwise scan over key blocks of the forward body's key
+  tile (``attention.fwd_key_tile``: 128 keys in 16 bits, 64 in float32):
+  the running max advances per tile as in K1 and K4, so p is rounded to
+  the storage dtype against the same max before its product with v;
 * backward — p and ds rounded to the storage dtype before their products
   (``round_pds``), as K2/K3 and the reference's ``_bwd_block_math`` do.
 
@@ -44,17 +45,15 @@ import torch
 
 from horovod_tpu_torch.ops import attention as A
 
-TILE = 64  # query/key rows per tile in the kernels (csrc/flash_common.cuh)
-
-
 def plain_outputs(qr, k, v, do, causal, scale_r, p2):
     """``{o, lse, dq, dk, dv}`` of the plain versions on the kernels'
     inputs, rounded where the kernels round, and the ``delta`` of that o."""
-    o, lse = A._blockwise_fwd_impl(qr, k, v, causal, scale_r,
-                                   block_size=TILE)
+    o, lse = A._blockwise_fwd_impl(
+        qr, k, v, causal, scale_r,
+        block_size=A.fwd_key_tile(qr.dtype, qr.shape[-1]))
     delta = A._delta(o, do)
     dq, dk, dv = A._attention_bwd_impl(qr, k, v, lse, delta, do, causal,
-                                       scale_r, block_size=TILE,
+                                       scale_r, block_size=A.BWD_TILE,
                                        dq_scale=p2, round_pds=True)
     return {"o": o, "lse": lse, "dq": dq, "dk": dk, "dv": dv}, delta
 
@@ -110,12 +109,13 @@ def ring_plain_step(qr, k, v, do, q_offset, k_offset, causal, scale_r,
     """``{o, lse, dq, dk, dv}`` of the plain versions of K4 and K5 at
     absolute offsets, rounded where the kernels round, and the ``delta``
     of that o (K5 takes the plain lse and delta)."""
-    o, lse = A._blockwise_fwd_impl(qr, k, v, causal, scale_r,
-                                   block_size=TILE, q_offset=q_offset,
-                                   k_offset=k_offset)
+    o, lse = A._blockwise_fwd_impl(
+        qr, k, v, causal, scale_r,
+        block_size=A.fwd_key_tile(qr.dtype, qr.shape[-1]),
+        q_offset=q_offset, k_offset=k_offset)
     delta = A._delta(o, do)
     dq, dk, dv = A._attention_bwd_impl(
-        qr, k, v, lse, delta, do, causal, scale_r, block_size=TILE,
+        qr, k, v, lse, delta, do, causal, scale_r, block_size=A.BWD_TILE,
         dq_scale=dq_scale, round_pds=True, q_offset=q_offset,
         k_offset=k_offset, grad_dtype=grad_dtype)
     return {"o": o, "lse": lse, "dq": dq, "dk": dk, "dv": dv}, delta

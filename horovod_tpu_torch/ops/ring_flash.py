@@ -51,6 +51,9 @@ import torch
 from horovod_tpu_torch.ops import attention as A
 from horovod_tpu_torch.parallel.mesh import NS_FUSED
 
+# Copy blocks of a rotating K4/K5 launch: each holds a whole SM while it
+# waits for the handshake; on the H100, 16 copy the shard as fast as 32 and
+# faster than 8 (tools/torch_ring_copy_blocks.py, PERF.md).
 COPY_BLOCKS = 16
 
 # Kernel launches per wrapper, counted only where the kernel is launched.

@@ -56,6 +56,29 @@ def test_kernels_match_plain_versions(cuda_device, dtype, seq, d, causal):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
+@pytest.mark.parametrize("seq", [1, 64, 127, 129, 1000])
+def test_flash_fwd_at_the_tile_edges(cuda_device, seq, d, causal, dtype):
+    """K1's 16-bit body around its 128-row query tile and its key tile
+    (128 keys, 64 above head_dim 64): one row, part of a tile, one short
+    of and one past a tile, and a ragged length over several tiles."""
+    g = torch.Generator(device=cuda_device).manual_seed(seq * 1000 + d)
+    q, k, v = (torch.randn(3, seq, d, device=cuda_device, generator=g)
+               .to(dtype) for _ in range(3))
+    p2, r = tattn._split_scale(d ** -0.5)
+    qr = (q * p2).to(dtype)
+    ref, _ = kernel_check.plain_outputs(qr, k, v, v, causal, r, p2)
+    before = tattn.launches["flash_fwd"]
+    o, lse = tattn.flash_fwd(qr, k, v, r, causal)
+    assert tattn.launches["flash_fwd"] == before + 1
+    torch.cuda.synchronize()
+    assert _close(o, ref["o"])
+    assert kernel_check.compare_lse(lse, ref["lse"])["worst"] <= 1.0
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("layout", ["bhsd", "bshd"])
 def test_flash_attention_autograd_matches_blockwise(cuda_device, layout):
     """flash_attention on CUDA (K1 forward, K2 + K3 backward through
@@ -104,12 +127,15 @@ def _ring():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
-@pytest.mark.parametrize("sl,d", [(256, 64), (200, 128)])
+@pytest.mark.parametrize("sl,d", [(256, 64), (200, 64), (200, 128)])
 def test_ring_steps_match_plain_versions(cuda_device, dtype, sl, d):
     """K4 and K5 on every kind of ring step (diagonal, wholly visible,
     wholly masked), rotating and not, against their plain versions; the
     rotation lands in the neighbours' slots bit for bit and every flag
-    returns to 0."""
+    returns to 0.  Shard 200 puts K4's 128-row query tile and its key tile
+    (128 keys at head_dim 64, 64 at 128) across the shard's end; a wholly
+    masked step must read exact zeros and POS_BIG (kernel_check.compare,
+    compare_lse)."""
     mesh = _ring()
     members, _, scale_r = kernel_check.ring_inputs(4, (2, 2, sl, d), dtype,
                                                    sl + d)

@@ -23,10 +23,13 @@ def _inputs(shape, dtype, seed):
     return (q * p2).to(dtype), k, v, do, p2, r
 
 
-def test_plain_side_is_the_plain_path_in_float32():
-    """In float32 the 64-key tile and round_pds change only summation
-    order: kernel_check's plain side agrees with the default plain
-    forward (512-key blocks) and backward under the f32 rule."""
+@pytest.mark.parametrize("fwd_tile", [64, 128])
+def test_plain_side_is_the_plain_path_in_float32(monkeypatch, fwd_tile):
+    """In float32 the forward's key tile (the f32 body's 64, the 16-bit
+    body's 128) and round_pds change only summation order: kernel_check's
+    plain side agrees with the default plain forward (512-key blocks) and
+    backward under the f32 rule."""
+    monkeypatch.setattr(tattn, "fwd_key_tile", lambda dtype, d: fwd_tile)
     qr, k, v, do, p2, r = _inputs((2, 200, 64), torch.float32, 0)
     ref, delta = kernel_check.plain_outputs(qr, k, v, do, True, r, p2)
     o, lse = tattn._blockwise_fwd_impl(qr, k, v, True, r)
@@ -35,6 +38,33 @@ def test_plain_side_is_the_plain_path_in_float32():
     for name, got in (("o", o), ("lse", lse), ("dq", dq), ("dk", dk),
                       ("dv", dv)):
         assert kernel_check.compare(got, ref[name])["worst"] <= 1.0, name
+
+
+def test_forward_key_tile_follows_the_kernels():
+    """The plain side's forward key block is the forward body's key tile
+    (csrc/flash_fwd_sm90.cuh: 128 in 16 bits up to head_dim 64, 64 above
+    and in float32); in bf16 the choice is live: p is rounded against the
+    running max per tile, so a 128-key plain side differs from a 64-key
+    one."""
+    for d in tattn.HEAD_DIMS:
+        tile16 = 128 if d <= 64 else 64
+        assert tattn.fwd_key_tile(torch.bfloat16, d) == tile16
+        assert tattn.fwd_key_tile(torch.float16, d) == tile16
+        assert tattn.fwd_key_tile(torch.float32, d) == 64
+    with pytest.raises(ValueError, match="head_dim"):
+        tattn.fwd_key_tile(torch.bfloat16, 48)
+    qr, k, v, do, p2, r = _inputs((2, 512, 64), torch.bfloat16, 4)
+    ref, _ = kernel_check.plain_outputs(qr, k, v, do, True, r, p2)
+    o128, lse128 = tattn._blockwise_fwd_impl(qr, k, v, True, r,
+                                             block_size=128)
+    o64, _ = tattn._blockwise_fwd_impl(qr, k, v, True, r, block_size=64)
+    assert torch.equal(ref["o"], o128) and torch.equal(ref["lse"], lse128)
+    assert not torch.equal(o64, o128)
+    # The ring step's plain side takes the same tile.
+    ring, _ = kernel_check.ring_plain_step(qr, k, v, do, 512, 0, True, r)
+    o_ring, _ = tattn._blockwise_fwd_impl(qr, k, v, True, r, block_size=128,
+                                          q_offset=512, k_offset=0)
+    assert torch.equal(ring["o"], o_ring)
 
 
 def test_round_pds_rounds_p_and_ds_before_their_products():

@@ -1,0 +1,116 @@
+"""Generate ``horovod_tpu_torch/ops/csrc/wgmma_sm90.cuh``.
+
+Run from the repository root::
+
+    python3 tools/torch_gen_wgmma.py
+
+A ``wgmma.mma_async`` instruction names every accumulator register of the
+thread as its own operand (``m64nNk16`` with an f32 accumulator: N / 2
+registers), so each shape is one inline-assembly statement with N / 2
+``"+f"`` operands.  This script writes them out for the shapes the flash
+forward uses (``csrc/flash_fwd_sm90.cuh``):
+
+* ``Wgmma<N, T>::ss`` — A and B from shared memory, both K-major (the
+  logits ``S = Q K^T``), N = 64 or 128 keys; ``scale_d`` 0 overwrites the
+  accumulator, 1 adds to it;
+* ``Wgmma<N, T>::rs`` — A from registers, B from shared memory MN-major
+  (``O += P V`` with V stored as it arrives, keys by head dim), N = head
+  dim 32/64/96/128; always adds.
+
+T is ``__nv_bfloat16`` or ``__half``.  The output is checked in, so the
+build needs no Python step; rerun this after changing a shape.
+"""
+
+from __future__ import annotations
+
+import os
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+OUT = os.path.join(ROOT, "horovod_tpu_torch", "ops", "csrc",
+                   "wgmma_sm90.cuh")
+SS_N = (64, 128)
+RS_N = (32, 64, 96, 128)
+TYPES = (("__nv_bfloat16", "bf16"), ("__half", "f16"))
+
+HEAD = """\
+// Generated by tools/torch_gen_wgmma.py; do not edit by hand.
+//
+// Warpgroup matrix-multiply wrappers for the flash forward
+// (flash_fwd_sm90.cuh): one inline-assembly statement per shape, since
+// wgmma names each f32 accumulator register of the thread as an operand.
+// d[4 * i + 2 * h + j] of a thread t of the warpgroup holds row
+// 16 * (t / 32) + (t % 32) / 4 + 8 * h, column 8 * i + 2 * (t % 4) + j.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <stdint.h>
+
+namespace hvdt {
+namespace sm90 {
+
+template <int N, typename T>
+struct Wgmma;
+"""
+
+TAIL = """
+}  // namespace sm90
+}  // namespace hvdt
+"""
+
+
+def _regs(n, first=0):
+    return ", ".join(f"%{first + i}" for i in range(n))
+
+
+def _outs(n):
+    return ", ".join(f'"+f"(d[{i}])' for i in range(n))
+
+
+def ss(n, ptx):
+    r = n // 2
+    return f"""
+  // S (64 x {n}) = or += A (64 x 16, K-major) B^T (B {n} x 16, K-major).
+  __device__ static __forceinline__ void ss(float (&d)[{r}], uint64_t a,
+                                            uint64_t b, int scale_d) {{
+    asm volatile(
+        "{{\\n.reg .pred p;\\nsetp.ne.b32 p, %{r + 2}, 0;\\n"
+        "wgmma.mma_async.sync.aligned.m64n{n}k16.f32.{ptx}.{ptx} "
+        "{{{_regs(r)}}}, %{r}, %{r + 1}, p, 1, 1, 0, 0;\\n}}\\n"
+        : {_outs(r)}
+        : "l"(a), "l"(b), "r"(scale_d));
+  }}"""
+
+
+def rs(n, ptx):
+    r = n // 2
+    return f"""
+  // D (64 x {n}) += A (64 x 16, registers) B (16 x {n}, MN-major).
+  __device__ static __forceinline__ void rs(float (&d)[{r}],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {{
+    asm volatile(
+        "{{\\n.reg .pred p;\\nsetp.ne.b32 p, %{r + 5}, 0;\\n"
+        "wgmma.mma_async.sync.aligned.m64n{n}k16.f32.{ptx}.{ptx} "
+        "{{{_regs(r)}}}, {{{_regs(4, r)}}}, %{r + 4}, p, 1, 1, 1;\\n}}\\n"
+        : {_outs(r)}
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }}"""
+
+
+def main():
+    parts = [HEAD]
+    for ctype, ptx in TYPES:
+        for n in sorted(set(SS_N) | set(RS_N)):
+            body = (ss(n, ptx) if n in SS_N else "") + \
+                (rs(n, ptx) if n in RS_N else "")
+            parts.append(f"\ntemplate <>\nstruct Wgmma<{n}, {ctype}> {{"
+                         f"{body}\n}};\n")
+    parts.append(TAIL)
+    with open(OUT, "w") as f:
+        f.write("".join(parts))
+
+
+if __name__ == "__main__":
+    main()

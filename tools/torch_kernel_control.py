@@ -5,30 +5,36 @@ Run from the repository root on a machine with one CUDA GPU::
     python3 tools/torch_kernel_control.py
 
 Builds mutants of the attention kernels, each with one line changed so
-that it skips part of its loop:
+that it skips part of its work.  K1's mutants change the forward body
+that K1 and K4 share (``csrc/flash_fwd_sm90.cuh``, 128-key tiles); each
+keeps the body's barrier protocol, so a mutant computes wrong and never
+hangs:
 
-* ``fwd_skip_key_tile``    — K1 skips the second-to-last key tile;
+* ``fwd_skip_key_tile``    — K1 masks out the second-to-last key tile;
 * ``dkdv_skip_query_tile`` — K2 skips the last query tile (not its own);
 * ``dq_skip_key_tile``     — K3 skips the second-to-last key tile;
-* ``fwd_late_rows_skip_first_key_tile`` — K1, for query rows from 512
-  on, skips key tile 0;
+* ``fwd_late_rows_skip_first_key_tile`` — K1, for query tiles from row
+  512 on, masks out key tile 0;
 * ``dkdv_late_keys_skip_next_query_tile`` — K2, for keys from 512 on,
   skips the query tile after the diagonal;
 * ``dq_late_rows_skip_first_key_tile`` — K3, for query rows from 512 on,
   skips key tile 0;
 * ``fwd_late_rows_5pct``, ``dkdv_late_keys_5pct``, ``dq_late_rows_5pct``
   — K1's o, K2's dv and K3's dq come out 5% small for rows (keys) from
-  512 on: a mis-rescaled second half.
+  512 on: a mis-rescaled second half;
+* ``fwd_pv_drops_last_k16_slice`` — K1's P V product leaves out the last
+  16-key slice of every key tile (the wgmma k-loop one step short).
 
 The first three drop most of the mass of some rows; the next three drop
-a share of late rows only; the last three move late rows, whose values
+a share of late rows only; the next three move late rows, whose values
 are small against the largest, by less than the old rule's limit.
 
 Mutants of the ring kernels, each read on a ring of 4 members of shard
 (4, 8, 1024, 64) in bf16 on the card:
 
-* ``k4_k_offset_one_tile`` — K4 takes its k offset one 64-row tile late
-  (read: o and lse of a diagonal step, under ``kernel_check``'s rule);
+* ``k4_k_offset_one_tile`` — K4 takes its k offset one 128-key tile late
+  (in the shared forward body; read: o and lse of a diagonal step, under
+  ``kernel_check``'s rule);
 * ``k5_copy_drops_last_chunk`` — the copy blocks skip their last chunk
   (the loop is shared by K4 and K5; read: the receive slots after a
   rotating round of K5 alone, bit for bit);
@@ -65,52 +71,64 @@ from horovod_tpu_torch.ops import attention as A  # noqa: E402
 from horovod_tpu_torch.ops import kernel_check  # noqa: E402
 
 SHAPE = (128, 1024, 64)  # (batch*heads, seq, head_dim) of the LM step
-# Heads of the loops: over key tiles (K1, and K3 — flash_bwd.cu has this
-# line only there) and over query tiles (K2).
+# Heads of the backward's loops: over key tiles (K3 — flash_bwd.cu has
+# this line only there) and over query tiles (K2).
 KEY_LOOP = "    const int k0 = kt * BN;\n"
 QUERY_LOOP = "    const int q0 = qt * BM;\n"
-# mutant: (source stem, line, what replaces it, outputs held)
+# Lines of the shared 16-bit forward body (K1, K4).
+FWD_BODY = "flash_fwd_sm90.cuh"
+KEY_END = "      const int key_end = sk - k0;\n"
+FWD_INV = "const float inv = lt == 0.f ? 1.f : 1.f / lt;"
+PV_LOOP = "for (int j = 0; j < PV_STEPS; ++j) {"
+# mutant: (source stem, file mutated, line, what replaces it, outputs held)
 MUTANTS = {
     "fwd_skip_key_tile": (
-        "flash_fwd", KEY_LOOP,
-        KEY_LOOP + "    if (kt == n_kt - 2) continue;\n", ("o", "lse")),
+        "flash_fwd", FWD_BODY, KEY_END,
+        KEY_END + "      if (kt == n_kt - 2)\n"
+        "        for (float& x : s) x = NEG_INF;\n", ("o", "lse")),
     "dkdv_skip_query_tile": (
-        "flash_bwd", QUERY_LOOP,
+        "flash_bwd", "flash_bwd.cu", QUERY_LOOP,
         QUERY_LOOP + "    if (qt == n_qt - 1 && qt > qt0) continue;\n",
         ("dk", "dv")),
     "dq_skip_key_tile": (
-        "flash_bwd", KEY_LOOP,
+        "flash_bwd", "flash_bwd.cu", KEY_LOOP,
         KEY_LOOP + "    if (kt == n_kt - 2) continue;\n", ("dq",)),
     "fwd_late_rows_skip_first_key_tile": (
-        "flash_fwd", KEY_LOOP,
-        KEY_LOOP + "    if (q0 >= 512 && kt == 0) continue;\n", ("o", "lse")),
+        "flash_fwd", FWD_BODY, KEY_END,
+        KEY_END + "      if (q0 >= 512 && kt == 0)\n"
+        "        for (float& x : s) x = NEG_INF;\n", ("o", "lse")),
     "dkdv_late_keys_skip_next_query_tile": (
-        "flash_bwd", QUERY_LOOP,
+        "flash_bwd", "flash_bwd.cu", QUERY_LOOP,
         QUERY_LOOP + "    if (k0 >= 512 && qt == qt0 + 1) continue;\n",
         ("dk", "dv")),
     "dq_late_rows_skip_first_key_tile": (
-        "flash_bwd", KEY_LOOP,
+        "flash_bwd", "flash_bwd.cu", KEY_LOOP,
         KEY_LOOP + "    if (q0 >= 512 && kt == 0) continue;\n", ("dq",)),
     "fwd_late_rows_5pct": (
-        "flash_fwd", "/ (l == 0.f ? 1.f : l));",
-        "/ (l == 0.f ? 1.f : l) * (q0 >= 512 ? 0.95f : 1.f));", ("o",)),
+        "flash_fwd", FWD_BODY, FWD_INV,
+        "const float inv = (lt == 0.f ? 1.f : 1.f / lt) * "
+        "(q0 >= 512 ? 0.95f : 1.f);", ("o",)),
     "dkdv_late_keys_5pct": (
-        "flash_bwd", "store_rows<T, D, BN>(dv, S, L::LDO, k0, sk, 1.f);",
+        "flash_bwd", "flash_bwd.cu",
+        "store_rows<T, D, BN>(dv, S, L::LDO, k0, sk, 1.f);",
         "store_rows<T, D, BN>(dv, S, L::LDO, k0, sk, "
         "k0 >= 512 ? 0.95f : 1.f);", ("dv",)),
     "dq_late_rows_5pct": (
-        "flash_bwd", "store_rows<T, D, BM>(dq, S, L::LDO, q0, sq, dq_scale);",
+        "flash_bwd", "flash_bwd.cu",
+        "store_rows<T, D, BM>(dq, S, L::LDO, q0, sq, dq_scale);",
         "store_rows<T, D, BM>(dq, S, L::LDO, q0, sq, "
         "q0 >= 512 ? 0.95f * dq_scale : dq_scale);", ("dq",)),
+    "fwd_pv_drops_last_k16_slice": (
+        "flash_fwd", FWD_BODY, PV_LOOP,
+        "for (int j = 0; j < PV_STEPS - 1; ++j) {", ("o",)),
 }
 
 
 # Ring mutants: (source stem, file mutated, line, what replaces it, reading)
 RING_MUTANTS = {
     "k4_k_offset_one_tile": (
-        "ring_flash", "ring_flash.cu",
-        "  o += bh * sq * D;\n  lse += bh * sq;\n",
-        "  o += bh * sq * D;\n  lse += bh * sq;\n  k_off += BN;\n", "k4"),
+        "ring_flash", FWD_BODY, "  const int q_abs = q_off + q0;\n",
+        "  const int q_abs = q_off + q0;\n  k_off += BN;\n", "k4"),
     "k5_copy_drops_last_chunk": (
         "ring_flash", "ring_common.cuh",
         "  for (int c = cta; c < n_chunks; c += n_copy) {\n",
@@ -179,8 +197,8 @@ def loose_compare(got, want):
 def build_mutants():
     """``{mutant: path of its shared library}``, nvcc runs in parallel."""
     procs = {}
-    edits = {name: (stem, f"{stem}.cu", old, new)
-             for name, (stem, old, new, _) in MUTANTS.items()}
+    edits = {name: (stem, file, old, new)
+             for name, (stem, file, old, new, _) in MUTANTS.items()}
     edits.update({name: (stem, file, old, new)
                   for name, (stem, file, old, new, _)
                   in RING_MUTANTS.items()})
@@ -232,7 +250,7 @@ def main():
         rows = {"sound": reading(kernel_check.kernel_outputs(*args), ref,
                                  list(ref))}
         ok &= all(r["strict"]["worst"] <= 1.0 for r in rows["sound"].values())
-        for name, (stem, _, _, names) in MUTANTS.items():
+        for name, (stem, _, _, _, names) in MUTANTS.items():
             _build._libs[stem] = ctypes.CDLL(paths[name])
             try:
                 rows[name] = reading(kernel_check.kernel_outputs(*args),
