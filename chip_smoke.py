@@ -8,12 +8,15 @@ Phases, one JSON line each:
 
 1. ``device``  — the card's name and ``nvidia-smi`` name/power limit.
 2. ``build``   — nvcc seconds per kernel source (all built in parallel).
-3. ``kernels`` — K1 ``flash_fwd``, K2 ``flash_bwd_dkdv`` and K3
-   ``flash_bwd_dq`` held against their plain PyTorch versions
-   (``ops/attention.py``) on the same inputs: bf16 and f32 at the main
+3. ``kernels`` — K1 ``flash_fwd``, B2 ``flash_bwd`` (the combined
+   backward, on the body K5 shares) and K2 ``flash_bwd_dkdv`` + K3
+   ``flash_bwd_dq`` (the split pair) held against their plain PyTorch
+   versions (``ops/attention.py``) on the same inputs, each backward
+   against the plain side of its own key tile: bf16 and f32 at the main
    path's shape (16, 8, 1024, 64), fp16, a non-causal case, and a ragged
    length with head_dim 128.  Times (CUDA events, median after warm-up)
-   of each kernel, its plain version and the library yardstick
+   of K1 and B2 (and K2 + K3 beside B2), their plain versions and the
+   library yardstick
    (``scaled_dot_product_attention``, which the port never calls, timed
    under each backend that takes the shape: flash, memory-efficient and
    cuDNN; ``library_ms`` is the fastest).
@@ -23,18 +26,27 @@ Phases, one JSON line each:
    TransformerLM (vocab 32768, d_model 512, 8 layers, 8 heads, d_ff 2048,
    bf16, bf16 logits), ``DistributedOptimizer(AdamW)`` and
    ``build_train_step``, batch 16 x seq 1024, 2 warm-up + 5 timed steps.
-   Launch counters are zeroed just before and read just after; each
-   kernel must have run 8 layers x 7 steps times.
+   Launch counters are zeroed just before and read just after: K1 and B2
+   must have run 8 layers x 7 steps times, K2 and K3 never (the
+   reference's plan picks the combined backward at this shape).
+   Then ``split``, the split pair's own path: at a shape where the plan
+   picks it (1040 batch-heads, seq 512, bf16) K2 and K3 (and B2 beside
+   them) held against the plain version that walks their key tile;
+   ``flash_attention`` forward and backward with the counters zeroed just
+   before and read just after (K1, K2 and K3 once, B2 never), its
+   gradients against the plain blockwise path; the times of K2, K3, their
+   plain version and SDPA's backward there (K2's and K3's entries in the
+   summary), and B2 against K2 + K3 there and at seq 8192 (64
+   batch-heads) and 16384 (32), where the plan also picks the split pair.
 6. ``ring_kernels`` — K4 ``ring_flash_fwd``, K5 ``ring_flash_bwd``, K6
    ``ring_permute`` and K7 ``phase_closer`` on a ring of 4 members
    co-located on the card (``RingMesh``, one stream each), shard
    (4, 8, 1024, 64): K4 and K5 in bf16 and f32 on diagonal, wholly
    visible and wholly masked steps, rotating and not, against their plain
    versions (POS_BIG lse rows must match, masked outputs be exactly 0),
-   the rotated K/V in the neighbours' slots bit for bit; K5 at zero
-   offsets without rotation at the main shape as B2's counterpart, timed
-   beside K2 + K3; K6 bit-exact at shift +1 and -1 with its VJP; K7's zero
-   block, and every flag word back at 0 after a fused forward + backward.
+   the rotated K/V in the neighbours' slots bit for bit; K6 bit-exact at
+   shift +1 and -1 with its VJP; K7's zero block, and every flag word
+   back at 0 after a fused forward + backward.
    Times of each kernel, its plain version and its library yardstick; K6
    also by CUDA events on the member streams around its four launches
    alone (``kernel_ms``), beside its round with the fork and join.
@@ -50,12 +62,12 @@ Phases, one JSON line each:
    two steps of the rdma ring at the same width, K6 2(n-1) forward +
    2(n-1) backward per member and layer.
 
-Then the ``{"kernels": [...]}`` summary (K1-K7), the ``nvidia-smi`` line,
-and last ``{"ok": true, "device": {...}}``.  Any failure raises: the
-script exits non-zero and prints no result line.  Tolerances
-(``horovod_tpu_torch/ops/kernel_check.py``, which gives the reasons):
-every element within rtol * (|ref| + rms of its row + rms(ref) / 16) of
-a plain version that rounds p and ds to the storage dtype where the
+Then the ``{"kernels": [...]}`` summary (K1-K7 and B2), the
+``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Any
+failure raises: the script exits non-zero and prints no result line.
+Tolerances (``horovod_tpu_torch/ops/kernel_check.py``, which gives the
+reasons): every element within rtol * (|ref| + rms of its row + rms(ref)
+/ 16) of a plain version that rounds p and ds to the storage dtype where the
 kernels do; rtol is two units in the last place for 16-bit outputs and
 for K5's f32 partials of 16-bit inputs (bf16 0.0156, fp16 0.00195) and
 1e-4 for float32 outputs of float32 inputs and lse (summation order
@@ -107,10 +119,15 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
 PEAK_BYTES = 3.35e12
 SLEEP_CYCLES = 2_000_000  # ≈1 ms at the H100's clock: time_ms's lead
 MAIN = (16, 8, 1024, 64)  # batch, heads, seq, head_dim of the LM step
+# Where the reference's plan picks the split backward (K2 + K3): more than
+# 1024 batch-heads at a short sequence, and long sequences.
+SPLIT = (1, 1040, 512, 64)
+SPLIT_LONG = ((8, 8, 8192, 64), (4, 8, 16384, 64))
 RING = (4, 8, 1024, 64)  # one member's shard on the ring path (4 members)
 N_MEMBERS = 4
 REPLACES = {
     "flash_fwd": "horovod_tpu/ops/attention.py:356",
+    "flash_bwd": "horovod_tpu/ops/attention.py:498",
     "flash_bwd_dkdv": "horovod_tpu/ops/attention.py:429",
     "flash_bwd_dq": "horovod_tpu/ops/attention.py:465",
     "ring_flash_fwd": "horovod_tpu/ops/ring_flash.py:78",
@@ -120,6 +137,7 @@ REPLACES = {
 }
 SOURCES = {
     "flash_fwd": "horovod_tpu_torch/ops/csrc/flash_fwd.cu",
+    "flash_bwd": "horovod_tpu_torch/ops/csrc/flash_bwd.cu",
     "flash_bwd_dkdv": "horovod_tpu_torch/ops/csrc/flash_bwd.cu",
     "flash_bwd_dq": "horovod_tpu_torch/ops/csrc/flash_bwd.cu",
     "ring_flash_fwd": "horovod_tpu_torch/ops/csrc/ring_flash.cu",
@@ -211,13 +229,20 @@ def kernel_inputs(shape, dtype, seed):
 
 
 def check_case(shape, dtype, causal, seed=0):
-    """``{output: {max_abs_err, worst}}`` of K1-K3 against the plain
-    versions (``kernel_check``); fails on a non-finite output."""
+    """``{output: {max_abs_err, worst}}`` of K1, B2 (``dq``, ``dk``,
+    ``dv``) and K2 + K3 (``split_dq``, ...) against the plain versions
+    (``kernel_check``); fails on a non-finite output."""
     _, qr, k, v, do, p2, scale_r = kernel_inputs(shape, dtype, seed)
     ref, delta = kernel_check.plain_outputs(qr, k, v, do, causal, scale_r,
                                             p2)
     got = kernel_check.kernel_outputs(qr, k, v, do, ref["lse"], delta, p2,
                                       scale_r, causal)
+    # The split pair against the plain side that walks its own key tile.
+    args = (qr, k, v, do, ref["lse"], delta, p2, scale_r, causal, "split")
+    split = kernel_check.kernel_bwd_outputs(*args)
+    split_ref = kernel_check.plain_bwd_outputs(*args)
+    got.update({f"split_{n}": t for n, t in split.items()})
+    ref.update({f"split_{n}": t for n, t in split_ref.items()})
     for name, t in got.items():
         if not torch.isfinite(t).all():
             fail(f"{name} not finite at {shape} {dtype}")
@@ -253,6 +278,8 @@ def phase_kernels():
     t_fwd = time_ms(lambda: A.flash_fwd(qr, k, v, scale_r, causal))
     t_fwd_host = time_ms(lambda: A.flash_fwd(qr, k, v, scale_r, causal),
                          host_ahead=False)
+    t_b2 = time_ms(lambda: A.flash_bwd(qr, k, v, do, lse, delta, scale_r, p2,
+                                       causal))
     t_dkdv = time_ms(lambda: A.flash_bwd_dkdv(qr, k, v, do, lse, delta,
                                               scale_r, causal))
     t_dq = time_ms(lambda: A.flash_bwd_dq(qr, k, v, do, lse, delta, scale_r,
@@ -262,8 +289,8 @@ def phase_kernels():
         block_size=A.fwd_key_tile(dtype, MAIN[3])), warmup=1, iters=5)
     t_plain_bwd = time_ms(lambda: A._attention_bwd_impl(
         qr, k, v, lse, delta, do, causal, scale_r,
-        block_size=A.BWD_TILE, dq_scale=p2, round_pds=True),
-        warmup=1, iters=5)
+        block_size=A.bwd_key_tile("combined", dtype), dq_scale=p2,
+        round_pds=True), warmup=1, iters=5)
     # Library yardstick: PyTorch's SDPA on (b, h, s, d) under each
     # backend, forward and its backward alone (dq, dk, dv in one autograd
     # call).
@@ -286,33 +313,28 @@ def phase_kernels():
     el = torch.tensor([], dtype=dtype).element_size()
     tile = bh * s * d * el
     row = bh * s * 4
-    work = {  # (flops, bytes: each input read once, each output written)
-        "flash_fwd": (4 * d * pairs, 3 * tile + tile + row),
-        "flash_bwd_dkdv": (8 * d * pairs, 4 * tile + 2 * row + 2 * tile),
-        "flash_bwd_dq": (6 * d * pairs, 4 * tile + 2 * row + tile),
-    }
-    ms = {"flash_fwd": t_fwd, "flash_bwd_dkdv": t_dkdv, "flash_bwd_dq": t_dq}
-    plain = {"flash_fwd": t_plain_fwd, "flash_bwd_dkdv": t_plain_bwd,
-             "flash_bwd_dq": t_plain_bwd}
-    lib = {"flash_fwd": t_lib_fwd, "flash_bwd_dkdv": t_lib_bwd,
-           "flash_bwd_dq": t_lib_bwd}
-    outputs = {"flash_fwd": ("o", "lse"), "flash_bwd_dkdv": ("dk", "dv"),
-               "flash_bwd_dq": ("dq",)}
     err = {n: max(main_errs[o]["max_abs_err"] for o in outs)
-           for n, outs in outputs.items()}
-    entries = {name: _entry(name, ms[name], plain[name], lib[name],
-                            *work[name], dtype, err[name],
-                            library_by_backend=lib_fwd if name == "flash_fwd"
-                            else lib_bwd)
-               for name in ms}
-    entries["flash_fwd"]["ms_with_host"] = t_fwd_host
+           for n, outs in (("flash_fwd", ("o", "lse")),
+                           ("flash_bwd", ("dq", "dk", "dv")))}
+    entries = {  # (flops, bytes: each input read once, each output written)
+        "flash_fwd": _entry(
+            "flash_fwd", t_fwd, t_plain_fwd, t_lib_fwd, 4 * d * pairs,
+            3 * tile + tile + row, dtype, err["flash_fwd"],
+            library_by_backend=lib_fwd, ms_with_host=t_fwd_host),
+        "flash_bwd": _entry(
+            "flash_bwd", t_b2, t_plain_bwd, t_lib_bwd, 10 * d * pairs,
+            4 * tile + 2 * row + 3 * tile, dtype, err["flash_bwd"],
+            library_by_backend=lib_bwd, k2_plus_k3_ms=t_dkdv + t_dq),
+    }
     emit("kernels", cases=results, shape=list(MAIN), dtype=str(dtype),
          timing={n: {k: e[k] for k in ("ms", "plain_ms", "bound_ms",
                                        "bound_by", "library_ms")}
                  for n, e in entries.items()},
-         sdpa_fwd_ms=lib_fwd, sdpa_bwd_ms=lib_bwd,
+         k2_ms=t_dkdv, k3_ms=t_dq, sdpa_fwd_ms=lib_fwd, sdpa_bwd_ms=lib_bwd,
          note="library_ms: the fastest SDPA backend's forward for K1, its "
-              "whole backward (dq, dk, dv) for K2 and K3")
+              "whole backward (dq, dk, dv) for B2; k2_ms, k3_ms: the split "
+              "pair at this shape, which no path gives it (its entries come "
+              "from the split phase)")
     return entries
 
 
@@ -369,10 +391,11 @@ def phase_train():
          max_memory_allocated=torch.cuda.max_memory_allocated(),
          first_loss=losses[0], last_loss=losses[-1], losses=losses,
          launches=launched)
-    want = n_layers * (warmup + timed)
-    for name, n in launched.items():
-        if n != want:
-            fail(f"{name} launched {n} times in the main path, want {want}")
+    per = n_layers * (warmup + timed)
+    want = {"flash_fwd": per, "flash_bwd": per, "flash_bwd_dkdv": 0,
+            "flash_bwd_dq": 0}
+    if launched != want:
+        fail(f"the main path launched {launched}, want {want}")
     if not all(math.isfinite(x) for x in losses):
         fail(f"non-finite loss: {losses}")
     # Random weights start near log(vocab); one fixed batch is memorised.
@@ -380,6 +403,127 @@ def phase_train():
         fail(f"implausible loss trajectory: {losses}")
     hvd.shutdown()
     return launched
+
+
+def phase_split():
+    """The split backward where the reference's plan picks it (more than
+    1024 batch-heads at seq 512), bf16, causal: K2 and K3 held against
+    their plain version at this shape, B2 beside them; ``flash_attention``
+    forward and backward with the counters zeroed just before and read
+    just after (K1, K2 and K3 once, B2 never) and its gradients against
+    the plain blockwise path; then the times of K2, K3, B2, the plain
+    version and SDPA's backward here, and of B2 against K2 + K3 (both
+    held first) at two long sequences that the plan also sends to the
+    split pair.  Returns the launches and K2's and K3's entries."""
+    dtype, causal = torch.bfloat16, True
+    b, h, s, d = SPLIT
+    bh = b * h
+    mode = A.bwd_mode(s, d, bh)
+    if mode != "split":
+        fail(f"the plan picks {mode} at {SPLIT}, not split")
+    q, qr, k, v, do, p2, scale_r = kernel_inputs(SPLIT, dtype, 4)
+    ref, delta = kernel_check.plain_outputs(qr, k, v, do, causal, scale_r,
+                                            p2, "split")
+    args = (qr, k, v, do, ref["lse"], delta, p2, scale_r, causal)
+    errs = {}
+    for m in ("split", "combined"):
+        got = kernel_check.kernel_bwd_outputs(*args, m)
+        want = kernel_check.plain_bwd_outputs(*args, m)
+        errs[m] = {n: kernel_check.compare(got[n], want[n]) for n in got}
+    held = all(e["worst"] <= 1.0 for es in errs.values() for e in es.values())
+
+    xs = [t.reshape(SPLIT).clone().requires_grad_() for t in (q, k, v)]
+    ct = do.reshape(SPLIT)
+    torch.cuda.synchronize()
+    A.reset_launches()
+    grads = torch.autograd.grad(A.flash_attention(*xs, causal=True), xs, ct)
+    torch.cuda.synchronize()
+    launched = dict(A.launches)
+    ref_in = [x.detach().float().requires_grad_() for x in xs]
+    ref_grads = torch.autograd.grad(
+        A.blockwise_attention(*ref_in, causal=True), ref_in, ct.float())
+    # bf16 kernels against the f32 plain path: bf16 rounding of the inputs'
+    # products and of the outputs (5e-2 of the largest gradient).
+    path_err = [(a.float() - r).abs().max().item() / r.abs().max().item()
+                for a, r in zip(grads, ref_grads)]
+    del ref_in, ref_grads
+
+    t_dkdv = time_ms(lambda: A.flash_bwd_dkdv(qr, k, v, do, ref["lse"],
+                                              delta, scale_r, causal))
+    t_dq = time_ms(lambda: A.flash_bwd_dq(qr, k, v, do, ref["lse"], delta,
+                                          scale_r, p2, causal))
+    t_b2 = time_ms(lambda: A.flash_bwd(qr, k, v, do, ref["lse"], delta,
+                                       scale_r, p2, causal))
+    t_plain = time_ms(lambda: kernel_check.plain_bwd_outputs(*args, "split"),
+                      warmup=1, iters=5)
+    qs, ks, vs = (t.reshape(SPLIT).detach().requires_grad_()
+                  for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def sdpa_bwd():
+        out = sdpa(qs, ks, vs, is_causal=causal)
+        return lambda: torch.autograd.grad(out, (qs, ks, vs), ct,
+                                           retain_graph=True)
+    lib_bwd, t_lib_bwd = sdpa_ms(sdpa_bwd)
+    del qs, ks, vs
+    times = {"x".join(map(str, SPLIT)): {"b2_ms": t_b2,
+                                         "k2_plus_k3_ms": t_dkdv + t_dq}}
+    for shape in SPLIT_LONG:
+        if A.bwd_mode(shape[2], shape[3], shape[0] * shape[1]) != "split":
+            fail(f"the plan does not pick split at {shape}")
+        _, lqr, lk, lv, ldo, lp2, lr = kernel_inputs(shape, dtype, 6)
+        o, lse = A.flash_fwd(lqr, lk, lv, lr, causal)
+        ldelta = A._delta(o, ldo)
+        # Both modes held here too (the backward alone, on K1's lse), so
+        # the times compare kernels that are right at this length.
+        kargs = (lqr, lk, lv, ldo, lse, ldelta, lp2, lr, causal)
+        worst = {}
+        for m in ("split", "combined"):
+            got = kernel_check.kernel_bwd_outputs(*kargs, m)
+            want = kernel_check.plain_bwd_outputs(*kargs, m)
+            worst[m] = max(kernel_check.compare(got[n], want[n])["worst"]
+                           for n in got)
+            del got, want
+        held &= max(worst.values()) <= 1.0
+        largs = (lqr, lk, lv, ldo, lse, ldelta, lr)
+        times["x".join(map(str, shape))] = {
+            "b2_ms": time_ms(lambda: A.flash_bwd(*largs, lp2, causal)),
+            "k2_plus_k3_ms": time_ms(lambda: (
+                A.flash_bwd_dkdv(*largs, causal),
+                A.flash_bwd_dq(*largs, lp2, causal))),
+            "worst": worst}
+        del lqr, lk, lv, ldo, o, lse, ldelta, kargs, largs
+    emit("split", shape=list(SPLIT), mode=mode, launches=launched,
+         errors=errs, path_rel_err=path_err, times=times,
+         timing={"flash_bwd_dkdv": t_dkdv, "flash_bwd_dq": t_dq,
+                 "plain_ms": t_plain, "library_ms": t_lib_bwd},
+         sdpa_bwd_ms=lib_bwd)
+    want = {"flash_fwd": 1, "flash_bwd": 0, "flash_bwd_dkdv": 1,
+            "flash_bwd_dq": 1}
+    if not held:
+        fail(f"split pair or B2 disagrees with its plain version: {errs}, "
+             f"{times}")
+    if launched != want or max(path_err) > 5e-2:
+        fail(f"split path launched {launched} for {want}, gradients off "
+             f"by {path_err}")
+
+    pairs = causal_pairs(s, s, causal) * bh
+    tile = bh * s * d * torch.tensor([], dtype=dtype).element_size()
+    row = bh * s * 4
+    err = {n: max(errs["split"][o]["max_abs_err"] for o in outs)
+           for n, outs in (("flash_bwd_dkdv", ("dk", "dv")),
+                           ("flash_bwd_dq", ("dq",)))}
+    entries = {
+        "flash_bwd_dkdv": _entry(
+            "flash_bwd_dkdv", t_dkdv, t_plain, t_lib_bwd, 8 * d * pairs,
+            4 * tile + 2 * row + 2 * tile, dtype, err["flash_bwd_dkdv"],
+            library_by_backend=lib_bwd, shape=list(SPLIT)),
+        "flash_bwd_dq": _entry(
+            "flash_bwd_dq", t_dq, t_plain, t_lib_bwd, 6 * d * pairs,
+            4 * tile + 2 * row + tile, dtype, err["flash_bwd_dq"],
+            library_by_backend=lib_bwd, shape=list(SPLIT)),
+    }
+    return launched, entries
 
 
 def _worst(rows):
@@ -426,9 +570,9 @@ def k6_kernel_ms(mesh, xs, warmup=3, iters=15):
                              for events in rounds[warmup:])
 
 
-def phase_ring_kernels(k2k3_ms):
-    """K4-K7 held against their plain versions (``kernel_check``), timed,
-    and K5 at zero offsets without rotation held as B2's counterpart."""
+def phase_ring_kernels():
+    """K4-K7 held against their plain versions (``kernel_check``) and
+    timed."""
     cases, rows_by = [], {}
     for dtype in (torch.bfloat16, torch.float32):
         mesh = RingMesh(N_MEMBERS)
@@ -454,23 +598,6 @@ def phase_ring_kernels(k2k3_ms):
                 fail(f"ring kernel disagrees with its plain version: "
                      f"{cases[-1]}")
     bf16_rows = rows_by[torch.bfloat16]
-
-    # K5 as B2: zero offsets, no rotation, input-dtype gradients, dq times
-    # the pow2 factor in f32, at the main path's shape.
-    mesh1 = RingMesh(1)
-    q, qr, k, v, do, p2, scale_r = kernel_inputs(MAIN, torch.bfloat16, 2)
-    ref, delta = kernel_check.plain_outputs(qr, k, v, do, True, scale_r, p2)
-
-    def b2():
-        return RF.ring_flash_bwd(mesh1, 0, qr, k, v, do, ref["lse"], delta,
-                                 0, 0, scale_r, True,
-                                 grad_dtype=torch.bfloat16, dq_scale=p2)
-    dk, dv, dq = b2()
-    b2_err = {n: kernel_check.compare(g, ref[n])
-              for n, g in (("dq", dq), ("dk", dk), ("dv", dv))}
-    if max(e["worst"] for e in b2_err.values()) > 1.0:
-        fail(f"K5 as B2 disagrees with the plain backward: {b2_err}")
-    b2_ms = time_ms(b2)
 
     # K6: bit-exact rotations by +1 and -1, and the VJP (rotation by -1 on
     # the flipped namespace).
@@ -535,7 +662,8 @@ def phase_ring_kernels(k2k3_ms):
         warmup=1, iters=5)
     t_k5_plain = time_ms(lambda: A._attention_bwd_impl(
         m1["qr"], m0["k"], m0["v"], ref["lse"], delta, m1["do"], True,
-        scale_r, block_size=A.BWD_TILE, round_pds=True, q_offset=sl,
+        scale_r, block_size=A.bwd_key_tile("combined", dtype),
+        round_pds=True, q_offset=sl,
         k_offset=0, grad_dtype=torch.float32), warmup=1, iters=5)
     calls = [dict(qr=members[i]["qr"], k=members[i]["k"],
                   v=members[i]["v"], q_offset=i * sl, k_offset=i * sl,
@@ -574,9 +702,6 @@ def phase_ring_kernels(k2k3_ms):
     el = torch.tensor([], dtype=dtype).element_size()
     tile, tile32, row = bh * sl * d * el, bh * sl * d * 4, bh * sl * 4
     pairs = bh * sl * sl  # a wholly visible step
-    main_pairs = causal_pairs(MAIN[2], MAIN[2], True) * MAIN[0] * MAIN[1]
-    main_tile = MAIN[0] * MAIN[1] * MAIN[2] * MAIN[3] * el
-    main_row = MAIN[0] * MAIN[1] * MAIN[2] * 4
     entries = {
         "ring_flash_fwd": _entry(
             "ring_flash_fwd", t_k4, t_k4_plain, t_lib_fwd, 4 * d * pairs,
@@ -587,15 +712,7 @@ def phase_ring_kernels(k2k3_ms):
             "ring_flash_bwd", t_k5, t_k5_plain, t_lib_bwd, 10 * d * pairs,
             4 * tile + 2 * row + 3 * tile32, dtype,
             _max_err(bf16_rows, ("dq", "dk", "dv")),
-            library_by_backend=lib_bwd,
-            as_b2={"shape": list(MAIN), "ms": b2_ms,
-                   "k2_plus_k3_ms": k2k3_ms,
-                   "bound_ms": bound_ms(10 * MAIN[3] * main_pairs,
-                                        4 * main_tile + 2 * main_row
-                                        + 3 * main_tile, dtype)[0],
-                   "worst": max(e["worst"] for e in b2_err.values()),
-                   "max_abs_err": max(e["max_abs_err"]
-                                      for e in b2_err.values())}),
+            library_by_backend=lib_bwd),
         "ring_permute": _entry(
             "ring_permute", t_k6, None, t_copy, 0,
             2 * N_MEMBERS * tile, dtype, 0.0, kernel_ms=t_k6_kernel,
@@ -607,7 +724,6 @@ def phase_ring_kernels(k2k3_ms):
             torch.float32, 0.0, note="one round: every member's launch"),
     }
     emit("ring_kernels", cases=cases, shard=list(RING), members=N_MEMBERS,
-         k5_as_b2=entries["ring_flash_bwd"]["as_b2"],
          k6_exact=exact, k7_zero=k7_zero,
          timing={n: {k: e.get(k) for k in ("ms", "plain_ms", "bound_ms",
                                            "bound_by", "library_ms")}
@@ -771,14 +887,18 @@ def main():
     entries = phase_kernels()
     phase_model()
     launched = phase_train()
-    ring_entries = phase_ring_kernels(
-        entries["flash_bwd_dkdv"]["ms"] + entries["flash_bwd_dq"]["ms"])
+    split, split_entries = phase_split()
+    entries.update(split_entries)
+    ring_entries = phase_ring_kernels()
     phase_ring_model()
     launched.update(phase_ring_train())
     entries.update(ring_entries)
     for name_, e in entries.items():
-        e["launches"] = launched[name_]
-        if not launched[name_]:
+        # K2 and K3 run on the split path, every other kernel on the main
+        # path or the ring path.
+        e["launches"] = (split if name_ in ("flash_bwd_dkdv", "flash_bwd_dq")
+                         else launched)[name_]
+        if not e["launches"]:
             fail(f"{name_} was not launched on its path")
     print(json.dumps({"kernels": list(entries.values())}), flush=True)
     print(smi, flush=True)

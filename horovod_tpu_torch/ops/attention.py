@@ -10,9 +10,14 @@ Counterpart of ``horovod_tpu/ops/attention.py``.  Layout convention:
 * :func:`flash_attention` — on a CUDA tensor, the kernels:
 
   - K1 ``flash_fwd`` (``csrc/flash_fwd.cu``), replacing ``_flash_kernel``;
-  - K2 ``flash_bwd_dkdv`` and K3 ``flash_bwd_dq`` (``csrc/flash_bwd.cu``),
-    replacing ``_flash_bwd_dkdv_kernel``/``_flash_bwd_dq_kernel`` and
-    computing the same function as ``_combined_bwd_kernel``.
+  - the backward in the mode the reference's ``_bwd_plan`` picks
+    (:func:`bwd_mode`): ``combined`` runs B2 ``flash_bwd``
+    (``csrc/flash_bwd.cu`` on ``csrc/flash_bwd_sm90.cuh``, the body K5
+    runs on the ring), replacing ``_combined_bwd_kernel`` — one recompute
+    of P per tile pair for dK, dV and dQ; ``split`` (long sequences, more
+    than 1024 heads at short ones) runs K2 ``flash_bwd_dkdv`` and K3
+    ``flash_bwd_dq`` (``csrc/flash_bwd.cu``), replacing
+    ``_flash_bwd_dkdv_kernel``/``_flash_bwd_dq_kernel``.
 
   A CUDA input the kernels cannot take raises; nothing falls back.
 
@@ -47,7 +52,6 @@ HEAD_DIMS = (32, 64, 96, 128)
 # plain side that holds a kernel scans keys in the same blocks.
 _FWD_KEY_TILE = {d: {"16-bit": 128 if d <= 64 else 64, "f32": 64}
                  for d in HEAD_DIMS}
-BWD_TILE = 64  # K2, K3 and K5 tiles, query and key (csrc/flash_common.cuh)
 
 
 def fwd_key_tile(dtype, d: int) -> int:
@@ -58,8 +62,44 @@ def fwd_key_tile(dtype, d: int) -> int:
     return _FWD_KEY_TILE[d]["f32" if dtype == torch.float32 else "16-bit"]
 
 
+def bwd_key_tile(mode: str, dtype) -> int:
+    """Key tile of the backward body that ``mode`` (:func:`bwd_mode`) runs
+    on ``dtype``, at every head dim, as in the CUDA sources: 128 for the
+    combined body of B2 and K5 in 16 bits (csrc/flash_bwd_sm90.cuh,
+    sm90::BWD_BN), 64 for its f32 SIMT body (csrc/flash_common.cuh, BN)
+    and for the split pair K2/K3.  A plain side that holds a kernel walks
+    the keys in the kernel's key tiles, so dq sums in the same blocks."""
+    if mode not in ("combined", "split"):
+        raise ValueError(f"unknown backward mode {mode!r}")
+    return 128 if mode == "combined" and dtype != torch.float32 else 64
+
+
+def bwd_mode(q_len: int, d: int, bh: int) -> str:
+    """``"combined"`` or ``"split"``: the flash backward's mode, as the
+    reference's ``_bwd_plan`` (``horovod_tpu/ops/attention.py``) decides
+    it for ``q_len`` query rows at head dim ``d`` over ``bh`` batch-heads.
+
+    The port's own copy of the decision alone: the calibrated bands of
+    ``rows128 = q_len * max(d, 128) // 128`` with their ``bh`` gates, head
+    dims up to 128, split for everything else.  It leaves out the TPU
+    block sizes, ``_clamp_blocks`` and the scoped-VMEM budget
+    (``_vmem_budget_bytes``, ``HVD_TPU_VMEM_LIMIT_MB``): at the default
+    16 MiB budget the clamp never demotes a band's plan to split (the
+    combined estimate at 128-blocks and seq 8192 is about 13.4 MB), so the
+    bands alone give the same mode.  The mode is decided by ``q_len`` also
+    where the reference leaves Pallas for its scan (ragged lengths,
+    ``q_len != k_len``): the port's kernels mask any length."""
+    rows128 = q_len * max(d, 128) // 128
+    if d <= 128 and ((rows128 <= 2048 and bh <= 1024)
+                     or (rows128 <= 4096 and bh <= 512)
+                     or (rows128 <= 8192 and bh <= 32)):
+        return "combined"
+    return "split"
+
+
 # Kernel launches per wrapper, counted only where the kernel is launched.
-launches = {"flash_fwd": 0, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
+launches = {"flash_fwd": 0, "flash_bwd": 0, "flash_bwd_dkdv": 0,
+            "flash_bwd_dq": 0}
 
 
 def reset_launches() -> None:
@@ -262,6 +302,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _ARGTYPES = {
     "hvdt_flash_fwd": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+    "hvdt_flash_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                       _I, _I, _F, _F, _I, _P],
     "hvdt_flash_bwd_dkdv": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                             _I, _F, _I, _P],
     "hvdt_flash_bwd_dq": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -337,6 +379,33 @@ def flash_fwd(qr, k, v, scale_r: float, causal: bool):
     return o, lse
 
 
+def flash_bwd(qr, k, v, do, lse, delta, scale_r: float, p2: float,
+              causal: bool):
+    """B2: ``(dk, dv, dq)`` in the input dtype from one recompute of P per
+    tile pair, dq in q units (times ``p2`` in f32 before the cast).  The
+    kernel sums dq into a zeroed f32 workspace, then flushes it."""
+    if qr.device.type == "cpu":
+        dq, dk, dv = _attention_bwd_impl(qr, k, v, lse, delta, do, causal,
+                                         scale_r, dq_scale=p2,
+                                         round_pds=True)
+        return dk, dv, dq
+    _check_cuda("flash_bwd", (qr, k, v, do), (lse, delta))
+    bh, sq, d = qr.shape
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    dq32 = torch.zeros(qr.shape, dtype=torch.float32, device=qr.device)
+    dq = torch.empty_like(qr)
+    with torch.cuda.device(qr.device):
+        _launch(_kernel_fn("flash_bwd", "hvdt_flash_bwd"),
+                _DTYPE_CODE[qr.dtype], d, qr.data_ptr(), k.data_ptr(),
+                v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                dq32.data_ptr(), dq.data_ptr(), bh, sq, k.shape[1],
+                float(scale_r), float(p2), int(causal))
+    launches["flash_bwd"] += 1
+    return dk, dv, dq
+
+
 def flash_bwd_dkdv(qr, k, v, do, lse, delta, scale_r: float, causal: bool):
     """K2: ``(dk, dv)`` in the input dtype."""
     if qr.device.type == "cpu":
@@ -376,8 +445,19 @@ def flash_bwd_dq(qr, k, v, do, lse, delta, scale_r: float, p2: float,
     return dq
 
 
+def flash_backward(mode: str, qr, k, v, do, lse, delta, scale_r: float,
+                   p2: float, causal: bool):
+    """``(dk, dv, dq)`` of the backward in ``mode`` (:func:`bwd_mode`): B2
+    for ``"combined"``, K2 + K3 for ``"split"``."""
+    if mode == "combined":
+        return flash_bwd(qr, k, v, do, lse, delta, scale_r, p2, causal)
+    dk, dv = flash_bwd_dkdv(qr, k, v, do, lse, delta, scale_r, causal)
+    return dk, dv, flash_bwd_dq(qr, k, v, do, lse, delta, scale_r, p2, causal)
+
+
 class _FlashAttnFn(torch.autograd.Function):
-    """K1 forward, K2 + K3 backward, over (batch, heads, seq, head_dim)."""
+    """K1 forward; the backward in :func:`bwd_mode`'s mode (B2, or K2 +
+    K3), over (batch, heads, seq, head_dim)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, sm_scale):
@@ -400,8 +480,9 @@ class _FlashAttnFn(torch.autograd.Function):
         causal, p2, scale_r, q_shape, k_shape = ctx.args
         do = g.reshape(o.shape).contiguous()
         delta = _delta(o, do)
-        dk, dv = flash_bwd_dkdv(qr, kr, vr, do, lse, delta, scale_r, causal)
-        dq = flash_bwd_dq(qr, kr, vr, do, lse, delta, scale_r, p2, causal)
+        bh, sq, d = qr.shape
+        dk, dv, dq = flash_backward(bwd_mode(sq, d, bh), qr, kr, vr, do, lse,
+                                    delta, scale_r, p2, causal)
         return (dq.reshape(q_shape), dk.reshape(k_shape),
                 dv.reshape(k_shape), None, None)
 
@@ -417,14 +498,17 @@ def flash_attention(q, k, v, causal: bool = False,
     ``layout="bshd"`` takes ``(batch, seq, heads, head_dim)`` and returns
     the same layout.
 
-    On a CUDA tensor this is the hand-written kernels (K1 forward, K2 + K3
-    backward) for head_dim 32/64/96/128 and float32/float16/bfloat16, at
-    any sequence length; other inputs raise.  On a CPU tensor it is the
-    mathematically identical :func:`blockwise_attention`.  ``block_q`` and
-    ``block_k`` are accepted for API parity with the JAX package and
-    ignored: the kernels fix their own tiles (the forward 128 query rows by
-    128 keys in 16 bits, 64 keys above head_dim 64, and 64 by 64 in
-    float32, :func:`fwd_key_tile`; the backward 64 by 64).
+    On a CUDA tensor this is the hand-written kernels (K1 forward; the
+    backward in the reference's mode, :func:`bwd_mode`: B2 where it picks
+    the combined kernel, as at every sequence up to 2048 with at most 1024
+    batch-heads, K2 + K3 where it picks the split pair) for head_dim
+    32/64/96/128 and float32/float16/bfloat16, at any sequence length;
+    other inputs raise.  On a CPU tensor it is the mathematically
+    identical :func:`blockwise_attention`.  ``block_q`` and ``block_k``
+    are accepted for API parity with the JAX package and ignored: the
+    kernels fix their own tiles (the forward 128 query rows by 128 keys in
+    16 bits, 64 keys above head_dim 64, and 64 by 64 in float32,
+    :func:`fwd_key_tile`; the backward :func:`bwd_key_tile`).
     """
     del block_q, block_k
     if layout not in ("bhsd", "bshd"):

@@ -1,37 +1,154 @@
-// K2 (flash_bwd_dkdv) and K3 (flash_bwd_dq): the flash-attention backward
-// for Hopper (sm_90a), as the split pair.
+// The flash-attention backward for Hopper (sm_90a): B2 (flash_bwd), the
+// main path's backward wherever the reference's plan picks the combined
+// mode, and K2 (flash_bwd_dkdv) + K3 (flash_bwd_dq), the split pair, where
+// it picks the split mode (long sequences, many heads; ops/attention.py
+// `bwd_mode`).
 //
-// Replace the Pallas TPU kernels `_flash_bwd_dkdv_kernel` and
-// `_flash_bwd_dq_kernel`, and compute the same function as
-// `_combined_bwd_kernel` with rotate=False (all in
-// horovod_tpu/ops/attention.py; shared math `_bwd_block_math`).  The
-// combined TPU kernel carries a whole-sequence dQ scratch across its
-// sequential grid; Hopper's blocks run in no order, so the function is
-// split instead: K2 owns a key tile and loops over query tiles
-// (dV += P^T dO, dK += dS^T Q), K3 owns a query tile and loops over key
-// tiles (dQ += dS K).  Neither needs atomics; both recompute P.
+// B2 replaces `_combined_bwd_kernel` with rotate=False
+// (horovod_tpu/ops/attention.py:498): flash_bwd_sm90.cuh's body, the one
+// K5 (ring_flash.cu) runs, at zero offsets and without copy blocks, one
+// 384-thread CTA per 128-key tile for 16-bit inputs (the f32 body's
+// 64-key tiles otherwise); dK, dV in the input dtype, dQ summed into the
+// caller's zeroed f32 workspace and flushed by scale_cast_kernel: times
+// the pow2 factor p2 in f32, then the cast.  Its note gives the bound and
+// the design.
 //
+// K2 and K3, below, are the first port's kernels, unchanged.  They replace
+// the Pallas TPU kernels `_flash_bwd_dkdv_kernel` and
+// `_flash_bwd_dq_kernel` (B3, horovod_tpu/ops/attention.py:429, :465;
+// shared math `_bwd_block_math`): K2 owns a key tile and loops over query
+// tiles (dV += P^T dO, dK += dS^T Q), K3 owns a query tile and loops over
+// key tiles (dQ += dS K).  Neither needs atomics; both recompute P and dP.
 // Per block step: s = q' k^T * scale_r (masked to NEG_INF),
-// p = exp(s - lse), dp = dO v^T, ds = p * (dp - delta) * scale_r.
-// q' is q pre-scaled by the power-of-two part p2 of sm_scale, so dK comes
-// out exact in q' units and K3 multiplies dQ by p2 in f32 before the cast
-// (which keeps fp16 finite).  delta = rowsum(dO * o) is computed by the
-// caller, as the reference computes it outside Pallas.
-//
-// Bound on the card: at the training shape (bh 128, seq 1024, head_dim 64,
-// bf16, causal) the pair does ~43 GFLOP of useful products (~60 GFLOP as
-// split: P and dP are recomputed in K3) against ~118 MB of traffic, so
-// the floor is the tensor cores' time, ~43 us at the published peak.
-// These kernels stage every product through shared memory with WMMA and
-// are far from it; a single-recompute wgmma design is later work.
+// p = exp(s - lse), dp = dO v^T, ds = p * (dp - delta) * scale_r; K3
+// multiplies dQ by p2 in f32 before the cast (which keeps fp16 finite).
+// Bound at the training shape: 43 GFLOP of useful products (60 GFLOP as
+// split) against 118 MB, ~43 us at the published peak.  They stage every
+// product through shared memory with WMMA and are far from it; B3's own
+// wgmma redesign is later work.
 //
 // Grids: (ceil(s / 64), bh); 128 threads.  q, k, v, do: contiguous
 // (bh, s, D) in one dtype; lse, delta: (bh, sq) f32; grads in the input
 // dtype.
 
-#include "flash_common.cuh"
+#include <algorithm>
+
+#include "flash_bwd_sm90.cuh"
 
 namespace hvdt {
+
+// B2's flush: out = cast(in * scale), the scale applied in f32.
+template <typename T>
+__global__ void scale_cast_kernel(T* __restrict__ out,
+                                  const float* __restrict__ in, size_t n,
+                                  float scale) {
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x)
+    out[i] = from_f<T>(in[i] * scale);
+}
+
+template <typename T>
+int launch_scale_cast(void* out, const float* in, size_t n, float scale,
+                      cudaStream_t stream) {
+  const int blocks = (int)std::min<size_t>((n + 255) / 256, 4096);
+  scale_cast_kernel<T><<<blocks, 256, 0, stream>>>(static_cast<T*>(out), in,
+                                                   n, scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(sm90::NTHREADS, 1)
+    flash_bwd_kernel(const __grid_constant__ CUtensorMap mq,
+                     const __grid_constant__ CUtensorMap mdo,
+                     const __grid_constant__ CUtensorMap mk,
+                     const __grid_constant__ CUtensorMap mv,
+                     const __grid_constant__ CUtensorMap mdq,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, T* __restrict__ dk,
+                     T* __restrict__ dv, int bh_total, int sq, int sk,
+                     float scale_r, int causal) {
+  const int kt = blockIdx.x / bh_total;  // heavy (early) key tiles first
+  sm90::bwd_ktile<T, D, T>(&mq, &mdo, &mk, &mv, &mdq, lse, delta, dk, dv,
+                           blockIdx.x % bh_total, kt * sm90::BWD_BN, sq, sk,
+                           0, 0, scale_r, causal);
+}
+
+template <int D>
+__global__ void __launch_bounds__(NT)
+    flash_bwd_f32_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         float* __restrict__ dk, float* __restrict__ dv,
+                         float* __restrict__ dq, int sq, int sk,
+                         float scale_r, int causal) {
+  const size_t bh = blockIdx.y;
+  bwd_ktile_f32<D>(q + bh * sq * D, k + bh * sk * D, v + bh * sk * D,
+                   dout + bh * sq * D, lse + bh * sq, delta + bh * sq,
+                   dk + bh * sk * D, dv + bh * sk * D, dq + bh * sq * D,
+                   blockIdx.x * BN, sq, sk, 0, 0, scale_r, causal);
+}
+
+// Set B2's shared-memory limit once, before its first launch (internal
+// linkage: a mutant build loaded beside this one keeps its own flags).
+namespace {
+bool g_prepared[3][4] = {};
+}  // namespace
+
+template <typename T, int D>
+int prepare_bwd() {
+  constexpr bool f32 = std::is_same<T, float>::value;
+  bool& ready = g_prepared[f32 ? 0 : std::is_same<T, __half>::value ? 1 : 2]
+                          [D / 32 - 1];
+  if (ready) return 0;
+  int e;
+  if constexpr (f32)
+    e = (int)cudaFuncSetAttribute(flash_bwd_f32_kernel<D>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)F32BwdSmem<D>::bytes);
+  else
+    e = (int)cudaFuncSetAttribute(flash_bwd_kernel<T, D>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)sm90::BwdSmem<D>::bytes);
+  ready = e == 0;
+  return e;
+}
+
+// B2: dk, dv in T; dq32 (zeroed by the caller) takes the f32 sum, then
+// dq_out = cast(dq32 * dq_scale).
+template <typename T, int D>
+int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
+               const float* lse, const float* delta, void* dk, void* dv,
+               float* dq32, void* dq_out, int bh, int sq, int sk,
+               float scale_r, float dq_scale, int causal,
+               cudaStream_t stream) {
+  const int prep = prepare_bwd<T, D>();
+  if (prep != 0) return prep;
+  if constexpr (std::is_same<T, float>::value) {
+    dim3 grid((sk + BN - 1) / BN, bh);
+    flash_bwd_f32_kernel<D><<<grid, NT, F32BwdSmem<D>::bytes, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+        delta, static_cast<float*>(dk), static_cast<float*>(dv), dq32, sq,
+        sk, scale_r, causal);
+  } else {
+    CUtensorMap m[5];
+    const int e =
+        sm90::make_bwd_maps<T, D>(m, q, dout, k, v, dq32, bh, sq, sk);
+    if (e != 0) return e;
+    const int blocks = ((sk + sm90::BWD_BN - 1) / sm90::BWD_BN) * bh;
+    flash_bwd_kernel<T, D>
+        <<<blocks, sm90::NTHREADS, sm90::BwdSmem<D>::bytes, stream>>>(
+            m[0], m[1], m[2], m[3], m[4], lse, delta, static_cast<T*>(dk),
+            static_cast<T*>(dv), bh, sq, sk, scale_r, causal);
+  }
+  const int rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  return launch_scale_cast<T>(dq_out, dq32, (size_t)bh * sq * D, dq_scale,
+                              stream);
+}
 
 template <typename T, int D>
 struct BwdSmem {
@@ -252,6 +369,18 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
 }
 
 }  // namespace hvdt
+
+extern "C" int hvdt_flash_bwd(int dtype, int d, const void* q,
+                              const void* k, const void* v, const void* dout,
+                              const float* lse, const float* delta, void* dk,
+                              void* dv, float* dq32, void* dq_out, int bh,
+                              int sq, int sk, float scale_r, float dq_scale,
+                              int causal, void* stream) {
+  using namespace hvdt;
+  HVDT_DISPATCH(dtype, d, launch_bwd, q, k, v, dout, lse, delta, dk, dv,
+                dq32, dq_out, bh, sq, sk, scale_r, dq_scale, causal,
+                static_cast<cudaStream_t>(stream));
+}
 
 extern "C" int hvdt_flash_bwd_dkdv(int dtype, int d, const void* q,
                                    const void* k, const void* v,

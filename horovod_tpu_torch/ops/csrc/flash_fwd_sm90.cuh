@@ -58,11 +58,7 @@
 
 #pragma once
 
-#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at
-                   // run time, so nothing links against libcuda.
-
-#include "flash_common.cuh"
-#include "wgmma_sm90.cuh"
+#include "sm90_common.cuh"
 
 namespace hvdt {
 namespace sm90 {
@@ -70,17 +66,6 @@ namespace sm90 {
 constexpr int BM = 128;        // query rows per CTA
 constexpr int WG_ROWS = 64;    // query rows per consumer warpgroup
 constexpr int STAGES = 2;      // K/V tiles in flight
-constexpr int NTHREADS = 384;  // producer warpgroup + 2 consumer warpgroups
-constexpr int PANEL = 32;      // head-dim elements per 64-byte swizzle row
-// Registers per thread after setmaxnreg: 128 * 40 + 256 * 232 is the
-// 384 * 168 the CTA starts with.
-constexpr int PRODUCER_REGS = 40;
-constexpr int CONSUMER_REGS = 232;
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
-// An mbarrier wait that outlives this is a fault: trap, so the launch
-// fails instead of holding the card.
-constexpr unsigned long long WAIT_TIMEOUT_NS = 2ull * 1000 * 1000 * 1000;
 
 // Shared-memory layout of one CTA: a tile of R rows is D / PANEL panels of
 // R x 64 bytes, each as TMA writes it with 64-byte swizzle.
@@ -109,133 +94,6 @@ struct Smem {
   static constexpr size_t bytes = bars + 8 * N_BARS + 1024;
   static_assert(D % PANEL == 0, "head dim is a multiple of 32");
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-// Arrive on `bar` from the threads where `pred` holds, predicated in
-// place: no branch, so no divergence around wgmma in flight.
-__device__ __forceinline__ void mbar_arrive_if(uint32_t bar, bool pred) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.u32 p, %1, 0;\n"
-      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(bar),
-      "r"((uint32_t)pred)
-      : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, int parity) {
-  uint32_t ok;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(ok)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return ok != 0;
-}
-
-// Wait for the completion of the barrier's phase of parity `parity`.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const unsigned long long t0 = globaltimer_ns();
-  while (!mbar_try_wait(bar, parity))
-    if (globaltimer_ns() - t0 > WAIT_TIMEOUT_NS) __trap();
-}
-
-// One TMA box {PANEL, rows, 1} at (c0, c1, c2) into shared `dst`; the
-// transfer completes on `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1,
-                                         int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2)
-      : "memory");
-}
-
-// Rows [row0, row0 + rows) of head `bh` as PANELS panels of rows x 64 B.
-template <int D>
-__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int rows, int row0,
-                                         int bh) {
-#pragma unroll
-  for (int p = 0; p < D / PANEL; ++p)
-    tma_load(dst + p * rows * PANEL * 2, map, bar, p * PANEL, row0, bh);
-}
-
-// wgmma shared-memory descriptor, 64-byte swizzle: start address, leading
-// and stride byte offsets (all >> 4).  K-major operands: rows of 64 B,
-// 8-row groups 512 B apart (stride), leading offset unused (1).  MN-major
-// V: 32 head-dim elements contiguous, the next 32 one panel away
-// (leading), 8-key groups 512 B apart (stride).
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lead,
-                                         uint32_t stride) {
-  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) |
-         (static_cast<uint64_t>((lead >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((stride >> 4) & 0x3FFF) << 32) |
-         (2ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-// Wait until at most N committed groups of this warpgroup are in flight.
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-// Keep the compiler from moving accumulator registers across the
-// asynchronous products.
-template <int N>
-__device__ __forceinline__ void pin(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void pin(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-template <typename T>
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&h);
-  } else {
-    __half2 h = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&h);
-  }
-}
 
 // The 16-bit body: one CTA of NTHREADS threads computes rows
 // [q0, q0 + BM) of head `bh`.  mq, mk, mv: tensor maps of q (bh, sq, D)
@@ -509,67 +367,6 @@ __device__ __forceinline__ void fwd_tile(const CUtensorMap* mq,
             lt == 0.f ? POS_BIG : m[h] * LN2 + logf(lt);
     }
   }
-}
-
-// ---------------------------------------------------------------------------
-// Host side: tensor maps, fetched through the runtime so that nothing
-// links against the driver library.
-// ---------------------------------------------------------------------------
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-namespace {
-EncodeTiled g_encode = nullptr;
-}  // namespace
-
-inline int encode_fn(EncodeTiled* fn) {
-  if (g_encode == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                            cudaEnableDefault, &q);
-#endif
-    if (e != cudaSuccess) return (int)e;
-    if (q != cudaDriverEntryPointSuccess || p == nullptr)
-      return (int)cudaErrorSymbolNotFound;
-    g_encode = reinterpret_cast<EncodeTiled>(p);
-  }
-  *fn = g_encode;
-  return 0;
-}
-
-// Map of a contiguous 16-bit (bh, rows, D) tensor, boxes of PANEL x
-// box_rows x 1, 64-byte swizzle, zero fill past `rows`.  Returns 0, or a
-// CUDA error code (a driver refusal as cudaErrorInvalidValue).
-template <typename T, int D>
-int make_map(CUtensorMap* map, const void* ptr, int bh, int rows,
-             int box_rows) {
-  EncodeTiled encode;
-  const int e = encode_fn(&encode);
-  if (e != 0) return e;
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows,
-                              (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2,
-                                 (cuuint64_t)rows * D * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)PANEL, (cuuint32_t)box_rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  const CUresult r = encode(
-      map,
-      std::is_same<T, __nv_bfloat16>::value ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                                            : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
-      3, const_cast<void*>(ptr), dims, strides, box, elem,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
 // The three maps of one launch.

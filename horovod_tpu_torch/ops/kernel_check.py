@@ -1,4 +1,5 @@
-"""How the attention kernels K1-K5 are held against their plain versions.
+"""How the attention kernels K1-K5 and B2 are held against their plain
+versions.
 
 One rule for ``chip_smoke.py``, ``tests/test_torch_cuda.py`` and
 ``tools/torch_kernel_control.py``.  The ring kernels K4 and K5 are held by
@@ -14,12 +15,15 @@ The plain side rounds where the kernels round, so the limit can be tight:
   the running max advances per tile as in K1 and K4, so p is rounded to
   the storage dtype against the same max before its product with v;
 * backward — p and ds rounded to the storage dtype before their products
-  (``round_pds``), as K2/K3 and the reference's ``_bwd_block_math`` do.
+  (``round_pds``), as B2, K2/K3, K5 and the reference's
+  ``_bwd_block_math`` do, over key blocks of the kernel's key tile
+  (``attention.bwd_key_tile``).
 
-What is left is summation order (K5's dQ atomics vary it from run to
-run), ``expf`` against ``torch.exp``, and rounding: the final cast can land one unit in the last place away, and
-where the two sides' s or dp differ in the last f32 bit, a p or ds that
-lies near a rounding midpoint rounds the other way.  One such flip moves
+What is left is summation order (B2's and K5's dQ adds vary it from run
+to run), ``expf`` against ``torch.exp``, and rounding: the final cast
+can land one unit in the last place away, and where the two sides' s or
+dp differ in the last f32 bit, a p or ds that lies near a rounding
+midpoint rounds the other way.  One such flip moves
 an output element by at most eps * p * |do| (for dv; likewise for the
 others), which is bounded by the size of the output's own row.  So each
 element must satisfy
@@ -45,26 +49,50 @@ import torch
 
 from horovod_tpu_torch.ops import attention as A
 
-def plain_outputs(qr, k, v, do, causal, scale_r, p2):
+
+def plain_outputs(qr, k, v, do, causal, scale_r, p2, mode="combined"):
     """``{o, lse, dq, dk, dv}`` of the plain versions on the kernels'
-    inputs, rounded where the kernels round, and the ``delta`` of that o."""
+    inputs, rounded where the kernels round (the backward over the key
+    tiles of ``mode``'s body), and the ``delta`` of that o."""
     o, lse = A._blockwise_fwd_impl(
         qr, k, v, causal, scale_r,
         block_size=A.fwd_key_tile(qr.dtype, qr.shape[-1]))
     delta = A._delta(o, do)
-    dq, dk, dv = A._attention_bwd_impl(qr, k, v, lse, delta, do, causal,
-                                       scale_r, block_size=A.BWD_TILE,
-                                       dq_scale=p2, round_pds=True)
-    return {"o": o, "lse": lse, "dq": dq, "dk": dk, "dv": dv}, delta
+    return {"o": o, "lse": lse,
+            **plain_bwd_outputs(qr, k, v, do, lse, delta, p2, scale_r,
+                                causal, mode)}, delta
 
 
-def kernel_outputs(qr, k, v, do, lse, delta, p2, scale_r, causal):
-    """``{o, lse, dq, dk, dv}`` of K1-K3 on the plain side's inputs: K2
-    and K3 take the plain lse and delta, so each kernel is held alone."""
+def plain_bwd_outputs(qr, k, v, do, lse, delta, p2, scale_r, causal,
+                      mode="combined"):
+    """``{dq, dk, dv}`` of the plain backward that holds ``mode``'s body:
+    p and ds rounded as the kernels round them, keys walked in the body's
+    key tile (:func:`attention.bwd_key_tile`)."""
+    dq, dk, dv = A._attention_bwd_impl(
+        qr, k, v, lse, delta, do, causal, scale_r,
+        block_size=A.bwd_key_tile(mode, qr.dtype), dq_scale=p2,
+        round_pds=True)
+    return {"dq": dq, "dk": dk, "dv": dv}
+
+
+def kernel_bwd_outputs(qr, k, v, do, lse, delta, p2, scale_r, causal,
+                       mode="combined"):
+    """``{dq, dk, dv}`` of the backward in ``mode``: B2 (``combined``) or
+    K2 + K3 (``split``)."""
+    dk, dv, dq = A.flash_backward(mode, qr, k, v, do, lse, delta, scale_r,
+                                  p2, causal)
+    return {"dq": dq, "dk": dk, "dv": dv}
+
+
+def kernel_outputs(qr, k, v, do, lse, delta, p2, scale_r, causal,
+                   mode="combined"):
+    """``{o, lse, dq, dk, dv}`` of K1 and the backward in ``mode`` on the
+    plain side's inputs: the backward takes the plain lse and delta, so
+    each kernel is held alone."""
     o, lse_k = A.flash_fwd(qr, k, v, scale_r, causal)
-    dk, dv = A.flash_bwd_dkdv(qr, k, v, do, lse, delta, scale_r, causal)
-    dq = A.flash_bwd_dq(qr, k, v, do, lse, delta, scale_r, p2, causal)
-    return {"o": o, "lse": lse_k, "dq": dq, "dk": dk, "dv": dv}
+    return {"o": o, "lse": lse_k,
+            **kernel_bwd_outputs(qr, k, v, do, lse, delta, p2, scale_r,
+                                 causal, mode)}
 
 
 def rtol(dtype) -> float:
@@ -104,20 +132,21 @@ def compare_lse(got, want) -> dict:
                    torch.where(sentinel, 0.0, want))
 
 
-def ring_plain_step(qr, k, v, do, q_offset, k_offset, causal, scale_r,
-                    grad_dtype=torch.float32, dq_scale=1.0):
+def ring_plain_step(qr, k, v, do, q_offset, k_offset, causal, scale_r):
     """``{o, lse, dq, dk, dv}`` of the plain versions of K4 and K5 at
-    absolute offsets, rounded where the kernels round, and the ``delta``
-    of that o (K5 takes the plain lse and delta)."""
+    absolute offsets, rounded where the kernels round (the gradients f32
+    partials, dq in q' units), and the ``delta`` of that o (K5 takes the
+    plain lse and delta)."""
     o, lse = A._blockwise_fwd_impl(
         qr, k, v, causal, scale_r,
         block_size=A.fwd_key_tile(qr.dtype, qr.shape[-1]),
         q_offset=q_offset, k_offset=k_offset)
     delta = A._delta(o, do)
     dq, dk, dv = A._attention_bwd_impl(
-        qr, k, v, lse, delta, do, causal, scale_r, block_size=A.BWD_TILE,
-        dq_scale=dq_scale, round_pds=True, q_offset=q_offset,
-        k_offset=k_offset, grad_dtype=grad_dtype)
+        qr, k, v, lse, delta, do, causal, scale_r,
+        block_size=A.bwd_key_tile("combined", qr.dtype),
+        round_pds=True, q_offset=q_offset, k_offset=k_offset,
+        grad_dtype=torch.float32)
     return {"o": o, "lse": lse, "dq": dq, "dk": dk, "dv": dv}, delta
 
 

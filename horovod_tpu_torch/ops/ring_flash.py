@@ -10,9 +10,8 @@ the same launch copies that shard into its right neighbour's receive slot
   member's pre-scaled queries over the held shard at absolute offsets.
 * K5 :func:`ring_flash_bwd` replaces ``_combined_bwd_kernel`` with
   ``rotate=True``: f32 dK, dV and dQ partials from one recompute of P per
-  tile pair.  At zero offsets without the copy it is B2
-  (``rotate=False``): gradients in the input dtype, dQ times the pow2
-  factor in f32 before the cast.
+  tile pair, on the backward body that B2 (``attention.flash_bwd``) runs
+  on the main path (``csrc/flash_bwd_sm90.cuh``).
 * K7 :func:`phase_closer` replaces ``_phase_closer_kernel``: the handshake
   alone, closing a pass with an odd number of rotating steps.
 
@@ -64,9 +63,9 @@ _RING = [_P, _P, _P, _I, _I, _I, _I]  # flags, go, err, my, n, ns, epoch
 _ARGTYPES = {
     "hvdt_ring_flash_fwd": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             _F, _I, _P, _P, _I, _I] + _RING + [_P],
-    "hvdt_ring_flash_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                            _I, _F, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P,
-                            _I, _I] + _RING + [_P],
+    "hvdt_ring_flash_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                            _I, _I, _I, _I, _I, _F, _I, _P, _P, _I, _I]
+                           + _RING + [_P],
     "hvdt_phase_closer": [_P, _P, _P, _I, _I, _I, _P],
 }
 
@@ -156,68 +155,50 @@ def ring_flash_fwd(mesh, member: int, qr, k, v, q_offset: int,
     return o, lse
 
 
-def _bwd_outputs(qr, k, dq_acc=None, grad_dtype=torch.float32,
-                 dq_scale=1.0, **_):
-    """(dk, dv, dq32, dq_out) of one K5 launch; dq_out None when dq32 is
-    the result."""
-    dk = torch.empty(k.shape, dtype=grad_dtype, device=k.device)
-    dv = torch.empty(k.shape, dtype=grad_dtype, device=k.device)
-    if dq_acc is not None:
-        return dk, dv, dq_acc, None
-    dq32 = torch.empty(qr.shape, dtype=torch.float32, device=qr.device)
-    direct = grad_dtype == torch.float32 and dq_scale == 1.0
-    return dk, dv, dq32, None if direct else torch.empty(
-        qr.shape, dtype=grad_dtype, device=qr.device)
+def _bwd_outputs(qr, k, dq_acc=None, **_):
+    """(dk, dv, dq) of one K5 launch, f32: dq is ``dq_acc`` when given."""
+    dk = torch.empty(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.empty_like(dk)
+    if dq_acc is None:
+        dq_acc = torch.empty(qr.shape, dtype=torch.float32, device=qr.device)
+    return dk, dv, dq_acc
 
 
 def ring_flash_bwd(mesh, member: int, qr, k, v, do, lse, delta,
                    q_offset: int, k_offset: int, scale_r: float,
                    causal: bool, rotate: bool = False, phase: int = 0,
-                   dq_acc: Optional[torch.Tensor] = None,
-                   grad_dtype=torch.float32, dq_scale: float = 1.0,
-                   out=None):
-    """K5: ``(dk, dv, dq)`` of one step from one recompute of P.
-
-    Ring use (``grad_dtype=float32``, ``dq_scale=1``): f32 partials for the
-    held shard, dq in q' units; given ``dq_acc`` (f32 ``(bh, sq, d)``)
-    this step's dq is added into it in place and it is returned.  B2 use
-    (``grad_dtype`` the input dtype, zero offsets, no rotation): the
-    gradients in the input dtype, dq times ``dq_scale`` in f32 before the
-    cast.  With ``rotate`` the launch also copies k and v as K4 does.
+                   dq_acc: Optional[torch.Tensor] = None, out=None):
+    """K5: f32 partials ``(dk, dv, dq)`` of one step for the held shard,
+    from one recompute of P; dq in q' units.  Given ``dq_acc`` (f32
+    ``(bh, sq, d)``) this step's dq is added into it in place and it is
+    returned.  With ``rotate`` the launch also copies k and v as K4 does.
     ``out``: preallocated outputs (see :func:`launch_round`)."""
     if qr.device.type == "cpu":
         dq, dk, dv = A._attention_bwd_impl(
-            qr, k, v, lse, delta, do, causal, scale_r, dq_scale=dq_scale,
-            round_pds=True, q_offset=q_offset, k_offset=k_offset,
-            grad_dtype=grad_dtype)
+            qr, k, v, lse, delta, do, causal, scale_r, round_pds=True,
+            q_offset=q_offset, k_offset=k_offset, grad_dtype=torch.float32)
         if dq_acc is not None:
             dq = dq_acc.add_(dq)
         if rotate:
             _plain_copy(mesh, member, k, v, phase)
         return dk, dv, dq
     A._check_cuda("ring_flash_bwd", (qr, k, v, do), (lse, delta))
-    f32_out = grad_dtype == torch.float32
-    if not f32_out and grad_dtype != qr.dtype:
-        raise ValueError("ring_flash_bwd: grad_dtype is float32 or the "
-                         "input dtype")
     if dq_acc is not None and not (
-            f32_out and dq_scale == 1.0 and dq_acc.dtype == torch.float32
-            and dq_acc.shape == qr.shape and dq_acc.is_contiguous()):
+            dq_acc.dtype == torch.float32 and dq_acc.shape == qr.shape
+            and dq_acc.is_contiguous()):
         raise ValueError("ring_flash_bwd: dq_acc takes f32 partials in q' "
                          "units of q's shape")
     bh, sq, d = qr.shape
-    dk, dv, dq32, dq_out = (_bwd_outputs(qr, k, dq_acc, grad_dtype, dq_scale)
-                            if out is None else out)
+    dk, dv, dq = _bwd_outputs(qr, k, dq_acc) if out is None else out
     A._launch(_kernel_fn("ring_flash", "hvdt_ring_flash_bwd"),
               A._DTYPE_CODE[qr.dtype], d, qr.data_ptr(), k.data_ptr(),
               v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-              dk.data_ptr(), dv.data_ptr(), dq32.data_ptr(),
-              0 if dq_out is None else dq_out.data_ptr(), int(f32_out),
-              float(dq_scale), int(dq_acc is None), bh, sq, k.shape[1],
-              int(q_offset), int(k_offset), float(scale_r), int(causal),
+              dk.data_ptr(), dv.data_ptr(), dq.data_ptr(),
+              int(dq_acc is None), bh, sq, k.shape[1], int(q_offset),
+              int(k_offset), float(scale_r), int(causal),
               *_copy_args(mesh, member, k, rotate, phase))
     launches["ring_flash_bwd"] += 1
-    return dk, dv, (dq32 if dq_out is None else dq_out)
+    return dk, dv, dq
 
 
 def _closer_outputs(mesh, **_):

@@ -224,15 +224,14 @@ def test_k4_plain_version_matches_jax_step_kernel(kind):
                                  "ring_masked", "b2"])
 def test_k5_plain_version_matches_jax_combined_bwd(use):
     """K5's plain version against ``_combined_bwd_kernel`` (interpret
-    mode): ring use at offsets (f32 partials, dq in q' units) and B2 use
-    (zero offsets, dq times the pow2 factor)."""
+    mode): ring use at offsets, and B2's function at zero offsets (f32
+    partials, dq in q' units; B2's own wrapper, which applies the pow2
+    factor, is held in test_torch_bwd_plan.py)."""
     qr, k, v, do = _arrays((2, 32, 16), seed=7)
     if use == "b2":
         q_off = k_off = 0
-        dq_scale = 0.25
     else:
         q_off, k_off = _STEPS[use.split("_")[1]]
-        dq_scale = 1.0
     mesh = RingMesh(N, "cpu")
     o, lse = trf.ring_flash_fwd(mesh, 0, *map(torch.tensor, (qr, k, v)),
                                 q_off, k_off, 1.0, True)
@@ -243,10 +242,10 @@ def test_k5_plain_version_matches_jax_combined_bwd(use):
         *map(jnp.asarray, (qr, do, lse8, delta8, k, v)), q_off, k_off,
         causal=True, block_q=16, block_k=16, rotate=False,
         collective_id=None, axis_name=None, mesh_axes=(), interpret=True,
-        scale_r=1.0, grad_dtype=jnp.float32, dq_scale=dq_scale)
+        scale_r=1.0, grad_dtype=jnp.float32)
     dk, dv, dq = trf.ring_flash_bwd(
         mesh, 0, *map(torch.tensor, (qr, k, v, do)), lse, delta, q_off,
-        k_off, 1.0, True, dq_scale=dq_scale)
+        k_off, 1.0, True)
     for got, ref in zip((dk, dv, dq), want):
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=2e-5,
                                    rtol=2e-5)

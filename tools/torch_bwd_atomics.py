@@ -1,0 +1,148 @@
+"""What the dQ adds cost B2, the combined flash backward, on the GPU.
+
+Run from the repository root on a machine with one CUDA GPU::
+
+    python3 tools/torch_bwd_atomics.py
+
+B2 (``csrc/flash_bwd_sm90.cuh``) adds each 64-row dQ tile of its key tile
+into an f32 workspace (a TMA reduce-add per 32-column panel, atomic in
+the L2): the one step that leaves the tensor cores.  This builds a copy
+of ``flash_bwd.cu`` whose body skips those adds (under
+``horovod_tpu_torch/_build/atomics/``; the checked-in sources are not
+touched; its dq is wrong, the rest is the same work) and
+times B2 at the main path's shape (bh 128, seq 1024, head_dim 64, bf16,
+causal) with the sound build and the copy in turns (sound, copy, copy,
+sound, twice), by CUDA events around the wrapper (its zero fill of the
+workspace, the kernel and the flush), median of 15 after warm-up, a sleep
+kernel ahead of each so the events hold device time.  A
+``torch.profiler`` trace of 10 calls of each build splits the wrapper's
+device time by kernel.  Prints one JSON line: ``atomics_share`` is the
+share of the sound kernel's time that the copy saves.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import os
+import shutil
+import statistics
+import subprocess
+import sys
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+from horovod_tpu_torch.ops import _build  # noqa: E402
+from horovod_tpu_torch.ops import attention as A  # noqa: E402
+
+SHAPE = (128, 1024, 64)  # (batch*heads, seq, head_dim) of the LM step
+ADDS = """          tma_reduce_add(mdq, base + dq_off + p * L::DQ_PANEL,
+                         col0 + 32 * p, q0, bh);
+"""
+SLEEP_CYCLES = 2_000_000  # ≈1 ms at the H100's clock
+
+
+def build_without_adds() -> str:
+    d = os.path.join(_build.BUILD_DIR, "atomics")
+    shutil.rmtree(d, ignore_errors=True)
+    shutil.copytree(_build.CSRC, d)
+    path = os.path.join(d, "flash_bwd_sm90.cuh")
+    text = open(path).read()
+    if text.count(ADDS) != 1:
+        raise RuntimeError("the dQ adds are not found once in the body")
+    with open(path, "w") as f:
+        f.write(text.replace(ADDS, "          (void)p;\n"))
+    out = os.path.join(d, "flash_bwd.so")
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", out,
+                           os.path.join(d, "flash_bwd.cu")],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed:\n{proc.stdout}{proc.stderr}")
+    return out
+
+
+def time_ms(fn, warmup=3, iters=15):
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def kernel_ms(fn, calls=10):
+    """Device ms per call of each kernel ``fn`` launches (profiler)."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        dev = getattr(e, "device_time_total", None)
+        if dev is None:
+            dev = e.cuda_time_total
+        if dev > 0:
+            out[e.key[:80]] = dev / calls / 1e3
+    return out
+
+
+def main():
+    if not torch.cuda.is_available():
+        sys.exit("torch_bwd_atomics: no CUDA device")
+    _build.build_all(["flash_bwd"])
+    libs = {"sound": _build.load("flash_bwd"),
+            "no_adds": ctypes.CDLL(build_without_adds())}
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v, do = (torch.randn(*SHAPE, device="cuda", generator=g)
+                   .to(torch.bfloat16) for _ in range(4))
+    p2, scale_r = A._split_scale(SHAPE[2] ** -0.5)
+    qr = (q * p2).to(torch.bfloat16)
+    o, lse = A.flash_fwd(qr, k, v, scale_r, True)
+    delta = A._delta(o, do)
+
+    def b2():
+        return A.flash_bwd(qr, k, v, do, lse, delta, scale_r, p2, True)
+
+    runs = {name: [] for name in libs}
+    for name in ("sound", "no_adds", "no_adds", "sound") * 2:
+        _build._libs["flash_bwd"] = libs[name]
+        runs[name].append(time_ms(b2))
+    split = {}
+    for name, lib in libs.items():
+        _build._libs["flash_bwd"] = lib
+        split[name] = kernel_ms(b2)
+    _build._libs["flash_bwd"] = libs["sound"]
+
+    def body(name):
+        return sum(ms for key, ms in split[name].items()
+                   if "flash_bwd_kernel" in key)
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True,
+        text=True).stdout.strip()
+    print(json.dumps({
+        "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+        "shape": list(SHAPE), "wrapper_ms": runs,
+        "wrapper_ms_median": {n: statistics.median(r)
+                              for n, r in runs.items()},
+        "kernel_ms_per_call": split,
+        "atomics_share": 1.0 - body("no_adds") / body("sound"),
+    }), flush=True)
+
+
+if __name__ == "__main__":
+    main()

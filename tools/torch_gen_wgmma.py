@@ -8,14 +8,21 @@ A ``wgmma.mma_async`` instruction names every accumulator register of the
 thread as its own operand (``m64nNk16`` with an f32 accumulator: N / 2
 registers), so each shape is one inline-assembly statement with N / 2
 ``"+f"`` operands.  This script writes them out for the shapes the flash
-forward uses (``csrc/flash_fwd_sm90.cuh``):
+forward (``csrc/flash_fwd_sm90.cuh``) and backward
+(``csrc/flash_bwd_sm90.cuh``) use:
 
 * ``Wgmma<N, T>::ss`` — A and B from shared memory, both K-major (the
-  logits ``S = Q K^T``), N = 64 or 128 keys; ``scale_d`` 0 overwrites the
-  accumulator, 1 adds to it;
+  forward's logits ``S = Q K^T``, N = 64 or 128 keys; the backward's
+  ``S^T = K q'^T`` and ``dP^T = V dO^T``, N = 64 query rows);
+  ``scale_d`` 0 overwrites the accumulator, 1 adds to it;
 * ``Wgmma<N, T>::rs`` — A from registers, B from shared memory MN-major
-  (``O += P V`` with V stored as it arrives, keys by head dim), N = head
-  dim 32/64/96/128; always adds.
+  (``O += P V``, ``dV += P^T dO``, ``dK += dS^T q'`` with V, dO and q'
+  stored as they arrive, rows by head dim), N = head dim 32/64/96/128;
+  always adds;
+* ``Wgmma<N, T>::ss_t`` — A and B from shared memory, both MN-major (the
+  backward's ``dQ = dS K``: dS stored transposed, key rows by query
+  columns, and K as it arrives), N = 32/64/96 head-dim columns;
+  ``scale_d`` as for ``ss``.
 
 T is ``__nv_bfloat16`` or ``__half``.  The output is checked in, so the
 build needs no Python step; rerun this after changing a shape.
@@ -30,14 +37,16 @@ OUT = os.path.join(ROOT, "horovod_tpu_torch", "ops", "csrc",
                    "wgmma_sm90.cuh")
 SS_N = (64, 128)
 RS_N = (32, 64, 96, 128)
+SST_N = (32, 64, 96)
 TYPES = (("__nv_bfloat16", "bf16"), ("__half", "f16"))
 
 HEAD = """\
 // Generated by tools/torch_gen_wgmma.py; do not edit by hand.
 //
-// Warpgroup matrix-multiply wrappers for the flash forward
-// (flash_fwd_sm90.cuh): one inline-assembly statement per shape, since
-// wgmma names each f32 accumulator register of the thread as an operand.
+// Warpgroup matrix-multiply wrappers for the flash forward and backward
+// (flash_fwd_sm90.cuh, flash_bwd_sm90.cuh): one inline-assembly statement
+// per shape, since wgmma names each f32 accumulator register of the
+// thread as an operand.
 // d[4 * i + 2 * h + j] of a thread t of the warpgroup holds row
 // 16 * (t / 32) + (t % 32) / 4 + 8 * h, column 8 * i + 2 * (t % 4) + j.
 
@@ -99,12 +108,28 @@ def rs(n, ptx):
   }}"""
 
 
+def ss_t(n, ptx):
+    r = n // 2
+    return f"""
+  // D (64 x {n}) = or += A (64 x 16, MN-major) B (16 x {n}, MN-major).
+  __device__ static __forceinline__ void ss_t(float (&d)[{r}], uint64_t a,
+                                              uint64_t b, int scale_d) {{
+    asm volatile(
+        "{{\\n.reg .pred p;\\nsetp.ne.b32 p, %{r + 2}, 0;\\n"
+        "wgmma.mma_async.sync.aligned.m64n{n}k16.f32.{ptx}.{ptx} "
+        "{{{_regs(r)}}}, %{r}, %{r + 1}, p, 1, 1, 1, 1;\\n}}\\n"
+        : {_outs(r)}
+        : "l"(a), "l"(b), "r"(scale_d));
+  }}"""
+
+
 def main():
     parts = [HEAD]
     for ctype, ptx in TYPES:
-        for n in sorted(set(SS_N) | set(RS_N)):
+        for n in sorted(set(SS_N) | set(RS_N) | set(SST_N)):
             body = (ss(n, ptx) if n in SS_N else "") + \
-                (rs(n, ptx) if n in RS_N else "")
+                (rs(n, ptx) if n in RS_N else "") + \
+                (ss_t(n, ptx) if n in SST_N else "")
             parts.append(f"\ntemplate <>\nstruct Wgmma<{n}, {ctype}> {{"
                          f"{body}\n}};\n")
     parts.append(TAIL)

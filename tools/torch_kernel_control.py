@@ -25,6 +25,20 @@ hangs:
 * ``fwd_pv_drops_last_k16_slice`` — K1's P V product leaves out the last
   16-key slice of every key tile (the wgmma k-loop one step short).
 
+Mutants of the backward body that B2 and K5 share
+(``csrc/flash_bwd_sm90.cuh``), read through B2 (``flash_bwd``):
+
+* ``bwd_dq_drops_last_k16_slice`` — the dQ = dS K product leaves out the
+  last 16-key slice of each warpgroup's share (the wgmma k-loop one step
+  short);
+* ``bwd_qt0_one_tile_late`` — every CTA starts its query loop one 64-row
+  tile late (producer and consumers alike, so the barriers still match);
+* ``bwd_dv_skips_6pct_of_rows`` — P^T as dV's operand drops the last 4
+  of every 64 query rows (6%; dK and dQ keep them).
+
+The K2/K3 mutants are read through the split pair, the others through
+B2.
+
 The first three drop most of the mass of some rows; the next three drop
 a share of late rows only; the next three move late rows, whose values
 are small against the largest, by less than the old rule's limit.
@@ -37,17 +51,18 @@ Mutants of the ring kernels, each read on a ring of 4 members of shard
   ``kernel_check``'s rule);
 * ``k5_copy_drops_last_chunk`` — the copy blocks skip their last chunk
   (the loop is shared by K4 and K5; read: the receive slots after a
-  rotating round of K5 alone, bit for bit);
+  rotating round of K5, on the backward body above, alone, bit for bit);
 * ``k6_wrong_slot`` — K6 writes into the slot of member my + shift + 1
   (read: the rotated shards, bit for bit).
 The mutated sources are copies under ``horovod_tpu_torch/_build/control/``
 (the checked-in sources are not touched), built with the same nvcc flags.
-Each mutant, and first the unmutated kernels (the sound reading), is held
-against the plain versions at the main path's shape (bh 128, seq 1024,
-head_dim 64, causal) in bf16 and fp16, under the rule of
-``horovod_tpu_torch/ops/kernel_check.py`` and under the rule it replaced
-(max error <= 2e-2 * max |ref|).  ``worst`` is the largest error over its
-limit; a reading passes at ``worst <= 1``.  Prints one JSON line and
+Each mutant, and first the unmutated kernels (the sound readings, B2 and
+the split pair), is held against the plain versions (each backward mode
+against the plain side that walks its own key tile) at the main path's
+shape (bh 128, seq 1024, head_dim 64, causal) in bf16 and fp16, under the
+rule of ``horovod_tpu_torch/ops/kernel_check.py`` and under the rule it
+replaced (max error <= 2e-2 * max |ref|).  ``worst`` is the largest error
+over its limit; a reading passes at ``worst <= 1``.  Prints one JSON line and
 exits 1 unless the sound readings pass and every mutant fails (under
 ``kernel_check``'s rule, or its bit-exact check).
 """
@@ -80,7 +95,14 @@ FWD_BODY = "flash_fwd_sm90.cuh"
 KEY_END = "      const int key_end = sk - k0;\n"
 FWD_INV = "const float inv = lt == 0.f ? 1.f : 1.f / lt;"
 PV_LOOP = "for (int j = 0; j < PV_STEPS; ++j) {"
-# mutant: (source stem, file mutated, line, what replaces it, outputs held)
+# Lines of the 16-bit backward body (B2, K5).
+BWD_BODY = "flash_bwd_sm90.cuh"
+DQ_LOOP = "for (int jj = 0; jj < JN; ++jj) {"
+N_IT = "  const int n_it = max(0, n_qt - qt0);\n"
+PT_PACK = ("              pack2<T>(s[4 * i + 2 * h], "
+           "s[4 * i + 2 * h + 1]);\n")
+# mutant: (source stem, file mutated, line, what replaces it, outputs held);
+# flash_bwd.cu's mutants (K2, K3) are held through the split pair.
 MUTANTS = {
     "fwd_skip_key_tile": (
         "flash_fwd", FWD_BODY, KEY_END,
@@ -121,6 +143,16 @@ MUTANTS = {
     "fwd_pv_drops_last_k16_slice": (
         "flash_fwd", FWD_BODY, PV_LOOP,
         "for (int j = 0; j < PV_STEPS - 1; ++j) {", ("o",)),
+    "bwd_dq_drops_last_k16_slice": (
+        "flash_bwd", BWD_BODY, DQ_LOOP,
+        "for (int jj = 0; jj < JN - 1; ++jj) {", ("dq",)),
+    "bwd_qt0_one_tile_late": (
+        "flash_bwd", BWD_BODY, N_IT, "  qt0 += 1;\n" + N_IT,
+        ("dq", "dk", "dv")),
+    "bwd_dv_skips_6pct_of_rows": (
+        "flash_bwd", BWD_BODY, PT_PACK,
+        PT_PACK + "          if (i == BWD_BM / 8 - 1 && cq >= 4)\n"
+        "            pa[i / 2][(i % 2) * 2 + h] = 0u;\n", ("dv",)),
 }
 
 
@@ -247,14 +279,22 @@ def main():
         ref, delta = kernel_check.plain_outputs(qr, k, v, do, True, scale_r,
                                                 p2)
         args = (qr, k, v, do, ref["lse"], delta, p2, scale_r, True)
-        rows = {"sound": reading(kernel_check.kernel_outputs(*args), ref,
-                                 list(ref))}
-        ok &= all(r["strict"]["worst"] <= 1.0 for r in rows["sound"].values())
-        for name, (stem, _, _, _, names) in MUTANTS.items():
+        # Each backward mode against the plain side of its own key tile.
+        refs = {mode: {**ref, **kernel_check.plain_bwd_outputs(*args, mode)}
+                for mode in ("combined", "split")}
+        rows = {f"sound_{mode}": reading(
+            kernel_check.kernel_outputs(*args, mode), refs[mode], list(ref))
+            for mode in ("combined", "split")}
+        ok &= all(r["strict"]["worst"] <= 1.0
+                  for mode in ("combined", "split")
+                  for r in rows[f"sound_{mode}"].values())
+        for name, (stem, file, _, _, names) in MUTANTS.items():
+            mode = "split" if file == "flash_bwd.cu" else "combined"
             _build._libs[stem] = ctypes.CDLL(paths[name])
             try:
-                rows[name] = reading(kernel_check.kernel_outputs(*args),
-                                     ref, names)
+                rows[name] = reading(
+                    kernel_check.kernel_outputs(*args, mode), refs[mode],
+                    names)
             finally:
                 _build._libs[stem] = sound[stem]
             ok &= any(r["strict"]["worst"] > 1.0

@@ -7,10 +7,11 @@ Run from the repository root on a machine with one CUDA GPU::
 Builds the main path that ``chip_smoke.py`` drives
 (``horovod_tpu_torch/torch/lm_step.py``: bench-width TransformerLM, bf16,
 batch 16 x seq 1024, ``DistributedOptimizer(AdamW)``,
-``build_train_step``) or, with ``--ring``, its ring path (the same widths
-sequence-parallel over 4 members on the card, batch 4 x seq 4096, the
-fused ring: K4, K5, K7), warms it up, times ``--steps`` untraced steps with
-CUDA events, then traces ``--steps`` more with ``torch.profiler``.  From
+``build_train_step``; K1 and the combined backward B2) or, with
+``--ring``, its ring path (the same widths sequence-parallel over 4
+members on the card, batch 4 x seq 4096, the fused ring: K4, K5, K7),
+warms it up, times ``--steps`` untraced steps with CUDA events, then
+traces ``--steps`` more with ``torch.profiler``.  From
 the Chrome trace it sums GPU kernel time by category (the port's flash
 kernels, matrix products, everything else) and the union of kernel
 intervals (the members' streams overlap, so the categories can sum to
@@ -46,13 +47,18 @@ from horovod_tpu_torch.torch.lm_step import (HEADLINE,  # noqa: E402
 
 def category(name: str) -> str:
     for kernel, cat in (("ring_fwd_kernel", "ring_flash_fwd"),
+                        ("ring_fwd_f32_kernel", "ring_flash_fwd"),
                         ("ring_bwd_kernel", "ring_flash_bwd"),
+                        ("ring_bwd_f32_kernel", "ring_flash_bwd"),
                         ("phase_closer_kernel", "phase_closer"),
-                        ("scale_cast_kernel", "ring_flash_bwd")):
+                        # B2's dQ flush (the ring path never flushes)
+                        ("scale_cast_kernel", "flash_bwd")):
         if kernel in name:
             return cat
-    if "flash_fwd_kernel" in name:
+    if "flash_fwd_kernel" in name or "flash_fwd_f32_kernel" in name:
         return "flash_fwd"
+    if "flash_bwd_kernel" in name or "flash_bwd_f32_kernel" in name:
+        return "flash_bwd"
     if "flash_bwd_dkdv_kernel" in name:
         return "flash_bwd_dkdv"
     if "flash_bwd_dq_kernel" in name:
