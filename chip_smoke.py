@@ -34,10 +34,12 @@ Phases, one JSON line each:
    them) held against the plain version that walks their key tile;
    ``flash_attention`` forward and backward with the counters zeroed just
    before and read just after (K1, K2 and K3 once, B2 never), its
-   gradients against the plain blockwise path; the times of K2, K3, their
-   plain version and SDPA's backward there (K2's and K3's entries in the
-   summary), and B2 against K2 + K3 there and at seq 8192 (64
-   batch-heads) and 16384 (32), where the plan also picks the split pair.
+   gradients against the plain blockwise path, here and at 65,600
+   batch-heads (seq 16, head_dim 32) in bf16 and f32; the times of K2,
+   K3 and B2 apart, beside SDPA's backward and K2's and K3's bounds, here
+   and at seq 8192 (64 batch-heads) and 16384 (32), where the plan also
+   picks the split pair (K2's and K3's entries in the summary come from
+   the first shape).
 6. ``ring_kernels`` — K4 ``ring_flash_fwd``, K5 ``ring_flash_bwd``, K6
    ``ring_permute`` and K7 ``phase_closer`` on a ring of 4 members
    co-located on the card (``RingMesh``, one stream each), shard
@@ -123,6 +125,8 @@ MAIN = (16, 8, 1024, 64)  # batch, heads, seq, head_dim of the LM step
 # 1024 batch-heads at a short sequence, and long sequences.
 SPLIT = (1, 1040, 512, 64)
 SPLIT_LONG = ((8, 8, 8192, 64), (4, 8, 16384, 64))
+# More batch-heads than a grid's y dimension holds (65,535).
+SPLIT_WIDE = (1, 65600, 16, 32)
 RING = (4, 8, 1024, 64)  # one member's shard on the ring path (4 members)
 N_MEMBERS = 4
 REPLACES = {
@@ -138,8 +142,8 @@ REPLACES = {
 SOURCES = {
     "flash_fwd": "horovod_tpu_torch/ops/csrc/flash_fwd.cu",
     "flash_bwd": "horovod_tpu_torch/ops/csrc/flash_bwd.cu",
-    "flash_bwd_dkdv": "horovod_tpu_torch/ops/csrc/flash_bwd.cu",
-    "flash_bwd_dq": "horovod_tpu_torch/ops/csrc/flash_bwd.cu",
+    "flash_bwd_dkdv": "horovod_tpu_torch/ops/csrc/flash_bwd_split.cu",
+    "flash_bwd_dq": "horovod_tpu_torch/ops/csrc/flash_bwd_split.cu",
     "ring_flash_fwd": "horovod_tpu_torch/ops/csrc/ring_flash.cu",
     "ring_flash_bwd": "horovod_tpu_torch/ops/csrc/ring_flash.cu",
     "ring_permute": "horovod_tpu_torch/ops/csrc/ring_permute.cu",
@@ -289,7 +293,7 @@ def phase_kernels():
         block_size=A.fwd_key_tile(dtype, MAIN[3])), warmup=1, iters=5)
     t_plain_bwd = time_ms(lambda: A._attention_bwd_impl(
         qr, k, v, lse, delta, do, causal, scale_r,
-        block_size=A.bwd_key_tile("combined", dtype), dq_scale=p2,
+        block_size=A.bwd_key_tile("combined", dtype, MAIN[3]), dq_scale=p2,
         round_pds=True), warmup=1, iters=5)
     # Library yardstick: PyTorch's SDPA on (b, h, s, d) under each
     # backend, forward and its backward alone (dq, dk, dv in one autograd
@@ -405,16 +409,66 @@ def phase_train():
     return launched
 
 
+def split_bounds(shape, dtype, causal):
+    """``{kernel: (flops, bytes)}`` of K2 and K3 at ``shape`` (each input
+    read once, each output written once)."""
+    b, h, s, d = shape
+    bh = b * h
+    pairs = causal_pairs(s, s, causal) * bh
+    tile = bh * s * d * torch.tensor([], dtype=dtype).element_size()
+    row = bh * s * 4
+    return {"flash_bwd_dkdv": (8 * d * pairs, 4 * tile + 2 * row + 2 * tile),
+            "flash_bwd_dq": (6 * d * pairs, 4 * tile + 2 * row + tile)}
+
+
+def hold_many_heads(dtype):
+    """``flash_attention`` forward and backward at SPLIT_WIDE (65,600
+    batch-heads, past a grid's 65,535 y-blocks) with the counters zeroed
+    just before and read just after (K1, K2, K3 once: the plan picks the
+    split pair past 1024 batch-heads); output and gradients against the
+    plain blockwise path."""
+    g = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v, ct = (torch.randn(SPLIT_WIDE, device="cuda", generator=g,
+                               dtype=torch.float32).to(dtype)
+                   for _ in range(4))
+    xs = [x.clone().requires_grad_() for x in (q, k, v)]
+    torch.cuda.synchronize()
+    A.reset_launches()
+    out = A.flash_attention(*xs, causal=True)
+    grads = torch.autograd.grad(out, xs, ct)
+    torch.cuda.synchronize()
+    launched = dict(A.launches)
+    ref_in = [x.detach().float().requires_grad_() for x in xs]
+    ref = A.blockwise_attention(*ref_in, causal=True)
+    ref_grads = torch.autograd.grad(ref, ref_in, ct.float())
+    got = dict(zip(("o", "dq", "dk", "dv"), (out, *grads)))
+    want = dict(zip(("o", "dq", "dk", "dv"), (ref.detach(), *ref_grads)))
+    if dtype == torch.float32:
+        # f32 on both sides: summation order only (kernel_check's rule).
+        errs = {n: kernel_check.compare(got[n], want[n]) for n in got}
+        ok = all(e["worst"] <= 1.0 for e in errs.values())
+    else:
+        # 16-bit kernels against the f32 plain path: rounding of the
+        # inputs' products and of the outputs (5e-2 of the largest value).
+        errs = {n: (got[n].float() - want[n]).abs().max().item()
+                / want[n].abs().max().item() for n in got}
+        ok = max(errs.values()) <= 5e-2
+    finite = all(bool(torch.isfinite(x).all()) for x in got.values())
+    return {"dtype": str(dtype), "launches": launched, "errors": errs,
+            "finite": finite, "ok": ok and finite}
+
+
 def phase_split():
     """The split backward where the reference's plan picks it (more than
     1024 batch-heads at seq 512), bf16, causal: K2 and K3 held against
     their plain version at this shape, B2 beside them; ``flash_attention``
     forward and backward with the counters zeroed just before and read
     just after (K1, K2 and K3 once, B2 never) and its gradients against
-    the plain blockwise path; then the times of K2, K3, B2, the plain
-    version and SDPA's backward here, and of B2 against K2 + K3 (both
-    held first) at two long sequences that the plan also sends to the
-    split pair.  Returns the launches and K2's and K3's entries."""
+    the plain blockwise path, here and at 65,600 batch-heads in bf16 and
+    f32; then K2, K3 and B2 (all held first) timed apart at this shape and
+    at two long sequences that the plan also sends to the split pair,
+    beside SDPA's backward; the plain version timed here.  Returns the
+    launches and K2's and K3's entries."""
     dtype, causal = torch.bfloat16, True
     b, h, s, d = SPLIT
     bh = b * h
@@ -446,58 +500,63 @@ def phase_split():
     # products and of the outputs (5e-2 of the largest gradient).
     path_err = [(a.float() - r).abs().max().item() / r.abs().max().item()
                 for a, r in zip(grads, ref_grads)]
-    del ref_in, ref_grads
+    del xs, grads, ref_in, ref_grads
+    wide = [hold_many_heads(dt) for dt in (torch.bfloat16, torch.float32)]
 
-    t_dkdv = time_ms(lambda: A.flash_bwd_dkdv(qr, k, v, do, ref["lse"],
-                                              delta, scale_r, causal))
-    t_dq = time_ms(lambda: A.flash_bwd_dq(qr, k, v, do, ref["lse"], delta,
-                                          scale_r, p2, causal))
-    t_b2 = time_ms(lambda: A.flash_bwd(qr, k, v, do, ref["lse"], delta,
-                                       scale_r, p2, causal))
     t_plain = time_ms(lambda: kernel_check.plain_bwd_outputs(*args, "split"),
                       warmup=1, iters=5)
-    qs, ks, vs = (t.reshape(SPLIT).detach().requires_grad_()
-                  for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-
-    def sdpa_bwd():
-        out = sdpa(qs, ks, vs, is_causal=causal)
-        return lambda: torch.autograd.grad(out, (qs, ks, vs), ct,
-                                           retain_graph=True)
-    lib_bwd, t_lib_bwd = sdpa_ms(sdpa_bwd)
-    del qs, ks, vs
-    times = {"x".join(map(str, SPLIT)): {"b2_ms": t_b2,
-                                         "k2_plus_k3_ms": t_dkdv + t_dq}}
-    for shape in SPLIT_LONG:
+    times = {}
+    for shape in (SPLIT,) + SPLIT_LONG:
         if A.bwd_mode(shape[2], shape[3], shape[0] * shape[1]) != "split":
             fail(f"the plan does not pick split at {shape}")
-        _, lqr, lk, lv, ldo, lp2, lr = kernel_inputs(shape, dtype, 6)
-        o, lse = A.flash_fwd(lqr, lk, lv, lr, causal)
-        ldelta = A._delta(o, ldo)
-        # Both modes held here too (the backward alone, on K1's lse), so
-        # the times compare kernels that are right at this length.
-        kargs = (lqr, lk, lv, ldo, lse, ldelta, lp2, lr, causal)
-        worst = {}
-        for m in ("split", "combined"):
-            got = kernel_check.kernel_bwd_outputs(*kargs, m)
-            want = kernel_check.plain_bwd_outputs(*kargs, m)
-            worst[m] = max(kernel_check.compare(got[n], want[n])["worst"]
-                           for n in got)
-            del got, want
-        held &= max(worst.values()) <= 1.0
-        largs = (lqr, lk, lv, ldo, lse, ldelta, lr)
+        if shape == SPLIT:
+            sqr, sk_, sv, sdo, sp2, sr = qr, k, v, do, p2, scale_r
+            slse, sdelta = ref["lse"], delta
+            worst = {m: max(e["worst"] for e in errs[m].values())
+                     for m in errs}
+        else:
+            _, sqr, sk_, sv, sdo, sp2, sr = kernel_inputs(shape, dtype, 6)
+            o, slse = A.flash_fwd(sqr, sk_, sv, sr, causal)
+            sdelta = A._delta(o, sdo)
+            del o
+            # Both modes held here too (the backward alone, on K1's lse),
+            # so the times compare kernels that are right at this length.
+            kargs = (sqr, sk_, sv, sdo, slse, sdelta, sp2, sr, causal)
+            worst = {}
+            for m in ("split", "combined"):
+                got = kernel_check.kernel_bwd_outputs(*kargs, m)
+                want = kernel_check.plain_bwd_outputs(*kargs, m)
+                worst[m] = max(kernel_check.compare(got[n], want[n])["worst"]
+                               for n in got)
+                del got, want
+            held &= max(worst.values()) <= 1.0
+        largs = (sqr, sk_, sv, sdo, slse, sdelta, sr)
+        t_k2 = time_ms(lambda: A.flash_bwd_dkdv(*largs, causal))
+        t_k3 = time_ms(lambda: A.flash_bwd_dq(*largs, sp2, causal))
+        t_b2 = time_ms(lambda: A.flash_bwd(*largs, sp2, causal))
+        qs, ks, vs = (x.reshape(shape).detach().requires_grad_()
+                      for x in (sqr, sk_, sv))
+        dos = sdo.reshape(shape)
+
+        def sdpa_bwd():
+            out = sdpa(qs, ks, vs, is_causal=causal, scale=sr)
+            return lambda: torch.autograd.grad(out, (qs, ks, vs), dos,
+                                               retain_graph=True)
+        lib_bwd, t_lib = sdpa_ms(sdpa_bwd)
+        bounds = {n: bound_ms(f, nb, dtype)[0] for n, (f, nb)
+                  in split_bounds(shape, dtype, causal).items()}
         times["x".join(map(str, shape))] = {
-            "b2_ms": time_ms(lambda: A.flash_bwd(*largs, lp2, causal)),
-            "k2_plus_k3_ms": time_ms(lambda: (
-                A.flash_bwd_dkdv(*largs, causal),
-                A.flash_bwd_dq(*largs, lp2, causal))),
-            "worst": worst}
-        del lqr, lk, lv, ldo, o, lse, ldelta, kargs, largs
+            "k2_ms": t_k2, "k3_ms": t_k3, "k2_plus_k3_ms": t_k2 + t_k3,
+            "b2_ms": t_b2, "sdpa_bwd_ms": lib_bwd, "library_ms": t_lib,
+            "k2_bound_ms": bounds["flash_bwd_dkdv"],
+            "k3_bound_ms": bounds["flash_bwd_dq"], "worst": worst}
+        del qs, ks, vs, dos, largs, sqr, sk_, sv, sdo, slse, sdelta
     emit("split", shape=list(SPLIT), mode=mode, launches=launched,
-         errors=errs, path_rel_err=path_err, times=times,
-         timing={"flash_bwd_dkdv": t_dkdv, "flash_bwd_dq": t_dq,
-                 "plain_ms": t_plain, "library_ms": t_lib_bwd},
-         sdpa_bwd_ms=lib_bwd)
+         errors=errs, path_rel_err=path_err, many_heads=wide, times=times,
+         plain_ms=t_plain,
+         note="sdpa_bwd_ms, library_ms: SDPA's whole backward (dq, dk, dv) "
+              "per backend and the fastest, at the kernels' q'")
     want = {"flash_fwd": 1, "flash_bwd": 0, "flash_bwd_dkdv": 1,
             "flash_bwd_dq": 1}
     if not held:
@@ -506,23 +565,26 @@ def phase_split():
     if launched != want or max(path_err) > 5e-2:
         fail(f"split path launched {launched} for {want}, gradients off "
              f"by {path_err}")
+    for w in wide:
+        if w["launches"] != want or not w["ok"]:
+            fail(f"flash_attention at {SPLIT_WIDE}: {w}, want launches "
+                 f"{want}")
 
-    pairs = causal_pairs(s, s, causal) * bh
-    tile = bh * s * d * torch.tensor([], dtype=dtype).element_size()
-    row = bh * s * 4
     err = {n: max(errs["split"][o]["max_abs_err"] for o in outs)
            for n, outs in (("flash_bwd_dkdv", ("dk", "dv")),
                            ("flash_bwd_dq", ("dq",)))}
-    entries = {
-        "flash_bwd_dkdv": _entry(
-            "flash_bwd_dkdv", t_dkdv, t_plain, t_lib_bwd, 8 * d * pairs,
-            4 * tile + 2 * row + 2 * tile, dtype, err["flash_bwd_dkdv"],
-            library_by_backend=lib_bwd, shape=list(SPLIT)),
-        "flash_bwd_dq": _entry(
-            "flash_bwd_dq", t_dq, t_plain, t_lib_bwd, 6 * d * pairs,
-            4 * tile + 2 * row + tile, dtype, err["flash_bwd_dq"],
-            library_by_backend=lib_bwd, shape=list(SPLIT)),
-    }
+    at = times["x".join(map(str, SPLIT))]
+    entries = {}
+    for name, key, body in (
+            ("flash_bwd_dkdv", "k2_ms", "flash_bwd_sm90.cuh"),
+            ("flash_bwd_dq", "k3_ms", "flash_dq_sm90.cuh")):
+        flops, nbytes = split_bounds(SPLIT, dtype, causal)[name]
+        entries[name] = _entry(
+            name, at[key], t_plain, at["library_ms"], flops, nbytes, dtype,
+            err[name], library_by_backend=at["sdpa_bwd_ms"],
+            shape=list(SPLIT), body=f"horovod_tpu_torch/ops/csrc/{body}",
+            note="plain_ms: the whole plain split backward; library_ms: "
+                 "SDPA's whole backward")
     return launched, entries
 
 
@@ -662,7 +724,7 @@ def phase_ring_kernels():
         warmup=1, iters=5)
     t_k5_plain = time_ms(lambda: A._attention_bwd_impl(
         m1["qr"], m0["k"], m0["v"], ref["lse"], delta, m1["do"], True,
-        scale_r, block_size=A.bwd_key_tile("combined", dtype),
+        scale_r, block_size=A.bwd_key_tile("combined", dtype, RING[3]),
         round_pds=True, q_offset=sl,
         k_offset=0, grad_dtype=torch.float32), warmup=1, iters=5)
     calls = [dict(qr=members[i]["qr"], k=members[i]["k"],

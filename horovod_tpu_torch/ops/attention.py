@@ -15,8 +15,10 @@ Counterpart of ``horovod_tpu/ops/attention.py``.  Layout convention:
     (``csrc/flash_bwd.cu`` on ``csrc/flash_bwd_sm90.cuh``, the body K5
     runs on the ring), replacing ``_combined_bwd_kernel`` — one recompute
     of P per tile pair for dK, dV and dQ; ``split`` (long sequences, more
-    than 1024 heads at short ones) runs K2 ``flash_bwd_dkdv`` and K3
-    ``flash_bwd_dq`` (``csrc/flash_bwd.cu``), replacing
+    than 1024 heads at short ones) runs K2 ``flash_bwd_dkdv`` (the same
+    body with its dQ product compiled out) and K3 ``flash_bwd_dq``
+    (``csrc/flash_dq_sm90.cuh``, a query-stationary body), both in
+    ``csrc/flash_bwd_split.cu``, replacing
     ``_flash_bwd_dkdv_kernel``/``_flash_bwd_dq_kernel``.
 
   A CUDA input the kernels cannot take raises; nothing falls back.
@@ -54,6 +56,14 @@ _FWD_KEY_TILE = {d: {"16-bit": 128 if d <= 64 else 64, "f32": 64}
                  for d in HEAD_DIMS}
 
 
+# Key tile of each backward body per head dim and mode: B2/K5's 16-bit
+# body (csrc/flash_bwd_sm90.cuh, sm90::BWD_BN), K3's (csrc/flash_dq_sm90.cuh,
+# dq_key_tile) and the f32 SIMT bodies (csrc/flash_common.cuh, BN).
+_BWD_KEY_TILE = {d: {"combined": {"16-bit": 128, "f32": 64},
+                     "split": {"16-bit": 64, "f32": 64}}
+                 for d in HEAD_DIMS}
+
+
 def fwd_key_tile(dtype, d: int) -> int:
     """Key tile of the forward body (K1 and K4) that takes ``dtype`` at
     head dim ``d``."""
@@ -62,16 +72,21 @@ def fwd_key_tile(dtype, d: int) -> int:
     return _FWD_KEY_TILE[d]["f32" if dtype == torch.float32 else "16-bit"]
 
 
-def bwd_key_tile(mode: str, dtype) -> int:
+def bwd_key_tile(mode: str, dtype, d: int) -> int:
     """Key tile of the backward body that ``mode`` (:func:`bwd_mode`) runs
-    on ``dtype``, at every head dim, as in the CUDA sources: 128 for the
-    combined body of B2 and K5 in 16 bits (csrc/flash_bwd_sm90.cuh,
-    sm90::BWD_BN), 64 for its f32 SIMT body (csrc/flash_common.cuh, BN)
-    and for the split pair K2/K3.  A plain side that holds a kernel walks
-    the keys in the kernel's key tiles, so dq sums in the same blocks."""
+    on ``dtype`` at head dim ``d``, as in the CUDA sources (``_BWD_KEY_TILE``):
+    in 16 bits, 128 for the combined body of B2 and K5
+    (csrc/flash_bwd_sm90.cuh, sm90::BWD_BN) and, for the split pair, K3's
+    key tile, the one its dq sums over (csrc/flash_dq_sm90.cuh,
+    ``dq_key_tile``); 64 for the f32 SIMT bodies (csrc/flash_common.cuh,
+    BN) of both modes.  A plain side that holds a kernel walks the keys in
+    the kernel's key tiles, so dq sums in the same blocks."""
     if mode not in ("combined", "split"):
         raise ValueError(f"unknown backward mode {mode!r}")
-    return 128 if mode == "combined" and dtype != torch.float32 else 64
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head_dim {d} unsupported {HEAD_DIMS}")
+    return _BWD_KEY_TILE[d][mode]["f32" if dtype == torch.float32
+                                  else "16-bit"]
 
 
 def bwd_mode(q_len: int, d: int, bh: int) -> str:
@@ -407,7 +422,7 @@ def flash_bwd(qr, k, v, do, lse, delta, scale_r: float, p2: float,
 
 
 def flash_bwd_dkdv(qr, k, v, do, lse, delta, scale_r: float, causal: bool):
-    """K2: ``(dk, dv)`` in the input dtype."""
+    """K2: ``(dk, dv)`` in the input dtype, no dq."""
     if qr.device.type == "cpu":
         return _attention_bwd_impl(qr, k, v, lse, delta, do, causal,
                                    scale_r)[1:]
@@ -416,7 +431,7 @@ def flash_bwd_dkdv(qr, k, v, do, lse, delta, scale_r: float, causal: bool):
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     with torch.cuda.device(qr.device):
-        _launch(_kernel_fn("flash_bwd", "hvdt_flash_bwd_dkdv"),
+        _launch(_kernel_fn("flash_bwd_split", "hvdt_flash_bwd_dkdv"),
                 _DTYPE_CODE[qr.dtype], d, qr.data_ptr(), k.data_ptr(),
                 v.data_ptr(), do.data_ptr(), lse.data_ptr(),
                 delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, sq,
@@ -428,7 +443,8 @@ def flash_bwd_dkdv(qr, k, v, do, lse, delta, scale_r: float, causal: bool):
 def flash_bwd_dq(qr, k, v, do, lse, delta, scale_r: float, p2: float,
                  causal: bool):
     """K3: dq in the input dtype, in q units (times ``p2`` in f32 before
-    the cast)."""
+    the cast), summed in registers over its query tile's key tiles: no
+    workspace, no atomics."""
     if qr.device.type == "cpu":
         return _attention_bwd_impl(qr, k, v, lse, delta, do, causal,
                                    scale_r, dq_scale=p2)[0]
@@ -436,7 +452,7 @@ def flash_bwd_dq(qr, k, v, do, lse, delta, scale_r: float, p2: float,
     bh, sq, d = qr.shape
     dq = torch.empty_like(qr)
     with torch.cuda.device(qr.device):
-        _launch(_kernel_fn("flash_bwd", "hvdt_flash_bwd_dq"),
+        _launch(_kernel_fn("flash_bwd_split", "hvdt_flash_bwd_dq"),
                 _DTYPE_CODE[qr.dtype], d, qr.data_ptr(), k.data_ptr(),
                 v.data_ptr(), do.data_ptr(), lse.data_ptr(),
                 delta.data_ptr(), dq.data_ptr(), bh, sq, k.shape[1],

@@ -1,7 +1,9 @@
 // The flash-attention backward body shared by B2 (flash_bwd.cu,
 // hvdt_flash_bwd, zero offsets: the main path's backward) and K5
 // (ring_flash.cu, hvdt_ring_flash_bwd, a ring step's offsets), for Hopper
-// (sm_90a).
+// (sm_90a); with WITH_DQ off it is also K2 (flash_bwd_split.cu,
+// hvdt_flash_bwd_dkdv), the dK/dV half of the split backward, which
+// replaces `_flash_bwd_dkdv_kernel` (horovod_tpu/ops/attention.py:429).
 //
 // Replaces the Pallas TPU kernel `_combined_bwd_kernel`
 // (horovod_tpu/ops/attention.py:498, math in `_bwd_block_math` :386) with
@@ -58,7 +60,10 @@
 //   SM to one CTA; shared memory per CTA, (K, V) + 2 stages of (q', dO) +
 //   2 dS^T buffers + 2 dQ tiles: D 32: 16 + 16 + 32 + 16 KB; D 64: 32 +
 //   32 + 32 + 16 KB; D 96: 48 + 48 + 32 + 48 KB; D 128: 64 + 64 + 32 + 32
-//   KB.
+//   KB.  K2 (WITH_DQ off) compiles out the dS^T stores, their named
+//   barrier, the dQ product and its adds: no dQ buffers and no fifth
+//   tensor map, and DKDV_STAGES (q', dO) stages in their place, so dK and
+//   dV are its only outputs, stored from registers in the input dtype.
 // * f32 inputs: the SIMT body of the first port (scalar FMAs in full f32,
 //   no tensor-core path keeps f32 to 1e-4), one 64-key tile per 128-thread
 //   block through shared memory, dQ by scalar atomicAdd.
@@ -78,10 +83,16 @@ namespace sm90 {
 constexpr int BWD_BN = 128;    // keys per CTA: 64 per consumer warpgroup
 constexpr int BWD_BM = 64;     // query rows per step of the loop
 constexpr int BWD_STAGES = 2;  // (q', dO, lse, delta) tiles in flight
+// K2's stages: the shared memory that B2's dS^T and dQ buffers take holds
+// a third (q', dO) stage instead.
+constexpr int DKDV_STAGES = 3;
 constexpr int WG_KEYS = 64;    // keys per consumer warpgroup
 
-template <int D>
+// WITH_DQ: B2's and K5's layout; without it, K2's (no dS^T or dQ
+// buffers, DKDV_STAGES stages).
+template <int D, bool WITH_DQ = true>
 struct BwdSmem {
+  static constexpr int STAGES = WITH_DQ ? BWD_STAGES : DKDV_STAGES;
   // dQ = dS K split by keys (each consumer warpgroup its own 64 keys, all
   // D columns) where half the head dim is not a whole number of panels.
   static constexpr bool SPLIT_KEYS = (D / 2) % PANEL != 0;
@@ -102,32 +113,36 @@ struct BwdSmem {
   static constexpr uint32_t k = 0;
   static constexpr uint32_t v = k + K_BYTES;
   static constexpr uint32_t q = v + K_BYTES;
-  static constexpr uint32_t dout = q + BWD_STAGES * Q_BYTES;
-  static constexpr uint32_t ds = dout + BWD_STAGES * Q_BYTES;  // 2 buffers
-  static constexpr uint32_t dq = ds + 2 * DS_BYTES;  // one per warpgroup
-  static constexpr uint32_t stats = dq + 2 * DQ_BYTES;
-  static constexpr uint32_t bars = stats + BWD_STAGES * STAT_FLOATS * 4;
-  // kv_full, then full[BWD_STAGES], empty[BWD_STAGES]
-  static constexpr uint32_t N_BARS = 1 + 2 * BWD_STAGES;
+  static constexpr uint32_t dout = q + STAGES * Q_BYTES;
+  static constexpr uint32_t ds = dout + STAGES * Q_BYTES;  // 2 buffers
+  static constexpr uint32_t dq =  // one per warpgroup
+      ds + (WITH_DQ ? 2 * DS_BYTES : 0);
+  static constexpr uint32_t stats = dq + (WITH_DQ ? 2 * DQ_BYTES : 0);
+  static constexpr uint32_t bars = stats + STAGES * STAT_FLOATS * 4;
+  // kv_full, then full[STAGES], empty[STAGES]
+  static constexpr uint32_t N_BARS = 1 + 2 * STAGES;
   // + 1024: the dynamic base is aligned up to the swizzle pattern.
   static constexpr size_t bytes = bars + 8 * N_BARS + 1024;
   static_assert(D % PANEL == 0, "head dim is a multiple of 32");
 };
 
 // The 16-bit body: one CTA of NTHREADS threads computes dK and dV of keys
-// [k0, k0 + BWD_BN) of head `bh` and adds their share of dQ into the f32
-// tensor behind `mdq`.  mq, mdo (boxes of BWD_BM rows), mk, mv (BWD_BN
-// rows), mdq (f32, BWD_BM rows): tensor maps of q', dO and dq (bh, sq, D)
-// and k, v (bh, sk, D) in the kernel's parameter space.  lse, delta (bh,
-// sq) f32; dk, dv (bh, sk, D) in OT.
-template <typename T, int D, typename OT>
+// [k0, k0 + BWD_BN) of head `bh` and, WITH_DQ, adds their share of dQ
+// into the f32 tensor behind `mdq` (K2 compiles the dQ product, the dS^T
+// stores, their barrier and the adds out, and passes no `mdq`).  mq, mdo
+// (boxes of BWD_BM rows), mk, mv (BWD_BN rows), mdq (f32, BWD_BM rows):
+// tensor maps of q', dO and dq (bh, sq, D) and k, v (bh, sk, D) in the
+// kernel's parameter space.  lse, delta (bh, sq) f32; dk, dv (bh, sk, D)
+// in OT.
+template <typename T, int D, typename OT, bool WITH_DQ = true>
 __device__ __forceinline__ void bwd_ktile(
     const CUtensorMap* mq, const CUtensorMap* mdo, const CUtensorMap* mk,
     const CUtensorMap* mv, const CUtensorMap* mdq,
     const float* __restrict__ lse, const float* __restrict__ delta,
     OT* __restrict__ dk, OT* __restrict__ dv, int bh, int k0, int sq,
     int sk, int q_off, int k_off, float scale_r, int causal) {
-  using L = BwdSmem<D>;
+  using L = BwdSmem<D, WITH_DQ>;
+  constexpr int STAGES = L::STAGES;
   constexpr bool SPLIT_KEYS = L::SPLIT_KEYS;
   constexpr int DQ_N = L::DQ_N;  // dQ columns per warpgroup
   extern __shared__ unsigned char smem_raw[];
@@ -138,7 +153,7 @@ __device__ __forceinline__ void bwd_ktile(
   const uint32_t do_s = base + L::dout;
   float* const stats = reinterpret_cast<float*>(gbase + L::stats);
   const uint32_t kv_full = base + L::bars;
-  const uint32_t full = kv_full + 8, empty = full + 8 * BWD_STAGES;
+  const uint32_t full = kv_full + 8, empty = full + 8 * STAGES;
 
   // Query tiles that see a key of this tile: under a causal mask, from
   // the first whose last absolute row reaches the tile's first key
@@ -154,7 +169,7 @@ __device__ __forceinline__ void bwd_ktile(
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
 #pragma unroll
-    for (int s = 0; s < BWD_STAGES; ++s) {
+    for (int s = 0; s < STAGES; ++s) {
       mbar_init(full + 8 * s, 1 + 32);  // the TMA thread + the stats warp
       mbar_init(empty + 8 * s, 2);      // one per consumer warpgroup
     }
@@ -173,9 +188,9 @@ __device__ __forceinline__ void bwd_ktile(
       tma_tile<D>(k_s, mk, kv_full, BWD_BN, k0, bh);
       tma_tile<D>(v_s, mv, kv_full, BWD_BN, k0, bh);
       for (int it = 0; it < n_it; ++it) {
-        const int st = it % BWD_STAGES;
-        if (it >= BWD_STAGES)
-          mbar_wait(empty + 8 * st, (it / BWD_STAGES - 1) & 1);
+        const int st = it % STAGES;
+        if (it >= STAGES)
+          mbar_wait(empty + 8 * st, (it / STAGES - 1) & 1);
         const int q0 = (qt0 + it) * BWD_BM;
         mbar_expect_tx(full + 8 * st, 2 * L::Q_BYTES);
         tma_tile<D>(q_s + st * L::Q_BYTES, mq, full + 8 * st, BWD_BM, q0,
@@ -186,9 +201,9 @@ __device__ __forceinline__ void bwd_ktile(
     } else if (warp == 1 && n_it > 0) {
       const size_t row0 = (size_t)bh * sq;
       for (int it = 0; it < n_it; ++it) {
-        const int st = it % BWD_STAGES;
-        if (it >= BWD_STAGES)
-          mbar_wait(empty + 8 * st, (it / BWD_STAGES - 1) & 1);
+        const int st = it % STAGES;
+        if (it >= STAGES)
+          mbar_wait(empty + 8 * st, (it / STAGES - 1) & 1);
         const int q0 = (qt0 + it) * BWD_BM;
         float* sl = stats + st * L::STAT_FLOATS;
         for (int r = lane; r < BWD_BM; r += 32) {
@@ -251,7 +266,7 @@ __device__ __forceinline__ void bwd_ktile(
 
     if (n_it > 0) mbar_wait(kv_full, 0);
     for (int it = 0; it < n_it; ++it) {
-      const int st = it % BWD_STAGES, ph = (it / BWD_STAGES) & 1;
+      const int st = it % STAGES, ph = (it / STAGES) & 1;
       const int q0 = (qt0 + it) * BWD_BM;
       const uint32_t qt_s = q_s + st * L::Q_BYTES;
       const uint32_t dot_s = do_s + st * L::Q_BYTES;
@@ -298,14 +313,18 @@ __device__ __forceinline__ void bwd_ktile(
               pack2<T>(s[4 * i + 2 * h], s[4 * i + 2 * h + 1]);
           const uint32_t w = pack2<T>(dp[4 * i + 2 * h], dp[4 * i + 2 * h + 1]);
           dsa[i / 2][(i % 2) * 2 + h] = w;
-          const int kr = key_row0 + r_lo + 8 * h;
-          const uint32_t at = ds_off + (i / 4) * L::DS_PANEL + kr * 64 +
-                              (((i % 4) ^ ((kr >> 1) & 3)) << 4) + cq * 2;
-          *reinterpret_cast<uint32_t*>(gbase + at) = w;
+          if constexpr (WITH_DQ) {
+            const int kr = key_row0 + r_lo + 8 * h;
+            const uint32_t at = ds_off + (i / 4) * L::DS_PANEL + kr * 64 +
+                                (((i % 4) ^ ((kr >> 1) & 3)) << 4) + cq * 2;
+            *reinterpret_cast<uint32_t*>(gbase + at) = w;
+          }
         }
-      fence_async_shared();
-      // dS^T of the keys this warpgroup's dQ product reads is in place.
-      bar_sync(SPLIT_KEYS ? 1 + c : 1, SPLIT_KEYS ? 128 : 256);
+      if constexpr (WITH_DQ) {
+        fence_async_shared();
+        // dS^T of the keys this warpgroup's dQ product reads is in place.
+        bar_sync(SPLIT_KEYS ? 1 + c : 1, SPLIT_KEYS ? 128 : 256);
+      }
 
       float dq_acc[DQ_N / 2];
       pin(dk_acc);
@@ -319,56 +338,61 @@ __device__ __forceinline__ void bwd_ktile(
       for (int j = 0; j < Q_SLICES; ++j)
         Wgmma<D, T>::rs(dk_acc, dsa[j],
                         desc(qt_s + j * 16 * 64, L::Q_PANEL, 512));
+      if constexpr (WITH_DQ) {
 #pragma unroll
-      for (int jj = 0; jj < JN; ++jj) {
-        const int j = j0 + jj;
-        Wgmma<DQ_N, T>::ss_t(
-            dq_acc, desc(base + ds_off + j * 16 * 64, L::DS_PANEL, 512),
-            desc(k_s + (col0 / PANEL) * L::K_PANEL + j * 16 * 64,
-                 L::K_PANEL, 512),
-            jj > 0);
+        for (int jj = 0; jj < JN; ++jj) {
+          const int j = j0 + jj;
+          Wgmma<DQ_N, T>::ss_t(
+              dq_acc, desc(base + ds_off + j * 16 * 64, L::DS_PANEL, 512),
+              desc(k_s + (col0 / PANEL) * L::K_PANEL + j * 16 * 64,
+                   L::K_PANEL, 512),
+              jj > 0);
+        }
       }
       wg_commit();
       wg_wait<0>();
       pin(dk_acc);
       pin(dv_acc);
-      pin(dq_acc);
+      if constexpr (WITH_DQ) pin(dq_acc);
       pin(pa);
       pin(dsa);
       mbar_arrive_if(empty + 8 * st, tid == 0);
-
-      // This tile's dQ into the caller's f32 tensor: into this
-      // warpgroup's buffer (row r, column col: panel col / 32, 16-byte
-      // chunk (col % 32) / 4 ^ r % 8), then one TMA reduce-add per panel
-      // (rows past sq are not written).  The previous tile's reduce must
-      // have read the buffer first.
-      if (tid == 0) bulk_wait_all<true>();
-      bar_sync(3 + c, 128);
+      if constexpr (WITH_DQ) {
+        // This tile's dQ into the caller's f32 tensor: into this
+        // warpgroup's buffer (row r, column col: panel col / 32, 16-byte
+        // chunk (col % 32) / 4 ^ r % 8), then one TMA reduce-add per panel
+        // (rows past sq are not written).  The previous tile's reduce must
+        // have read the buffer first.
+        if (tid == 0) bulk_wait_all<true>();
+        bar_sync(3 + c, 128);
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = r_lo + 8 * h;
+        for (int h = 0; h < 2; ++h) {
+          const int r = r_lo + 8 * h;
 #pragma unroll
-        for (int i = 0; i < DQ_N / 8; ++i) {
-          const int col = 8 * i + cq;
-          const uint32_t at = dq_off + (col / 32) * L::DQ_PANEL + r * 128 +
-                              ((((col % 32) / 4) ^ (r % 8)) << 4) +
-                              (col % 4) * 4;
-          *reinterpret_cast<float2*>(gbase + at) =
-              make_float2(dq_acc[4 * i + 2 * h], dq_acc[4 * i + 2 * h + 1]);
+          for (int i = 0; i < DQ_N / 8; ++i) {
+            const int col = 8 * i + cq;
+            const uint32_t at = dq_off + (col / 32) * L::DQ_PANEL +
+                                r * 128 +
+                                ((((col % 32) / 4) ^ (r % 8)) << 4) +
+                                (col % 4) * 4;
+            *reinterpret_cast<float2*>(gbase + at) = make_float2(
+                dq_acc[4 * i + 2 * h], dq_acc[4 * i + 2 * h + 1]);
+          }
         }
-      }
-      fence_async_shared();
-      bar_sync(3 + c, 128);
-      if (tid == 0) {
+        fence_async_shared();
+        bar_sync(3 + c, 128);
+        if (tid == 0) {
 #pragma unroll
-        for (int p = 0; p < DQ_N / 32; ++p)
-          tma_reduce_add(mdq, base + dq_off + p * L::DQ_PANEL,
-                         col0 + 32 * p, q0, bh);
-        bulk_commit();
+          for (int p = 0; p < DQ_N / 32; ++p)
+            tma_reduce_add(mdq, base + dq_off + p * L::DQ_PANEL,
+                           col0 + 32 * p, q0, bh);
+          bulk_commit();
+        }
       }
     }
     // The adds complete before the CTA's shared memory goes away.
-    if (tid == 0) bulk_wait_all<false>();
+    if constexpr (WITH_DQ)
+      if (tid == 0) bulk_wait_all<false>();
 
     // dK and dV of this warpgroup's keys.
 #pragma unroll
@@ -396,8 +420,8 @@ __device__ __forceinline__ void bwd_ktile(
   }
 }
 
-// The five maps of one launch: q', dO and the f32 dq in boxes of BWD_BM
-// rows, k and v in boxes of BWD_BN rows.
+// The maps of one launch: q', dO and the f32 dq in boxes of BWD_BM rows,
+// k and v in boxes of BWD_BN rows; four without a `dq` (K2).
 template <typename T, int D>
 int make_bwd_maps(CUtensorMap* maps, const void* q, const void* dout,
                   const void* k, const void* v, float* dq, int bh, int sq,
@@ -406,7 +430,8 @@ int make_bwd_maps(CUtensorMap* maps, const void* q, const void* dout,
   if (e == 0) e = make_map<T, D>(&maps[1], dout, bh, sq, BWD_BM);
   if (e == 0) e = make_map<T, D>(&maps[2], k, bh, sk, BWD_BN);
   if (e == 0) e = make_map<T, D>(&maps[3], v, bh, sk, BWD_BN);
-  if (e == 0) e = make_map<float, D>(&maps[4], dq, bh, sq, BWD_BM);
+  if (e == 0 && dq != nullptr)
+    e = make_map<float, D>(&maps[4], dq, bh, sq, BWD_BM);
   return e;
 }
 
@@ -414,14 +439,14 @@ int make_bwd_maps(CUtensorMap* maps, const void* q, const void* dout,
 
 // ---------------------------------------------------------------------------
 // The f32 body: 128 threads, one 64-key tile, 64-row query tiles staged
-// through shared memory, products by scalar FMA (mm_smem's f32 branch).
+// through shared memory, products by scalar FMA (mm_smem).
 // ---------------------------------------------------------------------------
 
 template <int D>
 struct F32BwdSmem {
   using T = float;
-  static constexpr int LDT = D + Pad<T>::v;
-  static constexpr int LDP = BN + Pad<T>::v;
+  static constexpr int LDT = D + PAD;
+  static constexpr int LDP = BN + PAD;
   static constexpr int LDS = BN + 4;
   static constexpr int LDO = D + 4;  // f32 staging of a dQ tile / dK, dV
   static constexpr size_t a = 0;     // K tile
@@ -463,9 +488,9 @@ __device__ __forceinline__ void bwd_ktile_f32(
   float* lse_s = reinterpret_cast<float*>(smem + L::lse);
   float* delta_s = reinterpret_cast<float*>(smem + L::delta);
 
-  load_tile<T, D, BN>(Ks, L::LDT, k, k0, sk);
-  load_tile<T, D, BN>(Vs, L::LDT, v, k0, sk);
-  Acc<T, BN, D> dK, dV;
+  load_tile<D, BN>(Ks, L::LDT, k, k0, sk);
+  load_tile<D, BN>(Vs, L::LDT, v, k0, sk);
+  Acc<BN, D> dK, dV;
   dK.zero();
   dV.zero();
 
@@ -480,16 +505,16 @@ __device__ __forceinline__ void bwd_ktile_f32(
   for (int qt = qt0; qt < n_qt; ++qt) {
     const int q0 = qt * BM;
     __syncthreads();
-    load_tile<T, D, BM>(Qs, L::LDT, q, q0, sq);
-    load_tile<T, D, BM>(dOs, L::LDT, dout, q0, sq);
+    load_tile<D, BM>(Qs, L::LDT, q, q0, sq);
+    load_tile<D, BM>(dOs, L::LDT, dout, q0, sq);
     if (threadIdx.x < BM) {
       const int r = q0 + threadIdx.x;
       lse_s[threadIdx.x] = r < sq ? lse[r] : POS_BIG;
       delta_s[threadIdx.x] = r < sq ? delta[r] : 0.f;
     }
     __syncthreads();
-    mm_smem<T, BM, BN, D, true, false>(S, L::LDS, Qs, L::LDT, Ks, L::LDT);
-    mm_smem<T, BM, BN, D, true, false>(dP, L::LDS, dOs, L::LDT, Vs, L::LDT);
+    mm_smem<BM, BN, D, true, false>(S, L::LDS, Qs, L::LDT, Ks, L::LDT);
+    mm_smem<BM, BN, D, true, false>(dP, L::LDS, dOs, L::LDT, Vs, L::LDT);
     __syncthreads();
     for (int i = threadIdx.x; i < BM * BN; i += NT) {
       const int r = i / BN, c = i % BN;
@@ -504,7 +529,7 @@ __device__ __forceinline__ void bwd_ktile_f32(
     dV.template mma<BM, true>(Ps, L::LDP, dOs, L::LDT);   // P^T dO
     dK.template mma<BM, true>(dSs, L::LDP, Qs, L::LDT);   // dS^T Q
     // dQ tile = dS K, staged in the S/dP bytes (free until the next tile).
-    mm_smem<T, BM, D, BN, false, false>(S, L::LDO, dSs, L::LDP, Ks, L::LDT);
+    mm_smem<BM, D, BN, false, false>(S, L::LDO, dSs, L::LDP, Ks, L::LDT);
     __syncthreads();
     for (int i = threadIdx.x; i < BM * D; i += NT) {
       const int r = i / D, c = i % D;
@@ -515,11 +540,11 @@ __device__ __forceinline__ void bwd_ktile_f32(
   __syncthreads();
   dK.store(S, L::LDO);
   __syncthreads();
-  store_rows<T, D, BN>(dk, S, L::LDO, k0, sk, 1.f);
+  store_rows<D, BN>(dk, S, L::LDO, k0, sk, 1.f);
   __syncthreads();
   dV.store(S, L::LDO);
   __syncthreads();
-  store_rows<T, D, BN>(dv, S, L::LDO, k0, sk, 1.f);
+  store_rows<D, BN>(dv, S, L::LDO, k0, sk, 1.f);
 }
 
 }  // namespace hvdt

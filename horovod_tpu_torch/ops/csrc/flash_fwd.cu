@@ -5,10 +5,11 @@
 // and `_finalize_flash`).  The body is flash_fwd_sm90.cuh's, shared with
 // K4 (ring_flash.cu), here at zero offsets; its note gives the bound and
 // the design.  16-bit inputs: grid (bh, ceil(sq / 128)), 384 threads,
-// heavy (late) query tiles first.  f32 inputs: grid (ceil(sq / 64), bh),
-// 128 threads.  q, k, v, o: contiguous (bh, s, D); lse: (bh, sq) f32.  Any
-// sequence length: the ragged tail is zero-filled on load and masked as
-// NEG_INF logits.
+// heavy (late) query tiles first.  f32 inputs: a 1-D grid of
+// ceil(sq / 64) x bh blocks, 128 threads, heavy tiles first.  bh rides on
+// x in both, so any batch-head count launches.  q, k, v, o: contiguous
+// (bh, s, D); lse: (bh, sq) f32.  Any sequence length: the ragged tail is
+// zero-filled on load and masked as NEG_INF logits.
 
 #include "flash_fwd_sm90.cuh"
 
@@ -31,12 +32,14 @@ __global__ void __launch_bounds__(NT)
     flash_fwd_f32_kernel(const float* __restrict__ q,
                          const float* __restrict__ k,
                          const float* __restrict__ v, float* __restrict__ o,
-                         float* __restrict__ lse, int sq, int sk,
-                         float scale_r, int causal) {
-  const size_t bh = blockIdx.y;
+                         float* __restrict__ lse, int bh_total, int sq,
+                         int sk, float scale_r, int causal) {
+  // Heavy (late, under a causal mask) query tiles first.
+  const int qt = (sq + BM - 1) / BM - 1 - (int)(blockIdx.x / bh_total);
+  const size_t bh = blockIdx.x % bh_total;
   fwd_tile_f32<D>(q + bh * sq * D, k + bh * sk * D, v + bh * sk * D,
-                  o + bh * sq * D, lse + bh * sq, blockIdx.x * BM, sq, sk, 0,
-                  0, scale_r, causal);
+                  o + bh * sq * D, lse + bh * sq, qt * BM, sq, sk, 0, 0,
+                  scale_r, causal);
 }
 
 // Set each kernel's shared-memory limit once, before its first launch
@@ -71,11 +74,11 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o,
   const int prep = prepare_fwd<T, D>();
   if (prep != 0) return prep;
   if constexpr (std::is_same<T, float>::value) {
-    dim3 grid((sq + BM - 1) / BM, bh);
-    flash_fwd_f32_kernel<D><<<grid, NT, F32FwdSmem<D>::bytes, stream>>>(
+    const int blocks = ((sq + BM - 1) / BM) * bh;
+    flash_fwd_f32_kernel<D><<<blocks, NT, F32FwdSmem<D>::bytes, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), lse, sq, sk,
-        scale_r, causal);
+        static_cast<const float*>(v), static_cast<float*>(o), lse, bh, sq,
+        sk, scale_r, causal);
   } else {
     CUtensorMap mq, mk, mv;
     const int e = sm90::make_maps<T, D>(&mq, &mk, &mv, q, k, v, bh, sq, sk);

@@ -384,16 +384,16 @@ int make_maps(CUtensorMap* mq, CUtensorMap* mk, CUtensorMap* mv,
 
 // ---------------------------------------------------------------------------
 // The f32 body: 128 threads, one 64-row query tile, 64-key tiles staged
-// through shared memory, products by scalar FMA (mm_smem's f32 branch).
+// through shared memory, products by scalar FMA (mm_smem).
 // ---------------------------------------------------------------------------
 
 template <int D>
 struct F32FwdSmem {
   using T = float;
-  static constexpr int LDT = D + Pad<T>::v;   // q, k, v tiles
-  static constexpr int LDP = BN + Pad<T>::v;  // probabilities
-  static constexpr int LDS = BN + 4;          // logits
-  static constexpr int LDA = D + 4;           // output accumulator
+  static constexpr int LDT = D + PAD;   // q, k, v tiles
+  static constexpr int LDP = BN + PAD;  // probabilities
+  static constexpr int LDS = BN + 4;    // logits
+  static constexpr int LDA = D + 4;     // output accumulator
   static constexpr size_t q = 0;
   static constexpr size_t k = align128(q + BM * LDT * sizeof(T));
   static constexpr size_t v = align128(k + BN * LDT * sizeof(T));
@@ -429,7 +429,7 @@ __device__ __forceinline__ void fwd_tile_f32(const float* __restrict__ q,
   float* l_s = reinterpret_cast<float*>(smem + L::l);
   float* a_s = reinterpret_cast<float*>(smem + L::alpha);
 
-  load_tile<T, D, BM>(Qs, L::LDT, q, q0, sq);
+  load_tile<D, BM>(Qs, L::LDT, q, q0, sq);
   for (int i = threadIdx.x; i < BM * L::LDA; i += NT) Acc[i] = 0.f;
   if (threadIdx.x < BM) {
     m_s[threadIdx.x] = NEG_INF;
@@ -446,10 +446,10 @@ __device__ __forceinline__ void fwd_tile_f32(const float* __restrict__ q,
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * BN;
     __syncthreads();  // previous tile's readers of Ks/Vs/Ps are done
-    load_tile<T, D, BN>(Ks, L::LDT, k, k0, sk);
-    load_tile<T, D, BN>(Vs, L::LDT, v, k0, sk);
+    load_tile<D, BN>(Ks, L::LDT, k, k0, sk);
+    load_tile<D, BN>(Vs, L::LDT, v, k0, sk);
     __syncthreads();
-    mm_smem<T, BM, BN, D, true, false>(S, L::LDS, Qs, L::LDT, Ks, L::LDT);
+    mm_smem<BM, BN, D, true, false>(S, L::LDS, Qs, L::LDT, Ks, L::LDT);
     __syncthreads();
     // Online softmax, one warp per 16 rows, two columns per lane.
     for (int r = warp * (BM / 4); r < (warp + 1) * (BM / 4); ++r) {
@@ -493,7 +493,7 @@ __device__ __forceinline__ void fwd_tile_f32(const float* __restrict__ q,
       Acc[r * L::LDA + c] *= a_s[r];
     }
     __syncthreads();
-    mm_smem<T, BM, D, BN, false, true>(Acc, L::LDA, Ps, L::LDP, Vs, L::LDT);
+    mm_smem<BM, D, BN, false, true>(Acc, L::LDA, Ps, L::LDP, Vs, L::LDT);
   }
   __syncthreads();
   for (int i = threadIdx.x; i < BM * D; i += NT) {

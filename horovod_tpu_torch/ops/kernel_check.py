@@ -70,7 +70,8 @@ def plain_bwd_outputs(qr, k, v, do, lse, delta, p2, scale_r, causal,
     key tile (:func:`attention.bwd_key_tile`)."""
     dq, dk, dv = A._attention_bwd_impl(
         qr, k, v, lse, delta, do, causal, scale_r,
-        block_size=A.bwd_key_tile(mode, qr.dtype), dq_scale=p2,
+        block_size=A.bwd_key_tile(mode, qr.dtype, qr.shape[-1]),
+        dq_scale=p2,
         round_pds=True)
     return {"dq": dq, "dk": dk, "dv": dv}
 
@@ -144,7 +145,7 @@ def ring_plain_step(qr, k, v, do, q_offset, k_offset, causal, scale_r):
     delta = A._delta(o, do)
     dq, dk, dv = A._attention_bwd_impl(
         qr, k, v, lse, delta, do, causal, scale_r,
-        block_size=A.bwd_key_tile("combined", qr.dtype),
+        block_size=A.bwd_key_tile("combined", qr.dtype, qr.shape[-1]),
         round_pds=True, q_offset=q_offset, k_offset=k_offset,
         grad_dtype=torch.float32)
     return {"o": o, "lse": lse, "dq": dq, "dk": dk, "dv": dv}, delta

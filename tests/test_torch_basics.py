@@ -130,7 +130,8 @@ def test_build_without_nvcc_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build._nvcc()
     assert [os.path.basename(s) for s in _build.sources()] == [
-        "flash_bwd.cu", "flash_fwd.cu", "ring_flash.cu", "ring_permute.cu"]
+        "flash_bwd.cu", "flash_bwd_split.cu", "flash_fwd.cu", "ring_flash.cu",
+        "ring_permute.cu"]
 
 
 _FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "horovod_tpu")

@@ -4,8 +4,10 @@
 ``_bwd_plan``; it must agree with it over the grid of lengths, head dims
 and batch-heads below (at the default scoped-VMEM budget).  ``flash_bwd``
 (B2) on the CPU is its plain version, held against the TPU kernel
-``_combined_bwd_call`` in interpret mode; ``_FlashAttnFn`` is held against
-``jattn.flash_attention``'s gradients in both modes.  Inputs come from
+``_combined_bwd_call`` in interpret mode, and ``flash_bwd_dkdv`` +
+``flash_bwd_dq`` (K2 + K3) likewise against ``_split_bwd_call``;
+``_FlashAttnFn`` is held against ``jattn.flash_attention``'s gradients in
+both modes.  Inputs come from
 numpy and feed both.  Tolerances as in test_torch_attention.py and
 test_torch_ring.py: f32 summation order only (2e-5 for values and the
 kernel's gradients, 1e-3 for gradients through the autograd function).
@@ -30,18 +32,21 @@ def test_bwd_mode_matches_reference_plan(monkeypatch, d, q_len, bh):
     assert tattn.bwd_mode(q_len, d, bh) == want
 
 
+@pytest.mark.parametrize("d", tattn.HEAD_DIMS)
 @pytest.mark.parametrize("mode", ["combined", "split"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
-def test_bwd_tile_table_covers_every_head_dim_and_dtype(mode, dtype):
-    """Every body's key tile is known for every dtype (one tile at every
-    head dim): 128 keys for the combined body in 16 bits (sm90::BWD_BN,
-    two consumer warpgroups of 64), 64 for the f32 body and the split
-    pair."""
+def test_bwd_tile_table_covers_every_head_dim_and_dtype(mode, dtype, d):
+    """Every body's key tile is known for every dtype and head dim: in 16
+    bits 128 keys for the combined body (sm90::BWD_BN, two consumer
+    warpgroups of 64) and 64 for the split pair (K3's dq_key_tile); 64 for
+    the f32 bodies of both modes."""
     want = 128 if mode == "combined" and dtype != torch.float32 else 64
-    assert tattn.bwd_key_tile(mode, dtype) == want
+    assert tattn.bwd_key_tile(mode, dtype, d) == want
     with pytest.raises(ValueError, match="mode"):
-        tattn.bwd_key_tile("dense", dtype)
+        tattn.bwd_key_tile("dense", dtype, d)
+    with pytest.raises(ValueError, match="head_dim"):
+        tattn.bwd_key_tile(mode, dtype, d + 16)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
@@ -49,9 +54,9 @@ def test_bwd_tile_table_covers_every_head_dim_and_dtype(mode, dtype):
 @pytest.mark.parametrize("d", tattn.HEAD_DIMS)
 def test_plain_side_walks_each_backward_key_tile(dtype, d):
     """The plain side that holds B2 and the one that holds K2 + K3 walk
-    their own body's key tile: in 16 bits dq sums over 128-key blocks for
-    B2 and 64-key blocks for the split pair, and the two differ; in f32
-    both bodies take 64 keys and the sides are the same."""
+    their own body's key tile, so their dq differ exactly where the tiles
+    do: in 16 bits (B2 128 keys, K3 64); in f32 (both 64) the sides are
+    the same."""
     qr, k, v, do = (torch.from_numpy(a).to(dtype)
                     for a in _arrays((2, 512, d), seed=d))
     p2, r = tattn._split_scale(d ** -0.5)
@@ -62,12 +67,14 @@ def test_plain_side_walks_each_backward_key_tile(dtype, d):
     for mode, side in sides.items():
         dq, dk, dv = tattn._attention_bwd_impl(
             qr, k, v, ref["lse"], tattn._delta(ref["o"], do), do, True, r,
-            block_size=tattn.bwd_key_tile(mode, dtype), dq_scale=p2,
+            block_size=tattn.bwd_key_tile(mode, dtype, d), dq_scale=p2,
             round_pds=True)
         for name, want in (("dq", dq), ("dk", dk), ("dv", dv)):
             assert torch.equal(side[name], want), (mode, name)
     same = torch.equal(sides["combined"]["dq"], sides["split"]["dq"])
-    assert same == (dtype == torch.float32)
+    tiles = {mode: tattn.bwd_key_tile(mode, dtype, d)
+             for mode in ("combined", "split")}
+    assert same == (tiles["combined"] == tiles["split"])
 
 
 def _arrays(shape, seed, count=4):
@@ -95,6 +102,30 @@ def test_flash_bwd_plain_branch_matches_jax_combined_bwd(causal, p2):
     got = tattn.flash_bwd(*map(torch.tensor, (qr, k, v, do)), lse, delta,
                           1.0, p2, causal)
     for name, g, w in zip(("dk", "dv", "dq"), got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=2e-5,
+                                   rtol=2e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("p2", [0.25, 0.125])
+def test_split_pair_plain_branches_match_jax_split_bwd(causal, p2):
+    """K2's and K3's plain versions (``flash_bwd_dkdv`` and
+    ``flash_bwd_dq`` on CPU tensors) against ``_split_bwd_call``, the two
+    TPU kernels (interpret mode, two query and two key blocks): dk, dv,
+    and dq times the pow2 factor in f32."""
+    qr, k, v, do = _arrays((2, 32, 16), seed=31 + causal)
+    o, lse = tattn.flash_fwd(*map(torch.tensor, (qr, k, v)), 1.0, causal)
+    delta = tattn._delta(o, torch.tensor(do))
+    lse8 = np.broadcast_to(lse.numpy()[:, None, :], (2, 8, 32))
+    delta8 = np.broadcast_to(delta.numpy()[:, None, :], (2, 8, 32))
+    want = jattn._split_bwd_call(
+        *map(jnp.asarray, (qr, do, lse8, delta8, k, v)), causal=causal,
+        block_q=16, block_k=16, interpret=True, scale_r=1.0,
+        grad_dtype=jnp.float32, dq_scale=p2)
+    args = (*map(torch.tensor, (qr, k, v, do)), lse, delta, 1.0)
+    dk, dv = tattn.flash_bwd_dkdv(*args, causal)
+    dq = tattn.flash_bwd_dq(*args, p2, causal)
+    for name, g, w in zip(("dk", "dv", "dq"), (dk, dv, dq), want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=2e-5,
                                    rtol=2e-5, err_msg=name)
 

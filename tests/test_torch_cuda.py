@@ -90,6 +90,71 @@ def test_flash_bwd_at_the_tile_edges(cuda_device, seq, d, causal, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
+@pytest.mark.parametrize("seq", [2, 64, 127, 129, 1000])
+def test_split_pair_at_the_tile_edges(cuda_device, seq, d, causal, dtype):
+    """K2 (the backward body without its dQ product: 128-key tiles, 64-row
+    query steps) and K3 (128-row query tiles, 128 keys up to head_dim 64
+    and 64 above) around their tiles: two rows, one query step, one short
+    of and one past 128, and a ragged length over several tiles, where
+    TMA zero-fills and the rows past the end carry POS_BIG; held against
+    the plain side that walks K3's key tile."""
+    g = torch.Generator(device=cuda_device).manual_seed(seq * 1000 + d + 9)
+    q, k, v, do = (torch.randn(3, seq, d, device=cuda_device, generator=g)
+                   .to(dtype) for _ in range(4))
+    p2, r = tattn._split_scale(d ** -0.5)
+    qr = (q * p2).to(dtype)
+    ref, delta = kernel_check.plain_outputs(qr, k, v, do, causal, r, p2,
+                                            "split")
+    before = dict(tattn.launches)
+    dk, dv = tattn.flash_bwd_dkdv(qr, k, v, do, ref["lse"], delta, r, causal)
+    dq = tattn.flash_bwd_dq(qr, k, v, do, ref["lse"], delta, r, p2, causal)
+    assert {n: tattn.launches[n] - before[n] for n in before} == {
+        "flash_fwd": 0, "flash_bwd": 0, "flash_bwd_dkdv": 1,
+        "flash_bwd_dq": 1}
+    torch.cuda.synchronize()
+    for name, got in (("dq", dq), ("dk", dk), ("dv", dv)):
+        assert got.dtype == dtype
+        assert _close(got, ref[name]), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_past_65535_batch_heads(cuda_device, dtype):
+    """65,600 batch-heads (more blocks than a grid's y dimension holds):
+    K1, K2 and K3 launch once each (the plan picks the split pair past
+    1024 batch-heads), and the output and gradients agree with the plain
+    blockwise path."""
+    shape = (1, 65600, 16, 32)
+    g = torch.Generator(device=cuda_device).manual_seed(12)
+    q, k, v, ct = (torch.randn(shape, device=cuda_device, generator=g)
+                   .to(dtype) for _ in range(4))
+    before = dict(tattn.launches)
+    xs = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = tattn.flash_attention(*xs, causal=True)
+    grads = torch.autograd.grad(out, xs, ct)
+    torch.cuda.synchronize()
+    assert {n: tattn.launches[n] - before[n] for n in before} == {
+        "flash_fwd": 1, "flash_bwd": 0, "flash_bwd_dkdv": 1,
+        "flash_bwd_dq": 1}
+    ref_in = [x.float().clone().requires_grad_() for x in (q, k, v)]
+    ref = tattn.blockwise_attention(*ref_in, causal=True)
+    ref_grads = torch.autograd.grad(ref, ref_in, ct.float())
+    for a, b in zip((out.detach(), *grads), (ref.detach(), *ref_grads)):
+        assert torch.isfinite(a).all()
+        if dtype == torch.float32:
+            assert _close(a, b)
+        else:
+            # bf16 kernels against the f32 plain path: bf16 rounding of
+            # the inputs' products and of the outputs (5e-2 of the
+            # largest value).
+            err = (a.float() - b).abs().max().item()
+            assert err <= 5e-2 * b.abs().max().item(), err
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["combined", "split"])
 def test_flash_attention_backward_follows_the_plan(cuda_device, mode):
     """flash_attention's backward launches B2 at the main path's shape and

@@ -39,8 +39,8 @@ from horovod_tpu_torch.ops import _build  # noqa: E402
 from horovod_tpu_torch.ops import attention as A  # noqa: E402
 
 SHAPE = (128, 1024, 64)  # (batch*heads, seq, head_dim) of the LM step
-ADDS = """          tma_reduce_add(mdq, base + dq_off + p * L::DQ_PANEL,
-                         col0 + 32 * p, q0, bh);
+ADDS = """            tma_reduce_add(mdq, base + dq_off + p * L::DQ_PANEL,
+                           col0 + 32 * p, q0, bh);
 """
 SLEEP_CYCLES = 2_000_000  # ≈1 ms at the H100's clock
 
@@ -54,7 +54,7 @@ def build_without_adds() -> str:
     if text.count(ADDS) != 1:
         raise RuntimeError("the dQ adds are not found once in the body")
     with open(path, "w") as f:
-        f.write(text.replace(ADDS, "          (void)p;\n"))
+        f.write(text.replace(ADDS, "            (void)p;\n"))
     out = os.path.join(d, "flash_bwd.so")
     proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", out,
                            os.path.join(d, "flash_bwd.cu")],

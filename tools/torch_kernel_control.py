@@ -11,22 +11,30 @@ keeps the body's barrier protocol, so a mutant computes wrong and never
 hangs:
 
 * ``fwd_skip_key_tile``    — K1 masks out the second-to-last key tile;
-* ``dkdv_skip_query_tile`` — K2 skips the last query tile (not its own);
-* ``dq_skip_key_tile``     — K3 skips the second-to-last key tile;
+* ``dkdv_skips_last_query_tile`` — K2 skips the last query tile of each
+  key tile (producer and consumers alike);
+* ``dq_skip_key_tile``     — K3 zeroes p of the second-to-last key tile;
 * ``fwd_late_rows_skip_first_key_tile`` — K1, for query tiles from row
   512 on, masks out key tile 0;
-* ``dkdv_late_keys_skip_next_query_tile`` — K2, for keys from 512 on,
-  skips the query tile after the diagonal;
-* ``dq_late_rows_skip_first_key_tile`` — K3, for query rows from 512 on,
-  skips key tile 0;
+* ``dkdv_late_keys_skip_next_query_tile`` — K2, for key tiles from 512
+  on, zeroes p of the 64-row query step after the first that sees them;
+* ``dq_late_rows_skip_first_key_tile`` — K3, for query tiles from row 512
+  on, zeroes p of key tile 0;
 * ``fwd_late_rows_5pct``, ``dkdv_late_keys_5pct``, ``dq_late_rows_5pct``
   — K1's o, K2's dv and K3's dq come out 5% small for rows (keys) from
   512 on: a mis-rescaled second half;
 * ``fwd_pv_drops_last_k16_slice`` — K1's P V product leaves out the last
-  16-key slice of every key tile (the wgmma k-loop one step short).
+  16-key slice of every key tile (the wgmma k-loop one step short);
+* ``dq_drops_last_k16_slice`` — K3's dQ += dS K leaves out the last 16-key
+  slice of every key tile;
+* ``dq_wrong_row_delta`` — K3 takes each row's delta from the row 8 away
+  (the thread's other row).
 
-Mutants of the backward body that B2 and K5 share
-(``csrc/flash_bwd_sm90.cuh``), read through B2 (``flash_bwd``):
+K2 is the backward body B2 and K5 share (``csrc/flash_bwd_sm90.cuh``)
+with its dQ product compiled out, so its mutants change that body and
+are read through K2 (``flash_bwd_dkdv``, ``csrc/flash_bwd_split.cu``);
+K3's change ``csrc/flash_dq_sm90.cuh``.  Mutants of the backward body
+read through B2 (``flash_bwd``):
 
 * ``bwd_dq_drops_last_k16_slice`` — the dQ = dS K product leaves out the
   last 16-key slice of each warpgroup's share (the wgmma k-loop one step
@@ -36,8 +44,8 @@ Mutants of the backward body that B2 and K5 share
 * ``bwd_dv_skips_6pct_of_rows`` — P^T as dV's operand drops the last 4
   of every 64 query rows (6%; dK and dQ keep them).
 
-The K2/K3 mutants are read through the split pair, the others through
-B2.
+The K2/K3 mutants are read through the split pair, the body's others
+through B2.
 
 The first three drop most of the mass of some rows; the next three drop
 a share of late rows only; the next three move late rows, whose values
@@ -86,63 +94,73 @@ from horovod_tpu_torch.ops import attention as A  # noqa: E402
 from horovod_tpu_torch.ops import kernel_check  # noqa: E402
 
 SHAPE = (128, 1024, 64)  # (batch*heads, seq, head_dim) of the LM step
-# Heads of the backward's loops: over key tiles (K3 — flash_bwd.cu has
-# this line only there) and over query tiles (K2).
-KEY_LOOP = "    const int k0 = kt * BN;\n"
-QUERY_LOOP = "    const int q0 = qt * BM;\n"
 # Lines of the shared 16-bit forward body (K1, K4).
 FWD_BODY = "flash_fwd_sm90.cuh"
 KEY_END = "      const int key_end = sk - k0;\n"
 FWD_INV = "const float inv = lt == 0.f ? 1.f : 1.f / lt;"
 PV_LOOP = "for (int j = 0; j < PV_STEPS; ++j) {"
-# Lines of the 16-bit backward body (B2, K5).
+# Lines of the 16-bit backward body (B2, K5, and K2 without its dQ).
 BWD_BODY = "flash_bwd_sm90.cuh"
 DQ_LOOP = "for (int jj = 0; jj < JN; ++jj) {"
 N_IT = "  const int n_it = max(0, n_qt - qt0);\n"
 PT_PACK = ("              pack2<T>(s[4 * i + 2 * h], "
            "s[4 * i + 2 * h + 1]);\n")
+BWD_P = "            float p = ex2(fmaf(s[e], scale_log2, -lse2));\n"
+DV_PACK = "              pack2<T>(dv_acc[e], dv_acc[e + 1]);\n"
+# Lines of K3's body.
+DQ_BODY = "flash_dq_sm90.cuh"
+DQ_P = "            float p = ex2(fmaf(s[e], scale_log2, -lse2[h]));\n"
+DQ_STORE = ("            pack2<T>(dq_acc[4 * i + 2 * h] * dq_scale,\n"
+            "                     dq_acc[4 * i + 2 * h + 1] * dq_scale);\n")
+SPLIT = "flash_bwd_split"
 # mutant: (source stem, file mutated, line, what replaces it, outputs held);
-# flash_bwd.cu's mutants (K2, K3) are held through the split pair.
+# the flash_bwd_split mutants (K2, K3) are held through the split pair.
 MUTANTS = {
     "fwd_skip_key_tile": (
         "flash_fwd", FWD_BODY, KEY_END,
         KEY_END + "      if (kt == n_kt - 2)\n"
         "        for (float& x : s) x = NEG_INF;\n", ("o", "lse")),
-    "dkdv_skip_query_tile": (
-        "flash_bwd", "flash_bwd.cu", QUERY_LOOP,
-        QUERY_LOOP + "    if (qt == n_qt - 1 && qt > qt0) continue;\n",
-        ("dk", "dv")),
+    "dkdv_skips_last_query_tile": (
+        SPLIT, BWD_BODY, N_IT,
+        "  const int n_it = max(0, n_qt - qt0 - 1);\n", ("dk", "dv")),
     "dq_skip_key_tile": (
-        "flash_bwd", "flash_bwd.cu", KEY_LOOP,
-        KEY_LOOP + "    if (kt == n_kt - 2) continue;\n", ("dq",)),
+        SPLIT, DQ_BODY, DQ_P,
+        DQ_P + "            if (kt == n_kt - 2) p = 0.f;\n", ("dq",)),
     "fwd_late_rows_skip_first_key_tile": (
         "flash_fwd", FWD_BODY, KEY_END,
         KEY_END + "      if (q0 >= 512 && kt == 0)\n"
         "        for (float& x : s) x = NEG_INF;\n", ("o", "lse")),
     "dkdv_late_keys_skip_next_query_tile": (
-        "flash_bwd", "flash_bwd.cu", QUERY_LOOP,
-        QUERY_LOOP + "    if (k0 >= 512 && qt == qt0 + 1) continue;\n",
-        ("dk", "dv")),
+        SPLIT, BWD_BODY, BWD_P,
+        BWD_P + "            if (k0 >= 512 && q0 == (qt0 + 1) * BWD_BM) "
+        "p = 0.f;\n", ("dk", "dv")),
     "dq_late_rows_skip_first_key_tile": (
-        "flash_bwd", "flash_bwd.cu", KEY_LOOP,
-        KEY_LOOP + "    if (q0 >= 512 && kt == 0) continue;\n", ("dq",)),
+        SPLIT, DQ_BODY, DQ_P,
+        DQ_P + "            if (q0 >= 512 && kt == 0) p = 0.f;\n", ("dq",)),
     "fwd_late_rows_5pct": (
         "flash_fwd", FWD_BODY, FWD_INV,
         "const float inv = (lt == 0.f ? 1.f : 1.f / lt) * "
         "(q0 >= 512 ? 0.95f : 1.f);", ("o",)),
     "dkdv_late_keys_5pct": (
-        "flash_bwd", "flash_bwd.cu",
-        "store_rows<T, D, BN>(dv, S, L::LDO, k0, sk, 1.f);",
-        "store_rows<T, D, BN>(dv, S, L::LDO, k0, sk, "
-        "k0 >= 512 ? 0.95f : 1.f);", ("dv",)),
+        SPLIT, BWD_BODY, DV_PACK,
+        "              pack2<T>(dv_acc[e] * (key >= 512 ? 0.95f : 1.f),\n"
+        "                       dv_acc[e + 1] * (key >= 512 ? 0.95f : 1.f));"
+        "\n", ("dv",)),
     "dq_late_rows_5pct": (
-        "flash_bwd", "flash_bwd.cu",
-        "store_rows<T, D, BM>(dq, S, L::LDO, q0, sq, dq_scale);",
-        "store_rows<T, D, BM>(dq, S, L::LDO, q0, sq, "
-        "q0 >= 512 ? 0.95f * dq_scale : dq_scale);", ("dq",)),
+        SPLIT, DQ_BODY, DQ_STORE,
+        "            pack2<T>(dq_acc[4 * i + 2 * h] * dq_scale *\n"
+        "                         (row >= 512 ? 0.95f : 1.f),\n"
+        "                     dq_acc[4 * i + 2 * h + 1] * dq_scale *\n"
+        "                         (row >= 512 ? 0.95f : 1.f));\n", ("dq",)),
     "fwd_pv_drops_last_k16_slice": (
         "flash_fwd", FWD_BODY, PV_LOOP,
         "for (int j = 0; j < PV_STEPS - 1; ++j) {", ("o",)),
+    "dq_drops_last_k16_slice": (
+        SPLIT, DQ_BODY, "for (int j = 0; j < DQ_STEPS; ++j) {",
+        "for (int j = 0; j < DQ_STEPS - 1; ++j) {", ("dq",)),
+    "dq_wrong_row_delta": (
+        SPLIT, DQ_BODY, "dp[e] = p * (dp[e] - dl[h]) * scale_r;",
+        "dp[e] = p * (dp[e] - dl[1 - h]) * scale_r;", ("dq",)),
     "bwd_dq_drops_last_k16_slice": (
         "flash_bwd", BWD_BODY, DQ_LOOP,
         "for (int jj = 0; jj < JN - 1; ++jj) {", ("dq",)),
@@ -268,7 +286,8 @@ def main():
         sys.exit("torch_kernel_control: no CUDA device")
     _build.build_all()
     paths = build_mutants()
-    sound = {stem: _build.load(stem) for stem in ("flash_fwd", "flash_bwd")}
+    sound = {stem: _build.load(stem)
+             for stem in ("flash_fwd", "flash_bwd", SPLIT)}
     result, ok = {}, True
     for dtype in (torch.bfloat16, torch.float16):
         g = torch.Generator(device="cuda").manual_seed(0)
@@ -288,8 +307,8 @@ def main():
         ok &= all(r["strict"]["worst"] <= 1.0
                   for mode in ("combined", "split")
                   for r in rows[f"sound_{mode}"].values())
-        for name, (stem, file, _, _, names) in MUTANTS.items():
-            mode = "split" if file == "flash_bwd.cu" else "combined"
+        for name, (stem, _, _, _, names) in MUTANTS.items():
+            mode = "split" if stem == SPLIT else "combined"
             _build._libs[stem] = ctypes.CDLL(paths[name])
             try:
                 rows[name] = reading(

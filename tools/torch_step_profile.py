@@ -57,12 +57,12 @@ def category(name: str) -> str:
             return cat
     if "flash_fwd_kernel" in name or "flash_fwd_f32_kernel" in name:
         return "flash_fwd"
+    if "flash_bwd_dkdv" in name:  # K2, 16-bit and f32
+        return "flash_bwd_dkdv"
+    if "flash_bwd_dq" in name:  # K3, 16-bit and f32
+        return "flash_bwd_dq"
     if "flash_bwd_kernel" in name or "flash_bwd_f32_kernel" in name:
         return "flash_bwd"
-    if "flash_bwd_dkdv_kernel" in name:
-        return "flash_bwd_dkdv"
-    if "flash_bwd_dq_kernel" in name:
-        return "flash_bwd_dq"
     low = name.lower()
     if any(t in low for t in ("gemm", "cutlass", "xmma", "cublas", "sm90_",
                               "nvjet")):
