@@ -40,6 +40,16 @@ Phases, one JSON line each:
    and at seq 8192 (64 batch-heads) and 16384 (32), where the plan also
    picks the split pair (K2's and K3's entries in the summary come from
    the first shape).
+   Then ``head_dims``: K1, K2 and K3 at head dim 256 (bf16, 1040
+   batch-heads x seq 512), and K1 and B2 at head dims 16 and 80 on the
+   main path's shape (run zero-padded to 32 and 96), each held alone
+   against its plain version at the caller's head dim, the padded columns
+   exactly 0; ``flash_attention`` forward and backward at each with the
+   counters zeroed just before and read just after (K1 1, and K2 1 + K3
+   1 at 256, B2 1 at 16 and 80), its output and gradients against the
+   plain blockwise path; times beside SDPA's fastest backend at the same
+   head dim and the bound of the caller's work.  The summary's d-256 rows
+   come from here.
 6. ``ring_kernels`` — K4 ``ring_flash_fwd``, K5 ``ring_flash_bwd``, K6
    ``ring_permute`` and K7 ``phase_closer`` on a ring of 4 members
    co-located on the card (``RingMesh``, one stream each), shard
@@ -50,8 +60,11 @@ Phases, one JSON line each:
    shift +1 and -1 with its VJP; K7's zero block, and every flag word
    back at 0 after a fused forward + backward.
    Times of each kernel, its plain version and its library yardstick; K6
-   also by CUDA events on the member streams around its four launches
-   alone (``kernel_ms``), beside its round with the fork and join.
+   and K7 also by CUDA events on the member streams around their four
+   launches alone (``kernel_ms``), beside their rounds with the fork and
+   join, with K6 moving no bytes (its handshake and gate alone), an empty
+   kernel per member (the floor of that measurement) and one ``copy_``
+   per member on its stream.
 7. ``ring_model`` — a small f32 LM sequence-parallel over 4 members in the
    fused, rdma and ppermute modes against the unsharded model on the same
    weights and tokens: logits and every gradient to 1e-4, and the launch
@@ -64,7 +77,8 @@ Phases, one JSON line each:
    two steps of the rdma ring at the same width, K6 2(n-1) forward +
    2(n-1) backward per member and layer.
 
-Then the ``{"kernels": [...]}`` summary (K1-K7 and B2), the
+Then the ``{"kernels": [...]}`` summary (K1-K7, B2, and K1-K3 at head
+dim 256), the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Any
 failure raises: the script exits non-zero and prints no result line.
 Tolerances (``horovod_tpu_torch/ops/kernel_check.py``, which gives the
@@ -128,6 +142,11 @@ SPLIT_LONG = ((8, 8, 8192, 64), (4, 8, 16384, 64))
 # More batch-heads than a grid's y dimension holds (65,535).
 SPLIT_WIDE = (1, 65600, 16, 32)
 RING = (4, 8, 1024, 64)  # one member's shard on the ring path (4 members)
+# Head dims beside the main path's 64 (the head_dims phase): the wide body
+# (K1, K2, K3) on the split phase's shape, and two head dims no body takes
+# (run zero-padded to 32 and 96) on the main path's shape.
+HEAD_DIM_WIDE = (1, 1040, 512, 256)
+HEAD_DIM_PADDED = ((16, 8, 1024, 16), (16, 8, 1024, 80))
 N_MEMBERS = 4
 REPLACES = {
     "flash_fwd": "horovod_tpu/ops/attention.py:356",
@@ -212,10 +231,13 @@ def bound_ms(flops, nbytes, dtype):
 
 
 def _entry(name, ms, plain_ms, library_ms, flops, nbytes, dtype, err,
-           **extra):
+           kernel=None, **extra):
+    """A row of the summary; ``kernel`` names the kernel where ``name``
+    is a row of its own (the d-256 rows)."""
     bms, by = bound_ms(flops, nbytes, dtype)
-    return {"name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name], "launches": None,
+    kernel = kernel or name
+    return {"name": name, "route": "cuda", "source": SOURCES[kernel],
+            "replaces": REPLACES[kernel], "launches": None,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": by, "library_ms": library_ms,
             "flops": flops, "bytes": nbytes, **extra}
@@ -276,7 +298,7 @@ def phase_kernels():
     # Times at the main path's shape and dtype; the plain times are of the
     # plain versions as held against the kernels above.
     dtype, causal = torch.bfloat16, True
-    q, qr, k, v, do, p2, scale_r = kernel_inputs(MAIN, dtype, 1)
+    _, qr, k, v, do, p2, scale_r = kernel_inputs(MAIN, dtype, 1)
     o, lse = A.flash_fwd(qr, k, v, scale_r, causal)
     delta = A._delta(o, do)
     t_fwd = time_ms(lambda: A.flash_fwd(qr, k, v, scale_r, causal))
@@ -299,18 +321,8 @@ def phase_kernels():
     # backend, forward and its backward alone (dq, dk, dv in one autograd
     # call).
     b, h, s, d = MAIN
-    qs, ks, vs = (t.reshape(b, h, s, d).detach().requires_grad_()
-                  for t in (q, k, v))
-    dos = do.reshape(b, h, s, d)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_fwd, t_lib_fwd = sdpa_ms(
-        lambda: lambda: sdpa(qs, ks, vs, is_causal=causal))
-
-    def sdpa_bwd():
-        out = sdpa(qs, ks, vs, is_causal=causal)
-        return lambda: torch.autograd.grad(out, (qs, ks, vs), dos,
-                                           retain_graph=True)
-    lib_bwd, t_lib_bwd = sdpa_ms(sdpa_bwd)
+    lib_fwd, t_lib_fwd, lib_bwd, t_lib_bwd = sdpa_times(MAIN, dtype, causal,
+                                                        None, 1)
 
     bh = b * h
     pairs = causal_pairs(s, s, causal) * bh
@@ -427,22 +439,7 @@ def hold_many_heads(dtype):
     just before and read just after (K1, K2, K3 once: the plan picks the
     split pair past 1024 batch-heads); output and gradients against the
     plain blockwise path."""
-    g = torch.Generator(device="cuda").manual_seed(7)
-    q, k, v, ct = (torch.randn(SPLIT_WIDE, device="cuda", generator=g,
-                               dtype=torch.float32).to(dtype)
-                   for _ in range(4))
-    xs = [x.clone().requires_grad_() for x in (q, k, v)]
-    torch.cuda.synchronize()
-    A.reset_launches()
-    out = A.flash_attention(*xs, causal=True)
-    grads = torch.autograd.grad(out, xs, ct)
-    torch.cuda.synchronize()
-    launched = dict(A.launches)
-    ref_in = [x.detach().float().requires_grad_() for x in xs]
-    ref = A.blockwise_attention(*ref_in, causal=True)
-    ref_grads = torch.autograd.grad(ref, ref_in, ct.float())
-    got = dict(zip(("o", "dq", "dk", "dv"), (out, *grads)))
-    want = dict(zip(("o", "dq", "dk", "dv"), (ref.detach(), *ref_grads)))
+    launched, got, want = drive_flash_attention(SPLIT_WIDE, dtype, True, 7)
     if dtype == torch.float32:
         # f32 on both sides: summation order only (kernel_check's rule).
         errs = {n: kernel_check.compare(got[n], want[n]) for n in got}
@@ -450,8 +447,7 @@ def hold_many_heads(dtype):
     else:
         # 16-bit kernels against the f32 plain path: rounding of the
         # inputs' products and of the outputs (5e-2 of the largest value).
-        errs = {n: (got[n].float() - want[n]).abs().max().item()
-                / want[n].abs().max().item() for n in got}
+        errs = _rel_errs(got, want)
         ok = max(errs.values()) <= 5e-2
     finite = all(bool(torch.isfinite(x).all()) for x in got.values())
     return {"dtype": str(dtype), "launches": launched, "errors": errs,
@@ -505,7 +501,6 @@ def phase_split():
 
     t_plain = time_ms(lambda: kernel_check.plain_bwd_outputs(*args, "split"),
                       warmup=1, iters=5)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     times = {}
     for shape in (SPLIT,) + SPLIT_LONG:
         if A.bwd_mode(shape[2], shape[3], shape[0] * shape[1]) != "split":
@@ -535,15 +530,7 @@ def phase_split():
         t_k2 = time_ms(lambda: A.flash_bwd_dkdv(*largs, causal))
         t_k3 = time_ms(lambda: A.flash_bwd_dq(*largs, sp2, causal))
         t_b2 = time_ms(lambda: A.flash_bwd(*largs, sp2, causal))
-        qs, ks, vs = (x.reshape(shape).detach().requires_grad_()
-                      for x in (sqr, sk_, sv))
-        dos = sdo.reshape(shape)
-
-        def sdpa_bwd():
-            out = sdpa(qs, ks, vs, is_causal=causal, scale=sr)
-            return lambda: torch.autograd.grad(out, (qs, ks, vs), dos,
-                                               retain_graph=True)
-        lib_bwd, t_lib = sdpa_ms(sdpa_bwd)
+        _, _, lib_bwd, t_lib = sdpa_times(shape, dtype, causal, sr, 6)
         bounds = {n: bound_ms(f, nb, dtype)[0] for n, (f, nb)
                   in split_bounds(shape, dtype, causal).items()}
         times["x".join(map(str, shape))] = {
@@ -551,7 +538,7 @@ def phase_split():
             "b2_ms": t_b2, "sdpa_bwd_ms": lib_bwd, "library_ms": t_lib,
             "k2_bound_ms": bounds["flash_bwd_dkdv"],
             "k3_bound_ms": bounds["flash_bwd_dq"], "worst": worst}
-        del qs, ks, vs, dos, largs, sqr, sk_, sv, sdo, slse, sdelta
+        del largs, sqr, sk_, sv, sdo, slse, sdelta
     emit("split", shape=list(SPLIT), mode=mode, launches=launched,
          errors=errs, path_rel_err=path_err, many_heads=wide, times=times,
          plain_ms=t_plain,
@@ -588,6 +575,215 @@ def phase_split():
     return launched, entries
 
 
+def hold_padded(shape, dtype, causal, mode, seed):
+    """K1 and the backward in ``mode``, each alone, on inputs zero-padded
+    to the body's head dim as ``flash_attention`` pads them, against the
+    plain side at the caller's head dim (``kernel_check``; the plain side
+    walks the padded body's key tiles): ``{output: compare}``, and whether
+    every padded column came out exactly 0."""
+    d = shape[-1]
+    _, qr, k, v, do, p2, scale_r = kernel_inputs(shape, dtype, seed)
+    ref, delta = kernel_check.plain_outputs(qr, k, v, do, causal, scale_r,
+                                            p2, mode)
+    body = A.padded_head_dim(d)
+    pad = [A.pad_head(t, body) for t in (qr, k, v, do)]
+    got = kernel_check.kernel_outputs(*pad, ref["lse"], delta, p2, scale_r,
+                                      causal, mode)
+    zero_pad = all(int(torch.count_nonzero(t[..., d:])) == 0
+                   for n, t in got.items() if n != "lse")
+    got = {n: t if n == "lse" else t[..., :d] for n, t in got.items()}
+    for name, t in got.items():
+        if not torch.isfinite(t).all():
+            fail(f"{name} not finite at {shape} {dtype}")
+    return kernel_check.compare_outputs(got, ref), zero_pad
+
+
+def drive_flash_attention(shape, dtype, causal, seed):
+    """``flash_attention`` forward and backward at ``shape`` on inputs
+    from ``seed``, with the counters zeroed just before and read just
+    after: ``(launches, {o, dq, dk, dv}, the same of the plain blockwise
+    path in f32)``."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, ct = (torch.randn(shape, device="cuda", generator=g,
+                               dtype=torch.float32).to(dtype)
+                   for _ in range(4))
+    xs = [x.clone().requires_grad_() for x in (q, k, v)]
+    torch.cuda.synchronize()
+    A.reset_launches()
+    out = A.flash_attention(*xs, causal=causal)
+    grads = torch.autograd.grad(out, xs, ct)
+    torch.cuda.synchronize()
+    launched = dict(A.launches)
+    ref_in = [x.detach().float().requires_grad_() for x in xs]
+    ref = A.blockwise_attention(*ref_in, causal=causal)
+    ref_grads = torch.autograd.grad(ref, ref_in, ct.float())
+    names = ("o", "dq", "dk", "dv")
+    return (launched, dict(zip(names, (out.detach(), *grads))),
+            dict(zip(names, (ref.detach(), *ref_grads))))
+
+
+def _rel_errs(got, want):
+    """Largest error of each output over the largest value of its plain
+    version."""
+    return {n: (got[n].float() - want[n]).abs().max().item()
+            / want[n].abs().max().item() for n in got}
+
+
+def sdpa_times(shape, dtype, causal, scale, seed):
+    """SDPA's forward and whole backward at ``shape`` under each backend:
+    ``(fwd by backend, fastest fwd, bwd by backend, fastest bwd)``."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    qs, ks, vs = (torch.randn(shape, device="cuda", generator=g,
+                              dtype=torch.float32).to(dtype)
+                  .requires_grad_() for _ in range(3))
+    dos = torch.randn(shape, device="cuda", generator=g).to(dtype)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    fwd, t_fwd = sdpa_ms(lambda: lambda: sdpa(qs, ks, vs, is_causal=causal,
+                                              scale=scale))
+
+    def bwd():
+        out = sdpa(qs, ks, vs, is_causal=causal, scale=scale)
+        return lambda: torch.autograd.grad(out, (qs, ks, vs), dos,
+                                           retain_graph=True)
+    bwd_by, t_bwd = sdpa_ms(bwd)
+    return fwd, t_fwd, bwd_by, t_bwd
+
+
+def attention_work(shape, dtype, causal):
+    """``(pairs, tile bytes, row bytes)`` of attention at ``shape``."""
+    b, h, s, d = shape
+    pairs = causal_pairs(s, s, causal) * b * h
+    tile = b * h * s * d * torch.tensor([], dtype=dtype).element_size()
+    return pairs, tile, b * h * s * 4
+
+
+def phase_head_dims():
+    """Head dims other than the main path's (ROADMAP C.1), bf16, causal.
+    K1, K2 and K3 at the wide head dim 256 on the split phase's shape, and
+    K1 and B2 at head dims 16 and 80 (no body takes them: the inputs run
+    zero-padded to 32 and 96) on the main path's shape, each held alone
+    against its plain version at the caller's head dim; ``flash_attention``
+    forward and backward at each, the counters zeroed just before and read
+    just after each (K1 1, and K2 1 + K3 1 at 256, B2 1 at 16 and 80), its
+    output and gradients against the plain blockwise path; then the
+    kernels (at 256) and ``flash_attention`` (at 16 and 80, padding
+    included) timed beside SDPA's fastest backend at the same head dim and
+    the bound of the caller's work.  Returns the d-256 rows of the
+    summary."""
+    dtype, causal = torch.bfloat16, True
+    cases = [(HEAD_DIM_WIDE, "split")] + [(s, "combined")
+                                          for s in HEAD_DIM_PADDED]
+    result, entries = {}, {}
+    for shape, mode in cases:
+        d = shape[-1]
+        if A.bwd_mode(shape[2], d, shape[0] * shape[1]) != mode:
+            fail(f"the plan does not pick {mode} at {shape}")
+        errs, zero_pad = hold_padded(shape, dtype, causal, mode, 20 + d)
+        launched, got, want = drive_flash_attention(shape, dtype, causal,
+                                                    30 + d)
+        if not all(bool(torch.isfinite(t).all()) for t in got.values()):
+            fail(f"flash_attention at {shape}: non-finite output")
+        path_err = _rel_errs(got, want)
+        del got, want
+        want_launches = {"flash_fwd": 1,
+                         "flash_bwd": int(mode == "combined"),
+                         "flash_bwd_dkdv": int(mode == "split"),
+                         "flash_bwd_dq": int(mode == "split")}
+        worst = max(e["worst"] for e in errs.values())
+        row = {"shape": list(shape), "mode": mode,
+               "body_head_dim": A.padded_head_dim(d), "errors": errs,
+               "worst": worst, "padded_columns_zero": zero_pad,
+               "launches": launched, "path_rel_err": path_err}
+        result[f"d{d}"] = row
+        if worst > 1.0 or not zero_pad or launched != want_launches \
+                or max(path_err.values()) > 5e-2:
+            emit("head_dims", cases=result)
+            fail(f"head dim {d}: {row}, want launches {want_launches}")
+
+        # Times: the kernels at 256; flash_attention itself at 16 and 80,
+        # where the padding is part of the cost.
+        pairs, tile, rowb = attention_work(shape, dtype, causal)
+        scale = d ** -0.5
+        lib_fwd, t_lib_fwd, lib_bwd, t_lib_bwd = sdpa_times(
+            shape, dtype, causal, scale, 40 + d)
+        fwd_bound = bound_ms(4 * d * pairs, 4 * tile + rowb, dtype)
+        if mode == "split":
+            _, qr, k, v, do, p2, scale_r = kernel_inputs(shape, dtype, 50)
+            o, lse = A.flash_fwd(qr, k, v, scale_r, causal)
+            delta = A._delta(o, do)
+            del o
+            largs = (qr, k, v, do, lse, delta, scale_r)
+            t_k1 = time_ms(lambda: A.flash_fwd(qr, k, v, scale_r, causal))
+            t_k2 = time_ms(lambda: A.flash_bwd_dkdv(*largs, causal))
+            t_k3 = time_ms(lambda: A.flash_bwd_dq(*largs, p2, causal))
+            t_plain_fwd = time_ms(lambda: A._blockwise_fwd_impl(
+                qr, k, v, causal, scale_r,
+                block_size=A.fwd_key_tile(dtype, d)), warmup=1, iters=3)
+            t_plain_bwd = time_ms(lambda: kernel_check.plain_bwd_outputs(
+                qr, k, v, do, lse, delta, p2, scale_r, causal, "split"),
+                warmup=1, iters=3)
+            row["times"] = {"k1_ms": t_k1, "k2_ms": t_k2, "k3_ms": t_k3,
+                            "sdpa_fwd_ms": lib_fwd, "sdpa_bwd_ms": lib_bwd,
+                            "k1_bound_ms": fwd_bound[0]}
+            err = {n: max(errs[o]["max_abs_err"] for o in outs)
+                   for n, outs in (("flash_fwd", ("o", "lse")),
+                                   ("flash_bwd_dkdv", ("dk", "dv")),
+                                   ("flash_bwd_dq", ("dq",)))}
+            bounds = split_bounds(shape, dtype, causal)
+            note = (f"head dim 256 at {list(shape)}; library_ms: SDPA's "
+                    "fastest backend (forward for K1, whole backward for "
+                    "K2 and K3)")
+            entries["flash_fwd_d256"] = _entry(
+                "flash_fwd_d256", t_k1, t_plain_fwd, t_lib_fwd,
+                4 * d * pairs, 4 * tile + rowb, dtype, err["flash_fwd"],
+                kernel="flash_fwd", library_by_backend=lib_fwd,
+                shape=list(shape), note=note)
+            for name, t in (("flash_bwd_dkdv", t_k2), ("flash_bwd_dq", t_k3)):
+                entries[f"{name}_d256"] = _entry(
+                    f"{name}_d256", t, t_plain_bwd, t_lib_bwd, *bounds[name],
+                    dtype, err[name], kernel=name, library_by_backend=lib_bwd,
+                    shape=list(shape),
+                    note=note + "; plain_ms: the whole plain split backward")
+            for name in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"):
+                entries[f"{name}_d256"]["launches"] = launched[name]
+            del largs, qr, k, v, do, lse, delta
+        else:
+            g = torch.Generator(device="cuda").manual_seed(60 + d)
+            xs = [torch.randn(shape, device="cuda", generator=g,
+                              dtype=torch.float32).to(dtype).requires_grad_()
+                  for _ in range(3)]
+            ct = torch.randn(shape, device="cuda", generator=g).to(dtype)
+            with torch.no_grad():
+                t_fwd = time_ms(lambda: A.flash_attention(*xs, causal=causal))
+            out = A.flash_attention(*xs, causal=causal)
+            t_bwd = time_ms(lambda: torch.autograd.grad(
+                out, xs, ct, retain_graph=True))
+            bwd_bound = bound_ms(10 * d * pairs, 7 * tile + 2 * rowb, dtype)
+            # K1 and B2 alone on the padded inputs: the bodies' share.
+            _, qr, k, v, do, p2, scale_r = kernel_inputs(shape, dtype, 50)
+            pad = [A.pad_head(t, A.padded_head_dim(d)) for t in (qr, k, v, do)]
+            o, lse = A.flash_fwd(*pad[:3], scale_r, causal)
+            delta = A._delta(o, pad[3])
+            t_k1 = time_ms(lambda: A.flash_fwd(*pad[:3], scale_r, causal))
+            t_b2 = time_ms(lambda: A.flash_bwd(*pad, lse, delta, scale_r, p2,
+                                               causal))
+            del pad, o, lse, delta, qr, k, v, do
+            row["times"] = {
+                "fwd_ms": t_fwd, "bwd_ms": t_bwd, "k1_padded_ms": t_k1,
+                "b2_padded_ms": t_b2, "sdpa_fwd_ms": lib_fwd,
+                "sdpa_bwd_ms": lib_bwd, "library_fwd_ms": t_lib_fwd,
+                "library_bwd_ms": t_lib_bwd, "fwd_bound_ms": fwd_bound[0],
+                "bwd_bound_ms": bwd_bound[0]}
+            del xs, ct, out
+    emit("head_dims", cases=result,
+         note="times: flash_attention (fwd_ms, bwd_ms: the padding, the "
+              "kernels and the slicing) at head dims 16 and 80, K1 and B2 "
+              "alone on the padded inputs beside them, the kernels alone at "
+              "256; bounds of the caller's head dim's work; sdpa: each "
+              "backend at the same head dim")
+    return entries
+
+
 def _worst(rows):
     return max(e["worst"] for r in rows for e in r["errors"].values())
 
@@ -596,40 +792,68 @@ def _max_err(rows, names):
     return max(r["errors"][n]["max_abs_err"] for r in rows for n in names)
 
 
-def k6_kernel_ms(mesh, xs, warmup=3, iters=15):
-    """Median over rounds of the longest member's K6 launch, by CUDA events
-    on the member streams around the launches alone.  Each round forks
-    the member streams off a sleep on the caller's stream, so every
+def member_round_ms(mesh, launch, warmup=3, iters=15):
+    """Median over rounds of the longest member's ``launch(i)``, by CUDA
+    events on the member streams around the launches alone.  Each round
+    forks the member streams off a sleep on the caller's stream, so every
     launch is queued before any starts, and joins them after the events;
     the fork and join stay outside the events."""
-    n = mesh.size
-    outs = [torch.empty_like(x) for x in xs]
-    table = (ctypes.c_void_p * n)(*[o.data_ptr() for o in outs])
-    table_ptr = ctypes.cast(table, ctypes.c_void_p)
-    nbytes = xs[0].numel() * xs[0].element_size()
-    fn = rdma._kernel_fn("hvdt_ring_permute")
-    ns = rdma.NS_RDMA
     rounds = []
     for _ in range(warmup + iters):
         torch.cuda._sleep(SLEEP_CYCLES)
         caller = mesh.fork()
         events = []
-        for i in range(n):
+        for i in range(mesh.size):
             with mesh.on(i):
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
                 start.record()
-                A._launch(fn, xs[i].data_ptr(), table_ptr, nbytes,
-                          rdma.COPY_BLOCKS, 1, mesh.flags.data_ptr(),
-                          mesh.go.data_ptr(), mesh.err.data_ptr(), i, n, ns,
-                          mesh.next_epoch(i, ns))
+                launch(i)
                 end.record()
                 events.append((start, end))
-        mesh.join(caller, outs)
+        mesh.join(caller)
         rounds.append(events)
     torch.cuda.synchronize()
     return statistics.median(max(s.elapsed_time(e) for s, e in events)
                              for events in rounds[warmup:])
+
+
+def handshake_split(mesh, xs):
+    """Kernel-only times (``member_round_ms``) of K6 on the shards ``xs``,
+    of K6 moving no bytes (its handshake and gate alone), of K7, of an
+    empty kernel per member (the floor of any kernel on these streams) and
+    of one ``copy_`` per member on its stream."""
+    n = mesh.size
+    outs = [torch.empty_like(x) for x in xs]
+    table = (ctypes.c_void_p * n)(*[o.data_ptr() for o in outs])
+    table_ptr = ctypes.cast(table, ctypes.c_void_p)
+    nbytes = xs[0].numel() * xs[0].element_size()
+    k6 = rdma._kernel_fn("hvdt_ring_permute")
+    k7 = RF._kernel_fn("ring_permute", "hvdt_phase_closer")
+    zeros = [torch.empty((8, 128), device="cuda") for _ in range(n)]
+    ns6, ns7 = rdma.NS_RDMA, RF.NS_FUSED + 1
+    blocks = rdma.copy_blocks(n)
+
+    def k6_launch(size):
+        return lambda i: A._launch(
+            k6, xs[i].data_ptr(), table_ptr, size, blocks, 1,
+            mesh.flags.data_ptr(), mesh.go.data_ptr(), mesh.err.data_ptr(),
+            i, n, ns6, mesh.next_epoch(i, ns6))
+    split = {
+        "k6_kernel_ms": member_round_ms(mesh, k6_launch(nbytes)),
+        "k6_0b_kernel_ms": member_round_ms(mesh, k6_launch(0)),
+        "k7_kernel_ms": member_round_ms(mesh, lambda i: A._launch(
+            k7, zeros[i].data_ptr(), mesh.flags.data_ptr(),
+            mesh.err.data_ptr(), i, n, ns7)),
+        "empty_kernel_ms": member_round_ms(
+            mesh, lambda i: torch.cuda._sleep(0)),
+        "copy_members_ms": member_round_ms(
+            mesh, lambda i: outs[i].copy_(xs[i]))}
+    if not all(torch.equal(outs[i], x) for i, x in enumerate(xs)):
+        fail("copy_ on the member streams did not copy")
+    if not all(bool((z == 0).all()) for z in zeros):
+        fail("K7 left a nonzero in its zero block")
+    return split
 
 
 def phase_ring_kernels():
@@ -738,19 +962,10 @@ def phase_ring_kernels():
         mesh.join(caller)
     t_k4_round = time_ms(lambda: rotating_round(RF.ring_flash_fwd, calls))
     b, h, _, d = RING
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    qs, ks, vs = (x.reshape(RING).detach().requires_grad_()
-                  for x in (m1["qr"], m0["k"], m0["v"]))
-    lib_fwd, t_lib_fwd = sdpa_ms(lambda: lambda: sdpa(qs, ks, vs, scale=1.0))
-    dos = m1["do"].reshape(RING)
-
-    def sdpa_bwd():
-        out = sdpa(qs, ks, vs, scale=1.0)
-        return lambda: torch.autograd.grad(out, (qs, ks, vs), dos,
-                                           retain_graph=True)
-    lib_bwd, t_lib_bwd = sdpa_ms(sdpa_bwd)
+    lib_fwd, t_lib_fwd, lib_bwd, t_lib_bwd = sdpa_times(RING, dtype, False,
+                                                        1.0, 1)
     t_k6 = time_ms(lambda: rdma.permute_shards(xs, mesh, 1, 0))
-    t_k6_kernel = k6_kernel_ms(mesh, xs)
+    split = handshake_split(mesh, xs)
     dsts = [torch.empty_like(x) for x in xs]
     t_copy = time_ms(lambda: [o.copy_(x) for o, x in zip(dsts, xs)])
     t_k7 = time_ms(lambda: rotating_round(RF.phase_closer,
@@ -777,20 +992,28 @@ def phase_ring_kernels():
             library_by_backend=lib_bwd),
         "ring_permute": _entry(
             "ring_permute", t_k6, None, t_copy, 0,
-            2 * N_MEMBERS * tile, dtype, 0.0, kernel_ms=t_k6_kernel,
+            2 * N_MEMBERS * tile, dtype, 0.0,
+            kernel_ms=split["k6_kernel_ms"], **{k: split[k] for k in (
+                "k6_0b_kernel_ms", "empty_kernel_ms", "copy_members_ms")},
             note="ms: one round, fork and join included; kernel_ms: the "
-                 "longest member launch by CUDA events on its stream; "
-                 "library: one copy_ per member"),
+                 "longest member launch by CUDA events on its stream "
+                 "(k6_0b: moving no bytes, the handshake and gate alone; "
+                 "empty: an empty kernel per member, the floor); library: "
+                 "one copy_ per member on one stream (copy_members: each on "
+                 "its member's stream, kernel-only)"),
         "phase_closer": _entry(
             "phase_closer", t_k7, None, None, 0, N_MEMBERS * 8 * 128 * 4,
-            torch.float32, 0.0, note="one round: every member's launch"),
+            torch.float32, 0.0, kernel_ms=split["k7_kernel_ms"],
+            empty_kernel_ms=split["empty_kernel_ms"],
+            note="ms: one round, every member's launch, fork and join "
+                 "included; kernel_ms: the longest member launch"),
     }
     emit("ring_kernels", cases=cases, shard=list(RING), members=N_MEMBERS,
          k6_exact=exact, k7_zero=k7_zero,
          timing={n: {k: e.get(k) for k in ("ms", "plain_ms", "bound_ms",
                                            "bound_by", "library_ms")}
                  for n, e in entries.items()},
-         k4_rotating_round_ms=t_k4_round,
+         k4_rotating_round_ms=t_k4_round, handshake_split=split,
          note="K4/K5: one launch on a wholly visible step of the ring "
               "shard, no rotation; library_ms: SDPA forward / backward "
               "(non-causal) on the same shard")
@@ -951,6 +1174,7 @@ def main():
     launched = phase_train()
     split, split_entries = phase_split()
     entries.update(split_entries)
+    wide_entries = phase_head_dims()
     ring_entries = phase_ring_kernels()
     phase_ring_model()
     launched.update(phase_ring_train())
@@ -960,6 +1184,9 @@ def main():
         # path or the ring path.
         e["launches"] = (split if name_ in ("flash_bwd_dkdv", "flash_bwd_dq")
                          else launched)[name_]
+    # The d-256 rows carry the launches of the head_dims phase's path.
+    entries.update(wide_entries)
+    for name_, e in entries.items():
         if not e["launches"]:
             fail(f"{name_} was not launched on its path")
     print(json.dumps({"kernels": list(entries.values())}), flush=True)

@@ -21,7 +21,10 @@ Counterpart of ``horovod_tpu/ops/attention.py``.  Layout convention:
     ``csrc/flash_bwd_split.cu``, replacing
     ``_flash_bwd_dkdv_kernel``/``_flash_bwd_dq_kernel``.
 
-  A CUDA input the kernels cannot take raises; nothing falls back.
+  A head dim no body takes runs zero-padded to the next body's
+  (:func:`padded_head_dim`: 32, 64, 96, 128, and 256 for K1, K2, K3);
+  above 256, and for any other CUDA input the kernels cannot take, it
+  raises; nothing falls back.
 
 The plain versions multiply in float32 on operands rounded to the storage
 dtype — the reference's ``preferred_element_type=float32`` — so f32 matmul
@@ -46,47 +49,74 @@ POS_BIG = 1e30   # logsumexp sentinel for rows with no mass: exp(s - POS_BIG)
 torch.backends.cuda.matmul.allow_tf32 = False
 
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+# Head dims of every kernel body (K1-K5, B2).
 HEAD_DIMS = (32, 64, 96, 128)
+# The one wider body, of K1, K2 and K3 alone: the reference sends every
+# head dim above 128 to the split backward (``_bwd_plan``, "d to 256"),
+# and its fused ring to the separable ring, so B2, K4 and K5 never see it.
+WIDE_HEAD_DIM = 256
+# Head dims of the bodies of K1, K2 and K3.
+_SPLIT_HEAD_DIMS = HEAD_DIMS + (WIDE_HEAD_DIM,)
 # Key tile of each forward body per head dim, as in the CUDA sources: the
-# 16-bit wgmma body (csrc/flash_fwd_sm90.cuh, sm90::BN) and the f32 SIMT
-# body (csrc/flash_common.cuh, BN).  The online softmax advances its
+# 16-bit wgmma body (csrc/flash_fwd_sm90.cuh, key_tile) and the f32 SIMT
+# body (csrc/flash_common.cuh, f32_tile).  The online softmax advances its
 # running max one key tile at a time and p is rounded against it, so the
 # plain side that holds a kernel scans keys in the same blocks.
-_FWD_KEY_TILE = {d: {"16-bit": 128 if d <= 64 else 64, "f32": 64}
-                 for d in HEAD_DIMS}
+_FWD_KEY_TILE = {d: {"16-bit": 128 if d <= 64 else 64,
+                     "f32": 64 if d <= 128 else 32}
+                 for d in _SPLIT_HEAD_DIMS}
 
 
 # Key tile of each backward body per head dim and mode: B2/K5's 16-bit
 # body (csrc/flash_bwd_sm90.cuh, sm90::BWD_BN), K3's (csrc/flash_dq_sm90.cuh,
-# dq_key_tile) and the f32 SIMT bodies (csrc/flash_common.cuh, BN).
+# dq_key_tile) and the f32 SIMT bodies (csrc/flash_common.cuh, f32_tile).
+# The combined mode has no body at the wide head dim.
 _BWD_KEY_TILE = {d: {"combined": {"16-bit": 128, "f32": 64},
                      "split": {"16-bit": 64, "f32": 64}}
                  for d in HEAD_DIMS}
+_BWD_KEY_TILE[WIDE_HEAD_DIM] = {"split": {"16-bit": 64, "f32": 32}}
+
+
+def padded_head_dim(d: int) -> int:
+    """The head dim of the kernel body that computes attention at head dim
+    ``d``: ``d`` itself if a body takes it, else the next one up (16 -> 32,
+    80 -> 96, 200 -> 256).  Zero columns add nothing to q k^T, so the
+    callers zero-pad q, k, v and dO to it and slice the padded columns of
+    the outputs off.  Above 256 raises: the reference documents its split
+    kernels to 256, and no configuration of the repo goes beyond."""
+    for body in _SPLIT_HEAD_DIMS:
+        if 1 <= d <= body:
+            return body
+    raise ValueError(f"head_dim {d} unsupported: the kernels take 1 to "
+                     f"{WIDE_HEAD_DIM}")
 
 
 def fwd_key_tile(dtype, d: int) -> int:
     """Key tile of the forward body (K1 and K4) that takes ``dtype`` at
-    head dim ``d``."""
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head_dim {d} unsupported {HEAD_DIMS}")
-    return _FWD_KEY_TILE[d]["f32" if dtype == torch.float32 else "16-bit"]
+    head dim ``d``, padded as the callers pad it (:func:`padded_head_dim`)."""
+    return _FWD_KEY_TILE[padded_head_dim(d)][
+        "f32" if dtype == torch.float32 else "16-bit"]
 
 
 def bwd_key_tile(mode: str, dtype, d: int) -> int:
     """Key tile of the backward body that ``mode`` (:func:`bwd_mode`) runs
-    on ``dtype`` at head dim ``d``, as in the CUDA sources (``_BWD_KEY_TILE``):
+    on ``dtype`` at head dim ``d``, padded as the callers pad it
+    (:func:`padded_head_dim`), as in the CUDA sources (``_BWD_KEY_TILE``):
     in 16 bits, 128 for the combined body of B2 and K5
     (csrc/flash_bwd_sm90.cuh, sm90::BWD_BN) and, for the split pair, K3's
     key tile, the one its dq sums over (csrc/flash_dq_sm90.cuh,
     ``dq_key_tile``); 64 for the f32 SIMT bodies (csrc/flash_common.cuh,
-    BN) of both modes.  A plain side that holds a kernel walks the keys in
-    the kernel's key tiles, so dq sums in the same blocks."""
+    f32_tile) of both modes, 32 at the wide head dim.  A plain side that
+    holds a kernel walks the keys in the kernel's key tiles, so dq sums in
+    the same blocks.  The combined mode stops at head dim 128, as
+    :func:`bwd_mode` does."""
     if mode not in ("combined", "split"):
         raise ValueError(f"unknown backward mode {mode!r}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head_dim {d} unsupported {HEAD_DIMS}")
-    return _BWD_KEY_TILE[d][mode]["f32" if dtype == torch.float32
-                                  else "16-bit"]
+    tiles = _BWD_KEY_TILE[padded_head_dim(d)]
+    if mode not in tiles:
+        raise ValueError(f"head_dim {d}: no combined backward body above "
+                         f"{HEAD_DIMS[-1]}")
+    return tiles[mode]["f32" if dtype == torch.float32 else "16-bit"]
 
 
 def bwd_mode(q_len: int, d: int, bh: int) -> str:
@@ -336,8 +366,9 @@ def _kernel_fn(stem: str, symbol: str):
     return fn
 
 
-def _check_cuda(name, tensors, stats=()):
-    """Refuse what the kernels do not take: raise, never fall back."""
+def _check_cuda(name, tensors, stats=(), head_dims=HEAD_DIMS):
+    """Refuse what the kernels do not take: raise, never fall back.
+    ``head_dims``: the head dims the kernel has a body for."""
     q = tensors[0]
     if q.dim() != 3:
         raise ValueError(f"{name}: expected (bh, seq, head_dim) tensors, got "
@@ -346,8 +377,8 @@ def _check_cuda(name, tensors, stats=()):
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"{name}: dtype {q.dtype} unsupported "
                         "(float32, float16, bfloat16)")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"{name}: head_dim {d} unsupported {HEAD_DIMS}")
+    if d not in head_dims:
+        raise ValueError(f"{name}: head_dim {d} unsupported {head_dims}")
     for t in tensors:
         if t.device != q.device or t.dtype != q.dtype:
             raise ValueError(f"{name}: all operands must share q's device "
@@ -379,7 +410,7 @@ def flash_fwd(qr, k, v, scale_r: float, causal: bool):
     the input dtype, lse float32 ``(bh, sq)``."""
     if qr.device.type == "cpu":
         return _blockwise_fwd_impl(qr, k, v, causal, scale_r)
-    _check_cuda("flash_fwd", (qr, k, v))
+    _check_cuda("flash_fwd", (qr, k, v), head_dims=_SPLIT_HEAD_DIMS)
     if k.shape != v.shape:
         raise ValueError("flash_fwd: k and v shapes differ")
     bh, sq, d = qr.shape
@@ -426,7 +457,8 @@ def flash_bwd_dkdv(qr, k, v, do, lse, delta, scale_r: float, causal: bool):
     if qr.device.type == "cpu":
         return _attention_bwd_impl(qr, k, v, lse, delta, do, causal,
                                    scale_r)[1:]
-    _check_cuda("flash_bwd_dkdv", (qr, k, v, do), (lse, delta))
+    _check_cuda("flash_bwd_dkdv", (qr, k, v, do), (lse, delta),
+                _SPLIT_HEAD_DIMS)
     bh, sq, d = qr.shape
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
@@ -448,7 +480,8 @@ def flash_bwd_dq(qr, k, v, do, lse, delta, scale_r: float, p2: float,
     if qr.device.type == "cpu":
         return _attention_bwd_impl(qr, k, v, lse, delta, do, causal,
                                    scale_r, dq_scale=p2)[0]
-    _check_cuda("flash_bwd_dq", (qr, k, v, do), (lse, delta))
+    _check_cuda("flash_bwd_dq", (qr, k, v, do), (lse, delta),
+                _SPLIT_HEAD_DIMS)
     bh, sq, d = qr.shape
     dq = torch.empty_like(qr)
     with torch.cuda.device(qr.device):
@@ -471,36 +504,50 @@ def flash_backward(mode: str, qr, k, v, do, lse, delta, scale_r: float,
     return dk, dv, flash_bwd_dq(qr, k, v, do, lse, delta, scale_r, p2, causal)
 
 
+def pad_head(x, d_body: int):
+    """``x`` (..., d) zero-padded to ``d_body`` columns, contiguous."""
+    d = x.shape[-1]
+    if d == d_body:
+        return x.contiguous()
+    return torch.nn.functional.pad(x, (0, d_body - d)).contiguous()
+
+
 class _FlashAttnFn(torch.autograd.Function):
     """K1 forward; the backward in :func:`bwd_mode`'s mode (B2, or K2 +
-    K3), over (batch, heads, seq, head_dim)."""
+    K3), over (batch, heads, seq, head_dim).  A head dim that no body takes
+    runs zero-padded to the next one (:func:`padded_head_dim`): the scale
+    stays the caller's and the mode follows the caller's head dim, as the
+    reference's ``_bwd_plan`` does; the padded output and gradient columns
+    are sliced off."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, sm_scale):
         b, h, sq, d = q.shape
         sk = k.shape[2]
+        d_body = padded_head_dim(d)
         # Pre-scale q by the exact pow2 part of sm_scale; the f32 residual
         # (1.0 for power-of-4 head dims) scales the logits in-kernel.
         p2, scale_r = _split_scale(sm_scale)
-        qr = (q * p2).to(q.dtype).reshape(b * h, sq, d).contiguous()
-        kr = k.reshape(b * h, sk, d).contiguous()
-        vr = v.reshape(b * h, sk, d).contiguous()
+        qr = pad_head((q * p2).to(q.dtype).reshape(b * h, sq, d), d_body)
+        kr = pad_head(k.reshape(b * h, sk, d), d_body)
+        vr = pad_head(v.reshape(b * h, sk, d), d_body)
         o, lse = flash_fwd(qr, kr, vr, scale_r, causal)
         ctx.save_for_backward(qr, kr, vr, o, lse)
         ctx.args = (causal, p2, scale_r, q.shape, k.shape)
-        return o.reshape(b, h, sq, d)
+        return o[..., :d].reshape(b, h, sq, d)
 
     @staticmethod
     def backward(ctx, g):
         qr, kr, vr, o, lse = ctx.saved_tensors
         causal, p2, scale_r, q_shape, k_shape = ctx.args
-        do = g.reshape(o.shape).contiguous()
+        bh, sq, d_body = qr.shape
+        d = q_shape[-1]
+        do = pad_head(g.reshape(bh, sq, d), d_body)
         delta = _delta(o, do)
-        bh, sq, d = qr.shape
         dk, dv, dq = flash_backward(bwd_mode(sq, d, bh), qr, kr, vr, do, lse,
                                     delta, scale_r, p2, causal)
-        return (dq.reshape(q_shape), dk.reshape(k_shape),
-                dv.reshape(k_shape), None, None)
+        return (dq[..., :d].reshape(q_shape), dk[..., :d].reshape(k_shape),
+                dv[..., :d].reshape(k_shape), None, None)
 
 
 def flash_attention(q, k, v, causal: bool = False,
@@ -517,14 +564,18 @@ def flash_attention(q, k, v, causal: bool = False,
     On a CUDA tensor this is the hand-written kernels (K1 forward; the
     backward in the reference's mode, :func:`bwd_mode`: B2 where it picks
     the combined kernel, as at every sequence up to 2048 with at most 1024
-    batch-heads, K2 + K3 where it picks the split pair) for head_dim
-    32/64/96/128 and float32/float16/bfloat16, at any sequence length;
-    other inputs raise.  On a CPU tensor it is the mathematically
-    identical :func:`blockwise_attention`.  ``block_q`` and ``block_k``
-    are accepted for API parity with the JAX package and ignored: the
-    kernels fix their own tiles (the forward 128 query rows by 128 keys in
-    16 bits, 64 keys above head_dim 64, and 64 by 64 in float32,
-    :func:`fwd_key_tile`; the backward :func:`bwd_key_tile`).
+    batch-heads and head_dim up to 128, K2 + K3 where it picks the split
+    pair, as at every head_dim above 128) for head_dim 1 to 256 and
+    float32/float16/bfloat16, at any sequence length; the bodies take
+    head_dim 32/64/96/128 (and 256: K1, K2, K3), and any other head_dim
+    runs zero-padded to the next (:func:`padded_head_dim`).  Other inputs
+    raise, head_dim above 256 among them.  On a CPU tensor it is the
+    mathematically identical :func:`blockwise_attention`.  ``block_q`` and
+    ``block_k`` are accepted for API parity with the JAX package and
+    ignored: the kernels fix their own tiles (the forward 128 query rows
+    by 128 keys in 16 bits, 64 keys above head_dim 64, and 64 by 64 in
+    float32, :func:`fwd_key_tile`; the backward :func:`bwd_key_tile`; 64
+    query rows and 32 x 32 f32 tiles at head_dim 256).
     """
     del block_q, block_k
     if layout not in ("bhsd", "bshd"):

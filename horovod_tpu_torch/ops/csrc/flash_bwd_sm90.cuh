@@ -64,6 +64,11 @@
 //   barrier, the dQ product and its adds: no dQ buffers and no fifth
 //   tensor map, and DKDV_STAGES (q', dO) stages in their place, so dK and
 //   dV are its only outputs, stored from registers in the input dtype.
+//   At head dim 256 (K2 only) the consumers split dK's and dV's columns
+//   instead of the keys (col_split): one CTA per 64 keys, both consumer
+//   warpgroups compute S^T and dP^T over the whole head dim, and each
+//   accumulates its 128 columns of dK and dV, the registers of head dim
+//   128; two (q', dO) stages of 64 KB: (K, V) + 2 stages, 64 + 128 KB.
 // * f32 inputs: the SIMT body of the first port (scalar FMAs in full f32,
 //   no tensor-core path keeps f32 to 1e-4), one 64-key tile per 128-thread
 //   block through shared memory, dQ by scalar atomicAdd.
@@ -88,16 +93,28 @@ constexpr int BWD_STAGES = 2;  // (q', dO, lse, delta) tiles in flight
 constexpr int DKDV_STAGES = 3;
 constexpr int WG_KEYS = 64;    // keys per consumer warpgroup
 
+// Keys per CTA: BWD_BN, and WG_KEYS at the wide head dim, where both
+// consumer warpgroups own the same keys and split dK's and dV's columns
+// (col_split; K2 only: B2 and K5 take head dims to 128).
+template <int D>
+__host__ __device__ constexpr int bwd_keys() {
+  return col_split<D>() ? WG_KEYS : BWD_BN;
+}
+
 // WITH_DQ: B2's and K5's layout; without it, K2's (no dS^T or dQ
-// buffers, DKDV_STAGES stages).
+// buffers, DKDV_STAGES stages; two at the wide head dim, where a (q', dO)
+// stage is 64 KB).
 template <int D, bool WITH_DQ = true>
 struct BwdSmem {
-  static constexpr int STAGES = WITH_DQ ? BWD_STAGES : DKDV_STAGES;
+  static_assert(!(WITH_DQ && col_split<D>()),
+                "the dQ product has no body above head dim 128");
+  static constexpr int STAGES =
+      WITH_DQ || col_split<D>() ? BWD_STAGES : DKDV_STAGES;
   // dQ = dS K split by keys (each consumer warpgroup its own 64 keys, all
   // D columns) where half the head dim is not a whole number of panels.
   static constexpr bool SPLIT_KEYS = (D / 2) % PANEL != 0;
   static constexpr int PANELS = D / PANEL;
-  static constexpr uint32_t K_PANEL = BWD_BN * PANEL * 2;  // 8 KB
+  static constexpr uint32_t K_PANEL = bwd_keys<D>() * PANEL * 2;
   static constexpr uint32_t Q_PANEL = BWD_BM * PANEL * 2;  // 4 KB
   static constexpr uint32_t K_BYTES = PANELS * K_PANEL;
   static constexpr uint32_t Q_BYTES = PANELS * Q_PANEL;
@@ -127,10 +144,11 @@ struct BwdSmem {
 };
 
 // The 16-bit body: one CTA of NTHREADS threads computes dK and dV of keys
-// [k0, k0 + BWD_BN) of head `bh` and, WITH_DQ, adds their share of dQ
-// into the f32 tensor behind `mdq` (K2 compiles the dQ product, the dS^T
+// [k0, k0 + bwd_keys<D>()) of head `bh` and, WITH_DQ, adds their share of
+// dQ into the f32 tensor behind `mdq` (K2 compiles the dQ product, the dS^T
 // stores, their barrier and the adds out, and passes no `mdq`).  mq, mdo
-// (boxes of BWD_BM rows), mk, mv (BWD_BN rows), mdq (f32, BWD_BM rows):
+// (boxes of BWD_BM rows), mk, mv (bwd_keys<D>() rows), mdq (f32, BWD_BM
+// rows):
 // tensor maps of q', dO and dq (bh, sq, D) and k, v (bh, sk, D) in the
 // kernel's parameter space.  lse, delta (bh, sq) f32; dk, dv (bh, sk, D)
 // in OT.
@@ -143,6 +161,7 @@ __device__ __forceinline__ void bwd_ktile(
     int sk, int q_off, int k_off, float scale_r, int causal) {
   using L = BwdSmem<D, WITH_DQ>;
   constexpr int STAGES = L::STAGES;
+  constexpr int KEYS = bwd_keys<D>(), DV = out_cols<D>();
   constexpr bool SPLIT_KEYS = L::SPLIT_KEYS;
   constexpr int DQ_N = L::DQ_N;  // dQ columns per warpgroup
   extern __shared__ unsigned char smem_raw[];
@@ -185,8 +204,8 @@ __device__ __forceinline__ void bwd_ktile(
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
     if (threadIdx.x == 0 && n_it > 0) {
       mbar_expect_tx(kv_full, 2 * L::K_BYTES);
-      tma_tile<D>(k_s, mk, kv_full, BWD_BN, k0, bh);
-      tma_tile<D>(v_s, mv, kv_full, BWD_BN, k0, bh);
+      tma_tile<D>(k_s, mk, kv_full, KEYS, k0, bh);
+      tma_tile<D>(v_s, mv, kv_full, KEYS, k0, bh);
       for (int it = 0; it < n_it; ++it) {
         const int st = it % STAGES;
         if (it >= STAGES)
@@ -215,13 +234,16 @@ __device__ __forceinline__ void bwd_ktile(
       }
     }
   } else {
-    // Consumers: warpgroup c owns keys [k0 + 64 c, k0 + 64 c + 64).
+    // Consumers: warpgroup c owns keys [k0 + 64 c, k0 + 64 c + 64) and all
+    // columns of dK and dV or, at the wide head dim, keys [k0, k0 + 64)
+    // and columns [c D / 2, (c + 1) D / 2).
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONSUMER_REGS));
     const int c = wg - 1, tid = threadIdx.x % 128;
     const int lane = tid % 32;
     const int r_lo = (tid / 32) * 16 + lane / 4;  // + 8 for the second row
     const int cq = 2 * (lane % 4);                // + 8 i + j: the column
-    const int key_row0 = c * WG_KEYS;             // within the CTA's tile
+    const int key_row0 = col_split<D>() ? 0 : c * WG_KEYS;  // within the tile
+    const int out0 = col_split<D>() ? c * DV : 0;  // columns of dK, dV
     const int key_first = k0 + key_row0;          // within the held keys
     const float scale_log2 = scale_r * LOG2E;
     // dQ: k16 slices [J0, J0 + JN) of the keys, columns [col0, + DQ_N).
@@ -231,9 +253,9 @@ __device__ __forceinline__ void bwd_ktile(
     const uint32_t dq_off = L::dq + c * L::DQ_BYTES;
     constexpr int QK_STEPS = D / 16, Q_SLICES = BWD_BM / 16;
 
-    float dk_acc[D / 2], dv_acc[D / 2];
+    float dk_acc[DV / 2], dv_acc[DV / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    for (int i = 0; i < DV / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
 
     // p and dS of one query tile in place of S^T and dP^T: rows are this
     // warpgroup's keys r_lo (h = 0) and r_lo + 8, columns the tile's
@@ -330,14 +352,15 @@ __device__ __forceinline__ void bwd_ktile(
       pin(dk_acc);
       pin(dv_acc);
       wg_fence();
+      const uint32_t panel0 = (out0 / PANEL) * L::Q_PANEL;
 #pragma unroll
       for (int j = 0; j < Q_SLICES; ++j)
-        Wgmma<D, T>::rs(dv_acc, pa[j],
-                        desc(dot_s + j * 16 * 64, L::Q_PANEL, 512));
+        Wgmma<DV, T>::rs(dv_acc, pa[j],
+                         desc(dot_s + panel0 + j * 16 * 64, L::Q_PANEL, 512));
 #pragma unroll
       for (int j = 0; j < Q_SLICES; ++j)
-        Wgmma<D, T>::rs(dk_acc, dsa[j],
-                        desc(qt_s + j * 16 * 64, L::Q_PANEL, 512));
+        Wgmma<DV, T>::rs(dk_acc, dsa[j],
+                         desc(qt_s + panel0 + j * 16 * 64, L::Q_PANEL, 512));
       if constexpr (WITH_DQ) {
 #pragma unroll
         for (int jj = 0; jj < JN; ++jj) {
@@ -399,10 +422,10 @@ __device__ __forceinline__ void bwd_ktile(
     for (int h = 0; h < 2; ++h) {
       const int key = key_first + r_lo + 8 * h;
       if (key >= sk) continue;
-      OT* dkr = dk + ((size_t)bh * sk + key) * D + cq;
-      OT* dvr = dv + ((size_t)bh * sk + key) * D + cq;
+      OT* dkr = dk + ((size_t)bh * sk + key) * D + out0 + cq;
+      OT* dvr = dv + ((size_t)bh * sk + key) * D + out0 + cq;
 #pragma unroll
-      for (int i = 0; i < D / 8; ++i) {
+      for (int i = 0; i < DV / 8; ++i) {
         const int e = 4 * i + 2 * h;
         if constexpr (std::is_same<OT, float>::value) {
           *reinterpret_cast<float2*>(dkr + 8 * i) =
@@ -421,15 +444,15 @@ __device__ __forceinline__ void bwd_ktile(
 }
 
 // The maps of one launch: q', dO and the f32 dq in boxes of BWD_BM rows,
-// k and v in boxes of BWD_BN rows; four without a `dq` (K2).
+// k and v in boxes of bwd_keys<D>() rows; four without a `dq` (K2).
 template <typename T, int D>
 int make_bwd_maps(CUtensorMap* maps, const void* q, const void* dout,
                   const void* k, const void* v, float* dq, int bh, int sq,
                   int sk) {
   int e = make_map<T, D>(&maps[0], q, bh, sq, BWD_BM);
   if (e == 0) e = make_map<T, D>(&maps[1], dout, bh, sq, BWD_BM);
-  if (e == 0) e = make_map<T, D>(&maps[2], k, bh, sk, BWD_BN);
-  if (e == 0) e = make_map<T, D>(&maps[3], v, bh, sk, BWD_BN);
+  if (e == 0) e = make_map<T, D>(&maps[2], k, bh, sk, bwd_keys<D>());
+  if (e == 0) e = make_map<T, D>(&maps[3], v, bh, sk, bwd_keys<D>());
   if (e == 0 && dq != nullptr)
     e = make_map<float, D>(&maps[4], dq, bh, sq, BWD_BM);
   return e;
@@ -445,6 +468,7 @@ int make_bwd_maps(CUtensorMap* maps, const void* q, const void* dout,
 template <int D>
 struct F32BwdSmem {
   using T = float;
+  static constexpr int BM = f32_tile<D>(), BN = BM;  // square tiles
   static constexpr int LDT = D + PAD;
   static constexpr int LDP = BN + PAD;
   static constexpr int LDS = BN + 4;
@@ -460,8 +484,10 @@ struct F32BwdSmem {
   static constexpr size_t lse = align128(ds + BM * LDP * sizeof(T));
   static constexpr size_t delta = lse + BM * sizeof(float);
   static constexpr size_t bytes = delta + BM * sizeof(float);
-  static_assert(BM * LDO <= 2 * BM * LDS, "staging does not fit S and dP");
-  static_assert(BM == BN, "tiles are square");
+  // bwd_ktile_f32 (B2, K5: head dims to 128) stages its outputs in S and
+  // dP; the split pair's f32 kernels store theirs from registers.
+  static_assert(D > 128 || BM * LDO <= 2 * BM * LDS,
+                "staging does not fit S and dP");
 };
 
 // Keys [k0, k0 + BN) of one head; q, k, v, dout, dk, dv, dq, lse, delta

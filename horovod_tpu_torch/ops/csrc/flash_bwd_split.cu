@@ -31,6 +31,10 @@
 //   f32, no tensor-core path keeps f32 to 1e-4), one 64-row tile per
 //   128-thread block staged through shared memory (F32BwdSmem's layout).
 //
+// Head dims 32, 64, 96, 128 and 256: at 256 both 16-bit bodies split the
+// output's columns between their consumer warpgroups (64-key and 64-row
+// CTAs, two stages), and the f32 kernels take 32 x 32 tiles.
+//
 // Grids are 1-D, (tiles x bh) blocks, each block decoding its head and
 // tile from blockIdx.x, so any batch-head count launches (a grid's y and
 // z dimensions stop at 65,535).  q, k, v, do: contiguous (bh, s, D) in
@@ -55,8 +59,8 @@ __global__ void __launch_bounds__(sm90::NTHREADS, 1)
   const int kt = blockIdx.x / bh_total;  // heavy (early) key tiles first
   sm90::bwd_ktile<T, D, T, false>(&mq, &mdo, &mk, &mv, nullptr, lse, delta,
                                   dk, dv, blockIdx.x % bh_total,
-                                  kt * sm90::BWD_BN, sq, sk, 0, 0, scale_r,
-                                  causal);
+                                  kt * sm90::bwd_keys<D>(), sq, sk, 0, 0,
+                                  scale_r, causal);
 }
 
 template <typename T, int D>
@@ -69,15 +73,17 @@ __global__ void __launch_bounds__(sm90::NTHREADS, 1)
                         const float* __restrict__ delta, T* __restrict__ dq,
                         int bh_total, int sq, int sk, float scale_r,
                         float dq_scale, int causal) {
-  const int n_qt = (sq + sm90::DQ_BM - 1) / sm90::DQ_BM;
+  constexpr int ROWS = sm90::dq_rows<D>();
+  const int n_qt = (sq + ROWS - 1) / ROWS;
   const int qt = n_qt - 1 - blockIdx.x / bh_total;  // heavy (late) first
   sm90::dq_qtile<T, D>(&mq, &mdo, &mk, &mv, lse, delta, dq,
-                       blockIdx.x % bh_total, qt * sm90::DQ_BM, sq, sk,
-                       scale_r, dq_scale, causal);
+                       blockIdx.x % bh_total, qt * ROWS, sq, sk, scale_r,
+                       dq_scale, causal);
 }
 
 // ---------------------------------------------------------------------------
-// The f32 kernels: 128 threads, 64 x 64 tiles through shared memory.
+// The f32 kernels: 128 threads, square tiles of f32_tile<D>() rows (64; 32
+// at head dim 256) through shared memory.
 // ---------------------------------------------------------------------------
 
 // Recompute P and dS for one (query tile q0, key tile k0) pair.  Reads the
@@ -90,6 +96,7 @@ __device__ __forceinline__ void softmax_grad(const float* S, const float* dP,
                                              int k0, int sk, float scale_r,
                                              int causal) {
   using L = F32BwdSmem<D>;
+  constexpr int BM = L::BM, BN = L::BN;
   for (int i = threadIdx.x; i < BM * BN; i += NT) {
     const int r = i / BN, c = i % BN, qpos = q0 + r, kpos = k0 + c;
     float x = S[r * L::LDS + c] * scale_r;
@@ -100,11 +107,12 @@ __device__ __forceinline__ void softmax_grad(const float* S, const float* dP,
   }
 }
 
+template <int ROWS>
 __device__ __forceinline__ void load_rowstats(float* lse_s, float* delta_s,
                                               const float* lse,
                                               const float* delta, int q0,
                                               int sq) {
-  if (threadIdx.x < BM) {
+  if (threadIdx.x < ROWS) {
     const int r = q0 + threadIdx.x;
     lse_s[threadIdx.x] = r < sq ? lse[r] : POS_BIG;
     delta_s[threadIdx.x] = r < sq ? delta[r] : 0.f;
@@ -124,6 +132,7 @@ __global__ void __launch_bounds__(NT)
                               int causal) {
   using T = float;
   using L = F32BwdSmem<D>;
+  constexpr int BM = L::BM, BN = L::BN;
   extern __shared__ __align__(128) unsigned char smem[];
   T* Ks = reinterpret_cast<T*>(smem + L::a);
   T* Vs = reinterpret_cast<T*>(smem + L::b);
@@ -163,7 +172,7 @@ __global__ void __launch_bounds__(NT)
     __syncthreads();
     load_tile<D, BM>(Qs, L::LDT, q, q0, sq);
     load_tile<D, BM>(dOs, L::LDT, dout, q0, sq);
-    load_rowstats(lse_s, delta_s, lse, delta, q0, sq);
+    load_rowstats<BM>(lse_s, delta_s, lse, delta, q0, sq);
     __syncthreads();
     mm_smem<BM, BN, D, true, false>(S, L::LDS, Qs, L::LDT, Ks, L::LDT);
     mm_smem<BM, BN, D, true, false>(dP, L::LDS, dOs, L::LDT, Vs, L::LDT);
@@ -174,14 +183,8 @@ __global__ void __launch_bounds__(NT)
     dV.template mma<BM, true>(Ps, L::LDP, dOs, L::LDT);   // P^T dO
     dK.template mma<BM, true>(dSs, L::LDP, Qs, L::LDT);   // dS^T Q
   }
-  __syncthreads();
-  dK.store(S, L::LDO);
-  __syncthreads();
-  store_rows<D, BN>(dk, S, L::LDO, k0, sk, 1.f);
-  __syncthreads();
-  dV.store(S, L::LDO);
-  __syncthreads();
-  store_rows<D, BN>(dv, S, L::LDO, k0, sk, 1.f);
+  dK.store_rows(dk, k0, sk, 1.f);
+  dV.store_rows(dv, k0, sk, 1.f);
 }
 
 template <int D>
@@ -197,6 +200,7 @@ __global__ void __launch_bounds__(NT)
                             int causal) {
   using T = float;
   using L = F32BwdSmem<D>;
+  constexpr int BM = L::BM, BN = L::BN;
   extern __shared__ __align__(128) unsigned char smem[];
   T* Qs = reinterpret_cast<T*>(smem + L::a);
   T* dOs = reinterpret_cast<T*>(smem + L::b);
@@ -222,7 +226,7 @@ __global__ void __launch_bounds__(NT)
 
   load_tile<D, BM>(Qs, L::LDT, q, q0, sq);
   load_tile<D, BM>(dOs, L::LDT, dout, q0, sq);
-  load_rowstats(lse_s, delta_s, lse, delta, q0, sq);
+  load_rowstats<BM>(lse_s, delta_s, lse, delta, q0, sq);
   Acc<BM, D> dQ;
   dQ.zero();
 
@@ -242,25 +246,22 @@ __global__ void __launch_bounds__(NT)
     __syncthreads();
     dQ.template mma<BN, false>(dSs, L::LDP, Ks, L::LDT);  // dS K
   }
-  __syncthreads();
-  dQ.store(S, L::LDO);
-  __syncthreads();
   // The pow2 factor of sm_scale, applied in f32 before the cast.
-  store_rows<D, BM>(dq, S, L::LDO, q0, sq, dq_scale);
+  dQ.store_rows(dq, q0, sq, dq_scale);
 }
 
 // Set both kernels' shared-memory limits once per (dtype, D), before
 // their first launch (internal linkage: a mutant build loaded beside this
 // one keeps its own flags).
 namespace {
-bool g_prepared[3][4] = {};
+bool g_prepared[3][N_HEAD_DIMS] = {};
 }  // namespace
 
 template <typename T, int D>
 int prepare_split() {
   constexpr bool f32 = std::is_same<T, float>::value;
   bool& ready = g_prepared[f32 ? 0 : std::is_same<T, __half>::value ? 1 : 2]
-                          [D / 32 - 1];
+                          [head_dim_slot<D>()];
   if (ready) return 0;
   constexpr auto attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
   int e;
@@ -289,7 +290,7 @@ int launch_dkdv(const void* q, const void* k, const void* v,
   const int prep = prepare_split<T, D>();
   if (prep != 0) return prep;
   if constexpr (std::is_same<T, float>::value) {
-    const int blocks = ((sk + BN - 1) / BN) * bh;
+    const int blocks = ((sk + f32_tile<D>() - 1) / f32_tile<D>()) * bh;
     flash_bwd_dkdv_f32_kernel<D><<<blocks, NT, F32BwdSmem<D>::bytes,
                                    stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
@@ -301,7 +302,8 @@ int launch_dkdv(const void* q, const void* k, const void* v,
     const int e =
         sm90::make_bwd_maps<T, D>(m, q, dout, k, v, nullptr, bh, sq, sk);
     if (e != 0) return e;
-    const int blocks = ((sk + sm90::BWD_BN - 1) / sm90::BWD_BN) * bh;
+    const int blocks = ((sk + sm90::bwd_keys<D>() - 1) / sm90::bwd_keys<D>()) *
+                       bh;
     flash_bwd_dkdv_kernel<T, D>
         <<<blocks, sm90::NTHREADS, sm90::BwdSmem<D, false>::bytes,
            stream>>>(m[0], m[1], m[2], m[3], lse, delta, static_cast<T*>(dk),
@@ -318,7 +320,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   const int prep = prepare_split<T, D>();
   if (prep != 0) return prep;
   if constexpr (std::is_same<T, float>::value) {
-    const int blocks = ((sq + BM - 1) / BM) * bh;
+    const int blocks = ((sq + f32_tile<D>() - 1) / f32_tile<D>()) * bh;
     flash_bwd_dq_f32_kernel<D><<<blocks, NT, F32BwdSmem<D>::bytes, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(dout), lse,
@@ -328,7 +330,8 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
     CUtensorMap m[4];
     const int e = sm90::make_dq_maps<T, D>(m, q, dout, k, v, bh, sq, sk);
     if (e != 0) return e;
-    const int blocks = ((sq + sm90::DQ_BM - 1) / sm90::DQ_BM) * bh;
+    const int blocks = ((sq + sm90::dq_rows<D>() - 1) / sm90::dq_rows<D>()) *
+                       bh;
     flash_bwd_dq_kernel<T, D>
         <<<blocks, sm90::NTHREADS, sm90::DqSmem<D>::bytes, stream>>>(
             m[0], m[1], m[2], m[3], lse, delta, static_cast<T*>(dq), bh, sq,
@@ -346,8 +349,9 @@ extern "C" int hvdt_flash_bwd_dkdv(int dtype, int d, const void* q,
                                    int bh, int sq, int sk, float scale_r,
                                    int causal, void* stream) {
   using namespace hvdt;
-  HVDT_DISPATCH(dtype, d, launch_dkdv, q, k, v, dout, lse, delta, dk, dv, bh,
-                sq, sk, scale_r, causal, static_cast<cudaStream_t>(stream));
+  HVDT_DISPATCH_WIDE(dtype, d, launch_dkdv, q, k, v, dout, lse, delta, dk,
+                     dv, bh, sq, sk, scale_r, causal,
+                     static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int hvdt_flash_bwd_dq(int dtype, int d, const void* q,
@@ -357,7 +361,7 @@ extern "C" int hvdt_flash_bwd_dq(int dtype, int d, const void* q,
                                  int sq, int sk, float scale_r,
                                  float dq_scale, int causal, void* stream) {
   using namespace hvdt;
-  HVDT_DISPATCH(dtype, d, launch_dq, q, k, v, dout, lse, delta, dq, bh, sq,
-                sk, scale_r, dq_scale, causal,
-                static_cast<cudaStream_t>(stream));
+  HVDT_DISPATCH_WIDE(dtype, d, launch_dq, q, k, v, dout, lse, delta, dq, bh,
+                     sq, sk, scale_r, dq_scale, causal,
+                     static_cast<cudaStream_t>(stream));
 }

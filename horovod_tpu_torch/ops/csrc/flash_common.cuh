@@ -28,6 +28,23 @@ namespace hvdt {
 constexpr int BM = 64;   // query rows per tile
 constexpr int BN = 64;   // key rows per tile
 constexpr int NT = 128;  // threads per block: four warps
+
+// Rows per tile (query and key alike) of the f32 bodies at head dim D: 64,
+// and 32 at the wide head dim 256, where 64-row tiles of q, k, v and the
+// output would not fit in shared memory.  The bodies shadow BM and BN
+// with it.
+template <int D>
+__host__ __device__ constexpr int f32_tile() {
+  return D <= 128 ? 64 : 32;
+}
+
+// Slot of head dim D in the kernels' once-per-(dtype, D) tables: 0-3 for
+// 32, 64, 96, 128; 4 for 256.
+template <int D>
+constexpr int head_dim_slot() {
+  return D <= 128 ? D / 32 - 1 : 4;
+}
+constexpr int N_HEAD_DIMS = 5;
 constexpr float NEG_INF = -1e30f;
 constexpr float POS_BIG = 1e30f;
 
@@ -119,6 +136,18 @@ struct Acc {
       C[(idx / N) * ldc + idx % N] = c[i];
     }
   }
+  // Rows [row0, row0 + M) of a (rows_total, N) output in device memory,
+  // times `scale`; rows past rows_total are not written.  Neighbouring
+  // threads hold neighbouring columns, so the stores coalesce.
+  __device__ __forceinline__ void store_rows(float* dst, int row0,
+                                             int rows_total,
+                                             float scale) const {
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int idx = threadIdx.x + i * NT, r = row0 + idx / N;
+      if (r < rows_total) dst[(size_t)r * N + idx % N] = c[i] * scale;
+    }
+  }
 };
 
 // Write rows [row0, row0 + ROWS) of a (rows_total, D) output from a shared
@@ -136,8 +165,9 @@ __device__ __forceinline__ void store_rows(float* dst, const float* src,
 
 }  // namespace hvdt
 
-// Instantiate `FN<T, D>` for the dtype code and head dim, or return -1
-// (unsupported; the wrappers check first and never reach it).
+// Instantiate `FN<T, D>` for the dtype code and head dim (32, 64, 96,
+// 128), or return -1 (unsupported; the wrappers check first and never
+// reach it).
 #define HVDT_DISPATCH(dtype, d, FN, ...)                                  \
   do {                                                                    \
     switch ((dtype) * 1000 + (d)) {                                       \
@@ -158,5 +188,19 @@ __device__ __forceinline__ void store_rows(float* dst, const float* src,
       case hvdt::kBF16 * 1000 + 128:                                      \
         return FN<__nv_bfloat16, 128>(__VA_ARGS__);                       \
       default: return -1;                                                 \
+    }                                                                     \
+  } while (0)
+
+// HVDT_DISPATCH with the wide head dim 256 too: K1, K2 and K3 alone have
+// a body there (the reference's plan sends every head dim above 128 to the
+// split backward, and its fused ring to the separable ring).
+#define HVDT_DISPATCH_WIDE(dtype, d, FN, ...)                             \
+  do {                                                                    \
+    switch ((dtype) * 1000 + (d)) {                                       \
+      case hvdt::kF32 * 1000 + 256: return FN<float, 256>(__VA_ARGS__);   \
+      case hvdt::kF16 * 1000 + 256: return FN<__half, 256>(__VA_ARGS__);  \
+      case hvdt::kBF16 * 1000 + 256:                                      \
+        return FN<__nv_bfloat16, 256>(__VA_ARGS__);                       \
+      default: HVDT_DISPATCH(dtype, d, FN, __VA_ARGS__);                  \
     }                                                                     \
   } while (0)

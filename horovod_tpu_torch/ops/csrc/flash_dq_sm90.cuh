@@ -53,6 +53,12 @@
 //   q' + dO + 3 stages, D 32: 16 + 24 KB; D 64: 32 + 48 KB; D 96: 48 +
 //   72 KB; D 128: 64 + 96 KB.  tools/torch_split_variants.py times the
 //   alternatives (128-key tiles, two or four stages).
+// * Head dim 256: the consumers split dQ's columns instead of the rows
+//   (col_split): one CTA per 64 query rows, both consumer warpgroups
+//   compute S and dP over the whole head dim, each accumulates its 128
+//   columns of dQ (the registers of head dim 128; 1.67x the products of
+//   one pass); two (K, V) stages of 64 KB: q' + dO + 2 stages, 64 + 128
+//   KB.
 // * Causal: key tiles wholly past the tile's last row are not loaded; a
 //   warpgroup whose rows see none of a loaded tile, or whose rows all lie
 //   past sq, waits for it and releases it.  Every mbarrier wait traps
@@ -69,6 +75,14 @@ constexpr int DQ_BM = 128;      // query rows per CTA
 constexpr int DQ_WG_ROWS = 64;  // query rows per consumer warpgroup
 constexpr int DQ_STAGES = 3;    // (K, V) tiles in flight
 
+// Query rows per CTA: DQ_BM, and DQ_WG_ROWS at the wide head dim, where
+// both consumer warpgroups own the same rows and split dQ's columns
+// (col_split).
+template <int D>
+__host__ __device__ constexpr int dq_rows() {
+  return col_split<D>() ? DQ_WG_ROWS : DQ_BM;
+}
+
 // Keys per tile: 64 at every head dim.  At 128 keys S, dP, the packed dS
 // and dQ of the pipelined loop outgrow the consumers' registers and ptxas
 // spills.
@@ -80,25 +94,28 @@ constexpr int dq_key_tile() {
 template <int D>
 struct DqSmem {
   static constexpr int BN = dq_key_tile<D>();
+  // Two stages at the wide head dim, where a (K, V) stage is 64 KB.
+  static constexpr int STAGES = col_split<D>() ? 2 : DQ_STAGES;
   static constexpr int PANELS = D / PANEL;
-  static constexpr uint32_t Q_PANEL = DQ_BM * PANEL * 2;
+  static constexpr uint32_t Q_PANEL = dq_rows<D>() * PANEL * 2;
   static constexpr uint32_t KV_PANEL = BN * PANEL * 2;
   static constexpr uint32_t Q_BYTES = PANELS * Q_PANEL;
   static constexpr uint32_t KV_BYTES = PANELS * KV_PANEL;
   static constexpr uint32_t q = 0;
   static constexpr uint32_t dout = q + Q_BYTES;
   static constexpr uint32_t k = dout + Q_BYTES;
-  static constexpr uint32_t v = k + DQ_STAGES * KV_BYTES;
-  static constexpr uint32_t bars = v + DQ_STAGES * KV_BYTES;
-  // qdo_full, then k_full, v_full, k_empty, v_empty [DQ_STAGES] each
-  static constexpr uint32_t N_BARS = 1 + 4 * DQ_STAGES;
+  static constexpr uint32_t v = k + STAGES * KV_BYTES;
+  static constexpr uint32_t bars = v + STAGES * KV_BYTES;
+  // qdo_full, then k_full, v_full, k_empty, v_empty [STAGES] each
+  static constexpr uint32_t N_BARS = 1 + 4 * STAGES;
   // + 1024: the dynamic base is aligned up to the swizzle pattern.
   static constexpr size_t bytes = bars + 8 * N_BARS + 1024;
   static_assert(D % PANEL == 0, "head dim is a multiple of 32");
 };
 
-// One CTA of NTHREADS threads computes dq of rows [q0, q0 + DQ_BM) of head
-// `bh`.  mq, mdo (boxes of DQ_BM rows), mk, mv (dq_key_tile<D>() rows):
+// One CTA of NTHREADS threads computes dq of rows [q0, q0 + dq_rows<D>())
+// of head `bh`.  mq, mdo (boxes of dq_rows<D>() rows), mk, mv
+// (dq_key_tile<D>() rows):
 // tensor maps of q', dO (bh, sq, D) and k, v (bh, sk, D) in the kernel's
 // parameter space.  lse, delta (bh, sq) f32; dq (bh, sq, D) in T.
 template <typename T, int D>
@@ -108,26 +125,27 @@ __device__ __forceinline__ void dq_qtile(
     const float* __restrict__ delta, T* __restrict__ dq, int bh, int q0,
     int sq, int sk, float scale_r, float dq_scale, int causal) {
   using L = DqSmem<D>;
-  constexpr int BN = L::BN;
+  constexpr int BN = L::BN, STAGES = L::STAGES;
+  constexpr int ROWS = dq_rows<D>(), DV = out_cols<D>();
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   const uint32_t q_s = base + L::q, do_s = base + L::dout;
   const uint32_t k_s = base + L::k, v_s = base + L::v;
   const uint32_t qdo_full = base + L::bars;
-  const uint32_t k_full = qdo_full + 8, v_full = k_full + 8 * DQ_STAGES;
-  const uint32_t k_empty = v_full + 8 * DQ_STAGES;
-  const uint32_t v_empty = k_empty + 8 * DQ_STAGES;
+  const uint32_t k_full = qdo_full + 8, v_full = k_full + 8 * STAGES;
+  const uint32_t k_empty = v_full + 8 * STAGES;
+  const uint32_t v_empty = k_empty + 8 * STAGES;
 
   int n_kt = (sk + BN - 1) / BN;
   // Causal: key tiles that start past the CTA's last row are wholly
   // masked (reference: `k_start <= q_start + block_q - 1`).
-  if (causal) n_kt = min(n_kt, (q0 + DQ_BM - 1) / BN + 1);
+  if (causal) n_kt = min(n_kt, (q0 + ROWS - 1) / BN + 1);
 
   if (threadIdx.x == 0) {
     mbar_init(qdo_full, 1);
 #pragma unroll
-    for (int s = 0; s < DQ_STAGES; ++s) {
+    for (int s = 0; s < STAGES; ++s) {
       mbar_init(k_full + 8 * s, 1);
       mbar_init(v_full + 8 * s, 1);
       mbar_init(k_empty + 8 * s, 2);  // one arrival per consumer warpgroup
@@ -144,28 +162,32 @@ __device__ __forceinline__ void dq_qtile(
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(PRODUCER_REGS));
     if (threadIdx.x == 0 && n_kt > 0) {
       mbar_expect_tx(qdo_full, 2 * L::Q_BYTES);
-      tma_tile<D>(q_s, mq, qdo_full, DQ_BM, q0, bh);
-      tma_tile<D>(do_s, mdo, qdo_full, DQ_BM, q0, bh);
+      tma_tile<D>(q_s, mq, qdo_full, ROWS, q0, bh);
+      tma_tile<D>(do_s, mdo, qdo_full, ROWS, q0, bh);
       for (int kt = 0; kt < n_kt; ++kt) {
-        const int st = kt % DQ_STAGES, used = (kt / DQ_STAGES - 1) & 1;
-        if (kt >= DQ_STAGES) mbar_wait(k_empty + 8 * st, used);
+        const int st = kt % STAGES, used = (kt / STAGES - 1) & 1;
+        if (kt >= STAGES) mbar_wait(k_empty + 8 * st, used);
         mbar_expect_tx(k_full + 8 * st, L::KV_BYTES);
         tma_tile<D>(k_s + st * L::KV_BYTES, mk, k_full + 8 * st, BN,
                     kt * BN, bh);
-        if (kt >= DQ_STAGES) mbar_wait(v_empty + 8 * st, used);
+        if (kt >= STAGES) mbar_wait(v_empty + 8 * st, used);
         mbar_expect_tx(v_full + 8 * st, L::KV_BYTES);
         tma_tile<D>(v_s + st * L::KV_BYTES, mv, v_full + 8 * st, BN,
                     kt * BN, bh);
       }
     }
   } else {
-    // Consumers: warpgroup c owns rows [q0 + 64 c, q0 + 64 c + 64).
+    // Consumers: warpgroup c owns rows [q0 + 64 c, q0 + 64 c + 64) and
+    // all columns of dQ or, at the wide head dim, rows [q0, q0 + 64) and
+    // columns [c D / 2, (c + 1) D / 2).
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONSUMER_REGS));
     const int c = wg - 1, tid = threadIdx.x % 128;
     const int lane = tid % 32;
     const int r_lo = (tid / 32) * 16 + lane / 4;  // + 8 for the second row
     const int cq = 2 * (lane % 4);                // + 8 i + j: the column
-    const int wg_first = q0 + c * DQ_WG_ROWS;
+    const int row0 = col_split<D>() ? 0 : c * DQ_WG_ROWS;  // within the CTA
+    const int col0 = col_split<D>() ? c * DV : 0;          // of dQ
+    const int wg_first = q0 + row0;
     const float scale_log2 = scale_r * LOG2E;
     constexpr int QK_STEPS = D / 16, DQ_STEPS = BN / 16;
     // Key tiles with a key some row of this warpgroup sees: the rest (a
@@ -184,18 +206,18 @@ __device__ __forceinline__ void dq_qtile(
       dl[h] = row < sq ? delta[at] : 0.f;
     }
 
-    float dq_acc[D / 2];
+    float dq_acc[DV / 2];
     float s[BN / 2], dp[BN / 2];  // S and dP, then p and dS in f32
     uint32_t dsa[DQ_STEPS][4];    // dS as the A operand, per k16 slice
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
+    for (int i = 0; i < DV / 2; ++i) dq_acc[i] = 0.f;
 
     // S = q' K^T and dP = dO V^T of stage st, issued (not waited for).
     auto issue_sdp = [&](int st) {
 #pragma unroll
       for (int kk = 0; kk < QK_STEPS; ++kk) {
         const uint32_t off = (kk % 2) * 32;  // bytes into the 64-B row
-        const uint32_t a = (kk / 2) * L::Q_PANEL + c * DQ_WG_ROWS * 64 + off;
+        const uint32_t a = (kk / 2) * L::Q_PANEL + row0 * 64 + off;
         const uint32_t b =
             st * L::KV_BYTES + (kk / 2) * L::KV_PANEL + off;
         Wgmma<BN, T>::ss(s, desc(q_s + a, 16, 512), desc(k_s + b, 16, 512),
@@ -210,8 +232,10 @@ __device__ __forceinline__ void dq_qtile(
 #pragma unroll
       for (int j = 0; j < DQ_STEPS; ++j) {
         const uint64_t b =
-            desc(k_s + st * L::KV_BYTES + j * 16 * 64, L::KV_PANEL, 512);
-        Wgmma<D, T>::rs(dq_acc, dsa[j], b);
+            desc(k_s + st * L::KV_BYTES + (col0 / PANEL) * L::KV_PANEL +
+                     j * 16 * 64,
+                 L::KV_PANEL, 512);
+        Wgmma<DV, T>::rs(dq_acc, dsa[j], b);
       }
       wg_commit();
     };
@@ -251,8 +275,8 @@ __device__ __forceinline__ void dq_qtile(
     // while that product is in flight.  Nothing between an issue and its
     // wait branches.
     auto step = [&](int kt, auto masked) {
-      const int st = kt % DQ_STAGES, ph = (kt / DQ_STAGES) & 1;
-      const int pst = (kt - 1) % DQ_STAGES;
+      const int st = kt % STAGES, ph = (kt / STAGES) & 1;
+      const int pst = (kt - 1) % STAGES;
       mbar_wait(k_full + 8 * st, ph);
       mbar_wait(v_full + 8 * st, ph);
       pin(s);
@@ -303,7 +327,7 @@ __device__ __forceinline__ void dq_qtile(
     for (int kt = 1; kt < n_plain; ++kt) step(kt, Plain{});
     for (int kt = max(n_plain, 1); kt < n_live; ++kt) step(kt, Masked{});
     if (n_live > 0) {
-      const int st = (n_live - 1) % DQ_STAGES;
+      const int st = (n_live - 1) % STAGES;
       pin(dq_acc);
       wg_fence();
       issue_dq(st);
@@ -314,7 +338,7 @@ __device__ __forceinline__ void dq_qtile(
     // Tiles no row of this warpgroup sees: wait for each to land (so the
     // release below cannot complete an earlier use of its stage), release.
     for (int kt = n_live; kt < n_kt; ++kt) {
-      const int st = kt % DQ_STAGES, ph = (kt / DQ_STAGES) & 1;
+      const int st = kt % STAGES, ph = (kt / STAGES) & 1;
       mbar_wait(k_full + 8 * st, ph);
       mbar_wait(v_full + 8 * st, ph);
       mbar_arrive_if(k_empty + 8 * st, tid == 0);
@@ -326,9 +350,9 @@ __device__ __forceinline__ void dq_qtile(
     for (int h = 0; h < 2; ++h) {
       const int row = wg_first + r_lo + 8 * h;
       if (row >= sq) continue;
-      T* dst = dq + ((size_t)bh * sq + row) * D + cq;
+      T* dst = dq + ((size_t)bh * sq + row) * D + col0 + cq;
 #pragma unroll
-      for (int i = 0; i < D / 8; ++i)
+      for (int i = 0; i < DV / 8; ++i)
         *reinterpret_cast<uint32_t*>(dst + 8 * i) =
             pack2<T>(dq_acc[4 * i + 2 * h] * dq_scale,
                      dq_acc[4 * i + 2 * h + 1] * dq_scale);
@@ -336,13 +360,13 @@ __device__ __forceinline__ void dq_qtile(
   }
 }
 
-// The four maps of one launch: q' and dO in boxes of DQ_BM rows, k and v
-// in boxes of the key tile.
+// The four maps of one launch: q' and dO in boxes of dq_rows<D>() rows, k
+// and v in boxes of the key tile.
 template <typename T, int D>
 int make_dq_maps(CUtensorMap* maps, const void* q, const void* dout,
                  const void* k, const void* v, int bh, int sq, int sk) {
-  int e = make_map<T, D>(&maps[0], q, bh, sq, DQ_BM);
-  if (e == 0) e = make_map<T, D>(&maps[1], dout, bh, sq, DQ_BM);
+  int e = make_map<T, D>(&maps[0], q, bh, sq, dq_rows<D>());
+  if (e == 0) e = make_map<T, D>(&maps[1], dout, bh, sq, dq_rows<D>());
   if (e == 0) e = make_map<T, D>(&maps[2], k, bh, sk, dq_key_tile<D>());
   if (e == 0) e = make_map<T, D>(&maps[3], v, bh, sk, dq_key_tile<D>());
   return e;

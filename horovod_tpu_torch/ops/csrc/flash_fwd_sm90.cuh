@@ -41,8 +41,19 @@
 //   64 KB.  Registers, not shared memory, hold the SM to one CTA (384
 //   threads at 168 registers; 40 for the producer, 232 for the consumers
 //   after setmaxnreg).
+// * Head dim 256 (K1 only; any head dim above 128 runs zero-padded to
+//   it): at 128 query rows O alone would take 128 f32 registers per
+//   consumer thread, so the consumers split O's columns instead of its
+//   rows (col_split): one CTA per 64 query rows, both consumer warpgroups
+//   compute S = Q K^T over the whole head dim (16 k16 slices from shared
+//   memory) with the same online softmax, and each accumulates O over its
+//   128 columns of V.  The registers are those of head dim 128 with
+//   64-key tiles; S is computed twice per key tile (1.5x the products of
+//   one pass), and every Q, K and V tile in shared memory serves both
+//   warpgroups.  Shared memory: Q + 2 stages of K and V, 32 + 128 KB.
 // * f32 inputs: a SIMT body with scalar FMAs in full f32 (no tensor-core
-//   path keeps f32 to 1e-4), 64 x 64 tiles through shared memory.
+//   path keeps f32 to 1e-4), 64 x 64 tiles through shared memory (32 x 32
+//   at head dim 256).
 //
 // Semantics of the reference (horovod_tpu/ops/attention.py:320-335):
 // masked logits are NEG_INF, m_safe keeps rows with no key so far at zero
@@ -67,6 +78,13 @@ constexpr int BM = 128;        // query rows per CTA
 constexpr int WG_ROWS = 64;    // query rows per consumer warpgroup
 constexpr int STAGES = 2;      // K/V tiles in flight
 
+// Query rows per CTA: BM, and WG_ROWS at the wide head dim, where both
+// consumer warpgroups own the same rows (col_split).
+template <int D>
+__host__ __device__ constexpr int fwd_rows() {
+  return col_split<D>() ? WG_ROWS : BM;
+}
+
 // Shared-memory layout of one CTA: a tile of R rows is D / PANEL panels of
 // R x 64 bytes, each as TMA writes it with 64-byte swizzle.
 // Keys per tile: 128 up to head dim 64; 64 above, where S, P and O of the
@@ -80,7 +98,7 @@ template <int D>
 struct Smem {
   static constexpr int BN = key_tile<D>();
   static constexpr int PANELS = D / PANEL;
-  static constexpr uint32_t Q_PANEL = BM * PANEL * 2;
+  static constexpr uint32_t Q_PANEL = fwd_rows<D>() * PANEL * 2;
   static constexpr uint32_t KV_PANEL = BN * PANEL * 2;
   static constexpr uint32_t Q_BYTES = PANELS * Q_PANEL;
   static constexpr uint32_t KV_BYTES = PANELS * KV_PANEL;
@@ -96,9 +114,9 @@ struct Smem {
 };
 
 // The 16-bit body: one CTA of NTHREADS threads computes rows
-// [q0, q0 + BM) of head `bh`.  mq, mk, mv: tensor maps of q (bh, sq, D)
-// and k, v (bh, sk, D) in the kernel's parameter space.  o (bh, sq, D),
-// lse (bh, sq).
+// [q0, q0 + fwd_rows<D>()) of head `bh`.  mq, mk, mv: tensor maps of q
+// (bh, sq, D) and k, v (bh, sk, D) in the kernel's parameter space.  o
+// (bh, sq, D), lse (bh, sq).
 template <typename T, int D>
 __device__ __forceinline__ void fwd_tile(const CUtensorMap* mq,
                                          const CUtensorMap* mk,
@@ -108,6 +126,7 @@ __device__ __forceinline__ void fwd_tile(const CUtensorMap* mq,
                                          float scale_r, int causal) {
   using L = Smem<D>;
   constexpr int BN = L::BN;
+  constexpr int ROWS = fwd_rows<D>(), DV = out_cols<D>();
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -124,7 +143,7 @@ __device__ __forceinline__ void fwd_tile(const CUtensorMap* mq,
     // Key tiles that start past the CTA's last absolute row are wholly
     // masked (reference: `k_start <= q_start + block_q - 1`); a held
     // shard wholly in the future leaves none.
-    const int lim = q_abs + BM - 1 - k_off;
+    const int lim = q_abs + ROWS - 1 - k_off;
     n_kt = lim < 0 ? 0 : min(n_kt, lim / BN + 1);
   }
 
@@ -148,7 +167,7 @@ __device__ __forceinline__ void fwd_tile(const CUtensorMap* mq,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(PRODUCER_REGS));
     if (threadIdx.x == 0 && n_kt > 0) {
       mbar_expect_tx(q_full, L::Q_BYTES);
-      tma_tile<D>(q_s, mq, q_full, BM, q0, bh);
+      tma_tile<D>(q_s, mq, q_full, ROWS, q0, bh);
       for (int kt = 0; kt < n_kt; ++kt) {
         const int st = kt % STAGES, used = (kt / STAGES - 1) & 1;
         if (kt >= STAGES) mbar_wait(k_empty + 8 * st, used);
@@ -162,13 +181,17 @@ __device__ __forceinline__ void fwd_tile(const CUtensorMap* mq,
       }
     }
   } else {
-    // Consumers: warpgroup c owns rows [q0 + 64 c, q0 + 64 c + 64).
+    // Consumers: warpgroup c owns rows [q0 + 64 c, q0 + 64 c + 64) and
+    // all columns of O or, at the wide head dim, rows [q0, q0 + 64) and
+    // columns [c D / 2, (c + 1) D / 2).
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONSUMER_REGS));
     const int c = wg - 1, tid = threadIdx.x % 128;
     const int lane = tid % 32;
     const int r_lo = (tid / 32) * 16 + lane / 4;  // + 8 for the second row
     const int cq = 2 * (lane % 4);                // + 8 i + j: the column
-    const int wg_first = q_abs + c * WG_ROWS;     // absolute rows
+    const int row0 = col_split<D>() ? 0 : c * WG_ROWS;  // within the CTA
+    const int col0 = col_split<D>() ? c * DV : 0;       // of O
+    const int wg_first = q_abs + row0;            // absolute rows
     const float scale_log2 = scale_r * LOG2E;
     constexpr int QK_STEPS = D / 16, PV_STEPS = BN / 16;
     // Key tiles with a key some row of this warpgroup sees: the rest (a
@@ -179,12 +202,12 @@ __device__ __forceinline__ void fwd_tile(const CUtensorMap* mq,
       n_live = lim < 0 ? 0 : min(n_kt, lim / BN + 1);
     }
 
-    float acc[D / 2];
+    float acc[DV / 2];
     float s[BN / 2];        // S, then P in f32
     uint32_t pa[PV_STEPS][4];  // P as the A operand, per k16 slice
     float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, alpha[2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
 
     // S = Q K^T of key tile stage st, issued (not waited for).
     auto issue_qk = [&](int st) {
@@ -192,8 +215,7 @@ __device__ __forceinline__ void fwd_tile(const CUtensorMap* mq,
       for (int kk = 0; kk < QK_STEPS; ++kk) {
         const uint32_t off = (kk % 2) * 32;  // bytes into the 64-B row
         const uint64_t a =
-            desc(q_s + (kk / 2) * L::Q_PANEL + c * WG_ROWS * 64 + off, 16,
-                 512);
+            desc(q_s + (kk / 2) * L::Q_PANEL + row0 * 64 + off, 16, 512);
         const uint64_t b =
             desc(k_s + st * L::KV_BYTES + (kk / 2) * L::KV_PANEL + off, 16,
                  512);
@@ -206,8 +228,10 @@ __device__ __forceinline__ void fwd_tile(const CUtensorMap* mq,
 #pragma unroll
       for (int j = 0; j < PV_STEPS; ++j) {
         const uint64_t b =
-            desc(v_s + st * L::KV_BYTES + j * 16 * 64, L::KV_PANEL, 512);
-        Wgmma<D, T>::rs(acc, pa[j], b);
+            desc(v_s + st * L::KV_BYTES + (col0 / PANEL) * L::KV_PANEL +
+                     j * 16 * 64,
+                 L::KV_PANEL, 512);
+        Wgmma<DV, T>::rs(acc, pa[j], b);
       }
       wg_commit();
     };
@@ -265,7 +289,7 @@ __device__ __forceinline__ void fwd_tile(const CUtensorMap* mq,
     // 0-7) and 2 + h (columns 8-15).
     auto rescale_and_pack = [&]() {
 #pragma unroll
-      for (int i = 0; i < D / 8; ++i)
+      for (int i = 0; i < DV / 8; ++i)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           acc[4 * i + 2 * h] *= alpha[h];
@@ -354,15 +378,16 @@ __device__ __forceinline__ void fwd_tile(const CUtensorMap* mq,
       float lt = l[h];
       lt += __shfl_xor_sync(0xffffffffu, lt, 1);
       lt += __shfl_xor_sync(0xffffffffu, lt, 2);
-      const int row = q0 + c * WG_ROWS + r_lo + 8 * h;
+      const int row = q0 + row0 + r_lo + 8 * h;
       if (row >= sq) continue;
       const float inv = lt == 0.f ? 1.f : 1.f / lt;
-      T* dst = o + ((size_t)bh * sq + row) * D + cq;
+      T* dst = o + ((size_t)bh * sq + row) * D + col0 + cq;
 #pragma unroll
-      for (int i = 0; i < D / 8; ++i)
+      for (int i = 0; i < DV / 8; ++i)
         *reinterpret_cast<uint32_t*>(dst + 8 * i) =
             pack2<T>(acc[4 * i + 2 * h] * inv, acc[4 * i + 2 * h + 1] * inv);
-      if (lane % 4 == 0)
+      // Both warpgroups of a column-split CTA hold the same l and m.
+      if (lane % 4 == 0 && (!col_split<D>() || c == 0))
         lse[(size_t)bh * sq + row] =
             lt == 0.f ? POS_BIG : m[h] * LN2 + logf(lt);
     }
@@ -374,7 +399,7 @@ template <typename T, int D>
 int make_maps(CUtensorMap* mq, CUtensorMap* mk, CUtensorMap* mv,
               const void* q, const void* k, const void* v, int bh, int sq,
               int sk) {
-  int e = make_map<T, D>(mq, q, bh, sq, BM);
+  int e = make_map<T, D>(mq, q, bh, sq, fwd_rows<D>());
   if (e == 0) e = make_map<T, D>(mk, k, bh, sk, key_tile<D>());
   if (e == 0) e = make_map<T, D>(mv, v, bh, sk, key_tile<D>());
   return e;
@@ -383,13 +408,15 @@ int make_maps(CUtensorMap* mq, CUtensorMap* mk, CUtensorMap* mv,
 }  // namespace sm90
 
 // ---------------------------------------------------------------------------
-// The f32 body: 128 threads, one 64-row query tile, 64-key tiles staged
-// through shared memory, products by scalar FMA (mm_smem).
+// The f32 body: 128 threads, one query tile of f32_tile<D>() rows (64; 32
+// at head dim 256), key tiles of as many rows staged through shared
+// memory, products by scalar FMA (mm_smem).
 // ---------------------------------------------------------------------------
 
 template <int D>
 struct F32FwdSmem {
   using T = float;
+  static constexpr int BM = f32_tile<D>(), BN = BM;  // square tiles
   static constexpr int LDT = D + PAD;   // q, k, v tiles
   static constexpr int LDP = BN + PAD;  // probabilities
   static constexpr int LDS = BN + 4;    // logits
@@ -406,7 +433,8 @@ struct F32FwdSmem {
   static constexpr size_t bytes = alpha + BM * sizeof(float);
 };
 
-// Rows [q0, q0 + BM) of one head; q, k, v, o already offset to the head.
+// Rows [q0, q0 + f32_tile<D>()) of one head; q, k, v, o already offset to
+// the head.
 template <int D>
 __device__ __forceinline__ void fwd_tile_f32(const float* __restrict__ q,
                                              const float* __restrict__ k,
@@ -418,6 +446,7 @@ __device__ __forceinline__ void fwd_tile_f32(const float* __restrict__ q,
                                              int causal) {
   using T = float;
   using L = F32FwdSmem<D>;
+  constexpr int BM = L::BM, BN = L::BN;
   extern __shared__ __align__(128) unsigned char smem[];
   T* Qs = reinterpret_cast<T*>(smem + L::q);
   T* Ks = reinterpret_cast<T*>(smem + L::k);
@@ -451,13 +480,13 @@ __device__ __forceinline__ void fwd_tile_f32(const float* __restrict__ q,
     __syncthreads();
     mm_smem<BM, BN, D, true, false>(S, L::LDS, Qs, L::LDT, Ks, L::LDT);
     __syncthreads();
-    // Online softmax, one warp per 16 rows, two columns per lane.
+    // Online softmax, one warp per BM / 4 rows, BN / 32 columns per lane.
     for (int r = warp * (BM / 4); r < (warp + 1) * (BM / 4); ++r) {
       const int qpos = q_off + q0 + r;
-      float sv[2];
+      float sv[BN / 32];
       float mx = NEG_INF;
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
+      for (int j = 0; j < BN / 32; ++j) {
         const int c = lane + 32 * j;
         float x = S[r * L::LDS + c] * scale_r;
         if (k0 + c >= sk || (causal && k_off + k0 + c > qpos)) x = NEG_INF;
@@ -472,7 +501,7 @@ __device__ __forceinline__ void fwd_tile_f32(const float* __restrict__ q,
       const float m_safe = m_new <= NEG_INF / 2 ? 0.f : m_new;
       float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
+      for (int j = 0; j < BN / 32; ++j) {
         const float p = expf(sv[j] - m_safe);
         Ps[r * L::LDP + lane + 32 * j] = p;
         sum += p;

@@ -57,7 +57,7 @@ template <typename T, int D>
 __device__ void copy_role(const T* k, const T* v, T* k_slots, T* v_slots,
                           int bh, int sk, int phase, int n_copy,
                           const Ring& ring) {
-  if (!copy_gate(ring, 1, blockIdx.x)) return;
+  if (!copy_gate(ring, 1)) return;
   const size_t elems = (size_t)bh * sk * D;
   const size_t off = ((size_t)((ring.my + 1) % ring.n) * 2 + phase) * elems;
   copy_chunks(k_slots + off, k, elems * sizeof(T), blockIdx.x, n_copy);

@@ -30,6 +30,20 @@ constexpr int PRODUCER_REGS = 40;
 constexpr int CONSUMER_REGS = 232;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
+// Head dims above 128 (the wide body, 256) split the output's columns
+// between the two consumer warpgroups: both own the same rows (queries, or
+// keys in K2) and compute the score products over the whole head dim, and
+// each accumulates its half of the columns (out_cols), so an accumulator
+// takes the registers it takes at head dim 128.  The score products run
+// twice per pair; the tiles in shared memory serve both warpgroups.
+template <int D>
+__host__ __device__ constexpr bool col_split() {
+  return D > 128;
+}
+template <int D>
+__host__ __device__ constexpr int out_cols() {
+  return col_split<D>() ? D / 2 : D;
+}
 // An mbarrier wait that outlives this is a fault: trap, so the launch
 // fails instead of holding the card.
 constexpr unsigned long long WAIT_TIMEOUT_NS = 2ull * 1000 * 1000 * 1000;

@@ -8,8 +8,10 @@ of a rotation by ``shift`` is the rotation of the cotangents by
 ``-shift``, on the flipped namespace ``phase ^ 1`` of the same chain.
 
 On the card each member launches K6 (``csrc/ring_permute.cu``), which
-replaces ``_permute_kernel``: a ready handshake on the mesh's flag words,
-then one copy into the destination's receive slot.  The receive slots of a
+replaces ``_permute_kernel``: its blocks read the member's shard into
+shared memory while block 0 runs a ready handshake on the mesh's flag
+words, then store it into the destination's receive slot (bulk copies
+both ways, :func:`copy_blocks` blocks per member).  The receive slots of a
 call are output tensors allocated for every member: a rotated shard is
 kept by the separable ring for its backward, so a slot reused by a later
 call would clobber it.  On the CPU the plain version copies the shard and
@@ -24,14 +26,13 @@ the flag namespace.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import List, Sequence
 
 import torch
 
 from horovod_tpu_torch.ops import attention as A
 from horovod_tpu_torch.parallel.mesh import NS_RDMA
-
-COPY_BLOCKS = 32
 
 # Kernel launches per wrapper, counted only where the kernel is launched.
 launches = {"ring_permute": 0}
@@ -46,6 +47,15 @@ _ARGTYPES = {
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+
+
+@functools.lru_cache(maxsize=None)
+def copy_blocks(n: int, device: int = 0) -> int:
+    """Blocks of one member's K6 launch on a ring of ``n``: the members'
+    launches run together, so each takes its share of the card's SMs (33
+    of the H100's 132 at n = 4), one block per SM."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, sms // n)
 
 
 def _kernel_fn(symbol):
@@ -89,6 +99,8 @@ def permute_shards(xs: Sequence[torch.Tensor], mesh, shift: int,
         mesh.join(None)
         return [xs[(j - shift) % n].clone() for j in range(n)]
     xs = [x.contiguous() for x in xs]
+    if any(x.data_ptr() % 16 for x in xs):
+        raise ValueError("ring_permute: shards must be 16-byte aligned")
     outs = [torch.empty_like(x) for x in xs]
     table = (ctypes.c_void_p * n)(*[o.data_ptr() for o in outs])
     table_ptr = ctypes.cast(table, ctypes.c_void_p)
@@ -97,7 +109,8 @@ def permute_shards(xs: Sequence[torch.Tensor], mesh, shift: int,
     caller = mesh.fork()
     for i in range(n):
         with mesh.on(i):
-            A._launch(fn, xs[i].data_ptr(), table_ptr, nbytes, COPY_BLOCKS,
+            A._launch(fn, xs[i].data_ptr(), table_ptr, nbytes,
+                      copy_blocks(n, mesh.device.index or 0),
                       shift, mesh.flags.data_ptr(), mesh.go.data_ptr(),
                       mesh.err.data_ptr(), i, n, ns, mesh.next_epoch(i, ns))
         launches["ring_permute"] += 1

@@ -34,10 +34,12 @@ path calls a plain version, and a kernel that cannot take its input
 raises.
 
 Left out as TPU-only (the reference's ``lse8``/``delta8`` sublane
-broadcasts, the VMEM ``_bwd_plan`` route to the separable ring, the
-multi-axis interpret fallback, ``_pick_block``'s 128-multiples): the
-kernels mask any shard length, and the fused mode never gives way to
-another mode.
+broadcasts, the VMEM ``_bwd_plan`` route of long shards to the separable
+ring, the multi-axis interpret fallback, ``_pick_block``'s 128-multiples):
+the kernels mask any shard length.  Kept: above head_dim 128, where the
+reference's plan is never the combined kernel, the fused mode takes the
+reference's separable ppermute ring (:func:`fused_ring_attention`); a
+head_dim up to 128 that no body takes runs zero-padded.
 """
 
 from __future__ import annotations
@@ -263,18 +265,19 @@ def _merge(o1, lse1, o2, lse2):
     return out, lse
 
 
-def _shards(ts, bh, sl, d):
-    return [t.reshape(bh, sl, d).contiguous() for t in ts]
+def _shards(ts, bh, sl, d_body):
+    """``(bh, sl, d_body)`` shards, zero-padded to the body's head dim."""
+    return [A.pad_head(t.reshape(bh, sl, t.shape[-1]), d_body) for t in ts]
 
 
 def _fused_forward(mesh, qs, ks, vs, causal, sm_scale):
     n = mesh.size
     b, h, sl, d = qs[0].shape
-    bh = b * h
+    bh, dp = b * h, A.padded_head_dim(d)
     p2, scale_r = A._split_scale(sm_scale)
-    qr = _shards([(q * p2).to(q.dtype) for q in qs], bh, sl, d)
-    kc, vc = _shards(ks, bh, sl, d), _shards(vs, bh, sl, d)
-    k_slots, v_slots = mesh.slots((bh, sl, d), kc[0].dtype)
+    qr = _shards([(q * p2).to(q.dtype) for q in qs], bh, sl, dp)
+    kc, vc = _shards(ks, bh, sl, dp), _shards(vs, bh, sl, dp)
+    k_slots, v_slots = mesh.slots((bh, sl, dp), kc[0].dtype)
     phases, needs_closer = rotation_phases(n)
     out, lse = [None] * n, [None] * n
     keep = []  # every tensor a member stream touches, held until the join
@@ -313,7 +316,8 @@ def _fused_forward(mesh, qs, ks, vs, causal, sm_scale):
     results = []
     for i in range(n):
         with mesh.on(i):
-            results.append((out[i].reshape(qs[i].shape).to(qs[i].dtype),
+            results.append((out[i][..., :d].reshape(qs[i].shape)
+                            .to(qs[i].dtype),
                             lse[i].reshape(qs[i].shape[:-1])))
     mesh.join(caller, [t for pair in results for t in pair])
     del keep
@@ -323,15 +327,15 @@ def _fused_forward(mesh, qs, ks, vs, causal, sm_scale):
 def _fused_backward(mesh, qs, ks, vs, outs, lses, gs, causal, sm_scale):
     n = mesh.size
     b, h, sl, d = qs[0].shape
-    bh = b * h
+    bh, dp = b * h, A.padded_head_dim(d)
     p2, scale_r = A._split_scale(sm_scale)
-    qr = _shards([(q * p2).to(q.dtype) for q in qs], bh, sl, d)
-    kc, vc = _shards(ks, bh, sl, d), _shards(vs, bh, sl, d)
-    dor = _shards(gs, bh, sl, d)
+    qr = _shards([(q * p2).to(q.dtype) for q in qs], bh, sl, dp)
+    kc, vc = _shards(ks, bh, sl, dp), _shards(vs, bh, sl, dp)
+    dor = _shards(gs, bh, sl, dp)
     delta = [A._delta(o, g).reshape(bh, sl).contiguous()
              for o, g in zip(outs, gs)]
     lse = [x.reshape(bh, sl).contiguous() for x in lses]
-    k_slots, v_slots = mesh.slots((bh, sl, d), kc[0].dtype)
+    k_slots, v_slots = mesh.slots((bh, sl, dp), kc[0].dtype)
     phases, needs_closer = rotation_phases(n)
     dq = [None] * n
     acc_k, acc_v = [None] * n, [None] * n
@@ -377,10 +381,11 @@ def _fused_backward(mesh, qs, ks, vs, outs, lses, gs, causal, sm_scale):
         with mesh.on(i):
             # After the last step shard j's totals sit one hop left of j.
             mesh.wait(i, prev[(i - 1) % n])
-            grads.append(((dq[i] * p2).reshape(qs[i].shape).to(qs[i].dtype),
-                          acc_k[(i - 1) % n].reshape(ks[i].shape)
+            grads.append(((dq[i][..., :d] * p2).reshape(qs[i].shape)
+                          .to(qs[i].dtype),
+                          acc_k[(i - 1) % n][..., :d].reshape(ks[i].shape)
                           .to(ks[i].dtype),
-                          acc_v[(i - 1) % n].reshape(vs[i].shape)
+                          acc_v[(i - 1) % n][..., :d].reshape(vs[i].shape)
                           .to(vs[i].dtype)))
     mesh.join(caller, [t for g in grads for t in g])
     del keep
@@ -426,10 +431,23 @@ def fused_ring_attention(qs: Sequence[torch.Tensor],
     sequence the concatenation of the members' shards in ring order;
     returns the members' output shards.  Differentiable.  On the card the
     kernels take head_dim 32/64/96/128 in float32, float16 or bfloat16, at
-    any shard length; other inputs raise."""
+    any shard length; a head_dim up to 128 that no body takes runs
+    zero-padded to the next (``attention.padded_head_dim``), the scale the
+    caller's.  Above head_dim 128 this takes the reference's own route, by
+    choice and on the CPU too: its fused ring sends every shard whose
+    backward plan is not the combined kernel to the separable ppermute
+    ring, and the plan is never combined above 128
+    (``horovod_tpu/ops/ring_flash.py::fused_ring_attention``), so
+    ``ring_attention(..., rotate_impl="ppermute")`` runs and K4, K5 and K7
+    do not launch.  Other inputs raise."""
     if len(qs) != mesh.size or len(ks) != mesh.size or len(vs) != mesh.size:
         raise ValueError("fused_ring_attention: one shard per member")
     if sm_scale is None:
         sm_scale = qs[0].shape[-1] ** -0.5
+    if qs[0].shape[-1] > A.HEAD_DIMS[-1]:
+        from horovod_tpu_torch.ops.ring_attention import ring_attention
+
+        return ring_attention(qs, ks, vs, mesh, causal=causal,
+                              sm_scale=sm_scale, rotate_impl="ppermute")
     return list(_FusedRingFn.apply(mesh, bool(causal), float(sm_scale),
                                    *qs, *ks, *vs))

@@ -25,8 +25,10 @@ from horovod_tpu_torch.ops import kernel_check
 
 @pytest.mark.parametrize("bh", [1, 32, 33, 512, 513, 1024, 1025])
 @pytest.mark.parametrize("q_len", [64, 1000, 1024, 4096, 8192, 16384])
-@pytest.mark.parametrize("d", [32, 64, 96, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 80, 96, 128, 200, 256])
 def test_bwd_mode_matches_reference_plan(monkeypatch, d, q_len, bh):
+    """Head dims no body takes among them: ``_FlashAttnFn`` decides the
+    mode on the caller's head dim, before padding."""
     monkeypatch.delenv("HVD_TPU_VMEM_LIMIT_MB", raising=False)
     want = jattn._bwd_plan(q_len, d, 1024, 1024, bh)[0]
     assert tattn.bwd_mode(q_len, d, bh) == want
@@ -40,13 +42,15 @@ def test_bwd_tile_table_covers_every_head_dim_and_dtype(mode, dtype, d):
     """Every body's key tile is known for every dtype and head dim: in 16
     bits 128 keys for the combined body (sm90::BWD_BN, two consumer
     warpgroups of 64) and 64 for the split pair (K3's dq_key_tile); 64 for
-    the f32 bodies of both modes."""
+    the f32 bodies of both modes.  A head dim 16 short of a body's runs
+    padded to it, so it has that body's tile; past 256 none runs."""
     want = 128 if mode == "combined" and dtype != torch.float32 else 64
     assert tattn.bwd_key_tile(mode, dtype, d) == want
+    assert tattn.bwd_key_tile(mode, dtype, d - 16) == want
     with pytest.raises(ValueError, match="mode"):
         tattn.bwd_key_tile("dense", dtype, d)
     with pytest.raises(ValueError, match="head_dim"):
-        tattn.bwd_key_tile(mode, dtype, d + 16)
+        tattn.bwd_key_tile(mode, dtype, d + 256)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,

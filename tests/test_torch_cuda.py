@@ -14,6 +14,7 @@ p and ds where the kernels do; rtol two units in the last place for
 16-bit outputs, 1e-4 for float32 outputs and lse (summation order).
 """
 
+import ctypes
 import importlib
 
 import pytest
@@ -233,9 +234,86 @@ def test_flash_attention_autograd_matches_blockwise(cuda_device, layout):
         assert _close(a, b)
 
 
+# (head dim, backward mode): every head dim no body takes, and the wide
+# body's; the combined mode stops at 128.
+_HEAD_DIM_CASES = [(d, m) for d in (16, 48, 80, 200, 256)
+                   for m in ("combined", "split") if d <= 128 or m == "split"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("d,mode", _HEAD_DIM_CASES)
+def test_kernels_at_other_head_dims_match_plain_versions(cuda_device, dtype,
+                                                          d, mode):
+    """K1 and the backward in each mode on inputs zero-padded to the body's
+    head dim (as flash_attention pads them), each kernel held alone against
+    the plain side at the caller's head dim, which walks the padded body's
+    key tiles; the padded columns come out exactly 0."""
+    g = torch.Generator(device=cuda_device).manual_seed(d + 3)
+    q, k, v, do = (torch.randn(3, 200, d, device=cuda_device, generator=g)
+                   .to(dtype) for _ in range(4))
+    p2, r = tattn._split_scale(d ** -0.5)
+    qr = (q * p2).to(dtype)
+    ref, delta = kernel_check.plain_outputs(qr, k, v, do, True, r, p2, mode)
+    body = tattn.padded_head_dim(d)
+    pad = [tattn.pad_head(t, body) for t in (qr, k, v, do)]
+    before = dict(tattn.launches)
+    got = kernel_check.kernel_outputs(*pad, ref["lse"], delta, p2, r, True,
+                                      mode)
+    torch.cuda.synchronize()
+    split = mode == "split"
+    assert {n: tattn.launches[n] - before[n] for n in before} == {
+        "flash_fwd": 1, "flash_bwd": int(not split),
+        "flash_bwd_dkdv": int(split), "flash_bwd_dq": int(split)}
+    for name, t in got.items():
+        if name != "lse":
+            assert torch.count_nonzero(t[..., d:]) == 0, name
+            t = t[..., :d]
+        assert _close(t, ref[name]) if name != "lse" else \
+            kernel_check.compare_lse(t, ref[name])["worst"] <= 1.0, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("d,mode", _HEAD_DIM_CASES)
+def test_flash_attention_at_other_head_dims(cuda_device, dtype, d, mode):
+    """flash_attention at a head dim no body takes (and at 256): K1 once
+    and the backward of the caller's head dim's mode once (more than 1024
+    batch-heads for the split mode at head dims up to 128; every head dim
+    above), output and gradients against the plain blockwise path in f32
+    (kernel_check's rule in f32; 5e-2 of the largest value in 16 bits:
+    rounding of the inputs' products and of the outputs)."""
+    shape = (2, 2, 136, d) if mode == "combined" else (1, 1030, 40, d)
+    assert tattn.bwd_mode(shape[2], d, shape[0] * shape[1]) == mode
+    g = torch.Generator(device=cuda_device).manual_seed(d + 5)
+    q, k, v, ct = (torch.randn(shape, device=cuda_device, generator=g)
+                   .to(dtype) for _ in range(4))
+    xs = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = dict(tattn.launches)
+    out = tattn.flash_attention(*xs, causal=True)
+    grads = torch.autograd.grad(out, xs, ct)
+    torch.cuda.synchronize()
+    split = mode == "split"
+    assert {n: tattn.launches[n] - before[n] for n in before} == {
+        "flash_fwd": 1, "flash_bwd": int(not split),
+        "flash_bwd_dkdv": int(split), "flash_bwd_dq": int(split)}
+    ref_in = [x.float().clone().requires_grad_() for x in (q, k, v)]
+    ref = tattn.blockwise_attention(*ref_in, causal=True)
+    ref_grads = torch.autograd.grad(ref, ref_in, ct.float())
+    for a, b in zip((out.detach(), *grads), (ref.detach(), *ref_grads)):
+        assert a.shape == shape and torch.isfinite(a).all()
+        if dtype == torch.float32:
+            assert _close(a, b)
+        else:
+            err = (a.float() - b).abs().max().item()
+            assert err <= 5e-2 * b.abs().max().item(), err
+
+
 @pytest.mark.cuda
 def test_unsupported_cuda_input_raises(cuda_device):
-    q = torch.randn(1, 1, 64, 48, device=cuda_device)
+    q = torch.randn(1, 1, 64, 288, device=cuda_device)
     with pytest.raises(ValueError, match="head_dim"):
         tattn.flash_attention(q, q, q, causal=True)
     q = torch.randn(1, 1, 64, 64, device=cuda_device, dtype=torch.float64)
@@ -325,6 +403,94 @@ def test_ring_permute_is_bit_exact_with_its_vjp(cuda_device):
     torch.cuda.synchronize()
     mesh.check()
     assert mesh.flags_balanced()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift", [1, -1])
+@pytest.mark.parametrize("nbytes", [16, 4 * 1024 * 1024 + 16,
+                                    21 * 1024 * 1024 + 16])
+def test_ring_permute_bit_exact_at_any_size(cuda_device, nbytes, shift):
+    """K6 at one 16-byte vector, past the ring path's 4.2 MB shard by one,
+    and past the two K6_HALF rounds a block holds at once (so its halves
+    refill): every rotation bit for bit, every flag back at 0."""
+    from horovod_tpu_torch.ops import rdma
+
+    mesh = _ring()
+    g = torch.Generator(device=cuda_device).manual_seed(nbytes % 97)
+    xs = [torch.randn(nbytes // 2, device=cuda_device, generator=g)
+          .to(torch.bfloat16) for _ in range(4)]
+    before = rdma.launches["ring_permute"]
+    outs = rdma.permute_shards(xs, mesh, shift, 0)
+    torch.cuda.synchronize()
+    assert rdma.launches["ring_permute"] == before + 4
+    for i, x in enumerate(xs):
+        assert torch.equal(outs[(i + shift) % 4], x), i
+    mesh.check()
+    assert mesh.flags_balanced()
+
+
+@pytest.mark.cuda
+def test_ring_permute_gives_up_and_raises(cuda_device):
+    """K6 launched by one member alone: its destination never signals, so
+    the bounded spins give up after 10 s (block 0's handshake or another
+    block's wait at the gate, whichever passes its bound first), the error
+    word is set, no block stores a byte (their reads of the shard land
+    first), and the mesh raises where it checks."""
+    from horovod_tpu_torch.ops import rdma
+    from horovod_tpu_torch.parallel.mesh import NS_RDMA
+
+    mesh = _ring()
+    x = torch.ones(2 * 1024 * 1024, device=cuda_device,
+                   dtype=torch.bfloat16)
+    out = torch.zeros_like(x)
+    table = (ctypes.c_void_p * 4)(*[out.data_ptr()] * 4)
+    with mesh.on(0):
+        tattn._launch(rdma._kernel_fn("hvdt_ring_permute"), x.data_ptr(),
+                      ctypes.cast(table, ctypes.c_void_p),
+                      x.numel() * x.element_size(), rdma.copy_blocks(4), 1,
+                      mesh.flags.data_ptr(), mesh.go.data_ptr(),
+                      mesh.err.data_ptr(), 0, 4, NS_RDMA,
+                      mesh.next_epoch(0, NS_RDMA))
+    torch.cuda.synchronize()
+    with pytest.raises(RuntimeError, match="timed out"):
+        mesh.check()
+    assert torch.count_nonzero(out) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 80, 200])
+def test_fused_ring_at_other_head_dims(cuda_device, d):
+    """The fused ring at head dims 16 and 80 pads to 32 and 96 and launches
+    K4, K5 and K7 as the JAX program does; at 200 it takes the reference's
+    separable ring and launches none of them.  Values and gradients (f32)
+    against the plain blockwise attention of the whole sequence, at the
+    tolerances of test_ring_attention_matches_blockwise."""
+    from horovod_tpu_torch.ops import rdma, ring_attention
+
+    rf = importlib.import_module("horovod_tpu_torch.ops.ring_flash")
+    mesh = _ring()
+    g = torch.Generator(device=cuda_device).manual_seed(d)
+    q, k, v, ct = (torch.randn(2, 2, 4 * 96, d, device=cuda_device,
+                               generator=g) for _ in range(4))
+    before = {**rf.launches, **rdma.launches}
+    xs = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = torch.cat(ring_attention(*[list(t.chunk(4, dim=2)) for t in xs],
+                                   mesh, causal=True, rotate_impl="fused"), 2)
+    grads = torch.autograd.grad(out, xs, ct)
+    ref_in = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref = tattn.blockwise_attention(*ref_in, causal=True)
+    ref_grads = torch.autograd.grad(ref, ref_in, ct)
+    torch.cuda.synchronize()
+    mesh.check()
+    assert mesh.flags_balanced()
+    torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
+    for a, b in zip(grads, ref_grads):
+        torch.testing.assert_close(a, b, atol=5e-4, rtol=5e-4)
+    after = {**rf.launches, **rdma.launches}
+    fused = d <= tattn.HEAD_DIMS[-1]
+    assert {n: after[n] - before[n] for n in after} == {
+        "ring_flash_fwd": 16 * fused, "ring_flash_bwd": 16 * fused,
+        "phase_closer": 8 * fused, "ring_permute": 0}
 
 
 @pytest.mark.cuda

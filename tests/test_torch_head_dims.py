@@ -1,0 +1,242 @@
+"""Head dims that no kernel body takes, against horovod_tpu's, on the CPU.
+
+The kernel bodies take head dims 32, 64, 96 and 128 (and 256: K1, K2,
+K3); ``_FlashAttnFn``, the autograd function ``flash_attention`` runs on a
+CUDA tensor, zero-pads any other head dim up to 256 to the next body's
+and slices the padded columns off.  On CPU tensors it runs the kernel
+wrappers' plain branches on the padded tensors, so the padded path is
+held here against the JAX package's ``flash_attention`` (Pallas in
+interpret mode), at head dims 16, 48, 80 and 200 (``bwd_mode`` on the
+caller's head dim is in test_torch_bwd_plan.py).  ``fused_ring_attention``
+pads up to 128 and takes the reference's separable ring above 128; both
+are held against the JAX ring on the virtual CPU mesh.  A TransformerLM
+at head dim 16 (d_model 64, 4 heads, as examples/jax_pipeline_transformer.py)
+is held against the flax model.  Inputs come from numpy and feed both.
+Tolerances: f32 summation order only (2e-5 for values, 1e-3 for
+gradients through the autograd function, as test_torch_bwd_plan.py;
+2e-5 / 5e-4 for the rings, as test_torch_ring.py; the LM as
+test_torch_transformer.py).
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.sharding import Mesh, PartitionSpec as P
+
+from horovod_tpu.jax.train import shard_map
+from horovod_tpu.models import TransformerLM as FlaxLM
+from horovod_tpu.models import next_token_loss as flax_loss
+from horovod_tpu.ops import attention as jattn
+from horovod_tpu.ops import ring_attention as jring_attention
+from horovod_tpu_torch.models import TransformerLM, next_token_loss
+from horovod_tpu_torch.models import transformer as ttr
+from horovod_tpu_torch.models.convert import from_flax_params
+from horovod_tpu_torch.ops import attention as tattn
+from horovod_tpu_torch.ops import ring_attention as tring_attention
+from horovod_tpu_torch.ops import ring_flash as trf
+from horovod_tpu_torch.parallel import RingMesh
+
+N = 4
+
+
+def _arrays(shape, seed, count=4):
+    rng = np.random.RandomState(seed)
+    return [rng.standard_normal(shape).astype(np.float32)
+            for _ in range(count)]
+
+
+@pytest.mark.parametrize("d,body", [(1, 32), (16, 32), (32, 32), (33, 64),
+                                    (48, 64), (80, 96), (100, 128),
+                                    (128, 128), (129, 256), (200, 256),
+                                    (256, 256)])
+def test_padded_head_dim_is_the_next_body(d, body):
+    assert tattn.padded_head_dim(d) == body
+
+
+@pytest.mark.parametrize("d", [0, 257, 288, 512])
+def test_head_dims_past_the_bodies_raise(d):
+    with pytest.raises(ValueError, match="head_dim"):
+        tattn.padded_head_dim(d)
+    with pytest.raises(ValueError, match="head_dim"):
+        tattn.fwd_key_tile(torch.bfloat16, d)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("d", [16, 48, 80, 136, 200, 256])
+def test_key_tiles_follow_the_padded_body(d, dtype):
+    """The key tiles answer for the body that runs the padded head dim:
+    the 16-bit forward 128 keys up to 64, 64 above; the f32 bodies 64 up
+    to 128 and 32 at 256; the split pair 64 keys in 16 bits; no combined
+    body above 128."""
+    body = tattn.padded_head_dim(d)
+    f32 = dtype == torch.float32
+    assert tattn.fwd_key_tile(dtype, d) == tattn.fwd_key_tile(dtype, body)
+    assert tattn.fwd_key_tile(dtype, d) == (
+        (64 if body <= 128 else 32) if f32 else (128 if body <= 64 else 64))
+    assert tattn.bwd_key_tile("split", dtype, d) == (
+        (64 if body <= 128 else 32) if f32 else 64)
+    if body <= 128:
+        assert tattn.bwd_key_tile("combined", dtype, d) == (64 if f32
+                                                             else 128)
+    else:
+        with pytest.raises(ValueError, match="combined"):
+            tattn.bwd_key_tile("combined", dtype, d)
+
+
+def _record_wrappers(monkeypatch):
+    """Patch the kernel wrappers to record (name, head dim) of each call."""
+    called = []
+    for name in ("flash_fwd", "flash_bwd", "flash_bwd_dkdv", "flash_bwd_dq"):
+        fn = getattr(tattn, name)
+        monkeypatch.setattr(
+            tattn, name,
+            lambda *a, _f=fn, _n=name: called.append((_n, a[0].shape[-1]))
+            or _f(*a))
+    return called
+
+
+# (shape, block of the JAX side): the mode both plans pick follows.
+_CASES = {16: ((1, 2, 128, 16), 64), 48: ((1, 2, 128, 48), 64),
+          80: ((1, 2, 96, 80), 32), 200: ((1, 2, 64, 200), 32),
+          "48-split": ((1, 1025, 32, 48), 32)}
+
+
+@pytest.mark.parametrize("case", list(_CASES))
+def test_padded_flash_attn_fn_matches_jax(monkeypatch, case):
+    """``_FlashAttnFn`` on CPU tensors at a head dim no body takes: the
+    wrappers see the padded head dim, the backward runs in the mode of
+    the caller's head dim, and values and gradients match the JAX
+    package's flash attention (interpret mode)."""
+    monkeypatch.delenv("HVD_TPU_VMEM_LIMIT_MB", raising=False)
+    shape, block = _CASES[case]
+    b, h, s, d = shape
+    mode = tattn.bwd_mode(s, d, b * h)
+    assert jattn._bwd_plan(s, d, block, block, b * h)[0] == mode
+    called = _record_wrappers(monkeypatch)
+    q, k, v, ct = _arrays(shape, seed=40 + d)
+    out, vjp = jax.vjp(lambda a, b_, c: jattn.flash_attention(
+        a, b_, c, causal=True, block_q=block, block_k=block),
+        *map(jnp.asarray, (q, k, v)))
+    want = vjp(jnp.asarray(ct))
+    ts = [torch.tensor(a, requires_grad=True) for a in (q, k, v)]
+    got_out = tattn._FlashAttnFn.apply(*ts, True, d ** -0.5)
+    got = torch.autograd.grad(got_out, ts, torch.tensor(ct))
+    body = tattn.padded_head_dim(d)
+    assert called == [("flash_fwd", body)] + (
+        [("flash_bwd", body)] if mode == "combined"
+        else [("flash_bwd_dkdv", body), ("flash_bwd_dq", body)])
+    assert got_out.shape == shape
+    np.testing.assert_allclose(got_out.detach().numpy(), np.asarray(out),
+                               atol=2e-5, rtol=2e-5)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-3,
+                                   rtol=1e-3, err_msg=name)
+
+
+def _jmesh():
+    return Mesh(np.array(jax.devices()[:N]), ("sp",))
+
+
+def _jax_fused_ring(causal, q, k, v, ct):
+    spec = P(None, None, "sp", None)
+    fn = functools.partial(jring_attention, axis_name="sp", causal=causal,
+                           rotate_impl="fused")
+
+    def loss(q, k, v):
+        out = shard_map(fn, mesh=_jmesh(), in_specs=(spec,) * 3,
+                        out_specs=spec, check_vma=False)(q, k, v)
+        return (out * ct).sum(), out
+
+    (_, out), grads = jax.jit(jax.value_and_grad(
+        loss, argnums=(0, 1, 2), has_aux=True))(q, k, v)
+    return np.asarray(out), [np.asarray(g) for g in grads]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [16, 200])
+def test_fused_ring_at_other_head_dims_matches_jax(monkeypatch, d, causal):
+    """The fused ring at head dim 16 runs K4/K5/K7's plain branches on
+    shards padded to 32; at 200 it takes the reference's separable ring
+    and none of them runs.  Values and gradients against the JAX fused
+    ring (which routes 200 to its separable ring too)."""
+    called = []
+    for name in ("ring_flash_fwd", "ring_flash_bwd", "phase_closer"):
+        fn = getattr(trf, name)
+        monkeypatch.setattr(
+            trf, name,
+            lambda mesh, i, *a, _f=fn, _n=name, **kw: called.append(
+                (_n, kw["k"].shape[-1] if "k" in kw else None))
+            or _f(mesh, i, *a, **kw))
+    q, k, v, ct = _arrays((1, 2, N * 16, d), seed=60 + d + causal)
+    want, gwant = _jax_fused_ring(causal, *map(jnp.asarray, (q, k, v, ct)))
+    mesh = RingMesh(N, "cpu")
+    ts = [torch.tensor(a, requires_grad=True) for a in (q, k, v)]
+    shards = [list(t.chunk(N, dim=2)) for t in ts]
+    out = torch.cat(tring_attention(*shards, mesh, causal=causal,
+                                    rotate_impl="fused"), dim=2)
+    grads = torch.autograd.grad((out * torch.tensor(ct)).sum(), ts)
+    if d <= tattn.HEAD_DIMS[-1]:
+        body = tattn.padded_head_dim(d)
+        assert {n for n, _ in called} == {"ring_flash_fwd", "ring_flash_bwd",
+                                          "phase_closer"}
+        assert all(w in (body, None) for _, w in called)
+        assert sum(n == "ring_flash_fwd" for n, _ in called) == N * N
+    else:
+        assert called == []
+    np.testing.assert_allclose(out.detach().numpy(), want, atol=2e-5,
+                               rtol=2e-5)
+    for a, b in zip(grads, gwant):
+        np.testing.assert_allclose(a.numpy(), b, atol=5e-4, rtol=5e-4)
+    assert mesh.flags_balanced()
+
+
+def _kernel_path(q, k, v, causal=True):
+    """flash_attention as it runs on a CUDA tensor: ``_FlashAttnFn``."""
+    return tattn._FlashAttnFn.apply(q, k, v, causal, q.shape[-1] ** -0.5)
+
+
+@pytest.mark.parametrize("path", ["blockwise", "kernel"])
+def test_lm_at_head_dim_16_matches_flax(monkeypatch, path):
+    """TransformerLM at d_model 64 over 4 heads (head dim 16, as
+    examples/jax_pipeline_transformer.py) against the flax model on the
+    same weights: logits, loss and every parameter gradient.  ``kernel``
+    routes attention through ``_FlashAttnFn`` (the padded kernels' path);
+    ``blockwise`` is the CPU route of ``flash_attention``."""
+    vocab, d_model, layers, heads, seq = 128, 64, 2, 4, 64
+    if path == "kernel":
+        monkeypatch.setattr(ttr, "flash_attention", _kernel_path)
+    rng = np.random.RandomState(5)
+    tokens = rng.randint(0, vocab, (2, seq + 1)).astype(np.int32)
+    inp, tgt = tokens[:, :-1], tokens[:, 1:]
+    flax_model = FlaxLM(vocab_size=vocab, d_model=d_model, n_layers=layers,
+                        n_heads=heads, dtype=jnp.float32, use_flash=True)
+    params = flax_model.init(jax.random.PRNGKey(1), jnp.asarray(inp))[
+        "params"]
+
+    def loss_fn(p):
+        logits = flax_model.apply({"params": p}, jnp.asarray(inp))
+        return flax_loss(logits, jnp.asarray(tgt)), logits
+
+    (loss, logits), jgrads = jax.value_and_grad(loss_fn, has_aux=True)(
+        params)
+    model = TransformerLM(vocab, d_model, layers, heads, dtype=torch.float32,
+                          use_flash=True, device="cpu")
+    model.load_state_dict(from_flax_params(jax.device_get(params)),
+                          strict=True)
+    got_logits = model(torch.from_numpy(inp).long())
+    got_loss = next_token_loss(got_logits, torch.from_numpy(tgt).long())
+    got_loss.backward()
+    np.testing.assert_allclose(got_logits.detach().numpy(),
+                               np.asarray(logits), rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(got_loss.item(), float(loss), rtol=1e-4,
+                               atol=1e-5)
+    want = from_flax_params(jax.device_get(jgrads))
+    for name, p in model.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), want[name].numpy(),
+                                   rtol=1e-3, atol=1e-5, err_msg=name)

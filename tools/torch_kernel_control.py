@@ -60,8 +60,11 @@ Mutants of the ring kernels, each read on a ring of 4 members of shard
 * ``k5_copy_drops_last_chunk`` — the copy blocks skip their last chunk
   (the loop is shared by K4 and K5; read: the receive slots after a
   rotating round of K5, on the backward body above, alone, bit for bit);
-* ``k6_wrong_slot`` — K6 writes into the slot of member my + shift + 1
-  (read: the rotated shards, bit for bit).
+* ``k6_wrong_slot`` — K6 stores into the slot of member my + shift + 1
+  (read: the rotated shards, bit for bit);
+* ``k6_drops_last_piece`` — each K6 block leaves out the last bulk store
+  of its share, one piece of at most 16 KB (read: the rotated shards, bit
+  for bit).
 The mutated sources are copies under ``horovod_tpu_torch/_build/control/``
 (the checked-in sources are not touched), built with the same nvcc flags.
 Each mutant, and first the unmutated kernels (the sound readings, B2 and
@@ -189,6 +192,11 @@ RING_MUTANTS = {
         "const int to = ((ring.my + shift) % ring.n + ring.n) % ring.n;",
         "const int to = ((ring.my + shift + 1) % ring.n + ring.n) % ring.n;",
         "k6"),
+    "k6_drops_last_piece": (
+        "ring_permute", "ring_permute.cu",
+        "      bulk_store(out + (size_t)r * K6_HALF + p,",
+        "      if (p + K6_PIECE < n || r + 1 < rounds)\n"
+        "      bulk_store(out + (size_t)r * K6_HALF + p,", "k6"),
 }
 RING_SHARD = (4, 8, 1024, 64)
 
