@@ -77,8 +77,44 @@ Phases, one JSON line each:
    two steps of the rdma ring at the same width, K6 2(n-1) forward +
    2(n-1) backward per member and layer.
 
+9. ``engine``  — the port's collective engine (``engine/cc``, host C++):
+   the g++ seconds of its build (started beside the nvcc builds) and its
+   exported dynamic symbols, which must all be ``hvd_tpu_*``.
+10. ``collectives`` — 2 ranks started by the port's runner
+   (``horovod_tpu_torch.runner``) on this one card, each
+   ``hvd.init(device="cuda:0")``, CUDA tensors staged through pinned host
+   memory to the engine's host ring: allreduce (sum and average) in f32,
+   bf16, f16 and i32 at 1, 1001 elements and 64 MiB (small integers, so
+   every sum is exact in 16 bits), the in-place variants, 64 small
+   tensors enqueued async and completed in fewer engine cycles than
+   tensors (fusion), allgather with a different dim 0 per rank, broadcast
+   from root 1, each against its exact value; a shape mismatch across
+   ranks must raise ``ValueError``, not hang.  Then an allreduce of 224
+   MiB of f32 (the LM's gradient bytes) split into D2H, engine and H2D
+   milliseconds, and timed whole; and the engine alone on host buffers
+   of 1, 4, 16, 64 and 224 MiB.
+11. ``train_dp`` — the main path data-parallel over 2 ranks on this card:
+   ``HEADLINE`` per rank (weak scaling), rank r's weights seeded 100 + r
+   and then broadcast from rank 0 with the optimizer state,
+   ``DistributedOptimizer(AdamW)`` and ``build_train_step``, 2 warm-up +
+   5 timed steps.  Every parameter must be equal across ranks bit for bit
+   (one digest per rank), the loss finite and falling, K1 and B2 launched
+   8 x 7 times per rank and K2, K3 never; printed: the job's tokens/s (2 x
+   16,384 tokens a step), step ms, ``sync_sec``, each rank's peak memory,
+   the engine cycles that completed each step's 51 gradient handles, and
+   one profiled step's kernel, D2H and H2D milliseconds.  Then the
+   averaging check: 3 steps of both ranks from one seed, rank r on rows
+   [8r, 8r + 8) of a 16-row batch, against 3 steps of the size-1 step on
+   all 16 rows; the losses must agree within 3 x the spread of two
+   size-1 runs, with a floor of 1e-3 relative (printed beside them).
+
+The two ranks time-slice the one card (two CUDA contexts, no MPS), and
+NCCL cannot run two ranks on one device: the run shows the engine, the
+staging and their numbers, not NVLink or NCCL.  Any rank that exits
+non-zero, any mismatch and any timeout fails the run.
+
 Then the ``{"kernels": [...]}`` summary (K1-K7, B2, and K1-K3 at head
-dim 256), the
+dim 256; K1 and B2 with their launches per rank on ``train_dp``), the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Any
 failure raises: the script exits non-zero and prints no result line.
 Tolerances (``horovod_tpu_torch/ops/kernel_check.py``, which gives the
@@ -97,12 +133,14 @@ O(seq/n) or NVLink transfer times.
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import json
 import math
 import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -114,6 +152,9 @@ if not torch.cuda.is_available():
     sys.exit("chip_smoke: no CUDA device")
 
 import horovod_tpu_torch as hvd  # noqa: E402
+import horovod_tpu_torch.torch as hvdt  # noqa: E402
+from horovod_tpu_torch import common as hvd_common  # noqa: E402
+from horovod_tpu_torch.engine import build as engine_build  # noqa: E402
 from horovod_tpu_torch.models import TransformerLM, next_token_loss  # noqa
 from horovod_tpu_torch.ops import _build  # noqa: E402
 from horovod_tpu_torch.ops import attention as A  # noqa: E402
@@ -121,6 +162,7 @@ from horovod_tpu_torch.ops import kernel_check  # noqa: E402
 from horovod_tpu_torch.ops import rdma  # noqa: E402
 from horovod_tpu_torch.ops import ring_flash as RF  # noqa: E402
 from horovod_tpu_torch.parallel import RingMesh  # noqa: E402
+from horovod_tpu_torch.runner import run_command  # noqa: E402
 from horovod_tpu_torch.torch.lm_step import (HEADLINE,  # noqa: E402
                                              RING_HEADLINE, build_lm_step)
 
@@ -148,6 +190,11 @@ RING = (4, 8, 1024, 64)  # one member's shard on the ring path (4 members)
 HEAD_DIM_WIDE = (1, 1040, 512, 256)
 HEAD_DIM_PADDED = ((16, 8, 1024, 16), (16, 8, 1024, 80))
 N_MEMBERS = 4
+# The data-parallel phases: ranks on this one card, the LM's gradient
+# bytes (58.7 M f32 parameters), the averaging check's seed.
+DP_RANKS = 2
+GRAD_BYTES = 224 << 20
+AVG_SEED = 7
 REPLACES = {
     "flash_fwd": "horovod_tpu/ops/attention.py:356",
     "flash_bwd": "horovod_tpu/ops/attention.py:498",
@@ -1149,21 +1196,394 @@ def phase_ring_train():
     hvd.shutdown()
     return {**launched, "ring_permute": rlaunched["ring_permute"]}
 
+# --- the data-parallel phases: ranks of the port's runner on this card ---
 
-def main():
-    name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
+
+def run_ranks(phase, timeout, script=__file__):
+    """Run ``<script> --rank <phase>`` (this script by default) on
+    ``DP_RANKS`` ranks; each rank's ``RESULT`` line, parsed.  A rank that
+    exits non-zero or a timeout fails the run; every rank's output is kept
+    in OUT_DIR."""
+    env = dict(os.environ)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    results = run_command(
+        [sys.executable, os.path.abspath(script), "--rank", phase],
+        DP_RANKS, env=env, timeout=timeout, capture=True)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    out = []
+    for r in results:
+        with open(os.path.join(OUT_DIR, f"{phase}_rank{r.rank}.log"),
+                  "w") as f:
+            f.write(r.stdout + "\n--- stderr ---\n" + r.stderr)
+        if r.returncode != 0:
+            fail(f"{phase}: rank {r.rank} exited {r.returncode}:\n"
+                 f"{r.stderr[-4000:]}")
+        lines = [ln for ln in r.stdout.splitlines()
+                 if ln.startswith("RESULT ")]
+        if not lines:
+            fail(f"{phase}: rank {r.rank} printed no result")
+        out.append(json.loads(lines[-1][len("RESULT "):]))
+    return out
+
+
+def rank_result(**fields):
+    print("RESULT " + json.dumps(fields), flush=True)
+
+
+def events_ms(fn):
+    """Milliseconds of ``fn``'s work on the current stream (CUDA events)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def rank_collectives():
+    """One rank of ``collectives``: every op held against its exact value;
+    raises on the first mismatch."""
+    hvdt.init(device="cuda:0")
+    r, n = hvdt.rank(), hvdt.size()
+    held = []
+
+    def hold(name, got, want):
+        got = got.cpu()
+        if got.dtype != want.dtype or not torch.equal(got, want):
+            raise RuntimeError(
+                f"{name}: got {got.flatten()[:6].tolist()} ({got.dtype}, "
+                f"{tuple(got.shape)}), want {want.flatten()[:6].tolist()} "
+                f"({want.dtype}, {tuple(want.shape)})")
+        held.append(name)
+
+    for dtype in (torch.float32, torch.bfloat16, torch.float16, torch.int32):
+        for numel in (1, 1001, (64 << 20) // dtype.itemsize):
+            base = torch.arange(numel, device="cuda") % 7
+            x = (base + r + 1).to(dtype)
+            total = n * base + n * (n + 1) // 2
+            mean = (total.double() / n if dtype.is_floating_point
+                    else total // n)  # the engine truncates integer means
+            tag = f"{str(dtype)[6:]}.{numel}"
+            hold(f"sum.{tag}", hvdt.allreduce(x, average=False,
+                                              name=f"sum.{tag}"),
+                 total.to(dtype).cpu())
+            hold(f"mean.{tag}", hvdt.allreduce(x, average=True,
+                                               name=f"mean.{tag}"),
+                 mean.to(dtype).cpu())
+            y = x.clone()
+            if hvdt.allreduce_(y, average=False, name=f"sum_.{tag}") is not y:
+                raise RuntimeError("allreduce_ did not return its input")
+            hold(f"sum_.{tag}", y, total.to(dtype).cpu())
+            z = (base * (r + 1)).to(dtype)
+            if hvdt.broadcast_(z, 1, name=f"bcast_.{tag}") is not z:
+                raise RuntimeError("broadcast_ did not return its input")
+            hold(f"bcast_.{tag}", z, (base * 2).to(dtype).cpu())
+            del base, x, y, z, total, mean
+    # The small copies queue behind a ~20 ms sleep kernel and land
+    # together, as a backward's gradients do, so the staging thread
+    # enqueues them in a burst that the engine can fuse.
+    smalls = [torch.full((16,), float(i + r), device="cuda")
+              for i in range(64)]
+    torch.cuda._sleep(20 * SLEEP_CYCLES)
+    handles = [hvdt.allreduce_async(x, average=False, name=f"small.{i}")
+               for i, x in enumerate(smalls)]
+    for i, h in enumerate(handles):
+        hold(f"small.{i}", hvdt.synchronize(h),
+             torch.full((16,), float(n * i + n * (n - 1) // 2)))
+    small_ticks = len({h.completion_tick for h in handles})
+    if small_ticks >= len(handles):
+        raise RuntimeError(f"64 small allreduces took {small_ticks} engine "
+                           "cycles: not fused")
+    hold("allgather", hvdt.allgather(
+        torch.full((r + 1, 3), float(r + 1), device="cuda"),
+        name="allgather"),
+        torch.cat([torch.full((k + 1, 3), float(k + 1)) for k in range(n)]))
+    ramp = torch.arange(1001, dtype=torch.float32)
+    hold("broadcast.root1", hvdt.broadcast(
+        (ramp * (r + 1)).cuda(), 1, name="broadcast.root1"), ramp * 2)
+    try:
+        hvdt.allreduce(torch.ones(r + 2, device="cuda"), name="mismatch")
+        raise RuntimeError("a shape mismatch across ranks did not raise")
+    except ValueError as exc:
+        mismatch = f"{type(exc).__name__}: {exc}"[:300]
+
+    # 224 MiB of f32, split: D2H into pinned memory, the engine's host
+    # allreduce of it, H2D back; then through the staging route whole.
+    numel = GRAD_BYTES // 4
+    g = torch.full((numel,), float(r + 1), device="cuda")
+    mean = torch.full((len(range(0, numel, 1 << 16)),), (n + 1) / 2)
+    buf = torch.empty(numel, pin_memory=True)
+    seq = iter(range(1 << 30))
+
+    def barrier():
+        hvd_common.allreduce_async(torch.zeros(1), False,
+                                   f"barrier.{next(seq)}").wait()
+
+    split = {"d2h_ms": [], "engine_ms": [], "h2d_ms": [], "whole_ms": []}
+    for i in range(4):
+        torch.cuda.synchronize()
+        barrier()
+        d2h = events_ms(lambda: buf.copy_(g, non_blocking=True))
+        barrier()
+        t0 = time.perf_counter()
+        hvd_common.allreduce_async(buf, True, "big.host", out=buf).wait()
+        eng = (time.perf_counter() - t0) * 1e3
+        h2d = events_ms(lambda: g.copy_(buf, non_blocking=True))
+        hold(f"big.host.{i}", g[:: 1 << 16], mean)
+        g.fill_(float(r + 1))  # the ranks differ again for the whole route
+        barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hvdt.allreduce_(g, average=True, name="big")
+        torch.cuda.synchronize()
+        whole = (time.perf_counter() - t0) * 1e3
+        hold(f"big.{i}", g[:: 1 << 16], mean)
+        g.fill_(float(r + 1))
+        if i:
+            for k, v in zip(split, (d2h, eng, h2d, whole)):
+                split[k].append(v)
+    # The engine alone on host buffers by size: where its rate settles.
+    sweep = {}
+    for mib in (1, 4, 16, 64, 224):
+        host = buf[:(mib << 20) // 4]
+        times = []
+        for _ in range(3):
+            barrier()
+            t0 = time.perf_counter()
+            hvd_common.allreduce_async(host, True, f"sweep.{mib}",
+                                       out=host).wait()
+            times.append((time.perf_counter() - t0) * 1e3)
+        sweep[mib] = statistics.median(times)
+    rank_result(rank=r, size=n, held=len(held), small_ticks=small_ticks,
+                mismatch=mismatch, pinned_allocs=hvdt.mpi_ops.pinned_allocs[0],
+                **{k: statistics.median(v) for k, v in split.items()},
+                split_runs=split, engine_ms_by_mib=sweep)
+    hvdt.shutdown()
+
+
+def phase_collectives():
+    res = run_ranks("collectives", timeout=300)
+    smi = smi_line()
+    emit("collectives", ranks=res, nvidia_smi=smi,
+         grad_bytes=GRAD_BYTES,
+         d2h_ms=max(x["d2h_ms"] for x in res),
+         engine_ms=max(x["engine_ms"] for x in res),
+         h2d_ms=max(x["h2d_ms"] for x in res),
+         whole_ms=max(x["whole_ms"] for x in res),
+         engine_ms_by_mib={k: max(x["engine_ms_by_mib"][k] for x in res)
+                           for k in res[0]["engine_ms_by_mib"]})
+    if len({x["held"] for x in res}) != 1 or not res[0]["held"]:
+        fail(f"collectives: the ranks held different checks: {res}")
+
+
+def profile_step(step, data, rank):
+    """One step under ``torch.profiler``: ``(wall ms, kernel-busy ms,
+    D2H ms, H2D ms)`` of this process, or Nones if the trace holds no
+    device time."""
+    path = os.path.join(OUT_DIR, f"train_dp_trace_rank{rank}.json")
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        step(data).item()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    os.remove(path)
+    kernels = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
+    copies = [e for e in events
+              if e.get("cat") == "gpu_memcpy" and "dur" in e]
+    if not kernels:
+        return wall, None, None, None
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in kernels + copies)
+    busy, (cur_s, cur_e) = 0.0, spans[0]
+    for s0, e0 in spans[1:]:
+        if s0 > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s0, e0
+        else:
+            cur_e = max(cur_e, e0)
+    busy += cur_e - cur_s
+    d2h = sum(e["dur"] for e in copies if "DtoH" in e["name"]) / 1e3
+    h2d = sum(e["dur"] for e in copies if "HtoD" in e["name"]) / 1e3
+    return wall, busy / 1e3, d2h, h2d
+
+
+def params_digest(model):
+    h = hashlib.sha256()
+    for k, v in model.state_dict().items():
+        h.update(k.encode())
+        h.update(v.detach().contiguous().cpu().view(torch.uint8).numpy())
+    return h.hexdigest()
+
+
+def rank_train_dp():
+    """One rank of ``train_dp``."""
+    hvdt.init(device="cuda:0")
+    r, n = hvdt.rank(), hvdt.size()
+    batch = HEADLINE["batch"]
+    model, step, data = build_lm_step(**HEADLINE, seed=100)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    warmup, timed = 2, 5
+    A.reset_launches()
+    losses, step_ms, sync_ms, cycles = [], [], [], []
+    for i in range(warmup + timed):
+        t0 = time.perf_counter()
+        loss = step(data).item()
+        dt = (time.perf_counter() - t0) * 1e3
+        losses.append(loss)
+        cycles.append(len(set(step.optimizer.last_ticks)))
+        if i >= warmup:
+            step_ms.append(dt)
+            sync_ms.append(step.sync_sec[-1] * 1e3)
+    torch.cuda.synchronize()
+    launched = dict(A.launches)
+    peak = torch.cuda.max_memory_allocated()
+    handles = len(step.optimizer.last_ticks)
+    digest = params_digest(model)
+    wall, busy, d2h, h2d = profile_step(step, data, r)
+    del model, step, data
+    torch.cuda.empty_cache()
+    avg_losses = averaging_losses(slice(r * batch // n, (r + 1) * batch // n))
+    rank_result(rank=r, size=n, losses=losses, step_ms=step_ms,
+                median_step_ms=statistics.median(step_ms), sync_ms=sync_ms,
+                median_sync_ms=statistics.median(sync_ms),
+                max_memory_allocated=peak, launches=launched,
+                grad_handles=handles, engine_cycles_per_step=cycles,
+                digest=digest, profiled_step_ms=wall, busy_ms=busy,
+                d2h_ms=d2h, h2d_ms=h2d, avg_losses=avg_losses)
+    hvdt.shutdown()
+
+
+def averaging_losses(rows):
+    """The averaging check's run on this rank: 3 steps of the LM headline
+    from ``AVG_SEED`` on rows ``rows`` of one batch drawn from
+    ``RandomState(AVG_SEED)``.  Every size starts from the same weights
+    and optimizer state: at size 1 the zero-learning-rate step that a
+    data-parallel run's ``broadcast_optimizer_state`` takes is taken
+    here."""
+    _, step, _ = build_lm_step(**HEADLINE, seed=AVG_SEED)
+    if hvd.size() == 1:
+        hvdt.broadcast_optimizer_state(step.optimizer, root_rank=0)
+    vocab, batch, seq = (HEADLINE[k] for k in ("vocab_size", "batch", "seq"))
+    tokens = torch.from_numpy(np.random.RandomState(AVG_SEED).randint(
+        0, vocab, (batch, seq + 1))[rows]).cuda()
+    losses = [step((tokens[:, :-1], tokens[:, 1:])).item() for _ in range(3)]
+    del step, tokens
+    torch.cuda.empty_cache()
+    return losses
+
+
+def averaging_reference():
+    """``(refs, tolerance)``: two size-1 runs of ``averaging_losses`` on
+    every row, and per step 3x their spread (B2's f32 dQ adds are not
+    ordered), at least 1e-3 of the loss."""
+    hvd.init()
+    refs = [averaging_losses(slice(None)) for _ in range(2)]
+    hvd.shutdown()
+    spread = [abs(a - b) for a, b in zip(*refs)]
+    return refs, [max(3 * s, 1e-3 * abs(a)) for s, a in zip(spread, refs[0])]
+
+
+def phase_train_dp():
+    torch.cuda.empty_cache()
+    res = run_ranks("train_dp", timeout=300)
+    vocab, batch, seq = (HEADLINE[k] for k in ("vocab_size", "batch", "seq"))
+    per = HEADLINE["n_layers"] * 7
+    want = {"flash_fwd": per, "flash_bwd": per, "flash_bwd_dkdv": 0,
+            "flash_bwd_dq": 0}
+    step_ms = max(x["median_step_ms"] for x in res)
+    busy = [x["busy_ms"] for x in res]
+    idle = (None if None in busy
+            else 1.0 - sum(busy) / max(x["profiled_step_ms"] for x in res))
+
+    refs, tol = averaging_reference()
+    dp = res[0]["avg_losses"]
+    off = [abs(a - b) for a, b in zip(dp, refs[0])]
+    emit("train_dp", ranks=DP_RANKS, batch_per_rank=batch, seq=seq,
+         nvidia_smi=smi_line(),
+         tokens_per_s=DP_RANKS * batch * seq / (step_ms / 1e3),
+         median_step_ms=step_ms,
+         median_sync_ms=[x["median_sync_ms"] for x in res],
+         max_memory_allocated=[x["max_memory_allocated"] for x in res],
+         engine_cycles_per_step=[x["engine_cycles_per_step"] for x in res],
+         grad_handles=res[0]["grad_handles"],
+         profiled_step_ms=[x["profiled_step_ms"] for x in res],
+         kernel_and_copy_busy_ms=busy,
+         d2h_ms=[x["d2h_ms"] for x in res], h2d_ms=[x["h2d_ms"] for x in res],
+         card_idle_share_estimate=idle,
+         losses=res[0]["losses"], launches=[x["launches"] for x in res],
+         want_launches=want, digests=[x["digest"] for x in res],
+         averaging={"dp": dp, "size1": refs, "abs_err": off,
+                    "tolerance": tol})
+    for x in res:
+        if x["launches"] != want:
+            fail(f"train_dp rank {x['rank']} launched {x['launches']}, "
+                 f"want {want}")
+        if x["losses"] != res[0]["losses"]:
+            fail(f"train_dp: the ranks' mean losses differ: {res}")
+        if x["grad_handles"] != 51 or max(
+                x["engine_cycles_per_step"]) >= x["grad_handles"]:
+            fail(f"train_dp: gradient handles not fused: {x}")
+    if len({x["digest"] for x in res}) != 1:
+        fail("train_dp: the ranks' parameters differ after the steps")
+    losses = res[0]["losses"]
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"train_dp: non-finite loss: {losses}")
+    if abs(losses[0] - math.log(vocab)) > 1.0 or losses[-1] >= losses[0]:
+        fail(f"train_dp: implausible loss trajectory: {losses}")
+    if any(o > t for o, t in zip(off, tol)):
+        fail(f"train_dp: averaged losses {dp} against size-1 {refs[0]}, "
+             f"tolerance {tol}")
+    return res[0]["launches"]
+
+
+def smi_line():
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+
+
+def main():
+    name = torch.cuda.get_device_name(0)
+    smi = smi_line()
     emit("device", name=name, count=torch.cuda.device_count(),
          nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
 
+    # The engine (g++) builds beside the kernels (nvcc).
+    engine = {}
+
+    def build_engine():
+        try:
+            engine["path"] = engine_build.build()
+        except BaseException as exc:
+            engine["error"] = exc
+
+    engine_thread = threading.Thread(target=build_engine)
+    engine_thread.start()
     t0 = time.perf_counter()
     info = _build.build_all()
     emit("build", seconds=time.perf_counter() - t0,
          sources={k: {"seconds": v["seconds"], "cached": v["cached"]}
                   for k, v in info.items()})
+    engine_thread.join()
+    if "error" in engine:
+        raise engine["error"]
+    symbols = engine_build.exported_symbols(engine["path"])
+    foreign = [x for x in symbols if not x.startswith("hvd_tpu_")]
+    emit("engine", seconds=engine_build.build_info["seconds"],
+         cached=engine_build.build_info["cached"],
+         library=os.path.basename(engine["path"]), exported=len(symbols),
+         not_c_api=foreign)
+    if foreign or not symbols:
+        fail(f"the engine exports {len(foreign)} symbols beyond its C API: "
+             f"{foreign[:10]}")
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_build.log"), "w") as f:
         for k, v in info.items():
@@ -1178,12 +1598,16 @@ def main():
     ring_entries = phase_ring_kernels()
     phase_ring_model()
     launched.update(phase_ring_train())
+    phase_collectives()
+    dp_launched = phase_train_dp()
     entries.update(ring_entries)
     for name_, e in entries.items():
         # K2 and K3 run on the split path, every other kernel on the main
         # path or the ring path.
         e["launches"] = (split if name_ in ("flash_bwd_dkdv", "flash_bwd_dq")
                          else launched)[name_]
+    for name_ in ("flash_fwd", "flash_bwd"):
+        entries[name_]["launches_train_dp_per_rank"] = dp_launched[name_]
     # The d-256 rows carry the launches of the head_dims phase's path.
     entries.update(wide_entries)
     for name_, e in entries.items():
@@ -1196,5 +1620,10 @@ def main():
         "count": torch.cuda.device_count()}}), flush=True)
 
 
+RANK_PHASES = {"collectives": rank_collectives, "train_dp": rank_train_dp}
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--rank"]:
+        RANK_PHASES[sys.argv[2]]()
+    else:
+        main()

@@ -1,90 +1,246 @@
-"""Process API of the PyTorch port: ``init``/``shutdown``/``rank``/``size``.
+"""Process API of the PyTorch port and its seam to the collective engine.
 
-Counterpart of ``horovod_tpu/common/__init__.py`` (``init``, ``shutdown``,
-``rank``, ``size``, ``local_rank``, ``local_size``).  This slice of the
-port runs one process on one GPU: there is no collective engine yet, so
-``init()`` refuses a job of more than one process instead of running it
-as if it were alone.
+Counterpart of ``horovod_tpu/common/__init__.py``: the engine library
+(``engine/cc``, the port's own copy, built at first use by
+``engine/build.py``) is loaded with ``ctypes``; ``init``/``shutdown`` start
+and stop it; ``rank``/``size``/``local_rank``/``local_size`` come from it;
+and ``allreduce_async``/``allgather_async``/``broadcast_async`` enqueue
+named collectives on contiguous CPU tensors through their ``data_ptr()``
+and return a :class:`Handle`.  The engine negotiates the names across
+ranks, fuses what is ready in one cycle, and runs a ring over TCP on the
+host.  CUDA tensors reach it only through ``horovod_tpu_torch.torch``,
+which stages them in pinned host memory: the engine never sees a device
+pointer.
+
+Not ported: the XLA data plane, stage groups, point-to-point transfers,
+the fault injector, and the metrics/timeline/postmortem glue
+(``config.UNPORTED``).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import atexit
+import ctypes
+import re
+import threading
+import time
+from typing import Callable, List, Optional
 
+from horovod_tpu_torch.common import dtypes
 from horovod_tpu_torch.common.basics import ProcessSet, resolve_process_set
+from horovod_tpu_torch.common.config import Config
 
 __all__ = [
-    "HorovodInternalError", "init", "shutdown", "is_initialized", "rank",
-    "size", "local_rank", "local_size", "resolve_device",
+    "HorovodInternalError", "RanksDownError", "CollectiveTimeoutError",
+    "HorovodNotInitializedError", "init", "shutdown", "is_initialized",
+    "rank", "size", "local_rank", "local_size", "resolve_device",
+    "Handle", "allreduce_async", "allgather_async", "broadcast_async",
 ]
+
+# Op codes shared with the engine (engine/cc/wire.h OpType).
+OP_ALLREDUCE = 0
+OP_ALLGATHER = 1
+OP_BROADCAST = 2
+
+# Status codes (engine/cc/wire.h StatusCode).
+ST_OK = 0
+ST_UNKNOWN = 1
+ST_PRECONDITION = 2
+ST_ABORTED = 3
+ST_INVALID = 4
+ST_PENDING = 5
+ST_RANKS_DOWN = 6
+ST_TIMEOUT = 7
 
 
 class HorovodInternalError(RuntimeError):
     """An unrecoverable engine error, or a job the engine cannot run."""
 
 
-_process_set: Optional[ProcessSet] = None
+class RanksDownError(HorovodInternalError):
+    """A coordinated abort because one or more ranks died; ``ranks``
+    names them (empty when the message does not parse)."""
+
+    def __init__(self, message: str, ranks=()):  # noqa: D107
+        super().__init__(message)
+        self.ranks = list(ranks)
+
+
+class CollectiveTimeoutError(HorovodInternalError):
+    """A coordinated abort because a collective stalled past
+    ``HVD_TPU_COLLECTIVE_TIMEOUT_SEC``."""
+
+
+class HorovodNotInitializedError(HorovodInternalError, ValueError):
+    """A call that needs a running engine came before ``hvd.init()`` (or
+    after ``hvd.shutdown()``)."""
+
+
+_lib = None
+_lib_lock = threading.Lock()
+# Called (no arguments) by shutdown() before the engine stops: the torch
+# binding drains its staging thread and drops its pinned buffers there.
+_shutdown_hooks: List[Callable[[], None]] = []
+
+
+def _declare(lib, name, restype, *argtypes):
+    fn = getattr(lib, name)
+    fn.restype = restype
+    fn.argtypes = list(argtypes)
+
+
+def _load_lib():
+    """The engine library, built first if needed, loaded ``RTLD_LOCAL``
+    with only the C functions the port calls declared."""
+    global _lib
+    with _lib_lock:
+        if _lib is not None:
+            return _lib
+        from horovod_tpu_torch.engine.build import build
+
+        lib = ctypes.CDLL(build(), mode=ctypes.RTLD_LOCAL)
+        c_int, c_ll, c_dbl, c_str, c_ptr = (
+            ctypes.c_int, ctypes.c_longlong, ctypes.c_double,
+            ctypes.c_char_p, ctypes.c_void_p)
+        _declare(lib, "hvd_tpu_init", c_int,
+                 c_int, c_int, c_int, c_int, c_str, c_str, c_dbl, c_ll,
+                 c_dbl, c_str, c_int, c_dbl, c_ll, c_int, c_ll, c_ll, c_ll,
+                 c_dbl, c_int, c_ll, c_int, c_int, c_ll, c_ll, c_ll, c_ll,
+                 c_int, c_ll, c_ll)
+        _declare(lib, "hvd_tpu_init_error", c_str)
+        _declare(lib, "hvd_tpu_shutdown", None)
+        for name in ("hvd_tpu_initialized", "hvd_tpu_rank", "hvd_tpu_size",
+                     "hvd_tpu_local_rank", "hvd_tpu_local_size",
+                     "hvd_tpu_abort_code"):
+            _declare(lib, name, c_int)
+        _declare(lib, "hvd_tpu_abort_message", c_str)
+        _declare(lib, "hvd_tpu_enqueue", c_ll, c_int, c_str, c_ptr, c_ptr,
+                 ctypes.POINTER(c_ll), c_int, c_int, c_int, c_int)
+        for name in ("hvd_tpu_poll", "hvd_tpu_wait", "hvd_tpu_status"):
+            _declare(lib, name, c_int, c_ll)
+        _declare(lib, "hvd_tpu_error", c_str, c_ll)
+        for name in ("hvd_tpu_completion_tick", "hvd_tpu_result_nbytes",
+                     "hvd_tpu_result_dim0"):
+            _declare(lib, name, c_ll, c_ll)
+        _declare(lib, "hvd_tpu_result_ptr", c_ptr, c_ll)
+        _declare(lib, "hvd_tpu_release", None, c_ll)
+        _lib = lib
+        return lib
+
+
+def _pin_device(device, ps: ProcessSet) -> None:
+    """Make the device this process computes on current:
+    ``cuda:local_rank()`` by default, ``device`` where the caller names
+    one (``"cpu"`` for the CPU tests, ``"cuda:N"`` to put several ranks on
+    one card)."""
+    import torch
+
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: horovod_tpu_torch runs on a GPU; pass "
+                "device='cpu' to run on the CPU explicitly")
+        count = torch.cuda.device_count()
+        if ps.local_rank >= count:
+            raise HorovodInternalError(
+                f"local_rank {ps.local_rank} has no CUDA device of its own "
+                f"({count} visible); name one with "
+                "hvd.init(device='cuda:N') (ranks may share a device)")
+        dev = torch.device("cuda", ps.local_rank)
+    else:
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError(f"no CUDA device for {device!r}")
+            if dev.index is None:
+                dev = torch.device("cuda", torch.cuda.current_device())
+            if dev.index >= torch.cuda.device_count():
+                raise HorovodInternalError(
+                    f"{device!r}: only {torch.cuda.device_count()} CUDA "
+                    "devices visible")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
 
 
 def init(device: Optional[str] = None) -> None:
-    """Resolve this process's identity and pin its GPU by ``local_rank``.
+    """Start the engine and pin this process's device.
 
-    ``device="cpu"`` skips the pinning (the CPU tests).  Otherwise CUDA
-    must be present: the port never carries on on the CPU unasked.
-    Idempotent.
+    Identity comes from the launcher's environment (rank 0 of 1 without
+    one).  ``device=None`` pins ``cuda:local_rank()``, which must exist;
+    ``device="cuda:N"`` pins N (several ranks may share it);
+    ``device="cpu"`` pins nothing: the CPU tests, on CPU tensors.  A knob
+    of an unported engine plane in the environment raises.  Idempotent.
     """
-    global _process_set
-    if _process_set is not None:
+    if is_initialized():
         return
     ps = resolve_process_set()
-    if ps.size > 1:
+    asked = Config.unported_requests()
+    if asked:
         raise HorovodInternalError(
-            f"size {ps.size} > 1: the multi-process collective engine "
-            "(allreduce across ranks, NCCL) is not ported yet; this "
-            "build runs one process on one GPU")
-    if resolve_device(device).type == "cuda":
-        import torch
-
-        torch.cuda.set_device(ps.local_rank)
-    _process_set = ps
+            "the environment asks for engine planes horovod_tpu_torch does "
+            "not have: " + "; ".join(asked))
+    cfg = Config.from_env()
+    _pin_device(device, ps)
+    lib = _load_lib()
+    data = ",".join(ps.data_endpoints) if ps.data_endpoints else ""
+    # Every unported plane at its "off" value: no timeline, flat ring, no
+    # autotuning (fix values -1), not elastic, no compression, no
+    # coordinator tree.
+    rc = lib.hvd_tpu_init(
+        ps.rank, ps.size, ps.local_rank, ps.local_size,
+        (ps.coord_endpoint or "").encode(), data.encode(),
+        cfg.cycle_time_ms, cfg.fusion_threshold, cfg.stall_warning_sec,
+        b"", 0, cfg.collective_timeout_sec, cfg.effective_cache_capacity,
+        0, 2, 32, -1, -1.0, 0, 1, 0, 0, 1024, -1, 64 * 1024, -1, 0,
+        cfg.steady_threshold, cfg.steady_max_period)
+    if rc != 0:
+        raise HorovodInternalError(
+            "engine initialization failed: "
+            + lib.hvd_tpu_init_error().decode())
+    atexit.register(shutdown)
 
 
 def shutdown() -> None:
-    """Forget the process set.  Idempotent."""
-    global _process_set
-    _process_set = None
+    """Stop the engine.  Idempotent, and a no-op before ``init()``."""
+    for hook in list(_shutdown_hooks):
+        hook()
+    if _lib is not None and _lib.hvd_tpu_initialized():
+        _lib.hvd_tpu_shutdown()
 
 
 def is_initialized() -> bool:
-    return _process_set is not None
+    """True between a successful ``init()`` and ``shutdown()``.  Never
+    builds or loads the engine."""
+    return _lib is not None and bool(_lib.hvd_tpu_initialized())
 
 
-def _check_initialized() -> ProcessSet:
-    if _process_set is None:
-        raise ValueError(
+def _checked_lib():
+    if not is_initialized():
+        raise HorovodNotInitializedError(
             "horovod_tpu_torch has not been initialized; call hvd.init()")
-    return _process_set
+    return _lib
 
 
 def rank() -> int:
-    return _check_initialized().rank
+    return _checked_lib().hvd_tpu_rank()
 
 
 def size() -> int:
-    return _check_initialized().size
+    return _checked_lib().hvd_tpu_size()
 
 
 def local_rank() -> int:
-    return _check_initialized().local_rank
+    return _checked_lib().hvd_tpu_local_rank()
 
 
 def local_size() -> int:
-    return _check_initialized().local_size
+    return _checked_lib().hvd_tpu_local_size()
 
 
 def resolve_device(device=None):
-    """The port's device rule: ``None`` means the CUDA device, which must
-    exist; anything else is taken as given (``"cpu"`` for tests)."""
+    """The port's device rule: ``None`` means the current CUDA device,
+    which must exist; anything else is taken as given (``"cpu"`` for
+    tests)."""
     import torch
 
     if device is None:
@@ -94,3 +250,196 @@ def resolve_device(device=None):
                 "device='cpu' to run on the CPU explicitly")
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device(device)
+
+
+# ---------------------------------------------------------------------------
+# Collectives on host memory.
+# ---------------------------------------------------------------------------
+
+
+class Handle:
+    """An outstanding engine collective.  Holds its input and output
+    tensors while the engine may touch their memory.  ``completion_tick``
+    (set by :meth:`wait`) is the engine cycle that completed it: ops fused
+    in one cycle share it."""
+
+    def __init__(self, raw: int, op: int, inp, out, name: str):
+        self._raw = raw
+        self._op = op
+        self._in = inp
+        self._out = out
+        self.name = name
+        self._finished = False
+        self._finish_lock = threading.Lock()
+        self.completion_tick: Optional[int] = None
+
+    def poll(self) -> bool:
+        """True once the collective has completed (or failed)."""
+        return self._finished or _lib.hvd_tpu_poll(self._raw) != 0
+
+    def status(self) -> int:
+        """The engine's status code (``ST_PENDING`` while in flight)."""
+        return _lib.hvd_tpu_status(self._raw)
+
+    def result_nbytes(self) -> int:
+        return int(_lib.hvd_tpu_result_nbytes(self._raw))
+
+    def result_ptr(self) -> Optional[int]:
+        """Host address of a completed allgather's engine-owned result
+        (None while pending or when empty); valid until release."""
+        return _lib.hvd_tpu_result_ptr(self._raw)
+
+    def release(self) -> None:
+        _lib.hvd_tpu_release(self._raw)
+
+    def wait(self, alloc: Optional[Callable] = None):
+        """Block until done and return the output tensor; raise the typed
+        error of a failed collective.  An allgather's result is copied into
+        ``alloc(shape, dtype)`` (a fresh CPU tensor by default)."""
+        import torch
+
+        with self._finish_lock:
+            if self._finished:
+                raise ValueError(
+                    f"handle for '{self.name}' already waited on")
+            self._finished = True
+        try:
+            code = _lib.hvd_tpu_wait(self._raw)
+            if code != ST_OK:
+                msg = _lib.hvd_tpu_error(self._raw).decode()
+                code, msg = _promote_transport_failure(code, msg)
+                raise _status_error(code, msg, self.name)
+            self.completion_tick = int(
+                _lib.hvd_tpu_completion_tick(self._raw))
+            if self._op != OP_ALLGATHER:
+                return self._out
+            nbytes = self.result_nbytes()
+            shape = ((int(_lib.hvd_tpu_result_dim0(self._raw)),)
+                     + tuple(self._in.shape[1:]))
+            out = (alloc or torch.empty)(shape, dtype=self._in.dtype)
+            if out.numel() * out.element_size() != nbytes:
+                raise HorovodInternalError(
+                    f"allgather '{self.name}': {nbytes} result bytes for "
+                    f"shape {shape} of {self._in.dtype}")
+            if nbytes:
+                ctypes.memmove(out.data_ptr(), self.result_ptr(), nbytes)
+            return out
+        finally:
+            self.release()
+
+
+def _parse_down_ranks(msg: str) -> list:
+    m = re.search(r"ranks down: ([0-9, ]+)", msg)
+    if not m:
+        return []
+    return [int(tok) for tok in m.group(1).split(",") if tok.strip()]
+
+
+def _promote_transport_failure(code: int, msg: str):
+    """A broken ring racing a coordinated abort: wait up to 2 s for the
+    control plane's typed verdict, as the reference does, so the caller
+    gets the error that names the dead rank."""
+    transport = code == ST_UNKNOWN and "failed" in msg
+    deadline = time.monotonic() + (2.0 if transport else 0.0)
+    while True:
+        ac = int(_lib.hvd_tpu_abort_code())
+        if ac in (ST_RANKS_DOWN, ST_TIMEOUT):
+            return ac, _lib.hvd_tpu_abort_message().decode()
+        if not transport or time.monotonic() >= deadline:
+            return code, msg
+        time.sleep(0.01)
+
+
+def _status_error(code: int, msg: str, name: str) -> Exception:
+    prefix = f"collective '{name}' failed: "
+    if code == ST_PRECONDITION:
+        return ValueError(prefix + msg)
+    if code == ST_RANKS_DOWN:
+        return RanksDownError(prefix + msg, ranks=_parse_down_ranks(msg))
+    if code == ST_TIMEOUT:
+        return CollectiveTimeoutError(prefix + msg)
+    return HorovodInternalError(prefix + (msg or f"status {code}"))
+
+
+_name_counter = [0]
+_name_lock = threading.Lock()
+
+
+def _auto_name(prefix: str) -> str:
+    with _name_lock:
+        _name_counter[0] += 1
+        return f"{prefix}.noname.{_name_counter[0]}"
+
+
+def _check_host(tensor, what: str = "input"):
+    if tensor.device.type != "cpu":
+        raise ValueError(
+            f"the engine takes host memory; got a {what} on "
+            f"{tensor.device} (CUDA tensors go through "
+            "horovod_tpu_torch.torch, which stages them in pinned memory)")
+    if not tensor.is_contiguous():
+        raise ValueError(f"the engine takes a contiguous {what}")
+
+
+def _check_out(out, tensor) -> None:
+    _check_host(out, "output")
+    if out.shape != tensor.shape or out.dtype != tensor.dtype:
+        raise ValueError(
+            f"output buffer mismatch: expected shape {tuple(tensor.shape)} "
+            f"dtype {tensor.dtype}, got shape {tuple(out.shape)} dtype "
+            f"{out.dtype}")
+
+
+def _enqueue(op: int, tensor, out, name: str, root_rank: int,
+             average: bool) -> Handle:
+    lib = _checked_lib()
+    shape = tuple(tensor.shape)
+    dims = (ctypes.c_longlong * len(shape))(*shape)
+    raw = lib.hvd_tpu_enqueue(
+        op, name.encode(), tensor.data_ptr(),
+        out.data_ptr() if out is not None else None, dims, len(shape),
+        dtypes.torch_to_code(tensor.dtype), root_rank, int(average))
+    if raw < 0:
+        raise HorovodInternalError("engine is shut down")
+    return Handle(raw, op, tensor, out, name)
+
+
+def allreduce_async(tensor, average: bool = True, name: Optional[str] = None,
+                    out=None) -> Handle:
+    """Sum (or mean) across ranks of a contiguous CPU tensor into ``out``
+    (a new tensor by default; ``out`` may be ``tensor`` itself)."""
+    import torch
+
+    _check_host(tensor)
+    if out is None:
+        out = torch.empty_like(tensor)
+    else:
+        _check_out(out, tensor)
+    return _enqueue(OP_ALLREDUCE, tensor, out, name or _auto_name("allreduce"),
+                    -1, average)
+
+
+def allgather_async(tensor, name: Optional[str] = None) -> Handle:
+    """Concatenation along dim 0 of every rank's contiguous CPU tensor
+    (dim 0 may differ across ranks, the other dims may not)."""
+    _check_host(tensor)
+    if tensor.dim() == 0:
+        raise ValueError("allgather requires tensors of rank >= 1")
+    return _enqueue(OP_ALLGATHER, tensor, None,
+                    name or _auto_name("allgather"), -1, False)
+
+
+def broadcast_async(tensor, root_rank: int, name: Optional[str] = None,
+                    out=None) -> Handle:
+    """``root_rank``'s contiguous CPU tensor on every rank, into ``out``
+    (a new tensor by default; ``out`` may be ``tensor`` itself)."""
+    import torch
+
+    _check_host(tensor)
+    if out is None:
+        out = torch.empty_like(tensor)
+    else:
+        _check_out(out, tensor)
+    return _enqueue(OP_BROADCAST, tensor, out, name or _auto_name("broadcast"),
+                    root_rank, False)
+

@@ -1,24 +1,27 @@
-"""Process-model bootstrap: rank/size/local_rank resolution.
+"""Process-model bootstrap: rank/size/local_rank and the engine endpoints.
 
 Own copy of the launcher-environment part of
 ``horovod_tpu/common/basics.py`` (the port imports nothing of that
 package).  Identity resolves, in priority order, from:
 
   1. ``HVD_TPU_RANK`` / ``HVD_TPU_SIZE`` / ``HVD_TPU_LOCAL_RANK`` /
-     ``HVD_TPU_LOCAL_SIZE`` — set by the ``hvdrun`` launcher.
+     ``HVD_TPU_LOCAL_SIZE``, with the engine's control-plane endpoint
+     ``HVD_TPU_COORD`` (rank 0's coordinator, ``host:port``) and data-plane
+     endpoints ``HVD_TPU_DATA`` (one ``host:port`` per rank, comma
+     separated) — set by the launcher (``python -m
+     horovod_tpu_torch.runner``).
   2. Single-process defaults (rank 0 of 1).
 
 The TPU pod-slice metadata sources of the JAX package have no
-counterpart on a GPU host and are not copied; nor are the engine's
-endpoints (``HVD_TPU_COORD``/``HVD_TPU_DATA``), which arrive with the
-engine.
+counterpart on a GPU host and are not copied.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Optional
+import socket
+from typing import Optional, Sequence
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,6 +32,10 @@ class ProcessSet:
     size: int
     local_rank: int
     local_size: int
+    # Control-plane (rank-0 coordinator) endpoint, "host:port".
+    coord_endpoint: Optional[str] = None
+    # Data-plane endpoints for every rank, ["host:port", ...] (len == size).
+    data_endpoints: Optional[Sequence[str]] = None
 
     def validate(self) -> "ProcessSet":
         if not (0 <= self.rank < self.size):
@@ -38,6 +45,18 @@ class ProcessSet:
             raise ValueError(
                 f"local_rank {self.local_rank} out of range for "
                 f"local_size {self.local_size}")
+        if self.size > 1:
+            if not self.coord_endpoint:
+                raise ValueError(
+                    "size > 1 requires a coordinator endpoint (set "
+                    "HVD_TPU_COORD or launch via python -m "
+                    "horovod_tpu_torch.runner)")
+            if (not self.data_endpoints
+                    or len(self.data_endpoints) != self.size):
+                raise ValueError(
+                    "size > 1 requires one data endpoint per rank (set "
+                    "HVD_TPU_DATA or launch via python -m "
+                    "horovod_tpu_torch.runner)")
         return self
 
 
@@ -59,7 +78,10 @@ def _from_launcher_env() -> Optional[ProcessSet]:
         return None
     local_rank = _env_int("HVD_TPU_LOCAL_RANK", rank)
     local_size = _env_int("HVD_TPU_LOCAL_SIZE", size)
-    return ProcessSet(rank, size, local_rank, local_size)
+    coord = os.environ.get("HVD_TPU_COORD")
+    data = os.environ.get("HVD_TPU_DATA")
+    endpoints = data.split(",") if data else None
+    return ProcessSet(rank, size, local_rank, local_size, coord, endpoints)
 
 
 def resolve_process_set() -> ProcessSet:
@@ -67,3 +89,25 @@ def resolve_process_set() -> ProcessSet:
     1."""
     ps = _from_launcher_env() or ProcessSet(0, 1, 0, 1)
     return ps.validate()
+
+
+def pick_free_port(host: str = "127.0.0.1") -> int:
+    """Ask the OS for a currently-free TCP port."""
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind((host, 0))
+        return s.getsockname()[1]
+
+
+def pick_free_ports(n: int, host: str = "127.0.0.1") -> list:
+    """``n`` distinct currently-free TCP ports, every socket held open
+    until all are picked, so one launch is never handed a port twice."""
+    socks = []
+    try:
+        for _ in range(n):
+            s = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+            s.bind((host, 0))
+            socks.append(s)
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()

@@ -1,12 +1,11 @@
 """The data-parallel training step: the Horovod recipe in one call.
 
-Counterpart of ``horovod_tpu/jax/train.py::build_train_step``, on a
-data-parallel axis of size 1 and, optionally, a sequence-parallel ring on
-one card.  Each
-worker computes gradients on its own batch, ``DistributedOptimizer``
-averages them before the update, and the returned loss is averaged across
-workers as ``lax.pmean`` does in the reference (at size 1 both averages
-are identities).  Checkpoint glue is not part of this module yet.
+Counterpart of ``horovod_tpu/jax/train.py::build_train_step``, at any
+number of processes and, optionally, with a sequence-parallel ring on one
+card.  Each worker computes gradients on its own batch,
+``DistributedOptimizer`` averages them through the engine before the
+update, and the returned loss is averaged across workers as ``lax.pmean``
+does in the reference.  Checkpoint glue is not part of this module yet.
 """
 
 from __future__ import annotations
@@ -31,10 +30,14 @@ def build_train_step(loss_fn: Callable, optimizer: torch.optim.Optimizer,
     ring kernel that gave up makes its ring op raise in the forward or
     the backward, so it never reaches the update.
     ``optimizer`` is wrapped in :class:`DistributedOptimizer` unless it
-    already is one.  One step runs forward, backward, the optimizer step
-    and ``zero_grad``, and returns the cross-worker mean loss (detached).
-    ``step.step_sec`` collects the host seconds of each call; work still
-    queued on the GPU when the call returns is not in them.
+    already is one.  One step runs forward, backward (whose gradient hooks
+    enqueue the averages), ``DistributedOptimizer.synchronize``, the
+    optimizer step and ``zero_grad``, and returns the cross-worker mean
+    loss (detached).  ``step.step_sec`` collects the host seconds of each
+    call and ``step.sync_sec`` those spent in ``synchronize`` (the wait on
+    the engine and the copies back); work still queued on the GPU when the
+    call returns is in neither.  ``step.optimizer`` is the
+    ``DistributedOptimizer``.
     """
     if not isinstance(optimizer, DistributedOptimizer):
         optimizer = DistributedOptimizer(
@@ -44,6 +47,8 @@ def build_train_step(loss_fn: Callable, optimizer: torch.optim.Optimizer,
         t0 = time.perf_counter()
         loss = loss_fn(model, batch)
         loss.backward()
+        optimizer.synchronize()
+        step.sync_sec.append(optimizer.sync_sec[-1])
         optimizer.step()
         optimizer.zero_grad(set_to_none=True)
         loss = allreduce(loss.detach(), average=True, name="train_step.loss")
@@ -51,4 +56,6 @@ def build_train_step(loss_fn: Callable, optimizer: torch.optim.Optimizer,
         return loss
 
     step.step_sec = []
+    step.sync_sec = []
+    step.optimizer = optimizer
     return step

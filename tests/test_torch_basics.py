@@ -1,5 +1,6 @@
 """horovod_tpu_torch's process API, device rule, collectives at size 1,
-native-build errors, and its import isolation from JAX and horovod_tpu."""
+native-build errors, the engine's configuration, and its import isolation
+from JAX and horovod_tpu."""
 
 import ast
 import glob
@@ -11,12 +12,13 @@ import torch
 import horovod_tpu_torch as hvd
 from horovod_tpu_torch.common import basics, resolve_device
 from horovod_tpu_torch.torch import (DistributedOptimizer, allreduce,
-                                     broadcast, broadcast_optimizer_state,
+                                     allreduce_, broadcast,
+                                     broadcast_optimizer_state,
                                      broadcast_parameters)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _ENV = ("HVD_TPU_RANK", "HVD_TPU_SIZE", "HVD_TPU_LOCAL_RANK",
-        "HVD_TPU_LOCAL_SIZE")
+        "HVD_TPU_LOCAL_SIZE", "HVD_TPU_COORD", "HVD_TPU_DATA")
 
 
 @pytest.fixture
@@ -40,17 +42,19 @@ def test_init_defaults_to_rank_0_of_1(clean_env):
 
 
 def test_init_reads_launcher_env(clean_env):
-    for var, val in zip(_ENV, ("0", "1", "0", "1")):
+    for var, val in zip(_ENV[:4], ("0", "1", "0", "1")):
         clean_env.setenv(var, val)
     hvd.init(device="cpu")
     assert (hvd.rank(), hvd.size()) == (0, 1)
 
 
 def test_process_set_from_env(clean_env):
-    for var, val in zip(_ENV, ("5", "8", "1", "4")):
+    for var, val in zip(_ENV, ("5", "8", "1", "4", "h:1",
+                               ",".join(f"h:{2 + i}" for i in range(8)))):
         clean_env.setenv(var, val)
     ps = basics.resolve_process_set()
     assert (ps.rank, ps.size, ps.local_rank, ps.local_size) == (5, 8, 1, 4)
+    assert ps.coord_endpoint == "h:1" and ps.data_endpoints[7] == "h:9"
     clean_env.setenv("HVD_TPU_LOCAL_RANK", "7")
     with pytest.raises(ValueError, match="local_rank"):
         basics.resolve_process_set()
@@ -60,9 +64,16 @@ def test_process_set_from_env(clean_env):
 
 
 def test_size_above_one_raises(clean_env):
+    """A size-2 environment without the engine's endpoints."""
     clean_env.setenv("HVD_TPU_RANK", "1")
     clean_env.setenv("HVD_TPU_SIZE", "2")
-    with pytest.raises(hvd.HorovodInternalError, match="not ported"):
+    with pytest.raises(ValueError, match="HVD_TPU_COORD"):
+        hvd.init(device="cpu")
+    clean_env.setenv("HVD_TPU_COORD", "127.0.0.1:1")
+    with pytest.raises(ValueError, match="HVD_TPU_DATA"):
+        hvd.init(device="cpu")
+    clean_env.setenv("HVD_TPU_DATA", "127.0.0.1:2")  # one for two ranks
+    with pytest.raises(ValueError, match="one data endpoint per rank"):
         hvd.init(device="cpu")
     assert not hvd.is_initialized()
 
@@ -87,9 +98,12 @@ def test_collectives_are_identities_at_size_1(clean_env):
     with pytest.raises(ValueError, match="init"):
         allreduce(t)
     hvd.init(device="cpu")
-    assert allreduce(t, name="x") is t
-    assert broadcast(t, 0, name="y") is t
-    with pytest.raises(ValueError, match="root_rank"):
+    out = allreduce(t, name="x")
+    assert out is not t and torch.equal(out, t)
+    assert torch.equal(broadcast(t, 0, name="y"), t)
+    assert allreduce_(t, name="z") is t
+    assert torch.equal(t, torch.arange(4.0))
+    with pytest.raises(ValueError, match="root rank 1 out of range"):
         broadcast(t, 1)
     model = torch.nn.Linear(3, 2)
     before = {k: v.clone() for k, v in model.state_dict().items()}
@@ -161,3 +175,13 @@ def _port_files():
 def test_port_imports_nothing_of_jax_or_horovod_tpu(path):
     bad = [m for m in _imports(path) if m.split(".")[0] in _FORBIDDEN]
     assert not bad, f"{path} imports {bad}"
+
+
+def test_import_walk_covers_the_engine_and_the_runner():
+    rel = {os.path.relpath(p, REPO) for p in _port_files()}
+    for path in ("horovod_tpu_torch/engine/build.py",
+                 "horovod_tpu_torch/runner/launch.py",
+                 "horovod_tpu_torch/runner/__main__.py",
+                 "horovod_tpu_torch/common/config.py",
+                 "horovod_tpu_torch/torch/mpi_ops.py"):
+        assert path in rel, path

@@ -532,3 +532,112 @@ def test_ring_attention_matches_blockwise(cuda_device, mode):
     elif mode == "rdma":
         want["ring_permute"] = 4 * 4 * 3
     assert delta == want
+
+
+# --- the staging route: CUDA tensors through pinned host memory -------------
+
+
+def _staging_rank():
+    """One rank of the staging tests on this card: each op on CUDA tensors
+    against the same op on their CPU copies (the engine's own route), on
+    the current and on a non-default stream, and a tensor freed right
+    after its async enqueue."""
+    import horovod_tpu_torch.torch as hvd
+
+    hvd.init(device="cuda:0")
+    r, n = hvd.rank(), hvd.size()
+    g = torch.Generator().manual_seed(r)
+    for dtype in (torch.float32, torch.bfloat16, torch.float16, torch.float64,
+                  torch.int32, torch.int64):
+        tag = str(dtype)[6:]
+        x = torch.randint(-8, 8, (37, 5), generator=g).to(dtype)
+        xc = x.cuda()
+        for avg in (False, True):
+            got = hvd.allreduce(xc, average=avg, name=f"ar.{tag}.{avg}")
+            want = hvd.allreduce(x, average=avg, name=f"ar.cpu.{tag}.{avg}")
+            assert got.is_cuda and torch.equal(got.cpu(), want), (tag, avg)
+        y = xc.clone()
+        assert hvd.allreduce_(y, average=False, name=f"ar_.{tag}") is y
+        assert torch.equal(y.cpu(), hvd.allreduce(x, average=False,
+                                                  name=f"ar_.cpu.{tag}"))
+        part = x[:r + 1]
+        assert torch.equal(
+            hvd.allgather(part.cuda(), name=f"ag.{tag}").cpu(),
+            hvd.allgather(part, name=f"ag.cpu.{tag}"))
+        assert torch.equal(
+            hvd.broadcast(xc, n - 1, name=f"bc.{tag}").cpu(),
+            hvd.broadcast(x, n - 1, name=f"bc.cpu.{tag}"))
+        z = xc.clone()
+        assert hvd.broadcast_(z, n - 1, name=f"bc_.{tag}") is z
+        assert torch.equal(z.cpu(), hvd.broadcast(x, n - 1,
+                                                  name=f"bc_.cpu.{tag}"))
+    total = float(n * (n + 1) // 2)
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        s = torch.full((1 << 16,), float(r + 1), device="cuda")
+        out = hvd.synchronize(hvd.allreduce_async(s, average=False,
+                                                  name="stream"))
+    side.synchronize()
+    assert torch.equal(out.cpu(), torch.full((1 << 16,), total))
+    t = torch.full((1 << 20,), float(r + 1), device="cuda")
+    h = hvd.allreduce_async(t, average=False, name="freed")
+    del t
+    junk = torch.full((1 << 20,), -7.0, device="cuda")  # may reuse t's block
+    assert torch.equal(hvd.synchronize(h).cpu(),
+                       torch.full((1 << 20,), total))
+    del junk
+    x = torch.ones(3, 2, device="cuda", requires_grad=True)
+    (hvd.allreduce(x, average=False, name="grad") * (r + 1)).sum().backward()
+    assert torch.equal(x.grad.cpu(), torch.full((3, 2), total))
+    hvd.shutdown()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("np_", [1, 2])
+def test_staging_route_matches_the_cpu_route(cuda_device, np_):
+    import functools
+    import os
+
+    from horovod_tpu_torch.runner import launch_fn
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
+    results = launch_fn(functools.partial(_staging_rank), np_, env=env,
+                        timeout=300)
+    for res in results:
+        assert res.returncode == 0, res.stderr[-3000:]
+
+
+@pytest.mark.cuda
+def test_size_1_cuda_collectives_make_no_host_copy(cuda_device,
+                                                   monkeypatch):
+    import horovod_tpu_torch.torch as hvd
+    from horovod_tpu_torch.torch import mpi_ops
+
+    for var in ("HVD_TPU_RANK", "HVD_TPU_SIZE", "HVD_TPU_COORD",
+                "HVD_TPU_DATA"):
+        monkeypatch.delenv(var, raising=False)
+    hvd.shutdown()
+    hvd.init(device="cuda:0")
+    try:
+        before = mpi_ops.pinned_allocs[0]
+        monkeypatch.setattr(mpi_ops, "_staged", None)  # never reached
+        x = torch.arange(10.0, device=cuda_device)
+        assert hvd.allreduce_(x, name="a") is x
+        out = hvd.allreduce(x, name="b")
+        assert out is not x and torch.equal(out, x)
+        assert torch.equal(hvd.allgather(x, name="c"), x)
+        assert torch.equal(hvd.broadcast(x, 0, name="d"), x)
+        model = torch.nn.Linear(4, 2).to(cuda_device)
+        opt = hvd.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=0.1),
+            named_parameters=model.named_parameters())
+        model(torch.ones(3, 4, device=cuda_device)).sum().backward()
+        grads = [p.grad.clone() for p in model.parameters()]
+        opt.synchronize()
+        for p, want in zip(model.parameters(), grads):
+            assert torch.equal(p.grad, want)
+        assert mpi_ops.pinned_allocs[0] == before
+    finally:
+        hvd.shutdown()
