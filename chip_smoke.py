@@ -41,14 +41,17 @@ Phases, one JSON line each:
    picks the split pair (K2's and K3's entries in the summary come from
    the first shape).
    Then ``head_dims``: K1, K2 and K3 at head dim 256 (bf16, 1040
-   batch-heads x seq 512), and K1 and B2 at head dims 16 and 80 on the
-   main path's shape (run zero-padded to 32 and 96), each held alone
-   against its plain version at the caller's head dim, the padded columns
-   exactly 0; ``flash_attention`` forward and backward at each with the
-   counters zeroed just before and read just after (K1 1, and K2 1 + K3
-   1 at 256, B2 1 at 16 and 80), its output and gradients against the
+   batch-heads x seq 512) and on their wide bodies (``flash_wide.cu``) at
+   288, 512 (64 batch-heads x seq 1024) and 1000 (32 x 1024, run padded
+   to 1024), and K1 and B2 at head dims 16 and 80 on the main path's
+   shape (run zero-padded to 32 and 96), each held alone against its
+   plain version at the caller's head dim, the padded columns exactly 0;
+   ``flash_attention`` forward and backward at each with the counters
+   zeroed just before and read just after (K1 1, and K2 1 + K3 1 at 256
+   and above, B2 1 at 16 and 80), its output and gradients against the
    plain blockwise path; times beside SDPA's fastest backend at the same
-   head dim and the bound of the caller's work.  The summary's d-256 rows
+   head dim (above 256 the math backend too) and the bound of the
+   caller's work.  The summary's rows of head dims 256, 288, 512 and 1000
    come from here.
 6. ``ring_kernels`` — K4 ``ring_flash_fwd``, K5 ``ring_flash_bwd``, K6
    ``ring_permute`` and K7 ``phase_closer`` on a ring of 4 members
@@ -108,13 +111,38 @@ Phases, one JSON line each:
    all 16 rows; the losses must agree within 3 x the spread of two
    size-1 runs, with a floor of 1e-3 relative (printed beside them).
 
+12. ``image_models`` — ResNet-50, VGG16, InceptionV3 (299) and MnistCNN
+   (``horovod_tpu_torch/models``) at full width and batch 2 in float32
+   with TF32 off: logits and every gradient on the card against the same
+   weights on the CPU, both against the CPU in float64 (norm-wise: the
+   card no further off than the CPU's float32, see the phase); then each
+   in bf16 on the card, loss and gradients finite.
+13. ``resnet`` — ``RESNET_HEADLINE`` (ResNet-50, batch 64, 224, bf16) and
+   ``RESNET101_HEADLINE`` through ``hvd.init()``, ``DistributedOptimizer``
+   and the image step (``torch/image_step.py``: SGD momentum 0.9, the
+   fused BN EMA): 3 warm-up and 10 timed steps, images/s from the median
+   host clock around ``step(...).item()``, peak memory, the loss finite
+   and falling on the fixed batch; one traced window of ResNet-50's step
+   summed by kernel class (``tools/torch_step_profile.py``'s
+   ``image_category``) with the card's idle share.
+14. ``resnet_dp`` — ResNet-50 data-parallel over 2 ranks on this card,
+   batch 64 per rank, BN statistics cross-replica (``axis_name``, averaged
+   through the engine inside the forward and their cotangent inside the
+   backward, 53 + 53 blocking allreduces a step): job images/s,
+   ``sync_sec``, the share of the step in the BN allreduces, engine cycles
+   per step; one digest of every parameter and buffer per rank, equal
+   bit for bit; the averaging check in float32: 3 steps of both ranks on
+   rows [32r, 32r + 32) of one batch of 64 against the size-1 step on all
+   64 rows, losses and running stats within train_dp's rule.
+
 The two ranks time-slice the one card (two CUDA contexts, no MPS), and
 NCCL cannot run two ranks on one device: the run shows the engine, the
 staging and their numbers, not NVLink or NCCL.  Any rank that exits
 non-zero, any mismatch and any timeout fails the run.
 
 Then the ``{"kernels": [...]}`` summary (K1-K7, B2, and K1-K3 at head
-dim 256; K1 and B2 with their launches per rank on ``train_dp``), the
+dims 256, 288, 512 and 1000; K1 and B2 with their launches per rank on
+``train_dp``), the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Any
 failure raises: the script exits non-zero and prints no result line.
 Tolerances (``horovod_tpu_torch/ops/kernel_check.py``, which gives the
@@ -133,6 +161,7 @@ O(seq/n) or NVLink transfer times.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import json
 import math
@@ -163,8 +192,12 @@ from horovod_tpu_torch.ops import rdma  # noqa: E402
 from horovod_tpu_torch.ops import ring_flash as RF  # noqa: E402
 from horovod_tpu_torch.parallel import RingMesh  # noqa: E402
 from horovod_tpu_torch.runner import run_command  # noqa: E402
+from horovod_tpu_torch.models import norm as norm_mod  # noqa: E402
+from horovod_tpu_torch.models.layers import Dense  # noqa: E402
+from horovod_tpu_torch.torch import image_step as IS  # noqa: E402
 from horovod_tpu_torch.torch.lm_step import (HEADLINE,  # noqa: E402
                                              RING_HEADLINE, build_lm_step)
+from tools.torch_step_profile import image_category, trace_steps  # noqa
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -189,6 +222,16 @@ RING = (4, 8, 1024, 64)  # one member's shard on the ring path (4 members)
 # (run zero-padded to 32 and 96) on the main path's shape.
 HEAD_DIM_WIDE = (1, 1040, 512, 256)
 HEAD_DIM_PADDED = ((16, 8, 1024, 16), (16, 8, 1024, 80))
+# Head dims above 256 (ROADMAP C.1): the wide bodies of K1, K2 and K3
+# (csrc/flash_wide.cu) at 288 and 512, and at 1000 (run padded to 1024).
+HEAD_DIM_WIDER = ((1, 64, 1024, 288), (1, 64, 1024, 512),
+                  (1, 32, 1024, 1000))
+WIDE_SOURCE = "horovod_tpu_torch/ops/csrc/flash_wide.cu"
+# The image phases: the models held card against CPU, and the ResNet
+# data-parallel phase's averaging check seed.
+IMAGE_MODELS = (("resnet50", 224), ("vgg16", 224), ("inception_v3", 299),
+                ("mnist", 28))
+RESNET_AVG_SEED = 11
 N_MEMBERS = 4
 # The data-parallel phases: ranks on this one card, the LM's gradient
 # bytes (58.7 M f32 parameters), the averaging check's seed.
@@ -248,14 +291,15 @@ def time_ms(fn, warmup=3, iters=15, host_ahead=True):
     return statistics.median(times)
 
 
-def sdpa_ms(make):
+def sdpa_ms(make, backends=("FLASH_ATTENTION", "EFFICIENT_ATTENTION",
+                             "CUDNN_ATTENTION")):
     """``({backend: ms or None}, fastest ms)`` of the callable ``make()``
-    returns, made and timed under each SDPA backend; None where the
-    backend refuses the shape."""
+    returns, made and timed under each SDPA backend of ``backends``; None
+    where the backend refuses the shape."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     times = {}
-    for name in ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION"):
+    for name in backends:
         try:
             with sdpa_kernel(getattr(SDPBackend, name)):
                 times[name] = time_ms(make())
@@ -278,12 +322,14 @@ def bound_ms(flops, nbytes, dtype):
 
 
 def _entry(name, ms, plain_ms, library_ms, flops, nbytes, dtype, err,
-           kernel=None, **extra):
+           kernel=None, source=None, **extra):
     """A row of the summary; ``kernel`` names the kernel where ``name``
-    is a row of its own (the d-256 rows)."""
+    is a row of its own (the rows of other head dims), ``source`` its
+    body's source where that is not the kernel's."""
     bms, by = bound_ms(flops, nbytes, dtype)
     kernel = kernel or name
-    return {"name": name, "route": "cuda", "source": SOURCES[kernel],
+    return {"name": name, "route": "cuda",
+            "source": source or SOURCES[kernel],
             "replaces": REPLACES[kernel], "launches": None,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": by, "library_ms": library_ms,
@@ -677,8 +723,13 @@ def _rel_errs(got, want):
 
 
 def sdpa_times(shape, dtype, causal, scale, seed):
-    """SDPA's forward and whole backward at ``shape`` under each backend:
-    ``(fwd by backend, fastest fwd, bwd by backend, fastest bwd)``."""
+    """SDPA's forward and whole backward at ``shape`` under each backend
+    (and the math backend above head dim 256, where the fused ones refuse
+    or may refuse the shape): ``(fwd by backend, fastest fwd, bwd by
+    backend, fastest bwd)``."""
+    backends = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION")
+    if shape[-1] > A.WIDE_HEAD_DIM:
+        backends += ("MATH",)
     g = torch.Generator(device="cuda").manual_seed(seed)
     qs, ks, vs = (torch.randn(shape, device="cuda", generator=g,
                               dtype=torch.float32).to(dtype)
@@ -686,13 +737,13 @@ def sdpa_times(shape, dtype, causal, scale, seed):
     dos = torch.randn(shape, device="cuda", generator=g).to(dtype)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     fwd, t_fwd = sdpa_ms(lambda: lambda: sdpa(qs, ks, vs, is_causal=causal,
-                                              scale=scale))
+                                              scale=scale), backends)
 
     def bwd():
         out = sdpa(qs, ks, vs, is_causal=causal, scale=scale)
         return lambda: torch.autograd.grad(out, (qs, ks, vs), dos,
                                            retain_graph=True)
-    bwd_by, t_bwd = sdpa_ms(bwd)
+    bwd_by, t_bwd = sdpa_ms(bwd, backends)
     return fwd, t_fwd, bwd_by, t_bwd
 
 
@@ -706,20 +757,22 @@ def attention_work(shape, dtype, causal):
 
 def phase_head_dims():
     """Head dims other than the main path's (ROADMAP C.1), bf16, causal.
-    K1, K2 and K3 at the wide head dim 256 on the split phase's shape, and
+    K1, K2 and K3 at the wide head dim 256 on the split phase's shape and
+    on their wide bodies at 288, 512 and 1000 (run padded to 1024), and
     K1 and B2 at head dims 16 and 80 (no body takes them: the inputs run
     zero-padded to 32 and 96) on the main path's shape, each held alone
     against its plain version at the caller's head dim; ``flash_attention``
     forward and backward at each, the counters zeroed just before and read
-    just after each (K1 1, and K2 1 + K3 1 at 256, B2 1 at 16 and 80), its
-    output and gradients against the plain blockwise path; then the
-    kernels (at 256) and ``flash_attention`` (at 16 and 80, padding
-    included) timed beside SDPA's fastest backend at the same head dim and
-    the bound of the caller's work.  Returns the d-256 rows of the
-    summary."""
+    just after each (K1 1, and K2 1 + K3 1 at 256 and above, B2 1 at 16
+    and 80), its output and gradients against the plain blockwise path;
+    then the kernels (at 256 and above) and ``flash_attention`` (at 16 and
+    80, padding included) timed beside SDPA's fastest backend at the same
+    head dim and the bound of the caller's work.  Returns the summary's
+    rows of 256 and above."""
     dtype, causal = torch.bfloat16, True
-    cases = [(HEAD_DIM_WIDE, "split")] + [(s, "combined")
-                                          for s in HEAD_DIM_PADDED]
+    cases = ([(HEAD_DIM_WIDE, "split")] + [(s, "split")
+                                           for s in HEAD_DIM_WIDER]
+             + [(s, "combined") for s in HEAD_DIM_PADDED])
     result, entries = {}, {}
     for shape, mode in cases:
         d = shape[-1]
@@ -747,15 +800,17 @@ def phase_head_dims():
             emit("head_dims", cases=result)
             fail(f"head dim {d}: {row}, want launches {want_launches}")
 
-        # Times: the kernels at 256; flash_attention itself at 16 and 80,
-        # where the padding is part of the cost.
+        # Times: the kernels at 256 and above; flash_attention itself at 16
+        # and 80, where the padding is part of the cost.
         pairs, tile, rowb = attention_work(shape, dtype, causal)
         scale = d ** -0.5
         lib_fwd, t_lib_fwd, lib_bwd, t_lib_bwd = sdpa_times(
             shape, dtype, causal, scale, 40 + d)
         fwd_bound = bound_ms(4 * d * pairs, 4 * tile + rowb, dtype)
         if mode == "split":
-            _, qr, k, v, do, p2, scale_r = kernel_inputs(shape, dtype, 50)
+            body = A.padded_head_dim(d)
+            _, qr, k, v, do, p2, scale_r = kernel_inputs(
+                shape[:3] + (body,), dtype, 50)
             o, lse = A.flash_fwd(qr, k, v, scale_r, causal)
             delta = A._delta(o, do)
             del o
@@ -765,7 +820,7 @@ def phase_head_dims():
             t_k3 = time_ms(lambda: A.flash_bwd_dq(*largs, p2, causal))
             t_plain_fwd = time_ms(lambda: A._blockwise_fwd_impl(
                 qr, k, v, causal, scale_r,
-                block_size=A.fwd_key_tile(dtype, d)), warmup=1, iters=3)
+                block_size=A.fwd_key_tile(dtype, body)), warmup=1, iters=3)
             t_plain_bwd = time_ms(lambda: kernel_check.plain_bwd_outputs(
                 qr, k, v, do, lse, delta, p2, scale_r, causal, "split"),
                 warmup=1, iters=3)
@@ -777,22 +832,28 @@ def phase_head_dims():
                                    ("flash_bwd_dkdv", ("dk", "dv")),
                                    ("flash_bwd_dq", ("dq",)))}
             bounds = split_bounds(shape, dtype, causal)
-            note = (f"head dim 256 at {list(shape)}; library_ms: SDPA's "
-                    "fastest backend (forward for K1, whole backward for "
-                    "K2 and K3)")
-            entries["flash_fwd_d256"] = _entry(
-                "flash_fwd_d256", t_k1, t_plain_fwd, t_lib_fwd,
+            wide = d > A.WIDE_HEAD_DIM
+            note = (f"head dim {d} at {list(shape)}"
+                    + (f" (the wide body, padded to {body})"
+                       if wide and body != d else
+                       " (the wide body)" if wide else "")
+                    + "; library_ms: SDPA's fastest backend (forward for "
+                    "K1, whole backward for K2 and K3); bound of the "
+                    "caller's head dim's work")
+            source = WIDE_SOURCE if wide else None
+            entries[f"flash_fwd_d{d}"] = _entry(
+                f"flash_fwd_d{d}", t_k1, t_plain_fwd, t_lib_fwd,
                 4 * d * pairs, 4 * tile + rowb, dtype, err["flash_fwd"],
-                kernel="flash_fwd", library_by_backend=lib_fwd,
-                shape=list(shape), note=note)
+                kernel="flash_fwd", source=source,
+                library_by_backend=lib_fwd, shape=list(shape), note=note)
             for name, t in (("flash_bwd_dkdv", t_k2), ("flash_bwd_dq", t_k3)):
-                entries[f"{name}_d256"] = _entry(
-                    f"{name}_d256", t, t_plain_bwd, t_lib_bwd, *bounds[name],
-                    dtype, err[name], kernel=name, library_by_backend=lib_bwd,
-                    shape=list(shape),
+                entries[f"{name}_d{d}"] = _entry(
+                    f"{name}_d{d}", t, t_plain_bwd, t_lib_bwd, *bounds[name],
+                    dtype, err[name], kernel=name, source=source,
+                    library_by_backend=lib_bwd, shape=list(shape),
                     note=note + "; plain_ms: the whole plain split backward")
             for name in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"):
-                entries[f"{name}_d256"]["launches"] = launched[name]
+                entries[f"{name}_d{d}"]["launches"] = launched[name]
             del largs, qr, k, v, do, lse, delta
         else:
             g = torch.Generator(device="cuda").manual_seed(60 + d)
@@ -826,8 +887,9 @@ def phase_head_dims():
          note="times: flash_attention (fwd_ms, bwd_ms: the padding, the "
               "kernels and the slicing) at head dims 16 and 80, K1 and B2 "
               "alone on the padded inputs beside them, the kernels alone at "
-              "256; bounds of the caller's head dim's work; sdpa: each "
-              "backend at the same head dim")
+              "256 and above (on inputs padded to the body's head dim); "
+              "bounds of the caller's head dim's work; sdpa: each backend "
+              "at the same head dim (and the math backend above 256)")
     return entries
 
 
@@ -1543,6 +1605,293 @@ def phase_train_dp():
     return res[0]["launches"]
 
 
+# --- the image models (ROADMAP A.5) ---
+
+
+def _image_grads(name, side, classes, images, labels, dtype, device):
+    """``{"logits": ..., parameter name: gradient}`` in float64 on the CPU
+    of one training-mode forward and backward of the image model ``name``
+    (weights from seed 5, flax ``nn.BatchNorm``'s mode, dropout off) in
+    ``dtype`` on ``device``; in float64 the head too computes in float64
+    (the models fix it to float32)."""
+    net = IS.build_image_model(name, num_classes=classes, image=side,
+                               dtype=dtype, seed=5, device=device,
+                               fused_ema=False)
+    if dtype == torch.float64:
+        net.double()
+        for m in net.modules():
+            if isinstance(m, Dense):
+                m.dtype = torch.float64
+    net.train()
+    for m in net.modules():  # the devices draw other masks
+        if isinstance(m, torch.nn.Dropout):
+            m.eval()
+    logits = net(images.to(device, dtype))
+    torch.nn.functional.cross_entropy(logits, labels.to(device)).backward()
+    return {"logits": logits.detach().double().cpu(),
+            **{n: p.grad.double().cpu() for n, p in net.named_parameters()}}
+
+
+def _normwise(got, want):
+    return ((got - want).norm() / want.norm().clamp_min(1e-300)).item()
+
+
+def phase_image_models():
+    """ResNet-50, VGG16, InceptionV3 (299) and MnistCNN at full width and
+    batch 2, the same weights and standard-normal images (centred, so BN's
+    E[x^2] - E[x]^2 does not cancel) on the card and on the CPU:
+
+    * float64 on both: the logits and every gradient, norm-wise
+      ||card - cpu|| / ||cpu|| <= 1e-6 each (summation order in float64):
+      the card computes the function the CPU does;
+    * float32 with TF32 off, on the card and on the CPU, against the CPU
+      in float64: the logits norm-wise no further off than 4 x the CPU's
+      float32 (floor 1e-6).  The gradients are reported, not held: in
+      float32 these nets at initialisation are too ill-conditioned for a
+      bound.  Where two values of a max-pool window lie within rounding
+      of each other the devices pick different ones and move that
+      gradient entry to a neighbour, gradients whose terms
+      cancel (a bias's, a BN scale's) are then off by a large share of
+      their own small size, and InceptionV3's whole gradient is 2.4% off
+      float64 on the CPU and 70% on the card, while in float64 the two
+      devices agree to 5e-13;
+    * bf16 on the card: loss and gradients finite."""
+    rows = {}
+    for name, side in IMAGE_MODELS:
+        classes = 10 if name == "mnist" else 1000
+        ch = 1 if name == "mnist" else 3
+        rng = np.random.RandomState(3)
+        images = torch.from_numpy(rng.standard_normal(
+            (2, side, side, ch)).astype(np.float32)).permute(0, 3, 1, 2)
+        labels = torch.from_numpy(rng.randint(0, classes, 2))
+        run = functools.partial(_image_grads, name, side, classes, images,
+                                labels)
+        cpu64 = run(torch.float64, "cpu")
+        card64 = run(torch.float64, "cuda")
+        err64 = {n: _normwise(card64[n], w) for n, w in cpu64.items()}
+        del card64
+        cpu32, card32 = run(torch.float32, "cpu"), run(torch.float32, "cuda")
+        torch.cuda.empty_cache()
+        names = [n for n in cpu64 if n != "logits"]
+        flat = {k: torch.cat([d[n].flatten() for n in names])
+                for k, d in (("cpu64", cpu64), ("cpu32", cpu32),
+                             ("card", card32))}
+        err32 = {"logits": (_normwise(card32["logits"], cpu64["logits"]),
+                            _normwise(cpu32["logits"], cpu64["logits"])),
+                 "grads": (_normwise(flat["card"], flat["cpu64"]),
+                           _normwise(flat["cpu32"], flat["cpu64"]))}
+        per_tensor = max(names, key=lambda n: _normwise(card32[n], cpu64[n]))
+        del cpu64, cpu32, card32, flat
+        # bf16 on the card: the models' working type.
+        net = IS.build_image_model(name, num_classes=classes, image=side,
+                                   dtype=torch.bfloat16, seed=5,
+                                   device="cuda")
+        loss16 = torch.nn.functional.cross_entropy(
+            net(images.cuda()).float(), labels.cuda())
+        loss16.backward()
+        grads_finite = all(bool(torch.isfinite(p.grad).all())
+                           for p in net.parameters())
+        del net
+        torch.cuda.empty_cache()
+        worst64 = max(err64, key=err64.get)
+        ok32 = err32["logits"][0] <= max(4 * err32["logits"][1], 1e-6)
+        rows[name] = {"image": side, "f64_worst": worst64,
+                      "f64_worst_err": err64[worst64],
+                      "f32_err_card_cpu32": err32,
+                      "f32_worst_tensor": per_tensor,
+                      "outputs_held": len(err64),
+                      "bf16_loss": loss16.item(),
+                      "bf16_grads_finite": grads_finite}
+        if (err64[worst64] > 1e-6 or not ok32
+                or not math.isfinite(loss16.item()) or not grads_finite):
+            emit("image_models", models=rows)
+            fail(f"image model {name} on the card: {rows[name]}")
+    emit("image_models", models=rows, nvidia_smi=smi_line(),
+         rule="float64: each output norm-wise <= 1e-6; float32 against "
+              "float64: logits norm-wise <= 4 x the CPU's float32 (floor "
+              "1e-6); float32 gradients reported (err32 grads: card, cpu32, "
+              "all gradients as one vector, against float64)")
+
+
+def _image_step_run(headline, warmup=3, timed=10, profile=False):
+    """``headline`` through ``hvd.init()``, ``DistributedOptimizer`` and
+    the image step: the images/s of the median host clock around
+    ``step(data).item()``, peak memory, losses; with ``profile`` one
+    traced window of 3 steps summed by kernel class."""
+    hvd.init()
+    torch.cuda.set_device(hvd.local_rank())
+    torch.cuda.reset_peak_memory_stats()
+    # What earlier phases left allocated is in the peak; the step's own
+    # peak is the difference.
+    base = torch.cuda.memory_allocated()
+    _, step, data = IS.build_image_step(**headline)
+    losses, step_ms = [], []
+    for i in range(warmup + timed):
+        t0 = time.perf_counter()
+        losses.append(step(data).item())
+        if i >= warmup:
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    med = statistics.median(step_ms)
+    res = {"model": headline["model"], "batch": headline["batch"],
+           "image": headline["image"], "images_per_s":
+           headline["batch"] / (med / 1e3), "median_step_ms": med,
+           "step_ms": step_ms,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "allocated_before": base,
+           "step_peak_bytes": torch.cuda.max_memory_allocated() - base,
+           "losses": losses}
+    if profile:
+        prof = trace_steps(step, data, 3, os.path.join(
+            OUT_DIR, f"resnet_trace_{headline['model']}.json"),
+            image_category, keep_trace=False)
+        with open(os.path.join(OUT_DIR, "resnet_top_kernels.txt"), "w") as f:
+            for kname, ms in prof.pop("top_kernels"):
+                f.write(f"{ms:10.4f} ms/step  {kname}\n")
+        res["profile"] = prof
+    hvd.shutdown()
+    return res
+
+
+def phase_resnet():
+    """RESNET_HEADLINE (ResNet-50) and RESNET101_HEADLINE (bench.py's
+    default) through the image step: 3 warm-up and 10 timed steps, images
+    per second, peak memory, the loss finite and falling on the fixed
+    batch; one traced window of ResNet-50's step by kernel class."""
+    os.makedirs(OUT_DIR, exist_ok=True)
+    runs = [_image_step_run(IS.RESNET_HEADLINE, profile=True),
+            _image_step_run(IS.RESNET101_HEADLINE)]
+    torch.cuda.empty_cache()
+    emit("resnet", runs=runs, nvidia_smi=smi_line())
+    for r in runs:
+        losses = r["losses"]
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"resnet {r['model']}: non-finite loss {losses}")
+        if abs(losses[0] - math.log(1000)) > 1.5 or losses[-1] >= losses[0]:
+            fail(f"resnet {r['model']}: implausible losses {losses}")
+
+
+def rank_resnet_dp():
+    """One rank of ``resnet_dp``: ResNet-50 with cross-replica BN
+    (``axis_name="hvd"``, the module EMA of the example's recipe) at batch
+    64 per rank and 224 x 224."""
+    hvdt.init(device="cuda:0")
+    r, n = hvdt.rank(), hvdt.size()
+    headline = dict(IS.RESNET_HEADLINE, axis_name="hvd", fused_ema=False)
+    model, step, data = IS.build_image_step(**headline)
+    norm_mod.take_sync_sec(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    warmup, timed = 2, 5
+    losses, step_ms, sync_ms, bn_ms, bn_calls, cycles = [], [], [], [], [], []
+    for i in range(warmup + timed):
+        t0 = time.perf_counter()
+        loss = step(data).item()
+        dt = (time.perf_counter() - t0) * 1e3
+        bn = norm_mod.take_sync_sec(model)
+        losses.append(loss)
+        cycles.append(len(set(step.optimizer.last_ticks)))
+        if i >= warmup:
+            step_ms.append(dt)
+            sync_ms.append(step.train_step.sync_sec[-1] * 1e3)
+            bn_ms.append((bn["fwd"] + bn["bwd"]) * 1e3)
+            bn_calls.append(bn["calls"])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    digest = params_digest(model)  # parameters and buffers
+    del model, step, data
+    torch.cuda.empty_cache()
+    avg = resnet_averaging_run(slice(r * 32, r * 32 + 32))
+    med = statistics.median(step_ms)
+    rank_result(rank=r, size=n, losses=losses, step_ms=step_ms,
+                median_step_ms=med, sync_ms=sync_ms,
+                median_sync_ms=statistics.median(sync_ms),
+                bn_allreduce_ms=bn_ms,
+                bn_allreduce_share=statistics.median(bn_ms) / med,
+                bn_allreduces_per_step=bn_calls,
+                engine_cycles_per_step=cycles, max_memory_allocated=peak,
+                digest=digest, averaging=avg)
+    hvdt.shutdown()
+
+
+def resnet_averaging_run(rows):
+    """The averaging check's run on this process: 3 steps of ResNet-50
+    with cross-replica BN from ``RESNET_AVG_SEED`` on ``rows`` of one batch
+    of 64, in float32 with TF32 off (in bf16 cuDNN's convolutions round
+    each activation to 8 bits in an order that depends on the batch size,
+    so the half-batch and the whole-batch statistics differ by bf16's
+    rounding, ~4e-3, whatever the averaging does); the losses and every
+    running stat after the last step."""
+    headline = dict(IS.RESNET_HEADLINE, axis_name="hvd", fused_ema=False,
+                    seed=RESNET_AVG_SEED, rows=rows, dtype=torch.float32)
+    model, step, data = IS.build_image_step(**headline)
+    losses = [step(data).item() for _ in range(3)]
+    stats = {n: b.detach().cpu() for n, b in model.named_buffers()}
+    del model, step, data
+    torch.cuda.empty_cache()
+    return {"losses": losses,
+            "stats": {n: t.tolist() for n, t in stats.items()}}
+
+
+def phase_resnet_dp():
+    """ResNet-50 data-parallel over 2 ranks of the port's runner on this
+    card, BN statistics averaged across the ranks inside the forward
+    (``axis_name``), the example's recipe: job images/s, ``sync_sec``,
+    the share of the step in the BN allreduces, engine cycles per step;
+    every parameter and buffer bit-identical across the ranks; the
+    averaging check: 3 steps of both ranks on rows [32r, 32r + 32) of one
+    batch of 64 against the size-1 step on all 64 rows, losses and running
+    stats within 3 x the spread of two size-1 runs (floor 1e-3 of the
+    loss, 1e-3 of each stat's largest element)."""
+    torch.cuda.empty_cache()
+    res = run_ranks("resnet_dp", timeout=600)
+    hvd.init()
+    refs = [resnet_averaging_run(slice(None)) for _ in range(2)]
+    hvd.shutdown()
+    batch = IS.RESNET_HEADLINE["batch"]
+    step_ms = max(x["median_step_ms"] for x in res)
+    dp = res[0]["averaging"]
+    loss_tol = [max(3 * abs(a - b), 1e-3 * abs(a))
+                for a, b in zip(refs[0]["losses"], refs[1]["losses"])]
+    loss_off = [abs(a - b) for a, b in zip(dp["losses"], refs[0]["losses"])]
+    stat_off, stat_tol = {}, {}
+    for name, want in refs[0]["stats"].items():
+        w, w2 = torch.tensor(want), torch.tensor(refs[1]["stats"][name])
+        got = torch.tensor(dp["stats"][name])
+        stat_off[name] = (got - w).abs().max().item()
+        stat_tol[name] = max(3 * (w2 - w).abs().max().item(),
+                             1e-3 * w.abs().max().item())
+    bad_stats = [n for n in stat_off if stat_off[n] > stat_tol[n]]
+    emit("resnet_dp", ranks=DP_RANKS, batch_per_rank=batch,
+         nvidia_smi=smi_line(),
+         images_per_s=DP_RANKS * batch / (step_ms / 1e3),
+         median_step_ms=step_ms,
+         median_sync_ms=[x["median_sync_ms"] for x in res],
+         bn_allreduce_ms=[x["bn_allreduce_ms"] for x in res],
+         bn_allreduce_share=[x["bn_allreduce_share"] for x in res],
+         bn_allreduces_per_step=res[0]["bn_allreduces_per_step"],
+         engine_cycles_per_step=[x["engine_cycles_per_step"] for x in res],
+         max_memory_allocated=[x["max_memory_allocated"] for x in res],
+         losses=res[0]["losses"], digests=[x["digest"] for x in res],
+         averaging={"dp": dp["losses"], "size1": [r["losses"] for r in refs],
+                    "abs_err": loss_off, "tolerance": loss_tol,
+                    "stats_checked": len(stat_off),
+                    "stats_worst_over_tolerance": max(
+                        stat_off[n] / max(stat_tol[n], 1e-30)
+                        for n in stat_off),
+                    "stats_failing": bad_stats[:5]})
+    if len({x["digest"] for x in res}) != 1:
+        fail("resnet_dp: the ranks' parameters or buffers differ")
+    if any(x["losses"] != res[0]["losses"] for x in res):
+        fail("resnet_dp: the ranks' mean losses differ")
+    losses = res[0]["losses"]
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        fail(f"resnet_dp: implausible losses {losses}")
+    if any(o > t for o, t in zip(loss_off, loss_tol)) or bad_stats:
+        fail(f"resnet_dp: averaged run off the size-1 run: losses "
+             f"{loss_off} (tolerance {loss_tol}), stats {bad_stats[:5]}")
+
+
 def smi_line():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1600,6 +1949,9 @@ def main():
     launched.update(phase_ring_train())
     phase_collectives()
     dp_launched = phase_train_dp()
+    phase_image_models()
+    phase_resnet()
+    phase_resnet_dp()
     entries.update(ring_entries)
     for name_, e in entries.items():
         # K2 and K3 run on the split path, every other kernel on the main
@@ -1608,7 +1960,8 @@ def main():
                          else launched)[name_]
     for name_ in ("flash_fwd", "flash_bwd"):
         entries[name_]["launches_train_dp_per_rank"] = dp_launched[name_]
-    # The d-256 rows carry the launches of the head_dims phase's path.
+    # The rows of head dims 256 and above carry the launches of the
+    # head_dims phase's path.
     entries.update(wide_entries)
     for name_, e in entries.items():
         if not e["launches"]:
@@ -1620,7 +1973,8 @@ def main():
         "count": torch.cuda.device_count()}}), flush=True)
 
 
-RANK_PHASES = {"collectives": rank_collectives, "train_dp": rank_train_dp}
+RANK_PHASES = {"collectives": rank_collectives, "train_dp": rank_train_dp,
+               "resnet_dp": rank_resnet_dp}
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank"]:

@@ -25,13 +25,13 @@ angles, and a head matmul that accumulates in float32 before the cast to
 
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from horovod_tpu_torch.models.layers import lecun_normal
 from horovod_tpu_torch.ops import (blockwise_attention, flash_attention,
                                    ring_attention)
 
@@ -100,16 +100,6 @@ class RMSNorm(nn.Module):
             self.dtype)
 
 
-def _trunc_normal(shape, fan_in, generator, device):
-    """flax lecun_normal / variance_scaling(1, fan_in, truncated_normal):
-    a normal truncated at two standard deviations, rescaled so the
-    variance is 1 / fan_in."""
-    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-    t = torch.empty(shape)
-    nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return (t * std).to(device)
-
-
 class Attention(nn.Module):
     def __init__(self, d_model: int, n_heads: int, dtype=torch.bfloat16,
                  use_flash: bool = True, generator=None, device=None,
@@ -118,9 +108,9 @@ class Attention(nn.Module):
         head_dim = d_model // n_heads
         self.n_heads, self.dtype, self.use_flash = n_heads, dtype, use_flash
         self.seq_axis, self.ring_impl = seq_axis, ring_impl
-        self.qkv_kernel = nn.Parameter(_trunc_normal(
+        self.qkv_kernel = nn.Parameter(lecun_normal(
             (d_model, 3, n_heads, head_dim), d_model, generator, device))
-        self.o_kernel = nn.Parameter(_trunc_normal(
+        self.o_kernel = nn.Parameter(lecun_normal(
             (n_heads, head_dim, d_model), d_model, generator, device))
 
     def forward(self, x):
@@ -167,9 +157,9 @@ class Block(nn.Module):
         self.up = nn.Linear(d_model, d_ff, bias=False, device=device)
         self.down = nn.Linear(d_ff, d_model, bias=False, device=device)
         with torch.no_grad():
-            self.up.weight.copy_(_trunc_normal(
+            self.up.weight.copy_(lecun_normal(
                 (d_model, d_ff), d_model, generator, device).T)
-            self.down.weight.copy_(_trunc_normal(
+            self.down.weight.copy_(lecun_normal(
                 (d_ff, d_model), d_ff, generator, device).T)
 
     def _mlp(self, x, w_up, w_down):
@@ -224,7 +214,7 @@ class TransformerLM(nn.Module):
                   device, seq_axis, ring_impl)
             for _ in range(n_layers))
         self.final_norm = RMSNorm(d_model, dtype, device=device)
-        self.lm_head_kernel = nn.Parameter(_trunc_normal(
+        self.lm_head_kernel = nn.Parameter(lecun_normal(
             (d_model, vocab_size), d_model, generator, device))
 
     def _head(self, x, w):

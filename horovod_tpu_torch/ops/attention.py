@@ -23,8 +23,10 @@ Counterpart of ``horovod_tpu/ops/attention.py``.  Layout convention:
 
   A head dim no body takes runs zero-padded to the next body's
   (:func:`padded_head_dim`: 32, 64, 96, 128, and 256 for K1, K2, K3);
-  above 256, and for any other CUDA input the kernels cannot take, it
-  raises; nothing falls back.
+  above 256 K1, K2 and K3 run their wide bodies (``csrc/flash_wide.cu``,
+  O's and the gradients' columns split across blocks) on the head dim
+  zero-padded to a multiple of 32.  Any other CUDA input the kernels
+  cannot take raises; nothing falls back.
 
 The plain versions multiply in float32 on operands rounded to the storage
 dtype — the reference's ``preferred_element_type=float32`` — so f32 matmul
@@ -57,6 +59,11 @@ HEAD_DIMS = (32, 64, 96, 128)
 WIDE_HEAD_DIM = 256
 # Head dims of the bodies of K1, K2 and K3.
 _SPLIT_HEAD_DIMS = HEAD_DIMS + (WIDE_HEAD_DIM,)
+# Above 256, K1, K2 and K3 run their wide bodies (csrc/flash_wide.cu) on
+# any head dim that is a multiple of their head-dim chunk, DC; their key
+# tile, TK, is 64 keys in every dtype and both directions.
+WIDE_CHUNK = 32
+_WIDE_KEY_TILE = 64
 # Key tile of each forward body per head dim, as in the CUDA sources: the
 # 16-bit wgmma body (csrc/flash_fwd_sm90.cuh, key_tile) and the f32 SIMT
 # body (csrc/flash_common.cuh, f32_tile).  The online softmax advances its
@@ -80,22 +87,35 @@ _BWD_KEY_TILE[WIDE_HEAD_DIM] = {"split": {"16-bit": 64, "f32": 32}}
 def padded_head_dim(d: int) -> int:
     """The head dim of the kernel body that computes attention at head dim
     ``d``: ``d`` itself if a body takes it, else the next one up (16 -> 32,
-    80 -> 96, 200 -> 256).  Zero columns add nothing to q k^T, so the
-    callers zero-pad q, k, v and dO to it and slice the padded columns of
-    the outputs off.  Above 256 raises: the reference documents its split
-    kernels to 256, and no configuration of the repo goes beyond."""
+    80 -> 96, 200 -> 256; above 256, the next multiple of ``WIDE_CHUNK``,
+    300 -> 320, for the wide bodies).  Zero columns add nothing to q k^T,
+    so the callers zero-pad q, k, v and dO to it and slice the padded
+    columns of the outputs off.  Below 1 raises."""
+    if d > WIDE_HEAD_DIM:
+        return -(-d // WIDE_CHUNK) * WIDE_CHUNK
     for body in _SPLIT_HEAD_DIMS:
         if 1 <= d <= body:
             return body
-    raise ValueError(f"head_dim {d} unsupported: the kernels take 1 to "
-                     f"{WIDE_HEAD_DIM}")
+    raise ValueError(f"head_dim {d} unsupported: the kernels take 1 and "
+                     "above")
+
+
+def _key_tiles(d: int) -> dict:
+    """``{"fwd": ..., "combined": ..., "split": ...}`` key tiles by dtype
+    class of the bodies that run head dim ``d`` (padded); the wide bodies
+    have no combined mode."""
+    body = padded_head_dim(d)
+    if body > WIDE_HEAD_DIM:
+        tile = {"16-bit": _WIDE_KEY_TILE, "f32": _WIDE_KEY_TILE}
+        return {"fwd": tile, "split": tile}
+    return {"fwd": _FWD_KEY_TILE[body], **_BWD_KEY_TILE[body]}
 
 
 def fwd_key_tile(dtype, d: int) -> int:
     """Key tile of the forward body (K1 and K4) that takes ``dtype`` at
     head dim ``d``, padded as the callers pad it (:func:`padded_head_dim`)."""
-    return _FWD_KEY_TILE[padded_head_dim(d)][
-        "f32" if dtype == torch.float32 else "16-bit"]
+    return _key_tiles(d)["fwd"]["f32" if dtype == torch.float32
+                                 else "16-bit"]
 
 
 def bwd_key_tile(mode: str, dtype, d: int) -> int:
@@ -106,13 +126,14 @@ def bwd_key_tile(mode: str, dtype, d: int) -> int:
     (csrc/flash_bwd_sm90.cuh, sm90::BWD_BN) and, for the split pair, K3's
     key tile, the one its dq sums over (csrc/flash_dq_sm90.cuh,
     ``dq_key_tile``); 64 for the f32 SIMT bodies (csrc/flash_common.cuh,
-    f32_tile) of both modes, 32 at the wide head dim.  A plain side that
-    holds a kernel walks the keys in the kernel's key tiles, so dq sums in
-    the same blocks.  The combined mode stops at head dim 128, as
-    :func:`bwd_mode` does."""
+    f32_tile) of both modes, 32 at head dim 256; 64 for the wide bodies
+    above 256 (csrc/flash_wide.cu, TK).  A plain side that holds a kernel
+    walks the keys in the kernel's key tiles, so dq sums in the same
+    blocks.  The combined mode stops at head dim 128, as :func:`bwd_mode`
+    does."""
     if mode not in ("combined", "split"):
         raise ValueError(f"unknown backward mode {mode!r}")
-    tiles = _BWD_KEY_TILE[padded_head_dim(d)]
+    tiles = _key_tiles(d)
     if mode not in tiles:
         raise ValueError(f"head_dim {d}: no combined backward body above "
                          f"{HEAD_DIMS[-1]}")
@@ -354,6 +375,8 @@ _ARGTYPES = {
     "hvdt_flash_bwd_dq": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                           _F, _F, _I, _P],
 }
+for _name in ("hvdt_flash_fwd", "hvdt_flash_bwd_dkdv", "hvdt_flash_bwd_dq"):
+    _ARGTYPES[_name + "_wide"] = _ARGTYPES[_name]
 
 
 def _kernel_fn(stem: str, symbol: str):
@@ -366,9 +389,10 @@ def _kernel_fn(stem: str, symbol: str):
     return fn
 
 
-def _check_cuda(name, tensors, stats=(), head_dims=HEAD_DIMS):
+def _check_cuda(name, tensors, stats=(), head_dims=HEAD_DIMS, wide=False):
     """Refuse what the kernels do not take: raise, never fall back.
-    ``head_dims``: the head dims the kernel has a body for."""
+    ``head_dims``: the head dims the kernel has a body for; ``wide``: it
+    also has a wide body (every multiple of ``WIDE_CHUNK`` above 256)."""
     q = tensors[0]
     if q.dim() != 3:
         raise ValueError(f"{name}: expected (bh, seq, head_dim) tensors, got "
@@ -377,8 +401,11 @@ def _check_cuda(name, tensors, stats=(), head_dims=HEAD_DIMS):
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"{name}: dtype {q.dtype} unsupported "
                         "(float32, float16, bfloat16)")
-    if d not in head_dims:
-        raise ValueError(f"{name}: head_dim {d} unsupported {head_dims}")
+    if d not in head_dims and not (wide and d > WIDE_HEAD_DIM
+                                   and d % WIDE_CHUNK == 0):
+        raise ValueError(f"{name}: head_dim {d} unsupported {head_dims}"
+                         + (f" or multiples of {WIDE_CHUNK} above "
+                            f"{WIDE_HEAD_DIM}" if wide else ""))
     for t in tensors:
         if t.device != q.device or t.dtype != q.dtype:
             raise ValueError(f"{name}: all operands must share q's device "
@@ -397,6 +424,14 @@ def _check_cuda(name, tensors, stats=(), head_dims=HEAD_DIMS):
                              "16-byte aligned")
 
 
+def _split_body(stem: str, symbol: str, d: int):
+    """K1's, K2's or K3's C function for head dim ``d``: the wide body's
+    (csrc/flash_wide.cu) above 256."""
+    if d > WIDE_HEAD_DIM:
+        return _kernel_fn("flash_wide", symbol + "_wide")
+    return _kernel_fn(stem, symbol)
+
+
 def _launch(fn, *args):
     rc = fn(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
@@ -410,14 +445,15 @@ def flash_fwd(qr, k, v, scale_r: float, causal: bool):
     the input dtype, lse float32 ``(bh, sq)``."""
     if qr.device.type == "cpu":
         return _blockwise_fwd_impl(qr, k, v, causal, scale_r)
-    _check_cuda("flash_fwd", (qr, k, v), head_dims=_SPLIT_HEAD_DIMS)
+    _check_cuda("flash_fwd", (qr, k, v), head_dims=_SPLIT_HEAD_DIMS,
+                wide=True)
     if k.shape != v.shape:
         raise ValueError("flash_fwd: k and v shapes differ")
     bh, sq, d = qr.shape
     o = torch.empty_like(qr)
     lse = torch.empty((bh, sq), dtype=torch.float32, device=qr.device)
     with torch.cuda.device(qr.device):
-        _launch(_kernel_fn("flash_fwd", "hvdt_flash_fwd"),
+        _launch(_split_body("flash_fwd", "hvdt_flash_fwd", d),
                 _DTYPE_CODE[qr.dtype], d, qr.data_ptr(), k.data_ptr(),
                 v.data_ptr(), o.data_ptr(), lse.data_ptr(), bh, sq,
                 k.shape[1], float(scale_r), int(causal))
@@ -458,12 +494,12 @@ def flash_bwd_dkdv(qr, k, v, do, lse, delta, scale_r: float, causal: bool):
         return _attention_bwd_impl(qr, k, v, lse, delta, do, causal,
                                    scale_r)[1:]
     _check_cuda("flash_bwd_dkdv", (qr, k, v, do), (lse, delta),
-                _SPLIT_HEAD_DIMS)
+                _SPLIT_HEAD_DIMS, wide=True)
     bh, sq, d = qr.shape
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     with torch.cuda.device(qr.device):
-        _launch(_kernel_fn("flash_bwd_split", "hvdt_flash_bwd_dkdv"),
+        _launch(_split_body("flash_bwd_split", "hvdt_flash_bwd_dkdv", d),
                 _DTYPE_CODE[qr.dtype], d, qr.data_ptr(), k.data_ptr(),
                 v.data_ptr(), do.data_ptr(), lse.data_ptr(),
                 delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, sq,
@@ -481,11 +517,11 @@ def flash_bwd_dq(qr, k, v, do, lse, delta, scale_r: float, p2: float,
         return _attention_bwd_impl(qr, k, v, lse, delta, do, causal,
                                    scale_r, dq_scale=p2)[0]
     _check_cuda("flash_bwd_dq", (qr, k, v, do), (lse, delta),
-                _SPLIT_HEAD_DIMS)
+                _SPLIT_HEAD_DIMS, wide=True)
     bh, sq, d = qr.shape
     dq = torch.empty_like(qr)
     with torch.cuda.device(qr.device):
-        _launch(_kernel_fn("flash_bwd_split", "hvdt_flash_bwd_dq"),
+        _launch(_split_body("flash_bwd_split", "hvdt_flash_bwd_dq", d),
                 _DTYPE_CODE[qr.dtype], d, qr.data_ptr(), k.data_ptr(),
                 v.data_ptr(), do.data_ptr(), lse.data_ptr(),
                 delta.data_ptr(), dq.data_ptr(), bh, sq, k.shape[1],
@@ -565,17 +601,19 @@ def flash_attention(q, k, v, causal: bool = False,
     backward in the reference's mode, :func:`bwd_mode`: B2 where it picks
     the combined kernel, as at every sequence up to 2048 with at most 1024
     batch-heads and head_dim up to 128, K2 + K3 where it picks the split
-    pair, as at every head_dim above 128) for head_dim 1 to 256 and
+    pair, as at every head_dim above 128) for any head_dim and
     float32/float16/bfloat16, at any sequence length; the bodies take
-    head_dim 32/64/96/128 (and 256: K1, K2, K3), and any other head_dim
-    runs zero-padded to the next (:func:`padded_head_dim`).  Other inputs
-    raise, head_dim above 256 among them.  On a CPU tensor it is the
+    head_dim 32/64/96/128 (and 256: K1, K2, K3; above 256 K1, K2 and K3's
+    wide bodies take every multiple of 32), and any other head_dim runs
+    zero-padded to the next (:func:`padded_head_dim`).  Other inputs
+    raise.  On a CPU tensor it is the
     mathematically identical :func:`blockwise_attention`.  ``block_q`` and
     ``block_k`` are accepted for API parity with the JAX package and
     ignored: the kernels fix their own tiles (the forward 128 query rows
     by 128 keys in 16 bits, 64 keys above head_dim 64, and 64 by 64 in
     float32, :func:`fwd_key_tile`; the backward :func:`bwd_key_tile`; 64
-    query rows and 32 x 32 f32 tiles at head_dim 256).
+    query rows and 32 x 32 f32 tiles at head_dim 256; 64 x 64 tiles and
+    128 output columns per block above 256).
     """
     del block_q, block_k
     if layout not in ("bhsd", "bshd"):

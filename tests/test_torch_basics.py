@@ -144,8 +144,8 @@ def test_build_without_nvcc_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build._nvcc()
     assert [os.path.basename(s) for s in _build.sources()] == [
-        "flash_bwd.cu", "flash_bwd_split.cu", "flash_fwd.cu", "ring_flash.cu",
-        "ring_permute.cu"]
+        "flash_bwd.cu", "flash_bwd_split.cu", "flash_fwd.cu", "flash_wide.cu",
+        "ring_flash.cu", "ring_permute.cu"]
 
 
 _FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "horovod_tpu")
@@ -164,6 +164,7 @@ def _imports(path):
 def _port_files():
     files = [os.path.join(REPO, "chip_smoke.py")]
     files += glob.glob(os.path.join(REPO, "tools", "torch_*.py"))
+    files += glob.glob(os.path.join(REPO, "examples", "hvdt_*.py"))
     for root, dirs, names in os.walk(os.path.join(REPO, "horovod_tpu_torch")):
         dirs[:] = [d for d in dirs if d != "_build"]  # build output
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]

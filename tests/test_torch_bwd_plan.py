@@ -43,14 +43,18 @@ def test_bwd_tile_table_covers_every_head_dim_and_dtype(mode, dtype, d):
     bits 128 keys for the combined body (sm90::BWD_BN, two consumer
     warpgroups of 64) and 64 for the split pair (K3's dq_key_tile); 64 for
     the f32 bodies of both modes.  A head dim 16 short of a body's runs
-    padded to it, so it has that body's tile; past 256 none runs."""
+    padded to it, so it has that body's tile; past 256 the split pair's
+    wide bodies take 64 keys in every dtype, and no combined body runs."""
     want = 128 if mode == "combined" and dtype != torch.float32 else 64
     assert tattn.bwd_key_tile(mode, dtype, d) == want
     assert tattn.bwd_key_tile(mode, dtype, d - 16) == want
     with pytest.raises(ValueError, match="mode"):
         tattn.bwd_key_tile("dense", dtype, d)
-    with pytest.raises(ValueError, match="head_dim"):
-        tattn.bwd_key_tile(mode, dtype, d + 256)
+    if mode == "split":
+        assert tattn.bwd_key_tile(mode, dtype, d + 256) == 64
+    else:
+        with pytest.raises(ValueError, match="head_dim"):
+            tattn.bwd_key_tile(mode, dtype, d + 256)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,

@@ -1,15 +1,17 @@
 """Head dims that no kernel body takes, against horovod_tpu's, on the CPU.
 
 The kernel bodies take head dims 32, 64, 96 and 128 (and 256: K1, K2,
-K3); ``_FlashAttnFn``, the autograd function ``flash_attention`` runs on a
-CUDA tensor, zero-pads any other head dim up to 256 to the next body's
-and slices the padded columns off.  On CPU tensors it runs the kernel
-wrappers' plain branches on the padded tensors, so the padded path is
-held here against the JAX package's ``flash_attention`` (Pallas in
-interpret mode), at head dims 16, 48, 80 and 200 (``bwd_mode`` on the
-caller's head dim is in test_torch_bwd_plan.py).  ``fused_ring_attention``
-pads up to 128 and takes the reference's separable ring above 128; both
-are held against the JAX ring on the virtual CPU mesh.  A TransformerLM
+K3; above 256, K1, K2 and K3's wide bodies take every multiple of 32);
+``_FlashAttnFn``, the autograd function ``flash_attention`` runs on a
+CUDA tensor, zero-pads any other head dim to the next body's and slices
+the padded columns off.  On CPU tensors it runs the kernel wrappers'
+plain branches on the padded tensors, so the padded path is held here
+against the JAX package's ``flash_attention`` (Pallas in interpret mode),
+at head dims 16, 48, 80 and 200, and at 288, 512 and 1024 on the wide
+bodies' path (``bwd_mode`` on the caller's head dim is in
+test_torch_bwd_plan.py).  ``fused_ring_attention`` pads up to 128 and
+takes the reference's separable ring above 128 (at 200 and 512 here);
+both are held against the JAX ring on the virtual CPU mesh.  A TransformerLM
 at head dim 16 (d_model 64, 4 heads, as examples/jax_pipeline_transformer.py)
 is held against the flax model.  Inputs come from numpy and feed both.
 Tolerances: f32 summation order only (2e-5 for values, 1e-3 for
@@ -52,34 +54,53 @@ def _arrays(shape, seed, count=4):
 @pytest.mark.parametrize("d,body", [(1, 32), (16, 32), (32, 32), (33, 64),
                                     (48, 64), (80, 96), (100, 128),
                                     (128, 128), (129, 256), (200, 256),
-                                    (256, 256)])
+                                    (256, 256), (257, 288), (288, 288),
+                                    (300, 320), (512, 512), (1000, 1024)])
 def test_padded_head_dim_is_the_next_body(d, body):
     assert tattn.padded_head_dim(d) == body
 
 
-@pytest.mark.parametrize("d", [0, 257, 288, 512])
+@pytest.mark.parametrize("d", [0, -1])
 def test_head_dims_past_the_bodies_raise(d):
+    """Only a head dim below 1 is past the bodies: above 256 the wide
+    bodies take every multiple of 32."""
     with pytest.raises(ValueError, match="head_dim"):
         tattn.padded_head_dim(d)
     with pytest.raises(ValueError, match="head_dim"):
         tattn.fwd_key_tile(torch.bfloat16, d)
 
 
+@pytest.mark.parametrize("d", [257, 288, 512, 1000, 1024])
+def test_head_dims_above_256_take_the_wide_bodies(d):
+    """Above 256 the body is the wide one at the next multiple of 32, and
+    the CUDA argument check takes that head dim for K1, K2 and K3 alone."""
+    body = tattn.padded_head_dim(d)
+    assert body % tattn.WIDE_CHUNK == 0 and 0 <= body - d < 32
+    assert tattn.padded_head_dim(body) == body
+    tattn._check_cuda("flash_fwd", [torch.zeros(1, 4, body)], wide=True)
+    with pytest.raises(ValueError, match="head_dim"):
+        tattn._check_cuda("flash_bwd", [torch.zeros(1, 4, body)])
+    if body != d:
+        with pytest.raises(ValueError, match="head_dim"):
+            tattn._check_cuda("flash_fwd", [torch.zeros(1, 4, d)], wide=True)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
-@pytest.mark.parametrize("d", [16, 48, 80, 136, 200, 256])
+@pytest.mark.parametrize("d", [16, 48, 80, 136, 200, 256, 288, 300, 1024])
 def test_key_tiles_follow_the_padded_body(d, dtype):
     """The key tiles answer for the body that runs the padded head dim:
     the 16-bit forward 128 keys up to 64, 64 above; the f32 bodies 64 up
-    to 128 and 32 at 256; the split pair 64 keys in 16 bits; no combined
-    body above 128."""
+    to 128 and 32 at 256; the split pair 64 keys in 16 bits; the wide
+    bodies 64 keys in every dtype; no combined body above 128."""
     body = tattn.padded_head_dim(d)
     f32 = dtype == torch.float32
+    f32_tile = 64 if body <= 128 or body > 256 else 32
     assert tattn.fwd_key_tile(dtype, d) == tattn.fwd_key_tile(dtype, body)
     assert tattn.fwd_key_tile(dtype, d) == (
-        (64 if body <= 128 else 32) if f32 else (128 if body <= 64 else 64))
-    assert tattn.bwd_key_tile("split", dtype, d) == (
-        (64 if body <= 128 else 32) if f32 else 64)
+        f32_tile if f32 else (128 if body <= 64 else 64))
+    assert tattn.bwd_key_tile("split", dtype, d) == (f32_tile if f32
+                                                     else 64)
     if body <= 128:
         assert tattn.bwd_key_tile("combined", dtype, d) == (64 if f32
                                                              else 128)
@@ -103,7 +124,9 @@ def _record_wrappers(monkeypatch):
 # (shape, block of the JAX side): the mode both plans pick follows.
 _CASES = {16: ((1, 2, 128, 16), 64), 48: ((1, 2, 128, 48), 64),
           80: ((1, 2, 96, 80), 32), 200: ((1, 2, 64, 200), 32),
-          "48-split": ((1, 1025, 32, 48), 32)}
+          "48-split": ((1, 1025, 32, 48), 32),
+          288: ((1, 2, 80, 288), 32), 512: ((1, 2, 64, 512), 32),
+          1024: ((1, 1, 64, 1024), 32)}
 
 
 @pytest.mark.parametrize("case", list(_CASES))
@@ -159,12 +182,13 @@ def _jax_fused_ring(causal, q, k, v, ct):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("d", [16, 200])
+@pytest.mark.parametrize("d", [16, 200, 512])
 def test_fused_ring_at_other_head_dims_matches_jax(monkeypatch, d, causal):
     """The fused ring at head dim 16 runs K4/K5/K7's plain branches on
-    shards padded to 32; at 200 it takes the reference's separable ring
-    and none of them runs.  Values and gradients against the JAX fused
-    ring (which routes 200 to its separable ring too)."""
+    shards padded to 32; at 200 and 512 it takes the reference's separable
+    ring and none of them runs, so the wide bodies need nothing more there.
+    Values and gradients against the JAX fused ring (which routes 200 and
+    512 to its separable ring too)."""
     called = []
     for name in ("ring_flash_fwd", "ring_flash_bwd", "phase_closer"):
         fn = getattr(trf, name)

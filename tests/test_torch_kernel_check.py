@@ -46,15 +46,18 @@ def test_forward_key_tile_follows_the_kernels():
     and in float32); in bf16 the choice is live: p is rounded against the
     running max per tile, so a 128-key plain side differs from a 64-key
     one.  A head dim no body takes answers for the body it is padded to
-    (48 for 64's); past 256 none runs."""
+    (48 for 64's); past 256 the wide bodies' 64 keys in every dtype
+    (csrc/flash_wide.cu, TK); below 1 none runs."""
     for d in tattn.HEAD_DIMS:
         tile16 = 128 if d <= 64 else 64
         assert tattn.fwd_key_tile(torch.bfloat16, d) == tile16
         assert tattn.fwd_key_tile(torch.float16, d) == tile16
         assert tattn.fwd_key_tile(torch.float32, d) == 64
     assert tattn.fwd_key_tile(torch.bfloat16, 48) == 128
+    for dtype in (torch.bfloat16, torch.float32):
+        assert tattn.fwd_key_tile(dtype, 288) == 64
     with pytest.raises(ValueError, match="head_dim"):
-        tattn.fwd_key_tile(torch.bfloat16, 288)
+        tattn.fwd_key_tile(torch.bfloat16, 0)
     qr, k, v, do, p2, r = _inputs((2, 512, 64), torch.bfloat16, 4)
     ref, _ = kernel_check.plain_outputs(qr, k, v, do, True, r, p2)
     o128, lse128 = tattn._blockwise_fwd_impl(qr, k, v, True, r,
