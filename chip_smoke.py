@@ -135,6 +135,33 @@ Phases, one JSON line each:
    rows [32r, 32r + 32) of one batch of 64 against the size-1 step on all
    64 rows, losses and running stats within train_dp's rule.
 
+15. ``serve`` — the serving plane at size 1 (``SERVE_HEADLINE``: the LM
+   headline's widths in bf16, 8 decode slots, 16-token chunks and KV
+   blocks, 512 blocks, 1024 tokens a request, bulk prefill from 256
+   prompt tokens) through ``ServingEngine``: 24 requests of 3 tenants
+   from ``RandomState(0)`` submitted 2 ms apart, prompts of 4-40 tokens
+   and every 4th of 256-768, 8-32 new tokens each.  Printed: generated
+   tokens/s, TTFT and per-token p50/p99, occupancy and steps, the median
+   decode step's ms by CUDA events in the loop beside the median wall ms
+   of its ``serve.plan`` broadcast, the step alone behind a 100 ms sleep
+   kernel (device time) and without one, the serving window's memory.
+   Gates: every request completes with all its tokens and no KV block is
+   left in use; K1 is launched (bulk prefill; counters zeroed just before
+   the loop starts and read after it stops) and no backward kernel; every
+   position the paged step computed is within 0.05 (||paged - full|| /
+   ||full||) of the full-context forward's logits
+   (``tools/torch_serve_control.py`` shows K/V written one position late
+   fails it); K1 alone at the prefill shapes (8 heads x 256/512/768, bf16
+   and f32) against its plain version; then the first 12 requests in
+   float32, all submitted before the loop starts (two of them bulk),
+   token for token against ``reference_decode`` on the card.
+16. ``serve_dp`` — 2 ranks of the port's runner on this card, each
+   running the serving entry point's ``serve()`` in float32 at the same
+   widths; rank 0's front door takes the 12 requests over HTTP, 2 ms
+   apart.  Gates: tokens equal to the size-1 float32 run's, one digest of
+   the KV pages (trash block aside) on both ranks, and a negotiation
+   cache hit rate >= 0.9 over the serve window.
+
 The two ranks time-slice the one card (two CUDA contexts, no MPS), and
 NCCL cannot run two ranks on one device: the run shows the engine, the
 staging and their numbers, not NVLink or NCCL.  Any rank that exits
@@ -142,7 +169,7 @@ non-zero, any mismatch and any timeout fails the run.
 
 Then the ``{"kernels": [...]}`` summary (K1-K7, B2, and K1-K3 at head
 dims 256, 288, 512 and 1000; K1 and B2 with their launches per rank on
-``train_dp``), the
+``train_dp``, K1 with its launches on ``serve``), the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Any
 failure raises: the script exits non-zero and prints no result line.
 Tolerances (``horovod_tpu_torch/ops/kernel_check.py``, which gives the
@@ -161,6 +188,7 @@ O(seq/n) or NVLink transfer times.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import hashlib
 import json
@@ -196,7 +224,12 @@ from horovod_tpu_torch.models import norm as norm_mod  # noqa: E402
 from horovod_tpu_torch.models.layers import Dense  # noqa: E402
 from horovod_tpu_torch.torch import image_step as IS  # noqa: E402
 from horovod_tpu_torch.torch.lm_step import (HEADLINE,  # noqa: E402
-                                             RING_HEADLINE, build_lm_step)
+                                             RING_HEADLINE, SERVE_HEADLINE,
+                                             build_lm_step)
+from horovod_tpu_torch.serving import engine as SE  # noqa: E402
+from horovod_tpu_torch.serving import server as serve_server  # noqa: E402
+from horovod_tpu_torch.serving.__main__ import serve  # noqa: E402
+from horovod_tpu_torch.serving.scheduler import Scheduler  # noqa: E402
 from tools.torch_step_profile import image_category, trace_steps  # noqa
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -268,13 +301,14 @@ def fail(msg):
     raise RuntimeError(f"chip_smoke: {msg}")
 
 
-def time_ms(fn, warmup=3, iters=15, host_ahead=True):
+def time_ms(fn, warmup=3, iters=15, host_ahead=True, lead=1):
     """Median milliseconds of ``fn`` on the card (CUDA events).  With
-    ``host_ahead`` a 1 ms sleep kernel runs ahead of the start event, so
-    the host has queued ``fn``'s launches before the card reaches them
-    and the events hold device time alone; without it they also hold the
-    host's time to issue them (the Python wrapper's checks, allocations
-    and launch), as the port's first timings did."""
+    ``host_ahead`` a sleep kernel of ``lead`` ms runs ahead of the start
+    event, so the host has queued ``fn``'s launches before the card
+    reaches them and the events hold device time alone (``fn`` must take
+    the host less than ``lead`` ms to issue); without it they also hold
+    the host's time to issue them (the Python wrapper's checks,
+    allocations and launch), as the port's first timings did."""
     for _ in range(warmup):
         fn()
     times = []
@@ -282,7 +316,7 @@ def time_ms(fn, warmup=3, iters=15, host_ahead=True):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         if host_ahead:
-            torch.cuda._sleep(SLEEP_CYCLES)
+            torch.cuda._sleep(lead * SLEEP_CYCLES)
         start.record()
         fn()
         end.record()
@@ -1892,6 +1926,357 @@ def phase_resnet_dp():
              f"{loss_off} (tolerance {loss_tol}), stats {bad_stats[:5]}")
 
 
+# --- the serving plane (ROADMAP A.8) ---
+
+SERVE_TENANTS = ("acme", "beta", "gamma")
+SERVE_REQUESTS = 24
+# The first 12 requests: served in float32 at size 1 (against
+# reference_decode) and over HTTP by serve_dp.
+SERVE_DP_REQUESTS = 12
+# bf16: every position the paged step computes held against the
+# full-context forward, ||paged - full|| / ||full|| (PERF.md section 2).
+SERVE_LOGIT_TOL = 0.05
+
+
+def serve_traffic():
+    """``(tenant, prompt, max_new_tokens)`` of the serve phase's requests,
+    from ``RandomState(0)``: prompts of 4-40 tokens, every 4th of 256-768
+    (bulk prefill), 8-32 new tokens each."""
+    vocab = SERVE_HEADLINE["spec"].vocab
+    rng = np.random.RandomState(0)
+    out = []
+    for i in range(SERVE_REQUESTS):
+        n = int(rng.randint(256, 769) if i % 4 == 3 else rng.randint(4, 41))
+        out.append((SERVE_TENANTS[i % 3], rng.randint(0, vocab, n).tolist(),
+                    int(rng.randint(8, 33))))
+    return out
+
+
+class ServeProbe:
+    """Wraps one engine's plan broadcast, step execution and decode step:
+    the broadcast's wall ms and the execution's per step plan, the decode
+    step's device ms (CUDA events around it), and with ``keep_logits``
+    the paged logits at the positions each step computes."""
+
+    def __init__(self, engine, keep_logits=False):
+        self.plan_ms, self.execute_ms, self.logits = [], [], []
+        self._events, self._plan = [], None
+        execute, step, bcast = (engine._execute, engine._step_fn,
+                                engine._broadcast_plan)
+        self.step = step
+
+        def timed_execute(plan):
+            self._plan = plan
+            t0 = time.perf_counter()
+            out = execute(plan)
+            self.execute_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        def timed_step(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            sampled, logits = step(*args)
+            end.record()
+            self._events.append((start, end))
+            for sp in self._plan.slots:
+                if sp.n_new and keep_logits:
+                    self.logits.append((sp.request_id, sp.length,
+                                        logits[sp.slot, :sp.n_new].clone()))
+            return sampled, logits
+
+        def timed_broadcast(buf):
+            t0 = time.perf_counter()
+            wire = bcast(buf)
+            if wire[0] == 1:  # OP_STEP: the broadcast a step waits for
+                self.plan_ms.append((time.perf_counter() - t0) * 1e3)
+            return wire
+
+        engine._execute = timed_execute
+        engine._step_fn = timed_step
+        engine._broadcast_plan = timed_broadcast
+
+    def step_device_ms(self):
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self._events]
+
+
+def _pcts(xs):
+    return {"p50": float(np.percentile(xs, 50)),
+            "p99": float(np.percentile(xs, 99))}
+
+
+def serve_run(spec, traffic, spaced, keep_logits=False):
+    """Serve ``traffic`` at size 1 through ``ServingEngine`` on
+    ``SERVE_HEADLINE``'s config in ``spec``'s dtype: submitted 2 ms apart
+    while the loop runs (``spaced``), or all before it starts.  The launch
+    counters are zeroed just before the loop starts and read when it has
+    stopped.  Returns the requests, the probe, the launches and the run's
+    numbers (``serve_memory``: the peak allocated from the engine's
+    construction to the end of the traffic, less what was allocated
+    before it); fails if a request did not complete."""
+    cfg = SERVE_HEADLINE["cfg"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    sch = Scheduler(cfg)
+    engine = SE.ServingEngine(spec, cfg, SE.broadcast_params(
+        SE.init_params(spec)), sch)
+    hvd_common.metrics_reset()
+    reqs = [] if spaced else [sch.submit(*t) for t in traffic]
+    probe = ServeProbe(engine, keep_logits)
+    loop = threading.Thread(target=engine.run, daemon=True)
+    A.reset_launches()
+    t0 = time.perf_counter()
+    loop.start()
+    if spaced:
+        for t in traffic:
+            reqs.append(sch.submit(*t))
+            time.sleep(0.002)
+    for r in reqs:
+        if not r.event.wait(600) or r.error is not None:
+            fail(f"serve: request {r.id} did not complete: {r.error}")
+    wall = time.perf_counter() - t0
+    engine.request_stop()
+    loop.join(60)
+    launched = dict(A.launches)
+    snap = hvd_common.metrics_snapshot()["serving"]
+    for r, (_, _, max_new) in zip(reqs, traffic):
+        if len(r.generated) != max_new:
+            fail(f"serve: request {r.id} generated {len(r.generated)} of "
+                 f"{max_new} tokens")
+    if snap["kv_blocks_in_use"] != 0 or snap["retired"] != len(reqs):
+        fail(f"serve: blocks or requests left over: {snap}")
+    device_ms = probe.step_device_ms()
+    bulk = [r.id for r in reqs if any(
+        e["event"] == "prefill_chunk" and e["tokens"] == len(r.prompt_ids)
+        > cfg.prefill_chunk for e in r.spans)]
+    numbers = dict(
+        requests=len(reqs), wall_s=wall,
+        generated_tokens=sum(len(r.generated) for r in reqs),
+        tokens_per_s=sum(len(r.generated) for r in reqs) / wall,
+        ttft_ms=_pcts([(r.t_first_token - r.t_submit) * 1e3 for r in reqs]),
+        token_ms=_pcts([(r.t_done - r.t_submit) * 1e3 / len(r.generated)
+                        for r in reqs]),
+        occupancy=snap["occupancy"], steps=snap["steps"],
+        step_device_ms_median=statistics.median(device_ms),
+        plan_broadcast_ms_median=statistics.median(probe.plan_ms),
+        execute_ms_median=statistics.median(probe.execute_ms),
+        bulk_prefilled=len(bulk),
+        serve_memory=torch.cuda.max_memory_allocated() - before)
+    numbers["plan_broadcast_share"] = numbers["plan_broadcast_ms_median"] / (
+        numbers["plan_broadcast_ms_median"] + numbers["execute_ms_median"])
+    return reqs, probe, engine, launched, numbers
+
+
+def paged_logit_errors(engine, reqs, probe):
+    """Per recorded position, ||paged - full|| / ||full|| of the paged
+    step's logits against the full-context forward of the request's whole
+    feed (its attention is K1 on the card)."""
+    by_id = {r.id: r for r in reqs}
+    full = {}
+    errs = []
+    with torch.no_grad():
+        for rid, length, got in probe.logits:
+            if rid not in full:
+                feed = by_id[rid].prompt_ids + by_id[rid].generated
+                full[rid] = engine.model(torch.tensor([feed],
+                                                      device="cuda"))[0]
+            want = full[rid][length:length + got.shape[0]]
+            errs += ((got - want).norm(dim=-1)
+                     / want.norm(dim=-1)).tolist()
+    return errs
+
+
+def serve_bf16():
+    """The bf16 headline run (the main path of serving) and its logits
+    gate's reading: ``(numbers, launches, errors)``.  Also the decode
+    step alone on a full batch of decode lanes (the step's shapes are
+    fixed, so its work is the same whichever slots are live): its device
+    ms behind a 100 ms sleep kernel, and its ms without one (the host's
+    issue time inside)."""
+    reqs, probe, engine, launched, numbers = serve_run(
+        SERVE_HEADLINE["spec"], serve_traffic(), spaced=True,
+        keep_logits=True)
+    errs = paged_logit_errors(engine, reqs, probe)
+    cfg = SERVE_HEADLINE["cfg"]
+    b, nb = cfg.max_batch, cfg.max_blocks_per_seq
+    args = (torch.zeros(b, cfg.prefill_chunk, dtype=torch.long,
+                        device="cuda"),
+            torch.ones(b, dtype=torch.long, device="cuda"),
+            torch.full((b,), 512, dtype=torch.long, device="cuda"),
+            torch.arange(b * nb, device="cuda").reshape(b, nb) % cfg.num_blocks)
+    numbers["step_device_ms_alone"] = time_ms(
+        lambda: probe.step(engine.pages, *args), iters=5, lead=100)
+    numbers["step_ms_alone_host_inside"] = time_ms(
+        lambda: probe.step(engine.pages, *args), iters=5, host_ahead=False)
+    del engine, probe
+    torch.cuda.empty_cache()
+    return numbers, launched, errs
+
+
+def hold_prefill_k1():
+    """K1 alone at the bulk prefills' shapes (one request, 8 heads, the
+    bucketed prompt lengths, head dim 64) in bf16 and float32 against its
+    plain version, and its time beside them at 768 in bf16."""
+    rows = []
+    for seq in (256, 512, 768):
+        for dtype in (torch.bfloat16, torch.float32):
+            _, qr, k, v, _, _, scale_r = kernel_inputs((1, 8, seq, 64),
+                                                       dtype, seq)
+            errs = kernel_check.hold_fwd(qr, k, v, scale_r, True)
+            rows.append({"seq": seq, "dtype": str(dtype), "errors": errs})
+            if max(e["worst"] for e in errs.values()) > 1.0:
+                fail(f"serve: K1 disagrees with its plain version at "
+                     f"prefill shape {seq} {dtype}: {errs}")
+    _, qr, k, v, _, _, scale_r = kernel_inputs((1, 8, 768, 64),
+                                               torch.bfloat16, 1)
+    timing = {
+        "ms": time_ms(lambda: A.flash_fwd(qr, k, v, scale_r, True)),
+        "plain_ms": time_ms(lambda: A._blockwise_fwd_impl(
+            qr, k, v, True, scale_r,
+            block_size=A.fwd_key_tile(torch.bfloat16, 64)),
+            warmup=1, iters=5),
+        "bound_ms": bound_ms(4 * 64 * causal_pairs(768, 768, True) * 8,
+                             4 * 8 * 768 * 64 * 2 + 8 * 768 * 4,
+                             torch.bfloat16)[0]}
+    return rows, timing
+
+
+def phase_serve():
+    """The serving plane at size 1 on the card (``SERVE_HEADLINE``):
+    the bf16 traffic and its logits gate, K1 held at the prefill shapes,
+    then the first 12 requests in float32 against ``reference_decode``.
+    Returns the bf16 run's launches and the float32 tokens."""
+    hvd.init()
+    numbers, launched, errs = serve_bf16()
+    want = {"flash_fwd": launched["flash_fwd"], "flash_bwd": 0,
+            "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
+    k1_rows, k1_timing = hold_prefill_k1()
+    f32 = dataclasses.replace(SERVE_HEADLINE["spec"], dtype="float32")
+    traffic = serve_traffic()[:SERVE_DP_REQUESTS]
+    reqs, _, engine, _, f32_numbers = serve_run(f32, traffic, spaced=False)
+    tokens = [r.generated for r in reqs]
+    refs = [SE.reference_decode(engine.model, p, n) for _, p, n in traffic]
+    del engine
+    torch.cuda.empty_cache()
+    hvd.shutdown()
+    same = [a == b for a, b in zip(tokens, refs)]
+    emit("serve", nvidia_smi=smi_line(), bf16=numbers, launches=launched,
+         logits={"positions": len(errs), "max_rel_err": max(errs),
+                 "median_rel_err": statistics.median(errs),
+                 "tolerance": SERVE_LOGIT_TOL},
+         k1_prefill=k1_rows, k1_prefill_768_bf16=k1_timing,
+         float32={**f32_numbers, "identical_to_reference_decode": same})
+    if launched != want or not launched["flash_fwd"]:
+        fail(f"serve: launched {launched}, want K1 > 0 and no backward")
+    if max(errs) > SERVE_LOGIT_TOL:
+        fail(f"serve: bf16 paged logits off the full forward by "
+             f"{max(errs)} > {SERVE_LOGIT_TOL}")
+    if not all(same) or f32_numbers["bulk_prefilled"] < 2:
+        fail(f"serve: float32 tokens against reference_decode {same}, "
+             f"{f32_numbers['bulk_prefilled']} bulk")
+    return launched, tokens
+
+
+def _http(port, path, body=None, timeout=600):
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}",
+        data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        return json.loads(resp.read())
+
+
+def _serve_dp_client(out):
+    """Rank 0's HTTP client: the first 12 requests over the front door,
+    2 ms apart, then the drain."""
+    while serve_server.server_port() is None:
+        time.sleep(0.05)
+    port = serve_server.server_port()
+    base = _http(port, "/v1/stats")["cache"]["engine"]
+    results = {}
+
+    def post(i, tenant, prompt, max_new):
+        results[i] = _http(port, "/v1/generate", {
+            "tenant": tenant, "prompt_ids": prompt,
+            "max_new_tokens": max_new})
+
+    threads = []
+    t0 = time.perf_counter()
+    for i, t in enumerate(serve_traffic()[:SERVE_DP_REQUESTS]):
+        threads.append(threading.Thread(target=post, args=(i, *t)))
+        threads[-1].start()
+        time.sleep(0.002)
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    cache = _http(port, "/v1/stats")["cache"]["engine"]
+    hits = cache["hits"] - base["hits"]
+    misses = cache["misses"] - base["misses"]
+    out.update(tokens=[results[i]["tokens"] for i in range(len(results))],
+               hits=hits, misses=misses, hit_rate=hits / max(hits + misses, 1),
+               tokens_per_s=sum(len(r["tokens"]) for r in results.values())
+               / wall)
+    _http(port, "/shutdown", {})
+
+
+def rank_serve_dp():
+    """One rank of ``serve_dp``: the serving entry point's ``serve()`` in
+    float32 at ``SERVE_HEADLINE``'s widths on cuda:0, the front door on a
+    free port; a digest of the pages after the drain, trash block aside
+    (lanes that land there may collide, and which write wins is not
+    fixed; nothing reads it as context)."""
+    spec = dataclasses.replace(SERVE_HEADLINE["spec"], dtype="float32",
+                               device="cuda:0")
+    cfg = dataclasses.replace(SERVE_HEADLINE["cfg"], port=0)
+    out, client = {}, None
+    if os.environ.get("HVD_TPU_RANK") == "0":
+        client = threading.Thread(target=_serve_dp_client, args=(out,),
+                                  daemon=True)
+        client.start()
+    engine = serve(spec, cfg)
+    if client is not None:
+        client.join(60)
+        if "tokens" not in out:
+            fail("serve_dp: the HTTP client did not finish")
+    digest = hashlib.sha256(engine.pages[:, :, :-1].contiguous().cpu().view(
+        torch.uint8).numpy()).hexdigest()
+    rank_result(rank=hvdt.rank(), digest=digest,
+                max_memory_allocated=torch.cuda.max_memory_allocated(), **out)
+    hvdt.shutdown()
+
+
+def phase_serve_dp(f32_tokens):
+    """Two ranks of the port's runner serving on this card in float32;
+    rank 0's front door takes the first 12 requests over HTTP.  The
+    tokens must equal the size-1 float32 run's, the pages' digest must be
+    one across ranks, and the negotiation cache must hit >= 0.9 of the
+    serve window's collectives.  Float32, because a long prompt's route
+    follows arrival timing (bulk, or chunked when another prompt took its
+    step's one bulk slot), and in bf16 the two routes round differently
+    enough to flip a near-tie greedy token; in float32 they agree to
+    ~1e-6."""
+    torch.cuda.empty_cache()
+    res = run_ranks("serve_dp", timeout=600)
+    r0 = next(x for x in res if x["rank"] == 0)
+    same = [a == b for a, b in zip(r0["tokens"], f32_tokens)]
+    emit("serve_dp", ranks=DP_RANKS, nvidia_smi=smi_line(),
+         requests=len(r0["tokens"]), tokens_per_s=r0["tokens_per_s"],
+         hits=r0["hits"], misses=r0["misses"], hit_rate=r0["hit_rate"],
+         digests=[x["digest"] for x in res],
+         max_memory_allocated=[x["max_memory_allocated"] for x in res],
+         identical_to_size1=same)
+    if len(r0["tokens"]) != SERVE_DP_REQUESTS or not all(same):
+        fail(f"serve_dp: tokens differ from the size-1 run's: {same}")
+    if len({x["digest"] for x in res}) != 1:
+        fail("serve_dp: the ranks' KV pages differ")
+    if r0["hit_rate"] < 0.9:
+        fail(f"serve_dp: negotiation cache hit rate {r0['hit_rate']}")
+
+
 def smi_line():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1952,6 +2337,8 @@ def main():
     phase_image_models()
     phase_resnet()
     phase_resnet_dp()
+    serve_launched, f32_tokens = phase_serve()
+    phase_serve_dp(f32_tokens)
     entries.update(ring_entries)
     for name_, e in entries.items():
         # K2 and K3 run on the split path, every other kernel on the main
@@ -1960,6 +2347,7 @@ def main():
                          else launched)[name_]
     for name_ in ("flash_fwd", "flash_bwd"):
         entries[name_]["launches_train_dp_per_rank"] = dp_launched[name_]
+    entries["flash_fwd"]["launches_serve"] = serve_launched["flash_fwd"]
     # The rows of head dims 256 and above carry the launches of the
     # head_dims phase's path.
     entries.update(wide_entries)
@@ -1974,7 +2362,7 @@ def main():
 
 
 RANK_PHASES = {"collectives": rank_collectives, "train_dp": rank_train_dp,
-               "resnet_dp": rank_resnet_dp}
+               "resnet_dp": rank_resnet_dp, "serve_dp": rank_serve_dp}
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank"]:

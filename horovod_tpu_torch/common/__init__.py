@@ -12,9 +12,11 @@ host.  CUDA tensors reach it only through ``horovod_tpu_torch.torch``,
 which stages them in pinned host memory: the engine never sees a device
 pointer.
 
-Not ported: the XLA data plane, stage groups, point-to-point transfers,
-the fault injector, and the metrics/timeline/postmortem glue
-(``config.UNPORTED``).
+:func:`metrics_snapshot` reads the port's trimmed registry
+(``common/metrics.py``, the serving plane's counters) with the engine's
+response-cache counters folded in.  Not ported: the XLA data plane, stage
+groups, point-to-point transfers, the fault injector, and the timeline,
+postmortem and the rest of the metrics glue (``config.UNPORTED``).
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import threading
 import time
 from typing import Callable, List, Optional
 
-from horovod_tpu_torch.common import dtypes
+from horovod_tpu_torch.common import dtypes, metrics
 from horovod_tpu_torch.common.basics import ProcessSet, resolve_process_set
 from horovod_tpu_torch.common.config import Config
 
@@ -35,6 +37,7 @@ __all__ = [
     "HorovodNotInitializedError", "init", "shutdown", "is_initialized",
     "rank", "size", "local_rank", "local_size", "resolve_device",
     "Handle", "allreduce_async", "allgather_async", "broadcast_async",
+    "metrics_snapshot", "metrics_reset",
 ]
 
 # Op codes shared with the engine (engine/cc/wire.h OpType).
@@ -124,6 +127,9 @@ def _load_lib():
             _declare(lib, name, c_ll, c_ll)
         _declare(lib, "hvd_tpu_result_ptr", c_ptr, c_ll)
         _declare(lib, "hvd_tpu_release", None, c_ll)
+        for name in ("hvd_tpu_cache_hit_count", "hvd_tpu_cache_miss_count",
+                     "hvd_tpu_cache_eviction_count", "hvd_tpu_cache_size"):
+            _declare(lib, name, c_ll)
         _lib = lib
         return lib
 
@@ -180,6 +186,8 @@ def init(device: Optional[str] = None) -> None:
             "the environment asks for engine planes horovod_tpu_torch does "
             "not have: " + "; ".join(asked))
     cfg = Config.from_env()
+    if cfg.metrics:
+        metrics.registry.enable()
     _pin_device(device, ps)
     lib = _load_lib()
     data = ",".join(ps.data_endpoints) if ps.data_endpoints else ""
@@ -235,6 +243,46 @@ def local_rank() -> int:
 
 def local_size() -> int:
     return _checked_lib().hvd_tpu_local_size()
+
+
+# Engine cache events already folded into the registry (hits, misses,
+# evictions): the engine's counts are cumulative over the process.
+_cache_seen = [0, 0, 0]
+_cache_lock = threading.Lock()
+
+
+def _sync_engine_cache() -> None:
+    """Fold the engine's response-cache events not yet seen into the
+    registry's ``cache.engine`` section, and mirror its entry count."""
+    if _lib is None:
+        return
+    with _cache_lock:
+        counts = (_lib.hvd_tpu_cache_hit_count(),
+                  _lib.hvd_tpu_cache_miss_count(),
+                  _lib.hvd_tpu_cache_eviction_count())
+        for i, kind in enumerate(("hits", "misses", "evictions")):
+            new = int(counts[i]) - _cache_seen[i]
+            if new > 0:
+                metrics.registry.record_cache("engine", kind, new)
+            _cache_seen[i] = int(counts[i])
+        metrics.registry.set_cache_size("engine",
+                                        int(_lib.hvd_tpu_cache_size()))
+
+
+def metrics_snapshot() -> dict:
+    """The registry as a plain nested dict: ``cache`` (the engine's
+    negotiation response cache: hits, misses, evictions, size),
+    ``serving`` (request lifecycle, occupancy, KV pool, tenants) and
+    ``histograms``.  Callable before ``init()``."""
+    _sync_engine_cache()
+    return metrics.registry.snapshot()
+
+
+def metrics_reset() -> None:
+    """Zero every counter and histogram; engine cache events seen so far
+    do not come back."""
+    _sync_engine_cache()
+    metrics.registry.reset()
 
 
 def resolve_device(device=None):

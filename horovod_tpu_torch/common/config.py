@@ -10,8 +10,10 @@ winning.
 The engine's other planes have no port yet: elastic membership, wire
 compression, autotuning, the hierarchical allreduce (and the
 shared-memory transport that rides on it), the coordinator tree, the
-timeline, metrics, postmortem dumps, fault injection and the
-XLA data plane.  The port passes each one's "off" value to the engine,
+timeline, the metrics file and monitor, postmortem dumps, fault
+injection and the XLA data plane (``HVD_TPU_METRICS`` is honoured as far
+as the port's registry goes: ``common/metrics.py``).  The port passes
+each one's "off" value to the engine,
 and :meth:`Config.unported_requests` names every variable of the
 environment that asks for one of them, which ``init()`` refuses rather
 than ignore.  The engine reads a few variables itself: those of unported
@@ -46,7 +48,7 @@ UNPORTED = (
     # hierarchical allreduce; the port's ranks talk TCP.
     ("shared-memory transport", ("HVD_TPU_SHM", "HVD_TPU_SHM_RING_BYTES")),
     ("timeline", ("HVD_TPU_TIMELINE", "HOROVOD_TIMELINE")),
-    ("metrics", ("HVD_TPU_METRICS", "HVD_TPU_METRICS_FILE",
+    ("metrics", ("HVD_TPU_METRICS_FILE",
                  "HVD_TPU_MONITOR_PORT", "HVD_TPU_LINK_STATS",
                  "HVD_TPU_ANOMALY_SIGMA", "HVD_TPU_ANOMALY_INTERVAL_MS")),
     ("postmortem dumps", ("HVD_TPU_POSTMORTEM_DIR", "HVD_TPU_FLIGHT_EVENTS")),
@@ -85,6 +87,8 @@ class Config:
     # self-clocks it with no control message; 0 disables.
     steady_threshold: int = 32
     steady_max_period: int = 256
+    # HVD_TPU_METRICS: the registry's gated histogram (common/metrics.py).
+    metrics: bool = False
 
     @property
     def effective_cache_capacity(self) -> int:
@@ -125,4 +129,5 @@ class Config:
                 "HVD_TPU_STEADY_THRESHOLD") or 32),
             steady_max_period=int(os.environ.get(
                 "HVD_TPU_STEADY_MAX_PERIOD") or 256),
+            metrics=_flag(os.environ.get("HVD_TPU_METRICS")),
         )

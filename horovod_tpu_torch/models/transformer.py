@@ -11,9 +11,11 @@ splits them into one shard per member, runs every layer on every shard
 ``ring_impl`` says; it returns the global logits.  The parameters are one
 set shared by the members, so autograd sums the members' gradient
 contributions: the ``psum`` over the sequence axis that the JAX step gets
-from ``shard_map``.  The port has no ``targets=`` or ``decode_ctx=``
-arguments, so the reference's refusals of them under sequence parallelism
-have nothing to refuse.  Parameters keep the flax
+from ``shard_map``.  The cached-KV decode mode (``forward(tokens,
+decode_ctx=...)``, :class:`DecodeContext`) and the K/V capture of the full
+forward (``capture_kv=True``) serve the serving plane; both refuse sequence
+parallelism, as the reference's decode mode does.  The port has no
+``targets=`` argument.  Parameters keep the flax
 shapes and layouts (``qkv_kernel`` (d, 3, h, e), ``o_kernel`` (h, e, d),
 ``lm_head_kernel`` (d, V)), so :mod:`.convert` carries weights across by
 renaming and transposing the two MLP kernels.  Matched semantics: flax
@@ -25,7 +27,7 @@ angles, and a head matmul that accumulates in float32 before the cast to
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -66,13 +68,18 @@ def rope(x, positions, base: float = 10000.0):
     """Rotary position embedding, adjacent-pair formulation: component
     pairs ``(x[2i], x[2i+1])`` rotate by the i-th frequency.  Angles in
     float32; the result is cast back to ``x``'s dtype.  ``x``:
-    (..., seq, head_dim); ``positions``: (seq,) token positions."""
+    (batch, heads, seq, head_dim); ``positions``: (seq,) token positions,
+    or (batch, seq) when every batch row sits at its own offset (the
+    serving plane's decode batch, where row b's tokens start at its cache
+    length)."""
     d = x.shape[-1]
     half = d // 2
     freqs = base ** (-torch.arange(0, half, dtype=torch.float32,
                                    device=x.device) / half)
     angles = positions[..., None].to(torch.float32) * freqs
     shape = [1] * x.ndim
+    if positions.dim() == 2:  # per-row offsets, broadcast over heads
+        shape[0] = positions.shape[0]
     shape[-2] = x.shape[-2]
     shape[-1] = half
     cos = torch.cos(angles).reshape(shape)[..., None]
@@ -100,6 +107,35 @@ class RMSNorm(nn.Module):
             self.dtype)
 
 
+class DecodeContext(NamedTuple):
+    """Per-step context of the cached-KV decode mode.
+
+    ``k``/``v``: ``(n_layers, batch, heads, ctx_len, head_dim)``, every
+    layer's cached keys and values (post-rope, as the layers produced
+    them).  ``mask``: ``(batch, ctx_len)`` bool, the valid context
+    positions of each row.  ``positions``: ``(batch, new_len)`` integer
+    positions of the new tokens (the row's cache length + arange)."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    mask: torch.Tensor
+    positions: torch.Tensor
+
+    def layer(self, i: int):
+        return self.k[i], self.v[i], self.mask, self.positions
+
+
+def _decode_attention(q, k, v, mask, sm_scale):
+    """Masked attention of the decode mode: ``q`` (b, h, s, hd) against
+    ``k``/``v`` (b, h, S, hd) under ``mask`` (b, s, S), float32 inside
+    whatever the storage dtype.  Every query row admits at least itself,
+    so no softmax row is empty."""
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
+    logits = logits.masked_fill(~mask[:, None], -1e30)
+    w = torch.softmax(logits, dim=-1)
+    return torch.matmul(w, v.float()).to(q.dtype)
+
+
 class Attention(nn.Module):
     def __init__(self, d_model: int, n_heads: int, dtype=torch.bfloat16,
                  use_flash: bool = True, generator=None, device=None,
@@ -113,18 +149,37 @@ class Attention(nn.Module):
         self.o_kernel = nn.Parameter(lecun_normal(
             (n_heads, head_dim, d_model), d_model, generator, device))
 
-    def forward(self, x):
+    def forward(self, x, decode_ctx=None, capture_kv: bool = False):
+        """The attention block's output; with ``decode_ctx`` (one layer's
+        ``DecodeContext.layer``) or ``capture_kv`` also this chunk's
+        post-rope ``(k, v)``."""
         if self.seq_axis is not None:
             return self._ring_forward(x)
-        s = x.shape[1]
+        b, s, _ = x.shape
         q, k, v = qkv_project(x.to(self.dtype),
                               self.qkv_kernel.to(self.dtype))
-        positions = torch.arange(s, device=x.device)
-        q, k = rope(q, positions), rope(k, positions)
-        out = (flash_attention(q, k, v, causal=True) if self.use_flash
-               else blockwise_attention(q, k, v, causal=True))
-        return torch.einsum("bhse,hed->bsd", out,
+        if decode_ctx is not None:
+            k_ctx, v_ctx, ctx_mask, positions = decode_ctx
+            q, k = rope(q, positions), rope(k, positions)
+            # The context precedes the chunk, whose positions are
+            # consecutive: causality inside it is a lower triangle.
+            mask = torch.cat([
+                ctx_mask[:, None, :].expand(b, s, ctx_mask.shape[-1]),
+                torch.ones(s, s, dtype=torch.bool, device=x.device).tril()
+                .expand(b, s, s)], dim=-1)
+            keys = torch.cat([k_ctx.to(k.dtype), k], dim=-2)
+            vals = torch.cat([v_ctx.to(v.dtype), v], dim=-2)
+            out = _decode_attention(q, keys, vals, mask, q.shape[-1] ** -0.5)
+        else:
+            positions = torch.arange(s, device=x.device)
+            q, k = rope(q, positions), rope(k, positions)
+            out = (flash_attention(q, k, v, causal=True) if self.use_flash
+                   else blockwise_attention(q, k, v, causal=True))
+        proj = torch.einsum("bhse,hed->bsd", out,
                             self.o_kernel.to(self.dtype))
+        if decode_ctx is None and not capture_kv:
+            return proj
+        return proj, (k, v)
 
     def _ring_forward(self, xs):
         """``xs``: the members' (batch, seq_local, d) shards, in ring order."""
@@ -167,15 +222,19 @@ class Block(nn.Module):
         h = F.gelu(h, approximate="tanh")  # flax nn.gelu default
         return x + F.linear(h, w_down)
 
-    def forward(self, x):
-        """``x``: (batch, seq, d), or the members' shards as a list."""
+    def forward(self, x, decode_ctx=None, capture_kv: bool = False):
+        """``x``: (batch, seq, d), or the members' shards as a list.  With
+        ``decode_ctx`` or ``capture_kv``: ``(x, (k, v))``."""
         w_up = self.up.weight.to(self.dtype)
         w_down = self.down.weight.to(self.dtype)
         if isinstance(x, list):
             attn = self.attn([self.attn_norm(xi) for xi in x])
             return [self._mlp(xi + a, w_up, w_down)
                     for xi, a in zip(x, attn)]
-        return self._mlp(x + self.attn(self.attn_norm(x)), w_up, w_down)
+        if decode_ctx is None and not capture_kv:
+            return self._mlp(x + self.attn(self.attn_norm(x)), w_up, w_down)
+        a, kv = self.attn(self.attn_norm(x), decode_ctx, capture_kv)
+        return self._mlp(x + a, w_up, w_down), kv
 
 
 class TransformerLM(nn.Module):
@@ -227,9 +286,30 @@ class TransformerLM(nn.Module):
         # operands in f32 (the reference's preferred_element_type=f32).
         return torch.matmul(xw.float(), w.float()).to(self.logits_dtype)
 
-    def forward(self, tokens):
+    def forward(self, tokens, decode_ctx: Optional[DecodeContext] = None,
+                capture_kv: bool = False):
+        """Logits ``(batch, seq, vocab)``.  With ``decode_ctx`` (the
+        cached-KV decode mode: ``tokens`` are each row's new chunk) or
+        ``capture_kv`` (the full forward): ``(logits, (k, v))``, the
+        chunk's post-rope keys and values stacked over layers,
+        ``(n_layers, batch, heads, seq, head_dim)`` each."""
         emb = self.embed.weight.to(self.dtype)
         w = self.lm_head_kernel.to(self.dtype)
+        if (decode_ctx is not None or capture_kv) and \
+                self.seq_axis is not None:
+            raise ValueError(
+                "decode_ctx= (cached KV decode) and capture_kv= do not "
+                "compose with sequence parallelism: decode is an "
+                "inference-only, single-shard path")
+        if decode_ctx is not None or capture_kv:
+            x = F.embedding(tokens, emb)
+            ks, vs = [], []
+            for i, layer in enumerate(self.layers):
+                x, (k, v) = layer(x, None if decode_ctx is None
+                                  else decode_ctx.layer(i), capture_kv)
+                ks.append(k)
+                vs.append(v)
+            return self._head(x, w), (torch.stack(ks), torch.stack(vs))
         if self.seq_axis is None:
             x = F.embedding(tokens, emb)
             for layer in self.layers:

@@ -96,6 +96,16 @@ def kernel_outputs(qr, k, v, do, lse, delta, p2, scale_r, causal,
                                  causal, mode)}
 
 
+def hold_fwd(qr, k, v, scale_r, causal) -> dict:
+    """``{o, lse: {max_abs_err, worst}}`` of K1 alone against the plain
+    forward over its key tile."""
+    o, lse = A._blockwise_fwd_impl(
+        qr, k, v, causal, scale_r,
+        block_size=A.fwd_key_tile(qr.dtype, qr.shape[-1]))
+    got_o, got_lse = A.flash_fwd(qr, k, v, scale_r, causal)
+    return {"o": compare(got_o, o), "lse": compare_lse(got_lse, lse)}
+
+
 def rtol(dtype) -> float:
     if dtype == torch.float32:
         return 1e-4

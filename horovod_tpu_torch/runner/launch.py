@@ -14,6 +14,11 @@ membership and TPU pinning are not ported.
 CLI::
 
     python -m horovod_tpu_torch.runner -np 2 -- python train.py
+    python -m horovod_tpu_torch.runner -np 2 --serve [--serve-port P]
+
+``--serve`` defaults the command to the serving entry point (``python -m
+horovod_tpu_torch.serving``); ``--serve-port`` sets the front door's
+``HVD_TPU_SERVE_PORT``.
 """
 
 from __future__ import annotations
@@ -269,14 +274,31 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     parser.add_argument("--timeout", type=float, default=0.0,
                         help="kill the job after this many seconds (0: "
                              "none)")
+    parser.add_argument("--serve", action="store_true",
+                        help="serving mode: the command defaults to python "
+                             "-m horovod_tpu_torch.serving; rank 0 opens "
+                             "the HTTP front door on HVD_TPU_SERVE_PORT / "
+                             "--serve-port (standby rejoin is refused: a "
+                             "fresh rank cannot recover the in-flight KV "
+                             "state)")
+    parser.add_argument("--serve-port", type=int, default=None,
+                        help="with --serve: the front door's port (sets "
+                             "HVD_TPU_SERVE_PORT)")
     parser.add_argument("command", nargs=argparse.REMAINDER,
                         help="the training command, e.g. python train.py")
     args = parser.parse_args(argv)
     cmd = args.command[1:] if args.command[:1] == ["--"] else args.command
     if not cmd:
-        parser.error("no command given")
+        if not args.serve:
+            parser.error("no command given")
+        cmd = [sys.executable, "-m", "horovod_tpu_torch.serving"]
+    if args.serve_port is not None and not args.serve:
+        parser.error("--serve-port requires --serve")
+    env = None
+    if args.serve_port is not None:
+        env = dict(os.environ, HVD_TPU_SERVE_PORT=str(args.serve_port))
     try:
-        results = run_command(cmd, args.num_proc,
+        results = run_command(cmd, args.num_proc, env=env,
                               timeout=args.timeout or 3e7, host=args.host)
     except subprocess.TimeoutExpired:
         print("horovod_tpu_torch.runner: job timed out", file=sys.stderr)

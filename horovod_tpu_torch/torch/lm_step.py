@@ -18,6 +18,14 @@ rows (``HEADLINE``'s 16 x 1024 per rank), its weights from
 ``np.random.RandomState(seed + rank)``, and rank 0's parameters and
 optimizer state are broadcast before the first step.  At size 1 that is
 the single-process path with seed ``seed``.
+
+``SERVE_HEADLINE`` is the served configuration (``python -m
+horovod_tpu_torch.serving``): the same widths in bf16 with float32 logits
+(d_ff is the model's default 4 x d_model = 2048), 8 decode slots,
+16-token prefill chunks and KV blocks, 512 blocks in the pool, a
+1024-token context per request (64 blocks), and bulk prefill from 256
+prompt tokens.  Its page buffer is 8 x 2 x 513 x 16 x 8 x 64 bf16 values,
+134 MB.
 """
 
 from __future__ import annotations
@@ -30,6 +38,8 @@ import torch
 from horovod_tpu_torch import common as hvd
 from horovod_tpu_torch.models import TransformerLM, next_token_loss
 from horovod_tpu_torch.parallel import RingMesh
+from horovod_tpu_torch.serving.engine import ModelSpec
+from horovod_tpu_torch.serving.scheduler import ServeConfig
 from horovod_tpu_torch.torch import (DistributedOptimizer,
                                      broadcast_optimizer_state,
                                      broadcast_parameters)
@@ -39,6 +49,13 @@ HEADLINE = dict(vocab_size=32768, d_model=512, n_layers=8, n_heads=8,
                 d_ff=2048, batch=16, seq=1024)
 RING_HEADLINE = dict(HEADLINE, batch=4, seq=4096, members=4,
                      ring_impl="fused")
+SERVE_HEADLINE = dict(
+    spec=ModelSpec(vocab=HEADLINE["vocab_size"], d_model=HEADLINE["d_model"],
+                   n_layers=HEADLINE["n_layers"], n_heads=HEADLINE["n_heads"],
+                   dtype="bfloat16"),
+    cfg=ServeConfig(max_batch=8, prefill_chunk=16, block_tokens=16,
+                    num_blocks=512, max_blocks_per_seq=64,
+                    ring_min_tokens=256))
 
 
 def build_lm_step(device=None, *, vocab_size, d_model, n_layers, n_heads,

@@ -640,3 +640,119 @@ def test_size_1_cuda_collectives_make_no_host_copy(cuda_device,
         assert mpi_ops.pinned_allocs[0] == before
     finally:
         hvd.shutdown()
+
+
+# --- the serving plane on the card ---------------------------------------
+
+
+def _serving_lm(dtype):
+    """A small served model on the card and its CPU twin (same weights)."""
+    from horovod_tpu_torch.serving import engine as se
+
+    spec = se.ModelSpec(vocab=97, d_model=64, n_layers=2, n_heads=2,
+                        dtype=dtype, seed=1)
+    params = se.init_params(spec)
+    models = {}
+    for dev in ("cuda", "cpu"):
+        models[dev] = se.build_model(spec, device=dev)
+        models[dev].load_state_dict(params)
+    return spec, models
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_store_on_the_card_equals_the_cpu(cuda_device, dtype):
+    """gather_context / scatter_new / scatter_bulk are indexing: the card's
+    pages equal the CPU's bit for bit, trash block aside."""
+    from horovod_tpu_torch.serving import kv_cache, prefill
+
+    td = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(0)
+    pages = torch.randn(2, 2, 11, 4, 2, 8, generator=g).to(td)
+    tables = torch.tensor([[4, 1, 7, 10], [2, 10, 10, 10],
+                           [10, 10, 10, 10]])
+    k_new, v_new = torch.randn(2, 2, 3, 2, 5, 8, generator=g).to(td)
+    lengths, n_new = torch.tensor([6, 1, 0]), torch.tensor([5, 2, 0])
+    bulk = torch.randn(2, 2, 1, 2, 16, 8, generator=g).to(td)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = pages.clone().to(dev)
+        kc, vc = kv_cache.gather_context(p, tables.to(dev))
+        kv_cache.scatter_new(p, k_new.to(dev), v_new.to(dev), tables.to(dev),
+                             lengths.to(dev), n_new.to(dev))
+        prefill.scatter_bulk(p, bulk[0].to(dev), bulk[1].to(dev),
+                             [5, 0, 9, 10], 11, 10)
+        out[dev] = (kc.cpu(), vc.cpu(), p.cpu())
+    for a, b in zip(out["cpu"], out["cuda"]):
+        assert torch.equal(a[..., :10, :, :, :] if a.dim() == 6 else a,
+                           b[..., :10, :, :, :] if b.dim() == 6 else b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_step_on_the_card_matches_the_cpu(cuda_device, dtype):
+    """Three planned steps of ``make_step_fn`` on the card against the same
+    steps on the CPU: pages (atol 1e-5 in float32, 2 bf16 units of the
+    values in bfloat16) and, in float32, the sampled tokens (in bfloat16
+    the two devices' roundings may flip a near tie); both are fed the
+    CPU's tokens.  Then a bulk prefill (K1 once per layer) against the
+    CPU's blockwise forward."""
+    from horovod_tpu_torch.serving import engine as se
+    from horovod_tpu_torch.serving import kv_cache, prefill
+    from horovod_tpu_torch.serving.scheduler import Scheduler, ServeConfig
+
+    spec, models = _serving_lm(dtype)
+    cfg = ServeConfig(max_batch=3, prefill_chunk=4, block_tokens=4,
+                      num_blocks=16, max_blocks_per_seq=8)
+    atol = 1e-5 if dtype == "float32" else 2 * 2 ** -8 * 4
+    steps = {dev: se.make_step_fn(models[dev], cfg)
+             for dev in models}
+    pages = {dev: kv_cache.init_pages(2, 2, 32, 16, 4, spec.torch_dtype,
+                                      dev) for dev in models}
+    sch = Scheduler(cfg)
+    for n in (6, 3):
+        sch.submit("t", list(range(1, n + 1)), 4)
+    holder = type("E", (), {"cfg": cfg, "_trash": cfg.num_blocks})()
+    for _ in range(3):
+        plan = sch.step_plan()
+        tables = se.ServingEngine._tables_array(holder, plan)
+        tokens = torch.zeros(3, 4, dtype=torch.long)
+        n_new = torch.zeros(3, dtype=torch.long)
+        lengths = torch.zeros(3, dtype=torch.long)
+        for sp in plan.slots:
+            tokens[sp.slot, :sp.n_new] = torch.tensor(sp.tokens)
+            n_new[sp.slot], lengths[sp.slot] = sp.n_new, sp.length
+        got = {}
+        for dev in models:
+            got[dev], _ = steps[dev](
+                pages[dev], *(t.to(dev) for t in (
+                    tokens, n_new, lengths, torch.from_numpy(tables))))
+        if dtype == "float32":
+            assert torch.equal(got["cuda"].cpu(), got["cpu"])
+        diff = (pages["cuda"].cpu().float() - pages["cpu"].float())[
+            :, :, :-1].abs().max().item()
+        assert diff <= atol, diff
+        sch.complete_step(plan, got["cpu"].numpy())
+    buf = torch.arange(300).remainder(97).int().numpy()
+    before = tattn.launches["flash_fwd"]
+    res = {dev: prefill.RingPrefill(models[dev])(buf, 290)
+           for dev in models}
+    assert tattn.launches["flash_fwd"] - before == spec.n_layers
+    assert res["cuda"][2] == res["cpu"][2] or dtype != "float32"
+    for i in (0, 1):
+        assert (res["cuda"][i].cpu().float() - res["cpu"][i].float()).abs(
+        ).max().item() <= 10 * atol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("seq", [256, 512, 768])
+def test_k1_at_the_bulk_prefill_shapes(cuda_device, dtype, seq):
+    """K1 alone at the shapes bulk prefill gives it (one request of 8
+    heads, the bucketed prompt length, head dim 64)."""
+    g = torch.Generator(device=cuda_device).manual_seed(seq)
+    q, k, v = (torch.randn(8, seq, 64, device=cuda_device, generator=g)
+               .to(dtype) for _ in range(3))
+    p2, r = tattn._split_scale(64 ** -0.5)
+    errs = kernel_check.hold_fwd((q * p2).to(dtype), k, v, r, True)
+    assert max(e["worst"] for e in errs.values()) <= 1.0, errs

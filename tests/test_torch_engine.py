@@ -42,6 +42,18 @@ DTYPES = (torch.float32, torch.float64, torch.bfloat16, torch.int32,
           torch.int64)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def engines_built():
+    """Both engine libraries built before any timed launch: in a fresh
+    checkout the first rank of each package compiles its engine, which on
+    a loaded machine can take most of the launch's time limit."""
+    from horovod_tpu.engine import build as ref_build
+    from horovod_tpu_torch.engine import build as port_build
+
+    ref_build()
+    port_build.build()
+
+
 def _inputs(r, dtype, shape, case):
     """Rank ``r``'s input of ``case``: normal floats, or integers."""
     rng = np.random.RandomState(1000 * case + r)

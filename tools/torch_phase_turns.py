@@ -3,7 +3,7 @@
 Run from the repository root on a machine with one CUDA GPU::
 
     python3 tools/torch_phase_turns.py --parent proof/parent \\
-        [--phases train ring_train train_dp] [--rounds 1]
+        [--phases train ring_train train_dp resnet] [--rounds 1]
 
 Host-side step times move by tens of percent between chip calls, so a
 change is compared with its parent inside one call, in turns: parent,
@@ -27,9 +27,15 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# The throughput each phase reports.
+# The throughput each phase reports (resnet: ResNet-50's, its first run).
 METRIC = {"train": "tokens_per_s", "ring_train": "tokens_per_s",
-          "train_dp": "tokens_per_s"}
+          "train_dp": "tokens_per_s", "resnet": "images_per_s"}
+
+
+def metric(phase: str, rec: dict):
+    if phase == "resnet":
+        return rec["runs"][0][METRIC[phase]]
+    return rec.get(METRIC[phase])
 
 
 def run_turn(root: str, phases) -> dict:
@@ -83,7 +89,7 @@ def main():
                 for phase, rec in lines.items():
                     log.write(json.dumps({"side": side, "round": rnd,
                                           "turn": turn, **rec}) + "\n")
-                    seen[phase][side].append(rec.get(METRIC[phase]))
+                    seen[phase][side].append(metric(phase, rec))
                 log.flush()
     for phase, sides in seen.items():
         print(json.dumps({
