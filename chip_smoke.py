@@ -110,14 +110,43 @@ Phases, one JSON line each:
    [8r, 8r + 8) of a 16-row batch, against 3 steps of the size-1 step on
    all 16 rows; the losses must agree within 3 x the spread of two
    size-1 runs, with a floor of 1e-3 relative (printed beside them).
+12. ``pipeline`` — the pipeline path (``PIPE_HEADLINE``: the main path's
+   widths, 2 stages of 4 layers, 4 micro-batches of 4 x 1024) on 2 stage
+   ranks of the port's runner sharing this card, through
+   ``torch/train.py::run_pipeline`` (1F1B over the engine's p2p plane,
+   activations in pinned float32 buckets), 2 warm-up + 5 timed steps.
+   First K1 and B2 alone at the micro-batch's shape (4, 8, 1024, 64),
+   bf16, causal, against their plain versions, and timed there beside
+   SDPA's fastest backend and their bounds.  Printed: job tokens/s (16,384
+   tokens a step over the slower rank's median step, host clock), each
+   rank's median step, p2p sends, recvs and bytes per step, the engine's
+   cache hit rate over the timed steps, the bubble fraction, peak memory
+   per rank.  Gates: per rank K1 and B2 launched 4 layers x 4
+   micro-batches x 7 steps = 112 times, K2 and K3 never (the reference's
+   plan at this shape), no unmatched transfer, hit rate >= 0.9, losses
+   finite, starting within 1 of ln(32768) and falling; and the float32
+   parity: 3 steps of the pipeline from ``AVG_SEED`` against 3 size-1
+   ``build_lm_step`` steps on the whole batch (float32 logits), the last
+   stage's loss and each stage's gradient norm before each update within
+   3 x the spread of two size-1 runs, floor ``PIPE_FLOOR`` relative
+   (``tools/torch_pipeline_control.py`` seeds the backward with 1 in
+   place of 1/4 and must fail it).  The same in bf16 is printed, not
+   gated: stages after the first carry a float32 residual stream.
+13. ``pipeline_dp`` — 2 stages x 2 DP, 4 ranks on this card, batch 8 per
+   DP rank (the same 16,384 tokens a step), 4 micro-batches of 2, 1
+   warm-up + 3 timed steps.  Printed: job tokens/s and the wall ms of
+   each step's stage-group gradient average.  Gates: every gradient
+   average a stage-group op (one per leaf a step), the two replicas of a
+   stage bit-identical (one digest per stage), hit rate >= 0.9, no
+   unmatched transfer, K1 and B2 4 x 4 x 4 = 64 times per rank.
 
-12. ``image_models`` — ResNet-50, VGG16, InceptionV3 (299) and MnistCNN
+14. ``image_models`` — ResNet-50, VGG16, InceptionV3 (299) and MnistCNN
    (``horovod_tpu_torch/models``) at full width and batch 2 in float32
    with TF32 off: logits and every gradient on the card against the same
    weights on the CPU, both against the CPU in float64 (norm-wise: the
    card no further off than the CPU's float32, see the phase); then each
    in bf16 on the card, loss and gradients finite.
-13. ``resnet`` — ``RESNET_HEADLINE`` (ResNet-50, batch 64, 224, bf16) and
+15. ``resnet`` — ``RESNET_HEADLINE`` (ResNet-50, batch 64, 224, bf16) and
    ``RESNET101_HEADLINE`` through ``hvd.init()``, ``DistributedOptimizer``
    and the image step (``torch/image_step.py``: SGD momentum 0.9, the
    fused BN EMA): 3 warm-up and 10 timed steps, images/s from the median
@@ -125,7 +154,7 @@ Phases, one JSON line each:
    and falling on the fixed batch; one traced window of ResNet-50's step
    summed by kernel class (``tools/torch_step_profile.py``'s
    ``image_category``) with the card's idle share.
-14. ``resnet_dp`` — ResNet-50 data-parallel over 2 ranks on this card,
+16. ``resnet_dp`` — ResNet-50 data-parallel over 2 ranks on this card,
    batch 64 per rank, BN statistics cross-replica (``axis_name``, averaged
    through the engine inside the forward and their cotangent inside the
    backward, 53 + 53 blocking allreduces a step): job images/s,
@@ -135,7 +164,7 @@ Phases, one JSON line each:
    rows [32r, 32r + 32) of one batch of 64 against the size-1 step on all
    64 rows, losses and running stats within train_dp's rule.
 
-15. ``serve`` — the serving plane at size 1 (``SERVE_HEADLINE``: the LM
+17. ``serve`` — the serving plane at size 1 (``SERVE_HEADLINE``: the LM
    headline's widths in bf16, 8 decode slots, 16-token chunks and KV
    blocks, 512 blocks, 1024 tokens a request, bulk prefill from 256
    prompt tokens) through ``ServingEngine``: 24 requests of 3 tenants
@@ -155,7 +184,7 @@ Phases, one JSON line each:
    and f32) against its plain version; then the first 12 requests in
    float32, all submitted before the loop starts (two of them bulk),
    token for token against ``reference_decode`` on the card.
-16. ``serve_dp`` — 2 ranks of the port's runner on this card, each
+18. ``serve_dp`` — 2 ranks of the port's runner on this card, each
    running the serving entry point's ``serve()`` in float32 at the same
    widths; rank 0's front door takes the 12 requests over HTTP, 2 ms
    apart.  Gates: tokens equal to the size-1 float32 run's, one digest of
@@ -169,7 +198,8 @@ non-zero, any mismatch and any timeout fails the run.
 
 Then the ``{"kernels": [...]}`` summary (K1-K7, B2, and K1-K3 at head
 dims 256, 288, 512 and 1000; K1 and B2 with their launches per rank on
-``train_dp``, K1 with its launches on ``serve``), the
+``train_dp``, ``pipeline`` and ``pipeline_dp`` and their times at the
+pipeline's micro-batch shape, K1 with its launches on ``serve``), the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Any
 failure raises: the script exits non-zero and prints no result line.
 Tolerances (``horovod_tpu_torch/ops/kernel_check.py``, which gives the
@@ -223,9 +253,14 @@ from horovod_tpu_torch.runner import run_command  # noqa: E402
 from horovod_tpu_torch.models import norm as norm_mod  # noqa: E402
 from horovod_tpu_torch.models.layers import Dense  # noqa: E402
 from horovod_tpu_torch.torch import image_step as IS  # noqa: E402
+from horovod_tpu_torch.parallel import pipeline as P  # noqa: E402
+from horovod_tpu_torch.parallel.pipeline import partition_params  # noqa
 from horovod_tpu_torch.torch.lm_step import (HEADLINE,  # noqa: E402
-                                             RING_HEADLINE, SERVE_HEADLINE,
-                                             build_lm_step)
+                                             PIPE_HEADLINE, RING_HEADLINE,
+                                             SERVE_HEADLINE, adamw,
+                                             build_lm_step,
+                                             build_pipeline_stages)
+from horovod_tpu_torch.torch.train import run_pipeline  # noqa: E402
 from horovod_tpu_torch.serving import engine as SE  # noqa: E402
 from horovod_tpu_torch.serving import server as serve_server  # noqa: E402
 from horovod_tpu_torch.serving.__main__ import serve  # noqa: E402
@@ -271,6 +306,16 @@ N_MEMBERS = 4
 DP_RANKS = 2
 GRAD_BYTES = 224 << 20
 AVG_SEED = 7
+# The pipeline phases: stage ranks on this card, the micro-batch's q at
+# PIPE_HEADLINE (batch 4 of 16, 8 heads, seq 1024, head dim 64), and the
+# float32 parity rule's relative floor: sound runs read at most 1.4e-6 of
+# the value (a gradient norm), a backward seeded with 1 in place of 1/4
+# reads 3.0 (NVIDIA H100 80GB HBM3, 700.00 W; tools/torch_pipeline_control.py).
+PIPE_RANKS = 2
+PIPE_DP_RANKS = 4
+PIPE_MICRO = (4, 8, 1024, 64)
+PIPE_FLOOR = 1e-4
+PIPE_DP_HEADLINE = dict(PIPE_HEADLINE, batch=8)
 REPLACES = {
     "flash_fwd": "horovod_tpu/ops/attention.py:356",
     "flash_bwd": "horovod_tpu/ops/attention.py:498",
@@ -404,6 +449,59 @@ def check_case(shape, dtype, causal, seed=0):
     return {n: kernel_check.compare(got[n], ref[n]) for n in got}
 
 
+def k1_b2_entries(shape, errs, dtype=torch.bfloat16, causal=True):
+    """K1's and B2's summary rows at ``shape``: their times (and K2's and
+    K3's beside B2), their plain versions' (as held against the kernels),
+    SDPA's fastest backend's, the bounds, and the largest errors in
+    ``errs`` (``check_case``'s).  ``(entries, K2 ms, K3 ms, SDPA forward
+    ms by backend, SDPA backward ms by backend)``."""
+    _, qr, k, v, do, p2, scale_r = kernel_inputs(shape, dtype, 1)
+    o, lse = A.flash_fwd(qr, k, v, scale_r, causal)
+    delta = A._delta(o, do)
+    t_fwd = time_ms(lambda: A.flash_fwd(qr, k, v, scale_r, causal))
+    t_fwd_host = time_ms(lambda: A.flash_fwd(qr, k, v, scale_r, causal),
+                         host_ahead=False)
+    t_b2 = time_ms(lambda: A.flash_bwd(qr, k, v, do, lse, delta, scale_r, p2,
+                                       causal))
+    t_dkdv = time_ms(lambda: A.flash_bwd_dkdv(qr, k, v, do, lse, delta,
+                                              scale_r, causal))
+    t_dq = time_ms(lambda: A.flash_bwd_dq(qr, k, v, do, lse, delta, scale_r,
+                                          p2, causal))
+    t_plain_fwd = time_ms(lambda: A._blockwise_fwd_impl(
+        qr, k, v, causal, scale_r,
+        block_size=A.fwd_key_tile(dtype, shape[3])), warmup=1, iters=5)
+    t_plain_bwd = time_ms(lambda: A._attention_bwd_impl(
+        qr, k, v, lse, delta, do, causal, scale_r,
+        block_size=A.bwd_key_tile("combined", dtype, shape[3]), dq_scale=p2,
+        round_pds=True), warmup=1, iters=5)
+    # Library yardstick: PyTorch's SDPA on (b, h, s, d) under each
+    # backend, forward and its backward alone (dq, dk, dv in one autograd
+    # call).
+    b, h, s, d = shape
+    lib_fwd, t_lib_fwd, lib_bwd, t_lib_bwd = sdpa_times(shape, dtype, causal,
+                                                        None, 1)
+
+    bh = b * h
+    pairs = causal_pairs(s, s, causal) * bh
+    el = torch.tensor([], dtype=dtype).element_size()
+    tile = bh * s * d * el
+    row = bh * s * 4
+    err = {n: max(errs[o]["max_abs_err"] for o in outs)
+           for n, outs in (("flash_fwd", ("o", "lse")),
+                           ("flash_bwd", ("dq", "dk", "dv")))}
+    entries = {  # (flops, bytes: each input read once, each output written)
+        "flash_fwd": _entry(
+            "flash_fwd", t_fwd, t_plain_fwd, t_lib_fwd, 4 * d * pairs,
+            3 * tile + tile + row, dtype, err["flash_fwd"],
+            library_by_backend=lib_fwd, ms_with_host=t_fwd_host),
+        "flash_bwd": _entry(
+            "flash_bwd", t_b2, t_plain_bwd, t_lib_bwd, 10 * d * pairs,
+            4 * tile + 2 * row + 3 * tile, dtype, err["flash_bwd"],
+            library_by_backend=lib_bwd, k2_plus_k3_ms=t_dkdv + t_dq),
+    }
+    return entries, t_dkdv, t_dq, lib_fwd, lib_bwd
+
+
 def phase_kernels():
     cases = [(MAIN, torch.bfloat16, True), (MAIN, torch.float32, True),
              (MAIN, torch.float16, True), (MAIN, torch.bfloat16, False),
@@ -424,51 +522,8 @@ def phase_kernels():
 
     # Times at the main path's shape and dtype; the plain times are of the
     # plain versions as held against the kernels above.
-    dtype, causal = torch.bfloat16, True
-    _, qr, k, v, do, p2, scale_r = kernel_inputs(MAIN, dtype, 1)
-    o, lse = A.flash_fwd(qr, k, v, scale_r, causal)
-    delta = A._delta(o, do)
-    t_fwd = time_ms(lambda: A.flash_fwd(qr, k, v, scale_r, causal))
-    t_fwd_host = time_ms(lambda: A.flash_fwd(qr, k, v, scale_r, causal),
-                         host_ahead=False)
-    t_b2 = time_ms(lambda: A.flash_bwd(qr, k, v, do, lse, delta, scale_r, p2,
-                                       causal))
-    t_dkdv = time_ms(lambda: A.flash_bwd_dkdv(qr, k, v, do, lse, delta,
-                                              scale_r, causal))
-    t_dq = time_ms(lambda: A.flash_bwd_dq(qr, k, v, do, lse, delta, scale_r,
-                                          p2, causal))
-    t_plain_fwd = time_ms(lambda: A._blockwise_fwd_impl(
-        qr, k, v, causal, scale_r,
-        block_size=A.fwd_key_tile(dtype, MAIN[3])), warmup=1, iters=5)
-    t_plain_bwd = time_ms(lambda: A._attention_bwd_impl(
-        qr, k, v, lse, delta, do, causal, scale_r,
-        block_size=A.bwd_key_tile("combined", dtype, MAIN[3]), dq_scale=p2,
-        round_pds=True), warmup=1, iters=5)
-    # Library yardstick: PyTorch's SDPA on (b, h, s, d) under each
-    # backend, forward and its backward alone (dq, dk, dv in one autograd
-    # call).
-    b, h, s, d = MAIN
-    lib_fwd, t_lib_fwd, lib_bwd, t_lib_bwd = sdpa_times(MAIN, dtype, causal,
-                                                        None, 1)
-
-    bh = b * h
-    pairs = causal_pairs(s, s, causal) * bh
-    el = torch.tensor([], dtype=dtype).element_size()
-    tile = bh * s * d * el
-    row = bh * s * 4
-    err = {n: max(main_errs[o]["max_abs_err"] for o in outs)
-           for n, outs in (("flash_fwd", ("o", "lse")),
-                           ("flash_bwd", ("dq", "dk", "dv")))}
-    entries = {  # (flops, bytes: each input read once, each output written)
-        "flash_fwd": _entry(
-            "flash_fwd", t_fwd, t_plain_fwd, t_lib_fwd, 4 * d * pairs,
-            3 * tile + tile + row, dtype, err["flash_fwd"],
-            library_by_backend=lib_fwd, ms_with_host=t_fwd_host),
-        "flash_bwd": _entry(
-            "flash_bwd", t_b2, t_plain_bwd, t_lib_bwd, 10 * d * pairs,
-            4 * tile + 2 * row + 3 * tile, dtype, err["flash_bwd"],
-            library_by_backend=lib_bwd, k2_plus_k3_ms=t_dkdv + t_dq),
-    }
+    dtype = torch.bfloat16
+    entries, t_dkdv, t_dq, lib_fwd, lib_bwd = k1_b2_entries(MAIN, main_errs)
     emit("kernels", cases=results, shape=list(MAIN), dtype=str(dtype),
          timing={n: {k: e[k] for k in ("ms", "plain_ms", "bound_ms",
                                        "bound_by", "library_ms")}
@@ -1295,9 +1350,9 @@ def phase_ring_train():
 # --- the data-parallel phases: ranks of the port's runner on this card ---
 
 
-def run_ranks(phase, timeout, script=__file__):
+def run_ranks(phase, timeout, ranks=DP_RANKS, script=__file__):
     """Run ``<script> --rank <phase>`` (this script by default) on
-    ``DP_RANKS`` ranks; each rank's ``RESULT`` line, parsed.  A rank that
+    ``ranks`` ranks; each rank's ``RESULT`` line, parsed.  A rank that
     exits non-zero or a timeout fails the run; every rank's output is kept
     in OUT_DIR."""
     env = dict(os.environ)
@@ -1305,7 +1360,7 @@ def run_ranks(phase, timeout, script=__file__):
     env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
     results = run_command(
         [sys.executable, os.path.abspath(script), "--rank", phase],
-        DP_RANKS, env=env, timeout=timeout, capture=True)
+        ranks, env=env, timeout=timeout, capture=True)
     os.makedirs(OUT_DIR, exist_ok=True)
     out = []
     for r in results:
@@ -1474,16 +1529,16 @@ def phase_collectives():
         fail(f"collectives: the ranks held different checks: {res}")
 
 
-def profile_step(step, data, rank):
-    """One step under ``torch.profiler``: ``(wall ms, kernel-busy ms,
-    D2H ms, H2D ms)`` of this process, or Nones if the trace holds no
-    device time."""
-    path = os.path.join(OUT_DIR, f"train_dp_trace_rank{rank}.json")
+def profile_step(run, name):
+    """``run()`` (one step) under ``torch.profiler``: ``(wall ms,
+    kernel-busy ms, D2H ms, H2D ms)`` of this process, or Nones if the
+    trace holds no device time."""
+    path = os.path.join(OUT_DIR, f"{name}_trace.json")
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        step(data).item()
+        run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     prof.export_chrome_trace(path)
@@ -1542,7 +1597,8 @@ def rank_train_dp():
     peak = torch.cuda.max_memory_allocated()
     handles = len(step.optimizer.last_ticks)
     digest = params_digest(model)
-    wall, busy, d2h, h2d = profile_step(step, data, r)
+    wall, busy, d2h, h2d = profile_step(lambda: step(data).item(),
+                                        f"train_dp_rank{r}")
     del model, step, data
     torch.cuda.empty_cache()
     avg_losses = averaging_losses(slice(r * batch // n, (r + 1) * batch // n))
@@ -1636,6 +1692,374 @@ def phase_train_dp():
     if any(o > t for o, t in zip(off, tol)):
         fail(f"train_dp: averaged losses {dp} against size-1 {refs[0]}, "
              f"tolerance {tol}")
+    return res[0]["launches"]
+
+
+# --- the pipeline phases: stage ranks on this card (ROADMAP A.7) ---
+
+
+def pipeline_kernels():
+    """K1 and B2 held against their plain versions at the pipeline's
+    micro-batch shape (``check_case``, ``kernel_check``'s rule) and timed
+    there: their summary rows at ``PIPE_MICRO``."""
+    errs = check_case(PIPE_MICRO, torch.bfloat16, True)
+    held = {n: e for n, e in errs.items()
+            if n in ("o", "lse", "dq", "dk", "dv")}
+    if any(e["worst"] > 1.0 for e in held.values()):
+        fail(f"K1/B2 disagree with their plain versions at {PIPE_MICRO}: "
+             f"{held}")
+    entries = k1_b2_entries(PIPE_MICRO, errs)[0]
+    emit("pipeline_kernels", shape=list(PIPE_MICRO), errors=held,
+         timing={n: {k: e[k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms",
+                                       "max_abs_err")}
+                 for n, e in entries.items()})
+    return entries
+
+
+def _pipe_batches(data, steps, mark, snaps, waits):
+    """``steps`` copies of ``data``; a metrics snapshot (and a copy of
+    ``waits``) before step ``mark`` and after the last step (before the
+    closing barrier)."""
+    for i in range(steps):
+        if i == mark:
+            snaps.append((hvd_common.metrics_snapshot(), dict(waits)))
+        yield data
+    snaps.append((hvd_common.metrics_snapshot(), dict(waits)))
+
+
+def time_transport():
+    """Patch ``EngineTransport``'s send, recv and flush in this process to
+    add their host seconds to the returned dict: a send waits for its D2H
+    copy (this stage's work queued before it), a receive for the peer's
+    bucket, a flush for the peer to take the sends."""
+    waits = {"send": 0.0, "recv": 0.0, "flush": 0.0}
+    for name in waits:
+        real = getattr(P.EngineTransport, name)
+
+        def timed(self, *args, _real=real, _name=name):
+            t0 = time.perf_counter()
+            try:
+                return _real(self, *args)
+            finally:
+                waits[_name] += time.perf_counter() - t0
+
+        setattr(P.EngineTransport, name, timed)
+    return waits
+
+
+def p2p_round_trip_ms(nbytes, iters=5):
+    """Median ms of one ``nbytes`` float32 transfer between ranks 0 and 1
+    through the engine (half a ping-pong of pinned buffers)."""
+    buf = torch.empty(nbytes // 4, dtype=torch.float32, pin_memory=True)
+    r, times = hvdt.rank(), []
+    for i in range(iters + 1):
+        t0 = time.perf_counter()
+        if r == 0:
+            hvd_common.send(buf, 1, name="pingpong")
+            hvd_common.recv(buf, 1, name="pingpong")
+        else:
+            hvd_common.recv(buf, 0, name="pingpong")
+            hvd_common.send(buf, 0, name="pingpong")
+        if i:
+            times.append((time.perf_counter() - t0) * 1e3 / 2)
+    return statistics.median(times)
+
+
+def pipeline_window(snaps):
+    """The engine's cache hit rate, the p2p counters and the transport's
+    waits between the two snapshots of ``_pipe_batches``."""
+    (a, wa), (b, wb) = snaps
+    ca, cb = a["cache"]["engine"], b["cache"]["engine"]
+    hits, misses = cb["hits"] - ca["hits"], cb["misses"] - ca["misses"]
+    pa, pb = a["p2p"], b["p2p"]
+    return {"hit_rate": hits / max(hits + misses, 1), "hits": hits,
+            "misses": misses, "unmatched": pb["unmatched"],
+            **{k: pb[k] - pa[k] for k in ("sends", "recvs", "group_ops")},
+            "bytes_out": pb["bytes"]["out"] - pa["bytes"]["out"],
+            "bytes_in": pb["bytes"]["in"] - pa["bytes"]["in"],
+            **{f"{k}_wait_sec": wb[k] - wa[k] for k in wa}}
+
+
+def grad_norm(params):
+    return math.sqrt(sum(float(p.grad.double().square().sum())
+                         for p in params if p.grad is not None))
+
+
+def norm_probe(norms, names=None):
+    """A pre-step hook that appends the gradient norm of the optimizer's
+    parameters (with ``names``, a list of name sets and the optimizer's
+    parameter names, one norm per set)."""
+    def hook(opt, args, kwargs):
+        params = [p for g in opt.param_groups for p in g["params"]]
+        if names is None:
+            norms.append(grad_norm(params))
+        else:
+            sets, order = names
+            norms.append([grad_norm(p for n, p in zip(order, params)
+                                    if n in want) for want in sets])
+    return hook
+
+
+def pipeline_parity_run(dtype):
+    """3 steps of the pipeline from ``AVG_SEED`` in ``dtype`` on this
+    rank: ``{"losses", "grad_norms"}`` (the norm of this stage's
+    accumulated gradient before each update)."""
+    modules, _, data = build_pipeline_stages(**PIPE_HEADLINE, dtype=dtype,
+                                             seed=AVG_SEED)
+    norms = []
+
+    def make(params):
+        opt = adamw(params)
+        opt.register_step_pre_hook(norm_probe(norms))
+        return opt
+
+    _, _, losses = run_pipeline(modules, make, [data] * 3, n_stages=2,
+                                n_microbatches=PIPE_HEADLINE["microbatches"])
+    del modules, data
+    torch.cuda.empty_cache()
+    return {"losses": losses, "grad_norms": norms}
+
+
+def rank_pipeline():
+    """One stage rank of ``pipeline``: the timed run at PIPE_HEADLINE,
+    then the parity runs (float32, and bf16 reported)."""
+    hvdt.init(device="cuda:0")
+    warmup, timed = 2, 5
+    modules, grid, data = build_pipeline_stages(**PIPE_HEADLINE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    snaps, stats, waits = [], {}, time_transport()
+    A.reset_launches()
+    modules, _, losses = run_pipeline(
+        modules, adamw,
+        _pipe_batches(data, warmup + timed, warmup, snaps, waits),
+        n_stages=PIPE_HEADLINE["stages"],
+        n_microbatches=PIPE_HEADLINE["microbatches"], stats=stats)
+    torch.cuda.synchronize()
+    launched = dict(A.launches)
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [x * 1e3 for x in stats["step_sec"][warmup:]]
+    # One more step traced (fresh AdamW state: its first update allocates
+    # the moments), then one bucket's transfer alone.
+    profiled = profile_step(lambda: run_pipeline(
+        modules, adamw, [data], n_stages=PIPE_HEADLINE["stages"],
+        n_microbatches=PIPE_HEADLINE["microbatches"]),
+        f"pipeline_rank{hvdt.rank()}")
+    b, _, s, _ = PIPE_MICRO
+    bucket_ms = p2p_round_trip_ms(b * s * PIPE_HEADLINE["d_model"] * 4)
+    del modules, data
+    torch.cuda.empty_cache()
+    rank_result(rank=hvdt.rank(), stage=grid.stage, losses=losses,
+                step_ms=step_ms, median_step_ms=statistics.median(step_ms),
+                window=pipeline_window(snaps), timed=timed,
+                profiled_step_ms=profiled[0], busy_ms=profiled[1],
+                d2h_ms=profiled[2], h2d_ms=profiled[3],
+                bucket_transfer_ms=bucket_ms,
+                max_memory_allocated=peak, launches=launched,
+                parity={"float32": pipeline_parity_run(torch.float32),
+                        "bfloat16": pipeline_parity_run(torch.bfloat16)})
+    hvdt.shutdown()
+
+
+def pipeline_reference():
+    """Size-1 runs of ``build_lm_step`` from ``AVG_SEED`` on the whole
+    batch, float32 logits: two in float32 and one in bf16, each
+    ``{"losses", "grad_norms"}`` (per step, the norm of each stage's
+    share of the gradient)."""
+    n_layers, stages = PIPE_HEADLINE["n_layers"], PIPE_HEADLINE["stages"]
+
+    def run(dtype):
+        model, step, data = build_lm_step(**HEADLINE, dtype=dtype,
+                                          logits_dtype=torch.float32,
+                                          seed=AVG_SEED)
+        sets = [set(part[0]) for part in partition_params(
+            model.state_dict(), n_layers, stages)]
+        norms = []
+        step.optimizer._inner.register_step_pre_hook(norm_probe(
+            norms, (sets, [n for n, _ in model.named_parameters()])))
+        losses = [step(data).item() for _ in range(3)]
+        del model, step, data
+        torch.cuda.empty_cache()
+        return {"losses": losses, "grad_norms": norms}
+
+    hvd.init()
+    out = {"float32": [run(torch.float32), run(torch.float32)],
+           "bfloat16": run(torch.bfloat16)}
+    hvd.shutdown()
+    return out
+
+
+def pipeline_rule(res, refs, dtype="float32"):
+    """The parity rule on the ranks' ``parity[dtype]``: per step, the last
+    stage's loss and each stage's gradient norm within 3x the spread of
+    the two size-1 float32 runs, at least ``PIPE_FLOOR`` of the value.
+    ``(passes, report)``."""
+    a, b = refs["float32"]
+    last = max(res, key=lambda x: x["stage"])
+    rows = [("loss", last["parity"][dtype]["losses"], a["losses"],
+             b["losses"])]
+    for x in res:
+        rows.append((f"grad_norm.s{x['stage']}",
+                     x["parity"][dtype]["grad_norms"],
+                     [n[x["stage"]] for n in a["grad_norms"]],
+                     [n[x["stage"]] for n in b["grad_norms"]]))
+    report, ok = {}, True
+    for name, got, want, twin in rows:
+        err = [abs(g - w) for g, w in zip(got, want)]
+        tol = [max(3 * abs(w - t), PIPE_FLOOR * abs(w))
+               for w, t in zip(want, twin)]
+        ok = ok and len(got) == len(want) and all(
+            e <= t for e, t in zip(err, tol))
+        report[name] = {"pipeline": got, "size1": want, "abs_err": err,
+                        "tolerance": tol,
+                        "err_over_value": [e / abs(w)
+                                           for e, w in zip(err, want)]}
+    return ok, report
+
+
+def _want_launches(per):
+    """Launch counts of ``per`` attention calls at the pipeline's
+    micro-batch shape, in the reference plan's backward mode."""
+    b, h, s, d = PIPE_MICRO
+    split = A.bwd_mode(s, d, b * h) == "split"
+    return {"flash_fwd": per, "flash_bwd": 0 if split else per,
+            "flash_bwd_dkdv": per if split else 0,
+            "flash_bwd_dq": per if split else 0}
+
+
+def phase_pipeline():
+    torch.cuda.empty_cache()
+    entries = pipeline_kernels()
+    res = sorted(run_ranks("pipeline", timeout=600, ranks=PIPE_RANKS),
+                 key=lambda x: x["rank"])
+    refs = pipeline_reference()
+    vocab, batch, seq = (PIPE_HEADLINE[k] for k in
+                         ("vocab_size", "batch", "seq"))
+    n_micro, stages = PIPE_HEADLINE["microbatches"], PIPE_HEADLINE["stages"]
+    timed = res[0]["timed"]
+    want = _want_launches(PIPE_HEADLINE["n_layers"] // stages * n_micro
+                          * (len(res[0]["losses"])))
+    step_ms = max(x["median_step_ms"] for x in res)
+    ok, parity = pipeline_rule(res, refs)
+    _, parity_bf16 = pipeline_rule(res, refs, "bfloat16")
+    bf16 = refs["bfloat16"]["losses"]
+    bf16_pipe = res[-1]["parity"]["bfloat16"]["losses"]
+    losses = res[-1]["losses"]
+    emit("pipeline", ranks=PIPE_RANKS, stages=stages, microbatches=n_micro,
+         batch=batch, seq=seq, nvidia_smi=smi_line(),
+         tokens_per_s=batch * seq / (step_ms / 1e3),
+         median_step_ms=[x["median_step_ms"] for x in res],
+         step_ms=[x["step_ms"] for x in res],
+         p2p_per_step=[{k: x["window"][k] / timed for k in
+                        ("sends", "recvs", "bytes_out", "bytes_in")}
+                       for x in res],
+         unmatched=[x["window"]["unmatched"] for x in res],
+         hit_rate=[x["window"]["hit_rate"] for x in res],
+         cache=[(x["window"]["hits"], x["window"]["misses"]) for x in res],
+         wait_ms_per_step=[{k[:-4]: x["window"][k] * 1e3 / timed
+                            for k in x["window"] if k.endswith("_wait_sec")}
+                           for x in res],
+         bucket_transfer_ms=res[0]["bucket_transfer_ms"],
+         profiled_step_ms=[x["profiled_step_ms"] for x in res],
+         kernel_and_copy_busy_ms=[x["busy_ms"] for x in res],
+         d2h_ms=[x["d2h_ms"] for x in res], h2d_ms=[x["h2d_ms"] for x in res],
+         card_idle_share_estimate=(
+             None if None in [x["busy_ms"] for x in res] else
+             1.0 - sum(x["busy_ms"] for x in res)
+             / max(x["profiled_step_ms"] for x in res)),
+         bubble_fraction=P.bubble_fraction(stages, n_micro),
+         max_memory_allocated=[x["max_memory_allocated"] for x in res],
+         launches=[x["launches"] for x in res], want_launches=want,
+         losses=losses, parity_float32=parity, parity_passes=ok,
+         parity_floor=PIPE_FLOOR,
+         bf16_loss_diff=[p - r for p, r in zip(bf16_pipe, bf16)],
+         bf16_grad_norms=parity_bf16)
+    for x in res:
+        if x["launches"] != want:
+            fail(f"pipeline rank {x['rank']} launched {x['launches']}, "
+                 f"want {want}")
+        if x["window"]["unmatched"] or x["window"]["hit_rate"] < 0.9:
+            fail(f"pipeline rank {x['rank']}: {x['window']}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"pipeline: non-finite loss: {losses}")
+    if abs(losses[0] - math.log(vocab)) > 1.0 or losses[-1] >= losses[0]:
+        fail(f"pipeline: implausible loss trajectory: {losses}")
+    if not ok:
+        fail(f"pipeline: float32 parity with the size-1 step: {parity}")
+    return entries, res[0]["launches"]
+
+
+def rank_pipeline_dp():
+    """One rank of ``pipeline_dp`` (2 stages x 2 DP)."""
+    hvdt.init(device="cuda:0")
+    warmup, timed = 1, 3
+    modules, grid, data = build_pipeline_stages(**PIPE_DP_HEADLINE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    snaps, stats = [], {}
+    A.reset_launches()
+    modules, _, losses = run_pipeline(
+        modules, adamw, _pipe_batches(data, warmup + timed, warmup, snaps,
+                                      {}),
+        n_stages=PIPE_DP_HEADLINE["stages"],
+        n_microbatches=PIPE_DP_HEADLINE["microbatches"], stats=stats)
+    torch.cuda.synchronize()
+    step_ms = [x * 1e3 for x in stats["step_sec"][warmup:]]
+    sync_ms = [x * 1e3 for x in stats["grad_sync_sec"][warmup:]]
+    rank_result(rank=hvdt.rank(), stage=grid.stage, losses=losses,
+                step_ms=step_ms, median_step_ms=statistics.median(step_ms),
+                median_grad_sync_ms=statistics.median(sync_ms),
+                window=pipeline_window(snaps), timed=timed,
+                n_params=sum(len(list(m.parameters())) for m in modules),
+                max_memory_allocated=torch.cuda.max_memory_allocated(),
+                launches=dict(A.launches), digest=params_digest(modules[0]))
+    hvdt.shutdown()
+
+
+def phase_pipeline_dp():
+    torch.cuda.empty_cache()
+    res = sorted(run_ranks("pipeline_dp", timeout=600, ranks=PIPE_DP_RANKS),
+                 key=lambda x: x["rank"])
+    h = PIPE_DP_HEADLINE
+    dp = PIPE_DP_RANKS // h["stages"]
+    want = _want_launches(h["n_layers"] // h["stages"] * h["microbatches"]
+                          * len(res[0]["losses"]))
+    step_ms = max(x["median_step_ms"] for x in res)
+    emit("pipeline_dp", ranks=PIPE_DP_RANKS, stages=h["stages"], dp=dp,
+         microbatches=h["microbatches"], batch_per_dp_rank=h["batch"],
+         seq=h["seq"], nvidia_smi=smi_line(),
+         tokens_per_s=dp * h["batch"] * h["seq"] / (step_ms / 1e3),
+         median_step_ms=[x["median_step_ms"] for x in res],
+         group_allreduce_ms=[x["median_grad_sync_ms"] for x in res],
+         group_ops_per_step=[x["window"]["group_ops"] / x["timed"]
+                             for x in res],
+         leaves=[x["n_params"] for x in res],
+         unmatched=[x["window"]["unmatched"] for x in res],
+         hit_rate=[x["window"]["hit_rate"] for x in res],
+         max_memory_allocated=[x["max_memory_allocated"] for x in res],
+         launches=[x["launches"] for x in res], want_launches=want,
+         losses=[x["losses"] for x in res],
+         digests=[x["digest"] for x in res])
+    for x in res:
+        if x["launches"] != want:
+            fail(f"pipeline_dp rank {x['rank']} launched {x['launches']}, "
+                 f"want {want}")
+        w = x["window"]
+        if w["unmatched"] or w["hit_rate"] < 0.9:
+            fail(f"pipeline_dp rank {x['rank']}: {w}")
+        # Every gradient average is a stage-group op, one per leaf a step.
+        if w["group_ops"] != x["n_params"] * x["timed"]:
+            fail(f"pipeline_dp rank {x['rank']}: {w['group_ops']} group "
+                 f"ops for {x['n_params']} leaves x {x['timed']} steps")
+    for stage in range(h["stages"]):
+        digests = {x["digest"] for x in res if x["stage"] == stage}
+        if len(digests) != 1:
+            fail(f"pipeline_dp: stage {stage}'s replicas differ")
+    last = [lo for x in res if x["stage"] == h["stages"] - 1
+            for lo in x["losses"]]
+    if not all(math.isfinite(lo) for lo in last):
+        fail(f"pipeline_dp: non-finite loss: {last}")
     return res[0]["launches"]
 
 
@@ -2334,6 +2758,8 @@ def main():
     launched.update(phase_ring_train())
     phase_collectives()
     dp_launched = phase_train_dp()
+    pipe_entries, pipe_launched = phase_pipeline()
+    pipe_dp_launched = phase_pipeline_dp()
     phase_image_models()
     phase_resnet()
     phase_resnet_dp()
@@ -2347,6 +2773,14 @@ def main():
                          else launched)[name_]
     for name_ in ("flash_fwd", "flash_bwd"):
         entries[name_]["launches_train_dp_per_rank"] = dp_launched[name_]
+        entries[name_]["launches_pipeline_per_rank"] = pipe_launched[name_]
+        entries[name_]["launches_pipeline_dp_per_rank"] = \
+            pipe_dp_launched[name_]
+        entries[name_]["pipeline_shape"] = {
+            "shape": list(PIPE_MICRO),
+            **{k: pipe_entries[name_][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "library_by_backend", "max_abs_err")}}
     entries["flash_fwd"]["launches_serve"] = serve_launched["flash_fwd"]
     # The rows of head dims 256 and above carry the launches of the
     # head_dims phase's path.
@@ -2362,7 +2796,8 @@ def main():
 
 
 RANK_PHASES = {"collectives": rank_collectives, "train_dp": rank_train_dp,
-               "resnet_dp": rank_resnet_dp, "serve_dp": rank_serve_dp}
+               "resnet_dp": rank_resnet_dp, "serve_dp": rank_serve_dp,
+               "pipeline": rank_pipeline, "pipeline_dp": rank_pipeline_dp}
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank"]:

@@ -4,9 +4,12 @@ Counterpart of ``horovod_tpu/common/__init__.py``: the engine library
 (``engine/cc``, the port's own copy, built at first use by
 ``engine/build.py``) is loaded with ``ctypes``; ``init``/``shutdown`` start
 and stop it; ``rank``/``size``/``local_rank``/``local_size`` come from it;
-and ``allreduce_async``/``allgather_async``/``broadcast_async`` enqueue
+``allreduce_async``/``allgather_async``/``broadcast_async`` enqueue
 named collectives on contiguous CPU tensors through their ``data_ptr()``
-and return a :class:`Handle`.  The engine negotiates the names across
+and return a :class:`Handle`; ``allreduce_async(..., group=)`` scopes a
+reduction to a :class:`StageGroup`, and ``send_async``/``recv_async`` are
+the point-to-point plane a pipeline moves its activations on
+(``docs/pipeline.md``).  The engine negotiates the names across
 ranks, fuses what is ready in one cycle, and runs a ring over TCP on the
 host.  CUDA tensors reach it only through ``horovod_tpu_torch.torch``,
 which stages them in pinned host memory: the engine never sees a device
@@ -14,9 +17,9 @@ pointer.
 
 :func:`metrics_snapshot` reads the port's trimmed registry
 (``common/metrics.py``, the serving plane's counters) with the engine's
-response-cache counters folded in.  Not ported: the XLA data plane, stage
-groups, point-to-point transfers, the fault injector, and the timeline,
-postmortem and the rest of the metrics glue (``config.UNPORTED``).
+response-cache and point-to-point counters folded in.  Not ported: the
+XLA data plane, the fault injector, and the timeline, postmortem and the
+rest of the metrics glue (``config.UNPORTED``).
 """
 
 from __future__ import annotations
@@ -37,13 +40,17 @@ __all__ = [
     "HorovodNotInitializedError", "init", "shutdown", "is_initialized",
     "rank", "size", "local_rank", "local_size", "resolve_device",
     "Handle", "allreduce_async", "allgather_async", "broadcast_async",
-    "metrics_snapshot", "metrics_reset",
+    "allreduce", "StageGroup", "stage_group",
+    "send_async", "recv_async", "send", "recv", "metrics_snapshot",
+    "metrics_reset",
 ]
 
 # Op codes shared with the engine (engine/cc/wire.h OpType).
 OP_ALLREDUCE = 0
 OP_ALLGATHER = 1
 OP_BROADCAST = 2
+OP_SEND = 4
+OP_RECV = 5
 
 # Status codes (engine/cc/wire.h StatusCode).
 ST_OK = 0
@@ -119,6 +126,12 @@ def _load_lib():
         _declare(lib, "hvd_tpu_abort_message", c_str)
         _declare(lib, "hvd_tpu_enqueue", c_ll, c_int, c_str, c_ptr, c_ptr,
                  ctypes.POINTER(c_ll), c_int, c_int, c_int, c_int)
+        _declare(lib, "hvd_tpu_enqueue_p2p", c_ll, c_int, c_str, c_ptr,
+                 c_ptr, ctypes.POINTER(c_ll), c_int, c_int, c_int, c_int)
+        _declare(lib, "hvd_tpu_enqueue_group", c_ll, c_str, c_ptr, c_ptr,
+                 ctypes.POINTER(c_ll), c_int, c_int, c_int,
+                 ctypes.POINTER(c_ll), c_int)
+        _declare(lib, "hvd_tpu_p2p_info", c_str)
         for name in ("hvd_tpu_poll", "hvd_tpu_wait", "hvd_tpu_status"):
             _declare(lib, name, c_int, c_ll)
         _declare(lib, "hvd_tpu_error", c_str, c_ll)
@@ -269,12 +282,37 @@ def _sync_engine_cache() -> None:
                                         int(_lib.hvd_tpu_cache_size()))
 
 
+def _sync_engine_p2p() -> None:
+    """Mirror the engine's point-to-point counters into the registry's
+    ``p2p`` section: transfers and bytes per direction, matched against
+    the unmatched gauge, stage-group ops and open channels.  A state
+    copy, so idempotent."""
+    if _lib is None:
+        return
+    parts = _lib.hvd_tpu_p2p_info().decode().split("|")
+    if len(parts) != 8:
+        return
+    try:
+        (sends, recvs, bytes_out, bytes_in, matched, unmatched, group_ops,
+         channels) = (int(p) for p in parts)
+    except ValueError:
+        return
+    metrics.registry.set_p2p({
+        "sends": sends, "recvs": recvs,
+        "bytes": {"out": bytes_out, "in": bytes_in},
+        "matched": matched, "unmatched": unmatched,
+        "group_ops": group_ops, "channels": channels})
+
+
 def metrics_snapshot() -> dict:
     """The registry as a plain nested dict: ``cache`` (the engine's
-    negotiation response cache: hits, misses, evictions, size),
-    ``serving`` (request lifecycle, occupancy, KV pool, tenants) and
-    ``histograms``.  Callable before ``init()``."""
+    negotiation response cache: hits, misses, evictions, size), ``p2p``
+    (the point-to-point plane: sends, recvs, bytes out and in, matched,
+    unmatched, group ops, channels), ``serving`` (request lifecycle,
+    occupancy, KV pool, tenants) and ``histograms``.  Callable before
+    ``init()``."""
     _sync_engine_cache()
+    _sync_engine_p2p()
     return metrics.registry.snapshot()
 
 
@@ -441,21 +479,28 @@ def _check_out(out, tensor) -> None:
 def _enqueue(op: int, tensor, out, name: str, root_rank: int,
              average: bool) -> Handle:
     lib = _checked_lib()
-    shape = tuple(tensor.shape)
-    dims = (ctypes.c_longlong * len(shape))(*shape)
     raw = lib.hvd_tpu_enqueue(
         op, name.encode(), tensor.data_ptr(),
-        out.data_ptr() if out is not None else None, dims, len(shape),
+        out.data_ptr() if out is not None else None,
+        _dims(tuple(tensor.shape)), tensor.dim(),
         dtypes.torch_to_code(tensor.dtype), root_rank, int(average))
     if raw < 0:
         raise HorovodInternalError("engine is shut down")
     return Handle(raw, op, tensor, out, name)
 
 
+def _dims(shape):
+    return (ctypes.c_longlong * len(shape))(*shape)
+
+
 def allreduce_async(tensor, average: bool = True, name: Optional[str] = None,
-                    out=None) -> Handle:
+                    out=None, group: Optional["StageGroup"] = None) -> Handle:
     """Sum (or mean) across ranks of a contiguous CPU tensor into ``out``
-    (a new tensor by default; ``out`` may be ``tensor`` itself)."""
+    (a new tensor by default; ``out`` may be ``tensor`` itself).  With
+    ``group`` the reduction runs over the group's ranks only: the
+    data-parallel reduction inside one pipeline stage.  The coordinator
+    checks that every announcing rank lists the same group and fails a
+    mismatch with a typed ``ValueError``."""
     import torch
 
     _check_host(tensor)
@@ -463,8 +508,20 @@ def allreduce_async(tensor, average: bool = True, name: Optional[str] = None,
         out = torch.empty_like(tensor)
     else:
         _check_out(out, tensor)
-    return _enqueue(OP_ALLREDUCE, tensor, out, name or _auto_name("allreduce"),
-                    -1, average)
+    if group is None:
+        return _enqueue(OP_ALLREDUCE, tensor, out,
+                        name or _auto_name("allreduce"), -1, average)
+    lib = _checked_lib()
+    name = name or _auto_name("group_allreduce")
+    members = (ctypes.c_longlong * group.size)(*group.ranks)
+    raw = lib.hvd_tpu_enqueue_group(
+        name.encode(), tensor.data_ptr(), out.data_ptr(),
+        _dims(tuple(tensor.shape)), tensor.dim(),
+        dtypes.torch_to_code(tensor.dtype), int(average), members,
+        group.size)
+    if raw < 0:
+        raise HorovodInternalError("engine is shut down")
+    return Handle(raw, OP_ALLREDUCE, tensor, out, name)
 
 
 def allgather_async(tensor, name: Optional[str] = None) -> Handle:
@@ -491,3 +548,115 @@ def broadcast_async(tensor, root_rank: int, name: Optional[str] = None,
     return _enqueue(OP_BROADCAST, tensor, out, name or _auto_name("broadcast"),
                     root_rank, False)
 
+
+
+def allreduce(tensor, average: bool = True, name: Optional[str] = None,
+              group: Optional["StageGroup"] = None):
+    return allreduce_async(tensor, average, name, group=group).wait()
+
+
+
+# ---------------------------------------------------------------------------
+# Stage groups and the point-to-point plane (docs/pipeline.md).
+# ---------------------------------------------------------------------------
+
+
+class StageGroup:
+    """An immutable subset of ranks for scoped collectives.  A pipeline
+    job is a stages x data-parallel grid: a collective scoped to one
+    stage's group reduces along the DP axis, while ``send``/``recv`` cross
+    groups along the pipeline axis."""
+
+    def __init__(self, ranks):
+        members = sorted({int(r) for r in ranks})
+        if not members:
+            raise ValueError("stage group must contain at least one rank")
+        if members[0] < 0:
+            raise ValueError(f"stage group rank {members[0]} is negative")
+        self.ranks = tuple(members)
+
+    @property
+    def size(self) -> int:
+        return len(self.ranks)
+
+    def __contains__(self, r) -> bool:
+        return int(r) in self.ranks
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, StageGroup) and self.ranks == other.ranks
+
+    def __hash__(self) -> int:
+        return hash(self.ranks)
+
+    def __repr__(self) -> str:
+        return f"StageGroup(ranks={list(self.ranks)})"
+
+
+def stage_group(ranks) -> StageGroup:
+    """A :class:`StageGroup` of the given global ranks."""
+    return StageGroup(ranks)
+
+
+def _p2p_wire_name(name: Optional[str], src: int, dst: int,
+                   tag: int) -> str:
+    """The name a send and its receive negotiate under: the sender stamps
+    (rank -> peer), the receiver (peer -> rank), and both arrive at
+    ``<base>.p2p.<src>-<dst>.t<tag>``."""
+    return f"{name or 'p2p'}.p2p.{src}-{dst}.t{tag}"
+
+
+def _enqueue_p2p(op: int, tensor, peer: int, tag: int,
+                 wire_name: str) -> Handle:
+    lib = _checked_lib()
+    n = size()
+    if not 0 <= peer < n:
+        raise ValueError(f"p2p peer rank {peer} out of range for world "
+                         f"size {n}")
+    if peer == rank():
+        raise ValueError("p2p peer must be a different rank")
+    if tag < 0:
+        raise ValueError(f"p2p tag {tag} must be non-negative")
+    ptr = tensor.data_ptr()
+    raw = lib.hvd_tpu_enqueue_p2p(
+        op, wire_name.encode(), ptr if op == OP_SEND else None,
+        ptr if op == OP_RECV else None, _dims(tuple(tensor.shape)),
+        tensor.dim(), dtypes.torch_to_code(tensor.dtype), peer, tag)
+    if raw < 0:
+        raise HorovodInternalError("engine is shut down")
+    return Handle(raw, op, tensor, tensor, wire_name)
+
+
+def send_async(tensor, dest: int, tag: int = 0,
+               name: Optional[str] = None) -> Handle:
+    """Send a contiguous CPU tensor to global rank ``dest``.  Completes
+    once the matching :func:`recv` has announced; an unmatched send
+    raises ``CollectiveTimeoutError`` naming the tensor and the peer
+    after ``HVD_TPU_COLLECTIVE_TIMEOUT_SEC``.  The engine reads the
+    tensor when the transfer runs: keep it unchanged until the handle
+    completes."""
+    _check_host(tensor)
+    return _enqueue_p2p(OP_SEND, tensor, dest, tag,
+                        _p2p_wire_name(name, rank(), dest, tag))
+
+
+def recv_async(out, source: int, tag: int = 0,
+               name: Optional[str] = None) -> Handle:
+    """Receive from global rank ``source`` into ``out``, a contiguous CPU
+    tensor that autograd does not track: its shape and dtype are the
+    contract, which the coordinator checks against the sender's and fails
+    on a mismatch with a typed ``ValueError``."""
+    if out.device.type == "cpu" and (not out.is_contiguous()
+                                     or out.requires_grad):
+        # A tensor autograd tracks is not the engine's to write.
+        raise ValueError("recv buffer must be C-contiguous and writeable")
+    _check_host(out, "receive buffer")
+    return _enqueue_p2p(OP_RECV, out, source, tag,
+                        _p2p_wire_name(name, source, rank(), tag))
+
+
+def send(tensor, dest: int, tag: int = 0, name: Optional[str] = None):
+    send_async(tensor, dest, tag, name).wait()
+
+
+def recv(out, source: int, tag: int = 0, name: Optional[str] = None):
+    return recv_async(out, source, tag, name).wait()

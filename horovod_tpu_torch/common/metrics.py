@@ -1,10 +1,12 @@
-"""The port's metrics registry, trimmed to what the serving plane records.
+"""The port's metrics registry, trimmed to what the serving plane and the
+point-to-point plane record.
 
 Own copy of the serving half of ``horovod_tpu/common/metrics.py``: the
 request-lifecycle counters, decode-step occupancy, KV-pool gauges and
 per-tenant counters (tenant names come from the network, so their number
 is bounded), the serving latency histograms, and the engine's response
-cache counters that ``hvd.metrics_snapshot()`` folds in.  Everything is
+cache and point-to-point counters that ``hvd.metrics_snapshot()`` folds
+in.  Everything is
 recorded whether or not metrics are enabled, as in the reference, except
 the engine's ``step_sec``, which it observes only while ``enabled``
 (``HVD_TPU_METRICS=1``).  The metrics file dump, the Prometheus monitor
@@ -76,6 +78,9 @@ class MetricsRegistry:
     def _init_state(self) -> None:
         self._cache = {"engine": {"hits": 0, "misses": 0, "evictions": 0,
                                   "size": 0}}
+        self._p2p = {"sends": 0, "recvs": 0, "bytes": {"out": 0, "in": 0},
+                     "matched": 0, "unmatched": 0, "group_ops": 0,
+                     "channels": 0}
         self._serving = {
             **{e: 0 for e in SERVING_EVENTS},
             "steps": 0, "slot_steps": 0,
@@ -104,6 +109,18 @@ class MetricsRegistry:
     def set_cache_size(self, plane: str, size: int) -> None:
         with self._lock:
             self._cache[plane]["size"] = int(size)
+
+    def set_p2p(self, state: dict) -> None:
+        """Mirror the engine's point-to-point state (its counters are
+        cumulative, so this is a copy, idempotent)."""
+        with self._lock:
+            self._p2p = {
+                **{k: int(state.get(k, 0)) for k in (
+                    "sends", "recvs", "matched", "unmatched", "group_ops",
+                    "channels")},
+                "bytes": {d: int(state.get("bytes", {}).get(d, 0))
+                          for d in ("out", "in")},
+            }
 
     def _tenant_locked(self, tenant: str) -> dict:
         tenants = self._serving["tenants"]
@@ -153,6 +170,7 @@ class MetricsRegistry:
             return {
                 "enabled": self.enabled,
                 "cache": {p: dict(v) for p, v in self._cache.items()},
+                "p2p": {**self._p2p, "bytes": dict(self._p2p["bytes"])},
                 "serving": {
                     **{k: v for k, v in serving.items() if k != "tenants"},
                     "occupancy": (serving["slot_steps"] / (steps * slots)

@@ -47,12 +47,18 @@ def from_flax_params(tree) -> dict:
     """A flax ``params`` tree (nested dicts of arrays, e.g.
     ``jax.device_get(params)``; a ``{"params": ...}`` wrapper is accepted)
     to a ``state_dict`` that ``TransformerLM.load_state_dict(strict=True)``
-    takes.  float32 CPU tensors."""
+    takes.  float32 CPU tensors.  A pipeline stage's slice of the tree
+    (the reference's ``partition_params``) converts to the names of its
+    ``TransformerStage``: only the entries present are converted."""
     if "params" in tree and isinstance(tree["params"], dict):
         tree = tree["params"]
-    sd = {"embed.weight": _tensor(tree["embed"]["embedding"], False),
-          "final_norm.weight": _tensor(tree["final_norm"]["scale"], False),
-          "lm_head_kernel": _tensor(tree["lm_head_kernel"], False)}
+    sd = {}
+    if "embed" in tree:
+        sd["embed.weight"] = _tensor(tree["embed"]["embedding"], False)
+    if "final_norm" in tree:
+        sd["final_norm.weight"] = _tensor(tree["final_norm"]["scale"], False)
+    if "lm_head_kernel" in tree:
+        sd["lm_head_kernel"] = _tensor(tree["lm_head_kernel"], False)
     layers = sorted((int(m.group(1)), key) for key in tree
                     if (m := re.fullmatch(r"layer_(\d+)", key)))
     for i, key in layers:

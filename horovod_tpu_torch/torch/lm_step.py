@@ -26,6 +26,12 @@ horovod_tpu_torch.serving``): the same widths in bf16 with float32 logits
 1024-token context per request (64 blocks), and bulk prefill from 256
 prompt tokens.  Its page buffer is 8 x 2 x 513 x 16 x 8 x 64 bf16 values,
 134 MB.
+
+``PIPE_HEADLINE`` is the pipeline path (``torch/train.py::run_pipeline``):
+the same widths split over 2 stages of 4 layers, 4 micro-batches of a
+16 x 1024 batch per data-parallel rank, float32 logits on the last stage;
+:func:`build_pipeline_stages` gives a rank its stage from the weights
+:func:`build_lm_step` draws at size 1 from the same seed.
 """
 
 from __future__ import annotations
@@ -37,7 +43,9 @@ import torch
 
 from horovod_tpu_torch import common as hvd
 from horovod_tpu_torch.models import TransformerLM, next_token_loss
-from horovod_tpu_torch.parallel import RingMesh
+from horovod_tpu_torch.parallel import (PipelineGrid, RingMesh,
+                                        partition_params,
+                                        partition_transformer)
 from horovod_tpu_torch.serving.engine import ModelSpec
 from horovod_tpu_torch.serving.scheduler import ServeConfig
 from horovod_tpu_torch.torch import (DistributedOptimizer,
@@ -49,6 +57,7 @@ HEADLINE = dict(vocab_size=32768, d_model=512, n_layers=8, n_heads=8,
                 d_ff=2048, batch=16, seq=1024)
 RING_HEADLINE = dict(HEADLINE, batch=4, seq=4096, members=4,
                      ring_impl="fused")
+PIPE_HEADLINE = dict(HEADLINE, stages=2, microbatches=4)
 SERVE_HEADLINE = dict(
     spec=ModelSpec(vocab=HEADLINE["vocab_size"], d_model=HEADLINE["d_model"],
                    n_layers=HEADLINE["n_layers"], n_heads=HEADLINE["n_heads"],
@@ -94,3 +103,43 @@ def build_lm_step(device=None, *, vocab_size, d_model, n_layers, n_heads,
         0, vocab_size, (batch, seq + 1)))
     tokens = tokens.to(model.embed.weight.device)
     return model, step, (tokens[:, :-1], tokens[:, 1:])
+
+
+def adamw(params):
+    """The LM paths' optimizer, AdamW(1e-3) with optax's weight decay 1e-4,
+    as the per-chunk factory ``run_pipeline`` takes."""
+    return torch.optim.AdamW(params, lr=1e-3, weight_decay=1e-4)
+
+
+def build_pipeline_stages(device=None, *, vocab_size, d_model, n_layers,
+                          n_heads, d_ff, batch, seq, stages, microbatches,
+                          dtype=torch.bfloat16, seed=0):
+    """``(modules, grid, data)`` of this rank in a ``stages x dp``
+    pipeline (``hvd.init()`` first): its chunk of the LM, whose weights
+    are the ones :func:`build_lm_step` draws at size 1 from ``seed`` (the
+    whole model is drawn on the CPU and this stage's slice loaded), the
+    :class:`PipelineGrid`, and this DP rank's batch ``(inputs,
+    targets)``, ``batch`` rows from ``np.random.RandomState(seed +
+    dp_index)``: at one DP rank, the size-1 step's batch.  ``microbatches``
+    is ``run_pipeline``'s ``n_microbatches``, checked here against the
+    batch."""
+    grid = PipelineGrid(stages, hvd.size(), hvd.rank())
+    if batch % microbatches:
+        raise ValueError(f"batch {batch} does not split into "
+                         f"{microbatches} micro-batches")
+    full = TransformerLM(vocab_size=vocab_size, d_model=d_model,
+                         n_layers=n_layers, n_heads=n_heads, d_ff=d_ff,
+                         dtype=dtype, generator=torch.Generator().manual_seed(
+                             seed), device="cpu")
+    part = partition_params(full.state_dict(), n_layers, stages)[grid.stage]
+    del full
+    modules = partition_transformer(
+        vocab_size, d_model, n_layers, n_heads, stages, d_ff=d_ff,
+        dtype=dtype, device="meta")[grid.stage]
+    device = hvd.resolve_device(device)
+    for m, p in zip(modules, part):
+        m.to_empty(device=device).load_state_dict(p, strict=True)
+    tokens = torch.from_numpy(np.random.RandomState(
+        seed + grid.dp_index).randint(0, vocab_size, (batch, seq + 1)))
+    tokens = tokens.to(device)
+    return modules, grid, (tokens[:, :-1], tokens[:, 1:])

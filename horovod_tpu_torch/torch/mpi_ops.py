@@ -226,7 +226,7 @@ def _to_device(host: torch.Tensor, out: torch.Tensor,
 
 def _staged(op: int, tensor: torch.Tensor, name: Optional[str],
             out: Optional[torch.Tensor], root_rank: int,
-            average: bool) -> TorchHandle:
+            average: bool, group=None) -> TorchHandle:
     wire = name or _common._auto_name(
         ("allreduce", "allgather", "broadcast")[op])
     nbytes = tensor.numel() * tensor.element_size()
@@ -250,7 +250,8 @@ def _staged(op: int, tensor: torch.Tensor, name: Optional[str],
 
         def enqueue():
             if op == _common.OP_ALLREDUCE:
-                return _common.allreduce_async(host, average, wire, out=host)
+                return _common.allreduce_async(host, average, wire, out=host,
+                                               group=group)
             return _common.broadcast_async(host, root_rank, wire, out=host)
 
     handle = TorchHandle(wire, finish, keep=(tensor, out, buf))
@@ -289,7 +290,7 @@ def _prepare(tensor: torch.Tensor, inplace: bool) -> torch.Tensor:
 
 def _submit(op: int, tensor: torch.Tensor, name: Optional[str],
             inplace: bool, root_rank: int = -1,
-            average: bool = False) -> TorchHandle:
+            average: bool = False, group=None) -> TorchHandle:
     tensor = _prepare(tensor, inplace)
     n = _common.size()  # raises before init()
     if tensor.device.type == "cuda" and n == 1:
@@ -302,13 +303,14 @@ def _submit(op: int, tensor: torch.Tensor, name: Optional[str],
     if tensor.device.type == "cuda":
         out = tensor if inplace or op == _common.OP_ALLGATHER else \
             torch.empty_like(tensor)
-        return _staged(op, tensor, name, out, root_rank, average)
+        return _staged(op, tensor, name, out, root_rank, average, group)
     if op == _common.OP_ALLGATHER:
         inner = _common.allgather_async(tensor, name=name)
     else:
         out = tensor if inplace else torch.empty_like(tensor)
         if op == _common.OP_ALLREDUCE:
-            inner = _common.allreduce_async(tensor, average, name, out=out)
+            inner = _common.allreduce_async(tensor, average, name, out=out,
+                                            group=group)
         else:
             inner = _common.broadcast_async(tensor, root_rank, name, out=out)
     handle = TorchHandle(inner.name, lambda h: h.wait(), keep=(tensor,))
@@ -326,8 +328,12 @@ def allreduce_async(tensor: torch.Tensor, average: bool = True,
 
 
 def allreduce_async_(tensor: torch.Tensor, average: bool = True,
-                     name: Optional[str] = None) -> TorchHandle:
-    return _submit(_common.OP_ALLREDUCE, tensor, name, True, average=average)
+                     name: Optional[str] = None, group=None) -> TorchHandle:
+    """In place; with ``group`` (a
+    :class:`~horovod_tpu_torch.common.StageGroup`) the reduction runs over
+    the group's ranks only."""
+    return _submit(_common.OP_ALLREDUCE, tensor, name, True, average=average,
+                   group=group)
 
 
 class _AllreduceFunction(torch.autograd.Function):

@@ -756,3 +756,104 @@ def test_k1_at_the_bulk_prefill_shapes(cuda_device, dtype, seq):
     p2, r = tattn._split_scale(64 ** -0.5)
     errs = kernel_check.hold_fwd((q * p2).to(dtype), k, v, r, True)
     assert max(e["worst"] for e in errs.values()) <= 1.0, errs
+
+
+# --- the pipeline: EngineTransport's staging, the local pipeline -----------
+
+
+def _transport_rank():
+    """Rank 0 sends CUDA tensors (bf16 and f32) through
+    ``EngineTransport``; rank 1 receives three in a row through its one
+    bucket, each into a fresh device tensor, and sends their sum back."""
+    import horovod_tpu_torch.common as hvd
+    from horovod_tpu_torch.parallel import EngineTransport
+
+    hvd.init(device="cuda:0")
+    r = hvd.rank()
+    shape = (2, 64, 32)
+    sent = [torch.randn(shape, generator=torch.Generator().manual_seed(i))
+            .to(dtype).cuda() for i, dtype in enumerate(
+                (torch.bfloat16, torch.float32, torch.bfloat16))]
+    transport = EngineTransport(tag=3)
+    if r == 0:
+        for i, t in enumerate(sent):
+            transport.send(t, 1, f"act.{i}")
+        back = transport.recv(shape, 1, "sum", "cuda:0")
+        transport.flush()
+        want = sum(t.float() for t in sent)
+        assert back.is_cuda and back.dtype == torch.float32
+        assert torch.equal(back.cpu(), want.cpu())
+    else:
+        got = [transport.recv(shape, 0, f"act.{i}", "cuda:0")
+               for i in range(3)]
+        bucket = next(iter(transport._buckets.values()))[0]
+        assert bucket.is_pinned() and all(
+            g.is_cuda and g.data_ptr() != bucket.data_ptr() for g in got)
+        for g, t in zip(got, sent):  # earlier results not overwritten
+            assert torch.equal(g.cpu(), t.float().cpu())
+        transport.send(sum(got), 0, "sum")
+        transport.flush()
+    assert hvd.metrics_snapshot()["p2p"]["unmatched"] == 0
+    hvd.shutdown()
+
+
+@pytest.mark.cuda
+def test_engine_transport_stages_cuda_tensors(cuda_device):
+    import functools
+    import os
+
+    from horovod_tpu_torch.runner import launch_fn
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
+    results = launch_fn(functools.partial(_transport_rank), 2, env=env,
+                        timeout=300)
+    for res in results:
+        assert res.returncode == 0, res.stderr[-3000:]
+
+
+@pytest.mark.cuda
+def test_local_pipeline_on_the_card_matches_the_cpu(cuda_device):
+    """``run_local_pipeline`` at 2 stages x 2 chunks of a float32 LM
+    (head dim 64, seq 128: K1 and B2 on the card, their plain versions on
+    the CPU): loss and every gradient against the CPU run (float32 on two
+    devices in two summation orders: loss rtol 1e-5, gradients atol 1e-4
+    and rtol 1e-3), K1 and B2 once per layer and micro-batch."""
+    import numpy as np
+
+    from horovod_tpu_torch.models import TransformerLM, next_token_loss
+    from horovod_tpu_torch.parallel import pipeline as P
+
+    vocab, d_model, layers, heads, seq, batch, micro = 96, 128, 4, 2, 128, \
+        4, 2
+    state = TransformerLM(vocab, d_model, layers, heads, dtype=torch.float32,
+                          device="cpu").state_dict()
+    tokens = np.random.RandomState(3).randint(0, vocab, (batch, seq + 1))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        modules = P.partition_transformer(vocab, d_model, layers, heads, 2,
+                                          2, dtype=torch.float32,
+                                          device=dev)
+        parts = P.partition_params(state, layers, 2, 2)
+        for s in range(2):
+            for c in range(2):
+                modules[s][c].load_state_dict(parts[s][c])
+        transport = P.LocalTransport()
+        runners = [P.PipelineRunner(
+            modules[s], P.PipelineGrid(2, 2, s), micro, transport,
+            loss_fn=next_token_loss if s == 1 else None) for s in range(2)]
+        before = dict(tattn.launches)
+        loss, grads = P.run_local_pipeline(runners, tokens[:, :-1],
+                                           tokens[:, 1:])
+        launched = {n: tattn.launches[n] - before[n] for n in before}
+        flat = {n: g.cpu() for stage in grads for tree in stage
+                for n, g in tree.items()}
+        out[dev] = (loss, flat, launched)
+    assert out["cuda"][2] == {"flash_fwd": layers * micro,
+                              "flash_bwd": layers * micro,
+                              "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
+    assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-5)
+    for name, want in out["cpu"][1].items():
+        torch.testing.assert_close(out["cuda"][1][name], want, atol=1e-4,
+                                   rtol=1e-3, msg=name)
