@@ -43,16 +43,21 @@ Phases, one JSON line each:
    Then ``head_dims``: K1, K2 and K3 at head dim 256 (bf16, 1040
    batch-heads x seq 512) and on their wide bodies (``flash_wide.cu``) at
    288, 512 (64 batch-heads x seq 1024) and 1000 (32 x 1024, run padded
-   to 1024), and K1 and B2 at head dims 16 and 80 on the main path's
-   shape (run zero-padded to 32 and 96), each held alone against its
-   plain version at the caller's head dim, the padded columns exactly 0;
-   ``flash_attention`` forward and backward at each with the counters
-   zeroed just before and read just after (K1 1, and K2 1 + K3 1 at 256
-   and above, B2 1 at 16 and 80), its output and gradients against the
-   plain blockwise path; times beside SDPA's fastest backend at the same
-   head dim (above 256 the math backend too) and the bound of the
-   caller's work.  The summary's rows of head dims 256, 288, 512 and 1000
-   come from here.
+   to 1024) in bf16 (K1 and K2 on the wgmma bodies of
+   ``flash_wide_sm90.cuh``, K3 on SIMT), at 512 in fp16, and at 288 in
+   f32 (8 batch-heads x seq 512: every body on SIMT), and K1 and B2 at
+   head dims 16 and 80 on the main path's shape (run zero-padded to 32
+   and 96), each held alone against its plain version at the caller's
+   head dim, the padded columns exactly 0; ``flash_attention`` forward
+   and backward at each with the counters zeroed just before and read
+   just after (K1 1, and K2 1 + K3 1 at 256 and above, B2 1 at 16 and
+   80), its output and gradients against the plain blockwise path; times
+   beside SDPA's fastest backend at the same head dim (above 256 the math
+   backend too), the bound of the caller's work, the TFLOP/s and share of
+   that bound, and above 256 in bf16 the SIMT bodies' times quoted from
+   PERF.md in this phase's line only (not measured here, so never in the
+   summary).  The summary's rows of head dims 256 and above come from
+   here.
 6. ``ring_kernels`` — K4 ``ring_flash_fwd``, K5 ``ring_flash_bwd``, K6
    ``ring_permute`` and K7 ``phase_closer`` on a ring of 4 members
    co-located on the card (``RingMesh``, one stream each), shard
@@ -267,9 +272,6 @@ from horovod_tpu_torch.serving.__main__ import serve  # noqa: E402
 from horovod_tpu_torch.serving.scheduler import Scheduler  # noqa: E402
 from tools.torch_step_profile import image_category, trace_steps  # noqa
 
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.backends.cudnn.allow_tf32 = False
-
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "chiprun_out")
 # H100 SXM data-sheet peaks (dense), at the 700 W limit.
@@ -290,11 +292,25 @@ RING = (4, 8, 1024, 64)  # one member's shard on the ring path (4 members)
 # (run zero-padded to 32 and 96) on the main path's shape.
 HEAD_DIM_WIDE = (1, 1040, 512, 256)
 HEAD_DIM_PADDED = ((16, 8, 1024, 16), (16, 8, 1024, 80))
-# Head dims above 256 (ROADMAP C.1): the wide bodies of K1, K2 and K3
-# (csrc/flash_wide.cu) at 288 and 512, and at 1000 (run padded to 1024).
-HEAD_DIM_WIDER = ((1, 64, 1024, 288), (1, 64, 1024, 512),
-                  (1, 32, 1024, 1000))
+# Head dims above 256 (ROADMAP C.1), (shape, dtype): the wide bodies of
+# K1, K2 and K3 at 288 and 512, and at 1000 (run padded to 1024), in bf16;
+# at 512 in fp16 (K1's and K2's wgmma bodies in the other 16-bit type);
+# and at a small shape in f32 (the SIMT bodies K1 and K2 keep there).
+HEAD_DIM_WIDER = (((1, 64, 1024, 288), torch.bfloat16),
+                  ((1, 64, 1024, 512), torch.bfloat16),
+                  ((1, 32, 1024, 1000), torch.bfloat16),
+                  ((1, 64, 1024, 512), torch.float16),
+                  ((1, 8, 512, 288), torch.float32))
 WIDE_SOURCE = "horovod_tpu_torch/ops/csrc/flash_wide.cu"
+# K1's and K2's bodies above 256 in fp16 and bf16.
+WIDE_SM90_SOURCE = "horovod_tpu_torch/ops/csrc/flash_wide_sm90.cuh"
+# Quoted, not measured by this script: the SIMT bodies' times in bf16 at
+# HEAD_DIM_WIDER's bf16 shapes, before K1 and K2 moved to wgmma, in ms of
+# K1, K2, K3 by head dim (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md
+# section 6).  They go into the head_dims phase's line only, beside the
+# times measured, never into the kernels line.
+WIDE_QUOTED_MS = {288: (4.606, 14.604, 7.909), 512: (9.838, 33.260, 18.197),
+                   1000: (17.525, 60.833, 33.673)}
 # The image phases: the models held card against CPU, and the ResNet
 # data-parallel phase's averaging check seed.
 IMAGE_MODELS = (("resnet50", 224), ("vgg16", 224), ("inception_v3", 299),
@@ -844,12 +860,26 @@ def attention_work(shape, dtype, causal):
     return pairs, tile, b * h * s * 4
 
 
+def _dtype_tag(dtype):
+    return {torch.bfloat16: "", torch.float16: "_fp16",
+            torch.float32: "_f32"}[dtype]
+
+
+def _rates(entry):
+    """``entry`` with the TFLOP/s of the caller's work and its share of
+    the bound."""
+    entry["tflops"] = entry["flops"] / entry["ms"] / 1e9
+    entry["bound_share"] = entry["bound_ms"] / entry["ms"]
+    return entry
+
+
 def phase_head_dims():
-    """Head dims other than the main path's (ROADMAP C.1), bf16, causal.
-    K1, K2 and K3 at the wide head dim 256 on the split phase's shape and
-    on their wide bodies at 288, 512 and 1000 (run padded to 1024), and
-    K1 and B2 at head dims 16 and 80 (no body takes them: the inputs run
-    zero-padded to 32 and 96) on the main path's shape, each held alone
+    """Head dims other than the main path's (ROADMAP C.1), causal.
+    K1, K2 and K3 at the wide head dim 256 on the split phase's shape
+    (bf16) and on their wide bodies at HEAD_DIM_WIDER (288, 512 and 1000,
+    run padded to 1024, in bf16; 512 in fp16; 288 in f32), and K1 and B2
+    at head dims 16 and 80 (no body takes them: the inputs run zero-padded
+    to 32 and 96) on the main path's shape in bf16, each held alone
     against its plain version at the caller's head dim; ``flash_attention``
     forward and backward at each, the counters zeroed just before and read
     just after each (K1 1, and K2 1 + K3 1 at 256 and above, B2 1 at 16
@@ -858,20 +888,21 @@ def phase_head_dims():
     80, padding included) timed beside SDPA's fastest backend at the same
     head dim and the bound of the caller's work.  Returns the summary's
     rows of 256 and above."""
-    dtype, causal = torch.bfloat16, True
-    cases = ([(HEAD_DIM_WIDE, "split")] + [(s, "split")
-                                           for s in HEAD_DIM_WIDER]
-             + [(s, "combined") for s in HEAD_DIM_PADDED])
+    causal = True
+    cases = ([(HEAD_DIM_WIDE, torch.bfloat16, "split")]
+             + [(s, dt, "split") for s, dt in HEAD_DIM_WIDER]
+             + [(s, torch.bfloat16, "combined") for s in HEAD_DIM_PADDED])
     result, entries = {}, {}
-    for shape, mode in cases:
+    for shape, dtype, mode in cases:
         d = shape[-1]
+        tag = f"d{d}{_dtype_tag(dtype)}"
         if A.bwd_mode(shape[2], d, shape[0] * shape[1]) != mode:
             fail(f"the plan does not pick {mode} at {shape}")
         errs, zero_pad = hold_padded(shape, dtype, causal, mode, 20 + d)
         launched, got, want = drive_flash_attention(shape, dtype, causal,
                                                     30 + d)
         if not all(bool(torch.isfinite(t).all()) for t in got.values()):
-            fail(f"flash_attention at {shape}: non-finite output")
+            fail(f"flash_attention at {shape} {dtype}: non-finite output")
         path_err = _rel_errs(got, want)
         del got, want
         want_launches = {"flash_fwd": 1,
@@ -879,15 +910,16 @@ def phase_head_dims():
                          "flash_bwd_dkdv": int(mode == "split"),
                          "flash_bwd_dq": int(mode == "split")}
         worst = max(e["worst"] for e in errs.values())
-        row = {"shape": list(shape), "mode": mode,
+        row = {"shape": list(shape), "dtype": str(dtype), "mode": mode,
                "body_head_dim": A.padded_head_dim(d), "errors": errs,
                "worst": worst, "padded_columns_zero": zero_pad,
                "launches": launched, "path_rel_err": path_err}
-        result[f"d{d}"] = row
+        result[tag] = row
         if worst > 1.0 or not zero_pad or launched != want_launches \
                 or max(path_err.values()) > 5e-2:
             emit("head_dims", cases=result)
-            fail(f"head dim {d}: {row}, want launches {want_launches}")
+            fail(f"head dim {d} {dtype}: {row}, want launches "
+                 f"{want_launches}")
 
         # Times: the kernels at 256 and above; flash_attention itself at 16
         # and 80, where the padding is part of the cost.
@@ -922,27 +954,41 @@ def phase_head_dims():
                                    ("flash_bwd_dq", ("dq",)))}
             bounds = split_bounds(shape, dtype, causal)
             wide = d > A.WIDE_HEAD_DIM
-            note = (f"head dim {d} at {list(shape)}"
+            note = (f"head dim {d} at {list(shape)}, {dtype}"
                     + (f" (the wide body, padded to {body})"
                        if wide and body != d else
                        " (the wide body)" if wide else "")
                     + "; library_ms: SDPA's fastest backend (forward for "
                     "K1, whole backward for K2 and K3); bound of the "
                     "caller's head dim's work")
+            quoted = (WIDE_QUOTED_MS.get(d, (None,) * 3)
+                      if dtype == torch.bfloat16 else (None,) * 3)
+            # K1's and K2's 16-bit bodies above 256 are the wgmma ones.
+            sm90_body = wide and dtype != torch.float32
             source = WIDE_SOURCE if wide else None
-            entries[f"flash_fwd_d{d}"] = _entry(
-                f"flash_fwd_d{d}", t_k1, t_plain_fwd, t_lib_fwd,
+            entries[f"flash_fwd_{tag}"] = _rates(_entry(
+                f"flash_fwd_{tag}", t_k1, t_plain_fwd, t_lib_fwd,
                 4 * d * pairs, 4 * tile + rowb, dtype, err["flash_fwd"],
-                kernel="flash_fwd", source=source,
-                library_by_backend=lib_fwd, shape=list(shape), note=note)
-            for name, t in (("flash_bwd_dkdv", t_k2), ("flash_bwd_dq", t_k3)):
-                entries[f"{name}_d{d}"] = _entry(
-                    f"{name}_d{d}", t, t_plain_bwd, t_lib_bwd, *bounds[name],
-                    dtype, err[name], kernel=name, source=source,
+                kernel="flash_fwd",
+                source=WIDE_SM90_SOURCE if sm90_body else source,
+                library_by_backend=lib_fwd, shape=list(shape), note=note))
+            for name, t in (("flash_bwd_dkdv", t_k2),
+                            ("flash_bwd_dq", t_k3)):
+                sm90 = sm90_body and name == "flash_bwd_dkdv"
+                entries[f"{name}_{tag}"] = _rates(_entry(
+                    f"{name}_{tag}", t, t_plain_bwd, t_lib_bwd,
+                    *bounds[name], dtype, err[name], kernel=name,
+                    source=WIDE_SM90_SOURCE if sm90 else source,
                     library_by_backend=lib_bwd, shape=list(shape),
-                    note=note + "; plain_ms: the whole plain split backward")
-            for name in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"):
-                entries[f"{name}_d{d}"]["launches"] = launched[name]
+                    note=note + "; plain_ms: the whole plain split "
+                    "backward"))
+            for name, q in zip(("flash_fwd", "flash_bwd_dkdv",
+                                "flash_bwd_dq"), quoted):
+                e = entries[f"{name}_{tag}"]
+                e["launches"] = launched[name]
+                row["times"][name] = {k: e[k] for k in (
+                    "ms", "tflops", "bound_share", "library_ms")}
+                row["times"][name]["quoted_simt_ms"] = q
             del largs, qr, k, v, do, lse, delta
         else:
             g = torch.Generator(device="cuda").manual_seed(60 + d)
@@ -972,13 +1018,17 @@ def phase_head_dims():
                 "library_bwd_ms": t_lib_bwd, "fwd_bound_ms": fwd_bound[0],
                 "bwd_bound_ms": bwd_bound[0]}
             del xs, ct, out
+        torch.cuda.empty_cache()
     emit("head_dims", cases=result,
          note="times: flash_attention (fwd_ms, bwd_ms: the padding, the "
               "kernels and the slicing) at head dims 16 and 80, K1 and B2 "
               "alone on the padded inputs beside them, the kernels alone at "
-              "256 and above (on inputs padded to the body's head dim); "
-              "bounds of the caller's head dim's work; sdpa: each backend "
-              "at the same head dim (and the math backend above 256)")
+              "256 and above (on inputs padded to the body's head dim; "
+              "tflops and bound_share of the caller's work; quoted_simt_ms: "
+              "the SIMT bodies' bf16 times from PERF.md, quoted and not "
+              "measured in this run); bounds of the caller's head "
+              "dim's work; sdpa: each backend at the same head dim (and "
+              "the math backend above 256)")
     return entries
 
 
@@ -2095,7 +2145,11 @@ def _normwise(got, want):
 
 
 def phase_image_models():
-    """ResNet-50, VGG16, InceptionV3 (299) and MnistCNN at full width and
+    """The float32 policy is the package's own (``import horovod_tpu_torch``
+    turns TF32 off for matmuls and cuDNN convolutions); this phase holds
+    the models under it and fails if it is not in force.
+
+    ResNet-50, VGG16, InceptionV3 (299) and MnistCNN at full width and
     batch 2, the same weights and standard-normal images (centred, so BN's
     E[x^2] - E[x]^2 does not cancel) on the card and on the CPU:
 
@@ -2114,6 +2168,10 @@ def phase_image_models():
       float64 on the CPU and 70% on the card, while in float64 the two
       devices agree to 5e-13;
     * bf16 on the card: loss and gradients finite."""
+    if (torch.backends.cudnn.allow_tf32
+            or torch.backends.cuda.matmul.allow_tf32):
+        fail("the package's float32 policy (TF32 off for matmuls and cuDNN "
+             "convolutions) is not in force")
     rows = {}
     for name, side in IMAGE_MODELS:
         classes = 10 if name == "mnist" else 1000

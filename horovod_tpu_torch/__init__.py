@@ -17,7 +17,19 @@ through hand-written CUDA flash-attention kernels (``ops/csrc``); with
 ``seq_axis=`` a ``parallel.RingMesh`` it is ring attention over members
 co-located on the card, through the ring kernels in the same directory.
 The package imports nothing of ``horovod_tpu`` and no JAX.
+
+Importing it sets the float32 numerics of the card to what the float32
+reference computes: ``torch.backends.cuda.matmul.allow_tf32`` and
+``torch.backends.cudnn.allow_tf32`` both False, so float32 matmuls and
+convolutions (the image models') keep full float32 and never run in TF32
+(about three decimal digits).  PyTorch's own defaults leave the matmul
+flag False and the cuDNN flag True.  bf16 and fp16 work is unaffected.
 """
+
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
 
 from horovod_tpu_torch.common import (  # noqa: F401
     HorovodInternalError,

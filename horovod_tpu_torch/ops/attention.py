@@ -25,14 +25,16 @@ Counterpart of ``horovod_tpu/ops/attention.py``.  Layout convention:
   (:func:`padded_head_dim`: 32, 64, 96, 128, and 256 for K1, K2, K3);
   above 256 K1, K2 and K3 run their wide bodies (``csrc/flash_wide.cu``,
   O's and the gradients' columns split across blocks) on the head dim
-  zero-padded to a multiple of 32.  Any other CUDA input the kernels
-  cannot take raises; nothing falls back.
+  zero-padded to a multiple of 32: in fp16 and bf16, K1 and K2 on wgmma
+  and TMA (``csrc/flash_wide_sm90.cuh``), in f32 K1 and K2, and K3 in
+  every dtype, on SIMT.  Any other CUDA input the kernels cannot take
+  raises; nothing falls back.
 
 The plain versions multiply in float32 on operands rounded to the storage
 dtype — the reference's ``preferred_element_type=float32`` — so f32 matmul
-precision matters: with TF32 enabled the card would keep ~3 digits.
-Importing this module sets ``torch.backends.cuda.matmul.allow_tf32 =
-False`` (PyTorch's own default), so the plain versions never see TF32.
+precision matters: with TF32 enabled the card would keep ~3 digits.  The
+package turns TF32 off for matmuls and convolutions when it is imported
+(``horovod_tpu_torch/__init__.py``), so the plain versions never see it.
 """
 
 from __future__ import annotations
@@ -48,8 +50,6 @@ NEG_INF = -1e30  # big-negative instead of -inf: exp() stays NaN-free when a
 POS_BIG = 1e30   # logsumexp sentinel for rows with no mass: exp(s - POS_BIG)
 # underflows to exactly 0 for any finite s
 
-torch.backends.cuda.matmul.allow_tf32 = False
-
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 # Head dims of every kernel body (K1-K5, B2).
 HEAD_DIMS = (32, 64, 96, 128)
@@ -60,10 +60,14 @@ WIDE_HEAD_DIM = 256
 # Head dims of the bodies of K1, K2 and K3.
 _SPLIT_HEAD_DIMS = HEAD_DIMS + (WIDE_HEAD_DIM,)
 # Above 256, K1, K2 and K3 run their wide bodies (csrc/flash_wide.cu) on
-# any head dim that is a multiple of their head-dim chunk, DC; their key
-# tile, TK, is 64 keys in every dtype and both directions.
+# any head dim that is a multiple of their head-dim chunk, DC (the panel,
+# PANEL, of the 16-bit bodies in csrc/flash_wide_sm90.cuh).  Key tiles by
+# dtype class: the forward's is the 16-bit K1 body's FWD_KEYS and the f32
+# SIMT body's TK; the split mode's is K3's, the one its dq sums over (the
+# SIMT TK in every dtype; K2's keys per CTA do not change any sum).
 WIDE_CHUNK = 32
-_WIDE_KEY_TILE = 64
+_WIDE_KEY_TILE = {"fwd": {"16-bit": 128, "f32": 64},
+                  "split": {"16-bit": 64, "f32": 64}}
 # Key tile of each forward body per head dim, as in the CUDA sources: the
 # 16-bit wgmma body (csrc/flash_fwd_sm90.cuh, key_tile) and the f32 SIMT
 # body (csrc/flash_common.cuh, f32_tile).  The online softmax advances its
@@ -106,8 +110,7 @@ def _key_tiles(d: int) -> dict:
     have no combined mode."""
     body = padded_head_dim(d)
     if body > WIDE_HEAD_DIM:
-        tile = {"16-bit": _WIDE_KEY_TILE, "f32": _WIDE_KEY_TILE}
-        return {"fwd": tile, "split": tile}
+        return dict(_WIDE_KEY_TILE)
     return {"fwd": _FWD_KEY_TILE[body], **_BWD_KEY_TILE[body]}
 
 
@@ -126,10 +129,10 @@ def bwd_key_tile(mode: str, dtype, d: int) -> int:
     (csrc/flash_bwd_sm90.cuh, sm90::BWD_BN) and, for the split pair, K3's
     key tile, the one its dq sums over (csrc/flash_dq_sm90.cuh,
     ``dq_key_tile``); 64 for the f32 SIMT bodies (csrc/flash_common.cuh,
-    f32_tile) of both modes, 32 at head dim 256; 64 for the wide bodies
-    above 256 (csrc/flash_wide.cu, TK).  A plain side that holds a kernel
-    walks the keys in the kernel's key tiles, so dq sums in the same
-    blocks.  The combined mode stops at head dim 128, as :func:`bwd_mode`
+    f32_tile) of both modes, 32 at head dim 256; 64 above 256, K3's wide
+    SIMT body's (csrc/flash_wide.cu, TK) in every dtype.  A plain side
+    that holds a kernel walks the keys in the kernel's key tiles, so dq
+    sums in the same blocks.  The combined mode stops at head dim 128, as :func:`bwd_mode`
     does."""
     if mode not in ("combined", "split"):
         raise ValueError(f"unknown backward mode {mode!r}")
@@ -612,8 +615,9 @@ def flash_attention(q, k, v, causal: bool = False,
     ignored: the kernels fix their own tiles (the forward 128 query rows
     by 128 keys in 16 bits, 64 keys above head_dim 64, and 64 by 64 in
     float32, :func:`fwd_key_tile`; the backward :func:`bwd_key_tile`; 64
-    query rows and 32 x 32 f32 tiles at head_dim 256; 64 x 64 tiles and
-    128 output columns per block above 256).
+    query rows and 32 x 32 f32 tiles at head_dim 256; above 256, 128
+    query rows by 128 keys in 16 bits and 64 by 64 in float32, with at
+    most 128 output columns per block).
     """
     del block_q, block_k
     if layout not in ("bhsd", "bshd"):

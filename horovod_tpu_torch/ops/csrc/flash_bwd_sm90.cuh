@@ -449,12 +449,12 @@ template <typename T, int D>
 int make_bwd_maps(CUtensorMap* maps, const void* q, const void* dout,
                   const void* k, const void* v, float* dq, int bh, int sq,
                   int sk) {
-  int e = make_map<T, D>(&maps[0], q, bh, sq, BWD_BM);
-  if (e == 0) e = make_map<T, D>(&maps[1], dout, bh, sq, BWD_BM);
-  if (e == 0) e = make_map<T, D>(&maps[2], k, bh, sk, bwd_keys<D>());
-  if (e == 0) e = make_map<T, D>(&maps[3], v, bh, sk, bwd_keys<D>());
+  int e = make_map<T>(&maps[0], q, bh, sq, D, BWD_BM);
+  if (e == 0) e = make_map<T>(&maps[1], dout, bh, sq, D, BWD_BM);
+  if (e == 0) e = make_map<T>(&maps[2], k, bh, sk, D, bwd_keys<D>());
+  if (e == 0) e = make_map<T>(&maps[3], v, bh, sk, D, bwd_keys<D>());
   if (e == 0 && dq != nullptr)
-    e = make_map<float, D>(&maps[4], dq, bh, sq, BWD_BM);
+    e = make_map<float>(&maps[4], dq, bh, sq, D, BWD_BM);
   return e;
 }
 

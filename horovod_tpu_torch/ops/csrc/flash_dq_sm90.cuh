@@ -365,10 +365,10 @@ __device__ __forceinline__ void dq_qtile(
 template <typename T, int D>
 int make_dq_maps(CUtensorMap* maps, const void* q, const void* dout,
                  const void* k, const void* v, int bh, int sq, int sk) {
-  int e = make_map<T, D>(&maps[0], q, bh, sq, dq_rows<D>());
-  if (e == 0) e = make_map<T, D>(&maps[1], dout, bh, sq, dq_rows<D>());
-  if (e == 0) e = make_map<T, D>(&maps[2], k, bh, sk, dq_key_tile<D>());
-  if (e == 0) e = make_map<T, D>(&maps[3], v, bh, sk, dq_key_tile<D>());
+  int e = make_map<T>(&maps[0], q, bh, sq, D, dq_rows<D>());
+  if (e == 0) e = make_map<T>(&maps[1], dout, bh, sq, D, dq_rows<D>());
+  if (e == 0) e = make_map<T>(&maps[2], k, bh, sk, D, dq_key_tile<D>());
+  if (e == 0) e = make_map<T>(&maps[3], v, bh, sk, D, dq_key_tile<D>());
   return e;
 }
 

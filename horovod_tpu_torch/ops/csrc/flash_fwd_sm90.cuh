@@ -399,9 +399,9 @@ template <typename T, int D>
 int make_maps(CUtensorMap* mq, CUtensorMap* mk, CUtensorMap* mv,
               const void* q, const void* k, const void* v, int bh, int sq,
               int sk) {
-  int e = make_map<T, D>(mq, q, bh, sq, fwd_rows<D>());
-  if (e == 0) e = make_map<T, D>(mk, k, bh, sk, key_tile<D>());
-  if (e == 0) e = make_map<T, D>(mv, v, bh, sk, key_tile<D>());
+  int e = make_map<T>(mq, q, bh, sq, D, fwd_rows<D>());
+  if (e == 0) e = make_map<T>(mk, k, bh, sk, D, key_tile<D>());
+  if (e == 0) e = make_map<T>(mv, v, bh, sk, D, key_tile<D>());
   return e;
 }
 

@@ -1,6 +1,9 @@
 // K1, K2 and K3 at head dims above 256 for Hopper (sm_90a): the wide
 // bodies of the flash forward (flash_fwd_wide) and of the split backward
-// (flash_bwd_dkdv_wide, flash_bwd_dq_wide).
+// (flash_bwd_dkdv_wide, flash_bwd_dq_wide).  In fp16 and bf16, K1 and K2
+// run the wgmma/TMA bodies of flash_wide_sm90.cuh (its note gives their
+// design); f32 K1 and K2, and K3 in every dtype, run the SIMT bodies
+// below.
 //
 // They replace the Pallas TPU kernels `_flash_kernel`
 // (horovod_tpu/ops/attention.py:356) and `_flash_bwd_dkdv_kernel` /
@@ -8,18 +11,18 @@
 // computes above 256: its `_bwd_plan` sends every head dim above 128 to
 // the split backward, so these three are the kernels it runs there.
 //
-// The problem at these widths is shared memory, not arithmetic: the other
-// bodies keep a whole query tile and whole key and value tiles resident,
-// and at head dim 512 a 128-row query tile with one key and one value
-// tile is 256 KB, above the 227 KB a block may hold.  These bodies split
-// the output's columns across blocks instead.  A block owns one tile of
-// its stationary operand (64 query rows for K1 and K3, 64 keys for K2)
-// and DV = 128 columns of its outputs (O; dK and dV; dQ).  It streams
-// every tile of the other operand; for each it forms S = q' k^T (and, in
-// the backward, dP = dO v^T) over the whole head dim in DC = 32-column
-// chunks staged through shared memory, and then adds that tile's product
-// into its own columns.  Every block of a row tile recomputes the same S
-// (d / DV times in all): the price of any head dim in ~66-116 KB of
+// The SIMT bodies.  The problem at these widths is shared memory, not
+// arithmetic: the bodies up to 256 keep a whole query tile and whole key
+// and value tiles resident, and at head dim 512 a 128-row query tile with
+// one key and one value tile is 256 KB, above the 227 KB a block may hold.
+// These bodies split the output's columns across blocks instead.  A block
+// owns one tile of its stationary operand (64 query rows for K1 and K3, 64
+// keys for K2) and DV = 128 columns of its outputs (O; dK and dV; dQ).  It
+// streams every tile of the other operand; for each it forms S = q' k^T
+// (and, in the backward, dP = dO v^T) over the whole head dim in DC =
+// 32-column chunks staged through shared memory, and then adds that tile's
+// product into its own columns.  Every block of a row tile recomputes the
+// same S (d / DV times in all): the price of any head dim in ~66-116 KB of
 // shared memory.  The column blocks of one tile compute S, the softmax
 // statistics and P identically, so they agree bit for bit on what they
 // share, and the first writes lse.
@@ -32,8 +35,8 @@
 // forward's running max advances one 64-key tile at a time and l sums the
 // unrounded p.  Bound on the card: by operations at every shape the
 // callers use (8 d and more FLOP per causal pair against 2 d bytes);
-// these bodies reach the SIMT f32 rate at best, a redesign on wgmma is
-// later work (ROADMAP B).
+// these bodies reach the SIMT f32 rate at best.  K3's redesign on wgmma
+// is later work (ROADMAP B).
 //
 // Head dims: any multiple of DC above 256 (the wrappers zero-pad to one,
 // ops/attention.py `padded_head_dim`); the last column block of a head
@@ -45,6 +48,7 @@
 // is masked.
 
 #include "flash_common.cuh"
+#include "flash_wide_sm90.cuh"
 
 namespace hvdt {
 namespace wide {
@@ -428,17 +432,24 @@ inline int blocks(int bh, int rows, int tile, int d) {
   return bh * ((rows + tile - 1) / tile) * ((d + DV - 1) / DV);
 }
 
+// K1 and K2: fp16 and bf16 go to the wgmma bodies (flash_wide_sm90.cuh),
+// so fwd_kernel and dkdv_kernel above are built for f32 alone.
 template <typename T>
 int launch_fwd(const void* q, const void* k, const void* v, void* o,
                float* lse, int bh, int sq, int sk, int d, float scale_r,
                int causal, cudaStream_t stream) {
-  const int e = prepare<T>(0, fwd_kernel<T>, FWD_SMEM);
-  if (e != 0) return e;
-  fwd_kernel<T><<<blocks(bh, sq, TR, d), NTH, FWD_SMEM, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, bh,
-      (d + DV - 1) / DV, sq, sk, d, scale_r, causal);
-  return (int)cudaGetLastError();
+  if constexpr (!std::is_same<T, float>::value) {
+    return wide90::launch_fwd<T>(q, k, v, o, lse, bh, sq, sk, d, scale_r,
+                                 causal, stream);
+  } else {
+    const int e = prepare<T>(0, fwd_kernel<T>, FWD_SMEM);
+    if (e != 0) return e;
+    fwd_kernel<T><<<blocks(bh, sq, TR, d), NTH, FWD_SMEM, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(o), lse, bh,
+        (d + DV - 1) / DV, sq, sk, d, scale_r, causal);
+    return (int)cudaGetLastError();
+  }
 }
 
 template <typename T>
@@ -446,14 +457,19 @@ int launch_dkdv(const void* q, const void* k, const void* v, const void* dout,
                 const float* lse, const float* delta, void* dk, void* dv,
                 int bh, int sq, int sk, int d, float scale_r, int causal,
                 cudaStream_t stream) {
-  const int e = prepare<T>(1, dkdv_kernel<T>, DKDV_SMEM);
-  if (e != 0) return e;
-  dkdv_kernel<T><<<blocks(bh, sk, TK, d), NTH, DKDV_SMEM, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dk), static_cast<T*>(dv), bh, (d + DV - 1) / DV, sq,
-      sk, d, scale_r, causal);
-  return (int)cudaGetLastError();
+  if constexpr (!std::is_same<T, float>::value) {
+    return wide90::launch_dkdv<T>(q, k, v, dout, lse, delta, dk, dv, bh, sq,
+                                  sk, d, scale_r, causal, stream);
+  } else {
+    const int e = prepare<T>(1, dkdv_kernel<T>, DKDV_SMEM);
+    if (e != 0) return e;
+    dkdv_kernel<T><<<blocks(bh, sk, TK, d), NTH, DKDV_SMEM, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+        static_cast<T*>(dk), static_cast<T*>(dv), bh, (d + DV - 1) / DV,
+        sq, sk, d, scale_r, causal);
+    return (int)cudaGetLastError();
+  }
 }
 
 template <typename T>

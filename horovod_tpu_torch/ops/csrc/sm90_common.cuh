@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the wgmma/TMA bodies of the
-// flash forward (flash_fwd_sm90.cuh: K1, K4) and backward
-// (flash_bwd_sm90.cuh: B2, K5): mbarriers, TMA loads through 3-D tensor
+// flash forward (flash_fwd_sm90.cuh: K1, K4), backward
+// (flash_bwd_sm90.cuh: B2, K5) and the wide 16-bit bodies above head dim
+// 256 (flash_wide_sm90.cuh: K1, K2): mbarriers, TMA loads through 3-D tensor
 // maps, wgmma shared-memory descriptors and groups, and the run-time
 // fetch of the tensor-map encoder.
 //
@@ -254,22 +255,24 @@ inline int encode_fn(EncodeTiled* fn) {
   return 0;
 }
 
-// Map of a contiguous (bh, rows, D) tensor of T, boxes of 64 bytes of
+// Map of a contiguous (bh, rows, d) tensor of T, boxes of 64 bytes of
 // head dim (PANEL 16-bit elements, 64-byte swizzle) or, for f32, of 128
 // bytes (32 elements, 128-byte swizzle) x box_rows x 1; zero fill past
-// `rows` on loads, nothing written there by stores.  Returns 0, or a CUDA
-// error code (a driver refusal as cudaErrorInvalidValue).
-template <typename T, int D>
-int make_map(CUtensorMap* map, const void* ptr, int bh, int rows,
+// `rows` on loads, nothing written there by stores.  d is a multiple of
+// 32 (a row stride of 2 d or 4 d bytes, 16-byte aligned as TMA needs).
+// Returns 0, or a CUDA error code (a driver refusal as
+// cudaErrorInvalidValue).
+template <typename T>
+int make_map(CUtensorMap* map, const void* ptr, int bh, int rows, int d,
              int box_rows) {
   EncodeTiled encode;
   const int e = encode_fn(&encode);
   if (e != 0) return e;
   constexpr bool F32 = std::is_same<T, float>::value;
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows,
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows,
                               (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * sizeof(T),
-                                 (cuuint64_t)rows * D * sizeof(T)};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * sizeof(T),
+                                 (cuuint64_t)rows * d * sizeof(T)};
   const cuuint32_t box[3] = {(cuuint32_t)(F32 ? 32 : PANEL),
                              (cuuint32_t)box_rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};

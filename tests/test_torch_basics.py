@@ -5,6 +5,8 @@ from JAX and horovod_tpu."""
 import ast
 import glob
 import os
+import subprocess
+import sys
 
 import pytest
 import torch
@@ -146,6 +148,24 @@ def test_build_without_nvcc_raises(monkeypatch):
     assert [os.path.basename(s) for s in _build.sources()] == [
         "flash_bwd.cu", "flash_bwd_split.cu", "flash_fwd.cu", "flash_wide.cu",
         "ring_flash.cu", "ring_permute.cu"]
+
+
+def test_import_turns_tf32_off_for_matmuls_and_convolutions():
+    """Importing the package sets the float32 policy of the card: neither
+    matmuls nor cuDNN convolutions run in TF32, so the float32 image models
+    compute what the float32 reference computes.  In a fresh interpreter:
+    PyTorch's default leaves cuDNN's flag on before the import."""
+    code = ("import torch\n"
+            "before = torch.backends.cudnn.allow_tf32\n"
+            "import horovod_tpu_torch\n"
+            "print(before, torch.backends.cuda.matmul.allow_tf32,\n"
+            "      torch.backends.cudnn.allow_tf32)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout.split()
+    assert out == ["True", "False", "False"]
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
 
 
 _FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "horovod_tpu")

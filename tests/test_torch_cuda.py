@@ -313,6 +313,42 @@ def test_flash_attention_at_other_head_dims(cuda_device, dtype, d, mode):
             assert err <= 5e-2 * b.abs().max().item(), err
 
 
+# The 16-bit wide bodies of K1 and K2 (csrc/flash_wide_sm90.cuh) at their
+# edges: (seq, head dim, causal).  Ragged sequences (not a multiple of the
+# 128-row and 128-key tiles nor of K2's 32-row query step), non-causal
+# cases, head dim 288 (9 panels: an odd count, so a last one-panel chunk
+# of S, and three column CTAs of 3 panels each) and 320 (10: 4 + 3 + 3,
+# the shorter shares' windows shifted left inside the head dim).
+_WIDE_EDGES = [(200, 288, True), (333, 288, False), (65, 320, True),
+               (129, 512, False), (256, 1024, True), (2, 288, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("seq,d,causal", _WIDE_EDGES)
+def test_wide_16bit_bodies_at_their_edges(cuda_device, seq, d, causal,
+                                          dtype):
+    """K1 and K2 on their wgmma wide bodies (K3 on its SIMT one) against
+    the plain side that walks their key tiles (kernel_check's rule), one
+    launch each; lse with no POS_BIG row (every row sees a key)."""
+    g = torch.Generator(device=cuda_device).manual_seed(seq * 7 + d)
+    q, k, v, do = (torch.randn(3, seq, d, device=cuda_device, generator=g)
+                   .to(dtype) for _ in range(4))
+    p2, r = tattn._split_scale(d ** -0.5)
+    qr = (q * p2).to(dtype)
+    ref, delta = kernel_check.plain_outputs(qr, k, v, do, causal, r, p2,
+                                            "split")
+    before = dict(tattn.launches)
+    got = kernel_check.kernel_outputs(qr, k, v, do, ref["lse"], delta, p2, r,
+                                      causal, "split")
+    torch.cuda.synchronize()
+    assert {n: tattn.launches[n] - before[n] for n in before} == {
+        "flash_fwd": 1, "flash_bwd": 0, "flash_bwd_dkdv": 1,
+        "flash_bwd_dq": 1}
+    for name, err in kernel_check.compare_outputs(got, ref).items():
+        assert err["worst"] <= 1.0, (name, err)
+
+
 @pytest.mark.cuda
 def test_unsupported_cuda_input_raises(cuda_device):
     q = torch.randn(1, 1, 64, 64, device=cuda_device, dtype=torch.float64)

@@ -21,6 +21,8 @@ test_torch_transformer.py).
 """
 
 import functools
+import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -38,6 +40,7 @@ from horovod_tpu_torch.models import TransformerLM, next_token_loss
 from horovod_tpu_torch.models import transformer as ttr
 from horovod_tpu_torch.models.convert import from_flax_params
 from horovod_tpu_torch.ops import attention as tattn
+from horovod_tpu_torch.ops import kernel_check
 from horovod_tpu_torch.ops import ring_attention as tring_attention
 from horovod_tpu_torch.ops import ring_flash as trf
 from horovod_tpu_torch.parallel import RingMesh
@@ -90,15 +93,16 @@ def test_head_dims_above_256_take_the_wide_bodies(d):
 @pytest.mark.parametrize("d", [16, 48, 80, 136, 200, 256, 288, 300, 1024])
 def test_key_tiles_follow_the_padded_body(d, dtype):
     """The key tiles answer for the body that runs the padded head dim:
-    the 16-bit forward 128 keys up to 64, 64 above; the f32 bodies 64 up
-    to 128 and 32 at 256; the split pair 64 keys in 16 bits; the wide
-    bodies 64 keys in every dtype; no combined body above 128."""
+    the 16-bit forward 128 keys up to 64, 64 to 256 and 128 above (the
+    wgmma wide body's FWD_KEYS); the f32 bodies 64 up to 128, 32 at 256
+    and 64 above; the split pair 64 keys in 16 bits, and K3's wide SIMT
+    body 64 in every dtype; no combined body above 128."""
     body = tattn.padded_head_dim(d)
     f32 = dtype == torch.float32
     f32_tile = 64 if body <= 128 or body > 256 else 32
     assert tattn.fwd_key_tile(dtype, d) == tattn.fwd_key_tile(dtype, body)
     assert tattn.fwd_key_tile(dtype, d) == (
-        f32_tile if f32 else (128 if body <= 64 else 64))
+        f32_tile if f32 else (128 if body <= 64 or body > 256 else 64))
     assert tattn.bwd_key_tile("split", dtype, d) == (f32_tile if f32
                                                      else 64)
     if body <= 128:
@@ -107,6 +111,71 @@ def test_key_tiles_follow_the_padded_body(d, dtype):
     else:
         with pytest.raises(ValueError, match="combined"):
             tattn.bwd_key_tile("combined", dtype, d)
+
+
+def _constants(source):
+    """``{name: value}`` of the ``constexpr int`` constants of a kernel
+    source in ops/csrc."""
+    with open(os.path.join(os.path.dirname(tattn.__file__), "csrc",
+                           source)) as f:
+        return {k: int(v) for k, v in
+                re.findall(r"constexpr int (\w+) = (\d+);", f.read())}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_wide_tile_constants_match_the_tables(dtype):
+    """The wide bodies' tile and chunk constants, read from the sources,
+    are attention.py's tables: the head-dim chunk (the SIMT bodies' DC,
+    the 16-bit bodies' PANEL) is WIDE_CHUNK; the forward's key tile is
+    FWD_KEYS of csrc/flash_wide_sm90.cuh in 16 bits and TK of
+    csrc/flash_wide.cu in float32; the split mode's is K3's TK in every
+    dtype.  The plain side that holds a kernel walks these tiles, so the
+    two cannot drift apart."""
+    simt = _constants("flash_wide.cu")
+    wgmma = _constants("flash_wide_sm90.cuh")
+    assert simt["DC"] == _constants("sm90_common.cuh")["PANEL"] \
+        == tattn.WIDE_CHUNK
+    fwd = simt["TK"] if dtype == torch.float32 else wgmma["FWD_KEYS"]
+    for d in (257, 288, 512, 1000, 1024):
+        assert tattn.fwd_key_tile(dtype, d) == fwd
+        assert tattn.bwd_key_tile("split", dtype, d) == simt["TK"]
+
+
+@pytest.mark.parametrize("d", [288, 512, 1024])
+def test_wide_plain_side_matches_jax_in_bf16(monkeypatch, d):
+    """kernel_check's plain side in bf16 at a wide head dim, walking the
+    16-bit wide forward's key tile (128 keys: two tiles of seq 256) and
+    the split mode's for the backward, against the JAX package's flash
+    attention in bf16 on the same 128-key blocks (Pallas in interpret
+    mode): o, dq, dk and dv.  Both round p to bf16 against the running
+    max after each 128-key block, and p and ds before their products, so
+    kernel_check's rule holds them: within 2 bf16 ulps of |ref| +
+    rms_row(ref) + rms(ref) / 16 (summation order and the odd rounding
+    flip)."""
+    monkeypatch.delenv("HVD_TPU_VMEM_LIMIT_MB", raising=False)
+    b, h, s = 1, 2, 256
+    tile = tattn.fwd_key_tile(torch.bfloat16, d)
+    assert tile == 128 and tattn.bwd_mode(s, d, b * h) == "split"
+    q, k, v, ct = (torch.from_numpy(a).to(torch.bfloat16)
+                   for a in _arrays((b, h, s, d), seed=70 + d))
+    to_j = lambda t: jnp.asarray(t.float().numpy()).astype(  # noqa: E731
+        jnp.bfloat16)
+    out, vjp = jax.vjp(lambda a, b_, c: jattn.flash_attention(
+        a, b_, c, causal=True, block_q=tile, block_k=tile),
+        *map(to_j, (q, k, v)))
+    want = dict(zip(("o", "dq", "dk", "dv"), (out, *vjp(to_j(ct)))))
+    p2, r = tattn._split_scale(d ** -0.5)
+    flat = lambda t: t.reshape(b * h, s, d)  # noqa: E731
+    got, _ = kernel_check.plain_outputs(
+        flat((q * p2).to(torch.bfloat16)), flat(k), flat(v), flat(ct), True,
+        r, p2, "split")
+    for name, w in want.items():
+        w = torch.from_numpy(np.array(w.astype(jnp.float32))).to(
+            torch.bfloat16)
+        assert got[name].dtype == torch.bfloat16
+        err = kernel_check.compare(got[name], flat(w))
+        assert err["worst"] <= 1.0, (name, err)
 
 
 def _record_wrappers(monkeypatch):

@@ -46,7 +46,8 @@ def test_forward_key_tile_follows_the_kernels():
     and in float32); in bf16 the choice is live: p is rounded against the
     running max per tile, so a 128-key plain side differs from a 64-key
     one.  A head dim no body takes answers for the body it is padded to
-    (48 for 64's); past 256 the wide bodies' 64 keys in every dtype
+    (48 for 64's); past 256 the wide bodies' 128 keys in 16 bits
+    (csrc/flash_wide_sm90.cuh, FWD_KEYS) and 64 in float32
     (csrc/flash_wide.cu, TK); below 1 none runs."""
     for d in tattn.HEAD_DIMS:
         tile16 = 128 if d <= 64 else 64
@@ -54,8 +55,8 @@ def test_forward_key_tile_follows_the_kernels():
         assert tattn.fwd_key_tile(torch.float16, d) == tile16
         assert tattn.fwd_key_tile(torch.float32, d) == 64
     assert tattn.fwd_key_tile(torch.bfloat16, 48) == 128
-    for dtype in (torch.bfloat16, torch.float32):
-        assert tattn.fwd_key_tile(dtype, 288) == 64
+    assert tattn.fwd_key_tile(torch.bfloat16, 288) == 128
+    assert tattn.fwd_key_tile(torch.float32, 288) == 64
     with pytest.raises(ValueError, match="head_dim"):
         tattn.fwd_key_tile(torch.bfloat16, 0)
     qr, k, v, do, p2, r = _inputs((2, 512, 64), torch.bfloat16, 4)

@@ -13,7 +13,8 @@ forward (``csrc/flash_fwd_sm90.cuh``) and backward
 
 * ``Wgmma<N, T>::ss`` — A and B from shared memory, both K-major (the
   forward's logits ``S = Q K^T``, N = 64 or 128 keys; the backward's
-  ``S^T = K q'^T`` and ``dP^T = V dO^T``, N = 64 query rows);
+  ``S^T = K q'^T`` and ``dP^T = V dO^T``, N = 64 query rows, and 32 for
+  the wide K2 body's 32-row query step, csrc/flash_wide_sm90.cuh);
   ``scale_d`` 0 overwrites the accumulator, 1 adds to it;
 * ``Wgmma<N, T>::rs`` — A from registers, B from shared memory MN-major
   (``O += P V``, ``dV += P^T dO``, ``dK += dS^T q'`` with V, dO and q'
@@ -35,7 +36,7 @@ import os
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT = os.path.join(ROOT, "horovod_tpu_torch", "ops", "csrc",
                    "wgmma_sm90.cuh")
-SS_N = (64, 128)
+SS_N = (32, 64, 128)
 RS_N = (32, 64, 96, 128)
 SST_N = (32, 64, 96)
 TYPES = (("__nv_bfloat16", "bf16"), ("__half", "f16"))

@@ -1,13 +1,17 @@
-"""Design choices of the split backward pair (K2, K3), timed on the GPU.
+"""Design choices of two kernel families, timed on the GPU: the split
+backward pair (K2, K3) at head dim 64, and the 16-bit wide bodies of K1
+and K2 (head dims above 256).
 
 Run from the repository root on a machine with one CUDA GPU::
 
-    python3 tools/torch_split_variants.py
+    python3 tools/torch_split_variants.py                 # the split pair
+    python3 tools/torch_split_variants.py --family wide   # K1/K2 above 256
 
 Each variant is a copy of the kernel sources with one or two lines
 changed (under ``horovod_tpu_torch/_build/variants/``; the checked-in
 sources are not touched), built with the same nvcc flags, all builds in
-parallel.  ``VARIANTS`` holds the alternatives to the checked-in choices:
+parallel.  ``FAMILIES`` holds, per family, the source's stem, the shapes
+and the alternatives to the checked-in choices.  ``split``:
 
 * ``k2_two_stages`` — K2 (``flash_bwd_dkdv``, the backward body of B2 and
   K5 with its dQ product compiled out) streams its (q', dO) tiles through
@@ -19,20 +23,39 @@ parallel.  ``VARIANTS`` holds the alternatives to the checked-in choices:
 * ``k3_two_stages``, ``k3_four_stages`` — K3 streams K and V through two
   or four stages instead of ``DQ_STAGES``.
 
-Every build is held against the plain side of the split pair that walks
-its own K3 key tile (``kernel_check``; ``worst`` <= 1 passes), then K2
-and K3 are timed with the checked-in build and each variant in turns
-(checked-in, variant, variant, checked-in, twice) at the split path's
-shapes (bf16, causal, head dim 64), by CUDA events, median of 15 after
-warm-up with a sleep kernel ahead.  Prints one JSON line: per shape and
+``wide`` (``csrc/flash_wide_sm90.cuh``):
+
+* ``dkdv_64_rows`` — K2 steps over the queries 64 rows at a time
+  instead of ``DKDV_ROWS`` (S^T and dP^T as m64n64k16 products in twice
+  the registers, K and V chunks re-streamed half as often);
+* ``dkdv_4_panels`` — K2's CTAs compute windows of 4 output panels (128
+  columns) instead of ``DKDV_NP``: fewer column CTAs recomputing S^T and
+  dP^T (4 at 512, 8 at 1024), dK and dV in more registers;
+* ``dkdv_4_stages`` — K2 streams its (K, V, q', dO) chunks through four
+  stages instead of ``DKDV_STAGES``;
+* ``fwd_3_panels`` — K1's CTAs compute windows of 3 output panels
+  instead of ``FWD_NP`` (O in fewer registers, more column CTAs);
+* ``fwd_64_keys`` — K1 takes 64-key tiles instead of ``FWD_KEYS`` (S in
+  half the registers, Q re-streamed twice as often; the plain side then
+  walks 64 keys).
+
+Every build is held against the plain side that walks its own key tile
+(``kernel_check``; ``worst`` <= 1 passes), then the family's kernels are
+timed with the checked-in build and each variant in turns (checked-in,
+variant, variant, checked-in, twice) at the family's shapes (bf16,
+causal), by CUDA events, median of 15 after warm-up with a sleep kernel
+ahead.  For ``wide`` it first prints each build's registers and spills
+(``-Xptxas -v``) as one JSON line.  Then one JSON line: per shape and
 kernel, each build's medians.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -47,29 +70,51 @@ from horovod_tpu_torch.ops import _build  # noqa: E402
 from horovod_tpu_torch.ops import attention as A  # noqa: E402
 from horovod_tpu_torch.ops import kernel_check  # noqa: E402
 
-STEM = "flash_bwd_split"
-SHAPES = ((1040, 512, 64), (64, 8192, 64), (32, 16384, 64))  # bh, s, d
 SLEEP_CYCLES = 2_000_000  # ≈1 ms at the H100's clock
-# variant: ([(file, line, replacement)], K3's key tile at head dim 64)
-VARIANTS = {
-    "k2_two_stages": ([("flash_bwd_sm90.cuh",
-                        "constexpr int DKDV_STAGES = 3;",
-                        "constexpr int DKDV_STAGES = 2;")], None),
-    "k3_128_keys": ([("flash_dq_sm90.cuh", "  return 64;\n",
-                      "  return D <= 64 ? 128 : 64;\n")], 128),
-    "k3_two_stages": ([("flash_dq_sm90.cuh",
-                        "constexpr int DQ_STAGES = 3;",
-                        "constexpr int DQ_STAGES = 2;")], None),
-    "k3_four_stages": ([("flash_dq_sm90.cuh",
-                         "constexpr int DQ_STAGES = 3;",
-                         "constexpr int DQ_STAGES = 4;")], None),
+WH = "flash_wide_sm90.cuh"
+# family: stem, shapes (bh, s, d), the namespace whose kernels' ptxas
+# lines are printed (or None), and variant: ([(file, line, replacement)],
+# the key tile the plain side walks where it changes).
+FAMILIES = {
+    "split": {
+        "stem": "flash_bwd_split", "ptxas": None,
+        "shapes": ((1040, 512, 64), (64, 8192, 64), (32, 16384, 64)),
+        "variants": {
+            "k2_two_stages": ([("flash_bwd_sm90.cuh",
+                                "constexpr int DKDV_STAGES = 3;",
+                                "constexpr int DKDV_STAGES = 2;")], None),
+            "k3_128_keys": ([("flash_dq_sm90.cuh", "  return 64;\n",
+                              "  return D <= 64 ? 128 : 64;\n")], 128),
+            "k3_two_stages": ([("flash_dq_sm90.cuh",
+                                "constexpr int DQ_STAGES = 3;",
+                                "constexpr int DQ_STAGES = 2;")], None),
+            "k3_four_stages": ([("flash_dq_sm90.cuh",
+                                 "constexpr int DQ_STAGES = 3;",
+                                 "constexpr int DQ_STAGES = 4;")], None),
+        }},
+    "wide": {
+        "stem": "flash_wide", "ptxas": "wide90",
+        "shapes": ((64, 1024, 288), (64, 1024, 512), (32, 1024, 1024)),
+        "variants": {
+            "dkdv_64_rows": ([(WH, "constexpr int DKDV_ROWS = 32;",
+                               "constexpr int DKDV_ROWS = 64;")], None),
+            "dkdv_4_panels": ([(WH, "constexpr int DKDV_NP = 3;",
+                                "constexpr int DKDV_NP = 4;")], None),
+            "dkdv_4_stages": ([(WH, "constexpr int DKDV_STAGES = 3;",
+                                "constexpr int DKDV_STAGES = 4;")], None),
+            "fwd_3_panels": ([(WH, "constexpr int FWD_NP = 4;",
+                               "constexpr int FWD_NP = 3;")], None),
+            "fwd_64_keys": ([(WH, "constexpr int FWD_KEYS = 128;",
+                              "constexpr int FWD_KEYS = 64;")], 64),
+        }},
 }
 
 
-def build_variants():
-    """``{variant: path of its shared library}``, nvcc runs in parallel."""
+def build_variants(stem, variants):
+    """``{variant: (path of its shared library, nvcc log)}`` of ``stem``'s
+    source under each of ``variants``' edits, nvcc runs in parallel."""
     procs = {}
-    for name, (edits, _) in VARIANTS.items():
+    for name, (edits, _) in variants.items():
         d = os.path.join(_build.BUILD_DIR, "variants", name)
         shutil.rmtree(d, ignore_errors=True)
         shutil.copytree(_build.CSRC, d)
@@ -80,18 +125,35 @@ def build_variants():
                 raise RuntimeError(f"{name}: line not found once in {file}")
             with open(path, "w") as f:
                 f.write(text.replace(old, new))
-        out = os.path.join(d, f"{STEM}.so")
+        out = os.path.join(d, f"{stem}.so")
         procs[name] = (subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-o", out,
-             os.path.join(d, f"{STEM}.cu")],
+             os.path.join(d, f"{stem}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), out)
-    paths = {}
+    built = {}
     for name, (proc, out) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        paths[name] = out
-    return paths
+        built[name] = (out, log)
+    return built
+
+
+def ptxas_summary(log, namespace):
+    """``{kernel: "registers, spills"}`` of ``namespace``'s kernels in an
+    nvcc ``-Xptxas -v`` log, and the C75xx notes about them."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1) if namespace in m.group(1) else None
+        elif name and ("spill" in line or "Used" in line):
+            out[name] = (out.get(name, "") + " " + line.split(":", 1)[-1]
+                         .strip()).strip()
+        if namespace in line and "C75" in line:
+            out.setdefault("notes", []).append(
+                re.search(r"\(C75\d\d\)[^']*", line).group(0).strip())
+    return out
 
 
 def time_ms(fn, warmup=3, iters=15):
@@ -110,53 +172,107 @@ def time_ms(fn, warmup=3, iters=15):
     return statistics.median(times)
 
 
+def split_case(qr, k, v, do, p2, r, tiles):
+    """K2 and K3 of the split pair, and the plain outputs per K3 tile."""
+    d = qr.shape[-1]
+    o, lse = A.flash_fwd(qr, k, v, r, True)
+    delta = A._delta(o, do)
+    args = (qr, k, v, do, lse, delta, r)
+    kernels = {"k2": lambda: A.flash_bwd_dkdv(*args, True),
+               "k3": lambda: A.flash_bwd_dq(*args, p2, True)}
+
+    def outputs():
+        dk, dv = kernels["k2"]()
+        return {"dq": kernels["k3"](), "dk": dk, "dv": dv}
+
+    wants = {}
+    for tile in tiles:
+        block = tile or A.bwd_key_tile("split", torch.bfloat16, d)
+        dq, dk, dv = A._attention_bwd_impl(
+            qr, k, v, lse, delta, do, True, r, block_size=block,
+            dq_scale=p2, round_pds=True)
+        wants[tile] = {"dq": dq, "dk": dk, "dv": dv}
+    return kernels, outputs, wants
+
+
+def wide_case(qr, k, v, do, p2, r, tiles):
+    """K1 and K2 of the wide bodies, and the plain outputs per K1 tile."""
+    d = qr.shape[-1]
+    wants = {}
+    for tile in tiles:
+        o, lse = A._blockwise_fwd_impl(
+            qr, k, v, True, r,
+            block_size=tile or A.fwd_key_tile(torch.bfloat16, d))
+        wants[tile] = {"o": o, "lse": lse}
+    lse, delta = wants[None]["lse"], A._delta(wants[None]["o"], do)
+    _, dk, dv = A._attention_bwd_impl(qr, k, v, lse, delta, do, True, r,
+                                      round_pds=True)
+    for want in wants.values():
+        want.update(dk=dk, dv=dv)
+    args = (qr, k, v, do, lse, delta, r)
+    kernels = {"k1": lambda: A.flash_fwd(qr, k, v, r, True),
+               "k2": lambda: A.flash_bwd_dkdv(*args, True)}
+
+    def outputs():
+        o, lse_k = kernels["k1"]()
+        dk_k, dv_k = kernels["k2"]()
+        return {"o": o, "lse": lse_k, "dk": dk_k, "dv": dv_k}
+
+    return kernels, outputs, wants
+
+
+CASES = {"split": split_case, "wide": wide_case}
+
+
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--family", choices=sorted(FAMILIES), default="split")
+    family = ap.parse_args().family
+    fam = FAMILIES[family]
     if not torch.cuda.is_available():
         sys.exit("torch_split_variants: no CUDA device")
-    _build.build_all([STEM])
-    libs = {"checked_in": _build.load(STEM)}
-    libs.update({n: ctypes.CDLL(p) for n, p in build_variants().items()})
+    stem, variants = fam["stem"], fam["variants"]
+    info = _build.build_all([stem])
+    built = build_variants(stem, variants)
+    if fam["ptxas"]:
+        ns = fam["ptxas"]
+        print(json.dumps({"ptxas": {
+            "checked_in": "cached build, no ptxas log"
+            if info[stem]["cached"] else ptxas_summary(info[stem]["log"], ns),
+            **{n: ptxas_summary(log, ns) for n, (_, log) in built.items()}}}),
+            flush=True)
+    libs = {"checked_in": _build.load(stem)}
+    libs.update({n: ctypes.CDLL(p) for n, (p, _) in built.items()})
+    tiles = {n: variants[n][1] if n in variants else None for n in libs}
     result, ok = {}, True
-    for bh, s, d in SHAPES:
-        g = torch.Generator(device="cuda").manual_seed(s)
+    for bh, s, d in fam["shapes"]:
+        g = torch.Generator(device="cuda").manual_seed(
+            s if family == "split" else s + d)
         q, k, v, do = (torch.randn(bh, s, d, device="cuda", generator=g)
                        .to(torch.bfloat16) for _ in range(4))
         p2, r = A._split_scale(d ** -0.5)
         qr = (q * p2).to(torch.bfloat16)
-        o, lse = A.flash_fwd(qr, k, v, r, True)
-        delta = A._delta(o, do)
-        args = (qr, k, v, do, lse, delta, r)
-        kernels = {"k2": lambda: A.flash_bwd_dkdv(*args, True),
-                   "k3": lambda: A.flash_bwd_dq(*args, p2, True)}
-        tiles = {n: VARIANTS[n][1] if n in VARIANTS else None for n in libs}
-        wants = {}
-        for tile in set(tiles.values()):
-            block = tile or A.bwd_key_tile("split", torch.bfloat16, d)
-            dq, dk, dv = A._attention_bwd_impl(
-                qr, k, v, lse, delta, do, True, r, block_size=block,
-                dq_scale=p2, round_pds=True)
-            wants[tile] = {"dq": dq, "dk": dk, "dv": dv}
+        kernels, outputs, wants = CASES[family](qr, k, v, do, p2, r,
+                                                set(tiles.values()))
         worst = {}
         for n, lib in libs.items():
-            _build._libs[STEM] = lib
-            dk, dv = kernels["k2"]()
-            got = {"dq": kernels["k3"](), "dk": dk, "dv": dv}
-            worst[n] = max(kernel_check.compare(got[x], wants[tiles[n]][x])[
-                "worst"] for x in got)
+            _build._libs[stem] = lib
+            errs = kernel_check.compare_outputs(outputs(), wants[tiles[n]])
+            worst[n] = max(e["worst"] for e in errs.values())
             ok &= worst[n] <= 1.0
         times = {kern: {n: [] for n in libs} for kern in kernels}
-        for n in VARIANTS:
+        for n in variants:
             for m in ("checked_in", n, n, "checked_in") * 2:
-                _build._libs[STEM] = libs[m]
+                _build._libs[stem] = libs[m]
                 for kern, fn in kernels.items():
                     times[kern][m].append(time_ms(fn))
-        _build._libs[STEM] = libs["checked_in"]
+        _build._libs[stem] = libs["checked_in"]
         result["x".join(map(str, (bh, s, d)))] = {
             "median_ms": {kern: {n: statistics.median(t)
                                  for n, t in ts.items()}
                           for kern, ts in times.items()},
             "worst": worst}
-        del q, k, v, do, qr, o, lse, delta, args, wants
+        del q, k, v, do, qr, kernels, outputs, wants
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True,
