@@ -43,8 +43,8 @@ Phases, one JSON line each:
    Then ``head_dims``: K1, K2 and K3 at head dim 256 (bf16, 1040
    batch-heads x seq 512) and on their wide bodies (``flash_wide.cu``) at
    288, 512 (64 batch-heads x seq 1024) and 1000 (32 x 1024, run padded
-   to 1024) in bf16 (K1 and K2 on the wgmma bodies of
-   ``flash_wide_sm90.cuh``, K3 on SIMT), at 512 in fp16, and at 288 in
+   to 1024) in bf16 (K1, K2 and K3 on the wgmma bodies of
+   ``flash_wide_sm90.cuh``), at 512 in fp16, and at 288 in
    f32 (8 batch-heads x seq 512: every body on SIMT), and K1 and B2 at
    head dims 16 and 80 on the main path's shape (run zero-padded to 32
    and 96), each held alone against its plain version at the caller's
@@ -294,19 +294,19 @@ HEAD_DIM_WIDE = (1, 1040, 512, 256)
 HEAD_DIM_PADDED = ((16, 8, 1024, 16), (16, 8, 1024, 80))
 # Head dims above 256 (ROADMAP C.1), (shape, dtype): the wide bodies of
 # K1, K2 and K3 at 288 and 512, and at 1000 (run padded to 1024), in bf16;
-# at 512 in fp16 (K1's and K2's wgmma bodies in the other 16-bit type);
-# and at a small shape in f32 (the SIMT bodies K1 and K2 keep there).
+# at 512 in fp16 (the wgmma bodies in the other 16-bit type); and at a
+# small shape in f32 (the SIMT bodies f32 keeps).
 HEAD_DIM_WIDER = (((1, 64, 1024, 288), torch.bfloat16),
                   ((1, 64, 1024, 512), torch.bfloat16),
                   ((1, 32, 1024, 1000), torch.bfloat16),
                   ((1, 64, 1024, 512), torch.float16),
                   ((1, 8, 512, 288), torch.float32))
 WIDE_SOURCE = "horovod_tpu_torch/ops/csrc/flash_wide.cu"
-# K1's and K2's bodies above 256 in fp16 and bf16.
+# K1's, K2's and K3's bodies above 256 in fp16 and bf16.
 WIDE_SM90_SOURCE = "horovod_tpu_torch/ops/csrc/flash_wide_sm90.cuh"
 # Quoted, not measured by this script: the SIMT bodies' times in bf16 at
-# HEAD_DIM_WIDER's bf16 shapes, before K1 and K2 moved to wgmma, in ms of
-# K1, K2, K3 by head dim (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md
+# HEAD_DIM_WIDER's bf16 shapes, before K1, K2 and K3 moved to wgmma, in ms
+# of K1, K2, K3 by head dim (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md
 # section 6).  They go into the head_dims phase's line only, beside the
 # times measured, never into the kernels line.
 WIDE_QUOTED_MS = {288: (4.606, 14.604, 7.909), 512: (9.838, 33.260, 18.197),
@@ -963,22 +963,20 @@ def phase_head_dims():
                     "caller's head dim's work")
             quoted = (WIDE_QUOTED_MS.get(d, (None,) * 3)
                       if dtype == torch.bfloat16 else (None,) * 3)
-            # K1's and K2's 16-bit bodies above 256 are the wgmma ones.
-            sm90_body = wide and dtype != torch.float32
-            source = WIDE_SOURCE if wide else None
+            # The 16-bit bodies above 256 are the wgmma ones.
+            source = (None if not wide else WIDE_SOURCE
+                      if dtype == torch.float32 else WIDE_SM90_SOURCE)
             entries[f"flash_fwd_{tag}"] = _rates(_entry(
                 f"flash_fwd_{tag}", t_k1, t_plain_fwd, t_lib_fwd,
                 4 * d * pairs, 4 * tile + rowb, dtype, err["flash_fwd"],
-                kernel="flash_fwd",
-                source=WIDE_SM90_SOURCE if sm90_body else source,
+                kernel="flash_fwd", source=source,
                 library_by_backend=lib_fwd, shape=list(shape), note=note))
             for name, t in (("flash_bwd_dkdv", t_k2),
                             ("flash_bwd_dq", t_k3)):
-                sm90 = sm90_body and name == "flash_bwd_dkdv"
                 entries[f"{name}_{tag}"] = _rates(_entry(
                     f"{name}_{tag}", t, t_plain_bwd, t_lib_bwd,
                     *bounds[name], dtype, err[name], kernel=name,
-                    source=WIDE_SM90_SOURCE if sm90 else source,
+                    source=source,
                     library_by_backend=lib_bwd, shape=list(shape),
                     note=note + "; plain_ms: the whole plain split "
                     "backward"))
@@ -989,6 +987,12 @@ def phase_head_dims():
                 row["times"][name] = {k: e[k] for k in (
                     "ms", "tflops", "bound_share", "library_ms")}
                 row["times"][name]["quoted_simt_ms"] = q
+                if wide and dtype != torch.float32:
+                    # The work the body does, its column CTAs' recompute
+                    # included, over the caller's pairs.
+                    row["times"][name]["tensor_core_tflops"] = (
+                        pairs * A.wide_tensor_core_flops(name, d)
+                        / e["ms"] / 1e9)
             del largs, qr, k, v, do, lse, delta
         else:
             g = torch.Generator(device="cuda").manual_seed(60 + d)
@@ -1026,7 +1030,10 @@ def phase_head_dims():
               "256 and above (on inputs padded to the body's head dim; "
               "tflops and bound_share of the caller's work; quoted_simt_ms: "
               "the SIMT bodies' bf16 times from PERF.md, quoted and not "
-              "measured in this run); bounds of the caller's head "
+              "measured in this run; tensor_core_tflops above 256 in 16 "
+              "bits: the body's own products, its column CTAs' recompute "
+              "included, over the caller's pairs, "
+              "attention.wide_tensor_core_flops); bounds of the caller's head "
               "dim's work; sdpa: each backend at the same head dim (and "
               "the math backend above 256)")
     return entries

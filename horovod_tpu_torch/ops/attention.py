@@ -25,10 +25,9 @@ Counterpart of ``horovod_tpu/ops/attention.py``.  Layout convention:
   (:func:`padded_head_dim`: 32, 64, 96, 128, and 256 for K1, K2, K3);
   above 256 K1, K2 and K3 run their wide bodies (``csrc/flash_wide.cu``,
   O's and the gradients' columns split across blocks) on the head dim
-  zero-padded to a multiple of 32: in fp16 and bf16, K1 and K2 on wgmma
-  and TMA (``csrc/flash_wide_sm90.cuh``), in f32 K1 and K2, and K3 in
-  every dtype, on SIMT.  Any other CUDA input the kernels cannot take
-  raises; nothing falls back.
+  zero-padded to a multiple of 32: in fp16 and bf16 on wgmma and TMA
+  (``csrc/flash_wide_sm90.cuh``), in f32 on SIMT.  Any other CUDA input
+  the kernels cannot take raises; nothing falls back.
 
 The plain versions multiply in float32 on operands rounded to the storage
 dtype — the reference's ``preferred_element_type=float32`` — so f32 matmul
@@ -64,10 +63,19 @@ _SPLIT_HEAD_DIMS = HEAD_DIMS + (WIDE_HEAD_DIM,)
 # PANEL, of the 16-bit bodies in csrc/flash_wide_sm90.cuh).  Key tiles by
 # dtype class: the forward's is the 16-bit K1 body's FWD_KEYS and the f32
 # SIMT body's TK; the split mode's is K3's, the one its dq sums over (the
-# SIMT TK in every dtype; K2's keys per CTA do not change any sum).
+# 16-bit body's DQ_KEYS and the f32 SIMT body's TK; K2's keys per CTA do
+# not change any sum).
 WIDE_CHUNK = 32
 _WIDE_KEY_TILE = {"fwd": {"16-bit": 128, "f32": 64},
                   "split": {"16-bit": 64, "f32": 64}}
+# The 16-bit wide bodies' windows, in panels of WIDE_CHUNK output columns
+# per column CTA (FWD_NP, DKDV_NP, DQ_NP), and the panels per chunk that
+# they stream S (and dP) in (CHUNK_PANELS): every column CTA of a tile
+# recomputes the score products over the whole head dim for its window
+# (:func:`wide_tensor_core_flops`).
+WIDE_CHUNK_PANELS = 2
+_WIDE_WINDOW_PANELS = {"flash_fwd": 4, "flash_bwd_dkdv": 3,
+                       "flash_bwd_dq": 4}
 # Key tile of each forward body per head dim, as in the CUDA sources: the
 # 16-bit wgmma body (csrc/flash_fwd_sm90.cuh, key_tile) and the f32 SIMT
 # body (csrc/flash_common.cuh, f32_tile).  The online softmax advances its
@@ -104,6 +112,26 @@ def padded_head_dim(d: int) -> int:
                      "above")
 
 
+def wide_tensor_core_flops(name: str, d: int) -> int:
+    """Tensor-core FLOP per computed (query, key) pair of the 16-bit wide
+    body of kernel ``name`` (``flash_fwd``, ``flash_bwd_dkdv``,
+    ``flash_bwd_dq``) at head dim ``d``, padded as the callers pad it:
+    each of its ceil(d / (32 NP)) column CTAs runs the score products over
+    the whole head dim (S: 2 d FLOP; K2 and K3 dP too: 4 d) and the
+    output products over its window of W = 32 NP columns (K1's P V: 2 W;
+    K2's dV and dK: 4 W; K3's dQ: 2 W).  Against the caller's 4 d (K1), 8 d
+    (K2) and 6 d (K3) it is the recompute the column split costs."""
+    body = padded_head_dim(d)
+    if body <= WIDE_HEAD_DIM:
+        raise ValueError(f"head_dim {d}: no wide body at or below "
+                         f"{WIDE_HEAD_DIM}")
+    panels = _WIDE_WINDOW_PANELS[name]
+    score, out = {"flash_fwd": (2, 2), "flash_bwd_dkdv": (4, 4),
+                  "flash_bwd_dq": (4, 2)}[name]
+    column_ctas = -(-(body // WIDE_CHUNK) // panels)
+    return column_ctas * (score * body + out * panels * WIDE_CHUNK)
+
+
 def _key_tiles(d: int) -> dict:
     """``{"fwd": ..., "combined": ..., "split": ...}`` key tiles by dtype
     class of the bodies that run head dim ``d`` (padded); the wide bodies
@@ -130,7 +158,8 @@ def bwd_key_tile(mode: str, dtype, d: int) -> int:
     key tile, the one its dq sums over (csrc/flash_dq_sm90.cuh,
     ``dq_key_tile``); 64 for the f32 SIMT bodies (csrc/flash_common.cuh,
     f32_tile) of both modes, 32 at head dim 256; 64 above 256, K3's wide
-    SIMT body's (csrc/flash_wide.cu, TK) in every dtype.  A plain side
+    bodies' (csrc/flash_wide_sm90.cuh, DQ_KEYS, in 16 bits;
+    csrc/flash_wide.cu, TK, in f32).  A plain side
     that holds a kernel walks the keys in the kernel's key tiles, so dq
     sums in the same blocks.  The combined mode stops at head dim 128, as :func:`bwd_mode`
     does."""

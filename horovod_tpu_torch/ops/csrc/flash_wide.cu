@@ -1,9 +1,8 @@
 // K1, K2 and K3 at head dims above 256 for Hopper (sm_90a): the wide
 // bodies of the flash forward (flash_fwd_wide) and of the split backward
-// (flash_bwd_dkdv_wide, flash_bwd_dq_wide).  In fp16 and bf16, K1 and K2
+// (flash_bwd_dkdv_wide, flash_bwd_dq_wide).  In fp16 and bf16 all three
 // run the wgmma/TMA bodies of flash_wide_sm90.cuh (its note gives their
-// design); f32 K1 and K2, and K3 in every dtype, run the SIMT bodies
-// below.
+// design); in f32 they run the SIMT bodies below.
 //
 // They replace the Pallas TPU kernels `_flash_kernel`
 // (horovod_tpu/ops/attention.py:356) and `_flash_bwd_dkdv_kernel` /
@@ -35,8 +34,7 @@
 // forward's running max advances one 64-key tile at a time and l sums the
 // unrounded p.  Bound on the card: by operations at every shape the
 // callers use (8 d and more FLOP per causal pair against 2 d bytes);
-// these bodies reach the SIMT f32 rate at best.  K3's redesign on wgmma
-// is later work (ROADMAP B).
+// these bodies reach the SIMT f32 rate at best.
 //
 // Head dims: any multiple of DC above 256 (the wrappers zero-pad to one,
 // ops/attention.py `padded_head_dim`); the last column block of a head
@@ -432,8 +430,8 @@ inline int blocks(int bh, int rows, int tile, int d) {
   return bh * ((rows + tile - 1) / tile) * ((d + DV - 1) / DV);
 }
 
-// K1 and K2: fp16 and bf16 go to the wgmma bodies (flash_wide_sm90.cuh),
-// so fwd_kernel and dkdv_kernel above are built for f32 alone.
+// fp16 and bf16 go to the wgmma bodies (flash_wide_sm90.cuh), so
+// fwd_kernel, dkdv_kernel and dq_kernel above are built for f32 alone.
 template <typename T>
 int launch_fwd(const void* q, const void* k, const void* v, void* o,
                float* lse, int bh, int sq, int sk, int d, float scale_r,
@@ -477,14 +475,19 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* delta, void* dq, int bh, int sq,
               int sk, int d, float scale_r, float dq_scale, int causal,
               cudaStream_t stream) {
-  const int e = prepare<T>(2, dq_kernel<T>, DQ_SMEM);
-  if (e != 0) return e;
-  dq_kernel<T><<<blocks(bh, sq, TR, d), NTH, DQ_SMEM, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dq), bh, (d + DV - 1) / DV, sq, sk, d, scale_r,
-      dq_scale, causal);
-  return (int)cudaGetLastError();
+  if constexpr (!std::is_same<T, float>::value) {
+    return wide90::launch_dq<T>(q, k, v, dout, lse, delta, dq, bh, sq, sk, d,
+                                scale_r, dq_scale, causal, stream);
+  } else {
+    const int e = prepare<T>(2, dq_kernel<T>, DQ_SMEM);
+    if (e != 0) return e;
+    dq_kernel<T><<<blocks(bh, sq, TR, d), NTH, DQ_SMEM, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+        static_cast<T*>(dq), bh, (d + DV - 1) / DV, sq, sk, d, scale_r,
+        dq_scale, causal);
+    return (int)cudaGetLastError();
+  }
 }
 
 }  // namespace wide

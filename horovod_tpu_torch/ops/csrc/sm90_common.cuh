@@ -1,9 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the wgmma/TMA bodies of the
 // flash forward (flash_fwd_sm90.cuh: K1, K4), backward
 // (flash_bwd_sm90.cuh: B2, K5) and the wide 16-bit bodies above head dim
-// 256 (flash_wide_sm90.cuh: K1, K2): mbarriers, TMA loads through 3-D tensor
-// maps, wgmma shared-memory descriptors and groups, and the run-time
-// fetch of the tensor-map encoder.
+// 256 (flash_wide_sm90.cuh: K1, K2, K3): mbarriers, TMA loads through 3-D
+// tensor maps, wgmma shared-memory descriptors and groups, and the
+// run-time fetch of the tensor-map encoder.
 //
 // Layout convention of both bodies: a tile of R rows of head dim D sits
 // in shared memory as D / PANEL panels of R x 64 bytes (32 16-bit

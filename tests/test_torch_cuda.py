@@ -313,14 +313,19 @@ def test_flash_attention_at_other_head_dims(cuda_device, dtype, d, mode):
             assert err <= 5e-2 * b.abs().max().item(), err
 
 
-# The 16-bit wide bodies of K1 and K2 (csrc/flash_wide_sm90.cuh) at their
-# edges: (seq, head dim, causal).  Ragged sequences (not a multiple of the
-# 128-row and 128-key tiles nor of K2's 32-row query step), non-causal
-# cases, head dim 288 (9 panels: an odd count, so a last one-panel chunk
-# of S, and three column CTAs of 3 panels each) and 320 (10: 4 + 3 + 3,
-# the shorter shares' windows shifted left inside the head dim).
+# The 16-bit wide bodies of K1, K2 and K3 (csrc/flash_wide_sm90.cuh) at
+# their edges: (seq, head dim, causal).  Ragged sequences (not a multiple
+# of the 128-row and 128-key tiles, of K2's 32-row query step nor of K3's
+# 64-key tile), non-causal cases, head dim 288 (9 panels: an odd count, so
+# a last one-panel chunk of S, and three column CTAs of 3 panels each) and
+# 320 (10: 4 + 3 + 3, the shorter shares' windows shifted left inside the
+# head dim).  K3's own: 130 and 191 leave the second consumer warpgroup of
+# the last query tile no row below seq (it only waits for and releases
+# every stage), causal 191 also a key tile wholly past the first
+# warpgroup's rows; seq 2 a single row pair in one ragged key tile.
 _WIDE_EDGES = [(200, 288, True), (333, 288, False), (65, 320, True),
-               (129, 512, False), (256, 1024, True), (2, 288, True)]
+               (129, 512, False), (256, 1024, True), (2, 288, True),
+               (130, 320, False), (191, 512, True), (2, 1024, False)]
 
 
 @pytest.mark.cuda
@@ -328,9 +333,9 @@ _WIDE_EDGES = [(200, 288, True), (333, 288, False), (65, 320, True),
 @pytest.mark.parametrize("seq,d,causal", _WIDE_EDGES)
 def test_wide_16bit_bodies_at_their_edges(cuda_device, seq, d, causal,
                                           dtype):
-    """K1 and K2 on their wgmma wide bodies (K3 on its SIMT one) against
-    the plain side that walks their key tiles (kernel_check's rule), one
-    launch each; lse with no POS_BIG row (every row sees a key)."""
+    """K1, K2 and K3 on their wgmma wide bodies against the plain side
+    that walks their key tiles (kernel_check's rule), one launch each;
+    lse with no POS_BIG row (every row sees a key)."""
     g = torch.Generator(device=cuda_device).manual_seed(seq * 7 + d)
     q, k, v, do = (torch.randn(3, seq, d, device=cuda_device, generator=g)
                    .to(dtype) for _ in range(4))

@@ -95,8 +95,9 @@ def test_key_tiles_follow_the_padded_body(d, dtype):
     """The key tiles answer for the body that runs the padded head dim:
     the 16-bit forward 128 keys up to 64, 64 to 256 and 128 above (the
     wgmma wide body's FWD_KEYS); the f32 bodies 64 up to 128, 32 at 256
-    and 64 above; the split pair 64 keys in 16 bits, and K3's wide SIMT
-    body 64 in every dtype; no combined body above 128."""
+    and 64 above; the split pair 64 keys in 16 bits, and K3's wide bodies
+    64 in every dtype (the wgmma body's DQ_KEYS, the SIMT body's TK); no
+    combined body above 128."""
     body = tattn.padded_head_dim(d)
     f32 = dtype == torch.float32
     f32_tile = 64 if body <= 128 or body > 256 else 32
@@ -129,38 +130,67 @@ def test_wide_tile_constants_match_the_tables(dtype):
     are attention.py's tables: the head-dim chunk (the SIMT bodies' DC,
     the 16-bit bodies' PANEL) is WIDE_CHUNK; the forward's key tile is
     FWD_KEYS of csrc/flash_wide_sm90.cuh in 16 bits and TK of
-    csrc/flash_wide.cu in float32; the split mode's is K3's TK in every
-    dtype.  The plain side that holds a kernel walks these tiles, so the
-    two cannot drift apart."""
+    csrc/flash_wide.cu in float32; the split mode's is K3's, DQ_KEYS of
+    the 16-bit body and TK in float32; the 16-bit bodies' windows (FWD_NP,
+    DKDV_NP, DQ_NP) and panels per chunk of S (CHUNK_PANELS) are
+    _WIDE_WINDOW_PANELS and WIDE_CHUNK_PANELS.  The plain side that holds
+    a kernel walks these tiles, so the two cannot drift apart."""
     simt = _constants("flash_wide.cu")
     wgmma = _constants("flash_wide_sm90.cuh")
     assert simt["DC"] == _constants("sm90_common.cuh")["PANEL"] \
         == tattn.WIDE_CHUNK
-    fwd = simt["TK"] if dtype == torch.float32 else wgmma["FWD_KEYS"]
+    f32 = dtype == torch.float32
+    fwd = simt["TK"] if f32 else wgmma["FWD_KEYS"]
+    split = simt["TK"] if f32 else wgmma["DQ_KEYS"]
     for d in (257, 288, 512, 1000, 1024):
         assert tattn.fwd_key_tile(dtype, d) == fwd
-        assert tattn.bwd_key_tile("split", dtype, d) == simt["TK"]
+        assert tattn.bwd_key_tile("split", dtype, d) == split
+    assert wgmma["CHUNK_PANELS"] == tattn.WIDE_CHUNK_PANELS
+    assert tattn._WIDE_WINDOW_PANELS == {
+        "flash_fwd": wgmma["FWD_NP"], "flash_bwd_dkdv": wgmma["DKDV_NP"],
+        "flash_bwd_dq": wgmma["DQ_NP"]}
 
 
+@pytest.mark.parametrize("name,d,flops", [
+    ("flash_fwd", 288, 3 * (2 * 288 + 256)),
+    ("flash_bwd_dkdv", 288, 3 * (4 * 288 + 384)),
+    ("flash_bwd_dq", 288, 3 * (4 * 288 + 256)),
+    ("flash_bwd_dq", 320, 3 * (4 * 320 + 256)),
+    ("flash_bwd_dq", 512, 4 * (4 * 512 + 256)),
+    ("flash_bwd_dkdv", 1000, 11 * (4 * 1024 + 384)),
+    ("flash_bwd_dq", 1000, 8 * (4 * 1024 + 256))])
+def test_wide_tensor_core_work(name, d, flops):
+    """The 16-bit wide bodies' tensor-core FLOP per pair: their column
+    CTAs' recompute of the score products (at 1000, padded to 1024: K3's
+    8 x (4 d + 2 W) against the caller's 6 d, 5.8x), and a head dim at or
+    below 256 has no wide body."""
+    assert tattn.wide_tensor_core_flops(name, d) == flops
+    with pytest.raises(ValueError, match="wide body"):
+        tattn.wide_tensor_core_flops(name, 256)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("d", [288, 512, 1024])
-def test_wide_plain_side_matches_jax_in_bf16(monkeypatch, d):
-    """kernel_check's plain side in bf16 at a wide head dim, walking the
-    16-bit wide forward's key tile (128 keys: two tiles of seq 256) and
-    the split mode's for the backward, against the JAX package's flash
-    attention in bf16 on the same 128-key blocks (Pallas in interpret
-    mode): o, dq, dk and dv.  Both round p to bf16 against the running
-    max after each 128-key block, and p and ds before their products, so
-    kernel_check's rule holds them: within 2 bf16 ulps of |ref| +
-    rms_row(ref) + rms(ref) / 16 (summation order and the odd rounding
-    flip)."""
+def test_wide_plain_side_matches_jax_in_16_bits(monkeypatch, d, dtype):
+    """kernel_check's plain side in bf16 and fp16 at a wide head dim,
+    walking the 16-bit wide forward's key tile (128 keys: two tiles of
+    seq 256) and the split mode's for the backward (K3's 64 keys), against
+    the JAX package's flash attention in the same dtype on the same
+    128-key blocks (Pallas in interpret mode): o, dq, dk and dv.  Both
+    round p to the dtype against the running max after each 128-key
+    block, and p and ds before their products, so kernel_check's rule
+    holds them: within 2 ulps of the dtype of |ref| + rms_row(ref) +
+    rms(ref) / 16 (summation order and the odd rounding flip)."""
     monkeypatch.delenv("HVD_TPU_VMEM_LIMIT_MB", raising=False)
     b, h, s = 1, 2, 256
-    tile = tattn.fwd_key_tile(torch.bfloat16, d)
+    tile = tattn.fwd_key_tile(dtype, d)
     assert tile == 128 and tattn.bwd_mode(s, d, b * h) == "split"
-    q, k, v, ct = (torch.from_numpy(a).to(torch.bfloat16)
+    jdtype = {torch.bfloat16: jnp.bfloat16, torch.float16: jnp.float16}[
+        dtype]
+    q, k, v, ct = (torch.from_numpy(a).to(dtype)
                    for a in _arrays((b, h, s, d), seed=70 + d))
     to_j = lambda t: jnp.asarray(t.float().numpy()).astype(  # noqa: E731
-        jnp.bfloat16)
+        jdtype)
     out, vjp = jax.vjp(lambda a, b_, c: jattn.flash_attention(
         a, b_, c, causal=True, block_q=tile, block_k=tile),
         *map(to_j, (q, k, v)))
@@ -168,12 +198,12 @@ def test_wide_plain_side_matches_jax_in_bf16(monkeypatch, d):
     p2, r = tattn._split_scale(d ** -0.5)
     flat = lambda t: t.reshape(b * h, s, d)  # noqa: E731
     got, _ = kernel_check.plain_outputs(
-        flat((q * p2).to(torch.bfloat16)), flat(k), flat(v), flat(ct), True,
-        r, p2, "split")
+        flat((q * p2).to(dtype)), flat(k), flat(v), flat(ct), True, r, p2,
+        "split")
     for name, w in want.items():
-        w = torch.from_numpy(np.array(w.astype(jnp.float32))).to(
-            torch.bfloat16)
-        assert got[name].dtype == torch.bfloat16
+        assert w.dtype == jdtype
+        w = torch.from_numpy(np.array(w.astype(jnp.float32))).to(dtype)
+        assert got[name].dtype == dtype
         err = kernel_check.compare(got[name], flat(w))
         assert err["worst"] <= 1.0, (name, err)
 

@@ -2,7 +2,8 @@
 
 Run from the repository root on a machine with one CUDA GPU::
 
-    python3 tools/torch_kernel_control.py
+    python3 tools/torch_kernel_control.py              # every mutant
+    python3 tools/torch_kernel_control.py --wide-only  # K3 above 256
 
 Builds mutants of the attention kernels, each with one line changed so
 that it skips part of its work.  K1's mutants change the forward body
@@ -47,6 +48,22 @@ read through B2 (``flash_bwd``):
 The K2/K3 mutants are read through the split pair, the body's others
 through B2.
 
+Mutants of K3's 16-bit wide body (``csrc/flash_wide_sm90.cuh``, head
+dims above 256), each read through ``flash_bwd_dq`` at head dims 288 and
+1024 (``WIDE_SHAPES``) against the plain side of its own 64-key tile:
+
+* ``dq_wide_drops_last_s_chunk`` — S = q' K^T leaves out the last
+  head-dim chunk (one panel at 288, two at 1024) of every key tile;
+* ``dq_wide_skip_key_tile`` — K3 zeroes p of the second-to-last key tile
+  of each query tile;
+* ``dq_wide_drops_last_k16_slice`` — dQ += dS K leaves out the last
+  16-key slice of every key tile.
+
+Beside the sound wide reading, the sound body's dq and the plain side's
+are each read against ``dq_f64_scores`` (S and dP in float64), which
+tells the kernel's own error from the plain side's float32 summation
+order.
+
 The first three drop most of the mass of some rows; the next three drop
 a share of late rows only; the next three move late rows, whose values
 are small against the largest, by less than the old rule's limit.
@@ -80,6 +97,7 @@ exits 1 unless the sound readings pass and every mutant fails (under
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import os
@@ -116,6 +134,18 @@ DQ_P = "            float p = ex2(fmaf(s[e], scale_log2, -lse2[h]));\n"
 DQ_STORE = ("            pack2<T>(dq_acc[4 * i + 2 * h] * dq_scale,\n"
             "                     dq_acc[4 * i + 2 * h + 1] * dq_scale);\n")
 SPLIT = "flash_bwd_split"
+# Lines of K3's 16-bit wide body.
+WIDE_BODY = "flash_wide_sm90.cuh"
+WIDE_CHUNK_LOOP = ("        if (panels - ch * CHUNK_PANELS < CHUNK_PANELS)\n"
+                   "          issue_chunk(sa, ch == 0, One{});\n"
+                   "        else\n"
+                   "          issue_chunk(sa, ch == 0, Full{});\n"
+                   "        pin(s);\n"
+                   "        pin(dp);\n"
+                   "        mbar_arrive_if(a_empty + 8 * st, tid == 0);\n"
+                   "      }\n"
+                   "      if (kt < n_plain)\n")
+WIDE_P = "            float p = ex2(fmaf(s[e], scale_log2, -lse2[h]));\n"
 # mutant: (source stem, file mutated, line, what replaces it, outputs held);
 # the flash_bwd_split mutants (K2, K3) are held through the split pair.
 MUTANTS = {
@@ -176,6 +206,27 @@ MUTANTS = {
         "            pa[i / 2][(i % 2) * 2 + h] = 0u;\n", ("dv",)),
 }
 
+
+# K3 wide mutants: (file mutated, line, what replaces it), read as dq of
+# flash_wide at WIDE_SHAPES.
+WIDE_MUTANTS = {
+    "dq_wide_drops_last_s_chunk": (
+        WIDE_BODY, WIDE_CHUNK_LOOP,
+        "        float keep[BN / 2];\n"
+        "        for (int i = 0; i < BN / 2; ++i) keep[i] = s[i];\n"
+        + WIDE_CHUNK_LOOP.replace(
+            "        pin(s);\n",
+            "        if (ch == n_ch - 1)\n"
+            "          for (int i = 0; i < BN / 2; ++i) s[i] = keep[i];\n"
+            "        pin(s);\n", 1)),
+    "dq_wide_skip_key_tile": (
+        WIDE_BODY, WIDE_P,
+        WIDE_P + "            if (kt == n_kt - 2) p = 0.f;\n"),
+    "dq_wide_drops_last_k16_slice": (
+        WIDE_BODY, "for (int j = 0; j < DQ_STEPS; ++j)",
+        "for (int j = 0; j < DQ_STEPS - 1; ++j)"),
+}
+WIDE_SHAPES = ((16, 1024, 288), (4, 1024, 1024))  # (bh, seq, head dim)
 
 # Ring mutants: (source stem, file mutated, line, what replaces it, reading)
 RING_MUTANTS = {
@@ -252,14 +303,18 @@ def loose_compare(got, want):
             "worst": err / (2e-2 * want.float().abs().max().item())}
 
 
-def build_mutants():
+def build_mutants(wide_only=False):
     """``{mutant: path of its shared library}``, nvcc runs in parallel."""
     procs = {}
-    edits = {name: (stem, file, old, new)
-             for name, (stem, file, old, new, _) in MUTANTS.items()}
-    edits.update({name: (stem, file, old, new)
-                  for name, (stem, file, old, new, _)
-                  in RING_MUTANTS.items()})
+    edits = {name: ("flash_wide", file, old, new)
+             for name, (file, old, new) in WIDE_MUTANTS.items()}
+    if not wide_only:
+        edits.update({name: (stem, file, old, new)
+                      for name, (stem, file, old, new, _)
+                      in MUTANTS.items()})
+        edits.update({name: (stem, file, old, new)
+                      for name, (stem, file, old, new, _)
+                      in RING_MUTANTS.items()})
     for name, (stem, file, old, new) in edits.items():
         d = os.path.join(_build.BUILD_DIR, "control", name)
         shutil.rmtree(d, ignore_errors=True)
@@ -289,14 +344,88 @@ def reading(got, ref, names):
                 "loose": loose_compare(got[n], ref[n])} for n in names}
 
 
+def dq_f64_scores(qr, k, v, do, lse, delta, scale_r, p2, tile):
+    """Causal dq with S = q' k^T and dP = dO v^T in float64, ds rounded to
+    the storage dtype and dq summed in float64 over ``tile``-key blocks:
+    the plain side without float32's summation order, so that a reading
+    against it tells the kernel's own error from the plain side's."""
+    dq = torch.zeros(qr.shape, dtype=torch.float64, device=qr.device)
+    q64, do64 = qr.double(), do.double()
+    rows = torch.arange(qr.shape[1], device=qr.device)[:, None]
+    for k0 in range(0, k.shape[1], tile):
+        kb, vb = k[:, k0:k0 + tile].double(), v[:, k0:k0 + tile].double()
+        s = q64 @ kb.transpose(-1, -2) * scale_r
+        keys = torch.arange(k0, k0 + kb.shape[1], device=qr.device)[None]
+        p = torch.where(keys <= rows, torch.exp(s - lse.double()[..., None]),
+                        0.0)
+        dp = do64 @ vb.transpose(-1, -2)
+        ds = p * (dp - delta.double()[..., None]) * scale_r
+        dq = dq + ds.to(qr.dtype).double() @ kb
+    return (dq * p2).to(qr.dtype)
+
+
+def wide_readings(paths):
+    """The sound K3 wide body and each of its mutants, as dq against the
+    plain side of the split mode at each of WIDE_SHAPES, bf16 and fp16,
+    and the sound body's and the plain side's dq against
+    :func:`dq_f64_scores`: ``({reading: {shape: ...}}, ok)``."""
+    sound = _build.load("flash_wide")
+    rows, ok = {}, True
+    for dtype in (torch.bfloat16, torch.float16):
+        for bh, s, d in WIDE_SHAPES:
+            g = torch.Generator(device="cuda").manual_seed(s + d)
+            q, k, v, do = (torch.randn(bh, s, d, device="cuda", generator=g)
+                           .to(dtype) for _ in range(4))
+            p2, scale_r = A._split_scale(d ** -0.5)
+            qr = (q * p2).to(dtype)
+            ref, delta = kernel_check.plain_outputs(qr, k, v, do, True,
+                                                    scale_r, p2, "split")
+            args = (qr, k, v, do, ref["lse"], delta, scale_r)
+            tag = f"{dtype}_{bh}x{s}x{d}"
+            got = {"dq": A.flash_bwd_dq(*args, p2, True)}
+            rows.setdefault("sound_wide", {})[tag] = reading(
+                got, ref, ["dq"])
+            exact = dq_f64_scores(qr, k, v, do, ref["lse"], delta, scale_r,
+                                  p2, A.bwd_key_tile("split", dtype, d))
+            rows["sound_wide"][tag]["dq"]["vs_f64_scores"] = \
+                kernel_check.compare(got["dq"], exact)
+            rows.setdefault("plain_vs_f64_scores", {})[tag] = \
+                kernel_check.compare(ref["dq"], exact)
+            ok &= rows["sound_wide"][tag]["dq"]["strict"]["worst"] <= 1.0
+            for name in WIDE_MUTANTS:
+                _build._libs["flash_wide"] = ctypes.CDLL(paths[name])
+                try:
+                    got = {"dq": A.flash_bwd_dq(*args, p2, True)}
+                finally:
+                    _build._libs["flash_wide"] = sound
+                rows.setdefault(name, {})[tag] = reading(got, ref, ["dq"])
+                ok &= rows[name][tag]["dq"]["strict"]["worst"] > 1.0
+            del q, k, v, do, qr, ref, delta, args, got
+    return rows, ok
+
+
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--wide-only", action="store_true",
+                    help="only K3's 16-bit wide body and its mutants")
+    wide_only = ap.parse_args().wide_only
     if not torch.cuda.is_available():
         sys.exit("torch_kernel_control: no CUDA device")
     _build.build_all()
-    paths = build_mutants()
+    paths = build_mutants(wide_only)
+    wide, ok = wide_readings(paths)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True,
+        text=True).stdout.strip()
+    if wide_only:
+        print(json.dumps({"nvidia_smi": smi, "causal": True, "ok": ok,
+                          "wide_shapes": [list(x) for x in WIDE_SHAPES],
+                          "wide_readings": wide}), flush=True)
+        sys.exit(0 if ok else 1)
     sound = {stem: _build.load(stem)
              for stem in ("flash_fwd", "flash_bwd", SPLIT)}
-    result, ok = {}, True
+    result = {}
     for dtype in (torch.bfloat16, torch.float16):
         g = torch.Generator(device="cuda").manual_seed(0)
         q, k, v, do = (torch.randn(*SHAPE, device="cuda", generator=g)
@@ -339,9 +468,11 @@ def main():
         finally:
             _build._libs[stem] = sound_lib
         ok &= not ring[name]["ok"]
-    print(json.dumps({"shape": list(SHAPE), "causal": True, "ok": ok,
-                      "readings": result, "ring_shard": list(RING_SHARD),
-                      "ring_readings": ring}), flush=True)
+    print(json.dumps({"nvidia_smi": smi, "shape": list(SHAPE),
+                      "causal": True, "ok": ok, "readings": result,
+                      "ring_shard": list(RING_SHARD), "ring_readings": ring,
+                      "wide_shapes": [list(x) for x in WIDE_SHAPES],
+                      "wide_readings": wide}), flush=True)
     sys.exit(0 if ok else 1)
 
 

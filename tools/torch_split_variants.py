@@ -1,11 +1,11 @@
 """Design choices of two kernel families, timed on the GPU: the split
-backward pair (K2, K3) at head dim 64, and the 16-bit wide bodies of K1
-and K2 (head dims above 256).
+backward pair (K2, K3) at head dim 64, and the 16-bit wide bodies of K1,
+K2 and K3 (head dims above 256).
 
 Run from the repository root on a machine with one CUDA GPU::
 
     python3 tools/torch_split_variants.py                 # the split pair
-    python3 tools/torch_split_variants.py --family wide   # K1/K2 above 256
+    python3 tools/torch_split_variants.py --family wide   # K1-K3 above 256
 
 Each variant is a copy of the kernel sources with one or two lines
 changed (under ``horovod_tpu_torch/_build/variants/``; the checked-in
@@ -37,16 +37,25 @@ and the alternatives to the checked-in choices.  ``split``:
   instead of ``FWD_NP`` (O in fewer registers, more column CTAs);
 * ``fwd_64_keys`` — K1 takes 64-key tiles instead of ``FWD_KEYS`` (S in
   half the registers, Q re-streamed twice as often; the plain side then
-  walks 64 keys).
+  walks 64 keys);
+* ``dq_32_keys`` — K3 takes 32-key tiles instead of ``DQ_KEYS`` (S, dP
+  and the packed dS in half the registers, q' and dO re-streamed twice
+  as often; the plain side's dq then walks 32 keys);
+* ``dq_3_panels`` — K3's CTAs compute windows of 3 output panels instead
+  of ``DQ_NP`` (dQ in 48 registers, more column CTAs recomputing S and
+  dP above 288);
+* ``dq_4_stages`` — K3 streams its (q', dO, K, V) chunks through four
+  stages instead of ``DQ_STAGES``.
 
 Every build is held against the plain side that walks its own key tile
 (``kernel_check``; ``worst`` <= 1 passes), then the family's kernels are
 timed with the checked-in build and each variant in turns (checked-in,
 variant, variant, checked-in, twice) at the family's shapes (bf16,
 causal), by CUDA events, median of 15 after warm-up with a sleep kernel
-ahead.  For ``wide`` it first prints each build's registers and spills
-(``-Xptxas -v``) as one JSON line.  Then one JSON line: per shape and
-kernel, each build's medians.
+ahead, each turn's shape and build named on stderr first.  For ``wide``
+it first prints each build's registers and spills
+(``-Xptxas -v``, with the C75xx notes of each kernel) as one JSON line.
+Then one JSON line: per shape and kernel, each build's medians.
 """
 
 from __future__ import annotations
@@ -74,7 +83,8 @@ SLEEP_CYCLES = 2_000_000  # ≈1 ms at the H100's clock
 WH = "flash_wide_sm90.cuh"
 # family: stem, shapes (bh, s, d), the namespace whose kernels' ptxas
 # lines are printed (or None), and variant: ([(file, line, replacement)],
-# the key tile the plain side walks where it changes).
+# the key tiles the plain side walks where they change: (forward, dq), None
+# for the checked-in tile).
 FAMILIES = {
     "split": {
         "stem": "flash_bwd_split", "ptxas": None,
@@ -84,7 +94,8 @@ FAMILIES = {
                                 "constexpr int DKDV_STAGES = 3;",
                                 "constexpr int DKDV_STAGES = 2;")], None),
             "k3_128_keys": ([("flash_dq_sm90.cuh", "  return 64;\n",
-                              "  return D <= 64 ? 128 : 64;\n")], 128),
+                              "  return D <= 64 ? 128 : 64;\n")],
+                            (None, 128)),
             "k3_two_stages": ([("flash_dq_sm90.cuh",
                                 "constexpr int DQ_STAGES = 3;",
                                 "constexpr int DQ_STAGES = 2;")], None),
@@ -105,7 +116,13 @@ FAMILIES = {
             "fwd_3_panels": ([(WH, "constexpr int FWD_NP = 4;",
                                "constexpr int FWD_NP = 3;")], None),
             "fwd_64_keys": ([(WH, "constexpr int FWD_KEYS = 128;",
-                              "constexpr int FWD_KEYS = 64;")], 64),
+                              "constexpr int FWD_KEYS = 64;")], (64, None)),
+            "dq_32_keys": ([(WH, "constexpr int DQ_KEYS = 64;",
+                             "constexpr int DQ_KEYS = 32;")], (None, 32)),
+            "dq_3_panels": ([(WH, "constexpr int DQ_NP = 4;",
+                              "constexpr int DQ_NP = 3;")], None),
+            "dq_4_stages": ([(WH, "constexpr int DQ_STAGES = 3;",
+                              "constexpr int DQ_STAGES = 4;")], None),
         }},
 }
 
@@ -140,9 +157,9 @@ def build_variants(stem, variants):
 
 
 def ptxas_summary(log, namespace):
-    """``{kernel: "registers, spills"}`` of ``namespace``'s kernels in an
-    nvcc ``-Xptxas -v`` log, and the C75xx notes about them."""
-    out, name = {}, None
+    """``{kernel: "registers, spills[; C75xx notes]"}`` of ``namespace``'s
+    kernels in an nvcc ``-Xptxas -v`` log."""
+    out, notes, name = {}, {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
@@ -150,10 +167,11 @@ def ptxas_summary(log, namespace):
         elif name and ("spill" in line or "Used" in line):
             out[name] = (out.get(name, "") + " " + line.split(":", 1)[-1]
                          .strip()).strip()
-        if namespace in line and "C75" in line:
-            out.setdefault("notes", []).append(
-                re.search(r"\(C75\d\d\)[^']*", line).group(0).strip())
-    return out
+        m = re.search(r"\((C75\d\d)\).* function '(\w+)'", line)
+        if m and namespace in m.group(2):
+            notes.setdefault(m.group(2), set()).add(m.group(1))
+    return {k: v + ("; " + ", ".join(sorted(notes[k])) if k in notes else "")
+            for k, v in out.items()}
 
 
 def time_ms(fn, warmup=3, iters=15):
@@ -172,9 +190,17 @@ def time_ms(fn, warmup=3, iters=15):
     return statistics.median(times)
 
 
+def _dq(qr, k, v, do, lse, delta, p2, r, tile):
+    """The plain side's dq, dk, dv with dq summed over ``tile``-key blocks
+    (None: K3's checked-in tile)."""
+    block = tile or A.bwd_key_tile("split", torch.bfloat16, qr.shape[-1])
+    return A._attention_bwd_impl(qr, k, v, lse, delta, do, True, r,
+                                 block_size=block, dq_scale=p2,
+                                 round_pds=True)
+
+
 def split_case(qr, k, v, do, p2, r, tiles):
-    """K2 and K3 of the split pair, and the plain outputs per K3 tile."""
-    d = qr.shape[-1]
+    """K2 and K3 of the split pair, and the plain outputs per dq tile."""
     o, lse = A.flash_fwd(qr, k, v, r, True)
     delta = A._delta(o, do)
     args = (qr, k, v, do, lse, delta, r)
@@ -187,36 +213,35 @@ def split_case(qr, k, v, do, p2, r, tiles):
 
     wants = {}
     for tile in tiles:
-        block = tile or A.bwd_key_tile("split", torch.bfloat16, d)
-        dq, dk, dv = A._attention_bwd_impl(
-            qr, k, v, lse, delta, do, True, r, block_size=block,
-            dq_scale=p2, round_pds=True)
+        dq, dk, dv = _dq(qr, k, v, do, lse, delta, p2, r, tile[1])
         wants[tile] = {"dq": dq, "dk": dk, "dv": dv}
     return kernels, outputs, wants
 
 
 def wide_case(qr, k, v, do, p2, r, tiles):
-    """K1 and K2 of the wide bodies, and the plain outputs per K1 tile."""
+    """K1, K2 and K3 of the wide bodies, and the plain outputs per (K1,
+    K3) tile pair."""
     d = qr.shape[-1]
-    wants = {}
-    for tile in tiles:
-        o, lse = A._blockwise_fwd_impl(
+    fwd = {}
+    for tile in {t[0] for t in tiles}:
+        fwd[tile] = A._blockwise_fwd_impl(
             qr, k, v, True, r,
             block_size=tile or A.fwd_key_tile(torch.bfloat16, d))
-        wants[tile] = {"o": o, "lse": lse}
-    lse, delta = wants[None]["lse"], A._delta(wants[None]["o"], do)
-    _, dk, dv = A._attention_bwd_impl(qr, k, v, lse, delta, do, True, r,
-                                      round_pds=True)
-    for want in wants.values():
-        want.update(dk=dk, dv=dv)
+    lse, delta = fwd[None][1], A._delta(fwd[None][0], do)
+    bwd = {tile: _dq(qr, k, v, do, lse, delta, p2, r, tile)
+           for tile in {t[1] for t in tiles}}
+    wants = {t: {"o": fwd[t[0]][0], "lse": fwd[t[0]][1], "dq": bwd[t[1]][0],
+                 "dk": bwd[t[1]][1], "dv": bwd[t[1]][2]} for t in tiles}
     args = (qr, k, v, do, lse, delta, r)
     kernels = {"k1": lambda: A.flash_fwd(qr, k, v, r, True),
-               "k2": lambda: A.flash_bwd_dkdv(*args, True)}
+               "k2": lambda: A.flash_bwd_dkdv(*args, True),
+               "k3": lambda: A.flash_bwd_dq(*args, p2, True)}
 
     def outputs():
         o, lse_k = kernels["k1"]()
         dk_k, dv_k = kernels["k2"]()
-        return {"o": o, "lse": lse_k, "dk": dk_k, "dv": dv_k}
+        return {"o": o, "lse": lse_k, "dq": kernels["k3"](), "dk": dk_k,
+                "dv": dv_k}
 
     return kernels, outputs, wants
 
@@ -243,7 +268,8 @@ def main():
             flush=True)
     libs = {"checked_in": _build.load(stem)}
     libs.update({n: ctypes.CDLL(p) for n, (p, _) in built.items()})
-    tiles = {n: variants[n][1] if n in variants else None for n in libs}
+    tiles = {n: variants[n][1] if n in variants and variants[n][1]
+             else (None, None) for n in libs}
     result, ok = {}, True
     for bh, s, d in fam["shapes"]:
         g = torch.Generator(device="cuda").manual_seed(
@@ -264,6 +290,9 @@ def main():
         for n in variants:
             for m in ("checked_in", n, n, "checked_in") * 2:
                 _build._libs[stem] = libs[m]
+                # On stderr, so that a fault names the build it hit.
+                print(f"timing {bh}x{s}x{d} {m}", file=sys.stderr,
+                      flush=True)
                 for kern, fn in kernels.items():
                     times[kern][m].append(time_ms(fn))
         _build._libs[stem] = libs["checked_in"]
