@@ -44,8 +44,10 @@ Phases, one JSON line each:
    batch-heads x seq 512) and on their wide bodies (``flash_wide.cu``) at
    288, 512 (64 batch-heads x seq 1024) and 1000 (32 x 1024, run padded
    to 1024) in bf16 (K1, K2 and K3 on the wgmma bodies of
-   ``flash_wide_sm90.cuh``), at 512 in fp16, and at 288 in
-   f32 (8 batch-heads x seq 512: every body on SIMT), and K1 and B2 at
+   ``flash_wide_sm90.cuh``), at 512 in fp16, and in f32 at 288 (8
+   batch-heads x seq 512, and 64 x 1024) and 512 (64 x 1024): K1 and K2
+   on the 3xTF32 wgmma bodies of ``flash_wide_f32_sm90.cuh``, K3 on SIMT;
+   f32 bounds at the 3xTF32 rate (``PEAK_FLOPS``), and K1 and B2 at
    head dims 16 and 80 on the main path's shape (run zero-padded to 32
    and 96), each held alone against its plain version at the caller's
    head dim, the padded columns exactly 0; ``flash_attention`` forward
@@ -54,10 +56,10 @@ Phases, one JSON line each:
    80), its output and gradients against the plain blockwise path; times
    beside SDPA's fastest backend at the same head dim (above 256 the math
    backend too), the bound of the caller's work, the TFLOP/s and share of
-   that bound, and above 256 in bf16 the SIMT bodies' times quoted from
-   PERF.md in this phase's line only (not measured here, so never in the
-   summary).  The summary's rows of head dims 256 and above come from
-   here.
+   that bound, and above 256 the SIMT bodies' times (bf16; f32 K1 and
+   K2) quoted from PERF.md in this phase's line only (not measured here,
+   so never in the summary).  The summary's rows of head dims 256 and
+   above come from here.
 6. ``ring_kernels`` — K4 ``ring_flash_fwd``, K5 ``ring_flash_bwd``, K6
    ``ring_permute`` and K7 ``phase_closer`` on a ring of 4 members
    co-located on the card (``RingMesh``, one stream each), shard
@@ -274,9 +276,14 @@ from tools.torch_step_profile import image_category, trace_steps  # noqa
 
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "chiprun_out")
-# H100 SXM data-sheet peaks (dense), at the 700 W limit.
+# H100 SXM data-sheet peaks (dense), at the 700 W limit.  float32: the
+# 3xTF32 rate, the TF32 tensor-core peak (494.7 TFLOP/s) over the three
+# products (hi.hi + hi.lo + lo.hi) that keep f32 to the 1e-4 rule: the
+# least time the card could take for f32 work, since SDPA's
+# memory-efficient backend and the port's wide f32 bodies run on it (the
+# SIMT rate, 67 TFLOP/s, would let a tensor-core body read above 100%).
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
-              torch.float32: 67e12}
+              torch.float32: 494.7e12 / 3}
 PEAK_BYTES = 3.35e12
 SLEEP_CYCLES = 2_000_000  # ≈1 ms at the H100's clock: time_ms's lead
 MAIN = (16, 8, 1024, 64)  # batch, heads, seq, head_dim of the LM step
@@ -294,23 +301,32 @@ HEAD_DIM_WIDE = (1, 1040, 512, 256)
 HEAD_DIM_PADDED = ((16, 8, 1024, 16), (16, 8, 1024, 80))
 # Head dims above 256 (ROADMAP C.1), (shape, dtype): the wide bodies of
 # K1, K2 and K3 at 288 and 512, and at 1000 (run padded to 1024), in bf16;
-# at 512 in fp16 (the wgmma bodies in the other 16-bit type); and at a
-# small shape in f32 (the SIMT bodies f32 keeps).
+# at 512 in fp16 (the wgmma bodies in the other 16-bit type); and in f32
+# at 288 and 512 on the bf16 rows' shape and at 288 on a small one.
 HEAD_DIM_WIDER = (((1, 64, 1024, 288), torch.bfloat16),
                   ((1, 64, 1024, 512), torch.bfloat16),
                   ((1, 32, 1024, 1000), torch.bfloat16),
                   ((1, 64, 1024, 512), torch.float16),
-                  ((1, 8, 512, 288), torch.float32))
+                  ((1, 8, 512, 288), torch.float32),
+                  ((1, 64, 1024, 288), torch.float32),
+                  ((1, 64, 1024, 512), torch.float32))
 WIDE_SOURCE = "horovod_tpu_torch/ops/csrc/flash_wide.cu"
-# K1's, K2's and K3's bodies above 256 in fp16 and bf16.
+# K1's, K2's and K3's bodies above 256 in fp16 and bf16; K1's and K2's in
+# f32 (3xTF32; K3's f32 body is WIDE_SOURCE's SIMT one).
 WIDE_SM90_SOURCE = "horovod_tpu_torch/ops/csrc/flash_wide_sm90.cuh"
-# Quoted, not measured by this script: the SIMT bodies' times in bf16 at
-# HEAD_DIM_WIDER's bf16 shapes, before K1, K2 and K3 moved to wgmma, in ms
-# of K1, K2, K3 by head dim (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md
-# section 6).  They go into the head_dims phase's line only, beside the
-# times measured, never into the kernels line.
-WIDE_QUOTED_MS = {288: (4.606, 14.604, 7.909), 512: (9.838, 33.260, 18.197),
-                   1000: (17.525, 60.833, 33.673)}
+WIDE_F32_SOURCE = "horovod_tpu_torch/ops/csrc/flash_wide_f32_sm90.cuh"
+# Quoted, not measured by this script: the SIMT bodies' times at
+# HEAD_DIM_WIDER's shapes before they moved to tensor cores, in ms of K1,
+# K2, K3 by the head_dims phase's row tag: bf16 (all three), and f32 (K1
+# and K2; K3's f32 body is still SIMT, so measured) (NVIDIA H100 80GB
+# HBM3, 700.00 W; PERF.md section 6).  They go into the head_dims phase's
+# line only, beside the times measured, never into the kernels line.
+WIDE_QUOTED_MS = {"d288": (4.606, 14.604, 7.909),
+                  "d512": (9.838, 33.260, 18.197),
+                  "d1000": (17.525, 60.833, 33.673),
+                  "d288_f32": (0.2748, 0.4829, None),
+                  "d288_f32_bh64": (4.7655, 14.4897, None),
+                  "d512_f32": (9.9314, 32.0191, None)}
 # The image phases: the models held card against CPU, and the ResNet
 # data-parallel phase's averaging check seed.
 IMAGE_MODELS = (("resnet50", 224), ("vgg16", 224), ("inception_v3", 299),
@@ -524,14 +540,13 @@ def phase_kernels():
              ((16, 8, 1000, 128), torch.bfloat16, True),
              ((16, 8, 1000, 128), torch.float32, True)]
     results = []
-    main_errs = None
+    case_errs = {}
     for shape, dtype, causal in cases:
         errs = check_case(shape, dtype, causal)
         ok = all(e["worst"] <= 1.0 for e in errs.values())
         results.append({"shape": list(shape), "dtype": str(dtype),
                         "causal": causal, "ok": ok, "errors": errs})
-        if (shape, dtype, causal) == (MAIN, torch.bfloat16, True):
-            main_errs = errs
+        case_errs[(shape, dtype, causal)] = errs
         if not ok:
             emit("kernels", cases=results)
             fail(f"kernel disagrees with its plain version: {results[-1]}")
@@ -539,16 +554,28 @@ def phase_kernels():
     # Times at the main path's shape and dtype; the plain times are of the
     # plain versions as held against the kernels above.
     dtype = torch.bfloat16
-    entries, t_dkdv, t_dq, lib_fwd, lib_bwd = k1_b2_entries(MAIN, main_errs)
+    entries, t_dkdv, t_dq, lib_fwd, lib_bwd = k1_b2_entries(
+        MAIN, case_errs[(MAIN, dtype, True)])
+    # The f32 bodies at or below 256 (SIMT) at the same shape, beside SDPA
+    # in f32: reported on this line only.
+    f32 = k1_b2_entries(MAIN, case_errs[(MAIN, torch.float32, True)],
+                        torch.float32)
+
+    def timing(es):
+        return {n: {k: e[k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms")}
+                for n, e in es.items()}
     emit("kernels", cases=results, shape=list(MAIN), dtype=str(dtype),
-         timing={n: {k: e[k] for k in ("ms", "plain_ms", "bound_ms",
-                                       "bound_by", "library_ms")}
-                 for n, e in entries.items()},
-         k2_ms=t_dkdv, k3_ms=t_dq, sdpa_fwd_ms=lib_fwd, sdpa_bwd_ms=lib_bwd,
+         timing=timing(entries), k2_ms=t_dkdv, k3_ms=t_dq,
+         sdpa_fwd_ms=lib_fwd, sdpa_bwd_ms=lib_bwd,
+         f32={"timing": timing(f32[0]), "k2_ms": f32[1], "k3_ms": f32[2],
+              "sdpa_fwd_ms": f32[3], "sdpa_bwd_ms": f32[4]},
          note="library_ms: the fastest SDPA backend's forward for K1, its "
               "whole backward (dq, dk, dv) for B2; k2_ms, k3_ms: the split "
               "pair at this shape, which no path gives it (its entries come "
-              "from the split phase)")
+              "from the split phase); f32: K1 and B2 (and K2, K3) in float32 "
+              "at the same shape, beside SDPA in float32 (bounds at the "
+              "3xTF32 rate, PEAK_FLOPS)")
     return entries
 
 
@@ -877,13 +904,14 @@ def phase_head_dims():
     """Head dims other than the main path's (ROADMAP C.1), causal.
     K1, K2 and K3 at the wide head dim 256 on the split phase's shape
     (bf16) and on their wide bodies at HEAD_DIM_WIDER (288, 512 and 1000,
-    run padded to 1024, in bf16; 512 in fp16; 288 in f32), and K1 and B2
-    at head dims 16 and 80 (no body takes them: the inputs run zero-padded
-    to 32 and 96) on the main path's shape in bf16, each held alone
-    against its plain version at the caller's head dim; ``flash_attention``
-    forward and backward at each, the counters zeroed just before and read
-    just after each (K1 1, and K2 1 + K3 1 at 256 and above, B2 1 at 16
-    and 80), its output and gradients against the plain blockwise path;
+    run padded to 1024, in bf16; 512 in fp16; 288 and 512 in f32), and K1
+    and B2 at head dims 16 and 80 (no body takes them: the inputs run
+    zero-padded to 32 and 96) on the main path's shape in bf16, each held
+    alone against its plain version at the caller's head dim;
+    ``flash_attention`` forward and backward at each, the counters zeroed
+    just before and read just after each (K1 1, and K2 1 + K3 1 at 256
+    and above, B2 1 at 16 and 80), its output and gradients against the
+    plain blockwise path;
     then the kernels (at 256 and above) and ``flash_attention`` (at 16 and
     80, padding included) timed beside SDPA's fastest backend at the same
     head dim and the bound of the caller's work.  Returns the summary's
@@ -896,6 +924,8 @@ def phase_head_dims():
     for shape, dtype, mode in cases:
         d = shape[-1]
         tag = f"d{d}{_dtype_tag(dtype)}"
+        if tag in result:  # a second shape at this head dim and dtype
+            tag += f"_bh{shape[0] * shape[1]}"
         if A.bwd_mode(shape[2], d, shape[0] * shape[1]) != mode:
             fail(f"the plan does not pick {mode} at {shape}")
         errs, zero_pad = hold_padded(shape, dtype, causal, mode, 20 + d)
@@ -961,22 +991,26 @@ def phase_head_dims():
                     + "; library_ms: SDPA's fastest backend (forward for "
                     "K1, whole backward for K2 and K3); bound of the "
                     "caller's head dim's work")
-            quoted = (WIDE_QUOTED_MS.get(d, (None,) * 3)
-                      if dtype == torch.bfloat16 else (None,) * 3)
-            # The 16-bit bodies above 256 are the wgmma ones.
-            source = (None if not wide else WIDE_SOURCE
-                      if dtype == torch.float32 else WIDE_SM90_SOURCE)
+            quoted = WIDE_QUOTED_MS.get(tag, (None,) * 3)
+            # Above 256 the 16-bit bodies are the wgmma ones, f32 K1 and
+            # K2 the 3xTF32 ones and f32 K3 the SIMT one.
+            f32 = dtype == torch.float32
+            sources = {n: None if not wide else WIDE_SOURCE
+                       if f32 and n == "flash_bwd_dq" else WIDE_F32_SOURCE
+                       if f32 else WIDE_SM90_SOURCE
+                       for n in ("flash_fwd", "flash_bwd_dkdv",
+                                 "flash_bwd_dq")}
             entries[f"flash_fwd_{tag}"] = _rates(_entry(
                 f"flash_fwd_{tag}", t_k1, t_plain_fwd, t_lib_fwd,
                 4 * d * pairs, 4 * tile + rowb, dtype, err["flash_fwd"],
-                kernel="flash_fwd", source=source,
+                kernel="flash_fwd", source=sources["flash_fwd"],
                 library_by_backend=lib_fwd, shape=list(shape), note=note))
             for name, t in (("flash_bwd_dkdv", t_k2),
                             ("flash_bwd_dq", t_k3)):
                 entries[f"{name}_{tag}"] = _rates(_entry(
                     f"{name}_{tag}", t, t_plain_bwd, t_lib_bwd,
                     *bounds[name], dtype, err[name], kernel=name,
-                    source=source,
+                    source=sources[name],
                     library_by_backend=lib_bwd, shape=list(shape),
                     note=note + "; plain_ms: the whole plain split "
                     "backward"))
@@ -987,11 +1021,12 @@ def phase_head_dims():
                 row["times"][name] = {k: e[k] for k in (
                     "ms", "tflops", "bound_share", "library_ms")}
                 row["times"][name]["quoted_simt_ms"] = q
-                if wide and dtype != torch.float32:
+                if wide and not (f32 and name == "flash_bwd_dq"):
                     # The work the body does, its column CTAs' recompute
-                    # included, over the caller's pairs.
+                    # (and in f32 the three TF32 products) included, over
+                    # the caller's pairs.
                     row["times"][name]["tensor_core_tflops"] = (
-                        pairs * A.wide_tensor_core_flops(name, d)
+                        pairs * A.wide_tensor_core_flops(name, d, dtype)
                         / e["ms"] / 1e9)
             del largs, qr, k, v, do, lse, delta
         else:
@@ -1029,13 +1064,14 @@ def phase_head_dims():
               "alone on the padded inputs beside them, the kernels alone at "
               "256 and above (on inputs padded to the body's head dim; "
               "tflops and bound_share of the caller's work; quoted_simt_ms: "
-              "the SIMT bodies' bf16 times from PERF.md, quoted and not "
-              "measured in this run; tensor_core_tflops above 256 in 16 "
-              "bits: the body's own products, its column CTAs' recompute "
-              "included, over the caller's pairs, "
-              "attention.wide_tensor_core_flops); bounds of the caller's head "
-              "dim's work; sdpa: each backend at the same head dim (and "
-              "the math backend above 256)")
+              "the SIMT bodies' times from PERF.md, quoted and not "
+              "measured in this run; tensor_core_tflops above 256: the "
+              "body's own products, its column CTAs' recompute and in f32 "
+              "the three TF32 products of each included, over the caller's "
+              "pairs, attention.wide_tensor_core_flops; none for f32 K3, "
+              "SIMT); bounds of the caller's head dim's work, f32 at the "
+              "3xTF32 rate (PEAK_FLOPS); sdpa: each backend at the same "
+              "head dim (and the math backend above 256)")
     return entries
 
 

@@ -26,8 +26,9 @@ Counterpart of ``horovod_tpu/ops/attention.py``.  Layout convention:
   above 256 K1, K2 and K3 run their wide bodies (``csrc/flash_wide.cu``,
   O's and the gradients' columns split across blocks) on the head dim
   zero-padded to a multiple of 32: in fp16 and bf16 on wgmma and TMA
-  (``csrc/flash_wide_sm90.cuh``), in f32 on SIMT.  Any other CUDA input
-  the kernels cannot take raises; nothing falls back.
+  (``csrc/flash_wide_sm90.cuh``), in f32 K1 and K2 on 3xTF32 wgmma and
+  TMA (``csrc/flash_wide_f32_sm90.cuh``) and K3 on SIMT.  Any other CUDA
+  input the kernels cannot take raises; nothing falls back.
 
 The plain versions multiply in float32 on operands rounded to the storage
 dtype — the reference's ``preferred_element_type=float32`` — so f32 matmul
@@ -60,22 +61,25 @@ WIDE_HEAD_DIM = 256
 _SPLIT_HEAD_DIMS = HEAD_DIMS + (WIDE_HEAD_DIM,)
 # Above 256, K1, K2 and K3 run their wide bodies (csrc/flash_wide.cu) on
 # any head dim that is a multiple of their head-dim chunk, DC (the panel,
-# PANEL, of the 16-bit bodies in csrc/flash_wide_sm90.cuh).  Key tiles by
-# dtype class: the forward's is the 16-bit K1 body's FWD_KEYS and the f32
-# SIMT body's TK; the split mode's is K3's, the one its dq sums over (the
+# PANEL, of the 16-bit bodies in csrc/flash_wide_sm90.cuh, F32_PANEL of
+# the f32 ones in csrc/flash_wide_f32_sm90.cuh).  Key tiles by dtype
+# class: the forward's is the 16-bit K1 body's FWD_KEYS and the f32 one's
+# F32_FWD_KEYS; the split mode's is K3's, the one its dq sums over (the
 # 16-bit body's DQ_KEYS and the f32 SIMT body's TK; K2's keys per CTA do
 # not change any sum).
 WIDE_CHUNK = 32
 _WIDE_KEY_TILE = {"fwd": {"16-bit": 128, "f32": 64},
                   "split": {"16-bit": 64, "f32": 64}}
-# The 16-bit wide bodies' windows, in panels of WIDE_CHUNK output columns
-# per column CTA (FWD_NP, DKDV_NP, DQ_NP), and the panels per chunk that
-# they stream S (and dP) in (CHUNK_PANELS): every column CTA of a tile
-# recomputes the score products over the whole head dim for its window
-# (:func:`wide_tensor_core_flops`).
+# The wide tensor-core bodies' windows, in panels of WIDE_CHUNK output
+# columns per column CTA (16 bits: FWD_NP, DKDV_NP, DQ_NP; f32:
+# F32_FWD_NP, F32_DKDV_NP), and the panels per chunk that the 16-bit ones
+# stream S (and dP) in (CHUNK_PANELS; the f32 ones one panel): every
+# column CTA of a tile recomputes the score products over the whole head
+# dim for its window (:func:`wide_tensor_core_flops`).
 WIDE_CHUNK_PANELS = 2
 _WIDE_WINDOW_PANELS = {"flash_fwd": 4, "flash_bwd_dkdv": 3,
                        "flash_bwd_dq": 4}
+_WIDE_F32_WINDOW_PANELS = {"flash_fwd": 4, "flash_bwd_dkdv": 4}
 # Key tile of each forward body per head dim, as in the CUDA sources: the
 # 16-bit wgmma body (csrc/flash_fwd_sm90.cuh, key_tile) and the f32 SIMT
 # body (csrc/flash_common.cuh, f32_tile).  The online softmax advances its
@@ -112,24 +116,31 @@ def padded_head_dim(d: int) -> int:
                      "above")
 
 
-def wide_tensor_core_flops(name: str, d: int) -> int:
-    """Tensor-core FLOP per computed (query, key) pair of the 16-bit wide
-    body of kernel ``name`` (``flash_fwd``, ``flash_bwd_dkdv``,
-    ``flash_bwd_dq``) at head dim ``d``, padded as the callers pad it:
+def wide_tensor_core_flops(name: str, d: int, dtype=torch.bfloat16) -> int:
+    """Tensor-core FLOP per computed (query, key) pair of the wide body of
+    kernel ``name`` (``flash_fwd``, ``flash_bwd_dkdv``, ``flash_bwd_dq``)
+    that takes ``dtype`` at head dim ``d``, padded as the callers pad it:
     each of its ceil(d / (32 NP)) column CTAs runs the score products over
     the whole head dim (S: 2 d FLOP; K2 and K3 dP too: 4 d) and the
     output products over its window of W = 32 NP columns (K1's P V: 2 W;
     K2's dV and dK: 4 W; K3's dQ: 2 W).  Against the caller's 4 d (K1), 8 d
-    (K2) and 6 d (K3) it is the recompute the column split costs."""
+    (K2) and 6 d (K3) it is the recompute the column split costs.  In
+    float32 every product is three TF32 products (3xTF32), and K3 has no
+    tensor-core body (SIMT)."""
     body = padded_head_dim(d)
     if body <= WIDE_HEAD_DIM:
         raise ValueError(f"head_dim {d}: no wide body at or below "
                          f"{WIDE_HEAD_DIM}")
-    panels = _WIDE_WINDOW_PANELS[name]
+    f32 = dtype == torch.float32
+    windows = _WIDE_F32_WINDOW_PANELS if f32 else _WIDE_WINDOW_PANELS
+    if name not in windows:
+        raise ValueError(f"{name}: no tensor-core wide body in {dtype}")
+    panels = windows[name]
     score, out = {"flash_fwd": (2, 2), "flash_bwd_dkdv": (4, 4),
                   "flash_bwd_dq": (4, 2)}[name]
     column_ctas = -(-(body // WIDE_CHUNK) // panels)
-    return column_ctas * (score * body + out * panels * WIDE_CHUNK)
+    return ((3 if f32 else 1) * column_ctas
+            * (score * body + out * panels * WIDE_CHUNK))
 
 
 def _key_tiles(d: int) -> dict:
@@ -645,7 +656,7 @@ def flash_attention(q, k, v, causal: bool = False,
     by 128 keys in 16 bits, 64 keys above head_dim 64, and 64 by 64 in
     float32, :func:`fwd_key_tile`; the backward :func:`bwd_key_tile`; 64
     query rows and 32 x 32 f32 tiles at head_dim 256; above 256, 128
-    query rows by 128 keys in 16 bits and 64 by 64 in float32, with at
+    query rows by 128 keys in 16 bits and by 64 in float32, with at
     most 128 output columns per block).
     """
     del block_q, block_k

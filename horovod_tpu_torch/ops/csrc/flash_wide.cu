@@ -1,8 +1,9 @@
 // K1, K2 and K3 at head dims above 256 for Hopper (sm_90a): the wide
 // bodies of the flash forward (flash_fwd_wide) and of the split backward
 // (flash_bwd_dkdv_wide, flash_bwd_dq_wide).  In fp16 and bf16 all three
-// run the wgmma/TMA bodies of flash_wide_sm90.cuh (its note gives their
-// design); in f32 they run the SIMT bodies below.
+// run the wgmma/TMA bodies of flash_wide_sm90.cuh; in f32 K1 and K2 run
+// the 3xTF32 wgmma/TMA bodies of flash_wide_f32_sm90.cuh (each header's
+// note gives its design), and K3 the SIMT body below.
 //
 // They replace the Pallas TPU kernels `_flash_kernel`
 // (horovod_tpu/ops/attention.py:356) and `_flash_bwd_dkdv_kernel` /
@@ -10,31 +11,26 @@
 // computes above 256: its `_bwd_plan` sends every head dim above 128 to
 // the split backward, so these three are the kernels it runs there.
 //
-// The SIMT bodies.  The problem at these widths is shared memory, not
+// K3's f32 SIMT body.  The problem at these widths is shared memory, not
 // arithmetic: the bodies up to 256 keep a whole query tile and whole key
 // and value tiles resident, and at head dim 512 a 128-row query tile with
 // one key and one value tile is 256 KB, above the 227 KB a block may hold.
-// These bodies split the output's columns across blocks instead.  A block
-// owns one tile of its stationary operand (64 query rows for K1 and K3, 64
-// keys for K2) and DV = 128 columns of its outputs (O; dK and dV; dQ).  It
-// streams every tile of the other operand; for each it forms S = q' k^T
-// (and, in the backward, dP = dO v^T) over the whole head dim in DC =
-// 32-column chunks staged through shared memory, and then adds that tile's
-// product into its own columns.  Every block of a row tile recomputes the
-// same S (d / DV times in all): the price of any head dim in ~66-116 KB of
-// shared memory.  The column blocks of one tile compute S, the softmax
-// statistics and P identically, so they agree bit for bit on what they
-// share, and the first writes lse.
+// This body splits dQ's columns across blocks instead.  A block owns one
+// 64-row query tile and DV = 128 columns of dQ.  It streams every key
+// tile; for each it forms S = q' k^T and dP = dO v^T over the whole head
+// dim in DC = 32-column chunks staged through shared memory, and then
+// adds that tile's dS K into its own columns.  Every block of a row tile
+// recomputes the same S and dP (d / DV times in all): the price of any
+// head dim in ~66 KB of shared memory.
 //
 // Products are scalar f32 FMAs (SIMT) on operands converted from the
 // storage dtype: 256 threads, each holding a 4 x 4 tile of S and a 4 x 8
-// tile of each output (rows ty + 16 i, columns tx + 16 j).  p and ds are
-// rounded to the storage dtype before the products that take them, as
-// the other bodies and the reference's `_bwd_block_math` round them; the
-// forward's running max advances one 64-key tile at a time and l sums the
-// unrounded p.  Bound on the card: by operations at every shape the
-// callers use (8 d and more FLOP per causal pair against 2 d bytes);
-// these bodies reach the SIMT f32 rate at best.
+// tile of dQ (rows ty + 16 i, columns tx + 16 j).  ds is rounded to the
+// storage dtype before its product, as the other bodies and the
+// reference's `_bwd_block_math` round it (a no-op in f32, the only dtype
+// it is built for).  Bound on the card: by operations at every shape the
+// callers use (6 d FLOP per causal pair against 2 d bytes); this body
+// reaches the SIMT f32 rate at best.
 //
 // Head dims: any multiple of DC above 256 (the wrappers zero-pad to one,
 // ops/attention.py `padded_head_dim`); the last column block of a head
@@ -46,7 +42,7 @@
 // is masked.
 
 #include "flash_common.cuh"
-#include "flash_wide_sm90.cuh"
+#include "flash_wide_f32_sm90.cuh"
 
 namespace hvdt {
 namespace wide {
@@ -57,7 +53,7 @@ constexpr int DC = 32;      // head-dim chunk of the S and dP products
 constexpr int DV = 128;     // output columns per block
 constexpr int NTH = 256;    // 16 x 16 threads
 constexpr int LDC = DC + 1; // chunk tiles: lanes walk down a column
-constexpr int LDP = TK + 1; // P and dS tiles
+constexpr int LDP = TK + 1; // the dS tile
 constexpr int LDV = DV;     // column tiles: lanes walk along a row
 constexpr int RI = TR / 16; // rows per thread
 constexpr int CJ = TK / 16; // keys per thread
@@ -134,26 +130,8 @@ __device__ __forceinline__ void row_products(float (&s)[RI][CJ], float* As,
   }
 }
 
-// Over the 16 threads of a row (lanes of one half-warp): every lane ends
-// with the same value (a + b == b + a, so the butterfly is symmetric).
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// acc[i][jj] += sum_t A[t or row] x X[t][tx + 16 jj] over the TR/TK shared
-// rows of the tiles: A is a P or dS tile (LDP), read as A[row][t] when
-// !TA (the forward's P.V, K3's dS.K) and A[t][row] when TA (K2's P^T dO,
-// dS^T q'), row = ty + 16 i.
-template <bool TA>
+// acc[i][jj] += sum_t A[row][t] x X[t][tx + 16 jj] over the TK shared
+// rows of the tiles: A is the dS tile (LDP), row = ty + 16 i.
 __device__ __forceinline__ void add_product(float (&acc)[RI][VJ],
                                             const float* A, const float* X) {
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
@@ -161,8 +139,7 @@ __device__ __forceinline__ void add_product(float (&acc)[RI][VJ],
   for (int t = 0; t < TK; ++t) {
     float av[RI], xv[VJ];
 #pragma unroll
-    for (int i = 0; i < RI; ++i)
-      av[i] = TA ? A[t * LDP + ty + 16 * i] : A[(ty + 16 * i) * LDP + t];
+    for (int i = 0; i < RI; ++i) av[i] = A[(ty + 16 * i) * LDP + t];
 #pragma unroll
     for (int jj = 0; jj < VJ; ++jj) xv[jj] = X[t * LDV + tx + 16 * jj];
 #pragma unroll
@@ -200,99 +177,16 @@ __device__ __forceinline__ void zero(float (&acc)[RI][VJ]) {
 }
 
 constexpr size_t CHUNKS = (size_t)(TR + TK) * LDC;  // As, Bs
-constexpr size_t FWD_SMEM = (CHUNKS + TR * LDP + TK * LDV) * sizeof(float);
-constexpr size_t DKDV_SMEM =
-    (CHUNKS + 2 * TR * LDP + 2 * TR * LDV) * sizeof(float);
 constexpr size_t DQ_SMEM = (CHUNKS + TR * LDP + TK * LDV) * sizeof(float);
 
-// K1: O's columns [c0, c0 + DV) of one 64-row query tile, and its lse.
-template <typename T>
-__global__ void __launch_bounds__(NTH)
-    fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, T* __restrict__ o,
-               float* __restrict__ lse, int bh_total, int n_cc, int sq,
-               int sk, int d, float scale_r, int causal) {
-  extern __shared__ __align__(16) float smem[];
-  float* As = smem;
-  float* Bs = As + TR * LDC;
-  float* Ps = Bs + TK * LDC;
-  float* Vs = Ps + TR * LDP;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const size_t bh = blockIdx.x % bh_total;
-  const int rest = blockIdx.x / bh_total;
-  const int c0 = (rest % n_cc) * DV;
-  const int q0 = ((sq + TR - 1) / TR - 1 - rest / n_cc) * TR;  // late first
-  q += bh * sq * d;
-  k += bh * sk * d;
-  v += bh * sk * d;
-  o += bh * sq * d;
-  lse += bh * sq;
-
-  float m[RI], l[RI], acc[RI][VJ];
-#pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-  }
-  zero(acc);
-  int n_kt = (sk + TK - 1) / TK;
-  if (causal) n_kt = min(n_kt, (q0 + TR - 1) / TK + 1);
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * TK;
-    float s[RI][CJ];
-    row_products<T>(s, As, Bs, q, q0, sq, k, k0, sk, d);
-#pragma unroll
-    for (int i = 0; i < RI; ++i) {
-      const int row = q0 + ty + 16 * i;
-      float mx = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) {
-        const int col = k0 + tx + 16 * j;
-        float x = s[i][j] * scale_r;
-        if (col >= sk || (causal && col > row)) x = NEG_INF;
-        s[i][j] = x;
-        mx = fmaxf(mx, x);
-      }
-      const float m_new = fmaxf(m[i], row_max(mx));
-      const float m_safe = m_new <= NEG_INF / 2 ? 0.f : m_new;
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) {
-        const float p = expf(s[i][j] - m_safe);
-        sum += p;
-        Ps[(ty + 16 * i) * LDP + tx + 16 * j] = rounded<T>(p);
-      }
-      const float alpha = expf(m[i] - m_safe);
-      l[i] = l[i] * alpha + row_sum(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int jj = 0; jj < VJ; ++jj) acc[i][jj] *= alpha;
-    }
-    load_cols<T, TK, DV>(Vs, LDV, v, k0, sk, c0, d);
-    __syncthreads();
-    add_product<false>(acc, Ps, Vs);
-  }
-#pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    const int row = q0 + ty + 16 * i;
-    const float lsafe = l[i] == 0.f ? 1.f : l[i];
-#pragma unroll
-    for (int jj = 0; jj < VJ; ++jj) acc[i][jj] = acc[i][jj] / lsafe;
-    if (c0 == 0 && tx == 0 && row < sq)
-      lse[row] = l[i] == 0.f ? POS_BIG : m[i] + logf(fmaxf(l[i], 1e-37f));
-  }
-  store_cols<T>(o, acc, q0, sq, c0, d, 1.f);
-}
-
-// p (masked to 0) and ds of one (query tile, key tile) pair, rounded to
-// the storage dtype, into Ps and dSs (rows: queries, columns: keys).
+// ds of one (query tile, key tile) pair (p masked to 0), rounded to the
+// storage dtype, into dSs (rows: queries, columns: keys).
 template <typename T>
 __device__ __forceinline__ void probs(const float (&s)[RI][CJ],
-                                      const float (&dp)[RI][CJ], float* Ps,
-                                      float* dSs, const float* lse,
-                                      const float* delta, int q0, int sq,
-                                      int k0, int sk, float scale_r,
-                                      int causal) {
+                                      const float (&dp)[RI][CJ], float* dSs,
+                                      const float* lse, const float* delta,
+                                      int q0, int sq, int k0, int sk,
+                                      float scale_r, int causal) {
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 #pragma unroll
   for (int i = 0; i < RI; ++i) {
@@ -305,59 +199,9 @@ __device__ __forceinline__ void probs(const float (&s)[RI][CJ],
       const bool on = row < sq && col < sk && !(causal && col > row);
       const float p = on ? expf(s[i][j] * scale_r - L) : 0.f;
       const float ds = p * (dp[i][j] - D) * scale_r;
-      if (Ps) Ps[(ty + 16 * i) * LDP + tx + 16 * j] = rounded<T>(p);
       dSs[(ty + 16 * i) * LDP + tx + 16 * j] = rounded<T>(ds);
     }
   }
-}
-
-// K2: dK's and dV's columns [c0, c0 + DV) of one 64-key tile.
-template <typename T>
-__global__ void __launch_bounds__(NTH)
-    dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const T* __restrict__ dout,
-                const float* __restrict__ lse,
-                const float* __restrict__ delta, T* __restrict__ dk,
-                T* __restrict__ dv, int bh_total, int n_cc, int sq, int sk,
-                int d, float scale_r, int causal) {
-  extern __shared__ __align__(16) float smem[];
-  float* As = smem;
-  float* Bs = As + TR * LDC;
-  float* Ps = Bs + TK * LDC;
-  float* dSs = Ps + TR * LDP;
-  float* Xs = dSs + TR * LDP;  // dO's columns of the query tile
-  float* Ys = Xs + TR * LDV;   // q''s columns of the query tile
-  const size_t bh = blockIdx.x % bh_total;
-  const int rest = blockIdx.x / bh_total;
-  const int c0 = (rest % n_cc) * DV;
-  const int k0 = (rest / n_cc) * TK;  // heavy (early) key tiles first
-  q += bh * sq * d;
-  dout += bh * sq * d;
-  k += bh * sk * d;
-  v += bh * sk * d;
-  dk += bh * sk * d;
-  dv += bh * sk * d;
-  lse += bh * sq;
-  delta += bh * sq;
-
-  float acc_k[RI][VJ], acc_v[RI][VJ];
-  zero(acc_k);
-  zero(acc_v);
-  const int n_qt = (sq + TR - 1) / TR;
-  for (int qt = causal ? k0 / TR : 0; qt < n_qt; ++qt) {
-    const int q0 = qt * TR;
-    float s[RI][CJ], dp[RI][CJ];
-    row_products<T>(s, As, Bs, q, q0, sq, k, k0, sk, d);
-    row_products<T>(dp, As, Bs, dout, q0, sq, v, k0, sk, d);
-    probs<T>(s, dp, Ps, dSs, lse, delta, q0, sq, k0, sk, scale_r, causal);
-    load_cols<T, TR, DV>(Xs, LDV, dout, q0, sq, c0, d);
-    load_cols<T, TR, DV>(Ys, LDV, q, q0, sq, c0, d);
-    __syncthreads();
-    add_product<true>(acc_v, Ps, Xs);
-    add_product<true>(acc_k, dSs, Ys);
-  }
-  store_cols<T>(dk, acc_k, k0, sk, c0, d, 1.f);
-  store_cols<T>(dv, acc_v, k0, sk, c0, d, 1.f);
 }
 
 // K3: dQ's columns [c0, c0 + DV) of one 64-row query tile, in q units
@@ -395,59 +239,36 @@ __global__ void __launch_bounds__(NTH)
     float s[RI][CJ], dp[RI][CJ];
     row_products<T>(s, As, Bs, q, q0, sq, k, k0, sk, d);
     row_products<T>(dp, As, Bs, dout, q0, sq, v, k0, sk, d);
-    probs<T>(s, dp, nullptr, dSs, lse, delta, q0, sq, k0, sk, scale_r,
-             causal);
+    probs<T>(s, dp, dSs, lse, delta, q0, sq, k0, sk, scale_r, causal);
     load_cols<T, TK, DV>(Ks, LDV, k, k0, sk, c0, d);
     __syncthreads();
-    add_product<false>(acc, dSs, Ks);
+    add_product(acc, dSs, Ks);
   }
   store_cols<T>(dq, acc, q0, sq, c0, d, dq_scale);
 }
 
-// Set each kernel's shared-memory limit once, before its first launch.
+// Set the kernel's shared-memory limit once, before its first launch.
 namespace {
-bool g_prepared[3][3] = {};
+bool g_dq_prepared = false;
 }  // namespace
-
-template <typename T>
-constexpr int dtype_slot() {
-  return std::is_same<T, float>::value ? 0
-         : std::is_same<T, __half>::value ? 1
-                                           : 2;
-}
-
-template <typename T, typename K>
-int prepare(int which, K kernel, size_t bytes) {
-  bool& ready = g_prepared[which][dtype_slot<T>()];
-  if (ready) return 0;
-  const int e = (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  ready = e == 0;
-  return e;
-}
 
 inline int blocks(int bh, int rows, int tile, int d) {
   return bh * ((rows + tile - 1) / tile) * ((d + DV - 1) / DV);
 }
 
-// fp16 and bf16 go to the wgmma bodies (flash_wide_sm90.cuh), so
-// fwd_kernel, dkdv_kernel and dq_kernel above are built for f32 alone.
+// fp16 and bf16 go to the wgmma bodies (flash_wide_sm90.cuh), f32 K1 and
+// K2 to the 3xTF32 ones (flash_wide_f32_sm90.cuh), so dq_kernel above is
+// built for f32 alone.
 template <typename T>
 int launch_fwd(const void* q, const void* k, const void* v, void* o,
                float* lse, int bh, int sq, int sk, int d, float scale_r,
                int causal, cudaStream_t stream) {
-  if constexpr (!std::is_same<T, float>::value) {
+  if constexpr (!std::is_same<T, float>::value)
     return wide90::launch_fwd<T>(q, k, v, o, lse, bh, sq, sk, d, scale_r,
                                  causal, stream);
-  } else {
-    const int e = prepare<T>(0, fwd_kernel<T>, FWD_SMEM);
-    if (e != 0) return e;
-    fwd_kernel<T><<<blocks(bh, sq, TR, d), NTH, FWD_SMEM, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(o), lse, bh,
-        (d + DV - 1) / DV, sq, sk, d, scale_r, causal);
-    return (int)cudaGetLastError();
-  }
+  else
+    return wide32::launch_fwd(q, k, v, o, lse, bh, sq, sk, d, scale_r,
+                              causal, stream);
 }
 
 template <typename T>
@@ -455,19 +276,12 @@ int launch_dkdv(const void* q, const void* k, const void* v, const void* dout,
                 const float* lse, const float* delta, void* dk, void* dv,
                 int bh, int sq, int sk, int d, float scale_r, int causal,
                 cudaStream_t stream) {
-  if constexpr (!std::is_same<T, float>::value) {
+  if constexpr (!std::is_same<T, float>::value)
     return wide90::launch_dkdv<T>(q, k, v, dout, lse, delta, dk, dv, bh, sq,
                                   sk, d, scale_r, causal, stream);
-  } else {
-    const int e = prepare<T>(1, dkdv_kernel<T>, DKDV_SMEM);
-    if (e != 0) return e;
-    dkdv_kernel<T><<<blocks(bh, sk, TK, d), NTH, DKDV_SMEM, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-        static_cast<T*>(dk), static_cast<T*>(dv), bh, (d + DV - 1) / DV,
-        sq, sk, d, scale_r, causal);
-    return (int)cudaGetLastError();
-  }
+  else
+    return wide32::launch_dkdv(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk,
+                               d, scale_r, causal, stream);
 }
 
 template <typename T>
@@ -479,8 +293,13 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
     return wide90::launch_dq<T>(q, k, v, dout, lse, delta, dq, bh, sq, sk, d,
                                 scale_r, dq_scale, causal, stream);
   } else {
-    const int e = prepare<T>(2, dq_kernel<T>, DQ_SMEM);
-    if (e != 0) return e;
+    if (!g_dq_prepared) {
+      const int e = (int)cudaFuncSetAttribute(
+          dq_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)DQ_SMEM);
+      if (e != 0) return e;
+      g_dq_prepared = true;
+    }
     dq_kernel<T><<<blocks(bh, sq, TR, d), NTH, DQ_SMEM, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,

@@ -1,0 +1,909 @@
+// K1 and K2 above head dim 256 in float32, for Hopper (sm_90a): the 3xTF32
+// wgmma and TMA wide bodies of the flash forward (flash_fwd_wide) and of
+// the split backward's dK/dV half (flash_bwd_dkdv_wide).  flash_wide.cu
+// launches them for f32; K3's f32 body stays SIMT there.
+//
+// They replace the Pallas TPU kernels `_flash_kernel`
+// (horovod_tpu/ops/attention.py:356, pallas_call :1047) and
+// `_flash_bwd_dkdv_kernel` (:429, pallas_call :914, math in
+// `_bwd_block_math` :386) in float32 at head dims above 256.  Semantics as
+// flash_wide.cu's note and the reference's: masked logits NEG_INF, m_safe
+// and alpha rescaling, l summed over the unrounded p, lse = POS_BIG and
+// o = 0 for rows with no key, dK and dV summed and stored in f32, a ragged
+// tail zero-filled and masked, any multiple of 32 above 256.
+//
+// Precision.  One TF32 product keeps 10 mantissa bits of each operand and
+// misses the f32 rule (kernel_check, rtol 1e-4) by 30x and more; three
+// keep it.  Every operand x is split hi = rna(x), lo = rna(x - hi), both
+// TF32 (cvt.rna.tf32.f32: the tensor core's own truncation of raw f32 bits
+// is never relied on), and every product is hi.hi + hi.lo + lo.hi, summed
+// in f32 registers (lo.lo, ~2^-22 of the product, is dropped).  The
+// reference's f32 yardstick on this card, SDPA's memory-efficient kernel,
+// splits the same way (CUTLASS's OpMultiplyAddFastF32).
+// kernel_check.tf32_split mirrors the split on the CPU, where the split
+// alone reads ~0.05 of the rule.  The tensor cores add the products into
+// their accumulator with truncation, so a sum chained through one
+// accumulator over the whole head dim (3 d / 8 wgmma steps) drifts by
+// about a unit in the last place a step: chained so, the scores read up to
+// 0.46 (o) and 0.70 (dk) at head dim 1024.  So S (K2: S^T and dP^T) is
+// summed per 32-column chunk (12 steps) in fresh accumulators and added
+// into its running sum in f32 registers, which reads 0.15-0.18
+// (tools/torch_split_variants.py --family wide_f32 A/Bs both).
+//
+// Bound on the card: by operations at every shape the callers use, at the
+// TF32 peak over three products (494.7 / 3 TFLOP/s): K1 4 d FLOP per
+// causal pair against 8 d bytes per row, K2 8 d.  The design, the 16-bit
+// wide bodies' skeleton (flash_wide_sm90.cuh) with what TF32 changes:
+//  1. TF32 wgmma reads K-major operands only (the transpose immediates
+//     exist for f16 / bf16 alone).  S = q' K^T (K1), S^T = K q'^T and
+//     dP^T = V dO^T (K2) are K-major as they lie in memory; O += P V,
+//     dV += P^T dO and dK += dS^T q' are not (V, dO, q' are head-dim
+//     contiguous), and TMA cannot transpose.  So per key tile (K1) or
+//     query step (K2) the consumers stage V^T (dO^T and q'^T) of the CTA's
+//     window from the TMA stage into shared memory, split hi / lo in the
+//     same pass.
+//  2. The A operands come from registers: q' (K1), K and V (K2) are read
+//     from the TMA stage into the k8 A fragment and split there, two k8
+//     slices in flight; P and dS are split from the accumulators.  The B
+//     operands of the score products (K; q' and dO) are split in shared
+//     memory, hi over the raw tile and lo into its twin, behind a named
+//     barrier per chunk: of both consumer warpgroups in K1, of the one
+//     warpgroup that takes the chunk in K2.
+//  3. The A fragment of a k8 TF32 wgmma holds columns t and t + 4 of each
+//     8-column slice (t = lane % 4), the accumulator columns 2 t and
+//     2 t + 1.  P and dS are passed in the accumulator's order, and the
+//     staging pass writes V^T's keys (q'^T's, dO^T's queries) permuted to
+//     match: slot p of each 8 holds position 2 p for p < 4 and 2 (p - 4)
+//     + 1 above (a contraction is invariant under one permutation of both
+//     sides).
+//  4. Shared memory: f32 tiles are twice the bytes of 16-bit ones and
+//     every B operand needs its lo twin.  Tiles sit as panels of 32
+//     columns, 128-byte rows, 128-byte swizzle (TMA's F32 map,
+//     sm90_common.cuh).  K1: 3 stages of (q' 16 KB, K 8 KB, K lo 8 KB) +
+//     the raw V window 32 KB + V^T hi and lo 64 KB = 192 KB.  K2: 2
+//     stages of (K 8, V 8, q' 4, dO 4, their lo twins 8) KB + the raw
+//     (q', dO) window of 32 KB with its lse / delta + q'^T and dO^T hi
+//     and lo 64 KB + the two warpgroups' halves of S^T and dP^T 32 KB =
+//     193 KB.
+//  5. Registers (ptxas holds 288-thread CTAs to 168 a thread): K1 keeps O
+//     (64 rows x 128 columns: 64 a thread) beside S and a chunk's S (32
+//     each) and then P's hi and lo fragments two 8-key slices at a time
+//     (16); K2 keeps dK and dV (64 keys x 64 columns each: 64) beside S^T
+//     and dP^T and a chunk's (32 query rows: 64) and then P^T and dS^T hi
+//     and lo (64).  So a K1 warpgroup owns 64 query rows of a 4-panel
+//     (128-column) window, and a K2 warpgroup 2 panels of its CTA's
+//     4-panel window, for all 64 keys of the CTA: K2's two warpgroups
+//     each sum S^T and dP^T over half the head-dim chunks and add the
+//     halves through shared memory, so S is computed once per 4-panel
+//     window in both.  S recompute per row ceil(d / 128) times:
+//     3 ceil(d / 128) (2 d + 256) TF32 FLOP per pair in K1 (6.5x the
+//     caller's 4 d at 288, 7.5x at 512) and 3 ceil(d / 128) (4 d + 512)
+//     in K2 (6.5x, 7.5x the caller's 8 d).
+//
+// Every CTA of a tile runs the same products in the same chunk order, so
+// the column CTAs agree bit for bit on m and l and only the first writes
+// lse.  Grids are 1-D, (tiles x column CTAs x bh) blocks, heavy tiles
+// first.  Each consumer warp releases a stage after its own wgmma wait, so
+// a stage is refilled only when every warp is done with it.  Every
+// mbarrier wait traps after 2 s.
+
+#pragma once
+
+#include "flash_wide_sm90.cuh"
+
+namespace hvdt {
+namespace wide32 {
+
+using namespace sm90;
+using wide90::Cols;
+using wide90::col_ctas;
+using wide90::col_share;
+using wide90::warpgroup;
+
+constexpr int F32_PANEL = 32;           // head-dim columns per 128-B row
+constexpr uint32_t ROW_BYTES = 128;     // bytes per row of a panel
+constexpr int WIDE_THREADS = 2 * 128 + 32;  // two consumer warpgroups + warp
+constexpr int SPLIT_BAR = 1;  // named barrier of the 256 consumer threads
+// K1: query rows per CTA (64 per consumer warpgroup), keys per tile.
+constexpr int F32_FWD_ROWS = 128;
+constexpr int F32_FWD_KEYS = 64;
+constexpr int F32_FWD_NP = 4;      // output panels per CTA (128 columns)
+constexpr int F32_FWD_STAGES = 3;  // (q', K) chunks in flight
+// K2: keys per CTA (both consumer warpgroups), query rows per step.
+constexpr int F32_DKDV_KEYS = 64;
+constexpr int F32_DKDV_ROWS = 32;
+constexpr int F32_DKDV_NP = 4;       // output panels per CTA (2 a warpgroup)
+// (K, V, q', dO) chunks in flight.  Two: the warpgroups take alternate
+// chunks, so within a query step each stage serves one warpgroup, and a
+// stage changes hands only across the step's CTA-wide barriers.  With
+// three, where the warpgroups take turns on a stage within a step (handed
+// on by the mbarriers alone), a few CTAs in thousands computed wrong dK and
+// dV on the card, or trapped; the cause was not found.
+constexpr int F32_DKDV_STAGES = 2;
+constexpr int F32_DKDV_CSTAGES = 1;  // (q', dO) column windows in flight
+static_assert(F32_DKDV_STAGES == 2, "one stage per warpgroup a step");
+
+// x to TF32, to nearest with ties away from zero (low 13 bits zero).
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+// x = hi + lo to ~2^-22 relative, both TF32.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+}
+
+// wgmma descriptor of a K-major operand in 128-byte-swizzle panels: rows
+// of 128 B, 8-row groups 1024 B apart (stride), leading offset unused.
+__device__ __forceinline__ uint64_t desc128(uint32_t addr) {
+  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) | (1ull << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// Byte offset of element (r, c) in a panel of 128-byte rows as TMA writes
+// it with 128-byte swizzle: 16-byte chunk c / 4 of row r lands at chunk
+// (c / 4) ^ (r % 8), relative to a 1024-byte-aligned panel.
+__device__ __forceinline__ uint32_t sw128(int r, int c) {
+  return r * ROW_BYTES + ((((c >> 2) ^ r) & 7) << 4) + (c & 3) * 4;
+}
+
+// The k8 slice kk of rows r and r + 8 of an f32 panel as a TF32 A fragment,
+// split: registers (r, t), (r + 8, t), (r, t + 4), (r + 8, t + 4).
+__device__ __forceinline__ void load_a(const unsigned char* panel, int r,
+                                       int kk, uint32_t (&hi)[4],
+                                       uint32_t (&lo)[4]) {
+  const int c = 8 * kk + threadIdx.x % 4;
+#pragma unroll
+  for (int v = 0; v < 4; ++v) {
+    const float x = *reinterpret_cast<const float*>(
+        panel + sw128(r + 8 * (v % 2), c + 4 * (v / 2)));
+    split(x, hi[v], lo[v]);
+  }
+}
+
+// Threads tid = 0 .. NT - 1 split a raw f32 tile of `bytes` bytes: hi in
+// place, lo into `lo` (the same layout at another address).
+template <int NT>
+__device__ __forceinline__ void split_tile(unsigned char* hi,
+                                           unsigned char* lo,
+                                           uint32_t bytes, int tid) {
+  for (uint32_t i = tid * 16; i < bytes; i += NT * 16) {
+    const float4 x = *reinterpret_cast<const float4*>(hi + i);
+    uint4 h, l;
+    split(x.x, h.x, l.x);
+    split(x.y, h.y, l.y);
+    split(x.z, h.z, l.z);
+    split(x.w, h.w, l.w);
+    *reinterpret_cast<uint4*>(hi + i) = h;
+    *reinterpret_cast<uint4*>(lo + i) = l;
+  }
+}
+
+// The 256 consumer threads transpose a raw window of ROWS sequence
+// positions and NPW panels into hi and lo tiles of its NPW * 32 columns:
+// rows are the columns, positions run along K in panels of 32 (128-byte
+// swizzle), slot p of each 8 holding position 2 p (p < 4) or 2 (p - 4) + 1
+// (the accumulators' order of P and dS).  A warp takes 32 columns of one
+// raw panel and one group of 8 positions.
+template <int ROWS, int NPW>
+__device__ __forceinline__ void stage_transposed(const unsigned char* raw,
+                                                 unsigned char* hi,
+                                                 unsigned char* lo) {
+  constexpr int COLS = NPW * F32_PANEL;
+  constexpr uint32_t RAW_PANEL = ROWS * ROW_BYTES;
+  constexpr uint32_t T_PANEL = COLS * ROW_BYTES;
+  for (int it = threadIdx.x; it < COLS * (ROWS / 8); it += 256) {
+    const int n = it % COLS, grp = it / COLS;
+    const unsigned char* src = raw + (n / F32_PANEL) * RAW_PANEL;
+    uint32_t h[8], l[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float x = *reinterpret_cast<const float*>(
+          src + sw128(8 * grp + j, n % F32_PANEL));
+      split(x, h[(j >> 1) + 4 * (j & 1)], l[(j >> 1) + 4 * (j & 1)]);
+    }
+    const uint32_t at = (grp / 4) * T_PANEL + sw128(n, 8 * (grp % 4));
+    const uint32_t at4 = (grp / 4) * T_PANEL + sw128(n, 8 * (grp % 4) + 4);
+    *reinterpret_cast<uint4*>(hi + at) = make_uint4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<uint4*>(hi + at4) = make_uint4(h[4], h[5], h[6], h[7]);
+    *reinterpret_cast<uint4*>(lo + at) = make_uint4(l[0], l[1], l[2], l[3]);
+    *reinterpret_cast<uint4*>(lo + at4) = make_uint4(l[4], l[5], l[6], l[7]);
+  }
+}
+
+// What the consumers wrote with generic stores, made visible to wgmma's
+// reads, and both consumer warpgroups past the same point.
+__device__ __forceinline__ void consumers_sync() {
+  fence_async_shared();
+  bar_sync(SPLIT_BAR, 256);
+}
+
+// The accumulator's 8 values of one 8-column slice i (rows r, r + 8 of
+// columns 2 t, 2 t + 1), split as the A fragment of that slice in the
+// staged order: a[0] (r, 2t), a[1] (r + 8, 2t), a[2] (r, 2t + 1), a[3]
+// (r + 8, 2t + 1).
+template <int N>
+__device__ __forceinline__ void split_acc(const float (&x)[N], int i,
+                                          uint32_t (&hi)[4],
+                                          uint32_t (&lo)[4]) {
+  split(x[4 * i], hi[0], lo[0]);
+  split(x[4 * i + 2], hi[1], lo[1]);
+  split(x[4 * i + 1], hi[2], lo[2]);
+  split(x[4 * i + 3], hi[3], lo[3]);
+}
+
+struct FwdSmem {
+  static constexpr uint32_t Q_PANEL = F32_FWD_ROWS * ROW_BYTES;  // 16 KB
+  static constexpr uint32_t K_PANEL = F32_FWD_KEYS * ROW_BYTES;  // 8 KB
+  // Stage s: the chunk's q' panel, K panel (hi once split), K lo.
+  static constexpr uint32_t A_Q = 0;
+  static constexpr uint32_t A_K = A_Q + Q_PANEL;
+  static constexpr uint32_t A_KLO = A_K + K_PANEL;
+  static constexpr uint32_t A_BYTES = A_KLO + K_PANEL;
+  static constexpr uint32_t V_BYTES = F32_FWD_NP * K_PANEL;  // raw window
+  // V^T: the window's 128 columns x 64 keys in two 32-key panels.
+  static constexpr uint32_t VT_PANEL = F32_FWD_NP * F32_PANEL * ROW_BYTES;
+  static constexpr uint32_t VT_BYTES = (F32_FWD_KEYS / F32_PANEL) * VT_PANEL;
+  static constexpr uint32_t a = 0;
+  static constexpr uint32_t v = a + F32_FWD_STAGES * A_BYTES;
+  static constexpr uint32_t vt_hi = v + V_BYTES;
+  static constexpr uint32_t vt_lo = vt_hi + VT_BYTES;
+  static constexpr uint32_t bars = vt_lo + VT_BYTES;
+  // a_full, a_empty [F32_FWD_STAGES], v_full, v_empty
+  static constexpr uint32_t N_BARS = 2 * F32_FWD_STAGES + 2;
+  // + 1024: the dynamic base is aligned up to the swizzle pattern.
+  static constexpr size_t bytes = bars + 8 * N_BARS + 1024;
+};
+
+// K1: o's own columns and (column CTA 0) lse of query rows [q0, q0 +
+// F32_FWD_ROWS) of head bh.  mq: map of q' (bh, sq, d), boxes of
+// F32_FWD_ROWS rows; mk, mv: k, v (bh, sk, d), boxes of F32_FWD_KEYS rows.
+__device__ __forceinline__ void fwd_tile(const CUtensorMap* mq,
+                                         const CUtensorMap* mk,
+                                         const CUtensorMap* mv, float* o,
+                                         float* lse, int bh, int cc, int q0,
+                                         int sq, int sk, int d,
+                                         float scale_r, int causal) {
+  using L = FwdSmem;
+  constexpr int BN = F32_FWD_KEYS, NP = F32_FWD_NP, CW = NP * F32_PANEL;
+  constexpr int STAGES = F32_FWD_STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* const gbase = smem_raw + (base - raw);
+  const uint32_t a_full = base + L::bars, a_empty = a_full + 8 * STAGES;
+  const uint32_t v_full = a_empty + 8 * STAGES, v_empty = v_full + 8;
+  const int n_ch = d / F32_PANEL;
+  const Cols cols = col_share<NP>(d, cc);
+
+  int n_kt = (sk + BN - 1) / BN;
+  // Key tiles past the CTA's last row are wholly masked.
+  if (causal) n_kt = min(n_kt, (q0 + F32_FWD_ROWS - 1) / BN + 1);
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(a_full + 8 * s, 1);
+      mbar_init(a_empty + 8 * s, 8);  // one arrival per consumer warp
+    }
+    mbar_init(v_full, 1);
+    mbar_init(v_empty, 2);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = warpgroup();
+  if (wg == 2) {
+    // Producer: per key tile, the (q', K) panel of each chunk, then the
+    // raw V window (one buffer: the consumers release it once staged).
+    if (threadIdx.x == 256) {
+      int g = 0;
+      for (int kt = 0; kt < n_kt; ++kt) {
+        for (int ch = 0; ch < n_ch; ++ch, ++g) {
+          const int st = g % STAGES;
+          if (g >= STAGES) mbar_wait(a_empty + 8 * st, (g / STAGES - 1) & 1);
+          const uint32_t sa = base + L::a + st * L::A_BYTES;
+          mbar_expect_tx(a_full + 8 * st, L::Q_PANEL + L::K_PANEL);
+          tma_load(sa + L::A_Q, mq, a_full + 8 * st, ch * F32_PANEL, q0, bh);
+          tma_load(sa + L::A_K, mk, a_full + 8 * st, ch * F32_PANEL,
+                   kt * BN, bh);
+        }
+        if (kt > 0) mbar_wait(v_empty, (kt - 1) & 1);
+        mbar_expect_tx(v_full, L::V_BYTES);
+        for (int p = 0; p < NP; ++p)
+          tma_load(base + L::v + p * L::K_PANEL, mv, v_full,
+                   (cols.w0 + p) * F32_PANEL, kt * BN, bh);
+      }
+    }
+  } else {
+    // Consumers: warpgroup c owns rows [q0 + 64 c, q0 + 64 c + 64) and the
+    // CTA's window of O's columns.
+    const int c = wg, tid = threadIdx.x % 128;
+    const int lane = tid % 32;
+    const int r_lo = (tid / 32) * 16 + lane / 4;  // + 8 for the second row
+    const int cq = 2 * (lane % 4);                // + 8 i + j: the column
+    const int row0 = c * 64;                      // within the CTA
+    const int wg_first = q0 + row0;
+    const float scale_log2 = scale_r * LOG2E;
+
+    float acc[CW / 2];
+    float s[BN / 2];   // S summed over the chunks, then P in f32
+    float sc[BN / 2];  // one chunk's S
+    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, alpha[2];
+#pragma unroll
+    for (int i = 0; i < CW / 2; ++i) acc[i] = 0.f;
+
+    // S (+)= q' K^T over the chunk in stage `off`: per k8 slice the q'
+    // fragment split in registers (two slices in flight) against K hi and
+    // lo, into sc, then added into S in registers.
+    auto issue_qk = [&](uint32_t off, bool first) {
+      uint32_t qh[2][4], ql[2][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        load_a(gbase + off + L::A_Q, row0 + r_lo, kk, qh[kk % 2],
+               ql[kk % 2]);
+        const uint64_t kh = desc128(base + off + L::A_K + kk * 32);
+        const uint64_t kl = desc128(base + off + L::A_KLO + kk * 32);
+        wg_fence();
+        Wgmma<BN, float>::rs(sc, qh[kk % 2], kh, kk != 0);
+        Wgmma<BN, float>::rs(sc, qh[kk % 2], kl, 1);
+        Wgmma<BN, float>::rs(sc, ql[kk % 2], kh, 1);
+        wg_commit();
+        wg_wait<1>();  // the slice before is done: its registers are free
+      }
+      wg_wait<0>();
+      pin(sc);
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) s[i] = first ? sc[i] : s[i] + sc[i];
+      pin(qh);
+      pin(ql);
+    };
+    // Online softmax of key tile kt in log2 units, rows r_lo (h = 0) and
+    // r_lo + 8: m, l and alpha updated, p left in s.
+    auto softmax = [&](int kt, auto masked) {
+      const int k0 = kt * BN;
+      const int key_end = sk - k0;  // keys at or past it: the ragged tail
+      if constexpr (decltype(masked)::value) {
+#pragma unroll
+        for (int i = 0; i < BN / 8; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              const int key = 8 * i + cq + j;
+              const int row = wg_first + r_lo + 8 * h;
+              if (key >= key_end || (causal && k0 + key > row))
+                s[4 * i + 2 * h + j] = NEG_INF;
+            }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float mx = NEG_INF;
+#pragma unroll
+        for (int i = 0; i < BN / 8; ++i)
+          mx = fmaxf(mx, fmaxf(s[4 * i + 2 * h], s[4 * i + 2 * h + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new =
+            fmaxf(m[h], mx <= NEG_INF / 2 ? NEG_INF : mx * scale_log2);
+        // m_safe keeps rows with no unmasked key so far at zero mass.
+        const float m_safe = m_new <= NEG_INF / 2 ? 0.f : m_new;
+        alpha[h] = ex2(m[h] - m_safe);
+        float sum = 0.f;
+#pragma unroll
+        for (int i = 0; i < BN / 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            float& x = s[4 * i + 2 * h + j];
+            x = ex2(fmaf(x, scale_log2, -m_safe));
+            sum += x;
+          }
+        l[h] = l[h] * alpha[h] + sum;  // this thread's columns only
+        m[h] = m_new;
+      }
+    };
+
+    // Leading tiles need no mask; from the first that straddles the
+    // diagonal or the ragged tail on, every tile does.
+    int n_plain = min(n_kt, sk / BN);
+    if (causal) {
+      const int x = wg_first - BN + 1;  // k0 <= x: no key masked
+      n_plain = min(n_plain, x < 0 ? 0 : x / BN + 1);
+    }
+    using Plain = std::integral_constant<bool, false>;
+    using Masked = std::integral_constant<bool, true>;
+
+    int g = 0;
+    for (int kt = 0; kt < n_kt; ++kt) {
+      for (int ch = 0; ch < n_ch; ++ch, ++g) {
+        const int st = g % STAGES;
+        mbar_wait(a_full + 8 * st, (g / STAGES) & 1);
+        const uint32_t off = L::a + st * L::A_BYTES;
+        split_tile<256>(gbase + off + L::A_K, gbase + off + L::A_KLO,
+                        L::K_PANEL, threadIdx.x);
+        consumers_sync();
+        pin(sc);
+        issue_qk(off, ch == 0);
+        // Each warp releases the stage after its own wait, so the stage is
+        // refilled only when every consumer warp is done with it.
+        mbar_arrive_if(a_empty + 8 * st, lane == 0);
+      }
+      if (kt < n_plain)
+        softmax(kt, Plain{});
+      else
+        softmax(kt, Masked{});
+#pragma unroll
+      for (int i = 0; i < CW / 8; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          acc[4 * i + 2 * h] *= alpha[h];
+          acc[4 * i + 2 * h + 1] *= alpha[h];
+        }
+      // V^T of the window, hi and lo, from the raw V tile.
+      mbar_wait(v_full, kt & 1);
+      stage_transposed<BN, NP>(gbase + L::v, gbase + L::vt_hi,
+                               gbase + L::vt_lo);
+      consumers_sync();
+      mbar_arrive_if(v_empty, tid == 0);
+      // O += P V over the CTA's window, P split into its hi / lo A
+      // fragment one 8-key slice at a time, two slices in flight.
+      pin(acc);
+      uint32_t ph[2][4], pl[2][4];
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        split_acc(s, j, ph[j % 2], pl[j % 2]);
+        const uint32_t kp = (j / 4) * L::VT_PANEL + (j % 4) * 32;
+        const uint64_t vh = desc128(base + L::vt_hi + kp);
+        const uint64_t vl = desc128(base + L::vt_lo + kp);
+        wg_fence();
+        Wgmma<CW, float>::rs(acc, ph[j % 2], vh, 1);
+        Wgmma<CW, float>::rs(acc, ph[j % 2], vl, 1);
+        Wgmma<CW, float>::rs(acc, pl[j % 2], vh, 1);
+        wg_commit();
+        wg_wait<1>();
+      }
+      wg_wait<0>();
+      pin(acc);
+      pin(ph);
+      pin(pl);
+    }
+
+    // Finalize: o = O / l on the own columns, lse = m + log l (POS_BIG,
+    // o = 0 where l == 0) from column CTA 0.
+    const int own0 = (cols.start - cols.w0) * F32_PANEL;
+    const int own1 = own0 + cols.own * F32_PANEL;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float lt = l[h];
+      lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+      lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+      const int row = wg_first + r_lo + 8 * h;
+      if (row >= sq) continue;
+      const float inv = lt == 0.f ? 1.f : 1.f / lt;
+      float* dst = o + ((size_t)bh * sq + row) * d + cols.w0 * F32_PANEL + cq;
+#pragma unroll
+      for (int i = 0; i < CW / 8; ++i)
+        if (8 * i >= own0 && 8 * i < own1)
+          *reinterpret_cast<float2*>(dst + 8 * i) = make_float2(
+              acc[4 * i + 2 * h] * inv, acc[4 * i + 2 * h + 1] * inv);
+      if (lane % 4 == 0 && cc == 0)
+        lse[(size_t)bh * sq + row] =
+            lt == 0.f ? POS_BIG : m[h] * LN2 + logf(lt);
+    }
+  }
+}
+
+struct DkdvSmem {
+  static constexpr uint32_t K_PANEL = F32_DKDV_KEYS * ROW_BYTES;  // 8 KB
+  static constexpr uint32_t Q_PANEL = F32_DKDV_ROWS * ROW_BYTES;  // 4 KB
+  // Stage s of the chunk ring: K, V, then q', dO (hi once split) and their
+  // lo twins, the same distance further on.
+  static constexpr uint32_t A_K = 0;
+  static constexpr uint32_t A_V = A_K + K_PANEL;
+  static constexpr uint32_t A_Q = A_V + K_PANEL;
+  static constexpr uint32_t A_DO = A_Q + Q_PANEL;
+  static constexpr uint32_t A_QLO = A_DO + Q_PANEL;
+  static constexpr uint32_t A_BYTES = A_QLO + 2 * Q_PANEL;
+  // Stage s of the column ring: the window's raw q', then dO panels.
+  static constexpr uint32_t C_BYTES = 2 * F32_DKDV_NP * Q_PANEL;
+  static constexpr uint32_t STAT_FLOATS = 2 * F32_DKDV_ROWS;  // lse, delta
+  // q'^T, dO^T: the window's 128 columns x 32 query rows, one panel each.
+  static constexpr uint32_t T_PANEL = F32_DKDV_NP * F32_PANEL * ROW_BYTES;
+  // Each warpgroup's S^T and dP^T of its chunks: 128 threads x 32 floats.
+  static constexpr uint32_t X_BYTES = 128 * F32_DKDV_ROWS * 4;
+  static constexpr uint32_t a = 0;
+  static constexpr uint32_t c = a + F32_DKDV_STAGES * A_BYTES;
+  static constexpr uint32_t stats = c + F32_DKDV_CSTAGES * C_BYTES;
+  static constexpr uint32_t t_hi =
+      (stats + F32_DKDV_CSTAGES * STAT_FLOATS * 4 + 1023u) & ~1023u;
+  static constexpr uint32_t t_lo = t_hi + 2 * T_PANEL;  // q'^T, dO^T each
+  static constexpr uint32_t x = t_lo + 2 * T_PANEL;
+  static constexpr uint32_t bars = x + 2 * X_BYTES;
+  // a_full, a_empty [F32_DKDV_STAGES], c_full, c_empty [F32_DKDV_CSTAGES]
+  static constexpr uint32_t N_BARS =
+      2 * F32_DKDV_STAGES + 2 * F32_DKDV_CSTAGES;
+  static constexpr size_t bytes = bars + 8 * N_BARS + 1024;
+};
+
+// K2: dK's and dV's own columns of keys [k0, k0 + F32_DKDV_KEYS) of head
+// bh.  mq, mdo: maps of q', dO (bh, sq, d), boxes of F32_DKDV_ROWS rows;
+// mk, mv: k, v (bh, sk, d), boxes of F32_DKDV_KEYS rows.  lse, delta:
+// (bh, sq) f32.  Both consumer warpgroups own the CTA's keys: per query
+// step each sums S^T and dP^T over every other head-dim chunk, alone
+// behind its own named barrier, the two halves are added through shared
+// memory (a + b == b + a, so both hold the same bits), and each then
+// computes dK and dV on its half of the window.  So S^T and dP^T are
+// computed once per CTA for a window of 4 panels.
+__device__ __forceinline__ void dkdv_tile(
+    const CUtensorMap* mq, const CUtensorMap* mdo, const CUtensorMap* mk,
+    const CUtensorMap* mv, const float* __restrict__ lse,
+    const float* __restrict__ delta, float* __restrict__ dk,
+    float* __restrict__ dv, int bh, int cc, int k0, int sq, int sk, int d,
+    float scale_r, int causal) {
+  using L = DkdvSmem;
+  constexpr int QB = F32_DKDV_ROWS, NP = F32_DKDV_NP;
+  constexpr int CW = NP * F32_PANEL / 2;  // a warpgroup's window columns
+  constexpr int STAGES = F32_DKDV_STAGES, CSTAGES = F32_DKDV_CSTAGES;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* const gbase = smem_raw + (base - raw);
+  float* const stats = reinterpret_cast<float*>(gbase + L::stats);
+  const uint32_t a_full = base + L::bars, a_empty = a_full + 8 * STAGES;
+  const uint32_t c_full = a_empty + 8 * STAGES;
+  const uint32_t c_empty = c_full + 8 * CSTAGES;
+  const int n_ch = d / F32_PANEL;
+  const Cols cols = col_share<NP>(d, cc);
+
+  // Query steps that see a key of this CTA: under a causal mask, from the
+  // first whose last row reaches the CTA's first key (reference:
+  // `q_start + block_q - 1 >= k_start`).
+  const int n_qt = (sq + QB - 1) / QB;
+  int qt0 = 0;
+  if (causal) {
+    const int need = k0 - QB + 1;
+    qt0 = need <= 0 ? 0 : (need + QB - 1) / QB;
+  }
+  const int n_it = max(0, n_qt - qt0);
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(a_full + 8 * s, 1);
+      mbar_init(a_empty + 8 * s, 4);  // the warps of the chunk's warpgroup
+    }
+#pragma unroll
+    for (int s = 0; s < CSTAGES; ++s) {
+      mbar_init(c_full + 8 * s, 1 + 32);  // the TMA lane + the warp's stats
+      mbar_init(c_empty + 8 * s, 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = warpgroup();
+  if (wg == 2) {
+    // Producer warp: lane 0 issues the TMA loads (per query step the
+    // chunks of S^T and dP^T, then the raw column window of q' and dO),
+    // and every lane copies lse and delta beside the window.  All lanes
+    // wait for the stages to be released.
+    const int lane = threadIdx.x % 32;
+    const size_t row0 = (size_t)bh * sq;
+    int g = 0;
+    for (int it = 0; it < n_it; ++it) {
+      const int q0 = (qt0 + it) * QB;
+      for (int ch = 0; ch < n_ch; ++ch, ++g) {
+        const int st = g % STAGES;
+        if (g >= STAGES) mbar_wait(a_empty + 8 * st, (g / STAGES - 1) & 1);
+        if (lane == 0) {
+          const uint32_t sa = base + L::a + st * L::A_BYTES;
+          const uint32_t bar = a_full + 8 * st;
+          const int col = ch * F32_PANEL;
+          mbar_expect_tx(bar, 2 * (L::K_PANEL + L::Q_PANEL));
+          tma_load(sa + L::A_K, mk, bar, col, k0, bh);
+          tma_load(sa + L::A_V, mv, bar, col, k0, bh);
+          tma_load(sa + L::A_Q, mq, bar, col, q0, bh);
+          tma_load(sa + L::A_DO, mdo, bar, col, q0, bh);
+        }
+      }
+      const int cs = it % CSTAGES;
+      if (it >= CSTAGES) mbar_wait(c_empty + 8 * cs, (it / CSTAGES - 1) & 1);
+      if (lane == 0) {
+        const uint32_t sc = base + L::c + cs * L::C_BYTES;
+        mbar_expect_tx(c_full + 8 * cs, L::C_BYTES);
+        for (int p = 0; p < NP; ++p) {
+          const int col = (cols.w0 + p) * F32_PANEL;
+          tma_load(sc + p * L::Q_PANEL, mq, c_full + 8 * cs, col, q0, bh);
+          tma_load(sc + (NP + p) * L::Q_PANEL, mdo, c_full + 8 * cs, col,
+                   q0, bh);
+        }
+      }
+      float* sl = stats + cs * L::STAT_FLOATS;
+      for (int r = lane; r < QB; r += 32) {
+        const int row = q0 + r;
+        sl[r] = row < sq ? lse[row0 + row] : POS_BIG;
+        sl[QB + r] = row < sq ? delta[row0 + row] : 0.f;
+      }
+      mbar_arrive(c_full + 8 * cs);
+    }
+  } else {
+    // Consumers: warpgroup c sums the chunks ch with ch % 2 == c and owns
+    // window columns [CW c, CW c + CW) of the CTA's keys.
+    const int c = wg, tid = threadIdx.x % 128;
+    const int lane = tid % 32;
+    const int r_lo = (tid / 32) * 16 + lane / 4;  // + 8 for the second row
+    const int cq = 2 * (lane % 4);                // + 8 i + j: the column
+    const float scale_log2 = scale_r * LOG2E;
+    float* const xs = reinterpret_cast<float*>(gbase + L::x);
+
+    float dk_acc[CW / 2], dv_acc[CW / 2];
+#pragma unroll
+    for (int i = 0; i < CW / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    // S^T, dP^T (the CTA's keys x QB) summed over the chunks, and one
+    // chunk's.
+    float s[QB / 2], dp[QB / 2], sc[QB / 2], dpc[QB / 2];
+
+    // S^T (+)= K q'^T and dP^T (+)= V dO^T over the chunk in stage `off`:
+    // per k8 slice the K and V fragments split in registers (two slices in
+    // flight) against q' and dO hi and lo, into sc and dpc, then added in
+    // registers.
+    auto issue_chunk = [&](uint32_t off, bool first) {
+      uint32_t kh[2][4], kl[2][4], vh[2][4], vl[2][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const int b = kk % 2;
+        load_a(gbase + off + L::A_K, r_lo, kk, kh[b], kl[b]);
+        load_a(gbase + off + L::A_V, r_lo, kk, vh[b], vl[b]);
+        const uint32_t at = base + off + kk * 32;
+        const uint64_t qh = desc128(at + L::A_Q);
+        const uint64_t dh = desc128(at + L::A_DO);
+        const uint64_t ql = desc128(at + L::A_QLO);
+        const uint64_t dl = desc128(at + L::A_QLO + L::Q_PANEL);
+        wg_fence();
+        Wgmma<QB, float>::rs(sc, kh[b], qh, kk != 0);
+        Wgmma<QB, float>::rs(sc, kh[b], ql, 1);
+        Wgmma<QB, float>::rs(sc, kl[b], qh, 1);
+        Wgmma<QB, float>::rs(dpc, vh[b], dh, kk != 0);
+        Wgmma<QB, float>::rs(dpc, vh[b], dl, 1);
+        Wgmma<QB, float>::rs(dpc, vl[b], dh, 1);
+        wg_commit();
+        wg_wait<1>();  // the slice before is done: its registers are free
+      }
+      wg_wait<0>();
+      pin(sc);
+      pin(dpc);
+#pragma unroll
+      for (int i = 0; i < QB / 2; ++i) {
+        s[i] = first ? sc[i] : s[i] + sc[i];
+        dp[i] = first ? dpc[i] : dp[i] + dpc[i];
+      }
+      pin(kh);
+      pin(kl);
+      pin(vh);
+      pin(vl);
+    };
+    // p and dS of one query step in place of S^T and dP^T: rows are the
+    // CTA's keys r_lo (h = 0) and r_lo + 8, columns the step's queries.
+    // Rows past sq carry lse POS_BIG, so p is 0 there.
+    auto grads = [&](const float* sl, int q0, auto masked) {
+#pragma unroll
+      for (int i = 0; i < QB / 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int qc = 8 * i + cq + j;
+          const float lse2 = sl[qc] * LOG2E, dl = sl[QB + qc];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int e = 4 * i + 2 * h + j;
+            float p = ex2(fmaf(s[e], scale_log2, -lse2));
+            if constexpr (decltype(masked)::value) {
+              const int kr = k0 + r_lo + 8 * h;
+              if (kr >= sk || (causal && kr > q0 + qc)) p = 0.f;
+            }
+            dp[e] = p * (dp[e] - dl) * scale_r;
+            s[e] = p;
+          }
+        }
+    };
+    using Plain = std::integral_constant<bool, false>;
+    using Masked = std::integral_constant<bool, true>;
+
+    int g = 0;
+    for (int it = 0; it < n_it; ++it) {
+      const int q0 = (qt0 + it) * QB;
+      for (int ch = 0; ch < n_ch; ++ch, ++g) {
+        if (ch % 2 != c) continue;
+        const int st = g % STAGES;
+        mbar_wait(a_full + 8 * st, (g / STAGES) & 1);
+        const uint32_t off = L::a + st * L::A_BYTES;
+        // q' and dO (adjacent) split together: lo twins 2 panels on.
+        split_tile<128>(gbase + off + L::A_Q, gbase + off + L::A_QLO,
+                        2 * L::Q_PANEL, tid);
+        fence_async_shared();
+        bar_sync(SPLIT_BAR + 1 + c, 128);
+        pin(sc);
+        pin(dpc);
+        issue_chunk(off, ch == c);
+        // Each warp releases the stage after its own wait, so the stage is
+        // refilled only when every consumer warp is done with it.
+        mbar_arrive_if(a_empty + 8 * st, lane == 0);
+      }
+      // The two halves of S^T and dP^T added: each thread's values to
+      // shared memory (value i of thread tid at i * 128 + tid), then the
+      // other warpgroup's same thread's back.
+      float* const mine = xs + c * 128 * QB + tid;
+      const float* const theirs = xs + (1 - c) * 128 * QB + tid;
+#pragma unroll
+      for (int i = 0; i < QB / 2; ++i) {
+        mine[i * 128] = s[i];
+        mine[(QB / 2 + i) * 128] = dp[i];
+      }
+      bar_sync(SPLIT_BAR, 256);
+#pragma unroll
+      for (int i = 0; i < QB / 2; ++i) {
+        s[i] += theirs[i * 128];
+        dp[i] += theirs[(QB / 2 + i) * 128];
+      }
+      const int cs = it % CSTAGES;
+      mbar_wait(c_full + 8 * cs, (it / CSTAGES) & 1);
+      const float* sl = stats + cs * L::STAT_FLOATS;
+      const bool masked = k0 + F32_DKDV_KEYS > sk ||
+                          (causal && k0 + F32_DKDV_KEYS - 1 > q0);
+      if (masked)
+        grads(sl, q0, Masked{});
+      else
+        grads(sl, q0, Plain{});
+      // P^T and dS^T per 8-query slice, hi and lo.
+      uint32_t pah[QB / 8][4], pal[QB / 8][4], dah[QB / 8][4], dal[QB / 8][4];
+#pragma unroll
+      for (int i = 0; i < QB / 8; ++i) {
+        split_acc(s, i, pah[i], pal[i]);
+        split_acc(dp, i, dah[i], dal[i]);
+      }
+      // q'^T and dO^T of the window, hi and lo, from the raw window.
+      const unsigned char* win = gbase + L::c + cs * L::C_BYTES;
+      stage_transposed<QB, NP>(win, gbase + L::t_hi, gbase + L::t_lo);
+      stage_transposed<QB, NP>(win + NP * L::Q_PANEL,
+                               gbase + L::t_hi + L::T_PANEL,
+                               gbase + L::t_lo + L::T_PANEL);
+      consumers_sync();
+      mbar_arrive_if(c_empty + 8 * cs, tid == 0);
+      // dV += P^T dO and dK += dS^T q' over this warpgroup's half of the
+      // window (rows CW c .. of the staged tiles).
+      pin(dk_acc);
+      pin(dv_acc);
+      wg_fence();
+      const uint32_t half = c * CW * ROW_BYTES;
+#pragma unroll
+      for (int j = 0; j < QB / 8; ++j) {
+        const uint32_t at = half + j * 32;
+        const uint64_t qth = desc128(base + L::t_hi + at);
+        const uint64_t qtl = desc128(base + L::t_lo + at);
+        const uint64_t dth = desc128(base + L::t_hi + L::T_PANEL + at);
+        const uint64_t dtl = desc128(base + L::t_lo + L::T_PANEL + at);
+        Wgmma<CW, float>::rs(dv_acc, pah[j], dth, 1);
+        Wgmma<CW, float>::rs(dv_acc, pah[j], dtl, 1);
+        Wgmma<CW, float>::rs(dv_acc, pal[j], dth, 1);
+        Wgmma<CW, float>::rs(dk_acc, dah[j], qth, 1);
+        Wgmma<CW, float>::rs(dk_acc, dah[j], qtl, 1);
+        Wgmma<CW, float>::rs(dk_acc, dal[j], qth, 1);
+      }
+      wg_commit();
+      wg_wait<0>();
+      pin(dk_acc);
+      pin(dv_acc);
+      pin(pah);
+      pin(pal);
+      pin(dah);
+      pin(dal);
+    }
+
+    // dK and dV of the CTA's keys on this warpgroup's own columns.
+    const int own0 = (cols.start - cols.w0) * F32_PANEL;
+    const int own1 = own0 + cols.own * F32_PANEL;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int key = k0 + r_lo + 8 * h;
+      if (key >= sk) continue;
+      const size_t at = ((size_t)bh * sk + key) * d + cols.w0 * F32_PANEL +
+                        c * CW + cq;
+#pragma unroll
+      for (int i = 0; i < CW / 8; ++i) {
+        const int col = c * CW + 8 * i;  // within the window
+        if (col >= own0 && col < own1) {
+          const int e = 4 * i + 2 * h;
+          *reinterpret_cast<float2*>(dk + at + 8 * i) =
+              make_float2(dk_acc[e], dk_acc[e + 1]);
+          *reinterpret_cast<float2*>(dv + at + 8 * i) =
+              make_float2(dv_acc[e], dv_acc[e + 1]);
+        }
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(WIDE_THREADS, 1)
+    fwd_kernel(const __grid_constant__ CUtensorMap mq,
+               const __grid_constant__ CUtensorMap mk,
+               const __grid_constant__ CUtensorMap mv, float* __restrict__ o,
+               float* __restrict__ lse, int bh_total, int sq, int sk, int d,
+               float scale_r, int causal) {
+  const int n_cc = col_ctas<F32_FWD_NP>(d);
+  const int n_qt = (sq + F32_FWD_ROWS - 1) / F32_FWD_ROWS;
+  const int bh = blockIdx.x % bh_total, rest = blockIdx.x / bh_total;
+  const int qt = n_qt - 1 - rest / n_cc;  // heavy (late) query tiles first
+  fwd_tile(&mq, &mk, &mv, o, lse, bh, rest % n_cc, qt * F32_FWD_ROWS, sq, sk,
+           d, scale_r, causal);
+}
+
+__global__ void __launch_bounds__(WIDE_THREADS, 1)
+    dkdv_kernel(const __grid_constant__ CUtensorMap mq,
+                const __grid_constant__ CUtensorMap mdo,
+                const __grid_constant__ CUtensorMap mk,
+                const __grid_constant__ CUtensorMap mv,
+                const float* __restrict__ lse,
+                const float* __restrict__ delta, float* __restrict__ dk,
+                float* __restrict__ dv, int bh_total, int sq, int sk, int d,
+                float scale_r, int causal) {
+  const int n_cc = col_ctas<F32_DKDV_NP>(d);
+  const int bh = blockIdx.x % bh_total, rest = blockIdx.x / bh_total;
+  const int kt = rest / n_cc;  // heavy (early) key tiles first
+  dkdv_tile(&mq, &mdo, &mk, &mv, lse, delta, dk, dv, bh, rest % n_cc,
+            kt * F32_DKDV_KEYS, sq, sk, d, scale_r, causal);
+}
+
+// Set each kernel's shared-memory limit once, before its first launch.
+namespace {
+bool g_prepared[2] = {};
+}  // namespace
+
+template <typename K>
+int prepare(int which, K kernel, size_t bytes) {
+  if (g_prepared[which]) return 0;
+  const int e = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  g_prepared[which] = e == 0;
+  return e;
+}
+
+inline int launch_fwd(const void* q, const void* k, const void* v, void* o,
+                      float* lse, int bh, int sq, int sk, int d,
+                      float scale_r, int causal, cudaStream_t stream) {
+  int e = prepare(0, fwd_kernel, FwdSmem::bytes);
+  CUtensorMap mq, mk, mv;
+  if (e == 0) e = make_map<float>(&mq, q, bh, sq, d, F32_FWD_ROWS);
+  if (e == 0) e = make_map<float>(&mk, k, bh, sk, d, F32_FWD_KEYS);
+  if (e == 0) e = make_map<float>(&mv, v, bh, sk, d, F32_FWD_KEYS);
+  if (e != 0) return e;
+  const int blocks = bh * ((sq + F32_FWD_ROWS - 1) / F32_FWD_ROWS) *
+                     col_ctas<F32_FWD_NP>(d);
+  fwd_kernel<<<blocks, WIDE_THREADS, FwdSmem::bytes, stream>>>(
+      mq, mk, mv, static_cast<float*>(o), lse, bh, sq, sk, d, scale_r,
+      causal);
+  return (int)cudaGetLastError();
+}
+
+inline int launch_dkdv(const void* q, const void* k, const void* v,
+                       const void* dout, const float* lse,
+                       const float* delta, void* dk, void* dv, int bh, int sq,
+                       int sk, int d, float scale_r, int causal,
+                       cudaStream_t stream) {
+  int e = prepare(1, dkdv_kernel, DkdvSmem::bytes);
+  CUtensorMap mq, mdo, mk, mv;
+  if (e == 0) e = make_map<float>(&mq, q, bh, sq, d, F32_DKDV_ROWS);
+  if (e == 0) e = make_map<float>(&mdo, dout, bh, sq, d, F32_DKDV_ROWS);
+  if (e == 0) e = make_map<float>(&mk, k, bh, sk, d, F32_DKDV_KEYS);
+  if (e == 0) e = make_map<float>(&mv, v, bh, sk, d, F32_DKDV_KEYS);
+  if (e != 0) return e;
+  const int blocks = bh * ((sk + F32_DKDV_KEYS - 1) / F32_DKDV_KEYS) *
+                     col_ctas<F32_DKDV_NP>(d);
+  dkdv_kernel<<<blocks, WIDE_THREADS, DkdvSmem::bytes, stream>>>(
+      mq, mdo, mk, mv, lse, delta, static_cast<float*>(dk),
+      static_cast<float*>(dv), bh, sq, sk, d, scale_r, causal);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace wide32
+}  // namespace hvdt

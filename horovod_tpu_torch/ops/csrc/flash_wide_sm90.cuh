@@ -1,8 +1,9 @@
 // K1, K2 and K3 above head dim 256 in 16 bits, for Hopper (sm_90a): the
 // wgmma and TMA wide bodies of the flash forward (flash_fwd_wide) and of
 // the split backward's dK/dV and dQ halves (flash_bwd_dkdv_wide,
-// flash_bwd_dq_wide).  flash_wide.cu launches them for fp16 and bf16; f32
-// keeps its SIMT bodies (no tensor-core path keeps f32 to 1e-4).
+// flash_bwd_dq_wide).  flash_wide.cu launches them for fp16 and bf16; in
+// f32 K1 and K2 run 3xTF32 bodies (flash_wide_f32_sm90.cuh: one TF32
+// product does not keep f32 to 1e-4, three do) and K3 a SIMT body.
 //
 // They replace the Pallas TPU kernels `_flash_kernel`
 // (horovod_tpu/ops/attention.py:356, pallas_call :1047),

@@ -106,6 +106,36 @@ def hold_fwd(qr, k, v, scale_r, causal) -> dict:
     return {"o": compare(got_o, o), "lse": compare_lse(got_lse, lse)}
 
 
+def tf32_split(x):
+    """``(hi, lo)`` of a float32 tensor as the wide f32 bodies split their
+    operands (csrc/flash_wide_f32_sm90.cuh, ``split``): hi = x rounded to
+    TF32 (10 mantissa bits) to nearest with ties away from zero, as
+    ``cvt.rna.tf32.f32`` rounds, and lo = x - hi rounded the same way.
+    Both come back as float32 tensors whose 13 low mantissa bits are 0."""
+    def rna(t):
+        bits = t.contiguous().view(torch.int32)
+        # Half a TF32 unit added to the magnitude bits, then truncated:
+        # the sign bit stays, so ties round away from zero.
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+    x = x.float()
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
+def mm_3xtf32(a, b, products=3):
+    """``a @ b`` as the wide f32 bodies compute every product: each
+    operand split by :func:`tf32_split` and hi.hi + hi.lo + lo.hi summed
+    in float32 (``products=1``: hi.hi alone, a single TF32 product).  The
+    TF32 products are exact in float32 (11 x 11 significant bits)."""
+    ah, al = tf32_split(a)
+    bh, bl = tf32_split(b)
+    out = torch.matmul(ah, bh)
+    if products == 3:
+        out = out + torch.matmul(ah, bl) + torch.matmul(al, bh)
+    return out
+
+
 def rtol(dtype) -> float:
     if dtype == torch.float32:
         return 1e-4

@@ -313,8 +313,9 @@ def test_flash_attention_at_other_head_dims(cuda_device, dtype, d, mode):
             assert err <= 5e-2 * b.abs().max().item(), err
 
 
-# The 16-bit wide bodies of K1, K2 and K3 (csrc/flash_wide_sm90.cuh) at
-# their edges: (seq, head dim, causal).  Ragged sequences (not a multiple
+# The wide bodies of K1, K2 and K3 at their edges (16 bits:
+# csrc/flash_wide_sm90.cuh; f32: csrc/flash_wide_f32_sm90.cuh and K3's
+# SIMT body): (seq, head dim, causal).  Ragged sequences (not a multiple
 # of the 128-row and 128-key tiles, of K2's 32-row query step nor of K3's
 # 64-key tile), non-causal cases, head dim 288 (9 panels: an odd count, so
 # a last one-panel chunk of S, and three column CTAs of 3 panels each) and
@@ -328,16 +329,12 @@ _WIDE_EDGES = [(200, 288, True), (333, 288, False), (65, 320, True),
                (130, 320, False), (191, 512, True), (2, 1024, False)]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("seq,d,causal", _WIDE_EDGES)
-def test_wide_16bit_bodies_at_their_edges(cuda_device, seq, d, causal,
-                                          dtype):
-    """K1, K2 and K3 on their wgmma wide bodies against the plain side
-    that walks their key tiles (kernel_check's rule), one launch each;
-    lse with no POS_BIG row (every row sees a key)."""
-    g = torch.Generator(device=cuda_device).manual_seed(seq * 7 + d)
-    q, k, v, do = (torch.randn(3, seq, d, device=cuda_device, generator=g)
+def _hold_wide_bodies(device, seq, d, causal, dtype):
+    """K1, K2 and K3 above 256 against the plain side that walks their key
+    tiles (kernel_check's rule), one launch each; lse with no POS_BIG row
+    (every row sees a key)."""
+    g = torch.Generator(device=device).manual_seed(seq * 7 + d)
+    q, k, v, do = (torch.randn(3, seq, d, device=device, generator=g)
                    .to(dtype) for _ in range(4))
     p2, r = tattn._split_scale(d ** -0.5)
     qr = (q * p2).to(dtype)
@@ -352,6 +349,26 @@ def test_wide_16bit_bodies_at_their_edges(cuda_device, seq, d, causal,
         "flash_bwd_dq": 1}
     for name, err in kernel_check.compare_outputs(got, ref).items():
         assert err["worst"] <= 1.0, (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("seq,d,causal", _WIDE_EDGES)
+def test_wide_16bit_bodies_at_their_edges(cuda_device, seq, d, causal,
+                                          dtype):
+    """K1, K2 and K3 on their wgmma wide bodies."""
+    _hold_wide_bodies(cuda_device, seq, d, causal, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seq,d,causal", _WIDE_EDGES)
+def test_wide_f32_bodies_at_their_edges(cuda_device, seq, d, causal):
+    """K1 and K2 on their 3xTF32 wide bodies (csrc/flash_wide_f32_sm90.cuh:
+    128 query rows by 64-key tiles, 64 keys by 32-row query steps, both
+    in 4-panel windows: 3 + 3 + 3 panels at 288, where K2's two
+    warpgroups also take 5 and 4 head-dim chunks, 4 + 3 + 3 at 320) and
+    K3 on its SIMT body, held to the f32 rule (1e-4)."""
+    _hold_wide_bodies(cuda_device, seq, d, causal, torch.float32)
 
 
 @pytest.mark.cuda

@@ -127,20 +127,24 @@ def _constants(source):
                                    torch.float16])
 def test_wide_tile_constants_match_the_tables(dtype):
     """The wide bodies' tile and chunk constants, read from the sources,
-    are attention.py's tables: the head-dim chunk (the SIMT bodies' DC,
-    the 16-bit bodies' PANEL) is WIDE_CHUNK; the forward's key tile is
-    FWD_KEYS of csrc/flash_wide_sm90.cuh in 16 bits and TK of
-    csrc/flash_wide.cu in float32; the split mode's is K3's, DQ_KEYS of
-    the 16-bit body and TK in float32; the 16-bit bodies' windows (FWD_NP,
-    DKDV_NP, DQ_NP) and panels per chunk of S (CHUNK_PANELS) are
-    _WIDE_WINDOW_PANELS and WIDE_CHUNK_PANELS.  The plain side that holds
-    a kernel walks these tiles, so the two cannot drift apart."""
+    are attention.py's tables: the head-dim chunk (K3's SIMT body's DC,
+    the 16-bit bodies' PANEL, the f32 bodies' F32_PANEL) is WIDE_CHUNK;
+    the forward's key tile is FWD_KEYS of csrc/flash_wide_sm90.cuh in 16
+    bits and F32_FWD_KEYS of csrc/flash_wide_f32_sm90.cuh in float32; the
+    split mode's is K3's, DQ_KEYS of the 16-bit body and TK of
+    csrc/flash_wide.cu (its SIMT body) in float32; the tensor-core bodies'
+    windows (FWD_NP, DKDV_NP, DQ_NP; F32_FWD_NP, F32_DKDV_NP) and the
+    16-bit ones' panels per chunk of S (CHUNK_PANELS) are
+    _WIDE_WINDOW_PANELS, _WIDE_F32_WINDOW_PANELS and WIDE_CHUNK_PANELS.
+    The plain side that holds a kernel walks these tiles, so the two
+    cannot drift apart."""
     simt = _constants("flash_wide.cu")
     wgmma = _constants("flash_wide_sm90.cuh")
+    tf32 = _constants("flash_wide_f32_sm90.cuh")
     assert simt["DC"] == _constants("sm90_common.cuh")["PANEL"] \
-        == tattn.WIDE_CHUNK
+        == tf32["F32_PANEL"] == tattn.WIDE_CHUNK
     f32 = dtype == torch.float32
-    fwd = simt["TK"] if f32 else wgmma["FWD_KEYS"]
+    fwd = tf32["F32_FWD_KEYS"] if f32 else wgmma["FWD_KEYS"]
     split = simt["TK"] if f32 else wgmma["DQ_KEYS"]
     for d in (257, 288, 512, 1000, 1024):
         assert tattn.fwd_key_tile(dtype, d) == fwd
@@ -149,24 +153,53 @@ def test_wide_tile_constants_match_the_tables(dtype):
     assert tattn._WIDE_WINDOW_PANELS == {
         "flash_fwd": wgmma["FWD_NP"], "flash_bwd_dkdv": wgmma["DKDV_NP"],
         "flash_bwd_dq": wgmma["DQ_NP"]}
+    assert tattn._WIDE_F32_WINDOW_PANELS == {
+        "flash_fwd": tf32["F32_FWD_NP"],
+        "flash_bwd_dkdv": tf32["F32_DKDV_NP"]}
 
 
-@pytest.mark.parametrize("name,d,flops", [
-    ("flash_fwd", 288, 3 * (2 * 288 + 256)),
-    ("flash_bwd_dkdv", 288, 3 * (4 * 288 + 384)),
-    ("flash_bwd_dq", 288, 3 * (4 * 288 + 256)),
-    ("flash_bwd_dq", 320, 3 * (4 * 320 + 256)),
-    ("flash_bwd_dq", 512, 4 * (4 * 512 + 256)),
-    ("flash_bwd_dkdv", 1000, 11 * (4 * 1024 + 384)),
-    ("flash_bwd_dq", 1000, 8 * (4 * 1024 + 256))])
-def test_wide_tensor_core_work(name, d, flops):
-    """The 16-bit wide bodies' tensor-core FLOP per pair: their column
-    CTAs' recompute of the score products (at 1000, padded to 1024: K3's
-    8 x (4 d + 2 W) against the caller's 6 d, 5.8x), and a head dim at or
-    below 256 has no wide body."""
-    assert tattn.wide_tensor_core_flops(name, d) == flops
+def test_wgmma_header_is_the_generators_output():
+    """csrc/wgmma_sm90.cuh is tools/torch_gen_wgmma.py's output, byte for
+    byte (it is generated, never edited by hand), and carries the TF32
+    shapes the f32 wide bodies issue."""
+    import importlib.util
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "torch_gen_wgmma", os.path.join(root, "tools", "torch_gen_wgmma.py"))
+    gen = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gen)
+    with open(gen.OUT) as f:
+        text = f.read()
+    assert text == gen.generate()
+    for n in (32, 64, 128):
+        assert f"m64n{n}k8.f32.tf32.tf32" in text
+
+
+@pytest.mark.parametrize("name,d,dtype,flops", [
+    ("flash_fwd", 288, torch.bfloat16, 3 * (2 * 288 + 256)),
+    ("flash_bwd_dkdv", 288, torch.bfloat16, 3 * (4 * 288 + 384)),
+    ("flash_bwd_dq", 288, torch.bfloat16, 3 * (4 * 288 + 256)),
+    ("flash_bwd_dq", 320, torch.bfloat16, 3 * (4 * 320 + 256)),
+    ("flash_bwd_dq", 512, torch.bfloat16, 4 * (4 * 512 + 256)),
+    ("flash_bwd_dkdv", 1000, torch.bfloat16, 11 * (4 * 1024 + 384)),
+    ("flash_bwd_dq", 1000, torch.bfloat16, 8 * (4 * 1024 + 256)),
+    ("flash_fwd", 288, torch.float32, 3 * 3 * (2 * 288 + 256)),
+    ("flash_fwd", 512, torch.float32, 3 * 4 * (2 * 512 + 256)),
+    ("flash_bwd_dkdv", 288, torch.float32, 3 * 3 * (4 * 288 + 512)),
+    ("flash_bwd_dkdv", 512, torch.float32, 3 * 4 * (4 * 512 + 512))])
+def test_wide_tensor_core_work(name, d, dtype, flops):
+    """The wide bodies' tensor-core FLOP per pair: their column CTAs'
+    recompute of the score products (at 1000, padded to 1024: K3's
+    8 x (4 d + 2 W) against the caller's 6 d, 5.8x) and, in float32, three
+    TF32 products for each (4-panel windows: 6.5x the caller's 4 d and 8 d
+    at 288, K2's shared by its two warpgroups); a head dim at or below 256 has
+    no wide body, and K3's f32 body has no tensor-core work (SIMT)."""
+    assert tattn.wide_tensor_core_flops(name, d, dtype) == flops
     with pytest.raises(ValueError, match="wide body"):
-        tattn.wide_tensor_core_flops(name, 256)
+        tattn.wide_tensor_core_flops(name, 256, dtype)
+    with pytest.raises(ValueError, match="tensor-core"):
+        tattn.wide_tensor_core_flops("flash_bwd_dq", d, torch.float32)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
@@ -205,6 +238,37 @@ def test_wide_plain_side_matches_jax_in_16_bits(monkeypatch, d, dtype):
         w = torch.from_numpy(np.array(w.astype(jnp.float32))).to(dtype)
         assert got[name].dtype == dtype
         err = kernel_check.compare(got[name], flat(w))
+        assert err["worst"] <= 1.0, (name, err)
+
+
+@pytest.mark.parametrize("d", [288, 512, 1024])
+def test_wide_plain_side_matches_jax_in_f32(monkeypatch, d):
+    """kernel_check's plain side in float32 at a wide head dim, walking the
+    f32 wide forward's key tile (64 keys, F32_FWD_KEYS) and the split
+    mode's for the backward (K3's 64 keys), against the JAX package's flash
+    attention in float32 on the same 64-key blocks (Pallas in interpret
+    mode): o, dq, dk and dv under kernel_check's f32 rule (1e-4 of |ref| +
+    rms_row(ref) + rms(ref) / 16: summation order only)."""
+    monkeypatch.delenv("HVD_TPU_VMEM_LIMIT_MB", raising=False)
+    b, h, s = 1, 2, 256
+    tile = tattn.fwd_key_tile(torch.float32, d)
+    assert tile == 64 and tattn.bwd_mode(s, d, b * h) == "split"
+    assert tattn.bwd_key_tile("split", torch.float32, d) == tile
+    q, k, v, ct = (torch.from_numpy(a)
+                   for a in _arrays((b, h, s, d), seed=90 + d))
+    out, vjp = jax.vjp(lambda a, b_, c: jattn.flash_attention(
+        a, b_, c, causal=True, block_q=tile, block_k=tile),
+        *(jnp.asarray(t.numpy()) for t in (q, k, v)))
+    want = dict(zip(("o", "dq", "dk", "dv"),
+                    (out, *vjp(jnp.asarray(ct.numpy())))))
+    p2, r = tattn._split_scale(d ** -0.5)
+    flat = lambda t: t.reshape(b * h, s, d)  # noqa: E731
+    got, _ = kernel_check.plain_outputs(
+        flat(q * p2), flat(k), flat(v), flat(ct), True, r, p2, "split")
+    for name, w in want.items():
+        assert w.dtype == jnp.float32
+        err = kernel_check.compare(got[name],
+                                   flat(torch.from_numpy(np.array(w))))
         assert err["worst"] <= 1.0, (name, err)
 
 

@@ -48,7 +48,7 @@ def test_forward_key_tile_follows_the_kernels():
     one.  A head dim no body takes answers for the body it is padded to
     (48 for 64's); past 256 the wide bodies' 128 keys in 16 bits
     (csrc/flash_wide_sm90.cuh, FWD_KEYS) and 64 in float32
-    (csrc/flash_wide.cu, TK); below 1 none runs."""
+    (csrc/flash_wide_f32_sm90.cuh, F32_FWD_KEYS); below 1 none runs."""
     for d in tattn.HEAD_DIMS:
         tile16 = 128 if d <= 64 else 64
         assert tattn.fwd_key_tile(torch.bfloat16, d) == tile16
@@ -133,3 +133,45 @@ def test_rule_takes_rounding_flips_of_p_and_ds(monkeypatch, dtype):
     assert any(not torch.equal(got[n], ref[n]) for n in ref)
     for name in ref:
         assert kernel_check.compare(got[name], ref[name])["worst"] <= 1.0, name
+
+
+def test_tf32_split_rounds_as_cvt_rna():
+    """kernel_check.tf32_split rounds as ``cvt.rna.tf32.f32``: to 10
+    mantissa bits, ties away from zero, the 13 low bits of hi and lo both
+    0, and hi + lo within 2^-22 of x (relative)."""
+    x = torch.randn(4096, generator=torch.Generator().manual_seed(0)) * 100
+    hi, lo = kernel_check.tf32_split(x)
+    for t in (hi, lo):
+        assert bool(((t.view(torch.int32) & 0x1FFF) == 0).all())
+    assert ((x - hi) / x).abs().max() <= 2.0 ** -11
+    assert ((x - hi - lo) / x).abs().max() <= 2.0 ** -22
+    ties = torch.tensor([1 + 2.0 ** -11, -(1 + 2.0 ** -11), 1 + 3 * 2.0 ** -11,
+                         1 + 2.0 ** -12])
+    assert kernel_check.tf32_split(ties)[0].tolist() == [
+        1 + 2.0 ** -10, -(1 + 2.0 ** -10), 1 + 2.0 ** -9, 1.0]
+
+
+@pytest.mark.parametrize("d", [288, 512, 1024])
+def test_3xtf32_products_keep_the_f32_rule(monkeypatch, d):
+    """The wide f32 bodies of K1 and K2 (csrc/flash_wide_f32_sm90.cuh)
+    split every operand of every product hi / lo (kernel_check.tf32_split)
+    and sum hi.hi + hi.lo + lo.hi.  Emulated on the plain side that holds
+    them (kernel_check.mm_3xtf32 in place of every product), o, lse, dk
+    and dv pass the f32 rule against the float32 plain side (they read
+    ~0.05); hi.hi alone, one TF32 product, fails it in o, dk and dv by
+    more than 10x (lse, a log of sums, reads 0.3-1.2)."""
+    qr, k, v, do, p2, r = _inputs((2, 256, d), torch.float32, d)
+    ref, _ = kernel_check.plain_outputs(qr, k, v, do, True, r, p2, "split")
+    mm = tattn._mm
+    worst = {}
+    for products in (3, 1):
+        monkeypatch.setattr(tattn, "_mm", lambda a, b, _p=products:
+                            kernel_check.mm_3xtf32(a, b, _p))
+        got, _ = kernel_check.plain_outputs(qr, k, v, do, True, r, p2,
+                                            "split")
+        monkeypatch.setattr(tattn, "_mm", mm)
+        worst[products] = {n: kernel_check.compare_outputs(
+            {n: got[n]}, {n: ref[n]})[n]["worst"]
+            for n in ("o", "lse", "dk", "dv")}
+    assert max(worst[3].values()) <= 1.0, worst[3]
+    assert min(worst[1][n] for n in ("o", "dk", "dv")) > 10.0, worst[1]

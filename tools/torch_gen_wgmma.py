@@ -25,8 +25,20 @@ forward (``csrc/flash_fwd_sm90.cuh``) and backward
   columns, and K as it arrives), N = 32/64/96 head-dim columns;
   ``scale_d`` as for ``ss``.
 
-T is ``__nv_bfloat16`` or ``__half``.  The output is checked in, so the
-build needs no Python step; rerun this after changing a shape.
+T is ``__nv_bfloat16`` or ``__half``.  In float32 (the wide bodies'
+3xTF32 products, ``csrc/flash_wide_f32_sm90.cuh``) one shape form:
+
+* ``Wgmma<N, float>::rs`` — ``m64nNk8`` TF32, A from registers (four
+  TF32 values a thread, split from f32 by the caller), B from shared
+  memory K-major (TF32 has no transposed forms): ``S = q' K^T`` and
+  ``O += P V`` (V^T staged) with N = 64 and 128 in K1, ``S^T = K q'^T``,
+  ``dP^T = V dO^T`` (N = 32 query rows), ``dV += P^T dO`` and
+  ``dK += dS^T q'`` (N = 64 head-dim columns) in K2; ``scale_d`` as for
+  ``ss``.
+
+The output is checked in, so the build needs no Python step; rerun this
+after changing a shape (``tests/test_torch_head_dims.py`` holds the
+checked-in header to :func:`generate`).
 """
 
 from __future__ import annotations
@@ -40,16 +52,20 @@ SS_N = (32, 64, 128)
 RS_N = (32, 64, 96, 128)
 SST_N = (32, 64, 96)
 TYPES = (("__nv_bfloat16", "bf16"), ("__half", "f16"))
+TF32_RS_N = (32, 64, 128)
 
 HEAD = """\
 // Generated by tools/torch_gen_wgmma.py; do not edit by hand.
 //
 // Warpgroup matrix-multiply wrappers for the flash forward and backward
-// (flash_fwd_sm90.cuh, flash_bwd_sm90.cuh): one inline-assembly statement
-// per shape, since wgmma names each f32 accumulator register of the
-// thread as an operand.
+// (flash_fwd_sm90.cuh, flash_bwd_sm90.cuh) and the wide bodies
+// (flash_wide_sm90.cuh; in float32, 3xTF32, flash_wide_f32_sm90.cuh): one
+// inline-assembly statement per shape, since wgmma names each f32
+// accumulator register of the thread as an operand.
 // d[4 * i + 2 * h + j] of a thread t of the warpgroup holds row
 // 16 * (t / 32) + (t % 32) / 4 + 8 * h, column 8 * i + 2 * (t % 4) + j.
+// A TF32 A fragment (k8) a[v] holds row 16 * (t / 32) + (t % 32) / 4 +
+// 8 * (v % 2), column t % 4 + 4 * (v / 2).
 
 #pragma once
 
@@ -124,7 +140,26 @@ def ss_t(n, ptx):
   }}"""
 
 
-def main():
+def rs_tf32(n):
+    r = n // 2
+    return f"""
+  // D (64 x {n}) = or += A (64 x 8, registers, TF32) B (B {n} x 8,
+  // K-major, TF32).
+  __device__ static __forceinline__ void rs(float (&d)[{r}],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b, int scale_d) {{
+    asm volatile(
+        "{{\\n.reg .pred p;\\nsetp.ne.b32 p, %{r + 5}, 0;\\n"
+        "wgmma.mma_async.sync.aligned.m64n{n}k8.f32.tf32.tf32 "
+        "{{{_regs(r)}}}, {{{_regs(4, r)}}}, %{r + 4}, p, 1, 1;\\n}}\\n"
+        : {_outs(r)}
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+          "r"(scale_d));
+  }}"""
+
+
+def generate() -> str:
+    """The text of ``wgmma_sm90.cuh``."""
     parts = [HEAD]
     for ctype, ptx in TYPES:
         for n in sorted(set(SS_N) | set(RS_N) | set(SST_N)):
@@ -133,9 +168,16 @@ def main():
                 (ss_t(n, ptx) if n in SST_N else "")
             parts.append(f"\ntemplate <>\nstruct Wgmma<{n}, {ctype}> {{"
                          f"{body}\n}};\n")
+    for n in TF32_RS_N:
+        parts.append(f"\ntemplate <>\nstruct Wgmma<{n}, float> {{"
+                     f"{rs_tf32(n)}\n}};\n")
     parts.append(TAIL)
+    return "".join(parts)
+
+
+def main():
     with open(OUT, "w") as f:
-        f.write("".join(parts))
+        f.write(generate())
 
 
 if __name__ == "__main__":

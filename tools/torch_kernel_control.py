@@ -4,6 +4,7 @@ Run from the repository root on a machine with one CUDA GPU::
 
     python3 tools/torch_kernel_control.py              # every mutant
     python3 tools/torch_kernel_control.py --wide-only  # K3 above 256
+    python3 tools/torch_kernel_control.py --wide-f32   # K1, K2 f32 > 256
 
 Builds mutants of the attention kernels, each with one line changed so
 that it skips part of its work.  K1's mutants change the forward body
@@ -63,6 +64,25 @@ Beside the sound wide reading, the sound body's dq and the plain side's
 are each read against ``dq_f64_scores`` (S and dP in float64), which
 tells the kernel's own error from the plain side's float32 summation
 order.
+
+Mutants of K1's and K2's f32 wide bodies (``csrc/flash_wide_f32_sm90.cuh``,
+3xTF32), each read through ``flash_fwd`` (o, lse) and ``flash_bwd_dkdv``
+(dk, dv) in float32 at ``WIDE_SHAPES`` against the plain side of their
+own key tiles:
+
+* ``f32_plain_tf32`` — the lo half of every split is 0, so each product
+  is hi.hi alone: one TF32 product (K1 and K2);
+* ``f32_fwd_skip_key_tile`` — K1 masks out the second-to-last key tile
+  of each query tile;
+* ``f32_fwd_s_one_k8_short`` — K1's S = q' K^T leaves out the last k8
+  slice of every head-dim chunk;
+* ``f32_dkdv_dk_without_lo_hi`` — K2's dK += dS^T q' drops its lo.hi
+  product.
+
+Beside the plain-TF32 mutant's reading stands its prediction: the plain
+side with every product hi.hi alone (``kernel_check.mm_3xtf32(...,
+products=1)``, the split the bodies use), read against the same plain
+side.
 
 The first three drop most of the mass of some rows; the next three drop
 a share of late rows only; the next three move late rows, whose values
@@ -227,6 +247,27 @@ WIDE_MUTANTS = {
         "for (int j = 0; j < DQ_STEPS - 1; ++j)"),
 }
 WIDE_SHAPES = ((16, 1024, 288), (4, 1024, 1024))  # (bh, seq, head dim)
+# K1 and K2 f32 wide mutants: (file mutated, line, what replaces it,
+# outputs read), read through flash_wide at WIDE_SHAPES in float32.
+F32_BODY = "flash_wide_f32_sm90.cuh"
+F32_MUTANTS = {
+    "f32_plain_tf32": (
+        F32_BODY, "  lo = tf32(x - __uint_as_float(hi));\n", "  lo = 0u;\n",
+        ("o", "dk", "dv")),
+    "f32_fwd_skip_key_tile": (
+        F32_BODY, "      if (kt < n_plain)\n",
+        "      if (kt == n_kt - 2)\n"
+        "        for (float& x : s) x = NEG_INF;\n"
+        "      if (kt < n_plain)\n", ("o", "lse")),
+    "f32_fwd_s_one_k8_short": (
+        F32_BODY, "      for (int kk = 0; kk < 4; ++kk) {\n"
+        "        load_a(gbase + off + L::A_Q,",
+        "      for (int kk = 0; kk < 3; ++kk) {\n"
+        "        load_a(gbase + off + L::A_Q,", ("o", "lse")),
+    "f32_dkdv_dk_without_lo_hi": (
+        F32_BODY, "        Wgmma<CW, float>::rs(dk_acc, dal[j], qth, 1);\n",
+        "", ("dk",)),
+}
 
 # Ring mutants: (source stem, file mutated, line, what replaces it, reading)
 RING_MUTANTS = {
@@ -303,12 +344,17 @@ def loose_compare(got, want):
             "worst": err / (2e-2 * want.float().abs().max().item())}
 
 
-def build_mutants(wide_only=False):
+def build_mutants(wide_only=False, wide_f32=False):
     """``{mutant: path of its shared library}``, nvcc runs in parallel."""
     procs = {}
-    edits = {name: ("flash_wide", file, old, new)
-             for name, (file, old, new) in WIDE_MUTANTS.items()}
+    edits = {}
+    if not wide_f32:
+        edits.update({name: ("flash_wide", file, old, new)
+                      for name, (file, old, new) in WIDE_MUTANTS.items()})
     if not wide_only:
+        edits.update({name: ("flash_wide", file, old, new)
+                      for name, (file, old, new, _) in F32_MUTANTS.items()})
+    if not (wide_only or wide_f32):
         edits.update({name: (stem, file, old, new)
                       for name, (stem, file, old, new, _)
                       in MUTANTS.items()})
@@ -404,25 +450,90 @@ def wide_readings(paths):
     return rows, ok
 
 
+def wide_f32_outputs(qr, k, v, do, lse, delta, scale_r):
+    """``{o, lse, dk, dv}`` of K1 and K2 (``flash_wide`` as loaded now)."""
+    o, lse_k = A.flash_fwd(qr, k, v, scale_r, True)
+    dk, dv = A.flash_bwd_dkdv(qr, k, v, do, lse, delta, scale_r, True)
+    return {"o": o, "lse": lse_k, "dk": dk, "dv": dv}
+
+
+def wide_f32_readings(paths):
+    """The sound f32 K1 and K2 wide bodies and each of their mutants
+    against the plain side of the split mode at each of WIDE_SHAPES, in
+    float32, and the plain side with one TF32 product per product (the
+    prediction for ``f32_plain_tf32``): ``({reading: {shape: ...}},
+    ok)``."""
+    sound = _build.load("flash_wide")
+    names = ("o", "lse", "dk", "dv")
+    rows, ok = {}, True
+    for bh, s, d in WIDE_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(s + d)
+        q, k, v, do = (torch.randn(bh, s, d, device="cuda", generator=g)
+                       for _ in range(4))
+        p2, scale_r = A._split_scale(d ** -0.5)
+        qr = q * p2
+        ref, delta = kernel_check.plain_outputs(qr, k, v, do, True, scale_r,
+                                                p2, "split")
+        args = (qr, k, v, do, ref["lse"], delta, scale_r)
+        tag = f"float32_{bh}x{s}x{d}"
+        rows.setdefault("sound_wide_f32", {})[tag] = reading(
+            wide_f32_outputs(*args), ref, names)
+        ok &= all(r["strict"]["worst"] <= 1.0
+                  for r in rows["sound_wide_f32"][tag].values())
+        mm = A._mm
+        A._mm = lambda a, b: kernel_check.mm_3xtf32(a, b, products=1)
+        try:
+            one, _ = kernel_check.plain_outputs(qr, k, v, do, True, scale_r,
+                                                p2, "split")
+        finally:
+            A._mm = mm
+        rows.setdefault("predicted_plain_tf32", {})[tag] = {
+            n: kernel_check.compare_outputs({n: one[n]}, {n: ref[n]})[n]
+            for n in names}
+        for name, (_, _, _, outs) in F32_MUTANTS.items():
+            _build._libs["flash_wide"] = ctypes.CDLL(paths[name])
+            try:
+                got = wide_f32_outputs(*args)
+            finally:
+                _build._libs["flash_wide"] = sound
+            rows.setdefault(name, {})[tag] = reading(got, ref, outs)
+            ok &= any(r["strict"]["worst"] > 1.0
+                      for r in rows[name][tag].values())
+        del q, k, v, do, qr, ref, delta, args
+    return rows, ok
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--wide-only", action="store_true",
                     help="only K3's 16-bit wide body and its mutants")
-    wide_only = ap.parse_args().wide_only
+    ap.add_argument("--wide-f32", action="store_true",
+                    help="only K1's and K2's f32 wide bodies and their "
+                         "mutants")
+    args = ap.parse_args()
+    wide_only, wide_f32 = args.wide_only, args.wide_f32
     if not torch.cuda.is_available():
         sys.exit("torch_kernel_control: no CUDA device")
     _build.build_all()
-    paths = build_mutants(wide_only)
-    wide, ok = wide_readings(paths)
+    paths = build_mutants(wide_only, wide_f32)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True,
         text=True).stdout.strip()
+    if wide_f32:
+        f32, ok = wide_f32_readings(paths)
+        print(json.dumps({"nvidia_smi": smi, "causal": True, "ok": ok,
+                          "wide_shapes": [list(x) for x in WIDE_SHAPES],
+                          "wide_f32_readings": f32}), flush=True)
+        sys.exit(0 if ok else 1)
+    wide, ok = wide_readings(paths)
     if wide_only:
         print(json.dumps({"nvidia_smi": smi, "causal": True, "ok": ok,
                           "wide_shapes": [list(x) for x in WIDE_SHAPES],
                           "wide_readings": wide}), flush=True)
         sys.exit(0 if ok else 1)
+    f32, f32_ok = wide_f32_readings(paths)
+    ok &= f32_ok
     sound = {stem: _build.load(stem)
              for stem in ("flash_fwd", "flash_bwd", SPLIT)}
     result = {}
@@ -472,7 +583,8 @@ def main():
                       "causal": True, "ok": ok, "readings": result,
                       "ring_shard": list(RING_SHARD), "ring_readings": ring,
                       "wide_shapes": [list(x) for x in WIDE_SHAPES],
-                      "wide_readings": wide}), flush=True)
+                      "wide_readings": wide,
+                      "wide_f32_readings": f32}), flush=True)
     sys.exit(0 if ok else 1)
 
 

@@ -6,6 +6,7 @@ Run from the repository root on a machine with one CUDA GPU::
 
     python3 tools/torch_split_variants.py                 # the split pair
     python3 tools/torch_split_variants.py --family wide   # K1-K3 above 256
+    python3 tools/torch_split_variants.py --family wide_f32  # K1, K2 f32
 
 Each variant is a copy of the kernel sources with one or two lines
 changed (under ``horovod_tpu_torch/_build/variants/``; the checked-in
@@ -47,13 +48,28 @@ and the alternatives to the checked-in choices.  ``split``:
 * ``dq_4_stages`` — K3 streams its (q', dO, K, V) chunks through four
   stages instead of ``DQ_STAGES``.
 
+``wide_f32`` (``csrc/flash_wide_f32_sm90.cuh``, 3xTF32, float32 inputs;
+K1 and K2 alone, K3's f32 body being SIMT):
+
+* ``fwd_one_chain``, ``dkdv_one_chain`` — K1's S (K2's S^T and dP^T) is
+  chained through one wgmma accumulator over the whole head dim (3 d / 8
+  steps) instead of summed per 32-column chunk in f32 registers: 32
+  fewer registers a thread, and the tensor cores' truncating accumulation
+  drifts with the chain's length;
+* ``fwd_p_at_once`` — K1 splits all of P into its hi / lo A fragments
+  before the P V products instead of one 8-key slice at a time (48 more
+  registers at the product, fewer waits);
+* ``fwd_2_stages`` — K1 streams two chunk stages instead of
+  ``F32_FWD_STAGES`` (K2's two are fixed: its note says why).
+
 Every build is held against the plain side that walks its own key tile
 (``kernel_check``; ``worst`` <= 1 passes), then the family's kernels are
 timed with the checked-in build and each variant in turns (checked-in,
-variant, variant, checked-in, twice) at the family's shapes (bf16,
-causal), by CUDA events, median of 15 after warm-up with a sleep kernel
-ahead, each turn's shape and build named on stderr first.  For ``wide``
-it first prints each build's registers and spills
+variant, variant, checked-in, twice) at the family's shapes (bf16;
+``wide_f32`` float32; causal), by CUDA events, median of 15 after
+warm-up with a sleep kernel ahead, each turn's shape and build named on
+stderr first.  For ``wide`` and ``wide_f32`` (whose ``worst`` is also
+given per output) it first prints each build's registers and spills
 (``-Xptxas -v``, with the C75xx notes of each kernel) as one JSON line.
 Then one JSON line: per shape and kernel, each build's medians.
 """
@@ -125,6 +141,58 @@ FAMILIES = {
                               "constexpr int DQ_STAGES = 4;")], None),
         }},
 }
+
+
+WF = "flash_wide_f32_sm90.cuh"
+_K1_S = ("        Wgmma<BN, float>::rs(sc, qh[kk % 2], kh, kk != 0);\n"
+         "        Wgmma<BN, float>::rs(sc, qh[kk % 2], kl, 1);\n"
+         "        Wgmma<BN, float>::rs(sc, ql[kk % 2], kh, 1);\n")
+_K2_S = ("        Wgmma<QB, float>::rs(sc, kh[b], qh, kk != 0);\n"
+         "        Wgmma<QB, float>::rs(sc, kh[b], ql, 1);\n"
+         "        Wgmma<QB, float>::rs(sc, kl[b], qh, 1);\n"
+         "        Wgmma<QB, float>::rs(dpc, vh[b], dh, kk != 0);\n"
+         "        Wgmma<QB, float>::rs(dpc, vh[b], dl, 1);\n"
+         "        Wgmma<QB, float>::rs(dpc, vl[b], dh, 1);\n")
+_K2_SUM = ("      for (int i = 0; i < QB / 2; ++i) {\n"
+           "        s[i] = first ? sc[i] : s[i] + sc[i];\n"
+           "        dp[i] = first ? dpc[i] : dp[i] + dpc[i];\n"
+           "      }\n")
+_K1_PV = ("        Wgmma<CW, float>::rs(acc, ph[j % 2], vh, 1);\n"
+          "        Wgmma<CW, float>::rs(acc, ph[j % 2], vl, 1);\n"
+          "        Wgmma<CW, float>::rs(acc, pl[j % 2], vh, 1);\n"
+          "        wg_commit();\n"
+          "        wg_wait<1>();\n"
+          "      }\n"
+          "      wg_wait<0>();\n")
+FAMILIES["wide_f32"] = {
+    "stem": "flash_wide", "ptxas": "wide32", "dtype": torch.float32,
+    "shapes": ((64, 1024, 288), (64, 1024, 512), (16, 1024, 1024)),
+    "variants": {
+        "fwd_one_chain": ([
+            (WF, _K1_S, _K1_S.replace("(sc,", "(s,").replace(
+                "kk != 0", "!(first && kk == 0)")),
+            (WF, "      for (int i = 0; i < BN / 2; ++i) s[i] = first ? "
+             "sc[i] : s[i] + sc[i];\n", "")], None),
+        "dkdv_one_chain": ([
+            (WF, _K2_S, _K2_S.replace("(sc,", "(s,").replace(
+                "(dpc,", "(dp,").replace("kk != 0", "!(first && kk == 0)")),
+            (WF, _K2_SUM, "")], None),
+        "fwd_p_at_once": ([
+            (WF, "      uint32_t ph[2][4], pl[2][4];\n#pragma unroll\n"
+             "      for (int j = 0; j < BN / 8; ++j) {\n"
+             "        split_acc(s, j, ph[j % 2], pl[j % 2]);\n",
+             "      uint32_t ph[BN / 8][4], pl[BN / 8][4];\n#pragma unroll\n"
+             "      for (int i = 0; i < BN / 8; ++i) "
+             "split_acc(s, i, ph[i], pl[i]);\n#pragma unroll\n"
+             "      for (int j = 0; j < BN / 8; ++j) {\n"),
+            (WF, _K1_PV, _K1_PV.replace("[j % 2]", "[j]").replace(
+                "        wg_commit();\n        wg_wait<1>();\n      }\n"
+                "      wg_wait<0>();\n",
+                "      }\n      wg_commit();\n      wg_wait<0>();\n"))],
+            None),
+        "fwd_2_stages": ([(WF, "constexpr int F32_FWD_STAGES = 3;",
+                           "constexpr int F32_FWD_STAGES = 2;")], None),
+    }}
 
 
 def build_variants(stem, variants):
@@ -246,7 +314,29 @@ def wide_case(qr, k, v, do, p2, r, tiles):
     return kernels, outputs, wants
 
 
-CASES = {"split": split_case, "wide": wide_case}
+def wide_f32_case(qr, k, v, do, p2, r, tiles):
+    """K1 and K2 of the f32 wide bodies, and their plain outputs."""
+    d = qr.shape[-1]
+    o, lse = A._blockwise_fwd_impl(
+        qr, k, v, True, r, block_size=A.fwd_key_tile(torch.float32, d))
+    delta = A._delta(o, do)
+    _, dk, dv = A._attention_bwd_impl(qr, k, v, lse, delta, do, True, r,
+                                      block_size=A.bwd_key_tile(
+                                          "split", torch.float32, d))
+    args = (qr, k, v, do, lse, delta, r)
+    kernels = {"k1": lambda: A.flash_fwd(qr, k, v, r, True),
+               "k2": lambda: A.flash_bwd_dkdv(*args, True)}
+
+    def outputs():
+        o_k, lse_k = kernels["k1"]()
+        dk_k, dv_k = kernels["k2"]()
+        return {"o": o_k, "lse": lse_k, "dk": dk_k, "dv": dv_k}
+
+    return kernels, outputs, {t: {"o": o, "lse": lse, "dk": dk, "dv": dv}
+                              for t in tiles}
+
+
+CASES = {"split": split_case, "wide": wide_case, "wide_f32": wide_f32_case}
 
 
 def main():
@@ -270,21 +360,23 @@ def main():
     libs.update({n: ctypes.CDLL(p) for n, (p, _) in built.items()})
     tiles = {n: variants[n][1] if n in variants and variants[n][1]
              else (None, None) for n in libs}
+    dtype = fam.get("dtype", torch.bfloat16)
     result, ok = {}, True
     for bh, s, d in fam["shapes"]:
         g = torch.Generator(device="cuda").manual_seed(
             s if family == "split" else s + d)
         q, k, v, do = (torch.randn(bh, s, d, device="cuda", generator=g)
-                       .to(torch.bfloat16) for _ in range(4))
+                       .to(dtype) for _ in range(4))
         p2, r = A._split_scale(d ** -0.5)
-        qr = (q * p2).to(torch.bfloat16)
+        qr = (q * p2).to(dtype)
         kernels, outputs, wants = CASES[family](qr, k, v, do, p2, r,
                                                 set(tiles.values()))
-        worst = {}
+        worst, by_output = {}, {}
         for n, lib in libs.items():
             _build._libs[stem] = lib
             errs = kernel_check.compare_outputs(outputs(), wants[tiles[n]])
-            worst[n] = max(e["worst"] for e in errs.values())
+            by_output[n] = {o: e["worst"] for o, e in errs.items()}
+            worst[n] = max(by_output[n].values())
             ok &= worst[n] <= 1.0
         times = {kern: {n: [] for n in libs} for kern in kernels}
         for n in variants:
@@ -300,7 +392,8 @@ def main():
             "median_ms": {kern: {n: statistics.median(t)
                                  for n, t in ts.items()}
                           for kern, ts in times.items()},
-            "worst": worst}
+            "worst": worst,
+            **({"worst_by_output": by_output} if fam["ptxas"] else {})}
         del q, k, v, do, qr, kernels, outputs, wants
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
