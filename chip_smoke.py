@@ -14,9 +14,12 @@ Phases, one JSON line each:
    versions (``ops/attention.py``) on the same inputs, each backward
    against the plain side of its own key tile: bf16 and f32 at the main
    path's shape (16, 8, 1024, 64), fp16, a non-causal case, and a ragged
-   length with head_dim 128.  Times (CUDA events, median after warm-up)
-   of K1 and B2 (and K2 + K3 beside B2), their plain versions and the
-   library yardstick
+   length with head_dim 128; in f32 also head dims 32, 96 and 256 (K1 and
+   the split pair: the combined mode has no body at 256) and a ragged
+   non-causal length, dq's reading over query rows 0-7 reported apart.
+   Times (CUDA events, median after warm-up) of K1 and B2 (and K2 + K3
+   beside B2), in bf16 and f32 (K1 and K2 on their 3xTF32 wgmma bodies,
+   B2 and K3 SIMT), their plain versions and the library yardstick
    (``scaled_dot_product_attention``, which the port never calls, timed
    under each backend that takes the shape: flash, memory-efficient and
    cuDNN; ``library_ms`` is the fastest).
@@ -203,8 +206,10 @@ NCCL cannot run two ranks on one device: the run shows the engine, the
 staging and their numbers, not NVLink or NCCL.  Any rank that exits
 non-zero, any mismatch and any timeout fails the run.
 
-Then the ``{"kernels": [...]}`` summary (K1-K7, B2, and K1-K3 at head
-dims 256, 288, 512 and 1000; K1 and B2 with their launches per rank on
+Then the ``{"kernels": [...]}`` summary (K1-K7, B2, K1 and K2 in f32 at
+the main shape with the launches of the float32 paths (``model``, the
+split phase's 65,600 batch-heads), and K1-K3 at head dims 256, 288, 512
+and 1000; K1 and B2 with their launches per rank on
 ``train_dp``, ``pipeline`` and ``pipeline_dp`` and their times at the
 pipeline's micro-batch shape, K1 with its launches on ``serve``), the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Any
@@ -312,9 +317,17 @@ HEAD_DIM_WIDER = (((1, 64, 1024, 288), torch.bfloat16),
                   ((1, 64, 1024, 512), torch.float32))
 WIDE_SOURCE = "horovod_tpu_torch/ops/csrc/flash_wide.cu"
 # K1's, K2's and K3's bodies above 256 in fp16 and bf16; K1's and K2's in
-# f32 (3xTF32; K3's f32 body is WIDE_SOURCE's SIMT one).
+# f32 at every head dim (3xTF32; K3's f32 body above 256 is WIDE_SOURCE's
+# SIMT one).
 WIDE_SM90_SOURCE = "horovod_tpu_torch/ops/csrc/flash_wide_sm90.cuh"
 WIDE_F32_SOURCE = "horovod_tpu_torch/ops/csrc/flash_wide_f32_sm90.cuh"
+# The kernels phase's f32 cases beside MAIN and 1000 x 128: the 3xTF32 K1
+# and K2 at head dims 32, 96 and 256 (two column CTAs; no B2 there), and a
+# ragged non-causal length.
+F32_CASES = [((16, 8, 1024, 32), torch.float32, True),
+             ((16, 8, 1024, 96), torch.float32, True),
+             ((2, 8, 1024, 256), torch.float32, True),
+             ((16, 8, 1000, 64), torch.float32, False)]
 # Quoted, not measured by this script: the SIMT bodies' times at
 # HEAD_DIM_WIDER's shapes before they moved to tensor cores, in ms of K1,
 # K2, K3 by the head_dims phase's row tag: bf16 (all three), and f32 (K1
@@ -460,17 +473,23 @@ def kernel_inputs(shape, dtype, seed):
 
 def check_case(shape, dtype, causal, seed=0):
     """``{output: {max_abs_err, worst}}`` of K1, B2 (``dq``, ``dk``,
-    ``dv``) and K2 + K3 (``split_dq``, ...) against the plain versions
-    (``kernel_check``); fails on a non-finite output."""
+    ``dv``; up to head dim 128, where the combined mode has a body) and K2
+    + K3 (``split_dq``, ...) against the plain versions (``kernel_check``),
+    and ``{dq: {rows_0_7, rows_8_on}}`` (``split_dq`` too): dq's reading
+    over the first 8 query rows and over the rest apart; fails on a
+    non-finite output."""
     _, qr, k, v, do, p2, scale_r = kernel_inputs(shape, dtype, seed)
+    mode = "combined" if shape[3] <= A.HEAD_DIMS[-1] else "split"
     ref, delta = kernel_check.plain_outputs(qr, k, v, do, causal, scale_r,
-                                            p2)
-    got = kernel_check.kernel_outputs(qr, k, v, do, ref["lse"], delta, p2,
-                                      scale_r, causal)
+                                            p2, mode)
+    args = (qr, k, v, do, ref["lse"], delta, p2, scale_r, causal)
+    got = kernel_check.kernel_outputs(*args, mode)
+    if mode == "split":  # no B2: K1 and the split pair alone
+        for n in ("dq", "dk", "dv"):
+            del got[n], ref[n]
     # The split pair against the plain side that walks its own key tile.
-    args = (qr, k, v, do, ref["lse"], delta, p2, scale_r, causal, "split")
-    split = kernel_check.kernel_bwd_outputs(*args)
-    split_ref = kernel_check.plain_bwd_outputs(*args)
+    split = kernel_check.kernel_bwd_outputs(*args, "split")
+    split_ref = kernel_check.plain_bwd_outputs(*args, "split")
     got.update({f"split_{n}": t for n, t in split.items()})
     ref.update({f"split_{n}": t for n, t in split_ref.items()})
     for name, t in got.items():
@@ -478,7 +497,9 @@ def check_case(shape, dtype, causal, seed=0):
             fail(f"{name} not finite at {shape} {dtype}")
     # lse is compared finite-to-finite (ragged or causal rows all have
     # mass, so no POS_BIG sentinel appears here).
-    return {n: kernel_check.compare(got[n], ref[n]) for n in got}
+    first = {n: kernel_check.compare_first_rows(got[n], ref[n])
+             for n in ("dq", "split_dq") if n in got}
+    return {n: kernel_check.compare(got[n], ref[n]) for n in got}, first
 
 
 def k1_b2_entries(shape, errs, dtype=torch.bfloat16, causal=True):
@@ -538,14 +559,15 @@ def phase_kernels():
     cases = [(MAIN, torch.bfloat16, True), (MAIN, torch.float32, True),
              (MAIN, torch.float16, True), (MAIN, torch.bfloat16, False),
              ((16, 8, 1000, 128), torch.bfloat16, True),
-             ((16, 8, 1000, 128), torch.float32, True)]
+             ((16, 8, 1000, 128), torch.float32, True)] + F32_CASES
     results = []
     case_errs = {}
     for shape, dtype, causal in cases:
-        errs = check_case(shape, dtype, causal)
+        errs, first = check_case(shape, dtype, causal)
         ok = all(e["worst"] <= 1.0 for e in errs.values())
         results.append({"shape": list(shape), "dtype": str(dtype),
-                        "causal": causal, "ok": ok, "errors": errs})
+                        "causal": causal, "ok": ok, "errors": errs,
+                        "dq_first_rows": first})
         case_errs[(shape, dtype, causal)] = errs
         if not ok:
             emit("kernels", cases=results)
@@ -556,26 +578,58 @@ def phase_kernels():
     dtype = torch.bfloat16
     entries, t_dkdv, t_dq, lib_fwd, lib_bwd = k1_b2_entries(
         MAIN, case_errs[(MAIN, dtype, True)])
-    # The f32 bodies at or below 256 (SIMT) at the same shape, beside SDPA
-    # in f32: reported on this line only.
+    # The f32 bodies at the same shape (K1 and K2 on 3xTF32 wgmma, B2 and
+    # K3 SIMT), beside SDPA in float32; K1's and K2's rows go into the
+    # summary with the launches of the f32 paths.
     f32 = k1_b2_entries(MAIN, case_errs[(MAIN, torch.float32, True)],
                         torch.float32)
+    f32_errs = case_errs[(MAIN, torch.float32, True)]
+    flops, nbytes = split_bounds(MAIN, torch.float32, True)["flash_bwd_dkdv"]
+    t_sdpa_bwd = f32[0]["flash_bwd"]["library_ms"]
+    k1 = f32[0]["flash_fwd"]
+    entries["flash_fwd_f32"] = dict(
+        k1, name="flash_fwd_f32", source=WIDE_F32_SOURCE, shape=list(MAIN),
+        x_library=k1["ms"] / k1["library_ms"])
+    entries["flash_bwd_dkdv_f32"] = _entry(
+        "flash_bwd_dkdv_f32", f32[1], f32[0]["flash_bwd"]["plain_ms"],
+        t_sdpa_bwd, flops, nbytes, torch.float32,
+        max(f32_errs[n]["max_abs_err"] for n in ("split_dk", "split_dv")),
+        kernel="flash_bwd_dkdv", source=WIDE_F32_SOURCE, shape=list(MAIN),
+        library_by_backend=f32[4], x_library=f32[1] / t_sdpa_bwd,
+        note="plain_ms: the whole plain combined backward; library_ms: "
+             "SDPA's whole backward in float32")
 
     def timing(es):
         return {n: {k: e[k] for k in ("ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms")}
                 for n, e in es.items()}
+    k3_flops, k3_bytes = split_bounds(MAIN, torch.float32, True)[
+        "flash_bwd_dq"]
+    f32_timing = timing({n: f32[0][n] for n in ("flash_fwd", "flash_bwd")})
+    f32_timing["flash_bwd_dkdv"] = timing(
+        {"k2": entries["flash_bwd_dkdv_f32"]})["k2"]
+    f32_timing["flash_bwd_dq"] = {
+        "ms": f32[2], "bound_ms": bound_ms(k3_flops, k3_bytes,
+                                           torch.float32)[0]}
+    for n, t in f32_timing.items():
+        lib = (f32[0]["flash_fwd"] if n == "flash_fwd"
+               else f32[0]["flash_bwd"])["library_ms"]
+        t["x_sdpa"] = t["ms"] / lib
     emit("kernels", cases=results, shape=list(MAIN), dtype=str(dtype),
-         timing=timing(entries), k2_ms=t_dkdv, k3_ms=t_dq,
+         timing=timing({n: entries[n] for n in ("flash_fwd", "flash_bwd")}),
+         k2_ms=t_dkdv, k3_ms=t_dq,
          sdpa_fwd_ms=lib_fwd, sdpa_bwd_ms=lib_bwd,
-         f32={"timing": timing(f32[0]), "k2_ms": f32[1], "k3_ms": f32[2],
+         f32={"timing": f32_timing, "k2_ms": f32[1], "k3_ms": f32[2],
               "sdpa_fwd_ms": f32[3], "sdpa_bwd_ms": f32[4]},
          note="library_ms: the fastest SDPA backend's forward for K1, its "
               "whole backward (dq, dk, dv) for B2; k2_ms, k3_ms: the split "
               "pair at this shape, which no path gives it (its entries come "
-              "from the split phase); f32: K1 and B2 (and K2, K3) in float32 "
-              "at the same shape, beside SDPA in float32 (bounds at the "
-              "3xTF32 rate, PEAK_FLOPS)")
+              "from the split phase); f32: K1 and K2 (3xTF32 wgmma), B2 and "
+              "K3 (SIMT) in float32 at the same shape, beside SDPA in "
+              "float32 (x_sdpa: ms over SDPA's fastest forward for K1, its "
+              "whole backward for the others; bounds at the 3xTF32 rate, "
+              "PEAK_FLOPS); dq_first_rows: dq's worst over query rows 0-7 "
+              "and the rest apart (the causal first row's dq cancels to 0)")
     return entries
 
 
@@ -590,7 +644,12 @@ def phase_model():
     tokens = torch.from_numpy(rng.randint(0, 512, (2, 257))).cuda()
     inp, tgt = tokens[:, :-1], tokens[:, 1:]
     out = {}
+    torch.cuda.synchronize()
+    A.reset_launches()
     for name, m in (("flash", flash), ("plain", plain)):
+        if name == "plain":
+            torch.cuda.synchronize()
+            launched = dict(A.launches)
         logits = m(inp)
         loss = next_token_loss(logits, tgt)
         loss.backward()
@@ -600,10 +659,17 @@ def phase_model():
     dg = max((out["flash"][2][n] - out["plain"][2][n]).abs().max().item()
              for n in out["flash"][2])
     emit("model", logits_max_abs_err=dl, grad_max_abs_err=dg,
-         loss_flash=out["flash"][1], loss_plain=out["plain"][1])
+         loss_flash=out["flash"][1], loss_plain=out["plain"][1],
+         launches=launched)
     # f32 on both sides: summation order only.
     if dl > 1e-4 or dg > 1e-4:
         fail(f"model path disagrees with the plain path: {dl}, {dg}")
+    # The float32 path's K1 and B2 (2 layers, one step): K1 on its 3xTF32
+    # body.
+    if launched != {"flash_fwd": 2, "flash_bwd": 2, "flash_bwd_dkdv": 0,
+                    "flash_bwd_dq": 0}:
+        fail(f"model path launched {launched}")
+    return launched
 
 
 def phase_train():
@@ -797,7 +863,9 @@ def phase_split():
             shape=list(SPLIT), body=f"horovod_tpu_torch/ops/csrc/{body}",
             note="plain_ms: the whole plain split backward; library_ms: "
                  "SDPA's whole backward")
-    return launched, entries
+    # The float32 split path's launches (65,600 batch-heads): K2 on its
+    # 3xTF32 body.
+    return launched, entries, wide[1]["launches"]
 
 
 def hold_padded(shape, dtype, causal, mode, seed):
@@ -1795,7 +1863,7 @@ def pipeline_kernels():
     """K1 and B2 held against their plain versions at the pipeline's
     micro-batch shape (``check_case``, ``kernel_check``'s rule) and timed
     there: their summary rows at ``PIPE_MICRO``."""
-    errs = check_case(PIPE_MICRO, torch.bfloat16, True)
+    errs = check_case(PIPE_MICRO, torch.bfloat16, True)[0]
     held = {n: e for n, e in errs.items()
             if n in ("o", "lse", "dq", "dk", "dv")}
     if any(e["worst"] > 1.0 for e in held.values()):
@@ -2849,9 +2917,10 @@ def main():
             f.write(f"== {k}\n{v['log']}\n")
 
     entries = phase_kernels()
-    phase_model()
+    f32_launched = {"flash_fwd_f32": phase_model()["flash_fwd"]}
     launched = phase_train()
-    split, split_entries = phase_split()
+    split, split_entries, split_f32 = phase_split()
+    f32_launched["flash_bwd_dkdv_f32"] = split_f32["flash_bwd_dkdv"]
     entries.update(split_entries)
     wide_entries = phase_head_dims()
     ring_entries = phase_ring_kernels()
@@ -2868,9 +2937,12 @@ def main():
     phase_serve_dp(f32_tokens)
     entries.update(ring_entries)
     for name_, e in entries.items():
-        # K2 and K3 run on the split path, every other kernel on the main
-        # path or the ring path.
+        # K2 and K3 run on the split path, the f32 rows on the float32
+        # paths (the model phase's, the split phase's at 65,600
+        # batch-heads), every other kernel on the main path or the ring
+        # path.
         e["launches"] = (split if name_ in ("flash_bwd_dkdv", "flash_bwd_dq")
+                         else f32_launched if name_ in f32_launched
                          else launched)[name_]
     for name_ in ("flash_fwd", "flash_bwd"):
         entries[name_]["launches_train_dp_per_rank"] = dp_launched[name_]

@@ -27,8 +27,13 @@ Counterpart of ``horovod_tpu/ops/attention.py``.  Layout convention:
   O's and the gradients' columns split across blocks) on the head dim
   zero-padded to a multiple of 32: in fp16 and bf16 on wgmma and TMA
   (``csrc/flash_wide_sm90.cuh``), in f32 K1 and K2 on 3xTF32 wgmma and
-  TMA (``csrc/flash_wide_f32_sm90.cuh``) and K3 on SIMT.  Any other CUDA
-  input the kernels cannot take raises; nothing falls back.
+  TMA (``csrc/flash_wide_f32_sm90.cuh``) and K3 on SIMT.  In f32 at
+  every head dim up to 256 K1 and K2 run those 3xTF32 bodies too (their
+  window the whole head dim up to 128, two column blocks at 256), while
+  B2 and K3 keep their SIMT bodies: a tensor-core dq would not meet the
+  f32 rule at the causal first query row, where dP - delta cancels.
+  Any other CUDA input the kernels cannot take raises; nothing falls
+  back.
 
 The plain versions multiply in float32 on operands rounded to the storage
 dtype — the reference's ``preferred_element_type=float32`` — so f32 matmul
@@ -81,19 +86,21 @@ _WIDE_WINDOW_PANELS = {"flash_fwd": 4, "flash_bwd_dkdv": 3,
                        "flash_bwd_dq": 4}
 _WIDE_F32_WINDOW_PANELS = {"flash_fwd": 4, "flash_bwd_dkdv": 4}
 # Key tile of each forward body per head dim, as in the CUDA sources: the
-# 16-bit wgmma body (csrc/flash_fwd_sm90.cuh, key_tile) and the f32 SIMT
-# body (csrc/flash_common.cuh, f32_tile).  The online softmax advances its
-# running max one key tile at a time and p is rounded against it, so the
-# plain side that holds a kernel scans keys in the same blocks.
-_FWD_KEY_TILE = {d: {"16-bit": 128 if d <= 64 else 64,
-                     "f32": 64 if d <= 128 else 32}
+# 16-bit wgmma body (csrc/flash_fwd_sm90.cuh, key_tile) and in f32 K1's
+# 3xTF32 body (csrc/flash_wide_f32_sm90.cuh, F32_FWD_KEYS), the same 64
+# keys as K4's SIMT body (csrc/flash_common.cuh, f32_tile) up to 128, the
+# head dims K4 takes.  The online softmax advances its running max one key
+# tile at a time and p is rounded against it, so the plain side that holds
+# a kernel scans keys in the same blocks.
+_FWD_KEY_TILE = {d: {"16-bit": 128 if d <= 64 else 64, "f32": 64}
                  for d in _SPLIT_HEAD_DIMS}
 
 
 # Key tile of each backward body per head dim and mode: B2/K5's 16-bit
 # body (csrc/flash_bwd_sm90.cuh, sm90::BWD_BN), K3's (csrc/flash_dq_sm90.cuh,
-# dq_key_tile) and the f32 SIMT bodies (csrc/flash_common.cuh, f32_tile).
-# The combined mode has no body at the wide head dim.
+# dq_key_tile) and the f32 SIMT bodies of B2 and K3 (csrc/flash_common.cuh,
+# f32_tile; K2's 64 keys a CTA change no sum).  The combined mode has no
+# body at the wide head dim.
 _BWD_KEY_TILE = {d: {"combined": {"16-bit": 128, "f32": 64},
                      "split": {"16-bit": 64, "f32": 64}}
                  for d in HEAD_DIMS}
@@ -125,7 +132,8 @@ def wide_tensor_core_flops(name: str, d: int, dtype=torch.bfloat16) -> int:
     output products over its window of W = 32 NP columns (K1's P V: 2 W;
     K2's dV and dK: 4 W; K3's dQ: 2 W).  Against the caller's 4 d (K1), 8 d
     (K2) and 6 d (K3) it is the recompute the column split costs.  In
-    float32 every product is three TF32 products (3xTF32), and K3 has no
+    float32 every product is three TF32 products (3xTF32), K1's P V four
+    (V's rest too: o = v exactly where p is one key's 1), and K3 has no
     tensor-core body (SIMT)."""
     body = padded_head_dim(d)
     if body <= WIDE_HEAD_DIM:
@@ -139,8 +147,10 @@ def wide_tensor_core_flops(name: str, d: int, dtype=torch.bfloat16) -> int:
     score, out = {"flash_fwd": (2, 2), "flash_bwd_dkdv": (4, 4),
                   "flash_bwd_dq": (4, 2)}[name]
     column_ctas = -(-(body // WIDE_CHUNK) // panels)
-    return ((3 if f32 else 1) * column_ctas
-            * (score * body + out * panels * WIDE_CHUNK))
+    if not f32:
+        return column_ctas * (score * body + out * panels * WIDE_CHUNK)
+    pv = 4 if name == "flash_fwd" else 3
+    return column_ctas * (3 * score * body + pv * out * panels * WIDE_CHUNK)
 
 
 def _key_tiles(d: int) -> dict:
@@ -167,12 +177,12 @@ def bwd_key_tile(mode: str, dtype, d: int) -> int:
     in 16 bits, 128 for the combined body of B2 and K5
     (csrc/flash_bwd_sm90.cuh, sm90::BWD_BN) and, for the split pair, K3's
     key tile, the one its dq sums over (csrc/flash_dq_sm90.cuh,
-    ``dq_key_tile``); 64 for the f32 SIMT bodies (csrc/flash_common.cuh,
-    f32_tile) of both modes, 32 at head dim 256; 64 above 256, K3's wide
-    bodies' (csrc/flash_wide_sm90.cuh, DQ_KEYS, in 16 bits;
-    csrc/flash_wide.cu, TK, in f32).  A plain side
-    that holds a kernel walks the keys in the kernel's key tiles, so dq
-    sums in the same blocks.  The combined mode stops at head dim 128, as :func:`bwd_mode`
+    ``dq_key_tile``); 64 for the f32 SIMT bodies of B2 and K3
+    (csrc/flash_common.cuh, f32_tile), 32 at head dim 256; 64 above
+    256, K3's wide bodies' (csrc/flash_wide_sm90.cuh, DQ_KEYS, in 16 bits;
+    csrc/flash_wide.cu, TK, in f32).  A plain side that holds a kernel
+    walks the keys in the kernel's key tiles, so dq sums in the same
+    blocks.  The combined mode stops at head dim 128, as :func:`bwd_mode`
     does."""
     if mode not in ("combined", "split"):
         raise ValueError(f"unknown backward mode {mode!r}")
@@ -653,11 +663,11 @@ def flash_attention(q, k, v, causal: bool = False,
     mathematically identical :func:`blockwise_attention`.  ``block_q`` and
     ``block_k`` are accepted for API parity with the JAX package and
     ignored: the kernels fix their own tiles (the forward 128 query rows
-    by 128 keys in 16 bits, 64 keys above head_dim 64, and 64 by 64 in
+    by 128 keys in 16 bits, 64 keys above head_dim 64, and 128 by 64 in
     float32, :func:`fwd_key_tile`; the backward :func:`bwd_key_tile`; 64
-    query rows and 32 x 32 f32 tiles at head_dim 256; above 256, 128
-    query rows by 128 keys in 16 bits and by 64 in float32, with at
-    most 128 output columns per block).
+    query rows at head_dim 256 in 16 bits, 32 x 32 tiles for the f32 K3;
+    above 256, 128 query rows by 128 keys in 16 bits and by 64 in
+    float32, with at most 128 output columns per block).
     """
     del block_q, block_k
     if layout not in ("bhsd", "bshd"):

@@ -69,9 +69,11 @@
 //   warpgroups compute S^T and dP^T over the whole head dim, and each
 //   accumulates its 128 columns of dK and dV, the registers of head dim
 //   128; two (q', dO) stages of 64 KB: (K, V) + 2 stages, 64 + 128 KB.
-// * f32 inputs: the SIMT body of the first port (scalar FMAs in full f32,
-//   no tensor-core path keeps f32 to 1e-4), one 64-key tile per 128-thread
-//   block through shared memory, dQ by scalar atomicAdd.
+// * f32 inputs (B2, K5; K2's f32 body is flash_wide_f32_sm90.cuh's): the
+//   SIMT body of the first port (scalar FMAs in full f32: a tensor-core dq
+//   sums dP in another order than the plain side and misses the f32 rule
+//   at the causal first query row, ROADMAP C), one 64-key tile per
+//   128-thread block through shared memory, dQ by scalar atomicAdd.
 //
 // A CTA whose keys no query row sees (a causal ring step whose held keys
 // all lie in the queries' future) issues no load and waits on no barrier:
@@ -485,7 +487,7 @@ struct F32BwdSmem {
   static constexpr size_t delta = lse + BM * sizeof(float);
   static constexpr size_t bytes = delta + BM * sizeof(float);
   // bwd_ktile_f32 (B2, K5: head dims to 128) stages its outputs in S and
-  // dP; the split pair's f32 kernels store theirs from registers.
+  // dP; K3's f32 kernel stores dq from registers.
   static_assert(D > 128 || BM * LDO <= 2 * BM * LDS,
                 "staging does not fit S and dP");
 };

@@ -27,13 +27,18 @@
 //   one 384-thread CTA per 128-row query tile, heavy (late) query tiles
 //   first, dQ in f32 registers, scaled by the pow2 factor and cast once.
 //   Their notes give the designs.
-// * f32 inputs: the SIMT kernels of the first port (scalar FMAs in full
-//   f32, no tensor-core path keeps f32 to 1e-4), one 64-row tile per
-//   128-thread block staged through shared memory (F32BwdSmem's layout).
+// * f32 inputs: K2 is the 3xTF32 wgmma body of flash_wide_f32_sm90.cuh
+//   (wide32::dkdv_tile, the one above 256 runs; its note gives the
+//   design): 64 keys a CTA, 32-row query steps, a window of the whole
+//   head dim up to 128 (d / 32 panels) and two column CTAs of 4 panels at
+//   256.  K3 is the SIMT kernel of the first port (scalar FMAs in full
+//   f32), one 64-row tile per 128-thread block staged through shared
+//   memory (F32BwdSmem's layout): a tensor-core dq meets dP - delta's
+//   cancellation at the causal first rows (ROADMAP C).
 //
 // Head dims 32, 64, 96, 128 and 256: at 256 both 16-bit bodies split the
 // output's columns between their consumer warpgroups (64-key and 64-row
-// CTAs, two stages), and the f32 kernels take 32 x 32 tiles.
+// CTAs, two stages), and the f32 K3 takes 32 x 32 tiles.
 //
 // Grids are 1-D, (tiles x bh) blocks, each block decoding its head and
 // tile from blockIdx.x, so any batch-head count launches (a grid's y and
@@ -42,6 +47,7 @@
 
 #include "flash_bwd_sm90.cuh"
 #include "flash_dq_sm90.cuh"
+#include "flash_wide_f32_sm90.cuh"
 
 namespace hvdt {
 
@@ -82,15 +88,15 @@ __global__ void __launch_bounds__(sm90::NTHREADS, 1)
 }
 
 // ---------------------------------------------------------------------------
-// The f32 kernels: 128 threads, square tiles of f32_tile<D>() rows (64; 32
+// K3's f32 kernel: 128 threads, square tiles of f32_tile<D>() rows (64; 32
 // at head dim 256) through shared memory.
 // ---------------------------------------------------------------------------
 
-// Recompute P and dS for one (query tile q0, key tile k0) pair.  Reads the
-// f32 logits in S and dP, writes p into Ps when WANT_P and ds into dSs.
-template <int D, bool WANT_P>
+// Recompute dS for one (query tile q0, key tile k0) pair from the f32
+// logits in S and dP into dSs.
+template <int D>
 __device__ __forceinline__ void softmax_grad(const float* S, const float* dP,
-                                             float* Ps, float* dSs,
+                                             float* dSs,
                                              const float* lse_s,
                                              const float* delta_s, int q0,
                                              int k0, int sk, float scale_r,
@@ -102,7 +108,6 @@ __device__ __forceinline__ void softmax_grad(const float* S, const float* dP,
     float x = S[r * L::LDS + c] * scale_r;
     if (kpos >= sk || (causal && kpos > qpos)) x = NEG_INF;
     const float p = expf(x - lse_s[r]);  // POS_BIG lse zeroes empty rows
-    if (WANT_P) Ps[r * L::LDP + c] = p;
     dSs[r * L::LDP + c] = p * (dP[r * L::LDS + c] - delta_s[r]) * scale_r;
   }
 }
@@ -117,74 +122,6 @@ __device__ __forceinline__ void load_rowstats(float* lse_s, float* delta_s,
     lse_s[threadIdx.x] = r < sq ? lse[r] : POS_BIG;
     delta_s[threadIdx.x] = r < sq ? delta[r] : 0.f;
   }
-}
-
-template <int D>
-__global__ void __launch_bounds__(NT)
-    flash_bwd_dkdv_f32_kernel(const float* __restrict__ q,
-                              const float* __restrict__ k,
-                              const float* __restrict__ v,
-                              const float* __restrict__ dout,
-                              const float* __restrict__ lse,
-                              const float* __restrict__ delta,
-                              float* __restrict__ dk, float* __restrict__ dv,
-                              int bh_total, int sq, int sk, float scale_r,
-                              int causal) {
-  using T = float;
-  using L = F32BwdSmem<D>;
-  constexpr int BM = L::BM, BN = L::BN;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* Ks = reinterpret_cast<T*>(smem + L::a);
-  T* Vs = reinterpret_cast<T*>(smem + L::b);
-  T* Qs = reinterpret_cast<T*>(smem + L::c);
-  T* dOs = reinterpret_cast<T*>(smem + L::d);
-  float* S = reinterpret_cast<float*>(smem + L::s);
-  float* dP = reinterpret_cast<float*>(smem + L::dp);
-  T* Ps = reinterpret_cast<T*>(smem + L::p);
-  T* dSs = reinterpret_cast<T*>(smem + L::ds);
-  float* lse_s = reinterpret_cast<float*>(smem + L::lse);
-  float* delta_s = reinterpret_cast<float*>(smem + L::delta);
-
-  // Heavy (early, under a causal mask) key tiles first.
-  const int k0 = (blockIdx.x / bh_total) * BN;
-  const size_t bh = blockIdx.x % bh_total;
-  q += bh * sq * D;
-  dout += bh * sq * D;
-  k += bh * sk * D;
-  v += bh * sk * D;
-  dk += bh * sk * D;
-  dv += bh * sk * D;
-  lse += bh * sq;
-  delta += bh * sq;
-
-  load_tile<D, BN>(Ks, L::LDT, k, k0, sk);
-  load_tile<D, BN>(Vs, L::LDT, v, k0, sk);
-  Acc<BN, D> dK, dV;
-  dK.zero();
-  dV.zero();
-
-  const int n_qt = (sq + BM - 1) / BM;
-  // Causal: query tiles that end before this key tile starts see none of
-  // it (reference: `q_start + block_q - 1 >= k_start`).
-  const int qt0 = causal ? k0 / BM : 0;
-  for (int qt = qt0; qt < n_qt; ++qt) {
-    const int q0 = qt * BM;
-    __syncthreads();
-    load_tile<D, BM>(Qs, L::LDT, q, q0, sq);
-    load_tile<D, BM>(dOs, L::LDT, dout, q0, sq);
-    load_rowstats<BM>(lse_s, delta_s, lse, delta, q0, sq);
-    __syncthreads();
-    mm_smem<BM, BN, D, true, false>(S, L::LDS, Qs, L::LDT, Ks, L::LDT);
-    mm_smem<BM, BN, D, true, false>(dP, L::LDS, dOs, L::LDT, Vs, L::LDT);
-    __syncthreads();
-    softmax_grad<D, true>(S, dP, Ps, dSs, lse_s, delta_s, q0, k0, sk,
-                          scale_r, causal);
-    __syncthreads();
-    dV.template mma<BM, true>(Ps, L::LDP, dOs, L::LDT);   // P^T dO
-    dK.template mma<BM, true>(dSs, L::LDP, Qs, L::LDT);   // dS^T Q
-  }
-  dK.store_rows(dk, k0, sk, 1.f);
-  dV.store_rows(dv, k0, sk, 1.f);
 }
 
 template <int D>
@@ -241,8 +178,8 @@ __global__ void __launch_bounds__(NT)
     mm_smem<BM, BN, D, true, false>(S, L::LDS, Qs, L::LDT, Ks, L::LDT);
     mm_smem<BM, BN, D, true, false>(dP, L::LDS, dOs, L::LDT, Vs, L::LDT);
     __syncthreads();
-    softmax_grad<D, false>(S, dP, nullptr, dSs, lse_s, delta_s, q0, k0, sk,
-                           scale_r, causal);
+    softmax_grad<D>(S, dP, dSs, lse_s, delta_s, q0, k0, sk, scale_r,
+                    causal);
     __syncthreads();
     dQ.template mma<BN, false>(dSs, L::LDP, Ks, L::LDT);  // dS K
   }
@@ -266,11 +203,8 @@ int prepare_split() {
   constexpr auto attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
   int e;
   if constexpr (f32) {
-    e = (int)cudaFuncSetAttribute(flash_bwd_dkdv_f32_kernel<D>, attr,
+    e = (int)cudaFuncSetAttribute(flash_bwd_dq_f32_kernel<D>, attr,
                                   (int)F32BwdSmem<D>::bytes);
-    if (e == 0)
-      e = (int)cudaFuncSetAttribute(flash_bwd_dq_f32_kernel<D>, attr,
-                                    (int)F32BwdSmem<D>::bytes);
   } else {
     e = (int)cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, D>, attr,
                                   (int)sm90::BwdSmem<D, false>::bytes);
@@ -287,17 +221,13 @@ int launch_dkdv(const void* q, const void* k, const void* v,
                 const void* dout, const float* lse, const float* delta,
                 void* dk, void* dv, int bh, int sq, int sk, float scale_r,
                 int causal, cudaStream_t stream) {
-  const int prep = prepare_split<T, D>();
-  if (prep != 0) return prep;
   if constexpr (std::is_same<T, float>::value) {
-    const int blocks = ((sk + f32_tile<D>() - 1) / f32_tile<D>()) * bh;
-    flash_bwd_dkdv_f32_kernel<D><<<blocks, NT, F32BwdSmem<D>::bytes,
-                                   stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-        delta, static_cast<float*>(dk), static_cast<float*>(dv), bh, sq, sk,
-        scale_r, causal);
+    return wide32::launch_dkdv<wide32::window_panels<D>()>(
+        q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, D, scale_r, causal,
+        stream);
   } else {
+    const int prep = prepare_split<T, D>();
+    if (prep != 0) return prep;
     CUtensorMap m[4];
     const int e =
         sm90::make_bwd_maps<T, D>(m, q, dout, k, v, nullptr, bh, sq, sk);

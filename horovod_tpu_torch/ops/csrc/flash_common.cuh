@@ -1,12 +1,12 @@
 // Shared pieces of the flash-attention kernels (flash_fwd.cu, flash_bwd.cu,
 // flash_bwd_split.cu, ring_flash.cu).
 //
-// The f32 bodies (the 16-bit ones are the *_sm90.cuh headers'): one thread
-// block of four warps owns one 64-row tile of one (batch*head) row and
-// walks its own loop over the other sequence axis.  Operand tiles are
-// staged through shared memory; every product is a scalar FMA in full
-// f32 (the card's TF32 tensor-core path would keep only ~3 decimal
-// digits).
+// The SIMT f32 bodies of B2, K3, K4 and K5 (K1's and K2's f32 bodies are
+// the 3xTF32 ones of flash_wide_f32_sm90.cuh, the 16-bit ones the
+// *_sm90.cuh headers'): one thread block of four warps owns one 64-row
+// tile of one (batch*head) row and walks its own loop over the other
+// sequence axis.  Operand tiles are staged through shared memory; every
+// product is a scalar FMA in full f32.
 //
 // Sentinels follow the reference (horovod_tpu/ops/attention.py): masked
 // logits are NEG_INF = -1e30 instead of -inf so exp() never sees

@@ -51,9 +51,9 @@
 //   64-key tiles; S is computed twice per key tile (1.5x the products of
 //   one pass), and every Q, K and V tile in shared memory serves both
 //   warpgroups.  Shared memory: Q + 2 stages of K and V, 32 + 128 KB.
-// * f32 inputs: a SIMT body with scalar FMAs in full f32 (no tensor-core
-//   path keeps f32 to 1e-4), 64 x 64 tiles through shared memory (32 x 32
-//   at head dim 256).
+// * f32 inputs (K4; K1's f32 runs the 3xTF32 wgmma body of
+//   flash_wide_f32_sm90.cuh): a SIMT body with scalar FMAs in full f32,
+//   64 x 64 tiles through shared memory.
 //
 // Semantics of the reference (horovod_tpu/ops/attention.py:320-335):
 // masked logits are NEG_INF, m_safe keeps rows with no key so far at zero

@@ -267,8 +267,9 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o,
     return wide90::launch_fwd<T>(q, k, v, o, lse, bh, sq, sk, d, scale_r,
                                  causal, stream);
   else
-    return wide32::launch_fwd(q, k, v, o, lse, bh, sq, sk, d, scale_r,
-                              causal, stream);
+    return wide32::launch_fwd<wide32::F32_FWD_NP>(q, k, v, o, lse, bh, sq,
+                                                  sk, d, scale_r, causal,
+                                                  stream);
 }
 
 template <typename T>
@@ -280,8 +281,9 @@ int launch_dkdv(const void* q, const void* k, const void* v, const void* dout,
     return wide90::launch_dkdv<T>(q, k, v, dout, lse, delta, dk, dv, bh, sq,
                                   sk, d, scale_r, causal, stream);
   else
-    return wide32::launch_dkdv(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk,
-                               d, scale_r, causal, stream);
+    return wide32::launch_dkdv<wide32::F32_DKDV_NP>(
+        q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, d, scale_r, causal,
+        stream);
 }
 
 template <typename T>

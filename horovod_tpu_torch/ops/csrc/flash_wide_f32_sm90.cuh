@@ -1,16 +1,24 @@
-// K1 and K2 above head dim 256 in float32, for Hopper (sm_90a): the 3xTF32
-// wgmma and TMA wide bodies of the flash forward (flash_fwd_wide) and of
-// the split backward's dK/dV half (flash_bwd_dkdv_wide).  flash_wide.cu
-// launches them for f32; K3's f32 body stays SIMT there.
+// K1 and K2 in float32 at every head dim, for Hopper (sm_90a): the 3xTF32
+// wgmma and TMA bodies of the flash forward and of the split backward's
+// dK/dV half.  flash_fwd.cu (flash_fwd) and flash_bwd_split.cu
+// (flash_bwd_dkdv) launch them for f32 at head dims 32, 64, 96, 128 and
+// 256, flash_wide.cu (flash_fwd_wide, flash_bwd_dkdv_wide) above 256.
+// B2's and K3's f32 bodies stay SIMT (flash_bwd_sm90.cuh, flash_wide.cu):
+// under a causal mask dq at query row 0 is a rounding residue of dP -
+// delta that only the plain side's own summation order reproduces within
+// the f32 rule (ROADMAP C).
 //
 // They replace the Pallas TPU kernels `_flash_kernel`
 // (horovod_tpu/ops/attention.py:356, pallas_call :1047) and
 // `_flash_bwd_dkdv_kernel` (:429, pallas_call :914, math in
-// `_bwd_block_math` :386) in float32 at head dims above 256.  Semantics as
-// flash_wide.cu's note and the reference's: masked logits NEG_INF, m_safe
-// and alpha rescaling, l summed over the unrounded p, lse = POS_BIG and
-// o = 0 for rows with no key, dK and dV summed and stored in f32, a ragged
-// tail zero-filled and masked, any multiple of 32 above 256.
+// `_bwd_block_math` :386) in float32.  Semantics as flash_wide.cu's note
+// and the reference's: masked logits NEG_INF, m_safe and alpha rescaling,
+// l summed over the unrounded p, lse = POS_BIG and o = 0 for rows with no
+// key, dK and dV summed and stored in f32, a ragged tail zero-filled and
+// masked, any multiple of 32.  A CTA computes a window of NP output panels
+// (a template parameter, window_panels): the whole head dim up to 128
+// (NP = d / 32, one column CTA, so nothing is recomputed), 4 panels above
+// (two column CTAs at 256).
 //
 // Precision.  One TF32 product keeps 10 mantissa bits of each operand and
 // misses the f32 rule (kernel_check, rtol 1e-4) by 30x and more; three
@@ -28,7 +36,13 @@
 // 0.46 (o) and 0.70 (dk) at head dim 1024.  So S (K2: S^T and dP^T) is
 // summed per 32-column chunk (12 steps) in fresh accumulators and added
 // into its running sum in f32 registers, which reads 0.15-0.18
-// (tools/torch_split_variants.py --family wide_f32 A/Bs both).
+// (tools/torch_split_variants.py --family wide_f32 A/Bs both).  K1's P V
+// takes a fourth product, P's hi against V's rest (split3: V = hi + lo +
+// lo2 exactly), so that a row whose p is one key's 1 (a causal first row)
+// gets o = v exactly, as f32 does: three products leave o off v by up to
+// 2^-22, and the caller's delta = dO . o then misses dP = dO . v at that
+// row by more than dq's limit allows (1.1 of the rule at 32 x 1024 x 64,
+// CPU emulation; 0.06 with the fourth product).
 //
 // Bound on the card: by operations at every shape the callers use, at the
 // TF32 peak over three products (494.7 / 3 TFLOP/s): K1 4 d FLOP per
@@ -59,12 +73,12 @@
 //  4. Shared memory: f32 tiles are twice the bytes of 16-bit ones and
 //     every B operand needs its lo twin.  Tiles sit as panels of 32
 //     columns, 128-byte rows, 128-byte swizzle (TMA's F32 map,
-//     sm90_common.cuh).  K1: 3 stages of (q' 16 KB, K 8 KB, K lo 8 KB) +
-//     the raw V window 32 KB + V^T hi and lo 64 KB = 192 KB.  K2: 2
-//     stages of (K 8, V 8, q' 4, dO 4, their lo twins 8) KB + the raw
-//     (q', dO) window of 32 KB with its lse / delta + q'^T and dO^T hi
-//     and lo 64 KB + the two warpgroups' halves of S^T and dP^T 32 KB =
-//     193 KB.
+//     sm90_common.cuh).  K1 at NP = 4: 3 stages of (q' 16 KB, K 8 KB, K
+//     lo 8 KB) + the raw V window 32 KB + V^T hi, lo and lo2 96 KB = 224
+//     KB (144 KB at NP = 2, head dim 64).  K2 at NP = 4: 2 stages of (K
+//     8, V 8, q' 4, dO 4, their lo twins 8) KB + the raw (q', dO) window
+//     of 32 KB with its lse / delta + q'^T and dO^T hi and lo 64 KB + the
+//     two warpgroups' halves of S^T and dP^T 32 KB = 193 KB.
 //  5. Registers (ptxas holds 288-thread CTAs to 168 a thread): K1 keeps O
 //     (64 rows x 128 columns: 64 a thread) beside S and a chunk's S (32
 //     each) and then P's hi and lo fragments two 8-key slices at a time
@@ -75,10 +89,14 @@
 //     4-panel window, for all 64 keys of the CTA: K2's two warpgroups
 //     each sum S^T and dP^T over half the head-dim chunks and add the
 //     halves through shared memory, so S is computed once per 4-panel
-//     window in both.  S recompute per row ceil(d / 128) times:
-//     3 ceil(d / 128) (2 d + 256) TF32 FLOP per pair in K1 (6.5x the
-//     caller's 4 d at 288, 7.5x at 512) and 3 ceil(d / 128) (4 d + 512)
-//     in K2 (6.5x, 7.5x the caller's 8 d).
+//     window in both.  Below 4 panels everything shrinks with the window
+//     (O 16 NP a thread; dK, dV 8 NP each).  S recompute per row
+//     ceil(d / 128) times: ceil(d / 128) (6 d + 8 W) TF32 FLOP per pair in
+//     K1 (W = 32 NP, the window's columns; 3.5x the caller's 4 d up to
+//     128, 7.0x at 288, 8.0x at 512) and 3 ceil(d / 128) (4 d + 4 W) in K2
+//     (3x the caller's 8 d up to 128, 6.5x, 7.5x at 288, 512).  ptxas
+//     (PERF.md): K1 126 / 141 / 160 / 168 registers at NP 1-4, K2 160 /
+//     168 / 168 / 168, only K2 at NP = 4 spilling (76 B).
 //
 // Every CTA of a tile runs the same products in the same chunk order, so
 // the column CTAs agree bit for bit on m and l and only the first writes
@@ -134,6 +152,13 @@ __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   hi = tf32(x);
   lo = tf32(x - __uint_as_float(hi));
 }
+// x = hi + lo + lo2 exactly, all three TF32 (x - hi - lo has at most 3
+// significant bits, so lo2 is exact).
+__device__ __forceinline__ void split3(float x, uint32_t& hi, uint32_t& lo,
+                                       uint32_t& lo2) {
+  split(x, hi, lo);
+  lo2 = tf32(x - __uint_as_float(hi) - __uint_as_float(lo));
+}
 
 // wgmma descriptor of a K-major operand in 128-byte-swizzle panels: rows
 // of 128 B, 8-row groups 1024 B apart (stride), leading offset unused.
@@ -186,23 +211,27 @@ __device__ __forceinline__ void split_tile(unsigned char* hi,
 // rows are the columns, positions run along K in panels of 32 (128-byte
 // swizzle), slot p of each 8 holding position 2 p (p < 4) or 2 (p - 4) + 1
 // (the accumulators' order of P and dS).  A warp takes 32 columns of one
-// raw panel and one group of 8 positions.
+// raw panel and one group of 8 positions.  With `lo2`, the rest x - hi -
+// lo too, rounded to TF32: hi + lo + lo2 is x exactly.
 template <int ROWS, int NPW>
 __device__ __forceinline__ void stage_transposed(const unsigned char* raw,
                                                  unsigned char* hi,
-                                                 unsigned char* lo) {
+                                                 unsigned char* lo,
+                                                 unsigned char* lo2 =
+                                                     nullptr) {
   constexpr int COLS = NPW * F32_PANEL;
   constexpr uint32_t RAW_PANEL = ROWS * ROW_BYTES;
   constexpr uint32_t T_PANEL = COLS * ROW_BYTES;
   for (int it = threadIdx.x; it < COLS * (ROWS / 8); it += 256) {
     const int n = it % COLS, grp = it / COLS;
     const unsigned char* src = raw + (n / F32_PANEL) * RAW_PANEL;
-    uint32_t h[8], l[8];
+    uint32_t h[8], l[8], l2[8];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const float x = *reinterpret_cast<const float*>(
           src + sw128(8 * grp + j, n % F32_PANEL));
-      split(x, h[(j >> 1) + 4 * (j & 1)], l[(j >> 1) + 4 * (j & 1)]);
+      const int slot = (j >> 1) + 4 * (j & 1);
+      split3(x, h[slot], l[slot], l2[slot]);
     }
     const uint32_t at = (grp / 4) * T_PANEL + sw128(n, 8 * (grp % 4));
     const uint32_t at4 = (grp / 4) * T_PANEL + sw128(n, 8 * (grp % 4) + 4);
@@ -210,6 +239,12 @@ __device__ __forceinline__ void stage_transposed(const unsigned char* raw,
     *reinterpret_cast<uint4*>(hi + at4) = make_uint4(h[4], h[5], h[6], h[7]);
     *reinterpret_cast<uint4*>(lo + at) = make_uint4(l[0], l[1], l[2], l[3]);
     *reinterpret_cast<uint4*>(lo + at4) = make_uint4(l[4], l[5], l[6], l[7]);
+    if (lo2 != nullptr) {
+      *reinterpret_cast<uint4*>(lo2 + at) =
+          make_uint4(l2[0], l2[1], l2[2], l2[3]);
+      *reinterpret_cast<uint4*>(lo2 + at4) =
+          make_uint4(l2[4], l2[5], l2[6], l2[7]);
+    }
   }
 }
 
@@ -234,6 +269,7 @@ __device__ __forceinline__ void split_acc(const float (&x)[N], int i,
   split(x[4 * i + 3], hi[3], lo[3]);
 }
 
+template <int NP>
 struct FwdSmem {
   static constexpr uint32_t Q_PANEL = F32_FWD_ROWS * ROW_BYTES;  // 16 KB
   static constexpr uint32_t K_PANEL = F32_FWD_KEYS * ROW_BYTES;  // 8 KB
@@ -242,15 +278,16 @@ struct FwdSmem {
   static constexpr uint32_t A_K = A_Q + Q_PANEL;
   static constexpr uint32_t A_KLO = A_K + K_PANEL;
   static constexpr uint32_t A_BYTES = A_KLO + K_PANEL;
-  static constexpr uint32_t V_BYTES = F32_FWD_NP * K_PANEL;  // raw window
-  // V^T: the window's 128 columns x 64 keys in two 32-key panels.
-  static constexpr uint32_t VT_PANEL = F32_FWD_NP * F32_PANEL * ROW_BYTES;
+  static constexpr uint32_t V_BYTES = NP * K_PANEL;  // raw window
+  // V^T: the window's 32 NP columns x 64 keys in two 32-key panels.
+  static constexpr uint32_t VT_PANEL = NP * F32_PANEL * ROW_BYTES;
   static constexpr uint32_t VT_BYTES = (F32_FWD_KEYS / F32_PANEL) * VT_PANEL;
   static constexpr uint32_t a = 0;
   static constexpr uint32_t v = a + F32_FWD_STAGES * A_BYTES;
   static constexpr uint32_t vt_hi = v + V_BYTES;
   static constexpr uint32_t vt_lo = vt_hi + VT_BYTES;
-  static constexpr uint32_t bars = vt_lo + VT_BYTES;
+  static constexpr uint32_t vt_lo2 = vt_lo + VT_BYTES;
+  static constexpr uint32_t bars = vt_lo2 + VT_BYTES;
   // a_full, a_empty [F32_FWD_STAGES], v_full, v_empty
   static constexpr uint32_t N_BARS = 2 * F32_FWD_STAGES + 2;
   // + 1024: the dynamic base is aligned up to the swizzle pattern.
@@ -258,16 +295,18 @@ struct FwdSmem {
 };
 
 // K1: o's own columns and (column CTA 0) lse of query rows [q0, q0 +
-// F32_FWD_ROWS) of head bh.  mq: map of q' (bh, sq, d), boxes of
-// F32_FWD_ROWS rows; mk, mv: k, v (bh, sk, d), boxes of F32_FWD_KEYS rows.
+// F32_FWD_ROWS) of head bh, over a window of NP panels.  mq: map of q'
+// (bh, sq, d), boxes of F32_FWD_ROWS rows; mk, mv: k, v (bh, sk, d), boxes
+// of F32_FWD_KEYS rows.
+template <int NP>
 __device__ __forceinline__ void fwd_tile(const CUtensorMap* mq,
                                          const CUtensorMap* mk,
                                          const CUtensorMap* mv, float* o,
                                          float* lse, int bh, int cc, int q0,
                                          int sq, int sk, int d,
                                          float scale_r, int causal) {
-  using L = FwdSmem;
-  constexpr int BN = F32_FWD_KEYS, NP = F32_FWD_NP, CW = NP * F32_PANEL;
+  using L = FwdSmem<NP>;
+  constexpr int BN = F32_FWD_KEYS, CW = NP * F32_PANEL;
   constexpr int STAGES = F32_FWD_STAGES;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -444,11 +483,14 @@ __device__ __forceinline__ void fwd_tile(const CUtensorMap* mq,
       // V^T of the window, hi and lo, from the raw V tile.
       mbar_wait(v_full, kt & 1);
       stage_transposed<BN, NP>(gbase + L::v, gbase + L::vt_hi,
-                               gbase + L::vt_lo);
+                               gbase + L::vt_lo, gbase + L::vt_lo2);
       consumers_sync();
       mbar_arrive_if(v_empty, tid == 0);
       // O += P V over the CTA's window, P split into its hi / lo A
-      // fragment one 8-key slice at a time, two slices in flight.
+      // fragment one 8-key slice at a time, two slices in flight; the
+      // fourth product, P's hi against V's second lo, makes o = v exactly
+      // where p = 1 (a causal first row), as in f32: else delta = dO . o
+      // there misses dP = dO . v by more than dq's limit allows.
       pin(acc);
       uint32_t ph[2][4], pl[2][4];
 #pragma unroll
@@ -457,10 +499,12 @@ __device__ __forceinline__ void fwd_tile(const CUtensorMap* mq,
         const uint32_t kp = (j / 4) * L::VT_PANEL + (j % 4) * 32;
         const uint64_t vh = desc128(base + L::vt_hi + kp);
         const uint64_t vl = desc128(base + L::vt_lo + kp);
+        const uint64_t vl2 = desc128(base + L::vt_lo2 + kp);
         wg_fence();
         Wgmma<CW, float>::rs(acc, ph[j % 2], vh, 1);
         Wgmma<CW, float>::rs(acc, ph[j % 2], vl, 1);
         Wgmma<CW, float>::rs(acc, pl[j % 2], vh, 1);
+        Wgmma<CW, float>::rs(acc, ph[j % 2], vl2, 1);
         wg_commit();
         wg_wait<1>();
       }
@@ -495,6 +539,7 @@ __device__ __forceinline__ void fwd_tile(const CUtensorMap* mq,
   }
 }
 
+template <int NP>
 struct DkdvSmem {
   static constexpr uint32_t K_PANEL = F32_DKDV_KEYS * ROW_BYTES;  // 8 KB
   static constexpr uint32_t Q_PANEL = F32_DKDV_ROWS * ROW_BYTES;  // 4 KB
@@ -507,10 +552,11 @@ struct DkdvSmem {
   static constexpr uint32_t A_QLO = A_DO + Q_PANEL;
   static constexpr uint32_t A_BYTES = A_QLO + 2 * Q_PANEL;
   // Stage s of the column ring: the window's raw q', then dO panels.
-  static constexpr uint32_t C_BYTES = 2 * F32_DKDV_NP * Q_PANEL;
+  static constexpr uint32_t C_BYTES = 2 * NP * Q_PANEL;
   static constexpr uint32_t STAT_FLOATS = 2 * F32_DKDV_ROWS;  // lse, delta
-  // q'^T, dO^T: the window's 128 columns x 32 query rows, one panel each.
-  static constexpr uint32_t T_PANEL = F32_DKDV_NP * F32_PANEL * ROW_BYTES;
+  // q'^T, dO^T: the window's 32 NP columns x 32 query rows, one panel
+  // each.
+  static constexpr uint32_t T_PANEL = NP * F32_PANEL * ROW_BYTES;
   // Each warpgroup's S^T and dP^T of its chunks: 128 threads x 32 floats.
   static constexpr uint32_t X_BYTES = 128 * F32_DKDV_ROWS * 4;
   static constexpr uint32_t a = 0;
@@ -528,22 +574,25 @@ struct DkdvSmem {
 };
 
 // K2: dK's and dV's own columns of keys [k0, k0 + F32_DKDV_KEYS) of head
-// bh.  mq, mdo: maps of q', dO (bh, sq, d), boxes of F32_DKDV_ROWS rows;
-// mk, mv: k, v (bh, sk, d), boxes of F32_DKDV_KEYS rows.  lse, delta:
+// bh, over a window of NP panels.  mq, mdo: maps of q', dO (bh, sq, d),
+// boxes of F32_DKDV_ROWS rows; mk, mv: k, v (bh, sk, d), boxes of
+// F32_DKDV_KEYS rows.  lse, delta:
 // (bh, sq) f32.  Both consumer warpgroups own the CTA's keys: per query
 // step each sums S^T and dP^T over every other head-dim chunk, alone
 // behind its own named barrier, the two halves are added through shared
 // memory (a + b == b + a, so both hold the same bits), and each then
 // computes dK and dV on its half of the window.  So S^T and dP^T are
-// computed once per CTA for a window of 4 panels.
+// computed once per CTA for its window.  Where the head dim has one chunk
+// (32) the second warpgroup sums none and adds zeros.
+template <int NP>
 __device__ __forceinline__ void dkdv_tile(
     const CUtensorMap* mq, const CUtensorMap* mdo, const CUtensorMap* mk,
     const CUtensorMap* mv, const float* __restrict__ lse,
     const float* __restrict__ delta, float* __restrict__ dk,
     float* __restrict__ dv, int bh, int cc, int k0, int sq, int sk, int d,
     float scale_r, int causal) {
-  using L = DkdvSmem;
-  constexpr int QB = F32_DKDV_ROWS, NP = F32_DKDV_NP;
+  using L = DkdvSmem<NP>;
+  constexpr int QB = F32_DKDV_ROWS;
   constexpr int CW = NP * F32_PANEL / 2;  // a warpgroup's window columns
   constexpr int STAGES = F32_DKDV_STAGES, CSTAGES = F32_DKDV_CSTAGES;
   extern __shared__ unsigned char smem_raw[];
@@ -713,6 +762,10 @@ __device__ __forceinline__ void dkdv_tile(
     int g = 0;
     for (int it = 0; it < n_it; ++it) {
       const int q0 = (qt0 + it) * QB;
+      if (c >= n_ch) {
+#pragma unroll
+        for (int i = 0; i < QB / 2; ++i) s[i] = dp[i] = 0.f;
+      }
       for (int ch = 0; ch < n_ch; ++ch, ++g) {
         if (ch % 2 != c) continue;
         const int st = g % STAGES;
@@ -824,20 +877,22 @@ __device__ __forceinline__ void dkdv_tile(
   }
 }
 
+template <int NP>
 __global__ void __launch_bounds__(WIDE_THREADS, 1)
     fwd_kernel(const __grid_constant__ CUtensorMap mq,
                const __grid_constant__ CUtensorMap mk,
                const __grid_constant__ CUtensorMap mv, float* __restrict__ o,
                float* __restrict__ lse, int bh_total, int sq, int sk, int d,
                float scale_r, int causal) {
-  const int n_cc = col_ctas<F32_FWD_NP>(d);
+  const int n_cc = col_ctas<NP>(d);
   const int n_qt = (sq + F32_FWD_ROWS - 1) / F32_FWD_ROWS;
   const int bh = blockIdx.x % bh_total, rest = blockIdx.x / bh_total;
   const int qt = n_qt - 1 - rest / n_cc;  // heavy (late) query tiles first
-  fwd_tile(&mq, &mk, &mv, o, lse, bh, rest % n_cc, qt * F32_FWD_ROWS, sq, sk,
-           d, scale_r, causal);
+  fwd_tile<NP>(&mq, &mk, &mv, o, lse, bh, rest % n_cc, qt * F32_FWD_ROWS,
+               sq, sk, d, scale_r, causal);
 }
 
+template <int NP>
 __global__ void __launch_bounds__(WIDE_THREADS, 1)
     dkdv_kernel(const __grid_constant__ CUtensorMap mq,
                 const __grid_constant__ CUtensorMap mdo,
@@ -847,50 +902,63 @@ __global__ void __launch_bounds__(WIDE_THREADS, 1)
                 const float* __restrict__ delta, float* __restrict__ dk,
                 float* __restrict__ dv, int bh_total, int sq, int sk, int d,
                 float scale_r, int causal) {
-  const int n_cc = col_ctas<F32_DKDV_NP>(d);
+  const int n_cc = col_ctas<NP>(d);
   const int bh = blockIdx.x % bh_total, rest = blockIdx.x / bh_total;
   const int kt = rest / n_cc;  // heavy (early) key tiles first
-  dkdv_tile(&mq, &mdo, &mk, &mv, lse, delta, dk, dv, bh, rest % n_cc,
-            kt * F32_DKDV_KEYS, sq, sk, d, scale_r, causal);
+  dkdv_tile<NP>(&mq, &mdo, &mk, &mv, lse, delta, dk, dv, bh, rest % n_cc,
+                kt * F32_DKDV_KEYS, sq, sk, d, scale_r, causal);
 }
 
-// Set each kernel's shared-memory limit once, before its first launch.
+// Set each kernel's shared-memory limit once, before its first launch
+// (internal linkage: a mutant build loaded beside this one keeps its own).
 namespace {
-bool g_prepared[2] = {};
+bool g_prepared[2][F32_FWD_NP + 1] = {};
 }  // namespace
 
 template <typename K>
-int prepare(int which, K kernel, size_t bytes) {
-  if (g_prepared[which]) return 0;
+int prepare(int which, int np, K kernel, size_t bytes) {
+  if (g_prepared[which][np]) return 0;
   const int e = (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  g_prepared[which] = e == 0;
+  g_prepared[which][np] = e == 0;
   return e;
 }
 
-inline int launch_fwd(const void* q, const void* k, const void* v, void* o,
-                      float* lse, int bh, int sq, int sk, int d,
-                      float scale_r, int causal, cudaStream_t stream) {
-  int e = prepare(0, fwd_kernel, FwdSmem::bytes);
+// The window of head dim D: all of it up to 128 (one column CTA), 4
+// panels above (column CTAs).
+static_assert(F32_FWD_NP == F32_DKDV_NP, "one window for K1 and K2");
+template <int D>
+constexpr int window_panels() {
+  return D < F32_FWD_NP * F32_PANEL ? D / F32_PANEL : F32_FWD_NP;
+}
+
+// K1 over windows of NP panels: NP = d / 32 up to 128, 4 above (column
+// CTAs of 4 panels).
+template <int NP>
+int launch_fwd(const void* q, const void* k, const void* v, void* o,
+               float* lse, int bh, int sq, int sk, int d, float scale_r,
+               int causal, cudaStream_t stream) {
+  int e = prepare(0, NP, fwd_kernel<NP>, FwdSmem<NP>::bytes);
   CUtensorMap mq, mk, mv;
   if (e == 0) e = make_map<float>(&mq, q, bh, sq, d, F32_FWD_ROWS);
   if (e == 0) e = make_map<float>(&mk, k, bh, sk, d, F32_FWD_KEYS);
   if (e == 0) e = make_map<float>(&mv, v, bh, sk, d, F32_FWD_KEYS);
   if (e != 0) return e;
   const int blocks = bh * ((sq + F32_FWD_ROWS - 1) / F32_FWD_ROWS) *
-                     col_ctas<F32_FWD_NP>(d);
-  fwd_kernel<<<blocks, WIDE_THREADS, FwdSmem::bytes, stream>>>(
+                     col_ctas<NP>(d);
+  fwd_kernel<NP><<<blocks, WIDE_THREADS, FwdSmem<NP>::bytes, stream>>>(
       mq, mk, mv, static_cast<float*>(o), lse, bh, sq, sk, d, scale_r,
       causal);
   return (int)cudaGetLastError();
 }
 
-inline int launch_dkdv(const void* q, const void* k, const void* v,
-                       const void* dout, const float* lse,
-                       const float* delta, void* dk, void* dv, int bh, int sq,
-                       int sk, int d, float scale_r, int causal,
-                       cudaStream_t stream) {
-  int e = prepare(1, dkdv_kernel, DkdvSmem::bytes);
+// K2 over windows of NP panels, as launch_fwd.
+template <int NP>
+int launch_dkdv(const void* q, const void* k, const void* v,
+                const void* dout, const float* lse, const float* delta,
+                void* dk, void* dv, int bh, int sq, int sk, int d,
+                float scale_r, int causal, cudaStream_t stream) {
+  int e = prepare(1, NP, dkdv_kernel<NP>, DkdvSmem<NP>::bytes);
   CUtensorMap mq, mdo, mk, mv;
   if (e == 0) e = make_map<float>(&mq, q, bh, sq, d, F32_DKDV_ROWS);
   if (e == 0) e = make_map<float>(&mdo, dout, bh, sq, d, F32_DKDV_ROWS);
@@ -898,8 +966,8 @@ inline int launch_dkdv(const void* q, const void* k, const void* v,
   if (e == 0) e = make_map<float>(&mv, v, bh, sk, d, F32_DKDV_KEYS);
   if (e != 0) return e;
   const int blocks = bh * ((sk + F32_DKDV_KEYS - 1) / F32_DKDV_KEYS) *
-                     col_ctas<F32_DKDV_NP>(d);
-  dkdv_kernel<<<blocks, WIDE_THREADS, DkdvSmem::bytes, stream>>>(
+                     col_ctas<NP>(d);
+  dkdv_kernel<NP><<<blocks, WIDE_THREADS, DkdvSmem<NP>::bytes, stream>>>(
       mq, mdo, mk, mv, lse, delta, static_cast<float*>(dk),
       static_cast<float*>(dv), bh, sq, sk, d, scale_r, causal);
   return (int)cudaGetLastError();

@@ -123,16 +123,30 @@ def tf32_split(x):
     return hi, rna(x - hi)
 
 
+def tf32_split3(x):
+    """``(hi, lo, lo2)``: :func:`tf32_split`'s hi and lo and the rest x -
+    hi - lo rounded the same way, as the f32 K1 splits V
+    (csrc/flash_wide_f32_sm90.cuh, ``split3``); hi + lo + lo2 is x
+    exactly (the rest has at most 3 significant bits)."""
+    hi, lo = tf32_split(x)
+    return hi, lo, tf32_split(x.float() - hi - lo)[0]
+
+
 def mm_3xtf32(a, b, products=3):
-    """``a @ b`` as the wide f32 bodies compute every product: each
+    """``a @ b`` as the f32 tensor-core bodies compute every product: each
     operand split by :func:`tf32_split` and hi.hi + hi.lo + lo.hi summed
-    in float32 (``products=1``: hi.hi alone, a single TF32 product).  The
-    TF32 products are exact in float32 (11 x 11 significant bits)."""
+    in float32 (``products=1``: hi.hi alone, a single TF32 product;
+    ``products=4``: K1's P V, which adds a's hi times b's rest,
+    :func:`tf32_split3`, so that a row of P that is one key's 1 returns
+    that key's row of b exactly).  The TF32 products are exact in float32
+    (11 x 11 significant bits)."""
     ah, al = tf32_split(a)
-    bh, bl = tf32_split(b)
+    bh, bl, bl2 = tf32_split3(b)
     out = torch.matmul(ah, bh)
-    if products == 3:
+    if products >= 3:
         out = out + torch.matmul(ah, bl) + torch.matmul(al, bh)
+    if products == 4:
+        out = out + torch.matmul(ah, bl2)
     return out
 
 
@@ -149,6 +163,12 @@ def compare(got, want, rounded=None) -> dict:
     the output's (K5's f32 partials from 16-bit p and ds): rtol is then
     that dtype's.  Where ``want`` is all zeros (a wholly masked ring step)
     the limit is 0: only exact zeros pass."""
+    err, over = _err_over_limit(got, want, rounded)
+    return {"max_abs_err": err.max().item(), "worst": over.max().item()}
+
+
+def _err_over_limit(got, want, rounded=None):
+    """``(|got - want|, that over its limit)`` element by element."""
     g, w = got.float(), want.float()
     err = (g - w).abs()
     row = w.square().mean(dim=-1, keepdim=True).sqrt()
@@ -156,8 +176,22 @@ def compare(got, want, rounded=None) -> dict:
     tol = max(rtol(want.dtype), rtol(rounded or want.dtype))
     limit = (tol * (w.abs() + row + floor)).clamp_min(
         torch.finfo(torch.float32).tiny)
-    return {"max_abs_err": err.max().item(),
-            "worst": (err / limit).max().item()}
+    return err, err / limit
+
+
+def compare_first_rows(got, want, first=8) -> dict:
+    """:func:`compare` of ``(bh, s, d)`` outputs with its reading taken
+    apart over the first ``first`` query rows and over the rest (the
+    limits are :func:`compare`'s, of the whole tensor).  Under a causal
+    mask query row 0 sees one key, so its dq is zero in exact arithmetic
+    and each side returns its own rounding residue of dP - delta there."""
+    err, over = _err_over_limit(got, want)
+    return {f"rows_0_{first - 1}": {
+                "max_abs_err": err[:, :first].max().item(),
+                "worst": over[:, :first].max().item()},
+            f"rows_{first}_on": {
+                "max_abs_err": err[:, first:].max().item(),
+                "worst": over[:, first:].max().item()}}
 
 
 def compare_lse(got, want) -> dict:

@@ -128,7 +128,43 @@ def test_flash_attention_past_65535_batch_heads(cuda_device, dtype):
     K1, K2 and K3 launch once each (the plan picks the split pair past
     1024 batch-heads), and the output and gradients agree with the plain
     blockwise path."""
-    shape = (1, 65600, 16, 32)
+    got, want = _past_65535_batch_heads(cuda_device, dtype, 32)
+    for a, b in zip(got.values(), want.values()):
+        assert torch.isfinite(a).all()
+        if dtype == torch.float32:
+            assert _close(a, b)
+        else:
+            # bf16 kernels against the f32 plain path: bf16 rounding of
+            # the inputs' products and of the outputs (5e-2 of the
+            # largest value).
+            err = (a.float() - b).abs().max().item()
+            assert err <= 5e-2 * b.abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 96, 128, 256])
+def test_f32_bodies_past_65535_batch_heads(cuda_device, d):
+    """The f32 K1 and K2 on their 3xTF32 bodies (1-D grids of query or key
+    tiles x column CTAs x bh blocks) at 65,600 batch-heads and every head
+    dim they take up to 256, through ``flash_attention``: their outputs,
+    o (K1) and dk, dv (K2), under the f32 rule.  dq is the SIMT K3's; at
+    query rows 0-7 it reads its own rounding residue of dP - delta (zero
+    in exact arithmetic at the causal first row), which no independent
+    summation order reproduces (ROADMAP C), so it is held on rows 8-15."""
+    got, want = _past_65535_batch_heads(cuda_device, torch.float32, d)
+    for name in ("o", "dk", "dv"):
+        assert torch.isfinite(got[name]).all()
+        assert _close(got[name], want[name]), name
+    first = kernel_check.compare_first_rows(got["dq"].flatten(0, 1),
+                                            want["dq"].flatten(0, 1))
+    assert first["rows_8_on"]["worst"] <= 1.0, first
+
+
+def _past_65535_batch_heads(cuda_device, dtype, d):
+    """``flash_attention``'s ``{o, dq, dk, dv}`` at 65,600 batch-heads x
+    16 x ``d`` (K1, K2 and K3 launched once each) and the plain blockwise
+    path's in f32."""
+    shape = (1, 65600, 16, d)
     g = torch.Generator(device=cuda_device).manual_seed(12)
     q, k, v, ct = (torch.randn(shape, device=cuda_device, generator=g)
                    .to(dtype) for _ in range(4))
@@ -143,16 +179,9 @@ def test_flash_attention_past_65535_batch_heads(cuda_device, dtype):
     ref_in = [x.float().clone().requires_grad_() for x in (q, k, v)]
     ref = tattn.blockwise_attention(*ref_in, causal=True)
     ref_grads = torch.autograd.grad(ref, ref_in, ct.float())
-    for a, b in zip((out.detach(), *grads), (ref.detach(), *ref_grads)):
-        assert torch.isfinite(a).all()
-        if dtype == torch.float32:
-            assert _close(a, b)
-        else:
-            # bf16 kernels against the f32 plain path: bf16 rounding of
-            # the inputs' products and of the outputs (5e-2 of the
-            # largest value).
-            err = (a.float() - b).abs().max().item()
-            assert err <= 5e-2 * b.abs().max().item(), err
+    names = ("o", "dq", "dk", "dv")
+    return (dict(zip(names, (out.detach(), *grads))),
+            dict(zip(names, (ref.detach(), *ref_grads))))
 
 
 @pytest.mark.cuda
@@ -368,6 +397,24 @@ def test_wide_f32_bodies_at_their_edges(cuda_device, seq, d, causal):
     in 4-panel windows: 3 + 3 + 3 panels at 288, where K2's two
     warpgroups also take 5 and 4 head-dim chunks, 4 + 3 + 3 at 320) and
     K3 on its SIMT body, held to the f32 rule (1e-4)."""
+    _hold_wide_bodies(cuda_device, seq, d, causal, torch.float32)
+
+
+# The f32 K1 and K2 at and below head dim 256: a single row pair in one
+# ragged key tile (seq 2), a ragged length over several tiles (1000: a
+# last query tile of 104 rows, a last key tile of 40 keys) causal and not.
+_F32_EDGES = [(2, True), (1000, True), (1000, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seq,causal", _F32_EDGES)
+@pytest.mark.parametrize("d", [32, 64, 96, 128, 256])
+def test_f32_bodies_at_their_edges(cuda_device, seq, d, causal):
+    """K1 and K2 in f32 on the 3xTF32 bodies of
+    csrc/flash_wide_f32_sm90.cuh at the head dims up to 256: a window of
+    the whole head dim (1-4 panels; K2's second warpgroup sums no chunk at
+    32 and one of three at 96) and two column CTAs of 4 panels at 256; K3
+    on its SIMT body; held to the f32 rule (1e-4)."""
     _hold_wide_bodies(cuda_device, seq, d, causal, torch.float32)
 
 

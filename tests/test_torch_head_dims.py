@@ -94,17 +94,17 @@ def test_head_dims_above_256_take_the_wide_bodies(d):
 def test_key_tiles_follow_the_padded_body(d, dtype):
     """The key tiles answer for the body that runs the padded head dim:
     the 16-bit forward 128 keys up to 64, 64 to 256 and 128 above (the
-    wgmma wide body's FWD_KEYS); the f32 bodies 64 up to 128, 32 at 256
-    and 64 above; the split pair 64 keys in 16 bits, and K3's wide bodies
-    64 in every dtype (the wgmma body's DQ_KEYS, the SIMT body's TK); no
-    combined body above 128."""
+    wgmma wide body's FWD_KEYS); the f32 forward 64 at every head dim (the
+    3xTF32 body's F32_FWD_KEYS); the split pair's, K3's, 64 keys in 16
+    bits, and in f32 64 up to 128, 32 at 256 (the SIMT body's f32_tile)
+    and 64 above (the SIMT wide body's TK); no combined body above 128."""
     body = tattn.padded_head_dim(d)
     f32 = dtype == torch.float32
-    f32_tile = 64 if body <= 128 or body > 256 else 32
+    f32_split_tile = 64 if body <= 128 or body > 256 else 32
     assert tattn.fwd_key_tile(dtype, d) == tattn.fwd_key_tile(dtype, body)
     assert tattn.fwd_key_tile(dtype, d) == (
-        f32_tile if f32 else (128 if body <= 64 or body > 256 else 64))
-    assert tattn.bwd_key_tile("split", dtype, d) == (f32_tile if f32
+        64 if f32 else (128 if body <= 64 or body > 256 else 64))
+    assert tattn.bwd_key_tile("split", dtype, d) == (f32_split_tile if f32
                                                      else 64)
     if body <= 128:
         assert tattn.bwd_key_tile("combined", dtype, d) == (64 if f32
@@ -161,7 +161,8 @@ def test_wide_tile_constants_match_the_tables(dtype):
 def test_wgmma_header_is_the_generators_output():
     """csrc/wgmma_sm90.cuh is tools/torch_gen_wgmma.py's output, byte for
     byte (it is generated, never edited by hand), and carries the TF32
-    shapes the f32 wide bodies issue."""
+    shapes the f32 bodies issue (K1's windows of 32-128 columns, K2's
+    halves of 16-64)."""
     import importlib.util
 
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -172,7 +173,7 @@ def test_wgmma_header_is_the_generators_output():
     with open(gen.OUT) as f:
         text = f.read()
     assert text == gen.generate()
-    for n in (32, 64, 128):
+    for n in (16, 32, 48, 64, 96, 128):
         assert f"m64n{n}k8.f32.tf32.tf32" in text
 
 
@@ -184,17 +185,18 @@ def test_wgmma_header_is_the_generators_output():
     ("flash_bwd_dq", 512, torch.bfloat16, 4 * (4 * 512 + 256)),
     ("flash_bwd_dkdv", 1000, torch.bfloat16, 11 * (4 * 1024 + 384)),
     ("flash_bwd_dq", 1000, torch.bfloat16, 8 * (4 * 1024 + 256)),
-    ("flash_fwd", 288, torch.float32, 3 * 3 * (2 * 288 + 256)),
-    ("flash_fwd", 512, torch.float32, 3 * 4 * (2 * 512 + 256)),
+    ("flash_fwd", 288, torch.float32, 3 * (3 * 2 * 288 + 4 * 256)),
+    ("flash_fwd", 512, torch.float32, 4 * (3 * 2 * 512 + 4 * 256)),
     ("flash_bwd_dkdv", 288, torch.float32, 3 * 3 * (4 * 288 + 512)),
     ("flash_bwd_dkdv", 512, torch.float32, 3 * 4 * (4 * 512 + 512))])
 def test_wide_tensor_core_work(name, d, dtype, flops):
     """The wide bodies' tensor-core FLOP per pair: their column CTAs'
     recompute of the score products (at 1000, padded to 1024: K3's
     8 x (4 d + 2 W) against the caller's 6 d, 5.8x) and, in float32, three
-    TF32 products for each (4-panel windows: 6.5x the caller's 4 d and 8 d
-    at 288, K2's shared by its two warpgroups); a head dim at or below 256 has
-    no wide body, and K3's f32 body has no tensor-core work (SIMT)."""
+    TF32 products for each, four for K1's P V (4-panel windows: 7.0x and
+    6.5x the caller's 4 d and 8 d at 288, K2's shared by its two
+    warpgroups); a head dim at or below 256 has no wide body, and K3's f32
+    body has no tensor-core work (SIMT)."""
     assert tattn.wide_tensor_core_flops(name, d, dtype) == flops
     with pytest.raises(ValueError, match="wide body"):
         tattn.wide_tensor_core_flops(name, 256, dtype)

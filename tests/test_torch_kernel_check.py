@@ -47,9 +47,10 @@ def test_forward_key_tile_follows_the_kernels():
     running max per tile, so a 128-key plain side differs from a 64-key
     one.  A head dim no body takes answers for the body it is padded to
     (48 for 64's); past 256 the wide bodies' 128 keys in 16 bits
-    (csrc/flash_wide_sm90.cuh, FWD_KEYS) and 64 in float32
-    (csrc/flash_wide_f32_sm90.cuh, F32_FWD_KEYS); below 1 none runs."""
-    for d in tattn.HEAD_DIMS:
+    (csrc/flash_wide_sm90.cuh, FWD_KEYS); in float32 the 3xTF32 body's 64
+    at every head dim, 256 included (csrc/flash_wide_f32_sm90.cuh,
+    F32_FWD_KEYS); below 1 none runs."""
+    for d in tattn.HEAD_DIMS + (tattn.WIDE_HEAD_DIM,):
         tile16 = 128 if d <= 64 else 64
         assert tattn.fwd_key_tile(torch.bfloat16, d) == tile16
         assert tattn.fwd_key_tile(torch.float16, d) == tile16
@@ -175,3 +176,102 @@ def test_3xtf32_products_keep_the_f32_rule(monkeypatch, d):
             for n in ("o", "lse", "dk", "dv")}
     assert max(worst[3].values()) <= 1.0, worst[3]
     assert min(worst[1][n] for n in ("o", "dk", "dv")) > 10.0, worst[1]
+
+
+def test_tf32_split3_is_exact():
+    """kernel_check.tf32_split3, the f32 K1's split of V: tf32_split's hi
+    and lo and the rest rounded the same way, all three TF32 (13 low bits
+    0), and hi + lo + lo2 is x bit for bit.  So a row of P that is one
+    key's 1 returns that key's row of V exactly from mm_3xtf32's four
+    products, and not from three."""
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(4096, generator=gen) * 10.0 ** torch.randint(
+        -6, 6, (4096,), generator=gen)
+    hi, lo, lo2 = kernel_check.tf32_split3(x)
+    two = kernel_check.tf32_split(x)
+    assert torch.equal(hi, two[0]) and torch.equal(lo, two[1])
+    for t in (hi, lo, lo2):
+        assert bool(((t.view(torch.int32) & 0x1FFF) == 0).all())
+    assert torch.equal(hi + lo + lo2, x)
+    v = torch.randn(64, 32, generator=gen)
+    p = torch.zeros(8, 64)
+    p[torch.arange(8), torch.arange(8) * 5] = 1.0
+    assert torch.equal(kernel_check.mm_3xtf32(p, v, 4), v[::5][:8])
+    assert not torch.equal(kernel_check.mm_3xtf32(p, v), v[::5][:8])
+
+
+def _emulated(qr, k, v, do, r, p2, lse, delta, mode, products):
+    """``{o, lse, dq, dk, dv}`` of the f32 bodies emulated on the plain
+    side: K1's S from ``products`` TF32 products and its P V from four
+    (``products`` 1: both from one), every backward product from
+    ``products``; the backward on the given lse and delta, as the kernels
+    are held."""
+    mm = tattn._mm
+    d = qr.shape[-1]
+    try:
+        tattn._mm = lambda a, b: kernel_check.mm_3xtf32(
+            a, b, products if products == 1 or a is qr else 4)
+        o, lse_e = tattn._blockwise_fwd_impl(
+            qr, k, v, True, r, block_size=tattn.fwd_key_tile(qr.dtype, d))
+        tattn._mm = lambda a, b: kernel_check.mm_3xtf32(a, b, products)
+        got = kernel_check.plain_bwd_outputs(qr, k, v, do, lse, delta, p2, r,
+                                             True, mode)
+    finally:
+        tattn._mm = mm
+    return {"o": o, "lse": lse_e, **got}
+
+
+@pytest.mark.parametrize("d,mode", [(32, "combined"), (64, "combined"),
+                                    (96, "combined"), (128, "combined"),
+                                    (256, "split")])
+def test_3xtf32_bodies_up_to_256_keep_the_f32_rule(d, mode):
+    """The f32 K1 and K2 at head dims up to 256 (csrc/flash_wide_f32_sm90.cuh
+    with a window of the whole head dim, two column CTAs at 256), emulated
+    on the plain side that holds them at 8 batch-heads: K1's S from three
+    TF32 products and its P V from four, every backward product from
+    three.  o, lse, dk and dv pass the f32 rule against the float32 plain
+    side (they read ~0.05), and dq on query rows 8 on (rows 0-7:
+    test_first_rows_dq_is_a_rounding_residue); hi.hi alone, one TF32
+    product, fails o, dk and dv by more than 10x."""
+    qr, k, v, do, p2, r = _inputs((8, 256, d), torch.float32, 40 + d)
+    ref, delta = kernel_check.plain_outputs(qr, k, v, do, True, r, p2, mode)
+    worst = {}
+    for products in (3, 1):
+        got = _emulated(qr, k, v, do, r, p2, ref["lse"], delta, mode,
+                        products)
+        worst[products] = {n: e["worst"] for n, e in
+                           kernel_check.compare_outputs(
+                               {n: got[n] for n in ("o", "lse", "dk", "dv")},
+                               ref).items()}
+        worst[products]["dq_rows_8_on"] = kernel_check.compare_first_rows(
+            got["dq"], ref["dq"])["rows_8_on"]["worst"]
+    assert max(worst[3].values()) <= 1.0, worst[3]
+    assert min(worst[1][n] for n in ("o", "dk", "dv")) > 10.0, worst[1]
+
+
+@pytest.mark.parametrize("shape", [(8, 1024, 128), (32, 1024, 64)])
+def test_first_rows_dq_is_a_rounding_residue(shape):
+    """Under a causal mask query row 0 sees one key: p = 1, o = v_0 and
+    delta_0 = dO_0 . v_0 = dP_00, so its dS and dq are 0 in exact
+    arithmetic and each side returns its own rounding residue of dP -
+    delta times k_0.  The float32 plain side against one whose products
+    are float64 (the same lse and delta) reads more than 1 of the f32
+    rule on query rows 0-7, whose floor (1e-4 rms(dq) / 16) lies below
+    that residue, and at most 0.1 on rows 8 on.  So no body that sums dP
+    in another order than the plain side's meets the rule there
+    (ROADMAP C): B2's and K3's f32 bodies stay SIMT, whose fmaf chain is
+    the plain side's order on the card."""
+    qr, k, v, do, p2, r = _inputs(shape, torch.float32, 0)
+    ref, delta = kernel_check.plain_outputs(qr, k, v, do, True, r, p2)
+    mm = tattn._mm
+    try:
+        tattn._mm = lambda a, b: torch.matmul(a.double(), b.double())
+        dq64 = tattn._attention_bwd_impl(
+            qr, k, v, ref["lse"], delta, do, True, r,
+            block_size=tattn.bwd_key_tile("combined", qr.dtype, shape[-1]),
+            dq_scale=p2, grad_dtype=torch.float64)[0]
+    finally:
+        tattn._mm = mm
+    reading = kernel_check.compare_first_rows(ref["dq"], dq64.float())
+    assert reading["rows_0_7"]["worst"] > 1.0, reading
+    assert reading["rows_8_on"]["worst"] <= 0.1, reading

@@ -30,11 +30,11 @@ T is ``__nv_bfloat16`` or ``__half``.  In float32 (the wide bodies'
 
 * ``Wgmma<N, float>::rs`` — ``m64nNk8`` TF32, A from registers (four
   TF32 values a thread, split from f32 by the caller), B from shared
-  memory K-major (TF32 has no transposed forms): ``S = q' K^T`` and
-  ``O += P V`` (V^T staged) with N = 64 and 128 in K1, ``S^T = K q'^T``,
-  ``dP^T = V dO^T`` (N = 32 query rows), ``dV += P^T dO`` and
-  ``dK += dS^T q'`` (N = 64 head-dim columns) in K2; ``scale_d`` as for
-  ``ss``.
+  memory K-major (TF32 has no transposed forms): ``S = q' K^T`` (N = 64
+  keys) and ``O += P V`` (V^T staged; N = the window's 32, 64, 96 or 128
+  columns) in K1, ``S^T = K q'^T``, ``dP^T = V dO^T`` (N = 32 query rows),
+  ``dV += P^T dO`` and ``dK += dS^T q'`` (N = half the window: 16, 32, 48
+  or 64 columns) in K2; ``scale_d`` as for ``ss``.
 
 The output is checked in, so the build needs no Python step; rerun this
 after changing a shape (``tests/test_torch_head_dims.py`` holds the
@@ -52,7 +52,7 @@ SS_N = (32, 64, 128)
 RS_N = (32, 64, 96, 128)
 SST_N = (32, 64, 96)
 TYPES = (("__nv_bfloat16", "bf16"), ("__half", "f16"))
-TF32_RS_N = (32, 64, 128)
+TF32_RS_N = (16, 32, 48, 64, 96, 128)
 
 HEAD = """\
 // Generated by tools/torch_gen_wgmma.py; do not edit by hand.

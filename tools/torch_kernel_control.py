@@ -4,7 +4,8 @@ Run from the repository root on a machine with one CUDA GPU::
 
     python3 tools/torch_kernel_control.py              # every mutant
     python3 tools/torch_kernel_control.py --wide-only  # K3 above 256
-    python3 tools/torch_kernel_control.py --wide-f32   # K1, K2 f32 > 256
+    python3 tools/torch_kernel_control.py --f32        # K1, K2 in f32
+    python3 tools/torch_kernel_control.py --f32-first-rows  # dq, row 0
 
 Builds mutants of the attention kernels, each with one line changed so
 that it skips part of its work.  K1's mutants change the forward body
@@ -65,19 +66,29 @@ are each read against ``dq_f64_scores`` (S and dP in float64), which
 tells the kernel's own error from the plain side's float32 summation
 order.
 
-Mutants of K1's and K2's f32 wide bodies (``csrc/flash_wide_f32_sm90.cuh``,
-3xTF32), each read through ``flash_fwd`` (o, lse) and ``flash_bwd_dkdv``
-(dk, dv) in float32 at ``WIDE_SHAPES`` against the plain side of their
-own key tiles:
+Mutants of K1's and K2's f32 bodies (``csrc/flash_wide_f32_sm90.cuh``,
+3xTF32, at every head dim: built into ``flash_fwd``, ``flash_bwd_split``
+and ``flash_wide``), each read through ``flash_fwd`` (o, lse) and
+``flash_bwd_dkdv`` (dk, dv) in float32 at ``F32_SHAPES`` (head dims 32
+to 256) and ``WIDE_SHAPES`` against the plain side of their own key
+tiles:
 
 * ``f32_plain_tf32`` — the lo half of every split is 0, so each product
-  is hi.hi alone: one TF32 product (K1 and K2);
+  is hi.hi alone: one TF32 product (K1 and K2; K1's fourth product, P's
+  hi against V's rest, then carries V's lo);
 * ``f32_fwd_skip_key_tile`` — K1 masks out the second-to-last key tile
   of each query tile;
 * ``f32_fwd_s_one_k8_short`` — K1's S = q' K^T leaves out the last k8
   slice of every head-dim chunk;
+* ``f32_dkdv_dp_one_k8_short`` — K2's dP^T = V dO^T leaves out the last
+  k8 slice of every head-dim chunk (its three products);
 * ``f32_dkdv_dk_without_lo_hi`` — K2's dK += dS^T q' drops its lo.hi
   product.
+
+``--f32-first-rows`` reads dq at the causal first query rows in float32
+(``f32_first_rows``): the float32 plain side, the SIMT B2 and the 3xTF32
+products emulated, each against a plain side whose products are
+float64.
 
 Beside the plain-TF32 mutant's reading stands its prediction: the plain
 side with every product hi.hi alone (``kernel_check.mm_3xtf32(...,
@@ -247,9 +258,21 @@ WIDE_MUTANTS = {
         "for (int j = 0; j < DQ_STEPS - 1; ++j)"),
 }
 WIDE_SHAPES = ((16, 1024, 288), (4, 1024, 1024))  # (bh, seq, head dim)
-# K1 and K2 f32 wide mutants: (file mutated, line, what replaces it,
-# outputs read), read through flash_wide at WIDE_SHAPES in float32.
+# The f32 bodies at and below 256: the main path's shape, head dims 32,
+# 96, 128 (ragged) and 256 (two column CTAs).
+F32_SHAPES = ((128, 1024, 64), (32, 1024, 32), (32, 1024, 96),
+              (16, 1000, 128), (8, 1024, 256))
+# dq's causal first query rows in float32 (--f32-first-rows): the main
+# path's shape and head dim 128, (bh, seq, head dim).
+FIRST_ROWS_SHAPES = ((128, 1024, 64), (32, 1024, 128))
+# K1 and K2 f32 mutants: (file mutated, line, what replaces it, outputs
+# read), built into every source that launches the body (F32_STEMS) and
+# read in float32 at F32_SHAPES and WIDE_SHAPES.
 F32_BODY = "flash_wide_f32_sm90.cuh"
+F32_STEMS = ("flash_fwd", "flash_bwd_split", "flash_wide")
+F32_DP = ("        Wgmma<QB, float>::rs(dpc, vh[b], dh, kk != 0);\n"
+          "        Wgmma<QB, float>::rs(dpc, vh[b], dl, 1);\n"
+          "        Wgmma<QB, float>::rs(dpc, vl[b], dh, 1);\n")
 F32_MUTANTS = {
     "f32_plain_tf32": (
         F32_BODY, "  lo = tf32(x - __uint_as_float(hi));\n", "  lo = 0u;\n",
@@ -264,6 +287,9 @@ F32_MUTANTS = {
         "        load_a(gbase + off + L::A_Q,",
         "      for (int kk = 0; kk < 3; ++kk) {\n"
         "        load_a(gbase + off + L::A_Q,", ("o", "lse")),
+    "f32_dkdv_dp_one_k8_short": (
+        F32_BODY, F32_DP, "        if (kk < 3) {\n" + F32_DP + "        }\n",
+        ("dk",)),
     "f32_dkdv_dk_without_lo_hi": (
         F32_BODY, "        Wgmma<CW, float>::rs(dk_acc, dal[j], qth, 1);\n",
         "", ("dk",)),
@@ -344,24 +370,25 @@ def loose_compare(got, want):
             "worst": err / (2e-2 * want.float().abs().max().item())}
 
 
-def build_mutants(wide_only=False, wide_f32=False):
-    """``{mutant: path of its shared library}``, nvcc runs in parallel."""
+def build_mutants(wide_only=False, f32=False):
+    """``{mutant: {stem: path of its shared library}}``, nvcc runs in
+    parallel."""
     procs = {}
     edits = {}
-    if not wide_f32:
-        edits.update({name: ("flash_wide", file, old, new)
+    if not f32:
+        edits.update({name: (("flash_wide",), file, old, new)
                       for name, (file, old, new) in WIDE_MUTANTS.items()})
     if not wide_only:
-        edits.update({name: ("flash_wide", file, old, new)
+        edits.update({name: (F32_STEMS, file, old, new)
                       for name, (file, old, new, _) in F32_MUTANTS.items()})
-    if not (wide_only or wide_f32):
-        edits.update({name: (stem, file, old, new)
+    if not (wide_only or f32):
+        edits.update({name: ((stem,), file, old, new)
                       for name, (stem, file, old, new, _)
                       in MUTANTS.items()})
-        edits.update({name: (stem, file, old, new)
+        edits.update({name: ((stem,), file, old, new)
                       for name, (stem, file, old, new, _)
                       in RING_MUTANTS.items()})
-    for name, (stem, file, old, new) in edits.items():
+    for name, (stems, file, old, new) in edits.items():
         d = os.path.join(_build.BUILD_DIR, "control", name)
         shutil.rmtree(d, ignore_errors=True)
         shutil.copytree(_build.CSRC, d)
@@ -371,17 +398,19 @@ def build_mutants(wide_only=False, wide_f32=False):
             raise RuntimeError(f"{name}: line not found once in {file}")
         with open(path, "w") as f:
             f.write(text.replace(old, new))
-        src = os.path.join(d, f"{stem}.cu")
-        out = os.path.join(d, f"{stem}.so")
-        procs[name] = (subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", out, src],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), out)
+        for stem in stems:
+            src = os.path.join(d, f"{stem}.cu")
+            out = os.path.join(d, f"{stem}.so")
+            procs[name, stem] = (subprocess.Popen(
+                [_build._nvcc(), *_build.NVCC_FLAGS, "-o", out, src],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True), out)
     paths = {}
-    for name, (proc, out) in procs.items():
+    for (name, stem), (proc, out) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        paths[name] = out
+            raise RuntimeError(f"nvcc failed for {name} ({stem}):\n{log}")
+        paths.setdefault(name, {})[stem] = out
     return paths
 
 
@@ -439,7 +468,8 @@ def wide_readings(paths):
                 kernel_check.compare(ref["dq"], exact)
             ok &= rows["sound_wide"][tag]["dq"]["strict"]["worst"] <= 1.0
             for name in WIDE_MUTANTS:
-                _build._libs["flash_wide"] = ctypes.CDLL(paths[name])
+                _build._libs["flash_wide"] = ctypes.CDLL(
+                    paths[name]["flash_wide"])
                 try:
                     got = {"dq": A.flash_bwd_dq(*args, p2, True)}
                 finally:
@@ -450,23 +480,23 @@ def wide_readings(paths):
     return rows, ok
 
 
-def wide_f32_outputs(qr, k, v, do, lse, delta, scale_r):
-    """``{o, lse, dk, dv}`` of K1 and K2 (``flash_wide`` as loaded now)."""
+def f32_outputs(qr, k, v, do, lse, delta, scale_r):
+    """``{o, lse, dk, dv}`` of K1 and K2 (the libraries as loaded now)."""
     o, lse_k = A.flash_fwd(qr, k, v, scale_r, True)
     dk, dv = A.flash_bwd_dkdv(qr, k, v, do, lse, delta, scale_r, True)
     return {"o": o, "lse": lse_k, "dk": dk, "dv": dv}
 
 
-def wide_f32_readings(paths):
-    """The sound f32 K1 and K2 wide bodies and each of their mutants
-    against the plain side of the split mode at each of WIDE_SHAPES, in
-    float32, and the plain side with one TF32 product per product (the
-    prediction for ``f32_plain_tf32``): ``({reading: {shape: ...}},
-    ok)``."""
-    sound = _build.load("flash_wide")
+def f32_readings(paths):
+    """The sound f32 K1 and K2 bodies and each of their mutants against
+    the plain side of the split mode at each of F32_SHAPES and
+    WIDE_SHAPES, in float32, and the plain side with one TF32 product per
+    product (the prediction for ``f32_plain_tf32``): ``({reading: {shape:
+    ...}}, ok)``."""
+    sound = {stem: _build.load(stem) for stem in F32_STEMS}
     names = ("o", "lse", "dk", "dv")
     rows, ok = {}, True
-    for bh, s, d in WIDE_SHAPES:
+    for bh, s, d in F32_SHAPES + WIDE_SHAPES:
         g = torch.Generator(device="cuda").manual_seed(s + d)
         q, k, v, do = (torch.randn(bh, s, d, device="cuda", generator=g)
                        for _ in range(4))
@@ -476,10 +506,10 @@ def wide_f32_readings(paths):
                                                 p2, "split")
         args = (qr, k, v, do, ref["lse"], delta, scale_r)
         tag = f"float32_{bh}x{s}x{d}"
-        rows.setdefault("sound_wide_f32", {})[tag] = reading(
-            wide_f32_outputs(*args), ref, names)
+        rows.setdefault("sound_f32", {})[tag] = reading(
+            f32_outputs(*args), ref, names)
         ok &= all(r["strict"]["worst"] <= 1.0
-                  for r in rows["sound_wide_f32"][tag].values())
+                  for r in rows["sound_f32"][tag].values())
         mm = A._mm
         A._mm = lambda a, b: kernel_check.mm_3xtf32(a, b, products=1)
         try:
@@ -491,11 +521,12 @@ def wide_f32_readings(paths):
             n: kernel_check.compare_outputs({n: one[n]}, {n: ref[n]})[n]
             for n in names}
         for name, (_, _, _, outs) in F32_MUTANTS.items():
-            _build._libs["flash_wide"] = ctypes.CDLL(paths[name])
+            _build._libs.update({stem: ctypes.CDLL(path)
+                                 for stem, path in paths[name].items()})
             try:
-                got = wide_f32_outputs(*args)
+                got = f32_outputs(*args)
             finally:
-                _build._libs["flash_wide"] = sound
+                _build._libs.update(sound)
             rows.setdefault(name, {})[tag] = reading(got, ref, outs)
             ok &= any(r["strict"]["worst"] > 1.0
                       for r in rows[name][tag].values())
@@ -503,28 +534,111 @@ def wide_f32_readings(paths):
     return rows, ok
 
 
+def mm_6xtf32(a, b):
+    """``a @ b`` from six TF32 products of the three-way split
+    (:func:`kernel_check.tf32_split3`: hi.hi, hi.mid, mid.hi, hi.lo,
+    mid.mid, lo.hi), summed in float32."""
+    ah, am, al = kernel_check.tf32_split3(a)
+    bh, bm, bl = kernel_check.tf32_split3(b)
+    mm = torch.matmul
+    return (mm(ah, bh) + (mm(ah, bm) + mm(am, bh))
+            + (mm(ah, bl) + mm(am, bm) + mm(al, bh)))
+
+
+def _plain_bwd_with(mm, args, dp_mm=None, **kw):
+    """The combined mode's plain backward (``{dq, dk, dv}``) with every
+    product by ``mm`` and, if given, dP = dO V^T by ``dp_mm``."""
+    do = args[3]
+    saved = A._mm
+    A._mm = (mm if dp_mm is None else
+             lambda a, b: dp_mm(a, b) if a is do else mm(a, b))
+    try:
+        if kw:
+            qr, k, v, do, lse, delta, p2, scale_r, causal = args
+            dq, dk, dv = A._attention_bwd_impl(
+                qr, k, v, lse, delta, do, causal, scale_r,
+                block_size=A.bwd_key_tile("combined", qr.dtype,
+                                          qr.shape[-1]),
+                dq_scale=p2, **kw)
+            return {"dq": dq, "dk": dk, "dv": dv}
+        return kernel_check.plain_bwd_outputs(*args)
+    finally:
+        A._mm = saved
+
+
+def f32_first_rows():
+    """dq at the causal first query rows in float32, read apart for rows
+    0-7 and the rest: the float32 plain side, the SIMT B2 and the planned
+    3xTF32 body emulated (every product hi.hi + hi.lo + lo.hi; and with
+    dP from six products of a three-way split), each against a plain side
+    whose products are float64 (same lse and delta) and against the
+    float32 plain side, the one the rule holds the kernels against."""
+    out = {}
+    for bh, s, d in FIRST_ROWS_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(0)
+        q, k, v, do = (torch.randn(bh, s, d, device="cuda", generator=g)
+                       for _ in range(4))
+        p2, scale_r = A._split_scale(d ** -0.5)
+        qr = q * p2
+        ref, delta = kernel_check.plain_outputs(qr, k, v, do, True, scale_r,
+                                                p2)
+        args = (qr, k, v, do, ref["lse"], delta, p2, scale_r, True)
+        f64 = _plain_bwd_with(
+            lambda a, b: torch.matmul(a.double(), b.double()), args,
+            round_pds=False, grad_dtype=torch.float64)
+        # Rounded to float32 at the end, so the rule's rtol is float32's.
+        f64 = {n: t.float() for n, t in f64.items()}
+        sides = {
+            "f32_plain": {n: ref[n] for n in ("dq", "dk", "dv")},
+            "simt_b2": kernel_check.kernel_bwd_outputs(*args),
+            "emulated_3xtf32": _plain_bwd_with(kernel_check.mm_3xtf32, args),
+            "emulated_3xtf32_dp6": _plain_bwd_with(kernel_check.mm_3xtf32,
+                                                   args, dp_mm=mm_6xtf32),
+        }
+        tag = f"float32_{bh}x{s}x{d}"
+        out[tag] = {}
+        for name, got in sides.items():
+            row = {"vs_f64": {n: kernel_check.compare_first_rows(
+                got[n], f64[n]) for n in got}}
+            if name != "f32_plain":
+                row["vs_f32_plain"] = {n: kernel_check.compare_first_rows(
+                    got[n], ref[n]) for n in got}
+            out[tag][name] = row
+        del q, k, v, do, qr, ref, delta, args, f64, sides
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--wide-only", action="store_true",
                     help="only K3's 16-bit wide body and its mutants")
-    ap.add_argument("--wide-f32", action="store_true",
-                    help="only K1's and K2's f32 wide bodies and their "
-                         "mutants")
+    ap.add_argument("--f32", action="store_true",
+                    help="only K1's and K2's f32 bodies and their mutants")
+    ap.add_argument("--f32-first-rows", action="store_true",
+                    help="only dq's causal first query rows in float32: "
+                         "the plain side, the SIMT B2 and the planned "
+                         "3xTF32 body against float64 products")
     args = ap.parse_args()
-    wide_only, wide_f32 = args.wide_only, args.wide_f32
+    wide_only, f32_only = args.wide_only, args.f32
     if not torch.cuda.is_available():
         sys.exit("torch_kernel_control: no CUDA device")
     _build.build_all()
-    paths = build_mutants(wide_only, wide_f32)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True,
         text=True).stdout.strip()
-    if wide_f32:
-        f32, ok = wide_f32_readings(paths)
+    if args.f32_first_rows:
+        print(json.dumps({"nvidia_smi": smi, "causal": True,
+                          "shapes": [list(x) for x in FIRST_ROWS_SHAPES],
+                          "first_rows": f32_first_rows()}), flush=True)
+        return
+    paths = build_mutants(wide_only, f32_only)
+    if f32_only:
+        f32, ok = f32_readings(paths)
         print(json.dumps({"nvidia_smi": smi, "causal": True, "ok": ok,
+                          "f32_shapes": [list(x) for x in F32_SHAPES],
                           "wide_shapes": [list(x) for x in WIDE_SHAPES],
-                          "wide_f32_readings": f32}), flush=True)
+                          "f32_readings": f32}), flush=True)
         sys.exit(0 if ok else 1)
     wide, ok = wide_readings(paths)
     if wide_only:
@@ -532,7 +646,7 @@ def main():
                           "wide_shapes": [list(x) for x in WIDE_SHAPES],
                           "wide_readings": wide}), flush=True)
         sys.exit(0 if ok else 1)
-    f32, f32_ok = wide_f32_readings(paths)
+    f32, f32_ok = f32_readings(paths)
     ok &= f32_ok
     sound = {stem: _build.load(stem)
              for stem in ("flash_fwd", "flash_bwd", SPLIT)}
@@ -557,7 +671,7 @@ def main():
                   for r in rows[f"sound_{mode}"].values())
         for name, (stem, _, _, _, names) in MUTANTS.items():
             mode = "split" if stem == SPLIT else "combined"
-            _build._libs[stem] = ctypes.CDLL(paths[name])
+            _build._libs[stem] = ctypes.CDLL(paths[name][stem])
             try:
                 rows[name] = reading(
                     kernel_check.kernel_outputs(*args, mode), refs[mode],
@@ -573,7 +687,7 @@ def main():
         ok &= ring[f"sound_{kind}"]["ok"]
     for name, (stem, _, _, _, kind) in RING_MUTANTS.items():
         sound_lib = _build.load(stem)
-        _build._libs[stem] = ctypes.CDLL(paths[name])
+        _build._libs[stem] = ctypes.CDLL(paths[name][stem])
         try:
             ring[name] = ring_reading(kind)
         finally:
@@ -584,7 +698,7 @@ def main():
                       "ring_shard": list(RING_SHARD), "ring_readings": ring,
                       "wide_shapes": [list(x) for x in WIDE_SHAPES],
                       "wide_readings": wide,
-                      "wide_f32_readings": f32}), flush=True)
+                      "f32_readings": f32}), flush=True)
     sys.exit(0 if ok else 1)
 
 

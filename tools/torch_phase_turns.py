@@ -3,7 +3,7 @@
 Run from the repository root on a machine with one CUDA GPU::
 
     python3 tools/torch_phase_turns.py --parent proof/parent \\
-        [--phases train ring_train train_dp resnet] [--rounds 1]
+        [--phases train ring_train train_dp resnet kernels] [--rounds 1]
 
 Host-side step times move by tens of percent between chip calls, so a
 change is compared with its parent inside one call, in turns: parent,
@@ -14,7 +14,9 @@ and the engine build once per checkout, before its first turn, in its own
 ``_build`` directories).  The phases' JSON lines are written to
 ``chiprun_out/phase_turns.jsonl`` tagged with the checkout and the turn;
 one summary line per phase is printed: the tokens/s of every turn and
-the median of each side.
+the median of each side (``kernels``: the milliseconds of K1 and B2 in
+bf16 and of K1, B2, K2 and K3 in float32 at the main shape, each
+median apart).
 """
 
 from __future__ import annotations
@@ -29,13 +31,29 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # The throughput each phase reports (resnet: ResNet-50's, its first run).
 METRIC = {"train": "tokens_per_s", "ring_train": "tokens_per_s",
-          "train_dp": "tokens_per_s", "resnet": "images_per_s"}
+          "train_dp": "tokens_per_s", "resnet": "images_per_s",
+          "kernels": "ms"}
 
 
 def metric(phase: str, rec: dict):
     if phase == "resnet":
         return rec["runs"][0][METRIC[phase]]
+    if phase == "kernels":
+        f32 = rec["f32"]
+        return {"k1_bf16": rec["timing"]["flash_fwd"]["ms"],
+                "b2_bf16": rec["timing"]["flash_bwd"]["ms"],
+                "k1_f32": f32["timing"]["flash_fwd"]["ms"],
+                "b2_f32": f32["timing"]["flash_bwd"]["ms"],
+                "k2_f32": f32["k2_ms"], "k3_f32": f32["k3_ms"]}
     return rec.get(METRIC[phase])
+
+
+def median(values):
+    """The median of numbers, or per key of dicts of numbers."""
+    if isinstance(values[0], dict):
+        return {k: statistics.median(v[k] for v in values)
+                for k in values[0]}
+    return statistics.median(values)
 
 
 def run_turn(root: str, phases) -> dict:
@@ -94,8 +112,7 @@ def main():
     for phase, sides in seen.items():
         print(json.dumps({
             "phase": phase, "metric": METRIC[phase], "turns": sides,
-            "median": {s: statistics.median(v) for s, v in sides.items()
-                       if v},
+            "median": {s: median(v) for s, v in sides.items() if v},
         }), flush=True)
 
 

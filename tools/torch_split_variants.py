@@ -7,6 +7,7 @@ Run from the repository root on a machine with one CUDA GPU::
     python3 tools/torch_split_variants.py                 # the split pair
     python3 tools/torch_split_variants.py --family wide   # K1-K3 above 256
     python3 tools/torch_split_variants.py --family wide_f32  # K1, K2 f32
+    python3 tools/torch_split_variants.py --family f32   # the same, <= 256
 
 Each variant is a copy of the kernel sources with one or two lines
 changed (under ``horovod_tpu_torch/_build/variants/``; the checked-in
@@ -62,6 +63,13 @@ K1 and K2 alone, K3's f32 body being SIMT):
 * ``fwd_2_stages`` — K1 streams two chunk stages instead of
   ``F32_FWD_STAGES`` (K2's two are fixed: its note says why).
 
+``f32`` (the same header, the bodies at head dims 32-256, built into
+``flash_fwd`` and ``flash_bwd_split``): ``fwd_one_chain``,
+``dkdv_one_chain``, ``fwd_p_at_once``, ``fwd_2_stages`` as above, and
+
+* ``fwd_three_pv_products`` — K1's P V without its fourth product (P's
+  hi against V's rest): what o = v exactly where p = 1 costs.
+
 Every build is held against the plain side that walks its own key tile
 (``kernel_check``; ``worst`` <= 1 passes), then the family's kernels are
 timed with the checked-in build and each variant in turns (checked-in,
@@ -97,8 +105,9 @@ from horovod_tpu_torch.ops import kernel_check  # noqa: E402
 
 SLEEP_CYCLES = 2_000_000  # ≈1 ms at the H100's clock
 WH = "flash_wide_sm90.cuh"
-# family: stem, shapes (bh, s, d), the namespace whose kernels' ptxas
-# lines are printed (or None), and variant: ([(file, line, replacement)],
+# family: stem (or stems: every source that launches the family's
+# bodies), shapes (bh, s, d), the namespace whose kernels' ptxas lines are
+# printed (or None), and variant: ([(file, line, replacement)],
 # the key tiles the plain side walks where they change: (forward, dq), None
 # for the checked-in tile).
 FAMILIES = {
@@ -157,9 +166,11 @@ _K2_SUM = ("      for (int i = 0; i < QB / 2; ++i) {\n"
            "        s[i] = first ? sc[i] : s[i] + sc[i];\n"
            "        dp[i] = first ? dpc[i] : dp[i] + dpc[i];\n"
            "      }\n")
+_K1_PV4 = "        Wgmma<CW, float>::rs(acc, ph[j % 2], vl2, 1);\n"
 _K1_PV = ("        Wgmma<CW, float>::rs(acc, ph[j % 2], vh, 1);\n"
           "        Wgmma<CW, float>::rs(acc, ph[j % 2], vl, 1);\n"
           "        Wgmma<CW, float>::rs(acc, pl[j % 2], vh, 1);\n"
+          + _K1_PV4 +
           "        wg_commit();\n"
           "        wg_wait<1>();\n"
           "      }\n"
@@ -193,11 +204,19 @@ FAMILIES["wide_f32"] = {
         "fwd_2_stages": ([(WF, "constexpr int F32_FWD_STAGES = 3;",
                            "constexpr int F32_FWD_STAGES = 2;")], None),
     }}
+FAMILIES["f32"] = {
+    "stem": ("flash_fwd", "flash_bwd_split"), "ptxas": "wide32",
+    "dtype": torch.float32,
+    "shapes": ((128, 1024, 64), (32, 1024, 128), (8, 1024, 256)),
+    "variants": {
+        **FAMILIES["wide_f32"]["variants"],
+        "fwd_three_pv_products": ([(WF, _K1_PV4, "")], None)}}
 
 
-def build_variants(stem, variants):
-    """``{variant: (path of its shared library, nvcc log)}`` of ``stem``'s
-    source under each of ``variants``' edits, nvcc runs in parallel."""
+def build_variants(stems, variants):
+    """``{variant: ({stem: path of its shared library}, nvcc logs)}`` of
+    each of ``stems``' sources under each of ``variants``' edits, nvcc
+    runs in parallel."""
     procs = {}
     for name, (edits, _) in variants.items():
         d = os.path.join(_build.BUILD_DIR, "variants", name)
@@ -210,17 +229,21 @@ def build_variants(stem, variants):
                 raise RuntimeError(f"{name}: line not found once in {file}")
             with open(path, "w") as f:
                 f.write(text.replace(old, new))
-        out = os.path.join(d, f"{stem}.so")
-        procs[name] = (subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", out,
-             os.path.join(d, f"{stem}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), out)
+        for stem in stems:
+            out = os.path.join(d, f"{stem}.so")
+            procs[name, stem] = (subprocess.Popen(
+                [_build._nvcc(), *_build.NVCC_FLAGS, "-o", out,
+                 os.path.join(d, f"{stem}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True), out)
     built = {}
-    for name, (proc, out) in procs.items():
+    for (name, stem), (proc, out) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        built[name] = (out, log)
+            raise RuntimeError(f"nvcc failed for {name} ({stem}):\n{log}")
+        paths, logs = built.setdefault(name, ({}, ""))
+        paths[stem] = out
+        built[name] = (paths, logs + log)
     return built
 
 
@@ -314,8 +337,8 @@ def wide_case(qr, k, v, do, p2, r, tiles):
     return kernels, outputs, wants
 
 
-def wide_f32_case(qr, k, v, do, p2, r, tiles):
-    """K1 and K2 of the f32 wide bodies, and their plain outputs."""
+def f32_case(qr, k, v, do, p2, r, tiles):
+    """K1 and K2 of the f32 bodies, and their plain outputs."""
     d = qr.shape[-1]
     o, lse = A._blockwise_fwd_impl(
         qr, k, v, True, r, block_size=A.fwd_key_tile(torch.float32, d))
@@ -336,7 +359,8 @@ def wide_f32_case(qr, k, v, do, p2, r, tiles):
                               for t in tiles}
 
 
-CASES = {"split": split_case, "wide": wide_case, "wide_f32": wide_f32_case}
+CASES = {"split": split_case, "wide": wide_case, "wide_f32": f32_case,
+         "f32": f32_case}
 
 
 def main():
@@ -346,18 +370,21 @@ def main():
     fam = FAMILIES[family]
     if not torch.cuda.is_available():
         sys.exit("torch_split_variants: no CUDA device")
-    stem, variants = fam["stem"], fam["variants"]
-    info = _build.build_all([stem])
-    built = build_variants(stem, variants)
+    stems, variants = fam["stem"], fam["variants"]
+    stems = (stems,) if isinstance(stems, str) else stems
+    info = _build.build_all(list(stems))
+    built = build_variants(stems, variants)
     if fam["ptxas"]:
         ns = fam["ptxas"]
+        cached = any(info[st]["cached"] for st in stems)
         print(json.dumps({"ptxas": {
-            "checked_in": "cached build, no ptxas log"
-            if info[stem]["cached"] else ptxas_summary(info[stem]["log"], ns),
+            "checked_in": "cached build, no ptxas log" if cached else
+            ptxas_summary("".join(info[st]["log"] for st in stems), ns),
             **{n: ptxas_summary(log, ns) for n, (_, log) in built.items()}}}),
             flush=True)
-    libs = {"checked_in": _build.load(stem)}
-    libs.update({n: ctypes.CDLL(p) for n, (p, _) in built.items()})
+    libs = {"checked_in": {st: _build.load(st) for st in stems}}
+    libs.update({n: {st: ctypes.CDLL(p) for st, p in paths.items()}
+                 for n, (paths, _) in built.items()})
     tiles = {n: variants[n][1] if n in variants and variants[n][1]
              else (None, None) for n in libs}
     dtype = fam.get("dtype", torch.bfloat16)
@@ -373,7 +400,7 @@ def main():
                                                 set(tiles.values()))
         worst, by_output = {}, {}
         for n, lib in libs.items():
-            _build._libs[stem] = lib
+            _build._libs.update(lib)
             errs = kernel_check.compare_outputs(outputs(), wants[tiles[n]])
             by_output[n] = {o: e["worst"] for o, e in errs.items()}
             worst[n] = max(by_output[n].values())
@@ -381,13 +408,13 @@ def main():
         times = {kern: {n: [] for n in libs} for kern in kernels}
         for n in variants:
             for m in ("checked_in", n, n, "checked_in") * 2:
-                _build._libs[stem] = libs[m]
+                _build._libs.update(libs[m])
                 # On stderr, so that a fault names the build it hit.
                 print(f"timing {bh}x{s}x{d} {m}", file=sys.stderr,
                       flush=True)
                 for kern, fn in kernels.items():
                     times[kern][m].append(time_ms(fn))
-        _build._libs[stem] = libs["checked_in"]
+        _build._libs.update(libs["checked_in"])
         result["x".join(map(str, (bh, s, d)))] = {
             "median_ms": {kern: {n: statistics.median(t)
                                  for n, t in ts.items()}
