@@ -14,12 +14,15 @@ Phases, one JSON line each:
    versions (``ops/attention.py``) on the same inputs, each backward
    against the plain side of its own key tile: bf16 and f32 at the main
    path's shape (16, 8, 1024, 64), fp16, a non-causal case, and a ragged
-   length with head_dim 128; in f32 also head dims 32, 96 and 256 (K1 and
-   the split pair: the combined mode has no body at 256) and a ragged
-   non-causal length, dq's reading over query rows 0-7 reported apart.
+   length with head_dim 128; in f32 also head dims 32, 96, 128 and 256
+   (K1 and the split pair: the combined mode has no body at 256), a
+   ragged non-causal length and a causal seq 8192 (K3's dQ summed over
+   256 key tiles), dq's reading over query rows 0-7 reported
+   apart under the limit without and with float32 dq's term.
    Times (CUDA events, median after warm-up) of K1 and B2 (and K2 + K3
-   beside B2), in bf16 and f32 (K1 and K2 on their 3xTF32 wgmma bodies,
-   B2 and K3 SIMT), their plain versions and the library yardstick
+   beside B2), in bf16 and f32 (all four on their 3xTF32 wgmma bodies,
+   beside SDPA in float32), their
+   plain versions and the library yardstick
    (``scaled_dot_product_attention``, which the port never calls, timed
    under each backend that takes the shape: flash, memory-efficient and
    cuDNN; ``library_ms`` is the fastest).
@@ -44,7 +47,9 @@ Phases, one JSON line each:
    picks the split pair (K2's and K3's entries in the summary come from
    the first shape).
    Then ``head_dims``: K1, K2 and K3 at head dim 256 (bf16, 1040
-   batch-heads x seq 512) and on their wide bodies (``flash_wide.cu``) at
+   batch-heads x seq 512; f32, 64 x 1024, all three on the 3xTF32 bodies
+   of ``flash_wide_f32_sm90.cuh``) and on their wide bodies
+   (``flash_wide.cu``) at
    288, 512 (64 batch-heads x seq 1024) and 1000 (32 x 1024, run padded
    to 1024) in bf16 (K1, K2 and K3 on the wgmma bodies of
    ``flash_wide_sm90.cuh``), at 512 in fp16, and in f32 at 288 (8
@@ -66,13 +71,15 @@ Phases, one JSON line each:
 6. ``ring_kernels`` — K4 ``ring_flash_fwd``, K5 ``ring_flash_bwd``, K6
    ``ring_permute`` and K7 ``phase_closer`` on a ring of 4 members
    co-located on the card (``RingMesh``, one stream each), shard
-   (4, 8, 1024, 64): K4 and K5 in bf16 and f32 on diagonal, wholly
+   (4, 8, 1024, 64): K4 and K5 in bf16 and f32 (float32 dq with its
+   term) on diagonal, wholly
    visible and wholly masked steps, rotating and not, against their plain
    versions (POS_BIG lse rows must match, masked outputs be exactly 0),
    the rotated K/V in the neighbours' slots bit for bit; K6 bit-exact at
    shift +1 and -1 with its VJP; K7's zero block, and every flag word
    back at 0 after a fused forward + backward.
-   Times of each kernel, its plain version and its library yardstick; K6
+   Times of each kernel, its plain version and its library yardstick
+   (K4 and K5 in bf16, and in f32 beside them); K6
    and K7 also by CUDA events on the member streams around their four
    launches alone (``kernel_ms``), beside their rounds with the fork and
    join, with K6 moving no bytes (its handshake and gate alone), an empty
@@ -206,10 +213,10 @@ NCCL cannot run two ranks on one device: the run shows the engine, the
 staging and their numbers, not NVLink or NCCL.  Any rank that exits
 non-zero, any mismatch and any timeout fails the run.
 
-Then the ``{"kernels": [...]}`` summary (K1-K7, B2, K1 and K2 in f32 at
-the main shape with the launches of the float32 paths (``model``, the
-split phase's 65,600 batch-heads), and K1-K3 at head dims 256, 288, 512
-and 1000; K1 and B2 with their launches per rank on
+Then the ``{"kernels": [...]}`` summary (K1-K7, B2, K1, K2, K3 and B2 in
+f32 at the main shape with the launches of the float32 paths
+(``model``, the split phase's 65,600 batch-heads), and K1-K3 at head
+dims 256 (bf16 and f32), 288, 512 and 1000; K1 and B2 with their launches per rank on
 ``train_dp``, ``pipeline`` and ``pipeline_dp`` and their times at the
 pipeline's micro-batch shape, K1 with its launches on ``serve``), the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Any
@@ -220,7 +227,8 @@ reasons): every element within rtol * (|ref| + rms of its row + rms(ref)
 kernels do; rtol is two units in the last place for 16-bit outputs and
 for K5's f32 partials of 16-bit inputs (bf16 0.0156, fp16 0.00195) and
 1e-4 for float32 outputs of float32 inputs and lse (summation order
-only).
+only); float32 dq's limit grows by the rounding noise of dP, the term
+``kernel_check`` gives as ``dq_noise``.
 
 The members of a ring all sit on this one card: the run shows the ring's
 kernels, handshakes and numbers, not the memory per member falling as
@@ -303,6 +311,7 @@ RING = (4, 8, 1024, 64)  # one member's shard on the ring path (4 members)
 # (K1, K2, K3) on the split phase's shape, and two head dims no body takes
 # (run zero-padded to 32 and 96) on the main path's shape.
 HEAD_DIM_WIDE = (1, 1040, 512, 256)
+HEAD_DIM_WIDE_F32 = (1, 64, 1024, 256)  # K1, K2, K3's 3xTF32 bodies
 HEAD_DIM_PADDED = ((16, 8, 1024, 16), (16, 8, 1024, 80))
 # Head dims above 256 (ROADMAP C.1), (shape, dtype): the wide bodies of
 # K1, K2 and K3 at 288 and 512, and at 1000 (run padded to 1024), in bf16;
@@ -325,9 +334,11 @@ WIDE_F32_SOURCE = "horovod_tpu_torch/ops/csrc/flash_wide_f32_sm90.cuh"
 # and K2 at head dims 32, 96 and 256 (two column CTAs; no B2 there), and a
 # ragged non-causal length.
 F32_CASES = [((16, 8, 1024, 32), torch.float32, True),
+             ((16, 8, 1024, 128), torch.float32, True),
              ((16, 8, 1024, 96), torch.float32, True),
              ((2, 8, 1024, 256), torch.float32, True),
-             ((16, 8, 1000, 64), torch.float32, False)]
+             ((16, 8, 1000, 64), torch.float32, False),
+             ((2, 2, 8192, 64), torch.float32, True)]
 # Quoted, not measured by this script: the SIMT bodies' times at
 # HEAD_DIM_WIDER's shapes before they moved to tensor cores, in ms of K1,
 # K2, K3 by the head_dims phase's row tag: bf16 (all three), and f32 (K1
@@ -485,8 +496,9 @@ def check_case(shape, dtype, causal, seed=0):
     args = (qr, k, v, do, ref["lse"], delta, p2, scale_r, causal)
     got = kernel_check.kernel_outputs(*args, mode)
     if mode == "split":  # no B2: K1 and the split pair alone
-        for n in ("dq", "dk", "dv"):
-            del got[n], ref[n]
+        for n in ("dq", "dk", "dv", "dq_noise"):
+            got.pop(n, None)
+            ref.pop(n, None)
     # The split pair against the plain side that walks its own key tile.
     split = kernel_check.kernel_bwd_outputs(*args, "split")
     split_ref = kernel_check.plain_bwd_outputs(*args, "split")
@@ -497,9 +509,14 @@ def check_case(shape, dtype, causal, seed=0):
             fail(f"{name} not finite at {shape} {dtype}")
     # lse is compared finite-to-finite (ragged or causal rows all have
     # mass, so no POS_BIG sentinel appears here).
-    first = {n: kernel_check.compare_first_rows(got[n], ref[n])
+    # float32 dq by its limit with the term of dP's rounding noise
+    # (kernel_check's dq_noise); its first rows under both limits.
+    first = {n: kernel_check.compare_first_rows(got[n], ref[n],
+                                                noise=ref.get(n + "_noise"))
              for n in ("dq", "split_dq") if n in got}
-    return {n: kernel_check.compare(got[n], ref[n]) for n in got}, first
+    return {n: kernel_check.compare(got[n], ref[n],
+                                    noise=ref.get(n + "_noise"))
+            for n in got}, first
 
 
 def k1_b2_entries(shape, errs, dtype=torch.bfloat16, causal=True):
@@ -578,9 +595,9 @@ def phase_kernels():
     dtype = torch.bfloat16
     entries, t_dkdv, t_dq, lib_fwd, lib_bwd = k1_b2_entries(
         MAIN, case_errs[(MAIN, dtype, True)])
-    # The f32 bodies at the same shape (K1 and K2 on 3xTF32 wgmma, B2 and
-    # K3 SIMT), beside SDPA in float32; K1's and K2's rows go into the
-    # summary with the launches of the f32 paths.
+    # The f32 bodies at the same shape (K1, K2, K3 and B2 on 3xTF32
+    # wgmma), beside SDPA in float32; their rows go into the summary with
+    # the launches of the f32 paths.
     f32 = k1_b2_entries(MAIN, case_errs[(MAIN, torch.float32, True)],
                         torch.float32)
     f32_errs = case_errs[(MAIN, torch.float32, True)]
@@ -598,19 +615,27 @@ def phase_kernels():
         library_by_backend=f32[4], x_library=f32[1] / t_sdpa_bwd,
         note="plain_ms: the whole plain combined backward; library_ms: "
              "SDPA's whole backward in float32")
+    # B2 and K3 on their 3xTF32 bodies.
+    b2 = f32[0]["flash_bwd"]
+    entries["flash_bwd_f32"] = dict(
+        b2, name="flash_bwd_f32", source=WIDE_F32_SOURCE, shape=list(MAIN),
+        x_library=b2["ms"] / t_sdpa_bwd)
+    k3_flops, k3_bytes = split_bounds(MAIN, torch.float32, True)[
+        "flash_bwd_dq"]
+    entries["flash_bwd_dq_f32"] = _entry(
+        "flash_bwd_dq_f32", f32[2], b2["plain_ms"], t_sdpa_bwd, k3_flops,
+        k3_bytes, torch.float32, f32_errs["split_dq"]["max_abs_err"],
+        kernel="flash_bwd_dq", source=WIDE_F32_SOURCE, shape=list(MAIN),
+        library_by_backend=f32[4], x_library=f32[2] / t_sdpa_bwd,
+        note="plain_ms: the whole plain combined backward; library_ms: "
+             "SDPA's whole backward in float32")
 
     def timing(es):
         return {n: {k: e[k] for k in ("ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms")}
                 for n, e in es.items()}
-    k3_flops, k3_bytes = split_bounds(MAIN, torch.float32, True)[
-        "flash_bwd_dq"]
-    f32_timing = timing({n: f32[0][n] for n in ("flash_fwd", "flash_bwd")})
-    f32_timing["flash_bwd_dkdv"] = timing(
-        {"k2": entries["flash_bwd_dkdv_f32"]})["k2"]
-    f32_timing["flash_bwd_dq"] = {
-        "ms": f32[2], "bound_ms": bound_ms(k3_flops, k3_bytes,
-                                           torch.float32)[0]}
+    f32_timing = timing({n: entries[f"{n}_f32"] for n in (
+        "flash_fwd", "flash_bwd", "flash_bwd_dkdv", "flash_bwd_dq")})
     for n, t in f32_timing.items():
         lib = (f32[0]["flash_fwd"] if n == "flash_fwd"
                else f32[0]["flash_bwd"])["library_ms"]
@@ -624,12 +649,14 @@ def phase_kernels():
          note="library_ms: the fastest SDPA backend's forward for K1, its "
               "whole backward (dq, dk, dv) for B2; k2_ms, k3_ms: the split "
               "pair at this shape, which no path gives it (its entries come "
-              "from the split phase); f32: K1 and K2 (3xTF32 wgmma), B2 and "
-              "K3 (SIMT) in float32 at the same shape, beside SDPA in "
-              "float32 (x_sdpa: ms over SDPA's fastest forward for K1, its "
-              "whole backward for the others; bounds at the 3xTF32 rate, "
+              "from the split phase); f32: K1, K2, K3 and B2 (3xTF32 wgmma) "
+              "in float32 at the same shape, beside SDPA in float32 "
+              "(x_sdpa: ms over SDPA's fastest forward for K1, its whole "
+              "backward for the others; bounds at the 3xTF32 rate, "
               "PEAK_FLOPS); dq_first_rows: dq's worst over query rows 0-7 "
-              "and the rest apart (the causal first row's dq cancels to 0)")
+              "and the rest apart (the causal first row's dq cancels to 0): "
+              "worst under the limit without dq's term, worst_new with it, "
+              "the one dq is held to in float32")
     return entries
 
 
@@ -664,8 +691,8 @@ def phase_model():
     # f32 on both sides: summation order only.
     if dl > 1e-4 or dg > 1e-4:
         fail(f"model path disagrees with the plain path: {dl}, {dg}")
-    # The float32 path's K1 and B2 (2 layers, one step): K1 on its 3xTF32
-    # body.
+    # The float32 path's K1 and B2 (2 layers, one step), on their 3xTF32
+    # bodies.
     if launched != {"flash_fwd": 2, "flash_bwd": 2, "flash_bwd_dkdv": 0,
                     "flash_bwd_dq": 0}:
         fail(f"model path launched {launched}")
@@ -732,8 +759,11 @@ def hold_many_heads(dtype):
     plain blockwise path."""
     launched, got, want = drive_flash_attention(SPLIT_WIDE, dtype, True, 7)
     if dtype == torch.float32:
-        # f32 on both sides: summation order only (kernel_check's rule).
-        errs = {n: kernel_check.compare(got[n], want[n]) for n in got}
+        # f32 on both sides: summation order only (kernel_check's rule, dq
+        # with its term).
+        errs = {n: kernel_check.compare(got[n], want[n],
+                                        noise=want.get(n + "_noise"))
+                for n in got}
         ok = all(e["worst"] <= 1.0 for e in errs.values())
     else:
         # 16-bit kernels against the f32 plain path: rounding of the
@@ -863,8 +893,8 @@ def phase_split():
             shape=list(SPLIT), body=f"horovod_tpu_torch/ops/csrc/{body}",
             note="plain_ms: the whole plain split backward; library_ms: "
                  "SDPA's whole backward")
-    # The float32 split path's launches (65,600 batch-heads): K2 on its
-    # 3xTF32 body.
+    # The float32 split path's launches (65,600 batch-heads): K2 and K3 on
+    # their 3xTF32 bodies.
     return launched, entries, wide[1]["launches"]
 
 
@@ -895,7 +925,7 @@ def drive_flash_attention(shape, dtype, causal, seed):
     """``flash_attention`` forward and backward at ``shape`` on inputs
     from ``seed``, with the counters zeroed just before and read just
     after: ``(launches, {o, dq, dk, dv}, the same of the plain blockwise
-    path in f32)``."""
+    path in f32, in f32 with dq's term dq_noise)``."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v, ct = (torch.randn(shape, device="cuda", generator=g,
                                dtype=torch.float32).to(dtype)
@@ -911,8 +941,10 @@ def drive_flash_attention(shape, dtype, causal, seed):
     ref = A.blockwise_attention(*ref_in, causal=causal)
     ref_grads = torch.autograd.grad(ref, ref_in, ct.float())
     names = ("o", "dq", "dk", "dv")
-    return (launched, dict(zip(names, (out.detach(), *grads))),
-            dict(zip(names, (ref.detach(), *ref_grads))))
+    want = dict(zip(names, (ref.detach(), *ref_grads)))
+    if dtype == torch.float32:
+        want["dq_noise"] = kernel_check.path_dq_noise(q, k, v, ct, causal)
+    return launched, dict(zip(names, (out.detach(), *grads))), want
 
 
 def _rel_errs(got, want):
@@ -985,7 +1017,8 @@ def phase_head_dims():
     head dim and the bound of the caller's work.  Returns the summary's
     rows of 256 and above."""
     causal = True
-    cases = ([(HEAD_DIM_WIDE, torch.bfloat16, "split")]
+    cases = ([(HEAD_DIM_WIDE, torch.bfloat16, "split"),
+              (HEAD_DIM_WIDE_F32, torch.float32, "split")]
              + [(s, dt, "split") for s, dt in HEAD_DIM_WIDER]
              + [(s, torch.bfloat16, "combined") for s in HEAD_DIM_PADDED])
     result, entries = {}, {}
@@ -1060,12 +1093,12 @@ def phase_head_dims():
                     "K1, whole backward for K2 and K3); bound of the "
                     "caller's head dim's work")
             quoted = WIDE_QUOTED_MS.get(tag, (None,) * 3)
-            # Above 256 the 16-bit bodies are the wgmma ones, f32 K1 and
-            # K2 the 3xTF32 ones and f32 K3 the SIMT one.
+            # In f32 K1, K2 and K3 run the 3xTF32 bodies, but K3 above 256
+            # the SIMT one; above 256 the 16-bit bodies are the wgmma ones.
             f32 = dtype == torch.float32
-            sources = {n: None if not wide else WIDE_SOURCE
-                       if f32 and n == "flash_bwd_dq" else WIDE_F32_SOURCE
-                       if f32 else WIDE_SM90_SOURCE
+            sources = {n: WIDE_SOURCE if f32 and wide and n == "flash_bwd_dq"
+                       else WIDE_F32_SOURCE if f32 else WIDE_SM90_SOURCE
+                       if wide else None
                        for n in ("flash_fwd", "flash_bwd_dkdv",
                                  "flash_bwd_dq")}
             entries[f"flash_fwd_{tag}"] = _rates(_entry(
@@ -1242,7 +1275,6 @@ def phase_ring_kernels():
                 emit("ring_kernels", cases=cases, failed=rows)
                 fail(f"ring kernel disagrees with its plain version: "
                      f"{cases[-1]}")
-    bf16_rows = rows_by[torch.bfloat16]
 
     # K6: bit-exact rotations by +1 and -1, and the VJP (rotation by -1 on
     # the flipped namespace).
@@ -1284,32 +1316,16 @@ def phase_ring_kernels():
         fail(f"K6/K7 check failed: K6 {exact}, K7 zeros {k7_zero}, "
              f"flags {mesh.flags.tolist()}")
 
-    # Times at the ring path's shape, bf16: K4 and K5 on a wholly visible
-    # step (the heaviest kind), one launch without rotation; a rotating
-    # round of all members beside it.  K6 and K7: one round of all members.
+    # Times at the ring path's shape: K4 and K5 on a wholly visible step
+    # (the heaviest kind), one launch without rotation, in bf16 and f32; in
+    # bf16 a rotating round of all members beside them.  K6 and K7: one
+    # round of all members.
     dtype = torch.bfloat16
-    members, _, scale_r = kernel_check.ring_inputs(N_MEMBERS, RING, dtype, 1)
-    m0, m1 = members[0], members[1]
+    steps = {dt: ring_step_times(mesh, dt)
+             for dt in (dtype, torch.float32)}
+    members, scale_r = steps[dtype]["members"], steps[dtype]["scale_r"]
     sl = RING[2]
-    ref, delta = kernel_check.ring_plain_step(m1["qr"], m0["k"], m0["v"],
-                                              m1["do"], sl, 0, True, scale_r)
-    t_k4 = time_ms(lambda: RF.ring_flash_fwd(
-        mesh, 1, m1["qr"], m0["k"], m0["v"], sl, 0, scale_r, True))
-    t_k4_host = time_ms(lambda: RF.ring_flash_fwd(
-        mesh, 1, m1["qr"], m0["k"], m0["v"], sl, 0, scale_r, True),
-        host_ahead=False)
-    t_k5 = time_ms(lambda: RF.ring_flash_bwd(
-        mesh, 1, m1["qr"], m0["k"], m0["v"], m1["do"], ref["lse"], delta,
-        sl, 0, scale_r, True))
-    t_k4_plain = time_ms(lambda: A._blockwise_fwd_impl(
-        m1["qr"], m0["k"], m0["v"], True, scale_r,
-        block_size=A.fwd_key_tile(dtype, RING[3]), q_offset=sl, k_offset=0),
-        warmup=1, iters=5)
-    t_k5_plain = time_ms(lambda: A._attention_bwd_impl(
-        m1["qr"], m0["k"], m0["v"], ref["lse"], delta, m1["do"], True,
-        scale_r, block_size=A.bwd_key_tile("combined", dtype, RING[3]),
-        round_pds=True, q_offset=sl,
-        k_offset=0, grad_dtype=torch.float32), warmup=1, iters=5)
+    t_k4_host = time_ms(steps[dtype]["k4"], host_ahead=False)
     calls = [dict(qr=members[i]["qr"], k=members[i]["k"],
                   v=members[i]["v"], q_offset=i * sl, k_offset=i * sl,
                   scale_r=scale_r, causal=True, rotate=True, phase=0)
@@ -1320,9 +1336,6 @@ def phase_ring_kernels():
         RF.launch_round(mesh, kernel, calls)
         mesh.join(caller)
     t_k4_round = time_ms(lambda: rotating_round(RF.ring_flash_fwd, calls))
-    b, h, _, d = RING
-    lib_fwd, t_lib_fwd, lib_bwd, t_lib_bwd = sdpa_times(RING, dtype, False,
-                                                        1.0, 1)
     t_k6 = time_ms(lambda: rdma.permute_shards(xs, mesh, 1, 0))
     split = handshake_split(mesh, xs)
     dsts = [torch.empty_like(x) for x in xs]
@@ -1334,21 +1347,33 @@ def phase_ring_kernels():
         fail(f"flags out of balance after the timed rounds: "
              f"{mesh.flags.tolist()}")
 
-    bh = b * h
-    el = torch.tensor([], dtype=dtype).element_size()
-    tile, tile32, row = bh * sl * d * el, bh * sl * d * 4, bh * sl * 4
-    pairs = bh * sl * sl  # a wholly visible step
+    b, h, _, d = RING
+    tile = b * h * sl * d * torch.tensor([], dtype=dtype).element_size()
+
+    def step_entry(name, dt, outs, **extra):
+        s = steps[dt]
+        flops, nbytes, lib_ms, by_backend = s["work"][name]
+        return _entry(name, s["ms"][name], s["plain_ms"][name], lib_ms,
+                      flops, nbytes, dt, _max_err(rows_by[dt], outs),
+                      library_by_backend=by_backend, **extra)
+
+    f32 = {}
+    for n, outs in (("ring_flash_fwd", ("o", "lse")),
+                    ("ring_flash_bwd", ("dq", "dk", "dv"))):
+        e = step_entry(n, torch.float32, outs)
+        f32[n] = {k: e[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms", "library_by_backend",
+                                    "max_abs_err")}
+        f32[n]["x_sdpa"] = e["ms"] / e["library_ms"] if e["library_ms"] \
+            else None
     entries = {
-        "ring_flash_fwd": _entry(
-            "ring_flash_fwd", t_k4, t_k4_plain, t_lib_fwd, 4 * d * pairs,
-            3 * tile + tile + row, dtype, _max_err(bf16_rows, ("o", "lse")),
-            rotating_round_ms=t_k4_round, library_by_backend=lib_fwd,
-            ms_with_host=t_k4_host),
-        "ring_flash_bwd": _entry(
-            "ring_flash_bwd", t_k5, t_k5_plain, t_lib_bwd, 10 * d * pairs,
-            4 * tile + 2 * row + 3 * tile32, dtype,
-            _max_err(bf16_rows, ("dq", "dk", "dv")),
-            library_by_backend=lib_bwd),
+        "ring_flash_fwd": step_entry(
+            "ring_flash_fwd", dtype, ("o", "lse"),
+            rotating_round_ms=t_k4_round, ms_with_host=t_k4_host,
+            f32=f32["ring_flash_fwd"]),
+        "ring_flash_bwd": step_entry(
+            "ring_flash_bwd", dtype, ("dq", "dk", "dv"),
+            f32=f32["ring_flash_bwd"]),
         "ring_permute": _entry(
             "ring_permute", t_k6, None, t_copy, 0,
             2 * N_MEMBERS * tile, dtype, 0.0,
@@ -1372,11 +1397,56 @@ def phase_ring_kernels():
          timing={n: {k: e.get(k) for k in ("ms", "plain_ms", "bound_ms",
                                            "bound_by", "library_ms")}
                  for n, e in entries.items()},
-         k4_rotating_round_ms=t_k4_round, handshake_split=split,
+         k4_rotating_round_ms=t_k4_round, handshake_split=split, f32=f32,
          note="K4/K5: one launch on a wholly visible step of the ring "
-              "shard, no rotation; library_ms: SDPA forward / backward "
-              "(non-causal) on the same shard")
+              "shard, no rotation, in bf16 (f32: the same in float32, on "
+              "their SIMT f32 bodies, bounds at the 3xTF32 rate); "
+              "library_ms: SDPA forward / backward (non-causal) on the same "
+              "shard")
     return entries
+
+
+def ring_step_times(mesh, dtype):
+    """K4's and K5's times at the ring path's shard in ``dtype``: one
+    launch on a wholly visible step, no rotation, beside their plain
+    versions and SDPA (non-causal) on the same shard, with each one's work
+    (flops, bytes, SDPA's ms and its backends), the inputs and K4's call."""
+    members, _, scale_r = kernel_check.ring_inputs(N_MEMBERS, RING, dtype, 1)
+    m0, m1 = members[0], members[1]
+    b, h, sl, d = RING
+    ref, delta = kernel_check.ring_plain_step(m1["qr"], m0["k"], m0["v"],
+                                              m1["do"], sl, 0, True, scale_r)
+
+    def k4():
+        return RF.ring_flash_fwd(mesh, 1, m1["qr"], m0["k"], m0["v"], sl, 0,
+                                 scale_r, True)
+    ms = {"ring_flash_fwd": time_ms(k4),
+          "ring_flash_bwd": time_ms(lambda: RF.ring_flash_bwd(
+              mesh, 1, m1["qr"], m0["k"], m0["v"], m1["do"], ref["lse"],
+              delta, sl, 0, scale_r, True))}
+    plain = {"ring_flash_fwd": time_ms(lambda: A._blockwise_fwd_impl(
+                 m1["qr"], m0["k"], m0["v"], True, scale_r,
+                 block_size=A.fwd_key_tile(dtype, d), q_offset=sl,
+                 k_offset=0), warmup=1, iters=5),
+             "ring_flash_bwd": time_ms(lambda: A._attention_bwd_impl(
+                 m1["qr"], m0["k"], m0["v"], ref["lse"], delta, m1["do"],
+                 True, scale_r,
+                 block_size=A.bwd_key_tile("combined", dtype, d),
+                 round_pds=True, q_offset=sl, k_offset=0,
+                 grad_dtype=torch.float32), warmup=1, iters=5)}
+    lib_fwd, t_lib_fwd, lib_bwd, t_lib_bwd = sdpa_times(RING, dtype, False,
+                                                        1.0, 1)
+    el = torch.tensor([], dtype=dtype).element_size()
+    tile, tile32, row = b * h * sl * d * el, b * h * sl * d * 4, b * h * sl * 4
+    pairs = b * h * sl * sl  # a wholly visible step
+    # (flops, bytes: each input read once, each output written once; K5's
+    # gradients are f32 partials)
+    work = {"ring_flash_fwd": (4 * d * pairs, 4 * tile + row, t_lib_fwd,
+                               lib_fwd),
+            "ring_flash_bwd": (10 * d * pairs, 4 * tile + 2 * row + 3 * tile32,
+                               t_lib_bwd, lib_bwd)}
+    return {"ms": ms, "plain_ms": plain, "work": work, "members": members,
+            "scale_r": scale_r, "k4": k4}
 
 
 def ring_launches():
@@ -2917,10 +2987,13 @@ def main():
             f.write(f"== {k}\n{v['log']}\n")
 
     entries = phase_kernels()
-    f32_launched = {"flash_fwd_f32": phase_model()["flash_fwd"]}
+    model = phase_model()
+    f32_launched = {"flash_fwd_f32": model["flash_fwd"],
+                    "flash_bwd_f32": model["flash_bwd"]}
     launched = phase_train()
     split, split_entries, split_f32 = phase_split()
     f32_launched["flash_bwd_dkdv_f32"] = split_f32["flash_bwd_dkdv"]
+    f32_launched["flash_bwd_dq_f32"] = split_f32["flash_bwd_dq"]
     entries.update(split_entries)
     wide_entries = phase_head_dims()
     ring_entries = phase_ring_kernels()

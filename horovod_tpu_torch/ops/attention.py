@@ -28,12 +28,12 @@ Counterpart of ``horovod_tpu/ops/attention.py``.  Layout convention:
   zero-padded to a multiple of 32: in fp16 and bf16 on wgmma and TMA
   (``csrc/flash_wide_sm90.cuh``), in f32 K1 and K2 on 3xTF32 wgmma and
   TMA (``csrc/flash_wide_f32_sm90.cuh``) and K3 on SIMT.  In f32 at
-  every head dim up to 256 K1 and K2 run those 3xTF32 bodies too (their
-  window the whole head dim up to 128, two column blocks at 256), while
-  B2 and K3 keep their SIMT bodies: a tensor-core dq would not meet the
-  f32 rule at the causal first query row, where dP - delta cancels.
-  Any other CUDA input the kernels cannot take raises; nothing falls
-  back.
+  every head dim up to 256 K1, K2 and K3 run 3xTF32 bodies of that
+  header too (their window the whole head dim up to 128, two column
+  blocks at 256), and so does B2 up to 128 (K2's body with dQ = dS K
+  added, its window the whole head dim up to 64, two column blocks of
+  64 columns at 96 and 128).  Any other CUDA input the kernels cannot
+  take raises; nothing falls back.
 
 The plain versions multiply in float32 on operands rounded to the storage
 dtype — the reference's ``preferred_element_type=float32`` — so f32 matmul
@@ -70,8 +70,8 @@ _SPLIT_HEAD_DIMS = HEAD_DIMS + (WIDE_HEAD_DIM,)
 # the f32 ones in csrc/flash_wide_f32_sm90.cuh).  Key tiles by dtype
 # class: the forward's is the 16-bit K1 body's FWD_KEYS and the f32 one's
 # F32_FWD_KEYS; the split mode's is K3's, the one its dq sums over (the
-# 16-bit body's DQ_KEYS and the f32 SIMT body's TK; K2's keys per CTA do
-# not change any sum).
+# 16-bit body's DQ_KEYS and the f32 SIMT wide body's TK, csrc/flash_wide.cu;
+# K2's keys per CTA do not change any sum).
 WIDE_CHUNK = 32
 _WIDE_KEY_TILE = {"fwd": {"16-bit": 128, "f32": 64},
                   "split": {"16-bit": 64, "f32": 64}}
@@ -98,11 +98,13 @@ _FWD_KEY_TILE = {d: {"16-bit": 128 if d <= 64 else 64, "f32": 64}
 
 # Key tile of each backward body per head dim and mode: B2/K5's 16-bit
 # body (csrc/flash_bwd_sm90.cuh, sm90::BWD_BN), K3's (csrc/flash_dq_sm90.cuh,
-# dq_key_tile) and the f32 SIMT bodies of B2 and K3 (csrc/flash_common.cuh,
-# f32_tile; K2's 64 keys a CTA change no sum).  The combined mode has no
-# body at the wide head dim.
+# dq_key_tile), and in f32 the one B2 and K5 share, 64 (B2's 3xTF32 body
+# sums each query step's dQ over its CTA's F32_DKDV_KEYS, K5's SIMT body
+# over csrc/flash_common.cuh's f32_tile), and K3's 3xTF32 body's 32
+# (csrc/flash_wide_f32_sm90.cuh, F32_DQ_KEYS; K2's 64 keys a CTA change no
+# sum).  The combined mode has no body at the wide head dim.
 _BWD_KEY_TILE = {d: {"combined": {"16-bit": 128, "f32": 64},
-                     "split": {"16-bit": 64, "f32": 64}}
+                     "split": {"16-bit": 64, "f32": 32}}
                  for d in HEAD_DIMS}
 _BWD_KEY_TILE[WIDE_HEAD_DIM] = {"split": {"16-bit": 64, "f32": 32}}
 
@@ -177,10 +179,12 @@ def bwd_key_tile(mode: str, dtype, d: int) -> int:
     in 16 bits, 128 for the combined body of B2 and K5
     (csrc/flash_bwd_sm90.cuh, sm90::BWD_BN) and, for the split pair, K3's
     key tile, the one its dq sums over (csrc/flash_dq_sm90.cuh,
-    ``dq_key_tile``); 64 for the f32 SIMT bodies of B2 and K3
-    (csrc/flash_common.cuh, f32_tile), 32 at head dim 256; 64 above
-    256, K3's wide bodies' (csrc/flash_wide_sm90.cuh, DQ_KEYS, in 16 bits;
-    csrc/flash_wide.cu, TK, in f32).  A plain side that holds a kernel
+    ``dq_key_tile``); in f32 64 for the combined mode (B2's 3xTF32 body's
+    64 keys a CTA, csrc/flash_wide_f32_sm90.cuh, F32_DKDV_KEYS, and K5's
+    SIMT f32_tile, csrc/flash_common.cuh) and 32 for the split pair up to
+    256 (K3's 3xTF32 body, F32_DQ_KEYS); 64 above 256, K3's wide bodies'
+    (csrc/flash_wide_sm90.cuh, DQ_KEYS, in 16 bits; csrc/flash_wide.cu,
+    TK, in f32).  A plain side that holds a kernel
     walks the keys in the kernel's key tiles, so dq sums in the same
     blocks.  The combined mode stops at head dim 128, as :func:`bwd_mode`
     does."""
@@ -319,7 +323,8 @@ def _blockwise_fwd_impl(q, k, v, causal, sm_scale, block_size=512,
 
 def _attention_bwd_impl(q, k, v, lse, delta, g, causal, sm_scale,
                         block_size=512, dq_scale=1.0, round_pds=False,
-                        q_offset=0, k_offset=0, grad_dtype=None):
+                        q_offset=0, k_offset=0, grad_dtype=None,
+                        dq_noise=False):
     """Flash-attention backward: recompute each key block's probabilities
     from (q, k, lse); ``delta`` = rowsum(g * out) in float32.  Returns
     (dq * dq_scale, dk, dv) in the input dtypes (or all three in
@@ -329,11 +334,19 @@ def _attention_bwd_impl(q, k, v, lse, delta, g, causal, sm_scale,
     ``round_pds`` rounds p and ds to the storage dtype before the products
     that take them, where the kernels (and the reference's Pallas
     ``_bwd_block_math``) round them; by default they stay float32, as in
-    the reference's blockwise backward.  It changes nothing in float32."""
+    the reference's blockwise backward.  It changes nothing in float32.
+
+    ``dq_noise`` (the kernel check's, ``ops/kernel_check.py``; no caller
+    of the backward sets it) appends a fourth tensor: per dq element the
+    rounding noise that dP = g v^T's float32 sum over the head dim passes
+    on to dq, sqrt(d) eps32 |sm_scale dq_scale| sqrt(sum_j (p_ij a_ij)^2
+    k_jc^2) with a = |g| |v|^T, from this side's own p, two products a
+    key block."""
     q_len, k_len = q.shape[-2], k.shape[-2]
     block = min(block_size, k_len)
     g32 = g.float()
     dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    noise2 = torch.zeros_like(dq) if dq_noise else None
     dks, dvs = [], []
     for start in range(0, k_len, block):
         kb = k[..., start:start + block, :]
@@ -354,11 +367,20 @@ def _attention_bwd_impl(q, k, v, lse, delta, g, causal, sm_scale,
             ds = ds.to(q.dtype)
         dq = dq + _mm(ds, kb)
         dks.append(_mm(ds.transpose(-1, -2), q))
+        if dq_noise:
+            a = torch.matmul(g32.abs(), vb.float().abs().transpose(-1, -2))
+            noise2 = noise2 + torch.matmul((p * a).square(),
+                                           kb.float().square())
     dk = torch.cat(dks, dim=-2)
     dv = torch.cat(dvs, dim=-2)
     dts = (q.dtype, k.dtype, v.dtype) if grad_dtype is None else \
         (grad_dtype,) * 3
-    return ((dq * dq_scale).to(dts[0]), dk.to(dts[1]), dv.to(dts[2]))
+    out = ((dq * dq_scale).to(dts[0]), dk.to(dts[1]), dv.to(dts[2]))
+    if not dq_noise:
+        return out
+    unit = (math.sqrt(q.shape[-1]) * torch.finfo(torch.float32).eps
+            * abs(sm_scale * dq_scale))
+    return out + (noise2.sqrt() * unit,)
 
 
 def _delta(out, g):
@@ -665,9 +687,9 @@ def flash_attention(q, k, v, causal: bool = False,
     ignored: the kernels fix their own tiles (the forward 128 query rows
     by 128 keys in 16 bits, 64 keys above head_dim 64, and 128 by 64 in
     float32, :func:`fwd_key_tile`; the backward :func:`bwd_key_tile`; 64
-    query rows at head_dim 256 in 16 bits, 32 x 32 tiles for the f32 K3;
-    above 256, 128 query rows by 128 keys in 16 bits and by 64 in
-    float32, with at most 128 output columns per block).
+    query rows at head_dim 256 in 16 bits, 128 query rows by 32 keys for
+    the f32 K3; above 256, 128 query rows by 128 keys in 16 bits and by
+    64 in float32, with at most 128 output columns per block).
     """
     del block_q, block_k
     if layout not in ("bhsd", "bshd"):

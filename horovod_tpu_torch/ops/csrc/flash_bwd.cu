@@ -4,13 +4,16 @@
 // flash_bwd_split.cu's).
 //
 // B2 replaces `_combined_bwd_kernel` with rotate=False
-// (horovod_tpu/ops/attention.py:498): flash_bwd_sm90.cuh's body, the one
-// K5 (ring_flash.cu) runs, at zero offsets and without copy blocks, one
-// 384-thread CTA per 128-key tile for 16-bit inputs (the f32 body's
-// 64-key tiles otherwise); dK, dV in the input dtype, dQ summed into the
-// caller's zeroed f32 workspace and flushed by scale_cast_kernel: times
-// the pow2 factor p2 in f32, then the cast.  Its note gives the bound and
-// the design.
+// (horovod_tpu/ops/attention.py:498).  16-bit inputs: flash_bwd_sm90.cuh's
+// body, the one K5 (ring_flash.cu) runs, at zero offsets and without copy
+// blocks, one 384-thread CTA per 128-key tile.  f32 inputs: the 3xTF32
+// wgmma/TMA body of flash_wide_f32_sm90.cuh (wide32::dkdv_tile with
+// WITH_DQ, K2's f32 body with dQ = dS K added; 288-thread CTAs of 64 keys,
+// 32-row query steps, a window of the whole head dim up to 64 and two
+// column CTAs of 2 panels at 96 and 128).  dK, dV in the input dtype, dQ
+// summed into the caller's zeroed f32 workspace by TMA reduce and flushed
+// by scale_cast_kernel: times the pow2 factor p2 in f32, then the cast.
+// The bodies' notes give the bound and the designs.
 //
 // Grids are 1-D, (key tiles x bh) blocks, heavy (early, under a causal
 // mask) key tiles first, so any batch-head count launches.  q, k, v, do:
@@ -20,6 +23,7 @@
 #include <algorithm>
 
 #include "flash_bwd_sm90.cuh"
+#include "flash_wide_f32_sm90.cuh"
 
 namespace hvdt {
 
@@ -59,46 +63,21 @@ __global__ void __launch_bounds__(sm90::NTHREADS, 1)
                            0, 0, scale_r, causal);
 }
 
-template <int D>
-__global__ void __launch_bounds__(NT)
-    flash_bwd_f32_kernel(const float* __restrict__ q,
-                         const float* __restrict__ k,
-                         const float* __restrict__ v,
-                         const float* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         float* __restrict__ dk, float* __restrict__ dv,
-                         float* __restrict__ dq, int bh_total, int sq,
-                         int sk, float scale_r, int causal) {
-  const int kt = blockIdx.x / bh_total;  // heavy (early) key tiles first
-  const size_t bh = blockIdx.x % bh_total;
-  bwd_ktile_f32<D>(q + bh * sq * D, k + bh * sk * D, v + bh * sk * D,
-                   dout + bh * sq * D, lse + bh * sq, delta + bh * sq,
-                   dk + bh * sk * D, dv + bh * sk * D, dq + bh * sq * D,
-                   kt * BN, sq, sk, 0, 0, scale_r, causal);
-}
-
-// Set B2's shared-memory limit once, before its first launch (internal
-// linkage: a mutant build loaded beside this one keeps its own flags).
+// Set the 16-bit B2's shared-memory limit once, before its first launch
+// (internal linkage: a mutant build loaded beside this one keeps its own
+// flags; the f32 body's are wide32::prepare's).
 namespace {
-bool g_prepared[3][4] = {};
+bool g_prepared[2][4] = {};
 }  // namespace
 
 template <typename T, int D>
 int prepare_bwd() {
-  constexpr bool f32 = std::is_same<T, float>::value;
-  bool& ready = g_prepared[f32 ? 0 : std::is_same<T, __half>::value ? 1 : 2]
+  bool& ready = g_prepared[std::is_same<T, __half>::value ? 0 : 1]
                           [D / 32 - 1];
   if (ready) return 0;
-  int e;
-  if constexpr (f32)
-    e = (int)cudaFuncSetAttribute(flash_bwd_f32_kernel<D>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)F32BwdSmem<D>::bytes);
-  else
-    e = (int)cudaFuncSetAttribute(flash_bwd_kernel<T, D>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)sm90::BwdSmem<D>::bytes);
+  const int e = (int)cudaFuncSetAttribute(
+      flash_bwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)sm90::BwdSmem<D>::bytes);
   ready = e == 0;
   return e;
 }
@@ -111,16 +90,14 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
                float* dq32, void* dq_out, int bh, int sq, int sk,
                float scale_r, float dq_scale, int causal,
                cudaStream_t stream) {
-  const int prep = prepare_bwd<T, D>();
-  if (prep != 0) return prep;
   if constexpr (std::is_same<T, float>::value) {
-    const int blocks = ((sk + BN - 1) / BN) * bh;
-    flash_bwd_f32_kernel<D><<<blocks, NT, F32BwdSmem<D>::bytes, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-        delta, static_cast<float*>(dk), static_cast<float*>(dv), dq32, bh,
-        sq, sk, scale_r, causal);
+    const int e = wide32::launch_bwd<wide32::bwd_window_panels<D>()>(
+        q, k, v, dout, lse, delta, dk, dv, dq32, bh, sq, sk, D, scale_r,
+        causal, stream);
+    if (e != 0) return e;
   } else {
+    const int prep = prepare_bwd<T, D>();
+    if (prep != 0) return prep;
     CUtensorMap m[5];
     const int e =
         sm90::make_bwd_maps<T, D>(m, q, dout, k, v, dq32, bh, sq, sk);

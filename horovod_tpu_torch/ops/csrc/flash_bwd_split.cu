@@ -27,18 +27,16 @@
 //   one 384-thread CTA per 128-row query tile, heavy (late) query tiles
 //   first, dQ in f32 registers, scaled by the pow2 factor and cast once.
 //   Their notes give the designs.
-// * f32 inputs: K2 is the 3xTF32 wgmma body of flash_wide_f32_sm90.cuh
-//   (wide32::dkdv_tile, the one above 256 runs; its note gives the
-//   design): 64 keys a CTA, 32-row query steps, a window of the whole
-//   head dim up to 128 (d / 32 panels) and two column CTAs of 4 panels at
-//   256.  K3 is the SIMT kernel of the first port (scalar FMAs in full
-//   f32), one 64-row tile per 128-thread block staged through shared
-//   memory (F32BwdSmem's layout): a tensor-core dq meets dP - delta's
-//   cancellation at the causal first rows (ROADMAP C).
+// * f32 inputs: K2 and K3 are the 3xTF32 wgmma bodies of
+//   flash_wide_f32_sm90.cuh (wide32::dkdv_tile, the one above 256 runs,
+//   and wide32::dq_tile; their notes give the designs): K2 64 keys a CTA,
+//   32-row query steps; K3 128 query rows a CTA, 32-key tiles, dq in f32
+//   registers, no atomics; both a window of the whole head dim up to 128
+//   (d / 32 panels) and two column CTAs of 4 panels at 256.
 //
 // Head dims 32, 64, 96, 128 and 256: at 256 both 16-bit bodies split the
 // output's columns between their consumer warpgroups (64-key and 64-row
-// CTAs, two stages), and the f32 K3 takes 32 x 32 tiles.
+// CTAs, two stages).
 //
 // Grids are 1-D, (tiles x bh) blocks, each block decoding its head and
 // tile from blockIdx.x, so any batch-head count launches (a grid's y and
@@ -87,131 +85,25 @@ __global__ void __launch_bounds__(sm90::NTHREADS, 1)
                        dq_scale, causal);
 }
 
-// ---------------------------------------------------------------------------
-// K3's f32 kernel: 128 threads, square tiles of f32_tile<D>() rows (64; 32
-// at head dim 256) through shared memory.
-// ---------------------------------------------------------------------------
-
-// Recompute dS for one (query tile q0, key tile k0) pair from the f32
-// logits in S and dP into dSs.
-template <int D>
-__device__ __forceinline__ void softmax_grad(const float* S, const float* dP,
-                                             float* dSs,
-                                             const float* lse_s,
-                                             const float* delta_s, int q0,
-                                             int k0, int sk, float scale_r,
-                                             int causal) {
-  using L = F32BwdSmem<D>;
-  constexpr int BM = L::BM, BN = L::BN;
-  for (int i = threadIdx.x; i < BM * BN; i += NT) {
-    const int r = i / BN, c = i % BN, qpos = q0 + r, kpos = k0 + c;
-    float x = S[r * L::LDS + c] * scale_r;
-    if (kpos >= sk || (causal && kpos > qpos)) x = NEG_INF;
-    const float p = expf(x - lse_s[r]);  // POS_BIG lse zeroes empty rows
-    dSs[r * L::LDP + c] = p * (dP[r * L::LDS + c] - delta_s[r]) * scale_r;
-  }
-}
-
-template <int ROWS>
-__device__ __forceinline__ void load_rowstats(float* lse_s, float* delta_s,
-                                              const float* lse,
-                                              const float* delta, int q0,
-                                              int sq) {
-  if (threadIdx.x < ROWS) {
-    const int r = q0 + threadIdx.x;
-    lse_s[threadIdx.x] = r < sq ? lse[r] : POS_BIG;
-    delta_s[threadIdx.x] = r < sq ? delta[r] : 0.f;
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(NT)
-    flash_bwd_dq_f32_kernel(const float* __restrict__ q,
-                            const float* __restrict__ k,
-                            const float* __restrict__ v,
-                            const float* __restrict__ dout,
-                            const float* __restrict__ lse,
-                            const float* __restrict__ delta,
-                            float* __restrict__ dq, int bh_total, int sq,
-                            int sk, float scale_r, float dq_scale,
-                            int causal) {
-  using T = float;
-  using L = F32BwdSmem<D>;
-  constexpr int BM = L::BM, BN = L::BN;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* Qs = reinterpret_cast<T*>(smem + L::a);
-  T* dOs = reinterpret_cast<T*>(smem + L::b);
-  T* Ks = reinterpret_cast<T*>(smem + L::c);
-  T* Vs = reinterpret_cast<T*>(smem + L::d);
-  float* S = reinterpret_cast<float*>(smem + L::s);
-  float* dP = reinterpret_cast<float*>(smem + L::dp);
-  T* dSs = reinterpret_cast<T*>(smem + L::ds);
-  float* lse_s = reinterpret_cast<float*>(smem + L::lse);
-  float* delta_s = reinterpret_cast<float*>(smem + L::delta);
-
-  // Heavy (late, under a causal mask) query tiles first.
-  const int n_qt = (sq + BM - 1) / BM;
-  const int q0 = (n_qt - 1 - (int)(blockIdx.x / bh_total)) * BM;
-  const size_t bh = blockIdx.x % bh_total;
-  q += bh * sq * D;
-  dout += bh * sq * D;
-  dq += bh * sq * D;
-  k += bh * sk * D;
-  v += bh * sk * D;
-  lse += bh * sq;
-  delta += bh * sq;
-
-  load_tile<D, BM>(Qs, L::LDT, q, q0, sq);
-  load_tile<D, BM>(dOs, L::LDT, dout, q0, sq);
-  load_rowstats<BM>(lse_s, delta_s, lse, delta, q0, sq);
-  Acc<BM, D> dQ;
-  dQ.zero();
-
-  int n_kt = (sk + BN - 1) / BN;
-  if (causal) n_kt = min(n_kt, (q0 + BM - 1) / BN + 1);
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BN;
-    __syncthreads();
-    load_tile<D, BN>(Ks, L::LDT, k, k0, sk);
-    load_tile<D, BN>(Vs, L::LDT, v, k0, sk);
-    __syncthreads();
-    mm_smem<BM, BN, D, true, false>(S, L::LDS, Qs, L::LDT, Ks, L::LDT);
-    mm_smem<BM, BN, D, true, false>(dP, L::LDS, dOs, L::LDT, Vs, L::LDT);
-    __syncthreads();
-    softmax_grad<D>(S, dP, dSs, lse_s, delta_s, q0, k0, sk, scale_r,
-                    causal);
-    __syncthreads();
-    dQ.template mma<BN, false>(dSs, L::LDP, Ks, L::LDT);  // dS K
-  }
-  // The pow2 factor of sm_scale, applied in f32 before the cast.
-  dQ.store_rows(dq, q0, sq, dq_scale);
-}
-
-// Set both kernels' shared-memory limits once per (dtype, D), before
-// their first launch (internal linkage: a mutant build loaded beside this
-// one keeps its own flags).
+// Set both 16-bit kernels' shared-memory limits once per (dtype, D),
+// before their first launch (internal linkage: a mutant build loaded
+// beside this one keeps its own flags; the f32 bodies' are
+// wide32::prepare's).
 namespace {
-bool g_prepared[3][N_HEAD_DIMS] = {};
+bool g_prepared[2][N_HEAD_DIMS] = {};
 }  // namespace
 
 template <typename T, int D>
 int prepare_split() {
-  constexpr bool f32 = std::is_same<T, float>::value;
-  bool& ready = g_prepared[f32 ? 0 : std::is_same<T, __half>::value ? 1 : 2]
+  bool& ready = g_prepared[std::is_same<T, __half>::value ? 0 : 1]
                           [head_dim_slot<D>()];
   if (ready) return 0;
   constexpr auto attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
-  int e;
-  if constexpr (f32) {
-    e = (int)cudaFuncSetAttribute(flash_bwd_dq_f32_kernel<D>, attr,
-                                  (int)F32BwdSmem<D>::bytes);
-  } else {
-    e = (int)cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, D>, attr,
-                                  (int)sm90::BwdSmem<D, false>::bytes);
-    if (e == 0)
-      e = (int)cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D>, attr,
-                                    (int)sm90::DqSmem<D>::bytes);
-  }
+  int e = (int)cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, D>, attr,
+                                    (int)sm90::BwdSmem<D, false>::bytes);
+  if (e == 0)
+    e = (int)cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D>, attr,
+                                  (int)sm90::DqSmem<D>::bytes);
   ready = e == 0;
   return e;
 }
@@ -247,16 +139,13 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* delta, void* dq, int bh, int sq,
               int sk, float scale_r, float dq_scale, int causal,
               cudaStream_t stream) {
-  const int prep = prepare_split<T, D>();
-  if (prep != 0) return prep;
   if constexpr (std::is_same<T, float>::value) {
-    const int blocks = ((sq + f32_tile<D>() - 1) / f32_tile<D>()) * bh;
-    flash_bwd_dq_f32_kernel<D><<<blocks, NT, F32BwdSmem<D>::bytes, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-        delta, static_cast<float*>(dq), bh, sq, sk, scale_r, dq_scale,
-        causal);
+    return wide32::launch_dq<wide32::window_panels<D>()>(
+        q, k, v, dout, lse, delta, dq, bh, sq, sk, D, scale_r, dq_scale,
+        causal, stream);
   } else {
+    const int prep = prepare_split<T, D>();
+    if (prep != 0) return prep;
     CUtensorMap m[4];
     const int e = sm90::make_dq_maps<T, D>(m, q, dout, k, v, bh, sq, sk);
     if (e != 0) return e;

@@ -1,8 +1,8 @@
 // Shared pieces of the flash-attention kernels (flash_fwd.cu, flash_bwd.cu,
 // flash_bwd_split.cu, ring_flash.cu).
 //
-// The SIMT f32 bodies of B2, K3, K4 and K5 (K1's and K2's f32 bodies are
-// the 3xTF32 ones of flash_wide_f32_sm90.cuh, the 16-bit ones the
+// The SIMT f32 bodies of K4 and K5 (K1's, K2's, K3's and B2's f32 bodies
+// are the 3xTF32 ones of flash_wide_f32_sm90.cuh, the 16-bit ones the
 // *_sm90.cuh headers'): one thread block of four warps owns one 64-row
 // tile of one (batch*head) row and walks its own loop over the other
 // sequence axis.  Operand tiles are staged through shared memory; every
@@ -29,13 +29,13 @@ constexpr int BM = 64;   // query rows per tile
 constexpr int BN = 64;   // key rows per tile
 constexpr int NT = 128;  // threads per block: four warps
 
-// Rows per tile (query and key alike) of the f32 bodies at head dim D: 64,
-// and 32 at the wide head dim 256, where 64-row tiles of q, k, v and the
-// output would not fit in shared memory.  The bodies shadow BM and BN
+// Rows per tile (query and key alike) of the SIMT f32 bodies at head dim
+// D: 64 (K4 and K5 take head dims up to 128).  The bodies shadow BM and BN
 // with it.
 template <int D>
 __host__ __device__ constexpr int f32_tile() {
-  return D <= 128 ? 64 : 32;
+  static_assert(D <= 128, "the SIMT f32 bodies take head dims to 128");
+  return 64;
 }
 
 // Slot of head dim D in the kernels' once-per-(dtype, D) tables: 0-3 for

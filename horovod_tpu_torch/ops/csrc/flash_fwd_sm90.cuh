@@ -408,9 +408,9 @@ int make_maps(CUtensorMap* mq, CUtensorMap* mk, CUtensorMap* mv,
 }  // namespace sm90
 
 // ---------------------------------------------------------------------------
-// The f32 body: 128 threads, one query tile of f32_tile<D>() rows (64; 32
-// at head dim 256), key tiles of as many rows staged through shared
-// memory, products by scalar FMA (mm_smem).
+// The f32 body (K4's): 128 threads, one query tile of f32_tile<D>() rows
+// (64), key tiles of as many rows staged through shared memory, products
+// by scalar FMA (mm_smem).
 // ---------------------------------------------------------------------------
 
 template <int D>

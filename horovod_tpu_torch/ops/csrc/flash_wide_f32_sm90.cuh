@@ -1,17 +1,19 @@
-// K1 and K2 in float32 at every head dim, for Hopper (sm_90a): the 3xTF32
-// wgmma and TMA bodies of the flash forward and of the split backward's
-// dK/dV half.  flash_fwd.cu (flash_fwd) and flash_bwd_split.cu
-// (flash_bwd_dkdv) launch them for f32 at head dims 32, 64, 96, 128 and
-// 256, flash_wide.cu (flash_fwd_wide, flash_bwd_dkdv_wide) above 256.
-// B2's and K3's f32 bodies stay SIMT (flash_bwd_sm90.cuh, flash_wide.cu):
-// under a causal mask dq at query row 0 is a rounding residue of dP -
-// delta that only the plain side's own summation order reproduces within
-// the f32 rule (ROADMAP C).
+// The float32 flash kernels on 3xTF32 wgmma and TMA, for Hopper (sm_90a):
+// K1 (the forward) and K2 (the split backward's dK/dV half) at every head
+// dim, K3 (its dQ half) and B2 (the combined backward) up to the head dims
+// their plan gives them.  flash_fwd.cu (flash_fwd) and flash_bwd_split.cu
+// (flash_bwd_dkdv, flash_bwd_dq) launch them for f32 at head dims 32, 64,
+// 96, 128 and 256, flash_bwd.cu (flash_bwd) at 32 to 128, flash_wide.cu
+// (flash_fwd_wide, flash_bwd_dkdv_wide) above 256, where K3 keeps a SIMT
+// body (flash_wide.cu).  Under a causal mask dq at query row 0 is a
+// rounding residue of dP - delta; kernel_check holds float32 dq to a limit
+// that grows by the rounding noise of dP, which that residue is.
 //
 // They replace the Pallas TPU kernels `_flash_kernel`
-// (horovod_tpu/ops/attention.py:356, pallas_call :1047) and
-// `_flash_bwd_dkdv_kernel` (:429, pallas_call :914, math in
-// `_bwd_block_math` :386) in float32.  Semantics as flash_wide.cu's note
+// (horovod_tpu/ops/attention.py:356, pallas_call :1047),
+// `_flash_bwd_dkdv_kernel` (:429, pallas_call :914), `_flash_bwd_dq_kernel`
+// (:465, pallas_call :930) and `_combined_bwd_kernel` with rotate=False
+// (:498, pallas_call :706), math in `_bwd_block_math` :386, in float32.  Semantics as flash_wide.cu's note
 // and the reference's: masked logits NEG_INF, m_safe and alpha rescaling,
 // l summed over the unrounded p, lse = POS_BIG and o = 0 for rows with no
 // key, dK and dV summed and stored in f32, a ragged tail zero-filled and
@@ -42,12 +44,19 @@
 // gets o = v exactly, as f32 does: three products leave o off v by up to
 // 2^-22, and the caller's delta = dO . o then misses dP = dO . v at that
 // row by more than dq's limit allows (1.1 of the rule at 32 x 1024 x 64,
-// CPU emulation; 0.06 with the fourth product).
+// CPU emulation; 0.06 with the fourth product).  The sums over the loop
+// likewise: K1's O, K2's (B2's) dV and dK and K3's dQ take each key tile's
+// (query step's) product in a fresh accumulator, 16 to 64 columns at a
+// time in registers the score products leave free, and add it in f32
+// registers.  Chained through one accumulator over the loop they drift
+// with its length: 0.94-1.15 of the rule at seq 8192 (causal, head dims
+// 64-256; tools/torch_split_variants.py --family f32 A/Bs each).
 //
 // Bound on the card: by operations at every shape the callers use, at the
 // TF32 peak over three products (494.7 / 3 TFLOP/s): K1 4 d FLOP per
-// causal pair against 8 d bytes per row, K2 8 d.  The design, the 16-bit
-// wide bodies' skeleton (flash_wide_sm90.cuh) with what TF32 changes:
+// causal pair against 8 d bytes per row, K2 8 d, K3 6 d, B2 10 d.  The
+// design, the 16-bit wide bodies' skeleton (flash_wide_sm90.cuh) with what
+// TF32 changes:
 //  1. TF32 wgmma reads K-major operands only (the transpose immediates
 //     exist for f16 / bf16 alone).  S = q' K^T (K1), S^T = K q'^T and
 //     dP^T = V dO^T (K2) are K-major as they lie in memory; O += P V,
@@ -97,13 +106,38 @@
 //     (3x the caller's 8 d up to 128, 6.5x, 7.5x at 288, 512).  ptxas
 //     (PERF.md): K1 126 / 141 / 160 / 168 registers at NP 1-4, K2 160 /
 //     168 / 168 / 168, only K2 at NP = 4 spilling (76 B).
+//  6. K3 (dq_tile) is K1's skeleton with dP beside S: 128 query rows a
+//     CTA, 32-key tiles (S, dP and a chunk's of each, 16 registers apiece,
+//     beside dQ's 16 NP), (q', dO, K, V) chunks streamed through three
+//     stages (1-4% faster than two, tools/torch_split_variants.py), q' and dO split in registers as the A fragments, K and V in
+//     shared memory as B.  dS = p (dP - delta) scale_r stays in registers
+//     and is split into the A fragment of dQ += dS K, whose B is K^T of the
+//     window staged hi / lo from a raw K window, keys permuted as in K1's
+//     V^T.  dQ stays in registers across the key loop and is written once,
+//     times p2: no atomics.  Shared memory 144 + 12 NP KB (192 KB at
+//     NP = 4).  ptxas: 149 / 164 / 168 / 168 registers at NP 1-4, 12 B and
+//     72 B spilled at NP 3 and 4.
+//  7. B2 (dkdv_tile with WITH_DQ) is K2 with dQ = dS K added per query
+//     step.  TF32 takes K-major operands alone, so the product is dQ^T =
+//     K^T dS^T with both operands in shared memory (m64n16k8, a warpgroup
+//     16 of the step's 32 query rows): K^T of the window, hi and lo, is
+//     staged once a CTA from a raw K window (K is the CTA's for the whole
+//     loop), and each thread stores its dS^T values, already split for
+//     dK, as dS (query rows, keys along K).  Each warpgroup's dQ tile goes
+//     through shared memory to the caller's f32 workspace by TMA reduce, as
+//     in the 16-bit B2.  K^T at 4 panels would not fit beside K2's tiles,
+//     so B2's window is at most 2 panels (F32_BWD_NP): the whole head dim
+//     up to 64, two column CTAs recomputing S^T and dP^T at 96 and 128.
+//     Shared memory 202 KB at NP = 2.  ptxas: 158 / 160 registers at NP
+//     1-2, no spill.
 //
 // Every CTA of a tile runs the same products in the same chunk order, so
 // the column CTAs agree bit for bit on m and l and only the first writes
 // lse.  Grids are 1-D, (tiles x column CTAs x bh) blocks, heavy tiles
 // first.  Each consumer warp releases a stage after its own wgmma wait, so
-// a stage is refilled only when every warp is done with it.  Every
-// mbarrier wait traps after 2 s.
+// a stage is refilled only when every warp is done with it (a stage
+// released after a barrier of both consumer warpgroups is released by one
+// thread of each).  Every mbarrier wait traps after 2 s.
 
 #pragma once
 
@@ -140,6 +174,19 @@ constexpr int F32_DKDV_NP = 4;       // output panels per CTA (2 a warpgroup)
 constexpr int F32_DKDV_STAGES = 2;
 constexpr int F32_DKDV_CSTAGES = 1;  // (q', dO) column windows in flight
 static_assert(F32_DKDV_STAGES == 2, "one stage per warpgroup a step");
+// B2: K2's body with dQ = dS K (WITH_DQ), in windows of at most 2 panels
+// (two column CTAs at 96 and 128): K^T of the window, hi and lo, stays in
+// shared memory for the CTA, which 4 panels leave no room for.  dQ^T = K^T
+// dS^T per query step, each warpgroup 16 of its 32 query rows.
+constexpr int F32_BWD_NP = 2;
+constexpr int F32_BWD_DQ_ROWS = F32_DKDV_ROWS / 2;
+// K3: query rows per CTA (64 per consumer warpgroup), keys per tile (32:
+// S, dP, a chunk's S and dP and dQ's window of up to 4 panels in
+// registers), (q', dO, K, V) chunks in flight.
+constexpr int F32_DQ_ROWS = 128;
+constexpr int F32_DQ_KEYS = 32;
+constexpr int F32_DQ_NP = 4;
+constexpr int F32_DQ_STAGES = 3;
 
 // x to TF32, to nearest with ties away from zero (low 13 bits zero).
 __device__ __forceinline__ uint32_t tf32(float x) {
@@ -248,6 +295,34 @@ __device__ __forceinline__ void stage_transposed(const unsigned char* raw,
   }
 }
 
+// The 256 consumer threads stage K^T of a raw window of F32_DKDV_KEYS keys
+// and NPW panels, hi and lo, for B2's dQ^T = K^T dS^T: rows are the
+// window's columns (ROWS_T of them; rows past the window are zero), the
+// keys run along K in panels of 32 (128-byte swizzle) in their own order.
+// A thread takes one column and 4 adjacent keys.
+template <int NPW, int ROWS_T>
+__device__ __forceinline__ void stage_kt(const unsigned char* raw,
+                                         unsigned char* hi,
+                                         unsigned char* lo) {
+  constexpr uint32_t RAW_PANEL = F32_DKDV_KEYS * ROW_BYTES;
+  constexpr uint32_t T_PANEL = ROWS_T * ROW_BYTES;
+  for (int it = threadIdx.x; it < ROWS_T * (F32_DKDV_KEYS / 4); it += 256) {
+    const int n = it % ROWS_T, j = 4 * (it / ROWS_T);
+    uint32_t h[4] = {0u, 0u, 0u, 0u}, l[4] = {0u, 0u, 0u, 0u};
+    if (n < NPW * F32_PANEL) {
+      const unsigned char* src = raw + (n / F32_PANEL) * RAW_PANEL;
+#pragma unroll
+      for (int v = 0; v < 4; ++v)
+        split(*reinterpret_cast<const float*>(
+                  src + sw128(j + v, n % F32_PANEL)),
+              h[v], l[v]);
+    }
+    const uint32_t at = (j / F32_PANEL) * T_PANEL + sw128(n, j % F32_PANEL);
+    *reinterpret_cast<uint4*>(hi + at) = make_uint4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<uint4*>(lo + at) = make_uint4(l[0], l[1], l[2], l[3]);
+  }
+}
+
 // What the consumers wrote with generic stores, made visible to wgmma's
 // reads, and both consumer warpgroups past the same point.
 __device__ __forceinline__ void consumers_sync() {
@@ -267,6 +342,14 @@ __device__ __forceinline__ void split_acc(const float (&x)[N], int i,
   split(x[4 * i + 2], hi[1], lo[1]);
   split(x[4 * i + 1], hi[2], lo[2]);
   split(x[4 * i + 3], hi[3], lo[3]);
+}
+
+// The first M values of an accumulator array: a product narrower than the
+// array's summed in registers the array's own product leaves free.
+template <int M, int N>
+__device__ __forceinline__ float (&lead(float (&x)[N]))[M] {
+  static_assert(M <= N, "lead: the array is shorter");
+  return *reinterpret_cast<float(*)[M]>(x);
 }
 
 template <int NP>
@@ -486,30 +569,43 @@ __device__ __forceinline__ void fwd_tile(const CUtensorMap* mq,
                                gbase + L::vt_lo, gbase + L::vt_lo2);
       consumers_sync();
       mbar_arrive_if(v_empty, tid == 0);
-      // O += P V over the CTA's window, P split into its hi / lo A
-      // fragment one 8-key slice at a time, two slices in flight; the
-      // fourth product, P's hi against V's second lo, makes o = v exactly
-      // where p = 1 (a causal first row), as in f32: else delta = dO . o
-      // there misses dP = dO . v by more than dq's limit allows.
-      pin(acc);
+      // O += P V over the CTA's window, PW columns at a time: the tile's
+      // sum in a fresh accumulator (sc, free until the next chunk), added
+      // into O in f32 registers, so no truncating wgmma chain runs across
+      // key tiles.  P split into its hi / lo A fragment one 8-key slice at
+      // a time, two slices in flight; the fourth product, P's hi against
+      // V's second lo, makes o = v exactly where p = 1 (a causal first
+      // row), as in f32: else delta = dO . o there misses dP = dO . v by
+      // more than dq's limit allows.
+      constexpr int PW = CW % 64 == 0 ? 64 : F32_PANEL;
+      float(&pv)[PW / 2] = lead<PW / 2>(sc);
       uint32_t ph[2][4], pl[2][4];
 #pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-        split_acc(s, j, ph[j % 2], pl[j % 2]);
-        const uint32_t kp = (j / 4) * L::VT_PANEL + (j % 4) * 32;
-        const uint64_t vh = desc128(base + L::vt_hi + kp);
-        const uint64_t vl = desc128(base + L::vt_lo + kp);
-        const uint64_t vl2 = desc128(base + L::vt_lo2 + kp);
-        wg_fence();
-        Wgmma<CW, float>::rs(acc, ph[j % 2], vh, 1);
-        Wgmma<CW, float>::rs(acc, ph[j % 2], vl, 1);
-        Wgmma<CW, float>::rs(acc, pl[j % 2], vh, 1);
-        Wgmma<CW, float>::rs(acc, ph[j % 2], vl2, 1);
-        wg_commit();
-        wg_wait<1>();
+      for (int p = 0; p < CW / PW; ++p) {
+        // Split again (tf32() is a plain asm, which the compiler would
+        // otherwise keep for every slice across the parts: spills).
+        if (p > 0) pin(s);
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          split_acc(s, j, ph[j % 2], pl[j % 2]);
+          const uint32_t kp =
+              p * PW * ROW_BYTES + (j / 4) * L::VT_PANEL + (j % 4) * 32;
+          const uint64_t vh = desc128(base + L::vt_hi + kp);
+          const uint64_t vl = desc128(base + L::vt_lo + kp);
+          const uint64_t vl2 = desc128(base + L::vt_lo2 + kp);
+          wg_fence();
+          Wgmma<PW, float>::rs(pv, ph[j % 2], vh, j != 0);
+          Wgmma<PW, float>::rs(pv, ph[j % 2], vl, 1);
+          Wgmma<PW, float>::rs(pv, pl[j % 2], vh, 1);
+          Wgmma<PW, float>::rs(pv, ph[j % 2], vl2, 1);
+          wg_commit();
+          wg_wait<1>();
+        }
+        wg_wait<0>();
+        pin(pv);
+#pragma unroll
+        for (int e = 0; e < PW / 2; ++e) acc[PW / 2 * p + e] += pv[e];
       }
-      wg_wait<0>();
-      pin(acc);
       pin(ph);
       pin(pl);
     }
@@ -539,7 +635,7 @@ __device__ __forceinline__ void fwd_tile(const CUtensorMap* mq,
   }
 }
 
-template <int NP>
+template <int NP, bool WITH_DQ = false>
 struct DkdvSmem {
   static constexpr uint32_t K_PANEL = F32_DKDV_KEYS * ROW_BYTES;  // 8 KB
   static constexpr uint32_t Q_PANEL = F32_DKDV_ROWS * ROW_BYTES;  // 4 KB
@@ -566,16 +662,37 @@ struct DkdvSmem {
       (stats + F32_DKDV_CSTAGES * STAT_FLOATS * 4 + 1023u) & ~1023u;
   static constexpr uint32_t t_lo = t_hi + 2 * T_PANEL;  // q'^T, dO^T each
   static constexpr uint32_t x = t_lo + 2 * T_PANEL;
-  static constexpr uint32_t bars = x + 2 * X_BYTES;
-  // a_full, a_empty [F32_DKDV_STAGES], c_full, c_empty [F32_DKDV_CSTAGES]
+  // B2 (WITH_DQ): K^T of the window, hi and lo, staged once from the raw
+  // K window (loaded into t_hi before the loop): rows the window's columns,
+  // at least 64 (the product's M), the keys in two 32-key panels; dS, hi
+  // and lo (the step's query rows by the keys, two 32-key panels); each
+  // warpgroup's dQ tile (its 16 query rows, NP panels).
+  static constexpr int KT_ROWS = NP * F32_PANEL < 64 ? 64 : NP * F32_PANEL;
+  static constexpr uint32_t KT_PANEL = KT_ROWS * ROW_BYTES;
+  static constexpr uint32_t DS_PANEL = F32_DKDV_ROWS * ROW_BYTES;
+  static constexpr uint32_t DQ_PANEL = F32_BWD_DQ_ROWS * ROW_BYTES;
+  static constexpr uint32_t DQ_BYTES = NP * DQ_PANEL;  // a warpgroup's
+  static constexpr uint32_t kt_hi = x + 2 * X_BYTES;
+  static constexpr uint32_t kt_lo = kt_hi + (WITH_DQ ? 2 * KT_PANEL : 0);
+  static constexpr uint32_t ds_hi = kt_lo + (WITH_DQ ? 2 * KT_PANEL : 0);
+  static constexpr uint32_t ds_lo = ds_hi + (WITH_DQ ? 2 * DS_PANEL : 0);
+  static constexpr uint32_t dq = ds_lo + (WITH_DQ ? 2 * DS_PANEL : 0);
+  static constexpr uint32_t bars = dq + (WITH_DQ ? 2 * DQ_BYTES : 0);
+  // a_full, a_empty [F32_DKDV_STAGES], c_full, c_empty [F32_DKDV_CSTAGES],
+  // B2's kw_full (the raw K window)
   static constexpr uint32_t N_BARS =
-      2 * F32_DKDV_STAGES + 2 * F32_DKDV_CSTAGES;
+      2 * F32_DKDV_STAGES + 2 * F32_DKDV_CSTAGES + 1;
   static constexpr size_t bytes = bars + 8 * N_BARS + 1024;
+  static_assert(!WITH_DQ || NP * K_PANEL <= 4 * T_PANEL,
+                "the raw K window fits where q'^T and dO^T go");
+  static_assert(!WITH_DQ || NP <= F32_BWD_NP, "B2's window is 2 panels");
 };
 
 // K2: dK's and dV's own columns of keys [k0, k0 + F32_DKDV_KEYS) of head
-// bh, over a window of NP panels.  mq, mdo: maps of q', dO (bh, sq, d),
-// boxes of F32_DKDV_ROWS rows; mk, mv: k, v (bh, sk, d), boxes of
+// bh, over a window of NP panels; B2 (WITH_DQ) also adds each query step's
+// dQ on its own columns into the f32 tensor of map mdq (boxes of
+// F32_BWD_DQ_ROWS rows) by TMA reduce.  mq, mdo: maps of q', dO (bh, sq,
+// d), boxes of F32_DKDV_ROWS rows; mk, mv: k, v (bh, sk, d), boxes of
 // F32_DKDV_KEYS rows.  lse, delta:
 // (bh, sq) f32.  Both consumer warpgroups own the CTA's keys: per query
 // step each sums S^T and dP^T over every other head-dim chunk, alone
@@ -583,15 +700,21 @@ struct DkdvSmem {
 // memory (a + b == b + a, so both hold the same bits), and each then
 // computes dK and dV on its half of the window.  So S^T and dP^T are
 // computed once per CTA for its window.  Where the head dim has one chunk
-// (32) the second warpgroup sums none and adds zeros.
-template <int NP>
+// (32) the second warpgroup sums none and adds zeros.  B2's dQ: K^T of the
+// window is staged hi / lo once; per query step every consumer thread
+// stores its dS^T values, split, as dS (query rows, keys along K), and
+// warpgroup c computes dQ^T = K^T dS^T for query rows 16 c .. 16 c + 15 of
+// the step (3 TF32 products a k8 slice, both operands from shared memory)
+// and adds its own columns into the caller's f32 dq by TMA reduce, in an
+// order that changes from run to run.
+template <int NP, bool WITH_DQ = false>
 __device__ __forceinline__ void dkdv_tile(
     const CUtensorMap* mq, const CUtensorMap* mdo, const CUtensorMap* mk,
-    const CUtensorMap* mv, const float* __restrict__ lse,
-    const float* __restrict__ delta, float* __restrict__ dk,
-    float* __restrict__ dv, int bh, int cc, int k0, int sq, int sk, int d,
-    float scale_r, int causal) {
-  using L = DkdvSmem<NP>;
+    const CUtensorMap* mv, const CUtensorMap* mdq,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ dk, float* __restrict__ dv, int bh, int cc, int k0,
+    int sq, int sk, int d, float scale_r, int causal) {
+  using L = DkdvSmem<NP, WITH_DQ>;
   constexpr int QB = F32_DKDV_ROWS;
   constexpr int CW = NP * F32_PANEL / 2;  // a warpgroup's window columns
   constexpr int STAGES = F32_DKDV_STAGES, CSTAGES = F32_DKDV_CSTAGES;
@@ -603,6 +726,7 @@ __device__ __forceinline__ void dkdv_tile(
   const uint32_t a_full = base + L::bars, a_empty = a_full + 8 * STAGES;
   const uint32_t c_full = a_empty + 8 * STAGES;
   const uint32_t c_empty = c_full + 8 * CSTAGES;
+  const uint32_t kw_full = c_empty + 8 * CSTAGES;
   const int n_ch = d / F32_PANEL;
   const Cols cols = col_share<NP>(d, cc);
 
@@ -628,18 +752,27 @@ __device__ __forceinline__ void dkdv_tile(
       mbar_init(c_full + 8 * s, 1 + 32);  // the TMA lane + the warp's stats
       mbar_init(c_empty + 8 * s, 2);
     }
+    mbar_init(kw_full, 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
   const int wg = warpgroup();
   if (wg == 2) {
-    // Producer warp: lane 0 issues the TMA loads (per query step the
-    // chunks of S^T and dP^T, then the raw column window of q' and dO),
-    // and every lane copies lse and delta beside the window.  All lanes
-    // wait for the stages to be released.
+    // Producer warp: lane 0 issues the TMA loads (B2: first the raw K
+    // window; per query step the chunks of S^T and dP^T, then the raw
+    // column window of q' and dO), and every lane copies lse and delta
+    // beside the window.  All lanes wait for the stages to be released.
     const int lane = threadIdx.x % 32;
     const size_t row0 = (size_t)bh * sq;
+    if constexpr (WITH_DQ) {
+      if (lane == 0) {
+        mbar_expect_tx(kw_full, NP * L::K_PANEL);
+        for (int p = 0; p < NP; ++p)
+          tma_load(base + L::t_hi + p * L::K_PANEL, mk, kw_full,
+                   (cols.w0 + p) * F32_PANEL, k0, bh);
+      }
+    }
     int g = 0;
     for (int it = 0; it < n_it; ++it) {
       const int q0 = (qt0 + it) * QB;
@@ -690,6 +823,16 @@ __device__ __forceinline__ void dkdv_tile(
     float dk_acc[CW / 2], dv_acc[CW / 2];
 #pragma unroll
     for (int i = 0; i < CW / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    // B2: this warpgroup's dQ^T of a step (the window's columns by its 16
+    // query rows).
+    float dq_acc[WITH_DQ ? F32_BWD_DQ_ROWS / 2 : 1];
+    if constexpr (WITH_DQ) {
+      // K^T of the window, hi and lo, from the raw K window in t_hi.
+      mbar_wait(kw_full, 0);
+      stage_kt<NP, L::KT_ROWS>(gbase + L::t_hi, gbase + L::kt_hi,
+                               gbase + L::kt_lo);
+      consumers_sync();
+    }
     // S^T, dP^T (the CTA's keys x QB) summed over the chunks, and one
     // chunk's.
     float s[QB / 2], dp[QB / 2], sc[QB / 2], dpc[QB / 2];
@@ -815,6 +958,22 @@ __device__ __forceinline__ void dkdv_tile(
         split_acc(s, i, pah[i], pal[i]);
         split_acc(dp, i, dah[i], dal[i]);
       }
+      if constexpr (WITH_DQ) {
+        // dS hi and lo as query rows by keys (keys along K, two 32-key
+        // panels): dah[i][v] holds key r_lo + 8 (v % 2), query 8 i + cq +
+        // v / 2.  The last step's dQ products (both warpgroups) are done:
+        // each waited for them before this step's barrier above.
+#pragma unroll
+        for (int i = 0; i < QB / 8; ++i)
+#pragma unroll
+          for (int v = 0; v < 4; ++v) {
+            const int key = r_lo + 8 * (v % 2), q = 8 * i + cq + v / 2;
+            const uint32_t at = (key / F32_PANEL) * L::DS_PANEL +
+                                sw128(q, key % F32_PANEL);
+            *reinterpret_cast<uint32_t*>(gbase + L::ds_hi + at) = dah[i][v];
+            *reinterpret_cast<uint32_t*>(gbase + L::ds_lo + at) = dal[i][v];
+          }
+      }
       // q'^T and dO^T of the window, hi and lo, from the raw window.
       const unsigned char* win = gbase + L::c + cs * L::C_BYTES;
       stage_transposed<QB, NP>(win, gbase + L::t_hi, gbase + L::t_lo);
@@ -824,34 +983,118 @@ __device__ __forceinline__ void dkdv_tile(
       consumers_sync();
       mbar_arrive_if(c_empty + 8 * cs, tid == 0);
       // dV += P^T dO and dK += dS^T q' over this warpgroup's half of the
-      // window (rows CW c .. of the staged tiles).
+      // window (rows CW c .. of the staged tiles), PW columns at a time:
+      // the step's sums in fresh accumulators (sc and dpc, free until the
+      // next chunk), added into dV and dK in f32 registers, so no
+      // truncating wgmma chain runs across query steps.
+      constexpr int PW = CW <= 32 ? CW : CW % 32 == 0 ? 32 : 16;
+      float(&pv)[PW / 2] = lead<PW / 2>(sc);
+      float(&pk)[PW / 2] = lead<PW / 2>(dpc);
       pin(dk_acc);
       pin(dv_acc);
-      wg_fence();
+      if constexpr (WITH_DQ) pin(dq_acc);
       const uint32_t half = c * CW * ROW_BYTES;
 #pragma unroll
-      for (int j = 0; j < QB / 8; ++j) {
-        const uint32_t at = half + j * 32;
-        const uint64_t qth = desc128(base + L::t_hi + at);
-        const uint64_t qtl = desc128(base + L::t_lo + at);
-        const uint64_t dth = desc128(base + L::t_hi + L::T_PANEL + at);
-        const uint64_t dtl = desc128(base + L::t_lo + L::T_PANEL + at);
-        Wgmma<CW, float>::rs(dv_acc, pah[j], dth, 1);
-        Wgmma<CW, float>::rs(dv_acc, pah[j], dtl, 1);
-        Wgmma<CW, float>::rs(dv_acc, pal[j], dth, 1);
-        Wgmma<CW, float>::rs(dk_acc, dah[j], qth, 1);
-        Wgmma<CW, float>::rs(dk_acc, dah[j], qtl, 1);
-        Wgmma<CW, float>::rs(dk_acc, dal[j], qth, 1);
+      for (int p = 0; p < CW / PW; ++p) {
+        wg_fence();
+#pragma unroll
+        for (int j = 0; j < QB / 8; ++j) {
+          const uint32_t at = half + p * PW * ROW_BYTES + j * 32;
+          const uint64_t qth = desc128(base + L::t_hi + at);
+          const uint64_t qtl = desc128(base + L::t_lo + at);
+          const uint64_t dth = desc128(base + L::t_hi + L::T_PANEL + at);
+          const uint64_t dtl = desc128(base + L::t_lo + L::T_PANEL + at);
+          Wgmma<PW, float>::rs(pv, pah[j], dth, j != 0);
+          Wgmma<PW, float>::rs(pv, pah[j], dtl, 1);
+          Wgmma<PW, float>::rs(pv, pal[j], dth, 1);
+          Wgmma<PW, float>::rs(pk, dah[j], qth, j != 0);
+          Wgmma<PW, float>::rs(pk, dah[j], qtl, 1);
+          Wgmma<PW, float>::rs(pk, dal[j], qth, 1);
+        }
+        if (p + 1 < CW / PW) {
+          wg_commit();
+          wg_wait<0>();
+          pin(pv);
+          pin(pk);
+#pragma unroll
+          for (int e = 0; e < PW / 2; ++e) {
+            dv_acc[PW / 2 * p + e] += pv[e];
+            dk_acc[PW / 2 * p + e] += pk[e];
+          }
+        }
+      }
+      if constexpr (WITH_DQ) {
+        // dQ^T (+)= K^T dS^T over the CTA's 64 keys, this warpgroup's 16
+        // query rows: K^T hi . dS hi + hi . lo + lo . hi.
+#pragma unroll
+        for (int kk = 0; kk < F32_DKDV_KEYS / 8; ++kk) {
+          const uint32_t ka = (kk / 4) * L::KT_PANEL + (kk % 4) * 32;
+          const uint32_t sb = (kk / 4) * L::DS_PANEL +
+                              c * F32_BWD_DQ_ROWS * ROW_BYTES + (kk % 4) * 32;
+          const uint64_t kth = desc128(base + L::kt_hi + ka);
+          const uint64_t ktl = desc128(base + L::kt_lo + ka);
+          const uint64_t dsh = desc128(base + L::ds_hi + sb);
+          const uint64_t dsl = desc128(base + L::ds_lo + sb);
+          Wgmma<F32_BWD_DQ_ROWS, float>::ss(dq_acc, kth, dsh, kk != 0);
+          Wgmma<F32_BWD_DQ_ROWS, float>::ss(dq_acc, kth, dsl, 1);
+          Wgmma<F32_BWD_DQ_ROWS, float>::ss(dq_acc, ktl, dsh, 1);
+        }
       }
       wg_commit();
       wg_wait<0>();
+      pin(pv);
+      pin(pk);
+#pragma unroll
+      for (int e = 0; e < PW / 2; ++e) {
+        dv_acc[CW / 2 - PW / 2 + e] += pv[e];
+        dk_acc[CW / 2 - PW / 2 + e] += pk[e];
+      }
       pin(dk_acc);
       pin(dv_acc);
       pin(pah);
       pin(pal);
       pin(dah);
       pin(dal);
+      if constexpr (WITH_DQ) {
+        pin(dq_acc);
+        // This step's dQ into the caller's f32 tensor: into this
+        // warpgroup's tile (query row n, window column m: panel m / 32,
+        // 128-byte swizzle), then one TMA reduce-add per own panel (rows
+        // past sq are not written).  The last step's reduce must have read
+        // the tile first.  dq_acc[4 i + 2 h + j] holds column r_lo + 8 h,
+        // query row 8 i + cq + j.
+        if (tid == 0) bulk_wait_all<true>();
+        bar_sync(SPLIT_BAR + 1 + c, 128);
+        unsigned char* const tile = gbase + L::dq + c * L::DQ_BYTES;
+#pragma unroll
+        for (int i = 0; i < F32_BWD_DQ_ROWS / 8; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int m = r_lo + 8 * h;
+            if (m >= NP * F32_PANEL) continue;
+#pragma unroll
+            for (int j = 0; j < 2; ++j)
+              *reinterpret_cast<float*>(
+                  tile + (m / F32_PANEL) * L::DQ_PANEL +
+                  sw128(8 * i + cq + j, m % F32_PANEL)) =
+                  dq_acc[4 * i + 2 * h + j];
+          }
+        fence_async_shared();
+        bar_sync(SPLIT_BAR + 1 + c, 128);
+        if (tid == 0) {
+          for (int p = cols.start - cols.w0;
+               p < cols.start - cols.w0 + cols.own; ++p)
+            tma_reduce_add(mdq, base + L::dq + c * L::DQ_BYTES +
+                                    p * L::DQ_PANEL,
+                           (cols.w0 + p) * F32_PANEL,
+                           q0 + c * F32_BWD_DQ_ROWS, bh);
+          bulk_commit();
+        }
+      }
     }
+    // B2: the adds complete before the CTA's shared memory goes away.
+    if constexpr (WITH_DQ)
+      if (tid == 0) bulk_wait_all<false>();
 
     // dK and dV of the CTA's keys on this warpgroup's own columns.
     const int own0 = (cols.start - cols.w0) * F32_PANEL;
@@ -873,6 +1116,288 @@ __device__ __forceinline__ void dkdv_tile(
               make_float2(dv_acc[e], dv_acc[e + 1]);
         }
       }
+    }
+  }
+}
+
+template <int NP>
+struct DqSmem {
+  static constexpr uint32_t Q_PANEL = F32_DQ_ROWS * ROW_BYTES;  // 16 KB
+  static constexpr uint32_t K_PANEL = F32_DQ_KEYS * ROW_BYTES;  // 4 KB
+  // Stage s: the chunk's q' and dO panels, K and V panels (hi once split)
+  // and their lo twins.
+  static constexpr uint32_t A_Q = 0;
+  static constexpr uint32_t A_DO = A_Q + Q_PANEL;
+  static constexpr uint32_t A_K = A_DO + Q_PANEL;
+  static constexpr uint32_t A_V = A_K + K_PANEL;
+  static constexpr uint32_t A_KLO = A_V + K_PANEL;
+  static constexpr uint32_t A_BYTES = A_KLO + 2 * K_PANEL;
+  static constexpr uint32_t KW_BYTES = NP * K_PANEL;  // raw K window
+  // K^T: the window's 32 NP columns x the keys, in panels of 32 keys.
+  static constexpr uint32_t KT_PANEL = NP * F32_PANEL * ROW_BYTES;
+  static constexpr uint32_t KT_BYTES = F32_DQ_KEYS / F32_PANEL * KT_PANEL;
+  static constexpr uint32_t a = 0;
+  static constexpr uint32_t kw = a + F32_DQ_STAGES * A_BYTES;
+  static constexpr uint32_t kt_hi = kw + KW_BYTES;
+  static constexpr uint32_t kt_lo = kt_hi + KT_BYTES;
+  static constexpr uint32_t bars = kt_lo + KT_BYTES;
+  // a_full, a_empty [F32_DQ_STAGES], kw_full, kw_empty
+  static constexpr uint32_t N_BARS = 2 * F32_DQ_STAGES + 2;
+  static constexpr size_t bytes = bars + 8 * N_BARS + 1024;
+};
+
+// K3: dq's own columns of query rows [q0, q0 + F32_DQ_ROWS) of head bh,
+// over a window of NP panels, in registers across the key loop, times
+// dq_scale and written once: no atomics, so deterministic.  mq, mdo: maps
+// of q', dO (bh, sq, d), boxes of F32_DQ_ROWS rows; mk, mv: k, v (bh, sk,
+// d), boxes of F32_DQ_KEYS rows; lse, delta: (bh, sq) f32.  K1's skeleton:
+// per key tile, S = q' K^T and dP = dO V^T chunk by chunk (q' and dO split
+// in registers as the A fragments, K and V split in shared memory as B),
+// each chunk summed in fresh accumulators and added in f32 registers;
+// then dS = p (dP - delta) scale_r with the causal and ragged masks, and
+// dQ += dS K with dS split from the accumulators and K^T of the window
+// staged hi / lo, keys permuted to the accumulator's order: each panel of
+// the tile's dS K in a fresh accumulator, added into dQ in f32 registers.
+template <int NP>
+__device__ __forceinline__ void dq_tile(
+    const CUtensorMap* mq, const CUtensorMap* mdo, const CUtensorMap* mk,
+    const CUtensorMap* mv, const float* __restrict__ lse,
+    const float* __restrict__ delta, float* __restrict__ dq, int bh, int cc,
+    int q0, int sq, int sk, int d, float scale_r, float dq_scale,
+    int causal) {
+  using L = DqSmem<NP>;
+  constexpr int BN = F32_DQ_KEYS, CW = NP * F32_PANEL;
+  constexpr int STAGES = F32_DQ_STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* const gbase = smem_raw + (base - raw);
+  const uint32_t a_full = base + L::bars, a_empty = a_full + 8 * STAGES;
+  const uint32_t kw_full = a_empty + 8 * STAGES, kw_empty = kw_full + 8;
+  const int n_ch = d / F32_PANEL;
+  const Cols cols = col_share<NP>(d, cc);
+
+  int n_kt = (sk + BN - 1) / BN;
+  // Key tiles past the CTA's last row are wholly masked.
+  if (causal) n_kt = min(n_kt, (q0 + F32_DQ_ROWS - 1) / BN + 1);
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(a_full + 8 * s, 1);
+      mbar_init(a_empty + 8 * s, 8);  // one arrival per consumer warp
+    }
+    mbar_init(kw_full, 1);
+    mbar_init(kw_empty, 2);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = warpgroup();
+  if (wg == 2) {
+    // Producer: per key tile, the (q', dO, K, V) panels of each chunk,
+    // then the raw K window (one buffer: the consumers release it once
+    // staged).
+    if (threadIdx.x == 256) {
+      int g = 0;
+      for (int kt = 0; kt < n_kt; ++kt) {
+        for (int ch = 0; ch < n_ch; ++ch, ++g) {
+          const int st = g % STAGES;
+          if (g >= STAGES) mbar_wait(a_empty + 8 * st, (g / STAGES - 1) & 1);
+          const uint32_t sa = base + L::a + st * L::A_BYTES;
+          const uint32_t bar = a_full + 8 * st;
+          const int col = ch * F32_PANEL;
+          mbar_expect_tx(bar, 2 * (L::Q_PANEL + L::K_PANEL));
+          tma_load(sa + L::A_Q, mq, bar, col, q0, bh);
+          tma_load(sa + L::A_DO, mdo, bar, col, q0, bh);
+          tma_load(sa + L::A_K, mk, bar, col, kt * BN, bh);
+          tma_load(sa + L::A_V, mv, bar, col, kt * BN, bh);
+        }
+        if (kt > 0) mbar_wait(kw_empty, (kt - 1) & 1);
+        mbar_expect_tx(kw_full, L::KW_BYTES);
+        for (int p = 0; p < NP; ++p)
+          tma_load(base + L::kw + p * L::K_PANEL, mk, kw_full,
+                   (cols.w0 + p) * F32_PANEL, kt * BN, bh);
+      }
+    }
+  } else {
+    // Consumers: warpgroup c owns rows [q0 + 64 c, q0 + 64 c + 64) and the
+    // CTA's window of dq's columns.
+    const int c = wg, tid = threadIdx.x % 128;
+    const int lane = tid % 32;
+    const int r_lo = (tid / 32) * 16 + lane / 4;  // + 8 for the second row
+    const int cq = 2 * (lane % 4);                // + 8 i + j: the column
+    const int row0 = c * 64;                      // within the CTA
+    const int wg_first = q0 + row0;
+    const float scale_log2 = scale_r * LOG2E;
+    // lse (log2 units) and delta of the thread's two rows; POS_BIG past
+    // sq, so p is 0 there.
+    float lse2[2], dl[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = wg_first + r_lo + 8 * h;
+      const size_t at = (size_t)bh * sq + row;
+      lse2[h] = (row < sq ? lse[at] : POS_BIG) * LOG2E;
+      dl[h] = row < sq ? delta[at] : 0.f;
+    }
+
+    float acc[CW / 2];
+    float s[BN / 2];    // S summed over the chunks, then p
+    float dp[BN / 2];   // dP summed over the chunks, then dS
+    float sc[BN / 2];   // one chunk's S
+    float dpc[BN / 2];  // one chunk's dP
+#pragma unroll
+    for (int i = 0; i < CW / 2; ++i) acc[i] = 0.f;
+
+    // S (+)= q' K^T and dP (+)= dO V^T over the chunk in stage `off`: per
+    // k8 slice the q' and dO fragments split in registers (two slices in
+    // flight) against K and V hi and lo, into sc and dpc, then added into
+    // S and dP in registers.
+    auto issue_chunk = [&](uint32_t off, bool first) {
+      uint32_t qh[2][4], ql[2][4], oh[2][4], ol[2][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const int b = kk % 2;
+        load_a(gbase + off + L::A_Q, row0 + r_lo, kk, qh[b], ql[b]);
+        load_a(gbase + off + L::A_DO, row0 + r_lo, kk, oh[b], ol[b]);
+        const uint32_t at = base + off + kk * 32;
+        const uint64_t kh = desc128(at + L::A_K);
+        const uint64_t vh = desc128(at + L::A_V);
+        const uint64_t kl = desc128(at + L::A_KLO);
+        const uint64_t vl = desc128(at + L::A_KLO + L::K_PANEL);
+        wg_fence();
+        Wgmma<BN, float>::rs(sc, qh[b], kh, kk != 0);
+        Wgmma<BN, float>::rs(sc, qh[b], kl, 1);
+        Wgmma<BN, float>::rs(sc, ql[b], kh, 1);
+        Wgmma<BN, float>::rs(dpc, oh[b], vh, kk != 0);
+        Wgmma<BN, float>::rs(dpc, oh[b], vl, 1);
+        Wgmma<BN, float>::rs(dpc, ol[b], vh, 1);
+        wg_commit();
+        wg_wait<1>();  // the slice before is done: its registers are free
+      }
+      wg_wait<0>();
+      pin(sc);
+      pin(dpc);
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) {
+        s[i] = first ? sc[i] : s[i] + sc[i];
+        dp[i] = first ? dpc[i] : dp[i] + dpc[i];
+      }
+      pin(qh);
+      pin(ql);
+      pin(oh);
+      pin(ol);
+    };
+    // dS of key tile kt in place of dP, rows r_lo (h = 0) and r_lo + 8:
+    // p = exp(S scale_r - lse), 0 where masked.
+    auto grads = [&](int kt, auto masked) {
+      const int k0 = kt * BN;
+#pragma unroll
+      for (int i = 0; i < BN / 8; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int e = 4 * i + 2 * h + j;
+            float p = ex2(fmaf(s[e], scale_log2, -lse2[h]));
+            if constexpr (decltype(masked)::value) {
+              const int key = k0 + 8 * i + cq + j;
+              const int row = wg_first + r_lo + 8 * h;
+              if (key >= sk || (causal && key > row)) p = 0.f;
+            }
+            dp[e] = p * (dp[e] - dl[h]) * scale_r;
+          }
+    };
+
+    // Leading tiles need no mask; from the first that straddles the
+    // diagonal or the ragged tail on, every tile does.
+    int n_plain = min(n_kt, sk / BN);
+    if (causal) {
+      const int x = wg_first - BN + 1;  // k0 <= x: no key masked
+      n_plain = min(n_plain, x < 0 ? 0 : x / BN + 1);
+    }
+    using Plain = std::integral_constant<bool, false>;
+    using Masked = std::integral_constant<bool, true>;
+
+    int g = 0;
+    for (int kt = 0; kt < n_kt; ++kt) {
+      for (int ch = 0; ch < n_ch; ++ch, ++g) {
+        const int st = g % STAGES;
+        mbar_wait(a_full + 8 * st, (g / STAGES) & 1);
+        const uint32_t off = L::a + st * L::A_BYTES;
+        // K and V (adjacent) split together: lo twins 2 panels on.
+        split_tile<256>(gbase + off + L::A_K, gbase + off + L::A_KLO,
+                        2 * L::K_PANEL, threadIdx.x);
+        consumers_sync();
+        pin(sc);
+        pin(dpc);
+        issue_chunk(off, ch == 0);
+        // Each warp releases the stage after its own wait, so the stage is
+        // refilled only when every consumer warp is done with it.
+        mbar_arrive_if(a_empty + 8 * st, lane == 0);
+      }
+      if (kt < n_plain)
+        grads(kt, Plain{});
+      else
+        grads(kt, Masked{});
+      // K^T of the window, hi and lo, from the raw K window.
+      mbar_wait(kw_full, kt & 1);
+      stage_transposed<BN, NP>(gbase + L::kw, gbase + L::kt_hi,
+                               gbase + L::kt_lo);
+      consumers_sync();
+      mbar_arrive_if(kw_empty, tid == 0);
+      // dQ += dS K over the CTA's window, one 32-column panel at a time:
+      // the panel's sum over the tile's keys goes into a fresh accumulator
+      // (sc, free until the next chunk) and is added into acc in f32
+      // registers, so no truncating wgmma chain runs across key tiles.  dS
+      // split into its hi / lo A fragment one 8-key slice at a time, two
+      // slices in flight.
+      static_assert(BN == F32_PANEL, "sc holds one panel of dQ");
+      uint32_t dh[2][4], dlo[2][4];
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        // Split again (tf32() is a plain asm, which the compiler would
+        // otherwise keep for every slice across the parts: spills).
+        if (p > 0) pin(dp);
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          split_acc(dp, j, dh[j % 2], dlo[j % 2]);
+          const uint32_t kp =
+              p * F32_PANEL * ROW_BYTES + (j / 4) * L::KT_PANEL + (j % 4) * 32;
+          const uint64_t kth = desc128(base + L::kt_hi + kp);
+          const uint64_t ktl = desc128(base + L::kt_lo + kp);
+          wg_fence();
+          Wgmma<F32_PANEL, float>::rs(sc, dh[j % 2], kth, j != 0);
+          Wgmma<F32_PANEL, float>::rs(sc, dh[j % 2], ktl, 1);
+          Wgmma<F32_PANEL, float>::rs(sc, dlo[j % 2], kth, 1);
+          wg_commit();
+          wg_wait<1>();
+        }
+        wg_wait<0>();
+        pin(sc);
+#pragma unroll
+        for (int e = 0; e < F32_PANEL / 2; ++e)
+          acc[F32_PANEL / 2 * p + e] += sc[e];
+      }
+      pin(dh);
+      pin(dlo);
+    }
+
+    // dq = dQ dq_scale on the own columns.
+    const int own0 = (cols.start - cols.w0) * F32_PANEL;
+    const int own1 = own0 + cols.own * F32_PANEL;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = wg_first + r_lo + 8 * h;
+      if (row >= sq) continue;
+      float* dst =
+          dq + ((size_t)bh * sq + row) * d + cols.w0 * F32_PANEL + cq;
+#pragma unroll
+      for (int i = 0; i < CW / 8; ++i)
+        if (8 * i >= own0 && 8 * i < own1)
+          *reinterpret_cast<float2*>(dst + 8 * i) =
+              make_float2(acc[4 * i + 2 * h] * dq_scale,
+                          acc[4 * i + 2 * h + 1] * dq_scale);
     }
   }
 }
@@ -905,14 +1430,51 @@ __global__ void __launch_bounds__(WIDE_THREADS, 1)
   const int n_cc = col_ctas<NP>(d);
   const int bh = blockIdx.x % bh_total, rest = blockIdx.x / bh_total;
   const int kt = rest / n_cc;  // heavy (early) key tiles first
-  dkdv_tile<NP>(&mq, &mdo, &mk, &mv, lse, delta, dk, dv, bh, rest % n_cc,
-                kt * F32_DKDV_KEYS, sq, sk, d, scale_r, causal);
+  dkdv_tile<NP>(&mq, &mdo, &mk, &mv, nullptr, lse, delta, dk, dv, bh,
+                rest % n_cc, kt * F32_DKDV_KEYS, sq, sk, d, scale_r, causal);
+}
+
+template <int NP>
+__global__ void __launch_bounds__(WIDE_THREADS, 1)
+    bwd_kernel(const __grid_constant__ CUtensorMap mq,
+               const __grid_constant__ CUtensorMap mdo,
+               const __grid_constant__ CUtensorMap mk,
+               const __grid_constant__ CUtensorMap mv,
+               const __grid_constant__ CUtensorMap mdq,
+               const float* __restrict__ lse,
+               const float* __restrict__ delta, float* __restrict__ dk,
+               float* __restrict__ dv, int bh_total, int sq, int sk, int d,
+               float scale_r, int causal) {
+  const int n_cc = col_ctas<NP>(d);
+  const int bh = blockIdx.x % bh_total, rest = blockIdx.x / bh_total;
+  const int kt = rest / n_cc;  // heavy (early) key tiles first
+  dkdv_tile<NP, true>(&mq, &mdo, &mk, &mv, &mdq, lse, delta, dk, dv, bh,
+                      rest % n_cc, kt * F32_DKDV_KEYS, sq, sk, d, scale_r,
+                      causal);
+}
+
+template <int NP>
+__global__ void __launch_bounds__(WIDE_THREADS, 1)
+    dq_kernel(const __grid_constant__ CUtensorMap mq,
+              const __grid_constant__ CUtensorMap mdo,
+              const __grid_constant__ CUtensorMap mk,
+              const __grid_constant__ CUtensorMap mv,
+              const float* __restrict__ lse,
+              const float* __restrict__ delta, float* __restrict__ dq,
+              int bh_total, int sq, int sk, int d, float scale_r,
+              float dq_scale, int causal) {
+  const int n_cc = col_ctas<NP>(d);
+  const int n_qt = (sq + F32_DQ_ROWS - 1) / F32_DQ_ROWS;
+  const int bh = blockIdx.x % bh_total, rest = blockIdx.x / bh_total;
+  const int qt = n_qt - 1 - rest / n_cc;  // heavy (late) query tiles first
+  dq_tile<NP>(&mq, &mdo, &mk, &mv, lse, delta, dq, bh, rest % n_cc,
+              qt * F32_DQ_ROWS, sq, sk, d, scale_r, dq_scale, causal);
 }
 
 // Set each kernel's shared-memory limit once, before its first launch
 // (internal linkage: a mutant build loaded beside this one keeps its own).
 namespace {
-bool g_prepared[2][F32_FWD_NP + 1] = {};
+bool g_prepared[4][F32_FWD_NP + 1] = {};
 }  // namespace
 
 template <typename K>
@@ -925,11 +1487,16 @@ int prepare(int which, int np, K kernel, size_t bytes) {
 }
 
 // The window of head dim D: all of it up to 128 (one column CTA), 4
-// panels above (column CTAs).
-static_assert(F32_FWD_NP == F32_DKDV_NP, "one window for K1 and K2");
+// panels above (column CTAs); B2's all of it up to 64, 2 panels above.
+static_assert(F32_FWD_NP == F32_DKDV_NP && F32_FWD_NP == F32_DQ_NP,
+              "one window for K1, K2 and K3");
 template <int D>
 constexpr int window_panels() {
   return D < F32_FWD_NP * F32_PANEL ? D / F32_PANEL : F32_FWD_NP;
+}
+template <int D>
+constexpr int bwd_window_panels() {
+  return D < F32_BWD_NP * F32_PANEL ? D / F32_PANEL : F32_BWD_NP;
 }
 
 // K1 over windows of NP panels: NP = d / 32 up to 128, 4 above (column
@@ -970,6 +1537,51 @@ int launch_dkdv(const void* q, const void* k, const void* v,
   dkdv_kernel<NP><<<blocks, WIDE_THREADS, DkdvSmem<NP>::bytes, stream>>>(
       mq, mdo, mk, mv, lse, delta, static_cast<float*>(dk),
       static_cast<float*>(dv), bh, sq, sk, d, scale_r, causal);
+  return (int)cudaGetLastError();
+}
+
+// B2 over windows of NP panels (bwd_window_panels): dK and dV stored,
+// dQ added into dq32 (zeroed by the caller).
+template <int NP>
+int launch_bwd(const void* q, const void* k, const void* v,
+               const void* dout, const float* lse, const float* delta,
+               void* dk, void* dv, float* dq32, int bh, int sq, int sk,
+               int d, float scale_r, int causal, cudaStream_t stream) {
+  using L = DkdvSmem<NP, true>;
+  int e = prepare(2, NP, bwd_kernel<NP>, L::bytes);
+  CUtensorMap mq, mdo, mk, mv, mdq;
+  if (e == 0) e = make_map<float>(&mq, q, bh, sq, d, F32_DKDV_ROWS);
+  if (e == 0) e = make_map<float>(&mdo, dout, bh, sq, d, F32_DKDV_ROWS);
+  if (e == 0) e = make_map<float>(&mk, k, bh, sk, d, F32_DKDV_KEYS);
+  if (e == 0) e = make_map<float>(&mv, v, bh, sk, d, F32_DKDV_KEYS);
+  if (e == 0) e = make_map<float>(&mdq, dq32, bh, sq, d, F32_BWD_DQ_ROWS);
+  if (e != 0) return e;
+  const int blocks = bh * ((sk + F32_DKDV_KEYS - 1) / F32_DKDV_KEYS) *
+                     col_ctas<NP>(d);
+  bwd_kernel<NP><<<blocks, WIDE_THREADS, L::bytes, stream>>>(
+      mq, mdo, mk, mv, mdq, lse, delta, static_cast<float*>(dk),
+      static_cast<float*>(dv), bh, sq, sk, d, scale_r, causal);
+  return (int)cudaGetLastError();
+}
+
+// K3 over windows of NP panels, as launch_fwd.
+template <int NP>
+int launch_dq(const void* q, const void* k, const void* v,
+              const void* dout, const float* lse, const float* delta,
+              void* dq, int bh, int sq, int sk, int d, float scale_r,
+              float dq_scale, int causal, cudaStream_t stream) {
+  int e = prepare(3, NP, dq_kernel<NP>, DqSmem<NP>::bytes);
+  CUtensorMap mq, mdo, mk, mv;
+  if (e == 0) e = make_map<float>(&mq, q, bh, sq, d, F32_DQ_ROWS);
+  if (e == 0) e = make_map<float>(&mdo, dout, bh, sq, d, F32_DQ_ROWS);
+  if (e == 0) e = make_map<float>(&mk, k, bh, sk, d, F32_DQ_KEYS);
+  if (e == 0) e = make_map<float>(&mv, v, bh, sk, d, F32_DQ_KEYS);
+  if (e != 0) return e;
+  const int blocks = bh * ((sq + F32_DQ_ROWS - 1) / F32_DQ_ROWS) *
+                     col_ctas<NP>(d);
+  dq_kernel<NP><<<blocks, WIDE_THREADS, DqSmem<NP>::bytes, stream>>>(
+      mq, mdo, mk, mv, lse, delta, static_cast<float*>(dq), bh, sq, sk, d,
+      scale_r, dq_scale, causal);
   return (int)cudaGetLastError();
 }
 

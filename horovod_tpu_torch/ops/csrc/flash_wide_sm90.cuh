@@ -93,7 +93,10 @@
 // wholly past a tile's last row are neither loaded nor computed (K1, K3),
 // nor query tiles wholly before a key tile's first key (K2); a K3
 // warpgroup whose rows see none of a loaded key tile waits for its stages
-// and releases them.  Every mbarrier wait traps after 2 s.
+// and releases them.  Each consumer warp's lane 0 releases a stage after
+// that warp's own wgmma wait (the empty barriers count the 8 consumer
+// warps), so a stage is refilled only when no warp still reads it.  Every
+// mbarrier wait traps after 2 s.
 
 #pragma once
 
@@ -136,6 +139,14 @@ constexpr int DQ_STAGES = 3;   // (q', dO, K, V) chunks in flight
 constexpr int DQ_KSTAGES = 2;  // K windows in flight
 
 constexpr uint32_t PANEL_ROW = PANEL * 2;  // bytes per row of a panel
+
+// A stage is released by each consumer warp's lane 0 after that warp's own
+// wgmma wait, so the empty barriers count the 8 consumer warps: no warp
+// can still be reading a stage that the producer refills.
+constexpr int EMPTY_ARRIVALS = 8;
+__device__ __forceinline__ void release(uint32_t bar) {
+  mbar_arrive_if(bar, threadIdx.x % 32 == 0);
+}
 
 // Column CTAs per tile when each computes a window of NP panels: the
 // fewest that cover the head dim's d / 32 panels.
@@ -203,12 +214,12 @@ __device__ __forceinline__ void fwd_tile(const CUtensorMap* mq,
 #pragma unroll
     for (int s = 0; s < FWD_STAGES; ++s) {
       mbar_init(a_full + 8 * s, 1);
-      mbar_init(a_empty + 8 * s, 2);  // one arrival per consumer warpgroup
+      mbar_init(a_empty + 8 * s, EMPTY_ARRIVALS);
     }
 #pragma unroll
     for (int s = 0; s < FWD_VSTAGES; ++s) {
       mbar_init(v_full + 8 * s, 1);
-      mbar_init(v_empty + 8 * s, 2);
+      mbar_init(v_empty + 8 * s, EMPTY_ARRIVALS);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
@@ -348,7 +359,7 @@ __device__ __forceinline__ void fwd_tile(const CUtensorMap* mq,
         else
           issue_qk(sa, ch == 0, Full{});
         pin(s);
-        mbar_arrive_if(a_empty + 8 * st, tid == 0);
+        release(a_empty + 8 * st);
       }
       if (kt < n_plain)
         softmax(kt, Plain{});
@@ -384,7 +395,7 @@ __device__ __forceinline__ void fwd_tile(const CUtensorMap* mq,
       wg_wait<0>();
       pin(acc);
       pin(pa);
-      mbar_arrive_if(v_empty + 8 * vs, tid == 0);
+      release(v_empty + 8 * vs);
     }
 
     // Finalize: o = O / l on the own columns, lse = m + log l (POS_BIG,
@@ -473,12 +484,12 @@ __device__ __forceinline__ void dkdv_tile(
 #pragma unroll
     for (int s = 0; s < DKDV_STAGES; ++s) {
       mbar_init(a_full + 8 * s, 1);
-      mbar_init(a_empty + 8 * s, 2);
+      mbar_init(a_empty + 8 * s, EMPTY_ARRIVALS);
     }
 #pragma unroll
     for (int s = 0; s < DKDV_CSTAGES; ++s) {
       mbar_init(c_full + 8 * s, 1 + 32);  // the TMA lane + the warp's stats
-      mbar_init(c_empty + 8 * s, 2);
+      mbar_init(c_empty + 8 * s, EMPTY_ARRIVALS);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
@@ -612,7 +623,7 @@ __device__ __forceinline__ void dkdv_tile(
           issue_chunk(sa, ch == 0, Full{});
         pin(s);
         pin(dp);
-        mbar_arrive_if(a_empty + 8 * st, tid == 0);
+        release(a_empty + 8 * st);
       }
       const int cs = it % DKDV_CSTAGES;
       mbar_wait(c_full + 8 * cs, (it / DKDV_CSTAGES) & 1);
@@ -657,7 +668,7 @@ __device__ __forceinline__ void dkdv_tile(
       pin(dv_acc);
       pin(pa);
       pin(dsa);
-      mbar_arrive_if(c_empty + 8 * cs, tid == 0);
+      release(c_empty + 8 * cs);
     }
 
     // dK and dV of this warpgroup's keys, on the own columns.
@@ -731,12 +742,12 @@ __device__ __forceinline__ void dq_tile(
 #pragma unroll
     for (int s = 0; s < DQ_STAGES; ++s) {
       mbar_init(a_full + 8 * s, 1);
-      mbar_init(a_empty + 8 * s, 2);  // one arrival per consumer warpgroup
+      mbar_init(a_empty + 8 * s, EMPTY_ARRIVALS);
     }
 #pragma unroll
     for (int s = 0; s < DQ_KSTAGES; ++s) {
       mbar_init(w_full + 8 * s, 1);
-      mbar_init(w_empty + 8 * s, 2);
+      mbar_init(w_empty + 8 * s, EMPTY_ARRIVALS);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
@@ -876,7 +887,7 @@ __device__ __forceinline__ void dq_tile(
           issue_chunk(sa, ch == 0, Full{});
         pin(s);
         pin(dp);
-        mbar_arrive_if(a_empty + 8 * st, tid == 0);
+        release(a_empty + 8 * st);
       }
       if (kt < n_plain)
         grads(kt, Plain{});
@@ -904,7 +915,7 @@ __device__ __forceinline__ void dq_tile(
       wg_wait<0>();
       pin(acc);
       pin(dsa);
-      mbar_arrive_if(w_empty + 8 * ws, tid == 0);
+      release(w_empty + 8 * ws);
     }
     // Tiles no row of this warpgroup sees: wait for each stage to land (so
     // the release cannot complete an earlier use of it), release it.
@@ -912,11 +923,11 @@ __device__ __forceinline__ void dq_tile(
       for (int ch = 0; ch < n_ch; ++ch, ++g) {
         const int st = g % DQ_STAGES;
         mbar_wait(a_full + 8 * st, (g / DQ_STAGES) & 1);
-        mbar_arrive_if(a_empty + 8 * st, tid == 0);
+        release(a_empty + 8 * st);
       }
       const int ws = kt % DQ_KSTAGES;
       mbar_wait(w_full + 8 * ws, (kt / DQ_KSTAGES) & 1);
-      mbar_arrive_if(w_empty + 8 * ws, tid == 0);
+      release(w_empty + 8 * ws);
     }
 
     // dq = dQ * dq_scale in f32 on the own columns, stored from registers

@@ -41,11 +41,15 @@ def test_bwd_mode_matches_reference_plan(monkeypatch, d, q_len, bh):
 def test_bwd_tile_table_covers_every_head_dim_and_dtype(mode, dtype, d):
     """Every body's key tile is known for every dtype and head dim: in 16
     bits 128 keys for the combined body (sm90::BWD_BN, two consumer
-    warpgroups of 64) and 64 for the split pair (K3's dq_key_tile); 64 for
-    the f32 bodies of both modes.  A head dim 16 short of a body's runs
-    padded to it, so it has that body's tile; past 256 the split pair's
-    wide bodies take 64 keys in every dtype, and no combined body runs."""
-    want = 128 if mode == "combined" and dtype != torch.float32 else 64
+    warpgroups of 64) and 64 for the split pair (K3's dq_key_tile); in f32
+    64 for the combined mode (B2's 3xTF32 body, F32_DKDV_KEYS a CTA) and
+    32 for the split pair (K3's 3xTF32 body, F32_DQ_KEYS).  A head dim 16
+    short of a body's runs padded to it, so it has that body's tile; past
+    256 the split pair's wide bodies take 64 keys in every dtype, and no
+    combined body runs."""
+    f32 = dtype == torch.float32
+    want = (128 if mode == "combined" and not f32
+            else 32 if mode == "split" and f32 else 64)
     assert tattn.bwd_key_tile(mode, dtype, d) == want
     assert tattn.bwd_key_tile(mode, dtype, d - 16) == want
     with pytest.raises(ValueError, match="mode"):
@@ -63,8 +67,7 @@ def test_bwd_tile_table_covers_every_head_dim_and_dtype(mode, dtype, d):
 def test_plain_side_walks_each_backward_key_tile(dtype, d):
     """The plain side that holds B2 and the one that holds K2 + K3 walk
     their own body's key tile, so their dq differ exactly where the tiles
-    do: in 16 bits (B2 128 keys, K3 64); in f32 (both 64) the sides are
-    the same."""
+    do: in 16 bits (B2 128 keys, K3 64) and in f32 (B2 64, K3 32)."""
     qr, k, v, do = (torch.from_numpy(a).to(dtype)
                     for a in _arrays((2, 512, d), seed=d))
     p2, r = tattn._split_scale(d ** -0.5)

@@ -96,11 +96,11 @@ def test_key_tiles_follow_the_padded_body(d, dtype):
     the 16-bit forward 128 keys up to 64, 64 to 256 and 128 above (the
     wgmma wide body's FWD_KEYS); the f32 forward 64 at every head dim (the
     3xTF32 body's F32_FWD_KEYS); the split pair's, K3's, 64 keys in 16
-    bits, and in f32 64 up to 128, 32 at 256 (the SIMT body's f32_tile)
-    and 64 above (the SIMT wide body's TK); no combined body above 128."""
+    bits, and in f32 32 up to 256 (the 3xTF32 body's F32_DQ_KEYS) and 64
+    above (the SIMT wide body's TK); no combined body above 128."""
     body = tattn.padded_head_dim(d)
     f32 = dtype == torch.float32
-    f32_split_tile = 64 if body <= 128 or body > 256 else 32
+    f32_split_tile = 32 if body <= 256 else 64
     assert tattn.fwd_key_tile(dtype, d) == tattn.fwd_key_tile(dtype, body)
     assert tattn.fwd_key_tile(dtype, d) == (
         64 if f32 else (128 if body <= 64 or body > 256 else 64))
@@ -156,6 +156,13 @@ def test_wide_tile_constants_match_the_tables(dtype):
     assert tattn._WIDE_F32_WINDOW_PANELS == {
         "flash_fwd": tf32["F32_FWD_NP"],
         "flash_bwd_dkdv": tf32["F32_DKDV_NP"]}
+    # At and below 256 the f32 K3's 3xTF32 body and B2's (64 keys a CTA).
+    for d in (32, 64, 96, 128, 256):
+        assert tattn.bwd_key_tile("split", torch.float32, d) == \
+            tf32["F32_DQ_KEYS"]
+        if d <= 128:
+            assert tattn.bwd_key_tile("combined", torch.float32, d) == \
+                tf32["F32_DKDV_KEYS"]
 
 
 def test_wgmma_header_is_the_generators_output():

@@ -34,7 +34,12 @@ T is ``__nv_bfloat16`` or ``__half``.  In float32 (the wide bodies'
   keys) and ``O += P V`` (V^T staged; N = the window's 32, 64, 96 or 128
   columns) in K1, ``S^T = K q'^T``, ``dP^T = V dO^T`` (N = 32 query rows),
   ``dV += P^T dO`` and ``dK += dS^T q'`` (N = half the window: 16, 32, 48
-  or 64 columns) in K2; ``scale_d`` as for ``ss``.
+  or 64 columns) in K2 and B2, ``S = q' K^T``, ``dP = dO V^T`` (N = 32
+  keys) and ``dQ += dS K`` (K^T staged; N = the window's columns) in K3;
+  ``scale_d`` as for ``ss``;
+* ``Wgmma<16, float>::ss`` — ``m64n16k8`` TF32, A and B from shared
+  memory, both K-major: B2's ``dQ^T = K^T dS^T`` (K^T staged once a CTA,
+  dS stored query rows by keys; N = a warpgroup's 16 query rows).
 
 The output is checked in, so the build needs no Python step; rerun this
 after changing a shape (``tests/test_torch_head_dims.py`` holds the
@@ -53,6 +58,7 @@ RS_N = (32, 64, 96, 128)
 SST_N = (32, 64, 96)
 TYPES = (("__nv_bfloat16", "bf16"), ("__half", "f16"))
 TF32_RS_N = (16, 32, 48, 64, 96, 128)
+TF32_SS_N = (16,)
 
 HEAD = """\
 // Generated by tools/torch_gen_wgmma.py; do not edit by hand.
@@ -158,6 +164,22 @@ def rs_tf32(n):
   }}"""
 
 
+def ss_tf32(n):
+    r = n // 2
+    return f"""
+  // D (64 x {n}) = or += A (64 x 8, K-major, TF32) B (B {n} x 8,
+  // K-major, TF32), both from shared memory.
+  __device__ static __forceinline__ void ss(float (&d)[{r}], uint64_t a,
+                                            uint64_t b, int scale_d) {{
+    asm volatile(
+        "{{\\n.reg .pred p;\\nsetp.ne.b32 p, %{r + 2}, 0;\\n"
+        "wgmma.mma_async.sync.aligned.m64n{n}k8.f32.tf32.tf32 "
+        "{{{_regs(r)}}}, %{r}, %{r + 1}, p, 1, 1;\\n}}\\n"
+        : {_outs(r)}
+        : "l"(a), "l"(b), "r"(scale_d));
+  }}"""
+
+
 def generate() -> str:
     """The text of ``wgmma_sm90.cuh``."""
     parts = [HEAD]
@@ -169,8 +191,9 @@ def generate() -> str:
             parts.append(f"\ntemplate <>\nstruct Wgmma<{n}, {ctype}> {{"
                          f"{body}\n}};\n")
     for n in TF32_RS_N:
+        body = rs_tf32(n) + (ss_tf32(n) if n in TF32_SS_N else "")
         parts.append(f"\ntemplate <>\nstruct Wgmma<{n}, float> {{"
-                     f"{rs_tf32(n)}\n}};\n")
+                     f"{body}\n}};\n")
     parts.append(TAIL)
     return "".join(parts)
 

@@ -8,6 +8,8 @@ Run from the repository root on a machine with one CUDA GPU::
     python3 tools/torch_split_variants.py --family wide   # K1-K3 above 256
     python3 tools/torch_split_variants.py --family wide_f32  # K1, K2 f32
     python3 tools/torch_split_variants.py --family f32   # the same, <= 256
+    python3 tools/torch_split_variants.py --family wide \
+        --only one_release_per_warpgroup   # a subset of the variants
 
 Each variant is a copy of the kernel sources with one or two lines
 changed (under ``horovod_tpu_torch/_build/variants/``; the checked-in
@@ -47,7 +49,12 @@ and the alternatives to the checked-in choices.  ``split``:
   of ``DQ_NP`` (dQ in 48 registers, more column CTAs recomputing S and
   dP above 288);
 * ``dq_4_stages`` — K3 streams its (q', dO, K, V) chunks through four
-  stages instead of ``DQ_STAGES``.
+  stages instead of ``DQ_STAGES``;
+* ``one_release_per_warpgroup`` — a stage is released by one thread per
+  consumer warpgroup (the empty barriers counting 2) instead of by each
+  consumer warp's lane 0 after its own wgmma wait (``EMPTY_ARRIVALS``,
+  ``release``): the earlier rule, under which a stage could be refilled
+  while another warp of the warpgroup still read it.
 
 ``wide_f32`` (``csrc/flash_wide_f32_sm90.cuh``, 3xTF32, float32 inputs;
 K1 and K2 alone, K3's f32 body being SIMT):
@@ -57,18 +64,40 @@ K1 and K2 alone, K3's f32 body being SIMT):
   steps) instead of summed per 32-column chunk in f32 registers: 32
   fewer registers a thread, and the tensor cores' truncating accumulation
   drifts with the chain's length;
-* ``fwd_p_at_once`` — K1 splits all of P into its hi / lo A fragments
-  before the P V products instead of one 8-key slice at a time (48 more
-  registers at the product, fewer waits);
+* ``fwd_pv_chained_over_keys``, ``dkdv_chained_over_queries`` — K1's O
+  (K2's dV and dK) chained through one accumulator over the whole key
+  (query) loop instead of each tile's (step's) product summed in a fresh
+  accumulator, 32 or 64 columns at a time, and added in f32 registers:
+  the truncating accumulation reads above 1 at seq 8192;
 * ``fwd_2_stages`` — K1 streams two chunk stages instead of
   ``F32_FWD_STAGES`` (K2's two are fixed: its note says why).
 
-``f32`` (the same header, the bodies at head dims 32-256, built into
-``flash_fwd`` and ``flash_bwd_split``): ``fwd_one_chain``,
-``dkdv_one_chain``, ``fwd_p_at_once``, ``fwd_2_stages`` as above, and
+``f32`` (the same header, the bodies at head dims 32-256: K1, K2, K3
+and B2, built into ``flash_fwd``, ``flash_bwd_split`` and
+``flash_bwd``): ``fwd_one_chain``, ``dkdv_one_chain`` (K2's and B2's
+shared sums), ``fwd_pv_chained_over_keys``, ``dkdv_chained_over_queries``
+(B2's too), ``fwd_2_stages`` as above, and
 
 * ``fwd_three_pv_products`` — K1's P V without its fourth product (P's
-  hi against V's rest): what o = v exactly where p = 1 costs.
+  hi against V's rest): what o = v exactly where p = 1 costs;
+* ``dq_one_chain`` — K3's S and dP chained through one accumulator each
+  over the whole head dim instead of summed per 32-column chunk (32
+  fewer registers a thread);
+* ``dq_2_stages`` — K3 streams two (q', dO, K, V) chunk stages instead
+  of ``F32_DQ_STAGES``;
+* ``fwd_pv_one_panel`` — K1's fresh P V accumulators 32 columns wide at
+  every head dim instead of 64 where the window allows (half the
+  registers, twice the parts);
+* ``dkdv_parts_of_16`` — K2's (B2's) fresh dV / dK accumulators 16
+  columns wide instead of up to 32;
+* ``fwd_32_keys`` — K1 takes 32-key tiles instead of ``F32_FWD_KEYS``
+  (P in half the registers, so no spill beside the fresh accumulator;
+  the plain side keeps its 64-key forward tile);
+* ``dq_chained_over_keys`` — K3's dQ += dS K chained through one
+  accumulator over the whole key loop instead of each key tile's product
+  summed per 32-column panel in a fresh accumulator and added in f32
+  registers (3 s / 8 wgmma steps against 12: the truncating accumulation
+  shows at long sequences, ``--shapes 8x8192x64``).
 
 Every build is held against the plain side that walks its own key tile
 (``kernel_check``; ``worst`` <= 1 passes), then the family's kernels are
@@ -148,6 +177,12 @@ FAMILIES = {
                               "constexpr int DQ_NP = 3;")], None),
             "dq_4_stages": ([(WH, "constexpr int DQ_STAGES = 3;",
                               "constexpr int DQ_STAGES = 4;")], None),
+            "one_release_per_warpgroup": ([
+                (WH, "constexpr int EMPTY_ARRIVALS = 8;",
+                 "constexpr int EMPTY_ARRIVALS = 2;"),
+                (WH, "  mbar_arrive_if(bar, threadIdx.x % 32 == 0);\n",
+                 "  mbar_arrive_if(bar, threadIdx.x % 128 == 0);\n")],
+                None),
         }},
 }
 
@@ -166,15 +201,141 @@ _K2_SUM = ("      for (int i = 0; i < QB / 2; ++i) {\n"
            "        s[i] = first ? sc[i] : s[i] + sc[i];\n"
            "        dp[i] = first ? dpc[i] : dp[i] + dpc[i];\n"
            "      }\n")
-_K1_PV4 = "        Wgmma<CW, float>::rs(acc, ph[j % 2], vl2, 1);\n"
-_K1_PV = ("        Wgmma<CW, float>::rs(acc, ph[j % 2], vh, 1);\n"
-          "        Wgmma<CW, float>::rs(acc, ph[j % 2], vl, 1);\n"
-          "        Wgmma<CW, float>::rs(acc, pl[j % 2], vh, 1);\n"
-          + _K1_PV4 +
-          "        wg_commit();\n"
-          "        wg_wait<1>();\n"
-          "      }\n"
-          "      wg_wait<0>();\n")
+# K1's O += P V and K2's dV, dK +=: each tile's (step's) product in a
+# fresh accumulator added in f32 registers (checked in), or chained
+# through one accumulator over the whole key (query) loop.
+_K1_PV = (
+    '      constexpr int PW = CW % 64 == 0 ? 64 : F32_PANEL;\n'
+    '      float(&pv)[PW / 2] = lead<PW / 2>(sc);\n'
+    '      uint32_t ph[2][4], pl[2][4];\n'
+    '#pragma unroll\n'
+    '      for (int p = 0; p < CW / PW; ++p) {\n'
+    '        // Split again (tf32() is a plain asm, which the compiler would\n'
+    '        // otherwise keep for every slice across the parts: spills).\n'
+    '        if (p > 0) pin(s);\n'
+    '#pragma unroll\n'
+    '        for (int j = 0; j < BN / 8; ++j) {\n'
+    '          split_acc(s, j, ph[j % 2], pl[j % 2]);\n'
+    '          const uint32_t kp =\n'
+    '              p * PW * ROW_BYTES + (j / 4) * L::VT_PANEL + (j % 4) * 32;\n'
+    '          const uint64_t vh = desc128(base + L::vt_hi + kp);\n'
+    '          const uint64_t vl = desc128(base + L::vt_lo + kp);\n'
+    '          const uint64_t vl2 = desc128(base + L::vt_lo2 + kp);\n'
+    '          wg_fence();\n'
+    '          Wgmma<PW, float>::rs(pv, ph[j % 2], vh, j != 0);\n'
+    '          Wgmma<PW, float>::rs(pv, ph[j % 2], vl, 1);\n'
+    '          Wgmma<PW, float>::rs(pv, pl[j % 2], vh, 1);\n'
+    '          Wgmma<PW, float>::rs(pv, ph[j % 2], vl2, 1);\n'
+    '          wg_commit();\n'
+    '          wg_wait<1>();\n'
+    '        }\n'
+    '        wg_wait<0>();\n'
+    '        pin(pv);\n'
+    '#pragma unroll\n'
+    '        for (int e = 0; e < PW / 2; ++e) acc[PW / 2 * p + e] += pv[e];\n'
+    '      }\n'
+    '      pin(ph);\n'
+    '      pin(pl);\n'
+)
+_K1_PV_CHAINED = (
+    '      pin(acc);\n'
+    '      uint32_t ph[2][4], pl[2][4];\n'
+    '#pragma unroll\n'
+    '      for (int j = 0; j < BN / 8; ++j) {\n'
+    '        split_acc(s, j, ph[j % 2], pl[j % 2]);\n'
+    '        const uint32_t kp = (j / 4) * L::VT_PANEL + (j % 4) * 32;\n'
+    '        const uint64_t vh = desc128(base + L::vt_hi + kp);\n'
+    '        const uint64_t vl = desc128(base + L::vt_lo + kp);\n'
+    '        const uint64_t vl2 = desc128(base + L::vt_lo2 + kp);\n'
+    '        wg_fence();\n'
+    '        Wgmma<CW, float>::rs(acc, ph[j % 2], vh, 1);\n'
+    '        Wgmma<CW, float>::rs(acc, ph[j % 2], vl, 1);\n'
+    '        Wgmma<CW, float>::rs(acc, pl[j % 2], vh, 1);\n'
+    '        Wgmma<CW, float>::rs(acc, ph[j % 2], vl2, 1);\n'
+    '        wg_commit();\n'
+    '        wg_wait<1>();\n'
+    '      }\n'
+    '      wg_wait<0>();\n'
+    '      pin(acc);\n'
+    '      pin(ph);\n'
+    '      pin(pl);\n'
+)
+_K2_DKDV = (
+    '      constexpr int PW = CW <= 32 ? CW : CW % 32 == 0 ? 32 : 16;\n'
+    '      float(&pv)[PW / 2] = lead<PW / 2>(sc);\n'
+    '      float(&pk)[PW / 2] = lead<PW / 2>(dpc);\n'
+    '      pin(dk_acc);\n'
+    '      pin(dv_acc);\n'
+    '      if constexpr (WITH_DQ) pin(dq_acc);\n'
+    '      const uint32_t half = c * CW * ROW_BYTES;\n'
+    '#pragma unroll\n'
+    '      for (int p = 0; p < CW / PW; ++p) {\n'
+    '        wg_fence();\n'
+    '#pragma unroll\n'
+    '        for (int j = 0; j < QB / 8; ++j) {\n'
+    '          const uint32_t at = half + p * PW * ROW_BYTES + j * 32;\n'
+    '          const uint64_t qth = desc128(base + L::t_hi + at);\n'
+    '          const uint64_t qtl = desc128(base + L::t_lo + at);\n'
+    '          const uint64_t dth = desc128(base + L::t_hi + L::T_PANEL + at);\n'
+    '          const uint64_t dtl = desc128(base + L::t_lo + L::T_PANEL + at);\n'
+    '          Wgmma<PW, float>::rs(pv, pah[j], dth, j != 0);\n'
+    '          Wgmma<PW, float>::rs(pv, pah[j], dtl, 1);\n'
+    '          Wgmma<PW, float>::rs(pv, pal[j], dth, 1);\n'
+    '          Wgmma<PW, float>::rs(pk, dah[j], qth, j != 0);\n'
+    '          Wgmma<PW, float>::rs(pk, dah[j], qtl, 1);\n'
+    '          Wgmma<PW, float>::rs(pk, dal[j], qth, 1);\n'
+    '        }\n'
+    '        if (p + 1 < CW / PW) {\n'
+    '          wg_commit();\n'
+    '          wg_wait<0>();\n'
+    '          pin(pv);\n'
+    '          pin(pk);\n'
+    '#pragma unroll\n'
+    '          for (int e = 0; e < PW / 2; ++e) {\n'
+    '            dv_acc[PW / 2 * p + e] += pv[e];\n'
+    '            dk_acc[PW / 2 * p + e] += pk[e];\n'
+    '          }\n'
+    '        }\n'
+    '      }\n'
+)
+_K2_DKDV_CHAINED = (
+    '      pin(dk_acc);\n'
+    '      pin(dv_acc);\n'
+    '      if constexpr (WITH_DQ) pin(dq_acc);\n'
+    '      wg_fence();\n'
+    '      const uint32_t half = c * CW * ROW_BYTES;\n'
+    '#pragma unroll\n'
+    '      for (int j = 0; j < QB / 8; ++j) {\n'
+    '        const uint32_t at = half + j * 32;\n'
+    '        const uint64_t qth = desc128(base + L::t_hi + at);\n'
+    '        const uint64_t qtl = desc128(base + L::t_lo + at);\n'
+    '        const uint64_t dth = desc128(base + L::t_hi + L::T_PANEL + at);\n'
+    '        const uint64_t dtl = desc128(base + L::t_lo + L::T_PANEL + at);\n'
+    '        Wgmma<CW, float>::rs(dv_acc, pah[j], dth, 1);\n'
+    '        Wgmma<CW, float>::rs(dv_acc, pah[j], dtl, 1);\n'
+    '        Wgmma<CW, float>::rs(dv_acc, pal[j], dth, 1);\n'
+    '        Wgmma<CW, float>::rs(dk_acc, dah[j], qth, 1);\n'
+    '        Wgmma<CW, float>::rs(dk_acc, dah[j], qtl, 1);\n'
+    '        Wgmma<CW, float>::rs(dk_acc, dal[j], qth, 1);\n'
+    '      }\n'
+)
+_K2_DKDV_ADD = (
+    '      wg_commit();\n'
+    '      wg_wait<0>();\n'
+    '      pin(pv);\n'
+    '      pin(pk);\n'
+    '#pragma unroll\n'
+    '      for (int e = 0; e < PW / 2; ++e) {\n'
+    '        dv_acc[CW / 2 - PW / 2 + e] += pv[e];\n'
+    '        dk_acc[CW / 2 - PW / 2 + e] += pk[e];\n'
+    '      }\n'
+)
+_K2_DKDV_ADD_CHAINED = (
+    '      wg_commit();\n'
+    '      wg_wait<0>();\n'
+    '      pin(dk_acc);\n'
+    '      pin(dv_acc);\n'
+)
 FAMILIES["wide_f32"] = {
     "stem": "flash_wide", "ptxas": "wide32", "dtype": torch.float32,
     "shapes": ((64, 1024, 288), (64, 1024, 512), (16, 1024, 1024)),
@@ -188,29 +349,99 @@ FAMILIES["wide_f32"] = {
             (WF, _K2_S, _K2_S.replace("(sc,", "(s,").replace(
                 "(dpc,", "(dp,").replace("kk != 0", "!(first && kk == 0)")),
             (WF, _K2_SUM, "")], None),
-        "fwd_p_at_once": ([
-            (WF, "      uint32_t ph[2][4], pl[2][4];\n#pragma unroll\n"
-             "      for (int j = 0; j < BN / 8; ++j) {\n"
-             "        split_acc(s, j, ph[j % 2], pl[j % 2]);\n",
-             "      uint32_t ph[BN / 8][4], pl[BN / 8][4];\n#pragma unroll\n"
-             "      for (int i = 0; i < BN / 8; ++i) "
-             "split_acc(s, i, ph[i], pl[i]);\n#pragma unroll\n"
-             "      for (int j = 0; j < BN / 8; ++j) {\n"),
-            (WF, _K1_PV, _K1_PV.replace("[j % 2]", "[j]").replace(
-                "        wg_commit();\n        wg_wait<1>();\n      }\n"
-                "      wg_wait<0>();\n",
-                "      }\n      wg_commit();\n      wg_wait<0>();\n"))],
-            None),
+        "fwd_pv_chained_over_keys": ([(WF, _K1_PV, _K1_PV_CHAINED)], None),
+        "dkdv_chained_over_queries": ([
+            (WF, _K2_DKDV, _K2_DKDV_CHAINED),
+            (WF, _K2_DKDV_ADD, _K2_DKDV_ADD_CHAINED)], None),
+        "fwd_pv_one_panel": ([
+            (WF, "      constexpr int PW = CW % 64 == 0 ? 64 : F32_PANEL;\n",
+             "      constexpr int PW = F32_PANEL;\n")], None),
+        "dkdv_parts_of_16": ([
+            (WF, "      constexpr int PW = CW <= 32 ? CW : CW % 32 == 0 ? 32 "
+             ": 16;\n", "      constexpr int PW = 16;\n")], None),
+        "fwd_32_keys": ([
+            (WF, "constexpr int F32_FWD_KEYS = 64;",
+             "constexpr int F32_FWD_KEYS = 32;"),
+            (WF, "      constexpr int PW = CW % 64 == 0 ? 64 : F32_PANEL;\n",
+             "      constexpr int PW = F32_PANEL;\n")], None),
         "fwd_2_stages": ([(WF, "constexpr int F32_FWD_STAGES = 3;",
                            "constexpr int F32_FWD_STAGES = 2;")], None),
     }}
+_K3_SD = ("        Wgmma<BN, float>::rs(sc, qh[b], kh, kk != 0);\n"
+          "        Wgmma<BN, float>::rs(sc, qh[b], kl, 1);\n"
+          "        Wgmma<BN, float>::rs(sc, ql[b], kh, 1);\n"
+          "        Wgmma<BN, float>::rs(dpc, oh[b], vh, kk != 0);\n"
+          "        Wgmma<BN, float>::rs(dpc, oh[b], vl, 1);\n"
+          "        Wgmma<BN, float>::rs(dpc, ol[b], vh, 1);\n")
+_K3_SUM = ("      for (int i = 0; i < BN / 2; ++i) {\n"
+           "        s[i] = first ? sc[i] : s[i] + sc[i];\n"
+           "        dp[i] = first ? dpc[i] : dp[i] + dpc[i];\n"
+           "      }\n")
+# K3's dQ += dS K: each panel of a key tile's product in a fresh
+# accumulator added in f32 registers (checked in), or chained through one
+# accumulator over the whole key loop.
+_K3_DQ = (
+    '      for (int p = 0; p < NP; ++p) {\n'
+    '        // Split again (tf32() is a plain asm, which the compiler would\n'
+    '        // otherwise keep for every slice across the parts: spills).\n'
+    '        if (p > 0) pin(dp);\n'
+    '#pragma unroll\n'
+    '        for (int j = 0; j < BN / 8; ++j) {\n'
+    '          split_acc(dp, j, dh[j % 2], dlo[j % 2]);\n'
+    '          const uint32_t kp =\n'
+    '              p * F32_PANEL * ROW_BYTES + (j / 4) * L::KT_PANEL + (j % 4) * 32;\n'
+    '          const uint64_t kth = desc128(base + L::kt_hi + kp);\n'
+    '          const uint64_t ktl = desc128(base + L::kt_lo + kp);\n'
+    '          wg_fence();\n'
+    '          Wgmma<F32_PANEL, float>::rs(sc, dh[j % 2], kth, j != 0);\n'
+    '          Wgmma<F32_PANEL, float>::rs(sc, dh[j % 2], ktl, 1);\n'
+    '          Wgmma<F32_PANEL, float>::rs(sc, dlo[j % 2], kth, 1);\n'
+    '          wg_commit();\n'
+    '          wg_wait<1>();\n'
+    '        }\n'
+    '        wg_wait<0>();\n'
+    '        pin(sc);\n'
+    '#pragma unroll\n'
+    '        for (int e = 0; e < F32_PANEL / 2; ++e)\n'
+    '          acc[F32_PANEL / 2 * p + e] += sc[e];\n'
+    '      }\n'
+)
+_K3_DQ_CHAINED = (
+    "      {\n"
+    "        pin(acc);\n"
+    "#pragma unroll\n"
+    "        for (int j = 0; j < BN / 8; ++j) {\n"
+    "          split_acc(dp, j, dh[j % 2], dlo[j % 2]);\n"
+    "          const uint32_t kp = (j / 4) * L::KT_PANEL + (j % 4) * 32;\n"
+    "          const uint64_t kth = desc128(base + L::kt_hi + kp);\n"
+    "          const uint64_t ktl = desc128(base + L::kt_lo + kp);\n"
+    "          wg_fence();\n"
+    "          Wgmma<CW, float>::rs(acc, dh[j % 2], kth, 1);\n"
+    "          Wgmma<CW, float>::rs(acc, dh[j % 2], ktl, 1);\n"
+    "          Wgmma<CW, float>::rs(acc, dlo[j % 2], kth, 1);\n"
+    "          wg_commit();\n"
+    "          wg_wait<1>();\n"
+    "        }\n"
+    "        wg_wait<0>();\n"
+    "        pin(acc);\n"
+    "      }\n")
 FAMILIES["f32"] = {
-    "stem": ("flash_fwd", "flash_bwd_split"), "ptxas": "wide32",
+    "stem": ("flash_fwd", "flash_bwd_split", "flash_bwd"), "ptxas": "wide32",
     "dtype": torch.float32,
     "shapes": ((128, 1024, 64), (32, 1024, 128), (8, 1024, 256)),
     "variants": {
         **FAMILIES["wide_f32"]["variants"],
-        "fwd_three_pv_products": ([(WF, _K1_PV4, "")], None)}}
+        "fwd_three_pv_products": ([
+            (WF, "          Wgmma<PW, float>::rs(pv, ph[j % 2], vl2, 1);\n",
+             "")], None),
+        "dq_one_chain": ([
+            (WF, _K3_SD, _K3_SD.replace("(sc,", "(s,").replace(
+                "(dpc,", "(dp,").replace("kk != 0", "!(first && kk == 0)")),
+            (WF, _K3_SUM, "")], None),
+        "dq_2_stages": ([(WF, "constexpr int F32_DQ_STAGES = 3;",
+                          "constexpr int F32_DQ_STAGES = 2;")], None),
+        "dq_chained_over_keys": ([(WF, _K3_DQ, _K3_DQ_CHAINED)], None),
+    }}
 
 
 def build_variants(stems, variants):
@@ -338,25 +569,43 @@ def wide_case(qr, k, v, do, p2, r, tiles):
 
 
 def f32_case(qr, k, v, do, p2, r, tiles):
-    """K1 and K2 of the f32 bodies, and their plain outputs."""
+    """K1 and K2 of the f32 bodies, up to head dim 256 K3 and up to 128
+    B2 (``b2_dq``, ...), and their plain outputs per K3 key tile (B2's
+    those of the combined mode's; dq with its term)."""
     d = qr.shape[-1]
     o, lse = A._blockwise_fwd_impl(
         qr, k, v, True, r, block_size=A.fwd_key_tile(torch.float32, d))
     delta = A._delta(o, do)
-    _, dk, dv = A._attention_bwd_impl(qr, k, v, lse, delta, do, True, r,
-                                      block_size=A.bwd_key_tile(
-                                          "split", torch.float32, d))
     args = (qr, k, v, do, lse, delta, r)
     kernels = {"k1": lambda: A.flash_fwd(qr, k, v, r, True),
                "k2": lambda: A.flash_bwd_dkdv(*args, True)}
+    if d <= A.WIDE_HEAD_DIM:
+        kernels["k3"] = lambda: A.flash_bwd_dq(*args, p2, True)
+    b2_want = {}
+    if d <= A.HEAD_DIMS[-1]:
+        kernels["b2"] = lambda: A.flash_bwd(*args, p2, True)
+        b2_want = {f"b2_{n}": t for n, t in kernel_check.plain_bwd_outputs(
+            qr, k, v, do, lse, delta, p2, r, True).items()}
 
     def outputs():
         o_k, lse_k = kernels["k1"]()
         dk_k, dv_k = kernels["k2"]()
-        return {"o": o_k, "lse": lse_k, "dk": dk_k, "dv": dv_k}
+        out = {"o": o_k, "lse": lse_k, "dk": dk_k, "dv": dv_k}
+        if "k3" in kernels:
+            out["dq"] = kernels["k3"]()
+        if "b2" in kernels:
+            out.update(zip(("b2_dk", "b2_dv", "b2_dq"), kernels["b2"]()))
+        return out
 
-    return kernels, outputs, {t: {"o": o, "lse": lse, "dk": dk, "dv": dv}
-                              for t in tiles}
+    wants = {}
+    for t in tiles:
+        dq, dk, dv, noise = A._attention_bwd_impl(
+            qr, k, v, lse, delta, do, True, r,
+            block_size=t[1] or A.bwd_key_tile("split", torch.float32, d),
+            dq_scale=p2, dq_noise=True)
+        wants[t] = {"o": o, "lse": lse, "dq": dq, "dq_noise": noise,
+                    "dk": dk, "dv": dv, **b2_want}
+    return kernels, outputs, wants
 
 
 CASES = {"split": split_case, "wide": wide_case, "wide_f32": f32_case,
@@ -366,11 +615,23 @@ CASES = {"split": split_case, "wide": wide_case, "wide_f32": f32_case,
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--family", choices=sorted(FAMILIES), default="split")
-    family = ap.parse_args().family
+    ap.add_argument("--only", nargs="+", metavar="VARIANT",
+                    help="time these of the family's variants alone")
+    ap.add_argument("--shapes", nargs="+", metavar="BHxSxD",
+                    help="these shapes (batch-heads x seq x head dim) in "
+                         "place of the family's")
+    args = ap.parse_args()
+    family = args.family
     fam = FAMILIES[family]
     if not torch.cuda.is_available():
         sys.exit("torch_split_variants: no CUDA device")
     stems, variants = fam["stem"], fam["variants"]
+    if args.only:
+        unknown = set(args.only) - set(variants)
+        if unknown:
+            sys.exit(f"torch_split_variants: no variant {sorted(unknown)} "
+                     f"in family {family}")
+        variants = {n: variants[n] for n in args.only}
     stems = (stems,) if isinstance(stems, str) else stems
     info = _build.build_all(list(stems))
     built = build_variants(stems, variants)
@@ -389,7 +650,9 @@ def main():
              else (None, None) for n in libs}
     dtype = fam.get("dtype", torch.bfloat16)
     result, ok = {}, True
-    for bh, s, d in fam["shapes"]:
+    shapes = ([tuple(map(int, s.split("x"))) for s in args.shapes]
+              if args.shapes else fam["shapes"])
+    for bh, s, d in shapes:
         g = torch.Generator(device="cuda").manual_seed(
             s if family == "split" else s + d)
         q, k, v, do = (torch.randn(bh, s, d, device="cuda", generator=g)
