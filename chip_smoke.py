@@ -71,8 +71,9 @@ Phases, one JSON line each:
 6. ``ring_kernels`` — K4 ``ring_flash_fwd``, K5 ``ring_flash_bwd``, K6
    ``ring_permute`` and K7 ``phase_closer`` on a ring of 4 members
    co-located on the card (``RingMesh``, one stream each), shard
-   (4, 8, 1024, 64): K4 and K5 in bf16 and f32 (float32 dq with its
-   term) on diagonal, wholly
+   (4, 8, 1024, 64): K4 and K5 in bf16 and f32 (the f32 on the 3xTF32
+   wgmma bodies of ``flash_wide_f32_sm90.cuh`` at the step's offsets;
+   float32 dq with its term) on diagonal, wholly
    visible and wholly masked steps, rotating and not, against their plain
    versions (POS_BIG lse rows must match, masked outputs be exactly 0),
    the rotated K/V in the neighbours' slots bit for bit; K6 bit-exact at
@@ -1400,7 +1401,7 @@ def phase_ring_kernels():
          k4_rotating_round_ms=t_k4_round, handshake_split=split, f32=f32,
          note="K4/K5: one launch on a wholly visible step of the ring "
               "shard, no rotation, in bf16 (f32: the same in float32, on "
-              "their SIMT f32 bodies, bounds at the 3xTF32 rate); "
+              "their 3xTF32 wgmma bodies, bounds at the 3xTF32 rate); "
               "library_ms: SDPA forward / backward (non-causal) on the same "
               "shard")
     return entries

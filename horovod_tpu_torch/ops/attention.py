@@ -87,22 +87,20 @@ _WIDE_WINDOW_PANELS = {"flash_fwd": 4, "flash_bwd_dkdv": 3,
 _WIDE_F32_WINDOW_PANELS = {"flash_fwd": 4, "flash_bwd_dkdv": 4}
 # Key tile of each forward body per head dim, as in the CUDA sources: the
 # 16-bit wgmma body (csrc/flash_fwd_sm90.cuh, key_tile) and in f32 K1's
-# 3xTF32 body (csrc/flash_wide_f32_sm90.cuh, F32_FWD_KEYS), the same 64
-# keys as K4's SIMT body (csrc/flash_common.cuh, f32_tile) up to 128, the
-# head dims K4 takes.  The online softmax advances its running max one key
-# tile at a time and p is rounded against it, so the plain side that holds
-# a kernel scans keys in the same blocks.
+# 3xTF32 body (csrc/flash_wide_f32_sm90.cuh, F32_FWD_KEYS), which K4 runs
+# too up to 128, the head dims K4 takes.  The online softmax advances its
+# running max one key tile at a time and p is rounded against it, so the
+# plain side that holds a kernel scans keys in the same blocks.
 _FWD_KEY_TILE = {d: {"16-bit": 128 if d <= 64 else 64, "f32": 64}
                  for d in _SPLIT_HEAD_DIMS}
 
 
 # Key tile of each backward body per head dim and mode: B2/K5's 16-bit
 # body (csrc/flash_bwd_sm90.cuh, sm90::BWD_BN), K3's (csrc/flash_dq_sm90.cuh,
-# dq_key_tile), and in f32 the one B2 and K5 share, 64 (B2's 3xTF32 body
-# sums each query step's dQ over its CTA's F32_DKDV_KEYS, K5's SIMT body
-# over csrc/flash_common.cuh's f32_tile), and K3's 3xTF32 body's 32
-# (csrc/flash_wide_f32_sm90.cuh, F32_DQ_KEYS; K2's 64 keys a CTA change no
-# sum).  The combined mode has no body at the wide head dim.
+# dq_key_tile), and in f32 the one B2 and K5 share, 64 (their 3xTF32 body
+# sums each query step's dQ over its CTA's F32_DKDV_KEYS), and K3's 3xTF32
+# body's 32 (csrc/flash_wide_f32_sm90.cuh, F32_DQ_KEYS; K2's 64 keys a CTA
+# change no sum).  The combined mode has no body at the wide head dim.
 _BWD_KEY_TILE = {d: {"combined": {"16-bit": 128, "f32": 64},
                      "split": {"16-bit": 64, "f32": 32}}
                  for d in HEAD_DIMS}
@@ -179,9 +177,9 @@ def bwd_key_tile(mode: str, dtype, d: int) -> int:
     in 16 bits, 128 for the combined body of B2 and K5
     (csrc/flash_bwd_sm90.cuh, sm90::BWD_BN) and, for the split pair, K3's
     key tile, the one its dq sums over (csrc/flash_dq_sm90.cuh,
-    ``dq_key_tile``); in f32 64 for the combined mode (B2's 3xTF32 body's
-    64 keys a CTA, csrc/flash_wide_f32_sm90.cuh, F32_DKDV_KEYS, and K5's
-    SIMT f32_tile, csrc/flash_common.cuh) and 32 for the split pair up to
+    ``dq_key_tile``); in f32 64 for the combined mode (the 64 keys a CTA of
+    B2's and K5's 3xTF32 body, csrc/flash_wide_f32_sm90.cuh,
+    F32_DKDV_KEYS) and 32 for the split pair up to
     256 (K3's 3xTF32 body, F32_DQ_KEYS); 64 above 256, K3's wide bodies'
     (csrc/flash_wide_sm90.cuh, DQ_KEYS, in 16 bits; csrc/flash_wide.cu,
     TK, in f32).  A plain side that holds a kernel

@@ -69,10 +69,8 @@
 //   warpgroups compute S^T and dP^T over the whole head dim, and each
 //   accumulates its 128 columns of dK and dV, the registers of head dim
 //   128; two (q', dO) stages of 64 KB: (K, V) + 2 stages, 64 + 128 KB.
-// * f32 inputs (K5; B2's and K2's f32 bodies are flash_wide_f32_sm90.cuh's):
-//   the SIMT body of the first port (scalar FMAs in full f32), one 64-key
-//   tile per 128-thread block through shared memory, dQ by scalar
-//   atomicAdd.
+// * f32 inputs: B2's, K5's and K2's bodies are the 3xTF32 wgmma ones of
+//   flash_wide_f32_sm90.cuh (wide32::dkdv_tile).
 //
 // A CTA whose keys no query row sees (a causal ring step whose held keys
 // all lie in the queries' future) issues no load and waits on no barrier:
@@ -460,116 +458,5 @@ int make_bwd_maps(CUtensorMap* maps, const void* q, const void* dout,
 }
 
 }  // namespace sm90
-
-// ---------------------------------------------------------------------------
-// The f32 body: 128 threads, one 64-key tile, 64-row query tiles staged
-// through shared memory, products by scalar FMA (mm_smem).
-// ---------------------------------------------------------------------------
-
-template <int D>
-struct F32BwdSmem {
-  using T = float;
-  static constexpr int BM = f32_tile<D>(), BN = BM;  // square tiles
-  static constexpr int LDT = D + PAD;
-  static constexpr int LDP = BN + PAD;
-  static constexpr int LDS = BN + 4;
-  static constexpr int LDO = D + 4;  // f32 staging of a dQ tile / dK, dV
-  static constexpr size_t a = 0;     // K tile
-  static constexpr size_t b = align128(a + BM * LDT * sizeof(T));  // V
-  static constexpr size_t c = align128(b + BM * LDT * sizeof(T));  // Q
-  static constexpr size_t d = align128(c + BM * LDT * sizeof(T));  // dO
-  static constexpr size_t s = align128(d + BM * LDT * sizeof(T));
-  static constexpr size_t dp = s + BM * LDS * sizeof(float);
-  static constexpr size_t p = align128(dp + BM * LDS * sizeof(float));
-  static constexpr size_t ds = align128(p + BM * LDP * sizeof(T));
-  static constexpr size_t lse = align128(ds + BM * LDP * sizeof(T));
-  static constexpr size_t delta = lse + BM * sizeof(float);
-  static constexpr size_t bytes = delta + BM * sizeof(float);
-  // bwd_ktile_f32 stages its outputs in S and dP.
-  static_assert(BM * LDO <= 2 * BM * LDS, "staging does not fit S and dP");
-};
-
-// Keys [k0, k0 + BN) of one head; q, k, v, dout, dk, dv, dq, lse, delta
-// already offset to the head.  dK, dV stored, dQ added to.
-template <int D>
-__device__ __forceinline__ void bwd_ktile_f32(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const float* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    float* __restrict__ dk, float* __restrict__ dv, float* __restrict__ dq,
-    int k0, int sq, int sk, int q_off, int k_off, float scale_r,
-    int causal) {
-  using T = float;
-  using L = F32BwdSmem<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* Ks = reinterpret_cast<T*>(smem + L::a);
-  T* Vs = reinterpret_cast<T*>(smem + L::b);
-  T* Qs = reinterpret_cast<T*>(smem + L::c);
-  T* dOs = reinterpret_cast<T*>(smem + L::d);
-  float* S = reinterpret_cast<float*>(smem + L::s);
-  float* dP = reinterpret_cast<float*>(smem + L::dp);
-  T* Ps = reinterpret_cast<T*>(smem + L::p);
-  T* dSs = reinterpret_cast<T*>(smem + L::ds);
-  float* lse_s = reinterpret_cast<float*>(smem + L::lse);
-  float* delta_s = reinterpret_cast<float*>(smem + L::delta);
-
-  load_tile<D, BN>(Ks, L::LDT, k, k0, sk);
-  load_tile<D, BN>(Vs, L::LDT, v, k0, sk);
-  Acc<BN, D> dK, dV;
-  dK.zero();
-  dV.zero();
-
-  const int n_qt = (sq + BM - 1) / BM;
-  int qt0 = 0;
-  if (causal) {
-    // First query tile whose last absolute row reaches this key tile
-    // (reference: `q_start + block_q - 1 >= k_start`).
-    const int need = k_off + k0 - q_off - BM + 1;
-    qt0 = need <= 0 ? 0 : (need + BM - 1) / BM;
-  }
-  for (int qt = qt0; qt < n_qt; ++qt) {
-    const int q0 = qt * BM;
-    __syncthreads();
-    load_tile<D, BM>(Qs, L::LDT, q, q0, sq);
-    load_tile<D, BM>(dOs, L::LDT, dout, q0, sq);
-    if (threadIdx.x < BM) {
-      const int r = q0 + threadIdx.x;
-      lse_s[threadIdx.x] = r < sq ? lse[r] : POS_BIG;
-      delta_s[threadIdx.x] = r < sq ? delta[r] : 0.f;
-    }
-    __syncthreads();
-    mm_smem<BM, BN, D, true, false>(S, L::LDS, Qs, L::LDT, Ks, L::LDT);
-    mm_smem<BM, BN, D, true, false>(dP, L::LDS, dOs, L::LDT, Vs, L::LDT);
-    __syncthreads();
-    for (int i = threadIdx.x; i < BM * BN; i += NT) {
-      const int r = i / BN, c = i % BN;
-      float x = S[r * L::LDS + c] * scale_r;
-      if (k0 + c >= sk || (causal && k_off + k0 + c > q_off + q0 + r))
-        x = NEG_INF;
-      const float p = expf(x - lse_s[r]);  // POS_BIG lse zeroes empty rows
-      Ps[r * L::LDP + c] = p;
-      dSs[r * L::LDP + c] = p * (dP[r * L::LDS + c] - delta_s[r]) * scale_r;
-    }
-    __syncthreads();
-    dV.template mma<BM, true>(Ps, L::LDP, dOs, L::LDT);   // P^T dO
-    dK.template mma<BM, true>(dSs, L::LDP, Qs, L::LDT);   // dS^T Q
-    // dQ tile = dS K, staged in the S/dP bytes (free until the next tile).
-    mm_smem<BM, D, BN, false, false>(S, L::LDO, dSs, L::LDP, Ks, L::LDT);
-    __syncthreads();
-    for (int i = threadIdx.x; i < BM * D; i += NT) {
-      const int r = i / D, c = i % D;
-      if (q0 + r < sq) atomicAdd(dq + (size_t)(q0 + r) * D + c,
-                                 S[r * L::LDO + c]);
-    }
-  }
-  __syncthreads();
-  dK.store(S, L::LDO);
-  __syncthreads();
-  store_rows<D, BN>(dk, S, L::LDO, k0, sk, 1.f);
-  __syncthreads();
-  dV.store(S, L::LDO);
-  __syncthreads();
-  store_rows<D, BN>(dv, S, L::LDO, k0, sk, 1.f);
-}
 
 }  // namespace hvdt

@@ -10,8 +10,8 @@
 // body of flash_wide_f32_sm90.cuh (wide32::fwd_tile, the one above 256
 // runs), whose note gives its design: 128 query rows by 64-key tiles, a
 // window of the whole head dim up to 128 (d / 32 panels) and two column
-// CTAs of 4 panels at 256; a 1-D grid, heavy tiles first.  (K4 keeps the
-// SIMT f32 body, fwd_tile_f32.)  Head dims 32, 64, 96, 128 and 256.  bh
+// CTAs of 4 panels at 256; a 1-D grid, heavy tiles first (K4's f32 body
+// too, at a ring step's offsets).  Head dims 32, 64, 96, 128 and 256.  bh
 // rides on x in both, so any batch-head count launches.  q, k, v, o:
 // contiguous (bh, s, D); lse: (bh, sq) f32.  Any sequence length: the
 // ragged tail is zero-filled on load and masked as NEG_INF logits.

@@ -51,9 +51,8 @@
 //   64-key tiles; S is computed twice per key tile (1.5x the products of
 //   one pass), and every Q, K and V tile in shared memory serves both
 //   warpgroups.  Shared memory: Q + 2 stages of K and V, 32 + 128 KB.
-// * f32 inputs (K4; K1's f32 runs the 3xTF32 wgmma body of
-//   flash_wide_f32_sm90.cuh): a SIMT body with scalar FMAs in full f32,
-//   64 x 64 tiles through shared memory.
+// * f32 inputs: K1's and K4's body is the 3xTF32 wgmma one of
+//   flash_wide_f32_sm90.cuh (wide32::fwd_tile).
 //
 // Semantics of the reference (horovod_tpu/ops/attention.py:320-335):
 // masked logits are NEG_INF, m_safe keeps rows with no key so far at zero
@@ -406,137 +405,5 @@ int make_maps(CUtensorMap* mq, CUtensorMap* mk, CUtensorMap* mv,
 }
 
 }  // namespace sm90
-
-// ---------------------------------------------------------------------------
-// The f32 body (K4's): 128 threads, one query tile of f32_tile<D>() rows
-// (64), key tiles of as many rows staged through shared memory, products
-// by scalar FMA (mm_smem).
-// ---------------------------------------------------------------------------
-
-template <int D>
-struct F32FwdSmem {
-  using T = float;
-  static constexpr int BM = f32_tile<D>(), BN = BM;  // square tiles
-  static constexpr int LDT = D + PAD;   // q, k, v tiles
-  static constexpr int LDP = BN + PAD;  // probabilities
-  static constexpr int LDS = BN + 4;    // logits
-  static constexpr int LDA = D + 4;     // output accumulator
-  static constexpr size_t q = 0;
-  static constexpr size_t k = align128(q + BM * LDT * sizeof(T));
-  static constexpr size_t v = align128(k + BN * LDT * sizeof(T));
-  static constexpr size_t p = align128(v + BN * LDT * sizeof(T));
-  static constexpr size_t s = align128(p + BM * LDP * sizeof(T));
-  static constexpr size_t acc = align128(s + BM * LDS * sizeof(float));
-  static constexpr size_t m = align128(acc + BM * LDA * sizeof(float));
-  static constexpr size_t l = m + BM * sizeof(float);
-  static constexpr size_t alpha = l + BM * sizeof(float);
-  static constexpr size_t bytes = alpha + BM * sizeof(float);
-};
-
-// Rows [q0, q0 + f32_tile<D>()) of one head; q, k, v, o already offset to
-// the head.
-template <int D>
-__device__ __forceinline__ void fwd_tile_f32(const float* __restrict__ q,
-                                             const float* __restrict__ k,
-                                             const float* __restrict__ v,
-                                             float* __restrict__ o,
-                                             float* __restrict__ lse, int q0,
-                                             int sq, int sk, int q_off,
-                                             int k_off, float scale_r,
-                                             int causal) {
-  using T = float;
-  using L = F32FwdSmem<D>;
-  constexpr int BM = L::BM, BN = L::BN;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* Qs = reinterpret_cast<T*>(smem + L::q);
-  T* Ks = reinterpret_cast<T*>(smem + L::k);
-  T* Vs = reinterpret_cast<T*>(smem + L::v);
-  T* Ps = reinterpret_cast<T*>(smem + L::p);
-  float* S = reinterpret_cast<float*>(smem + L::s);
-  float* Acc = reinterpret_cast<float*>(smem + L::acc);
-  float* m_s = reinterpret_cast<float*>(smem + L::m);
-  float* l_s = reinterpret_cast<float*>(smem + L::l);
-  float* a_s = reinterpret_cast<float*>(smem + L::alpha);
-
-  load_tile<D, BM>(Qs, L::LDT, q, q0, sq);
-  for (int i = threadIdx.x; i < BM * L::LDA; i += NT) Acc[i] = 0.f;
-  if (threadIdx.x < BM) {
-    m_s[threadIdx.x] = NEG_INF;
-    l_s[threadIdx.x] = 0.f;
-  }
-
-  int n_kt = (sk + BN - 1) / BN;
-  if (causal) {
-    const int lim = q_off + q0 + BM - 1 - k_off;
-    n_kt = lim < 0 ? 0 : min(n_kt, lim / BN + 1);
-  }
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BN;
-    __syncthreads();  // previous tile's readers of Ks/Vs/Ps are done
-    load_tile<D, BN>(Ks, L::LDT, k, k0, sk);
-    load_tile<D, BN>(Vs, L::LDT, v, k0, sk);
-    __syncthreads();
-    mm_smem<BM, BN, D, true, false>(S, L::LDS, Qs, L::LDT, Ks, L::LDT);
-    __syncthreads();
-    // Online softmax, one warp per BM / 4 rows, BN / 32 columns per lane.
-    for (int r = warp * (BM / 4); r < (warp + 1) * (BM / 4); ++r) {
-      const int qpos = q_off + q0 + r;
-      float sv[BN / 32];
-      float mx = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < BN / 32; ++j) {
-        const int c = lane + 32 * j;
-        float x = S[r * L::LDS + c] * scale_r;
-        if (k0 + c >= sk || (causal && k_off + k0 + c > qpos)) x = NEG_INF;
-        sv[j] = x;
-        mx = fmaxf(mx, x);
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, mx);
-      const float m_safe = m_new <= NEG_INF / 2 ? 0.f : m_new;
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < BN / 32; ++j) {
-        const float p = expf(sv[j] - m_safe);
-        Ps[r * L::LDP + lane + 32 * j] = p;
-        sum += p;
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_safe);
-        l_s[r] = l_s[r] * alpha + sum;
-        m_s[r] = m_new;
-        a_s[r] = alpha;
-      }
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < BM * D; i += NT) {
-      const int r = i / D, c = i % D;
-      Acc[r * L::LDA + c] *= a_s[r];
-    }
-    __syncthreads();
-    mm_smem<BM, D, BN, false, true>(Acc, L::LDA, Ps, L::LDP, Vs, L::LDT);
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < BM * D; i += NT) {
-    const int r = i / D, c = i % D;
-    if (q0 + r < sq) {
-      const float l = l_s[r];
-      o[(size_t)(q0 + r) * D + c] = Acc[r * L::LDA + c] / (l == 0.f ? 1.f : l);
-    }
-  }
-  if (threadIdx.x < BM && q0 + threadIdx.x < sq) {
-    const float l = l_s[threadIdx.x];
-    lse[q0 + threadIdx.x] =
-        l == 0.f ? POS_BIG : m_s[threadIdx.x] + logf(fmaxf(l, 1e-37f));
-  }
-}
 
 }  // namespace hvdt

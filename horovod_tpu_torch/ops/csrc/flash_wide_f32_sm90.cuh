@@ -5,22 +5,27 @@
 // (flash_bwd_dkdv, flash_bwd_dq) launch them for f32 at head dims 32, 64,
 // 96, 128 and 256, flash_bwd.cu (flash_bwd) at 32 to 128, flash_wide.cu
 // (flash_fwd_wide, flash_bwd_dkdv_wide) above 256, where K3 keeps a SIMT
-// body (flash_wide.cu).  Under a causal mask dq at query row 0 is a
-// rounding residue of dP - delta; kernel_check holds float32 dq to a limit
-// that grows by the rounding noise of dP, which that residue is.
+// body (flash_wide.cu).  The ring steps K4 and K5 (ring_flash.cu) run K1's
+// and B2's bodies at 32 to 128 with the step's absolute offsets q_off and
+// k_off, which every causal decision reads (K1 and B2 pass 0).  Under a
+// causal mask dq at query row 0 is a rounding residue of dP - delta;
+// kernel_check holds float32 dq to a limit that grows by the rounding
+// noise of dP, which that residue is.
 //
 // They replace the Pallas TPU kernels `_flash_kernel`
 // (horovod_tpu/ops/attention.py:356, pallas_call :1047),
 // `_flash_bwd_dkdv_kernel` (:429, pallas_call :914), `_flash_bwd_dq_kernel`
-// (:465, pallas_call :930) and `_combined_bwd_kernel` with rotate=False
-// (:498, pallas_call :706), math in `_bwd_block_math` :386, in float32.  Semantics as flash_wide.cu's note
-// and the reference's: masked logits NEG_INF, m_safe and alpha rescaling,
-// l summed over the unrounded p, lse = POS_BIG and o = 0 for rows with no
-// key, dK and dV summed and stored in f32, a ragged tail zero-filled and
-// masked, any multiple of 32.  A CTA computes a window of NP output panels
-// (a template parameter, window_panels): the whole head dim up to 128
-// (NP = d / 32, one column CTA, so nothing is recomputed), 4 panels above
-// (two column CTAs at 256).
+// (:465, pallas_call :930) and `_combined_bwd_kernel` with rotate=False (:498,
+// pallas_call :706) and rotate=True (K5, through
+// horovod_tpu/ops/ring_flash.py's `_bwd_ring_step`), math in `_bwd_block_math`
+// :386, and `_step_kernel` (K4, horovod_tpu/ops/ring_flash.py:78, pallas_call
+// :272), in float32.  Semantics as flash_wide.cu's note and the reference's:
+// masked logits NEG_INF, m_safe and alpha rescaling, l summed over the
+// unrounded p, lse = POS_BIG and o = 0 for rows with no key, dK and dV summed
+// and stored in f32, a ragged tail zero-filled and masked, any multiple of 32.
+// A CTA computes a window of NP output panels (a template parameter,
+// window_panels): the whole head dim up to 128 (NP = d / 32, one column CTA,
+// so nothing is recomputed), 4 panels above (two column CTAs at 256).
 //
 // Precision.  One TF32 product keeps 10 mantissa bits of each operand and
 // misses the f32 rule (kernel_check, rtol 1e-4) by 30x and more; three
@@ -377,17 +382,24 @@ struct FwdSmem {
   static constexpr size_t bytes = bars + 8 * N_BARS + 1024;
 };
 
-// K1: o's own columns and (column CTA 0) lse of query rows [q0, q0 +
-// F32_FWD_ROWS) of head bh, over a window of NP panels.  mq: map of q'
-// (bh, sq, d), boxes of F32_FWD_ROWS rows; mk, mv: k, v (bh, sk, d), boxes
-// of F32_FWD_KEYS rows.
-template <int NP>
+// K1 and K4: o's own columns and (column CTA 0) lse of query rows [q0, q0
+// + F32_FWD_ROWS) of head bh, over a window of NP panels.  With OFFSETS
+// (K4) the query rows sit at absolute position q_off + q0 and the keys at
+// k_off, and every causal decision reads them; K1 instantiates the body
+// without, so its code is the one without offsets.  mq: map of q' (bh, sq,
+// d), boxes of F32_FWD_ROWS rows; mk, mv: k, v (bh, sk, d), boxes of
+// F32_FWD_KEYS rows.  A CTA with no key tile (a ring step wholly in its
+// future) loads nothing and waits on no barrier: o = 0, lse = POS_BIG.  A
+// warpgroup whose rows see no key of a tile takes it masked, which leaves
+// its m at NEG_INF and its l and O at 0.
+template <int NP, bool OFFSETS = false>
 __device__ __forceinline__ void fwd_tile(const CUtensorMap* mq,
                                          const CUtensorMap* mk,
                                          const CUtensorMap* mv, float* o,
                                          float* lse, int bh, int cc, int q0,
-                                         int sq, int sk, int d,
-                                         float scale_r, int causal) {
+                                         int sq, int sk, int d, int q_off,
+                                         int k_off, float scale_r,
+                                         int causal) {
   using L = FwdSmem<NP>;
   constexpr int BN = F32_FWD_KEYS, CW = NP * F32_PANEL;
   constexpr int STAGES = F32_FWD_STAGES;
@@ -401,8 +413,15 @@ __device__ __forceinline__ void fwd_tile(const CUtensorMap* mq,
   const Cols cols = col_share<NP>(d, cc);
 
   int n_kt = (sk + BN - 1) / BN;
-  // Key tiles past the CTA's last row are wholly masked.
-  if (causal) n_kt = min(n_kt, (q0 + F32_FWD_ROWS - 1) / BN + 1);
+  // Key tiles past the CTA's last row are wholly masked (reference:
+  // `k_start <= q_start + block_q - 1`); a ring step wholly in the CTA's
+  // future leaves none.
+  if constexpr (OFFSETS) {
+    const int lim = q_off + q0 + F32_FWD_ROWS - 1 - k_off;
+    if (causal) n_kt = lim < 0 ? 0 : min(n_kt, lim / BN + 1);
+  } else {
+    if (causal) n_kt = min(n_kt, (q0 + F32_FWD_ROWS - 1) / BN + 1);
+  }
 
   if (threadIdx.x == 0) {
 #pragma unroll
@@ -495,7 +514,8 @@ __device__ __forceinline__ void fwd_tile(const CUtensorMap* mq,
 #pragma unroll
             for (int j = 0; j < 2; ++j) {
               const int key = 8 * i + cq + j;
-              const int row = wg_first + r_lo + 8 * h;
+              int row = wg_first + r_lo + 8 * h;  // in the keys' positions
+              if constexpr (OFFSETS) row += q_off - k_off;
               if (key >= key_end || (causal && k0 + key > row))
                 s[4 * i + 2 * h + j] = NEG_INF;
             }
@@ -531,7 +551,8 @@ __device__ __forceinline__ void fwd_tile(const CUtensorMap* mq,
     // diagonal or the ragged tail on, every tile does.
     int n_plain = min(n_kt, sk / BN);
     if (causal) {
-      const int x = wg_first - BN + 1;  // k0 <= x: no key masked
+      int x = wg_first - BN + 1;  // k0 <= x: no key masked
+      if constexpr (OFFSETS) x += q_off - k_off;
       n_plain = min(n_plain, x < 0 ? 0 : x / BN + 1);
     }
     using Plain = std::integral_constant<bool, false>;
@@ -688,32 +709,34 @@ struct DkdvSmem {
   static_assert(!WITH_DQ || NP <= F32_BWD_NP, "B2's window is 2 panels");
 };
 
-// K2: dK's and dV's own columns of keys [k0, k0 + F32_DKDV_KEYS) of head
-// bh, over a window of NP panels; B2 (WITH_DQ) also adds each query step's
+// K2: dK's and dV's own columns of keys [k0, k0 + F32_DKDV_KEYS) of head bh,
+// over a window of NP panels; B2 and K5 (WITH_DQ) also add each query step's
 // dQ on its own columns into the f32 tensor of map mdq (boxes of
-// F32_BWD_DQ_ROWS rows) by TMA reduce.  mq, mdo: maps of q', dO (bh, sq,
-// d), boxes of F32_DKDV_ROWS rows; mk, mv: k, v (bh, sk, d), boxes of
-// F32_DKDV_KEYS rows.  lse, delta:
-// (bh, sq) f32.  Both consumer warpgroups own the CTA's keys: per query
-// step each sums S^T and dP^T over every other head-dim chunk, alone
-// behind its own named barrier, the two halves are added through shared
-// memory (a + b == b + a, so both hold the same bits), and each then
-// computes dK and dV on its half of the window.  So S^T and dP^T are
-// computed once per CTA for its window.  Where the head dim has one chunk
-// (32) the second warpgroup sums none and adds zeros.  B2's dQ: K^T of the
-// window is staged hi / lo once; per query step every consumer thread
-// stores its dS^T values, split, as dS (query rows, keys along K), and
-// warpgroup c computes dQ^T = K^T dS^T for query rows 16 c .. 16 c + 15 of
-// the step (3 TF32 products a k8 slice, both operands from shared memory)
-// and adds its own columns into the caller's f32 dq by TMA reduce, in an
-// order that changes from run to run.
-template <int NP, bool WITH_DQ = false>
+// F32_BWD_DQ_ROWS rows) by TMA reduce.  With OFFSETS (K5) the keys sit at
+// absolute position k_off + k0 and the query rows at q_off (K2 and B2
+// instantiate the body without); a CTA whose keys no query row sees (a ring
+// step wholly in the queries' future) runs no query step (B2 and K5 still
+// load and stage their K window), stores dK = dV = 0 and adds no dQ.  mq, mdo: maps of q', dO (bh, sq, d), boxes of F32_DKDV_ROWS
+// rows; mk, mv: k, v (bh, sk, d), boxes of F32_DKDV_KEYS rows.  lse, delta:
+// (bh, sq) f32.  Both consumer warpgroups own the CTA's keys: per query step
+// each sums S^T and dP^T over every other head-dim chunk, alone behind its own
+// named barrier, the two halves are added through shared memory (a + b == b +
+// a, so both hold the same bits), and each then computes dK and dV on its half
+// of the window.  So S^T and dP^T are computed once per CTA for its window.
+// Where the head dim has one chunk (32) the second warpgroup sums none and
+// adds zeros.  B2's dQ: K^T of the window is staged hi / lo once; per query
+// step every consumer thread stores its dS^T values, split, as dS (query rows,
+// keys along K), and warpgroup c computes dQ^T = K^T dS^T for query rows 16 c
+// .. 16 c + 15 of the step (3 TF32 products a k8 slice, both operands from
+// shared memory) and adds its own columns into the caller's f32 dq by TMA
+// reduce, in an order that changes from run to run.
+template <int NP, bool WITH_DQ = false, bool OFFSETS = false>
 __device__ __forceinline__ void dkdv_tile(
     const CUtensorMap* mq, const CUtensorMap* mdo, const CUtensorMap* mk,
     const CUtensorMap* mv, const CUtensorMap* mdq,
     const float* __restrict__ lse, const float* __restrict__ delta,
     float* __restrict__ dk, float* __restrict__ dv, int bh, int cc, int k0,
-    int sq, int sk, int d, float scale_r, int causal) {
+    int sq, int sk, int d, int q_off, int k_off, float scale_r, int causal) {
   using L = DkdvSmem<NP, WITH_DQ>;
   constexpr int QB = F32_DKDV_ROWS;
   constexpr int CW = NP * F32_PANEL / 2;  // a warpgroup's window columns
@@ -731,12 +754,13 @@ __device__ __forceinline__ void dkdv_tile(
   const Cols cols = col_share<NP>(d, cc);
 
   // Query steps that see a key of this CTA: under a causal mask, from the
-  // first whose last row reaches the CTA's first key (reference:
-  // `q_start + block_q - 1 >= k_start`).
+  // first whose last (absolute) row reaches the CTA's first (absolute) key
+  // (reference: `q_start + block_q - 1 >= k_start`).
   const int n_qt = (sq + QB - 1) / QB;
   int qt0 = 0;
   if (causal) {
-    const int need = k0 - QB + 1;
+    int need = k0 - QB + 1;
+    if constexpr (OFFSETS) need += k_off - q_off;
     qt0 = need <= 0 ? 0 : (need + QB - 1) / QB;
   }
   const int n_it = max(0, n_qt - qt0);
@@ -945,12 +969,15 @@ __device__ __forceinline__ void dkdv_tile(
       const int cs = it % CSTAGES;
       mbar_wait(c_full + 8 * cs, (it / CSTAGES) & 1);
       const float* sl = stats + cs * L::STAT_FLOATS;
+      // The step's first row in the keys' positions.
+      int q_rel = q0;
+      if constexpr (OFFSETS) q_rel += q_off - k_off;
       const bool masked = k0 + F32_DKDV_KEYS > sk ||
-                          (causal && k0 + F32_DKDV_KEYS - 1 > q0);
+                          (causal && k0 + F32_DKDV_KEYS - 1 > q_rel);
       if (masked)
-        grads(sl, q0, Masked{});
+        grads(sl, q_rel, Masked{});
       else
-        grads(sl, q0, Plain{});
+        grads(sl, q_rel, Plain{});
       // P^T and dS^T per 8-query slice, hi and lo.
       uint32_t pah[QB / 8][4], pal[QB / 8][4], dah[QB / 8][4], dal[QB / 8][4];
 #pragma unroll
@@ -1414,7 +1441,7 @@ __global__ void __launch_bounds__(WIDE_THREADS, 1)
   const int bh = blockIdx.x % bh_total, rest = blockIdx.x / bh_total;
   const int qt = n_qt - 1 - rest / n_cc;  // heavy (late) query tiles first
   fwd_tile<NP>(&mq, &mk, &mv, o, lse, bh, rest % n_cc, qt * F32_FWD_ROWS,
-               sq, sk, d, scale_r, causal);
+               sq, sk, d, 0, 0, scale_r, causal);
 }
 
 template <int NP>
@@ -1431,7 +1458,8 @@ __global__ void __launch_bounds__(WIDE_THREADS, 1)
   const int bh = blockIdx.x % bh_total, rest = blockIdx.x / bh_total;
   const int kt = rest / n_cc;  // heavy (early) key tiles first
   dkdv_tile<NP>(&mq, &mdo, &mk, &mv, nullptr, lse, delta, dk, dv, bh,
-                rest % n_cc, kt * F32_DKDV_KEYS, sq, sk, d, scale_r, causal);
+                rest % n_cc, kt * F32_DKDV_KEYS, sq, sk, d, 0, 0, scale_r,
+                causal);
 }
 
 template <int NP>
@@ -1449,8 +1477,8 @@ __global__ void __launch_bounds__(WIDE_THREADS, 1)
   const int bh = blockIdx.x % bh_total, rest = blockIdx.x / bh_total;
   const int kt = rest / n_cc;  // heavy (early) key tiles first
   dkdv_tile<NP, true>(&mq, &mdo, &mk, &mv, &mdq, lse, delta, dk, dv, bh,
-                      rest % n_cc, kt * F32_DKDV_KEYS, sq, sk, d, scale_r,
-                      causal);
+                      rest % n_cc, kt * F32_DKDV_KEYS, sq, sk, d, 0, 0,
+                      scale_r, causal);
 }
 
 template <int NP>
@@ -1491,11 +1519,11 @@ int prepare(int which, int np, K kernel, size_t bytes) {
 static_assert(F32_FWD_NP == F32_DKDV_NP && F32_FWD_NP == F32_DQ_NP,
               "one window for K1, K2 and K3");
 template <int D>
-constexpr int window_panels() {
+__host__ __device__ constexpr int window_panels() {
   return D < F32_FWD_NP * F32_PANEL ? D / F32_PANEL : F32_FWD_NP;
 }
 template <int D>
-constexpr int bwd_window_panels() {
+__host__ __device__ constexpr int bwd_window_panels() {
   return D < F32_BWD_NP * F32_PANEL ? D / F32_PANEL : F32_BWD_NP;
 }
 

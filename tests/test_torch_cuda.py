@@ -531,11 +531,19 @@ def test_ring_steps_match_plain_versions(cuda_device, dtype, sl, d):
     masked step must read exact zeros and POS_BIG (kernel_check.compare,
     compare_lse).  K5's 128-key tile (dQ split by columns at head dims 64
     and 128, by keys at 32 and 96) crosses the shard's end too."""
+    _hold_ring_steps((2, 2, sl, d), dtype, sl + d,
+                     ((0, True), (1, True), (0, False), (3, False)))
+
+
+def _hold_ring_steps(shard, dtype, seed, steps):
+    """K4 and K5 on a ring of 4 members of ``shard`` at each ``(t,
+    rotate)`` of ``steps`` (member i holding member (i - t) % 4's K/V),
+    every output under kernel_check's rule, the slots bit for bit, the
+    flags balanced; every step kind must occur."""
     mesh = _ring()
-    members, _, scale_r = kernel_check.ring_inputs(4, (2, 2, sl, d), dtype,
-                                                   sl + d)
+    members, _, scale_r = kernel_check.ring_inputs(4, shard, dtype, seed)
     kinds = set()
-    for t, rotate in ((0, True), (1, True), (0, False), (3, False)):
+    for t, rotate in steps:
         rows = kernel_check.hold_ring_round(mesh, members, t, scale_r,
                                             rotate=rotate)
         mesh.check()
@@ -546,6 +554,99 @@ def test_ring_steps_match_plain_versions(cuda_device, dtype, sl, d):
             for name, e in r["errors"].items():
                 assert e["worst"] <= 1.0, (t, r["kind"], name, e)
     assert kinds == {"diagonal", "visible", "masked"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shard", [(1, 2, 8192, 64), (1, 1, 4096, 128)])
+def test_f32_ring_steps_at_a_long_causal_shard(cuda_device, shard):
+    """K4 and K5 in float32 (the 3xTF32 bodies of
+    csrc/flash_wide_f32_sm90.cuh at the step's offsets) on a ring of 4
+    long shards: the diagonal (t = 0, rotating), wholly visible and wholly
+    masked steps (t = 1, rotating; t = 3, the last step, not).  A sum
+    chained over the 128 key tiles or 256 query steps of a shard would
+    drift past the f32 rule (dq with its term)."""
+    _hold_ring_steps(shard, torch.float32, shard[2] + shard[3],
+                     ((0, True), (1, True), (3, False)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift", [100, -100])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_step_with_its_diagonal_inside_a_tile(cuda_device, dtype, d,
+                                                   shift):
+    """One K4 and one K5 launch whose offsets differ by ``shift`` (q_off -
+    k_off, neither 0 nor a shard of 200 or more), against the plain
+    versions at the same offsets: the diagonal crosses K4's 128-row query
+    tiles and K5's key tiles inside, so the leading tiles that need no
+    mask, K4's last key tile and K5's first query step must come from
+    absolute positions.  At -100 query rows 0-99 see no key (o = 0, lse
+    = POS_BIG): in f32 all 64 rows of K4's first consumer warpgroup, while
+    the second's rows from 100 on see keys."""
+    from horovod_tpu_torch.ops import ring_flash
+
+    sl, k_off = 200, 400
+    q_off = k_off + shift
+    members, _, r = kernel_check.ring_inputs(1, (2, 2, sl, d), dtype,
+                                             sl + d)
+    m = members[0]
+    ref, delta = kernel_check.ring_plain_step(m["qr"], m["k"], m["v"],
+                                              m["do"], q_off, k_off, True, r)
+    mesh = _ring()
+    before = dict(ring_flash.launches)
+    o, lse = ring_flash.ring_flash_fwd(mesh, 0, m["qr"], m["k"], m["v"],
+                                       q_off, k_off, r, True)
+    dk, dv, dq = ring_flash.ring_flash_bwd(
+        mesh, 0, m["qr"], m["k"], m["v"], m["do"], ref["lse"], delta, q_off,
+        k_off, r, True)
+    torch.cuda.synchronize()
+    assert {n: ring_flash.launches[n] - before[n] for n in before} == {
+        "ring_flash_fwd": 1, "ring_flash_bwd": 1, "phase_closer": 0}
+    got = {"o": o, "lse": lse, "dq": dq, "dk": dk, "dv": dv}
+    for name, err in kernel_check.compare_outputs(got, ref, dtype).items():
+        assert err["worst"] <= 1.0, (name, err)
+    if shift < 0:
+        assert bool((lse[:, :-shift] == tattn.POS_BIG).all())
+        assert bool((o[:, :-shift] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_masked_f32_step_overwrites_freed_nans(cuda_device, d):
+    """A wholly masked f32 ring step (every held key in the queries'
+    future) loads nothing, yet writes all its outputs: o, lse, dk and dv
+    land in the blocks of NaN-filled tensors of their sizes just freed
+    (the caching allocator hands them back), and must read exact zeros
+    and POS_BIG; the member's running dq total takes no add."""
+    from horovod_tpu_torch.ops import ring_flash
+
+    bh, sl = 4, 256
+    members, _, r = kernel_check.ring_inputs(1, (1, bh, sl, d),
+                                             torch.float32, d)
+    m = members[0]
+    ref, delta = kernel_check.ring_plain_step(m["qr"], m["k"], m["v"],
+                                              m["do"], 0, sl, True, r)
+    g = torch.Generator(device=cuda_device).manual_seed(d)
+    dq_acc = torch.randn(bh, sl, d, device=cuda_device, generator=g)
+    dq_before = dq_acc.clone()
+    mesh = _ring()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    # In the order and sizes the wrappers allocate: o, lse, then dk, dv.
+    nans = [torch.full(shape, float("nan"), device=cuda_device)
+            for shape in ((bh, sl, d), (bh, sl), (bh, sl, d), (bh, sl, d))]
+    freed = {t.data_ptr() for t in nans}
+    del nans
+    o, lse = ring_flash.ring_flash_fwd(mesh, 0, m["qr"], m["k"], m["v"], 0,
+                                       sl, r, True)
+    dk, dv, dq = ring_flash.ring_flash_bwd(
+        mesh, 0, m["qr"], m["k"], m["v"], m["do"], ref["lse"], delta, 0, sl,
+        r, True, dq_acc=dq_acc)
+    torch.cuda.synchronize()
+    assert {t.data_ptr() for t in (o, lse, dk, dv)} == freed
+    assert bool((o == 0).all()) and bool((lse == tattn.POS_BIG).all())
+    assert bool((dk == 0).all()) and bool((dv == 0).all())
+    assert dq is dq_acc and torch.equal(dq_acc, dq_before)
 
 
 @pytest.mark.cuda

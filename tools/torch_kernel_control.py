@@ -4,7 +4,7 @@ Run from the repository root on a machine with one CUDA GPU::
 
     python3 tools/torch_kernel_control.py              # every mutant
     python3 tools/torch_kernel_control.py --wide-only  # K3 above 256
-    python3 tools/torch_kernel_control.py --f32        # K1-K3, B2 in f32
+    python3 tools/torch_kernel_control.py --f32        # K1-K5 in f32
     python3 tools/torch_kernel_control.py --f32-first-rows  # dq, row 0
 
 Builds mutants of the attention kernels, each with one line changed so
@@ -112,6 +112,20 @@ side with every product hi.hi alone (``kernel_check.mm_3xtf32(...,
 products=1)``, the split the bodies use), read against the same plain
 side.
 
+Mutants of the f32 ring kernels (the same header, K4 on ``fwd_tile`` and
+K5 on ``dkdv_tile<NP, true>`` at a step's offsets; built into
+``ring_flash`` alone), each read with ``--f32`` and without it on a ring
+of 4 members of shard (4, 8, 1024, 64) in float32 (``ring_f32``: step 0,
+every member on the diagonal, then step 1 rotating, member 0 wholly
+masked and the others wholly visible; o, lse, dq, dk, dv, the slots bit
+for bit, the flags balanced):
+
+* ``f32_k4_k_offset_one_tile`` — K4 takes its k offset one 64-key tile
+  late;
+* ``f32_k5_q_offset_ignored`` — K5 masks as if its q offset were 0;
+* ``f32_k5_dq_reduce_skipped`` — K5's second consumer warpgroup adds no
+  dQ (its TMA reduces left out).
+
 The first three drop most of the mass of some rows; the next three drop
 a share of late rows only; the next three move late rows, whose values
 are small against the largest, by less than the old rule's limit.
@@ -190,7 +204,7 @@ WIDE_CHUNK_LOOP = ("        if (panels - ch * CHUNK_PANELS < CHUNK_PANELS)\n"
                    "          issue_chunk(sa, ch == 0, Full{});\n"
                    "        pin(s);\n"
                    "        pin(dp);\n"
-                   "        mbar_arrive_if(a_empty + 8 * st, tid == 0);\n"
+                   "        release(a_empty + 8 * st);\n"
                    "      }\n"
                    "      if (kt < n_plain)\n")
 WIDE_P = "            float p = ex2(fmaf(s[e], scale_log2, -lse2[h]));\n"
@@ -379,6 +393,22 @@ RING_MUTANTS = {
         "      bulk_store(out + (size_t)r * K6_HALF + p,", "k6"),
 }
 RING_SHARD = (4, 8, 1024, 64)
+# Ring mutants of the f32 bodies K4 and K5 run (wide32::fwd_tile and
+# dkdv_tile<NP, true> at a step's offsets): (file mutated, line, what
+# replaces it), built into ring_flash alone and read as ``ring_f32``.
+RING_F32_MUTANTS = {
+    "f32_k4_k_offset_one_tile": (
+        F32_BODY, "  using L = FwdSmem<NP>;\n",
+        "  using L = FwdSmem<NP>;\n  k_off += F32_FWD_KEYS;\n"),
+    "f32_k5_q_offset_ignored": (
+        F32_BODY, "  using L = DkdvSmem<NP, WITH_DQ>;\n",
+        "  using L = DkdvSmem<NP, WITH_DQ>;\n  q_off = 0;\n"),
+    "f32_k5_dq_reduce_skipped": (
+        F32_BODY, "        if (tid == 0) {\n"
+        "          for (int p = cols.start - cols.w0;\n",
+        "        if (tid == 0 && c == 0) {\n"
+        "          for (int p = cols.start - cols.w0;\n"),
+}
 
 
 def ring_reading(kind):
@@ -389,6 +419,8 @@ def ring_reading(kind):
     from horovod_tpu_torch.parallel import RingMesh
 
     mesh = RingMesh(4)  # loads (and prepares) the libraries now in place
+    if kind == "ring_f32":
+        return ring_f32_reading(mesh)
     members, _, scale_r = kernel_check.ring_inputs(4, RING_SHARD,
                                                    torch.bfloat16, 3)
     if kind == "k4":
@@ -425,6 +457,28 @@ def ring_reading(kind):
     return {"rotation_exact": exact, "ok": exact}
 
 
+def ring_f32_reading(mesh):
+    """K4 and K5 in float32 on a ring of 4 members of RING_SHARD: step 0
+    (every member on the diagonal) without rotation, then step 1 (member 0
+    wholly masked, the others wholly visible) rotating, each output's
+    worst reading over the members under ``kernel_check``'s rule (dq with
+    its term); ``ok`` also asks the slots bit-exact and the flags
+    balanced."""
+    members, _, scale_r = kernel_check.ring_inputs(4, RING_SHARD,
+                                                   torch.float32, 4)
+    rows = [dict(r, step=t) for t, rotate in ((0, False), (1, True))
+            for r in kernel_check.hold_ring_round(mesh, members, t, scale_r,
+                                                  rotate=rotate)]
+    errs = {n: max((dict(r["errors"][n], step=r["step"]) for r in rows),
+                   key=lambda e: e["worst"])
+            for n in ("o", "lse", "dq", "dk", "dv")}
+    exact = all(r.get("slot_exact", True) for r in rows)
+    balanced = mesh.flags_balanced()
+    return {"errors": errs, "slots_exact": exact, "flags_balanced": balanced,
+            "ok": exact and balanced
+            and all(e["worst"] <= 1.0 for e in errs.values())}
+
+
 def loose_compare(got, want):
     """The replaced rule, scaled by the largest reference value."""
     err = (got.float() - want.float()).abs().max().item()
@@ -444,6 +498,9 @@ def build_mutants(wide_only=False, f32=False):
         edits.update({name: (F32_STEMS, file, old, new)
                       for name, (file, old, new, _, _) in
                       F32_MUTANTS.items()})
+        edits.update({name: (("ring_flash",), file, old, new)
+                      for name, (file, old, new) in
+                      RING_F32_MUTANTS.items()})
     if not (wide_only or f32):
         edits.update({name: ((stem,), file, old, new)
                       for name, (stem, file, old, new, _)
@@ -624,6 +681,23 @@ def f32_readings(paths):
     return rows, ok
 
 
+def ring_f32_readings(paths):
+    """The sound f32 ring kernels and each of RING_F32_MUTANTS, read as
+    :func:`ring_f32_reading`: ``({reading: ...}, ok)``, ok when the sound
+    reading passes and every mutant fails."""
+    rows = {"sound_ring_f32": ring_reading("ring_f32")}
+    ok = rows["sound_ring_f32"]["ok"]
+    sound = _build.load("ring_flash")
+    for name in RING_F32_MUTANTS:
+        _build._libs["ring_flash"] = ctypes.CDLL(paths[name]["ring_flash"])
+        try:
+            rows[name] = ring_reading("ring_f32")
+        finally:
+            _build._libs["ring_flash"] = sound
+        ok &= not rows[name]["ok"]
+    return rows, ok
+
+
 def mm_6xtf32(a, b):
     """``a @ b`` from six TF32 products of the three-way split
     (:func:`kernel_check.tf32_split3`: hi.hi, hi.mid, mid.hi, hi.lo,
@@ -717,11 +791,12 @@ def main():
     ap.add_argument("--wide-only", action="store_true",
                     help="only K3's 16-bit wide body and its mutants")
     ap.add_argument("--f32", action="store_true",
-                    help="only K1's and K2's f32 bodies and their mutants")
+                    help="only the f32 bodies (K1-K3, B2; K4 and K5 on "
+                         "a ring) and their mutants")
     ap.add_argument("--f32-first-rows", action="store_true",
                     help="only dq's causal first query rows in float32: "
-                         "the plain side, the SIMT B2 and the planned "
-                         "3xTF32 body against float64 products")
+                         "the plain side, the f32 B2 and K3 and the "
+                         "3xTF32 emulation against float64 products")
     args = ap.parse_args()
     wide_only, f32_only = args.wide_only, args.f32
     if not torch.cuda.is_available():
@@ -738,13 +813,18 @@ def main():
                           "first_rows": first}), flush=True)
         sys.exit(0 if ok else 1)
     paths = build_mutants(wide_only, f32_only)
+    if not wide_only:
+        ring_f32, ring_ok = ring_f32_readings(paths)
     if f32_only:
         f32, ok = f32_readings(paths)
-        print(json.dumps({"nvidia_smi": smi, "causal": True, "ok": ok,
+        print(json.dumps({"nvidia_smi": smi, "causal": True,
+                          "ok": ok and ring_ok,
                           "f32_shapes": [list(x) for x in F32_SHAPES],
                           "wide_shapes": [list(x) for x in WIDE_SHAPES],
-                          "f32_readings": f32}), flush=True)
-        sys.exit(0 if ok else 1)
+                          "f32_readings": f32,
+                          "ring_shard": list(RING_SHARD),
+                          "ring_f32_readings": ring_f32}), flush=True)
+        sys.exit(0 if ok and ring_ok else 1)
     wide, ok = wide_readings(paths)
     if wide_only:
         print(json.dumps({"nvidia_smi": smi, "causal": True, "ok": ok,
@@ -752,7 +832,7 @@ def main():
                           "wide_readings": wide}), flush=True)
         sys.exit(0 if ok else 1)
     f32, f32_ok = f32_readings(paths)
-    ok &= f32_ok
+    ok &= f32_ok and ring_ok
     sound = {stem: _build.load(stem)
              for stem in ("flash_fwd", "flash_bwd", SPLIT)}
     result = {}
@@ -803,7 +883,8 @@ def main():
                       "ring_shard": list(RING_SHARD), "ring_readings": ring,
                       "wide_shapes": [list(x) for x in WIDE_SHAPES],
                       "wide_readings": wide,
-                      "f32_readings": f32}), flush=True)
+                      "f32_readings": f32,
+                      "ring_f32_readings": ring_f32}), flush=True)
     sys.exit(0 if ok else 1)
 
 

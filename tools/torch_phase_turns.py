@@ -15,8 +15,9 @@ and the engine build once per checkout, before its first turn, in its own
 ``chiprun_out/phase_turns.jsonl`` tagged with the checkout and the turn;
 one summary line per phase is printed: the tokens/s of every turn and
 the median of each side (``kernels``: the milliseconds of K1 and B2 in
-bf16 and of K1, B2, K2 and K3 in float32 at the main shape, each
-median apart).
+bf16 and of K1, B2, K2 and K3 in float32 at the main shape;
+``ring_kernels``: of K4 and K5 in bf16 and in float32 on a wholly visible
+step of the ring shard; each median apart).
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # The throughput each phase reports (resnet: ResNet-50's, its first run).
 METRIC = {"train": "tokens_per_s", "ring_train": "tokens_per_s",
           "train_dp": "tokens_per_s", "resnet": "images_per_s",
-          "kernels": "ms"}
+          "kernels": "ms", "ring_kernels": "ms"}
 
 
 def metric(phase: str, rec: dict):
@@ -45,6 +46,11 @@ def metric(phase: str, rec: dict):
                 "k1_f32": f32["timing"]["flash_fwd"]["ms"],
                 "b2_f32": f32["timing"]["flash_bwd"]["ms"],
                 "k2_f32": f32["k2_ms"], "k3_f32": f32["k3_ms"]}
+    if phase == "ring_kernels":
+        return {"k4_bf16": rec["timing"]["ring_flash_fwd"]["ms"],
+                "k5_bf16": rec["timing"]["ring_flash_bwd"]["ms"],
+                "k4_f32": rec["f32"]["ring_flash_fwd"]["ms"],
+                "k5_f32": rec["f32"]["ring_flash_bwd"]["ms"]}
     return rec.get(METRIC[phase])
 
 

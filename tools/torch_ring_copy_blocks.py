@@ -2,13 +2,14 @@
 
 Run from the repository root on a machine with one CUDA GPU::
 
-    python3 tools/torch_ring_copy_blocks.py
+    python3 tools/torch_ring_copy_blocks.py [--dtype float32]
 
 A rotating ring step launches K4 with ``ring_flash.COPY_BLOCKS`` copy
 blocks ahead of its attention blocks (``csrc/ring_flash.cu``).  A copy
-block has the kernel's block shape, so with the 16-bit forward body it
-holds a whole SM while it waits for the neighbour's handshake.  This
-times, on the ring path's shard (4 members, (4, 8, 1024, 64) bf16, a
+block has the kernel's block shape, so with the 16-bit forward body, and
+with the f32 one, it holds a whole SM while it waits for the neighbour's
+handshake.  This times, on the ring path's shard (4 members, (4, 8,
+1024, 64) in bf16, or ``--dtype``, a
 wholly visible step for members 1-3), a round of the 4 members' K4
 launches without rotation and with rotation at several copy-block
 counts, each round forked off and joined back to the caller's stream
@@ -18,6 +19,7 @@ counts).  Prints one JSON line.
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import statistics
@@ -38,12 +40,15 @@ COUNTS = (2, 4, 8, 16, 32)
 
 
 def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--dtype", default="bfloat16",
+                    choices=("bfloat16", "float16", "float32"))
+    dtype = getattr(torch, ap.parse_args().dtype)
     if not torch.cuda.is_available():
         sys.exit("torch_ring_copy_blocks: no CUDA device")
     n = 4
     mesh = RingMesh(n)
-    members, _, scale_r = kernel_check.ring_inputs(n, SHARD, torch.bfloat16,
-                                                   1)
+    members, _, scale_r = kernel_check.ring_inputs(n, SHARD, dtype, 1)
     sl = SHARD[2]
 
     def calls(rotate):
@@ -83,7 +88,8 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(json.dumps({
-        "shard": list(SHARD), "members": n, "nvidia_smi": smi,
+        "shard": list(SHARD), "dtype": str(dtype), "members": n,
+        "nvidia_smi": smi,
         "copy_blocks_default": default,
         "round_ms": {k: statistics.median(v) for k, v in times.items()},
         "round_ms_spread": {k: [min(v), max(v)] for k, v in times.items()},
