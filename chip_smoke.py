@@ -128,7 +128,34 @@ Phases, one JSON line each:
    [8r, 8r + 8) of a 16-row batch, against 3 steps of the size-1 step on
    all 16 rows; the losses must agree within 3 x the spread of two
    size-1 runs, with a floor of 1e-3 relative (printed beside them).
-12. ``pipeline`` — the pipeline path (``PIPE_HEADLINE``: the main path's
+12. ``timeline`` — 3 steps of ``HEADLINE`` on 2 ranks started by the
+   port's launcher with ``--timeline DIR`` (``HVD_TPU_TIMELINE=DIR/``):
+   each rank's trace parses as Chrome trace JSON, carries the ``hvd_rank``
+   and ``hvd_clock_sync`` metadata, never steps back in time on a row
+   (rank 0's ``RANK_READY`` instants carry the announcing rank's time), and holds
+   exactly 3 ``TRAIN_STEP`` spans; on every gradient row B/E balance and
+   each ``ALLREDUCE`` closes with ``bytes`` > 0, and on rank 0 (the
+   coordinator, the one rank that records negotiation) the row opens
+   with a ``NEGOTIATE`` that closes before its ``ALLREDUCE``;
+   ``tools/timeline_merge.py DIR`` exits 0.  Printed per step and rank:
+   the ms covered by ``NEGOTIATE`` spans and by ``ALLREDUCE`` spans (and
+   by their activities: ``RING_ALLREDUCE`` on the wire, the host copies
+   ``MEMCPY_IN_FUSION_BUFFER`` and ``MEMCPY_OUT_FUSION_BUFFER``) inside the
+   step's span, and
+   the step ms with the timeline on beside ``train_dp``'s.
+13. ``checkpoint`` — 2 ranks, ``HEADLINE``: 2 steps, a sharded save of
+   ``{"model", "optimizer", "step"}`` with ``keep=2``, a third step and
+   a second save; per rank the save ms and the shard's bytes.  A fresh
+   model and ``DistributedOptimizer`` (another seed) load the latest
+   checkpoint collectively onto the card: every parameter and
+   optimizer-state tensor bit-equal to the live ones (digests).  Two
+   more steps from the live and from the restored state: the losses
+   within 1e-3 relative (``train_dp``'s floor; B2's dQ reduces are not
+   ordered).  Then 4 float32 requests served at size 1 through
+   ``serving/engine.py`` from the sharded checkpoint and from the live
+   parameters (rank 0's ``state_dict`` through ``torch.save``): the
+   tokens equal.  All under a temporary directory, deleted after.
+14. ``pipeline`` — the pipeline path (``PIPE_HEADLINE``: the main path's
    widths, 2 stages of 4 layers, 4 micro-batches of 4 x 1024) on 2 stage
    ranks of the port's runner sharing this card, through
    ``torch/train.py::run_pipeline`` (1F1B over the engine's p2p plane,
@@ -150,7 +177,7 @@ Phases, one JSON line each:
    (``tools/torch_pipeline_control.py`` seeds the backward with 1 in
    place of 1/4 and must fail it).  The same in bf16 is printed, not
    gated: stages after the first carry a float32 residual stream.
-13. ``pipeline_dp`` — 2 stages x 2 DP, 4 ranks on this card, batch 8 per
+15. ``pipeline_dp`` — 2 stages x 2 DP, 4 ranks on this card, batch 8 per
    DP rank (the same 16,384 tokens a step), 4 micro-batches of 2, 1
    warm-up + 3 timed steps.  Printed: job tokens/s and the wall ms of
    each step's stage-group gradient average.  Gates: every gradient
@@ -158,13 +185,13 @@ Phases, one JSON line each:
    stage bit-identical (one digest per stage), hit rate >= 0.9, no
    unmatched transfer, K1 and B2 4 x 4 x 4 = 64 times per rank.
 
-14. ``image_models`` — ResNet-50, VGG16, InceptionV3 (299) and MnistCNN
+16. ``image_models`` — ResNet-50, VGG16, InceptionV3 (299) and MnistCNN
    (``horovod_tpu_torch/models``) at full width and batch 2 in float32
    with TF32 off: logits and every gradient on the card against the same
    weights on the CPU, both against the CPU in float64 (norm-wise: the
    card no further off than the CPU's float32, see the phase); then each
    in bf16 on the card, loss and gradients finite.
-15. ``resnet`` — ``RESNET_HEADLINE`` (ResNet-50, batch 64, 224, bf16) and
+17. ``resnet`` — ``RESNET_HEADLINE`` (ResNet-50, batch 64, 224, bf16) and
    ``RESNET101_HEADLINE`` through ``hvd.init()``, ``DistributedOptimizer``
    and the image step (``torch/image_step.py``: SGD momentum 0.9, the
    fused BN EMA): 3 warm-up and 10 timed steps, images/s from the median
@@ -172,7 +199,7 @@ Phases, one JSON line each:
    and falling on the fixed batch; one traced window of ResNet-50's step
    summed by kernel class (``tools/torch_step_profile.py``'s
    ``image_category``) with the card's idle share.
-16. ``resnet_dp`` — ResNet-50 data-parallel over 2 ranks on this card,
+18. ``resnet_dp`` — ResNet-50 data-parallel over 2 ranks on this card,
    batch 64 per rank, BN statistics cross-replica (``axis_name``, averaged
    through the engine inside the forward and their cotangent inside the
    backward, 53 + 53 blocking allreduces a step): job images/s,
@@ -182,7 +209,7 @@ Phases, one JSON line each:
    rows [32r, 32r + 32) of one batch of 64 against the size-1 step on all
    64 rows, losses and running stats within train_dp's rule.
 
-17. ``serve`` — the serving plane at size 1 (``SERVE_HEADLINE``: the LM
+19. ``serve`` — the serving plane at size 1 (``SERVE_HEADLINE``: the LM
    headline's widths in bf16, 8 decode slots, 16-token chunks and KV
    blocks, 512 blocks, 1024 tokens a request, bulk prefill from 256
    prompt tokens) through ``ServingEngine``: 24 requests of 3 tenants
@@ -202,7 +229,7 @@ Phases, one JSON line each:
    and f32) against its plain version; then the first 12 requests in
    float32, all submitted before the loop starts (two of them bulk),
    token for token against ``reference_decode`` on the card.
-18. ``serve_dp`` — 2 ranks of the port's runner on this card, each
+20. ``serve_dp`` — 2 ranks of the port's runner on this card, each
    running the serving entry point's ``serve()`` in float32 at the same
    widths; rank 0's front door takes the 12 requests over HTTP, 2 ms
    apart.  Gates: tokens equal to the size-1 float32 run's, one digest of
@@ -1924,7 +1951,336 @@ def phase_train_dp():
     if any(o > t for o, t in zip(off, tol)):
         fail(f"train_dp: averaged losses {dp} against size-1 {refs[0]}, "
              f"tolerance {tol}")
-    return res[0]["launches"]
+    return res[0]["launches"], step_ms
+
+
+# --- the timeline and the checkpoints (ROADMAP A.2, A.3) ---
+
+TIMELINE_STEPS = 3
+# The timeline and checkpoint ranks meet their output directory here.
+SMOKE_DIR_ENV = "CHIP_SMOKE_DIR"
+
+
+def rank_timeline():
+    """One rank of ``timeline``: 3 steps of ``HEADLINE`` with the
+    timeline on; the step ms and launches go to this rank's result
+    file."""
+    hvdt.init(device="cuda:0")
+    if not hvd.timeline_enabled():
+        fail("timeline: the launcher's --timeline did not reach the rank")
+    r = hvdt.rank()
+    model, step, data = build_lm_step(**HEADLINE, seed=100)
+    torch.cuda.synchronize()
+    A.reset_launches()
+    step_ms, losses = [], []
+    for _ in range(TIMELINE_STEPS):
+        t0 = time.perf_counter()
+        losses.append(step(data).item())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launched = dict(A.launches)
+    hvdt.shutdown()  # flushes and closes the trace
+    with open(os.path.join(OUT_DIR, f"timeline_rank{r}.json"), "w") as f:
+        json.dump({"rank": r, "step_ms": step_ms, "losses": losses,
+                   "launches": launched}, f)
+
+
+def _trace(path):
+    """A timeline file's events (trailing comma, no closing bracket)."""
+    with open(path) as f:
+        return json.loads(f.read().rstrip().rstrip(",") + "]")
+
+
+def _covered_ms(spans, lo, hi):
+    """Milliseconds of [lo, hi] (us) covered by at least one span."""
+    cut = sorted((max(a, lo), min(b, hi)) for a, b in spans
+                 if b > lo and a < hi)
+    total, end = 0.0, lo
+    for a, b in cut:
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1e3
+
+
+def hold_trace(events, rank):
+    """Hold one rank's trace to the timeline tests' checks; returns, per
+    ``TRAIN_STEP`` span, the ms covered by the gradient rows' NEGOTIATE
+    and ALLREDUCE spans inside it, and by the ALLREDUCE's activities: the
+    ring on the wire and the host copies into and out of the fusion
+    buffer."""
+    for e in events:
+        if not all(k in e for k in ("ph", "ts", "pid", "name")):
+            fail(f"timeline rank {rank}: malformed event {e}")
+    # Per row, as the timeline tests' validation holds it: the RANK_READY
+    # instants on rank 0 carry the announcing rank's own time.
+    last = {}
+    for e in events:
+        if e["ts"] < last.get(e["pid"], 0):
+            fail(f"timeline rank {rank}: a timestamp steps back: {e}")
+        last[e["pid"]] = e["ts"]
+    metas = {e["name"] for e in events if e["ph"] == "M"}
+    if not {"hvd_rank", "hvd_clock_sync"} <= metas:
+        fail(f"timeline rank {rank}: metadata {metas}")
+    rows = {e["pid"]: e["args"]["name"] for e in events
+            if e["ph"] == "M" and e["name"] == "process_name"}
+    by_row = {}
+    for e in events:
+        if e["ph"] in ("B", "E"):
+            by_row.setdefault(rows[e["pid"]], []).append(e)
+    steps = by_row.get("torch.train_step", [])
+    if [e["ph"] for e in steps] != ["B", "E"] * TIMELINE_STEPS:
+        fail(f"timeline rank {rank}: {len(steps) // 2} TRAIN_STEP spans, "
+             f"want {TIMELINE_STEPS}")
+    grads = {k: v for k, v in by_row.items()
+             if k.startswith("DistributedOptimizer.")}
+    if len(grads) != 51:
+        fail(f"timeline rank {rank}: {len(grads)} gradient rows, want 51")
+    spans = {"NEGOTIATE": [], "ALLREDUCE": [], "RING_ALLREDUCE": [],
+             "MEMCPY_IN_FUSION_BUFFER": [], "MEMCPY_OUT_FUSION_BUFFER": []}
+    for row, evs in grads.items():
+        names = [e["name"] for e in evs]
+        if rank == 0 and (names[0] != "NEGOTIATE" or "ALLREDUCE" not in names
+                          or next(i for i, e in enumerate(evs)
+                                  if e["ph"] == "E")
+                          >= names.index("ALLREDUCE")):
+            fail(f"timeline rank 0: {row} does not negotiate before its "
+                 f"allreduce: {names[:8]}")
+        open_ = []
+        for e in evs:
+            if e["ph"] == "B":
+                open_.append(e)
+                continue
+            if not open_:
+                fail(f"timeline rank {rank}: {row} closes an unopened span")
+            b = open_.pop()
+            if b["name"] in spans:
+                spans[b["name"]].append((b["ts"], e["ts"]))
+            if b["name"] == "ALLREDUCE" and not (
+                    e.get("args", {}).get("bytes", 0) > 0):
+                fail(f"timeline rank {rank}: {row}'s ALLREDUCE closes "
+                     f"without bytes: {e}")
+        if open_:
+            fail(f"timeline rank {rank}: {row} leaves spans open")
+    return [{k: _covered_ms(v, b["ts"], e["ts"]) for k, v in spans.items()}
+            for b, e in zip(steps[::2], steps[1::2])]
+
+
+def phase_timeline(dp_step_ms):
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    tl = tempfile.mkdtemp(prefix="hvdt_timeline_")
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "horovod_tpu_torch.runner", "-np",
+             str(DP_RANKS), "--timeline", tl, "--", sys.executable,
+             os.path.abspath(__file__), "--rank", "timeline"],
+            capture_output=True, text=True, env=env, timeout=300)
+        os.makedirs(OUT_DIR, exist_ok=True)
+        with open(os.path.join(OUT_DIR, "timeline_launcher.log"), "w") as f:
+            f.write(proc.stdout + "\n--- stderr ---\n" + proc.stderr)
+        if proc.returncode != 0:
+            fail(f"timeline: the job exited {proc.returncode}:\n"
+                 f"{proc.stderr[-4000:]}")
+        files = sorted(os.listdir(tl))
+        if files != [f"rank{r}.json" for r in range(DP_RANKS)]:
+            fail(f"timeline: trace files {files}")
+        per_step = [hold_trace(_trace(os.path.join(tl, f)), r)
+                    for r, f in enumerate(files)]
+        merged = os.path.join(tl, "merged.json")
+        merge = subprocess.run(
+            [sys.executable, os.path.join(root, "tools", "timeline_merge.py"),
+             tl, "-o", merged], capture_output=True, text=True, timeout=120)
+        if merge.returncode != 0:
+            fail(f"timeline: timeline_merge.py exited {merge.returncode}: "
+                 f"{merge.stderr[-2000:]}")
+        for f in files:
+            shutil.copy(os.path.join(tl, f),
+                        os.path.join(OUT_DIR, f"timeline_trace_{f}"))
+    finally:
+        shutil.rmtree(tl, ignore_errors=True)
+    res = []
+    for r in range(DP_RANKS):
+        with open(os.path.join(OUT_DIR, f"timeline_rank{r}.json")) as f:
+            res.append(json.load(f))
+    want = {"flash_fwd": HEADLINE["n_layers"] * TIMELINE_STEPS,
+            "flash_bwd": HEADLINE["n_layers"] * TIMELINE_STEPS,
+            "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
+    emit("timeline", nvidia_smi=smi_line(), ranks=DP_RANKS,
+         steps=TIMELINE_STEPS,
+         step_ms=[x["step_ms"] for x in res],
+         median_step_ms_timeline_on=max(statistics.median(x["step_ms"])
+                                        for x in res),
+         median_step_ms_train_dp=dp_step_ms,
+         negotiate_allreduce_ms_per_step=per_step,
+         merge_report=merge.stdout[-1500:],
+         launches=[x["launches"] for x in res], want_launches=want,
+         losses=res[0]["losses"], seconds=time.perf_counter() - t_phase)
+    for x in res:
+        if x["launches"] != want:
+            fail(f"timeline rank {x['rank']} launched {x['launches']}, "
+                 f"want {want}")
+        if not all(math.isfinite(v) for v in x["losses"]):
+            fail(f"timeline: non-finite loss {x['losses']}")
+
+
+def state_digest(tree):
+    """One digest of a state tree's structure, scalars and tensor bytes."""
+    from horovod_tpu_torch.state import flatten_tree
+
+    leaves, rebuild = flatten_tree(tree)
+    h = hashlib.sha256(repr(rebuild(list(range(len(leaves))))).encode())
+    for x in leaves:
+        if torch.is_tensor(x):
+            t = x.detach().contiguous().cpu()
+            h.update(f"{t.dtype}{tuple(t.shape)}".encode())
+            h.update(t.reshape(-1).view(torch.uint8).numpy())
+        else:
+            h.update(repr(x).encode())
+    return h.hexdigest()
+
+
+CKPT_STEPS = (2, 3)  # the steps saved at
+CKPT_MORE = 2  # steps taken from the live and from the restored state
+CKPT_LOSS_RTOL = 1e-3  # train_dp's floor
+
+
+def rank_checkpoint():
+    """One rank of ``checkpoint``: train, save twice, restore into a
+    fresh model collectively, hold the restored state bit-equal, step
+    both.  Rank 0 also leaves its live ``state_dict`` for the parent."""
+    from horovod_tpu_torch.torch import train as T
+
+    hvdt.init(device="cuda:0")
+    r = hvdt.rank()
+    d = os.environ[SMOKE_DIR_ENV]
+    model, step, data = build_lm_step(**HEADLINE, seed=100)
+    A.reset_launches()
+    losses, save_ms, shard_bytes = [], [], []
+    for n in range(1, CKPT_STEPS[-1] + 1):
+        losses.append(step(data).item())
+        if n in CKPT_STEPS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = T.save_checkpoint(
+                os.path.join(d, "ckpt"), n,
+                {"model": model.state_dict(),
+                 "optimizer": step.optimizer.state_dict(), "step": n},
+                sharded=True, keep=2)
+            save_ms.append((time.perf_counter() - t0) * 1e3)
+            shard_bytes.append(os.path.getsize(
+                os.path.join(path, f"rank-{r}.pkl")))
+    live = (params_digest(model), state_digest(step.optimizer.state_dict()))
+    if r == 0:
+        torch.save({k: v.detach().cpu() for k, v in
+                    model.state_dict().items()}, os.path.join(d, "live.pt"))
+    fresh, fresh_step, _ = build_lm_step(**HEADLINE, seed=200)
+    if params_digest(fresh) == live[0]:
+        fail("checkpoint: the fresh model starts equal to the live one")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    at, tree = T.load_latest_checkpoint(os.path.join(d, "ckpt"),
+                                        device="cuda:0")
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    fresh.load_state_dict(tree["model"])
+    fresh_step.optimizer.load_state_dict(tree["optimizer"])
+    restored = (params_digest(fresh),
+                state_digest(fresh_step.optimizer.state_dict()))
+    del tree
+    more_live = [step(data).item() for _ in range(CKPT_MORE)]
+    more_restored = [fresh_step(data).item() for _ in range(CKPT_MORE)]
+    launched = dict(A.launches)
+    kept = sorted(os.listdir(os.path.join(d, "ckpt")))
+    hvdt.shutdown()
+    rank_result(rank=r, losses=losses, save_ms=save_ms,
+                shard_bytes=shard_bytes, load_ms=load_ms, loaded_step=at,
+                live=live, restored=restored, more_live=more_live,
+                more_restored=more_restored, launches=launched, kept=kept)
+
+
+def serve_tokens(spec, params, traffic):
+    """``traffic``'s tokens served at size 1 through ``ServingEngine`` on
+    ``params`` (all submitted before the loop starts)."""
+    cfg = SERVE_HEADLINE["cfg"]
+    sch = Scheduler(cfg)
+    engine = SE.ServingEngine(spec, cfg, params, sch)
+    reqs = [sch.submit(*t) for t in traffic]
+    loop = threading.Thread(target=engine.run, daemon=True)
+    loop.start()
+    for q in reqs:
+        if not q.event.wait(600) or q.error is not None:
+            fail(f"checkpoint: request {q.id} did not complete: {q.error}")
+    engine.request_stop()
+    loop.join(60)
+    del engine
+    torch.cuda.empty_cache()
+    return [q.generated for q in reqs]
+
+
+def phase_checkpoint():
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    d = tempfile.mkdtemp(prefix="hvdt_ckpt_")
+    os.environ[SMOKE_DIR_ENV] = d
+    try:
+        res = run_ranks("checkpoint", timeout=300)
+        f32 = dataclasses.replace(SERVE_HEADLINE["spec"], dtype="float32",
+                                  ckpt=os.path.join(d, "ckpt"))
+        traffic = serve_traffic()[:4]
+        hvd.init()
+        from_ckpt = serve_tokens(f32, SE.init_params(f32), traffic)
+        live = {k: v.float() for k, v in torch.load(
+            os.path.join(d, "live.pt")).items()}
+        from_live = serve_tokens(dataclasses.replace(f32, ckpt=""), live,
+                                 traffic)
+        hvd.shutdown()
+    finally:
+        del os.environ[SMOKE_DIR_ENV]
+        shutil.rmtree(d, ignore_errors=True)
+    per = HEADLINE["n_layers"] * (CKPT_STEPS[-1] + 2 * CKPT_MORE)
+    want = {"flash_fwd": per, "flash_bwd": per, "flash_bwd_dkdv": 0,
+            "flash_bwd_dq": 0}
+    gaps = [abs(a - b) / abs(a) for x in res
+            for a, b in zip(x["more_live"], x["more_restored"])]
+    emit("checkpoint", nvidia_smi=smi_line(), ranks=DP_RANKS,
+         saved_at=list(CKPT_STEPS),
+         save_ms=[x["save_ms"] for x in res],
+         shard_bytes=[x["shard_bytes"] for x in res],
+         load_ms=[x["load_ms"] for x in res],
+         kept=res[0]["kept"], loaded_step=res[0]["loaded_step"],
+         digests_equal=[x["live"] == x["restored"] for x in res],
+         losses=res[0]["losses"], more_live=res[0]["more_live"],
+         more_restored=res[0]["more_restored"], loss_rel_gap=gaps,
+         loss_rtol=CKPT_LOSS_RTOL, launches=[x["launches"] for x in res],
+         want_launches=want, served_tokens_equal=from_ckpt == from_live,
+         served_tokens=[len(t) for t in from_ckpt],
+         seconds=time.perf_counter() - t_phase)
+    for x in res:
+        if x["live"] != x["restored"]:
+            fail(f"checkpoint rank {x['rank']}: restored state differs "
+                 f"from the live one: {x['live']} {x['restored']}")
+        if x["launches"] != want:
+            fail(f"checkpoint rank {x['rank']} launched {x['launches']}, "
+                 f"want {want}")
+        if x["loaded_step"] != CKPT_STEPS[-1] or x["kept"] != [
+                f"ckpt-{s:08d}" for s in CKPT_STEPS]:
+            fail(f"checkpoint: loaded step {x['loaded_step']}, kept "
+                 f"{x['kept']}")
+    if max(gaps) > CKPT_LOSS_RTOL or not all(
+            math.isfinite(v) for v in res[0]["more_live"]):
+        fail(f"checkpoint: losses after the restore {res[0]}")
+    if from_ckpt != from_live:
+        fail(f"checkpoint: tokens served from the checkpoint {from_ckpt} "
+             f"differ from the live parameters' {from_live}")
 
 
 # --- the pipeline phases: stage ranks on this card (ROADMAP A.7) ---
@@ -3001,7 +3357,9 @@ def main():
     phase_ring_model()
     launched.update(phase_ring_train())
     phase_collectives()
-    dp_launched = phase_train_dp()
+    dp_launched, dp_step_ms = phase_train_dp()
+    phase_timeline(dp_step_ms)
+    phase_checkpoint()
     pipe_entries, pipe_launched = phase_pipeline()
     pipe_dp_launched = phase_pipeline_dp()
     phase_image_models()
@@ -3043,6 +3401,7 @@ def main():
 
 
 RANK_PHASES = {"collectives": rank_collectives, "train_dp": rank_train_dp,
+               "timeline": rank_timeline, "checkpoint": rank_checkpoint,
                "resnet_dp": rank_resnet_dp, "serve_dp": rank_serve_dp,
                "pipeline": rank_pipeline, "pipeline_dp": rank_pipeline_dp}
 

@@ -40,7 +40,11 @@ from horovod_tpu_torch.common import (  # noqa: F401
     rank,
     shutdown,
     size,
+    timeline_enabled,
+    trace_marker,
+    trace_span,
 )
 
 __all__ = ["HorovodInternalError", "init", "shutdown", "is_initialized",
-           "rank", "size", "local_rank", "local_size"]
+           "rank", "size", "local_rank", "local_size", "timeline_enabled",
+           "trace_span", "trace_marker"]

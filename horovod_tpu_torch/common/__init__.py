@@ -16,16 +16,23 @@ which stages them in pinned host memory: the engine never sees a device
 pointer.
 
 :func:`metrics_snapshot` reads the port's trimmed registry
-(``common/metrics.py``, the serving plane's counters) with the engine's
-response-cache and point-to-point counters folded in.  Not ported: the
-XLA data plane, the fault injector, and the timeline, postmortem and the
-rest of the metrics glue (``config.UNPORTED``).
+(``common/metrics.py``, the serving plane's and the checkpoints'
+counters) with the engine's response-cache and point-to-point counters
+folded in.  ``HVD_TPU_TIMELINE`` (or ``HOROVOD_TIMELINE``; the launcher's
+``--timeline DIR``) turns on the engine's Chrome-trace timeline
+(``docs/timeline.md``): each collective's ``NEGOTIATE`` and op spans on a
+row of its name, and the application's spans through
+:func:`trace_span` and :func:`trace_marker`.  Not ported: the XLA data
+plane, the fault injector, postmortem and the rest of the metrics glue
+(``config.UNPORTED``).
 """
 
 from __future__ import annotations
 
 import atexit
+import contextlib
 import ctypes
+import os
 import re
 import threading
 import time
@@ -42,7 +49,7 @@ __all__ = [
     "Handle", "allreduce_async", "allgather_async", "broadcast_async",
     "allreduce", "StageGroup", "stage_group",
     "send_async", "recv_async", "send", "recv", "metrics_snapshot",
-    "metrics_reset",
+    "metrics_reset", "timeline_enabled", "trace_span", "trace_marker",
 ]
 
 # Op codes shared with the engine (engine/cc/wire.h OpType).
@@ -143,6 +150,11 @@ def _load_lib():
         for name in ("hvd_tpu_cache_hit_count", "hvd_tpu_cache_miss_count",
                      "hvd_tpu_cache_eviction_count", "hvd_tpu_cache_size"):
             _declare(lib, name, c_ll)
+        _declare(lib, "hvd_tpu_timeline_enabled", c_int)
+        _declare(lib, "hvd_tpu_timeline_op_start", None, c_str, c_str)
+        _declare(lib, "hvd_tpu_timeline_op_end", None, c_str, c_ll)
+        _declare(lib, "hvd_tpu_timeline_instant", None, c_str, c_str)
+        _declare(lib, "hvd_tpu_timeline_flush", None)
         _lib = lib
         return lib
 
@@ -181,6 +193,27 @@ def _pin_device(device, ps: ProcessSet) -> None:
         torch.cuda.set_device(dev)
 
 
+def _resolve_timeline_path(path: str, rank: int) -> str:
+    """This rank's trace file for ``HVD_TPU_TIMELINE``'s forms
+    (``docs/timeline.md``): a ``%d`` template or a directory (existing,
+    or a path ending in the separator, created here) give one file per
+    rank (``rank<N>.json`` in a directory); a plain file path is rank 0's
+    alone.  Own copy of the reference's, whose restart epoch is always 0
+    here: the port has no relaunch (elastic membership is unported)."""
+    if not path:
+        return ""
+    if "%d" in path:
+        resolved = path.replace("%d", str(rank))
+        parent = os.path.dirname(resolved)
+        if parent:
+            os.makedirs(parent, exist_ok=True)
+        return resolved
+    if path.endswith(os.sep) or os.path.isdir(path):
+        os.makedirs(path, exist_ok=True)
+        return os.path.join(path, f"rank{rank}.json")
+    return path if rank == 0 else ""
+
+
 def init(device: Optional[str] = None) -> None:
     """Start the engine and pin this process's device.
 
@@ -188,7 +221,9 @@ def init(device: Optional[str] = None) -> None:
     one).  ``device=None`` pins ``cuda:local_rank()``, which must exist;
     ``device="cuda:N"`` pins N (several ranks may share it);
     ``device="cpu"`` pins nothing: the CPU tests, on CPU tensors.  A knob
-    of an unported engine plane in the environment raises.  Idempotent.
+    of an unported engine plane in the environment raises.  With
+    ``HVD_TPU_TIMELINE`` set the engine writes this rank's Chrome trace
+    (:func:`_resolve_timeline_path`).  Idempotent.
     """
     if is_initialized():
         return
@@ -204,14 +239,15 @@ def init(device: Optional[str] = None) -> None:
     _pin_device(device, ps)
     lib = _load_lib()
     data = ",".join(ps.data_endpoints) if ps.data_endpoints else ""
-    # Every unported plane at its "off" value: no timeline, flat ring, no
-    # autotuning (fix values -1), not elastic, no compression, no
-    # coordinator tree.
+    timeline = _resolve_timeline_path(cfg.timeline_path, ps.rank)
+    # Every unported plane at its "off" value: flat ring, no autotuning
+    # (fix values -1), not elastic, no compression, no coordinator tree.
     rc = lib.hvd_tpu_init(
         ps.rank, ps.size, ps.local_rank, ps.local_size,
         (ps.coord_endpoint or "").encode(), data.encode(),
         cfg.cycle_time_ms, cfg.fusion_threshold, cfg.stall_warning_sec,
-        b"", 0, cfg.collective_timeout_sec, cfg.effective_cache_capacity,
+        timeline.encode(), 0, cfg.collective_timeout_sec,
+        cfg.effective_cache_capacity,
         0, 2, 32, -1, -1.0, 0, 1, 0, 0, 1024, -1, 64 * 1024, -1, 0,
         cfg.steady_threshold, cfg.steady_max_period)
     if rc != 0:
@@ -660,3 +696,53 @@ def send(tensor, dest: int, tag: int = 0, name: Optional[str] = None):
 
 def recv(out, source: int, tag: int = 0, name: Optional[str] = None):
     return recv_async(out, source, tag, name).wait()
+
+
+# ---------------------------------------------------------------------------
+# Application spans (docs/timeline.md): the application's events in this
+# rank's trace beside the engine's collective rows.
+# ---------------------------------------------------------------------------
+
+
+def timeline_enabled() -> bool:
+    """True when this rank writes a timeline (``HVD_TPU_TIMELINE`` or the
+    launcher's ``--timeline``); spans and markers are no-ops otherwise."""
+    return _lib is not None and bool(_lib.hvd_tpu_timeline_enabled())
+
+
+def _trace_begin(row: str, label: str) -> None:
+    """Open a span labelled ``label`` on trace row ``row`` (the train
+    step's hook shares it with :func:`trace_span`)."""
+    if timeline_enabled():
+        _lib.hvd_tpu_timeline_op_start(row.encode(), label.encode())
+
+
+def _trace_end(row: str) -> None:
+    if timeline_enabled():
+        _lib.hvd_tpu_timeline_op_end(row.encode(), 0)
+
+
+@contextlib.contextmanager
+def trace_span(name: str, label: Optional[str] = None):
+    """A span on this rank's trace row ``name`` (spans on one row nest),
+    labelled ``label`` (default ``name``)::
+
+        with hvd.trace_span("data_loading"):
+            batch = next(loader)
+
+    A no-op when the timeline is off."""
+    if not timeline_enabled():
+        yield
+        return
+    _lib.hvd_tpu_timeline_op_start(name.encode(), (label or name).encode())
+    try:
+        yield
+    finally:
+        _lib.hvd_tpu_timeline_op_end(name.encode(), 0)
+
+
+def trace_marker(name: str, row: str = "app.markers") -> None:
+    """An instant event ``name`` on the trace row ``row``; a no-op when
+    the timeline is off."""
+    if timeline_enabled():
+        _lib.hvd_tpu_timeline_instant(row.encode(), name.encode())

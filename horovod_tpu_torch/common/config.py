@@ -2,16 +2,17 @@
 
 Own copy of ``horovod_tpu/common/config.py`` (``Config.from_env``),
 trimmed to the knobs the port passes to ``hvd_tpu_init``: the cycle time,
-the fusion threshold, the stall warning, the collective timeout, the
-response cache and the steady state.  The reference's ``HOROVOD_*``
-spellings are honoured beside the ``HVD_TPU_*`` ones, the new names
-winning.
+the fusion threshold, the stall warning, the timeline path
+(``HVD_TPU_TIMELINE``, resolved per rank by ``common._resolve_timeline_path``),
+the collective timeout, the response cache and the steady state.  The
+reference's ``HOROVOD_*`` spellings are honoured beside the ``HVD_TPU_*``
+ones, the new names winning.
 
 The engine's other planes have no port yet: elastic membership, wire
 compression, autotuning, the hierarchical allreduce (and the
 shared-memory transport that rides on it), the coordinator tree, the
-timeline, the metrics file and monitor, postmortem dumps, fault
-injection and the XLA data plane (``HVD_TPU_METRICS`` is honoured as far
+metrics file and monitor, postmortem dumps, fault injection and the XLA
+data plane (``HVD_TPU_METRICS`` is honoured as far
 as the port's registry goes: ``common/metrics.py``).  The port passes
 each one's "off" value to the engine,
 and :meth:`Config.unported_requests` names every variable of the
@@ -47,7 +48,6 @@ UNPORTED = (
     # The engine arms it only on the two-level topology of the
     # hierarchical allreduce; the port's ranks talk TCP.
     ("shared-memory transport", ("HVD_TPU_SHM", "HVD_TPU_SHM_RING_BYTES")),
-    ("timeline", ("HVD_TPU_TIMELINE", "HOROVOD_TIMELINE")),
     ("metrics", ("HVD_TPU_METRICS_FILE",
                  "HVD_TPU_MONITOR_PORT", "HVD_TPU_LINK_STATS",
                  "HVD_TPU_ANOMALY_SIGMA", "HVD_TPU_ANOMALY_INTERVAL_MS")),
@@ -76,6 +76,9 @@ class Config:
     # The idle-tick floor of the engine loop: the fusion window.
     cycle_time_ms: float = DEFAULT_CYCLE_TIME_MS
     stall_warning_sec: float = DEFAULT_STALL_WARNING_SEC
+    # Chrome-trace output: a file (rank 0 only), a ``%d`` template or a
+    # directory (one file per rank); empty is no timeline.
+    timeline_path: str = ""
     # Past it a collective stuck in negotiation aborts the job with
     # CollectiveTimeoutError on every rank; <= 0 disables.
     collective_timeout_sec: float = 0.0
@@ -113,12 +116,14 @@ class Config:
             "HVD_TPU_CYCLE_TIME_MS",
             _get("HVD_TPU_CYCLE_TIME", "HOROVOD_CYCLE_TIME"))
         stall = _get("HVD_TPU_STALL_WARNING_SEC", "HOROVOD_STALL_WARNING_SEC")
+        timeline = _get("HVD_TPU_TIMELINE", "HOROVOD_TIMELINE")
         return Config(
             fusion_threshold=(int(fusion) if fusion
                               else DEFAULT_FUSION_THRESHOLD),
             cycle_time_ms=float(cycle) if cycle else DEFAULT_CYCLE_TIME_MS,
             stall_warning_sec=(float(stall) if stall
                                else DEFAULT_STALL_WARNING_SEC),
+            timeline_path=timeline or "",
             collective_timeout_sec=float(os.environ.get(
                 "HVD_TPU_COLLECTIVE_TIMEOUT_SEC") or 0.0),
             response_cache=_flag(os.environ.get(

@@ -1,12 +1,13 @@
-"""The port's metrics registry, trimmed to what the serving plane and the
-point-to-point plane record.
+"""The port's metrics registry, trimmed to what the serving plane, the
+point-to-point plane and the checkpoints record.
 
 Own copy of the serving half of ``horovod_tpu/common/metrics.py``: the
 request-lifecycle counters, decode-step occupancy, KV-pool gauges and
 per-tenant counters (tenant names come from the network, so their number
 is bounded), the serving latency histograms, and the engine's response
 cache and point-to-point counters that ``hvd.metrics_snapshot()`` folds
-in.  Everything is
+in, and the checkpoint lifecycle (``state.ckpt``: saves of each format,
+loads, pruned checkpoints and shard bytes written).  Everything is
 recorded whether or not metrics are enabled, as in the reference, except
 the engine's ``step_sec``, which it observes only while ``enabled``
 (``HVD_TPU_METRICS=1``).  The metrics file dump, the Prometheus monitor
@@ -39,6 +40,9 @@ HISTOGRAMS = {
 # Request-lifecycle events: the keys of the snapshot's "serving" section.
 SERVING_EVENTS = ("requests", "admitted", "rejected", "retired", "failed",
                   "preempted")
+
+# Checkpoint lifecycle events: the keys of the snapshot's "state.ckpt".
+STATE_CKPT_EVENTS = ("sharded_saves", "legacy_saves", "loads", "pruned")
 
 # Past this many tenants new names fold into one overflow key.
 _MAX_TENANTS = 256
@@ -88,6 +92,8 @@ class MetricsRegistry:
             "kv_blocks_in_use": 0, "kv_blocks_total": 0,
             "tenants": {},
         }
+        self._ckpt = {**{e: 0 for e in STATE_CKPT_EVENTS},
+                      "shard_bytes": 0}
         self._hists = {name: Histogram(bounds)
                        for name, (bounds, _) in HISTOGRAMS.items()}
 
@@ -163,6 +169,16 @@ class MetricsRegistry:
                     raise KeyError(f"unknown serving gauge {key!r}")
                 self._serving[key] = int(value)
 
+    def record_state_ckpt(self, event: str, n: int = 1,
+                          nbytes: int = 0) -> None:
+        """``n`` checkpoint lifecycle events (one of
+        :data:`STATE_CKPT_EVENTS`) and ``nbytes`` written."""
+        if event not in STATE_CKPT_EVENTS:
+            raise ValueError(f"unknown state checkpoint event {event!r}")
+        with self._lock:
+            self._ckpt[event] += int(n)
+            self._ckpt["shard_bytes"] += int(nbytes)
+
     def snapshot(self) -> dict:
         with self._lock:
             serving = self._serving
@@ -178,6 +194,7 @@ class MetricsRegistry:
                     "tenants": {t: dict(v) for t, v in
                                 serving["tenants"].items()},
                 },
+                "state": {"ckpt": dict(self._ckpt)},
                 "histograms": {name: h.to_dict()
                                for name, h in self._hists.items()},
             }

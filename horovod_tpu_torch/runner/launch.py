@@ -15,7 +15,10 @@ CLI::
 
     python -m horovod_tpu_torch.runner -np 2 -- python train.py
     python -m horovod_tpu_torch.runner -np 2 --serve [--serve-port P]
+    python -m horovod_tpu_torch.runner -np 2 --timeline DIR -- python train.py
 
+``--timeline DIR`` sets ``HVD_TPU_TIMELINE=DIR/`` for every rank, so each
+writes ``DIR/rank<N>.json`` (``tools/timeline_merge.py DIR`` merges them).
 ``--serve`` defaults the command to the serving entry point (``python -m
 horovod_tpu_torch.serving``); ``--serve-port`` sets the front door's
 ``HVD_TPU_SERVE_PORT``.
@@ -274,6 +277,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     parser.add_argument("--timeout", type=float, default=0.0,
                         help="kill the job after this many seconds (0: "
                              "none)")
+    parser.add_argument("--timeline", default=None, metavar="DIR",
+                        help="write one Chrome-trace file per rank under "
+                             "DIR (rank0.json, rank1.json, ...; sets "
+                             "HVD_TPU_TIMELINE=DIR/); merge them with "
+                             "tools/timeline_merge.py")
     parser.add_argument("--serve", action="store_true",
                         help="serving mode: the command defaults to python "
                              "-m horovod_tpu_torch.serving; rank 0 opens "
@@ -297,6 +305,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     env = None
     if args.serve_port is not None:
         env = dict(os.environ, HVD_TPU_SERVE_PORT=str(args.serve_port))
+    if args.timeline:
+        os.makedirs(args.timeline, exist_ok=True)
+        env = dict(env if env is not None else os.environ)
+        # The trailing separator asks every rank for the directory form.
+        env["HVD_TPU_TIMELINE"] = args.timeline.rstrip(os.sep) + os.sep
     try:
         results = run_command(cmd, args.num_proc, env=env,
                               timeout=args.timeout or 3e7, host=args.host)

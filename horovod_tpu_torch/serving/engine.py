@@ -23,8 +23,6 @@ from __future__ import annotations
 
 import dataclasses
 import os
-import pickle
-import re
 import threading
 import time
 from typing import Callable, List, Optional
@@ -37,6 +35,7 @@ from horovod_tpu_torch.common import metrics
 from horovod_tpu_torch.models import DecodeContext, TransformerLM
 from horovod_tpu_torch.models.convert import from_flax_params
 from horovod_tpu_torch.serving import kv_cache, scheduler as sched
+from horovod_tpu_torch.state import flatten_tree
 from horovod_tpu_torch.torch import mpi_ops
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -46,8 +45,9 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 @dataclasses.dataclass(frozen=True)
 class ModelSpec:
     """The served TransformerLM's shape (env: ``HVD_TPU_SERVE_*``).
-    Defaults are a test-scale model; ``ckpt`` points at the JAX package's
-    legacy checkpoint (a ``ckpt-*.pkl`` file or a directory of them).
+    Defaults are a test-scale model; ``ckpt`` points at a checkpoint of
+    either package, legacy or sharded (a ``ckpt-*.pkl`` file, a
+    ``ckpt-*/`` directory, or a directory of them: the newest).
     ``device``: empty for this rank's CUDA device, ``"cpu"`` for the CPU,
     or ``"cuda:N"``."""
 
@@ -100,71 +100,29 @@ def build_model(spec: ModelSpec, device=None) -> TransformerLM:
         device=device or spec.device or None).eval()
 
 
-class _Inert:
-    """Stand-in for a class a legacy checkpoint names outside numpy and
-    the plain builtins (the optimizer state's optax and flax classes):
-    it takes any arguments and state, and nothing reads it."""
+def load_params(path: str) -> dict:
+    """The served ``params`` of a checkpoint of either package, legacy or
+    sharded (the newest in the directory ``path``, or the file or
+    checkpoint directory ``path`` itself), read by this process alone, as
+    the port's float32 CPU ``state_dict``: the JAX package's tree holds
+    flax ``params`` (or is them), the port's a ``state_dict`` under
+    ``model`` (or is one)."""
+    from horovod_tpu_torch.torch.train import (load_checkpoint,
+                                               load_latest_checkpoint)
 
-    def __new__(cls, *args, **kwargs):
-        return object.__new__(cls)
-
-    def __init__(self, *args, **kwargs):
-        self.args = args
-
-    def __setstate__(self, state):
-        self.state = state
-
-
-_PLAIN_BUILTINS = frozenset((
-    "dict", "list", "tuple", "set", "frozenset", "int", "float", "complex",
-    "bool", "str", "bytes", "bytearray", "slice", "range", "object"))
-
-
-class _LegacyUnpickler(pickle.Unpickler):
-    """Loads numpy arrays and plain containers; any other class becomes an
-    inert stand-in, so no JAX module is imported to read the file."""
-
-    def find_class(self, module, name):
-        if (module.split(".")[0] == "numpy"
-                or (module == "builtins" and name in _PLAIN_BUILTINS)
-                or (module, name) in (("collections", "OrderedDict"),
-                                      ("copyreg", "_reconstructor"))):
-            return super().find_class(module, name)
-        return type(name, (_Inert,), {"__module__": module})
-
-
-_LEGACY = re.compile(r"ckpt-(\d+)\.pkl")
-
-
-def _legacy_path(path: str) -> str:
-    """``path`` itself, or the newest ``ckpt-<step>.pkl`` in the
-    directory ``path``.  A sharded checkpoint (``ckpt-<step>/``) that is
-    newer raises: reading those waits for the port's checkpoint glue."""
-    if not os.path.isdir(path):
-        return path
-    steps = {int(m.group(1)): os.path.join(path, n)
-             for n in os.listdir(path) if (m := _LEGACY.fullmatch(n))}
-    sharded = [int(n[5:]) for n in os.listdir(path)
-               if re.fullmatch(r"ckpt-\d+", n)
-               and os.path.exists(os.path.join(path, n, "manifest.json"))]
-    if sharded and max(sharded) > max(steps, default=-1):
-        raise NotImplementedError(
-            f"{path}: the newest checkpoint is sharded (step "
-            f"{max(sharded)}); the port reads legacy ckpt-*.pkl files only")
-    if not steps:
-        raise FileNotFoundError(f"{path}: no ckpt-*.pkl checkpoint")
-    return steps[max(steps)]
-
-
-def load_legacy_params(path: str) -> dict:
-    """The ``params`` of a checkpoint written by the JAX package's
-    ``save_checkpoint(sharded=False)`` (``{"step", "tree"}``, the tree
-    holding ``params`` or being the params), as the port's float32 CPU
-    ``state_dict``."""
-    with open(_legacy_path(path), "rb") as f:
-        payload = _LegacyUnpickler(f).load()
-    tree = payload.get("tree", payload)
-    return from_flax_params(tree.get("params", tree))
+    if os.path.isdir(path) and not os.path.exists(
+            os.path.join(path, "manifest.json")):
+        _, tree = load_latest_checkpoint(path, collective=False)
+        if tree is None:
+            raise FileNotFoundError(f"{path}: no committed checkpoint")
+    else:
+        _, tree = load_checkpoint(path, collective=False)
+    tree = tree.get("model", tree.get("params", tree))
+    if "embed.weight" in tree:
+        return {k: v.float().contiguous() for k, v in tree.items()}
+    leaves, rebuild = flatten_tree(tree)
+    return from_flax_params(rebuild([
+        v.float().numpy() if torch.is_tensor(v) else v for v in leaves]))
 
 
 def init_params(spec: ModelSpec) -> dict:
@@ -172,7 +130,7 @@ def init_params(spec: ModelSpec) -> dict:
     ``spec.ckpt`` when set, else the seeded initialisation.  Identical on
     every rank, and root-broadcast after anyway."""
     if spec.ckpt:
-        return load_legacy_params(spec.ckpt)
+        return load_params(spec.ckpt)
     return build_model(spec, device="cpu").state_dict()
 
 

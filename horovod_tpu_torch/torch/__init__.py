@@ -31,6 +31,9 @@ from horovod_tpu_torch.common import (  # noqa: F401  (re-exported)
     rank,
     shutdown,
     size,
+    timeline_enabled,
+    trace_marker,
+    trace_span,
 )
 from horovod_tpu_torch.torch.mpi_ops import (  # noqa: F401
     allgather,
@@ -55,6 +58,7 @@ __all__ = [
     "allgather_async", "broadcast", "broadcast_", "broadcast_async",
     "broadcast_async_", "poll", "synchronize", "broadcast_parameters",
     "broadcast_optimizer_state", "DistributedOptimizer",
+    "timeline_enabled", "trace_span", "trace_marker",
 ]
 
 

@@ -187,6 +187,14 @@ def _reset() -> None:
 _common._shutdown_hooks.append(_reset)
 
 
+def release_buffers(prefix: str) -> None:
+    """Drop the pinned buffers of the collectives named ``prefix...``:
+    names used once (a checkpoint load's) would otherwise hold their
+    pinned memory until shutdown."""
+    for name in [n for n in _buffers if n.startswith(prefix)]:
+        del _buffers[name]
+
+
 def _buffer(name: Optional[str], nbytes: int) -> _HostBuffer:
     """The pinned buffer of collective ``name`` (a fresh one for auto
     names, whose names never repeat)."""

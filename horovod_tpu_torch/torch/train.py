@@ -7,10 +7,20 @@ card.  Each worker computes gradients on its own batch,
 update, and the returned loss is averaged across workers as ``lax.pmean``
 does in the reference; with ``has_aux`` so are the loss function's aux
 tensors (the reference's ``has_aux=True``: updated batch-norm statistics,
-say).  :func:`run_pipeline` is the counterpart of
-``horovod_tpu/jax/train.py::run_pipeline``: pipeline-parallel training
-over the engine's point-to-point plane.  Checkpoint glue is not part of
-this module yet.
+say).  With a timeline on (``HVD_TPU_TIMELINE``), each step is a
+``TRAIN_STEP`` span on the trace row ``torch.train_step``, as the
+reference's ``jax.train_step``.  :func:`run_pipeline` is the counterpart
+of ``horovod_tpu/jax/train.py::run_pipeline``: pipeline-parallel training
+over the engine's point-to-point plane.
+
+The checkpoint glue (:func:`save_checkpoint`, :func:`latest_checkpoint`,
+:func:`load_checkpoint`, :func:`load_latest_checkpoint`) has the
+contracts of ``horovod_tpu/jax/train.py``'s and its formats, the legacy
+``ckpt-<step>.pkl`` and the sharded ``ckpt-<step>/`` (``state/checkpoint.py``),
+so a job resumes from either package's checkpoints.  The tree users save
+is ``{"model": model.state_dict(), "optimizer": opt.state_dict(),
+"step": n}``; tensors are written as numpy arrays and read back as
+tensors.
 """
 
 from __future__ import annotations
@@ -21,6 +31,9 @@ from typing import Callable, Optional
 
 import torch
 
+from horovod_tpu_torch import common as _common
+from horovod_tpu_torch.common import metrics as _metrics
+from horovod_tpu_torch.state import checkpoint as _ckpt
 from horovod_tpu_torch.torch import (DistributedOptimizer, allreduce,
                                      allreduce_async, size, synchronize)
 
@@ -68,13 +81,23 @@ def build_train_step(loss_fn: Callable, optimizer: torch.optim.Optimizer,
     call and ``step.sync_sec`` those spent in ``synchronize`` (the wait on
     the engine and the copies back); work still queued on the GPU when the
     call returns is in neither.  ``step.optimizer`` is the
-    ``DistributedOptimizer``.
+    ``DistributedOptimizer``.  With a timeline on, each call is a
+    ``TRAIN_STEP`` span on the row ``torch.train_step``.
     """
     if not isinstance(optimizer, DistributedOptimizer):
         optimizer = DistributedOptimizer(
             optimizer, named_parameters=model.named_parameters())
 
     def step(batch):
+        if not _common.timeline_enabled():
+            return run(batch)
+        _common._trace_begin("torch.train_step", "TRAIN_STEP")
+        try:
+            return run(batch)
+        finally:
+            _common._trace_end("torch.train_step")
+
+    def run(batch):
         t0 = time.perf_counter()
         loss = loss_fn(model, batch)
         if has_aux:
@@ -209,3 +232,91 @@ def run_pipeline(stage_modules, optimizer: Callable, batches,
             f"pipeline aborted: {_dead_stages(grid, exc.ranks)} died: "
             f"{exc}", exc.ranks) from exc
     return runner.stages, optimizers, losses
+
+
+# ---------------------------------------------------------------------------
+# Checkpoints (docs/fault-tolerance.md): the reference's resume glue.
+# ---------------------------------------------------------------------------
+
+
+def _ckpt_barrier(name: str) -> None:
+    """The sharded commit's named barrier: an allreduce of one int."""
+    _common.allreduce(torch.ones(1, dtype=torch.int32), average=False,
+                      name=name)
+
+
+def save_checkpoint(directory: str, step: int, tree,
+                    sharded: bool = False,
+                    keep: Optional[int] = None) -> str:
+    """Write ``tree`` (tensors, numpy arrays and picklable python values
+    in dicts, lists, tuples and namedtuples) as a checkpoint under
+    ``directory``; returns the committed path.
+
+    Legacy (``sharded=False``): one atomic ``ckpt-<step>.pkl`` of
+    ``{"step", "tree"}`` with numpy leaves; call on one rank
+    (conventionally 0).  Sharded (``sharded=True``): call on every rank;
+    each writes the leaves it owns to ``ckpt-<step>/rank-N.pkl``, a named
+    barrier confirms every shard, rank 0 commits ``manifest.json``, and a
+    second barrier holds every rank until the commit.  Then the oldest
+    committed checkpoints past ``keep`` (default ``HVD_TPU_CKPT_KEEP``;
+    unset keeps all) are pruned, never the new one nor a torn directory.
+    """
+    if keep is None:
+        keep = _ckpt.retention_keep()
+    os.makedirs(directory, exist_ok=True)
+    if sharded:
+        if _common.is_initialized():
+            rank, n = _common.rank(), _common.size()
+            barrier = _ckpt_barrier if n > 1 else None
+        else:
+            rank, n, barrier = 0, 1, None
+        path = _ckpt.save_sharded(directory, step, tree, rank, n,
+                                  barrier=barrier)
+        if rank == 0:
+            _ckpt.prune_checkpoints(directory, keep, protect_step=step)
+        return path
+    import pickle
+
+    path = os.path.join(directory, f"{_ckpt.CKPT_PREFIX}{int(step):08d}"
+                                   f"{_ckpt.CKPT_SUFFIX}")
+    host = _ckpt.host_tree(tree)
+    _ckpt.atomic_write(path, lambda f: pickle.dump(
+        {"step": int(step), "tree": host}, f))
+    _metrics.registry.record_state_ckpt("legacy_saves",
+                                        nbytes=os.path.getsize(path))
+    _ckpt.prune_checkpoints(directory, keep, protect_step=step)
+    return path
+
+
+def latest_checkpoint(directory: str) -> Optional[str]:
+    """The newest committed checkpoint in ``directory``, a legacy file or
+    a sharded directory with its manifest; None when there is none."""
+    entries = _ckpt.scan_checkpoints(directory)
+    return entries[-1][1] if entries else None
+
+
+def load_checkpoint(path: str, collective: bool = True, device=None):
+    """``(step, tree)`` from the checkpoint ``path`` (a legacy file or a
+    sharded directory), array leaves as tensors on ``device`` (the CPU by
+    default).  A sharded one with ``collective=True`` and the engine up
+    at its world size reads this rank's shard and receives the rest by
+    broadcast (every rank must call); ``collective=False`` reads every
+    shard here."""
+    if os.path.isdir(path):
+        return _ckpt.load_sharded(path, collective=collective,
+                                  device=device)
+    with open(path, "rb") as f:
+        payload = _ckpt.load_pickle(f)
+    _metrics.registry.record_state_ckpt("loads")
+    return int(payload["step"]), _ckpt.tensors(payload["tree"], device)
+
+
+def load_latest_checkpoint(directory: str, collective: bool = True,
+                           device=None):
+    """``(step, tree)`` from the newest committed checkpoint in
+    ``directory``, or ``(0, None)`` when there is none, so resume code can
+    be unconditional."""
+    path = latest_checkpoint(directory)
+    if path is None:
+        return 0, None
+    return load_checkpoint(path, collective=collective, device=device)

@@ -168,7 +168,7 @@ def test_import_turns_tf32_off_for_matmuls_and_convolutions():
     assert not torch.backends.cudnn.allow_tf32
 
 
-_FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "horovod_tpu")
+_FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ml_dtypes", "horovod_tpu")
 
 
 def _imports(path):
@@ -204,5 +204,8 @@ def test_import_walk_covers_the_engine_and_the_runner():
                  "horovod_tpu_torch/runner/launch.py",
                  "horovod_tpu_torch/runner/__main__.py",
                  "horovod_tpu_torch/common/config.py",
-                 "horovod_tpu_torch/torch/mpi_ops.py"):
+                 "horovod_tpu_torch/torch/mpi_ops.py",
+                 "horovod_tpu_torch/state/_tree.py",
+                 "horovod_tpu_torch/state/partition.py",
+                 "horovod_tpu_torch/state/checkpoint.py"):
         assert path in rel, path

@@ -478,14 +478,16 @@ def test_f32_b2_at_its_edges(cuda_device, seq, d, causal):
 @pytest.mark.cuda
 @pytest.mark.parametrize("d,mode", [(64, "combined"), (128, "combined"),
                                     (64, "split"), (128, "split"),
-                                    (256, "split")])
+                                    (256, "split"), (288, "split"),
+                                    (512, "split")])
 def test_f32_bodies_at_a_long_causal_sequence(cuda_device, d, mode):
     """K1 and B2 (``combined``) or K2 and K3 (``split``) in f32 at seq
     8192, causal: K3 adds 256 32-key tiles into each row's dQ (each
     tile's product summed in a fresh accumulator: the tensor cores
     truncate as they accumulate, so a chain over the key loop drifts with
     its length), B2 256 query steps into dK and dV; every output under
-    the f32 rule (dq with its term)."""
+    the f32 rule (dq with its term).  At 288 and 512 the wide bodies: K1
+    and K2 on 3xTF32 wgmma in column CTAs of 4-panel windows, K3 SIMT."""
     g = torch.Generator(device=cuda_device).manual_seed(d)
     q, k, v, do = (torch.randn(2, 8192, d, device=cuda_device, generator=g)
                    for _ in range(4))

@@ -254,7 +254,6 @@ def test_engine_exports_only_its_c_api():
 
 
 @pytest.mark.parametrize("var,value,plane", [
-    ("HVD_TPU_TIMELINE", "/nonexistent/tl.json", "timeline"),
     ("HOROVOD_HIERARCHICAL_ALLREDUCE", "1", "hierarchical allreduce"),
     ("HVD_TPU_COMPRESSION", "bf16", "wire compression"),
     ("HVD_TPU_AUTOTUNE", "1", "autotuning"),
