@@ -35,6 +35,20 @@ Phases, one JSON line each:
    Launch counters are zeroed just before and read just after: K1 and B2
    must have run 8 layers x 7 steps times, K2 and K3 never (the
    reference's plan picks the combined backward at this shape).
+   Then ``fused_loss``, the same path with the fused head and loss
+   (``build_lm_step(fused_loss=True)``: ``model(inputs, targets=)``, 8
+   chunks of 2048 tokens, each chunk's float32 logits recomputed in the
+   backward): in float32 (TF32 off) the loss and every parameter's
+   gradient against ``next_token_loss`` on float32 logits, at
+   ``HEADLINE``'s batch (8 chunks) and at 3 x 1023 tokens (8 does not
+   divide them: one chunk), each element within 1e-6 + 1e-5 |ref| (the
+   reference's CPU tolerances) plus 3 x the spread of two runs of the
+   logits path, the loss within 3 x that spread, at least 1e-6 relative;
+   in bf16 each path's loss and gradient norms (printed, not gated); 2
+   warm-up + 5 timed bf16 steps beside ``train``'s: tokens/s, step ms and
+   peak memory, the peak gated lower than ``train``'s, K1 and B2 8 x 7
+   times, K2 and K3 never; the head and loss alone, forward and backward
+   (CUDA events), fused against the logits path.
    Then ``split``, the split pair's own path: at a shape where the plan
    picks it (1040 batch-heads, seq 512, bf16) K2 and K3 (and B2 beside
    them) held against the plain version that walks their key tile;
@@ -128,6 +142,21 @@ Phases, one JSON line each:
    [8r, 8r + 8) of a 16-row batch, against 3 steps of the size-1 step on
    all 16 rows; the losses must agree within 3 x the spread of two
    size-1 runs, with a floor of 1e-3 relative (printed beside them).
+   Then ``ring_dp``: dp x sp, 2 ranks sharing the card, each
+   ``build_lm_step(**RING_HEADLINE)`` (a fused ring of 4 members, batch 4
+   x seq 4096 per rank, 2 x 16,384 tokens a job step; rank r's weights
+   seeded 100 + r, then broadcast), 2 warm-up + 5 timed steps.  Printed:
+   job tokens/s over the slower rank's median step, median step and sync
+   ms, peak memory, launches, flags and one parameter digest per rank.
+   Gates: per rank K4 and K5 n x n x 8 layers x 7 steps, K7 2 x n x 8 x
+   7 (n = 4 is even), K6 never; equal digests and losses across ranks;
+   balanced flags; losses finite, starting within 1 of ln(32768) and
+   falling.  Then its averaging check: 3 steps of both ranks from
+   ``AVG_SEED``, rank r on rows [2r, 2r + 2) of one 4-row batch whose
+   rows 2 and 3 (rank 1's) hold only their first 512 targets (a mask),
+   against 3 size-1 ring steps on all 4 rows with the whole mask, within
+   ``train_dp``'s rule (``tools/torch_averaging_control.py --ring``
+   normalises each rank's loss by its own count and must fail it).
 12. ``timeline`` — 3 steps of ``HEADLINE`` on 2 ranks started by the
    port's launcher with ``--timeline DIR`` (``HVD_TPU_TIMELINE=DIR/``):
    each rank's trace parses as Chrome trace JSON, carries the ``hvd_rank``
@@ -247,7 +276,9 @@ f32 at the main shape with the launches of the float32 paths
 dims 256 (bf16 and f32), 288, 512 and 1000; K1 and B2 with their launches per rank on
 ``train_dp``, ``pipeline`` and ``pipeline_dp`` and their times at the
 pipeline's micro-batch shape, K1 with its launches on ``serve``), the
-``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Any
+``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  K1
+and B2 carry their launches on ``fused_loss``; K4, K5 and K7 theirs per
+rank on ``ring_dp``.  Any
 failure raises: the script exits non-zero and prints no result line.
 Tolerances (``horovod_tpu_torch/ops/kernel_check.py``, which gives the
 reasons): every element within rtol * (|ref| + rms of its row + rms(ref)
@@ -290,7 +321,9 @@ import horovod_tpu_torch as hvd  # noqa: E402
 import horovod_tpu_torch.torch as hvdt  # noqa: E402
 from horovod_tpu_torch import common as hvd_common  # noqa: E402
 from horovod_tpu_torch.engine import build as engine_build  # noqa: E402
-from horovod_tpu_torch.models import TransformerLM, next_token_loss  # noqa
+from horovod_tpu_torch.models import (TransformerLM,  # noqa: E402
+                                      fused_next_token_loss,
+                                      next_token_loss)
 from horovod_tpu_torch.ops import _build  # noqa: E402
 from horovod_tpu_torch.ops import attention as A  # noqa: E402
 from horovod_tpu_torch.ops import kernel_check  # noqa: E402
@@ -390,6 +423,11 @@ N_MEMBERS = 4
 DP_RANKS = 2
 GRAD_BYTES = 224 << 20
 AVG_SEED = 7
+# ring_dp's averaging check: rank 1's rows hold only their first 512
+# targets, as rows of short documents padded to the context would.
+RING_AVG_VALID = 512
+# fused_loss's token count that 8 chunks do not divide (batch, seq).
+FUSED_FALLBACK = (3, 1023)
 # The pipeline phases: stage ranks on this card, the micro-batch's q at
 # PIPE_HEADLINE (batch 4 of 16, 8 heads, seq 1024, head dim 64), and the
 # float32 parity rule's relative floor: sound runs read at most 1.4e-6 of
@@ -727,6 +765,19 @@ def phase_model():
     return launched
 
 
+def timed_steps(step, data, warmup, timed):
+    """``warmup + timed`` calls of ``step(data)``: ``(losses, ms of each
+    timed call on the host clock around step(...).item(), which
+    synchronizes, and the ms of its synchronize)``."""
+    losses, step_ms = [], []
+    for i in range(warmup + timed):
+        t0 = time.perf_counter()
+        losses.append(step(data).item())
+        if i >= warmup:
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, step_ms, [x * 1e3 for x in step.sync_sec[warmup:]]
+
+
 def phase_train():
     hvd.init()
     torch.cuda.set_device(hvd.local_rank())
@@ -737,20 +788,14 @@ def phase_train():
     torch.cuda.reset_peak_memory_stats()
     warmup, timed = 2, 5
     A.reset_launches()
-    losses, step_ms = [], []
-    for i in range(warmup + timed):
-        t0 = time.perf_counter()
-        loss = step(data).item()  # .item() synchronizes
-        dt = (time.perf_counter() - t0) * 1e3
-        losses.append(loss)
-        if i >= warmup:
-            step_ms.append(dt)
+    losses, step_ms, _ = timed_steps(step, data, warmup, timed)
     torch.cuda.synchronize()
     launched = dict(A.launches)
     med = statistics.median(step_ms)
-    emit("train", tokens_per_s=batch * seq / (med / 1e3),
-         median_step_ms=med, step_ms=step_ms,
-         max_memory_allocated=torch.cuda.max_memory_allocated(),
+    summary = dict(tokens_per_s=batch * seq / (med / 1e3),
+                   median_step_ms=med,
+                   max_memory_allocated=torch.cuda.max_memory_allocated())
+    emit("train", **summary, step_ms=step_ms,
          first_loss=losses[0], last_loss=losses[-1], losses=losses,
          launches=launched)
     per = n_layers * (warmup + timed)
@@ -763,6 +808,153 @@ def phase_train():
     # Random weights start near log(vocab); one fixed batch is memorised.
     if abs(losses[0] - math.log(vocab)) > 1.0 or losses[-1] >= losses[0]:
         fail(f"implausible loss trajectory: {losses}")
+    hvd.shutdown()
+    return launched, summary
+
+
+def _lm(dtype, logits_dtype, seed):
+    """The headline LM at ``dtype`` on the card, weights from ``seed``."""
+    return TransformerLM(**{k: HEADLINE[k] for k in (
+        "vocab_size", "d_model", "n_layers", "n_heads", "d_ff")},
+        dtype=dtype, logits_dtype=logits_dtype,
+        generator=torch.Generator().manual_seed(seed))
+
+
+def _loss_and_grads(model, inp, tgt, fused):
+    model.zero_grad(set_to_none=True)
+    loss = (model(inp, targets=tgt) if fused
+            else next_token_loss(model(inp), tgt))
+    loss.backward()
+    return loss.item(), {n: p.grad.detach().clone()
+                         for n, p in model.named_parameters()}
+
+
+def fused_numerics(batch, seq):
+    """float32: the fused loss and every gradient against two runs of the
+    logits path on float32 logits.  Each element within 1e-6 + 1e-5 |ref|
+    (the reference's CPU tolerances) plus 3 x the two runs' spread (B2's
+    dQ adds are not ordered); the loss within 3 x its spread, at least
+    1e-6 relative.  Returns the readings (``worst``: largest error over
+    its limit, pass at <= 1)."""
+    model = _lm(torch.float32, torch.float32, AVG_SEED)
+    tokens = torch.from_numpy(np.random.RandomState(AVG_SEED).randint(
+        0, HEADLINE["vocab_size"], (batch, seq + 1))).cuda()
+    inp, tgt = tokens[:, :-1], tokens[:, 1:]
+    l1, g1 = _loss_and_grads(model, inp, tgt, fused=False)
+    l2, g2 = _loss_and_grads(model, inp, tgt, fused=False)
+    lf, gf = _loss_and_grads(model, inp, tgt, fused=True)
+    worst, worst_name = 0.0, None
+    for n, a in gf.items():
+        lim = 1e-6 + 1e-5 * g1[n].abs() + 3 * (g1[n] - g2[n]).abs()
+        w = ((a - g1[n]).abs() / lim).max().item()
+        if w > worst:
+            worst, worst_name = w, n
+    loss_lim = max(3 * abs(l1 - l2), 1e-6 * abs(l1))
+    out = dict(batch=batch, seq=seq, tokens=batch * seq,
+               chunks=8 if (batch * seq) % 8 == 0 else 1,
+               loss_fused=lf, loss_logits=[l1, l2], loss_abs_err=abs(lf - l1),
+               loss_limit=loss_lim, grad_worst=worst,
+               grad_worst_param=worst_name,
+               grad_spread_max=max((g1[n] - g2[n]).abs().max().item()
+                                   for n in g1))
+    del model, g1, g2, gf
+    torch.cuda.empty_cache()
+    if abs(lf - l1) > loss_lim or worst > 1.0:
+        emit("fused_loss", numerics=out)
+        fail(f"fused loss disagrees with the logits path: {out}")
+    return out
+
+
+def fused_bf16_report():
+    """bf16 as ``train`` runs it (bf16 logits on the logits path): each
+    path's loss and gradient norms, one bf16 rounding of each logit
+    apart.  Printed, not gated."""
+    model = _lm(torch.bfloat16, torch.bfloat16, AVG_SEED)
+    vocab, batch, seq = (HEADLINE[k] for k in ("vocab_size", "batch", "seq"))
+    tokens = torch.from_numpy(np.random.RandomState(AVG_SEED).randint(
+        0, vocab, (batch, seq + 1))).cuda()
+    inp, tgt = tokens[:, :-1], tokens[:, 1:]
+    out = {}
+    for name, fused in (("logits", False), ("fused", True)):
+        loss, grads = _loss_and_grads(model, inp, tgt, fused)
+        out[name] = {"loss": loss, "grad_norms": {
+            n: g.float().norm().item() for n, g in grads.items()}}
+    names = out["fused"]["grad_norms"]
+    out["max_grad_norm_rel_diff"] = max(
+        abs(out["fused"]["grad_norms"][n] - out["logits"]["grad_norms"][n])
+        / max(out["logits"]["grad_norms"][n], 1e-30) for n in names)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def fused_head_ms():
+    """Median ms of the head and the loss alone, forward and backward, at
+    ``HEADLINE``'s tokens in bf16 (CUDA events, the host's issue inside):
+    ``fused_next_token_loss`` (float32 chunk products) against the logits
+    path as ``train`` runs it (a bf16 head product, bf16 logits,
+    ``next_token_loss``)."""
+    vocab, batch, seq, d = (HEADLINE[k] for k in (
+        "vocab_size", "batch", "seq", "d_model"))
+    g = torch.Generator(device="cuda").manual_seed(AVG_SEED)
+    h = torch.randn(batch, seq, d, device="cuda", generator=g).to(
+        torch.bfloat16).requires_grad_()
+    w = (torch.randn(d, vocab, device="cuda", generator=g)
+         * d ** -0.5).requires_grad_()
+    t = torch.randint(0, vocab, (batch, seq), device="cuda", generator=g)
+
+    def fused():
+        fused_next_token_loss(h, w, t, dtype=torch.bfloat16).backward()
+
+    def logits():
+        next_token_loss(torch.matmul(h, w.to(torch.bfloat16)), t).backward()
+
+    out = {"fused": time_ms(fused, host_ahead=False),
+           "logits": time_ms(logits, host_ahead=False)}
+    del h, w, t
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_fused_loss(train):
+    """The main path with the fused head and loss: float32 numerics
+    against the logits path, the bf16 report, then the timed steps
+    beside ``train``'s (``train``: its tokens/s, step ms and peak)."""
+    hvd.init()
+    vocab, batch, seq = (HEADLINE[k] for k in ("vocab_size", "batch", "seq"))
+    _, step, data = build_lm_step(**HEADLINE, fused_loss=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    warmup, timed = 2, 5
+    A.reset_launches()
+    losses, step_ms, _ = timed_steps(step, data, warmup, timed)
+    torch.cuda.synchronize()
+    launched = dict(A.launches)
+    peak = torch.cuda.max_memory_allocated()
+    del step, data
+    torch.cuda.empty_cache()
+    numerics = [fused_numerics(batch, seq), fused_numerics(*FUSED_FALLBACK)]
+    bf16 = fused_bf16_report()
+    head_ms = fused_head_ms()
+    med = statistics.median(step_ms)
+    per = HEADLINE["n_layers"] * (warmup + timed)
+    want = {"flash_fwd": per, "flash_bwd": per, "flash_bwd_dkdv": 0,
+            "flash_bwd_dq": 0}
+    emit("fused_loss", nvidia_smi=smi_line(),
+         tokens_per_s=batch * seq / (med / 1e3), median_step_ms=med,
+         step_ms=step_ms, max_memory_allocated=peak,
+         train=train, head_and_loss_ms=head_ms, losses=losses,
+         launches=launched, want_launches=want, numerics=numerics,
+         bf16=bf16)
+    if launched != want:
+        fail(f"the fused-loss path launched {launched}, want {want}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"fused_loss: non-finite loss: {losses}")
+    if abs(losses[0] - math.log(vocab)) > 1.0 or losses[-1] >= losses[0]:
+        fail(f"fused_loss: implausible loss trajectory: {losses}")
+    if peak >= train["max_memory_allocated"]:
+        fail(f"fused_loss: peak {peak} B not below train's "
+             f"{train['max_memory_allocated']} B")
     hvd.shutdown()
     return launched
 
@@ -1549,20 +1741,11 @@ def phase_ring_train():
     torch.cuda.reset_peak_memory_stats()
     warmup, timed = 2, 5
     reset_ring_launches()
-    losses, step_ms = [], []
-    for i in range(warmup + timed):
-        t0 = time.perf_counter()
-        loss = step(data).item()
-        dt = (time.perf_counter() - t0) * 1e3
-        losses.append(loss)
-        if i >= warmup:
-            step_ms.append(dt)
+    losses, step_ms, _ = timed_steps(step, data, warmup, timed)
     torch.cuda.synchronize()
     launched = ring_launches()
     peak = torch.cuda.max_memory_allocated()
-    per = members * n_layers * (warmup + timed)
-    want = {"ring_flash_fwd": per * members, "ring_flash_bwd": per * members,
-            "phase_closer": per * 2 * (members % 2 == 0), "ring_permute": 0}
+    want = ring_want(warmup + timed, members, n_layers)
     med = statistics.median(step_ms)
     emit("ring_train", members=members, batch=batch, seq=seq,
          ring_impl=cfg["ring_impl"], tokens_per_s=batch * seq / (med / 1e3),
@@ -1952,6 +2135,134 @@ def phase_train_dp():
         fail(f"train_dp: averaged losses {dp} against size-1 {refs[0]}, "
              f"tolerance {tol}")
     return res[0]["launches"], step_ms
+
+
+def ring_want(steps, members, n_layers):
+    """``ring_train``'s launch formula for the fused ring: per member,
+    layer and step K4 n, K5 n and, at even n, K7 2; K6 never."""
+    per = members * n_layers * steps
+    return {"ring_flash_fwd": per * members,
+            "ring_flash_bwd": per * members,
+            "phase_closer": per * 2 * (members % 2 == 0), "ring_permute": 0}
+
+
+def rank_ring_dp():
+    """One rank of ``ring_dp``: a fused ring of ``RING_HEADLINE`` on this
+    rank's rows, the ranks averaging through the engine."""
+    hvdt.init(device="cuda:0")
+    r, n = hvdt.rank(), hvdt.size()
+    model, step, data = build_lm_step(**RING_HEADLINE, seed=100)
+    mesh = model.seq_axis
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    warmup, timed = 2, 5
+    reset_ring_launches()
+    losses, step_ms, sync_ms = timed_steps(step, data, warmup, timed)
+    torch.cuda.synchronize()
+    launched = ring_launches()
+    peak = torch.cuda.max_memory_allocated()
+    digest = params_digest(model)
+    balanced = mesh.flags_balanced()
+    del model, step, data, mesh
+    torch.cuda.empty_cache()
+    rows = RING_HEADLINE["batch"] // n
+    avg_losses = ring_averaging_losses(slice(r * rows, (r + 1) * rows))
+    rank_result(rank=r, size=n, losses=losses, step_ms=step_ms,
+                median_step_ms=statistics.median(step_ms), sync_ms=sync_ms,
+                median_sync_ms=statistics.median(sync_ms),
+                max_memory_allocated=peak, launches=launched,
+                flags_balanced=balanced, digest=digest,
+                avg_losses=avg_losses)
+    hvdt.shutdown()
+
+
+def ring_averaging_batch():
+    """The averaging check's 4-row batch ``(inputs, targets, mask)`` from
+    ``RandomState(AVG_SEED)``: rows 2 and 3 (rank 1's at np 2) hold only
+    their first ``RING_AVG_VALID`` targets."""
+    vocab, batch, seq = (RING_HEADLINE[k]
+                         for k in ("vocab_size", "batch", "seq"))
+    tokens = torch.from_numpy(np.random.RandomState(AVG_SEED).randint(
+        0, vocab, (batch, seq + 1)))
+    mask = torch.ones(batch, seq)
+    mask[batch // DP_RANKS:, RING_AVG_VALID:] = 0.0
+    return tokens[:, :-1], tokens[:, 1:], mask
+
+
+def ring_averaging_losses(rows):
+    """3 ring steps from ``AVG_SEED`` on rows ``rows`` of the averaging
+    batch, the loss normalised over ``("dp", mesh)``.  At size 1 the
+    zero-learning-rate step of a data-parallel run's
+    ``broadcast_optimizer_state`` is taken here, as in
+    ``averaging_losses``."""
+    model, step, _ = build_lm_step(**RING_HEADLINE, seed=AVG_SEED)
+    if hvd.size() == 1:
+        hvdt.broadcast_optimizer_state(step.optimizer, root_rank=0)
+    batch = tuple(x[rows].cuda() for x in ring_averaging_batch())
+    losses = [step(batch).item() for _ in range(3)]
+    del model, step, batch
+    torch.cuda.empty_cache()
+    return losses
+
+
+def ring_averaging_reference():
+    """``(refs, tolerance)`` of the ring's averaging check: two size-1
+    runs on all 4 rows; per step 3x their spread, at least 1e-3 of the
+    loss (``train_dp``'s rule)."""
+    hvd.init()
+    refs = [ring_averaging_losses(slice(None)) for _ in range(2)]
+    hvd.shutdown()
+    spread = [abs(a - b) for a, b in zip(*refs)]
+    return refs, [max(3 * s, 1e-3 * abs(a)) for s, a in zip(spread, refs[0])]
+
+
+def phase_ring_dp():
+    """dp x sp: 2 ranks on this card, each a fused ring of 4 members."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = run_ranks("ring_dp", timeout=600)
+    vocab, batch, seq = (RING_HEADLINE[k]
+                         for k in ("vocab_size", "batch", "seq"))
+    members, n_layers = RING_HEADLINE["members"], RING_HEADLINE["n_layers"]
+    want = ring_want(7, members, n_layers)
+    step_ms = max(x["median_step_ms"] for x in res)
+    refs, tol = ring_averaging_reference()
+    dp = res[0]["avg_losses"]
+    off = [abs(a - b) for a, b in zip(dp, refs[0])]
+    emit("ring_dp", ranks=DP_RANKS, members=members, batch_per_rank=batch,
+         seq=seq, nvidia_smi=smi_line(),
+         tokens_per_s=DP_RANKS * batch * seq / (step_ms / 1e3),
+         median_step_ms=step_ms,
+         median_step_ms_per_rank=[x["median_step_ms"] for x in res],
+         median_sync_ms=[x["median_sync_ms"] for x in res],
+         max_memory_allocated=[x["max_memory_allocated"] for x in res],
+         launches=[x["launches"] for x in res], want_launches=want,
+         flags_balanced=[x["flags_balanced"] for x in res],
+         digests=[x["digest"] for x in res], losses=res[0]["losses"],
+         averaging={"dp": dp, "per_rank": [x["avg_losses"] for x in res],
+                    "size1": refs, "abs_err": off, "tolerance": tol,
+                    "valid_targets_rank1_rows": RING_AVG_VALID},
+         seconds=time.perf_counter() - t0)
+    for x in res:
+        if x["launches"] != want:
+            fail(f"ring_dp rank {x['rank']} launched {x['launches']}, "
+                 f"want {want}")
+        if not x["flags_balanced"]:
+            fail(f"ring_dp rank {x['rank']}: flags out of balance")
+        if x["losses"] != res[0]["losses"] or \
+                x["avg_losses"] != res[0]["avg_losses"]:
+            fail(f"ring_dp: the ranks' mean losses differ: {res}")
+    if len({x["digest"] for x in res}) != 1:
+        fail("ring_dp: the ranks' parameters differ after the steps")
+    losses = res[0]["losses"]
+    if not all(math.isfinite(x) for x in losses + dp):
+        fail(f"ring_dp: non-finite loss: {losses}, {dp}")
+    if abs(losses[0] - math.log(vocab)) > 1.0 or losses[-1] >= losses[0]:
+        fail(f"ring_dp: implausible loss trajectory: {losses}")
+    if any(o > t for o, t in zip(off, tol)):
+        fail(f"ring_dp: averaged losses {dp} against size-1 {refs[0]}, "
+             f"tolerance {tol}")
+    return res[0]["launches"]
 
 
 # --- the timeline and the checkpoints (ROADMAP A.2, A.3) ---
@@ -3347,7 +3658,8 @@ def main():
     model = phase_model()
     f32_launched = {"flash_fwd_f32": model["flash_fwd"],
                     "flash_bwd_f32": model["flash_bwd"]}
-    launched = phase_train()
+    launched, train = phase_train()
+    fused_launched = phase_fused_loss(train)
     split, split_entries, split_f32 = phase_split()
     f32_launched["flash_bwd_dkdv_f32"] = split_f32["flash_bwd_dkdv"]
     f32_launched["flash_bwd_dq_f32"] = split_f32["flash_bwd_dq"]
@@ -3358,6 +3670,7 @@ def main():
     launched.update(phase_ring_train())
     phase_collectives()
     dp_launched, dp_step_ms = phase_train_dp()
+    ring_dp_launched = phase_ring_dp()
     phase_timeline(dp_step_ms)
     phase_checkpoint()
     pipe_entries, pipe_launched = phase_pipeline()
@@ -3387,6 +3700,10 @@ def main():
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "library_by_backend", "max_abs_err")}}
     entries["flash_fwd"]["launches_serve"] = serve_launched["flash_fwd"]
+    for name_ in ("flash_fwd", "flash_bwd"):
+        entries[name_]["launches_fused_loss"] = fused_launched[name_]
+    for name_ in ("ring_flash_fwd", "ring_flash_bwd", "phase_closer"):
+        entries[name_]["launches_ring_dp_per_rank"] = ring_dp_launched[name_]
     # The rows of head dims 256 and above carry the launches of the
     # head_dims phase's path.
     entries.update(wide_entries)
@@ -3401,6 +3718,7 @@ def main():
 
 
 RANK_PHASES = {"collectives": rank_collectives, "train_dp": rank_train_dp,
+               "ring_dp": rank_ring_dp,
                "timeline": rank_timeline, "checkpoint": rank_checkpoint,
                "resnet_dp": rank_resnet_dp, "serve_dp": rank_serve_dp,
                "pipeline": rank_pipeline, "pipeline_dp": rank_pipeline_dp}

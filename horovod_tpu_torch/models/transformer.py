@@ -14,8 +14,13 @@ contributions: the ``psum`` over the sequence axis that the JAX step gets
 from ``shard_map``.  The cached-KV decode mode (``forward(tokens,
 decode_ctx=...)``, :class:`DecodeContext`) and the K/V capture of the full
 forward (``capture_kv=True``) serve the serving plane; both refuse sequence
-parallelism, as the reference's decode mode does.  The port has no
-``targets=`` argument.  Parameters keep the flax
+parallelism, as the reference's decode mode does.  ``forward(tokens,
+targets=...)`` returns the mean next-token loss through
+:func:`fused_next_token_loss`, the head and the loss fused chunk by chunk
+so no ``(tokens, vocab)`` logits outlive a chunk; it refuses sequence
+parallelism, decode and K/V capture.  :func:`next_token_loss` normalises a
+masked loss over the ring's members and the engine's ranks (``axis_name=
+("dp", mesh)``), as the reference's over ``("dp", "sp")``.  Parameters keep the flax
 shapes and layouts (``qkv_kernel`` (d, 3, h, e), ``o_kernel`` (h, e, d),
 ``lm_head_kernel`` (d, V)), so :mod:`.convert` carries weights across by
 renaming and transposing the two MLP kernels.  Matched semantics: flax
@@ -286,14 +291,34 @@ class TransformerLM(nn.Module):
         # operands in f32 (the reference's preferred_element_type=f32).
         return torch.matmul(xw.float(), w.float()).to(self.logits_dtype)
 
-    def forward(self, tokens, decode_ctx: Optional[DecodeContext] = None,
+    def forward(self, tokens, targets=None,
+                decode_ctx: Optional[DecodeContext] = None,
                 capture_kv: bool = False):
-        """Logits ``(batch, seq, vocab)``.  With ``decode_ctx`` (the
+        """Logits ``(batch, seq, vocab)``.  With ``targets`` (token ids
+        aligned with ``tokens``): the mean next-token loss, through
+        :func:`fused_next_token_loss`.  With ``decode_ctx`` (the
         cached-KV decode mode: ``tokens`` are each row's new chunk) or
         ``capture_kv`` (the full forward): ``(logits, (k, v))``, the
         chunk's post-rope keys and values stacked over layers,
         ``(n_layers, batch, heads, seq, head_dim)`` each."""
+        if targets is not None and self.seq_axis is not None:
+            raise ValueError(
+                "targets= (fused head+loss) is unsupported under sequence "
+                "parallelism: it has no axis_name-aware normalization; "
+                "compute logits and use next_token_loss(..., axis_name=...) "
+                "instead.")
+        if targets is not None and (decode_ctx is not None or capture_kv):
+            raise ValueError(
+                "decode_ctx= (cached KV decode) and capture_kv= do not "
+                "compose with targets=: decode is an inference-only path")
         emb = self.embed.weight.to(self.dtype)
+        if targets is not None:
+            x = F.embedding(tokens, emb)
+            for layer in self.layers:
+                x = layer(x)
+            return fused_next_token_loss(self.final_norm(x),
+                                         self.lm_head_kernel, targets,
+                                         dtype=self.dtype)
         w = self.lm_head_kernel.to(self.dtype)
         if (decode_ctx is not None or capture_kv) and \
                 self.seq_axis is not None:
@@ -325,30 +350,148 @@ class TransformerLM(nn.Module):
         return torch.cat([self._head(x, w) for x in xs], dim=1)
 
 
+class _FusedHeadLoss(torch.autograd.Function):
+    """The head and the mean cross-entropy, chunk by chunk over the
+    flattened tokens: the reference's ``lax.scan`` of a
+    ``jax.checkpoint``-ed chunk.  The forward keeps the loss, what the
+    backward reads (``hidden``, ``w``, ``targets``) and each token's
+    log-sum-exp; the backward recomputes one chunk's logits at a time.
+
+    Each chunk's logits are float32 from operands rounded to ``dtype``
+    (the reference's ``preferred_element_type=f32``); the cotangents take
+    the reference's dtypes: a chunk's d-hidden and d-head are float32
+    products rounded to ``dtype``, the d-head summed over the chunks in
+    ``dtype`` (last chunk first, as the scan's transpose runs) and cast to
+    ``w``'s dtype at the end."""
+
+    @staticmethod
+    def forward(ctx, hidden, w, targets, dtype, n_chunks):
+        x, t = hidden.flatten(0, 1), targets.flatten()
+        m = x.shape[0] // n_chunks
+        wf = w.to(dtype).float()
+        total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        lses = []
+        for xc, tc in zip(x.split(m), t.split(m)):
+            logits = xc.to(dtype).float() @ wf
+            lse = torch.logsumexp(logits, dim=-1)
+            total = total + (lse - logits.gather(1, tc[:, None])[:, 0]).sum()
+            lses.append(lse)
+            del logits  # before the next chunk's are made
+        ctx.save_for_backward(hidden, w, targets, torch.cat(lses))
+        ctx.dtype, ctx.m = dtype, m
+        return total / x.shape[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        hidden, w, targets, lse = ctx.saved_tensors
+        dtype, m = ctx.dtype, ctx.m
+        x, t = hidden.flatten(0, 1), targets.flatten()
+        wf = w.to(dtype).float()
+        s = g.float() / x.shape[0]
+        rows = torch.arange(m, device=x.device)
+        dx = torch.empty_like(x)
+        dw = torch.zeros(w.shape, dtype=dtype, device=w.device)
+        chunks = list(zip(x.split(m), t.split(m), lse.split(m), dx.split(m)))
+        for xc, tc, lc, dxc in reversed(chunks):
+            xc = xc.to(dtype).float()
+            # d(lse - correct) / d logits = (softmax - onehot) * s
+            p = (xc @ wf).sub_(lc[:, None]).exp_().mul_(s)
+            p[rows, tc] -= s
+            dxc.copy_((p @ wf.T).to(dtype))
+            dw += (xc.T @ p).to(dtype)
+            del p
+        return dx.view_as(hidden), dw.to(w.dtype), None, None, None
+
+
+def fused_next_token_loss(hidden, w, targets, dtype=torch.bfloat16,
+                          n_chunks: int = 8):
+    """Mean cross-entropy over all ``batch * seq`` tokens of the head
+    ``hidden @ w`` (``hidden`` (batch, seq, d), ``w`` (d, vocab)) against
+    ``targets`` (batch, seq), computed head-chunk by head-chunk.
+
+    The flattened tokens split into ``n_chunks`` chunks (one chunk when
+    ``n_chunks`` does not divide their count, as the reference falls
+    back); each chunk's logits are float32 from operands rounded to
+    ``dtype`` and live only while that chunk is computed, in the forward
+    and again in the backward, which recomputes them.  Peak memory is
+    one chunk's ``(tokens / n_chunks, vocab)`` float32 logits in place of
+    the whole logits tensor and its float32 upcasts, at the cost of one
+    more head product.  The counterpart of
+    ``horovod_tpu.models.fused_next_token_loss``; no ``(tokens, vocab)``
+    tensor is saved for the backward."""
+    tokens = hidden.shape[0] * hidden.shape[1]
+    if tokens % n_chunks:
+        n_chunks = 1
+    return _FusedHeadLoss.apply(hidden, w, targets, dtype, n_chunks)
+
+
+DP_AXIS = "dp"  # next_token_loss's name for the engine's ranks
+
+
+def _loss_axes(axis_name):
+    """``(ring mesh or None, whether the engine's ranks are an axis)`` of
+    ``next_token_loss``'s ``axis_name``."""
+    from horovod_tpu_torch.parallel import RingMesh
+
+    if axis_name is None:
+        return None, False
+    axes = axis_name if isinstance(axis_name, tuple) else (axis_name,)
+    mesh, dp = None, False
+    for a in axes:
+        if isinstance(a, RingMesh) and mesh is None:
+            mesh = a
+        elif isinstance(a, str) and a == DP_AXIS and not dp:
+            dp = True
+        else:
+            raise ValueError(
+                f"next_token_loss: unknown axis {a!r} in {axis_name!r}; "
+                f"axes are a RingMesh (the sequence shards) and "
+                f"{DP_AXIS!r} (the engine's ranks), each at most once")
+    return mesh, dp
+
+
+def _ranks_mean(count):
+    """``count`` averaged over the engine's ranks (itself at size 1)."""
+    from horovod_tpu_torch import common
+    from horovod_tpu_torch.torch.mpi_ops import allreduce
+
+    if common.size() == 1:
+        return count
+    return allreduce(count.detach(), average=True,
+                     name="next_token_loss.count")
+
+
 def next_token_loss(logits, targets, mask=None, axis_name=None):
     """Mean cross-entropy of ``logits`` against aligned ``targets``, with
     float32 internals whatever the logits' storage dtype.  With a
     ``mask``, padding is weighted out: sum(loss * mask) / max(count, 1).
 
-    ``axis_name`` (a :class:`~horovod_tpu_torch.parallel.RingMesh`) gives
-    the reference's semantics over the members' sequence shards: each
-    shard's loss is normalised by the global mean count of valid tokens
-    per shard (the ``psum`` of the counts over ``n``), and the shards'
-    losses are averaged (the step's ``pmean``).  Unmasked, that is the
-    mean over all tokens."""
+    ``axis_name`` names the axes the reference's loss reduces its count
+    over: a :class:`~horovod_tpu_torch.parallel.RingMesh` (the members'
+    sequence shards, its ``"sp"``), the string ``"dp"`` (the engine's
+    ranks, data-parallel), or a tuple of both, ``("dp", mesh)`` for the
+    reference's ``("dp", "sp")``.  Under a mesh each shard's loss is
+    normalised by the mean count of valid tokens per shard and the
+    shards' losses are averaged (the step's ``pmean`` over ``sp``); with
+    ``"dp"`` that count is averaged across ranks too (one allreduce named
+    ``next_token_loss.count``, no gradient through it), so the step's
+    average over ranks is the global weighted mean however the ranks'
+    masks differ.  Unmasked, nothing crosses processes: the mean over
+    this rank's tokens."""
+    mesh, dp = _loss_axes(axis_name)
     loss = F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]),
                            targets.reshape(-1), reduction="none")
     loss = loss.reshape(targets.shape)
-    if axis_name is None:
-        if mask is None:
-            return loss.mean()
-        mask = mask.to(loss.dtype)
-        return (loss * mask).sum() / torch.clamp(mask.sum(), min=1.0)
-    n = axis_name.size
+    if mesh is None and mask is None:
+        return loss.mean()
+    n = 1 if mesh is None else mesh.size
     shards = loss.chunk(n, dim=1)
     if mask is None:
         return torch.stack([x.mean() for x in shards]).mean()
     mask = mask.to(loss.dtype)
-    count = torch.clamp(mask.sum() / n, min=1.0)
+    count = mask.sum() / n
+    if dp:
+        count = _ranks_mean(count)
+    count = torch.clamp(count, min=1.0)
     return torch.stack([(x * m).sum() / count for x, m in
                         zip(shards, mask.chunk(n, dim=1))]).mean()

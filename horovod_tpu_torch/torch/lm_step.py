@@ -17,7 +17,12 @@ rows (``HEADLINE``'s 16 x 1024 per rank), its weights from
 ``torch.Generator().manual_seed(seed + rank)`` and its tokens from
 ``np.random.RandomState(seed + rank)``, and rank 0's parameters and
 optimizer state are broadcast before the first step.  At size 1 that is
-the single-process path with seed ``seed``.
+the single-process path with seed ``seed``.  The ring path runs the same
+way across processes (dp x sp, the reference's ``("dp", "sp")`` mesh):
+every rank holds its own ring of ``members`` on its card and takes
+``batch`` rows of the job's batch; the loss normalises over ``("dp",
+mesh)`` and ``DistributedOptimizer`` averages the members' summed
+gradients over the ranks.  ``RING_HEADLINE`` is what one rank runs.
 
 ``SERVE_HEADLINE`` is the served configuration (``python -m
 horovod_tpu_torch.serving``): the same widths in bf16 with float32 logits
@@ -70,17 +75,24 @@ SERVE_HEADLINE = dict(
 def build_lm_step(device=None, *, vocab_size, d_model, n_layers, n_heads,
                   d_ff, batch, seq, dtype=torch.bfloat16,
                   logits_dtype=torch.bfloat16, seed=0,
-                  members: Optional[int] = None, ring_impl="fused"):
+                  members: Optional[int] = None, ring_impl="fused",
+                  fused_loss: bool = False):
     """``(model, step, data)``: ``step(data)`` is one training step on the
     fixed batch ``data = (inputs, targets)`` of this rank, shape (batch,
-    seq); ``hvd.init()`` comes first.  ``device=None`` means the CUDA
-    device (see ``resolve_device``).  With ``members``, the model is
-    sequence-parallel over a ring of that many members (``model.seq_axis``,
-    a ``RingMesh``), K/V travelling as ``ring_impl`` says, and the step is
-    the sequence-parallel one (one process only)."""
+    seq); ``step`` also takes ``(inputs, targets, mask)``, a float or bool
+    mask of the valid targets.  ``hvd.init()`` comes first.
+    ``device=None`` means the CUDA device (see ``resolve_device``).  With
+    ``members``, the model is sequence-parallel over a ring of that many
+    members on this rank's device (``model.seq_axis``, a ``RingMesh``),
+    K/V travelling as ``ring_impl`` says, and the step is the
+    sequence-parallel one, at any number of processes (dp x sp).  The loss
+    is ``next_token_loss`` over ``("dp", mesh)``; with ``fused_loss`` it is
+    the model's fused head and loss (``model(inputs, targets=targets)``),
+    which takes neither a ring nor a mask."""
     rank, size = hvd.rank(), hvd.size()
-    if members is not None and size > 1:
-        raise ValueError("the ring path runs in one process")
+    if fused_loss and members is not None:
+        raise ValueError("the fused loss does not run under sequence "
+                         "parallelism")
     mesh = None if members is None else RingMesh(members, device)
     model = TransformerLM(vocab_size=vocab_size, d_model=d_model,
                           n_layers=n_layers, n_heads=n_heads, d_ff=d_ff,
@@ -95,8 +107,15 @@ def build_lm_step(device=None, *, vocab_size, d_model, n_layers, n_heads,
         broadcast_parameters(model.state_dict(), root_rank=0)
         broadcast_optimizer_state(opt, root_rank=0)
 
+    axes = "dp" if mesh is None else ("dp", mesh)
+
     def loss_fn(m, b):
-        return next_token_loss(m(b[0]), b[1], axis_name=mesh)
+        if fused_loss:
+            if len(b) > 2:
+                raise ValueError("the fused loss takes no mask")
+            return m(b[0], targets=b[1])
+        return next_token_loss(m(b[0]), b[1], b[2] if len(b) > 2 else None,
+                               axis_name=axes)
 
     step = build_train_step(loss_fn, opt, model)
     tokens = torch.from_numpy(np.random.RandomState(seed + rank).randint(

@@ -72,7 +72,19 @@ def build_train_step(loss_fn: Callable, optimizer: torch.optim.Optimizer,
     over all tokens of the ring and the gradients are the sum of the
     members' contributions (one parameter set, so autograd sums them); a
     ring kernel that gave up makes its ring op raise in the forward or
-    the backward, so it never reaches the update.
+    the backward, so it never reaches the update.  Across processes
+    (dp x sp: every rank a ring of its own) each rank's gradient is that
+    sum for its own rows and the step averages it over the ranks, so the
+    update follows the mean over ranks of the members' summed
+    contributions to the mean loss: the reference's ``pmean`` over
+    ``("dp", "sp")``.  A masked loss must normalise over both axes
+    (``next_token_loss(..., axis_name=("dp", mesh))``) for that mean to
+    be the job's weighted mean.  A parameter's gradient hook fires once
+    per backward, after the ring op that fed it has joined its member
+    streams into the caller's stream (each ring op is one autograd node
+    and its join synchronizes), so the gradient's copy to the host is
+    ordered after every member's kernels and no host call of the staging
+    lands between two members' launches.
     ``optimizer`` is wrapped in :class:`DistributedOptimizer` unless it
     already is one.  One step runs forward, backward (whose gradient hooks
     enqueue the averages), ``DistributedOptimizer.synchronize``, the

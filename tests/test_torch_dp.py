@@ -4,9 +4,11 @@ horovod_tpu's.
 - Three steps of the port's ``build_train_step`` at np 2 (ranks of the
   port's runner, CPU), each rank on its half of ``test_torch_train.py``'s
   batch, against that file's ``_jax_run(2)``: the JAX ``build_train_step``
-  on a 2-device mesh with the same weights.  Loss rtol 1e-4, final
+  on a 2-device mesh with the same weights.  The same at np 3, each rank
+  on 2 rows of a 6-row batch, against ``_jax_run(3, 6)`` on a (3, 1)
+  mesh.  Loss rtol 1e-4, final
   parameters atol 5e-5 (that file's tolerances: float32 summation order
-  through three Adam steps).  Both ranks end on the same parameters, bit
+  through three Adam steps).  Every rank ends on the same parameters, bit
   for bit.
 - ``DistributedOptimizer(..., backward_passes_per_step=2)`` against
   ``horovod_tpu.torch``'s on the same micro-batches, and
@@ -60,23 +62,27 @@ def _dp_rank(out_dir):
     hvd.shutdown()
 
 
-def test_dp_steps_match_jax_build_train_step(tmp_path):
+def _dp_steps_match_jax(tmp_path, np_, batch):
+    """``np_`` port ranks, each on its ``batch / np_`` rows, against the
+    JAX step on an ``(np_, 1)`` mesh: the same losses and parameters, and
+    every rank's parameters equal bit for bit."""
     from horovod_tpu_torch.models.convert import (from_flax_params,
                                                   to_flax_params)
     from tests import test_torch_train as T
 
-    inp, tgt = T._data()
+    inp, tgt = T._data(batch)
     torch.save({"state": from_flax_params(T._init_params()),
                 "inp": torch.from_numpy(inp).long(),
                 "tgt": torch.from_numpy(tgt).long(),
                 "dims": (T.VOCAB, T.D_MODEL, T.LAYERS, T.HEADS),
                 "steps": T.STEPS}, tmp_path / "init.pt")
-    _launch(functools.partial(_dp_rank, str(tmp_path)), 2)
-    want_losses, want_params = T._jax_run(2)
+    _launch(functools.partial(_dp_rank, str(tmp_path)), np_)
+    want_losses, want_params = T._jax_run(np_, batch)
     want = T._flat(want_params)
-    runs = [torch.load(tmp_path / f"dp{r}.pt") for r in range(2)]
-    for name, v in runs[0]["state"].items():
-        assert torch.equal(_bits(v), _bits(runs[1]["state"][name])), name
+    runs = [torch.load(tmp_path / f"dp{r}.pt") for r in range(np_)]
+    for run in runs[1:]:
+        for name, v in runs[0]["state"].items():
+            assert torch.equal(_bits(v), _bits(run["state"][name])), name
     got_losses = runs[0]["losses"]
     np.testing.assert_allclose(got_losses, want_losses, rtol=1e-4)
     assert got_losses[-1] < got_losses[0]
@@ -84,6 +90,16 @@ def test_dp_steps_match_jax_build_train_step(tmp_path):
     assert set(got) == set(want)
     for name, a in want.items():
         np.testing.assert_allclose(got[name], a, atol=5e-5, err_msg=name)
+
+
+def test_dp_steps_match_jax_build_train_step(tmp_path):
+    _dp_steps_match_jax(tmp_path, 2, 4)
+
+
+def test_dp_steps_at_three_ranks_match_jax_build_train_step(tmp_path):
+    """np 3 against a (3, 1) mesh, on a batch of 6 rows that 3 divides:
+    the engine's ring at an odd size averages the same gradients."""
+    _dp_steps_match_jax(tmp_path, 3, 6)
 
 
 def _mlp(seed):

@@ -41,9 +41,9 @@ VOCAB, D_MODEL, LAYERS, HEADS = 64, 32, 2, 4
 BATCH, SEQ, STEPS = 4, 32, 3
 
 
-def _data():
+def _data(batch=BATCH):
     rng = np.random.RandomState(5)
-    tokens = rng.randint(0, VOCAB, (BATCH, SEQ + 1)).astype(np.int32)
+    tokens = rng.randint(0, VOCAB, (batch, SEQ + 1)).astype(np.int32)
     return tokens[:, :-1], tokens[:, 1:]
 
 
@@ -59,8 +59,8 @@ def _init_params():
         jax.random.PRNGKey(1), jnp.asarray(inp))["params"])
 
 
-def _jax_run(n_devices):
-    inp, tgt = _data()
+def _jax_run(n_devices, batch=BATCH):
+    inp, tgt = _data(batch)
     model = _flax_model(seq_axis="sp")
     mesh = Mesh(np.array(jax.devices()[:n_devices]).reshape(n_devices, 1),
                 ("dp", "sp"))

@@ -3,7 +3,7 @@ average must fail it.
 
 Run from the repository root on a machine with one CUDA GPU::
 
-    python3 tools/torch_averaging_control.py
+    python3 tools/torch_averaging_control.py [--ring]
 
 The averaging check (phase ``train_dp``) runs 3 data-parallel steps of the
 LM headline on 2 ranks sharing the card, rank r on rows [8r, 8r+8) of one
@@ -16,10 +16,20 @@ Here the same 2-rank run is repeated with the gradient allreduce of
   every rank steps on half of rank 0's gradient;
 * ``sum``        — the ranks' gradients summed, not averaged.
 
+With ``--ring`` the same for ``ring_dp``'s averaging check (2 ranks,
+each a fused ring of 4 members on rows [2r, 2r+2) of one 4-row batch
+whose rank-1 rows hold only their first 512 targets, against the size-1
+ring on all 4 rows):
+
+* ``sound``     — unpatched;
+* ``own_count`` — each rank normalises its masked loss by its own count
+  of valid targets per shard, not the count averaged over the ranks
+  (``next_token_loss``'s ``("dp", mesh)`` reduced to the mesh alone).
+
 Prints one JSON object: the size-1 reference, the check's tolerance and,
 per variant, the losses, their distance from the reference and whether
-the check would fail it.  A replica digest cannot see either fault: the
-replicas stay identical.
+the check would fail it.  A replica digest cannot see any of these
+faults: the replicas stay identical.
 """
 
 import json
@@ -33,6 +43,7 @@ import chip_smoke as S  # noqa: E402  (exits without a CUDA device)
 import horovod_tpu_torch.torch as hvdt  # noqa: E402
 
 VARIANTS = ("sound", "rank0_half", "sum")
+RING_VARIANTS = ("sound", "own_count")
 
 
 def _patch(variant):
@@ -52,22 +63,37 @@ def _patch(variant):
                                  "sum": summed}[variant]
 
 
+def _patch_ring(variant):
+    """``own_count``: the count of valid targets is not averaged over the
+    ranks, so each rank divides by its own."""
+    from horovod_tpu_torch.models import transformer
+
+    if variant == "own_count":
+        transformer._ranks_mean = lambda count: count
+
+
 def rank(variant):
     hvdt.init(device="cuda:0")
-    _patch(variant)
-    r, n, batch = hvdt.rank(), hvdt.size(), S.HEADLINE["batch"]
-    S.rank_result(rank=r, losses=S.averaging_losses(
+    r, n = hvdt.rank(), hvdt.size()
+    if variant.startswith("ring:"):
+        _patch_ring(variant[len("ring:"):])
+        batch, losses_of = S.RING_HEADLINE["batch"], S.ring_averaging_losses
+    else:
+        _patch(variant)
+        batch, losses_of = S.HEADLINE["batch"], S.averaging_losses
+    S.rank_result(rank=r, losses=losses_of(
         slice(r * batch // n, (r + 1) * batch // n)))
     hvdt.shutdown()
 
 
-def main():
-    refs, tol = S.averaging_reference()
+def main(ring):
+    refs, tol = (S.ring_averaging_reference() if ring
+                 else S.averaging_reference())
     out = {"nvidia_smi": S.smi_line(), "size1": refs, "tolerance": tol,
            "variants": {}}
-    for variant in VARIANTS:
-        losses = S.run_ranks(variant, timeout=300, script=__file__)[0][
-            "losses"]
+    for variant in RING_VARIANTS if ring else VARIANTS:
+        losses = S.run_ranks("ring:" + variant if ring else variant,
+                             timeout=300, script=__file__)[0]["losses"]
         err = [abs(a - b) for a, b in zip(losses, refs[0])]
         out["variants"][variant] = {
             "losses": losses, "abs_err": err,
@@ -79,4 +105,4 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank"]:
         rank(sys.argv[2])
     else:
-        main()
+        main(sys.argv[1:2] == ["--ring"])
