@@ -184,6 +184,25 @@ Phases, one JSON line each:
    ``serving/engine.py`` from the sharded checkpoint and from the live
    parameters (rank 0's ``state_dict`` through ``torch.save``): the
    tokens equal.  All under a temporary directory, deleted after.
+13b. ``elastic`` — 4 ranks of ``HEADLINE`` on this card under the
+   elastic launcher (``run_membership``, min-np 2, no standby), each
+   through ``DistributedOptimizer(AdamW)`` with the state plane armed,
+   ``ElasticState(model=model.state_dict(), opt=opt.state_dict(),
+   step=0)`` under ``run_elastic`` and a snapshot after each of 8 steps;
+   ``HVD_TPU_FAULT_SPEC`` crashes slot 2 at a gradient allreduce of step
+   4's backward (the op index counted from the structure,
+   ``elastic_ops``, and checked against the lost rank's own count).
+   Gates: slot 2 exits 43, the others 0; every survivor at size 3, epoch
+   1, ranks lost [2], dense ranks 0-2; a peer restore and no root
+   broadcast on each; the state each survivor holds on re-entering is
+   bit-equal (``device_digest``: integer sums of the bit patterns, on
+   the card) to rank 0's at the fence step and differs from its step
+   before; equal final states; finite losses; K1 and B2 launched on every
+   rank.  Printed: the capture's ms on the step path and the background
+   write's per snapshot, the shard bytes per rank, restore ms, the ms
+   from the crash (the launcher's report) and from each survivor's
+   failed step to the end of its first step after the restore, step ms
+   at 4 and at 3 ranks, peak memory per rank, the phase's seconds.
 14. ``pipeline`` — the pipeline path (``PIPE_HEADLINE``: the main path's
    widths, 2 stages of 4 layers, 4 micro-batches of 4 x 1024) on 2 stage
    ranks of the port's runner sharing this card, through
@@ -277,8 +296,8 @@ dims 256 (bf16 and f32), 288, 512 and 1000; K1 and B2 with their launches per ra
 ``train_dp``, ``pipeline`` and ``pipeline_dp`` and their times at the
 pipeline's micro-batch shape, K1 with its launches on ``serve``), the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  K1
-and B2 carry their launches on ``fused_loss``; K4, K5 and K7 theirs per
-rank on ``ring_dp``.  Any
+and B2 carry their launches on ``fused_loss`` and per rank on
+``elastic``; K4, K5 and K7 theirs per rank on ``ring_dp``.  Any
 failure raises: the script exits non-zero and prints no result line.
 Tolerances (``horovod_tpu_torch/ops/kernel_check.py``, which gives the
 reasons): every element within rtol * (|ref| + rms of its row + rms(ref)
@@ -2594,6 +2613,284 @@ def phase_checkpoint():
              f"differ from the live parameters' {from_live}")
 
 
+# --- the elastic phase: a rank lost mid-training (ROADMAP A.5.1) ---
+
+ELASTIC_RANKS = 4
+ELASTIC_MIN_NP = 2
+ELASTIC_STEPS = 8
+ELASTIC_LOST = 2  # the launch slot that crashes
+ELASTIC_CRASH_STEP = 4  # the step in whose backward it crashes (1-based)
+# Where the job and its ranks run: several ranks share this card.
+ELASTIC_DEVICE = "cuda:0"
+
+
+def elastic_ops(cfg):
+    """``(collectives before the first step, collectives a step, trained
+    parameters)`` of one rank of ``rank_elastic`` on the LM ``cfg``, in
+    the order the fault injector counts them, from the structure alone
+    (a copy of the model at ``cfg``'s depth and tiny widths on the CPU,
+    its AdamW stepped once, so the optimizer's own ``state_dict`` keys
+    of this PyTorch count): ``build_lm_step``'s broadcasts of every
+    ``state_dict`` entry and of every tensor and scalar of the optimizer
+    state; ``run_elastic``'s entry (the state plane's holdings and
+    endpoint allgathers, then one broadcast per leaf of the state); then
+    per step one allreduce per parameter and the loss's."""
+    from horovod_tpu_torch.state import flatten_tree
+
+    tiny = TransformerLM(vocab_size=64, d_model=cfg["n_heads"] * 4,
+                         n_layers=cfg["n_layers"], n_heads=cfg["n_heads"],
+                         d_ff=32, dtype=torch.float32, device="cpu",
+                         generator=torch.Generator().manual_seed(0))
+    params = [p for p in tiny.parameters() if p.requires_grad]
+    opt = torch.optim.AdamW(params, lr=1e-3, weight_decay=1e-4)
+    for p in params:
+        p.grad = torch.zeros_like(p)
+    opt.step()
+    sd, osd = tiny.state_dict(), opt.state_dict()
+
+    def sent(v):
+        return torch.is_tensor(v) or isinstance(v, (bool, int, float))
+
+    opt_bcast = sum(sent(v) for st in osd["state"].values()
+                    for v in st.values())
+    opt_bcast += sum(sent(v) for g in osd["param_groups"]
+                     for k, v in g.items() if k != "params")
+    leaves = (len(flatten_tree(sd)[0]) + len(flatten_tree(osd)[0])
+              + 1)  # the step counter
+    before = (sum(v is not None for v in sd.values()) + opt_bcast + 2
+              + leaves)
+    return before, len(params) + 1, len(params)
+
+
+def device_digest(tree):
+    """One digest of a state tree, computed where its tensors live: per
+    tensor its dtype, shape and three integer sums of its bit patterns
+    (plain, position-weighted twice), wrapping in int64, so order-free
+    and exact."""
+    from horovod_tpu_torch.state import flatten_tree
+
+    leaves, _ = flatten_tree(tree)
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    h = hashlib.sha256()
+    for x in leaves:
+        if not torch.is_tensor(x):
+            h.update(repr(x).encode())
+            continue
+        t = x.detach().contiguous().reshape(-1)
+        bits = t.view(ints[t.element_size()]).to(torch.int64)
+        w = torch.arange(1, bits.numel() + 1, device=bits.device,
+                         dtype=torch.int64)
+        sums = torch.stack([bits.sum(), (bits * w).sum(),
+                            (bits * (w % 65521)).sum()]).tolist()
+        h.update(f"{t.dtype}{tuple(x.shape)}{sums}".encode())
+    return h.hexdigest()
+
+
+def rank_elastic():
+    """One rank of ``elastic``: ``HEADLINE`` under ``run_elastic`` with
+    the state plane armed and a snapshot every step; its record of every
+    step, the digests of its live state, and the plane's times."""
+    hvdt.init(device=ELASTIC_DEVICE)
+    dev = torch.device(ELASTIC_DEVICE)
+    slot = int(os.environ["HVD_TPU_DEVICE_SLOT"])
+    model, step, data = build_lm_step(**HEADLINE, seed=100,
+                                      device=ELASTIC_DEVICE)
+    opt = step.optimizer
+    plane = hvdt.state.arm()
+    state = hvdt.ElasticState(model=model.state_dict(),
+                              opt=opt.state_dict(), step=0)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    A.reset_launches()
+
+    def digest():
+        return device_digest({"model": model.state_dict(),
+                              "opt": opt.state_dict()})
+
+    rec = {"slot": slot, "entries": [], "steps": [], "digests": {},
+           "fail_t": None}
+
+    def train(state):
+        epoch = hvdt.membership_epoch()
+        rec["entries"].append({"epoch": epoch, "step": state.step,
+                               "size": hvdt.size(), "digest": digest(),
+                               "t": time.time()})
+        while state.step < ELASTIC_STEPS:
+            # The fault injector's count (it counts on the rank it arms).
+            print("SEQ", state.step + 1, hvd_common._collective_seq,
+                  json.dumps(A.launches), flush=True)
+            t0 = time.perf_counter()
+            try:
+                loss = step(data).item()
+            except hvdt.HorovodInternalError:
+                rec["fail_t"] = time.time()
+                raise
+            state.step += 1
+            rec["steps"].append({
+                "epoch": epoch, "step": state.step, "size": hvdt.size(),
+                "ms": (time.perf_counter() - t0) * 1e3, "loss": loss,
+                "t": time.time()})
+            rec["digests"][f"{epoch}.{state.step}"] = digest()
+            plane.snapshot(state)
+        return digest()
+
+    final = hvdt.run_elastic(train, state)
+    plane.wait(120.0)
+    snap = hvd_common.metrics_snapshot()
+    peak = (torch.cuda.max_memory_allocated() if dev.type == "cuda"
+            else 0)
+    rank_result(rank=hvdt.rank(), size=hvdt.size(), final=final,
+                membership=snap["membership"], state=snap["state"],
+                last_restore=plane.last_restore,
+                restore_ms=[x * 1e3 for x in plane.restore_sec],
+                capture_ms=[x * 1e3 for x in plane.capture_sec],
+                write_ms=[x * 1e3 for x in plane._snapshotter.write_sec],
+                launches=dict(A.launches), max_memory_allocated=peak, **rec)
+    hvdt.shutdown()
+
+
+def phase_elastic(script=__file__):
+    """``elastic``: 4 ranks on this card under ``run_membership``, rank 2
+    crashed by ``HVD_TPU_FAULT_SPEC`` in the backward of step 4 of 8;
+    the survivors reshape to 3, restore from the state plane's snapshots
+    and peer copies in place, and train on.  Returns the K1 and B2
+    launches of every rank."""
+    from horovod_tpu_torch.common.faults import CRASH_EXIT_CODE
+    from horovod_tpu_torch.runner import membership_succeeded, run_membership
+
+    t_phase = time.perf_counter()
+    before, per_step, n_params = elastic_ops(HEADLINE)
+    seq_crash = before + (ELASTIC_CRASH_STEP - 1) * per_step
+    crash_op = seq_crash + n_params // 2  # mid-backward: handles in flight
+    env = dict(os.environ)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    env.update(HVD_TPU_FAULT_SPEC=f"rank={ELASTIC_LOST}:crash@op={crash_op}",
+               HVD_TPU_COLLECTIVE_TIMEOUT_SEC="120",
+               HVD_TPU_KILL_GRACE_SEC="30")
+    events = []
+    results = run_membership(
+        [sys.executable, os.path.abspath(script), "--rank", "elastic"],
+        ELASTIC_RANKS, min_np=ELASTIC_MIN_NP, max_np=ELASTIC_RANKS,
+        max_rejoins=0, env=env, timeout=900, capture=True,
+        report=lambda msg: events.append((time.time(), msg)))
+    os.makedirs(OUT_DIR, exist_ok=True)
+    for r in results:
+        with open(os.path.join(OUT_DIR, f"elastic_rank{r.rank}.log"),
+                  "w") as f:
+            f.write(r.stdout + "\n--- stderr ---\n" + r.stderr)
+    lost = results[ELASTIC_LOST]
+    if lost.returncode != CRASH_EXIT_CODE or not membership_succeeded(
+            results, ELASTIC_MIN_NP) or any(
+            r.returncode != 0 for r in results if r.rank != ELASTIC_LOST):
+        fail("elastic: exits " + ", ".join(
+            f"slot {r.rank}: {r.returncode}" for r in results)
+            + "\n" + "\n".join(r.stderr[-3000:] for r in results
+                                if r.returncode != 0))
+    seqs = {}
+    for line in lost.stdout.splitlines():
+        if line.startswith("SEQ "):
+            _, n, seq, launched = line.split(" ", 3)
+            seqs[int(n)] = (int(seq), json.loads(launched))
+    fired = [ln for ln in lost.stderr.splitlines() if "FAULT INJECTION" in ln]
+    res = []
+    for r in results:
+        if r.rank != ELASTIC_LOST:
+            lines = [ln for ln in r.stdout.splitlines()
+                     if ln.startswith("RESULT ")]
+            if not lines:
+                fail(f"elastic: slot {r.rank} printed no result")
+            res.append(json.loads(lines[-1][len("RESULT "):]))
+    res.sort(key=lambda x: x["rank"])
+    crash_t = next((t for t, m in events
+                    if f"rank {ELASTIC_LOST} exited" in m), None)
+    x0 = res[0]
+    fence = x0["last_restore"]["fence_step"] if x0["last_restore"] else None
+    first_after = [min((s["t"] for s in x["steps"] if s["epoch"] == 1),
+                       default=None) for x in res]
+    step_ms = {e: [statistics.median([s["ms"] for s in x["steps"]
+                                      if s["epoch"] == e][1:] or [0.0])
+                   for x in res] for e in (0, 1)}
+    per_rank = {x["slot"]: x["launches"] for x in res}
+    per_rank[ELASTIC_LOST] = seqs[max(seqs)][1] if seqs else {}
+    emit("elastic", nvidia_smi=smi_line(), ranks=ELASTIC_RANKS,
+         min_np=ELASTIC_MIN_NP, steps=ELASTIC_STEPS,
+         fault_spec=env["HVD_TPU_FAULT_SPEC"],
+         ops_before_first_step=before, ops_per_step=per_step,
+         lost_rank_seq={n: v[0] for n, v in sorted(seqs.items())},
+         fired=fired, exits={r.rank: r.returncode for r in results},
+         sizes=[x["size"] for x in res],
+         dense_ranks=[x["rank"] for x in res],
+         membership=[x["membership"] for x in res],
+         peer_restores=[x["state"]["peer_restores"] for x in res],
+         root_broadcast_fallbacks=[x["state"]["root_broadcast_fallbacks"]
+                                   for x in res],
+         fence_step=fence, last_restore=[x["last_restore"] for x in res],
+         restore_ms=[x["restore_ms"] for x in res],
+         capture_ms=[x["capture_ms"] for x in res],
+         write_ms=[x["write_ms"] for x in res],
+         shard_bytes=[x["state"]["snapshot_bytes"]
+                      // max(x["state"]["snapshots"], 1) for x in res],
+         crash_to_first_step_ms=[(t - crash_t) * 1e3
+                                 if t and crash_t else None
+                                 for t in first_after],
+         detect_to_first_step_ms=[(t - x["fail_t"]) * 1e3
+                                  if t and x["fail_t"] else None
+                                  for t, x in zip(first_after, res)],
+         step_ms_before=step_ms[0], step_ms_after=step_ms[1],
+         losses=[[s["loss"] for s in x["steps"]] for x in res],
+         max_memory_allocated=[x["max_memory_allocated"] for x in res],
+         launches=per_rank, seconds=time.perf_counter() - t_phase)
+    s0, s1 = seqs.get(ELASTIC_CRASH_STEP), seqs.get(ELASTIC_CRASH_STEP + 1)
+    if (s0 is None or s0[0] != seq_crash or s1 is not None
+            or len(fired) != 1 or "DistributedOptimizer." not in fired[0]):
+        fail(f"elastic: the crash did not land in the backward of step "
+             f"{ELASTIC_CRASH_STEP} (op {crash_op}; the lost rank's "
+             f"counts {seqs}, {fired})")
+    want_lost = [ELASTIC_LOST]
+    for x in res:
+        m = x["membership"]
+        if (x["size"], m["epoch"], m["size"], m["ranks_lost"]) != (
+                ELASTIC_RANKS - 1, 1, ELASTIC_RANKS - 1, want_lost):
+            fail(f"elastic rank {x['rank']}: membership {m}, size "
+                 f"{x['size']}")
+        st = x["state"]
+        if st["peer_restores"] < 1 or st["root_broadcast_fallbacks"]:
+            fail(f"elastic rank {x['rank']}: state {st}")
+        if x["last_restore"] != x0["last_restore"]:
+            fail(f"elastic: restores differ {x['last_restore']} "
+                 f"{x0['last_restore']}")
+        entries = x["entries"]
+        if [(e["epoch"], e["step"]) for e in entries] != [(0, 0),
+                                                          (1, fence)]:
+            fail(f"elastic rank {x['rank']}: entries {entries}")
+        for s in x["steps"]:
+            if not math.isfinite(s["loss"]):
+                fail(f"elastic rank {x['rank']}: loss {s}")
+        for name in ("flash_fwd", "flash_bwd"):
+            if not x["launches"][name]:
+                fail(f"elastic rank {x['rank']}: {name} never launched")
+    if sorted(x["rank"] for x in res) != list(range(ELASTIC_RANKS - 1)):
+        fail(f"elastic: ranks {[x['rank'] for x in res]}")
+    if fence not in (ELASTIC_CRASH_STEP - 2, ELASTIC_CRASH_STEP - 1):
+        fail(f"elastic: fence step {fence}")
+    before_fence = x0["digests"].get(f"0.{fence - 1}",
+                                     x0["entries"][0]["digest"])
+    for x in res:
+        restored = x["entries"][1]["digest"]
+        if restored != x0["digests"][f"0.{fence}"] or \
+                restored == before_fence:
+            fail(f"elastic rank {x['rank']}: the restored state is not "
+                 f"rank 0's at the fence step {fence}")
+    if len({x["final"] for x in res}) != 1:
+        fail("elastic: the survivors' final states differ")
+    if not all(seqs[max(seqs)][1].get(k) for k in ("flash_fwd",
+                                                   "flash_bwd")):
+        fail(f"elastic: the lost rank launched {seqs[max(seqs)][1]}")
+    return per_rank
+
+
 # --- the pipeline phases: stage ranks on this card (ROADMAP A.7) ---
 
 
@@ -3673,6 +3970,7 @@ def main():
     ring_dp_launched = phase_ring_dp()
     phase_timeline(dp_step_ms)
     phase_checkpoint()
+    elastic_launched = phase_elastic()
     pipe_entries, pipe_launched = phase_pipeline()
     pipe_dp_launched = phase_pipeline_dp()
     phase_image_models()
@@ -3701,6 +3999,9 @@ def main():
                 "library_by_backend", "max_abs_err")}}
     entries["flash_fwd"]["launches_serve"] = serve_launched["flash_fwd"]
     for name_ in ("flash_fwd", "flash_bwd"):
+        entries[name_]["launches_elastic_per_rank"] = {
+            slot: x[name_] for slot, x in sorted(elastic_launched.items())}
+    for name_ in ("flash_fwd", "flash_bwd"):
         entries[name_]["launches_fused_loss"] = fused_launched[name_]
     for name_ in ("ring_flash_fwd", "ring_flash_bwd", "phase_closer"):
         entries[name_]["launches_ring_dp_per_rank"] = ring_dp_launched[name_]
@@ -3720,6 +4021,7 @@ def main():
 RANK_PHASES = {"collectives": rank_collectives, "train_dp": rank_train_dp,
                "ring_dp": rank_ring_dp,
                "timeline": rank_timeline, "checkpoint": rank_checkpoint,
+               "elastic": rank_elastic,
                "resnet_dp": rank_resnet_dp, "serve_dp": rank_serve_dp,
                "pipeline": rank_pipeline, "pipeline_dp": rank_pipeline_dp}
 

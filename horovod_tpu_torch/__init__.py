@@ -31,20 +31,31 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
+from horovod_tpu_torch import state  # noqa: F401
 from horovod_tpu_torch.common import (  # noqa: F401
     HorovodInternalError,
+    MembershipChangedError,
     init,
     is_initialized,
     local_rank,
     local_size,
+    membership_ack,
+    membership_epoch,
     rank,
+    restart_epoch,
     shutdown,
     size,
     timeline_enabled,
     trace_marker,
     trace_span,
 )
+from horovod_tpu_torch.common.elastic import (  # noqa: F401
+    ElasticState,
+    run_elastic,
+)
 
-__all__ = ["HorovodInternalError", "init", "shutdown", "is_initialized",
-           "rank", "size", "local_rank", "local_size", "timeline_enabled",
-           "trace_span", "trace_marker"]
+__all__ = ["HorovodInternalError", "MembershipChangedError", "init",
+           "shutdown", "is_initialized", "rank", "size", "local_rank",
+           "local_size", "timeline_enabled", "trace_span", "trace_marker",
+           "ElasticState", "run_elastic", "membership_epoch",
+           "membership_ack", "restart_epoch", "state"]

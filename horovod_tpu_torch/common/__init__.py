@@ -22,9 +22,20 @@ folded in.  ``HVD_TPU_TIMELINE`` (or ``HOROVOD_TIMELINE``; the launcher's
 ``--timeline DIR``) turns on the engine's Chrome-trace timeline
 (``docs/timeline.md``): each collective's ``NEGOTIATE`` and op spans on a
 row of its name, and the application's spans through
-:func:`trace_span` and :func:`trace_marker`.  Not ported: the XLA data
-plane, the fault injector, postmortem and the rest of the metrics glue
-(``config.UNPORTED``).
+:func:`trace_span` and :func:`trace_marker`.
+
+Elastic membership (``HVD_TPU_ELASTIC``, set by the launcher's
+``--min-np``/``--max-np``): when a rank dies the engine reshapes the job
+around the survivors at a tick boundary, the collectives in flight fail
+with the retryable :class:`MembershipChangedError`, ``rank()``/``size()``
+(and ``local_rank()``/``local_size()``: elastic jobs are single-host)
+follow the new dense membership, and :func:`membership_epoch` counts the
+reshapes; ``common/elastic.py``'s ``run_elastic`` acknowledges them
+(:func:`membership_ack`) and resyncs the state.  ``HVD_TPU_FAULT_SPEC``
+arms the process fault injector (``common/faults.py``) at the end of
+``init()``, at the collective entry points below.  Not ported: the XLA
+data plane, the network fault injector, postmortem and the rest of the
+metrics glue (``config.UNPORTED``).
 """
 
 from __future__ import annotations
@@ -44,12 +55,13 @@ from horovod_tpu_torch.common.config import Config
 
 __all__ = [
     "HorovodInternalError", "RanksDownError", "CollectiveTimeoutError",
-    "HorovodNotInitializedError", "init", "shutdown", "is_initialized",
+    "HorovodNotInitializedError", "MembershipChangedError", "init", "shutdown", "is_initialized",
     "rank", "size", "local_rank", "local_size", "resolve_device",
     "Handle", "allreduce_async", "allgather_async", "broadcast_async",
-    "allreduce", "StageGroup", "stage_group",
+    "allreduce", "allgather", "broadcast", "StageGroup", "stage_group",
     "send_async", "recv_async", "send", "recv", "metrics_snapshot",
     "metrics_reset", "timeline_enabled", "trace_span", "trace_marker",
+    "restart_epoch", "membership_epoch", "membership_ack",
 ]
 
 # Op codes shared with the engine (engine/cc/wire.h OpType).
@@ -68,6 +80,7 @@ ST_INVALID = 4
 ST_PENDING = 5
 ST_RANKS_DOWN = 6
 ST_TIMEOUT = 7
+ST_RESHAPE = 8
 
 
 class HorovodInternalError(RuntimeError):
@@ -88,6 +101,20 @@ class CollectiveTimeoutError(HorovodInternalError):
     ``HVD_TPU_COLLECTIVE_TIMEOUT_SEC``."""
 
 
+class MembershipChangedError(HorovodInternalError):
+    """Retryable: the elastic job reshaped (ranks died and the survivors
+    agreed on a new size and ranks at a tick boundary, or a standby was
+    admitted) and this collective was cancelled at the barrier.  No
+    relaunch or checkpoint load is needed: acknowledge the membership and
+    resync the state (``run_elastic`` does both).  ``lost_ranks`` names
+    the dead ranks in the previous membership's numbering (empty when
+    the job only grew)."""
+
+    def __init__(self, message: str, lost_ranks=()):  # noqa: D107
+        super().__init__(message)
+        self.lost_ranks = list(lost_ranks)
+
+
 class HorovodNotInitializedError(HorovodInternalError, ValueError):
     """A call that needs a running engine came before ``hvd.init()`` (or
     after ``hvd.shutdown()``)."""
@@ -98,6 +125,11 @@ _lib_lock = threading.Lock()
 # Called (no arguments) by shutdown() before the engine stops: the torch
 # binding drains its staging thread and drops its pinned buffers there.
 _shutdown_hooks: List[Callable[[], None]] = []
+# The process fault injector (common/faults.py) of this rank and restart
+# epoch, or None, and the index of the next collective it counts.
+_fault_injector = None
+_collective_seq = 0
+_fault_lock = threading.Lock()
 
 
 def _declare(lib, name, restype, *argtypes):
@@ -155,15 +187,28 @@ def _load_lib():
         _declare(lib, "hvd_tpu_timeline_op_end", None, c_str, c_ll)
         _declare(lib, "hvd_tpu_timeline_instant", None, c_str, c_str)
         _declare(lib, "hvd_tpu_timeline_flush", None)
+        for name in ("hvd_tpu_membership_epoch",
+                     "hvd_tpu_membership_reshapes"):
+            _declare(lib, name, c_ll)
+        _declare(lib, "hvd_tpu_membership_info", c_str)
+        _declare(lib, "hvd_tpu_membership_ack", None)
         _lib = lib
         return lib
 
 
 def _pin_device(device, ps: ProcessSet) -> None:
-    """Make the device this process computes on current:
-    ``cuda:local_rank()`` by default, ``device`` where the caller names
-    one (``"cpu"`` for the CPU tests, ``"cuda:N"`` to put several ranks on
-    one card)."""
+    """Make the device this process computes on current, once, at
+    ``init()``: ``cuda:local_rank()`` by default, ``device`` where the
+    caller names one (``"cpu"`` for the CPU tests, ``"cuda:N"`` to put
+    several ranks on one card).
+
+    Under elastic membership the launcher gives every process a device
+    slot (``HVD_TPU_DEVICE_SLOT``): a first-launch rank's is its rank, a
+    standby's the lowest slot no running process holds (its own
+    ``local_rank`` is a placeholder until the coordinator admits it), and
+    the default device is ``cuda:<slot>``.  A reshape renumbers the
+    survivors' ranks but never moves their device: their tensors live
+    there."""
     import torch
 
     if device is None:
@@ -172,12 +217,13 @@ def _pin_device(device, ps: ProcessSet) -> None:
                 "no CUDA device: horovod_tpu_torch runs on a GPU; pass "
                 "device='cpu' to run on the CPU explicitly")
         count = torch.cuda.device_count()
-        if ps.local_rank >= count:
+        slot = int(os.environ.get("HVD_TPU_DEVICE_SLOT") or ps.local_rank)
+        if slot >= count:
             raise HorovodInternalError(
-                f"local_rank {ps.local_rank} has no CUDA device of its own "
+                f"device slot {slot} has no CUDA device of its own "
                 f"({count} visible); name one with "
                 "hvd.init(device='cuda:N') (ranks may share a device)")
-        dev = torch.device("cuda", ps.local_rank)
+        dev = torch.device("cuda", slot)
     else:
         dev = torch.device(device)
         if dev.type == "cuda":
@@ -193,24 +239,26 @@ def _pin_device(device, ps: ProcessSet) -> None:
         torch.cuda.set_device(dev)
 
 
-def _resolve_timeline_path(path: str, rank: int) -> str:
+def _resolve_timeline_path(path: str, rank: int, epoch: int = 0) -> str:
     """This rank's trace file for ``HVD_TPU_TIMELINE``'s forms
     (``docs/timeline.md``): a ``%d`` template or a directory (existing,
     or a path ending in the separator, created here) give one file per
     rank (``rank<N>.json`` in a directory); a plain file path is rank 0's
-    alone.  Own copy of the reference's, whose restart epoch is always 0
-    here: the port has no relaunch (elastic membership is unported)."""
+    alone.  A non-zero restart epoch (``--max-restarts``) lands in the
+    name (``rank<N>.e<E>.json``), so a relaunch cannot truncate the
+    crashed attempt's traces.  Own copy of the reference's."""
     if not path:
         return ""
+    suffix = f".e{epoch}" if epoch else ""
     if "%d" in path:
-        resolved = path.replace("%d", str(rank))
+        resolved = path.replace("%d", str(rank)) + suffix
         parent = os.path.dirname(resolved)
         if parent:
             os.makedirs(parent, exist_ok=True)
         return resolved
     if path.endswith(os.sep) or os.path.isdir(path):
         os.makedirs(path, exist_ok=True)
-        return os.path.join(path, f"rank{rank}.json")
+        return os.path.join(path, f"rank{rank}{suffix}.json")
     return path if rank == 0 else ""
 
 
@@ -223,8 +271,14 @@ def init(device: Optional[str] = None) -> None:
     ``device="cpu"`` pins nothing: the CPU tests, on CPU tensors.  A knob
     of an unported engine plane in the environment raises.  With
     ``HVD_TPU_TIMELINE`` set the engine writes this rank's Chrome trace
-    (:func:`_resolve_timeline_path`).  Idempotent.
+    (:func:`_resolve_timeline_path`; a standby, ``HVD_TPU_REJOIN``,
+    writes none: its rank is a placeholder until it is admitted).  With
+    ``HVD_TPU_ELASTIC`` the engine reshapes the job when a rank dies
+    (:class:`MembershipChangedError`).  ``HVD_TPU_FAULT_SPEC`` arms the
+    fault injector last, so ``op=N`` counts the caller's collectives
+    from 0.  Idempotent.
     """
+    global _fault_injector, _collective_seq
     if is_initialized():
         return
     ps = resolve_process_set()
@@ -239,26 +293,43 @@ def init(device: Optional[str] = None) -> None:
     _pin_device(device, ps)
     lib = _load_lib()
     data = ",".join(ps.data_endpoints) if ps.data_endpoints else ""
-    timeline = _resolve_timeline_path(cfg.timeline_path, ps.rank)
+    timeline = ("" if cfg.rejoin else
+                _resolve_timeline_path(cfg.timeline_path, ps.rank,
+                                       cfg.restart_epoch))
     # Every unported plane at its "off" value: flat ring, no autotuning
-    # (fix values -1), not elastic, no compression, no coordinator tree.
+    # (fix values -1), no compression, no coordinator tree.
     rc = lib.hvd_tpu_init(
         ps.rank, ps.size, ps.local_rank, ps.local_size,
         (ps.coord_endpoint or "").encode(), data.encode(),
         cfg.cycle_time_ms, cfg.fusion_threshold, cfg.stall_warning_sec,
         timeline.encode(), 0, cfg.collective_timeout_sec,
         cfg.effective_cache_capacity,
-        0, 2, 32, -1, -1.0, 0, 1, 0, 0, 1024, -1, 64 * 1024, -1, 0,
+        0, 2, 32, -1, -1.0, int(cfg.elastic or cfg.rejoin), cfg.min_np,
+        int(cfg.rejoin), 0, 1024, -1, 64 * 1024, -1, 0,
         cfg.steady_threshold, cfg.steady_max_period)
     if rc != 0:
         raise HorovodInternalError(
             "engine initialization failed: "
             + lib.hvd_tpu_init_error().decode())
+    if cfg.restart_epoch:
+        metrics.registry.set_restart_epoch(cfg.restart_epoch)
+    from horovod_tpu_torch.common import faults as _faults
+
+    with _fault_lock:
+        _collective_seq = 0  # a re-init after shutdown counts from 0
+    _fault_injector = _faults.from_env(ps.rank)
     atexit.register(shutdown)
 
 
 def shutdown() -> None:
-    """Stop the engine.  Idempotent, and a no-op before ``init()``."""
+    """Stop the engine.  Idempotent, and a no-op before ``init()``.  The
+    armed state plane (``horovod_tpu_torch.state.arm``) lives as long as
+    the engine: it is disarmed first."""
+    global _fault_injector
+    _fault_injector = None
+    from horovod_tpu_torch import state as _state
+
+    _state.disarm()
     for hook in list(_shutdown_hooks):
         hook()
     if _lib is not None and _lib.hvd_tpu_initialized():
@@ -276,6 +347,31 @@ def _checked_lib():
         raise HorovodNotInitializedError(
             "horovod_tpu_torch has not been initialized; call hvd.init()")
     return _lib
+
+
+def restart_epoch() -> int:
+    """The launcher's relaunch counter (``--max-restarts``): 0 on the
+    first run, +1 per restart (``HVD_TPU_RESTART_EPOCH``).  Usable before
+    ``init()``."""
+    return int(os.environ.get("HVD_TPU_RESTART_EPOCH") or 0)
+
+
+def membership_epoch() -> int:
+    """The elastic membership's epoch in this engine's lifetime: 0 until
+    the first reshape, +1 per reshape (shrink or grow); 0 before
+    ``init()``."""
+    if _lib is None:
+        return 0
+    return int(_lib.hvd_tpu_membership_epoch())
+
+
+def membership_ack() -> None:
+    """Acknowledge the latest reshape: the engine refuses new collectives
+    after one until every rank is about to re-enter agreement from a
+    synchronized point, which this call says.  ``run_elastic`` calls it
+    (then resyncs the state)."""
+    if _lib is not None:
+        _lib.hvd_tpu_membership_ack()
 
 
 def rank() -> int:
@@ -340,15 +436,39 @@ def _sync_engine_p2p() -> None:
         "group_ops": group_ops, "channels": channels})
 
 
+def _sync_engine_membership() -> None:
+    """Mirror the engine's elastic membership into the registry's
+    ``membership`` section (epoch, size, reshapes, ranks lost and
+    joined).  A state copy, so idempotent."""
+    if _lib is None:
+        return
+    info = _lib.hvd_tpu_membership_info().decode()
+    parts = (info.split("|") + ["", "", "", ""])[:4]
+    try:
+        epoch, size_now = int(parts[0]), int(parts[1])
+    except ValueError:
+        return
+    metrics.registry.set_membership({
+        "epoch": epoch,
+        "size": size_now,
+        "reshapes": int(_lib.hvd_tpu_membership_reshapes()),
+        "ranks_lost": [int(tok) for tok in parts[2].split(",") if tok],
+        "ranks_joined": [int(tok) for tok in parts[3].split(",") if tok],
+    })
+
+
 def metrics_snapshot() -> dict:
     """The registry as a plain nested dict: ``cache`` (the engine's
     negotiation response cache: hits, misses, evictions, size), ``p2p``
     (the point-to-point plane: sends, recvs, bytes out and in, matched,
     unmatched, group ops, channels), ``serving`` (request lifecycle,
-    occupancy, KV pool, tenants) and ``histograms``.  Callable before
-    ``init()``."""
+    occupancy, KV pool, tenants), ``faults`` (injected faults by action,
+    the restart epoch), ``membership`` (the elastic epoch, size,
+    reshapes, ranks lost and joined), ``state`` (the state plane and the
+    checkpoints) and ``histograms``.  Callable before ``init()``."""
     _sync_engine_cache()
     _sync_engine_p2p()
+    _sync_engine_membership()
     return metrics.registry.snapshot()
 
 
@@ -480,6 +600,9 @@ def _status_error(code: int, msg: str, name: str) -> Exception:
         return RanksDownError(prefix + msg, ranks=_parse_down_ranks(msg))
     if code == ST_TIMEOUT:
         return CollectiveTimeoutError(prefix + msg)
+    if code == ST_RESHAPE:
+        return MembershipChangedError(prefix + msg,
+                                      lost_ranks=_parse_down_ranks(msg))
     return HorovodInternalError(prefix + (msg or f"status {code}"))
 
 
@@ -529,6 +652,20 @@ def _dims(shape):
     return (ctypes.c_longlong * len(shape))(*shape)
 
 
+def _fault_hook(name: str) -> None:
+    """The fault injector's collective boundary (``common/faults.py``):
+    called on the caller's thread for every submitted collective, in
+    program order; one ``None`` check when no spec is armed, and the
+    index advances only while one is."""
+    global _collective_seq
+    if _fault_injector is None:
+        return
+    with _fault_lock:
+        idx = _collective_seq
+        _collective_seq += 1
+    _fault_injector.on_collective(idx, name)
+
+
 def allreduce_async(tensor, average: bool = True, name: Optional[str] = None,
                     out=None, group: Optional["StageGroup"] = None) -> Handle:
     """Sum (or mean) across ranks of a contiguous CPU tensor into ``out``
@@ -537,18 +674,27 @@ def allreduce_async(tensor, average: bool = True, name: Optional[str] = None,
     data-parallel reduction inside one pipeline stage.  The coordinator
     checks that every announcing rank lists the same group and fails a
     mismatch with a typed ``ValueError``."""
+    _check_host(tensor)
+    if out is not None:
+        _check_out(out, tensor)
+    name = name or _auto_name("allreduce" if group is None
+                              else "group_allreduce")
+    _fault_hook(name)
+    return _allreduce_async(tensor, average, name, out, group)
+
+
+def _allreduce_async(tensor, average: bool, name: str, out,
+                     group: Optional["StageGroup"]) -> Handle:
+    """:func:`allreduce_async` past its checks and the fault hook (the
+    CUDA route's staging thread enqueues here: its hook fired on the
+    caller's thread)."""
     import torch
 
-    _check_host(tensor)
     if out is None:
         out = torch.empty_like(tensor)
-    else:
-        _check_out(out, tensor)
     if group is None:
-        return _enqueue(OP_ALLREDUCE, tensor, out,
-                        name or _auto_name("allreduce"), -1, average)
+        return _enqueue(OP_ALLREDUCE, tensor, out, name, -1, average)
     lib = _checked_lib()
-    name = name or _auto_name("group_allreduce")
     members = (ctypes.c_longlong * group.size)(*group.ranks)
     raw = lib.hvd_tpu_enqueue_group(
         name.encode(), tensor.data_ptr(), out.data_ptr(),
@@ -566,23 +712,43 @@ def allgather_async(tensor, name: Optional[str] = None) -> Handle:
     _check_host(tensor)
     if tensor.dim() == 0:
         raise ValueError("allgather requires tensors of rank >= 1")
-    return _enqueue(OP_ALLGATHER, tensor, None,
-                    name or _auto_name("allgather"), -1, False)
+    name = name or _auto_name("allgather")
+    _fault_hook(name)
+    return _allgather_async(tensor, name)
+
+
+def _allgather_async(tensor, name: str) -> Handle:
+    """:func:`allgather_async` past its checks and the fault hook."""
+    return _enqueue(OP_ALLGATHER, tensor, None, name, -1, False)
 
 
 def broadcast_async(tensor, root_rank: int, name: Optional[str] = None,
                     out=None) -> Handle:
     """``root_rank``'s contiguous CPU tensor on every rank, into ``out``
     (a new tensor by default; ``out`` may be ``tensor`` itself)."""
+    _check_host(tensor)
+    if out is not None:
+        _check_out(out, tensor)
+    name = name or _auto_name("broadcast")
+    _fault_hook(name)
+    return _broadcast_async(tensor, root_rank, name, out)
+
+
+def _broadcast_async(tensor, root_rank: int, name: str, out) -> Handle:
+    """:func:`broadcast_async` past its checks and the fault hook."""
     import torch
 
-    _check_host(tensor)
     if out is None:
         out = torch.empty_like(tensor)
-    else:
-        _check_out(out, tensor)
-    return _enqueue(OP_BROADCAST, tensor, out, name or _auto_name("broadcast"),
-                    root_rank, False)
+    return _enqueue(OP_BROADCAST, tensor, out, name, root_rank, False)
+
+
+def allgather(tensor, name: Optional[str] = None):
+    return allgather_async(tensor, name).wait()
+
+
+def broadcast(tensor, root_rank: int, name: Optional[str] = None, out=None):
+    return broadcast_async(tensor, root_rank, name, out=out).wait()
 
 
 
@@ -652,6 +818,7 @@ def _enqueue_p2p(op: int, tensor, peer: int, tag: int,
         raise ValueError("p2p peer must be a different rank")
     if tag < 0:
         raise ValueError(f"p2p tag {tag} must be non-negative")
+    _fault_hook(wire_name)
     ptr = tensor.data_ptr()
     raw = lib.hvd_tpu_enqueue_p2p(
         op, wire_name.encode(), ptr if op == OP_SEND else None,

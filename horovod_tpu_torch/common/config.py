@@ -4,15 +4,17 @@ Own copy of ``horovod_tpu/common/config.py`` (``Config.from_env``),
 trimmed to the knobs the port passes to ``hvd_tpu_init``: the cycle time,
 the fusion threshold, the stall warning, the timeline path
 (``HVD_TPU_TIMELINE``, resolved per rank by ``common._resolve_timeline_path``),
-the collective timeout, the response cache and the steady state.  The
-reference's ``HOROVOD_*`` spellings are honoured beside the ``HVD_TPU_*``
-ones, the new names winning.
+the collective timeout, the response cache and the steady state, elastic
+membership (``HVD_TPU_ELASTIC``, ``HVD_TPU_MIN_NP``, ``HVD_TPU_REJOIN``,
+and ``HVD_TPU_RESTART_EPOCH``, which the engine also reads itself) and
+the process fault injector (``HVD_TPU_FAULT_SPEC``, ``common/faults.py``).
+The reference's ``HOROVOD_*`` spellings are honoured beside the
+``HVD_TPU_*`` ones, the new names winning.
 
-The engine's other planes have no port yet: elastic membership, wire
-compression, autotuning, the hierarchical allreduce (and the
-shared-memory transport that rides on it), the coordinator tree, the
-metrics file and monitor, postmortem dumps, fault injection and the XLA
-data plane (``HVD_TPU_METRICS`` is honoured as far
+The engine's other planes have no port yet: wire compression,
+autotuning, the hierarchical allreduce (and the shared-memory transport
+that rides on it), the coordinator tree, the metrics file and monitor,
+postmortem dumps, the network fault injector and the XLA data plane (``HVD_TPU_METRICS`` is honoured as far
 as the port's registry goes: ``common/metrics.py``).  The port passes
 each one's "off" value to the engine,
 and :meth:`Config.unported_requests` names every variable of the
@@ -34,12 +36,10 @@ DEFAULT_CYCLE_TIME_MS = 5.0
 DEFAULT_STALL_WARNING_SEC = 60.0
 
 # (plane, the variables that ask for it).  The engine reads some of them
-# itself (``getenv`` in ``engine/cc/engine.cc``): the restart epoch, the
-# shared-memory transport, the flight recorder, link statistics, the
-# anomaly detector and the network fault injector.
+# itself (``getenv`` in ``engine/cc/engine.cc``): the shared-memory
+# transport, the flight recorder, link statistics, the anomaly detector
+# and the network fault injector.
 UNPORTED = (
-    ("elastic membership", ("HVD_TPU_ELASTIC", "HVD_TPU_REJOIN",
-                            "HVD_TPU_RESTART_EPOCH")),
     ("wire compression", ("HVD_TPU_COMPRESSION",)),
     ("autotuning", ("HVD_TPU_AUTOTUNE", "HVD_TPU_AUTOTUNE_FIX")),
     ("hierarchical allreduce", ("HVD_TPU_HIERARCHICAL_ALLREDUCE",
@@ -52,13 +52,16 @@ UNPORTED = (
                  "HVD_TPU_MONITOR_PORT", "HVD_TPU_LINK_STATS",
                  "HVD_TPU_ANOMALY_SIGMA", "HVD_TPU_ANOMALY_INTERVAL_MS")),
     ("postmortem dumps", ("HVD_TPU_POSTMORTEM_DIR", "HVD_TPU_FLIGHT_EVENTS")),
-    ("fault injection", ("HVD_TPU_FAULT_SPEC", "HVD_TPU_NET_FAULT_SPEC")),
+    ("fault injection", ("HVD_TPU_NET_FAULT_SPEC",)),
     ("XLA data plane", ("HVD_TPU_XLA_DATA_PLANE", "HOROVOD_XLA_DATA_PLANE")),
 )
 # The other variables the engine reads itself, which the port supports as
 # the reference does: the data plane's heartbeat failure detector
-# (``HVD_TPU_HEARTBEAT_MS``, 0 turns it off; ``HVD_TPU_HEARTBEAT_MISS``).
-ENGINE_SUPPORTED = ("HVD_TPU_HEARTBEAT_MS", "HVD_TPU_HEARTBEAT_MISS")
+# (``HVD_TPU_HEARTBEAT_MS``, 0 turns it off; ``HVD_TPU_HEARTBEAT_MISS``)
+# and the restart epoch (which names the shared-memory segment of a
+# relaunched job: read, harmless while that transport is unported).
+ENGINE_SUPPORTED = ("HVD_TPU_HEARTBEAT_MS", "HVD_TPU_HEARTBEAT_MISS",
+                    "HVD_TPU_RESTART_EPOCH")
 _OFF = ("", "0", "false", "no", "off", "none")
 
 
@@ -92,6 +95,19 @@ class Config:
     steady_max_period: int = 256
     # HVD_TPU_METRICS: the registry's gated histogram (common/metrics.py).
     metrics: bool = False
+    # The process fault injector's spec (common/faults.py), e.g.
+    # "rank=1:crash@op=12; rank=2:hang@op=5".
+    fault_spec: str = ""
+    # The launcher's relaunch counter (--max-restarts): 0 on the first
+    # run.  Gates fault clauses without epoch= to the first run.
+    restart_epoch: int = 0
+    # Elastic membership (HVD_TPU_ELASTIC=1 from the launcher's
+    # --min-np/--max-np): a rank's death reshapes the job around the
+    # survivors while at least min_np remain; HVD_TPU_REJOIN=1 marks a
+    # standby that the coordinator admits at the next reshape barrier.
+    elastic: bool = False
+    min_np: int = 1
+    rejoin: bool = False
 
     @property
     def effective_cache_capacity(self) -> int:
@@ -135,4 +151,10 @@ class Config:
             steady_max_period=int(os.environ.get(
                 "HVD_TPU_STEADY_MAX_PERIOD") or 256),
             metrics=_flag(os.environ.get("HVD_TPU_METRICS")),
+            fault_spec=os.environ.get("HVD_TPU_FAULT_SPEC", ""),
+            restart_epoch=int(os.environ.get(
+                "HVD_TPU_RESTART_EPOCH") or 0),
+            elastic=_flag(os.environ.get("HVD_TPU_ELASTIC")),
+            min_np=int(os.environ.get("HVD_TPU_MIN_NP") or 1),
+            rejoin=_flag(os.environ.get("HVD_TPU_REJOIN")),
         )

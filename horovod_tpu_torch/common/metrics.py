@@ -1,13 +1,19 @@
 """The port's metrics registry, trimmed to what the serving plane, the
-point-to-point plane and the checkpoints record.
+point-to-point plane, the checkpoints, elastic membership and the state
+plane record.
 
 Own copy of the serving half of ``horovod_tpu/common/metrics.py``: the
 request-lifecycle counters, decode-step occupancy, KV-pool gauges and
 per-tenant counters (tenant names come from the network, so their number
 is bounded), the serving latency histograms, and the engine's response
 cache and point-to-point counters that ``hvd.metrics_snapshot()`` folds
-in, and the checkpoint lifecycle (``state.ckpt``: saves of each format,
-loads, pruned checkpoints and shard bytes written).  Everything is
+in, the checkpoint lifecycle (``state.ckpt``: saves of each format,
+loads, pruned checkpoints and shard bytes written), the injected faults
+and the restart epoch (``faults``), the engine's membership mirror
+(``membership``: epoch, size, reshapes, ranks lost and joined) and the
+state plane's counters (``state``: armed, snapshots, peer copies,
+restores by source, the step path's blocked and the background's
+overlapped seconds).  Everything is
 recorded whether or not metrics are enabled, as in the reference, except
 the engine's ``step_sec``, which it observes only while ``enabled``
 (``HVD_TPU_METRICS=1``).  The metrics file dump, the Prometheus monitor
@@ -35,11 +41,20 @@ HISTOGRAMS = {
     "serving_token_sec": (LATENCY_BUCKETS,
                           "serving plane: mean per-token latency of "
                           "retired requests (end-to-end / tokens)"),
+    "state_snapshot_sec": (LATENCY_BUCKETS,
+                           "state plane: background serialize + spill + "
+                           "peer push per committed shard snapshot"),
+    "state_restore_sec": (LATENCY_BUCKETS,
+                          "state plane: sharded restore after an elastic "
+                          "reshape (plan + per-shard broadcasts)"),
 }
 
 # Request-lifecycle events: the keys of the snapshot's "serving" section.
 SERVING_EVENTS = ("requests", "admitted", "rejected", "retired", "failed",
-                  "preempted")
+                  "preempted", "reformed")
+
+# Where an elastic resync got the state from (``record_state_restore``).
+STATE_RESTORE_SOURCES = ("peer", "local", "root_broadcast")
 
 # Checkpoint lifecycle events: the keys of the snapshot's "state.ckpt".
 STATE_CKPT_EVENTS = ("sharded_saves", "legacy_saves", "loads", "pruned")
@@ -94,6 +109,19 @@ class MetricsRegistry:
         }
         self._ckpt = {**{e: 0 for e in STATE_CKPT_EVENTS},
                       "shard_bytes": 0}
+        self._faults = {"injected": {}, "restart_epoch": 0}
+        self._membership = {"epoch": 0, "size": 0, "reshapes": 0,
+                            "ranks_lost": [], "ranks_joined": []}
+        self._state = {
+            "armed": False,
+            "snapshots": 0, "snapshot_bytes": 0,
+            "last_snapshot_step": -1,
+            "blocked_sec": 0.0, "async_sec": 0.0,
+            "peer_copies_sent": 0, "peer_bytes_sent": 0,
+            "peer_copies_received": 0, "peer_last_step": -1,
+            "restores": 0, "peer_restores": 0,
+            "root_broadcast_fallbacks": 0,
+        }
         self._hists = {name: Histogram(bounds)
                        for name, (bounds, _) in HISTOGRAMS.items()}
 
@@ -102,7 +130,10 @@ class MetricsRegistry:
 
     def reset(self) -> None:
         with self._lock:
+            epoch = self._faults["restart_epoch"]
             self._init_state()
+            # The restart epoch is the job's identity, not a counter.
+            self._faults["restart_epoch"] = epoch
 
     def observe(self, hist: str, value: float) -> None:
         with self._lock:
@@ -179,6 +210,67 @@ class MetricsRegistry:
             self._ckpt[event] += int(n)
             self._ckpt["shard_bytes"] += int(nbytes)
 
+    def record_fault(self, action: str) -> None:
+        """One injected fault fired (``common/faults.py``)."""
+        with self._lock:
+            self._faults["injected"][action] = (
+                self._faults["injected"].get(action, 0) + 1)
+
+    def set_restart_epoch(self, epoch: int) -> None:
+        with self._lock:
+            self._faults["restart_epoch"] = int(epoch)
+
+    def set_membership(self, state: dict) -> None:
+        """Mirror the engine's elastic membership (a copy, idempotent)."""
+        with self._lock:
+            self._membership = dict(state)
+
+    def set_state_armed(self, armed: bool) -> None:
+        with self._lock:
+            self._state["armed"] = bool(armed)
+
+    def record_state_snapshot(self, step: int, nbytes: int) -> None:
+        """One shard snapshot committed (the background writer)."""
+        with self._lock:
+            self._state["snapshots"] += 1
+            self._state["snapshot_bytes"] += int(nbytes)
+            self._state["last_snapshot_step"] = int(step)
+
+    def set_state_overlap(self, blocked_sec: float,
+                          async_sec: float) -> None:
+        """The snapshotter's totals: seconds the step path waited on the
+        double buffer, seconds the background overlapped with it."""
+        with self._lock:
+            self._state["blocked_sec"] = float(blocked_sec)
+            self._state["async_sec"] = float(async_sec)
+
+    def record_state_peer(self, sent_bytes: Optional[int] = None,
+                          received_step: Optional[int] = None) -> None:
+        """A push to the ring neighbour sent (``sent_bytes``) or a whole
+        copy received from it (``received_step``)."""
+        with self._lock:
+            if sent_bytes is not None:
+                self._state["peer_copies_sent"] += 1
+                self._state["peer_bytes_sent"] += int(sent_bytes)
+            if received_step is not None:
+                self._state["peer_copies_received"] += 1
+                self._state["peer_last_step"] = int(received_step)
+
+    def record_state_restore(self, source: str) -> None:
+        """One elastic resync by its source (:data:`STATE_RESTORE_SOURCES`):
+        ``peer`` (a shard came from a peer copy), ``local`` (the
+        survivors' own snapshots covered every shard), ``root_broadcast``
+        (the plane fell back to the whole state from rank 0)."""
+        if source not in STATE_RESTORE_SOURCES:
+            raise ValueError(f"unknown state restore source {source!r}")
+        with self._lock:
+            if source == "root_broadcast":
+                self._state["root_broadcast_fallbacks"] += 1
+            else:
+                self._state["restores"] += 1
+                if source == "peer":
+                    self._state["peer_restores"] += 1
+
     def snapshot(self) -> dict:
         with self._lock:
             serving = self._serving
@@ -194,7 +286,25 @@ class MetricsRegistry:
                     "tenants": {t: dict(v) for t, v in
                                 serving["tenants"].items()},
                 },
-                "state": {"ckpt": dict(self._ckpt)},
+                "faults": {"injected": dict(self._faults["injected"]),
+                           "restart_epoch": self._faults["restart_epoch"]},
+                "membership": {
+                    **self._membership,
+                    "ranks_lost": list(
+                        self._membership.get("ranks_lost", [])),
+                    "ranks_joined": list(
+                        self._membership.get("ranks_joined", [])),
+                },
+                "state": {
+                    **self._state,
+                    "overlap_ratio": (
+                        self._state["async_sec"]
+                        / (self._state["async_sec"]
+                           + self._state["blocked_sec"])
+                        if self._state["async_sec"]
+                        + self._state["blocked_sec"] > 0 else 1.0),
+                    "ckpt": dict(self._ckpt),
+                },
                 "histograms": {name: h.to_dict()
                                for name, h in self._hists.items()},
             }

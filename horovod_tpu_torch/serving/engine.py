@@ -15,8 +15,12 @@ names the CPU): the paged gather, the decode forward, the in-place
 scatter and the greedy argmax.  A bulk prefill is one full forward of the
 prompt, whose attention on the card is the flash forward kernel (K1).  A
 fatal collective error fails every in-flight request typed, never hangs.
-Not ported: the elastic reshape's recovery (``MembershipChangedError``)
-and the timeline markers at retirement.
+An elastic reshape (``--min-np``) that cancels the plan's broadcast or a
+step's own broadcast (``MembershipChangedError``) is acknowledged and the
+step planned again (``Scheduler.reform``): it never ran anywhere, or its
+page writes repeat the same values at the same positions, and the
+scheduler advances only in ``complete_step``.  Not ported: the timeline
+markers at retirement.
 """
 
 from __future__ import annotations
@@ -310,7 +314,14 @@ class ServingEngine:
                        else sched.pack_control(cfg, sched.OP_IDLE))
             else:
                 buf = np.zeros(plan_shape, np.int32)
-            wire = self._broadcast_plan(buf)
+            try:
+                wire = self._broadcast_plan(buf)
+            except _common.MembershipChangedError:
+                # A reshape mid-decode: the step never ran; plan again.
+                _common.membership_ack()
+                if rank0 and self.scheduler:
+                    self.scheduler.reform([])
+                continue
             opcode = int(wire[0])
             if opcode == sched.OP_STOP:
                 return
@@ -321,7 +332,15 @@ class ServingEngine:
             if not rank0:
                 plan = sched.unpack_plan(cfg, wire)
             t0 = time.perf_counter()
-            sampled = self._execute(plan)
+            try:
+                sampled = self._execute(plan)
+            except _common.MembershipChangedError:
+                # The bulk prefill's broadcast was cancelled: the page
+                # writes already made repeat on the replay.
+                _common.membership_ack()
+                if rank0 and self.scheduler:
+                    self.scheduler.reform([])
+                continue
             if registry.enabled:
                 registry.observe("step_sec", time.perf_counter() - t0)
             if rank0 and self.scheduler:

@@ -1,7 +1,7 @@
 """Continuous-batching scheduler: the serving plane's rank-0 brain.
 
 Own copy of ``horovod_tpu/serving/scheduler.py`` (pure Python, no torch),
-less the elastic reshape's ``reform``.  Iteration-level scheduling (Orca,
+with the elastic reshape's ``reform``.  Iteration-level scheduling (Orca,
 Yu et al., OSDI'22): every decode step the batch is re-formed from
 whatever requests are live.  New requests join at step boundaries
 (chunked prefill, so a long prompt cannot stall the running decodes),
@@ -543,6 +543,18 @@ class Scheduler:
             return dict(entry, spans=[dict(s) for s in entry["spans"]])
 
     # -- robustness -------------------------------------------------------
+
+    def reform(self, lost_ranks: Sequence[int]) -> None:
+        """A membership reshape cancelled the step in flight.  The
+        survivors' KV pages and the scheduler's state are both intact
+        (the state only advances in ``complete_step``), so nothing is
+        dropped: the next ``step_plan`` forms the identical batch again
+        and the requests in flight resume."""
+        with self._lock:
+            self._reg.record_serving("reformed")
+            for req in self._slots:
+                if req is not None:
+                    req.span("reformed")
 
     def fail_all(self, exc: Exception) -> None:
         """The plane is down (fatal collective error or shutdown): fail

@@ -14,10 +14,11 @@ Routes:
   "tenant_quota", ...}}`` (and a Retry-After header), 400 for
   ``too_long`` and malformed bodies, 503 when the plane is down, 504 when
   the request outlives the long-poll bound.
-* ``GET /v1/stats`` — the ``serving`` and ``cache`` sections of
-  ``metrics_snapshot()`` (the port has no elastic membership section).
+* ``GET /v1/stats`` — the ``serving``, ``cache`` and ``membership``
+  sections of ``metrics_snapshot()``.
 * ``GET /v1/trace?id=`` — one request's ordered spans, live or retired.
-* ``GET /healthz`` — liveness and job size.
+* ``GET /healthz`` — liveness, the job's size and its membership epoch
+  (it shrinks around dead ranks under ``--min-np``).
 * ``POST /shutdown`` — orderly drain: the engine broadcasts OP_STOP at
   the next tick and every rank leaves the serve loop.
 """
@@ -68,11 +69,12 @@ def start_server(scheduler: Scheduler, cfg: ServeConfig,
                         "ok": scheduler.failed is None,
                         "size": (_common.size()
                                  if _common.is_initialized() else 0),
+                        "membership_epoch": _common.membership_epoch(),
                     })
                 elif path == "/v1/stats":
                     snap = _common.metrics_snapshot()
                     self._reply(200, {k: snap[k] for k in
-                                      ("serving", "cache")})
+                                      ("serving", "cache", "membership")})
                 elif path == "/v1/trace":
                     from urllib.parse import parse_qs, urlparse
 

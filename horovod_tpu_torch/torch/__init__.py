@@ -19,22 +19,32 @@ from typing import Iterable, Optional, Tuple
 import torch
 
 from horovod_tpu_torch import common as _common
+from horovod_tpu_torch import state  # noqa: F401  (re-exported)
 from horovod_tpu_torch.common import (  # noqa: F401  (re-exported)
     CollectiveTimeoutError,
     HorovodInternalError,
     HorovodNotInitializedError,
+    MembershipChangedError,
     RanksDownError,
     init,
     is_initialized,
     local_rank,
     local_size,
+    membership_ack,
+    membership_epoch,
     rank,
+    restart_epoch,
     shutdown,
     size,
     timeline_enabled,
     trace_marker,
     trace_span,
 )
+from horovod_tpu_torch.common.elastic import (  # noqa: F401
+    ElasticState,
+    run_elastic,
+)
+from horovod_tpu_torch.torch import mpi_ops as _mpi_ops
 from horovod_tpu_torch.torch.mpi_ops import (  # noqa: F401
     allgather,
     allgather_async,
@@ -59,6 +69,8 @@ __all__ = [
     "broadcast_async_", "poll", "synchronize", "broadcast_parameters",
     "broadcast_optimizer_state", "DistributedOptimizer",
     "timeline_enabled", "trace_span", "trace_marker",
+    "MembershipChangedError", "ElasticState", "run_elastic",
+    "membership_epoch", "membership_ack", "restart_epoch", "state",
 ]
 
 
@@ -82,6 +94,16 @@ class DistributedOptimizer(torch.optim.Optimizer):
     ``zero_grad``/``state_dict`` act on the same objects.
     ``named_parameters`` names the collectives; without it they are
     numbered in ``param_groups`` order.
+
+    A collective that fails (an elastic reshape's
+    ``MembershipChangedError``, a dead rank's ``RanksDownError``) fails
+    :meth:`synchronize` only once every handle of the step has been
+    drained: the step is abandoned whole, every ``.grad`` is dropped (a
+    partial average is no gradient), the pinned buffers of the
+    optimizer's names are released, and the error raised is a
+    ``MembershipChangedError`` where any handle saw one (it is the one
+    ``run_elastic`` retries), else the first.  A re-entered training
+    function then starts with no stale handle, gradient or buffer.
     """
 
     def __init__(self, optimizer: torch.optim.Optimizer,
@@ -96,6 +118,7 @@ class DistributedOptimizer(torch.optim.Optimizer):
         self.state = optimizer.state
         self._inner = optimizer
         self._average = average
+        self._prefix = f"{name_prefix}."
         if backward_passes_per_step < 1:
             raise ValueError("backward_passes_per_step must be >= 1")
         self._backward_passes_per_step = backward_passes_per_step
@@ -142,14 +165,26 @@ class DistributedOptimizer(torch.optim.Optimizer):
                     self._handles[p] = allreduce_async_(
                         p.grad.data, average=self._average,
                         name=self._names[id(p)])
+        errors = []
         try:
             for handle in self._handles.values():
-                handle.synchronize()
+                try:
+                    handle.synchronize()
+                except Exception as exc:  # drain the rest first
+                    errors.append(exc)
             self.last_ticks = [h.completion_tick
                                for h in self._handles.values()]
         finally:
             self._handles.clear()
             self._passes.clear()
+        if errors:
+            for group in self.param_groups:
+                for p in group["params"]:
+                    p.grad = None
+            _mpi_ops.release_buffers(self._prefix)
+            raise next((e for e in errors
+                        if isinstance(e, _common.MembershipChangedError)),
+                       errors[0])
         self._synchronized = True
         self.sync_sec.append(time.perf_counter() - t0)
 

@@ -237,6 +237,9 @@ def _staged(op: int, tensor: torch.Tensor, name: Optional[str],
             average: bool, group=None) -> TorchHandle:
     wire = name or _common._auto_name(
         ("allreduce", "allgather", "broadcast")[op])
+    # The fault injector counts the collective here, on the caller's
+    # thread and in program order; the staging thread enqueues past it.
+    _common._fault_hook(wire)
     nbytes = tensor.numel() * tensor.element_size()
     buf = _buffer(name, nbytes)
     host, event = _to_host(tensor, buf)
@@ -251,16 +254,16 @@ def _staged(op: int, tensor: torch.Tensor, name: Optional[str],
             return _to_device(got, result, res)
 
         def enqueue():
-            return _common.allgather_async(host, name=wire)
+            return _common._allgather_async(host, wire)
     else:
         def finish(inner):
             return _to_device(inner.wait(), out, buf)
 
         def enqueue():
             if op == _common.OP_ALLREDUCE:
-                return _common.allreduce_async(host, average, wire, out=host,
-                                               group=group)
-            return _common.broadcast_async(host, root_rank, wire, out=host)
+                return _common._allreduce_async(host, average, wire, host,
+                                                group)
+            return _common._broadcast_async(host, root_rank, wire, host)
 
     handle = TorchHandle(wire, finish, keep=(tensor, out, buf))
     _stager().submit(event, enqueue, handle)
@@ -305,6 +308,8 @@ def _submit(op: int, tensor: torch.Tensor, name: Optional[str],
         if op == _common.OP_BROADCAST and root_rank != 0:
             raise ValueError(
                 f"broadcast root rank {root_rank} out of range for size 1")
+        _common._fault_hook(name or _common._auto_name(
+            ("allreduce", "allgather", "broadcast")[op]))
         handle = TorchHandle(name, None)
         handle._set(result=tensor if inplace else tensor.clone())
         return handle

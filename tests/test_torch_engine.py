@@ -257,13 +257,11 @@ def test_engine_exports_only_its_c_api():
     ("HOROVOD_HIERARCHICAL_ALLREDUCE", "1", "hierarchical allreduce"),
     ("HVD_TPU_COMPRESSION", "bf16", "wire compression"),
     ("HVD_TPU_AUTOTUNE", "1", "autotuning"),
-    ("HVD_TPU_ELASTIC", "1", "elastic membership"),
     ("HVD_TPU_METRICS_FILE", "m.json", "metrics"),
     ("HVD_TPU_NET_FAULT_SPEC", "drop", "fault injection"),
     ("HVD_TPU_FLIGHT_EVENTS", "4096", "postmortem dumps"),
     ("HVD_TPU_LINK_STATS", "1", "metrics"),
     ("HVD_TPU_ANOMALY_SIGMA", "3", "metrics"),
-    ("HVD_TPU_RESTART_EPOCH", "2", "elastic membership"),
     ("HVD_TPU_SHM", "force", "shared-memory transport"),
 ])
 def test_unported_engine_planes_raise(var, value, plane, monkeypatch):

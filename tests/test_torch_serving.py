@@ -648,7 +648,8 @@ def test_serve_smoke_single_process(size_1, lm):
     loop.start()
     port = _server.start_server(sch, cfg, engine=engine)
     try:
-        assert _get(port, "/healthz") == {"ok": True, "size": 1}
+        assert _get(port, "/healthz") == {"ok": True, "size": 1,
+                                          "membership_epoch": 0}
         jobs = {"acme": ([3, 1, 4, 1, 5], 6), "beta": ([2, 7, 1], 3)}
         results = {}
 

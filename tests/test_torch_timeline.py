@@ -17,8 +17,10 @@ the port's files.
 
 import json
 import os
+import signal
 import subprocess
 import sys
+import time
 
 import pytest
 import torch
@@ -75,6 +77,7 @@ _ENGINE_ENV = ("HVD_TPU_RANK", "HVD_TPU_SIZE", "HVD_TPU_COORD",
 
 def _env():
     env = dict(os.environ, JAX_PLATFORMS="cpu", OMP_NUM_THREADS="2",
+               PYTHONFAULTHANDLER="1",
                PYTHONPATH=REPO + os.pathsep + os.environ.get(
                    "PYTHONPATH", ""))
     for var in _ENGINE_ENV:
@@ -82,13 +85,66 @@ def _env():
     return env
 
 
+def _descendants(pid):
+    """Every live process under ``pid`` (the launcher starts each rank in
+    a session of its own, so the launcher's process group misses them)."""
+    children = {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+        except (OSError, IndexError, ValueError):
+            continue
+        children.setdefault(ppid, []).append(int(entry))
+    out, todo = [], [pid]
+    while todo:
+        for child in children.get(todo.pop(), []):
+            out.append(child)
+            todo.append(child)
+    return out
+
+
+def _signal_all(pids, sig):
+    for pid in pids:
+        try:
+            os.kill(pid, sig)
+        except OSError:
+            pass
+
+
 def _launch(package, tl_dir, code, np_=2, timeout=120):
-    proc = subprocess.run(
+    """Run ``code`` at ``np_`` ranks under ``package``'s launcher.  A launch
+    that outlives ``timeout`` has its ranks' Python stacks dumped
+    (SIGABRT, with ``PYTHONFAULTHANDLER`` set) into the launcher's stderr
+    before everything it started is killed; the error names the launch,
+    its return code, its run time and its output's tails."""
+    start = time.monotonic()
+    proc = subprocess.Popen(
         [sys.executable, "-m", f"{package}.runner", "-np", str(np_),
          "--timeline", str(tl_dir), "--", sys.executable, "-c", code],
-        capture_output=True, text=True, env=_env(), timeout=timeout,
-        cwd=REPO)
-    assert proc.returncode == 0, proc.stderr[-3000:]
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=_env(), cwd=REPO, start_new_session=True)
+    timed_out = False
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        timed_out = True
+        _signal_all(_descendants(proc.pid), signal.SIGABRT)
+        try:
+            out, err = proc.communicate(timeout=20)
+        except subprocess.TimeoutExpired:
+            _signal_all(_descendants(proc.pid) + [proc.pid], signal.SIGKILL)
+            out, err = proc.communicate()
+    finally:
+        _signal_all(_descendants(proc.pid), signal.SIGKILL)
+    seconds = time.monotonic() - start
+    assert not timed_out and proc.returncode == 0, (
+        f"{package} launch at np {np_} "
+        f"{'timed out after %ds' % timeout if timed_out else 'failed'}: "
+        f"rc {proc.returncode} after {seconds:.1f} s\n"
+        f"--- stderr ---\n{err[-6000:]}\n--- stdout ---\n{out[-1500:]}")
     return proc
 
 
