@@ -157,6 +157,29 @@ Phases, one JSON line each:
    against 3 size-1 ring steps on all 4 rows with the whole mask, within
    ``train_dp``'s rule (``tools/torch_averaging_control.py --ring``
    normalises each rank's loss by its own count and must fail it).
+11b. ``compression`` — ``train_dp``'s 2 ranks, seed and data under
+   ``HVD_TPU_COMPRESSION=bf16``, then ``fp8`` (floor 1024 B), 2 warm-up +
+   5 timed steps each: float32 gradient buckets at or above the floor
+   cross the engine's ring narrowed, with an error-feedback residual per
+   gradient name.  Printed beside ``train_dp``'s: tokens/s, median step
+   and sync ms; the engine's wire and payload bytes over the timed steps
+   and their ratio, its buckets per mode, the residual gauges after each
+   step, the losses and their gap to ``train_dp``'s.  Gates, each mode:
+   equal digests and equal per-bucket decision logs across ranks;
+   wire/payload <= 0.51 (bf16) or <= 0.26 (fp8); one residual per float32
+   gradient at or above the floor, constant over the steps; losses finite
+   and falling; K1 and B2 launched as in ``train_dp``.  bf16 also: every
+   step's loss within 2% relative of ``train_dp``'s (the bound of the
+   reference's ``test_convergence_bf16_matches_fp32``); fp8's gap is
+   printed only.
+11c. ``autotune`` — the same step under ``HVD_TPU_AUTOTUNE=1`` from bad
+   parameters (fusion threshold 1 KiB, cycle 50 ms, windows of 8
+   collectives, 1 warm-up window) until a collective poll finds every
+   rank's tuner frozen, or 40 steps, then 3 steps at the frozen point.
+   Printed: the windows, the frozen step and point, step ms over the
+   first and the last 3 steps beside ``train_dp``'s.  Gates: the applied
+   sequences (tick, threshold, cycle, frozen) and the digests equal
+   across ranks, losses finite, the threshold at least 64 KiB at the end.
 12. ``timeline`` — 3 steps of ``HEADLINE`` on 2 ranks started by the
    port's launcher with ``--timeline DIR`` (``HVD_TPU_TIMELINE=DIR/``):
    each rank's trace parses as Chrome trace JSON, carries the ``hvd_rank``
@@ -440,6 +463,16 @@ N_MEMBERS = 4
 # The data-parallel phases: ranks on this one card, the LM's gradient
 # bytes (58.7 M f32 parameters), the averaging check's seed.
 DP_RANKS = 2
+DP_DEVICE = "cuda:0"  # the card every rank of the DP phases shares
+COMP_FLOOR = 1024  # HVD_TPU_COMPRESSION_MIN_BYTES, the reference's default
+COMP_RATIO = {"bf16": 0.51, "fp8": 0.26}  # wire / payload bytes at most
+COMP_LOSS_RTOL = 0.02  # bf16 against train_dp, step by step
+AUTOTUNE_ENV = {"HVD_TPU_AUTOTUNE": "1", "HVD_TPU_FUSION_THRESHOLD": "1024",
+                "HVD_TPU_CYCLE_TIME_MS": "50",
+                "HVD_TPU_AUTOTUNE_WINDOW": "8",
+                "HVD_TPU_AUTOTUNE_WARMUP": "1"}
+AUTOTUNE_MAX_STEPS = 40
+AUTOTUNE_AFTER = 3  # steps timed at the frozen point
 GRAD_BYTES = 224 << 20
 AVG_SEED = 7
 # ring_dp's averaging check: rank 1's rows hold only their first 512
@@ -1811,12 +1844,14 @@ def phase_ring_train():
 # --- the data-parallel phases: ranks of the port's runner on this card ---
 
 
-def run_ranks(phase, timeout, ranks=DP_RANKS, script=__file__):
+def run_ranks(phase, timeout, ranks=DP_RANKS, script=__file__, env=None,
+              tag=None):
     """Run ``<script> --rank <phase>`` (this script by default) on
-    ``ranks`` ranks; each rank's ``RESULT`` line, parsed.  A rank that
-    exits non-zero or a timeout fails the run; every rank's output is kept
-    in OUT_DIR."""
-    env = dict(os.environ)
+    ``ranks`` ranks, with ``env`` added to this process's environment;
+    each rank's ``RESULT`` line, parsed.  A rank that exits non-zero or a
+    timeout fails the run; every rank's output is kept in OUT_DIR as
+    ``<tag or phase>_rank<r>.log``."""
+    env = dict(os.environ, **(env or {}))
     root = os.path.dirname(os.path.abspath(__file__))
     env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
     results = run_command(
@@ -1825,7 +1860,7 @@ def run_ranks(phase, timeout, ranks=DP_RANKS, script=__file__):
     os.makedirs(OUT_DIR, exist_ok=True)
     out = []
     for r in results:
-        with open(os.path.join(OUT_DIR, f"{phase}_rank{r.rank}.log"),
+        with open(os.path.join(OUT_DIR, f"{tag or phase}_rank{r.rank}.log"),
                   "w") as f:
             f.write(r.stdout + "\n--- stderr ---\n" + r.stderr)
         if r.returncode != 0:
@@ -2153,7 +2188,191 @@ def phase_train_dp():
     if any(o > t for o, t in zip(off, tol)):
         fail(f"train_dp: averaged losses {dp} against size-1 {refs[0]}, "
              f"tolerance {tol}")
-    return res[0]["launches"], step_ms
+    return res[0]["launches"], step_ms, res
+
+
+def rank_compression():
+    """One rank of ``compression``: ``train_dp``'s steps under the
+    environment's ``HVD_TPU_COMPRESSION``, with the engine's compression
+    counters read around the timed steps."""
+    hvdt.init(device=DP_DEVICE)
+    r = hvdt.rank()
+    model, step, data = build_lm_step(DP_DEVICE, **HEADLINE, seed=100)
+    floor = hvdt.compression_report()["min_bytes"]
+    at_floor = sum(1 for p in model.parameters()
+                   if p.dtype == torch.float32
+                   and p.numel() * p.element_size() >= floor)
+    warmup, timed = 2, 5
+    A.reset_launches()
+    losses, step_ms, sync_ms, residuals = [], [], [], []
+    for i in range(warmup + timed):
+        if i == warmup:
+            base = hvdt.compression_report()["engine"]
+        t0 = time.perf_counter()
+        loss = step(data).item()
+        dt = (time.perf_counter() - t0) * 1e3
+        losses.append(loss)
+        residuals.append(hvdt.compression_report()["residual_tensors"])
+        if i >= warmup:
+            step_ms.append(dt)
+            sync_ms.append(step.sync_sec[-1] * 1e3)
+    torch.cuda.synchronize()
+    rep = hvdt.compression_report()
+    eng = rep["engine"]
+    log = [[e["name"], e["mode"]] for e in rep["log"]]
+    rank_result(
+        rank=r, mode=rep["mode"], min_bytes=rep["min_bytes"],
+        losses=losses, step_ms=step_ms,
+        median_step_ms=statistics.median(step_ms), sync_ms=sync_ms,
+        median_sync_ms=statistics.median(sync_ms),
+        launches=dict(A.launches), digest=params_digest(model),
+        wire_bytes=eng["wire_bytes"] - base["wire_bytes"],
+        payload_bytes=eng["payload_bytes"] - base["payload_bytes"],
+        buckets={m: eng["ops"][m] - base["ops"][m] for m in eng["ops"]},
+        residual_tensors=residuals, residual_bytes=rep["residual_bytes"],
+        f32_grads_at_floor=at_floor, log_entries=len(log),
+        log_digest=hashlib.sha256(json.dumps(log).encode()).hexdigest(),
+        log_tail=log[-3:])
+    hvdt.shutdown()
+
+
+def compression_run(mode, dp_losses):
+    """``compression``'s run of one mode: the ranks' results, gated."""
+    res = run_ranks("compression", timeout=300, tag=f"compression_{mode}",
+                    env={"HVD_TPU_COMPRESSION": mode,
+                         "HVD_TPU_COMPRESSION_MIN_BYTES": str(COMP_FLOOR)})
+    x = res[0]
+    ratio = x["wire_bytes"] / max(x["payload_bytes"], 1)
+    gap = [abs(a - b) / abs(b) for a, b in zip(x["losses"], dp_losses)]
+    if any(y["mode"] != mode or y["min_bytes"] != COMP_FLOOR for y in res):
+        fail(f"compression: the engine runs {[y['mode'] for y in res]} "
+             f"at floors {[y['min_bytes'] for y in res]}, want {mode} at "
+             f"{COMP_FLOOR}")
+    if len({y["digest"] for y in res}) != 1:
+        fail(f"compression {mode}: the ranks' parameters differ")
+    if len({(y["log_entries"], y["log_digest"]) for y in res}) != 1:
+        fail(f"compression {mode}: the ranks' decision logs differ: "
+             f"{[(y['log_entries'], y['log_tail']) for y in res]}")
+    if ratio > COMP_RATIO[mode] or not x["buckets"][mode]:
+        fail(f"compression {mode}: wire/payload {ratio} (limit "
+             f"{COMP_RATIO[mode]}), buckets {x['buckets']}")
+    for y in res:
+        if set(y["residual_tensors"]) != {y["f32_grads_at_floor"]}:
+            fail(f"compression {mode}: residuals per step "
+                 f"{y['residual_tensors']}, want "
+                 f"{y['f32_grads_at_floor']} each step")
+    losses = x["losses"]
+    if not all(math.isfinite(v) for v in losses) or losses[-1] >= losses[0]:
+        fail(f"compression {mode}: losses {losses}")
+    if mode == "bf16" and max(gap) > COMP_LOSS_RTOL:
+        fail(f"compression bf16: losses {losses} against train_dp's "
+             f"{dp_losses}: relative gap {gap} > {COMP_LOSS_RTOL}")
+    return res, ratio, gap
+
+
+def phase_compression(dp_res, dp_launched):
+    """``compression``: bf16, then fp8, beside ``train_dp``'s run."""
+    t_phase = time.perf_counter()
+    dp = dp_res[0]
+    dp_step = max(y["median_step_ms"] for y in dp_res)
+    tokens = DP_RANKS * HEADLINE["batch"] * HEADLINE["seq"]
+    want = {k: dp_launched[k] for k in ("flash_fwd", "flash_bwd")}
+    out = {}
+    for mode in ("bf16", "fp8"):
+        res, ratio, gap = compression_run(mode, dp["losses"])
+        step_ms = max(y["median_step_ms"] for y in res)
+        for y in res:
+            if {k: y["launches"][k] for k in want} != want:
+                fail(f"compression {mode} rank {y['rank']} launched "
+                     f"{y['launches']}, want {want}")
+        out[mode] = {
+            "tokens_per_s": tokens / (step_ms / 1e3),
+            "median_step_ms": step_ms,
+            "median_sync_ms": [y["median_sync_ms"] for y in res],
+            "wire_bytes": res[0]["wire_bytes"],
+            "payload_bytes": res[0]["payload_bytes"],
+            "wire_over_payload": ratio, "buckets": res[0]["buckets"],
+            "residual_tensors": res[0]["residual_tensors"],
+            "residual_bytes": res[0]["residual_bytes"],
+            "log_entries": res[0]["log_entries"],
+            "log_tail": res[0]["log_tail"],
+            "losses": res[0]["losses"], "loss_gap_rel": gap,
+            "launches": [y["launches"] for y in res],
+            "digests": [y["digest"] for y in res]}
+    emit("compression", ranks=DP_RANKS, floor_bytes=COMP_FLOOR,
+         nvidia_smi=smi_line(), modes=out,
+         train_dp={"tokens_per_s": tokens / (dp_step / 1e3),
+                   "median_step_ms": dp_step,
+                   "median_sync_ms": [y["median_sync_ms"] for y in dp_res],
+                   "losses": dp["losses"]},
+         seconds=time.perf_counter() - t_phase)
+
+
+def rank_autotune():
+    """One rank of ``autotune``: ``train_dp``'s step under the
+    environment's ``HVD_TPU_AUTOTUNE``, until a collective poll finds every
+    rank's tuner frozen or ``AUTOTUNE_MAX_STEPS`` steps, then
+    ``AUTOTUNE_AFTER`` steps at the frozen point."""
+    hvdt.init(device=DP_DEVICE)
+    r, n = hvdt.rank(), hvdt.size()
+    model, step, data = build_lm_step(DP_DEVICE, **HEADLINE, seed=100)
+    A.reset_launches()
+    losses, step_ms, frozen_at = [], [], None
+    for i in range(AUTOTUNE_MAX_STEPS):
+        t0 = time.perf_counter()
+        losses.append(step(data).item())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        # The ranks see the freeze at different ticks: a rank-local break
+        # would leave the other's next step unmatched.
+        frozen = torch.tensor([int(hvdt.autotune_report()["frozen"])],
+                              dtype=torch.int32)
+        if int(hvdt.allreduce(frozen, average=False,
+                              name="autotune.poll")[0]) == n:
+            frozen_at = i + 1
+            break
+    for _ in range(AUTOTUNE_AFTER if frozen_at else 0):
+        t0 = time.perf_counter()
+        losses.append(step(data).item())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    rep = hvdt.autotune_report()
+    rank_result(
+        rank=r, steps=len(losses), frozen_at=frozen_at, losses=losses,
+        step_ms=step_ms, launches=dict(A.launches),
+        digest=params_digest(model), windows=rep["windows"],
+        frozen=rep["frozen"], fusion_threshold=rep["fusion_threshold"],
+        cycle_time_ms=rep["cycle_time_ms"], best_score=rep["best_score"],
+        applied=[[a["tick"], a["fusion_threshold"], a["cycle_time_ms"],
+                  a["frozen"]] for a in rep["applied"]],
+        history=rep["history"])
+    hvdt.shutdown()
+
+
+def phase_autotune(dp_res):
+    t_phase = time.perf_counter()
+    res = run_ranks("autotune", timeout=400, env=AUTOTUNE_ENV)
+    x = res[0]
+    emit("autotune", ranks=DP_RANKS, start=AUTOTUNE_ENV,
+         nvidia_smi=smi_line(), steps=x["steps"], frozen_at=x["frozen_at"],
+         windows=x["windows"], frozen=[y["frozen"] for y in res],
+         fusion_threshold=x["fusion_threshold"],
+         cycle_time_ms=x["cycle_time_ms"], best_score=x["best_score"],
+         applied=x["applied"], history=x["history"],
+         first3_step_ms=x["step_ms"][:3], last3_step_ms=x["step_ms"][-3:],
+         train_dp_median_step_ms=max(y["median_step_ms"] for y in dp_res),
+         losses=x["losses"], launches=[y["launches"] for y in res],
+         digests=[y["digest"] for y in res],
+         seconds=time.perf_counter() - t_phase)
+    if any(y["applied"] != x["applied"] for y in res):
+        fail(f"autotune: the ranks applied different parameters: "
+             f"{[y['applied'] for y in res]}")
+    if len({y["digest"] for y in res}) != 1:
+        fail("autotune: the ranks' parameters differ after the steps")
+    if not all(math.isfinite(v) for y in res for v in y["losses"]):
+        fail(f"autotune: non-finite loss: {[y['losses'] for y in res]}")
+    if any(y["fusion_threshold"] < 64 * 1024 for y in res):
+        fail(f"autotune: the threshold stayed at "
+             f"{[y['fusion_threshold'] for y in res]}")
 
 
 def ring_want(steps, members, n_layers):
@@ -3966,7 +4185,9 @@ def main():
     phase_ring_model()
     launched.update(phase_ring_train())
     phase_collectives()
-    dp_launched, dp_step_ms = phase_train_dp()
+    dp_launched, dp_step_ms, dp_res = phase_train_dp()
+    phase_compression(dp_res, dp_launched)
+    phase_autotune(dp_res)
     ring_dp_launched = phase_ring_dp()
     phase_timeline(dp_step_ms)
     phase_checkpoint()
@@ -4019,6 +4240,7 @@ def main():
 
 
 RANK_PHASES = {"collectives": rank_collectives, "train_dp": rank_train_dp,
+               "compression": rank_compression, "autotune": rank_autotune,
                "ring_dp": rank_ring_dp,
                "timeline": rank_timeline, "checkpoint": rank_checkpoint,
                "elastic": rank_elastic,

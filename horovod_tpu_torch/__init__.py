@@ -35,6 +35,9 @@ from horovod_tpu_torch import state  # noqa: F401
 from horovod_tpu_torch.common import (  # noqa: F401
     HorovodInternalError,
     MembershipChangedError,
+    autotune_report,
+    autotune_set,
+    compression_report,
     init,
     is_initialized,
     local_rank,
@@ -58,4 +61,5 @@ __all__ = ["HorovodInternalError", "MembershipChangedError", "init",
            "shutdown", "is_initialized", "rank", "size", "local_rank",
            "local_size", "timeline_enabled", "trace_span", "trace_marker",
            "ElasticState", "run_elastic", "membership_epoch",
-           "membership_ack", "restart_epoch", "state"]
+           "membership_ack", "restart_epoch", "state",
+           "compression_report", "autotune_report", "autotune_set"]

@@ -33,9 +33,20 @@ follow the new dense membership, and :func:`membership_epoch` counts the
 reshapes; ``common/elastic.py``'s ``run_elastic`` acknowledges them
 (:func:`membership_ack`) and resyncs the state.  ``HVD_TPU_FAULT_SPEC``
 arms the process fault injector (``common/faults.py``) at the end of
-``init()``, at the collective entry points below.  Not ported: the XLA
-data plane, the network fault injector, postmortem and the rest of the
-metrics glue (``config.UNPORTED``).
+``init()``, at the collective entry points below.
+
+Wire compression (``HVD_TPU_COMPRESSION=bf16|fp8``): float32 allreduce
+buckets at or above ``HVD_TPU_COMPRESSION_MIN_BYTES`` cross the engine's
+ring narrowed, with an error-feedback residual per tensor name;
+:func:`compression_report` reads the mode, the wire and payload bytes,
+the buckets per mode, the residuals and the per-bucket decision log.
+Online autotuning (``HVD_TPU_AUTOTUNE=1``, ``common/autotune.py``): the
+coordinator tunes the fusion threshold, the cycle time and (with
+compression on) the wire mode, and every rank applies each candidate at
+the same tick; :func:`autotune_report` reads it, :func:`autotune_set`
+injects parameters from rank 0.  Not ported: the XLA data plane, the
+network fault injector, postmortem and the rest of the metrics glue
+(``config.UNPORTED``).
 """
 
 from __future__ import annotations
@@ -62,6 +73,7 @@ __all__ = [
     "send_async", "recv_async", "send", "recv", "metrics_snapshot",
     "metrics_reset", "timeline_enabled", "trace_span", "trace_marker",
     "restart_epoch", "membership_epoch", "membership_ack",
+    "compression_report", "autotune_report", "autotune_set",
 ]
 
 # Op codes shared with the engine (engine/cc/wire.h OpType).
@@ -192,6 +204,21 @@ def _load_lib():
             _declare(lib, name, c_ll)
         _declare(lib, "hvd_tpu_membership_info", c_str)
         _declare(lib, "hvd_tpu_membership_ack", None)
+        for name in ("hvd_tpu_autotune_enabled", "hvd_tpu_autotune_frozen",
+                     "hvd_tpu_compression_mode"):
+            _declare(lib, name, c_int)
+        for name in ("hvd_tpu_autotune_windows",
+                     "hvd_tpu_autotune_fusion_threshold",
+                     "hvd_tpu_autotune_cycle_time_us",
+                     "hvd_tpu_autotune_cross_algo_threshold"):
+            _declare(lib, name, c_ll)
+        _declare(lib, "hvd_tpu_autotune_best_score", c_dbl)
+        for name in ("hvd_tpu_autotune_history", "hvd_tpu_autotune_applied",
+                     "hvd_tpu_compression_info", "hvd_tpu_compression_log"):
+            _declare(lib, name, c_str)
+        _declare(lib, "hvd_tpu_autotune_set", c_int, c_ll, c_dbl, c_ll,
+                 c_ll)
+        _declare(lib, "hvd_tpu_compression_mode_at", c_ll, c_ll)
         _lib = lib
         return lib
 
@@ -269,7 +296,12 @@ def init(device: Optional[str] = None) -> None:
     one).  ``device=None`` pins ``cuda:local_rank()``, which must exist;
     ``device="cuda:N"`` pins N (several ranks may share it);
     ``device="cpu"`` pins nothing: the CPU tests, on CPU tensors.  A knob
-    of an unported engine plane in the environment raises.  With
+    of an unported engine plane in the environment raises
+    :class:`HorovodInternalError`; an unknown ``HVD_TPU_COMPRESSION``
+    mode, a bad ``HVD_TPU_AUTOTUNE_FIX``, a lossy compression pin while
+    compression is off, and a ``cross_algo_threshold`` pin (the port's
+    ring is flat: the knob is dead) raise ``ValueError``, as in the
+    reference.  With
     ``HVD_TPU_TIMELINE`` set the engine writes this rank's Chrome trace
     (:func:`_resolve_timeline_path`; a standby, ``HVD_TPU_REJOIN``,
     writes none: its rank is a placeholder until it is admitted).  With
@@ -288,6 +320,23 @@ def init(device: Optional[str] = None) -> None:
             "the environment asks for engine planes horovod_tpu_torch does "
             "not have: " + "; ".join(asked))
     cfg = Config.from_env()
+    from horovod_tpu_torch.common import autotune as _autotune
+
+    fix_fusion, fix_cycle, fix_comp, fix_algo = _autotune.parse_fix(
+        cfg.autotune_fix)
+    compression_code = cfg.compression_code  # ValueError on a bad mode
+    if fix_comp > 0 and compression_code == 0:
+        # The engine pins the compression axis at "none" for a job that
+        # did not opt in: the pin would be dropped silently.
+        raise ValueError(
+            "HVD_TPU_AUTOTUNE_FIX pins a lossy wire-compression mode but "
+            "HVD_TPU_COMPRESSION is off; set HVD_TPU_COMPRESSION=bf16|fp8 "
+            "(or drop the compression pin).")
+    if fix_algo >= 0:
+        raise ValueError(
+            "HVD_TPU_AUTOTUNE_FIX pins cross_algo_threshold but the flat "
+            "ring has no cross-node hop; set "
+            "HVD_TPU_HIERARCHICAL_ALLREDUCE=1 (or drop the pin).")
     if cfg.metrics:
         metrics.registry.enable()
     _pin_device(device, ps)
@@ -296,16 +345,19 @@ def init(device: Optional[str] = None) -> None:
     timeline = ("" if cfg.rejoin else
                 _resolve_timeline_path(cfg.timeline_path, ps.rank,
                                        cfg.restart_epoch))
-    # Every unported plane at its "off" value: flat ring, no autotuning
-    # (fix values -1), no compression, no coordinator tree.
+    # The unported planes at their "off" values: the flat ring (no
+    # hierarchical allreduce, its cross-algo threshold at the reference's
+    # default and unpinned) and no coordinator tree.
     rc = lib.hvd_tpu_init(
         ps.rank, ps.size, ps.local_rank, ps.local_size,
         (ps.coord_endpoint or "").encode(), data.encode(),
         cfg.cycle_time_ms, cfg.fusion_threshold, cfg.stall_warning_sec,
         timeline.encode(), 0, cfg.collective_timeout_sec,
         cfg.effective_cache_capacity,
-        0, 2, 32, -1, -1.0, int(cfg.elastic or cfg.rejoin), cfg.min_np,
-        int(cfg.rejoin), 0, 1024, -1, 64 * 1024, -1, 0,
+        int(cfg.autotune), cfg.autotune_warmup, cfg.autotune_window,
+        fix_fusion, fix_cycle, int(cfg.elastic or cfg.rejoin), cfg.min_np,
+        int(cfg.rejoin), compression_code, cfg.compression_min_bytes,
+        fix_comp, 64 * 1024, -1, 0,
         cfg.steady_threshold, cfg.steady_max_period)
     if rc != 0:
         raise HorovodInternalError(
@@ -457,6 +509,31 @@ def _sync_engine_membership() -> None:
     })
 
 
+def _sync_engine_compression() -> None:
+    """Mirror :func:`compression_report` (its log aside) into the
+    registry's ``compression`` section.  A state copy (the engine's
+    counters are cumulative), so idempotent."""
+    if _lib is None:
+        return
+    rep = compression_report()
+    metrics.registry.set_compression({
+        "mode": rep["mode"], "min_bytes": rep["min_bytes"],
+        "planes": {plane: rep[plane] for plane in metrics.PLANES},
+        "residual_bytes": rep["residual_bytes"],
+        "residual_tensors": rep["residual_tensors"],
+    })
+
+
+def _sync_engine_autotune() -> None:
+    """Mirror the engine's autotuning report into the registry's
+    ``autotune`` section (a state copy, so idempotent)."""
+    if _lib is None:
+        return
+    from horovod_tpu_torch.common import autotune as _autotune
+
+    metrics.registry.set_autotune(_autotune.report(_lib))
+
+
 def metrics_snapshot() -> dict:
     """The registry as a plain nested dict: ``cache`` (the engine's
     negotiation response cache: hits, misses, evictions, size), ``p2p``
@@ -465,10 +542,15 @@ def metrics_snapshot() -> dict:
     occupancy, KV pool, tenants), ``faults`` (injected faults by action,
     the restart epoch), ``membership`` (the elastic epoch, size,
     reshapes, ranks lost and joined), ``state`` (the state plane and the
-    checkpoints) and ``histograms``.  Callable before ``init()``."""
+    checkpoints), ``compression`` (the wire mode and floor, wire and
+    payload bytes and buckets per mode of each data plane, the
+    error-feedback residuals), ``autotune`` (:func:`autotune_report`'s
+    shape) and ``histograms``.  Callable before ``init()``."""
     _sync_engine_cache()
     _sync_engine_p2p()
     _sync_engine_membership()
+    _sync_engine_compression()
+    _sync_engine_autotune()
     return metrics.registry.snapshot()
 
 
@@ -477,6 +559,77 @@ def metrics_reset() -> None:
     do not come back."""
     _sync_engine_cache()
     metrics.registry.reset()
+
+
+def autotune_report() -> dict:
+    """The online-autotuning report: enabled and frozen, the windows
+    scored, the applied ``fusion_threshold``/``cycle_time_ms``/
+    ``compression``/``cross_algo_threshold`` (set in lockstep: equal on
+    every rank of a healthy job), ``best_score``, the per-rank ``applied``
+    log and, on rank 0 (the coordinator, which runs the search), the
+    per-window ``history``.  The empty shape before the engine is
+    loaded."""
+    from horovod_tpu_torch.common import autotune as _autotune
+
+    if _lib is None:
+        return _autotune.empty_report()
+    return _autotune.report(_lib)
+
+
+def autotune_set(fusion_threshold: Optional[int] = None,
+                 cycle_time_ms: Optional[float] = None,
+                 compression: Optional[str] = None,
+                 cross_algo_threshold: Optional[int] = None) -> None:
+    """Inject parameters that every rank applies at the same negotiation
+    tick (the seam for a tuning policy of one's own, built-in tuner on or
+    off; a live search resumes from the nearest grid point).  Rank 0 only
+    (``ValueError`` elsewhere)."""
+    from horovod_tpu_torch.common import autotune as _autotune
+
+    _autotune.set_params(_checked_lib(), fusion_threshold, cycle_time_ms,
+                         compression, cross_algo_threshold)
+
+
+def compression_report() -> dict:
+    """The wire-compression report: the applied mode and floor (equal on
+    every rank), per plane the wire and payload bytes and the buckets per
+    mode, the error-feedback residual gauges, and the engine's bounded
+    per-bucket decision ``log`` (``[{"name", "mode"}, ...]`` in execution
+    order, equal on every rank).  The ``xla`` plane reads zeros until the
+    port has a device data plane.  The empty shape before ``init()``."""
+    from horovod_tpu_torch.common.config import COMPRESSION_NAMES
+
+    empty_ops = {"none": 0, "bf16": 0, "fp8": 0}
+    rep = {
+        "mode": "off", "min_bytes": 0,
+        "engine": {"wire_bytes": 0, "payload_bytes": 0,
+                   "ops": dict(empty_ops)},
+        "xla": {"wire_bytes": 0, "payload_bytes": 0, "ops": dict(empty_ops)},
+        "residual_bytes": 0, "residual_tensors": 0,
+        "log": [],
+    }
+    if _lib is None:
+        return rep
+    parts = _lib.hvd_tpu_compression_info().decode().split("|")
+    try:
+        (wire, payload, n_none, n_bf16, n_fp8, res_bytes, res_tensors,
+         min_bytes) = (int(p) for p in parts[:8])
+    except ValueError:
+        return rep
+    rep.update({
+        "mode": COMPRESSION_NAMES.get(
+            int(_lib.hvd_tpu_compression_mode()), "off"),
+        "min_bytes": min_bytes,
+        "engine": {"wire_bytes": wire, "payload_bytes": payload,
+                   "ops": {"none": n_none, "bf16": n_bf16, "fp8": n_fp8}},
+        "residual_bytes": res_bytes,
+        "residual_tensors": res_tensors,
+    })
+    for entry in _lib.hvd_tpu_compression_log().decode().split(";"):
+        if entry:
+            name, _, mode = entry.rpartition("|")
+            rep["log"].append({"name": name, "mode": mode})
+    return rep
 
 
 def resolve_device(device=None):

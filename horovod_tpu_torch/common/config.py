@@ -1,20 +1,24 @@
 """The engine's runtime knobs, read from the environment.
 
-Own copy of ``horovod_tpu/common/config.py`` (``Config.from_env``),
-trimmed to the knobs the port passes to ``hvd_tpu_init``: the cycle time,
-the fusion threshold, the stall warning, the timeline path
-(``HVD_TPU_TIMELINE``, resolved per rank by ``common._resolve_timeline_path``),
-the collective timeout, the response cache and the steady state, elastic
+Own copy of ``horovod_tpu/common/config.py`` (``Config.from_env``,
+``parse_compression``), trimmed to the knobs the port passes to
+``hvd_tpu_init``: the cycle time, the fusion threshold, the stall warning,
+the timeline path (``HVD_TPU_TIMELINE``, resolved per rank by
+``common._resolve_timeline_path``), the collective timeout, the response
+cache and the steady state, online autotuning (``HVD_TPU_AUTOTUNE``,
+``HVD_TPU_AUTOTUNE_WARMUP``, ``HVD_TPU_AUTOTUNE_WINDOW``,
+``HVD_TPU_AUTOTUNE_FIX``: ``common/autotune.py``), wire compression
+(``HVD_TPU_COMPRESSION``, ``HVD_TPU_COMPRESSION_MIN_BYTES``), elastic
 membership (``HVD_TPU_ELASTIC``, ``HVD_TPU_MIN_NP``, ``HVD_TPU_REJOIN``,
 and ``HVD_TPU_RESTART_EPOCH``, which the engine also reads itself) and
 the process fault injector (``HVD_TPU_FAULT_SPEC``, ``common/faults.py``).
 The reference's ``HOROVOD_*`` spellings are honoured beside the
 ``HVD_TPU_*`` ones, the new names winning.
 
-The engine's other planes have no port yet: wire compression,
-autotuning, the hierarchical allreduce (and the shared-memory transport
-that rides on it), the coordinator tree, the metrics file and monitor,
-postmortem dumps, the network fault injector and the XLA data plane (``HVD_TPU_METRICS`` is honoured as far
+The engine's other planes have no port yet: the hierarchical allreduce
+(and the shared-memory transport that rides on it), the coordinator
+tree, the metrics file and monitor, postmortem dumps, the network fault
+injector and the XLA data plane (``HVD_TPU_METRICS`` is honoured as far
 as the port's registry goes: ``common/metrics.py``).  The port passes
 each one's "off" value to the engine,
 and :meth:`Config.unported_requests` names every variable of the
@@ -40,8 +44,6 @@ DEFAULT_STALL_WARNING_SEC = 60.0
 # transport, the flight recorder, link statistics, the anomaly detector
 # and the network fault injector.
 UNPORTED = (
-    ("wire compression", ("HVD_TPU_COMPRESSION",)),
-    ("autotuning", ("HVD_TPU_AUTOTUNE", "HVD_TPU_AUTOTUNE_FIX")),
     ("hierarchical allreduce", ("HVD_TPU_HIERARCHICAL_ALLREDUCE",
                                 "HOROVOD_HIERARCHICAL_ALLREDUCE")),
     ("coordinator tree", ("HVD_TPU_COORD_TREE",)),
@@ -63,6 +65,24 @@ UNPORTED = (
 ENGINE_SUPPORTED = ("HVD_TPU_HEARTBEAT_MS", "HVD_TPU_HEARTBEAT_MISS",
                     "HVD_TPU_RESTART_EPOCH")
 _OFF = ("", "0", "false", "no", "off", "none")
+
+# Wire-compression spellings -> the engine's CompressionMode codes
+# (``engine/cc/wire.h``), as the reference's.
+COMPRESSION_CODES = {"off": 0, "none": 0, "0": 0, "": 0,
+                     "bf16": 1, "bfloat16": 1,
+                     "fp8": 2, "fp8_e4m3": 2, "float8_e4m3fn": 2}
+COMPRESSION_NAMES = {0: "off", 1: "bf16", 2: "fp8"}
+
+
+def parse_compression(value: Optional[str]) -> int:
+    """``HVD_TPU_COMPRESSION`` spelling -> CompressionMode code; raises
+    ``ValueError`` on an unknown mode."""
+    key = (value or "off").strip().lower()
+    if key not in COMPRESSION_CODES:
+        raise ValueError(
+            f"HVD_TPU_COMPRESSION: unknown wire-compression mode {value!r} "
+            f"(want off, bf16, or fp8)")
+    return COMPRESSION_CODES[key]
 
 
 def _get(new: str, old: str) -> Optional[str]:
@@ -108,6 +128,30 @@ class Config:
     elastic: bool = False
     min_np: int = 1
     rejoin: bool = False
+    # Online autotuning (common/autotune.py): the coordinator tunes the
+    # fusion threshold and the cycle time (and the compression mode, when
+    # compression is on) and broadcasts each candidate so every rank
+    # applies it at the same tick.  The first ``autotune_warmup`` windows
+    # of ``autotune_window`` negotiated collectives are discarded;
+    # ``autotune_fix`` pins knobs ("fusion_threshold=67108864,...").
+    autotune: bool = False
+    autotune_warmup: int = 2
+    autotune_window: int = 32
+    autotune_fix: str = ""
+    # Wire compression: float32 allreduce buckets of at least
+    # ``compression_min_bytes`` cross the wire as bf16 or fp8-e4m3, with
+    # float32 sums at every hop and an error-feedback residual per tensor
+    # name.  Agreed job-wide at init (a mixed environment is a typed
+    # error); "off", the default, keeps the float32 wire bit-identical.
+    # f16/bf16 payloads ship at their own width either way.
+    compression: str = "off"
+    compression_min_bytes: int = 1024
+
+    @property
+    def compression_code(self) -> int:
+        """The engine's CompressionMode code for ``compression``; raises
+        ``ValueError`` on an unknown spelling."""
+        return parse_compression(self.compression)
 
     @property
     def effective_cache_capacity(self) -> int:
@@ -157,4 +201,13 @@ class Config:
             elastic=_flag(os.environ.get("HVD_TPU_ELASTIC")),
             min_np=int(os.environ.get("HVD_TPU_MIN_NP") or 1),
             rejoin=_flag(os.environ.get("HVD_TPU_REJOIN")),
+            autotune=_flag(os.environ.get("HVD_TPU_AUTOTUNE")),
+            autotune_warmup=int(os.environ.get(
+                "HVD_TPU_AUTOTUNE_WARMUP") or 2),
+            autotune_window=int(os.environ.get(
+                "HVD_TPU_AUTOTUNE_WINDOW") or 32),
+            autotune_fix=os.environ.get("HVD_TPU_AUTOTUNE_FIX", ""),
+            compression=os.environ.get("HVD_TPU_COMPRESSION", "off"),
+            compression_min_bytes=int(os.environ.get(
+                "HVD_TPU_COMPRESSION_MIN_BYTES") or 1024),
         )

@@ -13,11 +13,16 @@ and the restart epoch (``faults``), the engine's membership mirror
 (``membership``: epoch, size, reshapes, ranks lost and joined) and the
 state plane's counters (``state``: armed, snapshots, peer copies,
 restores by source, the step path's blocked and the background's
-overlapped seconds).  Everything is
+overlapped seconds), the wire-compression mirror (``compression``: mode,
+floor, wire and payload bytes and buckets per mode of each data plane,
+the error-feedback residuals; the ``xla`` plane stays at zeros, the
+device data plane is not ported) and the autotuning mirror
+(``autotune``, ``common/autotune.py``'s report).  Everything is
 recorded whether or not metrics are enabled, as in the reference, except
 the engine's ``step_sec``, which it observes only while ``enabled``
 (``HVD_TPU_METRICS=1``).  The metrics file dump, the Prometheus monitor
-and the collective-layer counters are not ported (``config.UNPORTED``).
+(the compression and autotune families among them) and the
+collective-layer counters are not ported (``config.UNPORTED``).
 """
 
 from __future__ import annotations
@@ -25,6 +30,12 @@ from __future__ import annotations
 import bisect
 import threading
 from typing import Optional, Tuple
+
+from horovod_tpu_torch.common.autotune import empty_report
+
+# The data planes of the compression section, as the reference's.
+PLANES = ("engine", "xla")
+COMPRESSION_MODES = ("none", "bf16", "fp8")
 
 # Latency bucket upper bounds in seconds: pseudo-log from 100 us (one
 # engine cycle is 5 ms) to the 60 s stall horizon.
@@ -122,6 +133,14 @@ class MetricsRegistry:
             "restores": 0, "peer_restores": 0,
             "root_broadcast_fallbacks": 0,
         }
+        self._compression = {
+            "mode": "off", "min_bytes": 0,
+            "planes": {p: {"wire_bytes": 0, "payload_bytes": 0,
+                           "ops": {m: 0 for m in COMPRESSION_MODES}}
+                       for p in PLANES},
+            "residual_bytes": 0, "residual_tensors": 0,
+        }
+        self._autotune = empty_report()
         self._hists = {name: Histogram(bounds)
                        for name, (bounds, _) in HISTOGRAMS.items()}
 
@@ -225,6 +244,34 @@ class MetricsRegistry:
         with self._lock:
             self._membership = dict(state)
 
+    def set_compression(self, state: dict) -> None:
+        """Mirror the wire-compression state of the data planes (a copy:
+        the engine's counters are cumulative, so idempotent).  A plane
+        missing from ``state`` reads zeros."""
+        with self._lock:
+            planes = {}
+            for plane in PLANES:
+                entry = dict(state.get("planes", {}).get(plane, {}))
+                planes[plane] = {
+                    "wire_bytes": int(entry.get("wire_bytes", 0)),
+                    "payload_bytes": int(entry.get("payload_bytes", 0)),
+                    "ops": {m: int(entry.get("ops", {}).get(m, 0))
+                            for m in COMPRESSION_MODES},
+                }
+            self._compression = {
+                "mode": str(state.get("mode", "off")),
+                "min_bytes": int(state.get("min_bytes", 0)),
+                "planes": planes,
+                "residual_bytes": int(state.get("residual_bytes", 0)),
+                "residual_tensors": int(state.get("residual_tensors", 0)),
+            }
+
+    def set_autotune(self, report: dict) -> None:
+        """Mirror the engine's autotuning report (current values and
+        bounded logs: a copy, idempotent)."""
+        with self._lock:
+            self._autotune = dict(report)
+
     def set_state_armed(self, armed: bool) -> None:
         with self._lock:
             self._state["armed"] = bool(armed)
@@ -304,6 +351,20 @@ class MetricsRegistry:
                         if self._state["async_sec"]
                         + self._state["blocked_sec"] > 0 else 1.0),
                     "ckpt": dict(self._ckpt),
+                },
+                "compression": {
+                    **{k: v for k, v in self._compression.items()
+                       if k != "planes"},
+                    "planes": {p: {**v, "ops": dict(v["ops"])}
+                               for p, v in
+                               self._compression["planes"].items()},
+                },
+                "autotune": {
+                    **self._autotune,
+                    "history": [dict(h) for h in
+                                self._autotune.get("history", [])],
+                    "applied": [dict(a) for a in
+                                self._autotune.get("applied", [])],
                 },
                 "histograms": {name: h.to_dict()
                                for name, h in self._hists.items()},

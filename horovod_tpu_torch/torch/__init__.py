@@ -26,6 +26,9 @@ from horovod_tpu_torch.common import (  # noqa: F401  (re-exported)
     HorovodNotInitializedError,
     MembershipChangedError,
     RanksDownError,
+    autotune_report,
+    autotune_set,
+    compression_report,
     init,
     is_initialized,
     local_rank,
@@ -71,6 +74,7 @@ __all__ = [
     "timeline_enabled", "trace_span", "trace_marker",
     "MembershipChangedError", "ElasticState", "run_elastic",
     "membership_epoch", "membership_ack", "restart_epoch", "state",
+    "compression_report", "autotune_report", "autotune_set",
 ]
 
 

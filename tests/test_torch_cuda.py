@@ -896,6 +896,62 @@ def test_staging_route_matches_the_cpu_route(cuda_device, np_):
         assert res.returncode == 0, res.stderr[-3000:]
 
 
+def _staged_compression_rank():
+    """One rank of the compression test on this card: each CUDA tensor's
+    bucket against the same op on its CPU copy (the engine's own route):
+    the same verdict in the decision log, the same wire and payload bytes,
+    the same result bit for bit (fresh names: zero residuals)."""
+    import os
+
+    import horovod_tpu_torch.torch as hvd
+
+    os.environ["HVD_TPU_COMPRESSION"] = "bf16"
+    os.environ["HVD_TPU_COMPRESSION_MIN_BYTES"] = "8192"
+    hvd.init(device="cuda:0")
+    g = torch.Generator().manual_seed(hvd.rank())
+    seen = {}
+    for tag, dtype, n in (("big", torch.float32, 4096),
+                          ("small", torch.float32, 64),
+                          ("bf16", torch.bfloat16, 4096),
+                          ("f16", torch.float16, 4096)):
+        x = torch.randn(n, generator=g).to(dtype)
+        for route, t in (("cuda", x.cuda()), ("cpu", x)):
+            before = hvd.compression_report()["engine"]
+            out = hvd.allreduce(t, average=False, name=f"{route}.{tag}")
+            after = hvd.compression_report()
+            mode = after["log"][-1]
+            assert mode["name"] == f"{route}.{tag}", after["log"][-3:]
+            eng = after["engine"]
+            seen[route, tag] = (
+                out.cpu(), mode["mode"],
+                eng["wire_bytes"] - before["wire_bytes"],
+                eng["payload_bytes"] - before["payload_bytes"])
+        got, want = seen["cuda", tag], seen["cpu", tag]
+        assert torch.equal(got[0].view(torch.uint8), want[0].view(torch.uint8))
+        assert got[1:] == want[1:], (tag, got[1:], want[1:])
+    assert seen["cuda", "big"][1] == "bf16" and seen["cuda", "small"][1] == \
+        "none"
+    for tag in ("bf16", "f16"):  # native width: wire == payload
+        assert seen["cuda", tag][2] == seen["cuda", tag][3] == 8192
+    hvd.shutdown()
+
+
+@pytest.mark.cuda
+def test_staged_buckets_get_the_cpu_routes_compression(cuda_device):
+    import functools
+    import os
+
+    from horovod_tpu_torch.runner import launch_fn
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
+    results = launch_fn(functools.partial(_staged_compression_rank), 2,
+                        env=env, timeout=300)
+    for res in results:
+        assert res.returncode == 0, res.stderr[-3000:]
+
+
 @pytest.mark.cuda
 def test_size_1_cuda_collectives_make_no_host_copy(cuda_device,
                                                    monkeypatch):

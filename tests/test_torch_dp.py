@@ -30,6 +30,18 @@ import torch
 
 from tests.test_torch_engine import OUT_ENV, _bits, _launch
 from tests.distributed import run_ranks
+from tests.torch_watch import ENV, watched
+
+
+@pytest.fixture(scope="module", autouse=True)
+def engines_built():
+    """Both engines built before any timed launch (in a fresh checkout
+    the first ranks would build them inside the launch's limit)."""
+    from horovod_tpu.engine import build as ref_build
+    from horovod_tpu_torch.engine import build as port_build
+
+    ref_build()
+    port_build.build()
 
 
 def _dp_rank(out_dir):
@@ -76,7 +88,8 @@ def _dp_steps_match_jax(tmp_path, np_, batch):
                 "tgt": torch.from_numpy(tgt).long(),
                 "dims": (T.VOCAB, T.D_MODEL, T.LAYERS, T.HEADS),
                 "steps": T.STEPS}, tmp_path / "init.pt")
-    _launch(functools.partial(_dp_rank, str(tmp_path)), np_)
+    with watched(110, f"the port's DP launch at np {np_}"):
+        _launch(functools.partial(_dp_rank, str(tmp_path)), np_, **ENV)
     want_losses, want_params = T._jax_run(np_, batch)
     want = T._flat(want_params)
     runs = [torch.load(tmp_path / f"dp{r}.pt") for r in range(np_)]

@@ -255,8 +255,6 @@ def test_engine_exports_only_its_c_api():
 
 @pytest.mark.parametrize("var,value,plane", [
     ("HOROVOD_HIERARCHICAL_ALLREDUCE", "1", "hierarchical allreduce"),
-    ("HVD_TPU_COMPRESSION", "bf16", "wire compression"),
-    ("HVD_TPU_AUTOTUNE", "1", "autotuning"),
     ("HVD_TPU_METRICS_FILE", "m.json", "metrics"),
     ("HVD_TPU_NET_FAULT_SPEC", "drop", "fault injection"),
     ("HVD_TPU_FLIGHT_EVENTS", "4096", "postmortem dumps"),
@@ -269,7 +267,6 @@ def test_unported_engine_planes_raise(var, value, plane, monkeypatch):
                  "HVD_TPU_DATA"):
         monkeypatch.delenv(name, raising=False)
     hvd_port.shutdown()
-    monkeypatch.setenv("HVD_TPU_COMPRESSION", "off")  # "off" asks for none
     monkeypatch.setenv(var, value)
     with pytest.raises(hvd_port.HorovodInternalError,
                        match=f"{plane} \\({var}={value}\\)"):

@@ -26,6 +26,8 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_watch import ENV, watched
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _STATE_PORT = """\
@@ -97,9 +99,13 @@ def _state_lines(results):
 
 
 @pytest.fixture(scope="module", autouse=True)
-def port_engine_built():
+def engines_built():
+    """Both engines built before any timed launch (in a fresh checkout
+    the first ranks would build them inside the launch's limit)."""
+    from horovod_tpu.engine import build as ref_build
     from horovod_tpu_torch.engine import build
 
+    ref_build()
     build.build()
 
 
@@ -111,7 +117,7 @@ def _membership(package, script, args, np_, min_np, spec, timeout=90.0):
         [sys.executable, str(script)] + args, np_, min_np=min_np,
         max_np=np_, max_rejoins=0,
         env=_env(HVD_TPU_FAULT_SPEC=spec,
-                 HVD_TPU_COLLECTIVE_TIMEOUT_SEC="20"),
+                 HVD_TPU_COLLECTIVE_TIMEOUT_SEC="20", **ENV),
         timeout=timeout, capture=True, report=lambda msg: None)
 
 
@@ -130,13 +136,14 @@ def test_state_lines_match_the_reference(np_, min_np, steps, spec, lost,
                           ("horovod_tpu", test_state._TRAIN)):
         script = tmp_path / f"{package}_state.py"
         script.write_text(code)
-        results = _membership(package, script, [str(steps)], np_, min_np,
-                              spec)
+        with watched(85, f"{package}'s membership at np {np_}"):
+            results = _membership(package, script, [str(steps)], np_,
+                                  min_np, spec)
         by_slot = {r.rank: r for r in results}
         assert by_slot[lost].returncode == CRASH_EXIT_CODE, \
-            (package, by_slot[lost].stderr[-800:])
+            (package, by_slot[lost].stderr[-3000:])
         assert membership_succeeded(results, min_np), \
-            [(package, r.rank, r.returncode, r.stderr[-600:])
+            [(package, r.rank, r.returncode, r.stderr[-3000:])
              for r in results]
         lines[package], snaps = _state_lines(results)
         assert len(snaps) == np_ - 1 and min(snaps) > 0, (package, snaps)

@@ -25,6 +25,8 @@ import time
 import pytest
 import torch
 
+from tests.torch_watch import descendants, signal_all
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROWS = ("t0", "t1", "t2", "g0", "b0", "p.p2p.0-1.t0", "data_loading",
         "s0", "app.markers")
@@ -85,35 +87,6 @@ def _env():
     return env
 
 
-def _descendants(pid):
-    """Every live process under ``pid`` (the launcher starts each rank in
-    a session of its own, so the launcher's process group misses them)."""
-    children = {}
-    for entry in os.listdir("/proc"):
-        if not entry.isdigit():
-            continue
-        try:
-            with open(f"/proc/{entry}/stat") as f:
-                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
-        except (OSError, IndexError, ValueError):
-            continue
-        children.setdefault(ppid, []).append(int(entry))
-    out, todo = [], [pid]
-    while todo:
-        for child in children.get(todo.pop(), []):
-            out.append(child)
-            todo.append(child)
-    return out
-
-
-def _signal_all(pids, sig):
-    for pid in pids:
-        try:
-            os.kill(pid, sig)
-        except OSError:
-            pass
-
-
 def _launch(package, tl_dir, code, np_=2, timeout=120):
     """Run ``code`` at ``np_`` ranks under ``package``'s launcher.  A launch
     that outlives ``timeout`` has its ranks' Python stacks dumped
@@ -131,14 +104,14 @@ def _launch(package, tl_dir, code, np_=2, timeout=120):
         out, err = proc.communicate(timeout=timeout)
     except subprocess.TimeoutExpired:
         timed_out = True
-        _signal_all(_descendants(proc.pid), signal.SIGABRT)
+        signal_all(descendants(proc.pid), signal.SIGABRT)
         try:
             out, err = proc.communicate(timeout=20)
         except subprocess.TimeoutExpired:
-            _signal_all(_descendants(proc.pid) + [proc.pid], signal.SIGKILL)
+            signal_all(descendants(proc.pid) + [proc.pid], signal.SIGKILL)
             out, err = proc.communicate()
     finally:
-        _signal_all(_descendants(proc.pid), signal.SIGKILL)
+        signal_all(descendants(proc.pid), signal.SIGKILL)
     seconds = time.monotonic() - start
     assert not timed_out and proc.returncode == 0, (
         f"{package} launch at np {np_} "

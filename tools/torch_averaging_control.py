@@ -3,7 +3,7 @@ average must fail it.
 
 Run from the repository root on a machine with one CUDA GPU::
 
-    python3 tools/torch_averaging_control.py [--ring]
+    python3 tools/torch_averaging_control.py [--ring | --compression]
 
 The averaging check (phase ``train_dp``) runs 3 data-parallel steps of the
 LM headline on 2 ranks sharing the card, rank r on rows [8r, 8r+8) of one
@@ -26,10 +26,20 @@ ring on all 4 rows):
   of valid targets per shard, not the count averaged over the ranks
   (``next_token_loss``'s ``("dp", mesh)`` reduced to the mesh alone).
 
-Prints one JSON object: the size-1 reference, the check's tolerance and,
-per variant, the losses, their distance from the reference and whether
-the check would fail it.  A replica digest cannot see any of these
-faults: the replicas stay identical.
+With ``--compression`` the same for ``compression``'s bf16 gate (each of
+the 7 steps' losses within 2% relative of the uncompressed run's): the
+uncompressed run is ``compression``'s step under
+``HVD_TPU_COMPRESSION=off``, then under ``bf16``:
+
+* ``sound``      — unpatched;
+* ``rank0_half`` — as above, rank 1's gradients zeroed before the
+  average.
+
+Prints one JSON object: the size-1 reference (the uncompressed run with
+``--compression``), the check's tolerance and, per variant, the losses,
+their distance from the reference and whether the check would fail it.
+A replica digest cannot see any of these faults: the replicas stay
+identical.
 """
 
 import json
@@ -44,6 +54,7 @@ import horovod_tpu_torch.torch as hvdt  # noqa: E402
 
 VARIANTS = ("sound", "rank0_half", "sum")
 RING_VARIANTS = ("sound", "own_count")
+COMP_VARIANTS = ("sound", "rank0_half")
 
 
 def _patch(variant):
@@ -73,6 +84,10 @@ def _patch_ring(variant):
 
 
 def rank(variant):
+    if variant.startswith("comp:"):
+        _patch(variant[len("comp:"):])
+        S.rank_compression()
+        return
     hvdt.init(device="cuda:0")
     r, n = hvdt.rank(), hvdt.size()
     if variant.startswith("ring:"):
@@ -84,6 +99,27 @@ def rank(variant):
     S.rank_result(rank=r, losses=losses_of(
         slice(r * batch // n, (r + 1) * batch // n)))
     hvdt.shutdown()
+
+
+def main_compression():
+    base = S.run_ranks("comp:sound", timeout=300, script=__file__,
+                       tag="control_comp_off",
+                       env={"HVD_TPU_COMPRESSION": "off"})[0]["losses"]
+    tol = [S.COMP_LOSS_RTOL * abs(v) for v in base]
+    out = {"nvidia_smi": S.smi_line(), "uncompressed": base,
+           "tolerance": tol, "variants": {}}
+    for variant in COMP_VARIANTS:
+        losses = S.run_ranks(
+            "comp:" + variant, timeout=300, script=__file__,
+            tag=f"control_comp_{variant}",
+            env={"HVD_TPU_COMPRESSION": "bf16",
+                 "HVD_TPU_COMPRESSION_MIN_BYTES": str(S.COMP_FLOOR)})[0][
+                     "losses"]
+        err = [abs(a - b) for a, b in zip(losses, base)]
+        out["variants"][variant] = {
+            "losses": losses, "abs_err": err,
+            "fails_check": any(e > t for e, t in zip(err, tol))}
+    print(json.dumps(out))
 
 
 def main(ring):
@@ -104,5 +140,7 @@ def main(ring):
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank"]:
         rank(sys.argv[2])
+    elif sys.argv[1:2] == ["--compression"]:
+        main_compression()
     else:
         main(sys.argv[1:2] == ["--ring"])
