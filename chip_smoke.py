@@ -195,6 +195,18 @@ Phases, one JSON line each:
    ``MEMCPY_IN_FUSION_BUFFER`` and ``MEMCPY_OUT_FUSION_BUFFER``) inside the
    step's span, and
    the step ms with the timeline on beside ``train_dp``'s.
+   Then ``metrics``: ``train_dp``'s 2 ranks, seed and data with the
+   metrics registry on (``HVD_TPU_METRICS=1``, a monitor port, a metrics
+   file and a postmortem dir).  Rank 0 scrapes its ``/metrics`` (held to
+   ``tools/hvdlint/metrics_check.py``'s ``lint``; ``step_sec`` counts the
+   7 steps, ``wait_sec`` and ``negotiation_sec`` non-empty) and
+   ``/cluster`` (2 of 2 live); the ``ops`` counters give 52 collectives a
+   step; launches as ``train_dp``'s; losses within 1e-3 of its; the step
+   median printed beside ``train_dp``'s with the ratio.  Then a 2-rank
+   crash job, ``HVD_TPU_FAULT_SPEC`` killing rank 1 at step 2's 11th
+   collective: both ranks' ``rank-N.json`` in the postmortem dir,
+   rendered by ``tools/postmortem_dump.py``, and the runner's
+   ``failure_report`` pointing at rank 1's.
 13. ``checkpoint`` — 2 ranks, ``HEADLINE``: 2 steps, a sharded save of
    ``{"model", "optimizer", "step"}`` with ``keep=2``, a third step and
    a second save; per rank the save ms and the shard's bytes.  A fresh
@@ -2678,6 +2690,319 @@ def phase_timeline(dp_step_ms):
             fail(f"timeline: non-finite loss {x['losses']}")
 
 
+# --- the metrics registry, the monitor and the postmortem plane ---
+
+METRICS_WARMUP, METRICS_TIMED = 2, 5  # train_dp's steps
+METRICS_CRASH_AT = 10  # the crash job's rank 1 dies at step 2's 11th op
+METRICS_LOSS_RTOL = 1e-3  # against train_dp's losses, step by step
+
+
+def free_port_pair(host="127.0.0.1"):
+    """A port ``p`` with ``p + 1`` free too: the monitors of the two
+    ranks bind ``base + local_rank``."""
+    import socket
+
+    for _ in range(100):
+        socks = [socket.socket(socket.AF_INET, socket.SOCK_STREAM)]
+        try:
+            socks[0].bind((host, 0))
+            base = socks[0].getsockname()[1]
+            socks.append(socket.socket(socket.AF_INET, socket.SOCK_STREAM))
+            socks[1].bind((host, base + 1))
+            return base
+        except OSError:
+            continue
+        finally:
+            for s in socks:
+                s.close()
+    fail("metrics: no two consecutive free ports")
+
+
+def _prom_value(text, sample):
+    """The value of the unlabelled sample ``sample`` in Prometheus text."""
+    for line in text.splitlines():
+        if line.startswith(sample + " "):
+            return float(line.split()[1])
+    return None
+
+
+def rank_metrics():
+    """One rank of ``metrics``: ``train_dp``'s steps, seed and data with
+    the registry on, its monitor at the environment's port + local rank,
+    its metrics file and postmortem dir.  The ops a step are read from
+    the registry after steps 1 and 2; after the timed steps rank 0
+    scrapes its ``/metrics`` and ``/cluster`` while both monitors are up
+    (an allreduce holds rank 1 until then)."""
+    import urllib.request
+
+    from horovod_tpu_torch.common import metrics
+    from tools.hvdlint.metrics_check import lint
+
+    hvdt.init(device=DP_DEVICE)
+    r = hvdt.rank()
+    port = metrics.monitor_port()
+    if not metrics.registry.enabled or port is None:
+        fail("metrics: HVD_TPU_MONITOR_PORT did not start the monitor")
+    model, step, data = build_lm_step(DP_DEVICE, **HEADLINE, seed=100)
+    torch.cuda.synchronize()
+    A.reset_launches()
+    losses, step_ms, ops = [], [], []
+    for i in range(METRICS_WARMUP + METRICS_TIMED):
+        t0 = time.perf_counter()
+        losses.append(step(data).item())
+        dt = (time.perf_counter() - t0) * 1e3
+        if i >= METRICS_WARMUP:
+            step_ms.append(dt)
+        if i < 2:
+            ops.append(sum(hvd_common.metrics_snapshot()["ops"]["engine"]
+                           .values()))
+    torch.cuda.synchronize()
+    launched = dict(A.launches)
+    scrape = {}
+    if r == 0:
+        base = f"http://127.0.0.1:{port}"
+        t0 = time.perf_counter()
+        text = urllib.request.urlopen(base + "/metrics",
+                                      timeout=30).read().decode()
+        scrape_ms = (time.perf_counter() - t0) * 1e3
+        cluster = json.loads(urllib.request.urlopen(
+            base + "/cluster", timeout=30).read().decode())
+        os.makedirs(OUT_DIR, exist_ok=True)
+        with open(os.path.join(OUT_DIR, "metrics_rank0.prom"), "w") as f:
+            f.write(text)
+        with open(os.path.join(OUT_DIR, "metrics_cluster.json"), "w") as f:
+            json.dump(cluster, f, indent=1)
+        scrape = {
+            "lint": lint(text), "families": sum(
+                line.startswith("# TYPE ") for line in text.splitlines()),
+            "scrape_ms": scrape_ms,
+            **{k: _prom_value(text, f"hvd_tpu_{k}_count")
+               for k in ("step_seconds", "wait_seconds",
+                         "negotiation_seconds")},
+            "ops_allreduce": next(
+                (float(line.split()[1]) for line in text.splitlines()
+                 if line.startswith('hvd_tpu_ops_total{plane="engine",'
+                                    'op="allreduce"}')), None),
+            "cluster": {"launched": cluster["launched"],
+                        "live": cluster["live"],
+                        "epochs_agree": cluster["membership_epochs_agree"],
+                        "links": {k: v["links"] for k, v in
+                                  cluster["ranks"].items()}}}
+    hvdt.allreduce(torch.zeros(1), name="metrics.scraped")
+    snap = hvd_common.metrics_snapshot()
+    hist = snap["histograms"]
+    rank_result(rank=r, losses=losses, step_ms=step_ms,
+                median_step_ms=statistics.median(step_ms), launches=launched,
+                ops_after_steps=ops, scrape=scrape,
+                wait_ms_median=_hist_median_ms(hist["wait_sec"]),
+                negotiation_ms_median=_hist_median_ms(
+                    hist["negotiation_sec"]),
+                counts={k: hist[k]["count"] for k in (
+                    "step_sec", "wait_sec", "negotiation_sec")},
+                skew=snap["skew"], stalls=snap["stalls"]["count"],
+                links={p: {k: v[k] for k in ("bytes_out", "sends",
+                                             "send_us_sum",
+                                             "send_us_count")}
+                       for p, v in snap["links"]["peers"].items()})
+    hvdt.shutdown()
+
+
+def _hist_median_ms(hist):
+    """The median of a fixed-bucket histogram in ms: the upper bound of
+    the bucket that holds it (None when empty)."""
+    seen = 0
+    for bound, n in zip(hist["buckets"] + [math.inf], hist["counts"]):
+        seen += n
+        if hist["count"] and seen * 2 >= hist["count"]:
+            return bound * 1e3
+    return None
+
+
+def rank_metrics_crash():
+    """One rank of ``metrics``' crash job: ``train_dp``'s steps until
+    the fault injector crashes rank 1 in step 2; rank 0 reports the typed
+    error it caught."""
+    hvdt.init(device=DP_DEVICE)
+    r = hvdt.rank()
+    _, step, data = build_lm_step(DP_DEVICE, **HEADLINE, seed=100)
+    done, error = 0, None
+    try:
+        for _ in range(3):
+            step(data).item()
+            done += 1
+    except hvd_common.HorovodInternalError as exc:
+        error = type(exc).__name__
+    rank_result(rank=r, steps_done=done, error=error)
+    hvdt.shutdown()
+
+
+def _crash_job(tmp, crash_op, script=__file__):
+    """The crash job: 2 ranks, rank 1 crashed at its op ``crash_op`` by
+    ``HVD_TPU_FAULT_SPEC``; every rank's dump must land in the
+    postmortem dir, render through ``tools/postmortem_dump.py``, and the
+    launcher's report must point at rank 1's."""
+    from horovod_tpu_torch.common.faults import CRASH_EXIT_CODE
+    from horovod_tpu_torch.runner import failure_report
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    pm = os.path.join(tmp, "pm_crash")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    env.update(HVD_TPU_FAULT_SPEC=f"rank=1:crash@op={crash_op}",
+               HVD_TPU_POSTMORTEM_DIR=pm,
+               HVD_TPU_METRICS_FILE=os.path.join(tmp, "crash.json"),
+               HVD_TPU_COLLECTIVE_TIMEOUT_SEC="120",
+               HVD_TPU_KILL_GRACE_SEC="30")
+    t0 = time.perf_counter()
+    results = run_command(
+        [sys.executable, os.path.abspath(script), "--rank",
+         "metrics_crash"], DP_RANKS, env=env, timeout=300, capture=True)
+    seconds = time.perf_counter() - t0
+    os.makedirs(OUT_DIR, exist_ok=True)
+    for r in results:
+        with open(os.path.join(OUT_DIR, f"metrics_crash_rank{r.rank}.log"),
+                  "w") as f:
+            f.write(r.stdout + "\n--- stderr ---\n" + r.stderr)
+    codes = {r.rank: r.returncode for r in results}
+    if codes != {0: 0, 1: CRASH_EXIT_CODE}:
+        fail(f"metrics: crash job exits {codes}:\n" + "\n".join(
+            r.stderr[-3000:] for r in results))
+    lines = [ln for ln in results[0].stdout.splitlines()
+             if ln.startswith("RESULT ")]
+    if not lines:
+        fail("metrics: the crash job's rank 0 printed no result")
+    r0 = json.loads(lines[-1][len("RESULT "):])
+    dumps = {}
+    for r in range(DP_RANKS):
+        path = os.path.join(pm, f"rank-{r}.json")
+        if not os.path.exists(path):
+            fail(f"metrics: no postmortem dump of rank {r}: "
+                 f"{sorted(os.listdir(pm)) if os.path.isdir(pm) else pm}")
+        with open(path) as f:
+            dumps[r] = json.load(f)
+        with open(os.path.join(OUT_DIR, f"metrics_crash_rank-{r}.json"),
+                  "w") as f:
+            json.dump(dumps[r], f, indent=1)
+        if not os.path.exists(os.path.join(tmp, f"crash.json.{r}")):
+            fail(f"metrics: the crash job's rank {r} left no metrics file")
+    render = subprocess.run(
+        [sys.executable, os.path.join(root, "tools", "postmortem_dump.py"),
+         pm], capture_output=True, text=True, timeout=120)
+    report = failure_report(results, postmortem_dir=pm)
+    ring1 = [e for e in dumps[1]["ring"]["engine"]
+             if e["event"] == "enqueue"]
+    out = {"seconds": seconds, "crash_op": crash_op, "rank0": r0,
+           "reasons": {r: d["reason"] for r, d in dumps.items()},
+           "abort_codes": {r: d["abort"]["code"] for r, d in dumps.items()},
+           "diagnosis": dumps[0]["diagnosis"],
+           "pending_rank0": dumps[0]["pending"],
+           "rank1_last_enqueue": ring1[-1]["name"] if ring1 else None,
+           "render_rc": render.returncode,
+           "render_head": render.stdout[:1500],
+           "report_tail": report[-800:]}
+    if render.returncode != 0 or f"{DP_RANKS} dump(s)" not in render.stdout:
+        fail(f"metrics: postmortem_dump.py exited {render.returncode}: "
+             f"{render.stdout[-1500:]}{render.stderr[-1500:]}")
+    if f"postmortem: {os.path.join(pm, 'rank-1.json')}" not in report:
+        fail(f"metrics: the failure report does not point at rank 1's "
+             f"dump:\n{report}")
+    if (out["reasons"] != {0: "ranks_down", 1: "fault_crash"}
+            or r0["steps_done"] != 1 or r0["error"] != "RanksDownError"
+            or "rank 1" not in (dumps[0]["diagnosis"] or "")):
+        fail(f"metrics: the crash job's dumps do not tell the crash: {out}")
+    return out
+
+
+def phase_metrics(dp_step_ms, dp_res, script=__file__):
+    """``metrics``: ``train_dp``'s 2 ranks with the registry on, a
+    monitor (scraped by rank 0 during the run), a metrics file and a
+    postmortem dir; its step median beside ``train_dp``'s from this run.
+    Then the crash job.  Returns the K1 and B2 launches of each rank."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="hvdt_metrics_")
+    try:
+        mfile = os.path.join(tmp, "metrics.json")
+        res = run_ranks("metrics", timeout=300, script=script, env={
+            "HVD_TPU_METRICS": "1",
+            "HVD_TPU_MONITOR_PORT": str(free_port_pair()),
+            "HVD_TPU_METRICS_FILE": mfile,
+            "HVD_TPU_POSTMORTEM_DIR": os.path.join(tmp, "pm")})
+        files = []
+        for r in range(DP_RANKS):
+            with open(f"{mfile}.{r}") as f:
+                files.append(json.load(f))
+        leftover = (sorted(os.listdir(os.path.join(tmp, "pm")))
+                    if os.path.isdir(os.path.join(tmp, "pm")) else [])
+        ops = res[0]["ops_after_steps"]
+        crash = _crash_job(tmp, ops[0] + METRICS_CRASH_AT, script)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    steps = METRICS_WARMUP + METRICS_TIMED
+    want = {"flash_fwd": HEADLINE["n_layers"] * steps,
+            "flash_bwd": HEADLINE["n_layers"] * steps,
+            "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
+    step_ms = max(x["median_step_ms"] for x in res)
+    dp_losses = dp_res[0]["losses"]
+    loss_gap = [abs(a - b) / abs(b) for a, b in zip(res[0]["losses"],
+                                                     dp_losses)]
+    scrape = next(x["scrape"] for x in res if x["rank"] == 0)
+    emit("metrics", nvidia_smi=smi_line(), ranks=DP_RANKS, steps=steps,
+         median_step_ms_metrics_on=step_ms,
+         median_step_ms_train_dp=dp_step_ms,
+         ratio=step_ms / dp_step_ms,
+         step_ms=[x["step_ms"] for x in res],
+         ops_after_steps=[x["ops_after_steps"] for x in res],
+         counts=[x["counts"] for x in res],
+         wait_ms_median_bucket=[x["wait_ms_median"] for x in res],
+         negotiation_ms_median_bucket=[x["negotiation_ms_median"]
+                                       for x in res],
+         skew=res[0]["skew"], stalls=[x["stalls"] for x in res],
+         links=[x["links"] for x in res], scrape=scrape,
+         metrics_files=[{"ops": f["ops"]["engine"],
+                         "step_sec": f["histograms"]["step_sec"]["count"]}
+                        for f in files],
+         postmortem_left_by_clean_run=leftover,
+         loss_rel_gap_to_train_dp=loss_gap,
+         launches=[x["launches"] for x in res], want_launches=want,
+         crash=crash, seconds=time.perf_counter() - t_phase)
+    per_step = ops[1] - ops[0]
+    for x in res:
+        if x["launches"] != want:
+            fail(f"metrics rank {x['rank']} launched {x['launches']}, "
+                 f"want {want}")
+        # Every handle waited counts in wait_sec; negotiation_sec only
+        # where the engine negotiated (the steady state replays).
+        if x["counts"]["step_sec"] != steps or x["counts"][
+                "wait_sec"] < steps * per_step or not x["counts"][
+                "negotiation_sec"]:
+            fail(f"metrics rank {x['rank']}: histogram counts "
+                 f"{x['counts']} for {steps} steps of {per_step} ops")
+        if x["ops_after_steps"][1] - x["ops_after_steps"][0] != per_step:
+            fail(f"metrics: ops a step differ across ranks: {res}")
+        if not all(math.isfinite(v) for v in x["losses"]):
+            fail(f"metrics: non-finite loss {x['losses']}")
+    if per_step != 52:  # 51 gradients and the loss
+        fail(f"metrics: {per_step} collectives a step, want 52")
+    if scrape["lint"] or scrape["step_seconds"] != steps or not (
+            scrape["wait_seconds"] and scrape["negotiation_seconds"]):
+        fail(f"metrics: rank 0's /metrics: {scrape}")
+    if (scrape["cluster"]["launched"], scrape["cluster"]["live"]) != (
+            DP_RANKS, DP_RANKS) or not scrape["cluster"]["epochs_agree"]:
+        fail(f"metrics: /cluster {scrape['cluster']}")
+    if any(f["histograms"]["step_sec"]["count"] != steps for f in files):
+        fail("metrics: a metrics file does not count the steps")
+    if leftover:
+        fail(f"metrics: a clean run left postmortem dumps {leftover}")
+    if max(loss_gap) > METRICS_LOSS_RTOL:
+        fail(f"metrics: losses {res[0]['losses']} against train_dp's "
+             f"{dp_losses}")
+    return [x["launches"] for x in sorted(res, key=lambda x: x["rank"])]
+
+
 def state_digest(tree):
     """One digest of a state tree's structure, scalars and tensor bytes."""
     from horovod_tpu_torch.state import flatten_tree
@@ -4190,6 +4515,7 @@ def main():
     phase_autotune(dp_res)
     ring_dp_launched = phase_ring_dp()
     phase_timeline(dp_step_ms)
+    metrics_launched = phase_metrics(dp_step_ms, dp_res)
     phase_checkpoint()
     elastic_launched = phase_elastic()
     pipe_entries, pipe_launched = phase_pipeline()
@@ -4210,6 +4536,8 @@ def main():
                          else launched)[name_]
     for name_ in ("flash_fwd", "flash_bwd"):
         entries[name_]["launches_train_dp_per_rank"] = dp_launched[name_]
+        entries[name_]["launches_metrics_per_rank"] = [
+            x[name_] for x in metrics_launched]
         entries[name_]["launches_pipeline_per_rank"] = pipe_launched[name_]
         entries[name_]["launches_pipeline_dp_per_rank"] = \
             pipe_dp_launched[name_]
@@ -4242,7 +4570,9 @@ def main():
 RANK_PHASES = {"collectives": rank_collectives, "train_dp": rank_train_dp,
                "compression": rank_compression, "autotune": rank_autotune,
                "ring_dp": rank_ring_dp,
-               "timeline": rank_timeline, "checkpoint": rank_checkpoint,
+               "timeline": rank_timeline, "metrics": rank_metrics,
+               "metrics_crash": rank_metrics_crash,
+               "checkpoint": rank_checkpoint,
                "elastic": rank_elastic,
                "resnet_dp": rank_resnet_dp, "serve_dp": rank_serve_dp,
                "pipeline": rank_pipeline, "pipeline_dp": rank_pipeline_dp}

@@ -18,6 +18,12 @@ through hand-written CUDA flash-attention kernels (``ops/csrc``); with
 co-located on the card, through the ring kernels in the same directory.
 The package imports nothing of ``horovod_tpu`` and no JAX.
 
+``hvd.metrics_snapshot()`` reads the collective metrics registry
+(``HVD_TPU_METRICS=1``; ``HVD_TPU_METRICS_FILE`` dumps it per rank,
+``HVD_TPU_MONITOR_PORT`` serves it over HTTP), and
+``HVD_TPU_POSTMORTEM_DIR`` makes a rank that dies leave its flight
+recorder and pending collectives in ``rank-<N>.json``.
+
 Importing it sets the float32 numerics of the card to what the float32
 reference computes: ``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` both False, so float32 matmuls and
@@ -33,8 +39,11 @@ torch.backends.cudnn.allow_tf32 = False
 
 from horovod_tpu_torch import state  # noqa: F401
 from horovod_tpu_torch.common import (  # noqa: F401
+    CollectiveTimeoutError,
     HorovodInternalError,
+    HorovodNotInitializedError,
     MembershipChangedError,
+    RanksDownError,
     autotune_report,
     autotune_set,
     compression_report,
@@ -44,6 +53,8 @@ from horovod_tpu_torch.common import (  # noqa: F401
     local_size,
     membership_ack,
     membership_epoch,
+    metrics_reset,
+    metrics_snapshot,
     rank,
     restart_epoch,
     shutdown,
@@ -62,4 +73,6 @@ __all__ = ["HorovodInternalError", "MembershipChangedError", "init",
            "local_size", "timeline_enabled", "trace_span", "trace_marker",
            "ElasticState", "run_elastic", "membership_epoch",
            "membership_ack", "restart_epoch", "state",
-           "compression_report", "autotune_report", "autotune_set"]
+           "compression_report", "autotune_report", "autotune_set",
+           "metrics_snapshot", "metrics_reset", "RanksDownError",
+           "CollectiveTimeoutError", "HorovodNotInitializedError"]

@@ -15,11 +15,23 @@ host.  CUDA tensors reach it only through ``horovod_tpu_torch.torch``,
 which stages them in pinned host memory: the engine never sees a device
 pointer.
 
-:func:`metrics_snapshot` reads the port's trimmed registry
-(``common/metrics.py``, the serving plane's and the checkpoints'
-counters) with the engine's response-cache and point-to-point counters
-folded in.  ``HVD_TPU_TIMELINE`` (or ``HOROVOD_TIMELINE``; the launcher's
-``--timeline DIR``) turns on the engine's Chrome-trace timeline
+:func:`metrics_snapshot` reads the metrics registry
+(``common/metrics.py``) with the engine's sections mirrored in first:
+stalls, aborts, the coordinator's announce order, the response cache,
+autotuning, membership, the flight recorder, compression, topology, the
+control plane, liveness, per-peer links, anomaly verdicts and the
+point-to-point plane.  ``HVD_TPU_METRICS=1`` (or a metrics file or a
+monitor port) turns on the collective-layer records: ops and bytes at
+enqueue, ``negotiation_sec``, ``wait_sec`` and bytes out in
+:meth:`Handle.wait`, ``step_sec`` in ``build_train_step``.
+``HVD_TPU_METRICS_FILE`` writes a JSON dump per rank at :func:`shutdown`;
+``HVD_TPU_MONITOR_PORT`` serves ``/metrics``, ``/metrics.json`` and
+``/health`` at ``port + local_rank``, and ``/cluster`` on rank 0.
+``HVD_TPU_POSTMORTEM_DIR`` turns on the postmortem plane
+(``common/postmortem.py``): a typed abort, an injected crash, a fatal
+uncaught exception or an abort that nobody consumed leaves this rank's
+``rank-<N>.json``.  ``HVD_TPU_TIMELINE`` (or ``HOROVOD_TIMELINE``; the
+launcher's ``--timeline DIR``) turns on the engine's Chrome-trace timeline
 (``docs/timeline.md``): each collective's ``NEGOTIATE`` and op spans on a
 row of its name, and the application's spans through
 :func:`trace_span` and :func:`trace_marker`.
@@ -45,8 +57,8 @@ coordinator tunes the fusion threshold, the cycle time and (with
 compression on) the wire mode, and every rank applies each candidate at
 the same tick; :func:`autotune_report` reads it, :func:`autotune_set`
 injects parameters from rank 0.  Not ported: the XLA data plane, the
-network fault injector, postmortem and the rest of the metrics glue
-(``config.UNPORTED``).
+network fault injector, the hierarchical allreduce and the coordinator
+tree (``config.UNPORTED``).
 """
 
 from __future__ import annotations
@@ -54,6 +66,7 @@ from __future__ import annotations
 import atexit
 import contextlib
 import ctypes
+import json
 import os
 import re
 import threading
@@ -142,6 +155,8 @@ _shutdown_hooks: List[Callable[[], None]] = []
 _fault_injector = None
 _collective_seq = 0
 _fault_lock = threading.Lock()
+# This rank's HVD_TPU_METRICS_FILE dump path (``<file>.<rank>``), or None.
+_metrics_file: Optional[str] = None
 
 
 def _declare(lib, name, restype, *argtypes):
@@ -219,6 +234,18 @@ def _load_lib():
         _declare(lib, "hvd_tpu_autotune_set", c_int, c_ll, c_dbl, c_ll,
                  c_ll)
         _declare(lib, "hvd_tpu_compression_mode_at", c_ll, c_ll)
+        _declare(lib, "hvd_tpu_negotiation_us", c_ll, c_ll)
+        for name in ("hvd_tpu_stall_count", "hvd_tpu_abort_count",
+                     "hvd_tpu_flight_count"):
+            _declare(lib, name, c_ll)
+        for name in ("hvd_tpu_stall_info", "hvd_tpu_announce_log",
+                     "hvd_tpu_last_announce_counts", "hvd_tpu_anomaly_info",
+                     "hvd_tpu_anomaly_log", "hvd_tpu_control_info",
+                     "hvd_tpu_liveness_info", "hvd_tpu_link_info",
+                     "hvd_tpu_topology_info", "hvd_tpu_topology_log",
+                     "hvd_tpu_flight_dump", "hvd_tpu_pending_info",
+                     "hvd_tpu_coord_pending_info", "hvd_tpu_diagnosis"):
+            _declare(lib, name, c_str)
         _lib = lib
         return lib
 
@@ -306,11 +333,17 @@ def init(device: Optional[str] = None) -> None:
     (:func:`_resolve_timeline_path`; a standby, ``HVD_TPU_REJOIN``,
     writes none: its rank is a placeholder until it is admitted).  With
     ``HVD_TPU_ELASTIC`` the engine reshapes the job when a rank dies
-    (:class:`MembershipChangedError`).  ``HVD_TPU_FAULT_SPEC`` arms the
+    (:class:`MembershipChangedError`).  ``HVD_TPU_METRICS_FILE`` names
+    this rank's dump (``<file>.<rank>``, written at :func:`shutdown`);
+    ``HVD_TPU_MONITOR_PORT`` starts the HTTP monitor at ``port +
+    local_rank`` (0: a free port; a port already taken warns and the job
+    goes on without it), and rank 0's monitor serves ``/cluster`` over
+    every rank's; ``HVD_TPU_POSTMORTEM_DIR`` chains an excepthook that
+    dumps on a fatal uncaught exception.  ``HVD_TPU_FAULT_SPEC`` arms the
     fault injector last, so ``op=N`` counts the caller's collectives
     from 0.  Idempotent.
     """
-    global _fault_injector, _collective_seq
+    global _fault_injector, _collective_seq, _metrics_file
     if is_initialized():
         return
     ps = resolve_process_set()
@@ -337,7 +370,7 @@ def init(device: Optional[str] = None) -> None:
             "HVD_TPU_AUTOTUNE_FIX pins cross_algo_threshold but the flat "
             "ring has no cross-node hop; set "
             "HVD_TPU_HIERARCHICAL_ALLREDUCE=1 (or drop the pin).")
-    if cfg.metrics:
+    if cfg.metrics_enabled:
         metrics.registry.enable()
     _pin_device(device, ps)
     lib = _load_lib()
@@ -365,6 +398,28 @@ def init(device: Optional[str] = None) -> None:
             + lib.hvd_tpu_init_error().decode())
     if cfg.restart_epoch:
         metrics.registry.set_restart_epoch(cfg.restart_epoch)
+    _metrics_file = (f"{cfg.metrics_file}.{ps.rank}"
+                     if cfg.metrics_file else None)
+    if cfg.postmortem_dir:
+        from horovod_tpu_torch.common import postmortem as _postmortem
+
+        _postmortem.install_excepthook()
+    if cfg.monitor_port is not None:
+        port = cfg.monitor_port + ps.local_rank if cfg.monitor_port else 0
+        try:
+            metrics.start_monitor(port, snapshot_fn=metrics_snapshot)
+            # /cluster needs a fixed base port: at 0 the other ranks'
+            # monitors bind ports nobody knows.
+            if ps.rank == 0 and cfg.monitor_port:
+                metrics.configure_cluster(
+                    _cluster_targets(ps, cfg.monitor_port))
+        except OSError as exc:
+            import warnings
+
+            # A busy port must not take the training job down: the
+            # registry stays readable through the API and the dump.
+            warnings.warn(f"metrics monitor could not bind port {port}: "
+                          f"{exc}; continuing without the HTTP endpoint.")
     from horovod_tpu_torch.common import faults as _faults
 
     with _fault_lock:
@@ -373,10 +428,52 @@ def init(device: Optional[str] = None) -> None:
     atexit.register(shutdown)
 
 
+def _cluster_targets(ps: ProcessSet, base_port: int) -> list:
+    """``(rank, host, port)`` of every rank's monitor for rank 0's
+    ``/cluster``: each binds ``base_port + local_rank``, and the launcher
+    places ranks in contiguous blocks per host, so a rank's local index is
+    the count of ranks on its host before it (localhost without data
+    endpoints)."""
+    targets = []
+    seen: dict = {}
+    for r in range(ps.size):
+        if ps.data_endpoints and r < len(ps.data_endpoints):
+            host = ps.data_endpoints[r].rsplit(":", 1)[0]
+        else:
+            host = "127.0.0.1"
+        local_idx = seen.get(host, 0)
+        seen[host] = local_idx + 1
+        targets.append((r, host, base_port + local_idx))
+    return targets
+
+
+def _flush_metrics_file(clear: bool = True) -> None:
+    """Write this rank's ``HVD_TPU_METRICS_FILE`` dump now.  A clean
+    :func:`shutdown` clears the path after it; the crash and postmortem
+    paths flush without clearing (a crashed rank leaves its metrics, and
+    a later clean shutdown overwrites them with fresher totals)."""
+    global _metrics_file
+    if _metrics_file is None:
+        return
+    path = _metrics_file
+    if clear:
+        _metrics_file = None
+    try:
+        with open(path, "w") as f:
+            json.dump(metrics_snapshot(), f, indent=2)
+            f.write("\n")
+    except OSError as exc:
+        import warnings
+
+        warnings.warn(f"could not write metrics file {path}: {exc}")
+
+
 def shutdown() -> None:
     """Stop the engine.  Idempotent, and a no-op before ``init()``.  The
     armed state plane (``horovod_tpu_torch.state.arm``) lives as long as
-    the engine: it is disarmed first."""
+    the engine: it is disarmed first.  A typed abort the engine latched
+    that no :meth:`Handle.wait` consumed leaves its postmortem dump here;
+    then the metrics file is written and the monitor stopped."""
     global _fault_injector
     _fault_injector = None
     from horovod_tpu_torch import state as _state
@@ -384,6 +481,13 @@ def shutdown() -> None:
     _state.disarm()
     for hook in list(_shutdown_hooks):
         hook()
+    if _lib is not None and int(_lib.hvd_tpu_abort_code()) != 0:
+        from horovod_tpu_torch.common import postmortem as _postmortem
+
+        _postmortem.write_postmortem(
+            _postmortem.reason_for_code(int(_lib.hvd_tpu_abort_code())))
+    _flush_metrics_file(clear=True)
+    metrics.stop_monitor()
     if _lib is not None and _lib.hvd_tpu_initialized():
         _lib.hvd_tpu_shutdown()
 
@@ -442,10 +546,102 @@ def local_size() -> int:
     return _checked_lib().hvd_tpu_local_size()
 
 
-# Engine cache events already folded into the registry (hits, misses,
-# evictions): the engine's counts are cumulative over the process.
-_cache_seen = [0, 0, 0]
-_cache_lock = threading.Lock()
+# Engine events already folded into the registry: the engine's counts are
+# cumulative over the process, its logs bounded, so each sync consumes
+# only what it has not seen (repeated snapshots never count twice, and
+# metrics_reset() keeps its clear-everything meaning).
+_engine_stalls_seen = 0
+_engine_aborts_seen = 0
+_engine_announces_seen = 0
+_engine_last_announce_seen: List[int] = []
+_engine_cache_seen = [0, 0, 0]
+_engine_topo_seen = 0
+# Serializes the syncs: the monitor's thread and the API may snapshot at
+# once, and the ctypes reads release the GIL.
+_stall_sync_lock = threading.Lock()
+
+
+def _sync_engine_stalls() -> None:
+    """Fold the coordinator's stall warnings into the registry: a
+    cumulative count and a bounded log of the newest ``name|seconds``
+    records; events past the log keep the total without a name."""
+    global _engine_stalls_seen
+    if _lib is None:
+        return
+    with _stall_sync_lock:
+        count = int(_lib.hvd_tpu_stall_count())
+        new = count - _engine_stalls_seen
+        if new <= 0:
+            return
+        _engine_stalls_seen = count
+        entries = [e for e in
+                   _lib.hvd_tpu_stall_info().decode().split(";") if e]
+        taken = entries[-new:]
+        for entry in taken:
+            name, _, sec = entry.partition("|")
+            try:
+                duration = float(sec)
+            except ValueError:
+                duration = 0.0
+            metrics.registry.record_stall(name, duration)
+        if new > len(taken):
+            metrics.registry.record_stall_count(new - len(taken))
+
+
+def _sync_engine_aborts() -> None:
+    """Fold the engine's coordinated aborts into the registry, by the
+    latched status code's kind (``ranks_down`` or ``timeout``)."""
+    global _engine_aborts_seen
+    if _lib is None:
+        return
+    with _stall_sync_lock:
+        count = int(_lib.hvd_tpu_abort_count())
+        new = count - _engine_aborts_seen
+        if new <= 0:
+            return
+        _engine_aborts_seen = count
+        code = int(_lib.hvd_tpu_abort_code())
+        kind = "timeout" if code == ST_TIMEOUT else "ranks_down"
+        metrics.registry.record_abort(kind, new)
+
+
+def _sync_engine_announces() -> None:
+    """Fold the coordinator's announce order into the registry (rank 0
+    only has it): per rank, how often it announced a collective last
+    (an exact cumulative vector), and the first-to-last skew of each
+    negotiation into ``announce_skew_sec`` (a bounded log: events past
+    it keep the per-rank totals but give no skew sample)."""
+    global _engine_announces_seen, _engine_last_announce_seen
+    if _lib is None:
+        return
+    with _stall_sync_lock:
+        counts_raw = _lib.hvd_tpu_last_announce_counts().decode()
+        counts = [int(tok) for tok in counts_raw.split(",") if tok]
+        for r, c in enumerate(counts):
+            prev = (_engine_last_announce_seen[r]
+                    if r < len(_engine_last_announce_seen) else 0)
+            if c > prev:
+                metrics.registry.record_last_announce(r, c - prev)
+        _engine_last_announce_seen = counts
+        # One call carries "count:entries" under the engine's lock, so
+        # the count and the log cannot disagree.
+        head, _, tail = _lib.hvd_tpu_announce_log().decode().partition(":")
+        try:
+            count = int(head)
+        except ValueError:
+            return
+        new = count - _engine_announces_seen
+        if new <= 0:
+            return
+        _engine_announces_seen = count
+        entries = [e for e in tail.split(";") if e]
+        for entry in entries[-new:]:
+            _, _, us = entry.partition("|")
+            try:
+                skew_sec = float(us) / 1e6
+            except ValueError:
+                continue
+            metrics.registry.observe("announce_skew_sec", skew_sec)
 
 
 def _sync_engine_cache() -> None:
@@ -453,15 +649,15 @@ def _sync_engine_cache() -> None:
     registry's ``cache.engine`` section, and mirror its entry count."""
     if _lib is None:
         return
-    with _cache_lock:
+    with _stall_sync_lock:
         counts = (_lib.hvd_tpu_cache_hit_count(),
                   _lib.hvd_tpu_cache_miss_count(),
                   _lib.hvd_tpu_cache_eviction_count())
         for i, kind in enumerate(("hits", "misses", "evictions")):
-            new = int(counts[i]) - _cache_seen[i]
+            new = int(counts[i]) - _engine_cache_seen[i]
             if new > 0:
                 metrics.registry.record_cache("engine", kind, new)
-            _cache_seen[i] = int(counts[i])
+            _engine_cache_seen[i] = int(counts[i])
         metrics.registry.set_cache_size("engine",
                                         int(_lib.hvd_tpu_cache_size()))
 
@@ -473,19 +669,20 @@ def _sync_engine_p2p() -> None:
     copy, so idempotent."""
     if _lib is None:
         return
-    parts = _lib.hvd_tpu_p2p_info().decode().split("|")
-    if len(parts) != 8:
-        return
-    try:
-        (sends, recvs, bytes_out, bytes_in, matched, unmatched, group_ops,
-         channels) = (int(p) for p in parts)
-    except ValueError:
-        return
-    metrics.registry.set_p2p({
-        "sends": sends, "recvs": recvs,
-        "bytes": {"out": bytes_out, "in": bytes_in},
-        "matched": matched, "unmatched": unmatched,
-        "group_ops": group_ops, "channels": channels})
+    with _stall_sync_lock:
+        parts = _lib.hvd_tpu_p2p_info().decode().split("|")
+        if len(parts) != 8:
+            return
+        try:
+            (sends, recvs, bytes_out, bytes_in, matched, unmatched,
+             group_ops, channels) = (int(p) for p in parts)
+        except ValueError:
+            return
+        metrics.registry.set_p2p({
+            "sends": sends, "recvs": recvs,
+            "bytes": {"out": bytes_out, "in": bytes_in},
+            "matched": matched, "unmatched": unmatched,
+            "group_ops": group_ops, "channels": channels})
 
 
 def _sync_engine_membership() -> None:
@@ -494,19 +691,37 @@ def _sync_engine_membership() -> None:
     joined).  A state copy, so idempotent."""
     if _lib is None:
         return
-    info = _lib.hvd_tpu_membership_info().decode()
-    parts = (info.split("|") + ["", "", "", ""])[:4]
-    try:
-        epoch, size_now = int(parts[0]), int(parts[1])
-    except ValueError:
-        return
-    metrics.registry.set_membership({
-        "epoch": epoch,
-        "size": size_now,
-        "reshapes": int(_lib.hvd_tpu_membership_reshapes()),
-        "ranks_lost": [int(tok) for tok in parts[2].split(",") if tok],
-        "ranks_joined": [int(tok) for tok in parts[3].split(",") if tok],
-    })
+    with _stall_sync_lock:
+        info = _lib.hvd_tpu_membership_info().decode()
+        parts = (info.split("|") + ["", "", "", ""])[:4]
+        try:
+            epoch, size_now = int(parts[0]), int(parts[1])
+        except ValueError:
+            return
+        metrics.registry.set_membership({
+            "epoch": epoch,
+            "size": size_now,
+            "reshapes": int(_lib.hvd_tpu_membership_reshapes()),
+            "ranks_lost": [int(tok) for tok in parts[2].split(",") if tok],
+            "ranks_joined": [int(tok) for tok in parts[3].split(",")
+                             if tok],
+        })
+
+
+def _sync_engine_flight() -> None:
+    """Mirror the flight recorders' cumulative event counts (the engine's
+    ring; the Python ring, empty in the port) and the ring's capacity
+    into the registry's ``flight`` section.  A state copy."""
+    from horovod_tpu_torch.common import postmortem as _postmortem
+
+    with _stall_sync_lock:
+        engine_events = (int(_lib.hvd_tpu_flight_count())
+                         if _lib is not None else 0)
+        metrics.registry.set_flight({
+            "events": {"engine": engine_events,
+                       "xla": _postmortem.plane_ring.total},
+            "capacity": _postmortem.ring_capacity(),
+        })
 
 
 def _sync_engine_compression() -> None:
@@ -524,6 +739,195 @@ def _sync_engine_compression() -> None:
     })
 
 
+def _sync_engine_topology() -> None:
+    """Mirror the engine's topology into the registry's ``topology``
+    section and fold its per-bucket phase log into the ``topology_*_sec``
+    histograms.  The port's ring is flat, so the section reads one node
+    and the log stays empty; the mirror is the reference's all the
+    same."""
+    global _engine_topo_seen
+    if _lib is None:
+        return
+    with _stall_sync_lock:
+        parts = _lib.hvd_tpu_topology_info().decode().split("|")
+        try:
+            (hier, nodes, local_size_, threshold, ops_ring, ops_tree,
+             local_bytes, cross_bytes, log_total) = (
+                int(p) for p in parts[:9])
+        except ValueError:
+            return
+        metrics.registry.set_topology({
+            "hierarchical": bool(hier),
+            "nodes": nodes,
+            "local_size": local_size_,
+            "cross_algo_threshold": threshold,
+            "cross_ops": {"ring": ops_ring, "tree": ops_tree},
+            "bytes": {"local": local_bytes, "cross": cross_bytes},
+            "local_transport": parts[9] if len(parts) > 9 else "tcp",
+        })
+        new = log_total - _engine_topo_seen
+        if new <= 0:
+            return
+        _engine_topo_seen = log_total
+        entries = [e for e in
+                   _lib.hvd_tpu_topology_log().decode().split(";") if e]
+        for entry in entries[-new:]:
+            fields = entry.split("|")
+            if len(fields) != 5:
+                continue
+            try:
+                rs_us, cross_us, ag_us = (int(f) for f in fields[2:5])
+            except ValueError:
+                continue
+            metrics.registry.observe("topology_local_rs_sec", rs_us / 1e6)
+            if cross_us:
+                metrics.registry.observe("topology_cross_sec",
+                                         cross_us / 1e6)
+            metrics.registry.observe("topology_local_ag_sec", ag_us / 1e6)
+
+
+def _sync_engine_control() -> None:
+    """Mirror the engine's control plane into the registry's ``control``
+    section: the coordinator tree's shape (one level in the port), the
+    steady state's counters and the control frames sent and received.
+    A state copy, so idempotent."""
+    if _lib is None:
+        return
+    with _stall_sync_lock:
+        parts = _lib.hvd_tpu_control_info().decode().split("|")
+        try:
+            (tree, children, hosts, active, pattern_len, threshold,
+             entries, exits, replays, cycles, negotiated, sent,
+             received) = (int(p) for p in parts[:13])
+        except ValueError:
+            return
+        metrics.registry.set_control({
+            "tree": bool(tree),
+            "depth": 2 if tree else 1,
+            "children": children,
+            "hosts": hosts,
+            "steady": {"active": bool(active), "pattern_len": pattern_len,
+                       "threshold": threshold, "entries": entries,
+                       "exits": exits, "replays": replays,
+                       "cycles": cycles},
+            "negotiated_ticks": negotiated,
+            "frames": {"sent": sent, "received": received},
+        })
+
+
+def _sync_engine_liveness() -> None:
+    """Mirror the heartbeat detector into the registry's ``liveness``
+    section: its cadence and miss limit, beacons sent and received, miss
+    and eviction events, the monitored neighbours' ages and the init
+    clock sync's fan-in.  A state copy, so idempotent."""
+    if _lib is None:
+        return
+    with _stall_sync_lock:
+        parts = _lib.hvd_tpu_liveness_info().decode().split("|")
+        if len(parts) < 8:
+            return
+        try:
+            (interval_ms, miss_limit, sent, recv_, miss_events, evictions,
+             fanin) = (int(p) for p in parts[:7])
+        except ValueError:
+            return
+        peers = {}
+        for tok in parts[7].split():
+            fields = tok.split(":")
+            if len(fields) != 3:
+                continue
+            try:
+                peers[int(fields[0])] = {"age_us": int(fields[1]),
+                                         "misses": int(fields[2])}
+            except ValueError:
+                continue
+        metrics.registry.set_liveness({
+            "interval_ms": interval_ms,
+            "miss_limit": miss_limit,
+            "frames": {"sent": sent, "received": recv_},
+            "miss_events": miss_events,
+            "evictions": evictions,
+            "clock_fanin": fanin,
+            "peers": peers,
+        })
+
+
+_LINK_INT_FIELDS = ("bytes_out", "bytes_in", "sends", "recvs", "stalls",
+                    "short_writes", "send_us_sum", "send_us_count")
+_LINK_RTT_SHM_FIELDS = ("rtt_last_us", "rtt_ewma_us", "rtt_samples",
+                    "shm_bytes_out", "shm_bytes_in", "shm_handoffs",
+                    "shm_us_sum", "shm_us_count")
+
+
+def _sync_engine_links() -> None:
+    """Mirror the engine's per-peer link statistics into the registry's
+    ``links`` section (``HVD_TPU_LINK_STATS``): bytes each way, sends and
+    receives, write stalls, the timed-send histogram and the
+    heartbeat-echo round trip of every TCP link this rank holds.  A
+    state copy, so idempotent."""
+    if _lib is None:
+        return
+    with _stall_sync_lock:
+        parts = _lib.hvd_tpu_link_info().decode().split("|")
+        if len(parts) < 2:
+            return
+        peers = {}
+        for tok in parts[1].split(";"):
+            fields = tok.split(":")
+            if len(fields) != 20:
+                continue
+            try:
+                peers[int(fields[0])] = {
+                    **dict(zip(_LINK_INT_FIELDS,
+                               (int(f) for f in fields[1:9]))),
+                    "send_us_buckets": [int(b) for b in
+                                        fields[9].split(",") if b],
+                    **dict(zip(_LINK_RTT_SHM_FIELDS,
+                               (int(f) for f in fields[10:18]))),
+                    "shm_us_buckets": [int(b) for b in
+                                       fields[18].split(",") if b],
+                    "transport": fields[19],
+                }
+            except ValueError:
+                continue
+        metrics.registry.set_links({"enabled": parts[0] == "1",
+                                    "peers": peers})
+
+
+def _sync_engine_anomalies() -> None:
+    """Mirror the engine's anomaly detector into the registry's
+    ``anomalies`` section: its sigma and period, the verdicts per kind
+    and the bounded verdict log.  A state copy, so idempotent."""
+    if _lib is None:
+        return
+    with _stall_sync_lock:
+        parts = _lib.hvd_tpu_anomaly_info().decode().split("|")
+        if len(parts) < 6:
+            return
+        try:
+            sigma, interval_ms = int(parts[0]), int(parts[1])
+            counts = [int(p) for p in parts[2:6]]
+        except ValueError:
+            return
+        log = []
+        for tok in _lib.hvd_tpu_anomaly_log().decode().split(";"):
+            fields = tok.split("|")
+            if len(fields) != 4:
+                continue
+            try:
+                age_us = int(fields[3])
+            except ValueError:
+                continue
+            log.append({"kind": fields[0], "subject": fields[1],
+                        "detail": fields[2], "age_us": age_us})
+        metrics.registry.set_anomalies({
+            "sigma": sigma,
+            "interval_ms": interval_ms,
+            "verdicts": dict(zip(metrics.ANOMALY_KINDS, counts)),
+            "log": log,
+        })
+
+
 def _sync_engine_autotune() -> None:
     """Mirror the engine's autotuning report into the registry's
     ``autotune`` section (a state copy, so idempotent)."""
@@ -531,33 +935,46 @@ def _sync_engine_autotune() -> None:
         return
     from horovod_tpu_torch.common import autotune as _autotune
 
-    metrics.registry.set_autotune(_autotune.report(_lib))
+    with _stall_sync_lock:
+        metrics.registry.set_autotune(_autotune.report(_lib))
 
 
 def metrics_snapshot() -> dict:
-    """The registry as a plain nested dict: ``cache`` (the engine's
-    negotiation response cache: hits, misses, evictions, size), ``p2p``
-    (the point-to-point plane: sends, recvs, bytes out and in, matched,
-    unmatched, group ops, channels), ``serving`` (request lifecycle,
-    occupancy, KV pool, tenants), ``faults`` (injected faults by action,
-    the restart epoch), ``membership`` (the elastic epoch, size,
-    reshapes, ranks lost and joined), ``state`` (the state plane and the
-    checkpoints), ``compression`` (the wire mode and floor, wire and
-    payload bytes and buckets per mode of each data plane, the
-    error-feedback residuals), ``autotune`` (:func:`autotune_report`'s
-    shape) and ``histograms``.  Callable before ``init()``."""
+    """The registry as a plain nested dict, in the reference's shape:
+    ``ops``, ``bytes`` and ``batches`` (the collective layer, while
+    enabled), ``stalls``, ``faults`` (injected faults, coordinated
+    aborts, the restart epoch), ``skew`` (the coordinator's announce
+    order), ``cache``, ``membership``, ``autotune``, ``serving``,
+    ``flight``, ``compression``, ``topology``, ``control``,
+    ``liveness``, ``links``, ``p2p``, ``anomalies``, ``state`` and
+    ``histograms``; the engine's sections are mirrored in first.  The
+    ``xla`` plane's entries read zeros (the port has no device data
+    plane).  Callable before ``init()``."""
+    _sync_engine_stalls()
+    _sync_engine_aborts()
+    _sync_engine_announces()
     _sync_engine_cache()
-    _sync_engine_p2p()
-    _sync_engine_membership()
-    _sync_engine_compression()
     _sync_engine_autotune()
+    _sync_engine_membership()
+    _sync_engine_flight()
+    _sync_engine_compression()
+    _sync_engine_topology()
+    _sync_engine_control()
+    _sync_engine_liveness()
+    _sync_engine_links()
+    _sync_engine_anomalies()
+    _sync_engine_p2p()
     return metrics.registry.snapshot()
 
 
 def metrics_reset() -> None:
-    """Zero every counter and histogram; engine cache events seen so far
-    do not come back."""
+    """Zero every counter, histogram and stall record (the gate stays as
+    it is); engine events seen so far do not come back."""
+    _sync_engine_stalls()
+    _sync_engine_aborts()
+    _sync_engine_announces()
     _sync_engine_cache()
+    _sync_engine_topology()
     metrics.registry.reset()
 
 
@@ -666,6 +1083,9 @@ class Handle:
         self.name = name
         self._finished = False
         self._finish_lock = threading.Lock()
+        # wait_sec's start, taken at the enqueue; 0.0 while metrics are
+        # off (the one check the hot path pays).
+        self._t0 = time.perf_counter() if metrics.registry.enabled else 0.0
         self.completion_tick: Optional[int] = None
 
     def poll(self) -> bool:
@@ -690,7 +1110,16 @@ class Handle:
     def wait(self, alloc: Optional[Callable] = None):
         """Block until done and return the output tensor; raise the typed
         error of a failed collective.  An allgather's result is copied into
-        ``alloc(shape, dtype)`` (a fresh CPU tensor by default)."""
+        ``alloc(shape, dtype)`` (a fresh CPU tensor by default).
+
+        While metrics are enabled it records, as the reference's does, the
+        engine's negotiation time (``negotiation_sec``: enqueue to the
+        agreed response, stamped by the engine), the bytes out and
+        ``wait_sec``: from the enqueue to the engine's result, the
+        allgather's copy out of the engine included.  For a CUDA tensor
+        the enqueue comes after its copy to the pinned host buffer has
+        landed (``torch/mpi_ops.py``'s staging thread), and the copy back
+        to the card follows this call: ``wait_sec`` holds neither."""
         import torch
 
         with self._finish_lock:
@@ -706,7 +1135,14 @@ class Handle:
                 raise _status_error(code, msg, self.name)
             self.completion_tick = int(
                 _lib.hvd_tpu_completion_tick(self._raw))
+            if self._t0:
+                neg_us = int(_lib.hvd_tpu_negotiation_us(self._raw))
+                if neg_us >= 0:
+                    metrics.registry.observe("negotiation_sec",
+                                             neg_us / 1e6)
             if self._op != OP_ALLGATHER:
+                self._record_done(self._out.numel()
+                                  * self._out.element_size())
                 return self._out
             nbytes = self.result_nbytes()
             shape = ((int(_lib.hvd_tpu_result_dim0(self._raw)),)
@@ -718,9 +1154,16 @@ class Handle:
                     f"shape {shape} of {self._in.dtype}")
             if nbytes:
                 ctypes.memmove(out.data_ptr(), self.result_ptr(), nbytes)
+            self._record_done(nbytes)
             return out
         finally:
             self.release()
+
+    def _record_done(self, nbytes: int) -> None:
+        if self._t0:
+            metrics.registry.record_bytes_out("engine", nbytes)
+            metrics.registry.observe("wait_sec",
+                                     time.perf_counter() - self._t0)
 
 
 def _parse_down_ranks(msg: str) -> list:
@@ -749,6 +1192,13 @@ def _status_error(code: int, msg: str, name: str) -> Exception:
     prefix = f"collective '{name}' failed: "
     if code == ST_PRECONDITION:
         return ValueError(prefix + msg)
+    if code in (ST_RANKS_DOWN, ST_TIMEOUT):
+        # A typed abort: write the postmortem now, while the engine's
+        # flight ring and pending tables still describe the moment of
+        # death (write-once, and it never raises).
+        from horovod_tpu_torch.common import postmortem as _postmortem
+
+        _postmortem.write_postmortem(_postmortem.reason_for_code(code))
     if code == ST_RANKS_DOWN:
         return RanksDownError(prefix + msg, ranks=_parse_down_ranks(msg))
     if code == ST_TIMEOUT:
@@ -798,7 +1248,20 @@ def _enqueue(op: int, tensor, out, name: str, root_rank: int,
         dtypes.torch_to_code(tensor.dtype), root_rank, int(average))
     if raw < 0:
         raise HorovodInternalError("engine is shut down")
+    _record_enqueue(op, tensor)
     return Handle(raw, op, tensor, out, name)
+
+
+_OP_NAMES = {OP_ALLREDUCE: "allreduce", OP_ALLGATHER: "allgather",
+             OP_BROADCAST: "broadcast"}
+
+
+def _record_enqueue(op: int, tensor) -> None:
+    """The collective layer's op and bytes-in counters (not p2p: the
+    ``ops`` section counts collectives only, as the reference's)."""
+    if metrics.registry.enabled:
+        metrics.registry.record_enqueue(
+            "engine", _OP_NAMES[op], tensor.numel() * tensor.element_size())
 
 
 def _dims(shape):
@@ -856,6 +1319,7 @@ def _allreduce_async(tensor, average: bool, name: str, out,
         group.size)
     if raw < 0:
         raise HorovodInternalError("engine is shut down")
+    _record_enqueue(OP_ALLREDUCE, tensor)
     return Handle(raw, OP_ALLREDUCE, tensor, out, name)
 
 

@@ -11,22 +11,31 @@ cache and the steady state, online autotuning (``HVD_TPU_AUTOTUNE``,
 (``HVD_TPU_COMPRESSION``, ``HVD_TPU_COMPRESSION_MIN_BYTES``), elastic
 membership (``HVD_TPU_ELASTIC``, ``HVD_TPU_MIN_NP``, ``HVD_TPU_REJOIN``,
 and ``HVD_TPU_RESTART_EPOCH``, which the engine also reads itself) and
-the process fault injector (``HVD_TPU_FAULT_SPEC``, ``common/faults.py``).
+the process fault injector (``HVD_TPU_FAULT_SPEC``, ``common/faults.py``);
+and the knobs the Python side reads: the metrics registry
+(``HVD_TPU_METRICS``, the per-rank dump ``HVD_TPU_METRICS_FILE``, the
+HTTP monitor ``HVD_TPU_MONITOR_PORT``: ``common/metrics.py``) and the
+postmortem plane (``HVD_TPU_POSTMORTEM_DIR``: ``common/postmortem.py``).
 The reference's ``HOROVOD_*`` spellings are honoured beside the
 ``HVD_TPU_*`` ones, the new names winning.
 
+The engine reads a few variables itself with ``getenv``
+(``ENGINE_SUPPORTED``): the heartbeat detector, the restart epoch, the
+flight recorder's ring size (``HVD_TPU_FLIGHT_EVENTS``, which the
+postmortem plane's Python ring reads too), link statistics
+(``HVD_TPU_LINK_STATS``) and the anomaly detector
+(``HVD_TPU_ANOMALY_SIGMA``, ``HVD_TPU_ANOMALY_INTERVAL_MS``).  ``Config``
+parses them as well, so a bad value fails ``init()`` before the engine
+starts.
+
 The engine's other planes have no port yet: the hierarchical allreduce
 (and the shared-memory transport that rides on it), the coordinator
-tree, the metrics file and monitor, postmortem dumps, the network fault
-injector and the XLA data plane (``HVD_TPU_METRICS`` is honoured as far
-as the port's registry goes: ``common/metrics.py``).  The port passes
-each one's "off" value to the engine,
-and :meth:`Config.unported_requests` names every variable of the
-environment that asks for one of them, which ``init()`` refuses rather
-than ignore.  The engine reads a few variables itself: those of unported
-planes are in ``UNPORTED`` too (their "off" value, such as
-``HVD_TPU_LINK_STATS=0``, is accepted; unset, the engine keeps its own
-defaults, as in the reference), the rest in ``ENGINE_SUPPORTED``.
+tree, the network fault injector and the XLA data plane.  The port
+passes each one's "off" value to the engine, and
+:meth:`Config.unported_requests` names every variable of the environment
+that asks for one of them, which ``init()`` refuses rather than ignore
+(those the engine reads itself are in ``UNPORTED`` too: their "off"
+value is accepted).
 """
 
 from __future__ import annotations
@@ -41,8 +50,7 @@ DEFAULT_STALL_WARNING_SEC = 60.0
 
 # (plane, the variables that ask for it).  The engine reads some of them
 # itself (``getenv`` in ``engine/cc/engine.cc``): the shared-memory
-# transport, the flight recorder, link statistics, the anomaly detector
-# and the network fault injector.
+# transport and the network fault injector.
 UNPORTED = (
     ("hierarchical allreduce", ("HVD_TPU_HIERARCHICAL_ALLREDUCE",
                                 "HOROVOD_HIERARCHICAL_ALLREDUCE")),
@@ -50,20 +58,19 @@ UNPORTED = (
     # The engine arms it only on the two-level topology of the
     # hierarchical allreduce; the port's ranks talk TCP.
     ("shared-memory transport", ("HVD_TPU_SHM", "HVD_TPU_SHM_RING_BYTES")),
-    ("metrics", ("HVD_TPU_METRICS_FILE",
-                 "HVD_TPU_MONITOR_PORT", "HVD_TPU_LINK_STATS",
-                 "HVD_TPU_ANOMALY_SIGMA", "HVD_TPU_ANOMALY_INTERVAL_MS")),
-    ("postmortem dumps", ("HVD_TPU_POSTMORTEM_DIR", "HVD_TPU_FLIGHT_EVENTS")),
     ("fault injection", ("HVD_TPU_NET_FAULT_SPEC",)),
     ("XLA data plane", ("HVD_TPU_XLA_DATA_PLANE", "HOROVOD_XLA_DATA_PLANE")),
 )
 # The other variables the engine reads itself, which the port supports as
 # the reference does: the data plane's heartbeat failure detector
-# (``HVD_TPU_HEARTBEAT_MS``, 0 turns it off; ``HVD_TPU_HEARTBEAT_MISS``)
-# and the restart epoch (which names the shared-memory segment of a
-# relaunched job: read, harmless while that transport is unported).
+# (``HVD_TPU_HEARTBEAT_MS``, 0 turns it off; ``HVD_TPU_HEARTBEAT_MISS``),
+# the restart epoch (which names the shared-memory segment of a relaunched
+# job: read, harmless while that transport is unported), the flight
+# recorder's ring size, link statistics and the anomaly detector.
 ENGINE_SUPPORTED = ("HVD_TPU_HEARTBEAT_MS", "HVD_TPU_HEARTBEAT_MISS",
-                    "HVD_TPU_RESTART_EPOCH")
+                    "HVD_TPU_RESTART_EPOCH", "HVD_TPU_FLIGHT_EVENTS",
+                    "HVD_TPU_LINK_STATS", "HVD_TPU_ANOMALY_SIGMA",
+                    "HVD_TPU_ANOMALY_INTERVAL_MS")
 _OFF = ("", "0", "false", "no", "off", "none")
 
 # Wire-compression spellings -> the engine's CompressionMode codes
@@ -113,8 +120,26 @@ class Config:
     # self-clocks it with no control message; 0 disables.
     steady_threshold: int = 32
     steady_max_period: int = 256
-    # HVD_TPU_METRICS: the registry's gated histogram (common/metrics.py).
+    # The metrics registry (common/metrics.py): ``metrics`` turns on the
+    # gated records (the collective-layer counters and histograms);
+    # a metrics file (a JSON dump per rank at shutdown, ``<file>.<rank>``)
+    # or a monitor port (HTTP /metrics at port + local_rank) implies it.
     metrics: bool = False
+    metrics_file: str = ""
+    monitor_port: Optional[int] = None
+    # The postmortem plane (common/postmortem.py): the directory every
+    # rank writes its rank-<N>.json dump into on a typed abort, an
+    # injected crash or a fatal exception; empty disables.  The flight
+    # recorder's ring size (the engine's and the Python ring's); 0
+    # disables recording.
+    postmortem_dir: str = ""
+    flight_events: int = 512
+    # Per-peer link statistics at the engine's net layer; the anomaly
+    # detector's threshold (median + sigma * MAD; 0 disables it) and its
+    # sweep period (floored at 10 ms by the engine).
+    link_stats: bool = True
+    anomaly_sigma: int = 5
+    anomaly_interval_ms: int = 500
     # The process fault injector's spec (common/faults.py), e.g.
     # "rank=1:crash@op=12; rank=2:hang@op=5".
     fault_spec: str = ""
@@ -158,6 +183,11 @@ class Config:
         """Slots the engine is told to keep: 0 when the cache is off."""
         return self.cache_capacity if self.response_cache else 0
 
+    @property
+    def metrics_enabled(self) -> bool:
+        return bool(self.metrics or self.metrics_file
+                    or self.monitor_port is not None)
+
     @staticmethod
     def unported_requests() -> List[str]:
         """``"plane (VAR=value)"`` for every variable of the environment
@@ -195,6 +225,18 @@ class Config:
             steady_max_period=int(os.environ.get(
                 "HVD_TPU_STEADY_MAX_PERIOD") or 256),
             metrics=_flag(os.environ.get("HVD_TPU_METRICS")),
+            metrics_file=os.environ.get("HVD_TPU_METRICS_FILE", ""),
+            monitor_port=(int(port) if (port := os.environ.get(
+                "HVD_TPU_MONITOR_PORT")) else None),
+            postmortem_dir=os.environ.get("HVD_TPU_POSTMORTEM_DIR", ""),
+            flight_events=int(os.environ.get(
+                "HVD_TPU_FLIGHT_EVENTS") or 512),
+            link_stats=_flag(os.environ.get("HVD_TPU_LINK_STATS", "1")),
+            anomaly_sigma=int(os.environ.get("HVD_TPU_ANOMALY_SIGMA")
+                              if os.environ.get("HVD_TPU_ANOMALY_SIGMA")
+                              not in (None, "") else 5),
+            anomaly_interval_ms=int(os.environ.get(
+                "HVD_TPU_ANOMALY_INTERVAL_MS") or 500),
             fault_spec=os.environ.get("HVD_TPU_FAULT_SPEC", ""),
             restart_epoch=int(os.environ.get(
                 "HVD_TPU_RESTART_EPOCH") or 0),

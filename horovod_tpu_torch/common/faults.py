@@ -5,7 +5,10 @@ says which rank misbehaves, how, and at which of its collectives; the
 injector fires when that collective is submitted, on the caller's thread
 (``common._fault_hook``, called by the collective entry points of
 ``common`` and, for CUDA tensors, by ``torch/mpi_ops.py`` before the
-tensor is staged: never on the staging thread).
+tensor is staged: never on the staging thread).  Before it dies, a
+crashing rank flushes its timeline, writes its postmortem dump
+(``HVD_TPU_POSTMORTEM_DIR``) and its metrics file
+(``HVD_TPU_METRICS_FILE``).
 
 Spec grammar (clauses separated by ``;`` or ``,``)::
 
@@ -132,6 +135,21 @@ class FaultInjector:
 
                 if _common._lib is not None:
                     _common._lib.hvd_tpu_timeline_flush()
+            except Exception:
+                pass
+            # The crashing rank leaves its own postmortem (its flight
+            # ring and pending table, not just the survivors' view of
+            # them), and its metrics file: os._exit skips atexit.
+            try:
+                from horovod_tpu_torch.common import postmortem as _pm
+
+                _pm.write_postmortem("fault_crash")
+            except Exception:
+                pass
+            try:
+                from horovod_tpu_torch import common as _common
+
+                _common._flush_metrics_file(clear=False)
             except Exception:
                 pass
             # Hard death: no shutdown handshake, the sockets drop and the

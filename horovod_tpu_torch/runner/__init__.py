@@ -2,7 +2,7 @@
 
 CLI:  ``python -m horovod_tpu_torch.runner -np 2 -- python train.py``
       (``--min-np``/``--max-np`` elastic, ``--max-restarts``,
-      ``--state-dir``, ``--timeline``, ``--serve``)
+      ``--state-dir``, ``--timeline``, ``--postmortem-dir``, ``--serve``)
 API:  :func:`run_command`, :func:`launch_fn`, :func:`run_membership`,
       :func:`run_elastic`, :func:`membership_succeeded`
 """

@@ -31,11 +31,17 @@ CLI::
     python -m horovod_tpu_torch.runner -np 2 -- python train.py
     python -m horovod_tpu_torch.runner -np 2 --serve [--serve-port P]
     python -m horovod_tpu_torch.runner -np 2 --timeline DIR -- python train.py
+    python -m horovod_tpu_torch.runner -np 2 --postmortem-dir DIR -- python train.py
     python -m horovod_tpu_torch.runner -np 4 --min-np 2 [--max-np 4] \
         [--max-restarts N] [--state-dir DIR] -- python train.py
 
 ``--timeline DIR`` sets ``HVD_TPU_TIMELINE=DIR/`` for every rank, so each
 writes ``DIR/rank<N>.json`` (``tools/timeline_merge.py DIR`` merges them).
+``--postmortem-dir DIR`` creates DIR and sets ``HVD_TPU_POSTMORTEM_DIR``
+for every rank: a rank that dies a typed death writes ``DIR/rank-<N>.json``
+(``tools/postmortem_dump.py DIR`` renders them), and the failure report
+points at the first-failing rank's dump and repeats the coordinator's
+cross-rank diagnosis.
 ``--serve`` defaults the command to the serving entry point (``python -m
 horovod_tpu_torch.serving``); ``--serve-port`` sets the front door's
 ``HVD_TPU_SERVE_PORT``.
@@ -81,8 +87,12 @@ def signal_name(returncode: int) -> str:
     return f"{name} (signal {-returncode})"
 
 
-def failure_report(results: List[RankResult], tail_lines: int = 30) -> str:
-    """Every failing rank, then the first-failing rank's stderr tail."""
+def failure_report(results: List[RankResult], tail_lines: int = 30,
+                   postmortem_dir: Optional[str] = None) -> str:
+    """Every failing rank, then the first-failing rank's stderr tail.
+    With a postmortem dir (``postmortem_dir``, else
+    ``HVD_TPU_POSTMORTEM_DIR``), the first-failing rank's dump and the
+    coordinator's cross-rank diagnosis follow."""
     lines = []
     first = None
     for r in results:
@@ -100,7 +110,60 @@ def failure_report(results: List[RankResult], tail_lines: int = 30) -> str:
         lines.append(f"--- rank {first.rank} stderr (last {len(tail)} "
                      f"lines) ---")
         lines.extend(tail)
+    directory = (postmortem_dir
+                 or os.environ.get("HVD_TPU_POSTMORTEM_DIR") or "")
+    if first is not None and directory:
+        lines.extend(_postmortem_lines(directory, first.rank))
     return "\n".join(lines)
+
+
+def _postmortem_lines(directory: str, first_rank: int) -> List[str]:
+    """The failure report's pointers: the first-failing rank's dump (any
+    rank's when it left none: it may have died before ``init()``), the
+    cross-rank diagnosis and the transports, read from whichever dump
+    carries them (the coordinator broadcast the diagnosis to every
+    survivor)."""
+    import glob
+    import json
+
+    from horovod_tpu_torch.common import postmortem as _postmortem
+
+    lines: List[str] = []
+    path = _postmortem.dump_path_for(directory, first_rank)
+    all_dumps = sorted(glob.glob(os.path.join(directory, "rank-*.json")))
+    if path is None and all_dumps:
+        path = all_dumps[0]
+    if path is None:
+        return lines
+    lines.append(f"postmortem: {path}"
+                 + (f" (+{len(all_dumps) - 1} more rank dump(s); render "
+                    f"with tools/postmortem_dump.py {directory})"
+                    if len(all_dumps) > 1 else ""))
+    diagnosis = None
+    transport = None
+    for candidate in ([path] + [p for p in all_dumps if p != path]):
+        try:
+            with open(candidate) as f:
+                doc = json.load(f)
+        except (OSError, ValueError):
+            continue
+        if transport is None:
+            transport = doc.get("transport")
+        if diagnosis is None:
+            diagnosis = doc.get("diagnosis")
+        if diagnosis and transport:
+            break
+    if diagnosis:
+        lines.append(f"cross-rank diagnosis: {diagnosis}")
+    if transport:
+        peers = transport.get("peers") or {}
+        peer_part = ("  peers: " + "  ".join(
+            f"{p}={peers[p]}" for p in sorted(
+                peers, key=lambda x: int(x) if x.isdigit() else 0))
+            if peers else "")
+        lines.append(f"transport: local hops on "
+                     f"{transport.get('local', 'tcp')}{peer_part}")
+    return lines
 
 
 def make_rank_env(rank: int, size: int, coord: str, data: Sequence[str],
@@ -533,6 +596,14 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                              "DIR (rank0.json, rank1.json, ...; sets "
                              "HVD_TPU_TIMELINE=DIR/); merge them with "
                              "tools/timeline_merge.py")
+    parser.add_argument("--postmortem-dir", default=None, metavar="DIR",
+                        help="every rank writes a rank-<N>.json dump under "
+                             "DIR when it dies a typed death (a "
+                             "coordinated abort, an injected crash, a "
+                             "fatal exception; sets "
+                             "HVD_TPU_POSTMORTEM_DIR); the failure report "
+                             "points at the first-failing rank's.  Render "
+                             "with tools/postmortem_dump.py DIR")
     parser.add_argument("--serve", action="store_true",
                         help="serving mode: the command defaults to python "
                              "-m horovod_tpu_torch.serving; rank 0 opens "
@@ -587,6 +658,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         os.makedirs(args.state_dir, exist_ok=True)
         env = dict(env if env is not None else os.environ)
         env["HVD_TPU_STATE_DIR"] = args.state_dir
+    if args.postmortem_dir:
+        os.makedirs(args.postmortem_dir, exist_ok=True)
+        env = dict(env if env is not None else os.environ)
+        env["HVD_TPU_POSTMORTEM_DIR"] = args.postmortem_dir
+        # The launcher's own failure reports read it too.
+        os.environ["HVD_TPU_POSTMORTEM_DIR"] = args.postmortem_dir
     elastic = args.min_np is not None or args.max_np is not None
     if elastic:
         try:

@@ -94,7 +94,16 @@ def build_train_step(loss_fn: Callable, optimizer: torch.optim.Optimizer,
     the engine and the copies back); work still queued on the GPU when the
     call returns is in neither.  ``step.optimizer`` is the
     ``DistributedOptimizer``.  With a timeline on, each call is a
-    ``TRAIN_STEP`` span on the row ``torch.train_step``.
+    ``TRAIN_STEP`` span on the row ``torch.train_step``.  While the
+    metrics registry is enabled (``HVD_TPU_METRICS=1``, a metrics file or
+    a monitor port) each call's seconds also land in its ``step_sec``
+    histogram.  The reference's interval is the dispatch of a jitted step
+    (JAX returns before the device is done).  Across processes this one
+    is the whole step on the card: the step ends in the loss's allreduce,
+    whose copy to the host waits for every kernel queued before it, the
+    optimizer's included.  At size 1 that allreduce stays on the card,
+    and the interval is the host's issue of the step, as the
+    reference's.
     """
     if not isinstance(optimizer, DistributedOptimizer):
         optimizer = DistributedOptimizer(
@@ -122,7 +131,10 @@ def build_train_step(loss_fn: Callable, optimizer: torch.optim.Optimizer,
         loss = allreduce(loss.detach(), average=True, name="train_step.loss")
         if has_aux:
             aux = _average_aux(aux)
-        step.step_sec.append(time.perf_counter() - t0)
+        dt = time.perf_counter() - t0
+        step.step_sec.append(dt)
+        if _metrics.registry.enabled:
+            _metrics.registry.observe("step_sec", dt)
         return (loss, aux) if has_aux else loss
 
     step.step_sec = []

@@ -88,8 +88,11 @@ def _dp_steps_match_jax(tmp_path, np_, batch):
                 "tgt": torch.from_numpy(tgt).long(),
                 "dims": (T.VOCAB, T.D_MODEL, T.LAYERS, T.HEADS),
                 "steps": T.STEPS}, tmp_path / "init.pt")
+    # One intra-op thread a rank: the ranks share the machine with the
+    # other test workers (PyTorch's default is a thread per core).
     with watched(110, f"the port's DP launch at np {np_}"):
-        _launch(functools.partial(_dp_rank, str(tmp_path)), np_, **ENV)
+        _launch(functools.partial(_dp_rank, str(tmp_path)), np_,
+                OMP_NUM_THREADS="1", **ENV)
     want_losses, want_params = T._jax_run(np_, batch)
     want = T._flat(want_params)
     runs = [torch.load(tmp_path / f"dp{r}.pt") for r in range(np_)]

@@ -429,7 +429,8 @@ def test_membership_metrics_section():
     reg.set_restart_epoch(2)
     reg.record_fault("crash")
     reg.reset()
-    assert reg.snapshot()["faults"] == {"injected": {}, "restart_epoch": 2}
+    assert reg.snapshot()["faults"] == {"injected": {}, "aborts": {},
+                                        "restart_epoch": 2}
 
 
 @pytest.mark.parametrize("package", ["jax", "torch"])

@@ -255,11 +255,11 @@ def test_engine_exports_only_its_c_api():
 
 @pytest.mark.parametrize("var,value,plane", [
     ("HOROVOD_HIERARCHICAL_ALLREDUCE", "1", "hierarchical allreduce"),
-    ("HVD_TPU_METRICS_FILE", "m.json", "metrics"),
+    ("HVD_TPU_COORD_TREE", "1", "coordinator tree"),
     ("HVD_TPU_NET_FAULT_SPEC", "drop", "fault injection"),
-    ("HVD_TPU_FLIGHT_EVENTS", "4096", "postmortem dumps"),
-    ("HVD_TPU_LINK_STATS", "1", "metrics"),
-    ("HVD_TPU_ANOMALY_SIGMA", "3", "metrics"),
+    ("HVD_TPU_XLA_DATA_PLANE", "1", "XLA data plane"),
+    ("HOROVOD_XLA_DATA_PLANE", "1", "XLA data plane"),
+    ("HVD_TPU_SHM_RING_BYTES", "65536", "shared-memory transport"),
     ("HVD_TPU_SHM", "force", "shared-memory transport"),
 ])
 def test_unported_engine_planes_raise(var, value, plane, monkeypatch):
@@ -272,6 +272,64 @@ def test_unported_engine_planes_raise(var, value, plane, monkeypatch):
                        match=f"{plane} \\({var}={value}\\)"):
         hvd_port.init(device="cpu")
     assert not hvd_port.is_initialized()
+
+
+def _accepted_metrics_file(tmp_path, snap):
+    assert snap["enabled"] is True
+    return lambda: os.path.exists(tmp_path / "m.json.0")
+
+
+def _accepted_monitor(tmp_path, snap):
+    from horovod_tpu_torch.common import metrics
+
+    assert snap["enabled"] is True and metrics.monitor_port()
+    return lambda: metrics.monitor_port() is None
+
+
+def _accepted_postmortem(tmp_path, snap):
+    from horovod_tpu_torch.common import postmortem
+
+    assert postmortem.postmortem_dir() == str(tmp_path / "pm")
+    # A clean shutdown writes no dump.
+    return lambda: postmortem.written_path() is None
+
+
+def _reads(section, key, want):
+    def check(tmp_path, snap):
+        assert snap[section][key] == want, snap[section]
+    return check
+
+
+@pytest.mark.parametrize("var,value,check", [
+    ("HVD_TPU_METRICS_FILE", "{tmp}/m.json", _accepted_metrics_file),
+    ("HVD_TPU_MONITOR_PORT", "0", _accepted_monitor),
+    ("HVD_TPU_POSTMORTEM_DIR", "{tmp}/pm", _accepted_postmortem),
+    ("HVD_TPU_FLIGHT_EVENTS", "4096", _reads("flight", "capacity", 4096)),
+    ("HVD_TPU_LINK_STATS", "0", _reads("links", "enabled", False)),
+    ("HVD_TPU_ANOMALY_SIGMA", "3", _reads("anomalies", "sigma", 3)),
+    ("HVD_TPU_ANOMALY_INTERVAL_MS", "250",
+     _reads("anomalies", "interval_ms", 250)),
+])
+def test_ported_engine_planes_init(var, value, check, tmp_path, monkeypatch):
+    """The metrics and postmortem variables, refused until those planes
+    were ported, start a size-1 engine and take effect (the engine reads
+    the flight, link and anomaly knobs itself)."""
+    from horovod_tpu_torch.common import metrics
+
+    for name in ("HVD_TPU_RANK", "HVD_TPU_SIZE", "HVD_TPU_COORD",
+                 "HVD_TPU_DATA", "HVD_TPU_METRICS"):
+        monkeypatch.delenv(name, raising=False)
+    hvd_port.shutdown()
+    monkeypatch.setenv(var, value.format(tmp=tmp_path))
+    hvd_port.init(device="cpu")
+    try:
+        after_shutdown = check(tmp_path, hvd_port.metrics_snapshot())
+    finally:
+        hvd_port.shutdown()
+        metrics.registry.disable()
+        metrics.registry.reset()
+    assert not hvd_port.is_initialized()
+    assert after_shutdown is None or after_shutdown()
 
 
 def test_every_variable_the_engine_reads_is_accounted_for():
