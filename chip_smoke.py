@@ -238,6 +238,52 @@ Phases, one JSON line each:
    from the crash (the launcher's report) and from each survivor's
    failed step to the end of its first step after the restore, step ms
    at 4 and at 3 ranks, peak memory per rank, the phase's seconds.
+13c. ``topology`` — 4 ranks of ``train_dp``'s step (its model, seed and
+   data, 16 x 1024 tokens a rank) on this card, 1 warm-up + 3 timed
+   steps, three runs in turns in one job (a, b, c, c, b, a; the engine
+   restarted with each run's knobs, the parameters and optimizer state
+   put back to the first build's):
+   (a) 2 nodes x 2 faked on
+   this host (the launcher's local rank and size re-shaped before
+   ``init()``) with ``HOROVOD_HIERARCHICAL_ALLREDUCE=1``,
+   ``HVD_TPU_COORD_TREE=1`` and ``HVD_TPU_SHM=force`` (a fall-back to TCP
+   fails ``init()``), (b) the same with ``HVD_TPU_SHM=0``, (c) the flat
+   ring.  After the steps each rank averages a probe through the engine:
+   one float32 tensor per parameter, on the card, small integers from a
+   seed, so that the exact average is known whatever the order of the
+   sums (the parameters of two runs differ in their last bits: the
+   gradient buckets' fusion follows timing, and a ring sums a segment in
+   an order that depends on where it lies).  Gates: within each run the
+   parameters' and the probe's digests equal across ranks; every run's
+   probe equal to the exact average computed here; (a)'s losses within
+   ``train_dp``'s rule of (c)'s (3 x the spread of two size-1 runs of the
+   step, floor 1e-3 relative); rank by rank the ``topology`` section
+   two-level on 2 nodes of 2 with ``local_transport`` ``shm`` in (a),
+   ``tcp`` in (b), flat in (c); ``control`` the tree (depth 2, 2 hosts)
+   in (a) and (b), the star in (c); the node-local peer's link on shm
+   with bytes in (a); K1 and B2 8 x 4 times a rank in each turn.  Printed
+   per run, over its two turns: the
+   slower rank's step median, each rank's ``synchronize`` median, the
+   medians a step of the engine's local reduce-scatter, cross and local
+   allgather ms (its per-bucket topology log), the probe's ms, rank 0's
+   local link (shm bytes and hand-offs), the launches.
+13d. ``chaos`` — the network fault injector through the launcher's
+   ``--net-fault-spec``: ``train_dp``'s step at 2 ranks (1 + 3 steps) under
+   ``link=0-1:flaky=0.05`` and, side by side on the card,
+   ``link=0-1:delay=5``, and 4 ranks of
+   small allreduces on the card under ``partition=0,1/2,3@after=4`` with
+   ``--postmortem-dir`` (heartbeats 100 ms x 10).  Gates: the flaky and
+   slow jobs' probes exact, their parameters equal across ranks, their
+   losses within ``train_dp``'s rule of ``train_dp``'s, no eviction, K1 and
+   B2 launched; link 0-1's timed sends at least 5 ms on average in the
+   slow job (rank 0's and rank 1's views); the partition job exits 7 (the
+   typed error's code), every rank raises ``RanksDownError`` within 15
+   s of its loop's start (whom it names is printed), and every rank
+   leaves its postmortem dump.  Printed: step and ``synchronize`` medians beside
+   ``train_dp``'s, the links' send means, the ``faults`` section (the
+   process injector's firings: empty, as the reference's), the
+   anomalies (a 2-rank job has one link: the detector needs 3 to
+   localize one), the partition's times and the names each side gave.
 14. ``pipeline`` — the pipeline path (``PIPE_HEADLINE``: the main path's
    widths, 2 stages of 4 layers, 4 micro-batches of 4 x 1024) on 2 stage
    ranks of the port's runner sharing this card, through
@@ -350,6 +396,7 @@ O(seq/n) or NVLink transfer times.
 
 from __future__ import annotations
 
+import copy
 import ctypes
 import dataclasses
 import functools
@@ -3435,6 +3482,543 @@ def phase_elastic(script=__file__):
     return per_rank
 
 
+# --- the two-level topology and the network fault injector ---
+
+TOPO_RANKS = 4
+TOPO_NODE = 2  # ranks a node: 2 nodes x 2 faked on this host
+TOPO_WARMUP, TOPO_TIMED = 1, 3
+TOPO_RUNS = {
+    # (a) the two-level allreduce, the coordinator tree, and the node-local
+    # hops on shared memory; force makes a fall-back to TCP an init error.
+    "two_level_shm": {"HOROVOD_HIERARCHICAL_ALLREDUCE": "1",
+                      "HVD_TPU_COORD_TREE": "1", "HVD_TPU_SHM": "force"},
+    # (b) the same on TCP.
+    "two_level_tcp": {"HOROVOD_HIERARCHICAL_ALLREDUCE": "1",
+                      "HVD_TPU_COORD_TREE": "1", "HVD_TPU_SHM": "0"},
+    # (c) the flat ring at 4 ranks.
+    "flat": {},
+}
+# The runs in turns, so that no configuration has the job's start to
+# itself (a, b, c, c, b, a).
+TOPO_TURNS = tuple(TOPO_RUNS) + tuple(reversed(TOPO_RUNS))
+PROBE_SEED = 13
+CHAOS_RANKS = 2
+CHAOS_PARTITION_RANKS = 4
+CHAOS_DELAY_MS = 5
+CHAOS_SPECS = {"flaky": "link=0-1:flaky=0.05",
+               "delay": f"link=0-1:delay={CHAOS_DELAY_MS}",
+               "partition": "partition=0,1/2,3@after=4"}
+CHAOS_ENV = {"HVD_TPU_HEARTBEAT_MS": "100", "HVD_TPU_HEARTBEAT_MISS": "10",
+             "HVD_TPU_COLLECTIVE_TIMEOUT_SEC": "30",
+             "HVD_TPU_KILL_GRACE_SEC": "10"}
+CHAOS_PARTITION_SEC = 15.0  # the reference's bound, from the loop's start
+
+
+def probe_inputs(shapes, rank):
+    """The allreduce probe's inputs on ``rank``: one float32 array per
+    parameter (``shapes``: ``[name, shape]``), small integers from
+    ``RandomState(PROBE_SEED + rank)``, whose sums and averages over 2 or
+    4 ranks are exact in any order."""
+    rng = np.random.RandomState(PROBE_SEED + rank)
+    return [(n, rng.randint(-64, 64, tuple(s), dtype=np.int8).astype(
+        np.float32)) for n, s in shapes]
+
+
+def probe_digest(named):
+    h = hashlib.sha256()
+    for n, a in named:
+        h.update(n.encode())
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def probe_want(shapes, ranks):
+    """The digest of the exact average of every rank's probe."""
+    total = [np.zeros(tuple(s), np.float32) for _, s in shapes]
+    for r in range(ranks):
+        for t, (_, a) in zip(total, probe_inputs(shapes, r)):
+            t += a
+    return probe_digest([(n, t / np.float32(ranks))
+                         for (n, _), t in zip(shapes, total)])
+
+
+def run_probe(model):
+    """Average this rank's probe through the engine from tensors on the
+    card, one named handle per parameter as the optimizer enqueues its
+    gradients (staged, fused): ``(digest, ms, shapes)``."""
+    shapes = [[n, list(p.shape)] for n, p in model.named_parameters()]
+    ins = [(n, torch.from_numpy(a).to(DP_DEVICE))
+           for n, a in probe_inputs(shapes, hvdt.rank())]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    handles = [(n, hvdt.allreduce_async(t, average=True, name=f"probe.{n}"))
+               for n, t in ins]
+    outs = [(n, hvdt.synchronize(h).cpu().numpy()) for n, h in handles]
+    ms = (time.perf_counter() - t0) * 1e3
+    return probe_digest(outs), ms, shapes
+
+
+LINK_COUNTS = ("bytes_out", "send_us_sum", "send_us_count", "stalls",
+               "short_writes", "shm_bytes_out", "shm_bytes_in",
+               "shm_handoffs", "shm_us_sum", "shm_us_count")
+
+
+def link_counts():
+    """This rank's per-peer link counters (cumulative over the process:
+    the engine keeps them across a re-init)."""
+    return {p: {k: v[k] for k in LINK_COUNTS}
+            for p, v in hvd.metrics_snapshot()["links"]["peers"].items()}
+
+
+def engine_sections(links_before):
+    """This rank's ``topology``, ``control``, ``links`` (each peer's
+    transport, which the engine keeps from the last run that armed the
+    rings, and its counters since ``links_before``), ``faults``,
+    ``liveness`` and ``anomalies`` sections, and the medians of the
+    ``topology_*_sec`` histograms (a bucket each: the upper bound of the
+    histogram bucket that holds it)."""
+    snap = hvd.metrics_snapshot()
+    ctrl = snap["control"]
+    links = {p: {"transport": v["transport"],
+                 **{k: v[k] - links_before.get(p, {}).get(k, 0)
+                    for k in LINK_COUNTS}}
+             for p, v in snap["links"]["peers"].items()}
+    an = snap["anomalies"]
+    hists = snap["histograms"]
+    return {"topology": snap["topology"],
+            "bucket_medians_ms": {
+                name: _hist_median_ms(hists[f"topology_{name}_sec"])
+                for name in ("local_rs", "cross", "local_ag")},
+            "control": {k: ctrl[k] for k in ("tree", "depth", "hosts",
+                                             "children")},
+            "links": links, "faults": snap["faults"]["injected"],
+            "evictions": snap["liveness"]["evictions"],
+            "anomalies": {"verdicts": an["verdicts"], "log": an["log"]}}
+
+
+def dp_run(warmup, timed, start=None):
+    """``train_dp``'s model, seed and data on this rank: ``warmup`` +
+    ``timed`` steps with the launch counters zeroed just before, the
+    engine's per-bucket phase times (local reduce-scatter, cross, local
+    allgather) summed over each timed step, the parameters' digest, the
+    probe, and the engine's sections.  ``start``, a ``StartState`` of an
+    earlier run in this process, is put back in place of a new build."""
+    lib = hvd_common._load_lib()
+
+    def logged():
+        return int(lib.hvd_tpu_topology_info().decode().split("|")[8])
+
+    hvd.metrics_reset()  # the histograms of this run alone
+    links_before = link_counts()
+    t_start = time.perf_counter()
+    if start is None:
+        model, step, data = build_lm_step(DP_DEVICE, **HEADLINE, seed=100)
+    else:
+        model, step, data = start.restored()
+    torch.cuda.synchronize()
+    t_build = time.perf_counter()
+    A.reset_launches()
+    losses, step_ms, sync_ms, totals = [], [], [], [logged()]
+    for i in range(warmup + timed):
+        t0 = time.perf_counter()
+        losses.append(step(data).item())
+        dt = (time.perf_counter() - t0) * 1e3
+        totals.append(logged())
+        if i >= warmup:
+            step_ms.append(dt)
+            sync_ms.append(step.sync_sec[-1] * 1e3)
+    torch.cuda.synchronize()
+    launched = dict(A.launches)
+    log = [e.split("|") for e in
+           lib.hvd_tpu_topology_log().decode().split(";") if e]
+    phases = []  # [rs, cross, ag] ms a timed step
+    for lo, hi in zip(totals[warmup:-1], totals[warmup + 1:]):
+        back_lo, back_hi = totals[-1] - lo, totals[-1] - hi
+        if back_lo > len(log):
+            break
+        sel = log[len(log) - back_lo:len(log) - back_hi]
+        phases.append([sum(int(e[k]) for e in sel) / 1e3 for k in (2, 3, 4)])
+    t_steps = time.perf_counter()
+    digest = params_digest(model)
+    probe, probe_ms, shapes = run_probe(model)
+    seconds = {"build": t_build - t_start, "steps": t_steps - t_build,
+               "digest_and_probe": time.perf_counter() - t_steps}
+    return dict(rank=hvdt.rank(), size=hvdt.size(), losses=losses,
+                seconds=seconds,
+                step_ms=step_ms, median_step_ms=statistics.median(step_ms),
+                sync_ms=sync_ms, median_sync_ms=statistics.median(sync_ms),
+                phases_ms=phases, launches=launched, digest=digest,
+                probe=probe, probe_ms=probe_ms, shapes=shapes,
+                **engine_sections(links_before))
+
+
+class StartState:
+    """A built step and its parameters and optimizer state as they were
+    built, put back before each later run: the same seed's start without
+    building and broadcasting anew."""
+
+    def __init__(self):
+        self.model, self.step, self.data = build_lm_step(
+            DP_DEVICE, **HEADLINE, seed=100)
+        self.params = copy.deepcopy(self.model.state_dict())
+        self.opt = copy.deepcopy(self.step.optimizer.state_dict())
+
+    def restored(self):
+        self.model.load_state_dict(self.params)
+        # The optimizer keeps the tensors it is given: a copy each time.
+        self.step.optimizer.load_state_dict(copy.deepcopy(self.opt))
+        return self.model, self.step, self.data
+
+
+def rank_topology():
+    """One rank of ``topology``: ``train_dp``'s step at ``TOPO_RANKS``
+    ranks in each of ``TOPO_TURNS``, the engine started afresh for each
+    with its run's knobs; on nodes of ``TOPO_NODE`` where a run asks for
+    the two-level allreduce (the reference's recipe: the launcher's local
+    rank and size re-shaped before ``init()``)."""
+    r = int(os.environ["HVD_TPU_RANK"])
+    launched = {k: os.environ[k] for k in ("HVD_TPU_LOCAL_RANK",
+                                           "HVD_TPU_LOCAL_SIZE")}
+    out, start = [], None
+    for tag in TOPO_TURNS:
+        knobs = TOPO_RUNS[tag]
+        for run in TOPO_RUNS.values():
+            for k in run:
+                os.environ.pop(k, None)
+        os.environ.update(launched, **knobs)
+        if knobs.get("HOROVOD_HIERARCHICAL_ALLREDUCE"):
+            os.environ["HVD_TPU_LOCAL_SIZE"] = str(TOPO_NODE)
+            os.environ["HVD_TPU_LOCAL_RANK"] = str(r % TOPO_NODE)
+        t0 = time.perf_counter()
+        hvdt.init(device=DP_DEVICE)
+        if start is None:
+            start = StartState()
+        res = dp_run(TOPO_WARMUP, TOPO_TIMED, start)
+        hvdt.shutdown()
+        res["seconds"]["turn"] = time.perf_counter() - t0
+        out.append(res)
+    rank_result(rank=r, turns=out)
+
+
+def rank_chaos():
+    """One rank of ``chaos``' training jobs: ``train_dp``'s step under the
+    launcher's ``--net-fault-spec``; the result goes to this rank's file
+    (the CLI launcher does not capture the ranks' output)."""
+    spec = os.environ["HVD_TPU_NET_FAULT_SPEC"]
+    tag = next(k for k, v in CHAOS_SPECS.items() if v == spec)
+    hvdt.init(device=DP_DEVICE)
+    res = dp_run(TOPO_WARMUP, TOPO_TIMED)
+    hvdt.shutdown()
+    with open(os.path.join(os.environ[SMOKE_DIR_ENV],
+                           f"chaos_{tag}_rank{res['rank']}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def rank_chaos_partition():
+    """One rank of ``chaos``' partition job: small allreduces of tensors
+    on the card until the cut; the typed error, whom it names and when.
+    Exits 7 on the typed error (the reference's test's code), 9 if the
+    job trained through the cut."""
+    hvdt.init(device=DP_DEVICE)
+    r = hvdt.rank()
+    far = {2, 3} if r in (0, 1) else {0, 1}
+    x = torch.ones(8, device=DP_DEVICE)
+    out = {"rank": r, "error": None}
+    t0 = time.monotonic()
+    try:
+        for i in range(400):
+            hvdt.allreduce(x, name=f"p.{i}")
+            time.sleep(0.02)
+    except hvd.RanksDownError as e:
+        out.update(error=type(e).__name__, ranks=sorted(e.ranks),
+                   far_only=bool(e.ranks) and set(e.ranks) <= far,
+                   seconds=time.monotonic() - t0, message=str(e)[:400])
+    with open(os.path.join(os.environ[SMOKE_DIR_ENV],
+                           f"chaos_partition_rank{r}.json"), "w") as f:
+        json.dump(out, f)
+    os._exit(7 if out["error"] else 9)
+
+
+def size1_tolerance(steps):
+    """``train_dp``'s rule for ``steps`` losses of its step: two size-1
+    runs of the step (seed and data of rank 0); per step 3 x their spread
+    (B2's dQ adds are not ordered), at least 1e-3 of the loss."""
+    hvd.init(device=DP_DEVICE)
+    runs = []
+    for _ in range(2):
+        _, step, data = build_lm_step(DP_DEVICE, **HEADLINE, seed=100)
+        runs.append([step(data).item() for _ in range(steps)])
+        del step, data
+        torch.cuda.empty_cache()
+    hvd.shutdown()
+    return runs, [max(3 * abs(a - b), 1e-3 * abs(a)) for a, b in zip(*runs)]
+
+
+def _median(xs):
+    return statistics.median(xs) if xs else None
+
+
+def topology_runs(want_launch, script=__file__):
+    """The ``topology`` job: ``{run: [each turn's ranks' results]}``,
+    gated within each turn."""
+    res = run_ranks("topology", timeout=300, ranks=TOPO_RANKS, script=script)
+    runs = {tag: [] for tag in TOPO_RUNS}
+    for i, tag in enumerate(TOPO_TURNS):
+        xs = [x["turns"][i] for x in res]
+        runs[tag].append(xs)
+        for x in xs:
+            if x["launches"] != want_launch:
+                fail(f"topology {tag} rank {x['rank']} launched "
+                     f"{x['launches']}, want {want_launch}")
+            if x["losses"] != xs[0]["losses"] or not all(
+                    math.isfinite(v) for v in x["losses"]):
+                fail(f"topology {tag}: losses {[y['losses'] for y in xs]}")
+        for key in ("digest", "probe"):
+            if len({x[key] for x in xs}) != 1:
+                fail(f"topology {tag}: the ranks' {key}s differ")
+    return runs
+
+
+def _run_summary(turns):
+    """What a run prints over its turns: the slower rank's step median
+    and each rank's ``synchronize`` median (over both turns' timed
+    steps), the phase medians a step, each turn's steps, probe ms and
+    losses, rank 0's shm traffic, launches."""
+    ranks = range(len(turns[0]))
+    x0 = turns[-1][0]  # rank 0, whose node-local peer is rank 1
+    phases = [p for xs in turns for x in xs for p in x["phases_ms"]]
+    return {
+        "median_step_ms": max(statistics.median(
+            [v for xs in turns for v in xs[r]["step_ms"]]) for r in ranks),
+        "median_sync_ms": [statistics.median(
+            [v for xs in turns for v in xs[r]["sync_ms"]]) for r in ranks],
+        "phase_medians_ms": {
+            name: _median([p[k] for p in phases])
+            for k, name in enumerate(("local_rs", "cross", "local_ag"))},
+        "turns": [{"step_ms": [x["step_ms"] for x in xs],
+                   "probe_ms": [x["probe_ms"] for x in xs],
+                   "losses": xs[0]["losses"], "seconds": xs[0]["seconds"]}
+                  for xs in turns],
+        "topology": x0["topology"], "control": x0["control"],
+        "rank0_bucket_medians_ms": x0["bucket_medians_ms"],
+        "rank0_local_peer_link": (x0["links"].get("1")
+                                  if x0["topology"]["hierarchical"]
+                                  else None),
+        "launches": [x["launches"] for x in turns[0]]}
+
+
+def phase_topology(script=__file__):
+    """``topology``: 4 ranks of ``train_dp``'s step on this card, three
+    runs from the same seed, in turns (a, b, c, c, b, a): (a) two-level on
+    2 nodes x 2 with the coordinator tree and the node-local hops on
+    shared memory (``HVD_TPU_SHM=force``), (b) the same on TCP, (c) the
+    flat ring.  Returns the K1 and B2 launches of (a)'s first turn's
+    ranks and ``train_dp``'s rule for 4 steps."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    steps = TOPO_WARMUP + TOPO_TIMED
+    per = HEADLINE["n_layers"] * steps
+    want = {"flash_fwd": per, "flash_bwd": per, "flash_bwd_dkdv": 0,
+            "flash_bwd_dq": 0}
+    runs = topology_runs(want, script)
+    t_job = time.perf_counter()
+    probe = probe_want(runs["flat"][0][0]["shapes"], TOPO_RANKS)
+    for tag, turns in runs.items():
+        if any(xs[0]["probe"] != probe for xs in turns):
+            fail(f"topology {tag}: the probe's average is not the exact one")
+    t_probe = time.perf_counter()
+    size1, tol = size1_tolerance(steps)
+    seconds = {"job": t_job - t_phase, "probe_want": t_probe - t_job,
+               "size1": time.perf_counter() - t_probe}
+    a, b, c = (runs[t] for t in TOPO_RUNS)
+    off = [[abs(x - y) for x, y in zip(ai[0]["losses"], ci[0]["losses"])]
+           for ai, ci in zip(a, c)]
+    emit("topology", nvidia_smi=smi_line(), ranks=TOPO_RANKS,
+         nodes=TOPO_RANKS // TOPO_NODE, warmup=TOPO_WARMUP, timed=TOPO_TIMED,
+         batch_per_rank=HEADLINE["batch"], seq=HEADLINE["seq"],
+         runs={t: _run_summary(r) for t, r in runs.items()},
+         turns=TOPO_TURNS,
+         probe_bytes=4 * sum(math.prod(s) for _, s in a[0][0]["shapes"]),
+         probe_equal_exact=True,
+         param_digests_equal_across_runs={
+             "two_level_shm_vs_tcp": a[0][0]["digest"] == b[0][0]["digest"],
+             "two_level_shm_turns": a[0][0]["digest"] == a[1][0]["digest"],
+             "two_level_shm_vs_flat": a[0][0]["digest"] == c[0][0]["digest"]},
+         losses_two_level_vs_flat={"abs_err": off, "tolerance": tol,
+                                   "size1": size1},
+         parts_seconds=seconds, seconds=time.perf_counter() - t_phase)
+    for tag, turns, transport in (("two_level_shm", a, "shm"),
+                                  ("two_level_tcp", b, "tcp")):
+        for x in (x for xs in turns for x in xs):
+            topo, ctrl = x["topology"], x["control"]
+            if not (topo["hierarchical"] and topo["nodes"] == 2
+                    and topo["local_size"] == TOPO_NODE
+                    and topo["local_transport"] == transport):
+                fail(f"topology {tag} rank {x['rank']}: topology {topo}")
+            if not (ctrl["tree"] and ctrl["depth"] == 2
+                    and ctrl["hosts"] == 2):
+                fail(f"topology {tag} rank {x['rank']}: control {ctrl}")
+    for x in (x for xs in a for x in xs):
+        local = str(x["rank"] + 1 if x["rank"] % 2 == 0 else x["rank"] - 1)
+        link = x["links"].get(local, {})
+        if link.get("transport") != "shm" or not link.get("shm_bytes_out"):
+            fail(f"topology two_level_shm rank {x['rank']}: the local "
+                 f"peer's link {link}")
+    for x in (x for xs in c for x in xs):
+        if x["topology"]["hierarchical"] or x["control"]["tree"]:
+            fail(f"topology flat rank {x['rank']}: {x['topology']}, "
+                 f"{x['control']}")
+    if any(o > t for turn in off for o, t in zip(turn, tol)):
+        fail(f"topology: two-level losses {[xs[0]['losses'] for xs in a]} "
+             f"against the flat ring's {[xs[0]['losses'] for xs in c]}, "
+             f"tolerance {tol}")
+    return [x["launches"] for x in a[0]], (size1, tol)
+
+
+def chaos_job(tag, ranks, rank_phase, out_dir, extra=(), script=__file__):
+    """The port's launcher CLI with ``--net-fault-spec`` (``CHAOS_SPECS``)
+    over ``ranks`` ranks of ``chip_smoke.py --rank <rank_phase>``: the
+    launcher's exit code and output (kept in OUT_DIR)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, **CHAOS_ENV)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    env[SMOKE_DIR_ENV] = out_dir
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "horovod_tpu_torch.runner", "-np",
+         str(ranks), "--net-fault-spec", CHAOS_SPECS[tag], *extra, "--",
+         sys.executable, os.path.abspath(script), "--rank", rank_phase],
+        capture_output=True, text=True, env=env, timeout=300)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, f"chaos_{tag}_launcher.log"), "w") as f:
+        f.write(proc.stdout + "\n--- stderr ---\n" + proc.stderr)
+    proc.seconds = time.perf_counter() - t0
+    return proc
+
+
+def _chaos_results(tag, ranks, out_dir):
+    res = []
+    for r in range(ranks):
+        path = os.path.join(out_dir, f"chaos_{tag}_rank{r}.json")
+        if not os.path.exists(path):
+            fail(f"chaos {tag}: rank {r} wrote no result")
+        with open(path) as f:
+            res.append(json.load(f))
+    return res
+
+
+def _send_mean_us(link):
+    return (link["send_us_sum"] / link["send_us_count"]
+            if link and link["send_us_count"] else None)
+
+
+def phase_chaos(dp_res, reference, script=__file__):
+    """``chaos``: the network fault injector through the launcher's
+    ``--net-fault-spec``: ``train_dp``'s step at 2 ranks on a flaky link
+    and, side by side, on a slow link, then 4 ranks of small allreduces
+    across a partition with a postmortem dir."""
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="hvdt_chaos_")
+    try:
+        out = {}
+        steps = TOPO_WARMUP + TOPO_TIMED
+        per = HEADLINE["n_layers"] * steps
+        want = {"flash_fwd": per, "flash_bwd": per, "flash_bwd_dkdv": 0,
+                "flash_bwd_dq": 0}
+        size1, tol = reference
+        clean = dp_res[0]["losses"][:steps]
+        probe = None
+        # The two training jobs run side by side on the card (their step
+        # times are printed, not gated).
+        with ThreadPoolExecutor(2) as pool:
+            procs = dict(zip(("flaky", "delay"), pool.map(
+                lambda t: chaos_job(t, CHAOS_RANKS, "chaos", tmp,
+                                    script=script), ("flaky", "delay"))))
+        for tag, proc in procs.items():
+            if proc.returncode != 0:
+                fail(f"chaos {tag}: the job exited {proc.returncode}:\n"
+                     f"{proc.stderr[-4000:]}")
+            res = _chaos_results(tag, CHAOS_RANKS, tmp)
+            if probe is None:
+                probe = probe_want(res[0]["shapes"], CHAOS_RANKS)
+            off = [abs(x - y) for x, y in zip(res[0]["losses"], clean)]
+            links = {x["rank"]: x["links"][str(1 - x["rank"])] for x in res}
+            out[tag] = {
+                "median_step_ms": max(x["median_step_ms"] for x in res),
+                "median_sync_ms": [x["median_sync_ms"] for x in res],
+                "losses": res[0]["losses"], "train_dp_losses": clean,
+                "abs_err": off, "tolerance": tol,
+                "probe_exact": [x["probe"] == probe for x in res],
+                "faults": [x["faults"] for x in res],
+                "evictions": [x["evictions"] for x in res],
+                "send_mean_us": {r: _send_mean_us(v)
+                                 for r, v in links.items()},
+                "links": links,
+                "anomalies": [x["anomalies"] for x in res],
+                "launches": [x["launches"] for x in res],
+                "job_seconds": proc.seconds,
+                "rank0_seconds": res[0]["seconds"]}
+            for x in res:
+                if x["launches"] != want:
+                    fail(f"chaos {tag} rank {x['rank']} launched "
+                         f"{x['launches']}, want {want}")
+                if x["probe"] != probe or x["evictions"]:
+                    fail(f"chaos {tag} rank {x['rank']}: probe exact "
+                         f"{x['probe'] == probe}, evictions "
+                         f"{x['evictions']}")
+                if x["losses"] != res[0]["losses"] or \
+                        x["digest"] != res[0]["digest"]:
+                    fail(f"chaos {tag}: the ranks' losses or parameters "
+                         f"differ")
+            if any(o > t for o, t in zip(off, tol)):
+                fail(f"chaos {tag}: losses {res[0]['losses']} against "
+                     f"train_dp's {clean}, tolerance {tol}")
+            if tag == "delay" and not all(
+                    (m or 0) >= CHAOS_DELAY_MS * 1e3
+                    for m in out[tag]["send_mean_us"].values()):
+                fail(f"chaos delay: link 0-1's timed sends "
+                     f"{out[tag]['send_mean_us']} us, not the "
+                     f"{CHAOS_DELAY_MS} ms the clause injects")
+        pm = os.path.join(tmp, "postmortem")
+        proc = chaos_job("partition", CHAOS_PARTITION_RANKS,
+                         "chaos_partition", tmp,
+                         extra=("--postmortem-dir", pm), script=script)
+        part = _chaos_results("partition", CHAOS_PARTITION_RANKS, tmp)
+        dumps = sorted(os.listdir(pm)) if os.path.isdir(pm) else []
+        for d in dumps:
+            shutil.copy(os.path.join(pm, d),
+                        os.path.join(OUT_DIR, f"chaos_partition_{d}"))
+        out["partition"] = {
+            "launcher_exit": proc.returncode, "dumps": dumps,
+            "job_seconds": proc.seconds,
+            "ranks": [{k: x.get(k) for k in ("rank", "error", "ranks",
+                                             "far_only", "seconds")}
+                      for x in part]}
+        emit("chaos", nvidia_smi=smi_line(), specs=CHAOS_SPECS,
+             heartbeat=CHAOS_ENV, size1=size1,
+             train_dp_median_step_ms=max(x["median_step_ms"]
+                                         for x in dp_res),
+             runs=out, seconds=time.perf_counter() - t_phase)
+        if proc.returncode != 7:
+            fail(f"chaos partition: the launcher exited {proc.returncode}")
+        for x in part:
+            # Whom each rank names is printed, not gated: the clause arms
+            # per process, and a rank that arms late can report its cut
+            # neighbour before its own side goes dark (PERF.md).
+            if x["error"] != "RanksDownError" or \
+                    x["seconds"] >= CHAOS_PARTITION_SEC:
+                fail(f"chaos partition rank {x['rank']}: {x}")
+        if dumps != [f"rank-{r}.json" for r in range(CHAOS_PARTITION_RANKS)]:
+            fail(f"chaos partition: postmortem dumps {dumps}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 # --- the pipeline phases: stage ranks on this card (ROADMAP A.7) ---
 
 
@@ -4518,6 +5102,8 @@ def main():
     metrics_launched = phase_metrics(dp_step_ms, dp_res)
     phase_checkpoint()
     elastic_launched = phase_elastic()
+    topo_launched, size1_reference = phase_topology()
+    phase_chaos(dp_res, size1_reference)
     pipe_entries, pipe_launched = phase_pipeline()
     pipe_dp_launched = phase_pipeline_dp()
     phase_image_models()
@@ -4552,6 +5138,8 @@ def main():
             slot: x[name_] for slot, x in sorted(elastic_launched.items())}
     for name_ in ("flash_fwd", "flash_bwd"):
         entries[name_]["launches_fused_loss"] = fused_launched[name_]
+        entries[name_]["launches_topology_per_rank"] = [
+            x[name_] for x in topo_launched]
     for name_ in ("ring_flash_fwd", "ring_flash_bwd", "phase_closer"):
         entries[name_]["launches_ring_dp_per_rank"] = ring_dp_launched[name_]
     # The rows of head dims 256 and above carry the launches of the
@@ -4573,7 +5161,9 @@ RANK_PHASES = {"collectives": rank_collectives, "train_dp": rank_train_dp,
                "timeline": rank_timeline, "metrics": rank_metrics,
                "metrics_crash": rank_metrics_crash,
                "checkpoint": rank_checkpoint,
-               "elastic": rank_elastic,
+               "elastic": rank_elastic, "topology": rank_topology,
+               "chaos": rank_chaos,
+               "chaos_partition": rank_chaos_partition,
                "resnet_dp": rank_resnet_dp, "serve_dp": rank_serve_dp,
                "pipeline": rank_pipeline, "pipeline_dp": rank_pipeline_dp}
 

@@ -56,9 +56,21 @@ Online autotuning (``HVD_TPU_AUTOTUNE=1``, ``common/autotune.py``): the
 coordinator tunes the fusion threshold, the cycle time and (with
 compression on) the wire mode, and every rank applies each candidate at
 the same tick; :func:`autotune_report` reads it, :func:`autotune_set`
-injects parameters from rank 0.  Not ported: the XLA data plane, the
-network fault injector, the hierarchical allreduce and the coordinator
-tree (``config.UNPORTED``).
+injects parameters from rank 0.
+
+Topology (``common/config.py``): ``HOROVOD_HIERARCHICAL_ALLREDUCE=1``
+runs each allreduce in two levels over the launcher's contiguous-block
+layout (``HVD_TPU_LOCAL_SIZE`` ranks a node: a node-local
+reduce-scatter, one cross-node exchange per local rank, ring or tree by
+``HVD_TPU_CROSS_ALGO_THRESHOLD``, a node-local allgather); the node-local
+hops go through shared-memory rings (``HVD_TPU_SHM``, default ``auto``)
+when the node's ranks share a host.  A multi-node layout builds the
+coordinator tree (``HVD_TPU_COORD_TREE``, default on).
+``HVD_TPU_NET_FAULT_SPEC`` (the launcher's ``--net-fault-spec``) arms the
+engine's network fault injector: dropped, delayed or chopped sends on
+named links, partitions.  The library's ``hvd_tpu_simscale_run`` runs
+a fleet of simulated ranks in one process (the control plane at scale).
+Not ported: the XLA data plane (``config.UNPORTED``).
 """
 
 from __future__ import annotations
@@ -184,6 +196,12 @@ def _load_lib():
                  c_dbl, c_int, c_ll, c_int, c_int, c_ll, c_ll, c_ll, c_ll,
                  c_int, c_ll, c_ll)
         _declare(lib, "hvd_tpu_init_error", c_str)
+        # The engine's in-process fleet of simulated ranks (the control
+        # plane at scale; the reference's signature): size, local size,
+        # ops a cycle, warm and steady cycles, the steady threshold, the
+        # tree, a base port, a timeout, and a buffer for its JSON report.
+        _declare(lib, "hvd_tpu_simscale_run", c_int, c_int, c_int, c_int,
+                 c_int, c_int, c_ll, c_int, c_int, c_dbl, c_str, c_ll)
         _declare(lib, "hvd_tpu_shutdown", None)
         for name in ("hvd_tpu_initialized", "hvd_tpu_rank", "hvd_tpu_size",
                      "hvd_tpu_local_rank", "hvd_tpu_local_size",
@@ -326,9 +344,14 @@ def init(device: Optional[str] = None) -> None:
     of an unported engine plane in the environment raises
     :class:`HorovodInternalError`; an unknown ``HVD_TPU_COMPRESSION``
     mode, a bad ``HVD_TPU_AUTOTUNE_FIX``, a lossy compression pin while
-    compression is off, and a ``cross_algo_threshold`` pin (the port's
-    ring is flat: the knob is dead) raise ``ValueError``, as in the
-    reference.  With
+    compression is off, and a ``cross_algo_threshold`` pin on the flat
+    ring (no ``HOROVOD_HIERARCHICAL_ALLREDUCE``: the knob is dead there)
+    raise ``ValueError``, as in the reference; a bad
+    ``HVD_TPU_NET_FAULT_SPEC`` clause, or ``HVD_TPU_SHM=force`` where the
+    shared-memory rings cannot arm, fails the engine's init
+    (:class:`HorovodInternalError`).  The hierarchical allreduce, its
+    cross-algo threshold and the coordinator tree reach the engine as
+    ``Config`` reads them.  With
     ``HVD_TPU_TIMELINE`` set the engine writes this rank's Chrome trace
     (:func:`_resolve_timeline_path`; a standby, ``HVD_TPU_REJOIN``,
     writes none: its rank is a placeholder until it is admitted).  With
@@ -365,7 +388,9 @@ def init(device: Optional[str] = None) -> None:
             "HVD_TPU_AUTOTUNE_FIX pins a lossy wire-compression mode but "
             "HVD_TPU_COMPRESSION is off; set HVD_TPU_COMPRESSION=bf16|fp8 "
             "(or drop the compression pin).")
-    if fix_algo >= 0:
+    if fix_algo >= 0 and not cfg.hierarchical_allreduce:
+        # The flat ring pins the axis at the environment's value: the pin
+        # would be dropped silently.
         raise ValueError(
             "HVD_TPU_AUTOTUNE_FIX pins cross_algo_threshold but the flat "
             "ring has no cross-node hop; set "
@@ -378,19 +403,16 @@ def init(device: Optional[str] = None) -> None:
     timeline = ("" if cfg.rejoin else
                 _resolve_timeline_path(cfg.timeline_path, ps.rank,
                                        cfg.restart_epoch))
-    # The unported planes at their "off" values: the flat ring (no
-    # hierarchical allreduce, its cross-algo threshold at the reference's
-    # default and unpinned) and no coordinator tree.
     rc = lib.hvd_tpu_init(
         ps.rank, ps.size, ps.local_rank, ps.local_size,
         (ps.coord_endpoint or "").encode(), data.encode(),
         cfg.cycle_time_ms, cfg.fusion_threshold, cfg.stall_warning_sec,
-        timeline.encode(), 0, cfg.collective_timeout_sec,
-        cfg.effective_cache_capacity,
+        timeline.encode(), int(cfg.hierarchical_allreduce),
+        cfg.collective_timeout_sec, cfg.effective_cache_capacity,
         int(cfg.autotune), cfg.autotune_warmup, cfg.autotune_window,
         fix_fusion, fix_cycle, int(cfg.elastic or cfg.rejoin), cfg.min_np,
         int(cfg.rejoin), compression_code, cfg.compression_min_bytes,
-        fix_comp, 64 * 1024, -1, 0,
+        fix_comp, cfg.cross_algo_threshold, fix_algo, int(cfg.coord_tree),
         cfg.steady_threshold, cfg.steady_max_period)
     if rc != 0:
         raise HorovodInternalError(
@@ -741,10 +763,13 @@ def _sync_engine_compression() -> None:
 
 def _sync_engine_topology() -> None:
     """Mirror the engine's topology into the registry's ``topology``
-    section and fold its per-bucket phase log into the ``topology_*_sec``
-    histograms.  The port's ring is flat, so the section reads one node
-    and the log stays empty; the mirror is the reference's all the
-    same."""
+    section (two-level or flat, nodes, local size, the cross-algo
+    threshold, cross-hop ring and tree buckets, local and cross bytes,
+    the node-local hops' transport: ``shm`` once the rings armed, else
+    ``tcp``) and fold its per-bucket phase log (local reduce-scatter,
+    cross exchange, local allgather) into the ``topology_*_sec``
+    histograms.  A state copy; the log is consumed by delta, so repeated
+    snapshots never observe a bucket twice."""
     global _engine_topo_seen
     if _lib is None:
         return
@@ -788,8 +813,9 @@ def _sync_engine_topology() -> None:
 
 def _sync_engine_control() -> None:
     """Mirror the engine's control plane into the registry's ``control``
-    section: the coordinator tree's shape (one level in the port), the
-    steady state's counters and the control frames sent and received.
+    section: the coordinator tree's shape (two levels on a multi-node
+    layout with ``HVD_TPU_COORD_TREE``, else the star), the steady
+    state's counters and the control frames sent and received.
     A state copy, so idempotent."""
     if _lib is None:
         return

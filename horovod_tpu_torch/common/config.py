@@ -19,23 +19,31 @@ postmortem plane (``HVD_TPU_POSTMORTEM_DIR``: ``common/postmortem.py``).
 The reference's ``HOROVOD_*`` spellings are honoured beside the
 ``HVD_TPU_*`` ones, the new names winning.
 
+The engine's topology and transport: the two-level allreduce
+(``HVD_TPU_HIERARCHICAL_ALLREDUCE`` / ``HOROVOD_HIERARCHICAL_ALLREDUCE``:
+a node-local reduce-scatter, one cross-node exchange per local rank, a
+node-local allgather, on the launcher's contiguous-block layout) with its
+ring-vs-tree boundary on the cross hop (``HVD_TPU_CROSS_ALGO_THRESHOLD``),
+and the coordinator tree (``HVD_TPU_COORD_TREE``, on by default: a
+multi-node layout's local-rank-0s aggregate their node's control frames;
+one-host jobs keep the star).
+
 The engine reads a few variables itself with ``getenv``
 (``ENGINE_SUPPORTED``): the heartbeat detector, the restart epoch, the
 flight recorder's ring size (``HVD_TPU_FLIGHT_EVENTS``, which the
 postmortem plane's Python ring reads too), link statistics
-(``HVD_TPU_LINK_STATS``) and the anomaly detector
-(``HVD_TPU_ANOMALY_SIGMA``, ``HVD_TPU_ANOMALY_INTERVAL_MS``).  ``Config``
-parses them as well, so a bad value fails ``init()`` before the engine
-starts.
+(``HVD_TPU_LINK_STATS``), the anomaly detector
+(``HVD_TPU_ANOMALY_SIGMA``, ``HVD_TPU_ANOMALY_INTERVAL_MS``), the network
+fault injector (``HVD_TPU_NET_FAULT_SPEC``: the engine parses the spec at
+init and a bad clause fails ``init()`` with ``bad
+HVD_TPU_NET_FAULT_SPEC``) and the shared-memory transport of the
+two-level allreduce's node-local hops (``HVD_TPU_SHM=auto|off|force``,
+``HVD_TPU_SHM_RING_BYTES``).  ``Config`` parses them as well, so a bad
+value fails ``init()`` before the engine starts.
 
-The engine's other planes have no port yet: the hierarchical allreduce
-(and the shared-memory transport that rides on it), the coordinator
-tree, the network fault injector and the XLA data plane.  The port
-passes each one's "off" value to the engine, and
+The XLA data plane has no port yet (``UNPORTED``):
 :meth:`Config.unported_requests` names every variable of the environment
-that asks for one of them, which ``init()`` refuses rather than ignore
-(those the engine reads itself are in ``UNPORTED`` too: their "off"
-value is accepted).
+that asks for it, which ``init()`` refuses rather than ignore.
 """
 
 from __future__ import annotations
@@ -48,29 +56,22 @@ DEFAULT_FUSION_THRESHOLD = 64 * 1024 * 1024  # bytes, as the reference
 DEFAULT_CYCLE_TIME_MS = 5.0
 DEFAULT_STALL_WARNING_SEC = 60.0
 
-# (plane, the variables that ask for it).  The engine reads some of them
-# itself (``getenv`` in ``engine/cc/engine.cc``): the shared-memory
-# transport and the network fault injector.
+# (plane, the variables that ask for it): the one engine plane the port
+# does not have, the device data plane, which needs a card per rank.
 UNPORTED = (
-    ("hierarchical allreduce", ("HVD_TPU_HIERARCHICAL_ALLREDUCE",
-                                "HOROVOD_HIERARCHICAL_ALLREDUCE")),
-    ("coordinator tree", ("HVD_TPU_COORD_TREE",)),
-    # The engine arms it only on the two-level topology of the
-    # hierarchical allreduce; the port's ranks talk TCP.
-    ("shared-memory transport", ("HVD_TPU_SHM", "HVD_TPU_SHM_RING_BYTES")),
-    ("fault injection", ("HVD_TPU_NET_FAULT_SPEC",)),
     ("XLA data plane", ("HVD_TPU_XLA_DATA_PLANE", "HOROVOD_XLA_DATA_PLANE")),
 )
-# The other variables the engine reads itself, which the port supports as
-# the reference does: the data plane's heartbeat failure detector
+# The variables the engine reads itself, which the port supports as the
+# reference does: the data plane's heartbeat failure detector
 # (``HVD_TPU_HEARTBEAT_MS``, 0 turns it off; ``HVD_TPU_HEARTBEAT_MISS``),
-# the restart epoch (which names the shared-memory segment of a relaunched
-# job: read, harmless while that transport is unported), the flight
-# recorder's ring size, link statistics and the anomaly detector.
+# the restart epoch (which also names a relaunched job's shared-memory
+# segment), the flight recorder's ring size, link statistics, the anomaly
+# detector, the network fault injector and the shared-memory transport.
 ENGINE_SUPPORTED = ("HVD_TPU_HEARTBEAT_MS", "HVD_TPU_HEARTBEAT_MISS",
                     "HVD_TPU_RESTART_EPOCH", "HVD_TPU_FLIGHT_EVENTS",
                     "HVD_TPU_LINK_STATS", "HVD_TPU_ANOMALY_SIGMA",
-                    "HVD_TPU_ANOMALY_INTERVAL_MS")
+                    "HVD_TPU_ANOMALY_INTERVAL_MS", "HVD_TPU_NET_FAULT_SPEC",
+                    "HVD_TPU_SHM", "HVD_TPU_SHM_RING_BYTES")
 _OFF = ("", "0", "false", "no", "off", "none")
 
 # Wire-compression spellings -> the engine's CompressionMode codes
@@ -120,6 +121,35 @@ class Config:
     # self-clocks it with no control message; 0 disables.
     steady_threshold: int = 32
     steady_max_period: int = 256
+    # The two-level allreduce: a node-local reduce-scatter, one cross-node
+    # exchange per local rank over its 1/local_size shard, a node-local
+    # allgather.  Needs the launcher's contiguous-block layout (equal
+    # local_size on every node); the engine agrees it job-wide at init and
+    # keeps the flat ring otherwise.  Buckets under
+    # ``cross_algo_threshold`` bytes take the recursive-doubling tree on
+    # the cross hop, the rest the ring; 0 is the ring always (the
+    # autotuner's fourth axis).
+    hierarchical_allreduce: bool = False
+    cross_algo_threshold: int = 64 * 1024
+    # The coordinator tree (default on): on a multi-node layout each
+    # node's local rank 0 aggregates its node's announces into one frame a
+    # tick and relays the broadcasts down, so rank 0 holds O(nodes)
+    # control sockets.  A one-host layout keeps the star either way.
+    coord_tree: bool = True
+    # The network fault injector's spec, e.g. "link=0-1:drop@after=2",
+    # "partition=0,1/2,3@after=1", "link=1-2:delay=5|jitter=3",
+    # "link=0-3:flaky=0.05".  The engine parses it at init (a bad clause
+    # is a typed init error); it composes with ``fault_spec``.
+    net_fault_spec: str = ""
+    # The node-local hops' transport (auto|off|force, default auto): with
+    # the two-level allreduce, every rank of a node sharing a host hands
+    # its segments through mmap'd shared-memory rings; "off" keeps TCP
+    # (the data are bit-identical either way), "force" makes an init that
+    # cannot arm the rings a typed error.  Agreed job-wide at init.  Each
+    # direction's ring holds ``shm_ring_bytes`` (the engine floors it at
+    # 64 KiB and rounds it up to a power of two).
+    shm: str = "auto"
+    shm_ring_bytes: int = 1 << 20
     # The metrics registry (common/metrics.py): ``metrics`` turns on the
     # gated records (the collective-layer counters and histograms);
     # a metrics file (a JSON dump per rank at shutdown, ``<file>.<rank>``)
@@ -252,4 +282,14 @@ class Config:
             compression=os.environ.get("HVD_TPU_COMPRESSION", "off"),
             compression_min_bytes=int(os.environ.get(
                 "HVD_TPU_COMPRESSION_MIN_BYTES") or 1024),
+            hierarchical_allreduce=_flag(
+                _get("HVD_TPU_HIERARCHICAL_ALLREDUCE",
+                     "HOROVOD_HIERARCHICAL_ALLREDUCE")),
+            cross_algo_threshold=int(os.environ.get(
+                "HVD_TPU_CROSS_ALGO_THRESHOLD") or 64 * 1024),
+            coord_tree=_flag(os.environ.get("HVD_TPU_COORD_TREE", "1")),
+            net_fault_spec=os.environ.get("HVD_TPU_NET_FAULT_SPEC", ""),
+            shm=os.environ.get("HVD_TPU_SHM", "auto") or "auto",
+            shm_ring_bytes=int(os.environ.get(
+                "HVD_TPU_SHM_RING_BYTES") or (1 << 20)),
         )

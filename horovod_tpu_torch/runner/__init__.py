@@ -1,10 +1,12 @@
-"""The port's launcher (the reference's ``hvdrun``, one host).
+"""The port's launcher (the reference's ``hvdrun``).
 
 CLI:  ``python -m horovod_tpu_torch.runner -np 2 -- python train.py``
-      (``--min-np``/``--max-np`` elastic, ``--max-restarts``,
-      ``--state-dir``, ``--timeline``, ``--postmortem-dir``, ``--serve``)
-API:  :func:`run_command`, :func:`launch_fn`, :func:`run_membership`,
-      :func:`run_elastic`, :func:`membership_succeeded`
+      (``-H``/``--port-base`` multi-host, ``--min-np``/``--max-np``
+      elastic, ``--max-restarts``, ``--state-dir``, ``--timeline``,
+      ``--postmortem-dir``, ``--net-fault-spec``, ``--serve``)
+API:  :func:`run_command`, :func:`run_hosts`, :func:`launch_fn`,
+      :func:`run_membership`, :func:`run_elastic`,
+      :func:`membership_succeeded`
 """
 
 from horovod_tpu_torch.runner.launch import (  # noqa: F401
@@ -15,6 +17,7 @@ from horovod_tpu_torch.runner.launch import (  # noqa: F401
     membership_succeeded,
     run_command,
     run_elastic,
+    run_hosts,
     run_membership,
     signal_name,
 )

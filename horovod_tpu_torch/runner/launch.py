@@ -1,6 +1,8 @@
-"""The port's launcher: one host, ``np`` fresh rank processes.
+"""The port's launcher: ``np`` fresh rank processes, on this host or over
+``-H``'s hosts.
 
-Own copy of ``horovod_tpu/runner/launch.py``, trimmed to one host: it
+Own copy of ``horovod_tpu/runner/launch.py`` without TPU pinning and the
+sanitizer preload.  On one host it
 allocates the engine's endpoints (rank 0's coordinator and one data port
 per rank) as one held batch, exports the ``HVD_TPU_*`` environment that
 ``horovod_tpu_torch.common.basics`` reads, starts every rank as a new
@@ -24,7 +26,19 @@ never moves off its own (a reshape renumbers ranks, not devices).
 Several ranks may name one card (``init(device="cuda:0")``).
 :func:`run_elastic` (``--max-restarts``) relaunches the whole job with
 ``HVD_TPU_RESTART_EPOCH`` incremented when it fails, elastic or not.
-Multi-host launches (``hosts.py``) and TPU pinning are not ported.
+
+Multi-host launches (:func:`run_hosts`, ``-H host1:2,host2:2``,
+``--port-base``): ``hosts.plan`` places the ranks in contiguous blocks
+per host on fixed ports; local ranks spawn directly, remote ones over
+``ssh`` with the rank environment inlined.  Each host's ranks pin
+``cuda:local_rank``.  Elastic jobs stay on one host
+(:func:`_check_elastic_support`).  ``--net-fault-spec`` exports
+``HVD_TPU_NET_FAULT_SPEC`` (the engine's network fault injector) to
+every rank.  After every attempt, success included, the launcher unlinks
+the shared-memory segments a job keyed on its coordinator could have
+left under ``/dev/shm`` (:func:`sweep_shm_segments`; the engine unlinks
+its own once every local rank has attached, so only a death inside that
+window leaves one).
 
 CLI::
 
@@ -34,6 +48,10 @@ CLI::
     python -m horovod_tpu_torch.runner -np 2 --postmortem-dir DIR -- python train.py
     python -m horovod_tpu_torch.runner -np 4 --min-np 2 [--max-np 4] \
         [--max-restarts N] [--state-dir DIR] -- python train.py
+    python -m horovod_tpu_torch.runner -np 4 -H host1:2,host2:2 \
+        [--port-base P] -- python train.py
+    python -m horovod_tpu_torch.runner -np 4 \
+        --net-fault-spec 'link=0-1:flaky=0.05' -- python train.py
 
 ``--timeline DIR`` sets ``HVD_TPU_TIMELINE=DIR/`` for every rank, so each
 writes ``DIR/rank<N>.json`` (``tools/timeline_merge.py DIR`` merges them).
@@ -166,6 +184,42 @@ def _postmortem_lines(directory: str, first_rank: int) -> List[str]:
     return lines
 
 
+def _shm_job_prefix(coord: str) -> str:
+    """FNV-1a-32 of the coordinator endpoint, as the engine's
+    ``ShmSegmentName`` (``engine/cc/transport.cc``): every shared-memory
+    segment of the job keyed on ``coord`` is named
+    ``hvdtpu_<hash>_n<node>_e<epoch>`` under ``/dev/shm``."""
+    h = 2166136261
+    for b in coord.encode():
+        h = ((h ^ b) * 16777619) & 0xFFFFFFFF
+    return f"hvdtpu_{h:08x}_"
+
+
+def sweep_shm_segments(coord: str) -> List[str]:
+    """Unlink every ``/dev/shm`` segment of the job keyed on ``coord``;
+    the names removed.  The engine unlinks its segment once all local
+    ranks have attached, and again on every typed death, so a segment
+    is left only by a rank killed between the create and the attach (a
+    SIGKILL from an injected crash).  The launcher sweeps after every
+    attempt, success included (then a no-op), so none outlives a
+    ``--max-restarts`` relaunch or the job.  This host only: remote
+    ranks rely on the engine's own unlinks."""
+    removed: List[str] = []
+    prefix = _shm_job_prefix(coord)
+    try:
+        names = os.listdir("/dev/shm")
+    except OSError:
+        return removed
+    for name in names:
+        if name.startswith(prefix):
+            try:
+                os.unlink(os.path.join("/dev/shm", name))
+                removed.append(name)
+            except OSError:
+                pass
+    return removed
+
+
 def make_rank_env(rank: int, size: int, coord: str, data: Sequence[str],
                   base_env: Optional[Dict[str, str]] = None
                   ) -> Dict[str, str]:
@@ -234,24 +288,71 @@ def run_command(cmd: Sequence[str], np: int,
     failure; per-rank results (stdout only with ``capture``).  Raises
     ``subprocess.TimeoutExpired`` past ``timeout`` seconds."""
     coord, data = allocate_endpoints(np, host)
+    return _spawn_and_wait(
+        cmd, [(list(cmd), make_rank_env(r, np, coord, data, env))
+              for r in range(np)], coord, timeout, capture)
+
+
+def _spawn_and_wait(cmd, argv_envs, coord: str, timeout: float,
+                    capture: bool) -> List[RankResult]:
+    """Start one process per ``(argv, env)``, wait for all (killing all
+    on a failure), then sweep the job's ``/dev/shm`` segments: after a
+    typed abort, an injected crash, a timeout or a clean exit alike."""
     procs, readers = [], []
     try:
-        for r in range(np):
-            p = subprocess.Popen(
-                list(cmd), env=make_rank_env(r, np, coord, data, env),
-                stdout=subprocess.PIPE if capture else None,
-                stderr=subprocess.PIPE, text=True, start_new_session=True)
-            procs.append(p)
-            if capture:
-                readers.append((_PipeReader(p.stdout),
-                                _PipeReader(p.stderr)))
-            else:
-                readers.append((None, _PipeReader(p.stderr, sys.stderr, 80)))
-    except BaseException:
-        for p in procs:
-            _kill_rank(p)
-        raise
-    return _wait_all(cmd, procs, timeout, readers)
+        try:
+            for argv, rank_env in argv_envs:
+                p = subprocess.Popen(
+                    argv, env=rank_env,
+                    stdout=subprocess.PIPE if capture else None,
+                    stderr=subprocess.PIPE, text=True,
+                    start_new_session=True)
+                procs.append(p)
+                if capture:
+                    readers.append((_PipeReader(p.stdout),
+                                    _PipeReader(p.stderr)))
+                else:
+                    readers.append((None,
+                                    _PipeReader(p.stderr, sys.stderr, 80)))
+        except BaseException:
+            for p in procs:
+                _kill_rank(p)
+            raise
+        return _wait_all(cmd, procs, timeout, readers)
+    finally:
+        sweep_shm_segments(coord)
+
+
+def run_hosts(cmd: Sequence[str], np: int, hosts_spec: str,
+              port_base: Optional[int] = None,
+              env: Optional[Dict[str, str]] = None,
+              timeout: float = 3e7, capture: bool = False
+              ) -> List[RankResult]:
+    """Launch ``cmd`` over a host spec (``"host1:2,host2:2"``): local
+    ranks spawn directly, remote ones over ``ssh`` (``hosts.ssh_command``).
+    The keys of ``env`` that differ from this process's environment, and
+    ``PYTHONPATH`` and ``CUDA_VISIBLE_DEVICES``, are inlined into every
+    remote command: ``ssh`` gives a fresh login environment."""
+    from horovod_tpu_torch.runner.hosts import (DEFAULT_PORT_BASE, plan,
+                                                ssh_command)
+
+    placements = plan(np, hosts_spec, port_base or DEFAULT_PORT_BASE)
+    base_env = dict(env if env is not None else os.environ)
+    overrides = {k: v for k, v in base_env.items()
+                 if os.environ.get(k) != v}
+    for key in ("PYTHONPATH", "CUDA_VISIBLE_DEVICES"):
+        if key in base_env:
+            overrides.setdefault(key, base_env[key])
+    argv_envs = []
+    for p in placements:
+        argv = list(cmd) if p.is_local else ssh_command(
+            p, cmd, extra_env=overrides)
+        argv_envs.append((argv, dict(base_env, **p.env)))
+    # This host's segments only: remote hosts clean their own through the
+    # engine's unlinks.
+    return _spawn_and_wait(cmd, argv_envs,
+                           placements[0].env["HVD_TPU_COORD"], timeout,
+                           capture)
 
 
 def _kill_rank(p) -> None:
@@ -335,10 +436,21 @@ def _elastic_bounds(np: int, min_np: Optional[int],
     return min_np, max_np
 
 
+def _check_elastic_support(hosts_spec: Optional[str]) -> None:
+    """Refuse what elastic membership cannot compose with yet, rather
+    than drop it silently: a multi-host launch."""
+    if hosts_spec:
+        raise ValueError(
+            "elastic membership (min_np/max_np) supports single-host "
+            "launches only")
+
+
 def run_elastic(cmd: Sequence[str], np: int, max_restarts: int = 0,
                 env: Optional[Dict[str, str]] = None,
                 timeout: float = 300.0, capture: bool = False,
-                host: str = "127.0.0.1", min_np: Optional[int] = None,
+                host: str = "127.0.0.1", hosts_spec: Optional[str] = None,
+                port_base: Optional[int] = None,
+                min_np: Optional[int] = None,
                 max_np: Optional[int] = None,
                 max_rejoins: Optional[int] = None,
                 report: Callable[[str], None] = None):
@@ -353,13 +465,16 @@ def run_elastic(cmd: Sequence[str], np: int, max_restarts: int = 0,
     :func:`run_membership`: deaths shrink the job in place and standbys
     rejoin, with no relaunch while at least ``min_np`` members survive.
     Only when that fails (rank 0 died, or the survivors fell below
-    ``min_np``) does the attempt count as failed."""
+    ``min_np``) does the attempt count as failed.  With ``hosts_spec``
+    each attempt runs under :func:`run_hosts` (not with elastic
+    membership: ``ValueError``)."""
     if report is None:
         def report(msg):
             print(msg, file=sys.stderr, flush=True)
     elastic = min_np is not None or max_np is not None
     if elastic:
         min_np, max_np = _elastic_bounds(np, min_np, max_np)
+        _check_elastic_support(hosts_spec)
     base_env = dict(env if env is not None else os.environ)
     results: List[RankResult] = []
     deadline = time.monotonic() + timeout
@@ -375,6 +490,10 @@ def run_elastic(cmd: Sequence[str], np: int, max_restarts: int = 0,
                                          timeout=remaining, capture=capture,
                                          host=host, max_rejoins=max_rejoins,
                                          report=report)
+            elif hosts_spec:
+                results = run_hosts(cmd, np, hosts_spec,
+                                    port_base=port_base, env=run_env,
+                                    timeout=remaining, capture=capture)
             else:
                 results = run_command(cmd, np, env=run_env,
                                       timeout=remaining, capture=capture,
@@ -532,12 +651,14 @@ def run_membership(cmd: Sequence[str], np: int,
         for p in procs:
             if p.poll() is None:
                 _kill_rank(p)
+        sweep_shm_segments(coord)
         raise
     if fatal:
         for p in procs:
             if p.poll() is None:
                 _kill_rank(p)
     results = _collect_results(procs, readers, first_dead)
+    sweep_shm_segments(coord)
     if first_dead is None:
         for r in results:
             if r.returncode != 0:
@@ -583,11 +704,20 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
     parser = argparse.ArgumentParser(
         prog="python -m horovod_tpu_torch.runner",
-        description="Launch a horovod_tpu_torch job on this host.")
+        description="Launch a horovod_tpu_torch job.")
     parser.add_argument("-np", "--num-proc", type=int, required=True,
                         help="number of ranks to launch")
+    parser.add_argument("-H", "--hosts", default=None,
+                        help="host spec 'host1:slots,host2:slots': ranks "
+                             "fill the hosts in contiguous blocks; remote "
+                             "hosts are reached over ssh (default: every "
+                             "rank on this host)")
+    parser.add_argument("--port-base", type=int, default=None,
+                        help="with -H: the coordinator's port (the data "
+                             "ports follow it)")
     parser.add_argument("--host", default="127.0.0.1",
-                        help="bind address of the engine's endpoints")
+                        help="bind address of the engine's endpoints (one "
+                             "host)")
     parser.add_argument("--timeout", type=float, default=0.0,
                         help="kill the job after this many seconds (0: "
                              "none)")
@@ -626,6 +756,14 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                              "standby ranks that the job admits at its next "
                              "reshape barrier (default: -np; never with "
                              "--serve)")
+    parser.add_argument("--net-fault-spec", default=None, metavar="SPEC",
+                        help="the engine's network fault injector on every "
+                             "rank (sets HVD_TPU_NET_FAULT_SPEC), e.g. "
+                             "'link=0-1:drop@after=2', "
+                             "'partition=0,1/2,3@after=1', "
+                             "'link=1-2:delay=5|jitter=3', "
+                             "'link=0-3:flaky=0.05'; composes with "
+                             "HVD_TPU_FAULT_SPEC's process faults")
     parser.add_argument("--max-restarts", type=int, default=0,
                         help="when the job fails, kill the survivors and "
                              "relaunch every rank up to N times with "
@@ -658,6 +796,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         os.makedirs(args.state_dir, exist_ok=True)
         env = dict(env if env is not None else os.environ)
         env["HVD_TPU_STATE_DIR"] = args.state_dir
+    if args.net_fault_spec is not None:
+        env = dict(env if env is not None else os.environ)
+        env["HVD_TPU_NET_FAULT_SPEC"] = args.net_fault_spec
     if args.postmortem_dir:
         os.makedirs(args.postmortem_dir, exist_ok=True)
         env = dict(env if env is not None else os.environ)
@@ -668,6 +809,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if elastic:
         try:
             _elastic_bounds(args.num_proc, args.min_np, args.max_np)
+            _check_elastic_support(args.hosts)
         except ValueError as e:
             parser.error(str(e))
     try:
@@ -675,10 +817,15 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             results, restarts = run_elastic(
                 cmd, args.num_proc, max_restarts=args.max_restarts, env=env,
                 timeout=args.timeout or 3e7, host=args.host,
+                hosts_spec=args.hosts, port_base=args.port_base,
                 min_np=args.min_np, max_np=args.max_np,
                 # Serving shrinks but never grows: a standby would join
                 # with empty KV pages.
                 max_rejoins=0 if args.serve else None)
+        elif args.hosts:
+            results, restarts = run_hosts(
+                cmd, args.num_proc, args.hosts, port_base=args.port_base,
+                env=env, timeout=args.timeout or 3e7), 0
         else:
             results, restarts = run_command(
                 cmd, args.num_proc, env=env, timeout=args.timeout or 3e7,

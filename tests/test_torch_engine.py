@@ -19,8 +19,9 @@ every value must be equal bit for bit:
 Also: the typed errors (a shape mismatch across ranks, a rank that exits
 mid-job) against the reference's classes, the isolation of the two
 engine libraries in one process, the exported symbols, the environment
-knobs the port refuses and the engine's heartbeat knobs it supports,
-and the launcher.
+knobs the port refuses (the XLA data plane's) and those it supports (the
+topology, transport and network fault knobs against the reference's
+size-1 outcome; the heartbeat knobs), and the launcher.
 """
 
 import functools
@@ -254,13 +255,8 @@ def test_engine_exports_only_its_c_api():
 
 
 @pytest.mark.parametrize("var,value,plane", [
-    ("HOROVOD_HIERARCHICAL_ALLREDUCE", "1", "hierarchical allreduce"),
-    ("HVD_TPU_COORD_TREE", "1", "coordinator tree"),
-    ("HVD_TPU_NET_FAULT_SPEC", "drop", "fault injection"),
     ("HVD_TPU_XLA_DATA_PLANE", "1", "XLA data plane"),
     ("HOROVOD_XLA_DATA_PLANE", "1", "XLA data plane"),
-    ("HVD_TPU_SHM_RING_BYTES", "65536", "shared-memory transport"),
-    ("HVD_TPU_SHM", "force", "shared-memory transport"),
 ])
 def test_unported_engine_planes_raise(var, value, plane, monkeypatch):
     for name in ("HVD_TPU_RANK", "HVD_TPU_SIZE", "HVD_TPU_COORD",
@@ -272,6 +268,95 @@ def test_unported_engine_planes_raise(var, value, plane, monkeypatch):
                        match=f"{plane} \\({var}={value}\\)"):
         hvd_port.init(device="cpu")
     assert not hvd_port.is_initialized()
+
+
+# The topology and transport knobs, refused until those planes were
+# ported: each starts a size-1 engine of both packages (or fails both
+# inits) the same way.  Last, a cross-algo pin, refused on the flat ring,
+# is taken with the hierarchical allreduce.
+TOPOLOGY_KNOBS = (
+    {"HOROVOD_HIERARCHICAL_ALLREDUCE": "1"},
+    {"HVD_TPU_COORD_TREE": "1"},
+    {"HVD_TPU_SHM_RING_BYTES": "65536"},
+    {"HVD_TPU_SHM": "force"},
+    {"HVD_TPU_NET_FAULT_SPEC": "drop"},
+    {"HOROVOD_HIERARCHICAL_ALLREDUCE": "1",
+     "HVD_TPU_AUTOTUNE_FIX": "cross_algo_threshold=0"},
+)
+_SIZE1_OUTCOME = """
+import json, os, sys
+for k in ("HVD_TPU_RANK", "HVD_TPU_SIZE", "HVD_TPU_COORD", "HVD_TPU_DATA"):
+    os.environ.pop(k, None)
+if sys.argv[1] == "port":
+    import horovod_tpu_torch as hvd
+    init = lambda: hvd.init(device="cpu")
+else:
+    import horovod_tpu as hvd
+    init = hvd.init
+out = []
+for knobs in json.loads(sys.argv[2]):
+    os.environ.update(knobs)
+    try:
+        init()
+        snap = hvd.metrics_snapshot()
+        out.append({"topology": snap["topology"],
+                    "control": snap["control"]})
+        hvd.shutdown()
+    except Exception as exc:
+        out.append({"error": [type(exc).__name__, str(exc)]})
+    for k in knobs:
+        del os.environ[k]
+    assert not hvd.is_initialized()
+print("OUTCOME " + json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def size1_outcomes():
+    """Each package's outcome of every ``TOPOLOGY_KNOBS`` case (a size-1
+    engine's ``topology`` and ``control`` sections, or the class and
+    message of what ``init()`` raised), each package in one fresh process
+    of its own: the engine's counters live as long as its process."""
+    import json
+
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("HVD_TPU_") and not k.startswith("HOROVOD_")}
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env["JAX_PLATFORMS"] = "cpu"
+    out = {}
+    for package in ("port", "ref"):
+        proc = subprocess.run(
+            [sys.executable, "-c", _SIZE1_OUTCOME, package,
+             json.dumps(TOPOLOGY_KNOBS)],
+            env=env, capture_output=True, text=True, timeout=300)
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        line = [ln for ln in proc.stdout.splitlines()
+                if ln.startswith("OUTCOME ")][-1]
+        out[package] = json.loads(line[len("OUTCOME "):])
+    return out
+
+
+@pytest.mark.parametrize("case", range(len(TOPOLOGY_KNOBS)),
+                         ids=[",".join(k) for k in TOPOLOGY_KNOBS])
+def test_topology_and_transport_knobs_reach_the_engine(case,
+                                                       size1_outcomes):
+    """Each knob is accepted as the reference's is: the hierarchical
+    allreduce and the coordinator tree start (at size 1 there is one node:
+    the flat ring's section and the star), the ring size is taken,
+    ``HVD_TPU_SHM=force`` starts as the reference's does at size 1 (the
+    force check is part of the job-wide agreement, which one rank skips;
+    ``tests/test_torch_transport.py`` holds its error at np 2), a bad
+    ``HVD_TPU_NET_FAULT_SPEC`` clause fails the engine's init with the
+    reference's ``bad HVD_TPU_NET_FAULT_SPEC`` message, and a cross-algo
+    pin starts beside the hierarchical allreduce."""
+    got = size1_outcomes["port"][case]
+    assert got == size1_outcomes["ref"][case]
+    if "HVD_TPU_NET_FAULT_SPEC" in TOPOLOGY_KNOBS[case]:
+        assert got["error"][0] == "HorovodInternalError"
+        assert "bad HVD_TPU_NET_FAULT_SPEC" in got["error"][1]
+    else:
+        assert "error" not in got, got
+        assert got["topology"]["nodes"] == 1
 
 
 def _accepted_metrics_file(tmp_path, snap):
@@ -334,7 +419,8 @@ def test_ported_engine_planes_init(var, value, check, tmp_path, monkeypatch):
 
 def test_every_variable_the_engine_reads_is_accounted_for():
     """Each ``getenv`` of the engine's sources is refused as an unported
-    plane's or supported, so none is honoured silently."""
+    plane's or supported, so none is honoured silently; the engine reads
+    no variable of the one unported plane."""
     import glob
     import re
 
@@ -345,11 +431,14 @@ def test_every_variable_the_engine_reads_is_accounted_for():
     for path in glob.glob(os.path.join(cc, "*.[ch]*")):
         with open(path) as f:
             read |= set(re.findall(r'getenv\("([A-Z0-9_]+)"\)', f.read()))
-    assert "HVD_TPU_NET_FAULT_SPEC" in read
+    assert {"HVD_TPU_NET_FAULT_SPEC", "HVD_TPU_SHM",
+            "HVD_TPU_SHM_RING_BYTES"} <= set(config.ENGINE_SUPPORTED)
+    assert [plane for plane, _ in config.UNPORTED] == ["XLA data plane"]
     refused = {v for _, names in config.UNPORTED for v in names}
     assert read - refused - set(config.ENGINE_SUPPORTED) == set()
     assert set(config.ENGINE_SUPPORTED) <= read
     assert not refused & set(config.ENGINE_SUPPORTED)
+    assert not refused & read
 
 
 def _heartbeat_rank(out_dir):
