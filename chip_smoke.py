@@ -284,6 +284,18 @@ Phases, one JSON line each:
    process injector's firings: empty, as the reference's), the
    anomalies (a 2-rank job has one link: the detector needs 3 to
    localize one), the partition's times and the names each side gave.
+13e. ``subset`` — rank-subset init: 3 ranks of the port's runner on
+   this card, of which launcher rank 1 never calls ``init()`` and exits,
+   and ranks 0 and 2 call ``init(comm=[0, 2], device="cuda:0")`` and run
+   ``train_dp``'s step (its seed and split batch, 1 warm-up + 2 timed
+   steps, counters zeroed just before).  Gates: ``size()`` 2 and
+   ``rank()`` 0 and 1 in the list's order; the probe (one small-integer
+   float32 tensor per parameter on the card) averaged exactly; the two
+   members' parameters bit-identical; their losses within
+   ``train_dp``'s rule of ``train_dp``'s own first 3; K1 and B2 launched
+   8 x 3 times on each member, K2 and K3 never.  Printed: the step ms
+   beside ``train_dp``'s and whether the losses equal ``train_dp``'s bit
+   for bit.
 14. ``pipeline`` — the pipeline path (``PIPE_HEADLINE``: the main path's
    widths, 2 stages of 4 layers, 4 micro-batches of 4 x 1024) on 2 stage
    ranks of the port's runner sharing this card, through
@@ -337,6 +349,30 @@ Phases, one JSON line each:
    bit for bit; the averaging check in float32: 3 steps of both ranks on
    rows [32r, 32r + 32) of one batch of 64 against the size-1 step on all
    64 rows, losses and running stats within train_dp's rule.
+18b. ``packed`` — the packed train state (``build_image_step(...,
+   packed=True)``: the small float32 parameters one ``nn.Parameter``, the
+   BN running statistics one buffer, the fused EMA one update of it):
+   ``RESNET_HEADLINE`` unpacked (a) and packed (b) in turns a, b, b, a,
+   2 warm-up + 10 timed steps each.  Gates: losses finite, starting
+   within 1.5 of ln(1000) and falling (``resnet``'s rule), each packed
+   step's loss within 2% of the unpacked run's (bf16: ``compression``'s
+   bound).  Then ResNet-18 in float32 (TF32 off, cuDNN deterministic) at
+   ``tests/test_models.py::test_packed_train_step_bit_identical``'s shape
+   (batch 4, 32 x 32, the 3 x 3 stem, 10 classes), 3 steps packed
+   against unpacked within that test's bounds (loss rtol 1e-5; every
+   parameter and statistic rtol 1e-5, atol 1e-6).  Then the same turns
+   and the same float32 check data-parallel, 2 ranks of the port's runner
+   on this card (each rank its own batch of 64; the float32 check on rows
+   [2r, 2r + 2) of its batch of 4), where packing changes the traffic:
+   gradients and averaged batch statistics through the engine a step.
+   Gates: the same on every rank, and each turn's state digest and losses
+   equal across the ranks.  Printed: step ms and images/s of each turn,
+   the ms in ``synchronize`` and the engine cycles a step, the optimizer
+   kernels' ms of one profiled step of each at size 1
+   (``image_category``'s ``optimizer``), the tensors that
+   ``DistributedOptimizer`` hooks and the aux tensors averaged a step,
+   the host ms of one training forward's issue (the card idle first) and
+   of the packed module's views.
 
 19. ``serve`` — the serving plane at size 1 (``SERVE_HEADLINE``: the LM
    headline's widths in bf16, 8 decode slots, 16-token chunks and KV
@@ -4022,6 +4058,95 @@ def phase_chaos(dp_res, reference, script=__file__):
 # --- the pipeline phases: stage ranks on this card (ROADMAP A.7) ---
 
 
+# --- rank-subset init: init(comm=[...]) on a subset of the launched ranks ---
+
+SUBSET_RANKS = 3  # launched; SUBSET_MEMBERS call init(comm=SUBSET_MEMBERS)
+SUBSET_MEMBERS = [0, 2]
+SUBSET_WARMUP, SUBSET_TIMED = 1, 2
+
+
+def rank_subset():
+    """One launched rank of ``subset``: outside ``SUBSET_MEMBERS`` it
+    never calls ``init()`` and exits; a member calls
+    ``init(comm=SUBSET_MEMBERS)`` and runs ``train_dp``'s step
+    (:func:`dp_run`)."""
+    me = int(os.environ["HVD_TPU_RANK"])
+    if me not in SUBSET_MEMBERS:
+        rank_result(launcher_rank=me, member=False)
+        return
+    hvdt.init(comm=SUBSET_MEMBERS, device=DP_DEVICE)
+    res = dp_run(SUBSET_WARMUP, SUBSET_TIMED)
+    res.update(launcher_rank=me, member=True, local_rank=hvdt.local_rank(),
+               local_size=hvdt.local_size(),
+               threads=hvdt.mpi_threads_supported())
+    hvdt.shutdown()
+    rank_result(**res)
+
+
+def phase_subset(dp_step_ms, dp_res, reference, script=__file__):
+    """``subset``: see the module's docstring.  ``reference`` is
+    ``phase_topology``'s ``(size1, tolerance)``, ``train_dp``'s rule."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    res = run_ranks("subset", timeout=300, ranks=SUBSET_RANKS,
+                    script=script)
+    steps = SUBSET_WARMUP + SUBSET_TIMED
+    per = HEADLINE["n_layers"] * steps
+    want = {"flash_fwd": per, "flash_bwd": per, "flash_bwd_dkdv": 0,
+            "flash_bwd_dq": 0}
+    members = [x for x in res if x["member"]]
+    outside = [x["launcher_rank"] for x in res if not x["member"]]
+    if not members:
+        fail(f"subset: no member reported: {res}")
+    size1, tol = reference
+    clean = dp_res[0]["losses"][:steps]
+    losses = members[0]["losses"]
+    off = [abs(a - b) for a, b in zip(losses, clean)]
+    probe = probe_want(members[0]["shapes"], len(SUBSET_MEMBERS))
+    identity = [[x[k] for k in ("launcher_rank", "rank", "size",
+                                "local_rank", "local_size")]
+                for x in members]
+    emit("subset", nvidia_smi=smi_line(), launched=SUBSET_RANKS,
+         members=SUBSET_MEMBERS, never_initialized=outside,
+         identity_launcher_rank_size_local=identity,
+         mpi_threads_supported=[x["threads"] for x in members],
+         median_step_ms=max(x["median_step_ms"] for x in members),
+         train_dp_median_step_ms=dp_step_ms,
+         step_ms=[x["step_ms"] for x in members],
+         median_sync_ms=[x["median_sync_ms"] for x in members],
+         losses=losses, train_dp_losses=clean,
+         losses_bit_equal_train_dp=losses == clean,
+         losses_vs_train_dp={"abs_err": off, "tolerance": tol[:steps],
+                             "size1": [r[:steps] for r in size1]},
+         probe_exact=all(x["probe"] == probe for x in members),
+         probe_ms=[x["probe_ms"] for x in members],
+         launches=[x["launches"] for x in members], want_launches=want,
+         seconds=time.perf_counter() - t_phase)
+    if outside != [m for m in range(SUBSET_RANKS)
+                   if m not in SUBSET_MEMBERS]:
+        fail(f"subset: the ranks outside the subset reported {outside}")
+    if identity != [[m, i, len(SUBSET_MEMBERS), i, len(SUBSET_MEMBERS)]
+                    for i, m in enumerate(SUBSET_MEMBERS)]:
+        fail(f"subset: identities {identity}")
+    for x in members:
+        if x["launches"] != want:
+            fail(f"subset rank {x['rank']} launched {x['launches']}, "
+                 f"want {want}")
+        if x["probe"] != probe:
+            fail(f"subset rank {x['rank']}: the probe's average is not "
+                 "the exact one")
+        if x["losses"] != losses or not all(math.isfinite(v)
+                                            for v in x["losses"]):
+            fail(f"subset: losses {[y['losses'] for y in members]}")
+        if x["threads"] is not True:
+            fail("subset: mpi_threads_supported() is not True")
+    if len({x["digest"] for x in members}) != 1:
+        fail("subset: the members' parameters differ after the steps")
+    if any(o > t for o, t in zip(off, tol)):
+        fail(f"subset: losses {losses} against train_dp's {clean}, "
+             f"tolerance {tol[:steps]}")
+
+
 def pipeline_kernels():
     """K1 and B2 held against their plain versions at the pipeline's
     micro-batch shape (``check_case``, ``kernel_check``'s rule) and timed
@@ -4682,6 +4807,230 @@ def phase_resnet_dp():
              f"{loss_off} (tolerance {loss_tol}), stats {bad_stats[:5]}")
 
 
+# --- the packed train state (models/packing.py) ---
+
+PACKED_TURNS = (False, True, True, False)  # unpacked a, packed b: a b b a
+PACKED_WARMUP, PACKED_TIMED = 2, 10
+PACKED_HOST_REPS = 20  # host clocks of the views and of a forward's issue
+PACKED_LOSS_RTOL = 0.02  # bf16 losses against the unpacked run's, per step
+# tests/test_models.py::test_packed_train_step_bit_identical's shape; the
+# 3 x 3 stem's ResNet-18 enters the image step's table for the check only.
+PACKED_F32 = dict(model="resnet18_small", batch=4, image=32, num_classes=10,
+                  dtype=torch.float32)
+PACKED_F32_STEPS = 3
+PACKED_F32_RTOL, PACKED_F32_ATOL = 1e-5, 1e-6
+
+
+def small_stem():
+    """``IS.MODELS`` with ``PACKED_F32``'s ResNet-18 (``small_inputs``)
+    as ``resnet18_small``, for the duration of a ``with``."""
+    from unittest import mock
+
+    from horovod_tpu_torch import models as M
+
+    return mock.patch.dict(IS.MODELS, {"resnet18_small": functools.partial(
+        M.ResNet18, small_inputs=True)})
+
+
+def _host_ms(fn, reps=PACKED_HOST_REPS):
+    """The median host-clock ms of ``fn()``, the card idle before each."""
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(out)
+
+
+def _packed_run(packed, profile=False):
+    """``RESNET_HEADLINE`` through the image step on this process, packed
+    or not: the losses, step ms (host clock around ``step(...).item()``),
+    images/s of this rank, the ms in ``synchronize`` and the engine cycles
+    a step, the tensors ``DistributedOptimizer`` hooks and the aux tensors
+    averaged a step, a digest of the final state; the host ms of one
+    training forward's issue (``fwd_issue_ms``, the card idle first: for
+    the packed module the views and ``functional_call``'s swap of 213
+    names included) and of the views alone; with ``profile`` one traced
+    step's kernel ms by class."""
+    headline = IS.RESNET_HEADLINE
+    net, step, data = IS.build_image_step(**headline, packed=packed)
+    hooked = sum(p.requires_grad for g in step.optimizer.param_groups
+                 for p in g["params"])
+    norms = norm_mod.batch_norms(net)
+    losses, step_ms, sync_ms, cycles = [], [], [], []
+    for i in range(PACKED_WARMUP + PACKED_TIMED):
+        t0 = time.perf_counter()
+        losses.append(step(data).item())
+        if i >= PACKED_WARMUP:
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            sync_ms.append(step.train_step.sync_sec[-1] * 1e3)
+            cycles.append(len(set(step.optimizer.last_ticks)))
+    torch.cuda.synchronize()
+    digest = params_digest(net)
+    med = statistics.median(step_ms)
+    res = {"packed": packed, "losses": losses, "step_ms": step_ms,
+           "median_step_ms": med,
+           "images_per_s": headline["batch"] / (med / 1e3),
+           "median_sync_ms": statistics.median(sync_ms),
+           "engine_cycles_per_step": cycles, "hooked_tensors": hooked,
+           "aux_tensors": 1 if packed else 2 * len(norms), "digest": digest,
+           "fwd_issue_ms": _host_ms(lambda: net(data[0])),
+           "views_ms": _host_ms(net.views) if packed else None}
+    if profile:
+        prof = trace_steps(step, data, 1, os.path.join(
+            OUT_DIR, f"packed_trace_{int(packed)}.json"), image_category,
+            keep_trace=False)
+        res["kernel_ms_per_step"] = prof["kernel_ms_per_step"]
+        res["optimizer_kernel_ms"] = prof["kernel_ms_per_step"].get(
+            "optimizer", 0.0)
+    del net, step, data
+    torch.cuda.empty_cache()
+    return res
+
+
+def packed_f32_run(packed, device=None, rows=None):
+    """``PACKED_F32_STEPS`` steps of ``PACKED_F32`` (on ``rows`` of its
+    batch, one batch for every worker, where given): the losses and the
+    final parameters and statistics by the model's own names, on the
+    CPU."""
+    with small_stem():
+        net, step, data = IS.build_image_step(device, **PACKED_F32,
+                                              packed=packed, rows=rows)
+    losses = [step(data).item() for _ in range(PACKED_F32_STEPS)]
+    state = (net.unpacked_state_dict() if packed else net.state_dict())
+    return losses, {k: v.detach().cpu().clone() for k, v in state.items()}
+
+
+def packed_f32_pair(rows=None):
+    """``packed_f32_run`` unpacked and packed, cuDNN deterministic."""
+    deterministic = torch.backends.cudnn.deterministic
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        return {packed: packed_f32_run(packed, rows=rows)
+                for packed in (False, True)}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        torch.backends.cudnn.benchmark = benchmark
+
+
+def packed_f32_worst(a, b):
+    """The largest ``|x - y| / (atol + rtol |y|)`` over the losses and
+    every element of every tensor (pass at <= 1): ``x`` of the packed run
+    ``b``, ``y`` of the unpacked run ``a``; and the losses' own."""
+    (la, sa), (lb, sb) = a, b
+    loss = max(abs(x - y) / (PACKED_F32_RTOL * abs(y))
+               for x, y in zip(lb, la))
+    if set(sa) != set(sb):
+        return loss, float("inf")
+    state = max(((sb[k].double() - sa[k].double()).abs()
+                 / (PACKED_F32_ATOL + PACKED_F32_RTOL
+                    * sa[k].double().abs())).max().item() for k in sa)
+    return loss, state
+
+
+def _packed_summary(runs, f32):
+    """The turns' figures side by side, the bf16 losses' worst relative
+    distance per pair, the float32 check's worst ratios."""
+    a = [r for r in runs if not r["packed"]]
+    b = [r for r in runs if r["packed"]]
+    off = [max(abs(x - y) / abs(y) for x, y in zip(rb["losses"],
+                                                   ra["losses"]))
+           for ra, rb in zip(a, b)]
+    loss_worst, state_worst = packed_f32_worst(f32[False], f32[True])
+    both = {k: {"unpacked": [r[k] for r in a], "packed": [r[k] for r in b]}
+            for k in ("median_step_ms", "images_per_s", "median_sync_ms",
+                      "fwd_issue_ms")}
+    both.update({k: {"unpacked": a[0][k], "packed": b[0][k]}
+                 for k in ("hooked_tensors", "aux_tensors")})
+    both["views_ms"] = [r["views_ms"] for r in b]
+    return {**both, "bf16_loss_rel_err": off,
+            "f32": {"losses": {"unpacked": f32[False][0],
+                               "packed": f32[True][0]},
+                    "loss_worst": loss_worst, "state_worst": state_worst,
+                    "tensors": len(f32[False][1])}}
+
+
+def _hold_packed(where, runs, summary):
+    for r in runs:
+        losses = r["losses"]
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"{where}: non-finite loss {losses}")
+        if abs(losses[0] - math.log(1000)) > 1.5 or losses[-1] >= losses[0]:
+            fail(f"{where}: implausible losses {losses}")
+    off = summary["bf16_loss_rel_err"]
+    if any(o > PACKED_LOSS_RTOL for o in off):
+        fail(f"{where}: bf16 losses off the unpacked run's by {off}")
+    hooked = summary["hooked_tensors"]
+    if hooked["packed"] >= hooked["unpacked"]:
+        fail(f"{where}: {hooked} hooked tensors")
+    f32 = summary["f32"]
+    if f32["loss_worst"] > 1 or f32["state_worst"] > 1:
+        fail(f"{where}: float32 ResNet-18 packed against unpacked over "
+             f"the bounds: losses {f32['loss_worst']}, state "
+             f"{f32['state_worst']}")
+
+
+def rank_packed_dp():
+    """One rank of ``packed``'s data-parallel part: the turns of
+    ``_packed_run`` on this rank's own batch, then the float32 pair on
+    rows [2r, 2r + 2) of ``PACKED_F32``'s batch."""
+    hvdt.init(device=DP_DEVICE)
+    r, n = hvdt.rank(), hvdt.size()
+    runs = [_packed_run(packed) for packed in PACKED_TURNS]
+    per = PACKED_F32["batch"] // n
+    f32 = packed_f32_pair(slice(r * per, (r + 1) * per))
+    rank_result(rank=r, size=n, runs=runs,
+                summary=_packed_summary(runs, f32),
+                f32_digests=[state_digest(f32[p][1]) for p in (False, True)])
+    hvdt.shutdown()
+
+
+def phase_packed():
+    """``packed``: see the module's docstring."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    hvd.init()
+    try:
+        runs = [_packed_run(packed, profile=i < 2)
+                for i, packed in enumerate(PACKED_TURNS)]
+        f32 = packed_f32_pair()
+    finally:
+        hvd.shutdown()
+    summary = _packed_summary(runs, f32)
+    t_dp = time.perf_counter()
+    dp = sorted(run_ranks("packed_dp", timeout=300), key=lambda x: x["rank"])
+    a = [r for r in runs if not r["packed"]]
+    b = [r for r in runs if r["packed"]]
+    emit("packed", nvidia_smi=smi_line(), model=IS.RESNET_HEADLINE["model"],
+         batch=IS.RESNET_HEADLINE["batch"],
+         image=IS.RESNET_HEADLINE["image"], warmup=PACKED_WARMUP,
+         timed=PACKED_TIMED, turns=["b" if p else "a" for p in PACKED_TURNS],
+         runs=runs, size1=summary,
+         optimizer_kernel_ms={"unpacked": a[0]["optimizer_kernel_ms"],
+                              "packed": b[0]["optimizer_kernel_ms"]},
+         bf16_loss_rtol=PACKED_LOSS_RTOL,
+         f32_shape={k: str(v) for k, v in PACKED_F32.items()},
+         dp={"ranks": len(dp), "device": DP_DEVICE,
+             "summary": [x["summary"] for x in dp],
+             "runs": [x["runs"] for x in dp],
+             "seconds": time.perf_counter() - t_dp},
+         seconds=time.perf_counter() - t_phase)
+    _hold_packed("packed", runs, summary)
+    for x in dp:
+        _hold_packed(f"packed dp rank {x['rank']}", x["runs"], x["summary"])
+    for i in range(len(PACKED_TURNS)):
+        if len({x["runs"][i]["digest"] for x in dp}) != 1:
+            fail(f"packed dp turn {i}: the ranks' states differ")
+        if len({tuple(x["runs"][i]["losses"]) for x in dp}) != 1:
+            fail(f"packed dp turn {i}: the ranks' mean losses differ")
+    if len({tuple(x["f32_digests"]) for x in dp}) != 1:
+        fail("packed dp: the ranks' float32 states differ")
+
+
 # --- the serving plane (ROADMAP A.8) ---
 
 SERVE_TENANTS = ("acme", "beta", "gamma")
@@ -5104,11 +5453,13 @@ def main():
     elastic_launched = phase_elastic()
     topo_launched, size1_reference = phase_topology()
     phase_chaos(dp_res, size1_reference)
+    phase_subset(dp_step_ms, dp_res, size1_reference)
     pipe_entries, pipe_launched = phase_pipeline()
     pipe_dp_launched = phase_pipeline_dp()
     phase_image_models()
     phase_resnet()
     phase_resnet_dp()
+    phase_packed()
     serve_launched, f32_tokens = phase_serve()
     phase_serve_dp(f32_tokens)
     entries.update(ring_entries)
@@ -5165,6 +5516,7 @@ RANK_PHASES = {"collectives": rank_collectives, "train_dp": rank_train_dp,
                "chaos": rank_chaos,
                "chaos_partition": rank_chaos_partition,
                "resnet_dp": rank_resnet_dp, "serve_dp": rank_serve_dp,
+               "subset": rank_subset, "packed_dp": rank_packed_dp,
                "pipeline": rank_pipeline, "pipeline_dp": rank_pipeline_dp}
 
 if __name__ == "__main__":

@@ -24,6 +24,13 @@ The package imports nothing of ``horovod_tpu`` and no JAX.
 ``HVD_TPU_POSTMORTEM_DIR`` makes a rank that dies leave its flight
 recorder and pending collectives in ``rank-<N>.json``.
 
+The top level also carries the reference's host collectives
+(``allreduce``, ``allgather``, ``broadcast``, their ``_async`` forms),
+the point-to-point plane (``send``, ``recv``, ``stage_group``) and
+``mpi_threads_supported``, under the reference's names.  They take
+contiguous CPU tensors: a numpy array goes in as ``torch.from_numpy(a)``.
+CUDA tensors go through ``horovod_tpu_torch.torch``'s collectives.
+
 Importing it sets the float32 numerics of the card to what the float32
 reference computes: ``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` both False, so float32 matmuls and
@@ -44,8 +51,15 @@ from horovod_tpu_torch.common import (  # noqa: F401
     HorovodNotInitializedError,
     MembershipChangedError,
     RanksDownError,
+    StageGroup,
+    allgather,
+    allgather_async,
+    allreduce,
+    allreduce_async,
     autotune_report,
     autotune_set,
+    broadcast,
+    broadcast_async,
     compression_report,
     init,
     is_initialized,
@@ -55,10 +69,16 @@ from horovod_tpu_torch.common import (  # noqa: F401
     membership_epoch,
     metrics_reset,
     metrics_snapshot,
+    mpi_threads_supported,
     rank,
+    recv,
+    recv_async,
     restart_epoch,
+    send,
+    send_async,
     shutdown,
     size,
+    stage_group,
     timeline_enabled,
     trace_marker,
     trace_span,
@@ -75,4 +95,10 @@ __all__ = ["HorovodInternalError", "MembershipChangedError", "init",
            "membership_ack", "restart_epoch", "state",
            "compression_report", "autotune_report", "autotune_set",
            "metrics_snapshot", "metrics_reset", "RanksDownError",
-           "CollectiveTimeoutError", "HorovodNotInitializedError"]
+           "CollectiveTimeoutError", "HorovodNotInitializedError",
+           "allreduce", "allreduce_async", "allgather", "allgather_async",
+           "broadcast", "broadcast_async", "send", "send_async", "recv",
+           "recv_async", "stage_group", "StageGroup",
+           "mpi_threads_supported"]
+
+__version__ = "0.1.0"

@@ -3,7 +3,8 @@
 Counterpart of ``horovod_tpu/common/__init__.py``: the engine library
 (``engine/cc``, the port's own copy, built at first use by
 ``engine/build.py``) is loaded with ``ctypes``; ``init``/``shutdown`` start
-and stop it; ``rank``/``size``/``local_rank``/``local_size`` come from it;
+and stop it (``init(comm=...)`` on a subset of the launcher's ranks);
+``rank``/``size``/``local_rank``/``local_size`` come from it;
 ``allreduce_async``/``allgather_async``/``broadcast_async`` enqueue
 named collectives on contiguous CPU tensors through their ``data_ptr()``
 and return a :class:`Handle`; ``allreduce_async(..., group=)`` scopes a
@@ -83,10 +84,11 @@ import os
 import re
 import threading
 import time
-from typing import Callable, List, Optional
+from typing import Any, Callable, List, Optional, Sequence, Union
 
 from horovod_tpu_torch.common import dtypes, metrics
-from horovod_tpu_torch.common.basics import ProcessSet, resolve_process_set
+from horovod_tpu_torch.common.basics import (ProcessSet, comm_ranks,
+                                             resolve_process_set)
 from horovod_tpu_torch.common.config import Config
 
 __all__ = [
@@ -99,6 +101,7 @@ __all__ = [
     "metrics_reset", "timeline_enabled", "trace_span", "trace_marker",
     "restart_epoch", "membership_epoch", "membership_ack",
     "compression_report", "autotune_report", "autotune_set",
+    "mpi_threads_supported",
 ]
 
 # Op codes shared with the engine (engine/cc/wire.h OpType).
@@ -334,11 +337,20 @@ def _resolve_timeline_path(path: str, rank: int, epoch: int = 0) -> str:
     return path if rank == 0 else ""
 
 
-def init(device: Optional[str] = None) -> None:
+def init(comm: Union[Sequence[int], Any, None] = None,
+         device: Optional[str] = None) -> None:
     """Start the engine and pin this process's device.
 
     Identity comes from the launcher's environment (rank 0 of 1 without
-    one).  ``device=None`` pins ``cuda:local_rank()``, which must exist;
+    one).  ``comm`` restricts the job to a subset of the launcher's
+    ranks, in either form the reference's ``hvd.init(comm=...)`` takes:
+    a rank list, or an mpi4py-style communicator (duck-typed through
+    ``Get_size`` and ``allgather``, :func:`~.basics.comm_ranks`; no MPI).
+    The subset is numbered by list position, its coordinator listens on
+    its first member's host, and the engine starts on the members'
+    endpoints only; a launched rank outside it must not call ``init()``
+    (it may simply exit).  ``device=None`` pins ``cuda:local_rank()`` (of
+    the subset), which must exist;
     ``device="cuda:N"`` pins N (several ranks may share it);
     ``device="cpu"`` pins nothing: the CPU tests, on CPU tensors.  A knob
     of an unported engine plane in the environment raises
@@ -369,7 +381,9 @@ def init(device: Optional[str] = None) -> None:
     global _fault_injector, _collective_seq, _metrics_file
     if is_initialized():
         return
-    ps = resolve_process_set()
+    if comm is not None and hasattr(comm, "Get_size"):
+        comm = comm_ranks(comm, resolve_process_set().rank)
+    ps = resolve_process_set(comm)
     asked = Config.unported_requests()
     if asked:
         raise HorovodInternalError(
@@ -550,6 +564,14 @@ def membership_ack() -> None:
     (then resyncs the state)."""
     if _lib is not None:
         _lib.hvd_tpu_membership_ack()
+
+
+def mpi_threads_supported() -> bool:
+    """The reference's compatibility query: there is no MPI, and the
+    engine takes collectives from any thread, so True once initialized;
+    :class:`HorovodNotInitializedError` before ``init()``."""
+    _checked_lib()
+    return True
 
 
 def rank() -> int:

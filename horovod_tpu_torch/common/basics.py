@@ -12,8 +12,11 @@ package).  Identity resolves, in priority order, from:
      horovod_tpu_torch.runner``).
   2. Single-process defaults (rank 0 of 1).
 
-The TPU pod-slice metadata sources of the JAX package have no
-counterpart on a GPU host and are not copied.
+``resolve_process_set(ranks)`` then restricts the job to a subset of the
+launcher's ranks (``hvd.init(comm=[...])``), and :func:`comm_ranks` turns
+an mpi4py-style communicator into that rank list.  The TPU pod-slice
+metadata sources and the ``jax.distributed`` source of the JAX package
+have no counterpart on a GPU host and are not copied.
 """
 
 from __future__ import annotations
@@ -84,10 +87,62 @@ def _from_launcher_env() -> Optional[ProcessSet]:
     return ProcessSet(rank, size, local_rank, local_size, coord, endpoints)
 
 
-def resolve_process_set() -> ProcessSet:
+def comm_ranks(comm, launcher_rank: int) -> list:
+    """The launcher ranks of an mpi4py-style communicator's members, in
+    the communicator's rank order: the rank list ``init(comm=...)``
+    restricts the job to.  Duck-typed, without mpi4py: any object with
+    ``Get_size`` and a pickle-based ``allgather`` works, each member
+    contributing its own launcher rank.  Since
+    :func:`resolve_process_set` numbers the subset by list position,
+    ``hvd.rank() == comm.Get_rank()`` also for a reordered
+    subcommunicator."""
+    ranks = list(comm.allgather(launcher_rank))
+    if len(ranks) != comm.Get_size():
+        raise ValueError(
+            f"communicator allgather returned {len(ranks)} ranks but "
+            f"Get_size() says {comm.Get_size()}")
+    return ranks
+
+
+def _subset(ps: ProcessSet, ranks: Sequence[int]) -> ProcessSet:
+    """``ps`` restricted to the launcher ranks ``ranks``: subset rank i is
+    launcher rank ``ranks[i]`` (MPI ``Group.Incl`` order), the
+    coordinator listens on the first member's data host at the configured
+    coordinator port, and ``local_rank``/``local_size`` count the members
+    on this process's host (by the data endpoints' hosts; without
+    endpoints the subset is one host)."""
+    ranks = list(ranks)
+    if len(set(ranks)) != len(ranks):
+        raise ValueError(f"duplicate ranks in subset {ranks}")
+    if ps.rank not in ranks:
+        raise ValueError(
+            f"process rank {ps.rank} not in requested subset {ranks}")
+    new_rank = ranks.index(ps.rank)
+    endpoints = coord = None
+    if ps.data_endpoints:
+        endpoints = [ps.data_endpoints[r] for r in ranks]
+        port = _env_int("HVD_TPU_COORD_PORT")
+        if port is None and ps.coord_endpoint:
+            port = int(ps.coord_endpoint.rsplit(":", 1)[1])
+        host = endpoints[0].rsplit(":", 1)[0]
+        coord = f"{host}:{port}" if port else ps.coord_endpoint
+        hosts = [e.rsplit(":", 1)[0] for e in endpoints]
+        peers = [i for i, h in enumerate(hosts) if h == hosts[new_rank]]
+        local_rank, local_size = peers.index(new_rank), len(peers)
+    else:
+        local_rank, local_size = new_rank, len(ranks)
+    return ProcessSet(new_rank, len(ranks), local_rank, local_size, coord,
+                      endpoints)
+
+
+def resolve_process_set(ranks: Optional[Sequence[int]] = None
+                        ) -> ProcessSet:
     """This process's identity: the launcher environment, else rank 0 of
-    1."""
+    1; with ``ranks``, restricted to that subset of launcher ranks, which
+    must hold this process's once (``init(comm=[...])``)."""
     ps = _from_launcher_env() or ProcessSet(0, 1, 0, 1)
+    if ranks is not None:
+        ps = _subset(ps, ranks)
     return ps.validate()
 
 

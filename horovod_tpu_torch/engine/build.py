@@ -17,20 +17,31 @@ every C++ symbol exported) keeps two engines with two sets of globals.
 Concurrent builders (pytest workers, the ranks of a job) serialize on a
 lock file; the objects go to a temporary directory beside the library,
 which is renamed into place when linked.  A missing
-compiler or a failed compile raises.  Sanitizer builds are not carried
-over.
+compiler or a failed compile raises.
+
+Sanitized builds (``docs/contributing.md#sanitized-engine-builds``):
+``HVD_TPU_SANITIZE=thread|address|undefined`` compiles the engine with
+``-O1 -fno-omit-frame-pointer -g -fsanitize=<mode>`` in place of ``-O3
+-march=native`` into a library of its own,
+``libhvdtpu_torch.<mode>-<hash>.so``, whose hash (its stamp) covers the
+mode's flags: switching modes never touches the normal cached build.  The
+version script and ``-Bsymbolic`` stay.  An uninstrumented python that
+loads it needs the sanitizer's runtime preloaded:
+:func:`sanitizer_preload` names it, and the launcher puts it first in each
+rank's ``LD_PRELOAD`` (``runner/launch.py``).
 """
 
 from __future__ import annotations
 
 import fcntl
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
 import time
-from typing import Dict
+from typing import Dict, List, Optional
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CC_DIR = os.path.join(_HERE, "cc")
@@ -45,6 +56,15 @@ CXX_FLAGS = ["-std=c++17", "-O3", "-march=native", "-fPIC", "-pthread",
 LINK_FLAGS = ["-shared", "-pthread", "-Wl,-Bsymbolic"]
 # Only the C API leaves the library.
 VERSION_SCRIPT = "{\n  global: hvd_tpu_*;\n  local: *;\n};\n"
+# Sanitizer mode -> (its flags, the runtime an uninstrumented host
+# preloads): one table, so the build and the preload resolver accept the
+# same modes.
+SANITIZERS = {
+    "thread": (["-fsanitize=thread"], "libtsan.so"),
+    "address": (["-fsanitize=address"], "libasan.so"),
+    "undefined": (["-fsanitize=undefined", "-fno-sanitize-recover=all"],
+                  "libubsan.so"),
+}
 
 # Seconds of the last build in this process, and whether it was cached.
 build_info: Dict[str, object] = {}
@@ -61,9 +81,41 @@ def _cpu_line() -> str:
     return ""
 
 
-def lib_path() -> str:
-    """Where the library for the current sources, flags and CPU lives."""
-    h = hashlib.sha256(" ".join(CXX_FLAGS + LINK_FLAGS).encode())
+def sanitize_mode() -> str:
+    """The validated ``HVD_TPU_SANITIZE`` mode ('' for the normal build)."""
+    mode = (os.environ.get("HVD_TPU_SANITIZE") or "").strip().lower()
+    _check_mode(mode)
+    return mode
+
+
+def _check_mode(mode: str) -> None:
+    if mode and mode not in SANITIZERS:
+        raise ValueError(
+            f"HVD_TPU_SANITIZE: unknown sanitizer {mode!r} "
+            f"(want {', '.join(sorted(SANITIZERS))})")
+
+
+def cxx_flags(mode: str = "") -> List[str]:
+    """The compile flags of ``mode``: the sanitizer's swap in for ``-O3
+    -march=native`` (``-O1`` and frame pointers keep reports readable)."""
+    _check_mode(mode)
+    if not mode:
+        return list(CXX_FLAGS)
+    base = [f for f in CXX_FLAGS if f not in ("-O3", "-march=native")]
+    return base + ["-O1", "-fno-omit-frame-pointer", "-g"] + \
+        SANITIZERS[mode][0]
+
+
+def link_flags(mode: str = "") -> List[str]:
+    _check_mode(mode)
+    return LINK_FLAGS + (SANITIZERS[mode][0] if mode else [])
+
+
+def build_stamp(mode: str = "") -> str:
+    """The hash in the library's name: the sources, ``mode``'s flags, the
+    version script and the host CPU's ISA line."""
+    h = hashlib.sha256(" ".join(cxx_flags(mode) + link_flags(mode))
+                       .encode())
     h.update(VERSION_SCRIPT.encode())
     h.update(_cpu_line().encode())
     for name in sorted(os.listdir(CC_DIR)):
@@ -71,10 +123,48 @@ def lib_path() -> str:
             h.update(name.encode())
             with open(os.path.join(CC_DIR, name), "rb") as f:
                 h.update(f.read())
-    return os.path.join(BUILD_DIR, f"{LIB_STEM}-{h.hexdigest()[:16]}.so")
+    return h.hexdigest()[:16]
 
 
-def _compile(out: str, tmpdir: str) -> None:
+def lib_path(mode: Optional[str] = None) -> str:
+    """Where the library of ``mode`` (default ``HVD_TPU_SANITIZE``'s) for
+    the current sources, flags and CPU lives."""
+    if mode is None:
+        mode = sanitize_mode()
+    stem = f"{LIB_STEM}.{mode}" if mode else LIB_STEM
+    return os.path.join(BUILD_DIR, f"{stem}-{build_stamp(mode)}.so")
+
+
+def sanitizer_preload(mode: Optional[str] = None) -> str:
+    """The sanitizer runtime to ``LD_PRELOAD`` into an uninstrumented
+    python that loads ``mode``'s engine: '' for the normal build, or
+    when the compiler cannot name it.  ``ValueError`` on an unknown
+    mode."""
+    if mode is None:
+        mode = sanitize_mode()
+    _check_mode(mode)
+    return _resolve_preload(mode) if mode else ""
+
+
+@functools.lru_cache(maxsize=None)
+def _resolve_preload(mode: str) -> str:
+    """One compiler call per mode and process: the launcher asks once a
+    rank."""
+    cxx = os.environ.get("CXX", "g++")
+    try:
+        out = subprocess.run(
+            [cxx, f"-print-file-name={SANITIZERS[mode][1]}"],
+            capture_output=True, text=True, timeout=30).stdout.strip()
+    except (OSError, subprocess.TimeoutExpired):
+        return ""
+    # An unresolved -print-file-name echoes the bare name back.
+    if not out or os.sep not in out:
+        return ""
+    real = os.path.realpath(out)
+    return real if os.path.exists(real) else ""
+
+
+def _compile(out: str, tmpdir: str, mode: str) -> None:
     cxx = os.environ.get("CXX", "g++")
     if shutil.which(cxx) is None:
         raise RuntimeError(
@@ -83,7 +173,8 @@ def _compile(out: str, tmpdir: str) -> None:
     procs = []
     for src in SOURCES:
         obj = os.path.join(tmpdir, src.replace(".cc", ".o"))
-        cmd = [cxx, *CXX_FLAGS, "-c", os.path.join(CC_DIR, src), "-o", obj]
+        cmd = [cxx, *cxx_flags(mode), "-c", os.path.join(CC_DIR, src),
+               "-o", obj]
         procs.append((src, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
@@ -98,17 +189,19 @@ def _compile(out: str, tmpdir: str) -> None:
     with open(script, "w") as f:
         f.write(VERSION_SCRIPT)
     # -lrt after the objects: shm_open lives in librt on glibc < 2.34.
-    cmd = [cxx, *LINK_FLAGS, f"-Wl,--version-script={script}", "-o", out,
-           *[obj for _, obj, _ in procs], "-lrt"]
+    cmd = [cxx, *link_flags(mode), f"-Wl,--version-script={script}",
+           "-o", out, *[obj for _, obj, _ in procs], "-lrt"]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"failed to link the engine:\n{proc.stderr}")
 
 
 def build() -> str:
-    """The path of the engine library, compiled first if there is none
-    for the current sources.  Raises on failure."""
-    lib = lib_path()
+    """The path of the engine library (``HVD_TPU_SANITIZE``'s variant),
+    compiled first if there is none for the current sources.  Raises on
+    failure."""
+    mode = sanitize_mode()
+    lib = lib_path(mode)
     if os.path.exists(lib):
         build_info.update(seconds=0.0, cached=True)
         return lib
@@ -122,7 +215,7 @@ def build() -> str:
         tmpdir = tempfile.mkdtemp(prefix=f"{LIB_STEM}-", dir=BUILD_DIR)
         try:
             out = os.path.join(tmpdir, os.path.basename(lib))
-            _compile(out, tmpdir)
+            _compile(out, tmpdir, mode)
             os.replace(out, lib)
         finally:
             shutil.rmtree(tmpdir, ignore_errors=True)

@@ -1,8 +1,8 @@
 """The port's launcher: ``np`` fresh rank processes, on this host or over
 ``-H``'s hosts.
 
-Own copy of ``horovod_tpu/runner/launch.py`` without TPU pinning and the
-sanitizer preload.  On one host it
+Own copy of ``horovod_tpu/runner/launch.py`` without TPU pinning.  On one
+host it
 allocates the engine's endpoints (rank 0's coordinator and one data port
 per rank) as one held batch, exports the ``HVD_TPU_*`` environment that
 ``horovod_tpu_torch.common.basics`` reads, starts every rank as a new
@@ -10,7 +10,9 @@ process (``subprocess``: never a fork of a process whose CUDA is up), and
 tears the job down when a rank fails: the others get a grace period to
 exit on the engine's coordinated abort, then are killed with their
 process groups; ranks still running long after one exited 0 are killed
-too (the straggler bound).
+too (the straggler bound).  Under ``HVD_TPU_SANITIZE`` every rank's
+``LD_PRELOAD`` starts with the sanitizer's runtime
+(:func:`make_rank_env`); the launcher's own process is not preloaded.
 
 Elastic membership (:func:`run_membership`, ``--min-np``/``--max-np``):
 a dying rank does not bring the job down; the engine reshapes it around
@@ -230,7 +232,51 @@ def make_rank_env(rank: int, size: int, coord: str, data: Sequence[str],
     env["HVD_TPU_LOCAL_SIZE"] = str(size)
     env["HVD_TPU_COORD"] = coord
     env["HVD_TPU_DATA"] = ",".join(data)
+    if env.get("HVD_TPU_SANITIZE"):
+        _preload_sanitizer(env)
     return env
+
+
+def _preload_sanitizer(env: Dict[str, str]) -> None:
+    """A sanitized engine (``HVD_TPU_SANITIZE``, ``engine/build.py``) needs
+    its sanitizer's runtime preloaded into the rank: put it first in the
+    rank's ``LD_PRELOAD``, before what is there already (a runtime after
+    another preload, or none, and the rank dies loading the engine).  The
+    launcher's own process is never preloaded.  A bad mode, or a runtime
+    the compiler cannot name while ``LD_PRELOAD`` names no sanitizer of
+    its own, warns once a job; the rank's ``build()`` then raises or its
+    load fails."""
+    from horovod_tpu_torch.engine.build import sanitizer_preload
+
+    mode = env["HVD_TPU_SANITIZE"]
+    preload = None  # a bad mode
+    try:
+        preload = sanitizer_preload(mode.strip().lower())
+    except ValueError as exc:
+        _warn_sanitize_once(str(exc))
+    existing = env.get("LD_PRELOAD", "")
+    if preload:
+        if preload not in existing.split(":"):
+            env["LD_PRELOAD"] = (f"{preload}:{existing}" if existing
+                                 else preload)
+    elif preload == "" and not any(runtime in existing for runtime in
+                                   ("tsan", "asan", "ubsan")):
+        _warn_sanitize_once(
+            f"HVD_TPU_SANITIZE={mode} is set but the sanitizer runtime "
+            "could not be resolved (g++ -print-file-name); ranks will "
+            "likely fail to load the instrumented engine. Install the "
+            "libsanitizer runtime or set LD_PRELOAD yourself.")
+
+
+# Sanitizer warnings already printed: make_rank_env runs once a rank, the
+# job needs each warning once.
+_sanitize_warned: set = set()
+
+
+def _warn_sanitize_once(msg: str) -> None:
+    if msg not in _sanitize_warned:
+        _sanitize_warned.add(msg)
+        print(f"horovod_tpu_torch.runner: WARNING: {msg}", file=sys.stderr)
 
 
 def allocate_endpoints(size: int, host: str = "127.0.0.1"):

@@ -35,6 +35,7 @@ from horovod_tpu_torch.common import (  # noqa: F401  (re-exported)
     local_size,
     membership_ack,
     membership_epoch,
+    mpi_threads_supported,
     rank,
     restart_epoch,
     shutdown,
@@ -75,6 +76,7 @@ __all__ = [
     "MembershipChangedError", "ElasticState", "run_elastic",
     "membership_epoch", "membership_ack", "restart_epoch", "state",
     "compression_report", "autotune_report", "autotune_set",
+    "mpi_threads_supported",
 ]
 
 

@@ -29,6 +29,15 @@ side, side, channels)`` made in NHWC with numpy and handed over as NCHW in
 ``channels_last`` memory (the same bytes), labels
 ``RandomState(data_seed + 1).randint(0, classes, batch)``.
 
+With ``packed=True`` (``bench.py``'s image-step default, ``BENCH_PACKED``)
+the model runs as a :class:`~horovod_tpu_torch.models.packing.PackedModule`:
+its small float32 parameters (BN scales and biases, the head's bias) are
+one ``nn.Parameter`` vector and its BN running statistics one buffer, so
+``DistributedOptimizer``, the broadcasts and the allreduce of the
+statistics see the big leaves plus one vector per tree (ResNet-50: 55
+parameters in place of 161), and the fused EMA is one update of the
+packed statistics by the packed batch statistics.
+
 ``RESNET_HEADLINE`` (ResNet-50, batch 64, 224 x 224, bf16, 1000 classes:
 ``BASELINE.json``'s metric) and ``RESNET101_HEADLINE`` (``bench.py``'s
 default model) are shared by ``chip_smoke.py`` and the benchmarks.
@@ -45,6 +54,7 @@ import torch.nn.functional as F
 from horovod_tpu_torch import common as hvd
 from horovod_tpu_torch import models as M
 from horovod_tpu_torch.models import norm as norm_mod
+from horovod_tpu_torch.models.packing import PackedModule
 from horovod_tpu_torch.torch import (DistributedOptimizer,
                                      broadcast_optimizer_state,
                                      broadcast_parameters)
@@ -109,7 +119,8 @@ def build_image_step(device=None, *, model: str = "resnet50", batch: int,
                      dtype=torch.bfloat16, fused_ema: Optional[bool] = None,
                      axis_name: Optional[str] = None, lr: float = 0.1,
                      momentum: float = 0.9, seed: int = 0,
-                     data_seed: Optional[int] = None, rows=None):
+                     data_seed: Optional[int] = None, rows=None,
+                     packed: bool = False):
     """``(model, step, data)``: ``step(data)`` is one training step on this
     worker's fixed batch ``data = (images, labels)`` and returns the mean
     loss across workers; ``hvd.init()`` comes first.  ``device=None`` means
@@ -118,7 +129,10 @@ def build_image_step(device=None, *, model: str = "resnet50", batch: int,
     ``seed``); rank 0's weights, buffers and optimizer state are broadcast
     before the first step.  ``rows`` takes those rows of one batch drawn
     from ``data_seed`` on every worker instead.  ``step.train_step`` is
-    the :func:`build_train_step` step (``sync_sec``, ``optimizer``)."""
+    the :func:`build_train_step` step (``sync_sec``, ``optimizer``).
+    ``packed=True`` returns the model as a :class:`PackedModule` (its
+    :meth:`~PackedModule.unpacked_state_dict` has the model's own
+    names)."""
     rank, size = hvd.rank(), hvd.size()
     device = hvd.resolve_device(device)
     image = image or default_image(model)
@@ -128,6 +142,8 @@ def build_image_step(device=None, *, model: str = "resnet50", batch: int,
                             device=device)
     norms = norm_mod.batch_norms(net)
     fused = bool(norms) and norms[0].fused_ema
+    if packed:
+        net = PackedModule(net)
     opt = DistributedOptimizer(
         torch.optim.SGD(net.parameters(), lr=lr, momentum=momentum),
         named_parameters=net.named_parameters())
@@ -137,12 +153,15 @@ def build_image_step(device=None, *, model: str = "resnet50", batch: int,
 
     def loss_fn(m, b):
         loss = F.cross_entropy(m(b[0]).float(), b[1])
-        stats = (norm_mod.last_batch_stats(m) if fused
-                 else norm_mod.running_stats(m))
+        if packed:
+            stats = [_packed_batch_stats(m) if fused else m.stats]
+        else:
+            stats = (norm_mod.last_batch_stats(m) if fused
+                     else norm_mod.running_stats(m))
         return loss, stats
 
     train_step = build_train_step(loss_fn, opt, net, has_aux=True)
-    running = norm_mod.running_stats(net)
+    running = [net.stats] if packed else norm_mod.running_stats(net)
 
     def step(data):
         loss, stats = train_step(data)
@@ -160,3 +179,18 @@ def build_image_step(device=None, *, model: str = "resnet50", batch: int,
                            seed_data if rows is not None
                            else seed_data + rank, rows, device)
     return net, step, data
+
+
+def _packed_batch_stats(packed: PackedModule):
+    """The raw batch statistics of every fused-EMA BN's last training
+    forward, as one vector in the layout of ``packed.stats``."""
+    stats = {}
+    for path, m in packed.module.named_modules():
+        if isinstance(m, norm_mod.BatchNorm):
+            if m.batch_mean is None:
+                raise RuntimeError("a BatchNorm has no batch statistics "
+                                   "(no training forward yet)")
+            prefix = f"{path}." if path else ""
+            stats[prefix + "running_mean"] = m.batch_mean
+            stats[prefix + "running_var"] = m.batch_var
+    return packed.pack_buffers(stats)

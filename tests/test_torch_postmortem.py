@@ -59,19 +59,30 @@ def _env(**overrides):
 
 
 # The same program in both packages: six named allreduces, the survivors
-# catching the typed abort.
+# catching the typed abort; ``coord_pending()`` lists the names in the
+# coordinator's pending table (on rank 0).
 _PROGRAM = {
     "ref": ("import numpy as np, horovod_tpu as hvd\n"
-            "from horovod_tpu.common import {error}\n"
+            "from horovod_tpu.common import {error}, _load_lib\n"
+            "from horovod_tpu.common.postmortem import "
+            "_parse_pending_coord\n"
             "hvd.init()\n"
             "def op(i):\n"
             "    hvd.allreduce(np.ones(8, np.float32), name=f'step.{{i}}')\n"),
     "port": ("import torch, horovod_tpu_torch as hvd\n"
-             "from horovod_tpu_torch.common import {error}, allreduce\n"
+             "from horovod_tpu_torch.common import {error}, allreduce, "
+             "_load_lib\n"
+             "from horovod_tpu_torch.common.postmortem import "
+             "_parse_pending_coord\n"
              "hvd.init(device='cpu')\n"
              "def op(i):\n"
              "    allreduce(torch.ones(8), name=f'step.{{i}}')\n"),
 }
+_PROGRAM = {pkg: prog + (
+    "def coord_pending():\n"
+    "    raw = _load_lib().hvd_tpu_coord_pending_info().decode()\n"
+    "    return [p['name'] for p in _parse_pending_coord(raw)]\n")
+    for pkg, prog in _PROGRAM.items()}
 
 
 def _run(pkg, body, np_, error, timeout=90.0, **env):
@@ -200,8 +211,31 @@ def test_engine_flight_recorder_records(monkeypatch):
 # Crash and hang postmortems at np 2, against the reference's.
 # ---------------------------------------------------------------------------
 
-_CRASH_BODY = ("try:\n"
+# Rank 1 crashes at its op 3 only once the coordinator (rank 0) lists
+# rank 0's step.3 as pending: a thread of rank 0 touches the mark file
+# then.  Without that order, rank 1's death can reach rank 0's engine
+# before rank 0 announces step.3, and rank 0's dump then holds no pending
+# step.3 (seen under six busy pytest workers).
+_CRASH_BODY = ("import os, threading, time\n"
+               "mark = os.environ['PM_TEST_MARK']\n"
+               "def announced(name):\n"
+               "    while name not in coord_pending():\n"
+               "        time.sleep(0.001)\n"
+               "    open(mark, 'w').close()\n"
+               "def wait_for_mark():\n"
+               "    deadline = time.monotonic() + 60\n"
+               "    while not os.path.exists(mark):\n"
+               "        if time.monotonic() > deadline:\n"
+               "            raise SystemExit(8)\n"
+               "        time.sleep(0.005)\n"
+               "try:\n"
                "    for i in range(6):\n"
+               "        if i == 3 and hvd.rank() == 0:\n"
+               "            threading.Thread(target=announced,\n"
+               "                             args=('step.3',),\n"
+               "                             daemon=True).start()\n"
+               "        elif i == 3:\n"
+               "            wait_for_mark()\n"
                "        op(i)\n"
                "    raise SystemExit(9)\n"
                "except RanksDownError:\n"
@@ -215,7 +249,8 @@ def _crash_run(pkg, tmp_path):
                    HVD_TPU_FAULT_SPEC="rank=1:crash@op=3",
                    HVD_TPU_COLLECTIVE_TIMEOUT_SEC="20",
                    HVD_TPU_POSTMORTEM_DIR=pm,
-                   HVD_TPU_METRICS_FILE=metrics_file)
+                   HVD_TPU_METRICS_FILE=metrics_file,
+                   PM_TEST_MARK=str(tmp_path / f"announced_{pkg}"))
     codes = {r.rank: r.returncode for r in results}
     assert codes == {0: 0, 1: 43}, [(r.rank, r.returncode, r.stderr[-800:])
                                     for r in results]
