@@ -67,8 +67,9 @@ Phases, one JSON line each:
    288, 512 (64 batch-heads x seq 1024) and 1000 (32 x 1024, run padded
    to 1024) in bf16 (K1, K2 and K3 on the wgmma bodies of
    ``flash_wide_sm90.cuh``), at 512 in fp16, and in f32 at 288 (8
-   batch-heads x seq 512, and 64 x 1024) and 512 (64 x 1024): K1 and K2
-   on the 3xTF32 wgmma bodies of ``flash_wide_f32_sm90.cuh``, K3 on SIMT;
+   batch-heads x seq 512, and 64 x 1024) and 512 (64 x 1024): K1, K2 and
+   K3 on the 3xTF32 wgmma bodies of ``flash_wide_f32_sm90.cuh`` (K3's
+   column CTAs one thread block cluster sharing S and dP);
    f32 bounds at the 3xTF32 rate (``PEAK_FLOPS``), and K1 and B2 at
    head dims 16 and 80 on the main path's shape (run zero-padded to 32
    and 96), each held alone against its plain version at the caller's
@@ -78,9 +79,9 @@ Phases, one JSON line each:
    80), its output and gradients against the plain blockwise path; times
    beside SDPA's fastest backend at the same head dim (above 256 the math
    backend too), the bound of the caller's work, the TFLOP/s and share of
-   that bound, and above 256 the SIMT bodies' times (bf16; f32 K1 and
-   K2) quoted from PERF.md in this phase's line only (not measured here,
-   so never in the summary).  The summary's rows of head dims 256 and
+   that bound, and above 256 the earlier SIMT bodies' times (bf16; f32)
+   quoted from PERF.md in this phase's line only (not measured here, so
+   never in the summary).  The summary's rows of head dims 256 and
    above come from here.
 6. ``ring_kernels`` — K4 ``ring_flash_fwd``, K5 ``ring_flash_bwd``, K6
    ``ring_permute`` and K7 ``phase_closer`` on a ring of 4 members
@@ -522,10 +523,8 @@ HEAD_DIM_WIDER = (((1, 64, 1024, 288), torch.bfloat16),
                   ((1, 8, 512, 288), torch.float32),
                   ((1, 64, 1024, 288), torch.float32),
                   ((1, 64, 1024, 512), torch.float32))
-WIDE_SOURCE = "horovod_tpu_torch/ops/csrc/flash_wide.cu"
-# K1's, K2's and K3's bodies above 256 in fp16 and bf16; K1's and K2's in
-# f32 at every head dim (3xTF32; K3's f32 body above 256 is WIDE_SOURCE's
-# SIMT one).
+# K1's, K2's and K3's bodies above 256 in fp16 and bf16, and in f32 at
+# every head dim (3xTF32).
 WIDE_SM90_SOURCE = "horovod_tpu_torch/ops/csrc/flash_wide_sm90.cuh"
 WIDE_F32_SOURCE = "horovod_tpu_torch/ops/csrc/flash_wide_f32_sm90.cuh"
 # The kernels phase's f32 cases beside MAIN and 1000 x 128: the 3xTF32 K1
@@ -539,16 +538,15 @@ F32_CASES = [((16, 8, 1024, 32), torch.float32, True),
              ((2, 2, 8192, 64), torch.float32, True)]
 # Quoted, not measured by this script: the SIMT bodies' times at
 # HEAD_DIM_WIDER's shapes before they moved to tensor cores, in ms of K1,
-# K2, K3 by the head_dims phase's row tag: bf16 (all three), and f32 (K1
-# and K2; K3's f32 body is still SIMT, so measured) (NVIDIA H100 80GB
+# K2, K3 by the head_dims phase's row tag, bf16 and f32 (NVIDIA H100 80GB
 # HBM3, 700.00 W; PERF.md section 6).  They go into the head_dims phase's
 # line only, beside the times measured, never into the kernels line.
 WIDE_QUOTED_MS = {"d288": (4.606, 14.604, 7.909),
                   "d512": (9.838, 33.260, 18.197),
                   "d1000": (17.525, 60.833, 33.673),
-                  "d288_f32": (0.2748, 0.4829, None),
-                  "d288_f32_bh64": (4.7655, 14.4897, None),
-                  "d512_f32": (9.9314, 32.0191, None)}
+                  "d288_f32": (0.2748, 0.4829, 0.4796),
+                  "d288_f32_bh64": (4.7655, 14.4897, 8.4983),
+                  "d512_f32": (9.9314, 32.0191, 18.4360)}
 # The image phases: the models held card against CPU, and the ResNet
 # data-parallel phase's averaging check seed.
 IMAGE_MODELS = (("resnet50", 224), ("vgg16", 224), ("inception_v3", 299),
@@ -1460,11 +1458,10 @@ def phase_head_dims():
                     "K1, whole backward for K2 and K3); bound of the "
                     "caller's head dim's work")
             quoted = WIDE_QUOTED_MS.get(tag, (None,) * 3)
-            # In f32 K1, K2 and K3 run the 3xTF32 bodies, but K3 above 256
-            # the SIMT one; above 256 the 16-bit bodies are the wgmma ones.
+            # In f32 K1, K2 and K3 run the 3xTF32 bodies; above 256 the
+            # 16-bit bodies are the wgmma ones.
             f32 = dtype == torch.float32
-            sources = {n: WIDE_SOURCE if f32 and wide and n == "flash_bwd_dq"
-                       else WIDE_F32_SOURCE if f32 else WIDE_SM90_SOURCE
+            sources = {n: WIDE_F32_SOURCE if f32 else WIDE_SM90_SOURCE
                        if wide else None
                        for n in ("flash_fwd", "flash_bwd_dkdv",
                                  "flash_bwd_dq")}
@@ -1489,7 +1486,7 @@ def phase_head_dims():
                 row["times"][name] = {k: e[k] for k in (
                     "ms", "tflops", "bound_share", "library_ms")}
                 row["times"][name]["quoted_simt_ms"] = q
-                if wide and not (f32 and name == "flash_bwd_dq"):
+                if wide:
                     # The work the body does, its column CTAs' recompute
                     # (and in f32 the three TF32 products) included, over
                     # the caller's pairs.
@@ -1536,8 +1533,8 @@ def phase_head_dims():
               "measured in this run; tensor_core_tflops above 256: the "
               "body's own products, its column CTAs' recompute and in f32 "
               "the three TF32 products of each included, over the caller's "
-              "pairs, attention.wide_tensor_core_flops; none for f32 K3, "
-              "SIMT); bounds of the caller's head dim's work, f32 at the "
+              "pairs, attention.wide_tensor_core_flops); bounds of the "
+              "caller's head dim's work, f32 at the "
               "3xTF32 rate (PEAK_FLOPS); sdpa: each backend at the same "
               "head dim (and the math backend above 256)")
     return entries

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import random
 import socket
 from typing import Optional, Sequence
 
@@ -146,21 +147,75 @@ def resolve_process_set(ranks: Optional[Sequence[int]] = None
     return ps.validate()
 
 
+# Linux's ephemeral port range, where /proc does not give the host's.
+_DEFAULT_LOCAL_PORTS = (32768, 60999)
+# The lowest port handed out: below it lie well-known and registered
+# services' ports.
+_LOWEST_PORT = 10000
+
+
+def local_port_range() -> tuple:
+    """The host's ephemeral port range ``(low, high)``, both inclusive:
+    ``/proc/sys/net/ipv4/ip_local_port_range``, else Linux's default."""
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            low, high = (int(x) for x in f.read().split())
+    except (OSError, ValueError):
+        return _DEFAULT_LOCAL_PORTS
+    return low, high
+
+
 def pick_free_port(host: str = "127.0.0.1") -> int:
-    """Ask the OS for a currently-free TCP port."""
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.bind((host, 0))
-        return s.getsockname()[1]
+    """One TCP port that is free now, as :func:`pick_free_ports` picks."""
+    return pick_free_ports(1, host)[0]
 
 
 def pick_free_ports(n: int, host: str = "127.0.0.1") -> list:
-    """``n`` distinct currently-free TCP ports, every socket held open
-    until all are picked, so one launch is never handed a port twice."""
+    """``n`` distinct TCP ports that are free now, drawn at random from
+    outside the host's ephemeral range (:func:`local_port_range`).  The
+    kernel takes the source port of every outgoing connection from that
+    range, and port 0's binds too, so a port picked there can be taken by
+    any ``connect()`` on the host between the pick and the bind of the
+    rank it was handed to; outside it only an explicit bind takes one.
+    Each port is checked by binding it, and all stay bound until the batch
+    is picked, so one launch is never handed a port twice.  Where the
+    range leaves fewer than 64 ports outside it, the kernel picks them
+    (port 0) as before."""
+    low, high = local_port_range()
+    spans = [r for r in (range(_LOWEST_PORT, low), range(high + 1, 65536))
+             if len(r)]
+    total = sum(len(r) for r in spans)
     socks = []
     try:
-        for _ in range(n):
+        if total < 64:
+            for _ in range(n):
+                s = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+                socks.append(s)
+                s.bind((host, 0))
+            return [s.getsockname()[1] for s in socks]
+        # A generator of its own: a test or a rank that seeds `random`
+        # must not hand two launches the same sequence.
+        rng = random.SystemRandom()
+        tried = set()
+        while len(socks) < n:
+            if len(tried) >= min(total, 64 * n + 256):
+                raise OSError(f"no {n} free TCP ports on {host} outside "
+                              f"the local port range {low}-{high}")
+            i = rng.randrange(total)
+            for r in spans:
+                if i < len(r):
+                    port = r[i]
+                    break
+                i -= len(r)
+            if port in tried:
+                continue
+            tried.add(port)
             s = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
-            s.bind((host, 0))
+            try:
+                s.bind((host, port))
+            except OSError:
+                s.close()
+                continue
             socks.append(s)
         return [s.getsockname()[1] for s in socks]
     finally:

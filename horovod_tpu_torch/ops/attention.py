@@ -26,9 +26,10 @@ Counterpart of ``horovod_tpu/ops/attention.py``.  Layout convention:
   above 256 K1, K2 and K3 run their wide bodies (``csrc/flash_wide.cu``,
   O's and the gradients' columns split across blocks) on the head dim
   zero-padded to a multiple of 32: in fp16 and bf16 on wgmma and TMA
-  (``csrc/flash_wide_sm90.cuh``), in f32 K1 and K2 on 3xTF32 wgmma and
-  TMA (``csrc/flash_wide_f32_sm90.cuh``) and K3 on SIMT.  In f32 at
-  every head dim up to 256 K1, K2 and K3 run 3xTF32 bodies of that
+  (``csrc/flash_wide_sm90.cuh``), in f32 on 3xTF32 wgmma and TMA
+  (``csrc/flash_wide_f32_sm90.cuh``; K3's column blocks of a query
+  tile one thread block cluster up to head dim 1024, sharing S and dP).
+  In f32 at every head dim up to 256 K1, K2 and K3 run 3xTF32 bodies of that
   header too (their window the whole head dim up to 128, two column
   blocks at 256), and so does B2 up to 128 (K2's body with dQ = dS K
   added, its window the whole head dim up to 64, two column blocks of
@@ -65,26 +66,30 @@ WIDE_HEAD_DIM = 256
 # Head dims of the bodies of K1, K2 and K3.
 _SPLIT_HEAD_DIMS = HEAD_DIMS + (WIDE_HEAD_DIM,)
 # Above 256, K1, K2 and K3 run their wide bodies (csrc/flash_wide.cu) on
-# any head dim that is a multiple of their head-dim chunk, DC (the panel,
+# any head dim that is a multiple of their head-dim chunk (the panel,
 # PANEL, of the 16-bit bodies in csrc/flash_wide_sm90.cuh, F32_PANEL of
 # the f32 ones in csrc/flash_wide_f32_sm90.cuh).  Key tiles by dtype
 # class: the forward's is the 16-bit K1 body's FWD_KEYS and the f32 one's
 # F32_FWD_KEYS; the split mode's is K3's, the one its dq sums over (the
-# 16-bit body's DQ_KEYS and the f32 SIMT wide body's TK, csrc/flash_wide.cu;
-# K2's keys per CTA do not change any sum).
+# 16-bit body's DQ_KEYS and the f32 one's F32_DQ_KEYS; K2's keys per CTA
+# do not change any sum).
 WIDE_CHUNK = 32
 _WIDE_KEY_TILE = {"fwd": {"16-bit": 128, "f32": 64},
-                  "split": {"16-bit": 64, "f32": 64}}
+                  "split": {"16-bit": 64, "f32": 32}}
 # The wide tensor-core bodies' windows, in panels of WIDE_CHUNK output
 # columns per column CTA (16 bits: FWD_NP, DKDV_NP, DQ_NP; f32:
-# F32_FWD_NP, F32_DKDV_NP), and the panels per chunk that the 16-bit ones
-# stream S (and dP) in (CHUNK_PANELS; the f32 ones one panel): every
-# column CTA of a tile recomputes the score products over the whole head
-# dim for its window (:func:`wide_tensor_core_flops`).
+# F32_FWD_NP, F32_DKDV_NP, F32_DQ_NP), and the panels per chunk that the
+# 16-bit ones stream S (and dP) in (CHUNK_PANELS; the f32 ones one panel):
+# every column CTA of a tile recomputes the score products over the whole
+# head dim for its window (:func:`wide_tensor_core_flops`), but the f32
+# K3's, which up to WIDE_F32_DQ_CLUSTER (F32_DQ_CLUSTER_MAX) column CTAs
+# form one thread block cluster and each sums them over its own panels.
 WIDE_CHUNK_PANELS = 2
 _WIDE_WINDOW_PANELS = {"flash_fwd": 4, "flash_bwd_dkdv": 3,
                        "flash_bwd_dq": 4}
-_WIDE_F32_WINDOW_PANELS = {"flash_fwd": 4, "flash_bwd_dkdv": 4}
+_WIDE_F32_WINDOW_PANELS = {"flash_fwd": 4, "flash_bwd_dkdv": 4,
+                           "flash_bwd_dq": 4}
+WIDE_F32_DQ_CLUSTER = 8
 # Key tile of each forward body per head dim, as in the CUDA sources: the
 # 16-bit wgmma body (csrc/flash_fwd_sm90.cuh, key_tile) and in f32 K1's
 # 3xTF32 body (csrc/flash_wide_f32_sm90.cuh, F32_FWD_KEYS), which K4 runs
@@ -133,8 +138,10 @@ def wide_tensor_core_flops(name: str, d: int, dtype=torch.bfloat16) -> int:
     K2's dV and dK: 4 W; K3's dQ: 2 W).  Against the caller's 4 d (K1), 8 d
     (K2) and 6 d (K3) it is the recompute the column split costs.  In
     float32 every product is three TF32 products (3xTF32), K1's P V four
-    (V's rest too: o = v exactly where p is one key's 1), and K3 has no
-    tensor-core body (SIMT)."""
+    (V's rest too: o = v exactly where p is one key's 1), and K3's column
+    CTAs, one thread block cluster up to ``WIDE_F32_DQ_CLUSTER`` of them,
+    share the score products (each over its own panels: 3 x 4 d in all;
+    the exchange of partials is not counted)."""
     body = padded_head_dim(d)
     if body <= WIDE_HEAD_DIM:
         raise ValueError(f"head_dim {d}: no wide body at or below "
@@ -150,7 +157,10 @@ def wide_tensor_core_flops(name: str, d: int, dtype=torch.bfloat16) -> int:
     if not f32:
         return column_ctas * (score * body + out * panels * WIDE_CHUNK)
     pv = 4 if name == "flash_fwd" else 3
-    return column_ctas * (3 * score * body + pv * out * panels * WIDE_CHUNK)
+    output = column_ctas * pv * out * panels * WIDE_CHUNK
+    if name == "flash_bwd_dq" and column_ctas <= WIDE_F32_DQ_CLUSTER:
+        return 3 * score * body + output
+    return column_ctas * 3 * score * body + output
 
 
 def _key_tiles(d: int) -> dict:
@@ -179,12 +189,11 @@ def bwd_key_tile(mode: str, dtype, d: int) -> int:
     key tile, the one its dq sums over (csrc/flash_dq_sm90.cuh,
     ``dq_key_tile``); in f32 64 for the combined mode (the 64 keys a CTA of
     B2's and K5's 3xTF32 body, csrc/flash_wide_f32_sm90.cuh,
-    F32_DKDV_KEYS) and 32 for the split pair up to
-    256 (K3's 3xTF32 body, F32_DQ_KEYS); 64 above 256, K3's wide bodies'
-    (csrc/flash_wide_sm90.cuh, DQ_KEYS, in 16 bits; csrc/flash_wide.cu,
-    TK, in f32).  A plain side that holds a kernel
-    walks the keys in the kernel's key tiles, so dq sums in the same
-    blocks.  The combined mode stops at head dim 128, as :func:`bwd_mode`
+    F32_DKDV_KEYS) and 32 for the split pair (K3's 3xTF32 bodies,
+    F32_DQ_KEYS, at every head dim); 64 above 256 in 16 bits, K3's wide
+    body's (csrc/flash_wide_sm90.cuh, DQ_KEYS).  A plain side that holds
+    a kernel walks the keys in the kernel's key tiles, so dq sums in the
+    same blocks.  The combined mode stops at head dim 128, as :func:`bwd_mode`
     does."""
     if mode not in ("combined", "split"):
         raise ValueError(f"unknown backward mode {mode!r}")

@@ -1,11 +1,11 @@
 // The float32 flash kernels on 3xTF32 wgmma and TMA, for Hopper (sm_90a):
-// K1 (the forward) and K2 (the split backward's dK/dV half) at every head
-// dim, K3 (its dQ half) and B2 (the combined backward) up to the head dims
-// their plan gives them.  flash_fwd.cu (flash_fwd) and flash_bwd_split.cu
+// K1 (the forward), K2 and K3 (the split backward's dK/dV and dQ halves)
+// at every head dim, and B2 (the combined backward) up to the head dims
+// its plan gives it.  flash_fwd.cu (flash_fwd) and flash_bwd_split.cu
 // (flash_bwd_dkdv, flash_bwd_dq) launch them for f32 at head dims 32, 64,
 // 96, 128 and 256, flash_bwd.cu (flash_bwd) at 32 to 128, flash_wide.cu
-// (flash_fwd_wide, flash_bwd_dkdv_wide) above 256, where K3 keeps a SIMT
-// body (flash_wide.cu).  The ring steps K4 and K5 (ring_flash.cu) run K1's
+// (flash_fwd_wide, flash_bwd_dkdv_wide, flash_bwd_dq_wide) above 256.
+// The ring steps K4 and K5 (ring_flash.cu) run K1's
 // and B2's bodies at 32 to 128 with the step's absolute offsets q_off and
 // k_off, which every causal decision reads (K1 and B2 pass 0).  Under a
 // causal mask dq at query row 0 is a rounding residue of dP - delta;
@@ -25,7 +25,8 @@
 // and stored in f32, a ragged tail zero-filled and masked, any multiple of 32.
 // A CTA computes a window of NP output panels (a template parameter,
 // window_panels): the whole head dim up to 128 (NP = d / 32, one column CTA,
-// so nothing is recomputed), 4 panels above (two column CTAs at 256).
+// so nothing is recomputed), 4 panels above (two column CTAs at 256; K3's
+// column CTAs share S and dP above 256, note 8).
 //
 // Precision.  One TF32 product keeps 10 mantissa bits of each operand and
 // misses the f32 rule (kernel_check, rtol 1e-4) by 30x and more; three
@@ -120,8 +121,11 @@
 //     window staged hi / lo from a raw K window, keys permuted as in K1's
 //     V^T.  dQ stays in registers across the key loop and is written once,
 //     times p2: no atomics.  Shared memory 144 + 12 NP KB (192 KB at
-//     NP = 4).  ptxas: 149 / 164 / 168 / 168 registers at NP 1-4, 12 B and
-//     72 B spilled at NP 3 and 4.
+//     NP = 4).  ptxas: 149 / 167 / 168 / 168 registers at NP 1-4, 16 B and
+//     128 B spilled at NP 3 and 4.  The loops and barrier phases count
+//     chunks and key tiles with no bound on the head dim (32 chunks at
+//     1024); a column CTA whose own panels are fewer than its window's
+//     (3 of 4 at 288) computes the window and writes its own columns.
 //  7. B2 (dkdv_tile with WITH_DQ) is K2 with dQ = dS K added per query
 //     step.  TF32 takes K-major operands alone, so the product is dQ^T =
 //     K^T dS^T with both operands in shared memory (m64n16k8, a warpgroup
@@ -135,6 +139,30 @@
 //     up to 64, two column CTAs recomputing S^T and dP^T at 96 and 128.
 //     Shared memory 202 KB at NP = 2.  ptxas: 158 / 160 registers at NP
 //     1-2, no spill.
+//  8. K3 above 256 (dq_tile<4, true>, launch_dq_wide): each of the n_cc
+//     column CTAs of a query tile would recompute S and dP over the whole
+//     head dim for its window, n_cc 3 (4 d + 2 W) TF32 FLOP per pair (9.0x
+//     the caller's 6 d at 512).  Up to F32_DQ_CLUSTER_MAX (8: head dim
+//     1024) the n_cc CTAs are one thread block cluster (the column CTA is
+//     blockIdx.x's fastest index, the cluster's rank), and each sums S and
+//     dP over its own panels only (cols.own chunks from cols.start: 3 + 3
+//     + 3 at 288, no chunk counted twice where windows overlap), 12 d + n_cc
+//     6 W FLOP per pair in all (3.0x at 512).  Per key tile it stores its
+//     two 128 x 32 partials (32 KB, one buffer), every consumer warp
+//     arrives on every CTA's x_full through distributed shared memory
+//     (mapa, release at cluster scope), and after its acquire each thread
+//     adds the n_cc partials of its own 32 values in rank order, reading
+//     each CTA's buffer (its own too) with ld.shared::cluster: every CTA
+//     holds the same S and dP bit for bit.  It then releases every peer's
+//     buffer (x_empty, counting the peers' consumer warps), which that
+//     peer waits for before it writes its next partials and before it
+//     exits.  Three TMA stages stay: 192 + 32 KB + barriers fits the 227
+//     KB a CTA may hold.  Above 1024 dq_tile<4> recomputes as before.  A
+//     reduce-scatter of the partials and an all-gather of the sums reads
+//     2 (n_cc - 1) / n_cc buffers from the peers in place of n_cc - 1 but
+//     waits on one more cluster barrier a key tile: slower at 288 and
+//     512, faster at 1024 (tools/torch_split_variants.py,
+//     dq_exchange_reduce_scatter; PERF.md).
 //
 // Every CTA of a tile runs the same products in the same chunk order, so
 // the column CTAs agree bit for bit on m and l and only the first writes
@@ -192,6 +220,10 @@ constexpr int F32_DQ_ROWS = 128;
 constexpr int F32_DQ_KEYS = 32;
 constexpr int F32_DQ_NP = 4;
 constexpr int F32_DQ_STAGES = 3;
+// K3 above 256: the most column CTAs that run a query tile as one thread
+// block cluster (the portable cluster size: head dims to 1024); above it
+// every column CTA recomputes S and dP over the whole head dim.
+constexpr int F32_DQ_CLUSTER_MAX = 8;
 
 // x to TF32, to nearest with ties away from zero (low 13 bits zero).
 __device__ __forceinline__ uint32_t tf32(float x) {
@@ -1147,7 +1179,7 @@ __device__ __forceinline__ void dkdv_tile(
   }
 }
 
-template <int NP>
+template <int NP, bool CLUSTER = false>
 struct DqSmem {
   static constexpr uint32_t Q_PANEL = F32_DQ_ROWS * ROW_BYTES;  // 16 KB
   static constexpr uint32_t K_PANEL = F32_DQ_KEYS * ROW_BYTES;  // 4 KB
@@ -1163,15 +1195,83 @@ struct DqSmem {
   // K^T: the window's 32 NP columns x the keys, in panels of 32 keys.
   static constexpr uint32_t KT_PANEL = NP * F32_PANEL * ROW_BYTES;
   static constexpr uint32_t KT_BYTES = F32_DQ_KEYS / F32_PANEL * KT_PANEL;
+  // CLUSTER: the CTA's partial S and dP of a key tile for its peers, 16 +
+  // 16 floats a consumer thread as 8 float4 slots, slot j of thread t at
+  // float4 256 j + t (32 KB).
+  static constexpr uint32_t X_BYTES =
+      CLUSTER ? 2 * F32_DQ_ROWS * F32_DQ_KEYS * sizeof(float) : 0;
   static constexpr uint32_t a = 0;
   static constexpr uint32_t kw = a + F32_DQ_STAGES * A_BYTES;
   static constexpr uint32_t kt_hi = kw + KW_BYTES;
   static constexpr uint32_t kt_lo = kt_hi + KT_BYTES;
-  static constexpr uint32_t bars = kt_lo + KT_BYTES;
-  // a_full, a_empty [F32_DQ_STAGES], kw_full, kw_empty
-  static constexpr uint32_t N_BARS = 2 * F32_DQ_STAGES + 2;
+  static constexpr uint32_t x = kt_lo + KT_BYTES;
+  static constexpr uint32_t bars = x + X_BYTES;
+  // a_full, a_empty [F32_DQ_STAGES], kw_full, kw_empty (CLUSTER: x_full,
+  // x_empty)
+  static constexpr uint32_t N_BARS = 2 * F32_DQ_STAGES + 2 + 2 * CLUSTER;
   static constexpr size_t bytes = bars + 8 * N_BARS + 1024;
 };
+static_assert(DqSmem<F32_DQ_NP, true>::bytes <= 232448,
+              "K3's cluster body fits a CTA's shared memory");
+
+// Thread block clusters (K3 above 256): the CTA's rank in its cluster, a
+// barrier of every thread of the cluster, and mbarriers in a peer's shared
+// memory, reached through distributed shared memory (mapa).
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return static_cast<int>(r);
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release;\n"
+      "barrier.cluster.wait.acquire;" ::: "memory");
+}
+// Shared-memory address `addr` of this CTA as CTA `rank` of the cluster
+// holds it.
+__device__ __forceinline__ uint32_t peer_addr(uint32_t addr, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(r)
+               : "r"(addr), "r"(rank));
+  return r;
+}
+// Arrive on barrier `bar` of CTA `rank`, releasing this thread's earlier
+// memory accesses to the cluster.
+__device__ __forceinline__ void mbar_arrive_peer(uint32_t bar, int rank) {
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];" ::"r"(
+          peer_addr(bar, rank))
+      : "memory");
+}
+__device__ __forceinline__ bool mbar_try_wait_cluster(uint32_t bar,
+                                                      int parity) {
+  uint32_t ok;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+      "%2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+// mbar_wait acquiring what the cluster's arrivals released.
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, int parity) {
+  if (mbar_try_wait_cluster(bar, parity)) return;
+  const unsigned long long t0 = globaltimer_ns();
+  while (!mbar_try_wait_cluster(bar, parity))
+    if (globaltimer_ns() - t0 > WAIT_TIMEOUT_NS) __trap();
+}
+__device__ __forceinline__ float4 ld_cluster(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
 
 // K3: dq's own columns of query rows [q0, q0 + F32_DQ_ROWS) of head bh,
 // over a window of NP panels, in registers across the key loop, times
@@ -1185,14 +1285,18 @@ struct DqSmem {
 // dQ += dS K with dS split from the accumulators and K^T of the window
 // staged hi / lo, keys permuted to the accumulator's order: each panel of
 // the tile's dS K in a fresh accumulator, added into dQ in f32 registers.
-template <int NP>
+// With CLUSTER (above 256) the tile's column CTAs are one thread block
+// cluster, rank cc: each sums S and dP over its own chunks only (cols.own
+// panels from cols.start) and the cluster adds the partials through
+// distributed shared memory, in rank order, before dS.
+template <int NP, bool CLUSTER = false>
 __device__ __forceinline__ void dq_tile(
     const CUtensorMap* mq, const CUtensorMap* mdo, const CUtensorMap* mk,
     const CUtensorMap* mv, const float* __restrict__ lse,
     const float* __restrict__ delta, float* __restrict__ dq, int bh, int cc,
     int q0, int sq, int sk, int d, float scale_r, float dq_scale,
     int causal) {
-  using L = DqSmem<NP>;
+  using L = DqSmem<NP, CLUSTER>;
   constexpr int BN = F32_DQ_KEYS, CW = NP * F32_PANEL;
   constexpr int STAGES = F32_DQ_STAGES;
   extern __shared__ unsigned char smem_raw[];
@@ -1201,8 +1305,15 @@ __device__ __forceinline__ void dq_tile(
   unsigned char* const gbase = smem_raw + (base - raw);
   const uint32_t a_full = base + L::bars, a_empty = a_full + 8 * STAGES;
   const uint32_t kw_full = a_empty + 8 * STAGES, kw_empty = kw_full + 8;
-  const int n_ch = d / F32_PANEL;
+  // CLUSTER: this CTA's partials written (every consumer warp of every
+  // CTA arrives), and read by every peer (each peer's consumer warps).
+  const uint32_t x_full = kw_empty + 8, x_empty = x_full + 8;
+  const int n_cc = col_ctas<NP>(d);
   const Cols cols = col_share<NP>(d, cc);
+  // The head-dim chunks whose S and dP this CTA sums: all of them, or
+  // with CLUSTER its own panels (no chunk counted twice in the cluster).
+  const int ch0 = CLUSTER ? cols.start : 0;
+  const int ch1 = CLUSTER ? cols.start + cols.own : d / F32_PANEL;
 
   int n_kt = (sk + BN - 1) / BN;
   // Key tiles past the CTA's last row are wholly masked.
@@ -1216,9 +1327,17 @@ __device__ __forceinline__ void dq_tile(
     }
     mbar_init(kw_full, 1);
     mbar_init(kw_empty, 2);
+    if constexpr (CLUSTER) {
+      mbar_init(x_full, 8 * n_cc);
+      mbar_init(x_empty, 8 * (n_cc - 1));
+    }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  __syncthreads();
+  // With CLUSTER every peer's barriers are initialised before any arrival.
+  if constexpr (CLUSTER)
+    cluster_sync();
+  else
+    __syncthreads();
 
   const int wg = warpgroup();
   if (wg == 2) {
@@ -1228,7 +1347,7 @@ __device__ __forceinline__ void dq_tile(
     if (threadIdx.x == 256) {
       int g = 0;
       for (int kt = 0; kt < n_kt; ++kt) {
-        for (int ch = 0; ch < n_ch; ++ch, ++g) {
+        for (int ch = ch0; ch < ch1; ++ch, ++g) {
           const int st = g % STAGES;
           if (g >= STAGES) mbar_wait(a_empty + 8 * st, (g / STAGES - 1) & 1);
           const uint32_t sa = base + L::a + st * L::A_BYTES;
@@ -1348,7 +1467,7 @@ __device__ __forceinline__ void dq_tile(
 
     int g = 0;
     for (int kt = 0; kt < n_kt; ++kt) {
-      for (int ch = 0; ch < n_ch; ++ch, ++g) {
+      for (int ch = ch0; ch < ch1; ++ch, ++g) {
         const int st = g % STAGES;
         mbar_wait(a_full + 8 * st, (g / STAGES) & 1);
         const uint32_t off = L::a + st * L::A_BYTES;
@@ -1358,10 +1477,54 @@ __device__ __forceinline__ void dq_tile(
         consumers_sync();
         pin(sc);
         pin(dpc);
-        issue_chunk(off, ch == 0);
+        issue_chunk(off, ch == ch0);
         // Each warp releases the stage after its own wait, so the stage is
         // refilled only when every consumer warp is done with it.
         mbar_arrive_if(a_empty + 8 * st, lane == 0);
+      }
+      if constexpr (CLUSTER) {
+        // S and dP over the whole head dim: this CTA's partials into its
+        // exchange buffer, then every CTA's read back and added in rank
+        // order (its own too, from its buffer), so that every CTA of the
+        // cluster holds the same sums bit for bit.  The buffer is written
+        // again only once every peer has read it (x_empty).
+        if (kt > 0) mbar_wait_cluster(x_empty, (kt - 1) & 1);
+        float4* const mine =
+            reinterpret_cast<float4*>(gbase + L::x) + threadIdx.x;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          mine[256 * j] =
+              make_float4(s[4 * j], s[4 * j + 1], s[4 * j + 2], s[4 * j + 3]);
+          mine[256 * (BN / 8 + j)] = make_float4(dp[4 * j], dp[4 * j + 1],
+                                                 dp[4 * j + 2], dp[4 * j + 3]);
+        }
+        __syncwarp();
+        if (lane == 0)
+          for (int r = 0; r < n_cc; ++r) mbar_arrive_peer(x_full, r);
+        mbar_wait_cluster(x_full, kt & 1);
+        const uint32_t slot = base + L::x + 16 * threadIdx.x;
+        // Rank r's slots added into S (slots 0 to BN / 8 - 1) and dP;
+        // rank 0's assigned.
+        auto add4 = [](float(&y)[BN / 2], int i, float4 v, bool first) {
+          y[i] = first ? v.x : y[i] + v.x;
+          y[i + 1] = first ? v.y : y[i + 1] + v.y;
+          y[i + 2] = first ? v.z : y[i + 2] + v.z;
+          y[i + 3] = first ? v.w : y[i + 3] + v.w;
+        };
+        auto gather = [&](int r, bool first) {
+          const uint32_t at = peer_addr(slot, r);
+#pragma unroll
+          for (int j = 0; j < BN / 8; ++j) {
+            add4(s, 4 * j, ld_cluster(at + 4096 * j), first);
+            add4(dp, 4 * j, ld_cluster(at + 4096 * (BN / 8 + j)), first);
+          }
+        };
+        gather(0, true);
+        for (int r = 1; r < n_cc; ++r) gather(r, false);
+        __syncwarp();
+        if (lane == 0)
+          for (int r = 0; r < n_cc; ++r)
+            if (r != cc) mbar_arrive_peer(x_empty, r);
       }
       if (kt < n_plain)
         grads(kt, Plain{});
@@ -1410,6 +1573,9 @@ __device__ __forceinline__ void dq_tile(
       pin(dlo);
     }
 
+    // With CLUSTER this CTA's shared memory stays until every peer has
+    // read its last partials.
+    if constexpr (CLUSTER) mbar_wait_cluster(x_empty, (n_kt - 1) & 1);
     // dq = dQ dq_scale on the own columns.
     const int own0 = (cols.start - cols.w0) * F32_PANEL;
     const int own1 = own0 + cols.own * F32_PANEL;
@@ -1499,10 +1665,31 @@ __global__ void __launch_bounds__(WIDE_THREADS, 1)
               qt * F32_DQ_ROWS, sq, sk, d, scale_r, dq_scale, causal);
 }
 
+// K3 above 256 with the column CTAs of a query tile as one cluster: the
+// column CTA (its rank in the cluster) varies fastest in blockIdx.x.
+template <int NP>
+__global__ void __launch_bounds__(WIDE_THREADS, 1)
+    dq_cluster_kernel(const __grid_constant__ CUtensorMap mq,
+                      const __grid_constant__ CUtensorMap mdo,
+                      const __grid_constant__ CUtensorMap mk,
+                      const __grid_constant__ CUtensorMap mv,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta,
+                      float* __restrict__ dq, int bh_total, int sq, int sk,
+                      int d, float scale_r, float dq_scale, int causal) {
+  const int n_cc = col_ctas<NP>(d);
+  const int n_qt = (sq + F32_DQ_ROWS - 1) / F32_DQ_ROWS;
+  const int rest = blockIdx.x / n_cc;
+  const int bh = rest % bh_total;
+  const int qt = n_qt - 1 - rest / bh_total;  // heavy (late) tiles first
+  dq_tile<NP, true>(&mq, &mdo, &mk, &mv, lse, delta, dq, bh, cluster_rank(),
+                    qt * F32_DQ_ROWS, sq, sk, d, scale_r, dq_scale, causal);
+}
+
 // Set each kernel's shared-memory limit once, before its first launch
 // (internal linkage: a mutant build loaded beside this one keeps its own).
 namespace {
-bool g_prepared[4][F32_FWD_NP + 1] = {};
+bool g_prepared[5][F32_FWD_NP + 1] = {};
 }  // namespace
 
 template <typename K>
@@ -1611,6 +1798,45 @@ int launch_dq(const void* q, const void* k, const void* v,
       mq, mdo, mk, mv, lse, delta, static_cast<float*>(dq), bh, sq, sk, d,
       scale_r, dq_scale, causal);
   return (int)cudaGetLastError();
+}
+
+// K3 above 256 (flash_wide.cu): the column CTAs of each query tile as
+// one thread block cluster of up to F32_DQ_CLUSTER_MAX, each summing S
+// and dP over its own panels; past that, launch_dq, every column CTA
+// summing them over the whole head dim.
+template <int NP>
+int launch_dq_wide(const void* q, const void* k, const void* v,
+                   const void* dout, const float* lse, const float* delta,
+                   void* dq, int bh, int sq, int sk, int d, float scale_r,
+                   float dq_scale, int causal, cudaStream_t stream) {
+  const int n_cc = col_ctas<NP>(d);
+  if (n_cc > F32_DQ_CLUSTER_MAX)
+    return launch_dq<NP>(q, k, v, dout, lse, delta, dq, bh, sq, sk, d,
+                         scale_r, dq_scale, causal, stream);
+  using L = DqSmem<NP, true>;
+  int e = prepare(4, NP, dq_cluster_kernel<NP>, L::bytes);
+  CUtensorMap mq, mdo, mk, mv;
+  if (e == 0) e = make_map<float>(&mq, q, bh, sq, d, F32_DQ_ROWS);
+  if (e == 0) e = make_map<float>(&mdo, dout, bh, sq, d, F32_DQ_ROWS);
+  if (e == 0) e = make_map<float>(&mk, k, bh, sk, d, F32_DQ_KEYS);
+  if (e == 0) e = make_map<float>(&mv, v, bh, sk, d, F32_DQ_KEYS);
+  if (e != 0) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(bh * ((sq + F32_DQ_ROWS - 1) / F32_DQ_ROWS) * n_cc);
+  cfg.blockDim = dim3(WIDE_THREADS);
+  cfg.dynamicSmemBytes = L::bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = n_cc;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  e = (int)cudaLaunchKernelEx(&cfg, dq_cluster_kernel<NP>, mq, mdo, mk, mv,
+                              lse, delta, static_cast<float*>(dq), bh, sq,
+                              sk, d, scale_r, dq_scale, causal);
+  return e != 0 ? e : (int)cudaGetLastError();
 }
 
 }  // namespace wide32

@@ -2,15 +2,15 @@
 // wgmma and TMA wide bodies of the flash forward (flash_fwd_wide) and of
 // the split backward's dK/dV and dQ halves (flash_bwd_dkdv_wide,
 // flash_bwd_dq_wide).  flash_wide.cu launches them for fp16 and bf16; in
-// f32 K1 and K2 run 3xTF32 bodies (flash_wide_f32_sm90.cuh: one TF32
-// product does not keep f32 to 1e-4, three do) and K3 a SIMT body.
+// f32 K1, K2 and K3 run 3xTF32 bodies (flash_wide_f32_sm90.cuh: one TF32
+// product does not keep f32 to 1e-4, three do).
 //
 // They replace the Pallas TPU kernels `_flash_kernel`
 // (horovod_tpu/ops/attention.py:356, pallas_call :1047),
 // `_flash_bwd_dkdv_kernel` (:429, pallas_call :914) and
 // `_flash_bwd_dq_kernel` (:465, pallas_call :930, math in `_bwd_block_math`
 // :386) at the head dims the reference computes above 256.  Semantics as
-// the SIMT bodies' note in flash_wide.cu and the reference's (:320-335):
+// the reference's (:320-335):
 // masked logits NEG_INF, m_safe, alpha rescaling, l summed over unrounded
 // p, lse = POS_BIG and o = 0 for rows with no key, p and dS rounded to the
 // storage dtype before the products that take them, dQ summed in f32 and
@@ -19,8 +19,8 @@
 //
 // Bound on the card: by operations or bytes near the ridge (K1 4 d FLOP
 // per causal pair against 8 d bytes per row, K2 8 d, K3 6 d), like the
-// bodies up to 256.  What held the SIMT bodies at 0.2-1.0 % of that bound,
-// and what this design does about each:
+// bodies up to 256.  What held the earlier SIMT bodies (removed) at 0.2-1.0
+// % of that bound, and what this design does about each:
 //  1. No tensor cores: every product was a scalar fmaf on operands the
 //     threads converted to f32.  Here every product is a wgmma from
 //     shared memory (S = Q K^T, S^T = K q'^T, dP^T = V dO^T, K3's S = q'

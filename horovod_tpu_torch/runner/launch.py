@@ -281,7 +281,9 @@ def _warn_sanitize_once(msg: str) -> None:
 
 def allocate_endpoints(size: int, host: str = "127.0.0.1"):
     """The coordinator endpoint and one data endpoint per rank, picked as
-    one held batch so no port is handed out twice."""
+    one held batch outside the host's ephemeral port range
+    (``pick_free_ports``), so no port is handed out twice and no outgoing
+    connection takes one before its rank binds it."""
     ports = pick_free_ports(size + 1, host)
     return f"{host}:{ports[0]}", [f"{host}:{p}" for p in ports[1:]]
 

@@ -45,8 +45,8 @@ def test_bwd_tile_table_covers_every_head_dim_and_dtype(mode, dtype, d):
     64 for the combined mode (B2's 3xTF32 body, F32_DKDV_KEYS a CTA) and
     32 for the split pair (K3's 3xTF32 body, F32_DQ_KEYS).  A head dim 16
     short of a body's runs padded to it, so it has that body's tile; past
-    256 the split pair's wide bodies take 64 keys in every dtype, and no
-    combined body runs."""
+    256 the split pair's wide bodies take 64 keys in 16 bits and 32 in f32
+    (K3's 3xTF32 wide body, F32_DQ_KEYS), and no combined body runs."""
     f32 = dtype == torch.float32
     want = (128 if mode == "combined" and not f32
             else 32 if mode == "split" and f32 else 64)
@@ -55,7 +55,8 @@ def test_bwd_tile_table_covers_every_head_dim_and_dtype(mode, dtype, d):
     with pytest.raises(ValueError, match="mode"):
         tattn.bwd_key_tile("dense", dtype, d)
     if mode == "split":
-        assert tattn.bwd_key_tile(mode, dtype, d + 256) == 64
+        assert tattn.bwd_key_tile(mode, dtype, d + 256) == (32 if f32
+                                                             else 64)
     else:
         with pytest.raises(ValueError, match="head_dim"):
             tattn.bwd_key_tile(mode, dtype, d + 256)

@@ -371,8 +371,8 @@ def test_flash_attention_at_other_head_dims(cuda_device, dtype, d, mode):
 
 
 # The wide bodies of K1, K2 and K3 at their edges (16 bits:
-# csrc/flash_wide_sm90.cuh; f32: csrc/flash_wide_f32_sm90.cuh and K3's
-# SIMT body): (seq, head dim, causal).  Ragged sequences (not a multiple
+# csrc/flash_wide_sm90.cuh; f32: csrc/flash_wide_f32_sm90.cuh): (seq,
+# head dim, causal).  Ragged sequences (not a multiple
 # of the 128-row and 128-key tiles, of K2's 32-row query step nor of K3's
 # 64-key tile), non-causal cases, head dim 288 (9 panels: an odd count, so
 # a last one-panel chunk of S, and three column CTAs of 3 panels each) and
@@ -418,13 +418,17 @@ def test_wide_16bit_bodies_at_their_edges(cuda_device, seq, d, causal,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("seq,d,causal", _WIDE_EDGES)
+@pytest.mark.parametrize("seq,d,causal", _WIDE_EDGES + [(100, 1056, True)])
 def test_wide_f32_bodies_at_their_edges(cuda_device, seq, d, causal):
-    """K1 and K2 on their 3xTF32 wide bodies (csrc/flash_wide_f32_sm90.cuh:
-    128 query rows by 64-key tiles, 64 keys by 32-row query steps, both
-    in 4-panel windows: 3 + 3 + 3 panels at 288, where K2's two
-    warpgroups also take 5 and 4 head-dim chunks, 4 + 3 + 3 at 320) and
-    K3 on its SIMT body, held to the f32 rule (1e-4)."""
+    """K1, K2 and K3 on their 3xTF32 wide bodies
+    (csrc/flash_wide_f32_sm90.cuh: 128 query rows by 64-key tiles, 64 keys
+    by 32-row query steps, 128 query rows by 32-key tiles, all in 4-panel
+    windows: 3 + 3 + 3 panels at 288, where K2's two warpgroups also take
+    5 and 4 head-dim chunks, 4 + 3 + 3 at 320); K3's column CTAs one
+    thread block cluster (3 CTAs at 288 and 320, 4 at 512, 8 at 1024),
+    each summing S and dP over its own panels, and at 1056 (9 column CTAs,
+    past the cluster's 8) each recomputing them; held to the f32 rule
+    (1e-4; dq with its term)."""
     _hold_wide_bodies(cuda_device, seq, d, causal, torch.float32)
 
 
@@ -486,8 +490,9 @@ def test_f32_bodies_at_a_long_causal_sequence(cuda_device, d, mode):
     tile's product summed in a fresh accumulator: the tensor cores
     truncate as they accumulate, so a chain over the key loop drifts with
     its length), B2 256 query steps into dK and dV; every output under
-    the f32 rule (dq with its term).  At 288 and 512 the wide bodies: K1
-    and K2 on 3xTF32 wgmma in column CTAs of 4-panel windows, K3 SIMT."""
+    the f32 rule (dq with its term).  At 288 and 512 the wide bodies on
+    3xTF32 wgmma in column CTAs of 4-panel windows, K3's one thread block
+    cluster sharing S and dP."""
     g = torch.Generator(device=cuda_device).manual_seed(d)
     q, k, v, do = (torch.randn(2, 8192, d, device=cuda_device, generator=g)
                    for _ in range(4))

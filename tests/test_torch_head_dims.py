@@ -96,11 +96,11 @@ def test_key_tiles_follow_the_padded_body(d, dtype):
     the 16-bit forward 128 keys up to 64, 64 to 256 and 128 above (the
     wgmma wide body's FWD_KEYS); the f32 forward 64 at every head dim (the
     3xTF32 body's F32_FWD_KEYS); the split pair's, K3's, 64 keys in 16
-    bits, and in f32 32 up to 256 (the 3xTF32 body's F32_DQ_KEYS) and 64
-    above (the SIMT wide body's TK); no combined body above 128."""
+    bits, and in f32 32 at every head dim (the 3xTF32 bodies'
+    F32_DQ_KEYS, above 256 too); no combined body above 128."""
     body = tattn.padded_head_dim(d)
     f32 = dtype == torch.float32
-    f32_split_tile = 32 if body <= 256 else 64
+    f32_split_tile = 32
     assert tattn.fwd_key_tile(dtype, d) == tattn.fwd_key_tile(dtype, body)
     assert tattn.fwd_key_tile(dtype, d) == (
         64 if f32 else (128 if body <= 64 or body > 256 else 64))
@@ -127,25 +127,24 @@ def _constants(source):
                                    torch.float16])
 def test_wide_tile_constants_match_the_tables(dtype):
     """The wide bodies' tile and chunk constants, read from the sources,
-    are attention.py's tables: the head-dim chunk (K3's SIMT body's DC,
-    the 16-bit bodies' PANEL, the f32 bodies' F32_PANEL) is WIDE_CHUNK;
-    the forward's key tile is FWD_KEYS of csrc/flash_wide_sm90.cuh in 16
-    bits and F32_FWD_KEYS of csrc/flash_wide_f32_sm90.cuh in float32; the
-    split mode's is K3's, DQ_KEYS of the 16-bit body and TK of
-    csrc/flash_wide.cu (its SIMT body) in float32; the tensor-core bodies'
-    windows (FWD_NP, DKDV_NP, DQ_NP; F32_FWD_NP, F32_DKDV_NP) and the
-    16-bit ones' panels per chunk of S (CHUNK_PANELS) are
-    _WIDE_WINDOW_PANELS, _WIDE_F32_WINDOW_PANELS and WIDE_CHUNK_PANELS.
-    The plain side that holds a kernel walks these tiles, so the two
-    cannot drift apart."""
-    simt = _constants("flash_wide.cu")
+    are attention.py's tables: the head-dim chunk (the 16-bit bodies'
+    PANEL, the f32 bodies' F32_PANEL) is WIDE_CHUNK; the forward's key
+    tile is FWD_KEYS of csrc/flash_wide_sm90.cuh in 16 bits and
+    F32_FWD_KEYS of csrc/flash_wide_f32_sm90.cuh in float32; the split
+    mode's is K3's, DQ_KEYS of the 16-bit body and F32_DQ_KEYS of the
+    f32 one; the tensor-core bodies' windows (FWD_NP, DKDV_NP, DQ_NP;
+    F32_FWD_NP, F32_DKDV_NP, F32_DQ_NP), the f32 K3's largest cluster
+    (F32_DQ_CLUSTER_MAX) and the 16-bit ones' panels per chunk of S
+    (CHUNK_PANELS) are _WIDE_WINDOW_PANELS, _WIDE_F32_WINDOW_PANELS,
+    WIDE_F32_DQ_CLUSTER and WIDE_CHUNK_PANELS.  The plain side that holds
+    a kernel walks these tiles, so the two cannot drift apart."""
     wgmma = _constants("flash_wide_sm90.cuh")
     tf32 = _constants("flash_wide_f32_sm90.cuh")
-    assert simt["DC"] == _constants("sm90_common.cuh")["PANEL"] \
+    assert _constants("sm90_common.cuh")["PANEL"] \
         == tf32["F32_PANEL"] == tattn.WIDE_CHUNK
     f32 = dtype == torch.float32
     fwd = tf32["F32_FWD_KEYS"] if f32 else wgmma["FWD_KEYS"]
-    split = simt["TK"] if f32 else wgmma["DQ_KEYS"]
+    split = tf32["F32_DQ_KEYS"] if f32 else wgmma["DQ_KEYS"]
     for d in (257, 288, 512, 1000, 1024):
         assert tattn.fwd_key_tile(dtype, d) == fwd
         assert tattn.bwd_key_tile("split", dtype, d) == split
@@ -155,7 +154,9 @@ def test_wide_tile_constants_match_the_tables(dtype):
         "flash_bwd_dq": wgmma["DQ_NP"]}
     assert tattn._WIDE_F32_WINDOW_PANELS == {
         "flash_fwd": tf32["F32_FWD_NP"],
-        "flash_bwd_dkdv": tf32["F32_DKDV_NP"]}
+        "flash_bwd_dkdv": tf32["F32_DKDV_NP"],
+        "flash_bwd_dq": tf32["F32_DQ_NP"]}
+    assert tattn.WIDE_F32_DQ_CLUSTER == tf32["F32_DQ_CLUSTER_MAX"]
     # At and below 256 the f32 K3's 3xTF32 body and B2's (64 keys a CTA).
     for d in (32, 64, 96, 128, 256):
         assert tattn.bwd_key_tile("split", torch.float32, d) == \
@@ -195,20 +196,26 @@ def test_wgmma_header_is_the_generators_output():
     ("flash_fwd", 288, torch.float32, 3 * (3 * 2 * 288 + 4 * 256)),
     ("flash_fwd", 512, torch.float32, 4 * (3 * 2 * 512 + 4 * 256)),
     ("flash_bwd_dkdv", 288, torch.float32, 3 * 3 * (4 * 288 + 512)),
-    ("flash_bwd_dkdv", 512, torch.float32, 3 * 4 * (4 * 512 + 512))])
+    ("flash_bwd_dkdv", 512, torch.float32, 3 * 4 * (4 * 512 + 512)),
+    ("flash_bwd_dq", 288, torch.float32, 3 * 4 * 288 + 3 * 3 * 2 * 128),
+    ("flash_bwd_dq", 512, torch.float32, 3 * 4 * 512 + 4 * 3 * 2 * 128),
+    ("flash_bwd_dq", 1056, torch.float32, 9 * 3 * (4 * 1056 + 2 * 128))])
 def test_wide_tensor_core_work(name, d, dtype, flops):
     """The wide bodies' tensor-core FLOP per pair: their column CTAs'
     recompute of the score products (at 1000, padded to 1024: K3's
     8 x (4 d + 2 W) against the caller's 6 d, 5.8x) and, in float32, three
     TF32 products for each, four for K1's P V (4-panel windows: 7.0x and
     6.5x the caller's 4 d and 8 d at 288, K2's shared by its two
-    warpgroups); a head dim at or below 256 has no wide body, and K3's f32
-    body has no tensor-core work (SIMT)."""
+    warpgroups).  K3's f32 column CTAs, one thread block cluster up to 8
+    of them, each sum S and dP over their own panels (3 x 4 d in all:
+    3.0x the caller's 6 d at 512, against 9.0x recomputed) and add dS K
+    over their windows; at 1056 (9 column CTAs) each recomputes them.  A
+    head dim at or below 256 has no wide body, and B2 none above it."""
     assert tattn.wide_tensor_core_flops(name, d, dtype) == flops
     with pytest.raises(ValueError, match="wide body"):
         tattn.wide_tensor_core_flops(name, 256, dtype)
     with pytest.raises(ValueError, match="tensor-core"):
-        tattn.wide_tensor_core_flops("flash_bwd_dq", d, torch.float32)
+        tattn.wide_tensor_core_flops("flash_bwd", d, dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
@@ -254,15 +261,15 @@ def test_wide_plain_side_matches_jax_in_16_bits(monkeypatch, d, dtype):
 def test_wide_plain_side_matches_jax_in_f32(monkeypatch, d):
     """kernel_check's plain side in float32 at a wide head dim, walking the
     f32 wide forward's key tile (64 keys, F32_FWD_KEYS) and the split
-    mode's for the backward (K3's 64 keys), against the JAX package's flash
-    attention in float32 on the same 64-key blocks (Pallas in interpret
-    mode): o, dq, dk and dv under kernel_check's f32 rule (1e-4 of |ref| +
-    rms_row(ref) + rms(ref) / 16: summation order only)."""
+    mode's for the backward (K3's 32 keys, F32_DQ_KEYS), against the JAX
+    package's flash attention in float32 on 64-key blocks: o, dq, dk and
+    dv under kernel_check's f32 rule (1e-4 of |ref| + rms_row(ref) +
+    rms(ref) / 16: summation order only)."""
     monkeypatch.delenv("HVD_TPU_VMEM_LIMIT_MB", raising=False)
     b, h, s = 1, 2, 256
     tile = tattn.fwd_key_tile(torch.float32, d)
     assert tile == 64 and tattn.bwd_mode(s, d, b * h) == "split"
-    assert tattn.bwd_key_tile("split", torch.float32, d) == tile
+    assert tattn.bwd_key_tile("split", torch.float32, d) == 32
     q, k, v, ct = (torch.from_numpy(a)
                    for a in _arrays((b, h, s, d), seed=90 + d))
     out, vjp = jax.vjp(lambda a, b_, c: jattn.flash_attention(
@@ -279,6 +286,42 @@ def test_wide_plain_side_matches_jax_in_f32(monkeypatch, d):
         err = kernel_check.compare(got[name],
                                    flat(torch.from_numpy(np.array(w))))
         assert err["worst"] <= 1.0, (name, err)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [288, 320])
+def test_f32_wide_dq_plain_side_matches_the_jax_split_kernel(monkeypatch, d,
+                                                              causal):
+    """The plain side that holds the f32 K3 above 256 (dq summed over its
+    32-key tiles, F32_DQ_KEYS) against the JAX package's
+    ``_flash_bwd_dq_kernel`` (Pallas in interpret mode, 128-row and
+    128-key blocks: the split path ``_bwd_plan`` picks above head dim
+    128), at 288 (9 panels) and 320 (10), causal and not: dq under
+    kernel_check's f32 rule (1e-4 of |ref| + rms_row(ref) + rms(ref) / 16:
+    the two sum the keys in other blocks, nothing else differs)."""
+    monkeypatch.delenv("HVD_TPU_VMEM_LIMIT_MB", raising=False)
+    b, h, s, block = 1, 2, 256, 128
+    assert tattn.bwd_key_tile("split", torch.float32, d) == 32
+    assert jattn._bwd_plan(s, d, block, block, b * h) == ("split", block,
+                                                          block)
+    traced = []
+    kernel = jattn._flash_bwd_dq_kernel
+    monkeypatch.setattr(jattn, "_flash_bwd_dq_kernel",
+                        lambda *a, **kw: traced.append(1) or kernel(*a, **kw))
+    q, k, v, ct = (torch.from_numpy(a)
+                   for a in _arrays((b, h, s, d), seed=110 + d + causal))
+    _, vjp = jax.vjp(lambda a, b_, c: jattn.flash_attention(
+        a, b_, c, causal=causal, block_q=block, block_k=block,
+        interpret=True), *(jnp.asarray(t.numpy()) for t in (q, k, v)))
+    want = vjp(jnp.asarray(ct.numpy()))[0]
+    assert traced, "the JAX split dq kernel did not run"
+    p2, r = tattn._split_scale(d ** -0.5)
+    flat = lambda t: t.reshape(b * h, s, d)  # noqa: E731
+    got, _ = kernel_check.plain_outputs(
+        flat(q * p2), flat(k), flat(v), flat(ct), causal, r, p2, "split")
+    err = kernel_check.compare(got["dq"], flat(torch.from_numpy(
+        np.array(want))))
+    assert err["worst"] <= 1.0, err
 
 
 def _record_wrappers(monkeypatch):

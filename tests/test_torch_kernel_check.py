@@ -287,8 +287,8 @@ def test_first_rows_dq_is_a_rounding_residue(shape):
     rule on query rows 0-7, whose floor (1e-4 rms(dq) / 16) lies below
     that residue, and at most 0.1 on rows 8 on.  So no body that sums dP
     in another order than the plain side's meets the rule there
-    (ROADMAP C): B2's and K3's f32 bodies stay SIMT, whose fmaf chain is
-    the plain side's order on the card."""
+    (ROADMAP C): float32 dq is held to a limit that grows by dP's
+    rounding noise (kernel_check's dq_noise), which that residue is."""
     qr, k, v, do, p2, r = _inputs(shape, torch.float32, 0)
     ref, delta = kernel_check.plain_outputs(qr, k, v, do, True, r, p2)
     mm = tattn._mm

@@ -67,13 +67,14 @@ tells the kernel's own error from the plain side's float32 summation
 order.
 
 Mutants of the f32 bodies (``csrc/flash_wide_f32_sm90.cuh``, 3xTF32:
-K1 and K2 at every head dim, K3 up to 256, B2 up to 128; built into
+K1, K2 and K3 at every head dim, B2 up to 128; built into
 ``flash_fwd``, ``flash_bwd_split``, ``flash_bwd`` and ``flash_wide``),
 each read through ``flash_fwd`` (o, lse), ``flash_bwd_dkdv`` (dk, dv),
 ``flash_bwd_dq`` (dq) and ``flash_bwd`` (``b2_dq``, ``b2_dk``,
 ``b2_dv``) in float32 at ``F32_SHAPES`` (head dims 32 to 256) and
-``WIDE_SHAPES`` (K1 and K2 alone) against the plain side of their own
-key tiles, dq under its limit with its term:
+``F32_WIDE_SHAPES`` (288, 512 and 1024: K3's column CTAs one thread
+block cluster of 3, 4 and 8) against the plain side of their own key
+tiles, dq under its limit with its term:
 
 * ``f32_plain_tf32`` — the lo half of every split is 0, so each product
   is hi.hi alone: one TF32 product (every body; K1's fourth product, P's
@@ -98,7 +99,10 @@ key tiles, dq under its limit with its term:
   slice of every head-dim chunk;
 * ``f32_dq_without_lo_hi`` — K3's dQ += dS K drops its lo.hi product;
 * ``f32_dq_ds_unmasked_on_diagonal`` — K3's dS keeps the keys past each
-  query row on the tiles that straddle the diagonal.
+  query row on the tiles that straddle the diagonal;
+* ``f32_dq_drops_one_peer`` — above 256, K3 adds every column CTA's
+  partial S and dP of the cluster but the last one's (read above 256
+  alone).
 
 ``--f32-first-rows`` reads dq at the causal first query rows in float32
 (``f32_first_rows``): the float32 plain side, the f32 B2 and K3 and the
@@ -289,6 +293,8 @@ WIDE_MUTANTS = {
         "for (int j = 0; j < DQ_STEPS - 1; ++j)"),
 }
 WIDE_SHAPES = ((16, 1024, 288), (4, 1024, 1024))  # (bh, seq, head dim)
+# The f32 wide bodies: K3's clusters of 3, 4 and 8 column CTAs.
+F32_WIDE_SHAPES = ((16, 1024, 288), (8, 1024, 512), (4, 1024, 1024))
 # The f32 bodies at and below 256: the main path's shape, head dims 32,
 # 96, 128 (ragged) and 256 (two column CTAs).
 F32_SHAPES = ((128, 1024, 64), (32, 1024, 32), (32, 1024, 96),
@@ -297,9 +303,10 @@ F32_SHAPES = ((128, 1024, 64), (32, 1024, 32), (32, 1024, 96),
 # path's shape and head dim 128, (bh, seq, head dim).
 FIRST_ROWS_SHAPES = ((128, 1024, 64), (32, 1024, 128))
 # f32 mutants: (file mutated, line, what replaces it, outputs read, the
-# largest head dim whose body it changes), built into every source that
-# launches the bodies (F32_STEMS) and read in float32 at F32_SHAPES and
-# WIDE_SHAPES (up to that head dim).
+# (smallest, largest) head dim whose body it changes, None where it has
+# no bound), built into every source that launches the bodies (F32_STEMS)
+# and read in float32 at F32_SHAPES and F32_WIDE_SHAPES (within those
+# head dims).
 F32_BODY = "flash_wide_f32_sm90.cuh"
 F32_STEMS = ("flash_fwd", "flash_bwd_split", "flash_bwd", "flash_wide")
 F32_DP = ("        Wgmma<QB, float>::rs(dpc, vh[b], dh, kk != 0);\n"
@@ -318,24 +325,25 @@ F32_B2 = ("b2_dq", "b2_dk", "b2_dv")
 F32_MUTANTS = {
     "f32_plain_tf32": (
         F32_BODY, "  lo = tf32(x - __uint_as_float(hi));\n", "  lo = 0u;\n",
-        ("o", "dq", "dk", "dv") + F32_B2, None),
+        ("o", "dq", "dk", "dv") + F32_B2, (None, None)),
     "f32_fwd_skip_key_tile": (
         F32_BODY, "      if (kt < n_plain)\n        softmax(kt, Plain{});\n",
         "      if (kt == n_kt - 2)\n"
         "        for (float& x : s) x = NEG_INF;\n"
         "      if (kt < n_plain)\n        softmax(kt, Plain{});\n",
-        ("o", "lse"), None),
+        ("o", "lse"), (None, None)),
     "f32_fwd_s_one_k8_short": (
         F32_BODY, "      for (int kk = 0; kk < 4; ++kk) {\n"
         "        load_a(gbase + off + L::A_Q,",
         "      for (int kk = 0; kk < 3; ++kk) {\n"
-        "        load_a(gbase + off + L::A_Q,", ("o", "lse"), None),
+        "        load_a(gbase + off + L::A_Q,", ("o", "lse"),
+        (None, None)),
     "f32_dkdv_dp_one_k8_short": (
         F32_BODY, F32_DP, "        if (kk < 3) {\n" + F32_DP + "        }\n",
-        ("dk", "b2_dq", "b2_dk"), None),
+        ("dk", "b2_dq", "b2_dk"), (None, None)),
     "f32_dkdv_dk_without_lo_hi": (
         F32_BODY, "          Wgmma<PW, float>::rs(pk, dal[j], qth, 1);\n",
-        "", ("dk", "b2_dk"), None),
+        "", ("dk", "b2_dk"), (None, None)),
     "f32_bwd_ds_unmasked_on_diagonal": (
         F32_BODY, F32_BWD_MASK,
         "            dp[e] = p * (dp[e] - dl) * scale_r;\n"
@@ -343,32 +351,39 @@ F32_MUTANTS = {
         "              const int kr = k0 + r_lo + 8 * h;\n"
         "              if (kr >= sk || (causal && kr > q0 + qc)) p = 0.f;\n"
         "              if (kr >= sk) dp[e] = 0.f;\n"
-        "            }\n", ("dk", "b2_dq", "b2_dk"), None),
+        "            }\n", ("dk", "b2_dq", "b2_dk"), (None, None)),
     "f32_b2_skip_key_tile": (
         F32_BODY, "  const int kt = rest / n_cc;  // heavy (early) key tiles "
         "first\n  dkdv_tile<NP, true>(",
         "  const int kt = rest / n_cc;  // heavy (early) key tiles first\n"
-        "  if (kt == 1) return;\n  dkdv_tile<NP, true>(", F32_B2, 128),
+        "  if (kt == 1) return;\n  dkdv_tile<NP, true>(", F32_B2,
+        (None, 128)),
     "f32_b2_dq_without_lo_hi": (
         F32_BODY, "          Wgmma<F32_BWD_DQ_ROWS, float>::ss(dq_acc, ktl, "
-        "dsh, 1);\n", "", ("b2_dq",), 128),
+        "dsh, 1);\n", "", ("b2_dq",), (None, 128)),
     "f32_dq_skip_key_tile": (
         F32_BODY, "      // K^T of the window, hi and lo, from the raw K "
         "window.\n",
         "      if (kt == n_kt - 2)\n"
         "        for (float& x : dp) x = 0.f;\n"
         "      // K^T of the window, hi and lo, from the raw K window.\n",
-        ("dq",), 256),
+        ("dq",), (None, None)),
     "f32_dq_dp_one_k8_short": (
         F32_BODY, F32_K3_DP,
-        "        if (kk < 3) {\n" + F32_K3_DP + "        }\n", ("dq",), 256),
+        "        if (kk < 3) {\n" + F32_K3_DP + "        }\n", ("dq",),
+        (None, None)),
     "f32_dq_without_lo_hi": (
         F32_BODY, "          Wgmma<F32_PANEL, float>::rs(sc, dlo[j % 2], kth, "
-        "1);\n", "", ("dq",), 256),
+        "1);\n", "", ("dq",), (None, None)),
     "f32_dq_ds_unmasked_on_diagonal": (
         F32_BODY,
         "              if (key >= sk || (causal && key > row)) p = 0.f;\n",
-        "              if (key >= sk) p = 0.f;\n", ("dq",), 256),
+        "              if (key >= sk) p = 0.f;\n", ("dq",), (None, None)),
+    "f32_dq_drops_one_peer": (
+        F32_BODY,
+        "        for (int r = 1; r < n_cc; ++r) gather(r, false);\n",
+        "        for (int r = 1; r < n_cc - 1; ++r) gather(r, false);\n",
+        ("dq",), (257, None)),
 }
 
 # Ring mutants: (source stem, file mutated, line, what replaces it, reading)
@@ -610,16 +625,13 @@ def wide_readings(paths):
 
 
 def f32_outputs(qr, k, v, do, lse, delta, p2, scale_r):
-    """``{o, lse, dk, dv}`` of K1 and K2, and up to head dim 256 ``dq`` of
-    K3 and up to 128 ``b2_dq``, ``b2_dk``, ``b2_dv`` of B2 (the libraries
-    as loaded now)."""
+    """``{o, lse, dk, dv, dq}`` of K1, K2 and K3, and up to head dim 128
+    ``b2_dq``, ``b2_dk``, ``b2_dv`` of B2 (the libraries as loaded now)."""
     d = qr.shape[-1]
     o, lse_k = A.flash_fwd(qr, k, v, scale_r, True)
     dk, dv = A.flash_bwd_dkdv(qr, k, v, do, lse, delta, scale_r, True)
-    out = {"o": o, "lse": lse_k, "dk": dk, "dv": dv}
-    if d <= A.WIDE_HEAD_DIM:
-        out["dq"] = A.flash_bwd_dq(qr, k, v, do, lse, delta, scale_r, p2,
-                                   True)
+    out = {"o": o, "lse": lse_k, "dk": dk, "dv": dv,
+           "dq": A.flash_bwd_dq(qr, k, v, do, lse, delta, scale_r, p2, True)}
     if d <= A.HEAD_DIMS[-1]:
         b2 = kernel_check.kernel_bwd_outputs(qr, k, v, do, lse, delta, p2,
                                              scale_r, True)
@@ -629,14 +641,15 @@ def f32_outputs(qr, k, v, do, lse, delta, p2, scale_r):
 
 def f32_readings(paths):
     """The sound f32 bodies and each of their mutants against the plain
-    side of their own key tiles at each of F32_SHAPES and WIDE_SHAPES, in
+    side of their own key tiles at each of F32_SHAPES and F32_WIDE_SHAPES,
+    in
     float32 (B2's outputs ``b2_*`` against the combined mode's, dq with
     its term), and the plain side with one TF32 product per product (the
     prediction for ``f32_plain_tf32``): ``({reading: {shape: ...}},
     ok)``."""
     sound = {stem: _build.load(stem) for stem in F32_STEMS}
     rows, ok = {}, True
-    for bh, s, d in F32_SHAPES + WIDE_SHAPES:
+    for bh, s, d in F32_SHAPES + F32_WIDE_SHAPES:
         g = torch.Generator(device="cuda").manual_seed(s + d)
         q, k, v, do = (torch.randn(bh, s, d, device="cuda", generator=g)
                        for _ in range(4))
@@ -664,9 +677,10 @@ def f32_readings(paths):
         rows.setdefault("predicted_plain_tf32", {})[tag] = \
             kernel_check.compare_outputs(
                 {n: one[n] for n in ("o", "lse", "dq", "dk", "dv")}, ref)
-        for name, (_, _, _, outs, max_d) in F32_MUTANTS.items():
+        for name, (_, _, _, outs, (min_d, max_d)) in F32_MUTANTS.items():
             outs = [n for n in outs if n in got]
-            if (max_d is not None and d > max_d) or not outs:
+            if ((min_d is not None and d < min_d)
+                    or (max_d is not None and d > max_d) or not outs):
                 continue
             _build._libs.update({stem: ctypes.CDLL(path)
                                  for stem, path in paths[name].items()})
@@ -820,7 +834,8 @@ def main():
         print(json.dumps({"nvidia_smi": smi, "causal": True,
                           "ok": ok and ring_ok,
                           "f32_shapes": [list(x) for x in F32_SHAPES],
-                          "wide_shapes": [list(x) for x in WIDE_SHAPES],
+                          "f32_wide_shapes": [list(x) for x in
+                                              F32_WIDE_SHAPES],
                           "f32_readings": f32,
                           "ring_shard": list(RING_SHARD),
                           "ring_f32_readings": ring_f32}), flush=True)

@@ -6,7 +6,7 @@ Run from the repository root on a machine with one CUDA GPU::
 
     python3 tools/torch_split_variants.py                 # the split pair
     python3 tools/torch_split_variants.py --family wide   # K1-K3 above 256
-    python3 tools/torch_split_variants.py --family wide_f32  # K1, K2 f32
+    python3 tools/torch_split_variants.py --family wide_f32  # K1-K3 f32
     python3 tools/torch_split_variants.py --family f32   # the same, <= 256
     python3 tools/torch_split_variants.py --family wide \
         --only one_release_per_warpgroup   # a subset of the variants
@@ -57,7 +57,19 @@ and the alternatives to the checked-in choices.  ``split``:
   while another warp of the warpgroup still read it.
 
 ``wide_f32`` (``csrc/flash_wide_f32_sm90.cuh``, 3xTF32, float32 inputs;
-K1 and K2 alone, K3's f32 body being SIMT):
+K1, K2 and K3):
+
+* ``dq_recompute`` — K3's column CTAs are separate CTAs that each sum S
+  and dP over the whole head dim (``F32_DQ_CLUSTER_MAX`` 1, so every
+  head dim above 256 takes ``launch_dq``'s body) instead of one thread
+  block cluster per query tile whose CTAs each sum them over their own
+  panels and add the partials through distributed shared memory;
+* ``dq_exchange_reduce_scatter`` — K3's cluster CTAs exchange their
+  partial S and dP as a reduce-scatter (each CTA sums its share of the
+  pairs over the cluster, in place) and an all-gather of the sums,
+  behind one more cluster barrier: 2 (n_cc - 1) / n_cc buffers of 32 KB
+  read from the peers a key tile instead of n_cc - 1, each CTA reading
+  every peer's whole partials;
 
 * ``fwd_one_chain``, ``dkdv_one_chain`` — K1's S (K2's S^T and dP^T) is
   chained through one wgmma accumulator over the whole head dim (3 d / 8
@@ -336,10 +348,94 @@ _K2_DKDV_ADD_CHAINED = (
     '      pin(dk_acc);\n'
     '      pin(dv_acc);\n'
 )
+# K3 above 256: the cluster's exchange of partial S and dP, every CTA
+# adding every peer's partials (checked in), or a reduce-scatter of the
+# partials and an all-gather of the sums (one more cluster barrier,
+# x_sum, between them).
+_K3_EXCHANGE = (
+    '        const uint32_t slot = base + L::x + 16 * threadIdx.x;\n'
+    "        // Rank r's slots added into S (slots 0 to BN / 8 - 1) and dP;\n"
+    "        // rank 0's assigned.\n"
+    '        auto add4 = [](float(&y)[BN / 2], int i, float4 v, bool first) {\n'
+    '          y[i] = first ? v.x : y[i] + v.x;\n'
+    '          y[i + 1] = first ? v.y : y[i + 1] + v.y;\n'
+    '          y[i + 2] = first ? v.z : y[i + 2] + v.z;\n'
+    '          y[i + 3] = first ? v.w : y[i + 3] + v.w;\n'
+    '        };\n'
+    '        auto gather = [&](int r, bool first) {\n'
+    '          const uint32_t at = peer_addr(slot, r);\n'
+    '#pragma unroll\n'
+    '          for (int j = 0; j < BN / 8; ++j) {\n'
+    '            add4(s, 4 * j, ld_cluster(at + 4096 * j), first);\n'
+    '            add4(dp, 4 * j, ld_cluster(at + 4096 * (BN / 8 + j)), first);\n'
+    '          }\n'
+    '        };\n'
+    '        gather(0, true);\n'
+    '        for (int r = 1; r < n_cc; ++r) gather(r, false);\n')
+_K3_EXCHANGE_REDUCE_SCATTER = (
+    '        float4* const x4 = reinterpret_cast<float4*>(gbase + L::x);\n'
+    '        constexpr int XP = BN / 8 * 256;  // float4 pairs of S and dP\n'
+    '        auto add4 = [](float4 a, float4 b) {\n'
+    '          return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);\n'
+    '        };\n'
+    '        const uint32_t xs = base + L::x;\n'
+    "        // Float4 `at` of every CTA's buffer, all loads in flight, summed\n"
+    '        // in rank order.\n'
+    '        auto cluster_sum = [&](uint32_t at) {\n'
+    '          float4 v[F32_DQ_CLUSTER_MAX];\n'
+    '#pragma unroll\n'
+    '          for (int r = 0; r < F32_DQ_CLUSTER_MAX; ++r)\n'
+    '            if (r < n_cc) v[r] = ld_cluster(peer_addr(at, r));\n'
+    '          float4 y = v[0];\n'
+    '#pragma unroll\n'
+    '          for (int r = 1; r < F32_DQ_CLUSTER_MAX; ++r)\n'
+    '            if (r < n_cc) y = add4(y, v[r]);\n'
+    '          return y;\n'
+    '        };\n'
+    '        for (int g = cc * XP / n_cc + threadIdx.x; g < (cc + 1) * XP / n_cc;\n'
+    '             g += 256) {\n'
+    '          x4[g] = cluster_sum(xs + 16 * g);\n'
+    '          x4[XP + g] = cluster_sum(xs + 16 * (XP + g));\n'
+    '        }\n'
+    '        __syncwarp();\n'
+    '        if (lane == 0)\n'
+    '          for (int r = 0; r < n_cc; ++r) mbar_arrive_peer(x_sum, r);\n'
+    '        mbar_wait_cluster(x_sum, kt & 1);\n'
+    '#pragma unroll\n'
+    '        for (int j = 0; j < BN / 8; ++j) {\n'
+    '          const int g = 256 * j + threadIdx.x;\n'
+    '          // The CTA whose share holds pair g.\n'
+    '          const uint32_t at =\n'
+    '              peer_addr(xs + 16 * g, ((g + 1) * n_cc - 1) / XP);\n'
+    '          const float4 sv = ld_cluster(at), dv = ld_cluster(at + 16 * XP);\n'
+    '          s[4 * j] = sv.x;\n'
+    '          s[4 * j + 1] = sv.y;\n'
+    '          s[4 * j + 2] = sv.z;\n'
+    '          s[4 * j + 3] = sv.w;\n'
+    '          dp[4 * j] = dv.x;\n'
+    '          dp[4 * j + 1] = dv.y;\n'
+    '          dp[4 * j + 2] = dv.z;\n'
+    '          dp[4 * j + 3] = dv.w;\n'
+    '        }\n')
 FAMILIES["wide_f32"] = {
     "stem": "flash_wide", "ptxas": "wide32", "dtype": torch.float32,
     "shapes": ((64, 1024, 288), (64, 1024, 512), (16, 1024, 1024)),
     "variants": {
+        "dq_recompute": ([(WF, "constexpr int F32_DQ_CLUSTER_MAX = 8;",
+                           "constexpr int F32_DQ_CLUSTER_MAX = 1;")], None),
+        "dq_exchange_reduce_scatter": ([
+            (WF, "  static constexpr uint32_t N_BARS = 2 * F32_DQ_STAGES + 2 "
+             "+ 2 * CLUSTER;",
+             "  static constexpr uint32_t N_BARS = 2 * F32_DQ_STAGES + 2 "
+             "+ 3 * CLUSTER;"),
+            (WF, "  const uint32_t x_full = kw_empty + 8, x_empty = x_full + "
+             "8;\n",
+             "  const uint32_t x_full = kw_empty + 8, x_sum = x_full + 8;\n"
+             "  const uint32_t x_empty = x_sum + 8;\n"),
+            (WF, "      mbar_init(x_empty, 8 * (n_cc - 1));\n",
+             "      mbar_init(x_sum, 8 * n_cc);\n"
+             "      mbar_init(x_empty, 8 * (n_cc - 1));\n"),
+            (WF, _K3_EXCHANGE, _K3_EXCHANGE_REDUCE_SCATTER)], None),
         "fwd_one_chain": ([
             (WF, _K1_S, _K1_S.replace("(sc,", "(s,").replace(
                 "kk != 0", "!(first && kk == 0)")),
@@ -430,7 +526,8 @@ FAMILIES["f32"] = {
     "dtype": torch.float32,
     "shapes": ((128, 1024, 64), (32, 1024, 128), (8, 1024, 256)),
     "variants": {
-        **FAMILIES["wide_f32"]["variants"],
+        **{n: v for n, v in FAMILIES["wide_f32"]["variants"].items()
+           if not n.startswith(("dq_recompute", "dq_exchange"))},
         "fwd_three_pv_products": ([
             (WF, "          Wgmma<PW, float>::rs(pv, ph[j % 2], vl2, 1);\n",
              "")], None),
@@ -569,18 +666,17 @@ def wide_case(qr, k, v, do, p2, r, tiles):
 
 
 def f32_case(qr, k, v, do, p2, r, tiles):
-    """K1 and K2 of the f32 bodies, up to head dim 256 K3 and up to 128
-    B2 (``b2_dq``, ...), and their plain outputs per K3 key tile (B2's
-    those of the combined mode's; dq with its term)."""
+    """K1, K2 and K3 of the f32 bodies, up to head dim 128 B2 (``b2_dq``,
+    ...), and their plain outputs per K3 key tile (B2's those of the
+    combined mode's; dq with its term)."""
     d = qr.shape[-1]
     o, lse = A._blockwise_fwd_impl(
         qr, k, v, True, r, block_size=A.fwd_key_tile(torch.float32, d))
     delta = A._delta(o, do)
     args = (qr, k, v, do, lse, delta, r)
     kernels = {"k1": lambda: A.flash_fwd(qr, k, v, r, True),
-               "k2": lambda: A.flash_bwd_dkdv(*args, True)}
-    if d <= A.WIDE_HEAD_DIM:
-        kernels["k3"] = lambda: A.flash_bwd_dq(*args, p2, True)
+               "k2": lambda: A.flash_bwd_dkdv(*args, True),
+               "k3": lambda: A.flash_bwd_dq(*args, p2, True)}
     b2_want = {}
     if d <= A.HEAD_DIMS[-1]:
         kernels["b2"] = lambda: A.flash_bwd(*args, p2, True)
@@ -590,9 +686,8 @@ def f32_case(qr, k, v, do, p2, r, tiles):
     def outputs():
         o_k, lse_k = kernels["k1"]()
         dk_k, dv_k = kernels["k2"]()
-        out = {"o": o_k, "lse": lse_k, "dk": dk_k, "dv": dv_k}
-        if "k3" in kernels:
-            out["dq"] = kernels["k3"]()
+        out = {"o": o_k, "lse": lse_k, "dk": dk_k, "dv": dv_k,
+               "dq": kernels["k3"]()}
         if "b2" in kernels:
             out.update(zip(("b2_dk", "b2_dv", "b2_dq"), kernels["b2"]()))
         return out
