@@ -4,7 +4,8 @@ Run from the repository root on a machine with one CUDA GPU::
 
     python3 chip_smoke.py
 
-Phases, one JSON line each:
+Phases, one JSON line each (``t_s``: the seconds since the script
+started, so the lines give each phase's share of the run):
 
 1. ``device``  — the card's name and ``nvidia-smi`` name/power limit.
 2. ``build``   — nvcc seconds per kernel source (all built in parallel).
@@ -82,7 +83,16 @@ Phases, one JSON line each:
    that bound, and above 256 the earlier SIMT bodies' times (bf16; f32)
    quoted from PERF.md in this phase's line only (not measured here, so
    never in the summary).  The summary's rows of head dims 256 and
-   above come from here.
+   above come from here.  Then a training step at head dim 256:
+   ``build_lm_step`` at ``HEADLINE``'s widths with two heads of 256
+   (``HEAD_DIM_LM``: batch 16 x seq 1024, bf16; the main path's attention
+   FLOP), 2 warm-up and 5 timed steps, the counters zeroed before and read
+   after each (K1 8, K2 8, K3 8, B2 0 a step), losses finite and falling
+   from near ln(32768); K1, K2 and K3 at its attention shape (32
+   batch-heads x 1024 x 256: grids of 256 and 512 CTAs, which run the
+   head fastest) held against their plain versions, worst <= 1; its
+   tokens/s beside ``train``'s, and K1's, K2's and K3's ms at that shape
+   beside SDPA's, printed and not gated (``head_dims_lm_step``).
 6. ``ring_kernels`` — K4 ``ring_flash_fwd``, K5 ``ring_flash_bwd``, K6
    ``ring_permute`` and K7 ``phase_closer`` on a ring of 4 members
    co-located on the card (``RingMesh``, one stream each), shard
@@ -512,6 +522,8 @@ RING = (4, 8, 1024, 64)  # one member's shard on the ring path (4 members)
 HEAD_DIM_WIDE = (1, 1040, 512, 256)
 HEAD_DIM_WIDE_F32 = (1, 64, 1024, 256)  # K1, K2, K3's 3xTF32 bodies
 HEAD_DIM_PADDED = ((16, 8, 1024, 16), (16, 8, 1024, 80))
+# The LM step at head dim 256: the main path's widths with two heads.
+HEAD_DIM_LM = dict(HEADLINE, n_heads=2)
 # Head dims above 256 (ROADMAP C.1), (shape, dtype): the wide bodies of
 # K1, K2 and K3 at 288 and 512, and at 1000 (run padded to 1024), in bf16;
 # at 512 in fp16 (the wgmma bodies in the other 16-bit type); and in f32
@@ -605,8 +617,14 @@ SOURCES = {
 }
 
 
+_T0 = time.perf_counter()
+
+
 def emit(phase, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line of ``phase``, with ``t_s``, the seconds since this
+    module was imported."""
+    print(json.dumps({"phase": phase, **fields,
+                      "t_s": time.perf_counter() - _T0}), flush=True)
 
 
 def fail(msg):
@@ -1365,7 +1383,81 @@ def _rates(entry):
     return entry
 
 
-def phase_head_dims():
+def head_dims_lm_step(train=None):
+    """``build_lm_step(**HEAD_DIM_LM)``: 2 warm-up and 5 timed steps, the
+    launch counters zeroed just before and read just after each (per
+    layer K1 1, K2 1, K3 1, B2 0: ``bwd_mode`` sends head dim 256 to the
+    split pair), losses finite and falling from near ln(vocab); then K1,
+    K2 and K3 alone at the step's attention shape, held against their
+    plain versions (:func:`hold_padded`: this shape's grids are the
+    small ones that ``sm90::tile_order`` runs head fastest, where
+    ``HEAD_DIM_WIDE``'s run each head's tiles together) and timed beside
+    SDPA's fastest backend.  Prints its tokens/s beside ``train``'s
+    summary (when given); gates the launches, the losses and the
+    kernels' errors."""
+    t_start = time.perf_counter()
+    cfg = HEAD_DIM_LM
+    vocab, batch, seq = (cfg[k] for k in ("vocab_size", "batch", "seq"))
+    layers, heads = cfg["n_layers"], cfg["n_heads"]
+    d = cfg["d_model"] // heads
+    hvd.init()
+    torch.cuda.set_device(hvd.local_rank())
+    _, step, data = build_lm_step(**cfg)
+    want = {"flash_fwd": layers, "flash_bwd": 0, "flash_bwd_dkdv": layers,
+            "flash_bwd_dq": layers}
+    warmup, timed = 2, 5
+    losses, step_ms, launched = [], [], []
+    for i in range(warmup + timed):
+        torch.cuda.synchronize()
+        A.reset_launches()
+        t0 = time.perf_counter()
+        losses.append(step(data).item())
+        if i >= warmup:
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        launched.append(dict(A.launches))
+    hvd.shutdown()
+    del step, data
+    torch.cuda.empty_cache()
+    med = statistics.median(step_ms)
+    # The kernels alone at the step's attention shape.
+    shape = (batch, heads, seq, d)
+    errs, _ = hold_padded(shape, torch.bfloat16, True, "split", 72)
+    worst = max(e["worst"] for e in errs.values())
+    _, qr, k, v, do, p2, scale_r = kernel_inputs(shape, torch.bfloat16, 70)
+    o, lse = A.flash_fwd(qr, k, v, scale_r, True)
+    delta = A._delta(o, do)
+    largs = (qr, k, v, do, lse, delta, scale_r)
+    times = {"k1_ms": time_ms(lambda: A.flash_fwd(qr, k, v, scale_r, True)),
+             "k2_ms": time_ms(lambda: A.flash_bwd_dkdv(*largs, True)),
+             "k3_ms": time_ms(lambda: A.flash_bwd_dq(*largs, p2, True))}
+    del o, lse, delta, largs, qr, k, v, do
+    lib_fwd, t_lib_fwd, lib_bwd, t_lib_bwd = sdpa_times(
+        shape, torch.bfloat16, True, d ** -0.5, 71)
+    result = dict(
+        config=cfg, head_dim=d, tokens_per_s=batch * seq / (med / 1e3),
+        median_step_ms=med, step_ms=step_ms,
+        train_tokens_per_s=train["tokens_per_s"] if train else None,
+        losses=losses, launches=launched, attention_shape=list(shape),
+        errors=errs, worst=worst,
+        **times, sdpa_fwd_ms=lib_fwd, sdpa_bwd_ms=lib_bwd,
+        library_fwd_ms=t_lib_fwd, library_bwd_ms=t_lib_bwd,
+        seconds=time.perf_counter() - t_start)
+    emit("head_dims_lm_step", **result)
+    if worst > 1.0:
+        fail(f"K1, K2, K3 at {shape}: worst {worst} against their plain "
+             f"versions: {errs}")
+    if any(x != want for x in launched):
+        fail(f"the head dim {d} step launched {launched}, want {want} a "
+             "step")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"non-finite loss at head dim {d}: {losses}")
+    if abs(losses[0] - math.log(vocab)) > 1.0 or losses[-1] >= losses[0]:
+        fail(f"implausible loss trajectory at head dim {d}: {losses}")
+    return result
+
+
+def phase_head_dims(train=None):
     """Head dims other than the main path's (ROADMAP C.1), causal.
     K1, K2 and K3 at the wide head dim 256 on the split phase's shape
     (bf16) and on their wide bodies at HEAD_DIM_WIDER (288, 512 and 1000,
@@ -1379,8 +1471,9 @@ def phase_head_dims():
     plain blockwise path;
     then the kernels (at 256 and above) and ``flash_attention`` (at 16 and
     80, padding included) timed beside SDPA's fastest backend at the same
-    head dim and the bound of the caller's work.  Returns the summary's
-    rows of 256 and above."""
+    head dim and the bound of the caller's work; then the LM step at head
+    dim 256 (:func:`head_dims_lm_step`, beside ``train``'s summary).
+    Returns the summary's rows of 256 and above."""
     causal = True
     cases = ([(HEAD_DIM_WIDE, torch.bfloat16, "split"),
               (HEAD_DIM_WIDE_F32, torch.float32, "split")]
@@ -1537,6 +1630,7 @@ def phase_head_dims():
               "caller's head dim's work, f32 at the "
               "3xTF32 rate (PEAK_FLOPS); sdpa: each backend at the same "
               "head dim (and the math backend above 256)")
+    head_dims_lm_step(train)
     return entries
 
 
@@ -1942,7 +2036,9 @@ def run_ranks(phase, timeout, ranks=DP_RANKS, script=__file__, env=None,
     ``ranks`` ranks, with ``env`` added to this process's environment;
     each rank's ``RESULT`` line, parsed.  A rank that exits non-zero or a
     timeout fails the run; every rank's output is kept in OUT_DIR as
-    ``<tag or phase>_rank<r>.log``."""
+    ``<tag or phase>_rank<r>.log``, all of them before a failure is
+    raised.  The failure names every rank's exit code and quotes a rank
+    that exited by itself (the launcher kills the rest after it)."""
     env = dict(os.environ, **(env or {}))
     root = os.path.dirname(os.path.abspath(__file__))
     env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
@@ -1950,14 +2046,18 @@ def run_ranks(phase, timeout, ranks=DP_RANKS, script=__file__, env=None,
         [sys.executable, os.path.abspath(script), "--rank", phase],
         ranks, env=env, timeout=timeout, capture=True)
     os.makedirs(OUT_DIR, exist_ok=True)
-    out = []
     for r in results:
         with open(os.path.join(OUT_DIR, f"{tag or phase}_rank{r.rank}.log"),
                   "w") as f:
             f.write(r.stdout + "\n--- stderr ---\n" + r.stderr)
-        if r.returncode != 0:
-            fail(f"{phase}: rank {r.rank} exited {r.returncode}:\n"
-                 f"{r.stderr[-4000:]}")
+    failed = [r for r in results if r.returncode != 0]
+    if failed:
+        first = min(failed, key=lambda r: (r.returncode < 0, r.rank))
+        fail(f"{phase}: exit codes "
+             f"{ {r.rank: r.returncode for r in results} }; rank "
+             f"{first.rank}:\n{first.stderr[-4000:]}")
+    out = []
+    for r in results:
         lines = [ln for ln in r.stdout.splitlines()
                  if ln.startswith("RESULT ")]
         if not lines:
@@ -5435,7 +5535,7 @@ def main():
     f32_launched["flash_bwd_dkdv_f32"] = split_f32["flash_bwd_dkdv"]
     f32_launched["flash_bwd_dq_f32"] = split_f32["flash_bwd_dq"]
     entries.update(split_entries)
-    wide_entries = phase_head_dims()
+    wide_entries = phase_head_dims(train)
     ring_entries = phase_ring_kernels()
     phase_ring_model()
     launched.update(phase_ring_train())

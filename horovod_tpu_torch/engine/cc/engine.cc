@@ -1019,11 +1019,12 @@ bool Engine::SetupSockets(std::string* err) {
     }
     coord_fd_ = ConnectRetry(host, port, kTimeout, err);
     if (coord_fd_ < 0) return false;
+    // A hello that fails is retried whole with the agreement below: the
+    // connect can land in the backlog of rank 0's previous listener (see
+    // there), whose reset can come before this send.  The socket is dead
+    // then, so the agreement's first send fails too and reconnects.
     uint32_t my_rank = static_cast<uint32_t>(opts_.rank);
-    if (!SendAll(coord_fd_, &my_rank, 4)) {
-      *err = "hello send failed";
-      return false;
-    }
+    (void)SendAll(coord_fd_, &my_rank, 4);
   }
   // Topology agreement: every rank reports (local_rank, local_size,
   // hierarchical-requested) to rank 0, which validates the contiguous-block

@@ -58,7 +58,9 @@ def _lib_path(src: str) -> str:
 def build_all(names: Optional[list] = None) -> Dict[str, dict]:
     """Compile every source (or those whose stems are in ``names``) that
     has no library for its current hash, all ``nvcc`` processes started
-    together; returns ``{stem: {"seconds", "cached", "log"}}``."""
+    together; returns ``{stem: {"seconds", "cached", "log"}}``, the log
+    (nvcc's output, ptxas's lines included) kept beside the library and
+    read back for a cached one."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs = {}
     t0 = time.perf_counter()
@@ -68,7 +70,11 @@ def build_all(names: Optional[list] = None) -> Dict[str, dict]:
             continue
         out = _lib_path(src)
         if os.path.exists(out):
-            build_info[stem] = {"seconds": 0.0, "cached": True, "log": ""}
+            log = ""
+            if os.path.exists(out + ".log"):
+                with open(out + ".log") as f:
+                    log = f.read()
+            build_info[stem] = {"seconds": 0.0, "cached": True, "log": log}
             continue
         tmp = f"{out}.{os.getpid()}.part"
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
@@ -83,6 +89,8 @@ def build_all(names: Optional[list] = None) -> Dict[str, dict]:
         if proc.returncode != 0:
             failed.append(f"{stem}:\n{log}")
             continue
+        with open(out + ".log", "w") as f:
+            f.write(log)
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))

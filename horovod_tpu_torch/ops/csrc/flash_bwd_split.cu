@@ -34,12 +34,14 @@
 //   registers, no atomics; both a window of the whole head dim up to 128
 //   (d / 32 panels) and two column CTAs of 4 panels at 256.
 //
-// Head dims 32, 64, 96, 128 and 256: at 256 both 16-bit bodies split the
-// output's columns between their consumer warpgroups (64-key and 64-row
-// CTAs, two stages).
+// Head dims 32, 64, 96, 128 and 256: at 256 K2 is `dkdv256_tile`
+// (flash_bwd_sm90.cuh: 64 keys a CTA of 256 threads, S^T and dP^T once
+// per pair, shared through shared memory) and K3 splits dQ's columns
+// between its consumer warpgroups (64-row CTAs, two stages).
 //
 // Grids are 1-D, (tiles x bh) blocks, each block decoding its head and
-// tile from blockIdx.x, so any batch-head count launches (a grid's y and
+// tile from blockIdx.x (K2 at head dim 256 each head's tiles adjacent in a
+// grid of many waves, sm90::tile_order), so any batch-head count launches (a grid's y and
 // z dimensions stop at 65,535).  q, k, v, do: contiguous (bh, s, D) in
 // one dtype; lse, delta: (bh, sq) f32; grads in the input dtype.
 
@@ -49,8 +51,15 @@
 
 namespace hvdt {
 
+// K2's threads per CTA: dkdv256_tile's two consumer warpgroups at head dim
+// 256, else bwd_ktile's producer and two consumer warpgroups.
+template <int D>
+constexpr int dkdv_threads() {
+  return D == 256 ? sm90::DKDV256_THREADS : sm90::NTHREADS;
+}
+
 template <typename T, int D>
-__global__ void __launch_bounds__(sm90::NTHREADS, 1)
+__global__ void __launch_bounds__(dkdv_threads<D>(), 1)
     flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap mq,
                           const __grid_constant__ CUtensorMap mdo,
                           const __grid_constant__ CUtensorMap mk,
@@ -60,11 +69,21 @@ __global__ void __launch_bounds__(sm90::NTHREADS, 1)
                           T* __restrict__ dk, T* __restrict__ dv,
                           int bh_total, int sq, int sk, float scale_r,
                           int causal) {
-  const int kt = blockIdx.x / bh_total;  // heavy (early) key tiles first
-  sm90::bwd_ktile<T, D, T, false>(&mq, &mdo, &mk, &mv, nullptr, lse, delta,
-                                  dk, dv, blockIdx.x % bh_total,
-                                  kt * sm90::bwd_keys<D>(), sq, sk, 0, 0,
-                                  scale_r, causal);
+  if constexpr (D == 256) {
+    // Ordered by the grid's size (sm90::tile_order), heavy (early) key
+    // tiles first.
+    const int n_kt = (sk + sm90::DKDV256_KEYS - 1) / sm90::DKDV256_KEYS;
+    const int2 ht = sm90::tile_order(blockIdx.x, bh_total, n_kt);
+    sm90::dkdv256_tile<T>(&mq, &mdo, &mk, &mv, lse, delta, dk, dv, ht.x,
+                          ht.y * sm90::DKDV256_KEYS, sq, sk, scale_r,
+                          causal);
+  } else {
+    const int kt = blockIdx.x / bh_total;  // heavy (early) key tiles first
+    sm90::bwd_ktile<T, D, T, false>(&mq, &mdo, &mk, &mv, nullptr, lse,
+                                    delta, dk, dv, blockIdx.x % bh_total,
+                                    kt * sm90::BWD_BN, sq, sk, 0, 0, scale_r,
+                                    causal);
+  }
 }
 
 template <typename T, int D>
@@ -93,6 +112,16 @@ namespace {
 bool g_prepared[2][N_HEAD_DIMS] = {};
 }  // namespace
 
+// K2's shared memory: dkdv256_tile's at head dim 256, else bwd_ktile's
+// without its dQ buffers.
+template <int D>
+constexpr size_t dkdv_smem_bytes() {
+  if constexpr (D == 256)
+    return sm90::Dkdv256Smem::bytes;
+  else
+    return sm90::BwdSmem<D, false>::bytes;
+}
+
 template <typename T, int D>
 int prepare_split() {
   bool& ready = g_prepared[std::is_same<T, __half>::value ? 0 : 1]
@@ -100,7 +129,7 @@ int prepare_split() {
   if (ready) return 0;
   constexpr auto attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
   int e = (int)cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, D>, attr,
-                                    (int)sm90::BwdSmem<D, false>::bytes);
+                                    (int)dkdv_smem_bytes<D>());
   if (e == 0)
     e = (int)cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D>, attr,
                                   (int)sm90::DqSmem<D>::bytes);
@@ -127,9 +156,9 @@ int launch_dkdv(const void* q, const void* k, const void* v,
     const int blocks = ((sk + sm90::bwd_keys<D>() - 1) / sm90::bwd_keys<D>()) *
                        bh;
     flash_bwd_dkdv_kernel<T, D>
-        <<<blocks, sm90::NTHREADS, sm90::BwdSmem<D, false>::bytes,
-           stream>>>(m[0], m[1], m[2], m[3], lse, delta, static_cast<T*>(dk),
-                     static_cast<T*>(dv), bh, sq, sk, scale_r, causal);
+        <<<blocks, dkdv_threads<D>(), dkdv_smem_bytes<D>(), stream>>>(
+            m[0], m[1], m[2], m[3], lse, delta, static_cast<T*>(dk),
+            static_cast<T*>(dv), bh, sq, sk, scale_r, causal);
   }
   return (int)cudaGetLastError();
 }

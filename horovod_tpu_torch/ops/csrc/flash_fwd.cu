@@ -5,8 +5,10 @@
 // and `_finalize_flash`).  16-bit inputs: flash_fwd_sm90.cuh's body,
 // shared with K4 (ring_flash.cu), here at zero offsets; its note gives the
 // bound and the design; grid (bh, ceil(sq / 128)), 384 threads, heavy
-// (late) query tiles first (64-row tiles at head dim 256, where the two
-// consumer warpgroups split O's columns).  f32 inputs: the 3xTF32 wgmma
+// (late) query tiles first; at head dim 256 256 threads (each consumer
+// warpgroup's 64 rows over all 256 columns, S once per pair, the
+// consumers loading) on a 1-D grid, each head's tiles adjacent in a grid
+// of many waves (sm90::tile_order).  f32 inputs: the 3xTF32 wgmma
 // body of flash_wide_f32_sm90.cuh (wide32::fwd_tile, the one above 256
 // runs), whose note gives its design: 128 query rows by 64-key tiles, a
 // window of the whole head dim up to 128 (d / 32 panels) and two column
@@ -22,16 +24,24 @@
 namespace hvdt {
 
 template <typename T, int D>
-__global__ void __launch_bounds__(sm90::NTHREADS, 1)
+__global__ void __launch_bounds__(sm90::fwd_threads<D>(), 1)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap mq,
                      const __grid_constant__ CUtensorMap mk,
                      const __grid_constant__ CUtensorMap mv, T* __restrict__ o,
                      float* __restrict__ lse, int sq, int sk, float scale_r,
                      int causal) {
-  const int qt = gridDim.y - 1 - blockIdx.y;
-  sm90::fwd_tile<T, D>(&mq, &mk, &mv, o, lse, blockIdx.x,
-                       qt * sm90::fwd_rows<D>(), sq, sk, 0, 0, scale_r,
-                       causal);
+  if constexpr (D == 256) {
+    // A 1-D grid ordered by its size (sm90::tile_order).
+    const int n_qt = (sq + sm90::BM - 1) / sm90::BM;
+    const int2 ht = sm90::tile_order(blockIdx.x, gridDim.x / n_qt, n_qt);
+    sm90::fwd_tile<T, D>(&mq, &mk, &mv, o, lse, ht.x,
+                         (n_qt - 1 - ht.y) * sm90::BM, sq, sk, 0, 0, scale_r,
+                         causal);
+  } else {
+    const int qt = gridDim.y - 1 - blockIdx.y;
+    sm90::fwd_tile<T, D>(&mq, &mk, &mv, o, lse, blockIdx.x,
+                         qt * sm90::BM, sq, sk, 0, 0, scale_r, causal);
+  }
 }
 
 // Set each 16-bit kernel's shared-memory limit once, before its first
@@ -66,9 +76,10 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o,
     CUtensorMap mq, mk, mv;
     const int e = sm90::make_maps<T, D>(&mq, &mk, &mv, q, k, v, bh, sq, sk);
     if (e != 0) return e;
-    dim3 grid(bh, (sq + sm90::fwd_rows<D>() - 1) / sm90::fwd_rows<D>());
+    const int n_qt = (sq + sm90::BM - 1) / sm90::BM;
+    const dim3 grid = D == 256 ? dim3(bh * n_qt) : dim3(bh, n_qt);
     flash_fwd_kernel<T, D>
-        <<<grid, sm90::NTHREADS, sm90::Smem<D>::bytes, stream>>>(
+        <<<grid, sm90::fwd_threads<D>(), sm90::Smem<D>::bytes, stream>>>(
             mq, mk, mv, static_cast<T*>(o), lse, sq, sk, scale_r, causal);
     return (int)cudaGetLastError();
   }

@@ -39,18 +39,29 @@
 //   consumers' registers).  Shared memory per CTA, Q + 2 stages of K and
 //   V: D 32: 8 + 32 KB; D 64: 16 + 64 KB; D 96: 24 + 48 KB; D 128: 32 +
 //   64 KB.  Registers, not shared memory, hold the SM to one CTA (384
-//   threads at 168 registers; 40 for the producer, 232 for the consumers
-//   after setmaxnreg).
-// * Head dim 256 (K1 only; any head dim above 128 runs zero-padded to
-//   it): at 128 query rows O alone would take 128 f32 registers per
-//   consumer thread, so the consumers split O's columns instead of its
-//   rows (col_split): one CTA per 64 query rows, both consumer warpgroups
-//   compute S = Q K^T over the whole head dim (16 k16 slices from shared
-//   memory) with the same online softmax, and each accumulates O over its
-//   128 columns of V.  The registers are those of head dim 128 with
-//   64-key tiles; S is computed twice per key tile (1.5x the products of
-//   one pass), and every Q, K and V tile in shared memory serves both
-//   warpgroups.  Shared memory: Q + 2 stages of K and V, 32 + 128 KB.
+//   threads at 168 registers, sm90_common.cuh).
+// * Head dim 256 (K1 only; any head dim from 129 runs zero-padded to
+//   it): the same loop, 128 query rows a CTA, each consumer warpgroup its
+//   64 rows and all 256 columns of O, so S = Q K^T (16 k16 slices from
+//   shared memory) is computed once per (row, key) pair: 4 d FLOP of
+//   tensor-core work a pair, the caller's (the column split this body
+//   replaced computed S in both warpgroups, 6 d).  O takes 128 f32
+//   registers a thread and O += P V runs as two N = 128 products a k16
+//   slice; with S (FWD256_KEYS / 2) and P beside it in the pipelined loop
+//   that is more than ptxas gives a thread of a 384-thread CTA (168:
+//   ptxas allocates to the launch bound whatever setmaxnreg asks, and
+//   spilled 1.2 KB here), so the CTA is the two consumer warpgroups
+//   alone, 256 threads, up to 255 registers a thread (FOLD): thread 0 of
+//   warpgroup 0 loads Q and the K tiles, thread 0 of warpgroup 1 the V
+//   tiles, each into its stage once both warpgroups have released the
+//   stage's previous tile, at the end of a step, where none of the
+//   loader's own products is in flight (a branch there would serialize
+//   them); a tile is loaded a whole step ahead of its use.  Shared memory:
+//   Q + 2 stages of K and V, 64 + 128 KB at 64 keys (64 + 160 KB at 80,
+//   under the 227 KB a CTA may hold).  Every consumer warp releases a
+//   stage after its own wgmma wait (the empty barriers count the 8
+//   consumer warps, as in flash_wide_sm90.cuh), where the narrower bodies
+//   release once a warpgroup.
 // * f32 inputs: K1's and K4's body is the 3xTF32 wgmma one of
 //   flash_wide_f32_sm90.cuh (wide32::fwd_tile).
 //
@@ -76,28 +87,30 @@ namespace sm90 {
 constexpr int BM = 128;        // query rows per CTA
 constexpr int WG_ROWS = 64;    // query rows per consumer warpgroup
 constexpr int STAGES = 2;      // K/V tiles in flight
-
-// Query rows per CTA: BM, and WG_ROWS at the wide head dim, where both
-// consumer warpgroups own the same rows (col_split).
-template <int D>
-__host__ __device__ constexpr int fwd_rows() {
-  return col_split<D>() ? WG_ROWS : BM;
-}
+constexpr int FWD256_KEYS = 64;  // keys per tile at head dim 256
 
 // Shared-memory layout of one CTA: a tile of R rows is D / PANEL panels of
 // R x 64 bytes, each as TMA writes it with 64-byte swizzle.
 // Keys per tile: 128 up to head dim 64; 64 above, where S, P and O of the
-// pipelined loop would not fit the consumers' registers at 128.
+// pipelined loop would not fit the consumers' registers at 128; at 256
+// FWD256_KEYS.
 template <int D>
 constexpr int key_tile() {
-  return D <= 64 ? 128 : 64;
+  return D == 256 ? FWD256_KEYS : D <= 64 ? 128 : 64;
+}
+
+// Threads per CTA: a producer warpgroup and two consumer warpgroups up to
+// head dim 128; the consumers alone at 256, where they load too.
+template <int D>
+__host__ __device__ constexpr int fwd_threads() {
+  return D == 256 ? 256 : NTHREADS;
 }
 
 template <int D>
 struct Smem {
   static constexpr int BN = key_tile<D>();
   static constexpr int PANELS = D / PANEL;
-  static constexpr uint32_t Q_PANEL = fwd_rows<D>() * PANEL * 2;
+  static constexpr uint32_t Q_PANEL = BM * PANEL * 2;
   static constexpr uint32_t KV_PANEL = BN * PANEL * 2;
   static constexpr uint32_t Q_BYTES = PANELS * Q_PANEL;
   static constexpr uint32_t KV_BYTES = PANELS * KV_PANEL;
@@ -112,8 +125,8 @@ struct Smem {
   static_assert(D % PANEL == 0, "head dim is a multiple of 32");
 };
 
-// The 16-bit body: one CTA of NTHREADS threads computes rows
-// [q0, q0 + fwd_rows<D>()) of head `bh`.  mq, mk, mv: tensor maps of q
+// The 16-bit body: one CTA of fwd_threads<D>() threads computes rows
+// [q0, q0 + BM) of head `bh`.  mq, mk, mv: tensor maps of q
 // (bh, sq, D) and k, v (bh, sk, D) in the kernel's parameter space.  o
 // (bh, sq, D), lse (bh, sq).
 template <typename T, int D>
@@ -125,7 +138,11 @@ __device__ __forceinline__ void fwd_tile(const CUtensorMap* mq,
                                          float scale_r, int causal) {
   using L = Smem<D>;
   constexpr int BN = L::BN;
-  constexpr int ROWS = fwd_rows<D>(), DV = out_cols<D>();
+  constexpr bool FOLD = D == 256;  // no producer warpgroup
+  // Arrivals that release a K or V stage: one a consumer warpgroup (its
+  // thread 0), or with FOLD one a consumer warp (its lane 0, after that
+  // warp's own wgmma wait).
+  constexpr int EMPTY_ARRIVALS = FOLD ? 8 : 2;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -142,7 +159,7 @@ __device__ __forceinline__ void fwd_tile(const CUtensorMap* mq,
     // Key tiles that start past the CTA's last absolute row are wholly
     // masked (reference: `k_start <= q_start + block_q - 1`); a held
     // shard wholly in the future leaves none.
-    const int lim = q_abs + ROWS - 1 - k_off;
+    const int lim = q_abs + BM - 1 - k_off;
     n_kt = lim < 0 ? 0 : min(n_kt, lim / BN + 1);
   }
 
@@ -152,21 +169,21 @@ __device__ __forceinline__ void fwd_tile(const CUtensorMap* mq,
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(k_full + 8 * s, 1);
       mbar_init(v_full + 8 * s, 1);
-      mbar_init(k_empty + 8 * s, 2);  // one arrival per consumer warpgroup
-      mbar_init(v_empty + 8 * s, 2);
+      mbar_init(k_empty + 8 * s, EMPTY_ARRIVALS);
+      mbar_init(v_empty + 8 * s, EMPTY_ARRIVALS);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
   const int wg = threadIdx.x / 128;
-  if (wg == 0) {
+  if (!FOLD && wg == 0) {
     // Producer.  K and V of a stage are released apart: K once S = Q K^T
     // has read it, V once O += P V has.
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(PRODUCER_REGS));
     if (threadIdx.x == 0 && n_kt > 0) {
       mbar_expect_tx(q_full, L::Q_BYTES);
-      tma_tile<D>(q_s, mq, q_full, ROWS, q0, bh);
+      tma_tile<D>(q_s, mq, q_full, BM, q0, bh);
       for (int kt = 0; kt < n_kt; ++kt) {
         const int st = kt % STAGES, used = (kt / STAGES - 1) & 1;
         if (kt >= STAGES) mbar_wait(k_empty + 8 * st, used);
@@ -181,15 +198,15 @@ __device__ __forceinline__ void fwd_tile(const CUtensorMap* mq,
     }
   } else {
     // Consumers: warpgroup c owns rows [q0 + 64 c, q0 + 64 c + 64) and
-    // all columns of O or, at the wide head dim, rows [q0, q0 + 64) and
-    // columns [c D / 2, (c + 1) D / 2).
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONSUMER_REGS));
-    const int c = wg - 1, tid = threadIdx.x % 128;
+    // all columns of O.
+    if constexpr (!FOLD)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(
+          CONSUMER_REGS));
+    const int c = FOLD ? wg : wg - 1, tid = threadIdx.x % 128;
     const int lane = tid % 32;
     const int r_lo = (tid / 32) * 16 + lane / 4;  // + 8 for the second row
     const int cq = 2 * (lane % 4);                // + 8 i + j: the column
-    const int row0 = col_split<D>() ? 0 : c * WG_ROWS;  // within the CTA
-    const int col0 = col_split<D>() ? c * DV : 0;       // of O
+    const int row0 = c * WG_ROWS;                 // within the CTA
     const int wg_first = q_abs + row0;            // absolute rows
     const float scale_log2 = scale_r * LOG2E;
     constexpr int QK_STEPS = D / 16, PV_STEPS = BN / 16;
@@ -201,12 +218,44 @@ __device__ __forceinline__ void fwd_tile(const CUtensorMap* mq,
       n_live = lim < 0 ? 0 : min(n_kt, lim / BN + 1);
     }
 
-    float acc[DV / 2];
+    float acc[D / 2];
     float s[BN / 2];        // S, then P in f32
     uint32_t pa[PV_STEPS][4];  // P as the A operand, per k16 slice
     float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, alpha[2];
 #pragma unroll
-    for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    // This warpgroup's share of releasing a stage (EMPTY_ARRIVALS).
+    auto release = [&](uint32_t bar) {
+      mbar_arrive_if(bar, FOLD ? lane == 0 : tid == 0);
+    };
+    // FOLD: key tile j's K (thread 0 of warpgroup 0) or V (of warpgroup 1)
+    // into its stage, once both warpgroups have released the stage's
+    // previous tile; called where no product of this warpgroup is in
+    // flight.
+    auto load = [&](int j, int loader, uint32_t tiles, uint32_t full,
+                    uint32_t empty, const CUtensorMap* map) {
+      if constexpr (FOLD) {
+        if (c == loader && tid == 0 && j < n_kt) {
+          const int st = j % STAGES;
+          if (j >= STAGES) mbar_wait(empty + 8 * st, (j / STAGES - 1) & 1);
+          mbar_expect_tx(full + 8 * st, L::KV_BYTES);
+          tma_tile<D>(tiles + st * L::KV_BYTES, map, full + 8 * st, BN,
+                      j * BN, bh);
+        }
+      }
+    };
+    auto load_k = [&](int j) { load(j, 0, k_s, k_full, k_empty, mk); };
+    auto load_v = [&](int j) { load(j, 1, v_s, v_full, v_empty, mv); };
+    if constexpr (FOLD) {
+      if (c == 0 && tid == 0 && n_kt > 0) {
+        mbar_expect_tx(q_full, L::Q_BYTES);
+        tma_tile<D>(q_s, mq, q_full, BM, q0, bh);
+      }
+      for (int j = 0; j < STAGES; ++j) {
+        load_k(j);
+        load_v(j);
+      }
+    }
 
     // S = Q K^T of key tile stage st, issued (not waited for).
     auto issue_qk = [&](int st) {
@@ -222,15 +271,21 @@ __device__ __forceinline__ void fwd_tile(const CUtensorMap* mq,
       }
       wg_commit();
     };
-    // O += P V of stage st, issued (not waited for).
+    // O += P V of stage st, issued (not waited for); at head dim 256 as
+    // two N = 128 products, columns [0, 128) and [128, 256) (V's panels
+    // 0-3 and 4-7).
     auto issue_pv = [&](int st) {
 #pragma unroll
       for (int j = 0; j < PV_STEPS; ++j) {
-        const uint64_t b =
-            desc(v_s + st * L::KV_BYTES + (col0 / PANEL) * L::KV_PANEL +
-                     j * 16 * 64,
-                 L::KV_PANEL, 512);
-        Wgmma<DV, T>::rs(acc, pa[j], b);
+        const uint32_t vj = v_s + st * L::KV_BYTES + j * 16 * 64;
+        if constexpr (D == 256) {
+          Wgmma<128, T>::rs(part<64, 0>(acc), pa[j],
+                            desc(vj, L::KV_PANEL, 512));
+          Wgmma<128, T>::rs(part<64, 1>(acc), pa[j],
+                            desc(vj + 4 * L::KV_PANEL, L::KV_PANEL, 512));
+        } else {
+          Wgmma<D, T>::rs(acc, pa[j], desc(vj, L::KV_PANEL, 512));
+        }
       }
       wg_commit();
     };
@@ -288,7 +343,7 @@ __device__ __forceinline__ void fwd_tile(const CUtensorMap* mq,
     // 0-7) and 2 + h (columns 8-15).
     auto rescale_and_pack = [&]() {
 #pragma unroll
-      for (int i = 0; i < DV / 8; ++i)
+      for (int i = 0; i < D / 8; ++i)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           acc[4 * i + 2 * h] *= alpha[h];
@@ -316,13 +371,15 @@ __device__ __forceinline__ void fwd_tile(const CUtensorMap* mq,
       issue_pv(pst);
       wg_wait<1>();  // S of tile kt is in; P V of tile kt - 1 may run on
       pin(s);
-      mbar_arrive_if(k_empty + 8 * st, tid == 0);
+      release(k_empty + 8 * st);
       softmax(kt, masked);
       wg_wait<0>();
       pin(acc);
       pin(pa);
-      mbar_arrive_if(v_empty + 8 * pst, tid == 0);
+      release(v_empty + 8 * pst);
       rescale_and_pack();
+      load_k(kt + STAGES);
+      load_v(kt - 1 + STAGES);
     };
 
     // Leading tiles need no mask; from the first that straddles the
@@ -342,12 +399,13 @@ __device__ __forceinline__ void fwd_tile(const CUtensorMap* mq,
       issue_qk(0);
       wg_wait<0>();
       pin(s);
-      mbar_arrive_if(k_empty, tid == 0);
+      release(k_empty);
       if (n_plain > 0)
         softmax(0, Plain{});
       else
         softmax(0, Masked{});
       rescale_and_pack();
+      load_k(STAGES);
     }
     for (int kt = 1; kt < n_plain; ++kt) step(kt, Plain{});
     for (int kt = max(n_plain, 1); kt < n_live; ++kt) step(kt, Masked{});
@@ -359,7 +417,8 @@ __device__ __forceinline__ void fwd_tile(const CUtensorMap* mq,
       issue_pv(st);
       wg_wait<0>();
       pin(acc);
-      mbar_arrive_if(v_empty + 8 * st, tid == 0);
+      release(v_empty + 8 * st);
+      load_v(n_live - 1 + STAGES);
     }
     // Tiles no row of this warpgroup sees: wait for each to land (so the
     // release below cannot complete an earlier use of its stage), release.
@@ -367,8 +426,10 @@ __device__ __forceinline__ void fwd_tile(const CUtensorMap* mq,
       const int st = kt % STAGES, ph = (kt / STAGES) & 1;
       mbar_wait(k_full + 8 * st, ph);
       mbar_wait(v_full + 8 * st, ph);
-      mbar_arrive_if(k_empty + 8 * st, tid == 0);
-      mbar_arrive_if(v_empty + 8 * st, tid == 0);
+      release(k_empty + 8 * st);
+      release(v_empty + 8 * st);
+      load_k(kt + STAGES);
+      load_v(kt + STAGES);
     }
 
     // Finalize: o = O / l, lse = m + log l (POS_BIG, o = 0 where l == 0).
@@ -380,13 +441,12 @@ __device__ __forceinline__ void fwd_tile(const CUtensorMap* mq,
       const int row = q0 + row0 + r_lo + 8 * h;
       if (row >= sq) continue;
       const float inv = lt == 0.f ? 1.f : 1.f / lt;
-      T* dst = o + ((size_t)bh * sq + row) * D + col0 + cq;
+      T* dst = o + ((size_t)bh * sq + row) * D + cq;
 #pragma unroll
-      for (int i = 0; i < DV / 8; ++i)
+      for (int i = 0; i < D / 8; ++i)
         *reinterpret_cast<uint32_t*>(dst + 8 * i) =
             pack2<T>(acc[4 * i + 2 * h] * inv, acc[4 * i + 2 * h + 1] * inv);
-      // Both warpgroups of a column-split CTA hold the same l and m.
-      if (lane % 4 == 0 && (!col_split<D>() || c == 0))
+      if (lane % 4 == 0)
         lse[(size_t)bh * sq + row] =
             lt == 0.f ? POS_BIG : m[h] * LN2 + logf(lt);
     }
@@ -398,7 +458,7 @@ template <typename T, int D>
 int make_maps(CUtensorMap* mq, CUtensorMap* mk, CUtensorMap* mv,
               const void* q, const void* k, const void* v, int bh, int sq,
               int sk) {
-  int e = make_map<T>(mq, q, bh, sq, D, fwd_rows<D>());
+  int e = make_map<T>(mq, q, bh, sq, D, BM);
   if (e == 0) e = make_map<T>(mk, k, bh, sk, D, key_tile<D>());
   if (e == 0) e = make_map<T>(mv, v, bh, sk, D, key_tile<D>());
   return e;

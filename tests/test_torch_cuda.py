@@ -124,13 +124,17 @@ def test_split_pair_at_the_tile_edges(cuda_device, seq, d, causal, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_flash_attention_past_65535_batch_heads(cuda_device, dtype):
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 32),
+                                     (torch.float32, 32),
+                                     (torch.bfloat16, 256),
+                                     (torch.float16, 256)])
+def test_flash_attention_past_65535_batch_heads(cuda_device, dtype, d):
     """65,600 batch-heads (more blocks than a grid's y dimension holds):
     K1, K2 and K3 launch once each (the plan picks the split pair past
     1024 batch-heads), and the output and gradients agree with the plain
-    blockwise path."""
-    got, want = _past_65535_batch_heads(cuda_device, dtype, 32)
+    blockwise path; at head dim 256 in 16 bits on K1's and K2's bodies
+    that compute S (and dP) once per pair."""
+    got, want = _past_65535_batch_heads(cuda_device, dtype, d)
     for name, a in got.items():
         b = want[name]
         assert torch.isfinite(a).all()
@@ -408,12 +412,24 @@ def _hold_wide_bodies(device, seq, d, causal, dtype):
         assert err["worst"] <= 1.0, (name, err)
 
 
+# K1 and K2 at head dim 256 in 16 bits: a ragged length causal (1000: a
+# last query tile of 104 rows, whose second consumer warpgroup holds 40,
+# and a last key tile of 40 keys) and not (333), a single row pair in one
+# ragged tile (seq 2), and a long causal sequence (8192: 128 key tiles
+# into each row's O, 128 query steps into each key's dK and dV).
+_EDGES_256 = [(1000, 256, True), (333, 256, False), (2, 256, True),
+              (8192, 256, True)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("seq,d,causal", _WIDE_EDGES)
+@pytest.mark.parametrize("seq,d,causal", _WIDE_EDGES + _EDGES_256)
 def test_wide_16bit_bodies_at_their_edges(cuda_device, seq, d, causal,
                                           dtype):
-    """K1, K2 and K3 on their wgmma wide bodies."""
+    """K1, K2 and K3 on their wgmma wide bodies, and at head dim 256 K1
+    (each consumer warpgroup 64 query rows over all 256 columns, O += P V
+    as two N = 128 products), K2 (S^T and dP^T once per pair, P^T and
+    dS^T shared through shared memory) and K3."""
     _hold_wide_bodies(cuda_device, seq, d, causal, dtype)
 
 

@@ -219,21 +219,23 @@ def test_wide_tensor_core_work(name, d, dtype, flops):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("d", [288, 512, 1024])
+@pytest.mark.parametrize("d", [256, 288, 512, 1024])
 def test_wide_plain_side_matches_jax_in_16_bits(monkeypatch, d, dtype):
     """kernel_check's plain side in bf16 and fp16 at a wide head dim,
     walking the 16-bit wide forward's key tile (128 keys: two tiles of
-    seq 256) and the split mode's for the backward (K3's 64 keys), against
-    the JAX package's flash attention in the same dtype on the same
-    128-key blocks (Pallas in interpret mode): o, dq, dk and dv.  Both
-    round p to the dtype against the running max after each 128-key
-    block, and p and ds before their products, so kernel_check's rule
-    holds them: within 2 ulps of the dtype of |ref| + rms_row(ref) +
-    rms(ref) / 16 (summation order and the odd rounding flip)."""
+    seq 256; at 256 K1's FWD256_KEYS, 64: four) and the split mode's for
+    the backward (K3's 64 keys), against the JAX package's flash
+    attention in the same dtype on blocks of the forward's tile (Pallas
+    in interpret mode): o, dq, dk and dv.  Both round p to the dtype
+    against the running max after each key block, and p and ds before
+    their products, so kernel_check's rule holds them: within 2 ulps of
+    the dtype of |ref| + rms_row(ref) + rms(ref) / 16 (summation order and
+    the odd rounding flip)."""
     monkeypatch.delenv("HVD_TPU_VMEM_LIMIT_MB", raising=False)
     b, h, s = 1, 2, 256
     tile = tattn.fwd_key_tile(dtype, d)
-    assert tile == 128 and tattn.bwd_mode(s, d, b * h) == "split"
+    assert tile == (64 if d == 256 else 128)
+    assert tattn.bwd_mode(s, d, b * h) == "split"
     jdtype = {torch.bfloat16: jnp.bfloat16, torch.float16: jnp.float16}[
         dtype]
     q, k, v, ct = (torch.from_numpy(a).to(dtype)
@@ -255,6 +257,22 @@ def test_wide_plain_side_matches_jax_in_16_bits(monkeypatch, d, dtype):
         assert got[name].dtype == dtype
         err = kernel_check.compare(got[name], flat(w))
         assert err["worst"] <= 1.0, (name, err)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_256_key_tiles_match_the_sources(dtype):
+    """The 16-bit bodies at head dim 256, read from their sources: K1's key
+    tile (FWD256_KEYS of csrc/flash_fwd_sm90.cuh) is the forward's in
+    attention.py's table, which the plain side walks; K2's 64 keys a CTA
+    (DKDV256_KEYS of csrc/flash_bwd_sm90.cuh) change no sum, and the split
+    mode's tile is K3's 64 (dq_key_tile)."""
+    assert tattn.fwd_key_tile(dtype, 256) == \
+        _constants("flash_fwd_sm90.cuh")["FWD256_KEYS"]
+    assert _constants("flash_bwd_sm90.cuh")["DKDV256_KEYS"] == 64
+    assert tattn.bwd_key_tile("split", dtype, 256) == 64
+    for d in (129, 200, 255):
+        assert tattn.fwd_key_tile(dtype, d) == tattn.fwd_key_tile(dtype,
+                                                                  256)
 
 
 @pytest.mark.parametrize("d", [288, 512, 1024])

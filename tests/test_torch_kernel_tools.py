@@ -41,6 +41,8 @@ def _mutant_edits():
               in control.F32_MUTANTS.items()]
     edits += [(n, f, old) for n, (f, old, _)
               in control.RING_F32_MUTANTS.items()]
+    edits += [(n, f, old) for n, (f, old, _, _, _)
+              in control.D256_MUTANTS.items()]
     return edits
 
 
@@ -86,3 +88,33 @@ def test_phase_turns_read_the_ring_kernels_line():
     assert turns.metric("ring_kernels", rec) == {
         "k4_bf16": 0.031, "k5_bf16": 0.076, "k4_f32": 0.2, "k5_f32": 0.7}
     assert turns.METRIC["ring_kernels"] == "ms"
+
+
+def test_smoke_seconds_stamp_each_phase(tmp_path):
+    """``tools/torch_smoke_seconds.py`` runs a checkout's chip_smoke.py,
+    stamps every line and gives each phase the seconds since the line
+    before it, and the build phase's seconds per source."""
+    import json
+    import subprocess
+    import sys
+
+    (tmp_path / "chip_smoke.py").write_text(
+        "import json, time\n"
+        "print(json.dumps({'phase': 'device'}))\n"
+        "time.sleep(0.2)\n"
+        "print(json.dumps({'phase': 'build', "
+        "'sources': {'flash_fwd': {'seconds': 1.5}}}))\n"
+        "print('not a phase')\n")
+    out = tmp_path / "stamped"
+    run = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "tools",
+                                      "torch_smoke_seconds.py"),
+         "--root", str(tmp_path), "--out", str(out)],
+        capture_output=True, text=True, timeout=60)
+    assert run.returncode == 0, run.stderr
+    rec = json.loads(run.stdout.splitlines()[-1])
+    assert [p for p, _ in rec["phases"]] == ["device", "build"]
+    assert rec["phases"][1][1] >= 0.2
+    assert rec["build_sources"] == {"flash_fwd": 1.5}
+    lines = out.read_text().splitlines()
+    assert len(lines) == 3 and lines[2].endswith("\tnot a phase")

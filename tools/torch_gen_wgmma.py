@@ -13,9 +13,11 @@ forward (``csrc/flash_fwd_sm90.cuh``) and backward
 
 * ``Wgmma<N, T>::ss`` — A and B from shared memory, both K-major (the
   forward's logits ``S = Q K^T``, N = 64 or 128 keys; the backward's
-  ``S^T = K q'^T`` and ``dP^T = V dO^T``, N = 64 query rows, and 32 for
-  the wide K2 body's 32-row query step, csrc/flash_wide_sm90.cuh);
-  ``scale_d`` 0 overwrites the accumulator, 1 adds to it;
+  ``S^T = K q'^T`` and ``dP^T = V dO^T``, N = 64 query rows, and 32
+  for the 32-row query halves of K2 at head dim 256,
+  csrc/flash_bwd_sm90.cuh, and of the wide K2 body's steps,
+  csrc/flash_wide_sm90.cuh); ``scale_d`` 0 overwrites the accumulator, 1
+  adds to it;
 * ``Wgmma<N, T>::rs`` — A from registers, B from shared memory MN-major
   (``O += P V``, ``dV += P^T dO``, ``dK += dS^T q'`` with V, dO and q'
   stored as they arrive, rows by head dim), N = head dim 32/64/96/128;
@@ -23,7 +25,11 @@ forward (``csrc/flash_fwd_sm90.cuh``) and backward
 * ``Wgmma<N, T>::ss_t`` — A and B from shared memory, both MN-major (the
   backward's ``dQ = dS K``: dS stored transposed, key rows by query
   columns, and K as it arrives), N = 32/64/96 head-dim columns;
-  ``scale_d`` as for ``ss``.
+  ``scale_d`` as for ``ss``;
+* ``Wgmma<N, T>::ss_tb`` — A from shared memory K-major, B from shared
+  memory MN-major (K2 at head dim 256: ``dV += P^T dO`` and ``dK += dS^T
+  q'`` with P^T and dS^T stored key rows by query columns, dO and q' as
+  they arrive), N = 128 head-dim columns; ``scale_d`` as for ``ss``.
 
 T is ``__nv_bfloat16`` or ``__half``.  In float32 (the wide bodies'
 3xTF32 products, ``csrc/flash_wide_f32_sm90.cuh``) one shape form:
@@ -56,6 +62,7 @@ OUT = os.path.join(ROOT, "horovod_tpu_torch", "ops", "csrc",
 SS_N = (32, 64, 128)
 RS_N = (32, 64, 96, 128)
 SST_N = (32, 64, 96)
+SSTB_N = (128,)
 TYPES = (("__nv_bfloat16", "bf16"), ("__half", "f16"))
 TF32_RS_N = (16, 32, 48, 64, 96, 128)
 TF32_SS_N = (16,)
@@ -146,6 +153,21 @@ def ss_t(n, ptx):
   }}"""
 
 
+def ss_tb(n, ptx):
+    r = n // 2
+    return f"""
+  // D (64 x {n}) = or += A (64 x 16, K-major) B (16 x {n}, MN-major).
+  __device__ static __forceinline__ void ss_tb(float (&d)[{r}], uint64_t a,
+                                               uint64_t b, int scale_d) {{
+    asm volatile(
+        "{{\\n.reg .pred p;\\nsetp.ne.b32 p, %{r + 2}, 0;\\n"
+        "wgmma.mma_async.sync.aligned.m64n{n}k16.f32.{ptx}.{ptx} "
+        "{{{_regs(r)}}}, %{r}, %{r + 1}, p, 1, 1, 0, 1;\\n}}\\n"
+        : {_outs(r)}
+        : "l"(a), "l"(b), "r"(scale_d));
+  }}"""
+
+
 def rs_tf32(n):
     r = n // 2
     return f"""
@@ -187,7 +209,8 @@ def generate() -> str:
         for n in sorted(set(SS_N) | set(RS_N) | set(SST_N)):
             body = (ss(n, ptx) if n in SS_N else "") + \
                 (rs(n, ptx) if n in RS_N else "") + \
-                (ss_t(n, ptx) if n in SST_N else "")
+                (ss_t(n, ptx) if n in SST_N else "") + \
+                (ss_tb(n, ptx) if n in SSTB_N else "")
             parts.append(f"\ntemplate <>\nstruct Wgmma<{n}, {ctype}> {{"
                          f"{body}\n}};\n")
     for n in TF32_RS_N:

@@ -6,6 +6,7 @@ Run from the repository root on a machine with one CUDA GPU::
     python3 tools/torch_kernel_control.py --wide-only  # K3 above 256
     python3 tools/torch_kernel_control.py --f32        # K1-K5 in f32
     python3 tools/torch_kernel_control.py --f32-first-rows  # dq, row 0
+    python3 tools/torch_kernel_control.py --d256       # K1, K2 at 256
 
 Builds mutants of the attention kernels, each with one line changed so
 that it skips part of its work.  K1's mutants change the forward body
@@ -60,6 +61,24 @@ dims above 256), each read through ``flash_bwd_dq`` at head dims 288 and
   of each query tile;
 * ``dq_wide_drops_last_k16_slice`` — dQ += dS K leaves out the last
   16-key slice of every key tile.
+
+Mutants of K1's and K2's 16-bit bodies at head dim 256 (K1 in
+``csrc/flash_fwd_sm90.cuh``, its warpgroups' 64 rows over all 256
+columns; K2 ``dkdv256_tile`` in ``csrc/flash_bwd_sm90.cuh``, S^T and dP^T
+once per pair, P^T and dS^T shared through shared memory), each read
+through K1 (o, lse) or K2 (dk, dv) at ``D256_SHAPES`` in bf16 and fp16
+against the plain side of the split mode:
+
+* ``fwd256_drops_key_tile`` — K1 masks out the second-to-last key tile of
+  S (every query tile);
+* ``fwd256_pv_high_half_short`` — O's second N = 128 half (columns
+  128-255) leaves out the last k16 slice of P V on every key tile;
+* ``dkdv256_stale_pt_half`` — the second consumer warpgroup leaves its
+  half of P^T unwritten on odd query steps from the third on, so dV reads
+  the half it stored two steps earlier;
+* ``dkdv256_stale_ds_half`` — the same for dS^T (read: dk);
+* ``dkdv256_scores_one_k16_short`` — S^T and dP^T leave out the last k16
+  slice of the head dim.
 
 Beside the sound wide reading, the sound body's dq and the plain side's
 are each read against ``dq_f64_scores`` (S and dP in float64), which
@@ -293,6 +312,37 @@ WIDE_MUTANTS = {
         "for (int j = 0; j < DQ_STEPS - 1; ++j)"),
 }
 WIDE_SHAPES = ((16, 1024, 288), (4, 1024, 1024))  # (bh, seq, head dim)
+# K1 and K2 at head dim 256 in 16 bits: (file mutated, line, what
+# replaces it, the source stem that launches the body, outputs read).
+D256_PV_HIGH = "          Wgmma<128, T>::rs(part<64, 1>(acc), pa[j],\n"
+D256_PT_STORE = ("        *reinterpret_cast<uint32_t*>(gbase + pt_off + at) "
+                 "=\n")
+D256_DS_STORE = ("        *reinterpret_cast<uint32_t*>(gbase + ds_off + at) "
+                 "=\n")
+D256_STALE = "        if (!(c == 1 && it >= 2 && it % 2 == 1))\n"
+D256_MUTANTS = {
+    "fwd256_drops_key_tile": (
+        FWD_BODY, KEY_END,
+        KEY_END + "      if (D == 256 && kt == n_kt - 2)\n"
+        "        for (float& x : s) x = NEG_INF;\n", "flash_fwd",
+        ("o", "lse")),
+    "fwd256_pv_high_half_short": (
+        FWD_BODY, D256_PV_HIGH,
+        "          if (j < PV_STEPS - 1)\n" + D256_PV_HIGH, "flash_fwd",
+        ("o",)),
+    "dkdv256_stale_pt_half": (
+        BWD_BODY, D256_PT_STORE, D256_STALE + D256_PT_STORE, SPLIT,
+        ("dv",)),
+    "dkdv256_stale_ds_half": (
+        BWD_BODY, D256_DS_STORE, D256_STALE + D256_DS_STORE, SPLIT,
+        ("dk",)),
+    "dkdv256_scores_one_k16_short": (
+        BWD_BODY, "    for (int kk = 0; kk < D / 16; ++kk) {\n",
+        "    for (int kk = 0; kk < D / 16 - 1; ++kk) {\n", SPLIT,
+        ("dk", "dv")),
+}
+# (bh, seq, head dim): many query steps a CTA, and a ragged length.
+D256_SHAPES = ((16, 1024, 256), (6, 1000, 256))
 # The f32 wide bodies: K3's clusters of 3, 4 and 8 column CTAs.
 F32_WIDE_SHAPES = ((16, 1024, 288), (8, 1024, 512), (4, 1024, 1024))
 # The f32 bodies at and below 256: the main path's shape, head dims 32,
@@ -501,22 +551,26 @@ def loose_compare(got, want):
             "worst": err / (2e-2 * want.float().abs().max().item())}
 
 
-def build_mutants(wide_only=False, f32=False):
+def build_mutants(wide_only=False, f32=False, d256=False):
     """``{mutant: {stem: path of its shared library}}``, nvcc runs in
     parallel."""
     jobs = []
     edits = {}
-    if not f32:
+    if not (wide_only or f32):
+        edits.update({name: ((stem,), file, old, new)
+                      for name, (file, old, new, stem, _) in
+                      D256_MUTANTS.items()})
+    if not (f32 or d256):
         edits.update({name: (("flash_wide",), file, old, new)
                       for name, (file, old, new) in WIDE_MUTANTS.items()})
-    if not wide_only:
+    if not (wide_only or d256):
         edits.update({name: (F32_STEMS, file, old, new)
                       for name, (file, old, new, _, _) in
                       F32_MUTANTS.items()})
         edits.update({name: (("ring_flash",), file, old, new)
                       for name, (file, old, new) in
                       RING_F32_MUTANTS.items()})
-    if not (wide_only or f32):
+    if not (wide_only or f32 or d256):
         edits.update({name: ((stem,), file, old, new)
                       for name, (stem, file, old, new, _)
                       in MUTANTS.items()})
@@ -620,6 +674,43 @@ def wide_readings(paths):
                     _build._libs["flash_wide"] = sound
                 rows.setdefault(name, {})[tag] = reading(got, ref, ["dq"])
                 ok &= rows[name][tag]["dq"]["strict"]["worst"] > 1.0
+            del q, k, v, do, qr, ref, delta, args, got
+    return rows, ok
+
+
+def d256_readings(paths):
+    """The sound K1 and K2 at head dim 256 and each of D256_MUTANTS against
+    the plain side of the split mode at each of D256_SHAPES, bf16 and
+    fp16: ``({reading: {shape: ...}}, ok)``, ok when the sound bodies pass
+    and every mutant fails."""
+    sound = {stem: _build.load(stem) for stem in ("flash_fwd", SPLIT)}
+    rows, ok = {}, True
+    for dtype in (torch.bfloat16, torch.float16):
+        for bh, s, d in D256_SHAPES:
+            g = torch.Generator(device="cuda").manual_seed(s + d + 1)
+            q, k, v, do = (torch.randn(bh, s, d, device="cuda", generator=g)
+                           .to(dtype) for _ in range(4))
+            p2, scale_r = A._split_scale(d ** -0.5)
+            qr = (q * p2).to(dtype)
+            ref, delta = kernel_check.plain_outputs(qr, k, v, do, True,
+                                                    scale_r, p2, "split")
+            args = (qr, k, v, do, ref["lse"], delta, p2, scale_r, True,
+                    "split")
+            tag = f"{dtype}_{bh}x{s}x{d}"
+            got = kernel_check.kernel_outputs(*args)
+            rows.setdefault("sound_d256", {})[tag] = reading(
+                got, ref, ["o", "lse", "dk", "dv", "dq"])
+            ok &= all(r["strict"]["worst"] <= 1.0
+                      for r in rows["sound_d256"][tag].values())
+            for name, (_, _, _, stem, outs) in D256_MUTANTS.items():
+                _build._libs[stem] = ctypes.CDLL(paths[name][stem])
+                try:
+                    got = kernel_check.kernel_outputs(*args)
+                finally:
+                    _build._libs.update(sound)
+                rows.setdefault(name, {})[tag] = reading(got, ref, outs)
+                ok &= any(r["strict"]["worst"] > 1.0
+                          for r in rows[name][tag].values())
             del q, k, v, do, qr, ref, delta, args, got
     return rows, ok
 
@@ -807,6 +898,9 @@ def main():
     ap.add_argument("--f32", action="store_true",
                     help="only the f32 bodies (K1-K3, B2; K4 and K5 on "
                          "a ring) and their mutants")
+    ap.add_argument("--d256", action="store_true",
+                    help="only K1 and K2 at head dim 256 in 16 bits and "
+                         "their mutants")
     ap.add_argument("--f32-first-rows", action="store_true",
                     help="only dq's causal first query rows in float32: "
                          "the plain side, the f32 B2 and K3 and the "
@@ -826,7 +920,13 @@ def main():
                           "shapes": [list(x) for x in FIRST_ROWS_SHAPES],
                           "first_rows": first}), flush=True)
         sys.exit(0 if ok else 1)
-    paths = build_mutants(wide_only, f32_only)
+    paths = build_mutants(wide_only, f32_only, args.d256)
+    if args.d256:
+        d256, ok = d256_readings(paths)
+        print(json.dumps({"nvidia_smi": smi, "causal": True, "ok": ok,
+                          "d256_shapes": [list(x) for x in D256_SHAPES],
+                          "d256_readings": d256}), flush=True)
+        sys.exit(0 if ok else 1)
     if not wide_only:
         ring_f32, ring_ok = ring_f32_readings(paths)
     if f32_only:
@@ -847,7 +947,8 @@ def main():
                           "wide_readings": wide}), flush=True)
         sys.exit(0 if ok else 1)
     f32, f32_ok = f32_readings(paths)
-    ok &= f32_ok and ring_ok
+    d256, d256_ok = d256_readings(paths)
+    ok &= f32_ok and ring_ok and d256_ok
     sound = {stem: _build.load(stem)
              for stem in ("flash_fwd", "flash_bwd", SPLIT)}
     result = {}
@@ -899,7 +1000,9 @@ def main():
                       "wide_shapes": [list(x) for x in WIDE_SHAPES],
                       "wide_readings": wide,
                       "f32_readings": f32,
-                      "ring_f32_readings": ring_f32}), flush=True)
+                      "ring_f32_readings": ring_f32,
+                      "d256_shapes": [list(x) for x in D256_SHAPES],
+                      "d256_readings": d256}), flush=True)
     sys.exit(0 if ok else 1)
 
 

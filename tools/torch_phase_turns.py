@@ -4,6 +4,8 @@ Run from the repository root on a machine with one CUDA GPU::
 
     python3 tools/torch_phase_turns.py --parent proof/parent \\
         [--phases train ring_train train_dp resnet kernels] [--rounds 1]
+    python3 tools/torch_phase_turns.py --parent proof/parent --phases
+        # no phase: the kernels' builds compared alone
 
 Host-side step times move by tens of percent between chip calls, so a
 change is compared with its parent inside one call, in turns: parent,
@@ -18,18 +20,32 @@ the median of each side (``kernels``: the milliseconds of K1 and B2 in
 bf16 and of K1, B2, K2 and K3 in float32 at the main shape;
 ``ring_kernels``: of K4 and K5 in bf16 and in float32 on a wholly visible
 step of the ring shard; each median apart).
+
+First it prints one ``ptxas`` line comparing the two checkouts' kernel
+builds, kernel by kernel (every instantiation of every ``ops/csrc/*.cu``):
+the kernels whose ptxas lines (registers, spills, C75xx notes) or whose
+SASS (``cuobjdump -sass``, addresses included) differ, with both sides'
+ptxas lines, and the count of kernels equal in both.  A library whose
+build kept no nvcc log (a checkout whose ``_build.py`` predates the logs)
+is rebuilt, so both sides have their ptxas lines; a kernel still without
+one is listed under ``ptxas_missing``.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+from tools.torch_split_variants import ptxas_summary  # noqa: E402
 # The throughput each phase reports (resnet: ResNet-50's, its first run).
 METRIC = {"train": "tokens_per_s", "ring_train": "tokens_per_s",
           "train_dp": "tokens_per_s", "resnet": "images_per_s",
@@ -83,25 +99,81 @@ def run_turn(root: str, phases) -> dict:
     return lines
 
 
-def build(root: str) -> None:
-    code = ("import sys; sys.path.insert(0, '.'); "
-            "from horovod_tpu_torch.ops import _build; _build.build_all(); "
-            "from horovod_tpu_torch.engine import build; build.build()")
-    subprocess.run([sys.executable, "-c", code], cwd=root, check=True,
-                   timeout=900)
+# Run in a checkout's root: build its kernels, rebuilding every library
+# whose nvcc log holds no ptxas lines (one cached by a _build.py that kept
+# no log beside it), then its engine; print {stem: [log, library]}.
+BUILD_CODE = """\
+import json, os, sys
+sys.path.insert(0, '.')
+from horovod_tpu_torch.ops import _build
+info = _build.build_all()
+stale = [st for st, i in info.items() if 'Compiling entry' not in i['log']]
+for st in stale:
+    os.remove(_build._lib_path(os.path.join(_build.CSRC, st + '.cu')))
+if stale:
+    info.update(_build.build_all(stale))
+from horovod_tpu_torch.engine import build
+build.build()
+print(json.dumps({st: [i['log'], _build._lib_path(src)]
+                  for src in _build.sources() for st, i in info.items()
+                  if src.endswith('/' + st + '.cu')}))
+"""
+
+
+def build(root: str) -> dict:
+    """Build ``root``'s kernels and engine; ``{kernel: {"ptxas": its
+    ptxas lines, "sass": a hash of its SASS}}`` of every kernel built."""
+    out = subprocess.run([sys.executable, "-c", BUILD_CODE], cwd=root,
+                         timeout=900, capture_output=True, text=True)
+    if out.returncode != 0:
+        raise RuntimeError(f"{root}: build failed\n{out.stderr}")
+    built = json.loads(out.stdout.strip().splitlines()[-1])
+    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                             "bin", "cuobjdump")
+    kernels = {}
+    for stem, (log, lib) in built.items():
+        for name, line in ptxas_summary(log, "").items():
+            kernels[name] = {"ptxas": line}
+        sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
+                              text=True, check=True).stdout
+        for part in re.split(r"\n\s*Function : ", sass)[1:]:
+            name, body = part.split("\n", 1)
+            kernels.setdefault(name.strip(), {})["sass"] = hashlib.sha256(
+                body.encode()).hexdigest()[:16]
+    return kernels
+
+
+def compare_builds(parent: dict, change: dict) -> dict:
+    """The kernels whose ptxas lines or SASS differ between the two
+    builds, those built on one side only, and those with no ptxas line
+    on a side (held by their SASS alone)."""
+    both = sorted(set(parent) & set(change))
+    differ = {n: {"parent": parent[n].get("ptxas"),
+                  "change": change[n].get("ptxas"),
+                  "sass_equal": parent[n].get("sass") ==
+                  change[n].get("sass")}
+              for n in both if parent[n] != change[n]}
+    return {"equal": len(both) - len(differ),
+            "differ": differ,
+            "ptxas_missing": [n for n in both if "ptxas" not in parent[n]
+                              or "ptxas" not in change[n]],
+            "parent_only": sorted(set(parent) - set(change)),
+            "change_only": sorted(set(change) - set(parent))}
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", required=True,
                     help="root of the parent's checkout")
-    ap.add_argument("--phases", nargs="+",
+    ap.add_argument("--phases", nargs="*",
                     default=["train", "ring_train", "train_dp"])
     ap.add_argument("--rounds", type=int, default=1)
     args = ap.parse_args()
     roots = {"parent": os.path.abspath(args.parent), "change": ROOT}
-    for root in roots.values():
-        build(root)
+    builds = {side: build(root) for side, root in roots.items()}
+    print(json.dumps({"ptxas": compare_builds(builds["parent"],
+                                              builds["change"])}),
+          flush=True)
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     seen = {p: {"parent": [], "change": []} for p in args.phases}

@@ -1,10 +1,12 @@
-"""Design choices of two kernel families, timed on the GPU: the split
-backward pair (K2, K3) at head dim 64, and the 16-bit wide bodies of K1,
-K2 and K3 (head dims above 256).
+"""Design choices of kernel families, timed on the GPU: the split
+backward pair (K2, K3) at head dim 64, K1 and K2 at head dim 256 in 16
+bits, the 16-bit wide bodies of K1, K2 and K3 (head dims above 256), and
+the f32 bodies.
 
 Run from the repository root on a machine with one CUDA GPU::
 
     python3 tools/torch_split_variants.py                 # the split pair
+    python3 tools/torch_split_variants.py --family d256   # K1, K2 at 256
     python3 tools/torch_split_variants.py --family wide   # K1-K3 above 256
     python3 tools/torch_split_variants.py --family wide_f32  # K1-K3 f32
     python3 tools/torch_split_variants.py --family f32   # the same, <= 256
@@ -26,6 +28,32 @@ and the alternatives to the checked-in choices.  ``split``:
   more registers than a consumer warpgroup has: ptxas spills);
 * ``k3_two_stages``, ``k3_four_stages`` — K3 streams K and V through two
   or four stages instead of ``DQ_STAGES``.
+
+``d256`` (K1 in ``csrc/flash_fwd_sm90.cuh``, K2's ``dkdv256_tile`` in
+``csrc/flash_bwd_sm90.cuh``; built into ``flash_fwd`` and
+``flash_bwd_split``, K3 timed beside them):
+
+* ``fwd256_80_keys`` — K1 takes 80-key tiles instead of ``FWD256_KEYS``
+  (S in 40 registers and P in 20, one fifth fewer trips through the
+  online softmax; Q + 2 stages of K and V 64 + 160 KB; the plain side
+  then walks 80 keys; the variant's copy of ``wgmma_sm90.cuh`` gains
+  ``Wgmma<80, T>::ss``, which ``tools/torch_gen_wgmma.py`` does not
+  generate);
+* ``one_release_per_warpgroup`` — K1 and K2 at 256 release a stage by
+  one thread per consumer warpgroup (the empty barriers counting 2)
+  instead of by each consumer warp's lane 0 after its own wgmma wait;
+* ``producer_warpgroup``, ``producer_warpgroup_240`` — K1 at 256 on 384
+  threads, a producer warpgroup loading and the consumers raising their
+  registers by ``setmaxnreg`` to ``CONSUMER_REGS`` (232), or to 240 with
+  the producer at 24, instead of the two consumer warpgroups alone
+  loading (``FOLD``): ptxas's registers and spills of the two show
+  whether it allocates what ``setmaxnreg`` asks;
+* ``head_fastest``, ``heads_together`` — K1's and K2's CTAs at 256 with
+  the head fastest (heavy tiles of every head first), or each head's
+  tiles adjacent, at every grid size, instead of by the grid's size
+  (``tile_order``, ``HEADS_TOGETHER_MIN_CTAS``);
+* ``dq_heads_together`` — K3's CTAs of one head adjacent in its 1-D
+  grid, heavy tiles first within each head, instead of the head fastest.
 
 ``wide`` (``csrc/flash_wide_sm90.cuh``):
 
@@ -143,6 +171,7 @@ sys.path.insert(0, ROOT)
 from horovod_tpu_torch.ops import _build  # noqa: E402
 from horovod_tpu_torch.ops import attention as A  # noqa: E402
 from horovod_tpu_torch.ops import kernel_check  # noqa: E402
+from tools import torch_gen_wgmma as gen_wgmma  # noqa: E402
 
 SLEEP_CYCLES = 2_000_000  # ≈1 ms at the H100's clock
 WH = "flash_wide_sm90.cuh"
@@ -151,7 +180,61 @@ WH = "flash_wide_sm90.cuh"
 # printed (or None), and variant: ([(file, line, replacement)],
 # the key tiles the plain side walks where they change: (forward, dq), None
 # for the checked-in tile).
+FF, FB, SC = "flash_fwd_sm90.cuh", "flash_bwd_sm90.cuh", "sm90_common.cuh"
+# Wgmma<80, T>::ss, which no checked-in kernel uses, added to the
+# variant's copy of the generated header for K1's 80-key tiles.
+_SS80 = ("wgmma_sm90.cuh", gen_wgmma.TAIL, "".join(
+    f"\ntemplate <>\nstruct Wgmma<80, {ctype}> {{"
+    f"{gen_wgmma.ss(80, ptx)}\n}};\n"
+    for ctype, ptx in gen_wgmma.TYPES) + gen_wgmma.TAIL)
+# K1 at 256 on 384 threads: a producer warpgroup and the consumers'
+# setmaxnreg, as at head dims up to 128.
+_PRODUCER_WG = [(FF, "  constexpr bool FOLD = D == 256;  // no producer warpgroup",
+                 "  constexpr bool FOLD = false;"),
+                (FF, "  return D == 256 ? 256 : NTHREADS;",
+                 "  return NTHREADS;")]
 FAMILIES = {
+    "d256": {
+        "stem": ("flash_fwd", "flash_bwd_split"), "ptxas": "Li256E",
+        "shapes": ((1040, 512, 256), (32, 1024, 256)),
+        "variants": {
+            "fwd256_80_keys": ([(FF, "constexpr int FWD256_KEYS = 64;",
+                                 "constexpr int FWD256_KEYS = 80;"),
+                                _SS80], (80, None)),
+            "one_release_per_warpgroup": ([
+                (FF, "  constexpr int EMPTY_ARRIVALS = FOLD ? 8 : 2;",
+                 "  constexpr int EMPTY_ARRIVALS = 2;"),
+                (FF, "      mbar_arrive_if(bar, FOLD ? lane == 0 : "
+                 "tid == 0);", "      mbar_arrive_if(bar, tid == 0);"),
+                (FB, "constexpr int DKDV256_EMPTY = 8;",
+                 "constexpr int DKDV256_EMPTY = 2;"),
+                (FB, "  auto release = [&](uint32_t bar) { "
+                 "mbar_arrive_if(bar, lane == 0); };",
+                 "  auto release = [&](uint32_t bar) { "
+                 "mbar_arrive_if(bar, tid == 0); };")], None),
+            "producer_warpgroup": (_PRODUCER_WG, None),
+            "producer_warpgroup_240": (_PRODUCER_WG + [
+                (SC, "constexpr int PRODUCER_REGS = 40;",
+                 "constexpr int PRODUCER_REGS = 24;"),
+                (SC, "constexpr int CONSUMER_REGS = 232;",
+                 "constexpr int CONSUMER_REGS = 240;")], None),
+            "head_fastest": ([(SC, "constexpr int HEADS_TOGETHER_MIN_CTAS "
+                               "= 768;", "constexpr int "
+                               "HEADS_TOGETHER_MIN_CTAS = 1 << 30;")], None),
+            "heads_together": ([(SC, "constexpr int HEADS_TOGETHER_MIN_CTAS "
+                                 "= 768;", "constexpr int "
+                                 "HEADS_TOGETHER_MIN_CTAS = 0;")], None),
+            "dq_heads_together": ([
+                ("flash_bwd_split.cu",
+                 "  const int qt = n_qt - 1 - blockIdx.x / bh_total;  "
+                 "// heavy (late) first\n",
+                 "  const int qt = n_qt - 1 - blockIdx.x % n_qt;\n"),
+                ("flash_bwd_split.cu",
+                 "                       blockIdx.x % bh_total, qt * ROWS, sq, "
+                 "sk, scale_r,",
+                 "                       blockIdx.x / n_qt, qt * ROWS, sq, "
+                 "sk, scale_r,")], None),
+        }},
     "split": {
         "stem": "flash_bwd_split", "ptxas": None,
         "shapes": ((1040, 512, 64), (64, 8192, 64), (32, 16384, 64)),
@@ -703,8 +786,8 @@ def f32_case(qr, k, v, do, p2, r, tiles):
     return kernels, outputs, wants
 
 
-CASES = {"split": split_case, "wide": wide_case, "wide_f32": f32_case,
-         "f32": f32_case}
+CASES = {"split": split_case, "d256": wide_case, "wide": wide_case,
+         "wide_f32": f32_case, "f32": f32_case}
 
 
 def main():
@@ -732,9 +815,8 @@ def main():
     built = build_variants(stems, variants)
     if fam["ptxas"]:
         ns = fam["ptxas"]
-        cached = any(info[st]["cached"] for st in stems)
         print(json.dumps({"ptxas": {
-            "checked_in": "cached build, no ptxas log" if cached else
+            "checked_in":
             ptxas_summary("".join(info[st]["log"] for st in stems), ns),
             **{n: ptxas_summary(log, ns) for n, (_, log) in built.items()}}}),
             flush=True)
