@@ -289,8 +289,9 @@ started, so the lines give each phase's share of the run):
    B2 launched; link 0-1's timed sends at least 5 ms on average in the
    slow job (rank 0's and rank 1's views); the partition job exits 7 (the
    typed error's code), every rank raises ``RanksDownError`` within 15
-   s of its loop's start (whom it names is printed), and every rank
-   leaves its postmortem dump.  Printed: step and ``synchronize`` medians beside
+   s of its loop's start naming only ranks across the cut (the clause
+   arms on every rank as it leaves init's topology agreement), and every
+   rank leaves its postmortem dump.  Printed: step and ``synchronize`` medians beside
    ``train_dp``'s, the links' send means, the ``faults`` section (the
    process injector's firings: empty, as the reference's), the
    anomalies (a 2-rank job has one link: the detector needs 3 to
@@ -1392,7 +1393,7 @@ def head_dims_lm_step(train=None):
     plain versions (:func:`hold_padded`: this shape's grids are the
     small ones that ``sm90::tile_order`` runs head fastest, where
     ``HEAD_DIM_WIDE``'s run each head's tiles together) and timed beside
-    SDPA's fastest backend.  Prints its tokens/s beside ``train``'s
+    their bounds at that shape and SDPA's fastest backend.  Prints its tokens/s beside ``train``'s
     summary (when given); gates the launches, the losses and the
     kernels' errors."""
     t_start = time.perf_counter()
@@ -1432,6 +1433,15 @@ def head_dims_lm_step(train=None):
              "k2_ms": time_ms(lambda: A.flash_bwd_dkdv(*largs, True)),
              "k3_ms": time_ms(lambda: A.flash_bwd_dq(*largs, p2, True))}
     del o, lse, delta, largs, qr, k, v, do
+    # Their bounds at this shape (each input read once, each output
+    # written once; the caller's work: K1 4 d, K2 8 d, K3 6 d a pair).
+    bh = batch * heads
+    pairs = causal_pairs(seq, seq, True) * bh
+    fwd_bytes = 4 * bh * seq * d * 2 + bh * seq * 4
+    bwd = split_bounds(shape, torch.bfloat16, True)
+    bounds = {"k1": bound_ms(4 * d * pairs, fwd_bytes, torch.bfloat16),
+              "k2": bound_ms(*bwd["flash_bwd_dkdv"], torch.bfloat16),
+              "k3": bound_ms(*bwd["flash_bwd_dq"], torch.bfloat16)}
     lib_fwd, t_lib_fwd, lib_bwd, t_lib_bwd = sdpa_times(
         shape, torch.bfloat16, True, d ** -0.5, 71)
     result = dict(
@@ -1440,7 +1450,9 @@ def head_dims_lm_step(train=None):
         train_tokens_per_s=train["tokens_per_s"] if train else None,
         losses=losses, launches=launched, attention_shape=list(shape),
         errors=errs, worst=worst,
-        **times, sdpa_fwd_ms=lib_fwd, sdpa_bwd_ms=lib_bwd,
+        **times, bound_ms={n: b[0] for n, b in bounds.items()},
+        bound_by={n: b[1] for n, b in bounds.items()},
+        sdpa_fwd_ms=lib_fwd, sdpa_bwd_ms=lib_bwd,
         library_fwd_ms=t_lib_fwd, library_bwd_ms=t_lib_bwd,
         seconds=time.perf_counter() - t_start)
     emit("head_dims_lm_step", **result)
@@ -4140,10 +4152,10 @@ def phase_chaos(dp_res, reference, script=__file__):
         if proc.returncode != 7:
             fail(f"chaos partition: the launcher exited {proc.returncode}")
         for x in part:
-            # Whom each rank names is printed, not gated: the clause arms
-            # per process, and a rank that arms late can report its cut
-            # neighbour before its own side goes dark (PERF.md).
-            if x["error"] != "RanksDownError" or \
+            # The clause arms on every rank at the end of init's topology
+            # agreement (engine/cc/net.h, NetFaultArmClock), so each rank
+            # names only ranks across the cut.
+            if x["error"] != "RanksDownError" or not x["far_only"] or \
                     x["seconds"] >= CHAOS_PARTITION_SEC:
                 fail(f"chaos partition rank {x['rank']}: {x}")
         if dumps != [f"rank-{r}.json" for r in range(CHAOS_PARTITION_RANKS)]:

@@ -1201,6 +1201,10 @@ bool Engine::SetupSockets(std::string* err) {
       return false;
     }
   }
+  // Every rank leaves the agreement within milliseconds of the others:
+  // the network faults' `@after` clauses count from here, so they arm
+  // job-wide at one instant (net.h, NetFaultArmClock).
+  NetFaultArmClock();
   // (Clock alignment runs at the END of socket setup, AFTER the tree
   // restructure and the data-plane accept loop: under the coordinator
   // tree the probes are RELAYED through the sub-coordinators — rank 0

@@ -295,6 +295,11 @@ bool ParseFaultClause(std::string body, FaultClause* c, std::string* err) {
 
 }  // namespace
 
+void NetFaultArmClock() {
+  std::lock_guard<std::mutex> lk(g_fault_mu);
+  g_fault_t0 = NowSec();
+}
+
 bool NetFaultInit(const std::string& spec, int my_rank, std::string* err) {
   std::lock_guard<std::mutex> lk(g_fault_mu);
   g_fault_clauses.clear();

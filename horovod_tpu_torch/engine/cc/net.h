@@ -84,8 +84,9 @@ void CloseFd(int fd);
 // Deterministic link-fault injection (HVD_TPU_NET_FAULT_SPEC, the chaos
 // harness of docs/fault-tolerance.md#failure-detection).  Semicolon-
 // separated clauses, each optionally suffixed `@after=S` (seconds after
-// NetFaultInit before the clause activates — stage faults past init
-// rendezvous):
+// NetFaultArmClock, which every rank calls as it leaves init's topology
+// agreement, before the clause activates — stage faults past init
+// rendezvous, on every rank at the same instant within milliseconds):
 //   link=A-B:drop            blackhole the A<->B link (both endpoints
 //                            swallow their outbound bytes; receivers see
 //                            silence, never EOF — the partition shape
@@ -104,6 +105,14 @@ void CloseFd(int fd);
 // Parse + arm the table (idempotent per Init; empty spec disarms).
 // Returns false with *err set on a malformed spec.
 bool NetFaultInit(const std::string& spec, int my_rank, std::string* err);
+// Start the `@after` clock: called by every rank as it leaves init's
+// topology agreement, which all ranks leave within milliseconds of each
+// other.  Counted from each rank's own NetFaultInit instead, a rank whose
+// engine started late stayed reachable after the others' clauses armed:
+// a late coordinator could still reach the far side of a partition with
+// an abort naming that side's own ranks.  Until it is called the clock
+// runs from NetFaultInit.
+void NetFaultArmClock();
 // Whether any clause is armed (cheap; callers may skip lookups).
 bool NetFaultActive();
 // Associate fd with the CURRENT-membership rank at the far end.

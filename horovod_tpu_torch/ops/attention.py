@@ -102,14 +102,15 @@ _FWD_KEY_TILE = {d: {"16-bit": 128 if d <= 64 else 64, "f32": 64}
 
 # Key tile of each backward body per head dim and mode: B2/K5's 16-bit
 # body (csrc/flash_bwd_sm90.cuh, sm90::BWD_BN), K3's (csrc/flash_dq_sm90.cuh,
-# dq_key_tile), and in f32 the one B2 and K5 share, 64 (their 3xTF32 body
+# dq_key_tile: 64, and DQ256_KEYS, 32, at head dim 256), and in f32 the
+# one B2 and K5 share, 64 (their 3xTF32 body
 # sums each query step's dQ over its CTA's F32_DKDV_KEYS), and K3's 3xTF32
 # body's 32 (csrc/flash_wide_f32_sm90.cuh, F32_DQ_KEYS; K2's 64 keys a CTA
 # change no sum).  The combined mode has no body at the wide head dim.
 _BWD_KEY_TILE = {d: {"combined": {"16-bit": 128, "f32": 64},
                      "split": {"16-bit": 64, "f32": 32}}
                  for d in HEAD_DIMS}
-_BWD_KEY_TILE[WIDE_HEAD_DIM] = {"split": {"16-bit": 64, "f32": 32}}
+_BWD_KEY_TILE[WIDE_HEAD_DIM] = {"split": {"16-bit": 32, "f32": 32}}
 
 
 def padded_head_dim(d: int) -> int:
@@ -187,9 +188,10 @@ def bwd_key_tile(mode: str, dtype, d: int) -> int:
     in 16 bits, 128 for the combined body of B2 and K5
     (csrc/flash_bwd_sm90.cuh, sm90::BWD_BN) and, for the split pair, K3's
     key tile, the one its dq sums over (csrc/flash_dq_sm90.cuh,
-    ``dq_key_tile``); in f32 64 for the combined mode (the 64 keys a CTA of
-    B2's and K5's 3xTF32 body, csrc/flash_wide_f32_sm90.cuh,
-    F32_DKDV_KEYS) and 32 for the split pair (K3's 3xTF32 bodies,
+    ``dq_key_tile``: 64, and 32 at head dim 256); in f32 64 for the
+    combined mode (the 64 keys a CTA of B2's and K5's 3xTF32 body,
+    csrc/flash_wide_f32_sm90.cuh, F32_DKDV_KEYS) and 32 for the split
+    pair (K3's 3xTF32 bodies,
     F32_DQ_KEYS, at every head dim); 64 above 256 in 16 bits, K3's wide
     body's (csrc/flash_wide_sm90.cuh, DQ_KEYS).  A plain side that holds
     a kernel walks the keys in the kernel's key tiles, so dq sums in the
@@ -693,9 +695,9 @@ def flash_attention(q, k, v, causal: bool = False,
     ``block_k`` are accepted for API parity with the JAX package and
     ignored: the kernels fix their own tiles (the forward 128 query rows
     by 128 keys in 16 bits, 64 keys above head_dim 64, and 128 by 64 in
-    float32, :func:`fwd_key_tile`; the backward :func:`bwd_key_tile`; 64
-    query rows at head_dim 256 in 16 bits, 128 query rows by 32 keys for
-    the f32 K3; above 256, 128 query rows by 128 keys in 16 bits and by
+    float32, :func:`fwd_key_tile`; the backward :func:`bwd_key_tile`; K3
+    128 query rows by 32 keys at head_dim 256 in 16 bits and in the f32
+    K3; above 256, 128 query rows by 128 keys in 16 bits and by
     64 in float32, with at most 128 output columns per block).
     """
     del block_q, block_k

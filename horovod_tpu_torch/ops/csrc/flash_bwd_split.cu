@@ -36,14 +36,17 @@
 //
 // Head dims 32, 64, 96, 128 and 256: at 256 K2 is `dkdv256_tile`
 // (flash_bwd_sm90.cuh: 64 keys a CTA of 256 threads, S^T and dP^T once
-// per pair, shared through shared memory) and K3 splits dQ's columns
-// between its consumer warpgroups (64-row CTAs, two stages).
+// per pair, P^T and dS^T shared through shared memory) and K3 is
+// `dq256_tile` (flash_dq_sm90.cuh: 128 query rows a CTA of 256 threads,
+// 32-key tiles, S and dP once per pair, each warpgroup all 256 columns
+// of its rows' dQ).
 //
 // Grids are 1-D, (tiles x bh) blocks, each block decoding its head and
-// tile from blockIdx.x (K2 at head dim 256 each head's tiles adjacent in a
-// grid of many waves, sm90::tile_order), so any batch-head count launches (a grid's y and
-// z dimensions stop at 65,535).  q, k, v, do: contiguous (bh, s, D) in
-// one dtype; lse, delta: (bh, sq) f32; grads in the input dtype.
+// tile from blockIdx.x (K2 and K3 at head dim 256 each head's tiles
+// adjacent in a grid of many waves, sm90::tile_order), so any batch-head
+// count launches (a grid's y and z dimensions stop at 65,535).  q, k, v,
+// do: contiguous (bh, s, D) in one dtype; lse, delta: (bh, sq) f32; grads
+// in the input dtype.
 
 #include "flash_bwd_sm90.cuh"
 #include "flash_dq_sm90.cuh"
@@ -86,8 +89,15 @@ __global__ void __launch_bounds__(dkdv_threads<D>(), 1)
   }
 }
 
+// K3's threads per CTA: dq256_tile's two consumer warpgroups at head dim
+// 256, else dq_qtile's producer and two consumer warpgroups.
+template <int D>
+constexpr int dq_threads() {
+  return D == 256 ? sm90::DQ256_THREADS : sm90::NTHREADS;
+}
+
 template <typename T, int D>
-__global__ void __launch_bounds__(sm90::NTHREADS, 1)
+__global__ void __launch_bounds__(dq_threads<D>(), 1)
     flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap mq,
                         const __grid_constant__ CUtensorMap mdo,
                         const __grid_constant__ CUtensorMap mk,
@@ -96,12 +106,23 @@ __global__ void __launch_bounds__(sm90::NTHREADS, 1)
                         const float* __restrict__ delta, T* __restrict__ dq,
                         int bh_total, int sq, int sk, float scale_r,
                         float dq_scale, int causal) {
-  constexpr int ROWS = sm90::dq_rows<D>();
-  const int n_qt = (sq + ROWS - 1) / ROWS;
-  const int qt = n_qt - 1 - blockIdx.x / bh_total;  // heavy (late) first
-  sm90::dq_qtile<T, D>(&mq, &mdo, &mk, &mv, lse, delta, dq,
-                       blockIdx.x % bh_total, qt * ROWS, sq, sk, scale_r,
-                       dq_scale, causal);
+  if constexpr (D == 256) {
+    // Ordered by the grid's size (sm90::tile_order), heavy (late) query
+    // tiles first.
+    constexpr int ROWS = sm90::dq_rows<D>();
+    const int n_qt = (sq + ROWS - 1) / ROWS;
+    const int2 ht = sm90::tile_order(blockIdx.x, bh_total, n_qt);
+    sm90::dq256_tile<T>(&mq, &mdo, &mk, &mv, lse, delta, dq, ht.x,
+                        (n_qt - 1 - ht.y) * ROWS, sq, sk, scale_r, dq_scale,
+                        causal);
+  } else {
+    constexpr int ROWS = sm90::DQ_BM;
+    const int n_qt = (sq + ROWS - 1) / ROWS;
+    const int qt = n_qt - 1 - blockIdx.x / bh_total;  // heavy (late) first
+    sm90::dq_qtile<T, D>(&mq, &mdo, &mk, &mv, lse, delta, dq,
+                         blockIdx.x % bh_total, qt * ROWS, sq, sk, scale_r,
+                         dq_scale, causal);
+  }
 }
 
 // Set both 16-bit kernels' shared-memory limits once per (dtype, D),
@@ -122,6 +143,15 @@ constexpr size_t dkdv_smem_bytes() {
     return sm90::BwdSmem<D, false>::bytes;
 }
 
+// K3's shared memory: dq256_tile's at head dim 256, else dq_qtile's.
+template <int D>
+constexpr size_t dq_smem_bytes() {
+  if constexpr (D == 256)
+    return sm90::Dq256Smem::bytes;
+  else
+    return sm90::DqSmem<D>::bytes;
+}
+
 template <typename T, int D>
 int prepare_split() {
   bool& ready = g_prepared[std::is_same<T, __half>::value ? 0 : 1]
@@ -132,7 +162,7 @@ int prepare_split() {
                                     (int)dkdv_smem_bytes<D>());
   if (e == 0)
     e = (int)cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D>, attr,
-                                  (int)sm90::DqSmem<D>::bytes);
+                                  (int)dq_smem_bytes<D>());
   ready = e == 0;
   return e;
 }
@@ -181,7 +211,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
     const int blocks = ((sq + sm90::dq_rows<D>() - 1) / sm90::dq_rows<D>()) *
                        bh;
     flash_bwd_dq_kernel<T, D>
-        <<<blocks, sm90::NTHREADS, sm90::DqSmem<D>::bytes, stream>>>(
+        <<<blocks, dq_threads<D>(), dq_smem_bytes<D>(), stream>>>(
             m[0], m[1], m[2], m[3], lse, delta, static_cast<T*>(dq), bh, sq,
             sk, scale_r, dq_scale, causal);
   }

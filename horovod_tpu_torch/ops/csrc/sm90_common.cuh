@@ -29,37 +29,26 @@ constexpr int PANEL = 32;      // head-dim elements per 64-byte swizzle row
 // 384 * 168 the CTA starts with.  ptxas allocates to the launch bound
 // (168 registers a thread at 384 threads) whatever setmaxnreg asks: a
 // consumer that needs more spills alike at 232 and at 240
-// (tools/torch_split_variants.py --family d256, producer_warpgroup*).  K1 and
-// K2 at head dim 256 need more, so their CTAs are the two consumer
+// (tools/torch_split_variants.py --family d256, producer_warpgroup*).  K1,
+// K2 and K3 at head dim 256 need more, so their CTAs are the two consumer
 // warpgroups alone (256 threads: up to 255 registers a thread), which
-// load as well (flash_fwd_sm90.cuh, flash_bwd_sm90.cuh).
+// load as well (flash_fwd_sm90.cuh, flash_bwd_sm90.cuh, flash_dq_sm90.cuh).
 constexpr int PRODUCER_REGS = 40;
 constexpr int CONSUMER_REGS = 232;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
-// K3 at head dim 256 splits dQ's columns between the two consumer
-// warpgroups: both own the same query rows and compute S and dP over the
-// whole head dim, and each accumulates its half of the columns
-// (out_cols), so dQ takes the registers it takes at head dim 128.  The
-// score products run twice per pair; the tiles in shared memory serve
-// both warpgroups.  (K1 and K2 compute S, and dP, once per pair there:
-// flash_fwd_sm90.cuh, flash_bwd_sm90.cuh.)
-template <int D>
-__host__ __device__ constexpr bool col_split() {
-  return D > 128;
-}
-template <int D>
-__host__ __device__ constexpr int out_cols() {
-  return col_split<D>() ? D / 2 : D;
-}
-// K1 and K2 at head dim 256 order a 1-D grid by what it spans.  A grid of
-// HEADS_TOGETHER_MIN_CTAS CTAs or more (about 6 waves on the H100's 132
-// SMs, one CTA an SM) keeps each head's tiles adjacent, heavy first: the
-// CTAs that read one head's streamed operands (K1's K and V, K2's q' and
-// dO) run at the same time, so all but the first read come from L2, and
-// the many waves hide the imbalance of a mixed last wave.  A smaller grid
-// puts the head fastest, the heavy tiles of every head first, so its last
-// wave holds light tiles.  Timed at seq 1024 (tools/torch_split_variants.py
+// K1, K2 and K3 at head dim 256 compute S (and dP) once per pair, each
+// consumer warpgroup its own rows or keys of the scores: K1 and K3 in
+// registers, K2 sharing P^T and dS^T through shared memory
+// (flash_fwd_sm90.cuh, flash_bwd_sm90.cuh, flash_dq_sm90.cuh).  They
+// order a 1-D grid by what it spans.  A grid of HEADS_TOGETHER_MIN_CTAS
+// CTAs or more (about 6 waves on the H100's 132 SMs, one CTA an SM) keeps
+// each head's tiles adjacent, heavy first: the CTAs that read one head's
+// streamed operands (K1's and K3's K and V, K2's q' and dO) run at the
+// same time, so all but the first read come from L2, and the many waves
+// hide the imbalance of a mixed last wave.  A smaller grid puts the head
+// fastest, the heavy tiles of every head first, so its last wave holds
+// light tiles.  Timed at seq 1024 (tools/torch_split_variants.py
 // --family d256): heads together K1 +15% at 384 CTAs, +10% at 512, -3% at
 // 768, -13% at 1024; K2 -3% at 768, -5% at 1024; at 512 even.
 constexpr int HEADS_TOGETHER_MIN_CTAS = 768;

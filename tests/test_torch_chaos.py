@@ -15,7 +15,9 @@ np, and the two are held equal:
   exactly rank 2, in heartbeat time (collective timeout 30 s);
 - np 4, ``partition=0,1/2,3@after=4``: the cut swallows every byte
   across it, and both sides abort typed, each naming only ranks on the
-  far side;
+  far side (the port's clause arms at one agreed instant, the end of
+  init's topology agreement; the reference's at each engine's start),
+  and on the port alone also when one rank's init starts 2.5 s late;
 - np 2, ``link=0-1:flaky=0.05``: the chopped writes are absorbed, every
   sum exact, no eviction, the liveness section and its Prometheus
   families live, the ``faults`` section empty as the reference's (it
@@ -31,6 +33,7 @@ import time
 
 import pytest
 
+from tests import torch_partition_skew as skew
 from tests import torch_twin as twin
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -122,19 +125,40 @@ _PARTITION = (
 
 
 def test_partition_aborts_both_sides():
-    """``@after=4``: the clause arms 4 s after each engine starts, past the
-    start-up skew of 4 interpreters."""
+    """``@after=4``: the clause arms 4 s after init.  The port's engine
+    counts from the end of init's topology agreement, which every rank
+    leaves within milliseconds of the others (``engine/cc/net.h``,
+    ``NetFaultArmClock``); the reference's from each engine's own start,
+    so a rank whose interpreter started late can still reach the far side
+    after the others' clauses armed."""
     env = twin.env(HVD_TPU_NET_FAULT_SPEC="partition=0,1/2,3@after=4",
                    HVD_TPU_COLLECTIVE_TIMEOUT_SEC="30", **HEARTBEAT)
     port, ref = twin.both(_PARTITION, 4, timeout=90.0, port_env=env,
                           ref_env=env)
-    for results in (port, ref):
+    for side, results in (("port", port), ("reference", ref)):
+        said = (side, {r.rank: r.returncode for r in results},
+                twin.lines(results, "DOWN"), twin.failures(results))
         assert {r.rank: r.returncode for r in results} == {
-            r: 7 for r in range(4)}, twin.failures(results)
+            r: 7 for r in range(4)}, said
         for r, v in twin.lines(results, "DOWN").items():
             named_far, seconds = v[-1].split()
-            assert named_far == "True", (r, v)
-            assert float(seconds) < 15.0, (r, v)
+            assert named_far == "True", (r, said)
+            assert float(seconds) < 15.0, (r, said)
+
+
+def test_partition_arms_at_one_instant_despite_a_late_rank():
+    """The port alone: rank 0's init starts 2.5 s after the others'.
+    Armed at each engine's start, the others' clauses armed while the
+    late coordinator could still reach the far side, whose ranks then
+    named their own side (5 of 10 runs of the parent's engine; the
+    reference's 7 of 10, 4 of them cut inside its init's agreement
+    collective; ``python -m tests.torch_partition_skew``).
+    Armed at the end of init's topology agreement, every rank exits 7
+    naming only far-side ranks."""
+    body = skew.late_job(_PARTITION, 0, 2.5)
+    results = twin.run(True, body, 4, timeout=90.0, env=skew.job_env(twin))
+    failed, codes, downs = skew.verdict(twin, results)
+    assert not failed, (codes, downs, twin.failures(results))
 
 
 _FLAKY = (

@@ -433,6 +433,43 @@ def test_wide_16bit_bodies_at_their_edges(cuda_device, seq, d, causal,
     _hold_wide_bodies(cuda_device, seq, d, causal, dtype)
 
 
+# K3's grid at head dim 256 (one CTA per DQ256_ROWS query rows of a head)
+# is ordered by its size (sm90::tile_order): the head fastest below
+# HEADS_TOGETHER_MIN_CTAS CTAs, each head's tiles adjacent from there on.
+_HEADS_TOGETHER_MIN_CTAS = 768
+_K3_256_ROWS = 128
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("heads_together", [False, True],
+                         ids=["head_fastest", "heads_together"])
+@pytest.mark.parametrize("seq,d,causal", _EDGES_256)
+def test_k3_at_256_under_both_grid_orders(cuda_device, seq, d, causal,
+                                          heads_together, dtype):
+    """K3 alone at head dim 256 (``dq256_tile``: 128 query rows a CTA, each
+    consumer warpgroup S and dP of its 64 rows once per pair, all 256
+    columns of their dQ) at the edges of ``_EDGES_256``, on 3 batch-heads
+    (a grid below 768 CTAs) and on enough to reach 768: its dq against the
+    plain side that walks its 32-key tiles, one launch."""
+    n_qt = -(-seq // _K3_256_ROWS)
+    bh = -(-_HEADS_TOGETHER_MIN_CTAS // n_qt) if heads_together else 3
+    assert (bh * n_qt >= _HEADS_TOGETHER_MIN_CTAS) == heads_together
+    g = torch.Generator(device=cuda_device).manual_seed(seq * 5 + bh)
+    q, k, v, do = (torch.randn(bh, seq, d, device=cuda_device, generator=g)
+                   .to(dtype) for _ in range(4))
+    p2, r = tattn._split_scale(d ** -0.5)
+    qr = (q * p2).to(dtype)
+    ref, delta = kernel_check.plain_outputs(qr, k, v, do, causal, r, p2,
+                                            "split")
+    before = tattn.launches["flash_bwd_dq"]
+    dq = tattn.flash_bwd_dq(qr, k, v, do, ref["lse"], delta, r, p2, causal)
+    torch.cuda.synchronize()
+    assert tattn.launches["flash_bwd_dq"] - before == 1
+    err = kernel_check.compare(dq, ref["dq"])
+    assert err["worst"] <= 1.0, err
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("seq,d,causal", _WIDE_EDGES + [(100, 1056, True)])
 def test_wide_f32_bodies_at_their_edges(cuda_device, seq, d, causal):

@@ -96,16 +96,17 @@ def test_key_tiles_follow_the_padded_body(d, dtype):
     the 16-bit forward 128 keys up to 64, 64 to 256 and 128 above (the
     wgmma wide body's FWD_KEYS); the f32 forward 64 at every head dim (the
     3xTF32 body's F32_FWD_KEYS); the split pair's, K3's, 64 keys in 16
-    bits, and in f32 32 at every head dim (the 3xTF32 bodies'
-    F32_DQ_KEYS, above 256 too); no combined body above 128."""
+    bits (32 at 256: DQ256_KEYS), and in f32 32 at every head dim (the
+    3xTF32 bodies' F32_DQ_KEYS, above 256 too); no combined body above
+    128."""
     body = tattn.padded_head_dim(d)
     f32 = dtype == torch.float32
     f32_split_tile = 32
     assert tattn.fwd_key_tile(dtype, d) == tattn.fwd_key_tile(dtype, body)
     assert tattn.fwd_key_tile(dtype, d) == (
         64 if f32 else (128 if body <= 64 or body > 256 else 64))
-    assert tattn.bwd_key_tile("split", dtype, d) == (f32_split_tile if f32
-                                                     else 64)
+    assert tattn.bwd_key_tile("split", dtype, d) == (
+        f32_split_tile if f32 else 32 if body == 256 else 64)
     if body <= 128:
         assert tattn.bwd_key_tile("combined", dtype, d) == (64 if f32
                                                              else 128)
@@ -265,11 +266,12 @@ def test_256_key_tiles_match_the_sources(dtype):
     tile (FWD256_KEYS of csrc/flash_fwd_sm90.cuh) is the forward's in
     attention.py's table, which the plain side walks; K2's 64 keys a CTA
     (DKDV256_KEYS of csrc/flash_bwd_sm90.cuh) change no sum, and the split
-    mode's tile is K3's 64 (dq_key_tile)."""
+    mode's tile is K3's (DQ256_KEYS of csrc/flash_dq_sm90.cuh)."""
     assert tattn.fwd_key_tile(dtype, 256) == \
         _constants("flash_fwd_sm90.cuh")["FWD256_KEYS"]
     assert _constants("flash_bwd_sm90.cuh")["DKDV256_KEYS"] == 64
-    assert tattn.bwd_key_tile("split", dtype, 256) == 64
+    assert tattn.bwd_key_tile("split", dtype, 256) == \
+        _constants("flash_dq_sm90.cuh")["DQ256_KEYS"]
     for d in (129, 200, 255):
         assert tattn.fwd_key_tile(dtype, d) == tattn.fwd_key_tile(dtype,
                                                                   256)

@@ -6,7 +6,7 @@ Run from the repository root on a machine with one CUDA GPU::
     python3 tools/torch_kernel_control.py --wide-only  # K3 above 256
     python3 tools/torch_kernel_control.py --f32        # K1-K5 in f32
     python3 tools/torch_kernel_control.py --f32-first-rows  # dq, row 0
-    python3 tools/torch_kernel_control.py --d256       # K1, K2 at 256
+    python3 tools/torch_kernel_control.py --d256       # K1-K3 at 256
 
 Builds mutants of the attention kernels, each with one line changed so
 that it skips part of its work.  K1's mutants change the forward body
@@ -62,7 +62,7 @@ dims above 256), each read through ``flash_bwd_dq`` at head dims 288 and
 * ``dq_wide_drops_last_k16_slice`` — dQ += dS K leaves out the last
   16-key slice of every key tile.
 
-Mutants of K1's and K2's 16-bit bodies at head dim 256 (K1 in
+Mutants of K1's, K2's and K3's 16-bit bodies at head dim 256 (K1 in
 ``csrc/flash_fwd_sm90.cuh``, its warpgroups' 64 rows over all 256
 columns; K2 ``dkdv256_tile`` in ``csrc/flash_bwd_sm90.cuh``, S^T and dP^T
 once per pair, P^T and dS^T shared through shared memory), each read
@@ -79,6 +79,23 @@ against the plain side of the split mode:
 * ``dkdv256_stale_ds_half`` — the same for dS^T (read: dk);
 * ``dkdv256_scores_one_k16_short`` — S^T and dP^T leave out the last k16
   slice of the head dim.
+
+and of K3's (``dq256_tile`` in ``csrc/flash_dq_sm90.cuh``, each consumer
+warpgroup S and dP of its 64 query rows once per pair, dQ's 256 columns
+as two N = 128 products), read through K3 (dq):
+
+* ``dq256_skip_key_tile`` — p of the second-to-last key tile of every
+  query tile is 0;
+* ``dq256_drops_last_k16_slice`` — dQ += dS K leaves out the last 16-key
+  slice of every key tile (both halves of the columns);
+* ``dq256_wrong_row_delta`` — dS takes each row's delta from the row 8
+  away (the thread's other row);
+* ``dq256_high_half_short`` — dQ's second N = 128 half (columns 128-255)
+  leaves out the last 16-key slice of every key tile;
+* ``dq256_diagonal_tile_skipped`` — a warpgroup under a causal mask stops
+  one key tile short of its diagonal;
+* ``dq256_scores_one_k16_short`` — S and dP leave out the last k16 slice
+  of the head dim.
 
 Beside the sound wide reading, the sound body's dq and the plain side's
 are each read against ``dq_f64_scores`` (S and dP in float64), which
@@ -320,6 +337,13 @@ D256_PT_STORE = ("        *reinterpret_cast<uint32_t*>(gbase + pt_off + at) "
 D256_DS_STORE = ("        *reinterpret_cast<uint32_t*>(gbase + ds_off + at) "
                  "=\n")
 D256_STALE = "        if (!(c == 1 && it >= 2 && it % 2 == 1))\n"
+# Lines of K3's body at head dim 256 (dq256_tile).
+D256_DQ_P = ("          const float pe = ex2(fmaf(s[e], scale_log2, "
+             "-lse2[h]));\n")
+D256_DQ_LOOP = "    for (int jk = 0; jk < KEYS / 16; ++jk) {\n"
+D256_DQ_HIGH = "      Wgmma<128, T>::rs(part<64, 1>(dq_acc), dsa[jk],\n"
+D256_DQ_LIVE = ("  if (causal) n_live = min(n_live, (wg_first + DQ_WG_ROWS "
+                "- 1) / KEYS + 1);\n")
 D256_MUTANTS = {
     "fwd256_drops_key_tile": (
         FWD_BODY, KEY_END,
@@ -340,6 +364,26 @@ D256_MUTANTS = {
         BWD_BODY, "    for (int kk = 0; kk < D / 16; ++kk) {\n",
         "    for (int kk = 0; kk < D / 16 - 1; ++kk) {\n", SPLIT,
         ("dk", "dv")),
+    "dq256_skip_key_tile": (
+        DQ_BODY, D256_DQ_P,
+        D256_DQ_P.replace("= ex2(", "= k0 == (n_kt - 2) * KEYS ? 0.f : ex2("),
+        SPLIT, ("dq",)),
+    "dq256_drops_last_k16_slice": (
+        DQ_BODY, D256_DQ_LOOP,
+        D256_DQ_LOOP.replace("KEYS / 16;", "KEYS / 16 - 1;"), SPLIT, ("dq",)),
+    "dq256_wrong_row_delta": (
+        DQ_BODY, "dp[e] = off ? 0.f : pe * (dp[e] - dl[h]) * scale_r;",
+        "dp[e] = off ? 0.f : pe * (dp[e] - dl[1 - h]) * scale_r;", SPLIT,
+        ("dq",)),
+    "dq256_high_half_short": (
+        DQ_BODY, D256_DQ_HIGH,
+        "      if (jk < KEYS / 16 - 1)\n" + D256_DQ_HIGH, SPLIT, ("dq",)),
+    "dq256_diagonal_tile_skipped": (
+        DQ_BODY, D256_DQ_LIVE,
+        D256_DQ_LIVE.replace(" / KEYS + 1);", " / KEYS);"), SPLIT, ("dq",)),
+    "dq256_scores_one_k16_short": (
+        DQ_BODY, "    for (int kk = 0; kk < D / 16; ++kk) {\n",
+        "    for (int kk = 0; kk < D / 16 - 1; ++kk) {\n", SPLIT, ("dq",)),
 }
 # (bh, seq, head dim): many query steps a CTA, and a ragged length.
 D256_SHAPES = ((16, 1024, 256), (6, 1000, 256))
@@ -679,7 +723,7 @@ def wide_readings(paths):
 
 
 def d256_readings(paths):
-    """The sound K1 and K2 at head dim 256 and each of D256_MUTANTS against
+    """The sound K1, K2 and K3 at head dim 256 and each of D256_MUTANTS against
     the plain side of the split mode at each of D256_SHAPES, bf16 and
     fp16: ``({reading: {shape: ...}}, ok)``, ok when the sound bodies pass
     and every mutant fails."""
@@ -899,8 +943,8 @@ def main():
                     help="only the f32 bodies (K1-K3, B2; K4 and K5 on "
                          "a ring) and their mutants")
     ap.add_argument("--d256", action="store_true",
-                    help="only K1 and K2 at head dim 256 in 16 bits and "
-                         "their mutants")
+                    help="only K1, K2 and K3 at head dim 256 in 16 bits "
+                         "and their mutants")
     ap.add_argument("--f32-first-rows", action="store_true",
                     help="only dq's causal first query rows in float32: "
                          "the plain side, the f32 B2 and K3 and the "

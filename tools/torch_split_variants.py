@@ -12,6 +12,8 @@ Run from the repository root on a machine with one CUDA GPU::
     python3 tools/torch_split_variants.py --family f32   # the same, <= 256
     python3 tools/torch_split_variants.py --family wide \
         --only one_release_per_warpgroup   # a subset of the variants
+    python3 tools/torch_split_variants.py --family d256 --only \
+        --parent proof/parent --dtype float16  # against a parent checkout
 
 Each variant is a copy of the kernel sources with one or two lines
 changed (under ``horovod_tpu_torch/_build/variants/``; the checked-in
@@ -30,8 +32,9 @@ and the alternatives to the checked-in choices.  ``split``:
   or four stages instead of ``DQ_STAGES``.
 
 ``d256`` (K1 in ``csrc/flash_fwd_sm90.cuh``, K2's ``dkdv256_tile`` in
-``csrc/flash_bwd_sm90.cuh``; built into ``flash_fwd`` and
-``flash_bwd_split``, K3 timed beside them):
+``csrc/flash_bwd_sm90.cuh``, K3's ``dq256_tile`` in
+``csrc/flash_dq_sm90.cuh``; built into ``flash_fwd`` and
+``flash_bwd_split``):
 
 * ``fwd256_80_keys`` — K1 takes 80-key tiles instead of ``FWD256_KEYS``
   (S in 40 registers and P in 20, one fifth fewer trips through the
@@ -52,8 +55,19 @@ and the alternatives to the checked-in choices.  ``split``:
   the head fastest (heavy tiles of every head first), or each head's
   tiles adjacent, at every grid size, instead of by the grid's size
   (``tile_order``, ``HEADS_TOGETHER_MIN_CTAS``);
-* ``dq_heads_together`` — K3's CTAs of one head adjacent in its 1-D
-  grid, heavy tiles first within each head, instead of the head fastest.
+* ``dq_heads_together``, ``dq_head_fastest`` — K3's CTAs at 256 (its
+  ``dq256_tile``, in ``csrc/flash_dq_sm90.cuh``) with each head's tiles
+  adjacent, or the head fastest, at every grid size (K3 alone; K1 and K2
+  keep ``tile_order``);
+* ``dq256_64_rows`` — K3 at 256 in K2's layout instead of K1's: 64 query
+  rows a CTA, each consumer warpgroup S^T and dP^T of 32 of them against
+  64-key tiles, dS^T stored to shared memory behind one named barrier a
+  tile, and dQ's 128 columns of the warpgroup from it
+  (``tools/torch_split_variants_dq256_64_rows.cuh``; the variant's copy
+  of ``wgmma_sm90.cuh`` gains ``Wgmma<128, T>::ss_t``; the plain side's
+  dq then walks 64 keys);
+* ``dq256_3_stages`` — K3 at 256 streams K and V through three stages
+  instead of ``DQ256_STAGES`` (q' + dO + 3 stages, 224 KB).
 
 ``wide`` (``csrc/flash_wide_sm90.cuh``):
 
@@ -143,7 +157,8 @@ Every build is held against the plain side that walks its own key tile
 (``kernel_check``; ``worst`` <= 1 passes), then the family's kernels are
 timed with the checked-in build and each variant in turns (checked-in,
 variant, variant, checked-in, twice) at the family's shapes (bf16;
-``wide_f32`` float32; causal), by CUDA events, median of 15 after
+``wide_f32`` float32; ``--dtype`` in their place; causal), by CUDA
+events, median of 15 after
 warm-up with a sleep kernel ahead, each turn's shape and build named on
 stderr first.  For ``wide`` and ``wide_f32`` (whose ``worst`` is also
 given per output) it first prints each build's registers and spills
@@ -193,6 +208,32 @@ _PRODUCER_WG = [(FF, "  constexpr bool FOLD = D == 256;  // no producer warpgrou
                  "  constexpr bool FOLD = false;"),
                 (FF, "  return D == 256 ? 256 : NTHREADS;",
                  "  return NTHREADS;")]
+SPLIT_CU, DQ = "flash_bwd_split.cu", "flash_dq_sm90.cuh"
+# K3's grid order at head dim 256 (sm90::tile_order, by the grid's size).
+_DQ256_ORDER = "sm90::tile_order(blockIdx.x, bh_total, n_qt);"
+# K3 at 256 in K2's layout (64 query rows a CTA, 64-key tiles, dS^T shared
+# through shared memory, each warpgroup 128 columns of dQ from it): the
+# body in tools/torch_split_variants_dq256_64_rows.cuh, inserted into the
+# copy of flash_dq_sm90.cuh and launched in place of dq256_tile, and the
+# Wgmma<128, T>::ss_t it takes (dS^T and K both MN-major), which
+# tools/torch_gen_wgmma.py does not generate, added to the copy of
+# wgmma_sm90.cuh.
+with open(os.path.join(ROOT, "tools",
+                       "torch_split_variants_dq256_64_rows.cuh")) as _f:
+    _DQ256_64_ROWS_BODY = _f.read()
+_DQ_MAPS = ("// The four maps of one launch: q' and dO in boxes of "
+            "dq_rows<D>() rows, k\n")
+_DQ256_64_ROWS = [
+    (DQ, "  return D == 256 ? DQ256_ROWS : DQ_BM;",
+     "  return D == 256 ? 64 : DQ_BM;"),
+    (DQ, "  return D == 256 ? DQ256_KEYS : 64;", "  return 64;"),
+    (DQ, _DQ_MAPS, _DQ256_64_ROWS_BODY + _DQ_MAPS),
+    (SPLIT_CU, "    sm90::dq256_tile<T>(", "    sm90::dq256_rows64_tile<T>("),
+    (SPLIT_CU, "    return sm90::Dq256Smem::bytes;",
+     "    return sm90::Dq256Rows64Smem::bytes;")] + [
+    ("wgmma_sm90.cuh", gen_wgmma.ss_tb(128, ptx),
+     gen_wgmma.ss_tb(128, ptx) + gen_wgmma.ss_t(128, ptx))
+    for _, ptx in gen_wgmma.TYPES]
 FAMILIES = {
     "d256": {
         "stem": ("flash_fwd", "flash_bwd_split"), "ptxas": "Li256E",
@@ -224,16 +265,15 @@ FAMILIES = {
             "heads_together": ([(SC, "constexpr int HEADS_TOGETHER_MIN_CTAS "
                                  "= 768;", "constexpr int "
                                  "HEADS_TOGETHER_MIN_CTAS = 0;")], None),
-            "dq_heads_together": ([
-                ("flash_bwd_split.cu",
-                 "  const int qt = n_qt - 1 - blockIdx.x / bh_total;  "
-                 "// heavy (late) first\n",
-                 "  const int qt = n_qt - 1 - blockIdx.x % n_qt;\n"),
-                ("flash_bwd_split.cu",
-                 "                       blockIdx.x % bh_total, qt * ROWS, sq, "
-                 "sk, scale_r,",
-                 "                       blockIdx.x / n_qt, qt * ROWS, sq, "
-                 "sk, scale_r,")], None),
+            "dq_heads_together": ([(SPLIT_CU, _DQ256_ORDER,
+                                    "make_int2(blockIdx.x / n_qt, "
+                                    "blockIdx.x % n_qt);")], None),
+            "dq_head_fastest": ([(SPLIT_CU, _DQ256_ORDER,
+                                  "make_int2(blockIdx.x % bh_total, "
+                                  "blockIdx.x / bh_total);")], None),
+            "dq256_64_rows": (_DQ256_64_ROWS, (None, 64)),
+            "dq256_3_stages": ([(DQ, "constexpr int DQ256_STAGES = 2;",
+                                 "constexpr int DQ256_STAGES = 3;")], None),
         }},
     "split": {
         "stem": "flash_bwd_split", "ptxas": None,
@@ -242,9 +282,9 @@ FAMILIES = {
             "k2_two_stages": ([("flash_bwd_sm90.cuh",
                                 "constexpr int DKDV_STAGES = 3;",
                                 "constexpr int DKDV_STAGES = 2;")], None),
-            "k3_128_keys": ([("flash_dq_sm90.cuh", "  return 64;\n",
-                              "  return D <= 64 ? 128 : 64;\n")],
-                            (None, 128)),
+            "k3_128_keys": ([(DQ, "  return D == 256 ? DQ256_KEYS : 64;\n",
+                              "  return D == 256 ? DQ256_KEYS : D <= 64 ? "
+                              "128 : 64;\n")], (None, 128)),
             "k3_two_stages": ([("flash_dq_sm90.cuh",
                                 "constexpr int DQ_STAGES = 3;",
                                 "constexpr int DQ_STAGES = 2;")], None),
@@ -624,15 +664,16 @@ FAMILIES["f32"] = {
     }}
 
 
-def build_variants(stems, variants):
+def build_variants(stems, variants, sources=None):
     """``{variant: ({stem: path of its shared library}, nvcc logs)}`` of
     each of ``stems``' sources under each of ``variants``' edits, nvcc
-    runs in parallel."""
+    runs in parallel; ``sources`` maps a variant to the source directory
+    it copies in place of the checked-in one."""
     procs = {}
     for name, (edits, _) in variants.items():
         d = os.path.join(_build.BUILD_DIR, "variants", name)
         shutil.rmtree(d, ignore_errors=True)
-        shutil.copytree(_build.CSRC, d)
+        shutil.copytree((sources or {}).get(name, _build.CSRC), d)
         for file, old, new in edits:
             path = os.path.join(d, file)
             text = open(path).read()
@@ -793,8 +834,16 @@ CASES = {"split": split_case, "d256": wide_case, "wide": wide_case,
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--family", choices=sorted(FAMILIES), default="split")
-    ap.add_argument("--only", nargs="+", metavar="VARIANT",
-                    help="time these of the family's variants alone")
+    ap.add_argument("--only", nargs="*", metavar="VARIANT",
+                    help="time these of the family's variants alone (none: "
+                         "with --parent, the parent alone)")
+    ap.add_argument("--parent", metavar="CHECKOUT",
+                    help="also build the kernel sources of another checkout "
+                         "(an unpacked parent) and time them in turns, as "
+                         "the variant 'parent', against the plain side of "
+                         "the checked-in key tiles")
+    ap.add_argument("--dtype", choices=("bfloat16", "float16", "float32"),
+                    help="inputs in this dtype in place of the family's")
     ap.add_argument("--shapes", nargs="+", metavar="BHxSxD",
                     help="these shapes (batch-heads x seq x head dim) in "
                          "place of the family's")
@@ -804,7 +853,7 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("torch_split_variants: no CUDA device")
     stems, variants = fam["stem"], fam["variants"]
-    if args.only:
+    if args.only is not None:
         unknown = set(args.only) - set(variants)
         if unknown:
             sys.exit(f"torch_split_variants: no variant {sorted(unknown)} "
@@ -812,7 +861,12 @@ def main():
         variants = {n: variants[n] for n in args.only}
     stems = (stems,) if isinstance(stems, str) else stems
     info = _build.build_all(list(stems))
-    built = build_variants(stems, variants)
+    sources = {}
+    if args.parent:
+        variants = dict(variants, parent=([], None))
+        sources["parent"] = os.path.join(args.parent, "horovod_tpu_torch",
+                                         "ops", "csrc")
+    built = build_variants(stems, variants, sources)
     if fam["ptxas"]:
         ns = fam["ptxas"]
         print(json.dumps({"ptxas": {
@@ -825,7 +879,8 @@ def main():
                  for n, (paths, _) in built.items()})
     tiles = {n: variants[n][1] if n in variants and variants[n][1]
              else (None, None) for n in libs}
-    dtype = fam.get("dtype", torch.bfloat16)
+    dtype = (getattr(torch, args.dtype) if args.dtype
+             else fam.get("dtype", torch.bfloat16))
     result, ok = {}, True
     shapes = ([tuple(map(int, s.split("x"))) for s in args.shapes]
               if args.shapes else fam["shapes"])
@@ -867,7 +922,8 @@ def main():
          "--format=csv,noheader"], capture_output=True,
         text=True).stdout.strip()
     print(json.dumps({"device": torch.cuda.get_device_name(0),
-                      "nvidia_smi": smi, "ok": ok, "shapes": result}),
+                      "nvidia_smi": smi, "dtype": str(dtype), "ok": ok,
+                      "shapes": result}),
           flush=True)
     sys.exit(0 if ok else 1)
 
