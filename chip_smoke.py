@@ -701,6 +701,43 @@ def _entry(name, ms, plain_ms, library_ms, flops, nbytes, dtype, err,
             "flops": flops, "bytes": nbytes, **extra}
 
 
+def ptxas_by_instance(log, kernel):
+    """``{"<dtype>_d<D>": {"registers", "spill_bytes", "notes"}}`` of
+    each instantiation of ``kernel<T, D>`` in an nvcc ``-Xptxas -v`` log:
+    its registers a thread, its spill stores plus loads, and ptxas's C75xx
+    performance notes on it."""
+    import re
+
+    tags = {"13__nv_bfloat16": "bf16", "6__half": "fp16", "f": "f32"}
+
+    def key(function):
+        k = re.search(r"\d+%sI(13__nv_bfloat16|6__half|f)Li(\d+)E" % kernel,
+                      function)
+        return f"{tags[k.group(1)]}_d{k.group(2)}" if k else None
+
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = key(m.group(1))
+            if name:
+                out[name] = {"registers": None, "spill_bytes": 0,
+                             "notes": []}
+        elif name:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                out[name]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                out[name]["registers"] = int(m.group(1))
+    for m in re.finditer(r"\((C75\d\d)\).*function '(\w+)'", log):
+        name = key(m.group(2))
+        if name in out and m.group(1) not in out[name]["notes"]:
+            out[name]["notes"].append(m.group(1))
+    return out
+
+
 def kernel_inputs(shape, dtype, seed):
     b, h, s, d = shape
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -5602,6 +5639,9 @@ def main():
             x[name_] for x in topo_launched]
     for name_ in ("ring_flash_fwd", "ring_flash_bwd", "phase_closer"):
         entries[name_]["launches_ring_dp_per_rank"] = ring_dp_launched[name_]
+    # B2's 16-bit body at every head dim: registers a thread and spills.
+    entries["flash_bwd"]["ptxas"] = ptxas_by_instance(
+        info["flash_bwd"]["log"], "flash_bwd_kernel")
     # The rows of head dims 256 and above carry the launches of the
     # head_dims phase's path.
     entries.update(wide_entries)

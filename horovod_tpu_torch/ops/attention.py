@@ -12,11 +12,12 @@ Counterpart of ``horovod_tpu/ops/attention.py``.  Layout convention:
   - K1 ``flash_fwd`` (``csrc/flash_fwd.cu``), replacing ``_flash_kernel``;
   - the backward in the mode the reference's ``_bwd_plan`` picks
     (:func:`bwd_mode`): ``combined`` runs B2 ``flash_bwd``
-    (``csrc/flash_bwd.cu`` on ``csrc/flash_bwd_sm90.cuh``, the body K5
-    runs on the ring), replacing ``_combined_bwd_kernel`` — one recompute
-    of P per tile pair for dK, dV and dQ; ``split`` (long sequences, more
-    than 1024 heads at short ones) runs K2 ``flash_bwd_dkdv`` (the same
-    body with its dQ product compiled out) and K3 ``flash_bwd_dq``
+    (``csrc/flash_bwd.cu`` on ``csrc/flash_b2_sm90.cuh``, B2's own body;
+    K5 runs ``csrc/flash_bwd_sm90.cuh``'s, with the same math, on the
+    ring), replacing ``_combined_bwd_kernel`` — one recompute of P per
+    tile pair for dK, dV and dQ; ``split`` (long sequences, more than 1024
+    heads at short ones) runs K2 ``flash_bwd_dkdv`` (K5's body with its dQ
+    product compiled out) and K3 ``flash_bwd_dq``
     (``csrc/flash_dq_sm90.cuh``, a query-stationary body), both in
     ``csrc/flash_bwd_split.cu``, replacing
     ``_flash_bwd_dkdv_kernel``/``_flash_bwd_dq_kernel``.
@@ -100,8 +101,9 @@ _FWD_KEY_TILE = {d: {"16-bit": 128 if d <= 64 else 64, "f32": 64}
                  for d in _SPLIT_HEAD_DIMS}
 
 
-# Key tile of each backward body per head dim and mode: B2/K5's 16-bit
-# body (csrc/flash_bwd_sm90.cuh, sm90::BWD_BN), K3's (csrc/flash_dq_sm90.cuh,
+# Key tile of each backward body per head dim and mode: B2's and K5's
+# 16-bit bodies (csrc/flash_b2_sm90.cuh, csrc/flash_bwd_sm90.cuh: both
+# sm90::BWD_BN), K3's (csrc/flash_dq_sm90.cuh,
 # dq_key_tile: 64, and DQ256_KEYS, 32, at head dim 256), and in f32 the
 # one B2 and K5 share, 64 (their 3xTF32 body
 # sums each query step's dQ over its CTA's F32_DKDV_KEYS), and K3's 3xTF32
@@ -185,9 +187,10 @@ def bwd_key_tile(mode: str, dtype, d: int) -> int:
     """Key tile of the backward body that ``mode`` (:func:`bwd_mode`) runs
     on ``dtype`` at head dim ``d``, padded as the callers pad it
     (:func:`padded_head_dim`), as in the CUDA sources (``_BWD_KEY_TILE``):
-    in 16 bits, 128 for the combined body of B2 and K5
-    (csrc/flash_bwd_sm90.cuh, sm90::BWD_BN) and, for the split pair, K3's
-    key tile, the one its dq sums over (csrc/flash_dq_sm90.cuh,
+    in 16 bits, 128 for the combined bodies of B2 and K5
+    (csrc/flash_b2_sm90.cuh, csrc/flash_bwd_sm90.cuh: sm90::BWD_BN) and,
+    for the split pair, K3's key tile, the one its dq sums over
+    (csrc/flash_dq_sm90.cuh,
     ``dq_key_tile``: 64, and 32 at head dim 256); in f32 64 for the
     combined mode (the 64 keys a CTA of B2's and K5's 3xTF32 body,
     csrc/flash_wide_f32_sm90.cuh, F32_DKDV_KEYS) and 32 for the split

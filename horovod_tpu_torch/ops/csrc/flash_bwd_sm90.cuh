@@ -1,15 +1,16 @@
-// The flash-attention backward body shared by B2 (flash_bwd.cu,
-// hvdt_flash_bwd, zero offsets: the main path's backward) and K5
-// (ring_flash.cu, hvdt_ring_flash_bwd, a ring step's offsets), for Hopper
-// (sm_90a); with WITH_DQ off it is also K2 (flash_bwd_split.cu,
-// hvdt_flash_bwd_dkdv), the dK/dV half of the split backward, which
-// replaces `_flash_bwd_dkdv_kernel` (horovod_tpu/ops/attention.py:429).
+// The flash-attention backward body of K5 (ring_flash.cu,
+// hvdt_ring_flash_bwd, a ring step's offsets), for Hopper (sm_90a); with
+// WITH_DQ off it is also K2 (flash_bwd_split.cu, hvdt_flash_bwd_dkdv), the
+// dK/dV half of the split backward, which replaces
+// `_flash_bwd_dkdv_kernel` (horovod_tpu/ops/attention.py:429).  B2
+// (flash_bwd.cu, the main path's backward) ran this body at zero offsets
+// until it took its own, flash_b2_sm90.cuh, whose math is this one's.
 //
 // Replaces the Pallas TPU kernel `_combined_bwd_kernel`
 // (horovod_tpu/ops/attention.py:498, math in `_bwd_block_math` :386) with
-// rotate=False (B2) and rotate=True (B5; the copy blocks of the rotation
-// are ring_flash.cu's): one recompute of P and dP per (query tile, key
-// tile) pair feeds dK, dV and dQ.  Per pair, with the query rows at
+// rotate=True (B5; the copy blocks of the rotation are ring_flash.cu's):
+// one recompute of P and dP per (query tile, key tile) pair feeds dK, dV
+// and dQ.  Per pair, with the query rows at
 // absolute position q_off + q0 and the keys at k_off + k0:
 //   s  = q' k^T * scale_r, masked to NEG_INF (p exactly 0 there);
 //   p  = exp(s - lse), exactly 0 on POS_BIG rows (no mass);
@@ -18,14 +19,13 @@
 // p and dS rounded to the storage dtype before the products that take
 // them; dV = sum P^T dO, dK = sum dS^T q', dQ = sum dS k.  q' is q
 // pre-scaled by the power-of-two part of sm_scale, so dK is exact in q'
-// units and dQ comes out in q' units (B2's flush scales it by p2 in f32,
-// the ring rescales its running total once).  delta = rowsum(dO * o) is
+// units and dQ comes out in q' units (the ring rescales its running total
+// once).  delta = rowsum(dO * o) is
 // the caller's, as the reference computes it outside Pallas.
 //
-// Bound on the card.  B2 at the training shape (bh 128, seq 1024, head dim
-// 64, bf16, causal): 43.0 GFLOP (five products, 10 d FLOP per causal pair)
-// against 118 MB, so 0.0435 ms of tensor-core time at 989 TFLOP/s.  K5 on
-// a wholly visible ring step (bh 32, 1024 x 1024): 21.5 GFLOP, 0.0217 ms.
+// Bound on the card.  K5 on a wholly visible ring step (bh 32, 1024 x
+// 1024, head dim 64, bf16): 21.5 GFLOP (five products, 10 d FLOP per
+// pair), so 0.0217 ms of tensor-core time at 989 TFLOP/s.
 // Bound by the tensor cores, so the design keeps them fed and keeps every
 // intermediate but dS out of shared memory:
 //
@@ -106,7 +106,7 @@ namespace sm90 {
 constexpr int BWD_BN = 128;    // keys per CTA: 64 per consumer warpgroup
 constexpr int BWD_BM = 64;     // query rows per step of the loop
 constexpr int BWD_STAGES = 2;  // (q', dO, lse, delta) tiles in flight
-// K2's stages: the shared memory that B2's dS^T and dQ buffers take holds
+// K2's stages: the shared memory that K5's dS^T and dQ buffers take holds
 // a third (q', dO) stage instead.
 constexpr int DKDV_STAGES = 3;
 constexpr int WG_KEYS = 64;    // keys per consumer warpgroup
@@ -118,13 +118,13 @@ constexpr int DKDV256_EMPTY = 8;
 constexpr int DKDV256_THREADS = 256;  // the two consumer warpgroups
 
 // Keys per CTA: BWD_BN up to head dim 128, DKDV256_KEYS at 256 (K2 only:
-// B2 and K5 take head dims to 128).
+// K5 takes head dims to 128).
 template <int D>
 __host__ __device__ constexpr int bwd_keys() {
   return D == 256 ? DKDV256_KEYS : BWD_BN;
 }
 
-// WITH_DQ: B2's and K5's layout; without it, K2's (no dS^T or dQ
+// WITH_DQ: K5's layout; without it, K2's (no dS^T or dQ
 // buffers, DKDV_STAGES stages).  Head dims to 128.
 template <int D, bool WITH_DQ = true>
 struct BwdSmem {

@@ -10,10 +10,10 @@ the same launch copies that shard into its right neighbour's receive slot
   member's pre-scaled queries over the held shard at absolute offsets.
 * K5 :func:`ring_flash_bwd` replaces ``_combined_bwd_kernel`` with
   ``rotate=True``: f32 dK, dV and dQ partials from one recompute of P per
-  tile pair, on the backward body that B2 (``attention.flash_bwd``) runs
-  on the main path (``csrc/flash_bwd_sm90.cuh`` in 16 bits; in f32 the
-  3xTF32 body of ``csrc/flash_wide_f32_sm90.cuh``, as K4's f32 forward is
-  K1's).
+  tile pair, on ``csrc/flash_bwd_sm90.cuh``'s body in 16 bits (with B2's
+  math; B2, ``attention.flash_bwd``, runs its own on the main path), in
+  f32 on the 3xTF32 body of ``csrc/flash_wide_f32_sm90.cuh`` that B2 runs
+  too, as K4's f32 forward is K1's.
 * K7 :func:`phase_closer` replaces ``_phase_closer_kernel``: the handshake
   alone, closing a pass with an odd number of rotating steps.
 

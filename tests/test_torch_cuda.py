@@ -75,7 +75,7 @@ def test_flash_bwd_at_the_tile_edges(cuda_device, seq, d, causal, dtype):
     and 128, by keys at 32 and 96): two rows (one row would make dq and dk
     vanish identically), one query tile, one short of and one past the
     128 keys, and a ragged length over several tiles, where TMA zero-fills
-    and the stats warp pads with POS_BIG."""
+    and the rows past the end read lse POS_BIG."""
     g = torch.Generator(device=cuda_device).manual_seed(seq * 1000 + d + 7)
     q, k, v, do = (torch.randn(3, seq, d, device=cuda_device, generator=g)
                    .to(dtype) for _ in range(4))
@@ -90,6 +90,69 @@ def test_flash_bwd_at_the_tile_edges(cuda_device, seq, d, causal, dtype):
     for name, got in (("dq", dq), ("dk", dk), ("dv", dv)):
         assert got.dtype == dtype
         assert _close(got, ref[name]), name
+
+
+def _b2_holds(cuda_device, bh, seq, d, causal, dtype, seed):
+    """B2 alone on ``bh`` x ``seq`` x ``d`` inputs, one launch, its dq, dk
+    and dv (in ``dtype``) against the plain side of its 128-key tile."""
+    g = torch.Generator(device=cuda_device).manual_seed(seed)
+    q, k, v, do = (torch.randn(bh, seq, d, device=cuda_device, generator=g)
+                   .to(dtype) for _ in range(4))
+    p2, r = tattn._split_scale(d ** -0.5)
+    qr = (q * p2).to(dtype)
+    ref, delta = kernel_check.plain_outputs(qr, k, v, do, causal, r, p2)
+    before = tattn.launches["flash_bwd"]
+    dk, dv, dq = tattn.flash_bwd(qr, k, v, do, ref["lse"], delta, r, p2,
+                                 causal)
+    torch.cuda.synchronize()
+    assert tattn.launches["flash_bwd"] == before + 1
+    for name, got in (("dq", dq), ("dk", dk), ("dv", dv)):
+        assert got.dtype == dtype
+        err = kernel_check.compare(got, ref[name])
+        assert err["worst"] <= 1.0, (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
+@pytest.mark.parametrize("seq", [63, 65, 128, 193])
+def test_b2_at_ragged_lengths(cuda_device, seq, d, causal, dtype):
+    """B2's 16-bit body (256-thread CTAs of 128 keys, 64-row query tiles
+    through three stages, pipelined at head dims 32 and 64) one
+    short of and one past its query tile, at one whole key tile, and one
+    past a tile and a half: the loop's first, last and only tiles, the
+    stages' refills and the dQ buffers' reuse at their edges."""
+    _b2_holds(cuda_device, 3, seq, d, causal, dtype, seq * 31 + d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("heads_together", [False, True],
+                         ids=["head_fastest", "heads_together"])
+def test_b2_under_both_grid_orders(cuda_device, heads_together, d, causal,
+                                   dtype):
+    """B2's grid (sm90::tile_order over bh x key tiles) just below
+    HEADS_TOGETHER_MIN_CTAS (95 x 8 = 760 CTAs: the head fastest) and at
+    it (96 x 8 = 768: each head's tiles together), at a ragged 1000."""
+    bh = 96 if heads_together else 95
+    assert (bh * -(-1000 // 128) >= _HEADS_TOGETHER_MIN_CTAS) == \
+        heads_together
+    _b2_holds(cuda_device, bh, 1000, d, causal, dtype, bh + d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 32),
+                                     (torch.float16, 64),
+                                     (torch.bfloat16, 96),
+                                     (torch.float16, 128)])
+def test_b2_past_65535_batch_heads(cuda_device, dtype, d):
+    """B2's 16-bit body at 65,600 batch-heads x 70 (``flash_attention``
+    sends so many batch-heads to the split pair, so B2 is called alone):
+    65,600 CTAs of a 1-D grid, each over two query tiles."""
+    _b2_holds(cuda_device, 65600, 70, d, True, dtype, 17 + d)
 
 
 @pytest.mark.cuda

@@ -27,6 +27,7 @@ def _tool(name):
 
 
 control = _tool("torch_kernel_control")
+atomics = _tool("torch_bwd_atomics")
 variants = _tool("torch_split_variants")
 turns = _tool("torch_phase_turns")
 
@@ -118,3 +119,48 @@ def test_smoke_seconds_stamp_each_phase(tmp_path):
     assert rec["build_sources"] == {"flash_fwd": 1.5}
     lines = out.read_text().splitlines()
     assert len(lines) == 3 and lines[2].endswith("\tnot a phase")
+
+
+def test_b2_family_takes_each_lever_alone_and_combined():
+    """``--family b2`` times B2's checked-in body (every lever on) against
+    the parent's body (every lever off), each lever alone (pipelining and
+    the dQ buffers on the 256-thread CTA they belong to) and each lever
+    taken out of the combination; each variant's edits are those that
+    turn its other levers off."""
+    levers, needs = set(variants.B2_LEVERS), variants.B2_NEEDS
+    on = {n: set(v) for n, v in variants.B2_VARIANTS.items()}
+    for lever in levers:
+        alone = {lever} | ({needs[lever]} if lever in needs else set())
+        assert alone in on.values(), lever
+        if lever not in needs.values():  # levers no other lever needs
+            assert levers - {lever} in on.values(), lever
+    assert set() in on.values()
+    for name, kept in on.items():
+        assert all(needs.get(x, x) in kept for x in kept), name
+        edits = variants.FAMILIES["b2"]["variants"][name][0]
+        assert edits == variants.b2_edits(kept), name
+        assert (variants._B2_HEAD_FASTEST in edits) == (
+            "grid_order" not in kept), name
+        assert (variants._B2_PARENT_BODY[0] in edits) == (
+            "cta256" not in kept), name
+
+
+def test_b2_mutants_edit_b2s_own_body():
+    """B2's mutants change its own body (``flash_b2_sm90.cuh``), built into
+    ``flash_bwd`` alone; ``--b2`` reads them and no other."""
+    b2 = {n: m for n, m in control.MUTANTS.items() if m[0] == "flash_bwd"}
+    assert set(b2) == {"bwd_dq_drops_last_k16_slice", "bwd_qt0_one_tile_late",
+                       "bwd_dv_skips_6pct_of_rows",
+                       "bwd_stage_refilled_early"}
+    assert {m[1] for m in b2.values()} == {control.B2_BODY}
+    with open(os.path.join(CSRC, "flash_bwd.cu")) as f:
+        assert f'#include "{control.B2_BODY}"' in f.read()
+
+
+@pytest.mark.parametrize("dtype", sorted(atomics.ADDS, key=str), ids=str)
+def test_each_atomics_edit_occurs_once(dtype):
+    """``tools/torch_bwd_atomics.py`` drops B2's dQ adds by deleting its
+    body's reduce line: in 16 bits B2's own body's, in float32 the 3xTF32
+    body's."""
+    file, old, _ = atomics.ADDS[dtype]
+    assert _count(file, old) == 1, (dtype, file)

@@ -1,9 +1,11 @@
 """horovod_tpu_torch's state plane, part 2, against horovod_tpu's
 (``state/snapshot.py``, ``peers.py``, ``plane.py``).
 
-The ``STATE`` script of ``tests/test_state.py`` (elastic training with
-the plane armed and a snapshot every step), in torch for the port and in
-numpy for the reference, runs under each package's ``run_membership`` at
+The job of ``tests/test_state.py``'s ``STATE`` script (elastic training
+with the plane armed and a snapshot every step), each step's snapshot
+drained before the next step, in torch for the port and in numpy on the
+JAX package's public API for the reference, runs under each package's
+``run_membership`` at
 4 -> 3 (``rank=2:crash@op=12``) and 2 -> 1: the survivors restore the
 lost shard from its ring neighbour's peer copy (``peer_restores`` >= 1,
 no root-broadcast fallback) and the two packages' lines are equal field
@@ -30,6 +32,17 @@ from tests.torch_watch import ENV, watched
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+# The job both packages run, ordered: each step waits for its snapshot
+# to be committed and pushed to the ring neighbour (``plane.wait()``)
+# before the next step's collective, so when a rank crashes entering a
+# collective its last snapshot is already on its neighbour's socket and
+# every survivor holds its own last two.  The fence step is then one
+# that both the survivors and the lost rank's copy cover in both
+# packages: one peer restore, no root-broadcast fallback.  Unordered, the
+# lost rank's snapshot worker can lag two steps behind its crash (the
+# submit does not wait for the push), the peer copy then covers no step
+# the survivors hold, and the plane falls back to a root broadcast, as
+# designed, in either package.
 _STATE_PORT = """\
 import os, sys, time
 import torch
@@ -49,6 +62,7 @@ def train(state):
             g, average=True, name=f"grad.{s}")
         state.step = s + 1
         plane.snapshot(state)
+        assert plane.wait(30.0), ("snapshot not drained", s + 1)
     return state.weights
 
 w = hvd.run_elastic(train, state)
@@ -56,6 +70,39 @@ assert torch.allclose(w, torch.full((8,), float(TOTAL))), (hvd.rank(), w)
 flat = hvd.allgather(w.reshape(1, -1), name="final.identity")
 assert torch.equal(flat, flat[:1].expand_as(flat)), flat
 snap = common.metrics_snapshot()
+m, st = snap["membership"], snap["state"]
+print("STATE", hvd.rank(), hvd.size(), m["epoch"],
+      st["peer_restores"], st["restores"],
+      st["root_broadcast_fallbacks"], st["snapshots"],
+      ",".join(map(str, m["ranks_lost"])) or "-", int(w[0]), flush=True)
+"""
+# The same job on the JAX package's public API (numpy state).
+_STATE_REFERENCE = """\
+import os, sys, time
+import numpy as np
+import horovod_tpu as hvd
+
+TOTAL = int(sys.argv[1])
+hvd.init()
+plane = hvd.state.arm()
+state = hvd.ElasticState(weights=np.zeros(8, np.float32), step=0)
+
+def train(state):
+    while state.step < TOTAL:
+        s = state.step
+        g = np.ones(8, np.float32)
+        state.weights = state.weights + hvd.allreduce(
+            g, average=True, name=f"grad.{s}")
+        state.step = s + 1
+        plane.snapshot(state)
+        assert plane.wait(30.0), ("snapshot not drained", s + 1)
+    return state.weights
+
+w = hvd.run_elastic(train, state)
+assert np.allclose(w, float(TOTAL)), (hvd.rank(), w)
+flat = hvd.allgather(w.reshape(1, -1), name="final.identity")
+assert np.allclose(flat, flat[0]), flat
+snap = hvd.metrics_snapshot()
 m, st = snap["membership"], snap["state"]
 print("STATE", hvd.rank(), hvd.size(), m["epoch"],
       st["peer_restores"], st["restores"],
@@ -121,38 +168,73 @@ def _membership(package, script, args, np_, min_np, spec, timeout=90.0):
         timeout=timeout, capture=True, report=lambda msg: None)
 
 
+_FIELDS = ("rank", "size", "epoch", "peer_restores", "restores",
+           "fallbacks", "lost", "w0")
+
+
+def _ranks(package, results):
+    """The evidence of one package's run: every rank's exit code and
+    ``STATE`` line, and the stderr tails of the ranks that failed."""
+    out = []
+    for r in results:
+        state = [ln for ln in r.stdout.splitlines()
+                 if ln.startswith("STATE ")]
+        out.append({"rank": r.rank, "rc": r.returncode,
+                    "state": state[-1] if state else None,
+                    **({"stderr": r.stderr[-3000:]} if r.returncode
+                       else {})})
+    return {"package": package, "ranks": out}
+
+
+def _off_fields(line, want):
+    """``[(field, got, want)]`` where a ``STATE`` tuple differs from the
+    expected ``(size, epoch, peer_restores, restores, fallbacks, lost,
+    w0)``."""
+    return [(name, got, exp) for name, got, exp in zip(_FIELDS[1:], line[1:],
+                                                       want) if got != exp]
+
+
 @pytest.mark.parametrize("np_,min_np,steps,spec,lost", [
     (4, 2, 30, "rank=2:crash@op=12", 2),
     (2, 1, 12, "rank=1:crash@op=10", 1),
 ])
 def test_state_lines_match_the_reference(np_, min_np, steps, spec, lost,
                                          tmp_path):
-    from tests import test_state
+    """Each package's job, ordered so that the lost rank's last snapshot
+    has reached its neighbour before the crash (``_STATE_PORT``'s note):
+    every survivor's line is the expected one, field by field, in both
+    packages, and the two packages' lines are equal.  Every assertion
+    names its package first and carries each rank's exit code, ``STATE``
+    line and, where it failed, its stderr tail."""
     from horovod_tpu_torch.common.faults import CRASH_EXIT_CODE
     from horovod_tpu_torch.runner import membership_succeeded
 
     lines = {}
     for package, code in (("horovod_tpu_torch", _STATE_PORT),
-                          ("horovod_tpu", test_state._TRAIN)):
+                          ("horovod_tpu", _STATE_REFERENCE)):
         script = tmp_path / f"{package}_state.py"
         script.write_text(code)
         with watched(85, f"{package}'s membership at np {np_}"):
             results = _membership(package, script, [str(steps)], np_,
                                   min_np, spec)
+        evidence = _ranks(package, results)
         by_slot = {r.rank: r for r in results}
         assert by_slot[lost].returncode == CRASH_EXIT_CODE, \
-            (package, by_slot[lost].stderr[-3000:])
+            (package, "the lost rank did not crash", evidence)
         assert membership_succeeded(results, min_np), \
-            [(package, r.rank, r.returncode, r.stderr[-3000:])
-             for r in results]
+            (package, "the membership failed", evidence)
         lines[package], snaps = _state_lines(results)
-        assert len(snaps) == np_ - 1 and min(snaps) > 0, (package, snaps)
-    port = lines["horovod_tpu_torch"]
-    assert port == lines["horovod_tpu"]
-    assert [m[0] for m in port] == list(range(np_ - 1))
-    for m in port:
+        assert len(snaps) == np_ - 1 and min(snaps) > 0, \
+            (package, "snapshot counts", snaps, evidence)
+        assert [m[0] for m in lines[package]] == list(range(np_ - 1)), \
+            (package, "survivors' ranks", lines[package], evidence)
         # size, epoch, one peer restore, no fallback, the lost rank, steps
-        assert m[1:] == (np_ - 1, 1, 1, 1, 0, str(lost), steps), port
+        want = (np_ - 1, 1, 1, 1, 0, str(lost), steps)
+        off = {m[0]: _off_fields(m, want) for m in lines[package]}
+        assert not any(off.values()), \
+            (package, "fields off the expected line (field, got, want) "
+             "by rank", off, evidence)
+    assert lines["horovod_tpu_torch"] == lines["horovod_tpu"], lines
 
 
 def _row(old_rank=-1, old_size=-1, last=-1, prev=-1, peer_src=-1,
@@ -443,7 +525,7 @@ def test_lm_restores_the_fence_state_in_place(tmp_path):
     results = _membership("horovod_tpu_torch", script, ["5"], 3, 2,
                           f"rank=2:crash@op={_LM_CRASH_OP}")
     assert membership_succeeded(results, 2), \
-        [(r.rank, r.returncode, r.stderr[-800:]) for r in results]
+        [(r.rank, r.returncode, r.stderr[-3000:]) for r in results]
     crashed = re.search(r"crash at op (\d+) \('([^']*)'\)",
                         results[2].stderr)
     assert crashed and crashed.group(2).startswith(

@@ -5,7 +5,7 @@ Run from the repository root on a machine with one CUDA GPU::
     python3 tools/torch_bwd_atomics.py          # bf16
     python3 tools/torch_bwd_atomics.py --f32    # the 3xTF32 body
 
-B2 (``csrc/flash_bwd_sm90.cuh``; in float32 ``csrc/flash_wide_f32_sm90.cuh``,
+B2 (``csrc/flash_b2_sm90.cuh``; in float32 ``csrc/flash_wide_f32_sm90.cuh``,
 whose body adds each warpgroup's 16-row dQ tile of a 32-row query step)
 adds each 64-row dQ tile of its key tile into an f32 workspace (a TMA
 reduce-add per 32-column panel, atomic in the L2): the one step that
@@ -45,9 +45,9 @@ from horovod_tpu_torch.ops import attention as A  # noqa: E402
 SHAPE = (128, 1024, 64)  # (batch*heads, seq, head_dim) of the LM step
 # dtype: (the body's file, its adds, the body's kernel in a profile)
 ADDS = {
-    torch.bfloat16: ("flash_bwd_sm90.cuh", """\
-            tma_reduce_add(mdq, base + dq_off + p * L::DQ_PANEL,
-                           col0 + 32 * p, q0, bh);
+    torch.bfloat16: ("flash_b2_sm90.cuh", """\
+        tma_reduce_add(mdq, base + dq_off + p * L::DQ_PANEL + wr * 128,
+                       col0 + 32 * p, (w.qt0 + it) * BWD_BM + wr, w.bh);
 """, "flash_bwd_kernel"),
     torch.float32: ("flash_wide_f32_sm90.cuh", """\
             tma_reduce_add(mdq, base + L::dq + c * L::DQ_BYTES +

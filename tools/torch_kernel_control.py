@@ -7,6 +7,7 @@ Run from the repository root on a machine with one CUDA GPU::
     python3 tools/torch_kernel_control.py --f32        # K1-K5 in f32
     python3 tools/torch_kernel_control.py --f32-first-rows  # dq, row 0
     python3 tools/torch_kernel_control.py --d256       # K1-K3 at 256
+    python3 tools/torch_kernel_control.py --b2         # B2 in 16 bits
 
 Builds mutants of the attention kernels, each with one line changed so
 that it skips part of its work.  K1's mutants change the forward body
@@ -34,19 +35,25 @@ hangs:
 * ``dq_wrong_row_delta`` — K3 takes each row's delta from the row 8 away
   (the thread's other row).
 
-K2 is the backward body B2 and K5 share (``csrc/flash_bwd_sm90.cuh``)
-with its dQ product compiled out, so its mutants change that body and
-are read through K2 (``flash_bwd_dkdv``, ``csrc/flash_bwd_split.cu``);
-K3's change ``csrc/flash_dq_sm90.cuh``.  Mutants of the backward body
-read through B2 (``flash_bwd``):
+K2 is K5's backward body (``csrc/flash_bwd_sm90.cuh``) with its dQ
+product compiled out, so its mutants change that body and are read
+through K2 (``flash_bwd_dkdv``, ``csrc/flash_bwd_split.cu``); K3's
+change ``csrc/flash_dq_sm90.cuh``.  Mutants of B2's 16-bit body
+(``csrc/flash_b2_sm90.cuh``), read through B2 (``flash_bwd``; ``--b2``
+builds and reads these alone, beside the sound B2):
 
 * ``bwd_dq_drops_last_k16_slice`` — the dQ = dS K product leaves out the
   last 16-key slice of each warpgroup's share (the wgmma k-loop one step
   short);
 * ``bwd_qt0_one_tile_late`` — every CTA starts its query loop one 64-row
-  tile late (producer and consumers alike, so the barriers still match);
+  tile late (loads and products alike, so the barriers still match);
 * ``bwd_dv_skips_6pct_of_rows`` — P^T as dV's operand drops the last 4
-  of every 64 query rows (6%; dK and dQ keep them).
+  of every 64 query rows (6%; dK and dQ keep them);
+* ``bwd_stage_refilled_early`` — thread 0 refills the stage of tile it +
+  1 (with tile it + 1 + STAGES) once tile it's products are issued,
+  before the two warpgroups have released it (tile it + 1's products
+  still to read it), instead of tile it - 1's (tile STAGES too at the
+  first tile, so that every tile is loaded once and no wait hangs).
 
 The K2/K3 mutants are read through the split pair, the body's others
 through B2.
@@ -222,12 +229,15 @@ FWD_BODY = "flash_fwd_sm90.cuh"
 KEY_END = "      const int key_end = sk - k0;\n"
 FWD_INV = "const float inv = lt == 0.f ? 1.f : 1.f / lt;"
 PV_LOOP = "for (int j = 0; j < PV_STEPS; ++j) {"
-# Lines of the 16-bit backward body (B2, K5, and K2 without its dQ).
+# Lines of the 16-bit backward body of K5 (and K2 without its dQ), and of
+# B2's own (DQ_LOOP and N_IT occur in both).
 BWD_BODY = "flash_bwd_sm90.cuh"
+B2_BODY = "flash_b2_sm90.cuh"
+B2_REFILL = "    if (it > 0) load_tile(it - 1 + STAGES);\n"
 DQ_LOOP = "for (int jj = 0; jj < JN; ++jj) {"
 N_IT = "  const int n_it = max(0, n_qt - qt0);\n"
-PT_PACK = ("              pack2<T>(s[4 * i + 2 * h], "
-           "s[4 * i + 2 * h + 1]);\n")
+B2_PT_PACK = ("            pack2<T>(s[4 * i + 2 * h], "
+              "s[4 * i + 2 * h + 1]);\n")
 BWD_P = "            float p = ex2(fmaf(s[e], scale_log2, -lse2));\n"
 DV_PACK = "              pack2<T>(dv_acc[e], dv_acc[e + 1]);\n"
 # Lines of K3's body.
@@ -297,15 +307,20 @@ MUTANTS = {
         SPLIT, DQ_BODY, "dp[e] = p * (dp[e] - dl[h]) * scale_r;",
         "dp[e] = p * (dp[e] - dl[1 - h]) * scale_r;", ("dq",)),
     "bwd_dq_drops_last_k16_slice": (
-        "flash_bwd", BWD_BODY, DQ_LOOP,
+        "flash_bwd", B2_BODY, DQ_LOOP,
         "for (int jj = 0; jj < JN - 1; ++jj) {", ("dq",)),
     "bwd_qt0_one_tile_late": (
-        "flash_bwd", BWD_BODY, N_IT, "  qt0 += 1;\n" + N_IT,
+        "flash_bwd", B2_BODY, N_IT, "  qt0 += 1;\n" + N_IT,
         ("dq", "dk", "dv")),
     "bwd_dv_skips_6pct_of_rows": (
-        "flash_bwd", BWD_BODY, PT_PACK,
-        PT_PACK + "          if (i == BWD_BM / 8 - 1 && cq >= 4)\n"
-        "            pa[i / 2][(i % 2) * 2 + h] = 0u;\n", ("dv",)),
+        "flash_bwd", B2_BODY, B2_PT_PACK,
+        B2_PT_PACK + "        if (i == NQ - 1 && cq >= 4)\n"
+        "          pa[i / 2][(i % 2) * 2 + h] = 0u;\n", ("dv",)),
+    "bwd_stage_refilled_early": (
+        "flash_bwd", B2_BODY, B2_REFILL,
+        "    if (it == 0) load_tile(STAGES);\n"
+        "    load_tile(it + 1 + STAGES);\n",
+        ("dq", "dk", "dv")),
 }
 
 
@@ -595,26 +610,30 @@ def loose_compare(got, want):
             "worst": err / (2e-2 * want.float().abs().max().item())}
 
 
-def build_mutants(wide_only=False, f32=False, d256=False):
+def build_mutants(wide_only=False, f32=False, d256=False, b2=False):
     """``{mutant: {stem: path of its shared library}}``, nvcc runs in
-    parallel."""
+    parallel; ``b2``: B2's mutants alone."""
     jobs = []
     edits = {}
-    if not (wide_only or f32):
+    if b2:
+        edits.update({name: ((stem,), file, old, new)
+                      for name, (stem, file, old, new, _)
+                      in MUTANTS.items() if stem == "flash_bwd"})
+    elif not (wide_only or f32):
         edits.update({name: ((stem,), file, old, new)
                       for name, (file, old, new, stem, _) in
                       D256_MUTANTS.items()})
-    if not (f32 or d256):
+    if not (f32 or d256 or b2):
         edits.update({name: (("flash_wide",), file, old, new)
                       for name, (file, old, new) in WIDE_MUTANTS.items()})
-    if not (wide_only or d256):
+    if not (wide_only or d256 or b2):
         edits.update({name: (F32_STEMS, file, old, new)
                       for name, (file, old, new, _, _) in
                       F32_MUTANTS.items()})
         edits.update({name: (("ring_flash",), file, old, new)
                       for name, (file, old, new) in
                       RING_F32_MUTANTS.items()})
-    if not (wide_only or f32 or d256):
+    if not (wide_only or f32 or d256 or b2):
         edits.update({name: ((stem,), file, old, new)
                       for name, (stem, file, old, new, _)
                       in MUTANTS.items()})
@@ -935,6 +954,58 @@ def f32_first_rows():
     return out, ok
 
 
+def mutant_readings(paths, mutants):
+    """The sound K1 with each backward mode and each of ``mutants`` (as
+    MUTANTS) at SHAPE in bf16 and fp16, each mode against the plain side
+    of its own key tile: ``{dtype: {reading: ...}, "ok": bool}``, ok when
+    the sound kernels pass and every mutant fails."""
+    sound = {stem: _build.load(stem)
+             for stem in ("flash_fwd", "flash_bwd", SPLIT)}
+    modes = sorted({"split" if stem == SPLIT else "combined"
+                    for stem, _, _, _, _ in mutants.values()})
+    result, ok = {}, True
+    for dtype in (torch.bfloat16, torch.float16):
+        g = torch.Generator(device="cuda").manual_seed(0)
+        q, k, v, do = (torch.randn(*SHAPE, device="cuda", generator=g)
+                       .to(dtype) for _ in range(4))
+        p2, scale_r = A._split_scale(SHAPE[2] ** -0.5)
+        qr = (q * p2).to(dtype)
+        ref, delta = kernel_check.plain_outputs(qr, k, v, do, True, scale_r,
+                                                p2)
+        args = (qr, k, v, do, ref["lse"], delta, p2, scale_r, True)
+        # Each backward mode against the plain side of its own key tile.
+        refs = {mode: {**ref, **kernel_check.plain_bwd_outputs(*args, mode)}
+                for mode in modes}
+        rows = {f"sound_{mode}": reading(
+            kernel_check.kernel_outputs(*args, mode), refs[mode], list(ref))
+            for mode in modes}
+        ok &= all(r["strict"]["worst"] <= 1.0 for mode in modes
+                  for r in rows[f"sound_{mode}"].values())
+        for name, (stem, _, _, _, names) in mutants.items():
+            mode = "split" if stem == SPLIT else "combined"
+            _build._libs[stem] = ctypes.CDLL(paths[name][stem])
+            try:
+                rows[name] = reading(
+                    kernel_check.kernel_outputs(*args, mode), refs[mode],
+                    names)
+            finally:
+                _build._libs[stem] = sound[stem]
+            ok &= any(r["strict"]["worst"] > 1.0
+                      for r in rows[name].values())
+        result[str(dtype)] = rows
+    result["ok"] = ok
+    return result
+
+
+def b2_readings(paths):
+    """The sound B2 and each of its mutants (MUTANTS built into
+    ``flash_bwd``): ``(readings, ok)``."""
+    result = mutant_readings(paths, {n: m for n, m in MUTANTS.items()
+                                     if m[0] == "flash_bwd"})
+    ok = result.pop("ok")
+    return result, ok
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--wide-only", action="store_true",
@@ -945,6 +1016,8 @@ def main():
     ap.add_argument("--d256", action="store_true",
                     help="only K1, K2 and K3 at head dim 256 in 16 bits "
                          "and their mutants")
+    ap.add_argument("--b2", action="store_true",
+                    help="only B2's 16-bit body and its mutants")
     ap.add_argument("--f32-first-rows", action="store_true",
                     help="only dq's causal first query rows in float32: "
                          "the plain side, the f32 B2 and K3 and the "
@@ -964,7 +1037,13 @@ def main():
                           "shapes": [list(x) for x in FIRST_ROWS_SHAPES],
                           "first_rows": first}), flush=True)
         sys.exit(0 if ok else 1)
-    paths = build_mutants(wide_only, f32_only, args.d256)
+    paths = build_mutants(wide_only, f32_only, args.d256, args.b2)
+    if args.b2:
+        b2, ok = b2_readings(paths)
+        print(json.dumps({"nvidia_smi": smi, "shape": list(SHAPE),
+                          "causal": True, "ok": ok, "readings": b2}),
+              flush=True)
+        sys.exit(0 if ok else 1)
     if args.d256:
         d256, ok = d256_readings(paths)
         print(json.dumps({"nvidia_smi": smi, "causal": True, "ok": ok,
@@ -993,39 +1072,8 @@ def main():
     f32, f32_ok = f32_readings(paths)
     d256, d256_ok = d256_readings(paths)
     ok &= f32_ok and ring_ok and d256_ok
-    sound = {stem: _build.load(stem)
-             for stem in ("flash_fwd", "flash_bwd", SPLIT)}
-    result = {}
-    for dtype in (torch.bfloat16, torch.float16):
-        g = torch.Generator(device="cuda").manual_seed(0)
-        q, k, v, do = (torch.randn(*SHAPE, device="cuda", generator=g)
-                       .to(dtype) for _ in range(4))
-        p2, scale_r = A._split_scale(SHAPE[2] ** -0.5)
-        qr = (q * p2).to(dtype)
-        ref, delta = kernel_check.plain_outputs(qr, k, v, do, True, scale_r,
-                                                p2)
-        args = (qr, k, v, do, ref["lse"], delta, p2, scale_r, True)
-        # Each backward mode against the plain side of its own key tile.
-        refs = {mode: {**ref, **kernel_check.plain_bwd_outputs(*args, mode)}
-                for mode in ("combined", "split")}
-        rows = {f"sound_{mode}": reading(
-            kernel_check.kernel_outputs(*args, mode), refs[mode], list(ref))
-            for mode in ("combined", "split")}
-        ok &= all(r["strict"]["worst"] <= 1.0
-                  for mode in ("combined", "split")
-                  for r in rows[f"sound_{mode}"].values())
-        for name, (stem, _, _, _, names) in MUTANTS.items():
-            mode = "split" if stem == SPLIT else "combined"
-            _build._libs[stem] = ctypes.CDLL(paths[name][stem])
-            try:
-                rows[name] = reading(
-                    kernel_check.kernel_outputs(*args, mode), refs[mode],
-                    names)
-            finally:
-                _build._libs[stem] = sound[stem]
-            ok &= any(r["strict"]["worst"] > 1.0
-                      for r in rows[name].values())
-        result[str(dtype)] = rows
+    result = mutant_readings(paths, MUTANTS)
+    ok &= result.pop("ok")
     ring = {}
     for kind in ("k4", "k5_copy", "k6"):
         ring[f"sound_{kind}"] = ring_reading(kind)

@@ -24,8 +24,9 @@ step of the ring shard; each median apart).
 First it prints one ``ptxas`` line comparing the two checkouts' kernel
 builds, kernel by kernel (every instantiation of every ``ops/csrc/*.cu``):
 the kernels whose ptxas lines (registers, spills, C75xx notes) or whose
-SASS (``cuobjdump -sass``, addresses included) differ, with both sides'
-ptxas lines, and the count of kernels equal in both.  A library whose
+SASS (``cuobjdump -sass``, addresses included, whitespace collapsed)
+differ, with both sides' ptxas lines, and the count of kernels equal in
+both.  A library whose
 build kept no nvcc log (a checkout whose ``_build.py`` predates the logs)
 is rebuilt, so both sides have their ptxas lines; a kernel still without
 one is listed under ``ptxas_missing``.
@@ -138,8 +139,11 @@ def build(root: str) -> dict:
                               text=True, check=True).stdout
         for part in re.split(r"\n\s*Function : ", sass)[1:]:
             name, body = part.split("\n", 1)
+            # Whitespace collapsed: cuobjdump pads its columns to the
+            # file's longest name, so a new kernel in the same library
+            # would move every line of an unchanged one.
             kernels.setdefault(name.strip(), {})["sass"] = hashlib.sha256(
-                body.encode()).hexdigest()[:16]
+                re.sub(r"\s+", " ", body).encode()).hexdigest()[:16]
     return kernels
 
 

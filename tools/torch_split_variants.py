@@ -10,6 +10,7 @@ Run from the repository root on a machine with one CUDA GPU::
     python3 tools/torch_split_variants.py --family wide   # K1-K3 above 256
     python3 tools/torch_split_variants.py --family wide_f32  # K1-K3 f32
     python3 tools/torch_split_variants.py --family f32   # the same, <= 256
+    python3 tools/torch_split_variants.py --family b2    # B2's levers
     python3 tools/torch_split_variants.py --family wide \
         --only one_release_per_warpgroup   # a subset of the variants
     python3 tools/torch_split_variants.py --family d256 --only \
@@ -68,6 +69,31 @@ and the alternatives to the checked-in choices.  ``split``:
   dq then walks 64 keys);
 * ``dq256_3_stages`` — K3 at 256 streams K and V through three stages
   instead of ``DQ256_STAGES`` (q' + dO + 3 stages, 224 KB).
+
+``b2`` (B2's 16-bit body, ``csrc/flash_b2_sm90.cuh``, launched from
+``csrc/flash_bwd.cu``; built into ``flash_bwd``): its four levers, each
+taken alone and combined, against the checked-in body that combines
+them.  The parent's body is B2's earlier one, ``bwd_ktile`` of
+``csrc/flash_bwd_sm90.cuh``, which K5 and K2 keep: 384 threads, a
+producer warpgroup, one dQ buffer per warpgroup, no pipelining, the head
+fastest.
+
+* ``parent_body`` — that body as the parent launched it (every lever
+  off);
+* ``grid_order_alone`` — that body in ``sm90::tile_order``;
+* ``cta256_alone`` — the 256-thread CTA of the two consumer warpgroups
+  that also load, unpipelined, one dQ buffer, the head fastest;
+* ``cta256_pipelined`` — the same, software-pipelined (at head dims 32
+  and 64, ``b2_pipelined``);
+* ``cta256_two_dq_buffers`` — the same, two dQ buffers a warpgroup;
+* ``head_fastest``, ``unpipelined``, ``one_dq_buffer`` — the checked-in
+  body without one lever each;
+* ``pipelined_everywhere`` — pipelined at head dims 96 and 128 too, which
+  shows ptxas's registers and spills of the pipelined form there.
+
+Each build is held against the plain side of the combined mode's key
+tile (128 keys); at each shape SDPA's whole backward is timed under its
+cuDNN and flash backends before and after the turns (``sdpa_bwd_ms``).
 
 ``wide`` (``csrc/flash_wide_sm90.cuh``):
 
@@ -664,6 +690,79 @@ FAMILIES["f32"] = {
     }}
 
 
+# B2's levers (csrc/flash_b2_sm90.cuh, csrc/flash_bwd.cu).
+B2H, B2CU = "flash_b2_sm90.cuh", "flash_bwd.cu"
+_B2_TOGETHER = ("__host__ __device__ constexpr bool b2_heads_together() {\n"
+                "  return D >= 64;\n")
+_B2_HEAD_FASTEST = (B2H, _B2_TOGETHER, _B2_TOGETHER.replace("D >= 64",
+                                                            "false"))
+_B2_PIPELINED = ("__host__ __device__ constexpr bool b2_pipelined() {\n"
+                 "  return D <= 64;\n")
+_B2_UNPIPELINED = (B2H, _B2_PIPELINED,
+                   _B2_PIPELINED.replace("D <= 64", "false"))
+_B2_DQ_BUFS = ("__host__ __device__ constexpr int b2_dq_buffers() {\n"
+               "  return D <= 64 ? 2 : 1;\n")
+_B2_ONE_DQ_BUFFER = (B2H, _B2_DQ_BUFS,
+                     _B2_DQ_BUFS.replace("D <= 64 ? 2 : 1;", "1;"))
+# The parent's body, bwd_ktile of flash_bwd_sm90.cuh (which K5 and K2
+# keep), launched from the same kernel, one CTA a work item.
+_B2_PARENT_BODY = [
+    (B2CU, "__global__ void __launch_bounds__(sm90::B2_THREADS, 1)",
+     "__global__ void __launch_bounds__(sm90::NTHREADS, 1)"),
+    (B2CU, "  sm90::b2_cta<T, D>(&mq, &mdo, &mk, &mv, &mdq, lse, delta, dk, "
+     "dv, bh_total,\n                     sq, sk, scale_r, causal);\n",
+     "  const sm90::B2Item w = sm90::b2_item<D>(blockIdx.x, bh_total, sq, "
+     "sk, causal);\n  sm90::bwd_ktile<T, D, T>(&mq, &mdo, &mk, &mv, &mdq, lse, "
+     "delta, dk, dv, w.bh,\n                           w.k0, sq, sk, 0, 0, "
+     "scale_r, causal);\n"),
+    (B2CU, "(int)sm90::B2Smem<D>::bytes);", "(int)sm90::BwdSmem<D>::bytes);"),
+    (B2CU, "<<<blocks, sm90::B2_THREADS, sm90::B2Smem<D>::bytes, stream>>>(",
+     "<<<blocks, sm90::NTHREADS, sm90::BwdSmem<D>::bytes, stream>>>("),
+    (B2CU, "sm90::make_map<float>(&m[4], dq32, bh, sq, D, sm90::B2_DQ_ROWS);",
+     "sm90::make_map<float>(&m[4], dq32, bh, sq, D, sm90::BWD_BM);")]
+# B2's levers, each on in the checked-in body; pipelining and the dQ
+# buffers are levers of the 256-thread CTA's body alone.
+B2_LEVERS = ("grid_order", "cta256", "pipelining", "dq_buffers")
+B2_NEEDS = {"pipelining": "cta256", "dq_buffers": "cta256"}
+# variant: the levers it keeps on.
+B2_VARIANTS = {
+    "parent_body": (),
+    "grid_order_alone": ("grid_order",),
+    "cta256_alone": ("cta256",),
+    "cta256_pipelined": ("cta256", "pipelining"),
+    "cta256_two_dq_buffers": ("cta256", "dq_buffers"),
+    "head_fastest": ("cta256", "pipelining", "dq_buffers"),
+    "unpipelined": ("grid_order", "cta256", "dq_buffers"),
+    "one_dq_buffer": ("grid_order", "cta256", "pipelining"),
+}
+
+
+def b2_edits(on):
+    """The edits that turn every lever of B2's checked-in body not in
+    ``on`` off."""
+    edits = [] if "grid_order" in on else [_B2_HEAD_FASTEST]
+    if "cta256" not in on:
+        return _B2_PARENT_BODY + edits
+    if "pipelining" not in on:
+        edits.append(_B2_UNPIPELINED)
+    if "dq_buffers" not in on:
+        edits.append(_B2_ONE_DQ_BUFFER)
+    return edits
+
+
+FAMILIES["b2"] = {
+    "stem": "flash_bwd", "ptxas": "flash_bwd_kernel",
+    "shapes": ((128, 1024, 64), (32, 1024, 64), (64, 8192, 64),
+               (32, 16384, 64), (128, 1024, 32), (128, 1024, 96),
+               (128, 1024, 128)),
+    "variants": {
+        **{n: (b2_edits(on), None) for n, on in B2_VARIANTS.items()},
+        "pipelined_everywhere": ([
+            (B2H, _B2_PIPELINED, _B2_PIPELINED.replace("D <= 64", "true"))],
+            None),
+    }}
+
+
 def build_variants(stems, variants, sources=None):
     """``{variant: ({stem: path of its shared library}, nvcc logs)}`` of
     each of ``stems``' sources under each of ``variants``' edits, nvcc
@@ -827,8 +926,50 @@ def f32_case(qr, k, v, do, p2, r, tiles):
     return kernels, outputs, wants
 
 
+def b2_case(qr, k, v, do, p2, r, tiles):
+    """B2 alone, and its plain outputs over the combined mode's key tile
+    (the variants keep it)."""
+    o, lse = A._blockwise_fwd_impl(
+        qr, k, v, True, r, block_size=A.fwd_key_tile(qr.dtype, qr.shape[-1]))
+    delta = A._delta(o, do)
+    args = (qr, k, v, do, lse, delta, r)
+    kernels = {"b2": lambda: A.flash_bwd(*args, p2, True)}
+
+    def outputs():
+        dk, dv, dq = kernels["b2"]()
+        return {"dq": dq, "dk": dk, "dv": dv}
+
+    want = kernel_check.plain_bwd_outputs(qr, k, v, do, lse, delta, p2, r,
+                                          True)
+    return kernels, outputs, {t: want for t in tiles}
+
+
+def sdpa_bwd_ms(bh, s, d, dtype):
+    """``{backend: ms or None}`` of SDPA's whole causal backward (dq, dk,
+    dv in one autograd call) at (bh / 8, 8, s, d) under its cuDNN and
+    flash backends; None where a backend refuses the shape."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    g = torch.Generator(device="cuda").manual_seed(s + d)
+    shape = (bh // 8, 8, s, d) if bh % 8 == 0 else (bh, 1, s, d)
+    q, k, v = (torch.randn(shape, device="cuda", generator=g).to(dtype)
+               .requires_grad_() for _ in range(3))
+    do = torch.randn(shape, device="cuda", generator=g).to(dtype)
+    out = {}
+    for name in ("CUDNN_ATTENTION", "FLASH_ATTENTION"):
+        try:
+            with sdpa_kernel(getattr(SDPBackend, name)):
+                o = torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v, is_causal=True)
+                out[name] = time_ms(lambda: torch.autograd.grad(
+                    o, (q, k, v), do, retain_graph=True))
+        except RuntimeError:
+            out[name] = None
+    return out
+
+
 CASES = {"split": split_case, "d256": wide_case, "wide": wide_case,
-         "wide_f32": f32_case, "f32": f32_case}
+         "wide_f32": f32_case, "f32": f32_case, "b2": b2_case}
 
 
 def main():
@@ -847,6 +988,10 @@ def main():
     ap.add_argument("--shapes", nargs="+", metavar="BHxSxD",
                     help="these shapes (batch-heads x seq x head dim) in "
                          "place of the family's")
+    ap.add_argument("--turns", type=int, default=2,
+                    help="turns (checked-in, variant, variant, checked-in) "
+                         "of each variant at each shape (default 2); every "
+                         "turn's time is printed under 'ms'")
     args = ap.parse_args()
     family = args.family
     fam = FAMILIES[family]
@@ -901,8 +1046,9 @@ def main():
             worst[n] = max(by_output[n].values())
             ok &= worst[n] <= 1.0
         times = {kern: {n: [] for n in libs} for kern in kernels}
+        sdpa = ([sdpa_bwd_ms(bh, s, d, dtype)] if family == "b2" else [])
         for n in variants:
-            for m in ("checked_in", n, n, "checked_in") * 2:
+            for m in ("checked_in", n, n, "checked_in") * args.turns:
                 _build._libs.update(libs[m])
                 # On stderr, so that a fault names the build it hit.
                 print(f"timing {bh}x{s}x{d} {m}", file=sys.stderr,
@@ -910,10 +1056,14 @@ def main():
                 for kern, fn in kernels.items():
                     times[kern][m].append(time_ms(fn))
         _build._libs.update(libs["checked_in"])
+        if sdpa:
+            sdpa.append(sdpa_bwd_ms(bh, s, d, dtype))
         result["x".join(map(str, (bh, s, d)))] = {
+            **({"sdpa_bwd_ms": sdpa} if sdpa else {}),
             "median_ms": {kern: {n: statistics.median(t)
                                  for n, t in ts.items()}
                           for kern, ts in times.items()},
+            "ms": times,
             "worst": worst,
             **({"worst_by_output": by_output} if fam["ptxas"] else {})}
         del q, k, v, do, qr, kernels, outputs, wants
